@@ -22,13 +22,30 @@ Phases (each raises on failure; nothing is caught):
    the card, against the port on the CPU in fp64;
 6. the 100-state, horizon-10 warm MPC rollout (200 steps, loop path,
    check_interval="auto") on the card, its first 20 steps against the same
-   rollout on the CPU in fp64.
+   rollout on the CPU in fp64;
+7. hold kernel K2 (the whole-rollout kernel) against its plain torch
+   version on the card, 20 cold steps under a 0.3·randn disturbance, at
+   Dp 640 (100 states, h10), 128 (double integrator, h8), 896 (100
+   states, h14) and 1280 (100 states, h20: operands streamed from L2 in
+   fp64): equal iterations, status and rung per step, in fp64 with
+   trajectories within a few fp32 ulps, in fp32 with every step solved and
+   trajectories within 1e-5; padded lanes exactly 0; the rung moves; the
+   "high" and "bf16" iteration tiers once each, held the same way;
+8. the main path of this slice: the same 200-step rollout as phase 6
+   through ``kernel="scan"`` and then ``kernel="auto"``, each in exactly
+   two K2 launches (calibration segment + continuation) and no K1 launch,
+   its first 20 steps against the CPU fp64 loop rollout of phase 6;
+9. K2 timing: control steps per second by the two-point protocol of the
+   root ``bench.py`` (T=100 and T=4000, min of 5, a fresh x0 each time),
+   the kernel's time per step by CUDA events beside the plain version and
+   the bound, and a ``torch.profiler`` pass over a 1000-step rollout.
 
-Kernel launch counters are set to 0 just before each main-path phase (4,
-5, 6) and read just after; a main-path phase that launched K1 no time
-fails. The second-to-last line is the ``{"kernels": [...]}`` record, the
-last line ``{"ok": true, "device": {...}}``. Without a GPU, or without the
-package beside it, the script exits non-zero before printing a result.
+Every kernel launch counter is set to 0 just before each main-path phase
+(4, 5, 6, 8) and read just after; a main-path phase that launched its
+kernel no time fails. The second-to-last line is the ``{"kernels": [...]}``
+record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
+without the package beside it, the script exits non-zero before printing a
+result.
 """
 import json
 import os
@@ -224,14 +241,22 @@ def phase_timing():
     return rows
 
 
-def _counted(run):
-    """Run one main-path phase with K1's launch counter set to 0 first;
-    fail when the phase launched K1 no time."""
+def _counters():
     from reluqp_tpu_torch.ops.fused_step import fused_chunk
-    fused_chunk.launches = 0
+    from reluqp_tpu_torch.ops.solve_kernel import full_rollout
+    return {"K1": fused_chunk, "K2": full_rollout}
+
+
+def _counted(run, kernel="K1"):
+    """Run one main-path phase with every kernel launch counter set to 0
+    first; fail when the phase launched ``kernel`` no time. Returns the
+    phase's result and every counter's launches."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     out = run()
-    n = fused_chunk.launches
-    assert n > 0, "the main path did not launch K1"
+    n = {name: fn.launches for name, fn in counters.items()}
+    assert n[kernel] > 0, f"the main path did not launch {kernel}"
     return out, n
 
 
@@ -248,7 +273,8 @@ def phase_canonical():
         m.setup(qp.H, qp.g, qp.A, qp.l, qp.u, eps_abs=1e-4)
         return m, m.solve()
 
-    (m, res), n = _counted(run)
+    (m, res), counts = _counted(run)
+    n = counts["K1"]
     assert m.settings.device.type == "cuda"
     assert m._chunk_runner is pallas_chunk_runner
     x = res.x.detach().cpu().double().numpy()
@@ -279,7 +305,8 @@ def phase_protocol():
             out[nx] = (r, time.perf_counter() - t0, m.Dp)
         return out
 
-    gpu, n = _counted(run)
+    gpu, counts = _counted(run)
+    n = counts["K1"]
     for nx, inst in insts.items():
         r, secs, dp = gpu[nx]
         m = ReLU_QP()
@@ -299,76 +326,104 @@ def phase_protocol():
     return n
 
 
+# Smoke configurations: the root bench.py's 100-state MPC (cut in depth
+# only), and the double integrator of the JAX package's rollout tests.
+MPC_NX, MPC_NU, MPC_H, MPC_T, MPC_T_CMP = 100, 20, 10, 200, 20
+MPC_KW = dict(u_min=-1.0, u_max=1.0, prestabilize=True, eps_abs=1e-3,
+              max_iter=2000)
+# bench.py's two rollout lengths (its two-point fit) and the steps of the
+# kernel-alone timing
+TWO_POINT_T = (100, 4000)
+K2_TIMED_T = 1000
+
+
+def mpc_config(nx=MPC_NX, nu=MPC_NU):
+    """``(Ad, Bd, Q, R, x0)`` of a smoke plant."""
+    from reluqp_tpu_torch.models.mpc import (double_integrator,
+                                             random_linear_system)
+    if nx == 2:
+        Ad, Bd = double_integrator(dt=0.1)
+        return Ad, Bd, np.diag([10.0, 1.0]), np.array([[0.1]]), \
+            np.array([1.0, 0.0])
+    Ad, Bd = random_linear_system(nx, nu, seed=0, spectral_radius=0.99)
+    return Ad, Bd, np.eye(nx), 0.1 * np.eye(nu), \
+        0.05 * np.random.RandomState(0).randn(nx)
+
+
+def check_rollout(tag, xs, us, its, status, ref, max_iter):
+    """A 200-step rollout on the card: every step solved, finite, under
+    the budget, and its first steps against the CPU fp64 loop rollout
+    ``ref``. fp32 on the card against fp64 on the host: while both certify
+    at the same checks they differ by fp32 rounding only; a step certified
+    one check apart differs by up to the solve tolerance, so the bound is
+    eps_abs."""
+    assert (status.numpy() == 1).all(), f"{tag}: a control step was not solved"
+    xs_g = xs.detach().cpu().double().numpy()
+    us_g = us.detach().cpu().double().numpy()
+    its = its.numpy()
+    assert xs_g.shape == (MPC_T + 1, MPC_NX) and us_g.shape == (MPC_T, MPC_NU)
+    assert np.all(np.isfinite(xs_g)) and np.all(np.isfinite(us_g)), tag
+    assert int(its.max()) < max_iter, (tag, its.max())
+    xs_c, us_c = ref
+    dx = float(np.max(np.abs(xs_g[:MPC_T_CMP + 1] - xs_c.numpy())))
+    du = float(np.max(np.abs(us_g[:MPC_T_CMP] - us_c.numpy())))
+    assert dx < MPC_KW["eps_abs"] and du < MPC_KW["eps_abs"], (tag, dx, du)
+    log(f"{tag}: {MPC_T}-step rollout iters/step max {its.max()} mean "
+        f"{its.mean():.2f}; first {MPC_T_CMP} steps vs cpu fp64: |dx|inf "
+        f"{dx:.2e} |du|inf {du:.2e}")
+
+
 def phase_mpc(card):
     import torch
-    from reluqp_tpu_torch.models.mpc import (MPC, mpc_rollout_scan,
-                                             random_linear_system)
+    from reluqp_tpu_torch.models.mpc import MPC, mpc_rollout_scan
 
-    NX, NU, HORIZON, T, T_CMP = 100, 20, 10, 200, 20
-    Ad, Bd = random_linear_system(NX, NU, seed=0, spectral_radius=0.99)
-    Q, R = np.eye(NX), 0.1 * np.eye(NU)
-    x0 = 0.05 * np.random.RandomState(0).randn(NX)
-    kw = dict(horizon=HORIZON, u_min=-1.0, u_max=1.0, prestabilize=True,
-              eps_abs=1e-3, max_iter=2000)
+    Ad, Bd, Q, R, x0 = mpc_config()
+    kw = dict(horizon=MPC_H, **MPC_KW)
 
     def run():
         ctrl = MPC(Ad, Bd, Q, R, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = mpc_rollout_scan(ctrl.solver, ctrl.prob, x0, T, kernel="loop",
-                               check_interval="auto", return_stats=True,
-                               return_state=True)
+        out = mpc_rollout_scan(ctrl.solver, ctrl.prob, x0, MPC_T,
+                               kernel="loop", check_interval="auto",
+                               return_stats=True, return_state=True)
         torch.cuda.synchronize()
         return (ctrl, *out, time.perf_counter() - t0)
 
-    (ctrl, xs, us, its, status, y_f, rho_f, secs), n = _counted(run)
-    assert (status.numpy() == 1).all(), "a control step was not solved"
+    (ctrl, xs, us, its, status, y_f, rho_f, secs), counts = _counted(run)
     sol = ctrl.solver
     assert sol.settings.device.type == "cuda" and sol.Dp == 640, sol.Dp
-    xs_g = xs.detach().cpu().double().numpy()
-    us_g = us.detach().cpu().double().numpy()
-    its = its.numpy()
-    assert xs_g.shape == (T + 1, NX) and us_g.shape == (T, NU)
-    assert np.all(np.isfinite(xs_g)) and np.all(np.isfinite(us_g))
-    assert int(its.max()) < kw["max_iter"], its.max()
-
-    ref = MPC(Ad, Bd, Q, R, device="cpu", precision="float64", **kw)
-    xs_c, us_c, its_c = mpc_rollout_scan(ref.solver, ref.prob, x0, T_CMP,
-                                         kernel="loop",
-                                         check_interval="auto")
-    # fp32 on the card against fp64 on the host. While both certify at the
-    # same checks they differ by fp32 rounding only (~1e-7 here on the
-    # CPU in fp32); a step certified one check apart differs by up to the
-    # solve tolerance, so the bound is eps_abs.
-    dx = float(np.max(np.abs(xs_g[:T_CMP + 1] - xs_c.numpy())))
-    du = float(np.max(np.abs(us_g[:T_CMP] - us_c.numpy())))
-    assert dx < kw["eps_abs"] and du < kw["eps_abs"], (dx, du)
-    log(f"phase 6: 200-step rollout (Dp={sol.Dp}) iters/step "
-        f"max {its.max()} mean {its.mean():.2f}; first 20 steps vs cpu "
-        f"fp64: |dx|inf {dx:.2e} |du|inf {du:.2e}")
-    log(f"phase 6 OK: {T / secs:.1f} steps/s over {T} steps ({secs:.3f} s "
-        f"incl. the ci=1 calibration) on {card}; K1 launches {n}")
+    assert counts["K2"] == 0, counts
+    cpu = MPC(Ad, Bd, Q, R, device="cpu", precision="float64", **kw)
+    xs_c, us_c, _ = mpc_rollout_scan(cpu.solver, cpu.prob, x0, MPC_T_CMP,
+                                     kernel="loop", check_interval="auto")
+    ref = (xs_c, us_c)
+    check_rollout("phase 6 (loop)", xs, us, its, status, ref,
+                  kw["max_iter"])
+    rate = MPC_T / secs
+    log(f"phase 6 OK: {rate:.1f} steps/s over {MPC_T} steps ({secs:.3f} s "
+        f"incl. the ci=1 calibration) on {card}; launches {counts}")
     ctrl.solver.y, ctrl.solver.rho_ind = y_f, rho_f
-    profile_steps(ctrl, xs[-1], mpc_rollout_scan)
-    return n
+    profile_steps("phase 6", ctrl, xs[-1], 50, kernel="loop", ci=1)
+    return {"launches": counts["K1"], "rate": rate, "ref": ref}
 
 
-def profile_steps(ctrl, x_start, rollout, steps=50):
-    """Where a warm loop-path MPC step's time goes: torch.profiler over
-    ``steps`` steps continuing the rollout (one iteration per step, as
-    the tuned window runs them). Device time counts the device-side
-    events only (kernels and copies); the per-call operator uploads are
-    spread over the steps."""
+def profile_steps(tag, ctrl, x_start, steps, kernel, ci):
+    """Where a warm MPC step's time goes: torch.profiler over ``steps``
+    steps continuing the rollout at window ``ci``. Device time counts the
+    device-side events only (kernels and copies); per-call operator
+    uploads are spread over the steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from reluqp_tpu_torch.models.mpc import mpc_rollout_scan
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rollout(ctrl.solver, ctrl.prob, x_start, steps, kernel="loop",
-                check_interval=1)
+        mpc_rollout_scan(ctrl.solver, ctrl.prob, x_start, steps,
+                         kernel=kernel, check_interval=ci)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / steps
     ev = prof.key_averages()
@@ -376,24 +431,286 @@ def profile_steps(ctrl, x_start, rollout, steps=50):
     on_dev = [e for e in ev if e.device_type == DeviceType.CUDA]
     busy = sum(dev(e) for e in on_dev) / steps
     per = lambda pat: [e for e in ev if pat in e.key]
-    k1_us = sum(dev(e) for e in per("k1_kernel")) / steps
+    k_us = {k: sum(dev(e) for e in per(name)) / steps
+            for k, name in (("K1", "k1_kernel"), ("K2", "k2_kernel"))}
     h2d = sum(e.count for e in per("Memcpy HtoD")) / steps
     syncs = sum(e.count for e in per("cudaStreamSynchronize")) / steps
     launches = sum(e.count for e in per("cudaLaunch")) / steps
     top = sorted(on_dev, key=dev, reverse=True)[:6]
     if busy <= 0.0:
-        # instrumentation only: the checks above already passed
-        log("phase 6 profile: device time not measured (the profiler "
+        # instrumentation only: the checks of the phase already passed
+        log(f"{tag} profile: device time not measured (the profiler "
             "recorded no device events)")
         return
-    log(f"phase 6 profile ({steps} warm steps, profiler on): host wall "
-        f"{wall_us:.1f} us/step, device busy {busy:.1f} us/step "
-        f"({100 * busy / wall_us:.1f}%), K1 {k1_us:.1f} us/step, "
-        f"{launches:.1f} launches, {h2d:.1f} H2D copies, {syncs:.1f} "
+    log(f"{tag} profile ({steps} warm steps, kernel={kernel}, ci={ci}, "
+        f"profiler on): host wall {wall_us:.3f} us/step, device busy "
+        f"{busy:.3f} us/step ({100 * busy / wall_us:.1f}%), K1 "
+        f"{k_us['K1']:.3f} us/step, K2 {k_us['K2']:.3f} us/step, "
+        f"{launches:.4f} launches, {h2d:.4f} H2D copies, {syncs:.4f} "
         f"stream syncs per step")
     log("  top device ops (us/step): " + "; ".join(
-        f"{e.key[:48]} x{e.count / steps:.1f} {dev(e) / steps:.2f}"
+        f"{e.key[:48]} x{e.count / steps:.4f} {dev(e) / steps:.3f}"
         for e in top))
+
+
+# ---------------------------------------------------------------------- #
+# K2, the whole-rollout kernel                                            #
+# ---------------------------------------------------------------------- #
+
+# name, plant states, inputs, horizon: Dp 640, 128, 896 (the F-w1 edge)
+# and 1280, where the fp64 slabs no longer fit shared memory and K2 reads
+# its operand columns from L2
+K2_CASES = (("100-state h10", 100, 20, 10), ("double integrator h8", 2, 1, 8),
+            ("100-state h14", 100, 20, 14), ("100-state h20", 100, 20, 20))
+K2_T, K2_CI, K2_NOISE = 20, 5, 0.3
+# fp64: kernel and plain version round every fp64 product to fp32, as the
+# TPU kernel does, and differ only in the order of the fp64 sums. Where the
+# two orders round a product to neighbouring fp32 values, that lane moves
+# by one fp32 ulp (6e-8 relative) and the closed loop carries it on, so
+# the bound is a few fp32 ulps of the O(1) states, not fp64 rounding.
+# Iterations, status and rung must still agree exactly.
+K2_TOL64 = 1e-6
+# fp32, per tier: the same iterations, status and rung, and trajectories
+# within a few times the largest kernel-plain difference read on the H100
+# (highest 3.6e-7..2.9e-6, high 6.7e-6, bf16 1.8e-7 over 3 budget-bound
+# steps); a tier run at another precision moves them by 1e-3 or more.
+K2_TOL32 = {"highest": 1e-5, "high": 2e-5, "bf16": 1e-5}
+
+
+def k2_call(ctrl, x0, noise, ci, y0=None, rho0=None):
+    """K2's call for a controller on the card as the scan path makes it
+    (``_scan_call``): ``(args, kw)``, from a cold start unless ``y0`` is
+    given."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import _scan_call
+    s = ctrl.solver
+    return _scan_call(s, ctrl.prob, x0, noise.shape[0], ci=ci,
+                      y0=torch.zeros_like(s.y) if y0 is None else y0,
+                      rho_ind0=rho0, noise=noise)
+
+
+def k2_compare(tag, args, kw, tol, solved):
+    """K2 and its plain version on one call: equal per-step iterations,
+    rung and status, trajectories within ``tol``, padded y lanes exactly 0,
+    and (``solved``) every step solved. Returns the kernel's stats and the
+    max difference."""
+    import torch
+    from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
+                                                   full_rollout_ref)
+    out = full_rollout(*args, **kw)
+    ref = full_rollout_ref(*args, **kw)
+    torch.cuda.synchronize()
+    so, sr = out[2].cpu().numpy(), ref[2].cpu().numpy()
+    err = max(float((a - b).abs().max()) for a, b in zip(out[:2], ref[:2]))
+    n_diff = int((so[:, 0] != sr[:, 0]).sum())
+    log(f"{tag}: {kw['n_steps']} steps, iters {int(so[:, 0].sum())} (plain "
+        f"{int(sr[:, 0].sum())}), {n_diff} steps differ in iterations, "
+        f"rungs {sorted(set(so[:, 4].astype(int).tolist()))}; "
+        f"max|kernel-plain| {err:.3e} (bound {tol:g})")
+    assert all(bool(torch.isfinite(o).all()) for o in out), tag
+    d = kw["nx"] + 2 * kw["nc"]
+    assert float(out[3][d:].abs().max()) == 0.0, f"{tag}: padding not inert"
+    for lane in (0, 4, 5):   # iterations, rung, status
+        assert (so[:, lane] == sr[:, lane]).all(), (tag, lane)
+    if solved:
+        assert (so[:, 5] == 1).all(), f"{tag}: a step was not solved"
+    assert err <= tol, (tag, err)
+    return so, err
+
+
+def phase_k2_check():
+    """K2 against full_rollout_ref on the card; returns the max errors."""
+    from reluqp_tpu_torch.models.mpc import MPC
+    from reluqp_tpu_torch.ops.solve_kernel import rollout_plan
+    errs, moved, streamed = {}, {}, False
+    for name, nx, nu, horizon in K2_CASES:
+        Ad, Bd, Q, R, x0 = mpc_config(nx, nu)
+        noise = K2_NOISE * np.random.RandomState(3).randn(K2_T, nx)
+        for precision in ("float64", "float32"):
+            ctrl = MPC(Ad, Bd, Q, R, horizon=horizon, precision=precision,
+                       **MPC_KW)
+            args, kw = k2_call(ctrl, x0, noise, K2_CI)
+            dp = ctrl.solver.Dp
+            plan = rollout_plan(dp, kw["nxp"], kw["ncp"], kw["nup"],
+                                kw["nplp"], ctrl.solver.settings
+                                .precision_dtype)
+            streamed |= not plan["resident"]
+            log(f"K2 {name} Dp={dp} {precision}: plan {plan}")
+            fp64 = precision == "float64"
+            so, err = k2_compare(
+                f"K2 {name} Dp={dp} {precision} highest", args, kw,
+                K2_TOL64 if fp64 else K2_TOL32["highest"], solved=not fp64)
+            moved[name] = moved.get(name, False) or \
+                len(set(so[:, 4].tolist())) > 1
+            errs[(dp, precision)] = err
+            if dp == 640 and not fp64:
+                check_k2_tiers(ctrl, x0, noise)
+    assert all(moved.values()), f"the rung never moved: {moved}"
+    assert streamed, "no case ran K2 with its operands streamed from L2"
+    log("phase 7 OK: K2 matches its plain version at every Dp, fp64 and "
+        "fp32 in every tier, and every case moved the rung")
+    return errs
+
+
+def check_k2_tiers(ctrl, x0, noise):
+    """The reduced iteration tiers once each (fp32, Dp=640): "high" to
+    eps over the cold disturbed run, "bf16" over 3 budget-bound steps
+    (bf16 iterates do not reach eps 1e-3)."""
+    import torch
+    for tier, T, mi in (("high", K2_T, None), ("bf16", 3, 25)):
+        args, kw = k2_call(ctrl, x0, noise[:T], K2_CI)
+        if tier == "bf16":
+            args[0] = args[0].to(torch.bfloat16)
+        kw["iter_precision"] = tier
+        if mi:
+            kw["max_iter"] = mi
+        k2_compare(f"K2 Dp=640 fp32 tier {tier}", args, kw, K2_TOL32[tier],
+                   solved=tier == "high")
+
+
+def phase_scan(card, mpc):
+    """The main path of this slice: the phase-6 rollout through K2."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import MPC, mpc_rollout_scan
+
+    Ad, Bd, Q, R, x0 = mpc_config()
+    kw = dict(horizon=MPC_H, **MPC_KW)
+    ctrl = MPC(Ad, Bd, Q, R, **kw)
+    total = 0
+    for kernel in ("scan", "auto"):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mpc_rollout_scan(ctrl.solver, ctrl.prob, x0, MPC_T,
+                                   kernel=kernel, check_interval="auto",
+                                   return_stats=True, return_state=True)
+            torch.cuda.synchronize()
+            return (*out, time.perf_counter() - t0)
+
+        (xs, us, its, status, y_f, rho_f, secs), counts = _counted(run, "K2")
+        assert counts == {"K1": 0, "K2": 2}, (kernel, counts)
+        check_rollout(f"phase 8 (kernel={kernel})", xs, us, its, status,
+                      mpc["ref"], kw["max_iter"])
+        log(f"phase 8 kernel={kernel}: {MPC_T / secs:.1f} steps/s over "
+            f"{MPC_T} steps ({secs:.3f} s incl. the first call's operand "
+            f"build and the ci=1 calibration); launches {counts}")
+        total += counts["K2"]
+    log(f"phase 8 OK on {card}: K2 launches {total}, K1 launches 0")
+    return {"launches": total, "ctrl": ctrl, "its": its, "xs": xs,
+            "y_f": y_f, "rho_f": rho_f}
+
+
+def k2_bound_ms(ctrl, args, kw, stats):
+    """Least time per control step of this run's work, in ms, and what
+    bounds it. Each product counts only the multiply-adds its operand's
+    nonzero entries need, so the padding, the zero blocks of M_res and
+    GL, and the zero rows and columns of the bank count nothing; S_u
+    selects and scales nu lanes (nu multiplies). Operations per step: the
+    refresh x@GL, the bias x@M_aff[k] (once: a rung change inside a step
+    needs another), y@S_u and u@Bdw; per window the residuals y@M_res;
+    per iteration y@W[k]. W and M_aff count at the fewest nonzeros among
+    the rungs the steps ended on. (The TPU kernel's own cost estimate omits
+    the refresh and the plant products.) Bytes: the nonzeros of every
+    operand (each rung the steps ended on) read once and amortised over
+    the steps, the real bounds, y in and out, g, x0 and the ladder, plus
+    each step's noise, x, u and stats rows at their real widths."""
+    import torch
+    Wt, bias_c, M_aff, rhos, M_res, _, GL, _, _, S_u, Bdw = args[:11]
+    nnz = lambda a: int(torch.count_nonzero(a))
+    nu, npl = ctrl.prob.K.shape
+    nx, nc = kw["nx"], kw["nc"]
+    d = nx + 2 * nc
+    rungs = sorted(set(stats[:, 4].astype(int).tolist()))
+    n_w = min(nnz(Wt[k]) for k in rungs)
+    n_aff = min(nnz(M_aff[k]) for k in rungs)
+    T = stats.shape[0]
+    iters = float(stats[:, 0].sum())
+    windows = iters / kw["check_interval"]
+    flops = (T * (2 * nnz(GL) + 2 * n_aff + nnz(S_u) + 2 * nnz(Bdw))
+             + windows * 2 * nnz(M_res) + iters * 2 * n_w)
+    # rungs (W, M_aff, bias_c row), M_res, GL, S_u, Bdw, lo0/hi0 over the
+    # nc constraint lanes, y0 in and y_f out, g0w, x0, rhos
+    fill = (sum(nnz(Wt[k]) + nnz(M_aff[k]) + nnz(bias_c[k]) for k in rungs)
+            + nnz(M_res) + nnz(GL) + nnz(S_u) + nnz(Bdw) + 2 * nc + 2 * d
+            + nx + npl + rhos.numel()) * Wt.element_size()
+    rows = (2 * npl + nu) * Wt.element_size() + 8 * 4
+    t_bytes = (fill / T + rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / T / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops, flops / T
+
+
+def phase_scan_timing(card, scan, loop_rate):
+    """K2 on the main path's configuration: steps/s by bench.py's
+    two-point protocol, kernel time per step by CUDA events, the plain
+    version and the bound, and a profiler pass."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import auto_check_interval, \
+        mpc_rollout_scan
+    from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
+                                                   full_rollout_ref)
+    ctrl = scan["ctrl"]
+    _, _, _, _, x0 = mpc_config()
+    rng = np.random.RandomState(7)
+
+    def rollout_s(T):
+        x = x0 + 5e-5 * rng.randn(MPC_NX)   # fresh inputs every call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs, _, _ = mpc_rollout_scan(ctrl.solver, ctrl.prob, x, T,
+                                    kernel="scan", check_interval="auto")
+        float(xs[-1].sum())
+        return time.perf_counter() - t0
+
+    lo, hi = TWO_POINT_T
+    t_lo = min(rollout_s(lo) for _ in range(5))
+    t_hi = min(rollout_s(hi) for _ in range(5))
+    step_s = (t_hi - t_lo) / (hi - lo)
+    log(f"phase 9 two-point (T={lo}: {t_lo * 1e3:.3f} ms, T={hi}: "
+        f"{t_hi * 1e3:.3f} ms, min of 5): {step_s * 1e6:.3f} us/step = "
+        f"{1 / step_s:.1f} steps/s through kernel='scan' against "
+        f"{loop_rate:.1f} steps/s on the loop path (phase 6), on {card}")
+
+    # the kernel alone: one 1000-step launch continuing the rollout at the
+    # tuned window, timed with CUDA events
+    st = ctrl.solver.settings
+    ci = auto_check_interval(scan["its"][:8].numpy(), st.check_interval,
+                             st.max_iter)
+    T = K2_TIMED_T
+    xl = scan["xs"][-1].cpu().double().numpy()
+    args, kw = k2_call(ctrl, xl, np.zeros((T, MPC_NX)), ci, y0=scan["y_f"],
+                       rho0=scan["rho_f"])
+    full_rollout(*args, **kw)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = full_rollout(*args, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / T
+    stats = out[2].cpu().numpy()
+    assert (stats[:, 5] == 1).all(), "a timed step was not solved"
+    T_p = 50
+    args_p, kw_p = k2_call(ctrl, xl, np.zeros((T_p, MPC_NX)), ci,
+                           y0=scan["y_f"], rho0=scan["rho_f"])
+    t0 = time.perf_counter()
+    full_rollout_ref(*args_p, **kw_p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / T_p
+    bound, by, t_b, t_o, flops = k2_bound_ms(ctrl, args, kw, stats)
+    log(f"phase 9 K2 alone ({T} warm steps, ci={ci}, iters/step "
+        f"{stats[:, 0].mean():.3f}): {ms * 1e3:.3f} us/step by CUDA events; "
+        f"plain version {plain_ms:.3f} ms/step; bound {bound * 1e3:.4f} "
+        f"us/step ({by}: {t_b * 1e3:.4f} us bytes, {t_o * 1e3:.4f} us "
+        f"operations, {flops:.0f} flop/step at the operands' nonzeros; the "
+        f"TPU kernel's cost estimate omits the refresh and plant products), "
+        f"{ms / bound:.0f}x the bound, on {card}")
+    ctrl.solver.y, ctrl.solver.rho_ind = scan["y_f"], scan["rho_f"]
+    profile_steps("phase 9", ctrl, scan["xs"][-1], T, kernel="scan", ci=ci)
+    log("phase 9 OK")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                ci=ci, step_s=step_s)
 
 
 def main():
@@ -408,7 +725,12 @@ def main():
     phase_build()
     errs = phase_kernel_check()
     timing = phase_timing()
-    launches = phase_canonical() + phase_protocol() + phase_mpc(card)
+    launches = phase_canonical() + phase_protocol()
+    mpc = phase_mpc(card)
+    launches += mpc["launches"]
+    k2_errs = phase_k2_check()
+    scan = phase_scan(card, mpc)
+    k2 = phase_scan_timing(card, scan, mpc["rate"])
     t = timing[640]
     kernels = [{
         "name": "K1 fused_chunk (Dp=640, R=1, 25 steps, fp32 highest)",
@@ -420,6 +742,18 @@ def main():
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+    }, {
+        # per control step; no single PyTorch call computes a rollout
+        "name": f"K2 full_rollout (100-state h10, Dp=640, fp32, per warm "
+                f"control step at ci={k2['ci']})",
+        "route": "cuda",
+        "source": "reluqp_tpu_torch/csrc/solve_kernel.cu",
+        "replaces": "reluqp_tpu/ops/solve_kernel.py:918",
+        "launches": scan["launches"],
+        "max_abs_err": k2_errs[(640, "float32")],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None,
     }]
     log("card:", card)
     print(json.dumps({"kernels": kernels}))

@@ -10,13 +10,16 @@ at setup into an affine + clip layer per ρ in a precomputed ladder::
     results = model.solve()
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a GPU and without that, they raise.
+without a GPU and without that, they raise. On ``cuda`` the solve loop runs
+through the chunk kernel K1, and ``models.mpc.mpc_rollout_scan(kernel=
+"scan")`` (or ``"auto"``) runs a whole MPC rollout segment as one launch of
+the whole-rollout kernel K2.
 
 Importing the package turns TF32 off for float32 matrix products: the
 residual, bias and plant products of the solve loop must run in full fp32
 (reduced-precision residuals carry noise ~1e-2 that stalls the solver
 short of eps_abs). Only the iteration tiers of ``iter_precision`` trade
-precision, inside kernel K1.
+precision, inside kernels K1 and K2.
 """
 import torch
 

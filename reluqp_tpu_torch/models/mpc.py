@@ -12,8 +12,9 @@
 - ``mpc_rollout_scan``: the closed loop (state feedback → QP refresh →
   warm-started solve → plant step) with the plant state kept on the
   device. ``kernel="loop"`` runs each step's solve through the solve loop
-  (kernel K1 on CUDA); the whole-rollout kernel K2 (``kernel="scan"``) and
-  the whole-solve kernel K3 (``kernel="fused"``) are later slices.
+  (kernel K1 on CUDA); ``kernel="scan"`` runs the whole rollout segment as
+  one launch of the whole-rollout kernel K2; the whole-solve kernel K3
+  (``kernel="fused"``) is a later slice.
 
 Condensed form (prestabilized with ``u_k = -K x_k + v_k``,
 ``Ā = Ad - Bd K``): stacking stage vectors ``s_k = [u_{k-1}; x_k]`` for
@@ -34,6 +35,9 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..ops.fused_step import pad_dim
+from ..ops.solve_kernel import build_residual_operator, full_rollout
 
 __all__ = [
     "ihlqr",
@@ -438,10 +442,10 @@ def mpc_rollout_scan(solver, prob: CondensedMPC, x_init, n_steps: int,
     """Closed-loop MPC rollout with the plant state on the device.
 
     Per control step: refresh ``g``/``l``/``u`` from the current plant
-    state, run the warm-started solve loop (the bias is formed lazily for
-    the current rung), apply ``u_0 = -K x + v_0`` to the plant and carry
-    the solver state on. Returns ``(states (T+1, nx), controls (T, nu),
-    iters (T,))``.
+    state, run the warm-started solve (the bias is formed for the current
+    rung), apply ``u_0 = -K x + v_0`` to the plant and carry the solver
+    state on. Returns ``(states (T+1, nx), controls (T, nu), iters (T,))``;
+    ``iters`` (and the status codes) are CPU int32 tensors.
 
     Args:
       solver: a set-up ``ReLU_QP`` on ``prob``'s condensed QP.
@@ -452,9 +456,15 @@ def mpc_rollout_scan(solver, prob: CondensedMPC, x_init, n_steps: int,
         plant update (numpy array or tensor).
       solve_max_iter: per-step iteration cap (defaults to settings).
       kernel: "loop" (each step's solve through the solve loop, i.e.
-        kernel K1 on CUDA) or "auto" (= "loop" until K2 is ported);
-        "scan" (whole-rollout kernel K2) and "fused" (whole-solve kernel
-        K3) raise NotImplementedError.
+        kernel K1 on CUDA); "scan" — every control step of a segment in
+        ONE launch of the whole-rollout kernel K2
+        (``ops.solve_kernel.full_rollout``; its plain torch version on
+        the CPU), which needs alpha=1, no infeasibility checks,
+        iter_precision="highest" or refine=False, and an iteration budget
+        of at least one check window (the budget is rounded down to whole
+        windows); "auto" takes "scan" on CUDA whenever it is eligible,
+        else "loop" (always "loop" on the CPU); "fused" (whole-solve
+        kernel K3 per step) raises NotImplementedError.
       check_interval: ``None`` uses the solver settings; an int
         overrides; ``"auto"`` runs the first ``calib_steps`` steps at ci=1
         and sizes the window so every warm step certifies at its first
@@ -522,18 +532,28 @@ def _dispatch_rollout(solver, prob, x_init, n_steps, solve_max_iter,
     if kernel not in ("loop", "fused", "auto", "scan"):
         raise ValueError("kernel must be 'loop', 'fused', 'scan' or "
                          "'auto'")
-    if kernel == "scan":
-        raise NotImplementedError(
-            "kernel='scan' runs the whole-rollout kernel K2 "
-            "(ops/solve_kernel.py full_rollout), which is not ported yet; "
-            "use kernel='loop'")
     if kernel == "fused":
         raise NotImplementedError(
             "kernel='fused' runs the whole-solve kernel K3 "
             "(ops/solve_kernel.py full_solve) per step, which is not ported "
-            "yet; use kernel='loop'")
-    # "auto" is the loop path until K2 is ported.
+            "yet; use kernel='scan' or 'loop'")
     stng = solver.settings
+    if kernel == "auto":
+        # K2 on the card by the static gate, with no fallback: once picked
+        # it runs or the call raises. The CPU keeps the loop path, as the
+        # JAX package picks "scan" only on its accelerator.
+        kernel = ("scan" if stng.device.type == "cuda"
+                  and _scan_rollout_eligible(solver, ci, solve_max_iter)
+                  else "loop")
+    if kernel == "scan":
+        if not _scan_rollout_eligible(solver, ci, solve_max_iter):
+            raise ValueError(
+                "kernel='scan' rollout needs alpha=1, iter_precision="
+                "'highest' or refine=False, no infeasibility checks, the "
+                "fp64 bias masters, and an iteration budget of at least one "
+                "full check window")
+        return _scan_rollout(solver, prob, x_init, n_steps, solve_max_iter,
+                             ci, y0, rho_ind0, noise)
     dtype = stng.precision_dtype
     dev = stng.device
     cst = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
@@ -574,6 +594,183 @@ def _dispatch_rollout(solver, prob, x_init, n_steps, solve_max_iter,
         check_infeasibility=bool(stng.check_infeasibility),
         eps_prim_inf=float(stng.eps_prim_inf),
         eps_dual_inf=float(stng.eps_dual_inf))
+
+
+def _scan_rollout_eligible(solver, ci=None, budget=None) -> bool:
+    """Gate for the whole-rollout kernel K2 on any device: alpha=1, no
+    infeasibility certificates, single-phase iteration (reduced
+    ``iter_precision`` only with ``refine=False``: K2 carries no two-phase
+    refine; its residual checks always run at full precision), the fp64
+    bias master, and an iteration budget (``solve_max_iter`` or
+    ``settings.max_iter``) that holds at least one full check window — K2
+    runs whole windows only and never rounds a budget up. ``mesh=`` is
+    refused at setup, so no sharded solver reaches here. The TPU's VMEM
+    gates do not apply on the card (ROADMAP §C)."""
+    stng = solver.settings
+    if stng.alpha != 1.0 or stng.check_infeasibility \
+            or getattr(solver, "_B_np", None) is None:
+        return False
+    if stng.iter_precision != "highest" and stng.refine:
+        return False
+    ci_eff = stng.check_interval if ci is None else int(ci)
+    eff_budget = stng.max_iter if budget is None else int(budget)
+    return eff_budget >= ci_eff
+
+
+def _build_rollout_operators(prob: CondensedMPC, sc, H_s, A_s, wp_np, wd_np,
+                             B64, nx_qp: int, nc: int, Dp: int, dtype,
+                             device="cpu"):
+    """Host fp64 build of the K2 operands, then cast: the residual
+    operator, the state-affine bias ``b_k(x) = c_k + x @ M_aff[k]``, the
+    stacked refresh operator GL (segments [wd·Ḡx | Ē·LUx | Kᵀ | Adᵀ] with
+    the bound-shift segment pre-scattered into Dp layout, zeros in the
+    padding, so the ±inf bounds stay inf), the base bounds, the v0
+    selector and the plant-step map.
+
+    ``B64``: the fp64 bias master padded to (N, Dp, nx_qp). Returns a dict
+    of tensors of ``dtype`` on ``device`` plus the padded dims.
+    """
+    cst = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                    device=device)
+    nu = prob.K.shape[0]
+    npl = prob.K.shape[1]
+    gD = sc.c * sc.D
+    g0_s = gD * prob.g0
+    gx0_s = gD[:, None] * prob.g_x0
+    wd = np.ones(nx_qp) if wd_np is None else np.asarray(wd_np, np.float64)
+    M_res, _, nxp, ncp = build_residual_operator(
+        H_s, A_s, np.zeros(nx_qp), Dp, dtype, w_pri=wp_np, w_dua=wd_np,
+        device=device)
+    c64, M64 = _affine_bias_fp64(B64, g0_s, gx0_s)
+    nplp, nup = pad_dim(npl), pad_dim(nu)
+    n_rho = B64.shape[0]
+    M_aff = np.zeros((n_rho, nplp, Dp))
+    M_aff[:, :npl, :] = np.swapaxes(M64, 1, 2)
+    GL = np.zeros((nplp, nxp + Dp + nup + nplp))
+    GL[:npl, :nx_qp] = (wd[:, None] * gx0_s).T
+    GL[:npl, nxp + nx_qp:nxp + nx_qp + nc] = (sc.E[:, None] * prob.lu_x0).T
+    GL[:npl, nxp + Dp:nxp + Dp + nu] = prob.K.T
+    GL[:npl, nxp + Dp + nup:nxp + Dp + nup + npl] = solver_plant_A(prob).T
+    g0w = np.zeros((1, nxp))
+    g0w[0, :nx_qp] = wd * g0_s
+    lo0 = np.full((1, Dp), -np.inf)
+    hi0 = np.full((1, Dp), np.inf)
+    lo0[0, nx_qp:nx_qp + nc] = sc.E * prob.l0
+    hi0[0, nx_qp:nx_qp + nc] = sc.E * prob.u0
+    S_u = np.zeros((Dp, nup))
+    S_u[np.arange(nu), np.arange(nu)] = np.asarray(sc.D[:nu], np.float64)
+    Bdw = np.zeros((nup, nplp))
+    Bdw[:nu, :npl] = solver_plant_B(prob).T
+    return dict(M_res=M_res, bias_c=cst(c64), M_aff=cst(M_aff), GL=cst(GL),
+                g0w=cst(g0w), lo0=cst(lo0), hi0=cst(hi0), S_u=cst(S_u),
+                Bdw=cst(Bdw), nxp=nxp, ncp=ncp, nplp=nplp, nup=nup)
+
+
+def _scan_operands(solver, prob, Dp: int) -> dict:
+    """``_build_rollout_operators`` for this solver and prob, plus the bank
+    at the kernel's padded dim, cached on the solver per (prob, Dp) and
+    bank (the check_interval="auto" segments and repeated rollouts reuse
+    them)."""
+    cache = getattr(solver, "_scan_ops_cache", None)
+    key = (id(prob), Dp)
+    if cache is not None and cache[0] == key and cache[3] is solver.bank.W:
+        return cache[1]
+    stng = solver.settings
+    dev = stng.device
+    B64 = solver._B_np
+    W = solver.bank.W
+    if solver.Dp != Dp:
+        # an unpadded solver layout (backend="xla"): pad the kernel's own
+        # operand copies, once
+        B_p = np.zeros((B64.shape[0], Dp, solver.nx))
+        B_p[:, :B64.shape[1], :] = B64
+        B64 = B_p
+        W_p = torch.zeros((W.shape[0], Dp, Dp), dtype=W.dtype, device=dev)
+        W_p[:, :W.shape[1], :W.shape[2]] = W
+        W = W_p
+    ops = _build_rollout_operators(
+        prob, solver.scal, solver._H_s, solver._A_s, solver._w_pri_np,
+        solver._w_dua_np, B64, solver.nx, solver.nc, Dp,
+        stng.precision_dtype, dev)
+    ops["Wt"] = W
+    # prob is held so that its id stays unique while the entry lives
+    solver._scan_ops_cache = (key, ops, prob, solver.bank.W)
+    return ops
+
+
+def _scan_call(solver, prob: CondensedMPC, x_init, n_steps: int, ci=None,
+               budget=None, y0=None, rho_ind0=None, noise=None):
+    """The arguments ``(args, kw)`` of one K2 launch, ``full_rollout(*args,
+    **kw)``, for a rollout segment: the cached ``_scan_operands``, the start
+    state ``y0`` (default ``solver.y``, padded to the kernel's layout) and
+    rung (default ``solver.rho_ind``), ``x_init`` and ``noise`` (T,
+    nx_plant; default zero) padded to the kernel's plant width on the
+    solver's device, and the budget (default ``settings.max_iter``) rounded
+    down to whole check windows."""
+    stng = solver.settings
+    dtype = stng.precision_dtype
+    dev = stng.device
+    npl = prob.K.shape[1]
+    D = solver.D
+    Dp = pad_dim(D)
+    ops = _scan_operands(solver, prob, Dp)
+    nplp = ops["nplp"]
+    ci_eff = stng.check_interval if ci is None else int(ci)
+    budget = budget or stng.max_iter
+    if budget < ci_eff:
+        # never round a sub-window budget UP to a full window: that would
+        # exceed the caller's per-step iteration cap
+        raise ValueError(
+            f"scan-rollout iteration budget {budget} is smaller than one "
+            f"check window ({ci_eff}); lower check_interval or raise the "
+            "budget")
+    # whole windows only: round the budget DOWN to a multiple of the window
+    mi = (budget // ci_eff) * ci_eff
+    y0 = solver.y if y0 is None else y0
+    if y0.shape[0] != Dp:    # unpadded-solver state -> kernel layout
+        y_p = torch.zeros((Dp,), dtype=dtype, device=dev)
+        y_p[:D] = y0[:D]
+        y0 = y_p
+    rho_ind0 = solver.rho_ind if rho_ind0 is None else int(rho_ind0)
+    x0 = torch.zeros((nplp,), dtype=dtype, device=dev)
+    x0[:npl] = (x_init.to(device=dev, dtype=dtype).reshape(npl)
+                if isinstance(x_init, torch.Tensor)
+                else torch.as_tensor(np.asarray(x_init, np.float64)
+                                     .reshape(npl), dtype=dtype, device=dev))
+    noise_k = torch.zeros((n_steps, nplp), dtype=dtype, device=dev)
+    if noise is not None:
+        noise_k[:, :npl] = torch.as_tensor(noise, dtype=dtype, device=dev)
+    args = [ops["Wt"], ops["bias_c"], ops["M_aff"], solver.bank.rhos,
+            ops["M_res"], ops["g0w"], ops["GL"], ops["lo0"], ops["hi0"],
+            ops["S_u"], ops["Bdw"], y0, x0, noise_k, rho_ind0]
+    kw = dict(nx=solver.nx, nc=solver.nc, nxp=ops["nxp"], ncp=ops["ncp"],
+              nup=ops["nup"], nplp=nplp, n_steps=n_steps, max_iter=mi,
+              check_interval=ci_eff, adaptive_rho=stng.adaptive_rho,
+              adaptive_rho_tolerance=float(stng.adaptive_rho_tolerance),
+              eps_abs=float(stng.eps_abs), rho_min=float(stng.rho_min),
+              rho_max=float(stng.rho_max), rho_jump=bool(stng.rho_jump),
+              adaptive_rho_interval=int(stng.adaptive_rho_interval),
+              iter_precision=stng.iter_precision)
+    return args, kw
+
+
+def _scan_rollout(solver, prob: CondensedMPC, x_init, n_steps: int,
+                  solve_max_iter, ci, y0, rho_ind0, noise=None):
+    """One rollout segment as one launch of K2 (``full_rollout``): every
+    per-step refresh is a product with the ``_build_rollout_operators``
+    operands. Reads the per-step stats back once, so ``iters``/``status``
+    come back as CPU int32 tensors and the final rung as an int."""
+    args, kw = _scan_call(solver, prob, x_init, n_steps, ci, solve_max_iter,
+                          y0, rho_ind0, noise)
+    xs, us, stats, y_f = full_rollout(*args, **kw)
+    nu, npl = prob.K.shape
+    x0, rho_ind0 = args[12], args[14]
+    st = stats.cpu()   # the segment's one device→host read
+    states = torch.cat([x0[None, :npl], xs[:, :npl]])
+    rho_f = int(st[-1, 4]) if n_steps else rho_ind0
+    # kernel padding slots are exactly 0, so slicing back is lossless
+    return (states, us[:, :nu], st[:, 0].to(torch.int32),
+            st[:, 5].to(torch.int32), y_f[:solver.Dp], rho_f)
 
 
 def _cast_residual(arr64, dtype):

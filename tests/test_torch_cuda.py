@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU.
 
-Kernel K1 is CUDA code with no CPU mode, so these skip without a GPU. On
+Kernels K1 and K2 are CUDA code with no CPU mode, so these skip without a
+GPU. On
 the GPU machine (which has no JAX) run them without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -15,6 +16,8 @@ import reluqp_tpu_torch as rqt
 from reluqp_tpu_torch.models import mpc
 from reluqp_tpu_torch.ops.fused_step import (fused_chunk, fused_chunk_ref,
                                              pallas_chunk_runner)
+from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
+                                               full_rollout_ref)
 from reluqp_tpu_torch.utils.problems import canonical_qp
 
 pytestmark = pytest.mark.cuda
@@ -23,8 +26,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K1 is a CUDA kernel with no CPU "
-                    "mode")
+        pytest.skip("needs an NVIDIA GPU: K1 and K2 are CUDA kernels with "
+                    "no CPU mode")
     return torch.device("cuda")
 
 
@@ -107,3 +110,98 @@ def test_mpc_rollout_on_cuda_matches_cpu(dev):
     np.testing.assert_array_equal(ig.numpy(), ic.numpy())
     np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), atol=1e-8)
     np.testing.assert_allclose(ug.cpu().numpy(), uc.numpy(), atol=1e-8)
+
+
+def _di_mpc(dev, precision, **kw):
+    Ad, Bd = mpc.double_integrator(dt=0.1)
+    base = dict(horizon=8, u_min=-1.0, u_max=1.0, eps_abs=1e-6,
+                precision=precision)
+    base.update(kw)
+    return mpc.MPC(Ad, Bd, np.diag([10.0, 1.0]), np.array([[0.1]]),
+                   device=dev, **base)
+
+
+def _k2_args(ctrl, T, noise_scale, seed=0):
+    """K2's call for a controller as the scan path makes it: a cold start
+    from x0 = [1, 0], numpy noise, a window of 5."""
+    s = ctrl.solver
+    noise = noise_scale * np.random.RandomState(seed).randn(T, 2)
+    return mpc._scan_call(s, ctrl.prob, [1.0, 0.0], T, ci=5,
+                          y0=torch.zeros_like(s.y), noise=noise)
+
+
+# fp64: kernel and plain version round the same fp64 sums to fp32 and
+# differ only in the order of those sums.
+def test_k2_matches_plain_version_fp64(dev):
+    ctrl = _di_mpc(dev, "float64", eps_abs=1e-5)
+    args, kw = _k2_args(ctrl, 20, 0.3)
+    before = full_rollout.launches
+    out = full_rollout(*args, **kw)
+    assert full_rollout.launches == before + 1
+    ref = full_rollout_ref(*args, **kw)
+    for lane in (0, 4, 5):
+        assert torch.equal(out[2][:, lane], ref[2][:, lane]), lane
+    assert len(set(out[2][:, 4].tolist())) > 1, "the rung never moved"
+    for a, b in zip(out[:2], ref[:2]):
+        assert float((a - b).abs().max()) <= 1e-9
+    assert float(out[3][ctrl.solver.D:].abs().max()) == 0.0
+
+
+# Each iteration tier in fp32 on the 100-state h10 configuration (Dp=640)
+# from a cold disturbed start: kernel and plain version take the same
+# iterations, status and rung, and agree to a few times their fp32 summation
+# order difference — far below what a tier run at another precision (one
+# bf16 pass for "high", unrounded y for "bf16") would move. bf16 iterates
+# do not reach eps, so that tier runs 3 budget-bound steps.
+@pytest.mark.parametrize("tier,T,max_iter,tol", [
+    ("highest", 20, None, 1e-5), ("high", 20, None, 2e-5),
+    ("bf16", 3, 25, 1e-5)])
+def test_k2_tier_matches_plain_version_fp32(dev, tier, T, max_iter, tol):
+    Ad, Bd = mpc.random_linear_system(100, 20, seed=0, spectral_radius=0.99)
+    ctrl = mpc.MPC(Ad, Bd, np.eye(100), 0.1 * np.eye(20), horizon=10,
+                   u_min=-1.0, u_max=1.0, prestabilize=True, eps_abs=1e-3,
+                   max_iter=2000, precision="float32")
+    s = ctrl.solver
+    noise = 0.3 * np.random.RandomState(3).randn(T, 100)
+    x0 = 0.05 * np.random.RandomState(0).randn(100)
+    args, kw = mpc._scan_call(s, ctrl.prob, x0, T, ci=5, budget=max_iter,
+                              y0=torch.zeros_like(s.y), noise=noise)
+    if tier == "bf16":
+        args[0] = args[0].to(torch.bfloat16)
+    kw["iter_precision"] = tier
+    out = full_rollout(*args, **kw)
+    ref = full_rollout_ref(*args, **kw)
+    for lane in (0, 4, 5):
+        assert torch.equal(out[2][:, lane], ref[2][:, lane]), lane
+    for a, b in zip(out[:2], ref[:2]):
+        assert float((a - b).abs().max()) <= tol
+    assert float(out[3][s.D:].abs().max()) == 0.0
+
+
+def test_k2_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    ctrl = _di_mpc(dev, "float32", eps_abs=1e-4)
+    args, kw = _k2_args(ctrl, 3, 0.0)
+    for i, bad in ((11, args[11].double()),           # state dtype mix
+                   (12, args[12].cpu()),              # device mix
+                   (9, args[9].t().contiguous().t())):  # column-major
+        broken = list(args)
+        broken[i] = bad
+        with pytest.raises(ValueError):
+            full_rollout(*broken, **kw)
+    with pytest.raises(ValueError):
+        full_rollout(*args, **dict(kw, max_iter=2001))
+
+
+def test_mpc_scan_rollout_on_cuda_runs_k2(dev):
+    g = _di_mpc(dev, "float64")
+    c = _di_mpc("cpu", "float64")
+    x0 = np.array([1.0, -0.5])
+    k1, k2 = fused_chunk.launches, full_rollout.launches
+    xg, ug, ig = mpc.mpc_rollout_scan(g.solver, g.prob, x0, 15,
+                                      kernel="auto", check_interval="auto")
+    assert full_rollout.launches == k2 + 2 and fused_chunk.launches == k1
+    xc, uc, ic = mpc.mpc_rollout_scan(c.solver, c.prob, x0, 15,
+                                      kernel="scan", check_interval="auto")
+    np.testing.assert_array_equal(ig.numpy(), ic.numpy())
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), atol=1e-9)
+    np.testing.assert_allclose(ug.cpu().numpy(), uc.numpy(), atol=1e-9)
