@@ -38,10 +38,29 @@ Phases (each raises on failure; nothing is caught):
 9. K2 timing: control steps per second by the two-point protocol of the
    root ``bench.py`` (T=100 and T=4000, min of 5, a fresh x0 each time),
    the kernel's time per step by CUDA events beside the plain version and
-   the bound, and a ``torch.profiler`` pass over a 1000-step rollout.
+   the bound, and a ``torch.profiler`` pass over a 1000-step rollout;
+10. hold kernel K3 (the whole-solve kernel) against its plain torch
+    version on the card, cold solves: ``rand_qp`` at Dp 128, 256, 640,
+    768, 896, 1024 and 1280 (slabs read from L2 in fp64) in fp64 and fp32,
+    then each option on its own (ρ
+    jump, stride 3, alpha 1.6, a primal- and a dual-infeasible instance
+    and a feasible one with certificates on, two-phase refine in "high",
+    "bf16" and "default", a tail window, a budget below one window, the
+    state-affine bias of the 100-state h10 rollout step, and the verbose
+    lines printed by the kernel): equal iterations, status, rung and
+    reduced-phase count, y within K3_TOL, padded lanes exactly 0;
+11. the main path of this slice: ``backend="fused"`` on the canonical QP
+    and on the reference protocol (nx 100/323/500, fp32, against phase 5's
+    CPU fp64 solutions), one K3 launch per solve, and the 200-step rollout
+    of phase 6 through ``kernel="fused"`` in exactly 200 K3 launches, no K1
+    or K2 launch, its first 20 steps against phase 6's CPU fp64 rollout;
+12. K3 timing: per solve at the protocol's sizes by CUDA events, beside
+    the loop path's ``solve()`` on the same instance, the plain version
+    and the bound; the fused rollout's steps/s by the two-point protocol
+    beside the scan and loop paths; a profiler pass over 200 fused steps.
 
 Every kernel launch counter is set to 0 just before each main-path phase
-(4, 5, 6, 8) and read just after; a main-path phase that launched its
+(4, 5, 6, 8, 11) and read just after; a main-path phase that launched its
 kernel no time fails. The second-to-last line is the ``{"kernels": [...]}``
 record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the package beside it, the script exits non-zero before printing a
@@ -243,8 +262,8 @@ def phase_timing():
 
 def _counters():
     from reluqp_tpu_torch.ops.fused_step import fused_chunk
-    from reluqp_tpu_torch.ops.solve_kernel import full_rollout
-    return {"K1": fused_chunk, "K2": full_rollout}
+    from reluqp_tpu_torch.ops.solve_kernel import full_rollout, full_solve
+    return {"K1": fused_chunk, "K2": full_rollout, "K3": full_solve}
 
 
 def _counted(run, kernel="K1"):
@@ -307,14 +326,15 @@ def phase_protocol():
 
     gpu, counts = _counted(run)
     n = counts["K1"]
+    x_cpu = {}
     for nx, inst in insts.items():
         r, secs, dp = gpu[nx]
         m = ReLU_QP()
         m.setup(*inst[:5], precision="float64", device="cpu", **kw)
         rc = m.solve()
         x_gpu = r.x.detach().cpu().double().numpy()
-        x_cpu = rc.x.numpy()
-        err = float(np.max(np.abs(x_gpu - x_cpu)))
+        x_cpu[nx] = rc.x.numpy()
+        err = float(np.max(np.abs(x_gpu - x_cpu[nx])))
         assert r.info.status == "solved", (nx, r.info.status)
         assert rc.info.status == "solved", (nx, rc.info.status)
         assert np.all(np.isfinite(x_gpu)) and x_gpu.shape == (nx,)
@@ -323,7 +343,7 @@ def phase_protocol():
             f"{r.info.iter} it in {secs * 1e3:.1f} ms; cpu fp64 "
             f"{rc.info.iter} it; |x_gpu-x_cpu|inf {err:.2e}")
     log(f"phase 5 OK: reference protocol solved, K1 launches {n}")
-    return n
+    return n, insts, x_cpu
 
 
 # Smoke configurations: the root bench.py's 100-state MPC (cut in depth
@@ -335,6 +355,9 @@ MPC_KW = dict(u_min=-1.0, u_max=1.0, prestabilize=True, eps_abs=1e-3,
 # kernel-alone timing
 TWO_POINT_T = (100, 4000)
 K2_TIMED_T = 1000
+# the fused rollout's two lengths (one K3 launch and the host refresh per
+# step make a step slower than the scan path's)
+FUSED_TWO_POINT_T = (50, 1000)
 
 
 def mpc_config(nx=MPC_NX, nu=MPC_NU):
@@ -432,7 +455,8 @@ def profile_steps(tag, ctrl, x_start, steps, kernel, ci):
     busy = sum(dev(e) for e in on_dev) / steps
     per = lambda pat: [e for e in ev if pat in e.key]
     k_us = {k: sum(dev(e) for e in per(name)) / steps
-            for k, name in (("K1", "k1_kernel"), ("K2", "k2_kernel"))}
+            for k, name in (("K1", "k1_kernel"), ("K2", "k2_kernel"),
+                            ("K3", "k3_kernel"))}
     h2d = sum(e.count for e in per("Memcpy HtoD")) / steps
     syncs = sum(e.count for e in per("cudaStreamSynchronize")) / steps
     launches = sum(e.count for e in per("cudaLaunch")) / steps
@@ -445,7 +469,8 @@ def profile_steps(tag, ctrl, x_start, steps, kernel, ci):
     log(f"{tag} profile ({steps} warm steps, kernel={kernel}, ci={ci}, "
         f"profiler on): host wall {wall_us:.3f} us/step, device busy "
         f"{busy:.3f} us/step ({100 * busy / wall_us:.1f}%), K1 "
-        f"{k_us['K1']:.3f} us/step, K2 {k_us['K2']:.3f} us/step, "
+        f"{k_us['K1']:.3f} us/step, K2 {k_us['K2']:.3f} us/step, K3 "
+        f"{k_us['K3']:.3f} us/step, "
         f"{launches:.4f} launches, {h2d:.4f} H2D copies, {syncs:.4f} "
         f"stream syncs per step")
     log("  top device ops (us/step): " + "; ".join(
@@ -588,7 +613,7 @@ def phase_scan(card, mpc):
             return (*out, time.perf_counter() - t0)
 
         (xs, us, its, status, y_f, rho_f, secs), counts = _counted(run, "K2")
-        assert counts == {"K1": 0, "K2": 2}, (kernel, counts)
+        assert counts == {"K1": 0, "K2": 2, "K3": 0}, (kernel, counts)
         check_rollout(f"phase 8 (kernel={kernel})", xs, us, its, status,
                       mpc["ref"], kw["max_iter"])
         log(f"phase 8 kernel={kernel}: {MPC_T / secs:.1f} steps/s over "
@@ -713,6 +738,369 @@ def phase_scan_timing(card, scan, loop_rate):
                 ci=ci, step_s=step_s)
 
 
+# ---------------------------------------------------------------------- #
+# K3, the whole-solve kernel                                              #
+# ---------------------------------------------------------------------- #
+
+# (Dp, nx): rand_qp(nx, nx/4, nx/4) has D = 2·nx, padded to Dp; 896 is the
+# F-w1 edge (no multiple of 256), 768 and 1024 the protocol's nx 323, 500,
+# and at 1280 the fp64 slabs no longer fit shared memory (read from L2)
+K3_SIZES = ((128, 60), (256, 100), (640, 300), (768, 323), (896, 400),
+            (1024, 500), (1280, 640))
+# Kernel against plain version, relative to max(1, |y|inf). The plain
+# version sums every product in the kernel's order and rounding, so the two
+# agree bit for bit (read: 0 in every case on the H100); the bound only
+# leaves room for the device's logf against torch.log on a rho jump (a
+# nearest rung at an exact tie) and for bf16 conversions of an fp64 state.
+# Iterations, status, rung and the reduced-phase count must agree exactly.
+K3_TOL = {"float64": 1e-6, "float32": 1e-4}
+# the two infeasible instances of the certificate tests
+PINF = (np.eye(2), np.zeros(2), np.array([[1.0, 0.0], [1.0, 0.0],
+                                          [0.0, 1.0]]),
+        np.array([1.0, -np.inf, -1.0]), np.array([np.inf, -1.0, 1.0]))
+DINF = (np.diag([1.0, 0.0]), np.array([0.0, 1.0]), np.array([[1.0, 0.0]]),
+        np.array([-1.0]), np.array([1.0]))
+
+
+def fused_solver(data, **kw):
+    from reluqp_tpu_torch import ReLU_QP
+    m = ReLU_QP()
+    m.setup(*data, backend="fused", **kw)
+    return m
+
+
+def k3_compare(tag, op, kw, y0, rho0, tol, bias=None, expect=None):
+    """K3 and its plain version on one call: equal iterations, rung,
+    status and reduced-phase count, y within ``tol`` relative to
+    max(1, |y|inf), padded lanes exactly 0. Returns the kernel's stats and
+    the absolute and relative differences."""
+    import torch
+    from reluqp_tpu_torch.ops.solve_kernel import full_solve, full_solve_ref
+    out = full_solve(op, y0, rho0, bias, **kw)
+    ref = full_solve_ref(op, y0, rho0, bias, **kw)
+    torch.cuda.synchronize()
+    so, sr = out[1].cpu().numpy(), ref[1].cpu().numpy()
+    err = float((out[0] - ref[0]).abs().max())
+    rel = err / max(1.0, float(ref[0].abs().max()))
+    log(f"{tag}: iters {int(so[0])} (plain {int(sr[0])}), rung "
+        f"{int(so[4])}, status {int(so[5])}, reduced-phase iters "
+        f"{int(so[6])}; max|kernel-plain| {err:.3e} ({rel:.3e} relative, "
+        f"bound {tol:g})")
+    d = kw["nx"] + 2 * kw["nc"]
+    assert bool(torch.isfinite(out[0]).all()), tag
+    assert bool((out[0][d:] == 0).all()), f"{tag}: padding not inert"
+    for lane in (0, 4, 5, 6):   # iterations, rung, status, reduced phase
+        assert so[lane] == sr[lane], (tag, lane, so, sr)
+    if expect is not None:
+        assert so[5] == expect, (tag, so)
+    assert rel <= tol, (tag, rel)
+    return so, err, rel
+
+
+def k3_solver_compare(tag, m, tol, expect=None):
+    """``k3_compare`` on a set-up solver's own call, from a cold start."""
+    import torch
+    op, kw = m._fused_call()
+    return k3_compare(tag, op, kw, torch.zeros_like(m.y), m.rho_ind, tol,
+                      expect=expect)
+
+
+def capture_stdout(fn):
+    """Run ``fn`` with the process's file descriptor 1 sent to a file (the
+    kernel's printf writes there at the next synchronisation); returns
+    ``(fn(), text)``."""
+    import ctypes
+    import tempfile
+    import torch
+    libc = ctypes.CDLL(None)
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile() as tmp:
+        os.dup2(tmp.fileno(), 1)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            sys.stdout.flush()
+            libc.fflush(None)
+            os.dup2(saved, 1)
+            os.close(saved)
+        tmp.seek(0)
+        return out, tmp.read().decode()
+
+
+def phase_k3_check():
+    """K3 against full_solve_ref on the card; returns the errors."""
+    import contextlib
+    import io
+    import torch
+    from reluqp_tpu_torch.models import mpc as M
+    from reluqp_tpu_torch.ops.solve_kernel import (full_solve,
+                                                   full_solve_ref,
+                                                   solve_plan)
+    from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp
+    errs, streamed = {}, False
+    for dp, nx in K3_SIZES:
+        data = rand_qp(nx, nx // 4, nx // 4, seed=1, compute_sol=False)[:5]
+        for precision in ("float64", "float32"):
+            m = fused_solver(data, precision=precision, eps_abs=1e-4,
+                             scaling=True)
+            assert m.Dp == dp, (m.Dp, dp)
+            plan = solve_plan(dp, m._nxp, m._ncp,
+                              dtype=m.settings.precision_dtype)
+            streamed |= not plan["resident"]
+            log(f"K3 Dp={dp} {precision}: plan {plan}")
+            _, err, rel = k3_solver_compare(f"K3 Dp={dp} {precision}", m,
+                                            K3_TOL[precision])
+            errs[(dp, precision)] = err
+    assert streamed, "no case ran K3 with its operands read from L2"
+
+    # the options, each on its own, in fp64 unless a tier asks for fp32
+    small = rand_qp(60, 15, 15, seed=2, compute_sol=False)[:5]
+    f64 = dict(precision="float64", eps_abs=1e-5)
+    f32 = dict(precision="float32", eps_abs=1e-4, scaling=True)
+    cases = (
+        ("rho_jump", small, dict(f64, rho_jump=True), 1),
+        ("stride 3", small, dict(f64, adaptive_rho_interval=60), 1),
+        ("alpha 1.6", small, dict(f64, alpha=1.6), 1),
+        ("alpha 1.6 fp32", small, dict(f32, alpha=1.6), 1),
+        ("primal infeasible", PINF, dict(f64, check_infeasibility=True), 2),
+        ("dual infeasible", DINF, dict(f64, check_infeasibility=True), 3),
+        ("feasible, certificates on", small,
+         dict(f64, check_infeasibility=True), 1),
+        ("refine high fp32", small, dict(f32, iter_precision="high"), 1),
+        # the solver stores a bf16 bank and, as the JAX package does, the
+        # polish runs on it: this solve stops at max_iter (ROADMAP §C)
+        ("refine bf16 fp32, bf16 bank", small,
+         dict(f32, iter_precision="bf16"), 0),
+        ("refine default fp32", small, dict(f32, iter_precision="default"),
+         1),
+        ("tail window (max_iter 110)", small,
+         dict(f64, max_iter=110, eps_abs=1e-12), 0),
+        ("budget below one window", small, dict(f64, max_iter=10), 0),
+    )
+    for name, data, kw, expect in cases:
+        m = fused_solver(data, **kw)
+        tol = K3_TOL[m.settings.precision]
+        so, err, _ = k3_solver_compare(f"K3 {name} (Dp={m.Dp})", m, tol,
+                                       expect=expect)
+        if "refine" in name:
+            assert 0 < so[6] <= so[0], (name, so)
+        errs[name] = err
+    # the bf16 tier on the fp32 bank (the solver's polish copy): the fast
+    # phase casts it in the kernel and the polish certifies eps
+    m = fused_solver(small, iter_precision="bf16", **f32)
+    op, kw = m._fused_call()
+    so, err, _ = k3_compare("K3 refine bf16 fp32, fp32 bank (Dp=128)",
+                            op._replace(Wt_bank=m._W_hi), kw,
+                            torch.zeros_like(m.y), m.rho_ind, K3_TOL["float32"],
+                            expect=1)
+    assert 0 < so[6] < so[0], so
+    errs["refine bf16, fp32 bank"] = err
+
+    # the state-affine bias at the main path's shape: the fused rollout's
+    # first step of the 100-state h10 controller, cold
+    Ad, Bd, Q, R, x0 = mpc_config()
+    for precision in ("float64", "float32"):
+        ctrl = M.MPC(Ad, Bd, Q, R, horizon=MPC_H, precision=precision,
+                     **MPC_KW)
+        s = ctrl.solver
+        ops = M._fused_operands(s, ctrl.prob)
+        x = torch.as_tensor(x0, dtype=s.settings.precision_dtype,
+                            device="cuda")
+        op, bias = M._fused_step(s, ops, x)
+        _, err, _ = k3_compare(
+            f"K3 affine bias, 100-state h10 step (Dp={s.Dp}) {precision}",
+            op, M._fused_kw(s, ops), torch.zeros_like(s.y), s.rho_ind,
+            K3_TOL[precision], bias=bias, expect=1)
+        errs[("affine", precision)] = err
+
+    # verbose: the kernel's printf lines equal the plain version's
+    m = fused_solver(canonical_qp()[:5], verbose=True, **f64)
+    op, kw = m._fused_call()
+    y0 = torch.zeros_like(m.y)
+    (_, st), text_k = capture_stdout(lambda: full_solve(op, y0, m.rho_ind,
+                                                        **kw))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        full_solve_ref(op, y0, m.rho_ind, **kw)
+    lines_k = [ln for ln in text_k.splitlines() if ln.startswith("Iter:")]
+    lines_p = [ln for ln in buf.getvalue().splitlines()
+               if ln.startswith("Iter:")]
+    assert lines_k and lines_k == lines_p, (lines_k, lines_p)
+    log(f"K3 verbose: {len(lines_k)} lines printed by the kernel equal the "
+        f"plain version's, the last {lines_k[-1]!r}")
+    log("phase 10 OK: K3 matches its plain version at every Dp, fp64 and "
+        "fp32, and in every option; max|kernel-plain| "
+        f"{max(errs.values()):.3e}")
+    return errs
+
+
+def phase_fused_main(card, mpc, protocol):
+    """The main path of this slice: ``backend="fused"`` on the canonical QP
+    and the reference protocol, and the 200-step MPC rollout through
+    ``kernel="fused"``; one K3 launch per solve, no K1 or K2 launch."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import MPC, mpc_rollout_scan
+    from reluqp_tpu_torch.utils.problems import canonical_qp
+    qp = canonical_qp()
+    res, counts = _counted(
+        lambda: fused_solver(qp[:5], eps_abs=1e-4).solve(), "K3")
+    assert counts == {"K1": 0, "K2": 0, "K3": 1}, counts
+    x = res.x.detach().cpu().double().numpy()
+    assert res.info.status == "solved" and np.allclose(x, qp.x_sol,
+                                                       atol=1e-3), x
+    log(f"phase 11 canonical QP (backend='fused'): x={x} iters "
+        f"{res.info.iter}, launches {counts}")
+    total = 1
+    _, insts, x_cpu = protocol
+    for nx, inst in insts.items():
+        m = fused_solver(inst[:5], precision="float32", eps_abs=1e-4,
+                         scaling=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, counts = _counted(m.solve, "K3")
+        secs = time.perf_counter() - t0
+        assert counts == {"K1": 0, "K2": 0, "K3": 1}, (nx, counts)
+        xg = r.x.detach().cpu().double().numpy()
+        err = float(np.max(np.abs(xg - x_cpu[nx])))
+        assert r.info.status == "solved", (nx, r.info.status)
+        assert np.all(np.isfinite(xg)) and xg.shape == (nx,)
+        assert err < 5e-3, (nx, err)
+        log(f"phase 11 protocol nx={nx} (Dp={m.Dp}, backend='fused', fp32): "
+            f"{r.info.iter} it in {secs * 1e3:.3f} ms (first solve); "
+            f"|x-x_cpu_fp64|inf {err:.2e}; launches {counts}")
+        total += 1
+    Ad, Bd, Q, R, x0 = mpc_config()
+    ctrl = MPC(Ad, Bd, Q, R, horizon=MPC_H, **MPC_KW)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mpc_rollout_scan(ctrl.solver, ctrl.prob, x0, MPC_T,
+                               kernel="fused", check_interval="auto",
+                               return_stats=True, return_state=True)
+        torch.cuda.synchronize()
+        return (*out, time.perf_counter() - t0)
+
+    (xs, us, its, status, y_f, rho_f, secs), counts = _counted(run, "K3")
+    assert counts == {"K1": 0, "K2": 0, "K3": MPC_T}, counts
+    check_rollout("phase 11 (kernel=fused)", xs, us, its, status,
+                  mpc["ref"], MPC_KW["max_iter"])
+    log(f"phase 11 kernel=fused: {MPC_T / secs:.1f} steps/s over {MPC_T} "
+        f"steps ({secs:.3f} s incl. the operand build and the ci=1 "
+        f"calibration); launches {counts}")
+    total += counts["K3"]
+    log(f"phase 11 OK on {card}: K3 launches {total}, K1 and K2 launches 0")
+    return {"launches": total, "ctrl": ctrl, "its": its, "xs": xs,
+            "y_f": y_f, "rho_f": rho_f}
+
+
+def k3_bound_ms(op, kw, stats):
+    """Least time of one solve's work, in ms, and what bounds it. Each
+    product counts only the multiply-adds its operand's nonzero entries
+    need: per iteration y@W[k], per check (the tail is one) y@M_res. W
+    counts at the rung the solve ended on (the stats name no other).
+    Bytes: the nonzeros of that rung, of M_res and of the rung's bias row
+    read once, the real bounds (2·nc), the g row (nx), y in and out (2·D),
+    the ladder and the stats row."""
+    import torch
+    nnz = lambda a: int(torch.count_nonzero(a))
+    nx, nc, ci = kw["nx"], kw["nc"], kw["check_interval"]
+    iters, k = float(stats[0]), int(stats[4])
+    checks = -(-iters // ci)
+    n_w = nnz(op.Wt_bank[k])
+    flops = iters * 2 * n_w + checks * 2 * nnz(op.M_res)
+    size = op.Wt_bank.element_size()
+    nbytes = ((n_w + nnz(op.M_res) + nnz(op.b_bank[k]) + 2 * nc + nx
+               + 2 * (nx + 2 * nc)) * size + op.rhos.numel() * 4 + 8 * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops, flops
+
+
+def phase_k3_timing(card, fused, loop_rate, scan_step_s):
+    """K3 per solve at the protocol's sizes by CUDA events, beside the loop
+    path's solve() on the same instance, the plain version and the bound;
+    the fused MPC rollout's steps/s by bench.py's two-point protocol."""
+    import torch
+    from reluqp_tpu_torch import ReLU_QP
+    from reluqp_tpu_torch.models.mpc import mpc_rollout_scan
+    from reluqp_tpu_torch.ops.solve_kernel import full_solve, full_solve_ref
+    from reluqp_tpu_torch.utils.problems import rand_qp
+    kw_p = dict(precision="float32", eps_abs=1e-4, scaling=True)
+    rows = {}
+    for nx in (100, 323, 500):
+        inst = rand_qp(nx, nx // 4, nx // 4, seed=0, compute_sol=False)[:5]
+        m = fused_solver(inst, **kw_p)
+        op, kw = m._fused_call()
+        y0 = torch.zeros_like(m.y)
+        rho0 = m.rho_ind
+        stats = full_solve(op, y0, rho0, **kw)[1].cpu().numpy()
+        assert stats[5] == 1, (nx, stats)
+        ms = _time_ms(lambda: full_solve(op, y0, rho0, **kw), 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full_solve_ref(op, y0, rho0, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        loop = ReLU_QP()
+        loop.setup(*inst, **kw_p)
+        loop_s = []
+        for _ in range(3):
+            loop.clear_primal_dual()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = loop.solve()
+            loop_s.append(time.perf_counter() - t0)
+            assert r.info.status == "solved"
+        bound, by, t_b, t_o, flops = k3_bound_ms(op, kw, stats)
+        rows[nx] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, loop_ms=min(loop_s) * 1e3,
+                        iters=int(stats[0]), dp=m.Dp)
+        log(f"phase 12 K3 nx={nx} (Dp={m.Dp}, fp32, cold, {int(stats[0])} "
+            f"it, rung {int(stats[4])}): {ms:.5f} ms per solve by CUDA "
+            f"events ({ms * 1e3 / stats[0]:.3f} us/iteration); loop path "
+            f"solve() {min(loop_s) * 1e3:.3f} ms (min of 3, {r.info.iter} "
+            f"it); plain version {plain_ms:.3f} ms; bound {bound:.6f} ms "
+            f"({by}: {t_b:.6f} ms bytes, {t_o:.6f} ms operations, "
+            f"{flops:.0f} flop at the operands' nonzeros), "
+            f"{ms / bound:.0f}x the bound, on {card}")
+
+    ctrl = fused["ctrl"]
+    _, _, _, _, x0 = mpc_config()
+    rng = np.random.RandomState(8)
+
+    def rollout_s(T):
+        x = x0 + 5e-5 * rng.randn(MPC_NX)   # fresh inputs every call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs, _, _ = mpc_rollout_scan(ctrl.solver, ctrl.prob, x, T,
+                                    kernel="fused", check_interval="auto")
+        float(xs[-1].sum())
+        return time.perf_counter() - t0
+
+    lo, hi = FUSED_TWO_POINT_T
+    t_lo = min(rollout_s(lo) for _ in range(5))
+    t_hi = min(rollout_s(hi) for _ in range(5))
+    step_s = (t_hi - t_lo) / (hi - lo)
+    log(f"phase 12 two-point (T={lo}: {t_lo * 1e3:.3f} ms, T={hi}: "
+        f"{t_hi * 1e3:.3f} ms, min of 5): {step_s * 1e6:.3f} us/step = "
+        f"{1 / step_s:.1f} steps/s through kernel='fused', against "
+        f"{1 / scan_step_s:.1f} steps/s through kernel='scan' (phase 9) and "
+        f"{loop_rate:.1f} on the loop path (phase 6), on {card}")
+    st = ctrl.solver.settings
+    from reluqp_tpu_torch.models.mpc import auto_check_interval
+    ci = auto_check_interval(fused["its"][:8].numpy(), st.check_interval,
+                             st.max_iter)
+    ctrl.solver.y, ctrl.solver.rho_ind = fused["y_f"], fused["rho_f"]
+    profile_steps("phase 12", ctrl, fused["xs"][-1], 200, kernel="fused",
+                  ci=ci)
+    log("phase 12 OK")
+    return dict(rows=rows, step_s=step_s)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -725,13 +1113,19 @@ def main():
     phase_build()
     errs = phase_kernel_check()
     timing = phase_timing()
-    launches = phase_canonical() + phase_protocol()
+    launches = phase_canonical()
+    protocol = phase_protocol()
+    launches += protocol[0]
     mpc = phase_mpc(card)
     launches += mpc["launches"]
     k2_errs = phase_k2_check()
     scan = phase_scan(card, mpc)
     k2 = phase_scan_timing(card, scan, mpc["rate"])
+    k3_errs = phase_k3_check()
+    fused = phase_fused_main(card, mpc, protocol)
+    k3 = phase_k3_timing(card, fused, mpc["rate"], k2["step_s"])
     t = timing[640]
+    k3_row = k3["rows"][100]
     kernels = [{
         "name": "K1 fused_chunk (Dp=640, R=1, 25 steps, fp32 highest)",
         "route": "cuda",
@@ -753,6 +1147,18 @@ def main():
         "max_abs_err": k2_errs[(640, "float32")],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None,
+    }, {
+        # per cold solve; no single PyTorch call computes a whole solve
+        "name": f"K3 full_solve (protocol nx=100, Dp={k3_row['dp']}, fp32, "
+                f"one cold solve of {k3_row['iters']} iterations)",
+        "route": "cuda",
+        "source": "reluqp_tpu_torch/csrc/full_solve.cu",
+        "replaces": "reluqp_tpu/ops/solve_kernel.py:336",
+        "launches": fused["launches"],
+        "max_abs_err": k3_errs[(256, "float32")],
+        "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
+        "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
         "library_ms": None,
     }]
     log("card:", card)

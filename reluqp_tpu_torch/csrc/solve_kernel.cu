@@ -45,41 +45,22 @@
 //     non-coherent L1, since another SM wrote them in this launch). A warm
 //     step at one iteration per window takes four barriers: iteration,
 //     residual partials, u, x+.
-//   * Cross-block decisions: each block writes its four residual partial
-//     maxima to a (grid, 4) array; after the barrier every block reduces
-//     the whole array. A max is exact in any order, so every block reaches
-//     bit-identical pri/dua/rho and takes identical branches around every
-//     grid.sync() (no atomics, no block-local decision).
+//   * Cross-block decisions: each block writes its residual partial maxima
+//     to one row of a (grid, 8) array; after the barrier every block
+//     reduces the whole array. A max is exact in any order, so every block
+//     reaches bit-identical pri/dua/rho and takes identical branches around
+//     every grid.sync() (no atomics, no block-local decision).
 //   * The scalar state (rung, resident rung, rho, k, status) never leaves
 //     the device inside a launch; the start rung is a launch argument.
+//   * Step 2 is the device solve loop shared with K3 (csrc/solve_loop.cuh),
+//     with K3's options off and the first window always run.
 //
 // Plain C interface, built with nvcc into a shared library and called with
 // ctypes. Entries return a cudaError_t (0 on success), checked right after
 // the launch: a cooperative launch that asks for more blocks than can be
 // co-resident is otherwise refused silently.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// Shared memory kept free for the runtime's own use per block.
-constexpr int kSmemReserve = 1024;
-constexpr float kTinyF = 1e-30f;
-constexpr double kTiny = 1e-30;
-
-enum { DT_F32 = 0, DT_F64 = 1, DT_BF16 = 2 };
-enum { TIER_HIGHEST = 0, TIER_HIGH = 1, TIER_BF16 = 2 };
-enum { ST_RUNNING = -1, ST_MAXITER = 0, ST_SOLVED = 1 };
-
-}  // namespace
+#include "solve_loop.cuh"
 
 // Launch parameters, mirrored field by field by _K2Params in
 // reluqp_tpu_torch/ops/solve_kernel.py. Device pointers of distinct
@@ -94,115 +75,6 @@ struct K2Params {
 };
 
 namespace {
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(double x) { return static_cast<float>(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T cvt(float x) { return static_cast<T>(x); }
-template <typename T> __device__ __forceinline__ T cvt(double x) { return static_cast<T>(x); }
-template <typename T> __device__ __forceinline__ T cvt(__nv_bfloat16 x) {
-  return static_cast<T>(__bfloat162float(x));
-}
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// NaN-propagating max (a NaN residual must not be dropped, as fmax would).
-template <typename T>
-__device__ __forceinline__ T nmax(T a, T b) {
-  return (a > b || a != a) ? a : b;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_max(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = nmax(v, __shfl_down_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// One block's share [lo, lo + n) of an index space of size `total`.
-struct Range {
-  int lo, n;
-};
-
-__device__ __forceinline__ Range split(int total, int nblocks, int b) {
-  const int lo = (int)((long long)b * total / nblocks);
-  const int hi = (int)((long long)(b + 1) * total / nblocks);
-  return Range{lo, hi - lo};
-}
-
-__host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// Columns of a row-major operand, as held by one block: element i of owned
-// column c is p[i * si + c * sc] -- (slab, 1, rows) when the columns sit
-// transposed in shared memory, (base + col0, ld, 1) when read from global.
-template <typename MT>
-struct Cols {
-  const MT* p;
-  int si, sc;
-  __device__ __forceinline__ const MT* col(int c) const { return p + (size_t)c * sc; }
-};
-
-// Copy columns [col0, col0 + ncols) of a row-major (rows, ld) matrix into
-// dst[c * rows + i], and return the accessor; or return the global one.
-template <typename MT>
-__device__ Cols<MT> take_cols(MT* dst, const MT* src, int rows, int ld, int col0,
-                              int ncols, bool resident) {
-  if (!resident) return Cols<MT>{src + col0, ld, 1};
-  for (int t = threadIdx.x; t < rows * ncols; t += kThreads) {
-    const int i = t / ncols;
-    const int c = t - i * ncols;
-    dst[(size_t)c * rows + i] = src[(size_t)i * ld + col0 + c];
-  }
-  return Cols<MT>{dst, 1, rows};
-}
-
-// Full-precision dot of a vector in shared memory with one column, summed
-// in T over a warp, then rounded to fp32 (the TPU kernel's dot result).
-template <typename T, typename MT>
-__device__ __forceinline__ float dot32(const T* v, const MT* col, int si, int n, int lane) {
-  T a = T(0);
-  for (int i = lane; i < n; i += 32) a += v[i] * cvt<T>(col[(size_t)i * si]);
-  return static_cast<float>(warp_sum(a));
-}
-
-// The iteration product y . W[:, j] at the tier: "high" sums its three
-// bf16-split passes in fp32, "bf16" is one pass of bf16-rounded inputs.
-template <typename T, typename WT>
-__device__ __forceinline__ float iter_dot(const T* y, const WT* w, int si, int n,
-                                          int lane, int tier) {
-  if (tier == TIER_HIGHEST) return dot32<T, WT>(y, w, si, n, lane);
-  if (tier == TIER_HIGH) {
-    T a0 = T(0), a1 = T(0), a2 = T(0);
-    for (int i = lane; i < n; i += 32) {
-      const float yv = to_f(y[i]);
-      const float wv = to_f(w[(size_t)i * si]);
-      const float yh = bf16r(yv), yl = bf16r(yv - yh);
-      const float wh = bf16r(wv), wl = bf16r(wv - wh);
-      // products of two bf16 values are exact in fp32
-      a0 += static_cast<T>(yh * wl);
-      a1 += static_cast<T>(yl * wh);
-      a2 += static_cast<T>(yh * wh);
-    }
-    const float s0 = static_cast<float>(warp_sum(a0));
-    const float s1 = static_cast<float>(warp_sum(a1));
-    const float s2 = static_cast<float>(warp_sum(a2));
-    return (s0 + s1) + s2;
-  }
-  T a = T(0);
-  for (int i = lane; i < n; i += 32)
-    a += static_cast<T>(bf16r(to_f(y[i])) * bf16r(to_f(w[(size_t)i * si])));
-  return static_cast<float>(warp_sum(a));
-}
 
 template <typename T, typename WT>
 struct Args {
@@ -224,8 +96,6 @@ struct Layout {
   size_t w, ma, glz, glg, glk, gla, mra, mrz, mrh, mrl, su, bd;  // slabs
   size_t small_end, total;
 };
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
 template <typename T, typename WT>
 __host__ __device__ Layout make_layout(int dp, int nxp, int ncp, int nup, int nplp,
@@ -269,12 +139,6 @@ __host__ __device__ Layout make_layout(int dp, int nxp, int ncp, int nup, int np
   return L;
 }
 
-// Decisions every block computes identically after the residual barrier.
-struct Decision {
-  int k_idx, status;
-  float rho, pri, dua;
-};
-
 template <typename T, typename WT>
 __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   cg::grid_group grid = cg::this_grid();
@@ -289,10 +153,8 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   T* ys = sm(L.ys);
   T* xv = sm(L.xv);
   T* uv = sm(L.uv);
-  T *lo_s = sm(L.lo), *hi_s = sm(L.hi), *b_s = sm(L.b);
+  T *lo_s = sm(L.lo), *hi_s = sm(L.hi);
   T *g_s = sm(L.g), *kx_s = sm(L.kx), *ax_s = sm(L.ax);
-  float* rr = reinterpret_cast<float*>(smem + L.rr);
-  Decision* dec = reinterpret_cast<Decision*>(smem + L.dec);
 
   const Range ry = split(dp, G, blk), rc = split(ncp, G, blk);
   const Range rv = split(nxp, G, blk), ru = split(nup, G, blk);
@@ -304,25 +166,59 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   const Cols<T> glk = take_cols(sm(L.glk), a.gl, nplp, R2, nxp + dp + ru.lo, ru.n, res);
   const Cols<T> gla =
       take_cols(sm(L.gla), a.gl, nplp, R2, nxp + dp + nup + rx.lo, rx.n, res);
-  const Cols<T> mra = take_cols(sm(L.mra), a.m_res, dp, R, rc.lo, rc.n, res);
-  const Cols<T> mrz = take_cols(sm(L.mrz), a.m_res, dp, R, ncp + rc.lo, rc.n, res);
-  const Cols<T> mrh = take_cols(sm(L.mrh), a.m_res, dp, R, 2 * ncp + rv.lo, rv.n, res);
-  const Cols<T> mrl =
-      take_cols(sm(L.mrl), a.m_res, dp, R, 2 * ncp + nxp + rv.lo, rv.n, res);
   const Cols<T> su = take_cols(sm(L.su), a.s_u, dp, nup, ru.lo, ru.n, res);
   const Cols<T> bd = take_cols(sm(L.bd), a.bdw, nup, nplp, rx.lo, rx.n, res);
-  Cols<WT> wc{};
-  Cols<T> mac{};
+
+  // The warm solve of every step runs the shared solve loop; the K3
+  // options stay off (value-initialised).
+  Loop<T, WT, AccState<T>> s{};
+  s.dp = dp;
+  s.ncp = ncp;
+  s.nplp = nplp;
+  s.n_rho = a.n_rho;
+  s.ry = ry;
+  s.rc = rc;
+  s.rv = rv;
+  s.ys = ys;
+  s.lo_s = lo_s;
+  s.hi_s = hi_s;
+  s.b_s = sm(L.b);
+  s.g_s = g_s;
+  s.rr = reinterpret_cast<float*>(smem + L.rr);
+  s.dec = reinterpret_cast<Decision*>(smem + L.dec);
+  s.xv = xv;
+  s.w_slab = reinterpret_cast<WT*>(smem + L.w);
+  s.ma_slab = sm(L.ma);
+  s.mra = take_cols(sm(L.mra), a.m_res, dp, R, rc.lo, rc.n, res);
+  s.mrz = take_cols(sm(L.mrz), a.m_res, dp, R, ncp + rc.lo, rc.n, res);
+  s.mrh = take_cols(sm(L.mrh), a.m_res, dp, R, 2 * ncp + rv.lo, rv.n, res);
+  s.mrl = take_cols(sm(L.mrl), a.m_res, dp, R, 2 * ncp + nxp + rv.lo, rv.n, res);
+  s.wt = a.wt;
+  s.bias_c = a.bias_c;
+  s.m_aff = a.m_aff;
+  s.rhos = a.rhos;
+  s.ybuf = a.ybuf;
+  s.part = a.part;
+  s.resident = res;
+  s.resident_rung = -1;
+  s.parity = 0;
+  s.limit = a.limit;
+  s.ci = a.ci;
+  s.adaptive = a.adaptive;
+  s.jump = a.jump;
+  s.stride = a.stride;
+  s.eps_pri = a.eps_pri;
+  s.eps_dua = a.eps_dua;
+  s.tol = a.tol;
+  s.rho_min = a.rho_min;
+  s.rho_max = a.rho_max;
 
   for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = a.y0[i];
   for (int i = threadIdx.x; i < nplp; i += kThreads) xv[i] = a.x0[i];
   int k_idx = a.rho0 < 0 ? 0 : (a.rho0 >= a.n_rho ? a.n_rho - 1 : a.rho0);
-  int resident_rung = -1;
-  int parity = 0;
   __syncthreads();
 
   const int n_ref = ry.n + rv.n + ru.n + rx.n;
-  const int n_res = 2 * rc.n + 2 * rv.n;
   for (int t = 0; t < a.n_steps; ++t) {
     // 1. refresh: this block's columns of x @ GL
     for (int p = warp; p < n_ref; p += kWarps) {
@@ -338,7 +234,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
         q -= ru.n;
         col = gla.col(q), si = gla.si;
       }
-      const T r = static_cast<T>(dot32<T, T>(xv, col, si, nplp, lane));
+      const T r = static_cast<T>(dot32<AccState<T>, T, T>(xv, col, si, nplp, lane));
       if (lane == 0) {
         if (p < ry.n) {
           const int j = ry.lo + p;
@@ -354,144 +250,15 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
       }
     }
 
-    // 2. the warm solve, whole windows; every branch below is decided from
-    //    values that all blocks hold identically
-    float rho = a.rhos[k_idx];
-    float pri = 0.f, dua = 0.f;
-    int k = 0, status = ST_RUNNING;
-    do {
-      if (k_idx != resident_rung) {
-        __syncthreads();
-        wc = take_cols(reinterpret_cast<WT*>(smem + L.w), a.wt + (size_t)k_idx * dp * dp,
-                       dp, dp, ry.lo, ry.n, res);
-        mac = take_cols(sm(L.ma), a.m_aff + (size_t)k_idx * nplp * dp, nplp, dp,
-                        ry.lo, ry.n, res);
-        resident_rung = k_idx;
-        __syncthreads();
-      }
-      for (int p = warp; p < ry.n; p += kWarps) {
-        const float r = dot32<T, T>(xv, mac.col(p), mac.si, nplp, lane);
-        if (lane == 0)
-          b_s[p] = a.bias_c[(size_t)k_idx * dp + ry.lo + p] + static_cast<T>(r);
-      }
-      __syncthreads();
-      for (int s = 0; s < a.ci; ++s) {
-        T* dst = a.ybuf + (size_t)parity * dp;
-        parity ^= 1;
-        for (int p = warp; p < ry.n; p += kWarps) {
-          const float r = iter_dot<T, WT>(ys, wc.col(p), wc.si, dp, lane, a.tier);
-          if (lane == 0) {
-            T v = static_cast<T>(r) + b_s[p];
-            // comparisons (not fmin/fmax) so a NaN propagates like jnp.clip
-            v = v < lo_s[p] ? lo_s[p] : v;
-            v = v > hi_s[p] ? hi_s[p] : v;
-            dst[ry.lo + p] = v;
-          }
-        }
-        grid.sync();
-        for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = __ldcg(dst + i);
-        __syncthreads();
-      }
-
-      // residuals: this block's columns of y @ M_res, then its partials
-      for (int p = warp; p < n_res; p += kWarps) {
-        const Cols<T>* m;
-        int q = p;
-        if (q < rc.n) {
-          m = &mra;
-        } else if ((q -= rc.n) < rc.n) {
-          m = &mrz;
-        } else if ((q -= rc.n) < rv.n) {
-          m = &mrh;
-        } else {
-          q -= rv.n;
-          m = &mrl;
-        }
-        const float r = dot32<T, T>(ys, m->col(q), m->si, dp, lane);
-        if (lane == 0) rr[p] = r;
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float p_pri = 0.f, p_sp = 0.f;
-        T p_dua = T(0), p_sd = T(0);
-        for (int i = 0; i < rc.n; ++i) {
-          const float ax = rr[i], z = rr[rc.n + i];
-          p_pri = nmax(p_pri, fabsf(ax - z));
-          p_sp = nmax(p_sp, nmax(fabsf(ax), fabsf(z)));
-        }
-        for (int i = 0; i < rv.n; ++i) {
-          const float hx = rr[2 * rc.n + i], atl = rr[2 * rc.n + rv.n + i];
-          const T d = static_cast<T>(hx + atl) + g_s[i];
-          p_dua = nmax(p_dua, d < T(0) ? -d : d);
-          p_sd = nmax(p_sd, static_cast<T>(nmax(fabsf(hx), fabsf(atl))));
-          p_sd = nmax(p_sd, g_s[i] < T(0) ? -g_s[i] : g_s[i]);
-        }
-        double* pp = a.part + (size_t)blk * 4;
-        pp[0] = p_pri;
-        pp[1] = static_cast<double>(p_dua);
-        pp[2] = p_sp;
-        pp[3] = static_cast<double>(p_sd);
-      }
-      grid.sync();
-      if (warp == 0) {
-        double m[4] = {0.0, 0.0, 0.0, 0.0};
-        for (int q = lane; q < G; q += 32)
-          for (int c = 0; c < 4; ++c) m[c] = nmax(m[c], __ldcg(a.part + (size_t)q * 4 + c));
-        for (int c = 0; c < 4; ++c) m[c] = warp_max(m[c]);
-        if (lane == 0) {
-          const float prif = static_cast<float>(m[0]);
-          const float spf = static_cast<float>(m[2]);
-          const T duaT = static_cast<T>(m[1]), sdT = static_cast<T>(m[3]);
-          const float num = prif / nmax(spf, kTinyF);
-          const T den = duaT / nmax(sdT, static_cast<T>(kTiny));
-          T rn = static_cast<T>(rho) *
-                 sqrt(static_cast<T>(num) / nmax(den, static_cast<T>(kTiny)));
-          rn = rn < static_cast<T>(a.rho_min) ? static_cast<T>(a.rho_min) : rn;
-          rn = rn > static_cast<T>(a.rho_max) ? static_cast<T>(a.rho_max) : rn;
-          const float rho_new = static_cast<float>(rn);
-          const float duaf = static_cast<float>(duaT);
-          int nk = k_idx;
-          if (a.adaptive) {
-            const float rho_k = a.rhos[k_idx];
-            const bool above = rho_new > rho_k * a.tol;
-            const bool below = rho_new < rho_k / a.tol;
-            if (a.jump) {
-              const float target = logf(rho_new);
-              float best = INFINITY;
-              int nearest = 0;
-              for (int ri = 0; ri < a.n_rho; ++ri) {
-                const float dd = fabsf(logf(a.rhos[ri]) - target);
-                if (dd < best) best = dd, nearest = ri;
-              }
-              if (above || below) nk = nearest;
-            } else {
-              const bool up = above && k_idx < a.n_rho - 1;
-              const bool dn = below && k_idx > 0 && !up;
-              nk = k_idx + (int)up - (int)dn;
-            }
-            if (a.stride > 1 && ((k / a.ci) + 1) % a.stride != 0) nk = k_idx;
-          }
-          const bool solved = prif < a.eps_pri && duaf < a.eps_dua;
-          dec->k_idx = nk;
-          dec->status = (solved && status < 0) ? ST_SOLVED : status;
-          dec->rho = rho_new;
-          dec->pri = prif;
-          dec->dua = duaf;
-        }
-      }
-      __syncthreads();
-      k_idx = dec->k_idx;
-      status = dec->status;
-      rho = dec->rho;
-      pri = dec->pri;
-      dua = dec->dua;
-      k += a.ci;
-    } while (status < 0 && k < a.limit);
-    if (status < 0) status = ST_MAXITER;
+    // 2. the warm solve, whole windows, the first one always
+    LoopState st{k_idx, 0, ST_RUNNING, a.rhos[k_idx], 0.f, 0.f};
+    run_solve(s, grid, st, a.tier, true, false, 0);
+    k_idx = st.k_idx;
+    if (st.status < 0) st.status = ST_MAXITER;
 
     // 3. u = y @ S_u - Kx on this block's u lanes, then x+ on its x lanes
     for (int p = warp; p < ru.n; p += kWarps) {
-      const T v0 = static_cast<T>(dot32<T, T>(ys, su.col(p), su.si, dp, lane));
+      const T v0 = static_cast<T>(dot32<AccState<T>, T, T>(ys, su.col(p), su.si, dp, lane));
       if (lane == 0) {
         const T u = v0 - kx_s[p];
         a.ubuf[ru.lo + p] = u;
@@ -502,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
     for (int i = threadIdx.x; i < nup; i += kThreads) uv[i] = __ldcg(a.ubuf + i);
     __syncthreads();
     for (int p = warp; p < rx.n; p += kWarps) {
-      const T d = static_cast<T>(dot32<T, T>(uv, bd.col(p), bd.si, nup, lane));
+      const T d = static_cast<T>(dot32<AccState<T>, T, T>(uv, bd.col(p), bd.si, nup, lane));
       if (lane == 0) {
         const int i = rx.lo + p;
         const T xn = (ax_s[p] + d) + a.noise[(size_t)t * nplp + i];
@@ -511,15 +278,15 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
       }
     }
     if (blk == 0 && threadIdx.x == 0) {
-      float* st = a.stats + (size_t)t * 8;
-      st[0] = (float)k;
-      st[1] = pri;
-      st[2] = dua;
-      st[3] = rho;
-      st[4] = (float)k_idx;
-      st[5] = (float)status;
-      st[6] = 0.f;
-      st[7] = 0.f;
+      float* out = a.stats + (size_t)t * 8;
+      out[0] = (float)st.k;
+      out[1] = st.pri;
+      out[2] = st.dua;
+      out[3] = st.rho;
+      out[4] = (float)k_idx;
+      out[5] = (float)st.status;
+      out[6] = 0.f;
+      out[7] = 0.f;
     }
     grid.sync();
     for (int i = threadIdx.x; i < nplp; i += kThreads) xv[i] = __ldcg(a.xbuf + i);

@@ -12,9 +12,9 @@
 - ``mpc_rollout_scan``: the closed loop (state feedback → QP refresh →
   warm-started solve → plant step) with the plant state kept on the
   device. ``kernel="loop"`` runs each step's solve through the solve loop
-  (kernel K1 on CUDA); ``kernel="scan"`` runs the whole rollout segment as
-  one launch of the whole-rollout kernel K2; the whole-solve kernel K3
-  (``kernel="fused"``) is a later slice.
+  (kernel K1 on CUDA); ``kernel="fused"`` runs each step's whole solve as
+  one launch of the whole-solve kernel K3; ``kernel="scan"`` runs the
+  whole rollout segment as one launch of the whole-rollout kernel K2.
 
 Condensed form (prestabilized with ``u_k = -K x_k + v_k``,
 ``Ā = Ad - Bd K``): stacking stage vectors ``s_k = [u_{k-1}; x_k]`` for
@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..ops.fused_step import pad_dim
-from ..ops.solve_kernel import build_residual_operator, full_rollout
+from ..ops.solve_kernel import (FullSolveOperand, build_residual_operator,
+                                full_rollout, full_solve)
 
 __all__ = [
     "ihlqr",
@@ -463,8 +464,12 @@ def mpc_rollout_scan(solver, prob: CondensedMPC, x_init, n_steps: int,
         iter_precision="highest" or refine=False, and an iteration budget
         of at least one check window (the budget is rounded down to whole
         windows); "auto" takes "scan" on CUDA whenever it is eligible,
-        else "loop" (always "loop" on the CPU); "fused" (whole-solve
-        kernel K3 per step) raises NotImplementedError.
+        else "loop" (always "loop" on the CPU), never "fused"; "fused" —
+        each control step's whole solve as ONE launch of the whole-solve
+        kernel K3 (``ops.solve_kernel.full_solve``; its plain version on
+        the CPU), which needs alpha=1, no infeasibility checks and the
+        lane-padded layout (any iteration budget: K3 runs the
+        ``max_iter % check_interval`` tail window).
       check_interval: ``None`` uses the solver settings; an int
         overrides; ``"auto"`` runs the first ``calib_steps`` steps at ci=1
         and sizes the window so every warm step certifies at its first
@@ -533,10 +538,13 @@ def _dispatch_rollout(solver, prob, x_init, n_steps, solve_max_iter,
         raise ValueError("kernel must be 'loop', 'fused', 'scan' or "
                          "'auto'")
     if kernel == "fused":
-        raise NotImplementedError(
-            "kernel='fused' runs the whole-solve kernel K3 "
-            "(ops/solve_kernel.py full_solve) per step, which is not ported "
-            "yet; use kernel='scan' or 'loop'")
+        if not _kernel_rollout_eligible(solver):
+            raise ValueError(
+                "kernel='fused' rollout needs alpha=1, no infeasibility "
+                "checks, the fp64 bias masters, and the lane-padded layout "
+                "(not backend='xla')")
+        return _kernel_rollout(solver, prob, x_init, n_steps, solve_max_iter,
+                               ci, y0, rho_ind0, noise)
     stng = solver.settings
     if kernel == "auto":
         # K2 on the card by the static gate, with no fallback: once picked
@@ -594,6 +602,140 @@ def _dispatch_rollout(solver, prob, x_init, n_steps, solve_max_iter,
         check_infeasibility=bool(stng.check_infeasibility),
         eps_prim_inf=float(stng.eps_prim_inf),
         eps_dual_inf=float(stng.eps_dual_inf))
+
+
+def _kernel_rollout_eligible(solver) -> bool:
+    """Gate for the whole-solve-kernel rollout (K3 per control step): alpha=1,
+    no infeasibility certificates, the fp64 bias master, and the solver's
+    lane-padded layout (the rollout hands ``solver.bank.W`` to K3 as it
+    is). The TPU's Mosaic and VMEM clauses do not apply on the card."""
+    stng = solver.settings
+    return (stng.alpha == 1.0 and not stng.check_infeasibility
+            and getattr(solver, "_B_np", None) is not None
+            and solver.Dp == pad_dim(solver.D))
+
+
+def _fused_operands(solver, prob: CondensedMPC) -> dict:
+    """The constant operands of the whole-solve-kernel rollout, cached on
+    the solver per prob and bank: the residual operator, the state-affine
+    bias ``b_k(x) = c_k + x @ M_aff[k]`` (c_k as the bank rows, M_aff
+    (N, nplp, Dp) transposed and lane-padded from the fp64 master), the
+    stacked refresh map [wd·Ḡx; Ē·LUx] and the plant maps, in the
+    solver's dtype on its device."""
+    cache = getattr(solver, "_fused_ops_cache", None)
+    if cache is not None and cache[0] == id(prob) \
+            and cache[3] is solver.bank.W:
+        return cache[1]
+    stng = solver.settings
+    dtype, dev = stng.precision_dtype, stng.device
+    cst = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                    device=dev)
+    nu, npl = prob.K.shape
+    sc = solver.scal
+    gD = sc.c * sc.D
+    g0_s = gD * prob.g0
+    gx0_s = gD[:, None] * prob.g_x0
+    wd = np.ones(solver.nx) if solver._w_dua_np is None \
+        else np.asarray(solver._w_dua_np, np.float64)
+    M_res, _, nxp, ncp = build_residual_operator(
+        solver._H_s, solver._A_s, solver._g_s, solver.Dp, dtype,
+        w_pri=solver._w_pri_np, w_dua=solver._w_dua_np, device=dev)
+    # M's storage rounding is accepted here, as in the JAX package (the
+    # loop path's M_lo compensation is below the fp32 iterate's own noise)
+    c64, M64 = _affine_bias_fp64(solver._B_np, g0_s, gx0_s)
+    nplp = pad_dim(npl)
+    M_aff = np.zeros((c64.shape[0], nplp, solver.Dp))
+    M_aff[:, :npl, :] = np.swapaxes(M64, 1, 2)
+    ops = dict(
+        M_res=M_res, M_aff=cst(M_aff), bias_c=cst(c64),
+        gl_map=cst(np.concatenate([wd[:, None] * gx0_s,
+                                   sc.E[:, None] * prob.lu_x0], axis=0)),
+        g0w=cst(wd * g0_s), l0=cst(sc.E * prob.l0), u0=cst(sc.E * prob.u0),
+        Kg=cst(prob.K), Ad=cst(solver_plant_A(prob)),
+        Bd=cst(solver_plant_B(prob)), v0_scale=cst(sc.D[:nu]), nxp=nxp,
+        ncp=ncp, nplp=nplp)
+    # prob is held so that its id stays unique while the entry lives
+    solver._fused_ops_cache = (id(prob), ops, prob, solver.bank.W)
+    return ops
+
+
+def _fused_step(solver, ops: dict, x):
+    """One control step's K3 operand and state-affine bias for the plant
+    state ``x`` (npl,): the refreshed weighted g row and bounds, and
+    ``(M_aff, x_row)``. Returns ``(op, bias_affine)``."""
+    dtype, dev = x.dtype, x.device
+    nx, nc, Dp = solver.nx, solver.nc, solver.Dp
+    gs = ops["gl_map"] @ x
+    g_row = torch.zeros((1, ops["nxp"]), dtype=dtype, device=dev)
+    g_row[0, :nx] = ops["g0w"] + gs[:nx]
+    lo = torch.full((Dp,), -float("inf"), dtype=dtype, device=dev)
+    hi = torch.full((Dp,), float("inf"), dtype=dtype, device=dev)
+    lo[nx:nx + nc] = ops["l0"] + gs[nx:]
+    hi[nx:nx + nc] = ops["u0"] + gs[nx:]
+    x_row = torch.zeros((ops["nplp"],), dtype=dtype, device=dev)
+    x_row[:x.shape[0]] = x
+    op = FullSolveOperand(Wt_bank=solver.bank.W, b_bank=ops["bias_c"],
+                          rhos=solver.bank.rhos, M_res=ops["M_res"],
+                          g_row=g_row, lo=lo, hi=hi)
+    return op, (ops["M_aff"], x_row)
+
+
+def _fused_kw(solver, ops: dict, solve_max_iter=None, ci=None) -> dict:
+    """The settings of the rollout's K3 launches."""
+    stng = solver.settings
+    return dict(nx=solver.nx, nc=solver.nc, nxp=ops["nxp"], ncp=ops["ncp"],
+                max_iter=solve_max_iter or stng.max_iter,
+                check_interval=stng.check_interval if ci is None
+                else int(ci),
+                adaptive_rho=stng.adaptive_rho,
+                adaptive_rho_tolerance=float(stng.adaptive_rho_tolerance),
+                eps_abs=float(stng.eps_abs), rho_min=float(stng.rho_min),
+                rho_max=float(stng.rho_max), rho_jump=bool(stng.rho_jump),
+                adaptive_rho_interval=int(stng.adaptive_rho_interval),
+                iter_precision=stng.iter_precision,
+                refine=bool(stng.refine), verbose=bool(stng.verbose))
+
+
+def _kernel_rollout(solver, prob: CondensedMPC, x_init, n_steps: int,
+                    solve_max_iter, ci, y0, rho_ind0, noise):
+    """The whole-solve-kernel rollout: per control step the whole solve,
+    with the state-affine bias refreshed inside, is ONE launch of K3
+    (``full_solve``); the g/bound refresh (``_fused_step``) and the plant
+    step are plain torch between launches. The start rung of each solve is
+    the previous solve's final rung, read on the device, so nothing syncs
+    until the per-step stats are read once at the end. Returns
+    ``(states, controls, iters, status, y_final, rho_ind_final)`` like the
+    other paths."""
+    stng = solver.settings
+    dtype, dev = stng.precision_dtype, stng.device
+    ops = _fused_operands(solver, prob)
+    kw = _fused_kw(solver, ops, solve_max_iter, ci)
+    nu, npl = prob.K.shape
+    x = (x_init.to(device=dev, dtype=dtype) if isinstance(x_init, torch.Tensor)
+         else torch.as_tensor(np.asarray(x_init, np.float64), dtype=dtype,
+                              device=dev)).reshape(npl)
+    y = solver.y if y0 is None else y0
+    rho0 = int(solver.rho_ind if rho_ind0 is None else rho_ind0)
+    rho = (torch.tensor([rho0], dtype=torch.int32, device=dev)
+           if dev.type == "cuda" else rho0)
+    xs, us, stats = [x], [], []
+    for t in range(n_steps):
+        op, bias = _fused_step(solver, ops, x)
+        y, st = full_solve(op, y, rho, bias, **kw)
+        rho = (st[4:5].to(torch.int32) if dev.type == "cuda"
+               else int(st[4]))
+        u = -(ops["Kg"] @ x) + y[:nu] * ops["v0_scale"]
+        x = ops["Ad"] @ x + ops["Bd"] @ u + noise[t]
+        xs.append(x)
+        us.append(u)
+        stats.append(st)
+    # the segment's one device→host read
+    st = torch.stack(stats).cpu() if stats else torch.zeros((0, 8))
+    us_t = torch.stack(us) if us else torch.zeros((0, nu), dtype=dtype,
+                                                  device=dev)
+    rho_f = int(st[-1, 4]) if n_steps else rho0
+    return (torch.stack(xs), us_t, st[:, 0].to(torch.int32),
+            st[:, 5].to(torch.int32), y, rho_f)
 
 
 def _scan_rollout_eligible(solver, ci=None, budget=None) -> bool:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc -shared`` for ``sm_90a`` into ``reluqp_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use, under a file name keyed by a hash of the
-source and the flags, and loaded with ``ctypes``. A later process reuses
-the library while the source is unchanged. Nothing here runs at import.
+source, the shared headers ``csrc/*.cuh`` and the flags, and loaded with
+``ctypes``. A later process reuses the library while none of those
+changes. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -42,8 +43,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every shared header ``csrc/*.cuh`` (any source may include any) and the
+    flags: a change to any of them builds anew."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

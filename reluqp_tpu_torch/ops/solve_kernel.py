@@ -1,4 +1,5 @@
-"""Residual operator and the whole-rollout kernel K2.
+"""Residual operator, the whole-solve kernel K3 and the whole-rollout
+kernel K2.
 
 - ``build_residual_operator``: the one-matmul residual check. With
   lane-aligned segment padding,
@@ -7,39 +8,52 @@
 
   built from rows ``[[Aᵀ,0,H,0],[0,I,0,0],[0,0,0,A]]`` (zero rows in the
   padding keep every segment exact).
+- ``full_solve``: one whole solve (check windows, residuals, the ρ walk,
+  the exit at eps, and the options of ``backend="fused"``: alpha ≠ 1,
+  infeasibility certificates, two-phase refine, verbose, a state-affine
+  bias, the ``max_iter % check_interval`` tail) in ONE launch of the
+  hand-written CUDA kernel ``csrc/full_solve.cu`` for CUDA tensors, or of
+  the plain torch version ``full_solve_ref`` for CPU tensors. Its extra
+  operands come from ``build_alpha_operand`` / ``build_infeas_operand``.
 - ``full_rollout``: T warm-started MPC control steps in ONE launch of the
-  hand-written CUDA kernel ``csrc/solve_kernel.cu`` for CUDA tensors (see
-  its header for the design), or of the plain torch version
-  ``full_rollout_ref`` for CPU tensors. A CUDA tensor never reaches the
-  plain version: the kernel runs or the call raises.
-  ``full_rollout.launches`` counts kernel launches.
+  hand-written CUDA kernel ``csrc/solve_kernel.cu`` for CUDA tensors, or of
+  the plain torch version ``full_rollout_ref`` for CPU tensors.
 
-The whole-solve kernel K3 (``full_solve``) and the batched rollout K6
-(``full_rollout_batched``) are later slices of the port.
+A CUDA tensor never reaches a plain version: the kernel runs or the call
+raises. ``full_solve.launches`` and ``full_rollout.launches`` count kernel
+launches. The kernels share their device solve loop
+(``csrc/solve_loop.cuh``); see the sources' headers for the design. The
+batched rollout K6 (``full_rollout_batched``) is a later slice.
 
-Numerics of the rollout follow the TPU kernel it replaces: every product
-(refresh, bias, iteration, residual, control, plant) is rounded to fp32,
-as the TPU kernel's fp32-result dots are, and then cast to the state dtype
-(a no-op in fp32). The residual maxima, the ρ estimate, the ladder
+Numerics follow the TPU kernels they replace: every product (refresh, bias,
+iteration, residual, selector, certificate, control, plant) is rounded to
+fp32, as the TPU kernels' fp32-result dots are, and then cast to the state
+dtype (a no-op in fp32). K2 sums each product in the state dtype; K3 sums
+in fp64 in the fixed order of ``_lane_dot``, which its kernel follows, so
+the two agree bit for bit. The residual maxima, the ρ estimate, the ladder
 ``rhos`` and the tolerances are fp32 in an fp64 run too.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core.iteration import (_RUNNING, _TINY, STATUS_MAX_ITER,
+from ..core.iteration import (_RUNNING, _TINY, STATUS_DUAL_INFEASIBLE,
+                              STATUS_MAX_ITER, STATUS_PRIMAL_INFEASIBLE,
                               STATUS_SOLVED, rho_update_stride)
 from .fused_step import _DTYPE_CODE, _bf16, pad_dim
 
-__all__ = ["build_residual_operator", "full_rollout", "full_rollout_ref",
-           "rollout_plan"]
+__all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",
+           "build_residual_operator", "build_alpha_operand",
+           "build_infeas_operand", "full_solve", "full_solve_ref",
+           "solve_plan", "full_rollout", "full_rollout_ref", "rollout_plan"]
 
 # Iteration tiers of the rollout: "bf16" one bf16 pass, "high" the bf16x3
 # split, anything else (including "default") full precision — as the TPU
-# rollout kernel maps them.
+# rollout kernel maps them. K3 maps them the same way.
 _ROLLOUT_TIER = {"highest": 0, "default": 0, "high": 1, "bf16": 2}
 
 
@@ -77,8 +91,110 @@ def build_residual_operator(H, A, g, dp: int, dtype, w_pri=None,
     return put(M), put(g_row), nxp, ncp
 
 
+class AlphaOperand(NamedTuple):
+    """Extra operands for the relaxed (alpha != 1) parametrization."""
+
+    S_pz: torch.Tensor      # (Dp, ncp)  y @ S_pz = p − z
+    A_w: torch.Tensor       # (ncp, nxp) w_dua-weighted A: λ @ A_w = w∘Aᵀλ
+    S_sc: torch.Tensor      # (ncp, Dp)  scatter corrections into p slots
+    rho_eff: torch.Tensor   # (N, 1, ncp) fp32 per-rung ρ⃗ (1.0 in the padding)
+
+
+class InfeasOperand(NamedTuple):
+    """Extra operands for in-kernel infeasibility certificates."""
+
+    S_lam: torch.Tensor     # (Dp, ncp)  y @ S_lam = λ (alpha == 1; else 0-size)
+    A_inf: torch.Tensor     # (ncp, nxp) UNWEIGHTED scaled A (δλ @ A_inf = Aᵀδλ)
+    inv_wp: torch.Tensor    # (1, ncp) 1/w_pri (ones when unweighted)
+    inv_wd: torch.Tensor    # (1, nxp) 1/w_dua
+    l_nc: torch.Tensor      # (1, ncp) scaled l (0 in the padding)
+    u_nc: torch.Tensor      # (1, ncp) scaled u (0 in the padding)
+    fin_l: torch.Tensor     # (1, ncp) 1.0 where l finite, else 0
+    fin_u: torch.Tensor     # (1, ncp) 1.0 where u finite, else 0
+    g_dp: torch.Tensor      # (1, Dp) UNWEIGHTED scaled g in the x slot
+
+
+class FullSolveOperand(NamedTuple):
+    """Constant operands of one whole solve, prepared at setup time."""
+
+    Wt_bank: torch.Tensor   # (N, Dp, Dp) transposed padded bank
+    b_bank: torch.Tensor    # (N, Dp)
+    rhos: torch.Tensor      # (N,)
+    M_res: torch.Tensor     # (Dp, R) residual operator
+    g_row: torch.Tensor     # (1, nxp) padded w_dua∘g
+    lo: torch.Tensor        # (Dp,)
+    hi: torch.Tensor        # (Dp,)
+    alpha_op: Optional[AlphaOperand] = None
+    infeas_op: Optional[InfeasOperand] = None
+
+
+def build_alpha_operand(A, rho_eff_np, nx: int, nc: int, dp: int, nxp: int,
+                        ncp: int, dtype, w_dua=None,
+                        device="cpu") -> AlphaOperand:
+    """Host fp64 build of the alpha != 1 selector/scatter operands.
+
+    ``rho_eff_np``: (N, nc) per-rung effective per-row ρ
+    (``core.bank.effective_rho_ladder``). Padding lanes get ρ⃗ = 1 so the
+    rung-switch ratio ρ⃗_old/ρ⃗_new is exactly 1 there (d is 0 anyway).
+    """
+    A = np.asarray(A, dtype=np.float64)
+    wd = np.ones(nx) if w_dua is None else np.asarray(w_dua, np.float64)
+    S_pz = np.zeros((dp, ncp))
+    S_sc = np.zeros((ncp, dp))
+    j = np.arange(nc)
+    S_pz[nx + nc + j, j] = 1.0     # p slot
+    S_pz[nx + j, j] = -1.0         # −z slot
+    S_sc[j, nx + nc + j] = 1.0
+    A_w = np.zeros((ncp, nxp))
+    A_w[:nc, :nx] = A * wd[None, :]
+    reff = np.ones((rho_eff_np.shape[0], 1, ncp))
+    reff[:, 0, :nc] = np.asarray(rho_eff_np, np.float64)
+    put = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)
+    return AlphaOperand(S_pz=put(S_pz), A_w=put(A_w), S_sc=put(S_sc),
+                        rho_eff=put(reff, torch.float32))
+
+
+def build_infeas_operand(A, g, l, u, nx: int, nc: int, dp: int, nxp: int,
+                         ncp: int, dtype, alpha: float, w_pri=None,
+                         w_dua=None, device="cpu") -> InfeasOperand:
+    """Host fp64 build of the in-kernel infeasibility-certificate operands.
+
+    The certificates test SCALED-space products, as the loop path's
+    ``core.iteration.infeasibility_certificates`` does: ``inv_wp`` /
+    ``inv_wd`` divide the residual-unscale weights back out of the shared
+    M_res segments.
+    """
+    A = np.asarray(A, dtype=np.float64)
+    g = np.asarray(g, dtype=np.float64).reshape(-1)
+    l = np.asarray(l, dtype=np.float64).reshape(-1)
+    u = np.asarray(u, dtype=np.float64).reshape(-1)
+    wp = np.ones(nc) if w_pri is None else np.asarray(w_pri, np.float64)
+    wd = np.ones(nx) if w_dua is None else np.asarray(w_dua, np.float64)
+    if alpha == 1.0:
+        S_lam = np.zeros((dp, ncp))
+        S_lam[nx + nc + np.arange(nc), np.arange(nc)] = 1.0
+    else:
+        S_lam = np.zeros((0, 0))   # λ comes from the alpha operand instead
+    A_inf = np.zeros((ncp, nxp))
+    A_inf[:nc, :nx] = A
+
+    def row(n, vals, at=0):
+        r = np.zeros((1, n))
+        r[0, at:at + len(vals)] = vals
+        return r
+
+    put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return InfeasOperand(
+        S_lam=put(S_lam), A_inf=put(A_inf), inv_wp=put(row(ncp, 1.0 / wp)),
+        inv_wd=put(row(nxp, 1.0 / wd)), l_nc=put(row(ncp, l)),
+        u_nc=put(row(ncp, u)),
+        fin_l=put(row(ncp, np.isfinite(l).astype(np.float64))),
+        fin_u=put(row(ncp, np.isfinite(u).astype(np.float64))),
+        g_dp=put(row(dp, g)))
+
+
 # --------------------------------------------------------------------- #
-# whole-ROLLOUT kernel K2: T control steps in one launch                 #
+# arithmetic shared by the plain versions of K2 and K3                   #
 # --------------------------------------------------------------------- #
 
 def _f32(v) -> float:
@@ -100,23 +216,94 @@ def _dot32(v, m):
     return (v @ m.to(v.dtype)).float()
 
 
-def _iter_product(y, w, tier: int):
-    """``y @ w`` at the rollout's iteration tier, rounded to fp32 and
-    returned in y's dtype. "high" sums its three bf16-split passes in
-    fp32, as the TPU kernel does."""
+def _lane_dot(v, m):
+    """``v (1, K) @ m (K, N)`` in K3's summation order, rounded to fp32: in
+    fp64, each product and each sum rounded on its own, lane l (0..31) sums
+    rows l, l + 32, ... in order, then the lanes are added as a tree (lane
+    l + 16 into lane l, then 8, 4, 2, 1) -- what one warp of the kernel
+    does for one column, so the two agree bit for bit."""
+    f64 = torch.float64
+    K, n = m.shape[0], m.shape[1]
+    kp = -(-K // 32) * 32
+    vv = torch.zeros((kp, 1), dtype=f64, device=m.device)
+    vv[:K, 0] = v.reshape(-1)
+    mm = torch.zeros((kp, n), dtype=f64, device=m.device)
+    mm[:K] = m
+    prod = (vv * mm).reshape(kp // 32, 32, n)
+    acc = prod[0]
+    for k in range(1, kp // 32):
+        acc = acc + prod[k]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[:off] + acc[off:2 * off]
+    return acc.reshape(1, n).float()
+
+
+def _lane_sum(t):
+    """The sum of fp32 values ``t`` in fp64, in K3's lane order, rounded
+    to fp32."""
+    t = t.reshape(-1)
+    return _lane_dot(t, torch.ones((t.numel(), 1), dtype=torch.float64,
+                                   device=t.device))[0, 0]
+
+
+def _iter_product(y, w, tier: int, dot=_dot32):
+    """``y @ w`` at the iteration tier, each dot by ``dot`` (rounded to
+    fp32), returned in y's dtype. "high" rounds each of its three
+    bf16-split passes to fp32 and adds them in fp32, as the TPU kernel
+    does."""
     dt = y.dtype
     if tier == 2:
-        p = (_bf16(y, dt) @ _bf16(w, dt)).float()
+        p = dot(_bf16(y, dt), _bf16(w, dt))
     elif tier == 1:
         w = w.to(dt)
         w_h = _bf16(w, dt)
         w_l = _bf16(w - w_h, dt)
         y_h = _bf16(y, dt)
         y_l = _bf16(y - y_h, dt)
-        p = ((y_h @ w_l).float() + (y_l @ w_h).float()) + (y_h @ w_h).float()
+        p = (dot(y_h, w_l) + dot(y_l, w_h)) + dot(y_h, w_h)
     else:
-        p = (y @ w.to(dt)).float()
+        p = dot(y, w.to(dt))
     return p.to(dt)
+
+
+def _estimate(ax, z, hx, atl, g_row, rho, c):
+    """Residual maxima and the clamped ρ estimate from one check's fp32
+    segments ``ax, z`` (ncp,) and ``hx, atl`` (nxp,) and the state-dtype
+    ``g_row`` (nxp,): ``(pri, dua, rho_new)``, all fp32. The dual sum and
+    its scale take the state dtype, as the TPU kernels promote them."""
+    dt = g_row.dtype
+    pri = (ax - z).abs().max()
+    dua = ((hx + atl).to(dt) + g_row).abs().max()
+    sp = torch.maximum(ax.abs().max(), z.abs().max())
+    sd = torch.maximum(torch.maximum(hx.abs().max(), atl.abs().max()).to(dt),
+                       g_row.abs().max())
+    num = pri / sp.clamp_min(_TINY)
+    den = dua / sd.clamp_min(_TINY)
+    rho_new = torch.clamp(rho.to(dt) * torch.sqrt(num.to(dt)
+                                                  / den.clamp_min(_TINY)),
+                          c["rho_min"], c["rho_max"]).float()
+    return pri, dua.float(), rho_new
+
+
+def _rho_walk(rhos32, log_rhos, rho_new, k_idx: int, k: int, ci: int,
+              stride: int, jump: bool, c) -> int:
+    """The rung after one check: ±1 step or a jump to the nearest rung when
+    the estimate leaves [ρ_k/τ, ρ_k·τ], only at every ``stride``-th check
+    (``k`` iterations ran before this window)."""
+    n_rho = rhos32.shape[0]
+    rho_k = rhos32[k_idx]
+    above = bool(rho_new > rho_k * c["tol"])
+    below = bool(rho_new < rho_k / c["tol"])
+    if jump:
+        near = int(torch.argmin((log_rhos - torch.log(rho_new)).abs()))
+        new_idx = near if (above or below) else k_idx
+    else:
+        up = above and k_idx < n_rho - 1
+        dn = below and k_idx > 0 and not up
+        new_idx = k_idx + int(up) - int(dn)
+    if stride > 1 and ((k // ci) + 1) % stride != 0:
+        new_idx = k_idx
+    return new_idx
 
 
 def full_rollout_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op, lo0,
@@ -142,7 +329,7 @@ def full_rollout_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op, lo0,
     estimate, rung, status, 0, 0]``.
     """
     dt = y0.dtype
-    n_rho, dp = Wt_bank.shape[0], Wt_bank.shape[1]
+    dp = Wt_bank.shape[1]
     ci = int(check_interval)
     limit = (max_iter // ci) * ci
     stride = rho_update_stride(adaptive_rho_interval, ci)
@@ -174,35 +361,12 @@ def full_rollout_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op, lo0,
                 y = torch.minimum(torch.maximum(_iter_product(y, w, tier) + b,
                                                 lo), hi)
             r = _dot32(y, M_res)[0]
-            axx, z = r[:ncp], r[ncp:2 * ncp]
-            hx, atl = r[2 * ncp:2 * ncp + nxp], r[2 * ncp + nxp:]
-            pri = (axx - z).abs().max()
-            dua = ((hx + atl).to(dt) + g_row).abs().max()
-            sp = torch.maximum(axx.abs().max(), z.abs().max())
-            sd = torch.maximum(torch.maximum(hx.abs().max(),
-                                             atl.abs().max()).to(dt),
-                               g_row.abs().max())
-            num = pri / sp.clamp_min(_TINY)
-            den = dua / sd.clamp_min(_TINY)
-            rho_new = torch.clamp(
-                rho.to(dt) * torch.sqrt(num.to(dt) / den.clamp_min(_TINY)),
-                c["rho_min"], c["rho_max"]).float()
-            dua = dua.float()
+            pri, dua, rho_new = _estimate(
+                r[:ncp], r[ncp:2 * ncp], r[2 * ncp:2 * ncp + nxp],
+                r[2 * ncp + nxp:], g_row, rho, c)
             if adaptive_rho:
-                rho_k = rhos32[k_idx]
-                hi_t = bool(rho_new > rho_k * c["tol"])
-                lo_t = bool(rho_new < rho_k / c["tol"])
-                if rho_jump:
-                    near = int(torch.argmin((log_rhos
-                                             - torch.log(rho_new)).abs()))
-                    new_idx = near if (hi_t or lo_t) else k_idx
-                else:
-                    up = hi_t and k_idx < n_rho - 1
-                    dn = lo_t and k_idx > 0 and not up
-                    new_idx = k_idx + int(up) - int(dn)
-                if stride > 1 and ((k // ci) + 1) % stride != 0:
-                    new_idx = k_idx
-                k_idx = new_idx
+                k_idx = _rho_walk(rhos32, log_rhos, rho_new, k_idx, k, ci,
+                                  stride, rho_jump, c)
             if status < 0 and bool(pri < c["eps_pri"]) \
                     and bool(dua < c["eps_dua"]):
                 status = STATUS_SOLVED
@@ -336,7 +500,7 @@ def _full_rollout_cuda(ops, rho_ind0, *, n_rho, dp, nx, nc, nxp, ncp, nup,
     ubuf = torch.empty((nup,), dtype=dt, device=dev)
     xbuf = torch.empty((nplp,), dtype=dt, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty((n_sm, 4), dtype=torch.float64, device=dev)
+    part = torch.empty((n_sm, 8), dtype=torch.float64, device=dev)
     c = _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
                         rho_max)
     ptr = lambda t: t.data_ptr()
@@ -415,3 +579,439 @@ def full_rollout(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op, lo0, hi0,
 
 
 full_rollout.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# whole-SOLVE kernel K3: one solve in one launch                         #
+# --------------------------------------------------------------------- #
+
+def _verbose_line(k: int, rho, pri, dua) -> str:
+    """The per-check line of a verbose solve. Each float prints as
+    ``<mantissa×100>e<exp−2>`` in integers (123e-5 == 1.23e-3), computed
+    in fp32 as the kernel prints it."""
+    def fmt(v):
+        v32 = torch.clamp_min(v.reshape(()).float(), 1e-30)
+        e = torch.floor(torch.log(v32) * _f32(1.0 / np.log(10.0)))
+        mant = v32 * torch.exp(-e * _f32(np.log(10.0)))
+        return int((mant * 100).to(torch.int32)), int(e) - 2
+
+    (rm, re_), (pm, pe), (dm, de) = fmt(rho), fmt(pri), fmt(dua)
+    return f"Iter: {k}, rho: {rm}e{re_}, res_p: {pm}e{pe}, res_d: {dm}e{de}"
+
+
+def _certificates(y, y_prev, lam, lam_prev, M_res, io, nx, ncp, nxp,
+                  eps_pinf, eps_dinf):
+    """OSQP-style infeasibility tests on the iterate deltas since the last
+    check, in scaled space: ``(pinf, dinf)`` as Python bools. The two sums
+    (the support function and g·δx) add their fp32 terms in fp64 in K3's
+    lane order and round once."""
+    dt = y.dtype
+    dy = (y - y_prev).float()
+    dlam = (lam - lam_prev).float()
+    r_d = _lane_dot(dy.to(dt), M_res)
+    adx = r_d[:, :ncp] * io.inv_wp.float()
+    hdx = r_d[:, 2 * ncp:2 * ncp + nxp] * io.inv_wd.float()
+    atdl = _lane_dot(dlam.to(dt), io.A_inf)
+    norm_dlam = dlam.abs().max()
+    norm_dx = dy[:, :nx].abs().max()
+    eps_p = eps_pinf * norm_dlam
+    eps_d = eps_dinf * norm_dx
+    terms = torch.where(dlam > 0, io.u_nc.float() * dlam,
+                        torch.where(dlam < 0, io.l_nc.float() * dlam, 0.0))
+    support = _lane_sum(terms)
+    pinf = bool(norm_dlam > 0) and bool(atdl.abs().max() <= eps_p) \
+        and bool(support <= -eps_p)
+    ok = (((adx <= eps_d) | (io.fin_u == 0))
+          & ((adx >= -eps_d) | (io.fin_l == 0)))
+    gdx = _lane_sum(dy * io.g_dp.float())
+    dinf = bool(norm_dx > 0) and bool(hdx.abs().max() <= eps_d) \
+        and bool(gdx <= -eps_d) and bool(ok.all())
+    return pinf, dinf
+
+
+def full_solve_ref(op: FullSolveOperand, y0, rho_ind0, bias_affine=None, *,
+                   nx: int, nc: int, nxp: int, ncp: int, max_iter: int,
+                   check_interval: int, adaptive_rho: bool,
+                   adaptive_rho_tolerance: float, eps_abs: float,
+                   rho_min: float, rho_max: float, rho_jump: bool = False,
+                   adaptive_rho_interval: int = 1, alpha_mode: bool = False,
+                   verbose: bool = False, iter_precision: str = "highest",
+                   refine: bool = True, check_infeasibility: bool = False,
+                   eps_prim_inf: float = 1e-4, eps_dual_inf: float = 1e-4,
+                   stream_bank: bool = False):
+    """Plain torch version of K3: what the kernel computes.
+
+    Whole check windows run while the solve is running and the budget
+    holds one more (none when ``max_iter < check_interval``); each one
+    iterates ``y ← clip(y @ W_k + b_k, lo, hi)`` with ``b_k`` the bank row,
+    or ``c_k + x @ M_aff[k]`` under ``bias_affine = (M_aff, x_row)``, then
+    checks: the one-matmul residuals (under alpha ≠ 1 with λ = ρ⃗ ⊙ (p − z)
+    and Aᵀλ = λ @ A_w), the ρ walk with the p re-encode for the new rung
+    (alpha ≠ 1), the verbose line, the exit at eps and the certificates.
+    ``refine`` with a reduced ``iter_precision`` runs the windows in two
+    phases: the reduced tier until two consecutive windows improve neither
+    residual by 3% or half the budget is spent, then full precision
+    ("default" is full precision in both phases, but still two-phase). A
+    ``max_iter % check_interval`` tail window then runs if the solve is
+    still running: residuals and the exit only, the rung held.
+    ``stream_bank`` does not change the numbers.
+
+    Returns ``(y (Dp,), stats (8,) fp32)`` with stats ``[iters, pri, dua,
+    ρ estimate, rung, status, iterations of the reduced phase, 0]``.
+    """
+    dt = y0.dtype
+    wt = op.Wt_bank
+    n_rho, dp = wt.shape[0], wt.shape[1]
+    ci = int(check_interval)
+    n_chunks = max_iter // ci
+    limit = n_chunks * ci
+    stride = rho_update_stride(adaptive_rho_interval, ci)
+    tier = _ROLLOUT_TIER[iter_precision]
+    c = _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
+                        rho_max)
+    eps_pinf, eps_dinf = _f32(eps_prim_inf), _f32(eps_dual_inf)
+    rhos32 = op.rhos.to(torch.float32)
+    log_rhos = torch.log(rhos32)
+    b_bank = op.b_bank.reshape(n_rho, 1, dp)
+    lo, hi = op.lo.reshape(1, dp), op.hi.reshape(1, dp)
+    g_row = op.g_row.reshape(nxp)
+    ao, io = op.alpha_op, op.infeas_op
+    need_lam = alpha_mode or check_infeasibility
+
+    def chunk(y, k_idx, n_steps, t):
+        w = wt[k_idx]
+        b = b_bank[k_idx]
+        if bias_affine is not None:
+            M_aff, x_row = bias_affine
+            b = b + _lane_dot(x_row, M_aff[k_idx]).to(dt)
+        for _ in range(n_steps):
+            y = torch.minimum(
+                torch.maximum(_iter_product(y, w, t, _lane_dot) + b, lo), hi)
+        return y
+
+    def lam_and_d(y, k_idx):
+        if alpha_mode:
+            d = _lane_dot(y, ao.S_pz).to(dt)
+            return ao.rho_eff[k_idx].to(dt) * d, d
+        return _lane_dot(y, io.S_lam).to(dt), None
+
+    def residuals(y, rho, k_idx):
+        r = _lane_dot(y, op.M_res)[0]
+        lam = d = None
+        if need_lam:
+            lam, d = lam_and_d(y, k_idx)
+        atl = (_lane_dot(lam, ao.A_w)[0] if alpha_mode
+               else r[2 * ncp + nxp:2 * ncp + 2 * nxp])
+        pri, dua, rho_new = _estimate(r[:ncp], r[ncp:2 * ncp],
+                                      r[2 * ncp:2 * ncp + nxp], atl, g_row,
+                                      rho, c)
+        return pri, dua, rho_new, lam, d
+
+    def solved(pri, dua):
+        return bool(pri < c["eps_pri"]) and bool(dua < c["eps_dua"])
+
+    def window(s, t):
+        y = chunk(s["y"], s["k_idx"], ci, t)
+        pri, dua, rho_new, lam, d = residuals(y, s["rho"], s["k_idx"])
+        k_idx = s["k_idx"]
+        if adaptive_rho:
+            old = k_idx
+            k_idx = _rho_walk(rhos32, log_rhos, rho_new, k_idx, s["k"], ci,
+                              stride, rho_jump, c)
+            if alpha_mode:
+                # p is rung-scaled (p = z + R⁻¹λ): re-encode it for the new
+                # rung (the correction is exactly 0 when the rung held)
+                corr = (ao.rho_eff[old].to(dt) / ao.rho_eff[k_idx].to(dt)
+                        - 1.0) * d
+                y = y + _lane_dot(corr, ao.S_sc).to(dt)
+        if verbose:
+            print(_verbose_line(s["k"] + ci, rho_new, pri, dua), flush=True)
+        status = s["status"]
+        if status < 0 and solved(pri, dua):
+            status = STATUS_SOLVED
+        if check_infeasibility:
+            pinf, dinf = _certificates(y, s["y_prev"], lam, s["lam_prev"],
+                                       op.M_res, io, nx, ncp, nxp, eps_pinf,
+                                       eps_dinf)
+            if status < 0 and pinf:
+                status = STATUS_PRIMAL_INFEASIBLE
+            if status < 0 and dinf:
+                status = STATUS_DUAL_INFEASIBLE
+            s.update(y_prev=y, lam_prev=lam)
+        s.update(y=y, k_idx=k_idx, rho=rho_new, k=s["k"] + ci, pri=pri,
+                 dua=dua, status=status)
+
+    k0 = int(rho_ind0)
+    zero = torch.zeros((), dtype=torch.float32)
+    s = dict(y=y0.reshape(1, dp), k_idx=k0, rho=rhos32[k0], k=0, pri=zero,
+             dua=zero, status=_RUNNING)
+    if check_infeasibility:
+        s.update(y_prev=s["y"], lam_prev=lam_and_d(s["y"], k0)[0])
+    running = lambda: s["status"] < 0 and s["k"] < limit
+
+    k_fast = 0
+    if refine and iter_precision != "highest":
+        cap_a = (n_chunks // 2) * ci
+        best_p = best_d = torch.tensor(float("inf"))
+        n_stall = 0
+        while n_stall < 2 and s["k"] < cap_a and running():
+            window(s, tier)
+            improved = bool(s["pri"] < 0.97 * best_p) \
+                or bool(s["dua"] < 0.97 * best_d)
+            n_stall = 0 if improved else n_stall + 1
+            best_p = torch.minimum(best_p, s["pri"])
+            best_d = torch.minimum(best_d, s["dua"])
+        k_fast = s["k"]
+        tier = _ROLLOUT_TIER["highest"]
+    while running():
+        window(s, tier)
+
+    rem = max_iter - limit
+    if rem > 0 and s["status"] < 0:
+        y = chunk(s["y"], s["k_idx"], rem, tier)
+        pri, dua, rho_new, _, _ = residuals(y, s["rho"], s["k_idx"])
+        s.update(y=y, rho=rho_new, k=s["k"] + rem, pri=pri, dua=dua,
+                 status=STATUS_SOLVED if solved(pri, dua) else _RUNNING)
+    status = STATUS_MAX_ITER if s["status"] < 0 else s["status"]
+    stats = torch.tensor([s["k"], float(s["pri"]), float(s["dua"]),
+                          float(s["rho"]), s["k_idx"], status, k_fast, 0.0],
+                         dtype=torch.float32, device=y0.device)
+    return s["y"].reshape(dp).clone(), stats
+
+
+class _K3Params(ctypes.Structure):
+    """Mirror of ``K3Params`` in ``csrc/full_solve.cu`` (same order)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "wt", "b", "rhos", "m_res", "g_row", "lo", "hi", "y0", "a_w",
+        "rho_eff", "a_inf", "inv_wp", "inv_wd", "l_nc", "u_nc", "fin_l",
+        "fin_u", "g_dp", "m_aff", "x_row", "rho0_dev", "y_out", "stats",
+        "ybuf", "part")]
+        + [(n, ctypes.c_int) for n in (
+            "w_dtype", "y_dtype", "n_rho", "dp", "nx", "nc", "nxp", "ncp",
+            "nplp", "max_iter", "ci", "rho0", "adaptive", "jump", "stride",
+            "tier", "two_phase", "alpha", "infeas", "verbose", "part_rows")]
+        + [(n, ctypes.c_float) for n in (
+            "eps_pri", "eps_dua", "tol", "rho_min", "rho_max", "eps_pinf",
+            "eps_dinf")])
+
+
+def _k3_lib():
+    from .cuda_build import load
+    lib = load("full_solve")
+    if not getattr(lib, "_k3_typed", False):
+        i = ctypes.c_int
+        lib.k3_full_solve.argtypes = [ctypes.POINTER(_K3Params),
+                                      ctypes.c_void_p]
+        lib.k3_full_solve.restype = i
+        lib.k3_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
+        lib.k3_plan.restype = i
+        lib.k3_error_string.argtypes = [i]
+        lib.k3_error_string.restype = ctypes.c_char_p
+        lib._k3_typed = True
+    return lib
+
+
+def _k3_raise(lib, code: int, what: str):
+    msg = lib.k3_error_string(code).decode()
+    raise RuntimeError(f"K3 {what} failed: CUDA error {code} ({msg})")
+
+
+def solve_plan(dp: int, nxp: int, ncp: int, dtype=torch.float32) -> dict:
+    """The launch shape of K3 on the current GPU for a plain solve (no
+    alpha, certificates or affine bias): blocks, y lanes (columns of W)
+    per block, dynamic shared memory, and whether every operand slab is
+    held in shared memory (else read from L2)."""
+    lib = _k3_lib()
+    vals = [ctypes.c_int() for _ in range(3)]
+    code = _DTYPE_CODE[dtype]
+    rc = lib.k3_plan(dp, nxp, ncp, 0, code, code, 0, 0,
+                     *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        _k3_raise(lib, rc, "plan")
+    blocks, smem, resident = (v.value for v in vals)
+    return {"blocks": blocks, "cols_per_block": -(-dp // blocks),
+            "smem_bytes": smem, "resident": bool(resident)}
+
+
+def _k3_operands(op: FullSolveOperand, y0, bias_affine, *, nx, nc, nxp, ncp,
+                 alpha_mode, check_infeasibility) -> dict:
+    """Check the shapes of one solve's operands (both paths) and return
+    the ones the kernel reads, by name, flattened where they are rows."""
+    wt = op.Wt_bank
+    if wt.dim() != 3 or wt.shape[1] != wt.shape[2]:
+        raise ValueError("K3: Wt_bank must be (N, Dp, Dp)")
+    n_rho, dp = wt.shape[0], wt.shape[1]
+    if nx + 2 * nc > dp or nx > nxp or nc > ncp:
+        raise ValueError(f"K3: nx={nx}, nc={nc} do not fit Dp={dp}, "
+                         f"nxp={nxp}, ncp={ncp}")
+    R = 2 * ncp + (nxp if alpha_mode else 2 * nxp)
+    want = {"Wt_bank": (wt, (n_rho, dp, dp)), "b_bank": (op.b_bank, n_rho * dp),
+            "rhos": (op.rhos, n_rho), "M_res": (op.M_res, (dp, R)),
+            "g_row": (op.g_row, nxp), "lo": (op.lo, dp), "hi": (op.hi, dp),
+            "y0": (y0, dp)}
+    if alpha_mode:
+        ao = op.alpha_op
+        if ao is None:
+            raise ValueError("K3: alpha_mode needs op.alpha_op")
+        want.update(S_pz=(ao.S_pz, (dp, ncp)), A_w=(ao.A_w, (ncp, nxp)),
+                    S_sc=(ao.S_sc, (ncp, dp)),
+                    rho_eff=(ao.rho_eff, n_rho * ncp))
+    if check_infeasibility:
+        io = op.infeas_op
+        if io is None:
+            raise ValueError("K3: check_infeasibility needs op.infeas_op")
+        want.update(S_lam=(io.S_lam, (0, 0) if alpha_mode else (dp, ncp)),
+                    A_inf=(io.A_inf, (ncp, nxp)), inv_wp=(io.inv_wp, ncp),
+                    inv_wd=(io.inv_wd, nxp), l_nc=(io.l_nc, ncp),
+                    u_nc=(io.u_nc, ncp), fin_l=(io.fin_l, ncp),
+                    fin_u=(io.fin_u, ncp), g_dp=(io.g_dp, dp))
+    if bias_affine is not None:
+        if alpha_mode:
+            raise ValueError(
+                "bias_affine with alpha_mode is unsupported: the relaxed "
+                "bank's b_k folds alpha per rung, and an affine part built "
+                "from the unrelaxed B would disagree with it silently")
+        M_aff, x_row = bias_affine
+        if M_aff.dim() != 3:
+            raise ValueError("K3: M_aff must be (N, nplp, Dp)")
+        nplp = M_aff.shape[1]
+        want.update(M_aff=(M_aff, (n_rho, nplp, dp)), x_row=(x_row, nplp))
+    out = {}
+    for name, (t, shape) in want.items():
+        got = tuple(t.shape) if isinstance(shape, tuple) else t.numel()
+        if got != shape:
+            raise ValueError(f"K3: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        out[name] = t if isinstance(shape, tuple) else t.reshape(-1)
+    return out
+
+
+def _full_solve_cuda(ops: dict, rho_ind0, *, nx, nc, nxp, ncp,
+                     max_iter, check_interval, adaptive_rho,
+                     adaptive_rho_tolerance, eps_abs, rho_min, rho_max,
+                     rho_jump, adaptive_rho_interval, alpha_mode, verbose,
+                     iter_precision, refine, check_infeasibility,
+                     eps_prim_inf, eps_dual_inf):
+    y0 = ops["y0"]
+    dev, dt = y0.device, y0.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"K3: state dtype {dt} is not float32/float64")
+    # the selectors S_pz, S_sc and S_lam pick fixed lanes of the stacked
+    # layout; the kernel reads those lanes directly
+    for name in ("S_pz", "S_sc", "S_lam"):
+        ops.pop(name, None)
+    ops["rhos"] = ops["rhos"].to(torch.float32)
+    for name, t in ops.items():
+        if t.device != dev:
+            raise ValueError(f"K3: {name} must be a tensor on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"K3: {name} must be contiguous")
+        if name == "Wt_bank":
+            ok = t.dtype in (dt, torch.bfloat16)
+        elif name == "rho0_dev":
+            ok = True
+        else:
+            ok = t.dtype == (torch.float32 if name in ("rhos", "rho_eff")
+                             else dt)
+        if not ok:
+            raise ValueError(f"K3: {name} dtype {t.dtype} does not go with "
+                             f"state dtype {dt}")
+    dp = ops["Wt_bank"].shape[1]
+    y_out = torch.empty((dp,), dtype=dt, device=dev)
+    stats = torch.empty((8,), dtype=torch.float32, device=dev)
+    ybuf = torch.empty((2, dp), dtype=dt, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    part = torch.empty((n_sm, 8), dtype=torch.float64, device=dev)
+    c = _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
+                        rho_max)
+    ptr = lambda name: ops[name].data_ptr() if name in ops else None
+    p = _K3Params(
+        wt=ptr("Wt_bank"), b=ptr("b_bank"), rhos=ptr("rhos"),
+        m_res=ptr("M_res"), g_row=ptr("g_row"), lo=ptr("lo"), hi=ptr("hi"),
+        y0=ptr("y0"), a_w=ptr("A_w"), rho_eff=ptr("rho_eff"),
+        a_inf=ptr("A_inf"), inv_wp=ptr("inv_wp"), inv_wd=ptr("inv_wd"),
+        l_nc=ptr("l_nc"), u_nc=ptr("u_nc"), fin_l=ptr("fin_l"),
+        fin_u=ptr("fin_u"), g_dp=ptr("g_dp"), m_aff=ptr("M_aff"),
+        x_row=ptr("x_row"), rho0_dev=ptr("rho0_dev"),
+        y_out=y_out.data_ptr(),
+        stats=stats.data_ptr(), ybuf=ybuf.data_ptr(), part=part.data_ptr(),
+        w_dtype=_DTYPE_CODE[ops["Wt_bank"].dtype], y_dtype=_DTYPE_CODE[dt],
+        n_rho=ops["Wt_bank"].shape[0], dp=dp, nx=nx, nc=nc, nxp=nxp,
+        ncp=ncp, nplp=ops["M_aff"].shape[1] if "M_aff" in ops else 0,
+        max_iter=max_iter, ci=check_interval,
+        rho0=-1 if "rho0_dev" in ops else rho_ind0,
+        adaptive=int(bool(adaptive_rho)), jump=int(bool(rho_jump)),
+        stride=rho_update_stride(adaptive_rho_interval, check_interval),
+        tier=_ROLLOUT_TIER[iter_precision],
+        two_phase=int(bool(refine) and iter_precision != "highest"),
+        alpha=int(bool(alpha_mode)), infeas=int(bool(check_infeasibility)),
+        verbose=int(bool(verbose)), part_rows=n_sm,
+        eps_pinf=_f32(eps_prim_inf), eps_dinf=_f32(eps_dual_inf), **c)
+    lib = _k3_lib()
+    rc = lib.k3_full_solve(ctypes.byref(p),
+                           torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        _k3_raise(lib, rc, "launch")
+    full_solve.launches += 1
+    return y_out, stats
+
+
+def full_solve(op: FullSolveOperand, y0, rho_ind0, bias_affine=None, *,
+               nx: int, nc: int, nxp: int, ncp: int, max_iter: int,
+               check_interval: int, adaptive_rho: bool,
+               adaptive_rho_tolerance: float, eps_abs: float,
+               rho_min: float, rho_max: float, rho_jump: bool = False,
+               adaptive_rho_interval: int = 1, alpha_mode: bool = False,
+               verbose: bool = False, iter_precision: str = "highest",
+               refine: bool = True, check_infeasibility: bool = False,
+               eps_prim_inf: float = 1e-4, eps_dual_inf: float = 1e-4,
+               stream_bank: bool = False):
+    """One whole solve as ONE kernel launch. Returns ``(y (Dp,), stats
+    (8,))``, see ``full_solve_ref``.
+
+    ``op``: the ``FullSolveOperand`` (``alpha_op`` under ``alpha_mode``,
+    ``infeas_op`` under ``check_infeasibility``); ``y0`` (Dp,) the start
+    state; ``rho_ind0`` the start rung: an int (a launch argument), or for
+    CUDA tensors also a one-element int32 tensor on the device that the
+    kernel reads itself (a previous solve's rung, with no host sync);
+    ``bias_affine``: optional ``(M_aff (N, nplp, Dp), x_row
+    (nplp,))``, the state-affine bias ``b_k = c_k + x @ M_aff[k]`` with
+    ``op.b_bank`` holding ``c_k`` (not with ``alpha_mode``).
+    ``stream_bank`` is accepted for the TPU kernel's signature and changes
+    nothing: K3 holds the current rung's columns in shared memory and
+    reloads them on a rung change in every case. CUDA tensors launch the
+    CUDA kernel (or raise); CPU tensors run ``full_solve_ref``.
+    """
+    if iter_precision not in _ROLLOUT_TIER:
+        raise ValueError(f"Invalid iter_precision {iter_precision!r}")
+    if check_interval < 1 or max_iter < 0:
+        raise ValueError("K3: check_interval must be >= 1 and max_iter >= 0")
+    ops = _k3_operands(op, y0, bias_affine, nx=nx, nc=nc, nxp=nxp, ncp=ncp,
+                       alpha_mode=alpha_mode,
+                       check_infeasibility=check_infeasibility)
+    if isinstance(rho_ind0, torch.Tensor) and y0.is_cuda:
+        # read on the device by the kernel (clamped to the ladder there)
+        if rho_ind0.dtype != torch.int32 or rho_ind0.numel() != 1:
+            raise ValueError("K3: a rung tensor must be one int32 element")
+        ops["rho0_dev"] = rho_ind0
+    else:
+        rho_ind0 = int(rho_ind0)
+        if not 0 <= rho_ind0 < op.Wt_bank.shape[0]:
+            raise ValueError(f"K3: rho_ind0 {rho_ind0} is off the ladder")
+    kw = dict(nx=nx, nc=nc, nxp=nxp, ncp=ncp, max_iter=max_iter,
+              check_interval=check_interval, adaptive_rho=adaptive_rho,
+              adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+              rho_min=rho_min, rho_max=rho_max, rho_jump=rho_jump,
+              adaptive_rho_interval=adaptive_rho_interval,
+              alpha_mode=alpha_mode, verbose=verbose,
+              iter_precision=iter_precision, refine=refine,
+              check_infeasibility=check_infeasibility,
+              eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf)
+    if y0.is_cuda:
+        return _full_solve_cuda(ops, rho_ind0, **kw)
+    return full_solve_ref(op, y0, rho_ind0, bias_affine,
+                          stream_bank=stream_bank, **kw)
+
+
+full_solve.launches = 0

@@ -9,7 +9,9 @@ warm_start / clear_primal_dual`` returning ``Results(x, z, lam, Info)``.
 - ``solve`` runs ``core.iteration.solve_loop``: on ``cuda`` through the
   chunk kernel K1 (``backend="auto"``/``"pallas"``), on ``cpu`` through its
   plain torch version; ``backend="xla"`` runs the plain torch runner on
-  either device;
+  either device; ``backend="fused"`` runs the whole solve as one launch of
+  the whole-solve kernel K3 (``ops.solve_kernel.full_solve``; its plain
+  version on cpu), with one read of its stats;
 - timers are host clocks around work that ends in a device sync.
 
 λ is not zeroed after a solve (it warm-starts the next one);
@@ -30,10 +32,13 @@ from .core.bank import (Bank, DeviceQP, auto_rho_cap, build_bank_np,
                         certifiable_eps_floor, clamp_bounds,
                         effective_rho_ladder, equality_mask, sigma_max_sq,
                         stacked_dim)
-from .core.iteration import STATUS_STRINGS, solve_loop, xla_chunk_runner
+from .core.iteration import (STATUS_STRINGS, compute_objective, solve_loop,
+                             xla_chunk_runner)
 from .core.ladder import initial_rho_index, setup_rhos
 from .ops.fused_step import pad_dim, pallas_chunk_runner
-from .ops.solve_kernel import build_residual_operator
+from .ops.solve_kernel import (FullSolveOperand, build_alpha_operand,
+                               build_infeas_operand, build_residual_operator,
+                               full_solve)
 from .utils.scaling import (identity_scaling, residual_unscale_weights,
                             ruiz_equilibrate)
 
@@ -142,10 +147,6 @@ class ReLU_QP:
             refine=refine, rho_cap=rho_cap, device=device,
             precision=precision, backend=backend)
         stng = self.settings
-        if stng.backend == "fused":
-            raise NotImplementedError(
-                "backend='fused' runs the whole-solve kernel K3 "
-                "(ops/solve_kernel.py full_solve), which is not ported yet")
         dtype = stng.precision_dtype
         dev = stng.device
 
@@ -182,7 +183,10 @@ class ReLU_QP:
         # Backend: K1 ("auto"/"pallas"; the CUDA kernel on cuda, its plain
         # version on cpu) on the lane-padded layout, or the plain torch
         # runner ("xla") on the unpadded one. On cuda "auto" always takes
-        # K1: unlike the TPU's VMEM, nothing gates it by size.
+        # K1: unlike the TPU's VMEM, nothing gates it by size. "fused" (the
+        # whole-solve kernel K3, one launch per solve) is taken by name
+        # only, as in the JAX package.
+        self._fused = stng.backend == "fused"
         if stng.backend == "xla":
             self._chunk_runner = xla_chunk_runner
             self.Dp = self.D
@@ -228,15 +232,25 @@ class ReLU_QP:
         if stng.alpha != 1.0:
             self._rho_eff = put(self._rho_eff_np)
 
-        # Stacked residual operator on the GPU (alpha=1): one y @ M_res
-        # per check instead of three small latency-bound matvecs. The CPU
-        # keeps the matvec residuals.
-        self._M_res = None
-        self._res_op_loop = stng.alpha == 1.0 and dev.type == "cuda"
-        if self._res_op_loop:
-            self._M_res, _, self._nxp, self._ncp = build_residual_operator(
-                self._H_s, self._A_s, self._g_s, self.Dp, dtype,
-                w_pri=w_pri_np, w_dua=w_dua_np, device=dev)
+        # Stacked residual operator: K3's residual check, and on the GPU
+        # (alpha=1) the loop's one y @ M_res per check instead of three
+        # small latency-bound matvecs. The CPU loop keeps the matvecs.
+        self._M_res = self._g_row = None
+        self._res_op_loop = (not self._fused and stng.alpha == 1.0
+                             and dev.type == "cuda")
+        if self._fused or self._res_op_loop:
+            self._M_res, self._g_row, self._nxp, self._ncp = \
+                build_residual_operator(
+                    self._H_s, self._A_s, self._g_s, self.Dp, dtype,
+                    w_pri=w_pri_np, w_dua=w_dua_np,
+                    lam_segment=stng.alpha == 1.0, device=dev)
+        self._alpha_op = self._infeas_op = None
+        if self._fused and stng.alpha != 1.0:
+            self._alpha_op = build_alpha_operand(
+                self._A_s, self._rho_eff_np, nx, nc, self.Dp, self._nxp,
+                self._ncp, dtype, w_dua=w_dua_np, device=dev)
+        if self._fused and stng.check_infeasibility:
+            self._infeas_op = self._build_infeas_op()
 
         self.y = torch.zeros((self.Dp,), dtype=dtype, device=dev)
         _sync(dev)
@@ -265,6 +279,15 @@ class ReLU_QP:
                                dtype=self.settings.precision_dtype,
                                device=self.settings.device)
 
+    def _build_infeas_op(self):
+        """K3's certificate operands; they carry copies of g, l and u."""
+        stng = self.settings
+        return build_infeas_operand(
+            self._A_s, self._g_s, self._l_s, self._u_s, self.nx, self.nc,
+            self.Dp, self._nxp, self._ncp, stng.precision_dtype,
+            alpha=float(stng.alpha), w_pri=self._w_pri_np,
+            w_dua=self._w_dua_np, device=stng.device)
+
     # ------------------------------------------------------------------ #
     # update / settings                                                  #
     # ------------------------------------------------------------------ #
@@ -286,6 +309,13 @@ class ReLU_QP:
             self.bank = self.bank._replace(b=self._put(self._B_np @ self._g_s))
             self.qp_dev = self.qp_dev._replace(g=self._put(self._g_s))
             self.QP.g = self._put(g_np)
+            if self._fused:
+                # K3's dual residual reads the w_dua-weighted g row
+                wd = np.ones(self.nx) if self._w_dua_np is None \
+                    else self._w_dua_np
+                g_row = np.zeros((1, self._nxp))
+                g_row[0, :self.nx] = wd * self._g_s
+                self._g_row = self._put(g_row)
         if l is not None or u is not None:
             if l is not None:
                 l_np = np.asarray(l, dtype=np.float64).reshape(-1)
@@ -304,6 +334,9 @@ class ReLU_QP:
             lo, hi = self._padded_bounds(self._l_s, self._u_s)
             self.qp_dev = self.qp_dev._replace(lo=self._put(lo),
                                                hi=self._put(hi))
+        if self._infeas_op is not None and (
+                g is not None or l is not None or u is not None):
+            self._infeas_op = self._build_infeas_op()
         _sync(self.settings.device)
         self.info.update_time = time.perf_counter() - t0
 
@@ -378,6 +411,8 @@ class ReLU_QP:
         self._check_ready()
         t0 = time.perf_counter()
         stng = self.settings
+        if self._fused:
+            return self._solve_fused(t0)
         res = solve_loop(
             self.bank, self.qp_dev, self.y, self.rho_ind,
             self.bank.rhos[self.rho_ind], self._W_hi, self._rho_eff, None,
@@ -397,13 +432,62 @@ class ReLU_QP:
             adaptive_rho_interval=int(stng.adaptive_rho_interval),
             alpha=float(stng.alpha))
         run_time = time.perf_counter() - t0   # solve_loop ends in a sync
-        self.y = res.y
-        self.rho_ind = res.rho_ind
+        return self._finish(res.y, res.rho_ind, res.iters, res.status_code,
+                            res.obj_val, res.pri_res, res.dua_res,
+                            res.rho_estimate, run_time)
+
+    def _fused_call(self):
+        """The arguments ``(op, kw)`` of this solver's K3 launch,
+        ``full_solve(op, y0, rho_ind0, **kw)``: the setup's operands and
+        the current settings."""
+        stng = self.settings
+        op = FullSolveOperand(
+            Wt_bank=self.bank.W, b_bank=self.bank.b, rhos=self.bank.rhos,
+            M_res=self._M_res, g_row=self._g_row, lo=self.qp_dev.lo,
+            hi=self.qp_dev.hi, alpha_op=self._alpha_op,
+            infeas_op=self._infeas_op)
+        kw = dict(nx=self.nx, nc=self.nc, nxp=self._nxp, ncp=self._ncp,
+                  max_iter=stng.max_iter, check_interval=stng.check_interval,
+                  adaptive_rho=stng.adaptive_rho,
+                  adaptive_rho_tolerance=float(stng.adaptive_rho_tolerance),
+                  eps_abs=float(stng.eps_abs), rho_min=float(stng.rho_min),
+                  rho_max=float(stng.rho_max), rho_jump=bool(stng.rho_jump),
+                  adaptive_rho_interval=int(stng.adaptive_rho_interval),
+                  alpha_mode=stng.alpha != 1.0, verbose=bool(stng.verbose),
+                  iter_precision=stng.iter_precision,
+                  refine=bool(stng.refine),
+                  check_infeasibility=bool(stng.check_infeasibility),
+                  eps_prim_inf=float(stng.eps_prim_inf),
+                  eps_dual_inf=float(stng.eps_dual_inf))
+        return op, kw
+
+    def _solve_fused(self, t0: float) -> Results:
+        """One launch of the whole-solve kernel K3 (its plain version on
+        the CPU), then one read of its stats and the objective.
+
+        Under iter_precision="bf16" the bank is stored in bf16 and the
+        refine phase polishes on it, as the JAX package's fused backend
+        does (ROADMAP §C); the fp32 copy ``_W_hi`` serves the loop only."""
+        op, kw = self._fused_call()
+        y, stats = full_solve(op, self.y, self.rho_ind, **kw)
+        obj = compute_objective(self.qp_dev.H, self.qp_dev.g, y[:self.nx])
+        # the solve's one device→host read
+        st = torch.cat([stats.double(), obj.double().reshape(1)]).tolist()
+        run_time = time.perf_counter() - t0
+        return self._finish(y, int(st[4]), int(st[0]), int(st[5]), st[8],
+                            st[1], st[2], st[3], run_time)
+
+    def _finish(self, y, rho_ind, iters, status_code, obj_val, pri, dua,
+                rho_est, run_time) -> Results:
+        """Unscale the solve's final state and record its ``Info``."""
+        stng = self.settings
+        self.y = y
+        self.rho_ind = rho_ind
         nx, nc = self.nx, self.nc
-        x = res.y[:nx] * self._unscale_x
-        z_s = res.y[nx:nx + nc]
+        x = y[:nx] * self._unscale_x
+        z_s = y[nx:nx + nc]
         z = z_s * self._unscale_z
-        last = res.y[nx + nc:nx + 2 * nc]
+        last = y[nx + nc:nx + 2 * nc]
         if stng.alpha != 1.0:
             # λ = ρ⃗(p − z) at the rung the solve finished on.
             last = self._rho_eff[self.rho_ind] * (last - z_s)
@@ -412,12 +496,12 @@ class ReLU_QP:
         # A fresh Info per solve: a Results held across a later
         # update()+solve() does not change under the caller.
         info = dataclasses.replace(self.info)
-        info.iter = res.iters
-        info.status = STATUS_STRINGS[res.status_code]
-        info.obj_val = res.obj_val * self.scal.cinv
-        info.pri_res = res.pri_res
-        info.dua_res = res.dua_res
-        info.rho_estimate = res.rho_estimate
+        info.iter = iters
+        info.status = STATUS_STRINGS[status_code]
+        info.obj_val = obj_val * self.scal.cinv
+        info.pri_res = pri
+        info.dua_res = dua
+        info.rho_estimate = rho_est
         info.run_time = run_time
         info.solve_time = info.update_time + run_time
         self.info = info

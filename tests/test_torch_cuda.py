@@ -1,8 +1,8 @@
 """Tests of the PyTorch port that need an NVIDIA GPU.
 
-Kernels K1 and K2 are CUDA code with no CPU mode, so these skip without a
-GPU. On
-the GPU machine (which has no JAX) run them without the JAX conftest:
+Kernels K1, K2 and K3 are CUDA code with no CPU mode, so these skip
+without a GPU. On the GPU machine (which has no JAX) run them without the
+JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -17,8 +17,9 @@ from reluqp_tpu_torch.models import mpc
 from reluqp_tpu_torch.ops.fused_step import (fused_chunk, fused_chunk_ref,
                                              pallas_chunk_runner)
 from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
-                                               full_rollout_ref)
-from reluqp_tpu_torch.utils.problems import canonical_qp
+                                               full_rollout_ref, full_solve,
+                                               full_solve_ref)
+from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp
 
 pytestmark = pytest.mark.cuda
 
@@ -26,8 +27,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K1 and K2 are CUDA kernels with "
-                    "no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: K1, K2 and K3 are CUDA kernels "
+                    "with no CPU mode")
     return torch.device("cuda")
 
 
@@ -205,3 +206,72 @@ def test_mpc_scan_rollout_on_cuda_runs_k2(dev):
     np.testing.assert_array_equal(ig.numpy(), ic.numpy())
     np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), atol=1e-9)
     np.testing.assert_allclose(ug.cpu().numpy(), uc.numpy(), atol=1e-9)
+
+
+PINF = (np.eye(2), np.zeros(2), np.array([[1.0, 0.0], [1.0, 0.0],
+                                          [0.0, 1.0]]),
+        np.array([1.0, -np.inf, -1.0]), np.array([np.inf, -1.0, 1.0]))
+
+
+# K3 and its plain version on one cold solve of a set-up fused solver:
+# the same iterations, rung, status and reduced-phase count, and y within
+# a few fp32 roundings of the summation order (relative to |y|inf; fp64
+# rounds the same fp64 sums to fp32, so 1e-6 there too).
+# (The solver's bf16 tier polishes on its bf16 bank, as the JAX package's
+# fused backend does, and need not certify: no status is asked of the tiers.)
+@pytest.mark.parametrize("name,data,kw,status", [
+    ("highest", "rand", dict(precision="float32"), None),
+    ("high", "rand", dict(precision="float32", iter_precision="high"), None),
+    ("default", "rand", dict(precision="float32", iter_precision="default"),
+     None),
+    ("bf16", "rand", dict(precision="float32", iter_precision="bf16"), None),
+    ("alpha", "rand", dict(precision="float64", alpha=1.6, eps_abs=1e-5), 1),
+    ("certificates", "pinf", dict(precision="float64",
+                                  check_infeasibility=True), 2),
+])
+def test_k3_matches_plain_version(dev, name, data, kw, status):
+    data = PINF if data == "pinf" else \
+        rand_qp(60, 15, 15, seed=2, compute_sol=False)[:5]
+    m = rqt.ReLU_QP()
+    m.setup(*data, backend="fused", **dict(dict(eps_abs=1e-4), **kw))
+    op, call = m._fused_call()
+    y0 = torch.zeros_like(m.y)
+    before = full_solve.launches
+    out = full_solve(op, y0, m.rho_ind, **call)
+    assert full_solve.launches == before + 1
+    ref = full_solve_ref(op, y0, m.rho_ind, **call)
+    so, sr = out[1].cpu(), ref[1].cpu()
+    for lane in (0, 4, 5, 6):
+        assert so[lane] == sr[lane], (lane, so, sr)
+    assert status is None or so[5] == status
+    tol = 1e-4 if m.settings.precision == "float32" else 1e-6
+    scale = max(1.0, float(ref[0].abs().max()))
+    assert float((out[0] - ref[0]).abs().max()) <= tol * scale
+    assert float(out[0][m.D:].abs().max()) == 0.0
+
+
+def test_fused_backend_on_cuda_is_one_k3_launch(dev):
+    qp = canonical_qp()
+    m = rqt.ReLU_QP()
+    m.setup(qp.H, qp.g, qp.A, qp.l, qp.u, eps_abs=1e-4, backend="fused")
+    k1, k3 = fused_chunk.launches, full_solve.launches
+    res = m.solve()
+    assert full_solve.launches == k3 + 1 and fused_chunk.launches == k1
+    assert res.info.status == "solved" and res.x.is_cuda
+    np.testing.assert_allclose(res.x.cpu().double().numpy(), qp.x_sol,
+                               atol=1e-3)
+
+
+def test_mpc_fused_rollout_on_cuda_matches_cpu(dev):
+    g = _di_mpc(dev, "float64")
+    c = _di_mpc("cpu", "float64")
+    x0 = np.array([1.0, -0.5])
+    k3 = full_solve.launches
+    xg, ug, ig = mpc.mpc_rollout_scan(g.solver, g.prob, x0, 15,
+                                      kernel="fused", check_interval=5)
+    assert full_solve.launches == k3 + 15
+    xc, uc, ic = mpc.mpc_rollout_scan(c.solver, c.prob, x0, 15,
+                                      kernel="fused", check_interval=5)
+    np.testing.assert_array_equal(ig.numpy(), ic.numpy())
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), atol=1e-6)
+    np.testing.assert_allclose(ug.cpu().numpy(), uc.numpy(), atol=1e-6)

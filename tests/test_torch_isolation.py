@@ -1,6 +1,8 @@
-"""The PyTorch port imports nothing of JAX or of the JAX package."""
+"""The PyTorch port imports nothing of JAX or of the JAX package, and its
+CUDA sources build from the package alone."""
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -55,3 +57,34 @@ def test_source_names_no_jax_import(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "reluqp_tpu")]
     assert not bad, (path, bad)
+
+
+CSRC = PKG / "csrc"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")),
+    ids=lambda p: p.name)
+def test_cuda_source_includes_only_its_own_headers(path):
+    """A quoted include names a header beside it in csrc/; everything else
+    is a system or CUDA toolkit header."""
+    for inc in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
+        assert (CSRC / inc).is_file() and inc.endswith(".cuh"), (path, inc)
+
+
+def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """A change to a shared header renames every library, so K2 and K3 are
+    rebuilt when ``solve_loop.cuh`` changes."""
+    from reluqp_tpu_torch.ops import cuda_build
+    for src in CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    names = ("solve_kernel", "full_solve", "fused_step")
+    before = {n: cuda_build._lib_path(n) for n in names}
+    assert "solve_loop.cuh" in (tmp_path / "full_solve.cu").read_text()
+    with open(tmp_path / "solve_loop.cuh", "a") as f:
+        f.write("// changed\n")
+    after = {n: cuda_build._lib_path(n) for n in names}
+    for n in names:
+        assert before[n] != after[n], n
+    assert cuda_build._lib_path("full_solve") == after["full_solve"]

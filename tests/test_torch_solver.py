@@ -174,7 +174,6 @@ def test_same_bank_and_state_through_convert():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(backend="fused"), "K3"),
     (dict(bank_backend="native"), "native"),
     (dict(mesh=object()), "mesh"),
 ])
