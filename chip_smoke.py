@@ -57,11 +57,35 @@ Phases (each raises on failure; nothing is caught):
 12. K3 timing: per solve at the protocol's sizes by CUDA events, beside
     the loop path's ``solve()`` on the same instance, the plain version
     and the bound; the fused rollout's steps/s by the two-point protocol
-    beside the scan and loop paths; a profiler pass over 200 fused steps.
+    beside the scan and loop paths; a profiler pass over 200 fused steps;
+13. hold kernel K4 (the batched chunk kernel) against its plain torch
+    version at B in {1, 8, 64, 256} x Dp in {128, 640, 896}, every tier,
+    fp32 and fp64, with padded lanes and padded rows exactly 0;
+14. the main path of this slice through K4: the scenario-MPC configuration
+    of ``benchmarks/scenario_mpc.py`` (100 states, 20 inputs, horizon 10,
+    B = 64, seeded X0 and 0.01·randn process noise): ``BatchedReLU_QP``
+    set up on the card, one ``solve()`` of the 64 scenarios' first QPs
+    against the CPU fp64 batch, and the 200-step ``scenario_rollout_scan
+    (kernel="loop")``, its first 20 steps against the CPU fp64 loop
+    rollout; K4 launches only;
+15. hold kernel K6 (the batched whole-rollout kernel) against its plain
+    torch version at Dp 128/640/896/1280 and B in {5, 64, 256}, fp64 and
+    fp32: equal iterations, rung, status and unsolved rows per step,
+    trajectories within K6_TOL, padded lanes and rows exactly 0;
+16. the same rollout as phase 14 through ``kernel="scan"`` (one K6 launch)
+    and ``kernel="auto"`` with ``check_interval="auto"`` (two), no other
+    kernel, held against phase 14 and the CPU fp64 rollout;
+17. K4 per 25-step window at B = 64, Dp = 640 by CUDA events beside its
+    plain version, 25 ``torch.addmm`` + clamp and the bound, the three
+    again as device time read by the profiler, K4 on one row tile (one
+    cluster) of 1 and of 8 rows and in the "high" and "bf16" tiers; K6 per
+    warm step beside its plain version and the bound; two-point steps/s of
+    the loop and scan paths; a profiler pass
+    over each, and the loop path's synchronizing calls by source line.
 
 Every kernel launch counter is set to 0 just before each main-path phase
-(4, 5, 6, 8, 11) and read just after; a main-path phase that launched its
-kernel no time fails. The second-to-last line is the ``{"kernels": [...]}``
+(4, 5, 6, 8, 11, 14, 16) and read just after; a main-path phase that
+launched its kernel no time fails. The second-to-last line is the ``{"kernels": [...]}``
 record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the package beside it, the script exits non-zero before printing a
 result.
@@ -261,9 +285,13 @@ def phase_timing():
 
 
 def _counters():
-    from reluqp_tpu_torch.ops.fused_step import fused_chunk
-    from reluqp_tpu_torch.ops.solve_kernel import full_rollout, full_solve
-    return {"K1": fused_chunk, "K2": full_rollout, "K3": full_solve}
+    from reluqp_tpu_torch.ops.fused_step import (fused_chunk,
+                                                 fused_chunk_batched)
+    from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
+                                                   full_rollout_batched,
+                                                   full_solve)
+    return {"K1": fused_chunk, "K2": full_rollout, "K3": full_solve,
+            "K4": fused_chunk_batched, "K6": full_rollout_batched}
 
 
 def _counted(run, kernel="K1"):
@@ -432,21 +460,76 @@ def phase_mpc(card):
 
 
 def profile_steps(tag, ctrl, x_start, steps, kernel, ci):
-    """Where a warm MPC step's time goes: torch.profiler over ``steps``
-    steps continuing the rollout at window ``ci``. Device time counts the
+    """``profile_run`` over ``steps`` warm MPC steps continuing the
+    rollout at window ``ci``."""
+    from reluqp_tpu_torch.models.mpc import mpc_rollout_scan
+    profile_run(tag, lambda: mpc_rollout_scan(
+        ctrl.solver, ctrl.prob, x_start, steps, kernel=kernel,
+        check_interval=ci), steps, f"kernel={kernel}, ci={ci}")
+
+
+def device_ms(fn, reps):
+    """Device time of one ``fn()`` in ms: the device-side events (kernels
+    and copies) that torch.profiler records over ``reps`` calls, summed;
+    the host's launch gaps between them are left out. None when the
+    profiler recorded no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0.0 else None
+
+
+def sync_sites(tag, run, steps):
+    """Where ``run()`` (``steps`` steps) makes the host wait for the card:
+    every synchronizing CUDA call under torch's sync debug mode, counted by
+    the Python line that made it."""
+    import collections
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = lambda f: (os.path.relpath(f, here) if f.startswith(here)
+                      else "torch/" + f.split("/torch/", 1)[-1])
+    sites = collections.Counter(
+        f"{name(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    log(f"{tag} syncs ({steps} warm steps): {sum(sites.values())} in all, "
+        f"{sum(sites.values()) / steps:.2f} per step; by line: "
+        + ("; ".join(f"{k} x{v}" for k, v in sites.most_common(8))
+           or "none"))
+
+
+def profile_run(tag, run, steps, what):
+    """Where a warm control step's time goes: torch.profiler over
+    ``run()``, which runs ``steps`` steps. Device time counts the
     device-side events only (kernels and copies); per-call operator
     uploads are spread over the steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from reluqp_tpu_torch.models.mpc import mpc_rollout_scan
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mpc_rollout_scan(ctrl.solver, ctrl.prob, x_start, steps,
-                         kernel=kernel, check_interval=ci)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / steps
     ev = prof.key_averages()
@@ -456,22 +539,22 @@ def profile_steps(tag, ctrl, x_start, steps, kernel, ci):
     per = lambda pat: [e for e in ev if pat in e.key]
     k_us = {k: sum(dev(e) for e in per(name)) / steps
             for k, name in (("K1", "k1_kernel"), ("K2", "k2_kernel"),
-                            ("K3", "k3_kernel"))}
+                            ("K3", "k3_kernel"), ("K4", "k4_kernel"),
+                            ("K6", "k6_kernel"))}
     h2d = sum(e.count for e in per("Memcpy HtoD")) / steps
     syncs = sum(e.count for e in per("cudaStreamSynchronize")) / steps
     launches = sum(e.count for e in per("cudaLaunch")) / steps
     top = sorted(on_dev, key=dev, reverse=True)[:6]
-    if busy <= 0.0:
+    if busy <= 0.0 or not any(k_us.values()):
         # instrumentation only: the checks of the phase already passed
         log(f"{tag} profile: device time not measured (the profiler "
-            "recorded no device events)")
+            "recorded no kernel of the path)")
         return
-    log(f"{tag} profile ({steps} warm steps, kernel={kernel}, ci={ci}, "
-        f"profiler on): host wall {wall_us:.3f} us/step, device busy "
-        f"{busy:.3f} us/step ({100 * busy / wall_us:.1f}%), K1 "
-        f"{k_us['K1']:.3f} us/step, K2 {k_us['K2']:.3f} us/step, K3 "
-        f"{k_us['K3']:.3f} us/step, "
-        f"{launches:.4f} launches, {h2d:.4f} H2D copies, {syncs:.4f} "
+    log(f"{tag} profile ({steps} warm steps, {what}, profiler on): host "
+        f"wall {wall_us:.3f} us/step, device busy {busy:.3f} us/step "
+        f"({100 * busy / wall_us:.1f}%), "
+        + ", ".join(f"{k} {v:.3f} us/step" for k, v in k_us.items() if v)
+        + f", {launches:.4f} launches, {h2d:.4f} H2D copies, {syncs:.4f} "
         f"stream syncs per step")
     log("  top device ops (us/step): " + "; ".join(
         f"{e.key[:48]} x{e.count / steps:.4f} {dev(e) / steps:.3f}"
@@ -613,7 +696,8 @@ def phase_scan(card, mpc):
             return (*out, time.perf_counter() - t0)
 
         (xs, us, its, status, y_f, rho_f, secs), counts = _counted(run, "K2")
-        assert counts == {"K1": 0, "K2": 2, "K3": 0}, (kernel, counts)
+        assert counts == {"K1": 0, "K2": 2, "K3": 0, "K4": 0, "K6": 0}, \
+            (kernel, counts)
         check_rollout(f"phase 8 (kernel={kernel})", xs, us, its, status,
                       mpc["ref"], kw["max_iter"])
         log(f"phase 8 kernel={kernel}: {MPC_T / secs:.1f} steps/s over "
@@ -946,7 +1030,7 @@ def phase_fused_main(card, mpc, protocol):
     qp = canonical_qp()
     res, counts = _counted(
         lambda: fused_solver(qp[:5], eps_abs=1e-4).solve(), "K3")
-    assert counts == {"K1": 0, "K2": 0, "K3": 1}, counts
+    assert counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K6": 0}, counts
     x = res.x.detach().cpu().double().numpy()
     assert res.info.status == "solved" and np.allclose(x, qp.x_sol,
                                                        atol=1e-3), x
@@ -961,7 +1045,8 @@ def phase_fused_main(card, mpc, protocol):
         t0 = time.perf_counter()
         r, counts = _counted(m.solve, "K3")
         secs = time.perf_counter() - t0
-        assert counts == {"K1": 0, "K2": 0, "K3": 1}, (nx, counts)
+        assert counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K6": 0}, \
+            (nx, counts)
         xg = r.x.detach().cpu().double().numpy()
         err = float(np.max(np.abs(xg - x_cpu[nx])))
         assert r.info.status == "solved", (nx, r.info.status)
@@ -984,7 +1069,8 @@ def phase_fused_main(card, mpc, protocol):
         return (*out, time.perf_counter() - t0)
 
     (xs, us, its, status, y_f, rho_f, secs), counts = _counted(run, "K3")
-    assert counts == {"K1": 0, "K2": 0, "K3": MPC_T}, counts
+    assert counts == {"K1": 0, "K2": 0, "K3": MPC_T, "K4": 0, "K6": 0}, \
+        counts
     check_rollout("phase 11 (kernel=fused)", xs, us, its, status,
                   mpc["ref"], MPC_KW["max_iter"])
     log(f"phase 11 kernel=fused: {MPC_T / secs:.1f} steps/s over {MPC_T} "
@@ -1101,6 +1187,569 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s):
     return dict(rows=rows, step_s=step_s)
 
 
+# ---------------------------------------------------------------------- #
+# K4, the batched chunk kernel, and K6, the batched whole-rollout kernel  #
+# ---------------------------------------------------------------------- #
+
+K4_BATCHES = (1, 8, 64, 256)
+K4_DPS = (128, 640, 896)
+# Kernel against plain version after 25 steps, as TOL for K1 (fp32): the
+# kernel sums each row's products in its own order, cuBLAS in another. In
+# fp64 "highest" differs by fp64 rounding only; "high" splits the fp32
+# rounding of y (the kernel) or y itself (the plain version) into bf16
+# parts, which agree but at ties; the bf16 tiers re-round y every step.
+K4_TOL = {"float32": {"highest": 1e-5, "high": 1e-5, "default": 3e-2,
+                      "bf16": 3e-2},
+          "float64": {"highest": 1e-12, "high": 1e-5, "default": 3e-2}}
+# padded rows at the end of a batch of 8 or more
+K4_PAD_ROWS = 3
+
+
+def k4_inputs(dp, rows, dtype, gen, device):
+    """Random K4 inputs: K1's (inner width D < Dp, inert lanes) with the
+    last rows of a batch of 8 or more inert (b = 0, ±inf bounds, y = 0)."""
+    wt, b, lo, hi, y, d = kernel_inputs(dp, rows, dtype, gen, device)
+    n_pad = K4_PAD_ROWS if rows >= 8 else 0
+    if n_pad:
+        b[-n_pad:] = 0.0
+        lo[-n_pad:] = -float("inf")
+        hi[-n_pad:] = float("inf")
+        y[-n_pad:] = 0.0
+    return wt, b, lo, hi, y, d, n_pad
+
+
+def phase_k4_check():
+    """K4 against fused_chunk_batched_ref on the card, every tier, fp32
+    and fp64; padded lanes and rows exactly 0. Returns the max errors."""
+    import torch
+    from reluqp_tpu_torch.ops.fused_step import (batched_plan,
+                                                 fused_chunk_batched,
+                                                 fused_chunk_batched_ref)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        tols = K4_TOL[str(dtype).split(".")[1]]
+        for dp in K4_DPS:
+            for rows in K4_BATCHES:
+                wt, b, lo, hi, y, d, n_pad = k4_inputs(dp, rows, dtype, gen,
+                                                       dev)
+                plan = batched_plan(rows, dp, dtype)
+                worst = {}
+                for tier in tols:
+                    bank = wt.to(torch.bfloat16) if tier == "bf16" else wt
+                    rho = torch.tensor([N_RHO - 1 if tier == "high" else 4],
+                                       dtype=torch.int32, device=dev)
+                    out = fused_chunk_batched(bank, b, lo, hi, y, rho,
+                                              N_STEPS, tier)
+                    ref = fused_chunk_batched_ref(bank, b, lo, hi, y, rho,
+                                                  N_STEPS, tier)
+                    torch.cuda.synchronize()
+                    tag = (dtype, dp, rows, tier)
+                    assert torch.isfinite(out).all(), tag
+                    assert float(out[:, d:].abs().max()) == 0.0, \
+                        f"K4 padded lanes not inert: {tag}"
+                    if n_pad:
+                        assert float(out[-n_pad:].abs().max()) == 0.0, \
+                            f"K4 padded rows not inert: {tag}"
+                    err = float((out - ref).abs().max())
+                    assert err <= tols[tier], f"K4 disagrees: {tag} {err:.3e}"
+                    errs[tag] = worst[tier] = err
+                log(f"K4 {str(dtype)[6:]} Dp={dp} B={rows}: plan {plan}  "
+                    "max|kernel-plain| " + "  ".join(
+                        f"{t} {e:.2e}" for t, e in worst.items()))
+    log("phase 13 OK: K4 matches its plain version at every B, Dp, tier "
+        "and dtype; padded lanes and rows stay 0")
+    return errs
+
+
+# The scenario configuration: benchmarks/scenario_mpc.py's (the root
+# bench.py plant, u in [-1, 1] through the per-stage control rows), B = 64,
+# X0 = 0.05·randn and then the per-scenario process noise 0.01·randn(T, B,
+# nx) from one seeded generator.
+SCEN_B, SCEN_T, SCEN_T_CMP = 64, 200, 20
+SCEN_KW = dict(eps_abs=1e-3, check_interval=25)
+SCEN_NOISE = 0.01
+# the two rollout lengths of each path's two-point fit (the loop path is
+# host-bound, a few ms per step)
+SCEN_LOOP_T, SCEN_SCAN_T = (5, 30), (20, 200)
+K6_TIMED_T = 200
+
+
+def scenario_problem(nx=MPC_NX, nu=MPC_NU, horizon=MPC_H):
+    """The condensed scenario-MPC QP of benchmarks/scenario_mpc.py (the
+    double integrator at nx=2)."""
+    from reluqp_tpu_torch.models.mpc import gen_condensed_mpc_qp, ihlqr
+    Ad, Bd, Q, R, _ = mpc_config(nx, nu)
+    K, Qf = ihlqr(Ad, Bd, Q, R)
+    ns = nu + nx
+    rows = []
+    for k in range(horizon):
+        r = np.zeros((nu, horizon * ns))
+        r[:, k * ns:k * ns + nu] = np.eye(nu)
+        rows.append(r)
+    return gen_condensed_mpc_qp(Ad, Bd, Q, R, Qf, horizon, np.vstack(rows),
+                                -np.ones(horizon * nu),
+                                np.ones(horizon * nu), K=K)
+
+
+def scenario_solver(prob, B, **kw):
+    from reluqp_tpu_torch import BatchedReLU_QP
+    m = BatchedReLU_QP()
+    m.setup(prob.H, np.tile(prob.g0, (B, 1)), prob.A,
+            np.tile(prob.l0, (B, 1)), np.tile(prob.u0, (B, 1)),
+            **dict(SCEN_KW, **kw))
+    return m
+
+
+def scenario_inputs(B, T=0, nx=MPC_NX, seed=0):
+    """Seeded initial plant states and per-scenario process noise from one
+    generator: 0.05·randn(B, nx), then SCEN_NOISE·randn(T, B, nx), as
+    benchmarks/scenario_mpc.py draws them for the 100-state plant; [1, 0] +
+    0.2·randn for the double integrator, as the JAX package's scenario tests
+    do (a state near 0 leaves residuals at the fp32 rounding of 0)."""
+    rng = np.random.RandomState(seed)
+    if nx == 2:
+        X0 = np.array([[1.0, 0.0]]) + 0.2 * rng.randn(B, 2)
+    else:
+        X0 = 0.05 * rng.randn(B, nx)
+    return X0, SCEN_NOISE * rng.randn(T, B, nx)
+
+
+def scenario_vectors(prob, X):
+    """The (g, l, u) rows of the scenarios' QPs at plant states X (B, nx)."""
+    shift = X @ prob.lu_x0.T
+    return (prob.g0[None] + X @ prob.g_x0.T, prob.l0[None] + shift,
+            prob.u0[None] + shift)
+
+
+# name, plant states, inputs, horizon: Dp 128, 640, 896, 1280 (as K2's
+# phase 7 cases)
+K6_CASES = (("double integrator h8", 2, 1, 8), ("100-state h10", 100, 20, 10),
+            ("100-state h14", 100, 20, 14), ("100-state h20", 100, 20, 20))
+K6_BATCHES = (5, 64, 256)
+K6_T, K6_CI, K6_NOISE = 10, 5, 0.3
+# Kernel against plain version: both round every product to fp32 and sum
+# it in fp64, in different orders (the kernel per thread, the plain version
+# through cuBLAS), so they differ by an fp32 ulp where a product lies within
+# fp64 rounding of an fp32 tie, and the closed loop carries that on: a few
+# fp32 ulps of the O(1) states (read on the H100: at most 1.8e-7 in fp64,
+# 2.4e-7 in fp32). The iterations, rung and status lanes must agree exactly.
+K6_TOL = {"float64": 1e-6, "float32": 1e-5}
+
+
+def k6_call(m, prob, B, noise, ci):
+    """K6's call for the first B scenarios of a batch solver set up for
+    more, from a cold start (``_scenario_scan_call`` with ``rows=B``)."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import _scenario_scan_call
+    npl = prob.K.shape[1]
+    return _scenario_scan_call(m, prob, scenario_inputs(B, nx=npl)[0],
+                               noise.shape[0], ci=ci,
+                               Y0=torch.zeros_like(m.Y), noise=noise[:, :B],
+                               rows=B)
+
+
+def k6_compare(tag, args, kw, B, tol):
+    """K6 and its plain version on one call of B scenarios: equal per-step
+    iterations, rung and status, trajectories within ``tol``, padded y
+    lanes and rows exactly 0. Returns the kernel's stats and the max
+    difference."""
+    import torch
+    from reluqp_tpu_torch.ops.solve_kernel import (full_rollout_batched,
+                                                   full_rollout_batched_ref)
+    out = full_rollout_batched(*args, **kw)
+    ref = full_rollout_batched_ref(*args, **kw)
+    torch.cuda.synchronize()
+    so, sr = out[2].cpu().numpy(), ref[2].cpu().numpy()
+    err = max(float((a - b).abs().max()) for a, b in zip(out[:2], ref[:2]))
+    log(f"{tag}: {kw['n_steps']} steps, iters {int(so[:, 0].sum())} (plain "
+        f"{int(sr[:, 0].sum())}), rungs "
+        f"{sorted(set(so[:, 4].astype(int).tolist()))}, unsolved "
+        f"{int(so[:, 6].sum())}; max|kernel-plain| {err:.3e} (bound {tol:g})")
+    assert all(bool(torch.isfinite(o).all()) for o in out), tag
+    d = kw["nx"] + 2 * kw["nc"]
+    assert float(out[3][:, d:].abs().max()) == 0.0, f"{tag}: lanes not inert"
+    n_pad = out[3].shape[0] - B
+    if n_pad:
+        assert float(out[3][-n_pad:].abs().max()) == 0.0, \
+            f"{tag}: padded rows not inert"
+    for lane in (0, 4, 5, 6):   # iterations, rung, status, unsolved rows
+        assert (so[:, lane] == sr[:, lane]).all(), (tag, lane, so[:, lane],
+                                                    sr[:, lane])
+    assert (so[:, 5] == 1).all(), f"{tag}: a step was not solved"
+    assert err <= tol, (tag, err)
+    return so, err
+
+
+def phase_k6_check():
+    """K6 against full_rollout_batched_ref on the card; returns the max
+    errors."""
+    from reluqp_tpu_torch.ops.solve_kernel import rollout_batched_plan
+    errs, moved = {}, {}
+    for name, nx, nu, horizon in K6_CASES:
+        prob = scenario_problem(nx, nu, horizon)
+        noise = K6_NOISE * np.random.RandomState(5).randn(
+            K6_T, max(K6_BATCHES), nx)
+        for precision in ("float64", "float32"):
+            m = scenario_solver(prob, max(K6_BATCHES), precision=precision)
+            for B in K6_BATCHES:
+                args, kw = k6_call(m, prob, B, noise, K6_CI)
+                plan = rollout_batched_plan(
+                    -(-max(B, 8) // 8) * 8, m.Dp, kw["nxp"], kw["ncp"],
+                    kw["nup"], kw["nplp"], m.settings.precision_dtype)
+                so, err = k6_compare(
+                    f"K6 {name} Dp={m.Dp} B={B} {precision} (plan {plan})",
+                    args, kw, B, K6_TOL[precision])
+                moved[name] = moved.get(name, False) or \
+                    len(set(so[:, 4].tolist())) > 1
+                errs[(m.Dp, B, precision)] = err
+    assert all(moved.values()), f"the rung never moved: {moved}"
+    log("phase 15 OK: K6 matches its plain version at every Dp and B, fp64 "
+        "and fp32")
+    return errs
+
+
+def check_scenario(tag, out, ref, max_iter):
+    """A 200-step B=64 scenario rollout on the card: every step solved (the
+    status lane is the min over the scenarios, so every scenario solved;
+    none can be infeasible here), finite, under the budget, and its first
+    steps against the CPU fp64 loop rollout ``ref`` within eps_abs (see
+    ``check_rollout``)."""
+    xs, us, its, status = out[:4]
+    assert (status.numpy() == 1).all(), f"{tag}: a step was not solved"
+    xs_g = xs.detach().cpu().double().numpy()
+    us_g = us.detach().cpu().double().numpy()
+    its = its.numpy()
+    assert xs_g.shape == (SCEN_T + 1, SCEN_B, MPC_NX), xs_g.shape
+    assert us_g.shape == (SCEN_T, SCEN_B, MPC_NU), us_g.shape
+    assert np.all(np.isfinite(xs_g)) and np.all(np.isfinite(us_g)), tag
+    assert int(its.max()) < max_iter, (tag, its.max())
+    xs_c, us_c = ref
+    dx = float(np.max(np.abs(xs_g[:SCEN_T_CMP + 1] - xs_c)))
+    du = float(np.max(np.abs(us_g[:SCEN_T_CMP] - us_c)))
+    assert dx < SCEN_KW["eps_abs"] and du < SCEN_KW["eps_abs"], (tag, dx, du)
+    log(f"{tag}: {SCEN_T}-step B={SCEN_B} rollout, collective iters/step "
+        f"max {its.max()} mean {its.mean():.2f}; first {SCEN_T_CMP} steps "
+        f"vs cpu fp64: |dx|inf {dx:.2e} |du|inf {du:.2e}")
+    return xs_g, us_g
+
+
+def profile_scenario(tag, m, prob, x_start, steps, kernel, ci):
+    """``profile_run`` over ``steps`` warm scenario steps continuing from
+    the solver's state."""
+    from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
+    profile_run(tag, lambda: scenario_rollout_scan(
+        m, prob, x_start, steps, kernel=kernel, check_interval=ci), steps,
+        f"kernel={kernel}, ci={ci}, B={m.B_n}")
+
+
+def phase_scenario_loop(card):
+    """The main path of this slice through K4: ``BatchedReLU_QP.setup`` on
+    the card, one ``solve()`` of the 64 scenarios' first QPs, and the
+    200-step scenario loop rollout; K4 launches only; against the CPU fp64
+    batch solve and loop rollout."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
+    prob = scenario_problem()
+    X0, noise = scenario_inputs(SCEN_B, SCEN_T)
+    g, l, u = scenario_vectors(prob, X0)
+
+    def solve():
+        m = scenario_solver(prob, SCEN_B)
+        m.update(g=g, l=l, u=u)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = m.solve()
+        return m, res, time.perf_counter() - t0
+
+    (m, res, secs), counts = _counted(solve, "K4")
+    assert all(n == 0 for k, n in counts.items() if k != "K4"), counts
+    assert m.settings.device.type == "cuda" and m._use_pallas
+    assert (m.Dp, m.B_pad, len(m.rhos_np)) == (640, SCEN_B, 18), \
+        (m.Dp, m.B_pad, len(m.rhos_np))
+    cpu = scenario_solver(prob, SCEN_B, precision="float64", device="cpu",
+                          backend="xla")
+    cpu.update(g=g, l=l, u=u)
+    rc = cpu.solve()
+    x_g = res.x.detach().cpu().double().numpy()
+    err = float(np.max(np.abs(x_g - rc.x.numpy())))
+    info = res.info
+    assert info.status.all() and rc.info.status.all()
+    assert x_g.shape == (SCEN_B, m.nx) and np.all(np.isfinite(x_g))
+    assert err < 5e-3, err
+    log(f"phase 14 solve(): {SCEN_B} QPs (nx={m.nx}, nc={m.nc}, Dp={m.Dp}) "
+        f"all solved in {info.n_iter_total} collective iterations "
+        f"(per problem {info.iter.min()}..{info.iter.max()}), "
+        f"{secs * 1e3:.3f} ms; cpu fp64 {rc.info.n_iter_total} iterations; "
+        f"|x-x_cpu|inf {err:.2e}; launches {counts}")
+    n_k4 = counts["K4"]
+
+    def rollout():
+        m.clear_primal_dual()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scenario_rollout_scan(m, prob, X0, SCEN_T, kernel="loop",
+                                    noise=noise, return_stats=True,
+                                    return_state=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (out, secs), counts = _counted(rollout, "K4")
+    assert all(n == 0 for k, n in counts.items() if k != "K4"), counts
+    cpu.clear_primal_dual()
+    xs_c, us_c, _ = scenario_rollout_scan(cpu, prob, X0, SCEN_T_CMP,
+                                          kernel="loop",
+                                          noise=noise[:SCEN_T_CMP])
+    ref = (xs_c.numpy(), us_c.numpy())
+    xs, us = check_scenario("phase 14 (kernel=loop)", out, ref,
+                            m.settings.max_iter)
+    log(f"phase 14 kernel=loop: {SCEN_T / secs:.1f} steps/s "
+        f"({SCEN_B * SCEN_T / secs:.0f} scenario solves/s) over {SCEN_T} "
+        f"steps on {card}; launches {counts}")
+    n_k4 += counts["K4"]
+    log(f"phase 14 OK: K4 launches {n_k4}, no other kernel")
+    return {"launches": n_k4, "prob": prob, "m": m, "ref": ref, "xs": xs,
+            "us": us, "out": out, "its": out[2]}
+
+
+def phase_scenario_scan(card, loop):
+    """The main path through K6: the phase-14 rollout through
+    ``kernel="scan"`` (one segment, one K6 launch) and ``kernel="auto"``
+    with ``check_interval="auto"`` (calibration + continuation, two K6
+    launches), no other kernel; held against phase 14's loop rollout and
+    the CPU fp64 one."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
+    prob = loop["prob"]
+    X0, noise = scenario_inputs(SCEN_B, SCEN_T)
+    total, res = 0, {}
+    for kernel, ci, want in (("scan", None, 1), ("auto", "auto", 2)):
+        m = scenario_solver(prob, SCEN_B)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = scenario_rollout_scan(m, prob, X0, SCEN_T, kernel=kernel,
+                                        check_interval=ci, noise=noise,
+                                        return_stats=True, return_state=True)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        (out, secs), counts = _counted(run, "K6")
+        assert counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": want}, \
+            (kernel, counts)
+        tag = f"phase 16 (kernel={kernel}, check_interval={ci})"
+        xs, us = check_scenario(tag, out, loop["ref"], m.settings.max_iter)
+        # against phase 14's loop rollout on the card, all 200 steps: both
+        # certify every step at eps_abs, so they differ by up to eps_abs
+        dx = float(np.max(np.abs(xs - loop["xs"])))
+        du = float(np.max(np.abs(us - loop["us"])))
+        assert dx < SCEN_KW["eps_abs"] and du < SCEN_KW["eps_abs"], \
+            (tag, dx, du)
+        log(f"{tag}: {SCEN_T / secs:.1f} steps/s over {SCEN_T} steps "
+            f"({secs:.3f} s incl. the operand build); vs phase 14's loop "
+            f"rollout |dx|inf {dx:.2e} |du|inf {du:.2e}; launches {counts}")
+        total += counts["K6"]
+        res[kernel] = (m, out)
+    log(f"phase 16 OK on {card}: K6 launches {total}, no other kernel")
+    m, out = res["scan"]
+    return {"launches": total, "m": m, "xs": out[0], "y_f": out[4],
+            "rho_f": out[5]}
+
+
+def k4_bound_ms(W, B, d, steps):
+    """Least time of one K4 window on this run's data, in ms: the rung's
+    nonzeros times the real rows, 2 flops per multiply-add per step (fp32
+    outside tensor cores); bytes: the rung's nonzeros read once, and b, lo,
+    hi, Y in and Y out at the real rows and width."""
+    import torch
+    nnz = int(torch.count_nonzero(W))
+    flops = 2.0 * steps * B * nnz
+    nbytes = (nnz + 5 * B * d) * W.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops
+
+
+def k6_bound_ms(m, prob, kw, stats):
+    """Least time per control step of a K6 run, in ms: ``k2_bound_ms``'s
+    count (each operand at its nonzeros) for each of the real scenario
+    rows, whose per-step products run once per row; the operands
+    (``_scenario_scan_operands``) are read once for the whole ensemble."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import _scenario_scan_operands
+    from reluqp_tpu_torch.ops.fused_step import pad_dim
+    ops = _scenario_scan_operands(m, prob, pad_dim(m.D))
+    Wt, bias_c, M_aff, M_res = ops["Wt"], ops["bias_c"], ops["M_aff"], \
+        ops["M_res"]
+    GL, S_u, Bdw, rhos = ops["GL"], ops["S_u"], ops["Bdw"], m.rhos
+    nnz = lambda a: int(torch.count_nonzero(a))
+    nu, npl = prob.K.shape
+    nx, nc, B = kw["nx"], kw["nc"], m.B_n
+    d = nx + 2 * nc
+    rungs = sorted(set(stats[:, 4].astype(int).tolist()))
+    n_w = min(nnz(Wt[k]) for k in rungs)
+    n_aff = min(nnz(M_aff[k]) for k in rungs)
+    T = stats.shape[0]
+    iters = float(stats[:, 0].sum())
+    windows = iters / kw["check_interval"]
+    flops = B * (T * (2 * nnz(GL) + 2 * n_aff + nnz(S_u) + 2 * nnz(Bdw))
+                 + windows * 2 * nnz(M_res) + iters * 2 * n_w)
+    fill = (sum(nnz(Wt[k]) + nnz(M_aff[k]) + nnz(bias_c[k]) for k in rungs)
+            + nnz(M_res) + nnz(GL) + nnz(S_u) + nnz(Bdw) + 2 * nc + nx
+            + rhos.numel() + B * (2 * d + npl)) * Wt.element_size()
+    rows = B * (2 * npl + nu) * Wt.element_size() + 8 * 4
+    t_bytes = (fill / T + rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / T / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops, flops / T
+
+
+def phase_scenario_timing(card, loop, scan):
+    """K4 per 25-step window on the main path's bank and state (CUDA
+    events, then device time) beside its plain version, 25 ``torch.addmm``
+    + clamp and the bound, and on one row tile of 1 and of 8 rows; K6 per warm
+    step beside its plain version and the bound; two-point steps/s of the
+    loop and scan paths; a profiler pass over each; the loop path's
+    synchronizing calls."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import (_scenario_scan_call,
+                                             scenario_rollout_scan)
+    from reluqp_tpu_torch.ops.fused_step import (batched_plan,
+                                                 fused_chunk_batched,
+                                                 fused_chunk_batched_ref)
+    from reluqp_tpu_torch.ops.solve_kernel import (full_rollout_batched,
+                                                   full_rollout_batched_ref)
+    m, prob = loop["m"], loop["prob"]
+    rho = m.rho_ind.reshape(1).contiguous()
+    k = int(rho)
+    W, b = m.Wt_bank, m.bias_all[k].contiguous()
+    lo, hi, Y = m.lo, m.hi, m.Y.contiguous()
+    w_k = W[k]
+
+    def library():
+        yy = Y
+        for _ in range(N_STEPS):
+            yy = torch.addmm(b, yy, w_k).clamp_(min=lo, max=hi)
+        return yy
+
+    kernel = lambda: fused_chunk_batched(W, b, lo, hi, Y, rho, N_STEPS)
+    plain = lambda: fused_chunk_batched_ref(W, b, lo, hi, Y, rho, N_STEPS)
+    ms = _time_ms(kernel, 100)
+    plain_ms = _time_ms(plain, 20)
+    library_ms = _time_ms(library, 20)
+    # the two comparison loops are 25-100 launches each, so their event
+    # spans carry the host's launch gaps; their device time does not (K4 is
+    # one launch: its event span is its device time)
+    dev = {name: device_ms(fn, 10) for name, fn in
+           (("plain", plain), ("addmm+clamp", library))}
+    bound, by, t_b, t_o = k4_bound_ms(w_k, m.B_n, m.D, N_STEPS)
+    plan = batched_plan(m.B_pad, m.Dp, m.settings.precision_dtype)
+    k4 = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+              bound_ms=bound, bound_by=by)
+    log(f"phase 17 K4 (B={SCEN_B}, Dp={m.Dp}, rung {k}, {N_STEPS} steps, "
+        f"fp32 highest, plan {plan}): {ms:.5f} ms per window by CUDA events"
+        f"; plain {plain_ms:.5f} ms; addmm+clamp {library_ms:.5f} ms; bound "
+        f"{bound:.5f} ms ({by}: {t_b:.5f} ms bytes, {t_o:.5f} ms operations "
+        f"at the rung's nonzeros), {ms / bound:.0f}x the bound, on {card}")
+    log(f"phase 17 device time per window (profiler, device-side events) "
+        f"beside K4's {ms:.5f} ms: " + "; ".join(f"{name} " + ("not measured" if t is None
+                                  else f"{t:.5f} ms")
+                    for name, t in dev.items()))
+    # one row tile (one cluster) at 1 and at 8 rows: whether the rows'
+    # multiply-adds or the per-iteration exchange and barrier set its time
+    for rows in (1, 8):
+        t = _time_ms(lambda: fused_chunk_batched(
+            W, b[:rows].contiguous(), lo[:rows].contiguous(),
+            hi[:rows].contiguous(), Y[:rows].contiguous(), rho, N_STEPS), 50)
+        log(f"phase 17 K4 one row tile of {rows} row(s) "
+            f"({batched_plan(rows, m.Dp)}): {t:.5f} ms per window")
+    # the reduced tiers on the same window
+    for tier, bank in (("high", W), ("bf16", W.to(torch.bfloat16))):
+        t = _time_ms(lambda: fused_chunk_batched(bank, b, lo, hi, Y, rho,
+                                                 N_STEPS, tier), 30)
+        plan = batched_plan(m.B_pad, m.Dp, w_dtype=bank.dtype,
+                            iter_precision=tier)
+        log(f"phase 17 K4 {tier} tier ({plan}): {t:.5f} ms per window")
+
+    # K6 alone: one launch of K6_TIMED_T warm steps continuing the scan
+    # rollout at the configured window, undisturbed
+    s = scan["m"]
+    x_last = scan["xs"][-1].cpu().double().numpy()
+    T = K6_TIMED_T
+    args, kw = _scenario_scan_call(s, prob, x_last, T, Y0=scan["y_f"],
+                                   rho_ind0=scan["rho_f"])
+    full_rollout_batched(*args, **kw)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = full_rollout_batched(*args, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    k6_ms = e0.elapsed_time(e1) / T
+    stats = out[2].cpu().numpy()
+    assert (stats[:, 5] == 1).all(), "a timed step was not solved"
+    T_p = 10
+    args_p, kw_p = _scenario_scan_call(s, prob, x_last, T_p,
+                                       Y0=scan["y_f"],
+                                       rho_ind0=scan["rho_f"])
+    t0 = time.perf_counter()
+    full_rollout_batched_ref(*args_p, **kw_p)
+    torch.cuda.synchronize()
+    k6_plain = (time.perf_counter() - t0) * 1e3 / T_p
+    bound, by, t_b, t_o, flops = k6_bound_ms(s, prob, kw, stats)
+    k6 = dict(ms=k6_ms, plain_ms=k6_plain, bound_ms=bound, bound_by=by)
+    log(f"phase 17 K6 alone ({T} warm steps, B={SCEN_B}, ci="
+        f"{kw['check_interval']}, collective iters/step "
+        f"{stats[:, 0].mean():.3f}): {k6_ms * 1e3:.3f} us/step by CUDA "
+        f"events; plain version {k6_plain:.3f} ms/step; bound "
+        f"{bound * 1e3:.4f} us/step ({by}: {t_b * 1e3:.4f} us bytes, "
+        f"{t_o * 1e3:.4f} us operations, {flops:.0f} flop/step at the "
+        f"operands' nonzeros), {k6_ms / bound:.0f}x the bound, on {card}")
+
+    # two-point steps/s, a fresh X0 every call
+    X0 = scenario_inputs(SCEN_B)[0]
+    rng = np.random.RandomState(11)
+    rates = {}
+    for kernel, (t_lo, t_hi) in (("loop", SCEN_LOOP_T),
+                                 ("scan", SCEN_SCAN_T)):
+        def rollout_s(T_):
+            x = X0 + 5e-5 * rng.randn(*X0.shape)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xs, _, _ = scenario_rollout_scan(m, prob, x, T_, kernel=kernel)
+            float(xs[-1].sum())
+            return time.perf_counter() - t0
+
+        s_lo = min(rollout_s(t_lo) for _ in range(3))
+        s_hi = min(rollout_s(t_hi) for _ in range(3))
+        step_s = (s_hi - s_lo) / (t_hi - t_lo)
+        rates[kernel] = 1.0 / step_s
+        log(f"phase 17 two-point kernel={kernel} (T={t_lo}: "
+            f"{s_lo * 1e3:.3f} ms, T={t_hi}: {s_hi * 1e3:.3f} ms, min of 3):"
+            f" {step_s * 1e6:.3f} us/step = {1 / step_s:.1f} steps/s = "
+            f"{SCEN_B / step_s:.0f} scenario solves/s, on {card}")
+    ci = m.settings.check_interval
+    m.Y = loop["out"][4]
+    m.rho_ind = torch.tensor(int(loop["out"][5]), dtype=torch.int32,
+                             device="cuda")
+    profile_scenario("phase 17 loop", m, prob, loop["xs"][-1], 20, "loop",
+                     ci)
+    sync_sites("phase 17 loop", lambda: scenario_rollout_scan(
+        m, prob, loop["xs"][-1], 10, kernel="loop", check_interval=ci), 10)
+    s.Y, s.rho_ind = out[3][:SCEN_B].clone(), torch.tensor(
+        int(stats[-1, 4]), dtype=torch.int32, device="cuda")
+    profile_scenario("phase 17 scan", s, prob,
+                     out[0][-1, :SCEN_B, :MPC_NX].cpu().double().numpy(),
+                     T, "scan", ci)
+    log("phase 17 OK")
+    return dict(k4=k4, k6=k6, rates=rates)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1124,8 +1773,14 @@ def main():
     k3_errs = phase_k3_check()
     fused = phase_fused_main(card, mpc, protocol)
     k3 = phase_k3_timing(card, fused, mpc["rate"], k2["step_s"])
+    k4_errs = phase_k4_check()
+    scen_loop = phase_scenario_loop(card)
+    k6_errs = phase_k6_check()
+    scen_scan = phase_scenario_scan(card, scen_loop)
+    scen = phase_scenario_timing(card, scen_loop, scen_scan)
     t = timing[640]
     k3_row = k3["rows"][100]
+    k4, k6 = scen["k4"], scen["k6"]
     kernels = [{
         "name": "K1 fused_chunk (Dp=640, R=1, 25 steps, fp32 highest)",
         "route": "cuda",
@@ -1159,6 +1814,31 @@ def main():
         "max_abs_err": k3_errs[(256, "float32")],
         "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
         "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": f"K4 fused_chunk_batched (scenario bank, B={SCEN_B}, Dp=640, "
+                "25 steps, fp32 highest)",
+        "route": "cuda",
+        "source": "reluqp_tpu_torch/csrc/fused_step_batched.cu",
+        "replaces": "reluqp_tpu/ops/fused_step.py:232",
+        "launches": scen_loop["launches"],
+        "max_abs_err": k4_errs[(torch.float32, 640, 64, "highest")],
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],
+    }, {
+        # per control step of the ensemble; no single PyTorch call computes
+        # a rollout
+        "name": f"K6 full_rollout_batched (scenario MPC, B={SCEN_B}, 100-state "
+                f"h10, Dp=640, fp32, per warm control step at "
+                f"ci={SCEN_KW['check_interval']})",
+        "route": "cuda",
+        "source": "reluqp_tpu_torch/csrc/rollout_batched.cu",
+        "replaces": "reluqp_tpu/ops/solve_kernel.py:1265",
+        "launches": scen_scan["launches"],
+        "max_abs_err": k6_errs[(640, 64, "float32")],
+        "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         "library_ms": None,
     }]
     log("card:", card)

@@ -13,13 +13,18 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that, they raise. On ``cuda`` the solve loop runs
 through the chunk kernel K1, and ``models.mpc.mpc_rollout_scan(kernel=
 "scan")`` (or ``"auto"``) runs a whole MPC rollout segment as one launch of
-the whole-rollout kernel K2.
+the whole-rollout kernel K2. ``BatchedReLU_QP`` solves a batch of QPs that
+share (H, A), its solve loop running through the batched chunk kernel K4
+on ``cuda``; ``models.mpc.scenario_rollout_scan`` runs B plants under one
+controller, through K4 per check window (``kernel="loop"``) or a whole
+segment as one launch of the batched whole-rollout kernel K6
+(``kernel="scan"``/``"auto"``).
 
 Importing the package turns TF32 off for float32 matrix products: the
 residual, bias and plant products of the solve loop must run in full fp32
 (reduced-precision residuals carry noise ~1e-2 that stalls the solver
 short of eps_abs). Only the iteration tiers of ``iter_precision`` trade
-precision, inside kernels K1 and K2.
+precision, inside the kernels.
 """
 import torch
 
@@ -28,6 +33,7 @@ torch.set_float32_matmul_precision("highest")
 
 from .classes import QP, Info, Results, Settings  # noqa: E402
 from .solver import ReLU_QP, prepare_bank  # noqa: E402
+from .batch import BatchedReLU_QP, BatchInfo, BatchResults  # noqa: E402
 from .core.bank import Bank, DeviceQP, build_bank_np  # noqa: E402
 from .core.iteration import SolveResult, solve_loop  # noqa: E402
 from .core.ladder import initial_rho_index, setup_rhos  # noqa: E402
@@ -37,6 +43,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ReLU_QP", "QP", "Settings", "Info", "Results",
+    "BatchedReLU_QP", "BatchInfo", "BatchResults",
     "Bank", "DeviceQP", "SolveResult", "solve_loop", "build_bank_np",
     "prepare_bank", "setup_rhos", "initial_rho_index",
     "convert", "models", "__version__",

@@ -1,0 +1,443 @@
+"""The batched solve loop: many QPs sharing (H, A) in one loop of windows.
+
+All problems share one weight bank; one iteration of the whole batch is a
+(B, Dp) @ (Dp, Dp) product per step. Two ρ-adaptation modes:
+
+- ``rho_mode="shared"``: one ladder index for the batch, walked by the
+  geometric mean of the active problems' OSQP ρ estimates; the chunk runs
+  through kernel K4 on CUDA (``ops.fused_step.pallas_batched_chunk_runner``)
+  or the plain runner ``_chunk_shared_rho``;
+- ``rho_mode="per_problem"``: every problem walks its own index; the plain
+  runners gather per-problem Wᵀ (small batches) or run every rung and
+  select one-hot (large ones).
+
+Each problem carries its own ``done`` flag, first-convergence iteration
+count and status; converged problems keep iterating (a converged ADMM
+iterate is a fixed point up to noise) but their ρ estimate and stats are
+frozen. A Python loop over check windows drives it; everything inside a
+window stays on the device, and the loop syncs to the host ONCE per window
+(the open-problem count, and under a two-phase refine its stall metric).
+The iteration count is kept on the host, since every window has a length
+fixed before it runs.
+
+The heterogeneous regime (per-problem H, A, kernel K5) is a later slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops.fused_step import _bf16, fused_chunk_ref
+from .iteration import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
+                        STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED,
+                        _host_scalar_type, rho_ladder_step, rho_update_stride,
+                        run_refined_phases)
+
+__all__ = [
+    "BatchSolveResult",
+    "batched_residuals",
+    "batched_infeasibility_certificates",
+    "solve_batched_shared",
+]
+
+_TINY = 1e-30
+# Below this batch size the per-problem-W gather is the cheaper plain
+# per-problem runner; above it, every rung's product and a one-hot select.
+_GATHER_BATCH_MAX = 32
+
+
+class BatchSolveResult(NamedTuple):
+    Y: torch.Tensor          # (B, Dp) final stacked states
+    iters: torch.Tensor      # (B,) int32 first-convergence iteration (or max_iter)
+    pri_res: torch.Tensor    # (B,) primal residuals at exit
+    dua_res: torch.Tensor    # (B,) dual residuals at exit
+    rho_estimate: torch.Tensor   # (B,) last ρ estimates
+    rho_ind: torch.Tensor    # () or (B,) int32 final ladder indices (device)
+    converged: torch.Tensor  # (B,) bool (status == STATUS_SOLVED)
+    n_iter_total: int        # iterations the batch ran
+    status: torch.Tensor     # (B,) int32 per-problem STATUS_* codes
+    n_iter_fast: int         # iterations run at reduced precision (0 unless
+                             # the two-phase refine was active)
+
+
+def batched_residuals(H, A, g, X, Z, Lam, rho, rho_min: float,
+                      rho_max: float, w_pri=None, w_dua=None):
+    """Per-problem residuals and ρ estimates for a shared-(H, A) batch.
+
+    ``X`` (B, nx), ``Z``/``Lam`` (B, nc), ``g`` (B, nx) or (nx,), ``rho``
+    (B,); optional ``w_pri`` (nc,) / ``w_dua`` (nx,) weight the residual
+    vectors into UNSCALED units under Ruiz equilibration. All products are
+    full-precision GEMMs (TF32 is off). Returns ``(pri, dua, rho_new)``,
+    each (B,).
+    """
+    AX = X @ A.T
+    HX = X @ H.T
+    AtL = Lam @ A
+    g = torch.broadcast_to(g, HX.shape)
+    if w_pri is not None:
+        AX = w_pri * AX
+        Z = w_pri * Z
+    if w_dua is not None:
+        HX = w_dua * HX
+        AtL = w_dua * AtL
+        g = w_dua * g
+    amax = lambda v: v.abs().amax(dim=-1)
+    pri = amax(AX - Z)
+    dua = amax(HX + AtL + g)
+    scale_p = torch.maximum(amax(AX), amax(Z))
+    scale_d = torch.maximum(torch.maximum(amax(HX), amax(AtL)), amax(g))
+    num = pri / scale_p.clamp_min(_TINY)
+    den = dua / scale_d.clamp_min(_TINY)
+    ratio = torch.sqrt(num / den.clamp_min(_TINY))
+    return pri, dua, torch.clamp(rho * ratio, rho_min, rho_max)
+
+
+def batched_infeasibility_certificates(H, A, g, l, u, dX, dLam,
+                                       eps_pinf: float, eps_dinf: float):
+    """Per-problem OSQP-style infeasibility certificates on iterate deltas
+    (shared H, A): δλ certifies primal infeasibility when Aᵀδλ ≈ 0 and the
+    support function uᵀ(δλ)₊ + lᵀ(δλ)₋ is negative; δx certifies dual
+    infeasibility when Hδx ≈ 0, gᵀδx < 0 and Aδx is a feasible ray.
+
+    ``dX`` (B, nx), ``dLam`` (B, nc), ``l``/``u`` (B, nc), ``g`` (B, nx) or
+    (nx,). Returns ``(pinf, dinf)`` bool (B,) tensors.
+    """
+    amax = lambda v: v.abs().amax(dim=-1)
+    norm_dlam = amax(dLam)
+    norm_dx = amax(dX)
+    eps_p = eps_pinf * norm_dlam
+    eps_d = eps_dinf * norm_dx
+    At_dlam = dLam @ A
+    H_dx = dX @ H.T
+    A_dx = dX @ A.T
+    zero = torch.zeros((), dtype=dLam.dtype, device=dLam.device)
+    support = torch.where(dLam > 0, u * dLam,
+                          torch.where(dLam < 0, l * dLam, zero)).sum(dim=-1)
+    pinf = (norm_dlam > 0) & (amax(At_dlam) <= eps_p) & (support <= -eps_p)
+    ray_ok = torch.all(
+        torch.where(torch.isfinite(u), A_dx <= eps_d[:, None], True)
+        & torch.where(torch.isfinite(l), A_dx >= -eps_d[:, None], True),
+        dim=-1)
+    g_dx = (torch.broadcast_to(g, dX.shape) * dX).sum(dim=-1)
+    dinf = (norm_dx > 0) & (amax(H_dx) <= eps_d) & (g_dx <= -eps_d) & ray_ok
+    return pinf, dinf
+
+
+# --------------------------------------------------------------------- #
+# plain chunk runners                                                   #
+# --------------------------------------------------------------------- #
+
+def _tier_product(Y, W, iter_precision: str, mm):
+    """``mm(Y, W)`` at the iteration tier, as ``fused_chunk_ref`` runs K1's
+    tiers: "highest" full precision, "high" the bf16 hi/lo split with lo·lo
+    dropped, "default"/"bf16" (or a bf16 bank) bf16-rounded inputs."""
+    dt = Y.dtype
+    if iter_precision in ("default", "bf16") or W.dtype == torch.bfloat16:
+        return mm(_bf16(Y, dt), _bf16(W, dt))
+    W = W.to(dt)
+    if iter_precision == "high":
+        w_h = _bf16(W, dt)
+        w_l = _bf16(W - w_h, dt)
+        y_h = _bf16(Y, dt)
+        y_l = _bf16(Y - y_h, dt)
+        return (mm(y_h, w_l) + mm(y_l, w_h)) + mm(y_h, w_h)
+    return mm(Y, W)
+
+
+def _chunk_shared_rho(Wt_bank, bias_all, rho_ind, lo, hi, Y, n_steps: int,
+                      iter_precision: str = "highest"):
+    """One shared ladder index: ``Y ← clip(Y Wᵀ + b)`` as one product per
+    step, in plain torch (``backend="xla"``). ``bias_all`` (N, B, Dp)."""
+    b = bias_all.index_select(0, rho_ind.reshape(1))[0]
+    return fused_chunk_ref(Wt_bank, b, lo, hi, Y, rho_ind, n_steps,
+                           iter_precision)
+
+
+def _chunk_rung_gemm(Wt_bank, bias_all, rho_inds, lo, hi, Y, n_steps: int,
+                     iter_precision: str = "highest"):
+    """Per-problem ρ via every rung's product and a one-hot select (large
+    batches)."""
+    n_rho = Wt_bank.shape[0]
+    onehot = torch.nn.functional.one_hot(rho_inds.long(), n_rho).to(Y.dtype)
+    b = torch.einsum("nbd,bn->bd", bias_all, onehot)
+    mm = lambda y, w: torch.einsum("bd,ndk->nbk", y, w)
+    for _ in range(n_steps):
+        Zall = _tier_product(Y, Wt_bank, iter_precision, mm)
+        YW = torch.einsum("nbk,bn->bk", Zall, onehot)
+        Y = torch.minimum(torch.maximum(YW + b, lo), hi)
+    return Y
+
+
+def _chunk_gathered(Wt_bank, bias_all, rho_inds, lo, hi, Y, n_steps: int,
+                    iter_precision: str = "highest"):
+    """Per-problem ρ via a per-problem Wᵀ gather and a batched product
+    (small batches)."""
+    idx = rho_inds.long()
+    Wt = Wt_bank[idx]                                          # (B, Dp, Dp)
+    b = bias_all[idx, torch.arange(Y.shape[0], device=Y.device)]  # (B, Dp)
+    mm = lambda y, w: torch.bmm(y[:, None, :], w)[:, 0, :]
+    for _ in range(n_steps):
+        YW = _tier_product(Y, Wt, iter_precision, mm)
+        Y = torch.minimum(torch.maximum(YW + b, lo), hi)
+    return Y
+
+
+# --------------------------------------------------------------------- #
+# shared-(H, A) batch                                                   #
+# --------------------------------------------------------------------- #
+
+class _BState(NamedTuple):
+    Y: torch.Tensor
+    rho_ind: torch.Tensor     # () or (B,) int32, device
+    rho: torch.Tensor         # (B,) last ρ estimates
+    k: int                    # host iteration counter
+    pri: torch.Tensor
+    dua: torch.Tensor
+    done: torch.Tensor        # (B,) bool
+    iters: torch.Tensor       # (B,) int32
+    status: torch.Tensor      # (B,) int32
+    n_open: int               # host copy from the window's bundle
+    metric: Optional[float]   # mean log-residual of the open problems
+    X_prev: object = None     # infeasibility deltas (device)
+    Lam_prev: object = None
+
+
+def _run_refined(step, running, state0, Wt_bank, Wt_bank_hi, *, refine,
+                 iter_precision, n_chunks, check_interval, rem, dtype):
+    """The batched loop over ``iteration.run_refined_phases``.
+
+    The stall metric is the mean log-residual over OPEN problems plus the
+    open count: a per-problem "any improving" test would hold the fast
+    phase open at large B (some problem's jitter always beats its own best).
+    Returns ``(state, k_fast)``.
+    """
+    sc = _host_scalar_type(dtype)
+    state, k_fast, tail_W, tail_prec = run_refined_phases(
+        step, running, state0, Wt_bank, Wt_bank_hi, refine=refine,
+        iter_precision=iter_precision,
+        cap_a=(n_chunks // 2) * check_interval,
+        check_interval=check_interval,
+        metric=lambda s: (s.metric, s.n_open),
+        improved=lambda m, best: bool(sc(m[0]) < sc(best[0]) - sc(0.03)
+                                      or m[1] < best[1]),
+        best0=(float("inf"), int(np.iinfo(np.int32).max)))
+    if rem > 0 and state.n_open > 0:
+        # max_iter % check_interval tail, its own check ordinal
+        state = step(state, rem, tail_W, tail_prec)
+    return state, k_fast
+
+
+def _init_state_shared(Y0, rho_ind0, rhos_t, done0, nx, nc, max_iter,
+                       check_infeasibility, alpha, rho_eff) -> _BState:
+    B = Y0.shape[0]
+    dtype, dev = Y0.dtype, Y0.device
+    if isinstance(rho_ind0, torch.Tensor):
+        rho_ind0 = rho_ind0.to(device=dev, dtype=torch.int32)
+    else:
+        rho_ind0 = torch.as_tensor(np.asarray(rho_ind0, np.int32),
+                                   device=dev)
+    # index_select, not rhos_t[rho_ind0]: a 0-d index tensor is read to the
+    # host (a sync)
+    rho0 = (rhos_t.index_select(0, rho_ind0.reshape(-1).long())
+            * torch.ones((B,), dtype=dtype, device=dev))
+    zeros = torch.zeros((B,), dtype=dtype, device=dev)
+    done = (torch.zeros((B,), dtype=torch.bool, device=dev) if done0 is None
+            else torch.as_tensor(done0, dtype=torch.bool, device=dev))
+    iters = torch.where(done, 0, max_iter).to(torch.int32)
+    # inert (padding) rows report "solved" so they never hold the loop open
+    status = torch.where(done, STATUS_SOLVED, STATUS_MAX_ITER).to(torch.int32)
+    state = _BState(Y0, rho_ind0, rho0, 0, zeros, zeros, done, iters, status,
+                    B, None)
+    if check_infeasibility:
+        Z0 = Y0[:, nx:nx + nc]
+        last = Y0[:, nx + nc:nx + 2 * nc]
+        lam0 = last if alpha == 1.0 else \
+            rho_eff.index_select(0, rho_ind0.reshape(-1).long()) * (last - Z0)
+        state = state._replace(X_prev=Y0[:, :nx], Lam_prev=lam0)
+    return state
+
+
+def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
+                         rho_ind0, done0=None, Wt_bank_hi=None,
+                         rho_eff=None, w_pri=None, w_dua=None,
+                         bias_lazy=None, *,
+                         nx: int, nc: int, max_iter: int,
+                         check_interval: int, adaptive_rho: bool,
+                         adaptive_rho_tolerance: float, eps_abs: float,
+                         rho_min: float, rho_max: float,
+                         rho_mode: str = "shared", chunk_runner=None,
+                         rho_jump: bool = False,
+                         check_infeasibility: bool = False,
+                         eps_prim_inf: float = 1e-4,
+                         eps_dual_inf: float = 1e-4,
+                         iter_precision: str = "highest",
+                         refine: bool = True,
+                         adaptive_rho_interval: int = 1,
+                         alpha: float = 1.0) -> BatchSolveResult:
+    """Solve a batch of QPs sharing (H, A).
+
+    Args:
+      Wt_bank: (N_rho, Dp, Dp) shared transposed (padded) bank.
+      bias_all: (N_rho, B, Dp) per-rung biases ``b_k = B_k g_i``.
+      rhos: (N_rho,) ladder values.
+      H, A: shared problem matrices (unpadded), for the residuals.
+      G: (B, nx) per-problem linear terms.
+      lo, hi: (B, Dp) per-problem clamp bounds.
+      Y0: (B, Dp) start states.
+      rho_ind0: int or 0-d int32 tensor ("shared"), (B,) ("per_problem").
+      done0: optional (B,) bool mask of rows treated as converged from the
+        start (inert batch-padding rows), left out of the ρ walk.
+      chunk_runner: the ``_chunk_*`` signature; K4's runner plugs in here
+        (shared mode only).
+      bias_lazy: optional ``(bias_c (N, Dp) | None, M_hi (N, Dp, np),
+        M_lo | None, X (B, np))`` state-affine bias (shared mode only): per
+        window the loop forms the CURRENT rung's bias ``c_k + X M_kᵀ`` as
+        one product; ``bias_all`` is then not read.
+    """
+    B = Y0.shape[0]
+    dtype = Y0.dtype
+    shared = rho_mode == "shared"
+    if chunk_runner is None:
+        if shared:
+            chunk_runner = _chunk_shared_rho
+        else:
+            chunk_runner = (_chunk_gathered if B <= _GATHER_BATCH_MAX
+                            else _chunk_rung_gemm)
+    if bias_lazy is not None and not shared:
+        raise ValueError("bias_lazy requires rho_mode='shared' (one rung "
+                         "per window; per-problem rungs need the full "
+                         "materialized bias bank)")
+    rhos_t = rhos.to(dtype)
+    eps = torch.tensor(eps_abs, dtype=dtype)
+    eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
+    eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
+    tol = float(torch.tensor(adaptive_rho_tolerance, dtype=dtype))
+    n_chunks = max_iter // check_interval
+    rem = max_iter - n_chunks * check_interval
+    rho_stride = rho_update_stride(adaptive_rho_interval, check_interval)
+    two_phase = refine and iter_precision != "highest"
+    n_rho = Wt_bank.shape[0]
+
+    def split(Y):
+        return Y[:, :nx], Y[:, nx:nx + nc], Y[:, nx + nc:nx + 2 * nc]
+
+    def rho_vec(rho_ind):
+        """ρ⃗ at the rung(s): (1, nc) shared or (B, nc) per problem."""
+        return rho_eff.index_select(0, rho_ind.reshape(-1).long())
+
+    def lam_of(Y, rho_ind):
+        _, Z, last = split(Y)
+        return last if alpha == 1.0 else rho_vec(rho_ind) * (last - Z)
+
+    def bias_of(rho_ind):
+        """The bias bank for the runner: materialized, or (lazy) the current
+        rung's per-problem bias expanded to bank shape (the runner reads
+        only that one row)."""
+        if bias_lazy is None:
+            return bias_all
+        c_b, M_b, Ml_b, X_b = bias_lazy
+        idx = rho_ind.reshape(1)
+        b_loc = X_b @ M_b.index_select(0, idx)[0].T
+        if Ml_b is not None:
+            b_loc = b_loc + X_b @ Ml_b.index_select(0, idx)[0].T
+        if c_b is not None:
+            b_loc = b_loc + c_b.index_select(0, idx)
+        b_loc = b_loc.to(dtype)
+        return b_loc.expand(n_rho, *b_loc.shape)
+
+    def step(st: _BState, n_steps: int, W_op, precision: str) -> _BState:
+        Y = chunk_runner(W_op, bias_of(st.rho_ind), st.rho_ind, lo, hi, st.Y,
+                         n_steps, precision)
+        X, Z, _ = split(Y)
+        pri_n, dua_n, rho_new = batched_residuals(
+            H, A, G, X, Z, lam_of(Y, st.rho_ind), st.rho, rho_min, rho_max,
+            w_pri, w_dua)
+        if check_infeasibility:
+            lam_now = lam_of(Y, st.rho_ind)
+        done = st.done
+        # freeze the stats of problems that already converged
+        pri = torch.where(done, st.pri, pri_n)
+        dua = torch.where(done, st.dua, dua_n)
+        rho = torch.where(done, st.rho, rho_new)
+        rho_ind = st.rho_ind
+        k = st.k + n_steps
+        if adaptive_rho:
+            if shared:
+                # the geometric mean of the active problems' estimates
+                # drives the one shared ladder index
+                rho_k = rhos_t.index_select(0, rho_ind.reshape(1)).reshape(())
+                logr = torch.where(done, 0.0, torch.log(rho_new)).sum()
+                n_act = (~done).sum()
+                rho_gm = torch.exp(logr / n_act.clamp_min(1).to(dtype))
+                rho_gm = torch.where(n_act > 0, rho_gm, rho_k)
+                new_ind = rho_ladder_step(rhos_t, rho_ind, rho_gm, tol,
+                                          rho_jump)
+            else:
+                new_ind = rho_ladder_step(rhos_t, rho_ind, rho_new, tol,
+                                          rho_jump, done=done)
+            if rho_stride > 1:
+                # ρ moves only at every rho_stride-th check. Ceil-div: the
+                # max_iter % check_interval tail counts as its own check
+                # ordinal, not a repeat of the last window's.
+                chk = -((-k) // check_interval)
+                if chk % rho_stride != 0:
+                    new_ind = rho_ind
+            if alpha != 1.0:
+                # re-encode p for the new rung with ρ⃗_old/ρ⃗_new (all ones
+                # where it held, capped rows and frozen rows included)
+                scale = rho_vec(rho_ind) / rho_vec(new_ind)
+                Z_cur = Y[:, nx:nx + nc]
+                P_cur = Y[:, nx + nc:nx + 2 * nc]
+                Y = torch.cat([Y[:, :nx + nc], Z_cur + scale * (P_cur - Z_cur),
+                               Y[:, nx + 2 * nc:]], dim=1)
+            rho_ind = new_ind
+        newly = ~done & (pri < eps_pri) & (dua < eps_dua)
+        iters = torch.where(newly, k, st.iters).to(torch.int32)
+        status = torch.where(newly, STATUS_SOLVED, st.status).to(torch.int32)
+        done = done | newly
+        X_prev = Lam_prev = None
+        if check_infeasibility:
+            X = Y[:, :nx]
+            pinf, dinf = batched_infeasibility_certificates(
+                H, A, G, lo[:, nx:nx + nc], hi[:, nx:nx + nc], X - st.X_prev,
+                lam_now - st.Lam_prev, eps_prim_inf, eps_dual_inf)
+            for flag, code in ((pinf, STATUS_PRIMAL_INFEASIBLE),
+                               (dinf, STATUS_DUAL_INFEASIBLE)):
+                newly_i = ~done & flag
+                status = torch.where(newly_i, code, status).to(torch.int32)
+                iters = torch.where(newly_i, k, iters).to(torch.int32)
+                done = done | newly_i
+            X_prev, Lam_prev = X, lam_now
+        # the window's ONE device→host transfer
+        bundle = [(~done).sum().to(torch.float64)]
+        if two_phase:
+            logres = torch.where(done, 0.0, torch.log(
+                torch.clamp_min(pri + dua, 1e-30)))
+            bundle.append((logres.sum() / (~done).sum().clamp_min(1))
+                          .to(torch.float64))
+        host = torch.stack(bundle).cpu().tolist()
+        return _BState(Y, rho_ind, rho, k, pri, dua, done, iters, status,
+                       int(host[0]), host[1] if two_phase else None, X_prev,
+                       Lam_prev)
+
+    def running(st: _BState) -> bool:
+        return st.n_open > 0 and st.k < n_chunks * check_interval
+
+    state0 = _init_state_shared(Y0, rho_ind0, rhos_t, done0, nx, nc,
+                                max_iter, check_infeasibility, alpha, rho_eff)
+    st, k_fast = _run_refined(
+        step, running, state0, Wt_bank, Wt_bank_hi, refine=refine,
+        iter_precision=iter_precision, n_chunks=n_chunks,
+        check_interval=check_interval, rem=rem, dtype=dtype)
+    return _wrap_result(st, k_fast)
+
+
+def _wrap_result(st: _BState, k_fast: int) -> BatchSolveResult:
+    return BatchSolveResult(Y=st.Y, iters=st.iters, pri_res=st.pri,
+                            dua_res=st.dua, rho_estimate=st.rho,
+                            rho_ind=st.rho_ind,
+                            converged=st.status == STATUS_SOLVED,
+                            n_iter_total=st.k, status=st.status,
+                            n_iter_fast=k_fast)

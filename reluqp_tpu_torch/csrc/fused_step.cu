@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tiers.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -57,23 +59,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // Shared memory kept free for the runtime's own use per block.
 constexpr int kSmemReserve = 1024;
-
-enum { DT_F32 = 0, DT_F64 = 1, DT_BF16 = 2 };
-enum { TIER_HIGHEST = 0, TIER_HIGH = 1, TIER_BF16 = 2 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(double x) { return static_cast<float>(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T cvt(float x) { return static_cast<T>(x); }
-template <typename T> __device__ __forceinline__ T cvt(double x) { return static_cast<T>(x); }
-template <typename T> __device__ __forceinline__ T cvt(__nv_bfloat16 x) {
-  return static_cast<T>(__bfloat162float(x));
-}
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // Partial dot product of one state row with one W column over the lanes of
 // a warp: lane handles i = lane, lane + 32, ...; W column element i sits at

@@ -39,6 +39,8 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "tiers.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -53,23 +55,7 @@ constexpr int kPartCols = 8;
 constexpr float kTinyF = 1e-30f;
 constexpr double kTiny = 1e-30;
 
-enum { DT_F32 = 0, DT_F64 = 1, DT_BF16 = 2 };
-enum { TIER_HIGHEST = 0, TIER_HIGH = 1, TIER_BF16 = 2 };
 enum { ST_RUNNING = -1, ST_MAXITER = 0, ST_SOLVED = 1, ST_PINF = 2, ST_DINF = 3 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(double x) { return static_cast<float>(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T cvt(float x) { return static_cast<T>(x); }
-template <typename T> __device__ __forceinline__ T cvt(double x) { return static_cast<T>(x); }
-template <typename T> __device__ __forceinline__ T cvt(__nv_bfloat16 x) {
-  return static_cast<T>(__bfloat162float(x));
-}
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // NaN-propagating max and min (a NaN residual must not be dropped, as
 // fmax/fmin would).

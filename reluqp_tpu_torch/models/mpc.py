@@ -14,7 +14,11 @@
   device. ``kernel="loop"`` runs each step's solve through the solve loop
   (kernel K1 on CUDA); ``kernel="fused"`` runs each step's whole solve as
   one launch of the whole-solve kernel K3; ``kernel="scan"`` runs the
-  whole rollout segment as one launch of the whole-rollout kernel K2.
+  whole rollout segment as one launch of the whole-rollout kernel K2;
+- ``scenario_rollout_scan``: the closed loop of B plants under one
+  controller on the batched solver: ``kernel="loop"`` one batched solve
+  per step (kernel K4 on CUDA), ``kernel="scan"`` a whole segment as one
+  launch of the batched whole-rollout kernel K6.
 
 Condensed form (prestabilized with ``u_k = -K x_k + v_k``,
 ``Ā = Ad - Bd K``): stacking stage vectors ``s_k = [u_{k-1}; x_k]`` for
@@ -36,9 +40,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.fused_step import pad_dim
+from ..core.batched import solve_batched_shared
+from ..ops.fused_step import (pad_dim, pallas_batched_chunk_runner,
+                              round_up)
 from ..ops.solve_kernel import (FullSolveOperand, build_residual_operator,
-                                full_rollout, full_solve)
+                                full_rollout, full_rollout_batched,
+                                full_solve)
 
 __all__ = [
     "ihlqr",
@@ -50,6 +57,7 @@ __all__ = [
     "random_linear_system",
     "MPC",
     "mpc_rollout_scan",
+    "scenario_rollout_scan",
     "auto_check_interval",
     "solver_plant_A",
     "solver_plant_B",
@@ -964,3 +972,376 @@ def solver_plant_B(prob: CondensedMPC) -> np.ndarray:
     nx = prob.K.shape[1]
     nu = prob.K.shape[0]
     return prob.F[nu:nu + nx, :nu]
+
+
+# --------------------------------------------------------------------- #
+# scenario MPC: a batch of plants under one controller                  #
+# --------------------------------------------------------------------- #
+
+def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
+                           Ad, Bd, v0_scale, noise, Y0, rho_ind0, X0,
+                           Wt_hi=None, rho_eff=None, bias_c=None, M_hi=None,
+                           M_lo=None, w_pri=None, w_dua=None, done0=None, *,
+                           nx_qp: int, nc: int, nu: int, n_steps: int,
+                           max_iter: int, check_interval: int,
+                           adaptive_rho: bool,
+                           adaptive_rho_tolerance: float, eps_abs: float,
+                           rho_min: float, rho_max: float, rho_jump: bool,
+                           chunk_runner=None, iter_precision: str = "highest",
+                           refine: bool = True,
+                           adaptive_rho_interval: int = 1,
+                           alpha: float = 1.0,
+                           check_infeasibility: bool = False,
+                           eps_prim_inf: float = 1e-4,
+                           eps_dual_inf: float = 1e-4):
+    """The loop-path scenario rollout: one batched warm solve per control
+    step for the whole ensemble.
+
+    Per step every scenario's g, l, u refresh from its own plant state, the
+    batched solve (``core.batched.solve_batched_shared``, rho_mode
+    "shared") runs with the state-affine bias ``c_k + X M_kᵀ`` formed for
+    the current rung once per window, and each plant steps with its own
+    control and noise row. ``Y0`` may hold padded rows (``done0``): they
+    run the x = 0 scenario, start done and are sliced off. Returns
+    ``(states (T+1, B, nx), controls (T, B, nu), iters (T,), status (T,),
+    Y_final, rho_ind_final)``; the status lane is ``min`` over the
+    scenarios of the step's status codes, as the JAX package reduces it
+    (an infeasible scenario reads as SOLVED next to solved ones;
+    ROADMAP §C, F-w2). ``iters``/``status`` are CPU int32 tensors.
+    """
+    B_pad, Dp = Y0.shape
+    B_n, npl = X0.shape
+    dtype, dev = Y0.dtype, Y0.device
+    pad_lo = torch.full((B_pad, Dp), -float("inf"), dtype=dtype, device=dev)
+    pad_hi = torch.full((B_pad, Dp), float("inf"), dtype=dtype, device=dev)
+    zero_rows = torch.zeros((B_pad - B_n, npl), dtype=dtype, device=dev)
+    Y, rho_ind, X = Y0, rho_ind0, X0
+    Xs, Us, its, sts = [X0], [], [], []
+    for t in range(n_steps):
+        Xp = torch.cat([X, zero_rows]) if B_pad != B_n else X
+        G = g0[None, :] + Xp @ g_x0.T                      # (B_pad, nqp)
+        shift = Xp @ lu_x0.T                               # (B_pad, nc)
+        lo = pad_lo.clone()
+        lo[:, nx_qp:nx_qp + nc] = l0[None, :] + shift
+        hi = pad_hi.clone()
+        hi[:, nx_qp:nx_qp + nc] = u0_[None, :] + shift
+        res = solve_batched_shared(
+            Wt_bank, None, rhos, H, A, G, lo, hi, Y, rho_ind, done0, Wt_hi,
+            rho_eff, w_pri, w_dua, (bias_c, M_hi, M_lo, Xp),
+            nx=nx_qp, nc=nc, max_iter=max_iter,
+            check_interval=check_interval, adaptive_rho=adaptive_rho,
+            adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+            rho_min=rho_min, rho_max=rho_max, rho_mode="shared",
+            chunk_runner=chunk_runner, rho_jump=rho_jump,
+            iter_precision=iter_precision, refine=refine,
+            adaptive_rho_interval=adaptive_rho_interval, alpha=alpha,
+            check_infeasibility=check_infeasibility,
+            eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf)
+        # unscale the first-stage variable back to plant units
+        V0 = res.Y[:B_n, :nu] * v0_scale[None, :]
+        U = -(X @ Kg.T) + V0
+        X = (X @ Ad.T + U @ Bd.T) + noise[t]
+        Y, rho_ind = res.Y, res.rho_ind
+        Xs.append(X)
+        Us.append(U)
+        its.append(res.n_iter_total)
+        sts.append(res.status[:B_n].min())
+    us_t = torch.stack(Us) if Us else torch.zeros((0, B_n, nu), dtype=dtype,
+                                                  device=dev)
+    st = (torch.stack(sts).cpu().to(torch.int32) if sts
+          else torch.zeros((0,), dtype=torch.int32))   # one read per segment
+    return (torch.stack(Xs), us_t, torch.tensor(its, dtype=torch.int32), st,
+            Y, int(rho_ind))
+
+
+def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,
+                          n_steps: int, noise=None,
+                          solve_max_iter: Optional[int] = None,
+                          kernel: str = "loop", check_interval=None,
+                          calib_steps: int = 8, return_stats: bool = False,
+                          return_state: bool = False):
+    """Closed-loop SCENARIO MPC: B plants under one shared condensed
+    controller.
+
+    Per step every scenario's (g, l, u) refreshes from its own plant state,
+    the batched shared-bank solver runs all scenarios with one shared ρ
+    rung and a collective exit, and each plant steps with its own control
+    (plus an optional per-scenario disturbance ``noise (T, B, nx)``).
+
+    Args:
+      batch_solver: a ``BatchedReLU_QP`` set up on ``prob``'s condensed QP
+        for B scenarios (shared H/A; its g/l/u are refreshed per step),
+        ``rho_mode="shared"``.
+      prob: the ``CondensedMPC`` maps.
+      X_init: (B, nx_plant) initial plant states.
+      kernel: "loop" (each step's batched solve through the solve loop,
+        i.e. kernel K4 on CUDA under the padded layout); "scan" — every
+        step of a segment in ONE launch of the batched whole-rollout kernel
+        K6 (``ops.solve_kernel.full_rollout_batched``; its plain version on
+        the CPU), which needs alpha=1, no infeasibility checks,
+        iter_precision="highest" or refine=False, and a budget of at least
+        one check window (rounded down to whole windows); "auto" takes
+        "scan" on CUDA whenever it is eligible (then K6 runs or the call
+        raises), else "loop" (always "loop" on the CPU).
+      check_interval: ``None`` (settings) / an int / ``"auto"`` — the
+        first ``calib_steps`` steps at ci=1, then the window sized by
+        ``auto_check_interval`` on the ensemble's per-step iterations.
+      return_stats: also return the per-step status lane (the ``min``
+        over the scenarios' status codes, as the JAX package reports it).
+      return_state: also return ``(Y_final, rho_ind_final)``.
+
+    Returns ``(states (T+1, B, nx), controls (T, B, nu), iters (T,))``.
+    """
+    m = batch_solver
+    if m.rho_mode != "shared":
+        raise ValueError("scenario_rollout_scan requires rho_mode='shared'")
+    if kernel not in ("loop", "scan", "auto"):
+        raise ValueError("kernel must be 'loop', 'scan' or 'auto'")
+    stng = m.settings
+    ci_gate = None if check_interval in (None, "auto") else check_interval
+    if kernel == "auto":
+        # K6 on the card by the static gate, with no fallback; the CPU keeps
+        # the loop path, as the JAX package picks "scan" only on its
+        # accelerator
+        kernel = ("scan" if stng.device.type == "cuda"
+                  and _scan_scenario_eligible(m, ci_gate, solve_max_iter)
+                  else "loop")
+    if kernel == "scan" and not _scan_scenario_eligible(m, ci_gate,
+                                                        solve_max_iter):
+        raise ValueError(
+            "kernel='scan' scenario rollout needs alpha=1, "
+            "iter_precision='highest' or refine=False, no infeasibility "
+            "checks, rho_mode='shared', and a budget of at least one full "
+            "check window")
+    dtype, dev = stng.precision_dtype, stng.device
+    X0 = (X_init.to(device=dev, dtype=dtype)
+          if isinstance(X_init, torch.Tensor)
+          else torch.as_tensor(np.asarray(X_init, np.float64), dtype=dtype,
+                               device=dev))
+    B_n, npl = X0.shape
+    if B_n != m.B_n:
+        raise ValueError(f"X_init batch {B_n} != solver batch {m.B_n}")
+    if noise is None:
+        noise = torch.zeros((n_steps, B_n, npl), dtype=dtype, device=dev)
+    else:
+        noise = (noise.to(device=dev, dtype=dtype)
+                 if isinstance(noise, torch.Tensor)
+                 else torch.as_tensor(np.asarray(noise, np.float64),
+                                      dtype=dtype, device=dev))
+        if tuple(noise.shape) != (n_steps, B_n, npl):
+            raise ValueError(f"noise must be (T={n_steps}, B={B_n}, {npl})")
+    segment = _scan_scenario_rollout if kernel == "scan" \
+        else _loop_scenario_rollout
+    n_used = [0]
+
+    def run(ci, X_seg, Y0, rho0, steps):
+        w = noise[n_used[0]:n_used[0] + steps]
+        n_used[0] += steps
+        return segment(m, prob, X_seg, steps, solve_max_iter, ci, Y0, rho0, w)
+
+    if check_interval == "auto":
+        out = _auto_ci_rollout(run, stng, X0, n_steps, calib_steps, m.Y,
+                               m.rho_ind, solve_max_iter or stng.max_iter)
+    else:
+        ci = (stng.check_interval if check_interval is None
+              else int(check_interval))
+        out = run(ci, X0, m.Y, m.rho_ind, n_steps)
+    res = out[:3]
+    if return_stats:
+        res = res + (out[3],)
+    if return_state:
+        res = res + out[4:6]
+    return res
+
+
+def _loop_scenario_operands(m, prob: CondensedMPC) -> tuple:
+    """The loop segment's constants for a batch solver and prob, on its
+    device: the g/l/u maps mapped into its (possibly Ruiz-equilibrated)
+    space, the plant maps and the fp64 affine bias maps, in
+    ``_scenario_rollout_impl``'s order from ``g0`` to ``v0_scale`` and then
+    ``(bias_c, M_hi, M_lo)``. Cached on the solver per prob and bank, as
+    the scan path's operands are, so that a warm segment uploads nothing."""
+    cache = getattr(m, "_loop_ops_cache", None)
+    if cache is not None and cache[0] == id(prob) and cache[3] is m.Wt_bank:
+        return cache[1]
+    stng = m.settings
+    dtype, dev = stng.precision_dtype, stng.device
+    cst = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                    device=dev)
+    sc = m.scal
+    nu = prob.K.shape[0]
+    gD = sc.c * sc.D
+    maps = tuple(cst(a) for a in (
+        gD * prob.g0, gD[:, None] * prob.g_x0, sc.E * prob.l0,
+        sc.E * prob.u0, sc.E[:, None] * prob.lu_x0, prob.K,
+        solver_plant_A(prob), solver_plant_B(prob), sc.D[:nu]))
+    bias = _affine_bias_maps(m._B_np, gD * prob.g0, gD[:, None] * prob.g_x0,
+                             dtype, dev)
+    # prob is held so that its id stays unique while the entry lives
+    m._loop_ops_cache = (id(prob), (maps, bias), prob, m.Wt_bank)
+    return maps, bias
+
+
+def _loop_scenario_rollout(m, prob: CondensedMPC, X0, n_steps: int,
+                           solve_max_iter, ci, Y0, rho_ind0, noise):
+    """One loop-path segment (``_scenario_rollout_impl``) for a batch
+    solver: its cached ``_loop_scenario_operands`` and its padded rows
+    marked done."""
+    stng = m.settings
+    dev = stng.device
+    maps, (bias_c, M_hi, M_lo) = _loop_scenario_operands(m, prob)
+    rho0 = (rho_ind0 if isinstance(rho_ind0, torch.Tensor)
+            else torch.tensor(int(rho_ind0), dtype=torch.int32, device=dev))
+    return _scenario_rollout_impl(
+        m.Wt_bank, m.rhos, m.H_dev, m.A_dev, *maps, noise, Y0, rho0, X0,
+        m._Wt_hi, m._rho_eff, bias_c, M_hi, M_lo, m._w_pri, m._w_dua,
+        m._done0(), nx_qp=m.nx, nc=m.nc, nu=prob.K.shape[0], n_steps=n_steps,
+        max_iter=solve_max_iter or stng.max_iter, check_interval=ci,
+        adaptive_rho=stng.adaptive_rho,
+        adaptive_rho_tolerance=float(stng.adaptive_rho_tolerance),
+        eps_abs=float(stng.eps_abs), rho_min=float(stng.rho_min),
+        rho_max=float(stng.rho_max), rho_jump=bool(stng.rho_jump),
+        chunk_runner=(pallas_batched_chunk_runner if m._use_pallas
+                      else None),
+        iter_precision=stng.iter_precision, refine=bool(stng.refine),
+        adaptive_rho_interval=int(stng.adaptive_rho_interval),
+        alpha=float(stng.alpha),
+        check_infeasibility=bool(stng.check_infeasibility),
+        eps_prim_inf=float(stng.eps_prim_inf),
+        eps_dual_inf=float(stng.eps_dual_inf))
+
+
+def _scan_scenario_eligible(m, ci=None, budget=None) -> bool:
+    """Gate for the batched whole-rollout kernel K6 on any device: a
+    shared-(H, A) batch walking one shared rung, alpha=1, no infeasibility
+    certificates, single-phase iteration (a reduced ``iter_precision``
+    only with ``refine=False``) and a budget of at least one full check
+    window. The TPU's VMEM and Dp > 768 precision gates do not apply on the
+    card (ROADMAP §C)."""
+    stng = m.settings
+    if getattr(m, "hetero", False) or m.rho_mode != "shared":
+        return False
+    if stng.alpha != 1.0 or stng.check_infeasibility:
+        return False
+    if stng.iter_precision != "highest" and stng.refine:
+        return False
+    ci_eff = stng.check_interval if ci is None else int(ci)
+    eff_budget = stng.max_iter if budget is None else int(budget)
+    return eff_budget >= ci_eff
+
+
+def _scenario_scan_operands(m, prob: CondensedMPC, Dp: int) -> dict:
+    """K2's operands (``_build_rollout_operators``) for a batch solver and
+    prob, plus its bank at the kernel's padded dim, cached on the solver
+    per (prob, Dp) and bank. H is taken in the iteration dtype (the values
+    the loop's residuals contract against), A and B from the fp64
+    masters."""
+    cache = getattr(m, "_scan_ops_cache", None)
+    key = (id(prob), Dp)
+    if cache is not None and cache[0] == key and cache[3] is m.Wt_bank:
+        return cache[1]
+    stng = m.settings
+    dev = stng.device
+    n_rho, D = m.Wt_bank.shape[0], m.D
+    B64 = np.zeros((n_rho, Dp, m.nx))
+    B64[:, :D] = m._B_np[:, :D]
+    W = m.Wt_bank
+    if m.Dp != Dp:
+        # an unpadded solver layout (backend="xla"): pad the kernel's own
+        # bank copy, once
+        W = torch.zeros((n_rho, Dp, Dp), dtype=W.dtype, device=dev)
+        W[:, :D, :D] = m.Wt_bank[:, :D, :D]
+    ops = _build_rollout_operators(
+        prob, m.scal, m.H_dev.double().cpu().numpy(), m._A_scaled_np,
+        m._w_pri_np, m._w_dua_np, B64, m.nx, m.nc, Dp, stng.precision_dtype,
+        dev)
+    ops["Wt"] = W
+    # prob is held so that its id stays unique while the entry lives
+    m._scan_ops_cache = (key, ops, prob, m.Wt_bank)
+    return ops
+
+
+def _scenario_scan_call(m, prob: CondensedMPC, X_init, n_steps: int,
+                        ci=None, budget=None, Y0=None, rho_ind0=None,
+                        noise=None, rows=None):
+    """The arguments ``(args, kw)`` of one K6 launch,
+    ``full_rollout_batched(*args, **kw)``, for a scenario segment: the
+    cached ``_scenario_scan_operands``; the start states ``Y0`` (default
+    ``m.Y``) moved from the batch solver's (B_pad, Dp) layout into the
+    kernel's (Bp, Dp_k) one, Bp = B rounded up to 8 rows (pad rows and
+    lanes exactly 0); the start rung (default ``m.rho_ind``); ``X_init``
+    (B, nx_plant) and ``noise`` (T, B, nx_plant; default zero) padded to
+    (Bp, nplp) on the solver's device; the padding mask; and the budget
+    (default ``settings.max_iter``) rounded down to whole check windows.
+    B is the solver's batch, or ``rows``: the ensemble of its first
+    ``rows`` scenarios (``X_init`` and ``noise`` then hold those rows)."""
+    stng = m.settings
+    dtype, dev = stng.precision_dtype, stng.device
+    npl = prob.K.shape[1]
+    D = m.D
+    B_n = m.B_n if rows is None else int(rows)
+    if not 0 < B_n <= m.B_n:
+        raise ValueError(f"rows={rows} is not within the solver's batch "
+                         f"{m.B_n}")
+    Dp = pad_dim(D)
+    Bp = round_up(max(B_n, 8), 8)
+    ops = _scenario_scan_operands(m, prob, Dp)
+    nplp = ops["nplp"]
+    ci_eff = stng.check_interval if ci is None else int(ci)
+    budget = budget or stng.max_iter
+    if budget < ci_eff:
+        raise ValueError(
+            f"scan-rollout iteration budget {budget} is smaller than one "
+            f"check window ({ci_eff}); lower check_interval or raise the "
+            "budget")
+    mi = (budget // ci_eff) * ci_eff
+    Y0 = m.Y if Y0 is None else Y0
+    Yk = torch.zeros((Bp, Dp), dtype=dtype, device=dev)
+    Yk[:B_n, :D] = Y0[:B_n, :D].to(device=dev, dtype=dtype)
+    rho_ind0 = int(m.rho_ind if rho_ind0 is None else rho_ind0)
+    X = (X_init.to(device=dev, dtype=dtype)
+         if isinstance(X_init, torch.Tensor)
+         else torch.as_tensor(np.asarray(X_init, np.float64), dtype=dtype,
+                              device=dev))
+    Xk = torch.zeros((Bp, nplp), dtype=dtype, device=dev)
+    Xk[:B_n, :npl] = X.reshape(B_n, npl)
+    Nk = torch.zeros((n_steps, Bp, nplp), dtype=dtype, device=dev)
+    if noise is not None:
+        Nk[:, :B_n, :npl] = torch.as_tensor(noise, dtype=dtype, device=dev)
+    pad = torch.zeros((Bp,), dtype=torch.float32, device=dev)
+    pad[B_n:] = 1.0
+    args = [ops["Wt"], ops["bias_c"], ops["M_aff"], m.rhos, ops["M_res"],
+            ops["g0w"], ops["GL"], ops["lo0"], ops["hi0"], ops["S_u"],
+            ops["Bdw"], Yk, Xk, pad, Nk, rho_ind0]
+    kw = dict(nx=m.nx, nc=m.nc, nxp=ops["nxp"], ncp=ops["ncp"],
+              nup=ops["nup"], nplp=nplp, n_steps=n_steps, max_iter=mi,
+              check_interval=ci_eff, adaptive_rho=stng.adaptive_rho,
+              adaptive_rho_tolerance=float(stng.adaptive_rho_tolerance),
+              eps_abs=float(stng.eps_abs), rho_min=float(stng.rho_min),
+              rho_max=float(stng.rho_max), rho_jump=bool(stng.rho_jump),
+              adaptive_rho_interval=int(stng.adaptive_rho_interval),
+              iter_precision=stng.iter_precision)
+    return args, kw
+
+
+def _scan_scenario_rollout(m, prob: CondensedMPC, X0, n_steps: int,
+                           solve_max_iter, ci, Y0, rho_ind0, noise=None):
+    """One scenario segment as one launch of K6 (``full_rollout_batched``).
+    Reads the per-step stats back once; returns ``(states (T+1, B, nx),
+    controls (T, B, nu), iters (T,), status (T,), Y_final in the batch
+    solver's layout, rho_ind_final)`` like the loop path, the status lane
+    being the ensemble's min status."""
+    args, kw = _scenario_scan_call(m, prob, X0, n_steps, ci, solve_max_iter,
+                                   Y0, rho_ind0, noise)
+    xs, us, stats, Y_f = full_rollout_batched(*args, **kw)
+    nu, npl = prob.K.shape
+    B_n, D = m.B_n, m.D
+    st = stats.cpu()   # the segment's one device→host read
+    states = torch.cat([args[12][None, :B_n, :npl], xs[:, :B_n, :npl]])
+    rho_f = int(st[-1, 4]) if n_steps else args[15]
+    # back to the batch solver's layout for continuation segments (kernel
+    # padding rows and lanes are dropped)
+    Y_out = torch.zeros_like(m.Y)
+    Y_out[:B_n, :D] = Y_f[:B_n, :D]
+    return (states, us[:, :B_n, :nu], st[:, 0].to(torch.int32),
+            st[:, 5].to(torch.int32), Y_out, rho_f)

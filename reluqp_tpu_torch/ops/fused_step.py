@@ -1,10 +1,20 @@
-"""Chunk kernel K1: ``y ← clip(y Wₖᵀ + b, lo, hi)`` × n_steps.
+"""Chunk kernels K1 and K4: ``y ← clip(y Wₖᵀ + b, lo, hi)`` × n_steps.
 
 The hot op of every solve. ``fused_chunk`` launches the hand-written CUDA
-kernel ``csrc/fused_step.cu`` for CUDA tensors (see its header for the
+kernel K1 ``csrc/fused_step.cu`` for CUDA tensors (see its header for the
 design) and runs the plain torch version ``fused_chunk_ref`` for CPU
-tensors. A CUDA tensor never reaches the plain version: the kernel runs or
-the call raises. ``fused_chunk.launches`` counts kernel launches.
+tensors. ``fused_chunk_batched`` does the same for a (B, Dp) block of
+independent rows sharing one rung, through kernel K4
+``csrc/fused_step_batched.cu`` and its plain version
+``fused_chunk_batched_ref``; ``pallas_batched_chunk_runner`` is the batched
+solver's runner over it. A CUDA tensor never reaches a plain version: the
+kernel runs or the call raises. ``fused_chunk.launches`` and
+``fused_chunk_batched.launches`` count kernel launches.
+
+The TPU batched kernel's row-tile search (``batch_tile_rows``) and its
+unroll switch (``RELUQP_BATCH_UNROLL``) size Mosaic's VMEM tiles and loop
+lowering; they have no counterpart here: K4 picks its own row tile and
+cluster of column slabs (``batched_plan``).
 
 Layout contract (prepared by the solver at setup):
   - the bank stores Wᵀ padded to lane-aligned Dp (multiple of 128), so one
@@ -27,7 +37,9 @@ import ctypes
 import torch
 
 __all__ = ["LANE", "round_up", "pad_dim", "fused_chunk", "fused_chunk_ref",
-           "pallas_chunk_runner", "kernel_plan"]
+           "pallas_chunk_runner", "kernel_plan", "fused_chunk_batched",
+           "fused_chunk_batched_ref", "pallas_batched_chunk_runner",
+           "batched_plan"]
 
 LANE = 128
 
@@ -124,36 +136,49 @@ def kernel_plan(rows: int, dp: int, dtype=torch.float32,
     return dict(zip(keys, (v.value for v in vals)))
 
 
-def _fused_chunk_cuda(wt_bank, b, lo, hi, y, rho_ind, n_steps,
+def _check_chunk_args(kname, wt_bank, b, lo, hi, y, rho_ind,
                       iter_precision):
+    """What K1 and K4 take: contiguous tensors on y's device, (R, Dp)
+    float32/float64 rows, a (N, Dp, Dp) bank of y's dtype (or bf16 under
+    fp32), one int32 rung element."""
     dev = y.device
     ts = {"wt_bank": wt_bank, "b": b, "lo": lo, "hi": hi, "y": y,
           "rho_ind": rho_ind}
     for name, t in ts.items():
         if not isinstance(t, torch.Tensor) or t.device != dev:
-            raise ValueError(f"K1: {name} must be a tensor on {dev}")
+            raise ValueError(f"{kname}: {name} must be a tensor on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"K1: {name} must be contiguous")
+            raise ValueError(f"{kname}: {name} must be contiguous")
     if y.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"K1: state dtype {y.dtype} is not float32/float64")
+        raise ValueError(f"{kname}: state dtype {y.dtype} is not "
+                         "float32/float64")
     for name in ("b", "lo", "hi"):
         if ts[name].dtype != y.dtype or ts[name].shape != y.shape:
-            raise ValueError(f"K1: {name} must match y's dtype and shape")
+            raise ValueError(f"{kname}: {name} must match y's dtype and "
+                             "shape")
     if y.dim() != 2 or wt_bank.dim() != 3:
-        raise ValueError("K1: y must be (R, Dp) and wt_bank (N, Dp, Dp)")
-    rows, dp = y.shape
+        raise ValueError(f"{kname}: y must be (R, Dp) and wt_bank "
+                         "(N, Dp, Dp)")
+    dp = y.shape[1]
     if wt_bank.shape[1:] != (dp, dp):
-        raise ValueError(f"K1: wt_bank {tuple(wt_bank.shape)} does not "
+        raise ValueError(f"{kname}: wt_bank {tuple(wt_bank.shape)} does not "
                          f"match Dp={dp}")
     w_ok = wt_bank.dtype == y.dtype or (wt_bank.dtype == torch.bfloat16
                                         and y.dtype == torch.float32)
     if not w_ok:
-        raise ValueError(f"K1: bank dtype {wt_bank.dtype} with state "
+        raise ValueError(f"{kname}: bank dtype {wt_bank.dtype} with state "
                          f"dtype {y.dtype} is not supported")
     if rho_ind.dtype != torch.int32 or rho_ind.numel() != 1:
-        raise ValueError("K1: rho_ind must be one int32 element")
+        raise ValueError(f"{kname}: rho_ind must be one int32 element")
     if iter_precision not in _TIER:
         raise ValueError(f"Invalid iter_precision {iter_precision!r}")
+
+
+def _fused_chunk_cuda(wt_bank, b, lo, hi, y, rho_ind, n_steps,
+                      iter_precision):
+    dev = y.device
+    _check_chunk_args("K1", wt_bank, b, lo, hi, y, rho_ind, iter_precision)
+    rows, dp = y.shape
     if n_steps == 0:
         return y.clone()
     lib = _lib()
@@ -204,3 +229,116 @@ def pallas_chunk_runner(W_bank, b_bank, rho_ind, lo, hi, y, n_steps: int,
     out = fused_chunk(W_bank, b, lo.reshape(1, -1), hi.reshape(1, -1),
                       y.reshape(1, -1), rho_ind, n_steps, iter_precision)
     return out.reshape(-1)
+
+
+# --------------------------------------------------------------------- #
+# K4: the batched chunk, (B, Dp) rows sharing one rung                   #
+# --------------------------------------------------------------------- #
+
+def fused_chunk_batched_ref(wt_bank, b, lo, hi, Y, rho_ind, n_steps: int,
+                            iter_precision: str = "highest"):
+    """Plain torch version of K4: what the kernel computes. Each row of
+    ``Y`` (B, Dp) runs K1's arithmetic (``fused_chunk_ref``) against the
+    one shared rung ``rho_ind``, with its own ``b``/``lo``/``hi`` row.
+    Returns a new tensor."""
+    if Y.dim() != 2:
+        raise ValueError("K4: Y must be (B, Dp)")
+    return fused_chunk_ref(wt_bank, b, lo, hi, Y, rho_ind, n_steps,
+                           iter_precision)
+
+
+def _k4_lib():
+    from .cuda_build import load
+    lib = load("fused_step_batched")
+    if not getattr(lib, "_k4_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.k4_fused_chunk_batched.argtypes = [vp, i, i, vp, vp, vp, vp, vp,
+                                               vp, i, i, i, i, i, vp]
+        lib.k4_fused_chunk_batched.restype = i
+        lib.k4_plan.argtypes = [i, i, i, i, i] + [ctypes.POINTER(i)] * 6
+        lib.k4_plan.restype = i
+        lib.k4_error_string.argtypes = [i]
+        lib.k4_error_string.restype = ctypes.c_char_p
+        lib._k4_typed = True
+    return lib
+
+
+def _k4_raise(lib, code: int, what: str):
+    msg = lib.k4_error_string(code).decode()
+    raise RuntimeError(f"K4 {what} failed: CUDA error {code} ({msg})")
+
+
+def batched_plan(rows: int, dp: int, dtype=torch.float32, w_dtype=None,
+                 iter_precision: str = "highest") -> dict:
+    """The launch shape of K4 on the current GPU: blocks, rows per tile,
+    dynamic shared memory per block, blocks per cluster (the column slabs
+    of the rung), whether a block holds its slab in shared memory (else it
+    reads it from L2 every iteration), and how many such clusters the card
+    holds at once."""
+    lib = _k4_lib()
+    vals = [ctypes.c_int() for _ in range(6)]
+    rc = lib.k4_plan(rows, dp, _DTYPE_CODE[dtype],
+                     _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
+                     *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        _k4_raise(lib, rc, "plan")
+    return dict(zip(("blocks", "rows_per_tile", "smem_bytes", "cluster",
+                     "w_in_smem", "max_clusters"), (v.value for v in vals)))
+
+
+def _fused_chunk_batched_cuda(wt_bank, b, lo, hi, Y, rho_ind, n_steps,
+                              iter_precision):
+    _check_chunk_args("K4", wt_bank, b, lo, hi, Y, rho_ind, iter_precision)
+    if Y.data_ptr() % 16 or wt_bank.data_ptr() % 16:
+        raise ValueError("K4: Y and wt_bank must start on a 16-byte boundary")
+    if n_steps == 0:
+        return Y.clone()
+    rows, dp = Y.shape
+    lib = _k4_lib()
+    out = torch.empty_like(Y)
+    stream = torch.cuda.current_stream(Y.device).cuda_stream
+    rc = lib.k4_fused_chunk_batched(
+        wt_bank.data_ptr(), _DTYPE_CODE[wt_bank.dtype], wt_bank.shape[0],
+        b.data_ptr(), lo.data_ptr(), hi.data_ptr(), Y.data_ptr(),
+        out.data_ptr(), rho_ind.data_ptr(), rows, dp, int(n_steps),
+        _TIER[iter_precision], _DTYPE_CODE[Y.dtype], stream)
+    if rc != 0:
+        _k4_raise(lib, rc, "launch")
+    fused_chunk_batched.launches += 1
+    return out
+
+
+def fused_chunk_batched(wt_bank, b, lo, hi, Y, rho_ind, n_steps: int,
+                        iter_precision: str = "highest"):
+    """Run ``n_steps`` iterations of every row of ``Y`` against bank rung
+    ``rho_ind``.
+
+    Args:
+      wt_bank: (N_rho, Dp, Dp) transposed padded weight bank.
+      b, lo, hi, Y: (B, Dp) per-row bias, clamp bounds and states.
+      rho_ind: int32 tensor with one element, on Y's device.
+    CUDA tensors launch kernel K4 (or raise); CPU tensors run
+    ``fused_chunk_batched_ref``.
+    """
+    if Y.is_cuda:
+        return _fused_chunk_batched_cuda(wt_bank, b, lo, hi, Y, rho_ind,
+                                         n_steps, iter_precision)
+    return fused_chunk_batched_ref(wt_bank, b, lo, hi, Y, rho_ind, n_steps,
+                                   iter_precision)
+
+
+fused_chunk_batched.launches = 0
+
+
+def pallas_batched_chunk_runner(Wt_bank, bias_all, rho_ind, lo, hi, Y,
+                                n_steps: int,
+                                iter_precision: str = "highest"):
+    """Shared-ρ batched ``ChunkRunner`` of ``core.batched`` (K4).
+
+    ``Wt_bank`` (N, Dp, Dp) transposed padded, ``bias_all`` (N, B, Dp) —
+    only the current rung's row is read —, ``lo``/``hi``/``Y`` (B, Dp);
+    ``rho_ind`` a 0-d int32 tensor on the state's device.
+    """
+    b = bias_all.index_select(0, rho_ind.reshape(1))[0]
+    return fused_chunk_batched(Wt_bank, b, lo, hi, Y, rho_ind, n_steps,
+                               iter_precision)

@@ -19,23 +19,31 @@ kernel K2.
   hand-written CUDA kernel ``csrc/solve_kernel.cu`` for CUDA tensors, or of
   the plain torch version ``full_rollout_ref`` for CPU tensors.
 
+- ``full_rollout_batched``: K2 for a B-plant scenario ensemble, T steps in
+  ONE launch of the hand-written CUDA kernel ``csrc/rollout_batched.cu``
+  (K6) for CUDA tensors, or of ``full_rollout_batched_ref`` for CPU
+  tensors.
+
 A CUDA tensor never reaches a plain version: the kernel runs or the call
-raises. ``full_solve.launches`` and ``full_rollout.launches`` count kernel
-launches. The kernels share their device solve loop
-(``csrc/solve_loop.cuh``); see the sources' headers for the design. The
-batched rollout K6 (``full_rollout_batched``) is a later slice.
+raises. ``full_solve.launches``, ``full_rollout.launches`` and
+``full_rollout_batched.launches`` count kernel launches. K2 and K3 share
+their device solve loop (``csrc/solve_loop.cuh``); see the sources'
+headers for the design.
 
 Numerics follow the TPU kernels they replace: every product (refresh, bias,
 iteration, residual, selector, certificate, control, plant) is rounded to
 fp32, as the TPU kernels' fp32-result dots are, and then cast to the state
 dtype (a no-op in fp32). K2 sums each product in the state dtype; K3 sums
 in fp64 in the fixed order of ``_lane_dot``, which its kernel follows, so
-the two agree bit for bit. The residual maxima, the ρ estimate, the ladder
+the two agree bit for bit; K6 sums in fp64 in its own order and its plain
+version in another (``_dot64``), so the two agree but where a product lies
+within fp64 rounding of an fp32 tie. The residual maxima, the ρ estimate, the ladder
 ``rhos`` and the tolerances are fp32 in an fp64 run too.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -49,7 +57,9 @@ from .fused_step import _DTYPE_CODE, _bf16, pad_dim
 __all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",
            "build_residual_operator", "build_alpha_operand",
            "build_infeas_operand", "full_solve", "full_solve_ref",
-           "solve_plan", "full_rollout", "full_rollout_ref", "rollout_plan"]
+           "solve_plan", "full_rollout", "full_rollout_ref", "rollout_plan",
+           "full_rollout_batched", "full_rollout_batched_ref",
+           "rollout_batched_plan"]
 
 # Iteration tiers of the rollout: "bf16" one bf16 pass, "high" the bf16x3
 # split, anything else (including "default") full precision — as the TPU
@@ -214,6 +224,11 @@ def _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
 def _dot32(v, m):
     """``v @ m`` rounded to fp32 (the TPU kernel's fp32-result dot)."""
     return (v @ m.to(v.dtype)).float()
+
+
+def _dot64(v, m):
+    """``v @ m`` summed in fp64 and rounded to fp32 (K6's sums)."""
+    return (v.double() @ m.double()).float()
 
 
 def _lane_dot(v, m):
@@ -1015,3 +1030,329 @@ def full_solve(op: FullSolveOperand, y0, rho_ind0, bias_affine=None, *,
 
 
 full_solve.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# batched whole-ROLLOUT kernel K6: T scenario-MPC steps in ONE launch    #
+# --------------------------------------------------------------------- #
+
+def _estimate_rows(ax, z, hx, atl, g32, rho, c):
+    """Per-row residual maxima and clamped ρ estimates of K6, all fp32
+    (the TPU kernel promotes the g row to fp32 before the dual sum):
+    ``(pri, dua, rho_new)``, each (Bp,)."""
+    amax = lambda v: v.abs().amax(dim=1)
+    pri = amax(ax - z)
+    dua = amax((hx + atl) + g32)
+    sp = torch.maximum(amax(ax), amax(z))
+    sd = torch.maximum(torch.maximum(amax(hx), amax(atl)), amax(g32))
+    num = pri / sp.clamp_min(_TINY)
+    den = dua / sd.clamp_min(_TINY)
+    rho_new = torch.clamp(rho * torch.sqrt(num / den.clamp_min(_TINY)),
+                          c["rho_min"], c["rho_max"])
+    return pri, dua, rho_new
+
+
+def _geometric_mean(rho_new, open_rows, rho_k):
+    """The ensemble's ρ: the geometric mean of the open rows' estimates,
+    their logs summed in fp64 one row after the other (the kernel's order),
+    rounded to fp32; ``rho_k`` when no row is open."""
+    logs = torch.where(open_rows, rho_new.double().log(), 0.0).tolist()
+    n_act = int(open_rows.sum())
+    if n_act == 0:
+        return rho_k
+    s = 0.0
+    for v in logs:
+        s += v
+    return torch.tensor(float(np.float32(math.exp(s / n_act))),
+                        dtype=torch.float32, device=rho_k.device)
+
+
+def full_rollout_batched_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op,
+                             lo0, hi0, S_u, Bdw, Y0, X0, pad_mask, noise,
+                             rho_ind0, *, nx: int, nc: int, nxp: int,
+                             ncp: int, nup: int, nplp: int, n_steps: int,
+                             max_iter: int, check_interval: int,
+                             adaptive_rho: bool,
+                             adaptive_rho_tolerance: float, eps_abs: float,
+                             rho_min: float, rho_max: float,
+                             rho_jump: bool = False,
+                             adaptive_rho_interval: int = 1,
+                             iter_precision: str = "highest"):
+    """Plain torch version of K6: what the kernel computes.
+
+    K2 (``full_rollout_ref``) for a B-plant ensemble on (Bp, Dp) states and
+    (Bp, nplp) plants. Per control step every row refreshes from its own
+    plant state; the warm solve runs whole windows (the first always) with
+    per-row residuals from one ``Y @ M_res``, per-row done flags (a done
+    row's pri, dua and ρ estimate freeze), ONE shared rung walked by the
+    geometric mean of the open rows' ρ estimates (``_geometric_mean``), and
+    exits when every row is done or the budget is spent; ``pad_mask`` (Bp,)
+    marks inert rows, which start done and report SOLVED. Then every row's
+    ``u = y @ S_u − Kx`` and ``x⁺ = Ax + u @ Bdw + noise[t]``. Every
+    product is summed in fp64 and rounded to fp32 (``_dot64``); the
+    residual maxima and ρ are fp32.
+    Returns ``(xs (T, Bp, nplp), us (T, Bp, nup), stats (T, 8) fp32, Y_f
+    (Bp, Dp))``, stats rows ``[iterations, max pri, max dua, real rows,
+    rung, min status, unsolved rows, 0]``.
+    """
+    dt = Y0.dtype
+    dev = Y0.device
+    bp, dp = Y0.shape
+    ci = int(check_interval)
+    limit = (max_iter // ci) * ci
+    stride = rho_update_stride(adaptive_rho_interval, ci)
+    tier = _ROLLOUT_TIER[iter_precision]
+    c = _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
+                        rho_max)
+    rhos32 = rhos.to(torch.float32)
+    log_rhos = torch.log(rhos32)
+    g0w = g0w.reshape(1, nxp)
+    lo0 = lo0.reshape(1, dp)
+    hi0 = hi0.reshape(1, dp)
+    pad = pad_mask.reshape(bp) > 0.5
+    n_real = float((~pad).sum())
+    Y, X = Y0, X0
+    k_idx = int(rho_ind0)
+    xs, us, stats = [], [], []
+    for t in range(n_steps):
+        r2 = _dot64(X, gl_op).to(dt)
+        g32 = (g0w + r2[:, :nxp]).float()
+        sz = r2[:, nxp:nxp + dp]
+        kx = r2[:, nxp + dp:nxp + dp + nup]
+        ax = r2[:, nxp + dp + nup:]
+        lo, hi = lo0 + sz, hi0 + sz
+        rho = rhos32[k_idx].expand(bp).clone()
+        pri = torch.zeros((bp,), dtype=torch.float32, device=dev)
+        dua = pri.clone()
+        done = pad.clone()
+        status = pad.float()
+        k = 0
+        while True:
+            w = Wt_bank[k_idx]
+            b = bias_c[k_idx] + _dot64(X, M_aff[k_idx]).to(dt)
+            for _ in range(ci):
+                Y = torch.minimum(torch.maximum(
+                    _iter_product(Y, w, tier, _dot64) + b, lo), hi)
+            r = _dot64(Y, M_res)
+            pri_n, dua_n, rho_new = _estimate_rows(
+                r[:, :ncp], r[:, ncp:2 * ncp], r[:, 2 * ncp:2 * ncp + nxp],
+                r[:, 2 * ncp + nxp:], g32, rho, c)
+            open_rows = ~done
+            pri = torch.where(open_rows, pri_n, pri)
+            dua = torch.where(open_rows, dua_n, dua)
+            rho = torch.where(open_rows, rho_new, rho)
+            if adaptive_rho:
+                rho_gm = _geometric_mean(rho_new, open_rows, rhos32[k_idx])
+                k_idx = _rho_walk(rhos32, log_rhos, rho_gm, k_idx, k, ci,
+                                  stride, rho_jump, c)
+            newly = open_rows & (pri < c["eps_pri"]) & (dua < c["eps_dua"])
+            k += ci
+            status = torch.where(newly, 1.0, status)
+            done = done | newly
+            if bool(done.all()) or k >= limit:
+                break
+        v0 = _dot64(Y, S_u).to(dt)
+        u = v0 - kx
+        X = (ax + _dot64(u, Bdw).to(dt)) + noise[t]
+        xs.append(X)
+        us.append(u)
+        stats.append(torch.stack([
+            torch.tensor(float(k)), pri.max().cpu(), dua.max().cpu(),
+            torch.tensor(n_real), torch.tensor(float(k_idx)),
+            status.min().cpu(), (1.0 - status).sum().cpu(),
+            torch.tensor(0.0)]).float())
+    empty = lambda n: torch.zeros((0, bp, n), dtype=dt, device=dev)
+    return (torch.stack(xs) if xs else empty(nplp),
+            torch.stack(us) if us else empty(nup),
+            (torch.stack(stats) if stats
+             else torch.zeros((0, 8))).to(dev),
+            Y.clone())
+
+
+class _K6Params(ctypes.Structure):
+    """Mirror of ``K6Params`` in ``csrc/rollout_batched.cu`` (same
+    order)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "wt", "bias_c", "m_aff", "rhos", "m_res", "g0w", "gl", "lo0", "hi0",
+        "s_u", "bdw", "y0", "x0", "pad", "noise", "xs", "us", "stats", "y_f",
+        "exch")]
+        + [(n, ctypes.c_int) for n in (
+            "w_dtype", "y_dtype", "n_rho", "dp", "nxp", "ncp", "nup", "nplp",
+            "bp", "n_steps", "max_iter", "ci", "rho0", "adaptive", "jump",
+            "stride", "tier")]
+        + [(n, ctypes.c_float) for n in (
+            "eps_pri", "eps_dua", "tol", "rho_min", "rho_max")])
+
+
+# doubles per row of K6's cross-block exchange array
+_K6_EXCH_COLS = 6
+
+
+def _k6_lib():
+    from .cuda_build import load
+    lib = load("rollout_batched")
+    if not getattr(lib, "_k6_typed", False):
+        i = ctypes.c_int
+        lib.k6_full_rollout_batched.argtypes = [ctypes.POINTER(_K6Params),
+                                                ctypes.c_void_p]
+        lib.k6_full_rollout_batched.restype = i
+        lib.k6_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
+        lib.k6_plan.restype = i
+        lib.k6_error_string.argtypes = [i]
+        lib.k6_error_string.restype = ctypes.c_char_p
+        lib._k6_typed = True
+    return lib
+
+
+def _k6_raise(lib, code: int, what: str):
+    msg = lib.k6_error_string(code).decode()
+    raise RuntimeError(f"K6 {what} failed: CUDA error {code} ({msg})")
+
+
+def rollout_batched_plan(bp: int, dp: int, nxp: int, ncp: int, nup: int,
+                         nplp: int, dtype=torch.float32) -> dict:
+    """The launch shape of K6 on the current GPU: blocks, state rows per
+    block and dynamic shared memory."""
+    lib = _k6_lib()
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = lib.k6_plan(bp, dp, nxp, ncp, nup, nplp, _DTYPE_CODE[dtype],
+                     _DTYPE_CODE[dtype], *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        _k6_raise(lib, rc, "plan")
+    return dict(zip(("blocks", "rows_per_block", "smem_bytes"),
+                    (v.value for v in vals)))
+
+
+def _check_batched_operands(ops: dict, *, nxp, ncp, nup, nplp, n_steps):
+    """Shapes of K6's operands (both paths)."""
+    wt = ops["Wt_bank"]
+    if wt.dim() != 3 or wt.shape[1] != wt.shape[2]:
+        raise ValueError("K6: Wt_bank must be (N, Dp, Dp)")
+    n_rho, dp = wt.shape[0], wt.shape[1]
+    if ops["Y0"].dim() != 2:
+        raise ValueError("K6: Y0 must be (Bp, Dp)")
+    bp = ops["Y0"].shape[0]
+    want = {"bias_c": (n_rho, dp), "M_aff": (n_rho, nplp, dp),
+            "rhos": (n_rho,), "M_res": (dp, 2 * ncp + 2 * nxp),
+            "g0w": (nxp,), "gl_op": (nplp, nxp + dp + nup + nplp),
+            "lo0": (dp,), "hi0": (dp,), "S_u": (dp, nup), "Bdw": (nup, nplp),
+            "Y0": (bp, dp), "X0": (bp, nplp), "pad_mask": (bp,),
+            "noise": (n_steps, bp, nplp)}
+    flat = {"rhos", "g0w", "lo0", "hi0", "pad_mask"}
+    for name, shape in want.items():
+        t = ops[name]
+        got = (t.numel(),) if name in flat else tuple(t.shape)
+        if got != shape:
+            raise ValueError(f"K6: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    return n_rho, dp, bp
+
+
+def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
+                               ncp, nup, nplp, n_steps, max_iter,
+                               check_interval, adaptive_rho,
+                               adaptive_rho_tolerance, eps_abs, rho_min,
+                               rho_max, rho_jump, adaptive_rho_interval,
+                               iter_precision):
+    Y0 = ops["Y0"]
+    dev, dt = Y0.device, Y0.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"K6: state dtype {dt} is not float32/float64")
+    f32 = torch.float32
+    ops = dict(ops, rhos=ops["rhos"].to(f32).contiguous(),
+               pad_mask=ops["pad_mask"].to(f32).contiguous())
+    for name, t in ops.items():
+        if t.device != dev:
+            raise ValueError(f"K6: {name} must be a tensor on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"K6: {name} must be contiguous")
+        if name == "Wt_bank":
+            ok = t.dtype == dt or (t.dtype == torch.bfloat16 and dt == f32)
+        else:
+            ok = t.dtype == (f32 if name in ("rhos", "pad_mask") else dt)
+        if not ok:
+            raise ValueError(f"K6: {name} dtype {t.dtype} does not go with "
+                             f"state dtype {dt}")
+    xs = torch.empty((n_steps, bp, nplp), dtype=dt, device=dev)
+    us = torch.empty((n_steps, bp, nup), dtype=dt, device=dev)
+    stats = torch.empty((n_steps, 8), dtype=f32, device=dev)
+    if n_steps == 0:
+        return xs, us, stats, Y0.clone()
+    y_f = torch.empty((bp, dp), dtype=dt, device=dev)
+    exch = torch.empty((2, bp, _K6_EXCH_COLS), dtype=torch.float64,
+                       device=dev)
+    c = _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
+                        rho_max)
+    ptr = lambda name: ops[name].data_ptr()
+    p = _K6Params(
+        wt=ptr("Wt_bank"), bias_c=ptr("bias_c"), m_aff=ptr("M_aff"),
+        rhos=ptr("rhos"), m_res=ptr("M_res"), g0w=ptr("g0w"),
+        gl=ptr("gl_op"), lo0=ptr("lo0"), hi0=ptr("hi0"), s_u=ptr("S_u"),
+        bdw=ptr("Bdw"), y0=ptr("Y0"), x0=ptr("X0"), pad=ptr("pad_mask"),
+        noise=ptr("noise"), xs=xs.data_ptr(), us=us.data_ptr(),
+        stats=stats.data_ptr(), y_f=y_f.data_ptr(), exch=exch.data_ptr(),
+        w_dtype=_DTYPE_CODE[ops["Wt_bank"].dtype], y_dtype=_DTYPE_CODE[dt],
+        n_rho=n_rho, dp=dp, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp, bp=bp,
+        n_steps=n_steps, max_iter=max_iter, ci=check_interval, rho0=rho_ind0,
+        adaptive=int(bool(adaptive_rho)), jump=int(bool(rho_jump)),
+        stride=rho_update_stride(adaptive_rho_interval, check_interval),
+        tier=_ROLLOUT_TIER[iter_precision], **c)
+    lib = _k6_lib()
+    rc = lib.k6_full_rollout_batched(
+        ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        _k6_raise(lib, rc, "launch")
+    full_rollout_batched.launches += 1
+    return xs, us, stats, y_f
+
+
+def full_rollout_batched(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op,
+                         lo0, hi0, S_u, Bdw, Y0, X0, pad_mask, noise,
+                         rho_ind0, *, nx: int, nc: int, nxp: int, ncp: int,
+                         nup: int, nplp: int, n_steps: int, max_iter: int,
+                         check_interval: int, adaptive_rho: bool,
+                         adaptive_rho_tolerance: float, eps_abs: float,
+                         rho_min: float, rho_max: float,
+                         rho_jump: bool = False,
+                         adaptive_rho_interval: int = 1,
+                         iter_precision: str = "highest"):
+    """T warm-started SCENARIO-MPC steps (B plants) as ONE kernel launch.
+
+    The operands are K2's (``models.mpc._build_rollout_operators``) with
+    the state and plant as (Bp, ·) blocks: ``Y0`` (Bp, Dp), ``X0`` (Bp,
+    nplp), ``pad_mask`` (Bp,) (1.0 = inert padding row), ``noise`` (T, Bp,
+    nplp), and the start rung ``rho_ind0`` (an int). Returns ``(xs (T, Bp,
+    nplp), us (T, Bp, nup), stats (T, 8), Y_f (Bp, Dp))``, see
+    ``full_rollout_batched_ref``. CUDA tensors launch the CUDA kernel K6
+    (or raise); CPU tensors run ``full_rollout_batched_ref``.
+    """
+    if max_iter % check_interval != 0:
+        raise ValueError("the scan-rollout kernel requires max_iter to be a "
+                         "multiple of check_interval")
+    if iter_precision not in _ROLLOUT_TIER:
+        raise ValueError(f"Invalid iter_precision {iter_precision!r}")
+    ops = dict(Wt_bank=Wt_bank, bias_c=bias_c, M_aff=M_aff, rhos=rhos,
+               M_res=M_res, g0w=g0w, gl_op=gl_op, lo0=lo0, hi0=hi0, S_u=S_u,
+               Bdw=Bdw, Y0=Y0, X0=X0, pad_mask=pad_mask, noise=noise)
+    n_rho, dp, bp = _check_batched_operands(ops, nxp=nxp, ncp=ncp, nup=nup,
+                                            nplp=nplp, n_steps=n_steps)
+    rho_ind0 = int(rho_ind0)
+    if not 0 <= rho_ind0 < n_rho:
+        raise ValueError(f"K6: rho_ind0 {rho_ind0} is off the ladder")
+    kw = dict(nx=nx, nc=nc, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp,
+              n_steps=n_steps, max_iter=max_iter,
+              check_interval=check_interval, adaptive_rho=adaptive_rho,
+              adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+              rho_min=rho_min, rho_max=rho_max, rho_jump=rho_jump,
+              adaptive_rho_interval=adaptive_rho_interval,
+              iter_precision=iter_precision)
+    if Y0.is_cuda:
+        return _full_rollout_batched_cuda(ops, rho_ind0, n_rho=n_rho, dp=dp,
+                                          bp=bp, **kw)
+    return full_rollout_batched_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w,
+                                    gl_op, lo0, hi0, S_u, Bdw, Y0, X0,
+                                    pad_mask, noise, rho_ind0, **kw)
+
+
+full_rollout_batched.launches = 0

@@ -1,7 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU.
 
-Kernels K1, K2 and K3 are CUDA code with no CPU mode, so these skip
-without a GPU. On the GPU machine (which has no JAX) run them without the
+Kernels K1, K2, K3, K4 and K6 are CUDA code with no CPU mode, so these
+skip without a GPU. On the GPU machine (which has no JAX) run them without the
 JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -14,12 +14,17 @@ import torch
 
 import reluqp_tpu_torch as rqt
 from reluqp_tpu_torch.models import mpc
-from reluqp_tpu_torch.ops.fused_step import (fused_chunk, fused_chunk_ref,
+from reluqp_tpu_torch.ops.fused_step import (fused_chunk,
+                                             fused_chunk_batched,
+                                             fused_chunk_batched_ref,
+                                             fused_chunk_ref,
                                              pallas_chunk_runner)
 from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
+                                               full_rollout_batched,
+                                               full_rollout_batched_ref,
                                                full_rollout_ref, full_solve,
                                                full_solve_ref)
-from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp
+from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp, update_qp
 
 pytestmark = pytest.mark.cuda
 
@@ -27,8 +32,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K1, K2 and K3 are CUDA kernels "
-                    "with no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: K1, K2, K3, K4 and K6 are CUDA "
+                    "kernels with no CPU mode")
     return torch.device("cuda")
 
 
@@ -275,3 +280,116 @@ def test_mpc_fused_rollout_on_cuda_matches_cpu(dev):
     np.testing.assert_array_equal(ig.numpy(), ic.numpy())
     np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), atol=1e-6)
     np.testing.assert_allclose(ug.cpu().numpy(), uc.numpy(), atol=1e-6)
+
+
+# K4 and its plain version sum each row in different orders (fp32 rounding
+# only); the last 3 rows are inert (b = 0, +-inf bounds, y = 0) and stay 0.
+@pytest.mark.parametrize("dp,rows", [(128, 8), (640, 64)])
+def test_k4_matches_plain_version(dev, dp, rows):
+    wt, b, lo, hi, y = _inputs(dp, dev, rows=rows)
+    b[-3:], lo[-3:], hi[-3:], y[-3:] = 0.0, -float("inf"), float("inf"), 0.0
+    rho = torch.tensor([2], dtype=torch.int32, device=dev)
+    for tier, tol in (("highest", 1e-5), ("high", 1e-5), ("bf16", 3e-2)):
+        bank = wt.to(torch.bfloat16) if tier == "bf16" else wt
+        before = fused_chunk_batched.launches
+        out = fused_chunk_batched(bank, b, lo, hi, y, rho, 25, tier)
+        assert fused_chunk_batched.launches == before + 1
+        ref = fused_chunk_batched_ref(bank, b, lo, hi, y, rho, 25, tier)
+        assert out.data_ptr() not in (y.data_ptr(), ref.data_ptr())
+        assert float((out - ref).abs().max()) <= tol, tier
+        assert not out[-3:].any()
+
+
+def _shared_batch(B=6, nx=30, seed=0):
+    base = rand_qp(nx, nx // 4, nx // 4, seed=seed, compute_sol=False)
+    insts = [update_qp(base.H, base.A, nx // 4, nx // 4, seed=seed + i,
+                       compute_sol=False) for i in range(B)]
+    return (base.H, np.stack([i.g for i in insts]), base.A,
+            np.stack([i.l for i in insts]), np.stack([i.u for i in insts]))
+
+
+def test_batched_solver_on_cuda_runs_k4(dev):
+    data = _shared_batch()
+    m = rqt.BatchedReLU_QP()
+    m.setup(*data, eps_abs=1e-4)
+    assert m.settings.device.type == "cuda" and m._use_pallas
+    before = fused_chunk_batched.launches
+    res = m.solve()
+    assert fused_chunk_batched.launches > before
+    assert res.info.status.all() and res.x.is_cuda
+    c = rqt.BatchedReLU_QP()
+    c.setup(*data, eps_abs=1e-6, precision="float64", device="cpu",
+            backend="xla")
+    rc = c.solve()
+    np.testing.assert_allclose(res.x.cpu().double().numpy(), rc.x.numpy(),
+                               atol=1e-3)
+    assert not m.Y[m.B_n:].any() and not m.Y[:, m.D:].any()
+
+
+def _scenario(system, device, precision, B):
+    """A scenario batch solver on a condensed MPC QP, u in [-1, 1] per
+    stage, and seeded initial states."""
+    if system == "double_integrator":
+        Ad, Bd = mpc.double_integrator(dt=0.1)
+        Q, R, N = np.diag([10.0, 1.0]), np.array([[0.1]]), 8
+    else:
+        Ad, Bd = mpc.random_linear_system(20, 4, seed=0, spectral_radius=0.99)
+        Q, R, N = np.eye(20), 0.1 * np.eye(4), 10
+    nx, nu = Bd.shape
+    K, Qf = mpc.ihlqr(Ad, Bd, Q, R)
+    rows = np.zeros((N * nu, N * (nx + nu)))
+    for k in range(N):
+        rows[k * nu:(k + 1) * nu, k * (nx + nu):k * (nx + nu) + nu] = \
+            np.eye(nu)
+    prob = mpc.gen_condensed_mpc_qp(Ad, Bd, Q, R, Qf, N, rows,
+                                    -np.ones(N * nu), np.ones(N * nu), K=K)
+    m = rqt.BatchedReLU_QP()
+    m.setup(prob.H, np.tile(prob.g0, (B, 1)), prob.A,
+            np.tile(prob.l0, (B, 1)), np.tile(prob.u0, (B, 1)),
+            eps_abs=1e-5, precision=precision, device=device)
+    rng = np.random.RandomState(3)
+    x0 = np.zeros(nx)
+    x0[0] = 1.0
+    return m, prob, x0[None] + 0.2 * rng.randn(B, nx), rng
+
+
+# K6 and its plain version round every product to fp32 and sum it in fp64
+# in different orders: equal iterations, rung, status and unsolved rows
+# per step, trajectories within a few fp32 ulps.
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+@pytest.mark.parametrize("system,B", [("double_integrator", 5),
+                                      ("random", 24)])
+def test_k6_matches_plain_version(dev, system, B, precision):
+    m, prob, X0, rng = _scenario(system, dev, precision, B)
+    T = 12
+    noise = 0.3 * rng.randn(T, B, X0.shape[1])
+    args, kw = mpc._scenario_scan_call(m, prob, X0, T, ci=5,
+                                       Y0=torch.zeros_like(m.Y), noise=noise)
+    before = full_rollout_batched.launches
+    out = full_rollout_batched(*args, **kw)
+    assert full_rollout_batched.launches == before + 1
+    ref = full_rollout_batched_ref(*args, **kw)
+    for lane in (0, 3, 4, 5, 6):
+        assert torch.equal(out[2][:, lane], ref[2][:, lane]), lane
+    assert (out[2][:, 5] == 1).all()
+    for a, b in zip(out[:2], ref[:2]):
+        assert float((a - b).abs().max()) <= 1e-5
+    assert not out[3][B:].any() and not out[3][:, m.D:].any()
+
+
+def test_scenario_rollout_on_cuda_runs_k4_and_k6(dev):
+    g, prob, X0, _ = _scenario("double_integrator", dev, "float64", 5)
+    c, _, _, _ = _scenario("double_integrator", "cpu", "float64", 5)
+    k4, k6 = fused_chunk_batched.launches, full_rollout_batched.launches
+    xg, ug, ig = mpc.scenario_rollout_scan(g, prob, X0, 15, kernel="auto",
+                                           check_interval="auto")
+    assert full_rollout_batched.launches == k6 + 2
+    assert fused_chunk_batched.launches == k4
+    xc, uc, ic = mpc.scenario_rollout_scan(c, prob, X0, 15, kernel="scan",
+                                           check_interval="auto")
+    np.testing.assert_array_equal(ig.numpy(), ic.numpy())
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), atol=1e-6)
+    np.testing.assert_allclose(ug.cpu().numpy(), uc.numpy(), atol=1e-6)
+    xl, _, _ = mpc.scenario_rollout_scan(g, prob, X0, 15, kernel="loop")
+    assert fused_chunk_batched.launches > k4
+    np.testing.assert_allclose(xl.cpu().numpy(), xc.numpy(), atol=1e-4)

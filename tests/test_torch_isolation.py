@@ -73,13 +73,14 @@ def test_cuda_source_includes_only_its_own_headers(path):
 
 
 def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
-    """A change to a shared header renames every library, so K2 and K3 are
-    rebuilt when ``solve_loop.cuh`` changes."""
+    """A change to a shared header renames every library, so K2, K3 and K6
+    are rebuilt when ``solve_loop.cuh`` changes."""
     from reluqp_tpu_torch.ops import cuda_build
     for src in CSRC.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
-    names = ("solve_kernel", "full_solve", "fused_step")
+    names = ("solve_kernel", "full_solve", "fused_step", "fused_step_batched",
+             "rollout_batched")
     before = {n: cuda_build._lib_path(n) for n in names}
     assert "solve_loop.cuh" in (tmp_path / "full_solve.cu").read_text()
     with open(tmp_path / "solve_loop.cuh", "a") as f:
