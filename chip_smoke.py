@@ -81,10 +81,27 @@ Phases (each raises on failure; nothing is caught):
     cluster) of 1 and of 8 rows and in the "high" and "bf16" tiers; K6 per
     warm step beside its plain version and the bound; two-point steps/s of
     the loop and scan paths; a profiler pass
-    over each, and the loop path's synchronizing calls by source line.
+    over each, and the loop path's synchronizing calls by source line;
+18. hold kernel K5 (the heterogeneous chunk kernel) against its plain
+    torch version at B in {1, 7, 64} x Dp in {128, 256, 640, 896} and
+    B = 1024 at Dp = 128, per-problem rungs drawn at random over 18, every
+    tier, fp32 and fp64, padded lanes exactly 0;
+19. the main path of slice 5 through K5: ``BatchedReLU_QP`` set up on the
+    card for ``benchmarks/batched_qps.py --hetero``'s batch (B = 1024
+    distinct ``rand_qp(50, 12, 12, seed=i)``, fp32, eps 1e-3), one
+    ``solve()`` with every problem solved, the first 64 against the CPU
+    fp64 solve, a timed second solve; then ``examples/ltv_mpc.py``'s LTV
+    ensemble (B = 16, 40 steps, ``update_matrices`` every 6) in fp64
+    (within 1e-4 of the CPU fp64 loop) and in fp32; K5 launches only;
+20. K5 per 25-step window at B = 1024, Dp = 128 and B = 256, Dp = 256 by
+    CUDA events and device time beside its plain version, 25
+    ``torch.baddbmm`` + clamp and the bound, K5 on the main path's bank,
+    solves/s by a two-point fit, a profiler pass over one solve and its
+    synchronizing calls, and the batch's setup with the bank build on one
+    thread per core.
 
 Every kernel launch counter is set to 0 just before each main-path phase
-(4, 5, 6, 8, 11, 14, 16) and read just after; a main-path phase that
+(4, 5, 6, 8, 11, 14, 16, 19) and read just after; a main-path phase that
 launched its kernel no time fails. The second-to-last line is the ``{"kernels": [...]}``
 record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the package beside it, the script exits non-zero before printing a
@@ -286,12 +303,14 @@ def phase_timing():
 
 def _counters():
     from reluqp_tpu_torch.ops.fused_step import (fused_chunk,
-                                                 fused_chunk_batched)
+                                                 fused_chunk_batched,
+                                                 fused_chunk_hetero)
     from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                    full_rollout_batched,
                                                    full_solve)
     return {"K1": fused_chunk, "K2": full_rollout, "K3": full_solve,
-            "K4": fused_chunk_batched, "K6": full_rollout_batched}
+            "K4": fused_chunk_batched, "K5": fused_chunk_hetero,
+            "K6": full_rollout_batched}
 
 
 def _counted(run, kernel="K1"):
@@ -540,7 +559,7 @@ def profile_run(tag, run, steps, what):
     k_us = {k: sum(dev(e) for e in per(name)) / steps
             for k, name in (("K1", "k1_kernel"), ("K2", "k2_kernel"),
                             ("K3", "k3_kernel"), ("K4", "k4_kernel"),
-                            ("K6", "k6_kernel"))}
+                            ("K5", "k5_kernel"), ("K6", "k6_kernel"))}
     h2d = sum(e.count for e in per("Memcpy HtoD")) / steps
     syncs = sum(e.count for e in per("cudaStreamSynchronize")) / steps
     launches = sum(e.count for e in per("cudaLaunch")) / steps
@@ -696,7 +715,8 @@ def phase_scan(card, mpc):
             return (*out, time.perf_counter() - t0)
 
         (xs, us, its, status, y_f, rho_f, secs), counts = _counted(run, "K2")
-        assert counts == {"K1": 0, "K2": 2, "K3": 0, "K4": 0, "K6": 0}, \
+        assert counts == {"K1": 0, "K2": 2, "K3": 0, "K4": 0, "K5": 0,
+                          "K6": 0}, \
             (kernel, counts)
         check_rollout(f"phase 8 (kernel={kernel})", xs, us, its, status,
                       mpc["ref"], kw["max_iter"])
@@ -1030,7 +1050,8 @@ def phase_fused_main(card, mpc, protocol):
     qp = canonical_qp()
     res, counts = _counted(
         lambda: fused_solver(qp[:5], eps_abs=1e-4).solve(), "K3")
-    assert counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K6": 0}, counts
+    assert counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0,
+                      "K6": 0}, counts
     x = res.x.detach().cpu().double().numpy()
     assert res.info.status == "solved" and np.allclose(x, qp.x_sol,
                                                        atol=1e-3), x
@@ -1045,7 +1066,8 @@ def phase_fused_main(card, mpc, protocol):
         t0 = time.perf_counter()
         r, counts = _counted(m.solve, "K3")
         secs = time.perf_counter() - t0
-        assert counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K6": 0}, \
+        assert counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0,
+                          "K6": 0}, \
             (nx, counts)
         xg = r.x.detach().cpu().double().numpy()
         err = float(np.max(np.abs(xg - x_cpu[nx])))
@@ -1069,7 +1091,8 @@ def phase_fused_main(card, mpc, protocol):
         return (*out, time.perf_counter() - t0)
 
     (xs, us, its, status, y_f, rho_f, secs), counts = _counted(run, "K3")
-    assert counts == {"K1": 0, "K2": 0, "K3": MPC_T, "K4": 0, "K6": 0}, \
+    assert counts == {"K1": 0, "K2": 0, "K3": MPC_T, "K4": 0, "K5": 0,
+                      "K6": 0}, \
         counts
     check_rollout("phase 11 (kernel=fused)", xs, us, its, status,
                   mpc["ref"], MPC_KW["max_iter"])
@@ -1538,7 +1561,8 @@ def phase_scenario_scan(card, loop):
             return out, time.perf_counter() - t0
 
         (out, secs), counts = _counted(run, "K6")
-        assert counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": want}, \
+        assert counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                          "K6": want}, \
             (kernel, counts)
         tag = f"phase 16 (kernel={kernel}, check_interval={ci})"
         xs, us = check_scenario(tag, out, loop["ref"], m.settings.max_iter)
@@ -1750,6 +1774,369 @@ def phase_scenario_timing(card, loop, scan):
     return dict(k4=k4, k6=k6, rates=rates)
 
 
+# ---------------------------------------------------------------------- #
+# K5, the heterogeneous chunk kernel, and the heterogeneous batch         #
+# ---------------------------------------------------------------------- #
+
+K5_BATCHES = (1, 7, 64)
+K5_DPS = (128, 256, 640, 896)
+K5_BIG_B = 1024
+# K5 runs K4's arithmetic per row (state-dtype sums, its own order against
+# cuBLAS's), so K4's bounds hold
+K5_TOL = K4_TOL
+# benchmarks/batched_qps.py --hetero at its default width: B distinct
+# rand_qp(50, 12, 12) instances (D=98, Dp=128, 18 rungs), fp32, eps 1e-3;
+# the first HET_CMP problems against the port's CPU fp64 solve
+HET_NX, HET_B, HET_CMP = 50, 1024, 64
+HET_KW = dict(eps_abs=1e-3)
+# examples/ltv_mpc.py: B double integrators with per-plant mass schedules,
+# horizon 8, u in [-2, 2], 40 steps, every bank re-factorized every 6
+LTV_B, LTV_T, LTV_RELIN, LTV_DT, LTV_H = 16, 40, 6, 0.1, 8
+# the fp32 loop certifies at eps_abs=1e-4 and so may take a step's answer a
+# window apart from fp64 (1.3e-3 apart on the CPU at these settings)
+LTV_TOL64, LTV_TOL32 = 1e-4, 1e-2
+# the two solve counts of the two-point solves/s fit
+HET_TWO_POINT = (1, 3)
+
+
+def k5_inputs(B, dp, dtype, gen, device, dense=False):
+    """Random K5 inputs: a (B, 18, Dp, Dp) bank, inner width d < Dp with
+    inert padded lanes (all of Dp when ``dense``), per-problem b, a clamped
+    segment in lo/hi, y, and per-problem rungs drawn at random over 18."""
+    import torch
+    d = dp if dense else (dp - 37 if dp > 128 else 91)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=device,
+                                       dtype=dtype)
+    wt = torch.zeros((B, N_RHO, dp, dp), dtype=dtype, device=device)
+    wt[:, :, :d, :d] = randn(B, N_RHO, d, d) * (0.7 / d ** 0.5)
+    b = torch.zeros((B, dp), dtype=dtype, device=device)
+    b[:, :d] = 0.1 * randn(B, d)
+    lo = torch.full((B, dp), -float("inf"), dtype=dtype, device=device)
+    hi = torch.full((B, dp), float("inf"), dtype=dtype, device=device)
+    lo[:, d // 3:2 * d // 3] = -0.8     # a clamped segment, as the z rows
+    hi[:, d // 3:2 * d // 3] = 0.8
+    y = torch.zeros((B, dp), dtype=dtype, device=device)
+    y[:, :d] = 0.5 * randn(B, d)
+    rho = torch.randint(0, N_RHO, (B,), generator=gen, device=device,
+                        dtype=torch.int32)
+    return wt, b, lo, hi, y, rho, d
+
+
+def phase_k5_check():
+    """K5 against fused_chunk_hetero_ref on the card, B x Dp x every tier,
+    fp32 and fp64, per-problem rungs; padded lanes exactly 0. Returns the
+    max errors."""
+    import torch
+    from reluqp_tpu_torch.ops.fused_step import (fused_chunk_hetero,
+                                                 fused_chunk_hetero_ref,
+                                                 hetero_plan)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    errs = {}
+    shapes = [(dp, B) for dp in K5_DPS for B in K5_BATCHES] + \
+        [(128, K5_BIG_B)]
+    for dtype in (torch.float32, torch.float64):
+        tols = K5_TOL[str(dtype).split(".")[1]]
+        for dp, B in shapes:
+            wt, b, lo, hi, y, rho, d = k5_inputs(B, dp, dtype, gen, dev)
+            worst, plans = {}, {}
+            for tier in tols:
+                bank = wt.to(torch.bfloat16) if tier == "bf16" else wt
+                n0 = fused_chunk_hetero.launches
+                out = fused_chunk_hetero(bank, b, lo, hi, y, rho, N_STEPS,
+                                         tier)
+                assert fused_chunk_hetero.launches == n0 + 1
+                ref = fused_chunk_hetero_ref(bank, b, lo, hi, y, rho,
+                                             N_STEPS, tier)
+                torch.cuda.synchronize()
+                tag = (dtype, dp, B, tier)
+                assert torch.isfinite(out).all(), tag
+                assert float(out[:, d:].abs().max()) == 0.0, \
+                    f"K5 padded lanes not inert: {tag}"
+                err = float((out - ref).abs().max())
+                assert err <= tols[tier], f"K5 disagrees: {tag} {err:.3e}"
+                errs[tag] = worst[tier] = err
+                plans[tier] = hetero_plan(dp, dtype, bank.dtype, tier)
+                del bank
+            del wt
+            p = plans["highest"]
+            log(f"K5 {str(dtype)[6:]} Dp={dp} B={B}: cluster {p['cluster']}"
+                f" ({'slab in smem' if p['w_in_smem'] else 'slab from L2'}, "
+                f"{p['smem_bytes']} B, {p['max_clusters']} problems at once)"
+                f"  max|kernel-plain| " + "  ".join(
+                    f"{t} {e:.2e}" for t, e in worst.items()))
+        torch.cuda.empty_cache()
+    log("phase 18 OK: K5 matches its plain version at every B, Dp, tier "
+        "and dtype, per-problem rungs; padded lanes stay 0")
+    return errs
+
+
+def hetero_batch(B, nx=HET_NX, seed0=0):
+    """benchmarks/batched_qps.py's ``_make_hetero_batch``: B distinct
+    ``rand_qp(nx, nx/4, nx/4, seed=seed0 + i)``, stacked (H, g, A, l, u)."""
+    from reluqp_tpu_torch.utils.problems import rand_qp
+    n = max(nx // 4, 1)
+    insts = [rand_qp(nx, n, n, seed=seed0 + i, compute_sol=False)
+             for i in range(B)]
+    stack = lambda k: np.stack([getattr(i, k) for i in insts])
+    return stack("H"), stack("g"), stack("A"), stack("l"), stack("u")
+
+
+_LTV_AD = np.array([[1.0, LTV_DT], [0.0, 1.0]])
+_LTV_BD0 = np.array([[0.5 * LTV_DT * LTV_DT], [LTV_DT]])
+
+
+def ltv_plant_qp(mass):
+    """examples/ltv_mpc.py's sparse MPC QP for one plant at its current
+    mass (Bd = Bd0 / m), built with the port's generator."""
+    from reluqp_tpu_torch.models.mpc import gen_sparse_mpc_qp
+    sel_u = np.zeros((LTV_H, LTV_H * 3))
+    for k in range(LTV_H):
+        sel_u[k, k * 3] = 1.0
+    box = np.full(LTV_H, 2.0)
+    return gen_sparse_mpc_qp(_LTV_AD, _LTV_BD0 / mass, np.diag([10.0, 1.0]),
+                             np.array([[0.1]]), np.diag([50.0, 5.0]), LTV_H,
+                             A_add=sel_u, l_add=-box, u_add=box)
+
+
+def ltv_rollout(**kw):
+    """examples/ltv_mpc.py's loop on the port (its seeds, masses, burn rates
+    and start states): ``update(l, u)`` and a warm ``solve()`` every step,
+    ``update_matrices(A=...)`` every LTV_RELIN steps. Returns the states
+    (T+1, B, 2) and the per-step iterations (T, B); every step solved."""
+    from reluqp_tpu_torch import BatchedReLU_QP
+    rng = np.random.RandomState(0)
+    masses = 1.0 + 0.5 * rng.rand(LTV_B)
+    decay = 0.97 + 0.02 * rng.rand(LTV_B)
+    X = np.column_stack([2.0 + rng.randn(LTV_B), np.zeros(LTV_B)])
+    qps = [ltv_plant_qp(m_i) for m_i in masses]
+    H = qps[0][0]
+    As = np.stack([q[2] for q in qps])
+    L, U = np.stack([q[3] for q in qps]), np.stack([q[4] for q in qps])
+
+    def x0_bounds(X):
+        L[:, :2] = U[:, :2] = -(X @ _LTV_AD.T)
+
+    x0_bounds(X)
+    m = BatchedReLU_QP()
+    m.setup(H, np.zeros((LTV_B, H.shape[0])), As, L, U, eps_abs=1e-4, **kw)
+    xs, its = [X], []
+    for k in range(LTV_T):
+        mass_k = masses * decay ** k
+        if k and k % LTV_RELIN == 0:
+            m.update_matrices(A=np.stack([ltv_plant_qp(m_i)[2]
+                                          for m_i in mass_k]))
+        x0_bounds(X)
+        m.update(l=L, u=U)
+        res = m.solve()
+        assert res.info.status.all(), (k, res.info.status_strings())
+        u0 = res.x.detach().cpu().double().numpy()[:, :1]
+        X = X @ _LTV_AD.T + (u0 / mass_k[:, None]) @ _LTV_BD0.T
+        xs.append(X)
+        its.append(res.info.iter)
+    return np.stack(xs), np.stack(its)
+
+
+def phase_hetero_main(card):
+    """The main path of this slice through K5: ``BatchedReLU_QP`` on the
+    card for benchmarks/batched_qps.py --hetero's B=1024 batch (setup, one
+    solve, a timed second solve from a cleared state), every problem
+    solved, the first 64 against the port's CPU fp64 solve; then
+    examples/ltv_mpc.py's LTV ensemble in fp64 and fp32. K5 launches only."""
+    import torch
+    from reluqp_tpu_torch import BatchedReLU_QP
+    data = hetero_batch(HET_B)
+
+    def run():
+        m = BatchedReLU_QP()
+        m.setup(*data, **HET_KW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = m.solve()
+        return m, res, time.perf_counter() - t0
+
+    (m, res, secs), counts = _counted(run, "K5")
+    assert all(n == 0 for k, n in counts.items() if k != "K5"), counts
+    n_k5 = counts["K5"]
+    assert m.settings.device.type == "cuda" and m.hetero and m._hetero_pallas
+    assert (m.Dp, m.B_pad, len(m.rhos_np)) == (128, HET_B, 18), \
+        (m.Dp, m.B_pad, len(m.rhos_np))
+    info = res.info
+    assert info.status.all(), f"{info.status.sum()}/{HET_B} solved"
+    x_g = res.x.detach().cpu().double().numpy()
+    assert x_g.shape == (HET_B, HET_NX) and np.all(np.isfinite(x_g))
+    cpu = BatchedReLU_QP()
+    cpu.setup(*(a[:HET_CMP] for a in data), precision="float64",
+              device="cpu", backend="xla", **HET_KW)
+    rc = cpu.solve()
+    err = float(np.max(np.abs(x_g[:HET_CMP] - rc.x.numpy())))
+    assert (info.status_code[:HET_CMP] == rc.info.status_code).all()
+    assert err < 5e-3, err
+    setup_s = m.info.setup_time
+    log(f"phase 19 setup: {HET_B} heterogeneous QPs (nx={m.nx}, nc={m.nc}, "
+        f"D={m.D}, Dp={m.Dp}, {len(m.rhos_np)} rungs, fp32 bank "
+        f"{m.Wt_bank.numel() * 4 / 1e9:.3f} GB) in {setup_s:.3f} s "
+        f"({os.cpu_count()} host cores)")
+    log(f"phase 19 solve(): all {HET_B} solved in {info.n_iter_total} "
+        f"iterations (per problem {info.iter.min()}..{info.iter.max()}, "
+        f"rungs {sorted(set(m.rho_ind.cpu().tolist()))}), {secs * 1e3:.3f} "
+        f"ms; first {HET_CMP} vs cpu fp64 |x|inf {err:.2e}, equal status; "
+        f"launches {counts}")
+
+    def second():
+        m.clear_primal_dual()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = m.solve()
+        return r, time.perf_counter() - t0
+
+    (res2, secs2), counts = _counted(second, "K5")
+    assert all(n == 0 for k, n in counts.items() if k != "K5"), counts
+    assert res2.info.status.all()
+    n_k5 += counts["K5"]
+    log(f"phase 19 second solve (cleared state): {secs2 * 1e3:.3f} ms, "
+        f"{HET_B / secs2:.0f} QP/s on {card}; launches {counts}")
+
+    cpu_xs, cpu_its = ltv_rollout(precision="float64", device="cpu",
+                                  backend="xla")
+    ltv = {}
+    for precision, tol in (("float64", LTV_TOL64), ("float32", LTV_TOL32)):
+        def ltv_run():
+            t0 = time.perf_counter()
+            out = ltv_rollout(precision=precision)
+            return out, time.perf_counter() - t0
+
+        ((xs, its), t_ltv), counts = _counted(ltv_run, "K5")
+        assert all(n == 0 for k, n in counts.items() if k != "K5"), counts
+        n_k5 += counts["K5"]
+        dx = float(np.max(np.abs(xs - cpu_xs)))
+        final = float(np.max(np.abs(xs[-1])))
+        assert np.all(np.isfinite(xs)) and dx < tol, (precision, dx)
+        assert final < 0.2, ("ensemble did not converge to origin", final)
+        ltv[precision] = dict(dx=dx, final=final)
+        log(f"phase 19 LTV ensemble {precision} (B={LTV_B}, {LTV_T} steps, "
+            f"update_matrices every {LTV_RELIN}): every step solved, "
+            f"{t_ltv:.3f} s, mean iters/step {its.mean():.2f} (cpu fp64 "
+            f"{cpu_its.mean():.2f}); vs cpu fp64 |x|inf {dx:.2e} (bound "
+            f"{tol:g}); final max|x| {final:.4f}; launches {counts}")
+    log(f"phase 19 OK on {card}: K5 launches {n_k5}, no other kernel")
+    return {"launches": n_k5, "m": m, "setup_s": setup_s, "solve_s": secs2,
+            "ltv": ltv}
+
+
+def k5_bound_ms(nnz_w, B, dp, steps, elt=4):
+    """Least time of one K5 window, in ms: bytes, each problem's rung read
+    once (``nnz_w`` entries over the batch: its nonzeros, or B·Dp² for a
+    dense bank), b, lo, hi and Y in and Y out at width Dp, and the rung
+    vector; operations, 2 flops per multiply-add per step at those entries
+    (fp32 outside the tensor cores)."""
+    nbytes = (nnz_w + 5 * B * dp) * elt + 4 * B
+    flops = 2.0 * steps * nnz_w
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops
+
+
+def phase_hetero_timing(card, het):
+    """K5 per 25-step window at B=1024, Dp=128 (one block per problem) and
+    B=256, Dp=256 (a cluster of two per problem), dense random banks, fp32
+    highest, by CUDA events and by device time, beside its plain version,
+    25 ``torch.baddbmm`` + clamp on the gathered rungs and the bound; K5 on
+    the main path's own bank and state; solves/s of the B=1024 batch by a
+    two-point fit; a profiler pass over one solve."""
+    import torch
+    from reluqp_tpu_torch.ops.fused_step import (fused_chunk_hetero,
+                                                 fused_chunk_hetero_ref,
+                                                 hetero_plan)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    rows = {}
+    for B, dp in ((K5_BIG_B, 128), (256, 256)):
+        W, b, lo, hi, Y, rho, _ = k5_inputs(B, dp, torch.float32, gen, dev,
+                                            dense=True)
+        Wg = W[torch.arange(B, device=dev), rho.long()]
+        b3, lo3, hi3 = b[:, None, :], lo[:, None, :], hi[:, None, :]
+
+        def library():
+            yy = Y[:, None, :]
+            for _ in range(N_STEPS):
+                yy = torch.baddbmm(b3, yy, Wg).clamp_(min=lo3, max=hi3)
+            return yy
+
+        kernel = lambda: fused_chunk_hetero(W, b, lo, hi, Y, rho, N_STEPS)
+        plain = lambda: fused_chunk_hetero_ref(W, b, lo, hi, Y, rho, N_STEPS)
+        ms = _time_ms(kernel, 100)
+        plain_ms = _time_ms(plain, 20)
+        library_ms = _time_ms(library, 20)
+        devt = {name: device_ms(fn, 10) for name, fn in
+                (("K5", kernel), ("plain", plain), ("baddbmm+clamp", library))}
+        bound, by, t_b, t_o = k5_bound_ms(B * dp * dp, B, dp, N_STEPS)
+        plan = hetero_plan(dp)
+        rows[(B, dp)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound, bound_by=by, dev=devt)
+        log(f"phase 20 K5 (B={B}, Dp={dp}, dense, per-problem rungs, "
+            f"{N_STEPS} steps, fp32 highest, plan {plan}): {ms:.5f} ms per "
+            f"window by CUDA events; plain {plain_ms:.5f} ms; baddbmm+clamp "
+            f"{library_ms:.5f} ms; bound {bound:.5f} ms ({by}: {t_b:.5f} ms "
+            f"bytes, {t_o:.5f} ms operations), {ms / bound:.1f}x the bound, "
+            f"on {card}")
+        log(f"phase 20 device time per window (profiler, device-side "
+            f"events): " + "; ".join(
+                f"{n} " + ("not measured" if t is None else f"{t:.5f} ms")
+                for n, t in devt.items()))
+        del W, Wg
+        torch.cuda.empty_cache()
+
+    # K5 on the main path's bank and state (rungs where the solve left them)
+    m = het["m"]
+    rho = m.rho_ind.contiguous()
+    b = m.bias_all[torch.arange(m.B_n, device=dev), rho.long()].contiguous()
+    Wm, lo, hi, Y = m.Wt_bank, m.lo, m.hi, m.Y.contiguous()
+    ms = _time_ms(lambda: fused_chunk_hetero(Wm, b, lo, hi, Y, rho, N_STEPS),
+                  100)
+    nnz = int(torch.count_nonzero(Wm[torch.arange(m.B_n, device=dev),
+                                     rho.long()]))
+    bound, by, t_b, t_o = k5_bound_ms(nnz, m.B_n, m.D, N_STEPS)
+    log(f"phase 20 K5 on the main path's bank (B={m.B_n}, D={m.D}, "
+        f"Dp={m.Dp}): {ms:.5f} ms per window; bound at the rungs' nonzeros "
+        f"{bound:.5f} ms ({by}), {ms / bound:.1f}x")
+
+    # solves/s: a chain of n solves, each from a cleared state, at two n
+    def chain(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            m.clear_primal_dual()
+            r = m.solve()
+        assert r.info.status.all()
+        return time.perf_counter() - t0
+
+    n_lo, n_hi = HET_TWO_POINT
+    s_lo = min(chain(n_lo) for _ in range(3))
+    s_hi = min(chain(n_hi) for _ in range(3))
+    per = (s_hi - s_lo) / (n_hi - n_lo)
+    log(f"phase 20 two-point solves (n={n_lo}: {s_lo * 1e3:.3f} ms, "
+        f"n={n_hi}: {s_hi * 1e3:.3f} ms, min of 3): {per * 1e3:.3f} ms per "
+        f"solve of {m.B_n} QPs = {m.B_n / per:.0f} QP/s, on {card}")
+    m.clear_primal_dual()
+    windows = max(m.solve().info.n_iter_total // m.settings.check_interval,
+                  1)
+
+    def one_solve():
+        m.clear_primal_dual()
+        m.solve()
+
+    profile_run("phase 20 hetero solve", one_solve, windows,
+                f"per check window, B={m.B_n}, {windows} windows")
+    sync_sites("phase 20 hetero solve", one_solve, windows)
+
+    log("phase 20 OK")
+    return dict(rows=rows, qps=m.B_n / per)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1778,6 +2165,9 @@ def main():
     k6_errs = phase_k6_check()
     scen_scan = phase_scenario_scan(card, scen_loop)
     scen = phase_scenario_timing(card, scen_loop, scen_scan)
+    k5_errs = phase_k5_check()
+    het = phase_hetero_main(card)
+    k5 = phase_hetero_timing(card, het)["rows"][(K5_BIG_B, 128)]
     t = timing[640]
     k3_row = k3["rows"][100]
     k4, k6 = scen["k4"], scen["k6"]
@@ -1840,6 +2230,17 @@ def main():
         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         "library_ms": None,
+    }, {
+        "name": f"K5 fused_chunk_hetero (B={K5_BIG_B}, Dp=128, dense banks, "
+                "per-problem rungs, 25 steps, fp32 highest)",
+        "route": "cuda",
+        "source": "reluqp_tpu_torch/csrc/fused_step_hetero.cu",
+        "replaces": "reluqp_tpu/ops/fused_step.py:356",
+        "launches": het["launches"],
+        "max_abs_err": k5_errs[(torch.float32, 128, K5_BIG_B, "highest")],
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
     }]
     log("card:", card)
     print(json.dumps({"kernels": kernels}))

@@ -1,32 +1,52 @@
-"""Batched solver API: many QPs sharing (H, A) in one solve loop.
+"""Batched solver API: many QPs in one solve loop.
 
 ``BatchedReLU_QP`` carries the ``ReLU_QP`` lifecycle (``setup / solve /
 update / update_matrices / update_settings / warm_start /
-clear_primal_dual``) over a leading batch axis, for the shared regime:
-``H (nx, nx)``, ``A (nc, nx)`` and batched ``g / l / u (B, ·)`` with one
-weight bank for the whole batch (scenario MPC, perturbed right-hand
-sides). The solve is ``core.batched.solve_batched_shared``:
+clear_primal_dual``) over a leading batch axis, in two regimes chosen by
+the rank of H / A at ``setup``:
 
-- ``backend="auto"``/``"pallas"``: the batched chunk kernel K4 on the
-  lane-padded layout (the CUDA kernel on ``cuda``, its plain version on
-  ``cpu``; on ``cuda`` nothing gates it by size), the batch padded to a
-  multiple of 8 rows with inert rows (b = 0, ±inf bounds) that start done;
-- ``backend="xla"``: the plain torch runners on the unpadded layout.
+- **shared**: ``H (nx, nx)``, ``A (nc, nx)`` and batched ``g / l / u
+  (B, ·)``, one weight bank for the whole batch (scenario MPC, perturbed
+  right-hand sides); the equality-row pattern must be the same across the
+  batch. The solve is ``core.batched.solve_batched_shared``:
 
-The bank and every bias are computed on the host in fp64, at setup and at
+  - ``backend="auto"``/``"pallas"``: the batched chunk kernel K4 on the
+    lane-padded layout (the CUDA kernel on ``cuda``, its plain version on
+    ``cpu``; on ``cuda`` nothing gates it by size), the batch padded to a
+    multiple of 8 rows with inert rows (b = 0, ±inf bounds) that start done;
+  - ``backend="xla"``: the plain torch runners on the unpadded layout.
+
+- **heterogeneous**: ``H (B, nx, nx)`` and/or ``A (B, nc, nx)`` (a shared
+  matrix beside a batched one is promoted; the fp64 masters keep it
+  shared), one bank per problem, every problem walking its own ladder
+  index. The solve is ``core.batched.solve_batched_hetero``:
+
+  - ``backend="auto"``/``"pallas"``: the per-problem chunk kernel K5 on the
+    lane-padded layout (the CUDA kernel on ``cuda`` at any B and any Dp,
+    its plain version on ``cpu``); the batch is never padded;
+  - ``backend="xla"``: the plain runner ``_chunk_hetero`` on the unpadded
+    layout.
+
+  The banks are built on the host in fp64, stacked over chunks of
+  problems on one thread, and written straight into the iteration dtype. Their device footprint is checked at setup against a cap: 3/4 of
+  the card's memory on ``cuda``, 8 GiB on the CPU;
+  ``RELUQP_MAX_BANK_BYTES`` overrides it.
+
+The banks and every bias are computed on the host in fp64, at setup and at
 ``update(g)``; the device holds them in the iteration dtype. (The JAX
 package refreshes the bias on the TPU with a double-fp32 contraction
 because the TPU has no fp64; the host fp64 product gives that accuracy
 directly.)
 
-Not ported yet, and raising ``NotImplementedError``: per-problem H / A
-(the heterogeneous regime and its kernel K5), ``mesh=`` and
-``process_local=`` (the multi-device paths), ``tail_policy="repack"`` and
-``bank_build="device"``.
+Not ported yet, and raising ``NotImplementedError``: ``mesh=`` and
+``process_local=`` (the multi-device paths), ``tail_policy="repack"``,
+``bank_build="device"`` (the vmapped on-device build of the per-problem
+banks) and ``bank_build="native"`` (the C++ bank builder).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import Optional
@@ -35,25 +55,55 @@ import numpy as np
 import torch
 
 from .classes import SETTINGS_FIELDS, Settings
-from .core.bank import (auto_rho_cap, build_bank_np, certifiable_eps_floor,
-                        effective_rho_ladder, equality_mask, sigma_max_sq,
-                        stacked_dim)
-from .core.batched import BatchSolveResult, solve_batched_shared
+from .core.bank import (auto_rho_cap, auto_rho_cap_batch, build_bank_np,
+                        build_banks_np_batch, certifiable_eps_floor,
+                        effective_rho_ladder,
+                        effective_rho_ladder_batch, equality_mask,
+                        sigma_max_sq, sigma_max_sq_batch, stacked_dim)
+from .core.batched import (BatchSolveResult, solve_batched_hetero,
+                           solve_batched_shared)
 from .core.iteration import STATUS_STRINGS
 from .core.ladder import initial_rho_index, setup_rhos
-from .ops.fused_step import pad_dim, pallas_batched_chunk_runner, round_up
+from .ops.fused_step import (pad_dim, pallas_batched_chunk_runner,
+                             pallas_hetero_chunk_runner, round_up)
 from .utils.scaling import (identity_scaling, residual_unscale_weights,
-                            ruiz_equilibrate)
+                            ruiz_equilibrate, ruiz_equilibrate_batch)
 
 __all__ = ["BatchedReLU_QP", "BatchResults", "BatchInfo"]
 
 # Batch rows are padded to a multiple of this on the lane-padded layout.
 _ROW_ALIGN = 8
+# Problems per step of the heterogeneous bank build: stacked products of a
+# few dozen problems amortize numpy's per-call cost. The build runs on one
+# thread: at B=1024, nx=50 on an 8-core H100 host a pool of one task per
+# problem took 43.9 s (numpy's small calls hold the GIL and the BLAS
+# library's own threads fight the pool's), these chunks 11.9 s on 8 threads
+# and 7.8 s on one (PERF.md, section 6).
+_BUILD_CHUNK = 64
+# The heterogeneous banks' cap on the CPU, where they are host memory: the
+# host's free memory is shared with everything else and not the solver's to
+# measure, so a fixed cap keeps a stray batch size from exhausting it.
+_CPU_BANK_CAP = 8 << 30
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _hetero_eps_floor(caps, A_scaled, dtype, nx: int) -> float:
+    """Batch-wide certifiable eps floor: the largest per-problem floor (one
+    problem stalling is enough to warrant the update_settings warning).
+    0.0 when every cap is inf (nothing frozen)."""
+    caps = np.asarray(caps, np.float64)
+    finite = np.isfinite(caps)
+    if not np.any(finite):
+        return 0.0
+    s2 = sigma_max_sq_batch(np.asarray(A_scaled, np.float64))
+    ok = finite & (s2 > 0.0)
+    eps_mach = float(torch.finfo(dtype).eps)
+    floors = np.where(ok, caps, 0.0) * eps_mach * s2 / np.sqrt(max(nx, 1))
+    return float(np.max(floors))
 
 
 @dataclasses.dataclass
@@ -102,13 +152,18 @@ class BatchedReLU_QP:
               mesh=None, axis_name: str = "qp", bank_build: str = "host",
               process_local: bool = False, tail_policy: str = "dense",
               **settings_kw):
-        """Set up a batch of QPs sharing (H, A).
+        """Set up a batch of QPs.
 
         Args:
-          H: (nx, nx); g: (B, nx); A: (nc, nx); l, u: (B, nc).
+          H: (nx, nx) shared or (B, nx, nx) per-problem Hessians.
+          g: (B, nx); A: (nc, nx) or (B, nc, nx); l, u: (B, nc). A batched
+            H or A selects the heterogeneous regime (one bank per problem,
+            kernel K5).
           rho_mode: "shared" (one ladder index for the batch; K4 runs it)
             or "per_problem" (each problem walks its own index; the plain
-            runners).
+            runners). Heterogeneous batches always walk per problem.
+          bank_build: "host" (fp64 numpy factorization; the only builder
+            ported).
           settings_kw: the ``Settings`` fields (``device`` defaults to
             ``cuda`` and raises without a GPU).
         """
@@ -119,8 +174,13 @@ class BatchedReLU_QP:
                 "not ported yet (ROADMAP A.12)")
         if bank_build == "device":
             raise NotImplementedError(
-                "bank_build='device' is not ported yet; 'host' builds the "
-                "bank in fp64 on the host")
+                "bank_build='device' (the vmapped on-device build of the "
+                "heterogeneous regime's per-problem banks, which K5 reads) "
+                "is not ported yet; 'host' builds them in fp64 on the host")
+        if bank_build == "native":
+            raise NotImplementedError(
+                "bank_build='native' (the C++ bank builder, ROADMAP A.13) is "
+                "not ported yet; 'host' builds the banks in fp64 with numpy")
         if bank_build != "host":
             raise ValueError(f"Invalid bank_build {bank_build!r}")
         if tail_policy == "repack":
@@ -143,40 +203,47 @@ class BatchedReLU_QP:
             raise ValueError("g must be (B, nx) for the batched solver")
         H = np.asarray(H, dtype=np.float64)
         A = np.asarray(A, dtype=np.float64)
-        if H.ndim == 3 or A.ndim == 3:
-            raise NotImplementedError(
-                "per-problem H/A (the heterogeneous batch and its chunk "
-                "kernel K5) is not ported yet; pass shared (nx, nx) / "
-                "(nc, nx) matrices")
         l = np.asarray(l, dtype=np.float64)
         u = np.asarray(u, dtype=np.float64)
         B_n, nx = g.shape
-        nc = A.shape[0]
-        if H.shape != (nx, nx) or A.shape != (nc, nx):
-            raise ValueError(f"H must be ({nx}, {nx}) and A (nc, {nx})")
+        hetero = H.ndim == 3 or A.ndim == 3
+        nc = A.shape[-2] if A.ndim >= 2 else -1
+        if H.shape not in ((nx, nx), (B_n, nx, nx)) \
+                or A.shape not in ((nc, nx), (B_n, nc, nx)):
+            raise ValueError(f"H must be ({nx}, {nx}) or ({B_n}, {nx}, {nx}) "
+                             f"and A (nc, {nx}) or ({B_n}, nc, {nx})")
         if l.shape != (B_n, nc) or u.shape != (B_n, nc):
             raise ValueError(f"l/u must be (B, nc) = ({B_n}, {nc})")
-        # unscaled fp64 masters: update()/update_matrices() rebuild from them
+        # unscaled fp64 masters in their pre-promotion shapes (a shared
+        # matrix beside a batched one is not repeated B times):
+        # update()/update_matrices() rebuild from them
         self._H_np, self._A_np, self._g_np = H.copy(), A.copy(), g.copy()
-        self.hetero = False
+        self.hetero = hetero
         self.B_n, self.nx, self.nc = B_n, nx, nc
         self.D = stacked_dim(nx, nc)
-        self.rho_mode = rho_mode
+        self._rho_mode_req = rho_mode
+        self.rho_mode = "per_problem" if hetero else rho_mode
 
-        # Backend: K4 on the lane-padded layout ("auto"/"pallas"; the CUDA
-        # kernel on cuda, its plain version on cpu) for the shared walk, or
-        # the plain runners on the unpadded layout ("xla", and every
-        # per-problem walk). On cuda "auto" always takes K4.
+        # Backend: K4 (shared walk) or K5 (heterogeneous) on the lane-padded
+        # layout ("auto"/"pallas"; the CUDA kernel on cuda, its plain
+        # version on cpu), or the plain runners on the unpadded layout
+        # ("xla", and every per-problem walk of a shared bank). On cuda
+        # "auto" always takes K4 or K5: no size gate, no fallback.
         if stng.backend == "fused":
             raise ValueError("the batched solver has no whole-solve kernel; "
                              "use backend='auto', 'pallas' or 'xla'")
-        if rho_mode != "shared" and stng.backend == "pallas":
+        if not hetero and rho_mode != "shared" and stng.backend == "pallas":
             raise ValueError("the pallas batched backend requires "
-                             "rho_mode='shared'")
-        self._use_pallas = rho_mode == "shared" and stng.backend != "xla"
+                             "rho_mode='shared' for shared-(H, A) batches")
+        self._use_pallas = (not hetero and rho_mode == "shared"
+                            and stng.backend != "xla")
+        self._hetero_pallas = hetero and stng.backend != "xla"
         if self._use_pallas:
             self.Dp = pad_dim(self.D)
             self.B_pad = round_up(B_n, _ROW_ALIGN)
+        elif self._hetero_pallas:
+            self.Dp = pad_dim(self.D)   # lane-aligned per-problem blocks
+            self.B_pad = B_n
         else:
             self.Dp = self.D
             self.B_pad = B_n
@@ -185,7 +252,12 @@ class BatchedReLU_QP:
                                   stng.adaptive_rho,
                                   stng.adaptive_rho_tolerance)
         self._keep_hi = stng.iter_precision == "bf16" and stng.refine
-        self._setup_shared(H, g, A, l, u, dtype, dev)
+        if hetero:
+            self._setup_hetero(np.broadcast_to(H, (B_n, nx, nx)), g,
+                               np.broadcast_to(A, (B_n, nc, nx)), l, u,
+                               dtype, dev)
+        else:
+            self._setup_shared(H, g, A, l, u, dtype, dev)
         self.rhos = torch.as_tensor(self.rhos_np, dtype=dtype, device=dev)
         self.clear_primal_dual()
         _sync(dev)
@@ -194,9 +266,15 @@ class BatchedReLU_QP:
         self._ready = True
 
     def _put(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a, np.float64),
+        # a writable C-ordered fp64 array (a broadcast view is copied)
+        return torch.as_tensor(np.require(a, np.float64, ("C", "W")),
                                dtype=dtype or self.settings.precision_dtype,
                                device=self.settings.device)
+
+    def _w_dtype(self, dtype):
+        """Storage dtype of the W banks (bf16 under iter_precision='bf16')."""
+        return torch.bfloat16 if self.settings.iter_precision == "bf16" \
+            else dtype
 
     def _setup_shared(self, H, g, A, l, u, dtype, dev):
         stng = self.settings
@@ -249,18 +327,130 @@ class BatchedReLU_QP:
         Wt[:, :D, :D] = np.swapaxes(W, 1, 2)
         self._B_np = np.zeros((N, Dp, self.nx))   # fp64 bias master
         self._B_np[:, :D] = Bm
-        w_dtype = torch.bfloat16 if stng.iter_precision == "bf16" else dtype
-        self.Wt_bank = self._put(Wt, w_dtype)
+        self.Wt_bank = self._put(Wt, self._w_dtype(dtype))
         self._Wt_hi = self._put(Wt) if self._keep_hi else None
         self.H_dev = self._put(H)
         self.A_dev = self._put(A)
         self._set_g(g)
         self._set_bounds(l * sc.E[None, :], u * sc.E[None, :])
 
-    def _set_g(self, g):
-        """The scaled, row-padded G and the per-rung bias ``b_k = B_k g``,
-        (N, B_pad, Dp), both from the fp64 host product."""
+    def _setup_hetero(self, H, g, A, l, u, dtype, dev):
+        stng = self.settings
+        nx, nc, Bn = self.nx, self.nc, self.B_n
+        # per-problem equality patterns from the UNSCALED bounds (row
+        # scaling changes the u − l gaps), then per-problem Ruiz scaling
+        eq_masks = equality_mask(l, u, stng.eq_tol)
+        self._eq_pattern = None
+        self._l_np, self._u_np = l.copy(), u.copy()
+        self.scal = (ruiz_equilibrate_batch(H, A, g) if stng.scaling
+                     else identity_scaling(nx, nc))
         sc = self.scal
+        Dv, Ev = np.asarray(sc.D), np.asarray(sc.E)
+        H = np.reshape(sc.c, (-1, 1, 1)) * (H * Dv[..., :, None]
+                                            * Dv[..., None, :])
+        A = A * Ev[..., :, None] * Dv[..., None, :]
+        self._unx = self._put(np.broadcast_to(Dv, (Bn, nx)))
+        self._unz = self._put(np.broadcast_to(np.asarray(sc.Einv), (Bn, nc)))
+        self._unlam = self._put(np.broadcast_to(
+            Ev * np.reshape(sc.cinv, (-1, 1)), (Bn, nc)))
+        wp, wd = residual_unscale_weights(sc, stng)
+        self._w_pri = (None if wp is None
+                       else self._put(np.broadcast_to(wp, (Bn, nc))))
+        self._w_dua = None if wd is None else self._put(wd)
+
+        # per-problem precision-aware ρ caps on the SCALED A, in one batched
+        # power iteration, and the per-problem ρ⃗ ladders they induce
+        caps = (auto_rho_cap_batch(A, stng.eps_abs, dtype, nx)
+                if stng.rho_cap == "auto"
+                else np.full(Bn, float(stng.rho_cap)))
+        self.rho_cap = caps
+        # the eps floor of the update_settings guard, while the scaled A
+        # stack is at hand (keeping it would pin B·nc·nx fp64)
+        self._eps_floor = _hetero_eps_floor(caps, A, dtype, nx)
+        self._rho_eff_np = effective_rho_ladder_batch(self.rhos_np, eq_masks,
+                                                      caps)
+        self._rho_eff = (self._put(self._rho_eff_np) if stng.alpha != 1.0
+                         else None)
+        self._check_bank_memory(len(self.rhos_np), dtype)
+        self._build_hetero_banks(H, A, eq_masks, caps, dtype, dev)
+        self.H_dev = self._put(H)
+        self.A_dev = self._put(A)
+        self._set_g(g)
+        self._set_bounds(l * Ev, u * Ev)
+
+    def _build_hetero_banks(self, H, A, eq_masks, caps, dtype, dev):
+        """Every problem's bank in fp64 on the host, equal to its own
+        ``build_bank_np``: ``build_banks_np_batch`` over chunks of
+        ``_BUILD_CHUNK`` problems, in one loop. W goes
+        straight into a buffer of the iteration dtype: the fp64 (B, N, Dp,
+        Dp) stack is never formed (2.4 GB at B=1024, Dp=128). ``_B_np``
+        keeps the fp64 bias masters (B, N, D, nx): their rows beyond D
+        would be zero."""
+        stng = self.settings
+        D, Dp, Bn = self.D, self.Dp, self.B_n
+        N = len(self.rhos_np)
+        Wt = np.zeros((Bn, N, Dp, Dp), dtype=np.float64
+                      if dtype == torch.float64 else np.float32)
+        self._B_np = np.empty((Bn, N, D, self.nx))
+
+        for i in range(0, Bn, _BUILD_CHUNK):
+            rows = slice(i, min(i + _BUILD_CHUNK, Bn))
+            W, Bm = build_banks_np_batch(H[rows], A[rows], eq_masks[rows],
+                                         self.rhos_np, stng.sigma,
+                                         alpha=float(stng.alpha),
+                                         rho_caps=caps[rows])
+            Wt[rows, :, :D, :D] = np.swapaxes(W, 2, 3)
+            self._B_np[rows] = Bm
+        Wt = torch.from_numpy(Wt)
+        self.Wt_bank = Wt.to(device=dev, dtype=self._w_dtype(dtype))
+        self._Wt_hi = (Wt.to(device=dev, dtype=dtype) if self._keep_hi
+                       else None)
+
+    def _check_bank_memory(self, n_rho: int, dtype):
+        """Fail fast when the per-problem banks would not fit the device.
+
+        The device holds B·N·(Dp²·w + Dp·s) bytes of banks and biases (w, s
+        the W bank's and the state's element sizes; the fp32 polish copy of
+        a bf16 bank adds Dp²·s): ~1.2 GB at B=1024, N=18, Dp=128 in fp32.
+        The cap is 3/4 of the card's memory on cuda (the rest holds the
+        states, the solve's temporaries and PyTorch's cache), a fixed 8 GiB
+        on the CPU (``_CPU_BANK_CAP``); ``RELUQP_MAX_BANK_BYTES`` overrides
+        both.
+        """
+        dev = self.settings.device
+        env = os.environ.get("RELUQP_MAX_BANK_BYTES")
+        if env is not None:
+            cap = int(float(env))
+        elif dev.type == "cuda":
+            cap = torch.cuda.get_device_properties(dev).total_memory * 3 // 4
+        else:
+            cap = _CPU_BANK_CAP
+        bs = torch.finfo(dtype).bits // 8
+        w_bs = torch.finfo(self._w_dtype(dtype)).bits // 8
+        if self._keep_hi:
+            w_bs += bs
+        dp = self.Dp
+        total = self.B_n * n_rho * (dp * dp * w_bs + dp * bs)
+        if total > cap:
+            raise ValueError(
+                f"heterogeneous bank needs ~{total / 2**30:.1f} GiB on "
+                f"{dev} (B={self.B_n}, N_rho={n_rho}, D={self.D}) which "
+                f"exceeds the {cap / 2**30:.1f} GiB cap — reduce the batch "
+                "size or raise RELUQP_MAX_BANK_BYTES")
+
+    def _set_g(self, g):
+        """The scaled G and the per-rung bias ``b_k = B_k g`` from the fp64
+        host product: (N, B_pad, Dp) for the shared bank (padded rows
+        zero), (B, N, Dp) for per-problem banks."""
+        sc = self.scal
+        if self.hetero:
+            g_s = np.reshape(sc.c, (-1, 1)) * (g * sc.D)
+            self.G = self._put(g_s)
+            bias = np.zeros((self.B_n, len(self.rhos_np), self.Dp))
+            bias[:, :, :self.D] = np.matmul(self._B_np,
+                                            g_s[:, None, :, None])[..., 0]
+            self.bias_all = self._put(bias)
+            return
         g_pad = np.zeros((self.B_pad, self.nx))
         g_pad[:self.B_n] = sc.c * (g * sc.D[None, :])
         self.G = self._put(g_pad)
@@ -280,7 +470,9 @@ class BatchedReLU_QP:
     # ------------------------------------------------------------------ #
     def update(self, g=None, l=None, u=None):
         """Refresh the batched problem vectors (UNSCALED units); a g update
-        recomputes every rung's bias in fp64 on the host."""
+        recomputes every rung's bias in fp64 on the host. A bound update may
+        not change any problem's equality-row pattern (it shapes the
+        bank)."""
         self._check_ready()
         t0 = time.perf_counter()
         sc = self.scal
@@ -297,19 +489,29 @@ class BatchedReLU_QP:
                     or u_np.shape != (self.B_n, self.nc):
                 raise ValueError(f"l/u must be ({self.B_n}, {self.nc})")
             eqs = equality_mask(l_np, u_np, self.settings.eq_tol)
-            if not (eqs == self._eq_pattern[None, :]).all():
+            if self._eq_pattern is not None:
+                if not (eqs == self._eq_pattern[None, :]).all():
+                    raise ValueError(
+                        "bound update changes the equality-row pattern baked "
+                        "into the shared bank — re-run setup()")
+            elif not (eqs == equality_mask(self._l_np, self._u_np,
+                                           self.settings.eq_tol)).all():
                 raise ValueError(
-                    "bound update changes the equality-row pattern baked "
-                    "into the shared bank — re-run setup()")
+                    "bound update changes a problem's equality-row pattern "
+                    "baked into its bank — re-run setup()")
             self._l_np, self._u_np = l_np.copy(), u_np.copy()
-            self._set_bounds(l_np * sc.E, u_np * sc.E)
+            E = np.asarray(sc.E)
+            self._set_bounds(l_np * E, u_np * E)
         _sync(self.settings.device)
         self.info.update_time = time.perf_counter() - t0
 
     def update_matrices(self, H=None, A=None):
-        """Replace the shared H and/or A, re-factorizing the bank at one
-        setup's cost while keeping the warm state (carried in UNSCALED
-        units), the ladder position and the settings."""
+        """Replace H and/or A, re-factorizing the bank(s) at one setup's
+        cost while keeping the warm state (carried in UNSCALED units), the
+        ladder position and the settings. Shared ``(nx, nx)``/``(nc, nx)``
+        or per-problem ``(B, nx, nx)``/``(B, nc, nx)`` matrices; a batched
+        one switches a shared batch to the heterogeneous regime, where
+        every problem resumes at the old shared ladder index."""
         self._check_ready()
         if H is None and A is None:
             return
@@ -323,29 +525,43 @@ class BatchedReLU_QP:
             last = self._rho_vec_rows() * (last - z_s)   # p → λ
         x_u = Y[:, :nx] * old.D
         z_u = z_s * old.Einv
-        lam_u = last * old.E * old.cinv
+        lam_u = last * old.E * np.reshape(old.cinv, (-1, 1))
+        old_mode = self.rho_mode
         old_ind = self.rho_ind.detach().cpu().numpy()
         stng = self.settings
         self.setup(self._H_np if H is None else H, self._g_np,
                    self._A_np if A is None else A, self._l_np, self._u_np,
-                   rho_mode=self.rho_mode, axis_name=self.axis_name,
+                   rho_mode=self._rho_mode_req, axis_name=self.axis_name,
                    **{k: getattr(stng, k) for k in SETTINGS_FIELDS})
         # the ladder position BEFORE the warm state: under alpha != 1 the p
         # slot is encoded against the current rung
-        self.rho_ind = torch.as_tensor(old_ind.astype(np.int32),
-                                       device=self.settings.device)
+        dev = self.settings.device
+        if self.rho_mode == old_mode:
+            self.rho_ind = torch.as_tensor(old_ind.astype(np.int32),
+                                           device=dev)
+        elif self.rho_mode == "per_problem":
+            # shared → hetero: every problem resumes at the old shared
+            # index (the reverse switch cannot keep per-problem positions;
+            # the fresh setup's index stands)
+            self.rho_ind = torch.full((self.B_pad,), int(old_ind),
+                                      dtype=torch.int32, device=dev)
         self.warm_start(x=x_u, z=z_u, lam=lam_u)
         self.info.update_time = time.perf_counter() - t0
 
     def _warn_eps_floor(self, eps_new: float) -> None:
-        """Warn when eps_abs is tightened past the frozen cap's floor."""
-        cap = float(self.rho_cap)
-        if not np.isfinite(cap):
-            return
-        if self._sigma_max_sq is None:
-            self._sigma_max_sq = sigma_max_sq(self._A_scaled_np)
-        floor = certifiable_eps_floor(cap, self._sigma_max_sq,
-                                      self.settings.precision_dtype, self.nx)
+        """Warn when eps_abs is tightened past the frozen caps' floor (the
+        largest per-problem floor of a heterogeneous batch)."""
+        if self.hetero:
+            floor = self._eps_floor
+        else:
+            cap = float(self.rho_cap)
+            if not np.isfinite(cap):
+                return
+            if self._sigma_max_sq is None:
+                self._sigma_max_sq = sigma_max_sq(self._A_scaled_np)
+            floor = certifiable_eps_floor(cap, self._sigma_max_sq,
+                                          self.settings.precision_dtype,
+                                          self.nx)
         if eps_new < floor * (1.0 - 1e-9):
             warnings.warn(
                 f"eps_abs={eps_new:g} is below {floor:g}, the certifiable "
@@ -402,12 +618,22 @@ class BatchedReLU_QP:
         """Solve the whole batch from the current (warm) state."""
         self._check_ready()
         t0 = time.perf_counter()
-        runner = pallas_batched_chunk_runner if self._use_pallas else None
-        res = solve_batched_shared(
-            self.Wt_bank, self.bias_all, self.rhos, self.H_dev, self.A_dev,
-            self.G, self.lo, self.hi, self.Y, self.rho_ind, self._done0(),
-            self._Wt_hi, self._rho_eff, self._w_pri, self._w_dua,
-            rho_mode=self.rho_mode, chunk_runner=runner, **self._solve_kw())
+        if self.hetero:
+            runner = (pallas_hetero_chunk_runner if self._hetero_pallas
+                      else None)
+            res = solve_batched_hetero(
+                self.Wt_bank, self.bias_all, self.rhos, self.H_dev,
+                self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
+                self._Wt_hi, self._rho_eff, self._w_pri, self._w_dua,
+                chunk_runner=runner, **self._solve_kw())
+        else:
+            runner = pallas_batched_chunk_runner if self._use_pallas else None
+            res = solve_batched_shared(
+                self.Wt_bank, self.bias_all, self.rhos, self.H_dev,
+                self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
+                self._done0(), self._Wt_hi, self._rho_eff, self._w_pri,
+                self._w_dua, rho_mode=self.rho_mode, chunk_runner=runner,
+                **self._solve_kw())
         self._fill_results(res, t0)
         if not self.settings.warm_starting:
             self.clear_primal_dual()
@@ -450,19 +676,26 @@ class BatchedReLU_QP:
         """Per-problem objective ½xᵀHx + gᵀx in UNSCALED units."""
         x = self.Y[:self.B_n, :self.nx]   # scaled iterate
         G = self.G[:self.B_n]
-        obj_s = 0.5 * (x * (x @ self.H_dev.T)).sum(-1) + (G * x).sum(-1)
+        Hx = (torch.bmm(self.H_dev, x[:, :, None])[:, :, 0] if self.hetero
+              else x @ self.H_dev.T)
+        obj_s = 0.5 * (x * Hx).sum(-1) + (G * x).sum(-1)
         return obj_s.detach().cpu().double().numpy() * self.scal.cinv
 
     # ------------------------------------------------------------------ #
     def _rho_eff_at(self, rho_ind):
         """(1, nc) or (Bn, nc) effective ρ⃗ at the given rung(s)."""
+        if self.hetero:
+            rows = torch.arange(self.B_n, device=rho_ind.device)
+            return self._rho_eff[rows, rho_ind[:self.B_n].long()]
         rv = self._rho_eff.index_select(0, rho_ind.reshape(-1).long())
         return rv if rv.shape[0] == 1 else rv[:self.B_n]
 
     def _rho_vec_rows(self) -> np.ndarray:
         """(Bn, nc) per-problem ρ⃗ at the current ladder indices (host)."""
         ind = np.broadcast_to(self.rho_ind.detach().cpu().numpy(),
-                              (self.B_n,))
+                              (self.B_pad,))[:self.B_n]
+        if self.hetero:
+            return self._rho_eff_np[np.arange(self.B_n), ind]
         return self._rho_eff_np[ind]
 
     def warm_start(self, x=None, z=None, lam=None):
@@ -472,6 +705,9 @@ class BatchedReLU_QP:
         sc = self.scal
         nx, nc, Bn = self.nx, self.nc, self.B_n
         put = self._put
+        # the scalings are (n,) shared or (B, n) per problem, c a scalar or
+        # (B,)
+        c_col = np.reshape(sc.c, (-1, 1))
         Y = self.Y.clone()
         if stng.alpha != 1.0:
             # p encodes λ against both z and the current rung: decode to
@@ -485,7 +721,7 @@ class BatchedReLU_QP:
                 z_s = put(np.asarray(z, np.float64) * sc.E)
                 Y[:Bn, nx:nx + nc] = z_s
             if lam is not None:
-                lam_s = put(np.asarray(lam, np.float64) * (sc.c * sc.Einv))
+                lam_s = put(np.asarray(lam, np.float64) * (c_col * sc.Einv))
             Y[:Bn, nx + nc:nx + 2 * nc] = z_s + lam_s / rv
             self.Y = Y
             return
@@ -495,7 +731,7 @@ class BatchedReLU_QP:
             Y[:Bn, nx:nx + nc] = put(np.asarray(z, np.float64) * sc.E)
         if lam is not None:
             Y[:Bn, nx + nc:nx + 2 * nc] = put(
-                np.asarray(lam, np.float64) * (sc.c * sc.Einv))
+                np.asarray(lam, np.float64) * (c_col * sc.Einv))
         self.Y = Y
 
     def clear_primal_dual(self):
@@ -511,8 +747,8 @@ class BatchedReLU_QP:
     def load_state(self, Y, rho_ind):
         """Load stacked states (iterate units, (B, D) or (B, Dp) rows, or
         the padded (B_pad, ·) block) and the ladder index (an int for the
-        shared walk, (B,) per problem), e.g. taken from another
-        implementation."""
+        shared walk, (B,) per problem and in the heterogeneous regime), e.g.
+        taken from another implementation."""
         self._check_ready()
         Y_np = (Y.detach().cpu().double().numpy() if isinstance(Y, torch.Tensor)
                 else np.asarray(Y, np.float64))

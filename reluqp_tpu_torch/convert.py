@@ -42,8 +42,10 @@ def bank_from_arrays(W_t, B, b, rhos, *, dtype=torch.float32,
 class BatchedArrays(NamedTuple):
     """A batched solver's bank and state in this package's layout."""
 
-    Wt_bank: torch.Tensor   # (N, Dp, Dp) transposed padded bank
-    B_np: np.ndarray        # (N, Dp, nx) fp64 bias master (b_k = B_k g)
+    Wt_bank: torch.Tensor   # (N, Dp, Dp) transposed padded bank, or
+                            # (B, N, Dp, Dp) per-problem banks
+    B_np: np.ndarray        # (N, Dp, nx) or (B, N, Dp, nx) fp64 bias
+                            # master (b_k = B_k g)
     rhos: torch.Tensor      # (N,)
     Y: torch.Tensor         # (B_pad, Dp) stacked states
     rho_ind: torch.Tensor   # () or (B,) int32 ladder index
@@ -51,18 +53,23 @@ class BatchedArrays(NamedTuple):
 
 def batched_from_arrays(Wt_bank, B_bank, rhos, Y, rho_ind, *,
                         dtype=torch.float32, device="cpu") -> BatchedArrays:
-    """A JAX ``BatchedReLU_QP``'s ``Wt_bank`` (N, Dp, Dp), ``B_bank`` (N, Dp,
-    nx) (with its fp32 cast residual added back where it has one), ``rhos``
-    (N,), ``Y`` (B_pad, Dp) and ``rho_ind`` as numpy arrays → this
-    package's tensors of ``dtype`` on ``device`` (the B master stays fp64
-    on the host, where this package computes every bias)."""
+    """A JAX ``BatchedReLU_QP``'s ``Wt_bank`` (N, Dp, Dp) — or, for a
+    heterogeneous batch, (B, N, Dp, Dp) per-problem banks —, ``B_bank``
+    (N, Dp, nx) or (B, N, Dp, nx) (with its fp32 cast residual added back
+    where it has one), ``rhos`` (N,), ``Y`` (B_pad, Dp) and ``rho_ind`` (an
+    index, or a (B,) rung vector) as numpy arrays → this package's tensors
+    of ``dtype`` on ``device`` (the B master stays fp64 on the host, where
+    this package computes every bias)."""
     Wt = np.asarray(Wt_bank, np.float64)
     B = np.asarray(B_bank, np.float64)
     rhos = np.asarray(rhos, np.float64)
     Y = np.asarray(Y, np.float64)
-    n, dp = Wt.shape[0], Wt.shape[1]
-    if Wt.shape != (n, dp, dp) or B.shape[:2] != (n, dp) \
-            or rhos.shape != (n,) or Y.ndim != 2 or Y.shape[1] != dp:
+    lead = Wt.shape[:-3]          # () shared, (B,) per problem
+    n, dp = (Wt.shape[-3], Wt.shape[-2]) if Wt.ndim >= 3 else (0, 0)
+    if Wt.ndim not in (3, 4) or Wt.shape[-3:] != (n, dp, dp) \
+            or B.shape[:-1] != lead + (n, dp) or rhos.shape != (n,) \
+            or Y.ndim != 2 or Y.shape[1] != dp \
+            or (lead and Y.shape[0] != lead[0]):
         raise ValueError(
             f"inconsistent batched shapes: Wt_bank {Wt.shape}, B_bank "
             f"{B.shape}, rhos {rhos.shape}, Y {Y.shape}")

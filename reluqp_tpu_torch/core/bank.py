@@ -30,12 +30,16 @@ __all__ = [
     "EQ_RHO_BOOST",
     "equality_mask",
     "build_bank_np",
+    "build_banks_np_batch",
     "clamp_bounds",
     "stacked_dim",
     "auto_rho_cap",
     "certifiable_eps_floor",
     "effective_rho_ladder",
     "sigma_max_sq",
+    "sigma_max_sq_batch",
+    "auto_rho_cap_batch",
+    "effective_rho_ladder_batch",
 ]
 
 # Equality-row penalty boost: ρ⃗ = ρ · EQ_RHO_BOOST on rows with u−l ≤ eq_tol.
@@ -116,6 +120,51 @@ def effective_rho_ladder(rhos: np.ndarray, eq_mask: np.ndarray,
     return np.minimum(rhos[:, None] * boost[None, :], rho_cap)
 
 
+def sigma_max_sq_batch(A, iters: int = 40) -> np.ndarray:
+    """σ_max(A_b)² for a (B, nc, nx) stack by one vectorized fp64 power
+    iteration (two batched contractions per step). Degenerate (all-zero)
+    problems return 0."""
+    A = np.asarray(A, dtype=np.float64)
+    B = A.shape[0]
+    v = np.ones((B, A.shape[2])) / np.sqrt(max(A.shape[2], 1))
+    s = np.zeros(B)
+    for _ in range(iters):
+        w = np.einsum("bcx,bc->bx", A, np.einsum("bcx,bx->bc", A, v))
+        s = np.linalg.norm(w, axis=-1)
+        # degenerate problems stay at w = 0, s = 0; the guard avoids 0/0
+        v = w / np.maximum(s, 1e-300)[:, None]
+    return s
+
+
+def auto_rho_cap_batch(A, eps_abs: float, dtype, nx: int,
+                       theta: float = 0.1, iters: int = 40) -> np.ndarray:
+    """``auto_rho_cap`` over a (B, nc, nx) stack of A's: (B,) caps, ``inf``
+    under float64 iterates or a degenerate spectrum, else the θ-scaled
+    bound clamped to ≥ 1. ``dtype`` is a torch or numpy dtype."""
+    A = np.asarray(A, dtype=np.float64)
+    B = A.shape[0]
+    if _is_f64(dtype) or A.size == 0:
+        return np.full(B, np.inf)
+    s = sigma_max_sq_batch(A, iters=iters)
+    bound = theta * float(eps_abs) * float(np.sqrt(max(nx, 1)))
+    # divide only where s > 0 (s == 0 with bound == 0 would be 0/0); the
+    # where() below takes the inf branch for those problems
+    cap = bound / (_eps_mach(dtype) * np.where(s > 0.0, s, 1.0))
+    return np.where(np.isfinite(s) & (s > 0.0), np.maximum(cap, 1.0),
+                    np.inf)
+
+
+def effective_rho_ladder_batch(rhos: np.ndarray, eq_masks: np.ndarray,
+                               rho_caps: np.ndarray) -> np.ndarray:
+    """``effective_rho_ladder`` per problem: (B, N_rho, nc) from (B, nc)
+    equality masks and (B,) caps."""
+    rhos = np.asarray(rhos, dtype=np.float64)
+    boost = np.where(np.asarray(eq_masks, bool), EQ_RHO_BOOST, 1.0)
+    return np.minimum(rhos[None, :, None] * boost[:, None, :],
+                      np.reshape(np.asarray(rho_caps, np.float64),
+                                 (-1, 1, 1)))
+
+
 class Bank(NamedTuple):
     """Device-resident weight bank over the ρ ladder."""
 
@@ -160,78 +209,6 @@ def clamp_bounds(l, u, nx: int, nc: int):
     return lo, hi
 
 
-def _bank_blocks_np(H, A, rho_vec, sigma, alpha=1.0):
-    """One ladder rung in fp64 numpy. Returns (W, B) blocks.
-
-    ``alpha == 1``: the parametrization ``y = [x; z; λ]``. ``alpha != 1``:
-    the over-relaxed iteration in ``y = [x; z; p]`` (p = pre-clip z,
-    λ = R(p − z)), where the z- and p-rows are the SAME affine map
-    ``α A x⁺ + p − α z`` — z clamps, p passes through:
-
-        W = [[ σK,        2 K Aᵀ R,          −K Aᵀ R        ],
-             [ ασ A K,  2α A K Aᵀ R − αI,  −α A K Aᵀ R + I ],
-             [ ασ A K,  2α A K Aᵀ R − αI,  −α A K Aᵀ R + I ]]
-        B = [−K; −α A K; −α A K]
-    """
-    nx = H.shape[0]
-    nc = A.shape[0]
-    M = H + sigma * np.eye(nx) + A.T @ (rho_vec[:, None] * A)
-    # SPD by construction for convex QPs; fall back to a general solve if
-    # the Cholesky fails.
-    I = np.eye(nx)
-    try:
-        c, low = _cho_factor(M)
-        K = _cho_solve((c, low), I)
-    except np.linalg.LinAlgError:
-        K = np.linalg.solve(M, I)
-    KAt = K @ A.T                      # (nx, nc)
-    AK = KAt.T                         # A K  (K symmetric)
-    KAtR = KAt * rho_vec               # K Aᵀ R
-    Ic = np.eye(nc)
-    D = nx + 2 * nc
-    W = np.empty((D, D), dtype=np.float64)
-    if alpha != 1.0:
-        AKAtR = A @ KAtR               # A K Aᵀ R
-        W[:nx, :nx] = sigma * K
-        W[:nx, nx:nx + nc] = 2.0 * KAtR
-        W[:nx, nx + nc:] = -KAtR
-        zrow_x = alpha * sigma * AK
-        zrow_z = 2.0 * alpha * AKAtR - alpha * Ic
-        zrow_p = -alpha * AKAtR + Ic
-        W[nx:nx + nc, :nx] = zrow_x
-        W[nx:nx + nc, nx:nx + nc] = zrow_z
-        W[nx:nx + nc, nx + nc:] = zrow_p
-        W[nx + nc:, :nx] = zrow_x
-        W[nx + nc:, nx:nx + nc] = zrow_z
-        W[nx + nc:, nx + nc:] = zrow_p
-        B = np.concatenate([-K, -alpha * AK, -alpha * AK], axis=0)
-        return W, B
-    S = sigma * K - KAtR @ A           # K (σI − AᵀRA)
-    AS = A @ S
-    AKAt = A @ KAt
-    W[:nx, :nx] = S
-    W[:nx, nx:nx + nc] = 2.0 * KAtR
-    W[:nx, nx + nc:] = -KAt
-    W[nx:nx + nc, :nx] = AS + A
-    W[nx:nx + nc, nx:nx + nc] = 2.0 * (AKAt * rho_vec) - Ic
-    W[nx:nx + nc, nx + nc:] = -AKAt + np.diag(1.0 / rho_vec)
-    W[nx + nc:, :nx] = rho_vec[:, None] * A
-    W[nx + nc:, nx:nx + nc] = -np.diag(rho_vec)
-    W[nx + nc:, nx + nc:] = Ic
-    B = np.concatenate([-K, -AK, np.zeros((nc, nx))], axis=0)
-    return W, B
-
-
-def _cho_factor(M):
-    from scipy.linalg import cho_factor
-    return cho_factor(M, lower=True, check_finite=False)
-
-
-def _cho_solve(cf, I):
-    from scipy.linalg import cho_solve
-    return cho_solve(cf, I, check_finite=False)
-
-
 def build_bank_np(H: np.ndarray, g: np.ndarray, A: np.ndarray,
                   eq_mask: np.ndarray, rhos: np.ndarray, sigma: float,
                   alpha: float = 1.0, rho_cap: float = np.inf):
@@ -241,17 +218,118 @@ def build_bank_np(H: np.ndarray, g: np.ndarray, A: np.ndarray,
     ``alpha != 1`` builds the over-relaxed [x; z; p] parametrization;
     ``rho_cap`` bounds the per-row effective ρ (``inf`` = uncapped).
     """
-    H = np.asarray(H, dtype=np.float64)
     g = np.asarray(g, dtype=np.float64).reshape(-1)
-    A = np.asarray(A, dtype=np.float64)
-    rhos = np.asarray(rhos, dtype=np.float64)
-    nx, nc = H.shape[0], A.shape[0]
-    D = stacked_dim(nx, nc)
-    N = rhos.shape[0]
-    W = np.empty((N, D, D), dtype=np.float64)
-    B = np.empty((N, D, nx), dtype=np.float64)
-    rho_eff = effective_rho_ladder(rhos, eq_mask, rho_cap)
-    for k in range(N):
-        W[k], B[k] = _bank_blocks_np(H, A, rho_eff[k], sigma, alpha)
+    W, B = build_banks_np_batch(
+        np.asarray(H, dtype=np.float64)[None],
+        np.asarray(A, dtype=np.float64)[None],
+        np.asarray(eq_mask)[None], rhos, sigma, alpha, np.array([rho_cap]))
+    W, B = W[0], B[0]
     b = np.einsum("kdx,x->kd", B, g)
     return W, B, b
+
+
+def build_banks_np_batch(H: np.ndarray, A: np.ndarray, eq_masks: np.ndarray,
+                         rhos: np.ndarray, sigma: float, alpha: float = 1.0,
+                         rho_caps=None):
+    """The fp64 banks of a stack of problems: H (B, nx, nx), A (B, nc,
+    nx), per-problem equality masks (B, nc) and ρ caps (B,) → W (B, N, D,
+    D) and B (B, N, D, nx).
+
+    ``alpha == 1``: the parametrization ``y = [x; z; λ]`` (module
+    docstring). ``alpha != 1``: the over-relaxed iteration in
+    ``y = [x; z; p]`` (p = pre-clip z, λ = R(p − z)), where the z- and
+    p-rows are the SAME affine map ``α A x⁺ + p − α z`` — z clamps, p
+    passes through:
+
+        W = [[ σK,        2 K Aᵀ R,          −K Aᵀ R        ],
+             [ ασ A K,  2α A K Aᵀ R − αI,  −α A K Aᵀ R + I ],
+             [ ασ A K,  2α A K Aᵀ R − αI,  −α A K Aᵀ R + I ]]
+        B = [−K; −α A K; −α A K]
+
+    Each rung is formed for all problems at once: the stacked products run
+    one BLAS call per problem with the operand layouts of the 2-D products,
+    and K = M⁻¹ comes from ``cho_factor``/``cho_solve``'s LAPACK calls, so
+    a problem's bank does not depend on the stack it is built in.
+    Stacking removes the per-call overhead of a loop over problems at small
+    nx.
+    """
+    H = np.asarray(H, dtype=np.float64)
+    A = np.asarray(A, dtype=np.float64)
+    rhos = np.asarray(rhos, dtype=np.float64)
+    nb, nx, nc = H.shape[0], H.shape[1], A.shape[1]
+    D = stacked_dim(nx, nc)
+    N = rhos.shape[0]
+    caps = np.full(nb, np.inf) if rho_caps is None else rho_caps
+    rho_eff = effective_rho_ladder_batch(rhos, eq_masks, caps)  # (B, N, nc)
+    # rung-major storage, so that each rung's blocks are written to
+    # contiguous memory; returned as (B, N, ·, ·) views
+    W = np.empty((N, nb, D, D), dtype=np.float64)
+    Bm = np.empty((N, nb, D, nx), dtype=np.float64)
+    At = np.swapaxes(A, 1, 2)
+    I = np.eye(nx)
+    Ic = np.eye(nc)
+    for k in range(N):
+        rv = rho_eff[:, k]                                  # (B, nc)
+        M = H + sigma * I + At @ (rv[:, :, None] * A)
+        K = _spd_inverse_batch(M)
+        KAt = K @ At                                        # (B, nx, nc)
+        AK = np.swapaxes(KAt, 1, 2)
+        KAtR = KAt * rv[:, None, :]
+        Wk, Bk = W[k], Bm[k]
+        if alpha != 1.0:
+            AKAtR = A @ KAtR
+            zrow_x = alpha * sigma * AK
+            zrow_z = 2.0 * alpha * AKAtR - alpha * Ic
+            zrow_p = -alpha * AKAtR + Ic
+            Wk[:, :nx, :nx] = sigma * K
+            Wk[:, :nx, nx:nx + nc] = 2.0 * KAtR
+            Wk[:, :nx, nx + nc:] = -KAtR
+            for r0 in (nx, nx + nc):
+                Wk[:, r0:r0 + nc, :nx] = zrow_x
+                Wk[:, r0:r0 + nc, nx:nx + nc] = zrow_z
+                Wk[:, r0:r0 + nc, nx + nc:] = zrow_p
+            Bk[:, :nx] = -K
+            Bk[:, nx:nx + nc] = Bk[:, nx + nc:] = -alpha * AK
+            continue
+        S = sigma * K - KAtR @ A
+        AKAt = A @ KAt
+        Wk[:, :nx, :nx] = S
+        Wk[:, :nx, nx:nx + nc] = 2.0 * KAtR
+        Wk[:, :nx, nx + nc:] = -KAt
+        Wk[:, nx:nx + nc, :nx] = A @ S + A
+        Wk[:, nx:nx + nc, nx:nx + nc] = 2.0 * (AKAt * rv[:, None, :]) - Ic
+        Wk[:, nx:nx + nc, nx + nc:] = -AKAt + _diag_batch(1.0 / rv)
+        Wk[:, nx + nc:, :nx] = rv[:, :, None] * A
+        Wk[:, nx + nc:, nx:nx + nc] = -_diag_batch(rv)
+        Wk[:, nx + nc:, nx + nc:] = Ic
+        Bk[:, :nx] = -K
+        Bk[:, nx:nx + nc] = -AK
+        Bk[:, nx + nc:] = 0.0
+    return np.swapaxes(W, 0, 1), np.swapaxes(Bm, 0, 1)
+
+
+def _diag_batch(v):
+    """(B, n) → (B, n, n) diagonal matrices."""
+    out = np.zeros(v.shape + v.shape[-1:])
+    idx = np.arange(v.shape[-1])
+    out[:, idx, idx] = v
+    return out
+
+
+def _spd_inverse_batch(M):
+    """M⁻¹ of every (n, n) matrix of a stack, each by ``cho_factor`` /
+    ``cho_solve``'s LAPACK calls (SPD by construction for convex QPs; a
+    general solve where Cholesky fails). Each slice is Fortran-ordered, as
+    ``cho_solve`` returns it, so that the products that follow call BLAS
+    with the operand layouts, and round, as they do after ``cho_solve``."""
+    from scipy.linalg.lapack import dpotrf, dpotrs
+    n = M.shape[-1]
+    I = np.eye(n)
+    K = np.empty_like(M).transpose(0, 2, 1)
+    for i in range(M.shape[0]):
+        c, info = dpotrf(M[i], lower=1, clean=0)
+        if info == 0:
+            K[i], info = dpotrs(c, I, lower=1)
+        if info != 0:
+            K[i] = np.linalg.solve(M[i], I)
+    return K

@@ -1,26 +1,34 @@
-"""The batched solve loop: many QPs sharing (H, A) in one loop of windows.
+"""The batched solve loops: many QPs in one loop of check windows.
 
-All problems share one weight bank; one iteration of the whole batch is a
-(B, Dp) @ (Dp, Dp) product per step. Two ρ-adaptation modes:
+Two regimes:
 
-- ``rho_mode="shared"``: one ladder index for the batch, walked by the
-  geometric mean of the active problems' OSQP ρ estimates; the chunk runs
-  through kernel K4 on CUDA (``ops.fused_step.pallas_batched_chunk_runner``)
-  or the plain runner ``_chunk_shared_rho``;
-- ``rho_mode="per_problem"``: every problem walks its own index; the plain
-  runners gather per-problem Wᵀ (small batches) or run every rung and
-  select one-hot (large ones).
+- **shared (H, A)** (``solve_batched_shared``): all problems share one
+  weight bank; one iteration of the whole batch is a (B, Dp) @ (Dp, Dp)
+  product per step. Two ρ-adaptation modes:
+
+  * ``rho_mode="shared"``: one ladder index for the batch, walked by the
+    geometric mean of the active problems' OSQP ρ estimates; the chunk runs
+    through kernel K4 on CUDA (``ops.fused_step.pallas_batched_chunk_runner``)
+    or the plain runner ``_chunk_shared_rho``;
+  * ``rho_mode="per_problem"``: every problem walks its own index; the plain
+    runners gather per-problem Wᵀ (small batches) or run every rung and
+    select one-hot (large ones).
+
+- **heterogeneous** (``solve_batched_hetero``): every problem has its own H,
+  A and so its own (N, Dp, Dp) bank, and walks its own ladder index; the
+  chunk runs through kernel K5 on CUDA
+  (``ops.fused_step.pallas_hetero_chunk_runner``, each problem's rung read
+  by the kernel from the (B, N, Dp, Dp) bank) or the plain runner
+  ``_chunk_hetero`` (a per-problem gather and a batched product).
 
 Each problem carries its own ``done`` flag, first-convergence iteration
 count and status; converged problems keep iterating (a converged ADMM
-iterate is a fixed point up to noise) but their ρ estimate and stats are
+iterate is a fixed point up to noise) but their ρ index and stats are
 frozen. A Python loop over check windows drives it; everything inside a
 window stays on the device, and the loop syncs to the host ONCE per window
 (the open-problem count, and under a two-phase refine its stall metric).
 The iteration count is kept on the host, since every window has a length
 fixed before it runs.
-
-The heterogeneous regime (per-problem H, A, kernel K5) is a later slice.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ __all__ = [
     "batched_residuals",
     "batched_infeasibility_certificates",
     "solve_batched_shared",
+    "solve_batched_hetero",
 ]
 
 _TINY = 1e-30
@@ -64,17 +73,18 @@ class BatchSolveResult(NamedTuple):
 
 def batched_residuals(H, A, g, X, Z, Lam, rho, rho_min: float,
                       rho_max: float, w_pri=None, w_dua=None):
-    """Per-problem residuals and ρ estimates for a shared-(H, A) batch.
+    """Per-problem residuals and ρ estimates.
 
     ``X`` (B, nx), ``Z``/``Lam`` (B, nc), ``g`` (B, nx) or (nx,), ``rho``
-    (B,); optional ``w_pri`` (nc,) / ``w_dua`` (nx,) weight the residual
-    vectors into UNSCALED units under Ruiz equilibration. All products are
-    full-precision GEMMs (TF32 is off). Returns ``(pri, dua, rho_new)``,
-    each (B,).
+    (B,); ``H``/``A`` shared (nx, nx)/(nc, nx) or per problem (B, ·, nx);
+    optional ``w_pri`` (nc,) or (B, nc) / ``w_dua`` (nx,) or (B, nx) weight
+    the residual vectors into UNSCALED units under Ruiz equilibration. All
+    products are full-precision GEMMs (TF32 is off). Returns ``(pri, dua,
+    rho_new)``, each (B,).
     """
-    AX = X @ A.T
-    HX = X @ H.T
-    AtL = Lam @ A
+    AX = _mv(A, X)
+    HX = _mv(H, X)
+    AtL = _mv(A.transpose(-1, -2), Lam)
     g = torch.broadcast_to(g, HX.shape)
     if w_pri is not None:
         AX = w_pri * AX
@@ -94,24 +104,33 @@ def batched_residuals(H, A, g, X, Z, Lam, rho, rho_min: float,
     return pri, dua, torch.clamp(rho * ratio, rho_min, rho_max)
 
 
+def _mv(M, v):
+    """Row-wise products ``M @ vᵢ``: ``M`` (m, n) shared or (B, m, n) per
+    problem, ``v`` (B, n) → (B, m)."""
+    if M.dim() == 3:
+        return torch.bmm(M, v[:, :, None])[:, :, 0]
+    return v @ M.T
+
+
 def batched_infeasibility_certificates(H, A, g, l, u, dX, dLam,
                                        eps_pinf: float, eps_dinf: float):
-    """Per-problem OSQP-style infeasibility certificates on iterate deltas
-    (shared H, A): δλ certifies primal infeasibility when Aᵀδλ ≈ 0 and the
-    support function uᵀ(δλ)₊ + lᵀ(δλ)₋ is negative; δx certifies dual
-    infeasibility when Hδx ≈ 0, gᵀδx < 0 and Aδx is a feasible ray.
+    """Per-problem OSQP-style infeasibility certificates on iterate deltas:
+    δλ certifies primal infeasibility when Aᵀδλ ≈ 0 and the support
+    function uᵀ(δλ)₊ + lᵀ(δλ)₋ is negative; δx certifies dual infeasibility
+    when Hδx ≈ 0, gᵀδx < 0 and Aδx is a feasible ray.
 
     ``dX`` (B, nx), ``dLam`` (B, nc), ``l``/``u`` (B, nc), ``g`` (B, nx) or
-    (nx,). Returns ``(pinf, dinf)`` bool (B,) tensors.
+    (nx,); ``H``/``A`` shared, or per problem (B, ·, nx).
+    Returns ``(pinf, dinf)`` bool (B,) tensors.
     """
     amax = lambda v: v.abs().amax(dim=-1)
     norm_dlam = amax(dLam)
     norm_dx = amax(dX)
     eps_p = eps_pinf * norm_dlam
     eps_d = eps_dinf * norm_dx
-    At_dlam = dLam @ A
-    H_dx = dX @ H.T
-    A_dx = dX @ A.T
+    At_dlam = _mv(A.transpose(-1, -2), dLam)
+    H_dx = _mv(H, dX)
+    A_dx = _mv(A, dX)
     zero = torch.zeros((), dtype=dLam.dtype, device=dLam.device)
     support = torch.where(dLam > 0, u * dLam,
                           torch.where(dLam < 0, l * dLam, zero)).sum(dim=-1)
@@ -177,6 +196,23 @@ def _chunk_gathered(Wt_bank, bias_all, rho_inds, lo, hi, Y, n_steps: int,
     idx = rho_inds.long()
     Wt = Wt_bank[idx]                                          # (B, Dp, Dp)
     b = bias_all[idx, torch.arange(Y.shape[0], device=Y.device)]  # (B, Dp)
+    return _batched_steps(Wt, b, lo, hi, Y, n_steps, iter_precision)
+
+
+def _chunk_hetero(Wt_bank, bias_bank, rho_inds, lo, hi, Y, n_steps: int,
+                  iter_precision: str = "highest"):
+    """Per-problem banks (``backend="xla"``): gather each problem's current
+    rung once per window and run a batched product per step.
+    ``Wt_bank`` (B, N, Dp, Dp); ``bias_bank`` (B, N, Dp)."""
+    rows = torch.arange(Y.shape[0], device=Y.device)
+    idx = rho_inds.long()
+    return _batched_steps(Wt_bank[rows, idx], bias_bank[rows, idx], lo, hi,
+                          Y, n_steps, iter_precision)
+
+
+def _batched_steps(Wt, b, lo, hi, Y, n_steps: int, iter_precision: str):
+    """``n_steps`` of ``Y ← clip(Y Wtᵢ + b, lo, hi)`` with one (Dp, Dp)
+    block per row (``Wt`` (B, Dp, Dp))."""
     mm = lambda y, w: torch.bmm(y[:, None, :], w)[:, 0, :]
     for _ in range(n_steps):
         YW = _tier_product(Y, Wt, iter_precision, mm)
@@ -229,8 +265,8 @@ def _run_refined(step, running, state0, Wt_bank, Wt_bank_hi, *, refine,
     return state, k_fast
 
 
-def _init_state_shared(Y0, rho_ind0, rhos_t, done0, nx, nc, max_iter,
-                       check_infeasibility, alpha, rho_eff) -> _BState:
+def _init_state(Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility,
+                nx, lam_of) -> _BState:
     B = Y0.shape[0]
     dtype, dev = Y0.dtype, Y0.device
     if isinstance(rho_ind0, torch.Tensor):
@@ -251,11 +287,8 @@ def _init_state_shared(Y0, rho_ind0, rhos_t, done0, nx, nc, max_iter,
     state = _BState(Y0, rho_ind0, rho0, 0, zeros, zeros, done, iters, status,
                     B, None)
     if check_infeasibility:
-        Z0 = Y0[:, nx:nx + nc]
-        last = Y0[:, nx + nc:nx + 2 * nc]
-        lam0 = last if alpha == 1.0 else \
-            rho_eff.index_select(0, rho_ind0.reshape(-1).long()) * (last - Z0)
-        state = state._replace(X_prev=Y0[:, :nx], Lam_prev=lam0)
+        state = state._replace(X_prev=Y0[:, :nx],
+                               Lam_prev=lam_of(Y0, rho_ind0))
     return state
 
 
@@ -297,7 +330,6 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         one product; ``bias_all`` is then not read.
     """
     B = Y0.shape[0]
-    dtype = Y0.dtype
     shared = rho_mode == "shared"
     if chunk_runner is None:
         if shared:
@@ -309,27 +341,11 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         raise ValueError("bias_lazy requires rho_mode='shared' (one rung "
                          "per window; per-problem rungs need the full "
                          "materialized bias bank)")
-    rhos_t = rhos.to(dtype)
-    eps = torch.tensor(eps_abs, dtype=dtype)
-    eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
-    eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
-    tol = float(torch.tensor(adaptive_rho_tolerance, dtype=dtype))
-    n_chunks = max_iter // check_interval
-    rem = max_iter - n_chunks * check_interval
-    rho_stride = rho_update_stride(adaptive_rho_interval, check_interval)
-    two_phase = refine and iter_precision != "highest"
     n_rho = Wt_bank.shape[0]
-
-    def split(Y):
-        return Y[:, :nx], Y[:, nx:nx + nc], Y[:, nx + nc:nx + 2 * nc]
 
     def rho_vec(rho_ind):
         """ρ⃗ at the rung(s): (1, nc) shared or (B, nc) per problem."""
         return rho_eff.index_select(0, rho_ind.reshape(-1).long())
-
-    def lam_of(Y, rho_ind):
-        _, Z, last = split(Y)
-        return last if alpha == 1.0 else rho_vec(rho_ind) * (last - Z)
 
     def bias_of(rho_ind):
         """The bias bank for the runner: materialized, or (lazy) the current
@@ -344,18 +360,113 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
             b_loc = b_loc + X_b @ Ml_b.index_select(0, idx)[0].T
         if c_b is not None:
             b_loc = b_loc + c_b.index_select(0, idx)
-        b_loc = b_loc.to(dtype)
+        b_loc = b_loc.to(Y0.dtype)
         return b_loc.expand(n_rho, *b_loc.shape)
+
+    return _solve_batched(
+        Wt_bank, bias_of, rhos, H, A, G, lo, hi, Y0, rho_ind0, done0,
+        Wt_bank_hi, rho_vec, w_pri, w_dua, shared=shared, chunk_runner=chunk_runner, nx=nx, nc=nc,
+        max_iter=max_iter, check_interval=check_interval,
+        adaptive_rho=adaptive_rho,
+        adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+        rho_min=rho_min, rho_max=rho_max, rho_jump=rho_jump,
+        check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
+        eps_dual_inf=eps_dual_inf, iter_precision=iter_precision,
+        refine=refine, adaptive_rho_interval=adaptive_rho_interval,
+        alpha=alpha)
+
+
+def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
+                         rho_ind0, Wt_bank_hi=None, rho_eff=None,
+                         w_pri=None, w_dua=None, *,
+                         nx: int, nc: int, max_iter: int,
+                         check_interval: int, adaptive_rho: bool,
+                         adaptive_rho_tolerance: float, eps_abs: float,
+                         rho_min: float, rho_max: float,
+                         chunk_runner=None,
+                         rho_jump: bool = False,
+                         check_infeasibility: bool = False,
+                         eps_prim_inf: float = 1e-4,
+                         eps_dual_inf: float = 1e-4,
+                         iter_precision: str = "highest",
+                         refine: bool = True,
+                         adaptive_rho_interval: int = 1,
+                         alpha: float = 1.0) -> BatchSolveResult:
+    """Solve a batch of QPs with per-problem (H, A).
+
+    Args:
+      Wt_bank: (B, N_rho, Dp, Dp) per-problem transposed (padded) banks.
+      bias_bank: (B, N_rho, Dp) per-problem per-rung biases.
+      rhos: (N_rho,) ladder values (one ladder; the effective per-row ρ⃗
+        ``rho_eff`` (B, N_rho, nc) differs by problem).
+      H: (B, nx, nx); A: (B, nc, nx); G: (B, nx).
+      lo, hi, Y0: (B, Dp). rho_ind0: (B,) int32: every problem walks its
+        own index.
+      chunk_runner: ``_chunk_hetero``'s signature; K5's runner
+        (``ops.fused_step.pallas_hetero_chunk_runner``) plugs in here.
+    """
+    if chunk_runner is None:
+        chunk_runner = _chunk_hetero
+    rows = torch.arange(Y0.shape[0], device=Y0.device)
+
+    def rho_vec(rho_ind):
+        """(B, nc) effective ρ⃗ at each problem's rung."""
+        return rho_eff[rows, rho_ind.long()]
+
+    return _solve_batched(
+        Wt_bank, lambda rho_ind: bias_bank, rhos, H, A, G, lo, hi, Y0,
+        rho_ind0, None, Wt_bank_hi, rho_vec, w_pri, w_dua, shared=False,
+        chunk_runner=chunk_runner, nx=nx, nc=nc,
+        max_iter=max_iter, check_interval=check_interval,
+        adaptive_rho=adaptive_rho,
+        adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+        rho_min=rho_min, rho_max=rho_max, rho_jump=rho_jump,
+        check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
+        eps_dual_inf=eps_dual_inf, iter_precision=iter_precision,
+        refine=refine, adaptive_rho_interval=adaptive_rho_interval,
+        alpha=alpha)
+
+
+def _solve_batched(Wt_bank, bias_of, rhos, H, A, G, lo, hi, Y0, rho_ind0,
+                   done0, Wt_bank_hi, rho_vec, w_pri, w_dua, *,
+                   shared: bool, chunk_runner, nx: int, nc: int,
+                   max_iter: int, check_interval: int, adaptive_rho: bool,
+                   adaptive_rho_tolerance: float, eps_abs: float,
+                   rho_min: float, rho_max: float, rho_jump: bool,
+                   check_infeasibility: bool, eps_prim_inf: float,
+                   eps_dual_inf: float, iter_precision: str, refine: bool,
+                   adaptive_rho_interval: int,
+                   alpha: float) -> BatchSolveResult:
+    """The window loop of both regimes. ``bias_of(rho_ind)`` gives the
+    runner's bias bank, ``rho_vec(rho_ind)`` the effective ρ⃗ at the
+    rung(s); ``shared`` walks one index by the geometric mean, else every
+    problem walks its own."""
+    dtype = Y0.dtype
+    rhos_t = rhos.to(dtype)
+    eps = torch.tensor(eps_abs, dtype=dtype)
+    eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
+    eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
+    tol = float(torch.tensor(adaptive_rho_tolerance, dtype=dtype))
+    n_chunks = max_iter // check_interval
+    rem = max_iter - n_chunks * check_interval
+    rho_stride = rho_update_stride(adaptive_rho_interval, check_interval)
+    two_phase = refine and iter_precision != "highest"
+
+    def split(Y):
+        return Y[:, :nx], Y[:, nx:nx + nc], Y[:, nx + nc:nx + 2 * nc]
+
+    def lam_of(Y, rho_ind):
+        _, Z, last = split(Y)
+        return last if alpha == 1.0 else rho_vec(rho_ind) * (last - Z)
 
     def step(st: _BState, n_steps: int, W_op, precision: str) -> _BState:
         Y = chunk_runner(W_op, bias_of(st.rho_ind), st.rho_ind, lo, hi, st.Y,
                          n_steps, precision)
         X, Z, _ = split(Y)
-        pri_n, dua_n, rho_new = batched_residuals(
-            H, A, G, X, Z, lam_of(Y, st.rho_ind), st.rho, rho_min, rho_max,
-            w_pri, w_dua)
-        if check_infeasibility:
-            lam_now = lam_of(Y, st.rho_ind)
+        lam_now = lam_of(Y, st.rho_ind)
+        pri_n, dua_n, rho_new = batched_residuals(H, A, G, X, Z, lam_now,
+                                                  st.rho, rho_min, rho_max,
+                                                  w_pri, w_dua)
         done = st.done
         # freeze the stats of problems that already converged
         pri = torch.where(done, st.pri, pri_n)
@@ -388,9 +499,8 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
                 # re-encode p for the new rung with ρ⃗_old/ρ⃗_new (all ones
                 # where it held, capped rows and frozen rows included)
                 scale = rho_vec(rho_ind) / rho_vec(new_ind)
-                Z_cur = Y[:, nx:nx + nc]
                 P_cur = Y[:, nx + nc:nx + 2 * nc]
-                Y = torch.cat([Y[:, :nx + nc], Z_cur + scale * (P_cur - Z_cur),
+                Y = torch.cat([Y[:, :nx + nc], Z + scale * (P_cur - Z),
                                Y[:, nx + 2 * nc:]], dim=1)
             rho_ind = new_ind
         newly = ~done & (pri < eps_pri) & (dua < eps_dua)
@@ -399,7 +509,6 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         done = done | newly
         X_prev = Lam_prev = None
         if check_infeasibility:
-            X = Y[:, :nx]
             pinf, dinf = batched_infeasibility_certificates(
                 H, A, G, lo[:, nx:nx + nc], hi[:, nx:nx + nc], X - st.X_prev,
                 lam_now - st.Lam_prev, eps_prim_inf, eps_dual_inf)
@@ -425,8 +534,8 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
     def running(st: _BState) -> bool:
         return st.n_open > 0 and st.k < n_chunks * check_interval
 
-    state0 = _init_state_shared(Y0, rho_ind0, rhos_t, done0, nx, nc,
-                                max_iter, check_infeasibility, alpha, rho_eff)
+    state0 = _init_state(Y0, rho_ind0, rhos_t, done0, max_iter,
+                         check_infeasibility, nx, lam_of)
     st, k_fast = _run_refined(
         step, running, state0, Wt_bank, Wt_bank_hi, refine=refine,
         iter_precision=iter_precision, n_chunks=n_chunks,

@@ -1,4 +1,4 @@
-"""Chunk kernels K1 and K4: ``y ← clip(y Wₖᵀ + b, lo, hi)`` × n_steps.
+"""Chunk kernels K1, K4 and K5: ``y ← clip(y Wₖᵀ + b, lo, hi)`` × n_steps.
 
 The hot op of every solve. ``fused_chunk`` launches the hand-written CUDA
 kernel K1 ``csrc/fused_step.cu`` for CUDA tensors (see its header for the
@@ -7,22 +7,30 @@ tensors. ``fused_chunk_batched`` does the same for a (B, Dp) block of
 independent rows sharing one rung, through kernel K4
 ``csrc/fused_step_batched.cu`` and its plain version
 ``fused_chunk_batched_ref``; ``pallas_batched_chunk_runner`` is the batched
+solver's runner over it. ``fused_chunk_hetero`` runs a heterogeneous batch,
+every row against the rung of its OWN ladder of a (B, N, Dp, Dp) bank,
+through kernel K5 ``csrc/fused_step_hetero.cu`` and its plain version
+``fused_chunk_hetero_ref``; ``pallas_hetero_chunk_runner`` is the hetero
 solver's runner over it. A CUDA tensor never reaches a plain version: the
-kernel runs or the call raises. ``fused_chunk.launches`` and
-``fused_chunk_batched.launches`` count kernel launches.
+kernel runs or the call raises. ``fused_chunk.launches``,
+``fused_chunk_batched.launches`` and ``fused_chunk_hetero.launches`` count
+kernel launches.
 
-The TPU batched kernel's row-tile search (``batch_tile_rows``) and its
-unroll switch (``RELUQP_BATCH_UNROLL``) size Mosaic's VMEM tiles and loop
-lowering; they have no counterpart here: K4 picks its own row tile and
-cluster of column slabs (``batched_plan``).
+The TPU batched kernels' tile searches (``batch_tile_rows``,
+``hetero_tile_rows``, ``aligned_divisor``) and the unroll switch
+(``RELUQP_BATCH_UNROLL``) size Mosaic's VMEM tiles and loop lowering; they
+have no counterpart here: K4 and K5 pick their own launch shapes
+(``batched_plan``, ``hetero_plan``) and run any B and any Dp.
 
 Layout contract (prepared by the solver at setup):
   - the bank stores Wᵀ padded to lane-aligned Dp (multiple of 128), so one
     iteration is a row-vector product ``y(R,Dp) @ Wt(Dp,Dp)``;
   - b/lo/hi/y are (R, Dp) with b=0, lo=−inf, hi=+inf in the padding, which
     keeps padded lanes at exactly 0 through every iteration;
-  - the rung index ``rho_ind`` is a device int32 tensor (the kernel reads
-    it on the device; nothing syncs to learn it).
+  - the rung index ``rho_ind`` (K1, K4) or the (B,) rung vector
+    ``rho_inds`` (K5) is a device int32 tensor (the kernel reads it on the
+    device; nothing syncs to learn it, and K5 indexes the bank itself, so
+    no gathered (B, Dp, Dp) copy is made).
 
 Precision tiers (``iter_precision``):
   - "highest": plain fp32 products and sums (no TF32);
@@ -39,7 +47,8 @@ import torch
 __all__ = ["LANE", "round_up", "pad_dim", "fused_chunk", "fused_chunk_ref",
            "pallas_chunk_runner", "kernel_plan", "fused_chunk_batched",
            "fused_chunk_batched_ref", "pallas_batched_chunk_runner",
-           "batched_plan"]
+           "batched_plan", "fused_chunk_hetero", "fused_chunk_hetero_ref",
+           "pallas_hetero_chunk_runner", "hetero_plan"]
 
 LANE = 128
 
@@ -76,8 +85,14 @@ def fused_chunk_ref(wt_bank, b, lo, hi, y, rho_ind, n_steps: int,
     """
     if iter_precision not in _TIER:
         raise ValueError(f"Invalid iter_precision {iter_precision!r}")
+    return _iterate(_rung(wt_bank, rho_ind), b, lo, hi, y, n_steps,
+                    iter_precision)
+
+
+def _iterate(w, b, lo, hi, y, n_steps: int, iter_precision: str):
+    """``n_steps`` of ``y ← clip(y @ w + b, lo, hi)`` at the tier; ``w``
+    (Dp, Dp), or (B, Dp, Dp) against (B, 1, Dp) rows."""
     dt = y.dtype
-    w = _rung(wt_bank, rho_ind)
     bf16_in = _TIER[iter_precision] == 2 or w.dtype == torch.bfloat16
     high = iter_precision == "high" and not bf16_in
     if bf16_in:
@@ -342,3 +357,163 @@ def pallas_batched_chunk_runner(Wt_bank, bias_all, rho_ind, lo, hi, Y,
     b = bias_all.index_select(0, rho_ind.reshape(1))[0]
     return fused_chunk_batched(Wt_bank, b, lo, hi, Y, rho_ind, n_steps,
                                iter_precision)
+
+
+# --------------------------------------------------------------------- #
+# K5: the heterogeneous chunk, row i against rung rho_inds[i] of bank[i] #
+# --------------------------------------------------------------------- #
+
+def fused_chunk_hetero_ref(wt_bank, b, lo, hi, Y, rho_inds, n_steps: int,
+                           iter_precision: str = "highest"):
+    """Plain torch version of K5: what the kernel computes. Row i of ``Y``
+    (B, Dp) runs K1's arithmetic against ``wt_bank[i, rho_inds[i]]``
+    (``wt_bank`` (B, N, Dp, Dp), ``rho_inds`` (B,) ints) with its own
+    ``b``/``lo``/``hi`` row. Returns a new tensor."""
+    if iter_precision not in _TIER:
+        raise ValueError(f"Invalid iter_precision {iter_precision!r}")
+    if Y.dim() != 2 or wt_bank.dim() != 4:
+        raise ValueError("K5: Y must be (B, Dp) and wt_bank (B, N, Dp, Dp)")
+    B = Y.shape[0]
+    idx = torch.as_tensor(rho_inds, device=wt_bank.device).long()
+    idx = idx.clamp(0, wt_bank.shape[1] - 1)   # as the kernel clamps
+    w = wt_bank[torch.arange(B, device=wt_bank.device), idx]
+    row = lambda t: t[:, None, :]
+    return _iterate(w, row(b), row(lo), row(hi), row(Y), n_steps,
+                    iter_precision)[:, 0, :]
+
+
+def _k5_lib():
+    from .cuda_build import load
+    lib = load("fused_step_hetero")
+    if not getattr(lib, "_k5_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.k5_fused_chunk_hetero.argtypes = [vp, i, i, vp, vp, vp, vp, vp,
+                                              vp, i, i, i, i, i, vp]
+        lib.k5_fused_chunk_hetero.restype = i
+        lib.k5_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 6
+        lib.k5_plan.restype = i
+        lib.k5_error_string.argtypes = [i]
+        lib.k5_error_string.restype = ctypes.c_char_p
+        lib._k5_typed = True
+    return lib
+
+
+def _k5_raise(lib, code: int, what: str):
+    msg = lib.k5_error_string(code).decode()
+    raise RuntimeError(f"K5 {what} failed: CUDA error {code} ({msg})")
+
+
+def hetero_plan(dp: int, dtype=torch.float32, w_dtype=None,
+                iter_precision: str = "highest") -> dict:
+    """The launch shape of K5 on the current GPU at Dp: blocks per problem
+    (the cluster over which a rung's column slabs are spread), output
+    columns per block, dynamic shared memory per block, whether a block
+    holds its slab in shared memory (else it reads it from L2 every
+    iteration), how many problems the card holds at once, and the
+    contraction's stretches per block. A launch has B × cluster blocks."""
+    lib = _k5_lib()
+    vals = [ctypes.c_int() for _ in range(6)]
+    rc = lib.k5_plan(dp, _DTYPE_CODE[dtype], _DTYPE_CODE[w_dtype or dtype],
+                     _TIER[iter_precision], *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        _k5_raise(lib, rc, "plan")
+    return dict(zip(("cluster", "cols_per_block", "smem_bytes", "w_in_smem",
+                     "max_clusters", "stretches"), (v.value for v in vals)))
+
+
+def _check_hetero_args(wt_bank, b, lo, hi, Y, rho_inds, iter_precision):
+    """What K5 takes: contiguous tensors on Y's device starting on 16-byte
+    boundaries, (B, Dp) float32/float64 rows, a (B, N, Dp, Dp) bank of Y's
+    dtype (or bf16 under fp32), a (B,) int32 rung vector."""
+    dev = Y.device
+    ts = {"wt_bank": wt_bank, "b": b, "lo": lo, "hi": hi, "Y": Y,
+          "rho_inds": rho_inds}
+    for name, t in ts.items():
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"K5: {name} must be a tensor on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"K5: {name} must be contiguous")
+    if Y.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"K5: state dtype {Y.dtype} is not float32/float64")
+    if Y.dim() != 2 or wt_bank.dim() != 4:
+        raise ValueError("K5: Y must be (B, Dp) and wt_bank (B, N, Dp, Dp)")
+    B, dp = Y.shape
+    for name in ("b", "lo", "hi"):
+        if ts[name].dtype != Y.dtype or ts[name].shape != Y.shape:
+            raise ValueError(f"K5: {name} must match Y's dtype and shape")
+    if wt_bank.shape[0] != B or wt_bank.shape[2:] != (dp, dp):
+        raise ValueError(f"K5: wt_bank {tuple(wt_bank.shape)} does not match "
+                         f"B={B}, Dp={dp}")
+    w_ok = wt_bank.dtype == Y.dtype or (wt_bank.dtype == torch.bfloat16
+                                        and Y.dtype == torch.float32)
+    if not w_ok:
+        raise ValueError(f"K5: bank dtype {wt_bank.dtype} with state dtype "
+                         f"{Y.dtype} is not supported")
+    if rho_inds.dtype != torch.int32 or rho_inds.shape != (B,):
+        raise ValueError("K5: rho_inds must be a (B,) int32 tensor")
+    if dp % (16 // Y.element_size()):
+        raise ValueError(f"K5: Dp={dp} is not a whole number of 16-byte "
+                         "groups")
+    if any(t.data_ptr() % 16 for t in (wt_bank, Y)):
+        raise ValueError("K5: Y and wt_bank must start on a 16-byte boundary")
+    if iter_precision not in _TIER:
+        raise ValueError(f"Invalid iter_precision {iter_precision!r}")
+
+
+def _fused_chunk_hetero_cuda(wt_bank, b, lo, hi, Y, rho_inds, n_steps,
+                             iter_precision):
+    _check_hetero_args(wt_bank, b, lo, hi, Y, rho_inds, iter_precision)
+    if n_steps == 0 or Y.shape[0] == 0:
+        return Y.clone()
+    rows, dp = Y.shape
+    lib = _k5_lib()
+    out = torch.empty_like(Y)
+    stream = torch.cuda.current_stream(Y.device).cuda_stream
+    rc = lib.k5_fused_chunk_hetero(
+        wt_bank.data_ptr(), _DTYPE_CODE[wt_bank.dtype], wt_bank.shape[1],
+        rho_inds.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        Y.data_ptr(), out.data_ptr(), rows, dp, int(n_steps),
+        _TIER[iter_precision], _DTYPE_CODE[Y.dtype], stream)
+    if rc != 0:
+        _k5_raise(lib, rc, "launch")
+    fused_chunk_hetero.launches += 1
+    return out
+
+
+def fused_chunk_hetero(wt_bank, b, lo, hi, Y, rho_inds, n_steps: int,
+                       iter_precision: str = "highest"):
+    """Run ``n_steps`` iterations of every row of ``Y``, row i against rung
+    ``rho_inds[i]`` of its own ladder ``wt_bank[i]``.
+
+    Args:
+      wt_bank: (B, N_rho, Dp, Dp) per-problem transposed padded banks.
+      b, lo, hi, Y: (B, Dp) per-row bias (at each row's rung), clamp bounds
+        and states.
+      rho_inds: (B,) int32 tensor on Y's device.
+    CUDA tensors launch kernel K5 (or raise); CPU tensors run
+    ``fused_chunk_hetero_ref``.
+    """
+    if Y.is_cuda:
+        return _fused_chunk_hetero_cuda(wt_bank, b, lo, hi, Y, rho_inds,
+                                        n_steps, iter_precision)
+    return fused_chunk_hetero_ref(wt_bank, b, lo, hi, Y, rho_inds, n_steps,
+                                  iter_precision)
+
+
+fused_chunk_hetero.launches = 0
+
+
+def pallas_hetero_chunk_runner(Wt_bank, bias_bank, rho_inds, lo, hi, Y,
+                               n_steps: int,
+                               iter_precision: str = "highest"):
+    """Hetero ``ChunkRunner`` of ``core.batched.solve_batched_hetero`` (K5).
+
+    ``Wt_bank`` (B, N, Dp, Dp) transposed padded, ``bias_bank`` (B, N, Dp)
+    — only each row's current-rung bias is gathered, (B, Dp) —,
+    ``lo``/``hi``/``Y`` (B, Dp); ``rho_inds`` (B,) int32 on the state's
+    device. The kernel indexes the bank at the rungs itself.
+    """
+    rows = torch.arange(Y.shape[0], device=Y.device)
+    b = bias_bank[rows, rho_inds.long()]
+    return fused_chunk_hetero(Wt_bank, b, lo, hi, Y, rho_inds, n_steps,
+                              iter_precision)

@@ -21,8 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ["Scaling", "ruiz_equilibrate", "identity_scaling",
-           "residual_unscale_weights"]
+__all__ = ["Scaling", "ruiz_equilibrate", "ruiz_equilibrate_batch",
+           "identity_scaling", "residual_unscale_weights"]
 
 _MIN_SCALE = 1e-4
 _MAX_SCALE = 1e4
@@ -44,9 +44,9 @@ def residual_unscale_weights(scal: "Scaling", settings):
 
 
 class Scaling(NamedTuple):
-    D: np.ndarray      # (nx,) variable scaling
-    E: np.ndarray      # (nc,) constraint-row scaling
-    c: float           # cost scaling
+    D: np.ndarray      # (nx,) variable scaling — or (B, nx) per-problem
+    E: np.ndarray      # (nc,) constraint-row scaling — or (B, nc)
+    c: float           # cost scaling — or (B,) per-problem
     Dinv: np.ndarray
     Einv: np.ndarray
     cinv: float
@@ -92,4 +92,39 @@ def ruiz_equilibrate(H, A, g, iters: int = 10) -> Scaling:
         norm_H = Hs.max(axis=0, initial=0.0).mean()
         gamma = 1.0 / _limit(max(norm_H, gs.max(initial=0.0)))
         c = float(_limit(c * _limit(gamma)))
+    return Scaling(D=D, E=E, c=c, Dinv=1.0 / D, Einv=1.0 / E, cinv=1.0 / c)
+
+
+def ruiz_equilibrate_batch(H, A, g, iters: int = 10) -> Scaling:
+    """Per-problem Ruiz equilibration for a heterogeneous batch.
+
+    ``ruiz_equilibrate`` over a leading batch axis: ``H (B, nx, nx)``,
+    ``A (B, nc, nx)``, ``g (B, nx)`` → ``Scaling`` with ``D (B, nx)``,
+    ``E (B, nc)``, ``c (B,)``. Per problem it equals the scalar routine.
+    """
+    H = np.abs(np.asarray(H, dtype=np.float64))
+    A = np.abs(np.asarray(A, dtype=np.float64))
+    g = np.abs(np.asarray(g, dtype=np.float64))
+    B, nx = H.shape[0], H.shape[1]
+    nc = A.shape[1]
+    D = np.ones((B, nx))
+    E = np.ones((B, nc))
+    c = np.ones(B)
+    for _ in range(iters):
+        Hs = H * D[:, :, None] * D[:, None, :] * c[:, None, None]
+        As = A * E[:, :, None] * D[:, None, :]
+        # column ∞-norms of the per-problem stacked [[H, Aᵀ],[A, 0]]
+        col_x = np.maximum(Hs.max(axis=1, initial=0.0),
+                           As.max(axis=1, initial=0.0))         # (B, nx)
+        col_z = As.max(axis=2, initial=0.0)                     # (B, nc)
+        d = _limit(1.0 / np.sqrt(_limit(col_x)))
+        e = _limit(1.0 / np.sqrt(_limit(col_z)))
+        D = _limit(D * d)
+        E = _limit(E * e)
+        Hs = H * D[:, :, None] * D[:, None, :] * c[:, None, None]
+        gs = g * D * c[:, None]
+        norm_H = Hs.max(axis=1, initial=0.0).mean(axis=1)       # (B,)
+        gamma = 1.0 / _limit(np.maximum(norm_H,
+                                        gs.max(axis=1, initial=0.0)))
+        c = _limit(c * _limit(gamma))
     return Scaling(D=D, E=E, c=c, Dinv=1.0 / D, Einv=1.0 / E, cinv=1.0 / c)

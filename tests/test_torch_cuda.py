@@ -1,6 +1,6 @@
 """Tests of the PyTorch port that need an NVIDIA GPU.
 
-Kernels K1, K2, K3, K4 and K6 are CUDA code with no CPU mode, so these
+Kernels K1 to K6 are CUDA code with no CPU mode, so these
 skip without a GPU. On the GPU machine (which has no JAX) run them without the
 JAX conftest:
 
@@ -17,7 +17,9 @@ from reluqp_tpu_torch.models import mpc
 from reluqp_tpu_torch.ops.fused_step import (fused_chunk,
                                              fused_chunk_batched,
                                              fused_chunk_batched_ref,
-                                             fused_chunk_ref,
+                                             fused_chunk_hetero,
+                                             fused_chunk_hetero_ref,
+                                             fused_chunk_ref, hetero_plan,
                                              pallas_chunk_runner)
 from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_batched,
@@ -32,8 +34,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K1, K2, K3, K4 and K6 are CUDA "
-                    "kernels with no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: K1 to K6 are CUDA kernels with "
+                    "no CPU mode")
     return torch.device("cuda")
 
 
@@ -393,3 +395,81 @@ def test_scenario_rollout_on_cuda_runs_k4_and_k6(dev):
     xl, _, _ = mpc.scenario_rollout_scan(g, prob, X0, 15, kernel="loop")
     assert fused_chunk_batched.launches > k4
     np.testing.assert_allclose(xl.cpu().numpy(), xc.numpy(), atol=1e-4)
+
+
+def _hetero_inputs(B, dp, dev, dtype, n_rho=4, seed=0):
+    """A (B, n_rho, Dp, Dp) bank of inner width d = Dp - 29 (inert lanes
+    beyond it), per-problem rows and random per-problem rungs."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=dtype)
+    d = dp - 29
+    wt = torch.zeros((B, n_rho, dp, dp), dtype=dtype, device=dev)
+    wt[..., :d, :d] = rnd(B, n_rho, d, d) * (0.7 / d ** 0.5)
+    b, y = torch.zeros((2, B, dp), dtype=dtype, device=dev)
+    b[:, :d], y[:, :d] = 0.1 * rnd(B, d), 0.5 * rnd(B, d)
+    lo = torch.full((B, dp), -float("inf"), dtype=dtype, device=dev)
+    hi = -lo
+    lo[:, 10:40], hi[:, 10:40] = -0.8, 0.8
+    rho = torch.randint(0, n_rho, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return wt, b, lo, hi, y, rho, d
+
+
+# K5 and its plain version sum each row in different orders (state-dtype
+# rounding only, as K4); Dp=256 spreads each problem's rung over a cluster
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dp,B", [(128, 9), (256, 5)])
+def test_k5_matches_plain_version(dev, dp, B, dtype):
+    wt, b, lo, hi, y, rho, d = _hetero_inputs(B, dp, dev, dtype, seed=dp)
+    tiers = ((("highest", 1e-5), ("high", 1e-5), ("bf16", 3e-2))
+             if dtype == torch.float32
+             else (("highest", 1e-12), ("high", 1e-5)))
+    assert (hetero_plan(dp, dtype)["cluster"] > 1) == (dp == 256)
+    for tier, tol in tiers:
+        bank = wt.to(torch.bfloat16) if tier == "bf16" else wt
+        before = fused_chunk_hetero.launches
+        out = fused_chunk_hetero(bank, b, lo, hi, y, rho, 25, tier)
+        assert fused_chunk_hetero.launches == before + 1
+        ref = fused_chunk_hetero_ref(bank, b, lo, hi, y, rho, 25, tier)
+        assert out.data_ptr() not in (y.data_ptr(), ref.data_ptr())
+        assert float((out - ref).abs().max()) <= tol, tier
+        assert not out[:, d:].any()
+
+
+def test_k5_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    wt, b, lo, hi, y, rho, _ = _hetero_inputs(3, 128, dev, torch.float32)
+    bad = [(wt, b, lo, hi, y, rho.long()),            # rung vector dtype
+           (wt[:2], b, lo, hi, y, rho),               # bank of another B
+           (wt, b, lo, hi, y.t().contiguous().t(), rho),   # not contiguous
+           (wt.double(), b, lo, hi, y, rho)]          # bank dtype
+    for args in bad:
+        with pytest.raises(ValueError):
+            fused_chunk_hetero(*args, 5)
+
+
+def _hetero_batch(B=6, nx=30, seed0=0):
+    insts = [rand_qp(nx, nx // 4, nx // 4, seed=seed0 + i, compute_sol=False)
+             for i in range(B)]
+    return tuple(np.stack([getattr(i, k) for i in insts])
+                 for k in ("H", "g", "A", "l", "u"))
+
+
+def test_hetero_solver_on_cuda_runs_k5(dev):
+    data = _hetero_batch()
+    m = rqt.BatchedReLU_QP()
+    m.setup(*data, eps_abs=1e-4)
+    assert m.settings.device.type == "cuda" and m._hetero_pallas
+    k1, k4, k5 = (fused_chunk.launches, fused_chunk_batched.launches,
+                  fused_chunk_hetero.launches)
+    res = m.solve()
+    assert fused_chunk_hetero.launches > k5
+    assert (fused_chunk.launches, fused_chunk_batched.launches) == (k1, k4)
+    assert res.info.status.all() and res.x.is_cuda
+    c = rqt.BatchedReLU_QP()
+    c.setup(*data, eps_abs=1e-6, precision="float64", device="cpu",
+            backend="xla")
+    rc = c.solve()
+    np.testing.assert_allclose(res.x.cpu().double().numpy(), rc.x.numpy(),
+                               atol=1e-3)
+    assert not m.Y[:, m.D:].any()
