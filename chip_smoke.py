@@ -71,7 +71,12 @@ Phases (each raises on failure; nothing is caught):
 15. hold kernel K6 (the batched whole-rollout kernel) against its plain
     torch version at Dp 128/640/896/1280 and B in {5, 64, 256}, fp64 and
     fp32: equal iterations, rung, status and unsolved rows per step,
-    trajectories within K6_TOL, padded lanes and rows exactly 0;
+    trajectories within K6_TOL, padded lanes and rows exactly 0; each
+    case's launch shape is logged (cluster size, rows per tile, tiles, the
+    rung's slab in shared memory or read from L2), every shape branch is
+    reached (16-block clusters with the slab in shared memory, a partial
+    last tile, the slab from L2) and a rung change reloads the slab; the
+    "high" tier and a bf16 bank once each, held the same way;
 16. the same rollout as phase 14 through ``kernel="scan"`` (one K6 launch)
     and ``kernel="auto"`` with ``check_interval="auto"`` (two), no other
     kernel, held against phase 14 and the CPU fp64 rollout;
@@ -79,8 +84,8 @@ Phases (each raises on failure; nothing is caught):
     plain version, 25 ``torch.addmm`` + clamp and the bound, the three
     again as device time read by the profiler, K4 on one row tile (one
     cluster) of 1 and of 8 rows and in the "high" and "bf16" tiers; K6 per
-    warm step beside its plain version and the bound; two-point steps/s of
-    the loop and scan paths; a profiler pass
+    warm step at B = 16, 64 and 256 beside its plain version and the bound;
+    two-point steps/s of the loop and scan paths; a profiler pass
     over each, and the loop path's synchronizing calls by source line;
 18. hold kernel K5 (the heterogeneous chunk kernel) against its plain
     torch version at B in {1, 7, 64} x Dp in {128, 256, 640, 896} and
@@ -1298,6 +1303,9 @@ SCEN_NOISE = 0.01
 # host-bound, a few ms per step)
 SCEN_LOOP_T, SCEN_SCAN_T = (5, 30), (20, 200)
 K6_TIMED_T = 200
+# the ensemble sizes K6 is timed at (benchmarks/scenario_mpc.py's), and
+# the steps that warm a fresh solver first
+K6_TIMED_B, K6_WARM_T = (16, 64, 256), 20
 
 
 def scenario_problem(nx=MPC_NX, nu=MPC_NU, horizon=MPC_H):
@@ -1374,15 +1382,17 @@ def k6_call(m, prob, B, noise, ci):
                                rows=B)
 
 
-def k6_compare(tag, args, kw, B, tol):
+def k6_compare(tag, args, kw, B, tol, solved=True):
     """K6 and its plain version on one call of B scenarios: equal per-step
     iterations, rung and status, trajectories within ``tol``, padded y
-    lanes and rows exactly 0. Returns the kernel's stats and the max
-    difference."""
+    lanes and rows exactly 0, and (``solved``) every step solved. Returns
+    the kernel's stats, the max difference and the kernel's slab loads (its
+    first block's)."""
     import torch
     from reluqp_tpu_torch.ops.solve_kernel import (full_rollout_batched,
                                                    full_rollout_batched_ref)
     out = full_rollout_batched(*args, **kw)
+    loads = int(full_rollout_batched.slab_loads)
     ref = full_rollout_batched_ref(*args, **kw)
     torch.cuda.synchronize()
     so, sr = out[2].cpu().numpy(), ref[2].cpu().numpy()
@@ -1390,7 +1400,8 @@ def k6_compare(tag, args, kw, B, tol):
     log(f"{tag}: {kw['n_steps']} steps, iters {int(so[:, 0].sum())} (plain "
         f"{int(sr[:, 0].sum())}), rungs "
         f"{sorted(set(so[:, 4].astype(int).tolist()))}, unsolved "
-        f"{int(so[:, 6].sum())}; max|kernel-plain| {err:.3e} (bound {tol:g})")
+        f"{int(so[:, 6].sum())}, slab loads {loads}; max|kernel-plain| "
+        f"{err:.3e} (bound {tol:g})")
     assert all(bool(torch.isfinite(o).all()) for o in out), tag
     d = kw["nx"] + 2 * kw["nc"]
     assert float(out[3][:, d:].abs().max()) == 0.0, f"{tag}: lanes not inert"
@@ -1401,16 +1412,20 @@ def k6_compare(tag, args, kw, B, tol):
     for lane in (0, 4, 5, 6):   # iterations, rung, status, unsolved rows
         assert (so[:, lane] == sr[:, lane]).all(), (tag, lane, so[:, lane],
                                                     sr[:, lane])
-    assert (so[:, 5] == 1).all(), f"{tag}: a step was not solved"
+    assert not solved or (so[:, 5] == 1).all(), f"{tag}: a step was not solved"
     assert err <= tol, (tag, err)
-    return so, err
+    return so, err, loads
 
 
 def phase_k6_check():
-    """K6 against full_rollout_batched_ref on the card; returns the max
+    """K6 against full_rollout_batched_ref on the card, logging the plan
+    each case takes; every branch of the plan is reached (a 16-block
+    cluster with the slab in shared memory, a partial last row tile, the
+    slab read from L2) and a rung change reloads the slab. Returns the max
     errors."""
     from reluqp_tpu_torch.ops.solve_kernel import rollout_batched_plan
-    errs, moved = {}, {}
+    errs, moved, plans = {}, {}, []
+    reloaded = False
     for name, nx, nu, horizon in K6_CASES:
         prob = scenario_problem(nx, nu, horizon)
         noise = K6_NOISE * np.random.RandomState(5).randn(
@@ -1419,16 +1434,51 @@ def phase_k6_check():
             m = scenario_solver(prob, max(K6_BATCHES), precision=precision)
             for B in K6_BATCHES:
                 args, kw = k6_call(m, prob, B, noise, K6_CI)
+                bp = args[11].shape[0]
                 plan = rollout_batched_plan(
-                    -(-max(B, 8) // 8) * 8, m.Dp, kw["nxp"], kw["ncp"],
-                    kw["nup"], kw["nplp"], m.settings.precision_dtype)
-                so, err = k6_compare(
-                    f"K6 {name} Dp={m.Dp} B={B} {precision} (plan {plan})",
-                    args, kw, B, K6_TOL[precision])
-                moved[name] = moved.get(name, False) or \
-                    len(set(so[:, 4].tolist())) > 1
+                    bp, m.Dp, kw["nxp"], kw["ncp"], kw["nup"], kw["nplp"],
+                    m.settings.precision_dtype)
+                so, err, loads = k6_compare(
+                    f"K6 {name} Dp={m.Dp} B={B} (Bp={bp}) {precision} (plan "
+                    f"{plan})", args, kw, B, K6_TOL[precision])
+                rungs = [int(args[15])] + so[:, 4].astype(int).tolist()
+                changes = sum(a != b for a, b in zip(rungs, rungs[1:]))
+                if plan["slab_in_smem"]:
+                    # one load at the start, and one more at least for
+                    # every rung change between steps
+                    assert loads >= 1 + changes, (name, B, loads, changes)
+                    reloaded = reloaded or loads > 1
+                else:
+                    assert loads == 0, (name, B, loads)
+                plans.append(dict(plan, bp=bp))
+                moved[name] = moved.get(name, False) or len(set(rungs)) > 1
                 errs[(m.Dp, B, precision)] = err
     assert all(moved.values()), f"the rung never moved: {moved}"
+    # the reduced iteration tiers once each: "high" on the fp32 bank, "bf16"
+    # on a bf16 bank (without refinement a bf16 iteration may stop short of
+    # eps, so its steps need not be solved: the lanes must still agree)
+    name, nx, nu, horizon = K6_CASES[0]
+    prob = scenario_problem(nx, nu, horizon)
+    noise = K6_NOISE * np.random.RandomState(5).randn(K6_T, K6_BATCHES[0],
+                                                       nx)
+    for tier in ("high", "bf16"):
+        m = scenario_solver(prob, K6_BATCHES[0], precision="float32",
+                            iter_precision=tier, refine=False)
+        args, kw = k6_call(m, prob, K6_BATCHES[0], noise, K6_CI)
+        errs[(m.Dp, K6_BATCHES[0], tier)] = k6_compare(
+            f"K6 {name} Dp={m.Dp} B={K6_BATCHES[0]} float32 {tier} tier "
+            f"({args[0].dtype} bank)", args, kw, K6_BATCHES[0],
+            K6_TOL["float32"], solved=tier != "bf16")[1]
+    branches = {
+        "16-block clusters, slab in shared memory": any(
+            p["cluster"] == 16 and p["slab_in_smem"] for p in plans),
+        "a partial last row tile": any(
+            p["bp"] % p["rows_per_tile"] for p in plans),
+        "slab read from L2": any(not p["slab_in_smem"] for p in plans),
+        "a slab reload on a rung change": reloaded}
+    log("phase 15 plan branches reached: " + "; ".join(
+        f"{k}: {v}" for k, v in branches.items()))
+    assert all(branches.values()), branches
     log("phase 15 OK: K6 matches its plain version at every Dp and B, fp64 "
         "and fp32")
     return errs
@@ -1632,21 +1682,89 @@ def k6_bound_ms(m, prob, kw, stats):
                                  else "operations"), t_bytes, t_ops, flops / T
 
 
+def k6_warm_timing(card, prob, B, m=None, x_start=None, y0=None,
+                   rho0=None):
+    """K6 alone per warm ensemble step at B scenarios of the scenario
+    configuration (Dp=640, fp32): launches of K6_TIMED_T undisturbed warm
+    steps from one warm state -- the given solver's (plant states
+    ``x_start``, solver states ``y0``, rung ``rho0``), else a fresh
+    solver's after a K6_WARM_T-step scan rollout under process noise --
+    timed by CUDA events (three launches after one to warm up; the least
+    is the row's time), beside the plain version (10 steps, host clock)
+    and the bound. Returns ``(row, the last launch's output, solver)``."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import (_scenario_scan_call,
+                                             scenario_rollout_scan)
+    from reluqp_tpu_torch.ops.solve_kernel import (full_rollout_batched,
+                                                   full_rollout_batched_ref,
+                                                   rollout_batched_plan)
+    if m is None:
+        m = scenario_solver(prob, B)
+        X0, noise = scenario_inputs(B, K6_WARM_T)
+        xs, _, _, _, y0, rho0 = scenario_rollout_scan(
+            m, prob, X0, K6_WARM_T, kernel="scan", noise=noise,
+            return_stats=True, return_state=True)
+        x_start = xs[-1]
+    if isinstance(x_start, torch.Tensor):
+        x_start = x_start.cpu().double().numpy()
+    T = K6_TIMED_T
+    args, kw = _scenario_scan_call(m, prob, x_start, T, Y0=y0,
+                                   rho_ind0=rho0)
+    Yk = args[11]
+    plan = rollout_batched_plan(Yk.shape[0], Yk.shape[1], kw["nxp"],
+                                kw["ncp"], kw["nup"], kw["nplp"], Yk.dtype)
+    full_rollout_batched(*args, **kw)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = full_rollout_batched(*args, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / T)
+    stats = out[2].cpu().numpy()
+    assert (stats[:, 5] == 1).all(), f"B={B}: a timed step was not solved"
+    T_p = 10
+    args_p, kw_p = _scenario_scan_call(m, prob, x_start, T_p, Y0=y0,
+                                       rho_ind0=rho0)
+    full_rollout_batched_ref(*args_p, **kw_p)   # warm up (cuBLAS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full_rollout_batched_ref(*args_p, **kw_p)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3 / T_p
+    bound, by, t_b, t_o, flops = k6_bound_ms(m, prob, kw, stats)
+    ms = min(times)
+    row = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, plan=plan,
+               launch_ms=ms * T)
+    log(f"phase 17 K6 alone B={B} ({T} warm steps per launch, ci="
+        f"{kw['check_interval']}, collective iters/step "
+        f"{stats[:, 0].mean():.3f}, rungs "
+        f"{sorted(set(stats[:, 4].astype(int).tolist()))}, plan {plan}): "
+        f"{ms * 1e3:.3f} us/step by CUDA events (launches: "
+        + ", ".join(f"{t * 1e3:.3f}" for t in times)
+        + f" us/step; {ms * T:.3f} ms per launch); plain version "
+        f"{plain:.3f} ms/step; bound {bound * 1e3:.4f} us/step ({by}: "
+        f"{t_b * 1e3:.4f} us bytes, {t_o * 1e3:.4f} us operations, "
+        f"{flops:.0f} flop/step at the operands' nonzeros), "
+        f"{ms / bound:.0f}x the bound, on {card}")
+    return row, out, m
+
+
 def phase_scenario_timing(card, loop, scan):
     """K4 per 25-step window on the main path's bank and state (CUDA
     events, then device time) beside its plain version, 25 ``torch.addmm``
     + clamp and the bound, and on one row tile of 1 and of 8 rows; K6 per warm
-    step beside its plain version and the bound; two-point steps/s of the
-    loop and scan paths; a profiler pass over each; the loop path's
-    synchronizing calls."""
+    step at B = 16, 64 and 256 beside its plain version and the bound
+    (``k6_warm_timing``); two-point steps/s of the loop and scan paths; a
+    profiler pass over each; the loop path's synchronizing calls."""
     import torch
-    from reluqp_tpu_torch.models.mpc import (_scenario_scan_call,
-                                             scenario_rollout_scan)
+    from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
     from reluqp_tpu_torch.ops.fused_step import (batched_plan,
                                                  fused_chunk_batched,
                                                  fused_chunk_batched_ref)
-    from reluqp_tpu_torch.ops.solve_kernel import (full_rollout_batched,
-                                                   full_rollout_batched_ref)
     m, prob = loop["m"], loop["prob"]
     rho = m.rho_ind.reshape(1).contiguous()
     k = int(rho)
@@ -1699,41 +1817,19 @@ def phase_scenario_timing(card, loop, scan):
                             iter_precision=tier)
         log(f"phase 17 K4 {tier} tier ({plan}): {t:.5f} ms per window")
 
-    # K6 alone: one launch of K6_TIMED_T warm steps continuing the scan
-    # rollout at the configured window, undisturbed
-    s = scan["m"]
-    x_last = scan["xs"][-1].cpu().double().numpy()
-    T = K6_TIMED_T
-    args, kw = _scenario_scan_call(s, prob, x_last, T, Y0=scan["y_f"],
-                                   rho_ind0=scan["rho_f"])
-    full_rollout_batched(*args, **kw)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    out = full_rollout_batched(*args, **kw)
-    e1.record()
-    torch.cuda.synchronize()
-    k6_ms = e0.elapsed_time(e1) / T
+    # K6 alone per warm step at B = 16, 64 and 256; at B = 64 continuing the
+    # scan rollout of phase 16
+    k6_rows = {}
+    for B in K6_TIMED_B:
+        if B == SCEN_B:
+            k6_rows[B], out, s = k6_warm_timing(
+                card, prob, B, scan["m"], scan["xs"][-1], scan["y_f"],
+                scan["rho_f"])
+        else:
+            k6_rows[B] = k6_warm_timing(card, prob, B)[0]
+    k6 = k6_rows[SCEN_B]
     stats = out[2].cpu().numpy()
-    assert (stats[:, 5] == 1).all(), "a timed step was not solved"
-    T_p = 10
-    args_p, kw_p = _scenario_scan_call(s, prob, x_last, T_p,
-                                       Y0=scan["y_f"],
-                                       rho_ind0=scan["rho_f"])
-    t0 = time.perf_counter()
-    full_rollout_batched_ref(*args_p, **kw_p)
-    torch.cuda.synchronize()
-    k6_plain = (time.perf_counter() - t0) * 1e3 / T_p
-    bound, by, t_b, t_o, flops = k6_bound_ms(s, prob, kw, stats)
-    k6 = dict(ms=k6_ms, plain_ms=k6_plain, bound_ms=bound, bound_by=by)
-    log(f"phase 17 K6 alone ({T} warm steps, B={SCEN_B}, ci="
-        f"{kw['check_interval']}, collective iters/step "
-        f"{stats[:, 0].mean():.3f}): {k6_ms * 1e3:.3f} us/step by CUDA "
-        f"events; plain version {k6_plain:.3f} ms/step; bound "
-        f"{bound * 1e3:.4f} us/step ({by}: {t_b * 1e3:.4f} us bytes, "
-        f"{t_o * 1e3:.4f} us operations, {flops:.0f} flop/step at the "
-        f"operands' nonzeros), {k6_ms / bound:.0f}x the bound, on {card}")
+    T = K6_TIMED_T
 
     # two-point steps/s, a fresh X0 every call
     X0 = scenario_inputs(SCEN_B)[0]
@@ -1771,7 +1867,7 @@ def phase_scenario_timing(card, loop, scan):
                      out[0][-1, :SCEN_B, :MPC_NX].cpu().double().numpy(),
                      T, "scan", ci)
     log("phase 17 OK")
-    return dict(k4=k4, k6=k6, rates=rates)
+    return dict(k4=k4, k6=k6, k6_rows=k6_rows, rates=rates)
 
 
 # ---------------------------------------------------------------------- #
@@ -2171,6 +2267,7 @@ def main():
     t = timing[640]
     k3_row = k3["rows"][100]
     k4, k6 = scen["k4"], scen["k6"]
+    k6_plan = k6["plan"]
     kernels = [{
         "name": "K1 fused_chunk (Dp=640, R=1, 25 steps, fp32 highest)",
         "route": "cuda",
@@ -2221,7 +2318,10 @@ def main():
         # a rollout
         "name": f"K6 full_rollout_batched (scenario MPC, B={SCEN_B}, 100-state "
                 f"h10, Dp=640, fp32, per warm control step at "
-                f"ci={SCEN_KW['check_interval']})",
+                f"ci={SCEN_KW['check_interval']}; {k6_plan['tiles']} clusters "
+                f"of {k6_plan['cluster']} blocks, {k6_plan['rows_per_tile']}-row "
+                f"tiles, slab in "
+                + ("shared memory" if k6_plan["slab_in_smem"] else "L2") + ")",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/rollout_batched.cu",
         "replaces": "reluqp_tpu/ops/solve_kernel.py:1265",

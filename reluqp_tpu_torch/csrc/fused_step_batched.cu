@@ -28,7 +28,8 @@
 //     block's (rb, cw) piece, stores it 16 bytes at a time into every block
 //     of the cluster (distributed shared memory), and one cluster barrier
 //     ends it. So the rung is read from L2 once per window, not once per
-//     iteration per row tile.
+//     iteration per row tile. The slab load and the stores into the peers
+//     are csrc/cluster_slab.cuh's, shared with K6.
 //   * Inside a block the contraction is split: `ks` groups of threads each
 //     sum a contiguous stretch of the Dp inputs for every (row, column) of
 //     the piece into register accumulators, 8 rows at a time; the epilogue
@@ -59,7 +60,7 @@
 #include <mutex>
 #include <tuple>
 
-#include "tiers.cuh"
+#include "cluster_slab.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -79,35 +80,9 @@ constexpr int kSmemReserve = 1024;
 // Cluster sizes tried, largest first (16 is beyond the portable 8).
 constexpr int kClusters[] = {16, 8, 4, 2, 1};
 
-// Elements in 16 bytes: 4 floats, 2 doubles or 8 bf16.
-template <typename T> struct Vec16 { static constexpr int n = 16 / sizeof(T); };
-
 template <int TIER> struct NAcc { static constexpr int n = TIER == TIER_HIGH ? 3 : 1; };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
-// The row stride of the transposed slab in shared memory: Dp plus 16 bytes,
-// so that the 16-byte reads of neighbouring columns fall in distinct banks.
-template <typename WT> __host__ __device__ inline int slab_stride(int dp) {
-  return dp + Vec16<WT>::n;
-}
-
-__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store16(double* p, const double (&v)[2]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-}
-
-// n consecutive operand entries (n = 16 bytes of the state type) from
-// shared memory: 16 bytes of fp32/fp64, 8 bytes of bf16.
-__device__ __forceinline__ void loadw(const float* p, float (&v)[4]) { load16(p, v); }
-__device__ __forceinline__ void loadw(const double* p, double (&v)[2]) { load16(p, v); }
-__device__ __forceinline__ void loadw(const __nv_bfloat16* p, __nv_bfloat16 (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&q);
-  v[0] = e[0], v[1] = e[1], v[2] = e[2], v[3] = e[3];
-}
 
 // Copies n 16-byte groups from global to shared memory (both 16-byte
 // aligned), kCopyAhead loads in flight per thread.
@@ -249,29 +224,8 @@ k4_kernel(const WT* __restrict__ wt_bank, int n_rho, const T* __restrict__ b,
   const WT* ws = w;
   int wst = dp;
   if (WSMEM) {
-    constexpr int VW = Vec16<WT>::n;
     wst = slab_stride<WT>(dp);
-    const int cv = cw / VW;   // the plan takes cw a multiple of VW
-    const int nvec = dp * cv;
-    for (int t0 = tid; t0 < nvec; t0 += kCopyAhead * kThreads) {
-      uint4 v[kCopyAhead];
-#pragma unroll
-      for (int u = 0; u < kCopyAhead; ++u) {
-        const int t = t0 + u * kThreads;
-        if (t < nvec)
-          v[u] = *reinterpret_cast<const uint4*>(w + (size_t)(t / cv) * dp + (t % cv) * VW);
-      }
-#pragma unroll
-      for (int u = 0; u < kCopyAhead; ++u) {
-        const int t = t0 + u * kThreads;
-        if (t < nvec) {
-          const int i = t / cv, j0 = (t % cv) * VW;
-          const WT* e = reinterpret_cast<const WT*>(&v[u]);
-#pragma unroll
-          for (int q = 0; q < VW; ++q) wslab[(size_t)(j0 + q) * wst + i] = e[q];
-        }
-      }
-    }
+    load_slab(wslab, w, dp, cw);   // the plan takes cw a multiple of 16 bytes of WT
     ws = wslab;
   }
   // every block of the cluster has started (and loaded) before any block
@@ -346,7 +300,7 @@ k4_kernel(const WT* __restrict__ wt_bank, int n_rho, const T* __restrict__ b,
         out[q] = v;
       }
       const size_t yi = (size_t)r * dp + c * cw + (o4 % cwv) * V;
-      for (int q = 0; q < C; ++q) store16(cluster.map_shared_rank(nxt, q) + yi, out);
+      push16(cluster, nxt, yi, out);
     }
     // every piece has landed everywhere (and every read of cur and of the
     // partial sums is done) before the next iteration

@@ -35,9 +35,11 @@ iteration, residual, selector, certificate, control, plant) is rounded to
 fp32, as the TPU kernels' fp32-result dots are, and then cast to the state
 dtype (a no-op in fp32). K2 sums each product in the state dtype; K3 sums
 in fp64 in the fixed order of ``_lane_dot``, which its kernel follows, so
-the two agree bit for bit; K6 sums in fp64 in its own order and its plain
-version in another (``_dot64``), so the two agree but where a product lies
-within fp64 rounding of an fp32 tie. The residual maxima, the ρ estimate, the ladder
+the two agree bit for bit; K6 sums in fp64 in input order, and its plain
+version through cuBLAS (``_dot64``), which sums in that order too at the
+widths measured (Dp <= 640 on the H100), so there the two agree bit for
+bit, elsewhere but where a product lies within fp64 rounding of an fp32
+tie. The residual maxima, the ρ estimate, the ladder
 ``rhos`` and the tolerances are fp32 in an fp64 run too.
 """
 from __future__ import annotations
@@ -1176,7 +1178,7 @@ class _K6Params(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "wt", "bias_c", "m_aff", "rhos", "m_res", "g0w", "gl", "lo0", "hi0",
         "s_u", "bdw", "y0", "x0", "pad", "noise", "xs", "us", "stats", "y_f",
-        "exch")]
+        "exch", "loads")]
         + [(n, ctypes.c_int) for n in (
             "w_dtype", "y_dtype", "n_rho", "dp", "nxp", "ncp", "nup", "nplp",
             "bp", "n_steps", "max_iter", "ci", "rho0", "adaptive", "jump",
@@ -1187,6 +1189,8 @@ class _K6Params(ctypes.Structure):
 
 # doubles per row of K6's cross-block exchange array
 _K6_EXCH_COLS = 6
+# K6 takes widths (Dp, nup, nplp) in multiples of this (kWidthStep)
+_K6_WIDTH_STEP = 16
 
 
 def _k6_lib():
@@ -1197,7 +1201,7 @@ def _k6_lib():
         lib.k6_full_rollout_batched.argtypes = [ctypes.POINTER(_K6Params),
                                                 ctypes.c_void_p]
         lib.k6_full_rollout_batched.restype = i
-        lib.k6_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
+        lib.k6_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)]
         lib.k6_plan.restype = i
         lib.k6_error_string.argtypes = [i]
         lib.k6_error_string.restype = ctypes.c_char_p
@@ -1210,18 +1214,29 @@ def _k6_raise(lib, code: int, what: str):
     raise RuntimeError(f"K6 {what} failed: CUDA error {code} ({msg})")
 
 
+# the fields of k6_plan's report, in its order
+_K6_PLAN_KEYS = ("blocks", "threads", "cluster", "column_width",
+                 "rows_per_tile", "tiles", "smem_bytes", "slab_in_smem",
+                 "max_clusters")
+
+
 def rollout_batched_plan(bp: int, dp: int, nxp: int, ncp: int, nup: int,
                          nplp: int, dtype=torch.float32) -> dict:
-    """The launch shape of K6 on the current GPU: blocks, state rows per
-    block and dynamic shared memory."""
+    """The launch shape of K6 on the current GPU: blocks of ``threads``,
+    ``tiles`` thread-block clusters of ``cluster`` blocks, each block a
+    ``column_width`` slab of the rung's columns for ``rows_per_tile``
+    scenario rows, the dynamic shared memory, whether the slab is held in
+    shared memory (else read from L2), and how many such clusters the card
+    holds at once. Raises where no shape puts every tile in one wave."""
     lib = _k6_lib()
-    vals = [ctypes.c_int() for _ in range(3)]
+    out = (ctypes.c_int * len(_K6_PLAN_KEYS))()
     rc = lib.k6_plan(bp, dp, nxp, ncp, nup, nplp, _DTYPE_CODE[dtype],
-                     _DTYPE_CODE[dtype], *[ctypes.byref(v) for v in vals])
+                     _DTYPE_CODE[dtype], out)
     if rc != 0:
         _k6_raise(lib, rc, "plan")
-    return dict(zip(("blocks", "rows_per_block", "smem_bytes"),
-                    (v.value for v in vals)))
+    plan = dict(zip(_K6_PLAN_KEYS, out))
+    plan["slab_in_smem"] = bool(plan["slab_in_smem"])
+    return plan
 
 
 def _check_batched_operands(ops: dict, *, nxp, ncp, nup, nplp, n_steps):
@@ -1246,6 +1261,24 @@ def _check_batched_operands(ops: dict, *, nxp, ncp, nup, nplp, n_steps):
         if got != shape:
             raise ValueError(f"K6: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
+    dt = ops["Y0"].dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"K6: state dtype {dt} is not float32/float64")
+    f32 = torch.float32
+    for name, t in ops.items():
+        if name == "Wt_bank":
+            ok = t.dtype == dt or (t.dtype == torch.bfloat16 and dt == f32)
+        else:
+            ok = name in ("rhos", "pad_mask") or t.dtype == dt
+        if not ok:
+            raise ValueError(f"K6: {name} dtype {t.dtype} does not go with "
+                             f"state dtype {dt}")
+    # the kernel's products take whole steps of 8 inputs, its loads whole
+    # 16-byte groups
+    for name, n in (("Dp", dp), ("nup", nup), ("nplp", nplp)):
+        if n % _K6_WIDTH_STEP:
+            raise ValueError(f"K6: {name}={n} is not a multiple of "
+                             f"{_K6_WIDTH_STEP}")
     return n_rho, dp, bp
 
 
@@ -1257,8 +1290,6 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
                                iter_precision):
     Y0 = ops["Y0"]
     dev, dt = Y0.device, Y0.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise ValueError(f"K6: state dtype {dt} is not float32/float64")
     f32 = torch.float32
     ops = dict(ops, rhos=ops["rhos"].to(f32).contiguous(),
                pad_mask=ops["pad_mask"].to(f32).contiguous())
@@ -1267,13 +1298,6 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
             raise ValueError(f"K6: {name} must be a tensor on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"K6: {name} must be contiguous")
-        if name == "Wt_bank":
-            ok = t.dtype == dt or (t.dtype == torch.bfloat16 and dt == f32)
-        else:
-            ok = t.dtype == (f32 if name in ("rhos", "pad_mask") else dt)
-        if not ok:
-            raise ValueError(f"K6: {name} dtype {t.dtype} does not go with "
-                             f"state dtype {dt}")
     xs = torch.empty((n_steps, bp, nplp), dtype=dt, device=dev)
     us = torch.empty((n_steps, bp, nup), dtype=dt, device=dev)
     stats = torch.empty((n_steps, 8), dtype=f32, device=dev)
@@ -1282,6 +1306,7 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
     y_f = torch.empty((bp, dp), dtype=dt, device=dev)
     exch = torch.empty((2, bp, _K6_EXCH_COLS), dtype=torch.float64,
                        device=dev)
+    loads = torch.zeros((1,), dtype=torch.int32, device=dev)
     c = _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
                         rho_max)
     ptr = lambda name: ops[name].data_ptr()
@@ -1292,6 +1317,7 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
         bdw=ptr("Bdw"), y0=ptr("Y0"), x0=ptr("X0"), pad=ptr("pad_mask"),
         noise=ptr("noise"), xs=xs.data_ptr(), us=us.data_ptr(),
         stats=stats.data_ptr(), y_f=y_f.data_ptr(), exch=exch.data_ptr(),
+        loads=loads.data_ptr(),
         w_dtype=_DTYPE_CODE[ops["Wt_bank"].dtype], y_dtype=_DTYPE_CODE[dt],
         n_rho=n_rho, dp=dp, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp, bp=bp,
         n_steps=n_steps, max_iter=max_iter, ci=check_interval, rho0=rho_ind0,
@@ -1304,6 +1330,7 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
     if rc != 0:
         _k6_raise(lib, rc, "launch")
     full_rollout_batched.launches += 1
+    full_rollout_batched.slab_loads = loads
     return xs, us, stats, y_f
 
 
@@ -1356,3 +1383,6 @@ def full_rollout_batched(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op,
 
 
 full_rollout_batched.launches = 0
+# the last launch's count of rung slab loads by the kernel's first block
+# (a device int32 tensor: 0 where the slab is read from L2)
+full_rollout_batched.slab_loads = None

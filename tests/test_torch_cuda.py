@@ -25,7 +25,8 @@ from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_batched,
                                                full_rollout_batched_ref,
                                                full_rollout_ref, full_solve,
-                                               full_solve_ref)
+                                               full_solve_ref,
+                                               rollout_batched_plan)
 from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp, update_qp
 
 pytestmark = pytest.mark.cuda
@@ -360,7 +361,7 @@ def _scenario(system, device, precision, B):
 # per step, trajectories within a few fp32 ulps.
 @pytest.mark.parametrize("precision", ["float64", "float32"])
 @pytest.mark.parametrize("system,B", [("double_integrator", 5),
-                                      ("random", 24)])
+                                      ("random", 24), ("random", 70)])
 def test_k6_matches_plain_version(dev, system, B, precision):
     m, prob, X0, rng = _scenario(system, dev, precision, B)
     T = 12
@@ -377,6 +378,17 @@ def test_k6_matches_plain_version(dev, system, B, precision):
     for a, b in zip(out[:2], ref[:2]):
         assert float((a - b).abs().max()) <= 1e-5
     assert not out[3][B:].any() and not out[3][:, m.D:].any()
+
+
+def test_k6_plan_puts_every_tile_in_one_wave(dev):
+    """At the scenario main path's shape (B=64, Dp=640, fp32) K6 runs on
+    16-block clusters with the rung's column slab in shared memory, every
+    tile's cluster in one wave."""
+    plan = rollout_batched_plan(64, 640, 256, 256, 128, 128)
+    assert plan["cluster"] == 16 and plan["slab_in_smem"], plan
+    assert plan["tiles"] * plan["rows_per_tile"] >= 64, plan
+    assert plan["tiles"] <= plan["max_clusters"], plan
+    assert plan["blocks"] == plan["cluster"] * plan["tiles"], plan
 
 
 def test_scenario_rollout_on_cuda_runs_k4_and_k6(dev):

@@ -253,20 +253,13 @@ def test_auto_window_matches_jax():
 # operand level: full_rollout_batched_ref against the JAX kernel        #
 # --------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("tiled", [False, True])
-@pytest.mark.parametrize("rho_jump", [False, True])
-def test_full_rollout_batched_ref_matches_jax_kernel(monkeypatch, tiled,
-                                                     rho_jump):
-    """K6's plain version against JAX ``full_rollout_batched`` on the same
-    numpy operands (the port's ``_scenario_scan_call``), cold, 0.3·randn
-    noise, B=5 in Bp=8 rows: every stats lane (iterations, max residuals,
-    real rows, rung, min status, unsolved rows) and the trajectories.
-    ``tiled`` forces JAX's contraction-tiled dots onto Dp=128 with 48-wide
-    tiles, a PARTIAL final tile (48+48+32, F-w1): JAX then rounds every
-    tile's partial sum to fp32, where the port rounds each product once, so
-    the two differ by fp32 roundings (~1e-7 relative) instead of fp64 ones;
-    a dropped tile would miss by O(1)."""
-    B, T_, ci = 5, 12, 5
+def _k6_against_jax(monkeypatch, B, T_, tiled=False, rho_jump=False):
+    """K6's plain version and JAX ``full_rollout_batched`` (interpret mode)
+    on the same numpy operands (the port's ``_scenario_scan_call``), cold,
+    0.3·randn noise, B scenarios in Bp = B rounded up to 8 rows: every stats
+    lane (iterations, max residuals, real rows, rung, min status, unsolved
+    rows), the trajectories, and the padding rows and lanes exactly 0."""
+    ci = 5
     _, _, t, tp = _pair(B, eps_abs=1e-5, rho_jump=rho_jump)
     args, kw = TM._scenario_scan_call(
         t, tp, _x0(B), T_, ci=ci, Y0=torch.zeros_like(t.Y),
@@ -296,6 +289,74 @@ def test_full_rollout_batched_ref_matches_jax_kernel(monkeypatch, tiled,
     # the padding rows and lanes stay exactly 0
     assert not to[3][B:].any() and not to[3][:, t.D:].any()
     assert not to[0][:, B:].any()
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("rho_jump", [False, True])
+def test_full_rollout_batched_ref_matches_jax_kernel(monkeypatch, tiled,
+                                                     rho_jump):
+    """K6's plain version against JAX ``full_rollout_batched`` at B=5 in
+    Bp=8 rows, 12 steps (``_k6_against_jax``). ``tiled`` forces JAX's
+    contraction-tiled dots onto Dp=128 with 48-wide tiles, a PARTIAL final
+    tile (48+48+32, F-w1): JAX then rounds every tile's partial sum to fp32,
+    where the port rounds each product once, so the two differ by fp32
+    roundings (~1e-7 relative) instead of fp64 ones; a dropped tile would
+    miss by O(1)."""
+    _k6_against_jax(monkeypatch, 5, 12, tiled, rho_jump)
+
+
+@pytest.mark.parametrize("B", [13, 21])
+def test_full_rollout_batched_ref_matches_jax_kernel_uneven_rows(monkeypatch,
+                                                                 B):
+    """The same at ensembles that the CUDA kernel's row tiles split
+    unevenly (B=13 in Bp=16 rows, B=21 in Bp=24: on the card a tile of 2-4
+    rows per cluster leaves a partial last tile and padding rows beside
+    real ones): the row-order ρ decision over more rows (equal rung and
+    stats lanes) and the padding exactly 0."""
+    _k6_against_jax(monkeypatch, B, 8)
+
+
+def _widen(args, kw, extra):
+    """K6's operands with ``extra`` more zero lanes of y (Dp + extra)."""
+    Wt, bias_c, M_aff, rhos, M_res, g0w, GL, lo0, hi0, S_u, Bdw, Y0 = args[:12]
+    pad = lambda t, dim: torch.cat(
+        [t, torch.zeros(t.shape[:dim] + (extra,) + t.shape[dim + 1:],
+                        dtype=t.dtype)], dim)
+    at = kw["nxp"] + Wt.shape[1]   # the y columns of GL end here
+    GL = torch.cat([GL[:, :at], torch.zeros((GL.shape[0], extra),
+                                            dtype=GL.dtype), GL[:, at:]], 1)
+    return [pad(pad(Wt, 1), 2), pad(bias_c, 1), pad(M_aff, 2), rhos,
+            pad(M_res, 0), g0w, GL, pad(lo0, lo0.dim() - 1),
+            pad(hi0, hi0.dim() - 1), pad(S_u, 0),
+            Bdw, pad(Y0, 1)] + list(args[12:])
+
+
+@pytest.mark.parametrize("case", ["bf16_bank_fp64_state", "float16_state",
+                                  "odd_width"])
+def test_full_rollout_batched_refuses_what_the_kernel_does_not_take(case):
+    """On the CPU too (where the plain version would compute it), the
+    wrapper refuses what the CUDA kernel does not take: a bf16 bank under
+    fp64 states, a state dtype other than fp32/fp64, and a width Dp that is
+    not a multiple of 16 (the kernel's products take whole steps of 8
+    inputs and its loads whole 16-byte groups)."""
+    B = 3
+    _, _, t, tp = _pair(B)
+    args, kw = TM._scenario_scan_call(t, tp, _x0(B), 2, ci=25)
+    assert args[11].dtype == torch.float64
+    # the operands as they are pass the check
+    TSK.full_rollout_batched(*args, **kw)
+    if case == "bf16_bank_fp64_state":
+        bad, match = [args[0].to(torch.bfloat16)] + list(args[1:]), "Wt_bank"
+    elif case == "float16_state":
+        bad = [a.to(torch.float16) if isinstance(a, torch.Tensor)
+               and a.is_floating_point() else a for a in args]
+        match = "not float32/float64"
+    else:
+        bad, match = _widen(args, kw, 8), "Dp=136"
+        # 16 more zero lanes pass the check (Dp=144)
+        TSK.full_rollout_batched(*_widen(args, kw, 16), **kw)
+    with pytest.raises(ValueError, match=match):
+        TSK.full_rollout_batched(*bad, **kw)
 
 
 def test_full_rollout_batched_checks_its_operands():
