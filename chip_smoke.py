@@ -30,7 +30,9 @@ Phases (each raises on failure; nothing is caught):
    fp64): equal iterations, status and rung per step, in fp64 with
    trajectories within a few fp32 ulps, in fp32 with every step solved and
    trajectories within 1e-5; padded lanes exactly 0; the rung moves; the
-   "high" and "bf16" iteration tiers once each, held the same way;
+   "high" and "bf16" iteration tiers once each, held the same way; each
+   case's launch shape is logged, and one case streams its operands from
+   L2;
 8. the main path of this slice: the same 200-step rollout as phase 6
    through ``kernel="scan"`` and then ``kernel="auto"``, each in exactly
    two K2 launches (calibration segment + continuation) and no K1 launch,
@@ -38,7 +40,9 @@ Phases (each raises on failure; nothing is caught):
 9. K2 timing: control steps per second by the two-point protocol of the
    root ``bench.py`` (T=100 and T=4000, min of 5, a fresh x0 each time),
    the kernel's time per step by CUDA events beside the plain version and
-   the bound, and a ``torch.profiler`` pass over a 1000-step rollout;
+   the bound (with ``--parent``, beside the parent's K2 before and after,
+   and whether the two give the same bits), and a ``torch.profiler`` pass
+   over a 1000-step rollout;
 10. hold kernel K3 (the whole-solve kernel) against its plain torch
     version on the card, cold solves: ``rand_qp`` at Dp 128, 256, 640,
     768, 896, 1024 and 1280 (slabs read from L2 in fp64) in fp64 and fp32,
@@ -56,7 +60,8 @@ Phases (each raises on failure; nothing is caught):
     or K2 launch, its first 20 steps against phase 6's CPU fp64 rollout;
 12. K3 timing: per solve at the protocol's sizes by CUDA events, beside
     the loop path's ``solve()`` on the same instance, the plain version
-    and the bound; the fused rollout's steps/s by the two-point protocol
+    and the bound (with ``--parent``, beside the parent's K3 before and
+    after); the fused rollout's steps/s by the two-point protocol
     beside the scan and loop paths; a profiler pass over 200 fused steps;
 13. hold kernel K4 (the batched chunk kernel) against its plain torch
     version at B in {1, 8, 64, 256} x Dp in {128, 640, 896}, every tier,
@@ -88,9 +93,10 @@ Phases (each raises on failure; nothing is caught):
     two-point steps/s of the loop and scan paths; a profiler pass
     over each, and the loop path's synchronizing calls by source line;
 18. hold kernel K5 (the heterogeneous chunk kernel) against its plain
-    torch version at B in {1, 7, 64} x Dp in {128, 256, 640, 896} and
-    B = 1024 at Dp = 128, per-problem rungs drawn at random over 18, every
-    tier, fp32 and fp64, padded lanes exactly 0;
+    torch version at B in {1, 7, 64} x Dp in {128, 256, 640, 896}, and
+    B = 1024 and B = 16 (the LTV ensemble's) at Dp = 128, per-problem
+    rungs drawn at random over 18, every tier, fp32 and fp64, padded lanes
+    exactly 0, each shape's launch plan logged;
 19. the main path of slice 5 through K5: ``BatchedReLU_QP`` set up on the
     card for ``benchmarks/batched_qps.py --hetero``'s batch (B = 1024
     distinct ``rand_qp(50, 12, 12, seed=i)``, fp32, eps 1e-3), one
@@ -101,9 +107,17 @@ Phases (each raises on failure; nothing is caught):
 20. K5 per 25-step window at B = 1024, Dp = 128 and B = 256, Dp = 256 by
     CUDA events and device time beside its plain version, 25
     ``torch.baddbmm`` + clamp and the bound, K5 on the main path's bank,
-    solves/s by a two-point fit, a profiler pass over one solve and its
-    synchronizing calls, and the batch's setup with the bank build on one
-    thread per core.
+    K5 on the LTV ensemble's own windows (phase 19's banks, rungs and
+    states, B = 16, Dp = 128, fp32 and fp64: least of 20 launches, and 20
+    launches in one CUDA graph, whose replay holds no host time) beside
+    the bound (with ``--parent``, the parent's K5 before and after at
+    B = 1024 and on the LTV windows), solves/s by a two-point fit, and a
+    profiler pass over one solve and its synchronizing calls.
+
+``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
+the K2, K3 and K5 of another checkout at DIR (the parent commit, unpacked by
+``git archive`` into a directory that ``.gitignore`` lists) on the same
+inputs, built from DIR's own sources into DIR's own build directory.
 
 Every kernel launch counter is set to 0 just before each main-path phase
 (4, 5, 6, 8, 11, 14, 16, 19) and read just after; a main-path phase that
@@ -170,7 +184,32 @@ def kernel_inputs(dp, rows, dtype, gen, device):
     return wt, b, lo, hi, y, d
 
 
-def phase_build():
+# ``--parent DIR``: the root of another checkout (an unpacked ``git
+# archive`` of the parent commit, say) whose K2, K3 and K5 phases 9, 12 and
+# 20 time beside this checkout's, in turns, on the same inputs. Its package is
+# imported under PARENT_PKG and builds its kernels into its own _build/.
+PARENT_PKG = "_parent_reluqp_tpu_torch"
+PARENT_KERNELS = ("solve_kernel", "full_solve", "fused_step_hetero")
+
+
+def parent_module(parent, name):
+    """Module ``name`` (e.g. ``"ops.solve_kernel"``) of the package of the
+    checkout at ``parent``."""
+    import importlib
+    import importlib.util
+    if PARENT_PKG not in sys.modules:
+        root = os.path.join(parent, "reluqp_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            PARENT_PKG, os.path.join(root, "__init__.py"),
+            submodule_search_locations=[root])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[PARENT_PKG] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module(f"{PARENT_PKG}.{name}")
+
+
+def phase_build(parent=None):
+    import threading
     import torch
     from reluqp_tpu_torch.ops import cuda_build
     log("card:", card_line())
@@ -178,7 +217,15 @@ def phase_build():
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}"
         f"  count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    parent_build = None
+    if parent:
+        parent_build = threading.Thread(target=parent_module(
+            parent, "ops.cuda_build").build_all, args=(PARENT_KERNELS,))
+        parent_build.start()
     built = cuda_build.build_all()
+    if parent_build:
+        parent_build.join()
+        log(f"built the parent's {', '.join(PARENT_KERNELS)} from {parent}")
     secs = time.perf_counter() - t0
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -246,6 +293,52 @@ def phase_kernel_check():
         log(f"K1 Dp=640 rows={rows} {dtype}: max|kernel-plain| {err:.2e}")
     log("phase 2 OK: K1 matches its plain version on every shape and tier")
     return errs
+
+
+def least_ms(fn, reps):
+    """The least time of one ``fn()`` over ``reps`` calls, each between its
+    own pair of CUDA events, after one warm-up call."""
+    import torch
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+    return best
+
+
+def graph_ms(fn, reps):
+    """The time of one ``fn()`` in ms with no host time between launches:
+    ``reps`` calls captured in one CUDA graph, replayed between CUDA events,
+    least of three replays, after a warm-up call outside the capture."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    best = float("inf")
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / reps)
+    return best
 
 
 def _time_ms(fn, reps):
@@ -664,8 +757,8 @@ def phase_k2_check():
             args, kw = k2_call(ctrl, x0, noise, K2_CI)
             dp = ctrl.solver.Dp
             plan = rollout_plan(dp, kw["nxp"], kw["ncp"], kw["nup"],
-                                kw["nplp"], ctrl.solver.settings
-                                .precision_dtype)
+                                kw["nplp"], args[0].shape[0],
+                                ctrl.solver.settings.precision_dtype)
             streamed |= not plan["resident"]
             log(f"K2 {name} Dp={dp} {precision}: plan {plan}")
             fp64 = precision == "float64"
@@ -774,7 +867,7 @@ def k2_bound_ms(ctrl, args, kw, stats):
                                  else "operations"), t_bytes, t_ops, flops / T
 
 
-def phase_scan_timing(card, scan, loop_rate):
+def phase_scan_timing(card, scan, loop_rate, parent=None):
     """K2 on the main path's configuration: steps/s by bench.py's
     two-point protocol, kernel time per step by CUDA events, the plain
     version and the bound, and a profiler pass."""
@@ -782,7 +875,8 @@ def phase_scan_timing(card, scan, loop_rate):
     from reluqp_tpu_torch.models.mpc import auto_check_interval, \
         mpc_rollout_scan
     from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
-                                                   full_rollout_ref)
+                                                   full_rollout_ref,
+                                                   rollout_plan)
     ctrl = scan["ctrl"]
     _, _, _, _, x0 = mpc_config()
     rng = np.random.RandomState(7)
@@ -814,15 +908,29 @@ def phase_scan_timing(card, scan, loop_rate):
     xl = scan["xs"][-1].cpu().double().numpy()
     args, kw = k2_call(ctrl, xl, np.zeros((T, MPC_NX)), ci, y0=scan["y_f"],
                        rho0=scan["rho_f"])
-    full_rollout(*args, **kw)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    out = full_rollout(*args, **kw)
-    e1.record()
-    torch.cuda.synchronize()
-    ms = e0.elapsed_time(e1) / T
+
+    def per_step_ms(rollout):
+        rollout(*args, **kw)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = rollout(*args, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / T, out
+
+    if parent:
+        old = parent_module(parent, "ops.solve_kernel").full_rollout
+        before, ref = per_step_ms(old)
+    ms, out = per_step_ms(full_rollout)
+    if parent:
+        after, _ = per_step_ms(old)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(out, ref))
+        log(f"phase 9 K2 A/B ({T} warm steps, ci={ci}): parent "
+            f"{before * 1e3:.3f} us/step, this tree {ms * 1e3:.3f} us/step, "
+            f"parent again {after * 1e3:.3f} us/step; outputs bit-equal to "
+            f"the parent's: {same}, on {card}")
     stats = out[2].cpu().numpy()
     assert (stats[:, 5] == 1).all(), "a timed step was not solved"
     T_p = 50
@@ -843,8 +951,10 @@ def phase_scan_timing(card, scan, loop_rate):
     ctrl.solver.y, ctrl.solver.rho_ind = scan["y_f"], scan["rho_f"]
     profile_steps("phase 9", ctrl, scan["xs"][-1], T, kernel="scan", ci=ci)
     log("phase 9 OK")
+    plan = rollout_plan(args[0].shape[1], kw["nxp"], kw["ncp"], kw["nup"],
+                        kw["nplp"], args[0].shape[0], args[0].dtype)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                ci=ci, step_s=step_s)
+                ci=ci, step_s=step_s, plan=plan)
 
 
 # ---------------------------------------------------------------------- #
@@ -1134,7 +1244,7 @@ def k3_bound_ms(op, kw, stats):
                                  else "operations"), t_bytes, t_ops, flops
 
 
-def phase_k3_timing(card, fused, loop_rate, scan_step_s):
+def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
     """K3 per solve at the protocol's sizes by CUDA events, beside the loop
     path's solve() on the same instance, the plain version and the bound;
     the fused MPC rollout's steps/s by bench.py's two-point protocol."""
@@ -1153,7 +1263,15 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s):
         rho0 = m.rho_ind
         stats = full_solve(op, y0, rho0, **kw)[1].cpu().numpy()
         assert stats[5] == 1, (nx, stats)
+        if parent:
+            old = parent_module(parent, "ops.solve_kernel").full_solve
+            before = _time_ms(lambda: old(op, y0, rho0, **kw), 20)
         ms = _time_ms(lambda: full_solve(op, y0, rho0, **kw), 20)
+        if parent:
+            after = _time_ms(lambda: old(op, y0, rho0, **kw), 20)
+            log(f"phase 12 K3 A/B nx={nx}: parent {before:.5f} ms, this "
+                f"tree {ms:.5f} ms, parent again {after:.5f} ms per solve, "
+                f"on {card}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         full_solve_ref(op, y0, rho0, **kw)
@@ -1893,6 +2011,8 @@ LTV_B, LTV_T, LTV_RELIN, LTV_DT, LTV_H = 16, 40, 6, 0.1, 8
 LTV_TOL64, LTV_TOL32 = 1e-4, 1e-2
 # the two solve counts of the two-point solves/s fit
 HET_TWO_POINT = (1, 3)
+# K5 launches timed on each LTV ensemble's windows (phase 20)
+LTV_REPS = 20
 
 
 def k5_inputs(B, dp, dtype, gen, device, dense=False):
@@ -1930,8 +2050,10 @@ def phase_k5_check():
     gen = torch.Generator(device=dev)
     gen.manual_seed(18)
     errs = {}
+    # and the LTV ensemble's width, where the plan spreads each problem
+    # over a larger cluster to fill the card
     shapes = [(dp, B) for dp in K5_DPS for B in K5_BATCHES] + \
-        [(128, K5_BIG_B)]
+        [(128, K5_BIG_B), (128, LTV_B)]
     for dtype in (torch.float32, torch.float64):
         tols = K5_TOL[str(dtype).split(".")[1]]
         for dp, B in shapes:
@@ -1953,13 +2075,18 @@ def phase_k5_check():
                 err = float((out - ref).abs().max())
                 assert err <= tols[tier], f"K5 disagrees: {tag} {err:.3e}"
                 errs[tag] = worst[tier] = err
-                plans[tier] = hetero_plan(dp, dtype, bank.dtype, tier)
+                plans[tier] = hetero_plan(dp, B, dtype, bank.dtype, tier)
                 del bank
             del wt
             p = plans["highest"]
+            where = ("slab in smem" if p["w_in_smem"] else
+                     f"slab in registers, {p['regs_rows']} rows per lane"
+                     if p["regs_rows"] else "slab from L2")
             log(f"K5 {str(dtype)[6:]} Dp={dp} B={B}: cluster {p['cluster']}"
-                f" ({'slab in smem' if p['w_in_smem'] else 'slab from L2'}, "
-                f"{p['smem_bytes']} B, {p['max_clusters']} problems at once)"
+                f" ({where}, "
+                f"{p['cols_per_block']} columns and {p['threads']} threads "
+                f"per block, {p['stretches']} stretches, {p['smem_bytes']} B,"
+                f" {p['max_clusters']} problems at once)"
                 f"  max|kernel-plain| " + "  ".join(
                     f"{t} {e:.2e}" for t, e in worst.items()))
         torch.cuda.empty_cache()
@@ -2000,7 +2127,8 @@ def ltv_rollout(**kw):
     """examples/ltv_mpc.py's loop on the port (its seeds, masses, burn rates
     and start states): ``update(l, u)`` and a warm ``solve()`` every step,
     ``update_matrices(A=...)`` every LTV_RELIN steps. Returns the states
-    (T+1, B, 2) and the per-step iterations (T, B); every step solved."""
+    (T+1, B, 2), the per-step iterations (T, B) and the solver after the
+    last step; every step solved."""
     from reluqp_tpu_torch import BatchedReLU_QP
     rng = np.random.RandomState(0)
     masses = 1.0 + 0.5 * rng.rand(LTV_B)
@@ -2031,7 +2159,7 @@ def ltv_rollout(**kw):
         X = X @ _LTV_AD.T + (u0 / mass_k[:, None]) @ _LTV_BD0.T
         xs.append(X)
         its.append(res.info.iter)
-    return np.stack(xs), np.stack(its)
+    return np.stack(xs), np.stack(its), m
 
 
 def phase_hetero_main(card):
@@ -2094,8 +2222,8 @@ def phase_hetero_main(card):
     log(f"phase 19 second solve (cleared state): {secs2 * 1e3:.3f} ms, "
         f"{HET_B / secs2:.0f} QP/s on {card}; launches {counts}")
 
-    cpu_xs, cpu_its = ltv_rollout(precision="float64", device="cpu",
-                                  backend="xla")
+    cpu_xs, cpu_its, _ = ltv_rollout(precision="float64", device="cpu",
+                                     backend="xla")
     ltv = {}
     for precision, tol in (("float64", LTV_TOL64), ("float32", LTV_TOL32)):
         def ltv_run():
@@ -2103,14 +2231,15 @@ def phase_hetero_main(card):
             out = ltv_rollout(precision=precision)
             return out, time.perf_counter() - t0
 
-        ((xs, its), t_ltv), counts = _counted(ltv_run, "K5")
+        ((xs, its, m_ltv), t_ltv), counts = _counted(ltv_run, "K5")
         assert all(n == 0 for k, n in counts.items() if k != "K5"), counts
         n_k5 += counts["K5"]
         dx = float(np.max(np.abs(xs - cpu_xs)))
         final = float(np.max(np.abs(xs[-1])))
         assert np.all(np.isfinite(xs)) and dx < tol, (precision, dx)
         assert final < 0.2, ("ensemble did not converge to origin", final)
-        ltv[precision] = dict(dx=dx, final=final)
+        ltv[precision] = dict(dx=dx, final=final, m=m_ltv,
+                              launches=counts["K5"])
         log(f"phase 19 LTV ensemble {precision} (B={LTV_B}, {LTV_T} steps, "
             f"update_matrices every {LTV_RELIN}): every step solved, "
             f"{t_ltv:.3f} s, mean iters/step {its.mean():.2f} (cpu fp64 "
@@ -2135,7 +2264,7 @@ def k5_bound_ms(nnz_w, B, dp, steps, elt=4):
                                  else "operations"), t_bytes, t_ops
 
 
-def phase_hetero_timing(card, het):
+def phase_hetero_timing(card, het, parent=None):
     """K5 per 25-step window at B=1024, Dp=128 (one block per problem) and
     B=256, Dp=256 (a cluster of two per problem), dense random banks, fp32
     highest, by CUDA events and by device time, beside its plain version,
@@ -2164,15 +2293,24 @@ def phase_hetero_timing(card, het):
 
         kernel = lambda: fused_chunk_hetero(W, b, lo, hi, Y, rho, N_STEPS)
         plain = lambda: fused_chunk_hetero_ref(W, b, lo, hi, Y, rho, N_STEPS)
+        if parent:
+            k5_old = parent_module(parent, "ops.fused_step").fused_chunk_hetero
+            old = lambda: k5_old(W, b, lo, hi, Y, rho, N_STEPS)
+            before = _time_ms(old, 100)
         ms = _time_ms(kernel, 100)
+        if parent:
+            after = _time_ms(old, 100)
+            log(f"phase 20 K5 A/B (B={B}, Dp={dp}): parent {before:.5f} ms, "
+                f"this tree {ms:.5f} ms, parent again {after:.5f} ms per "
+                f"window, on {card}")
         plain_ms = _time_ms(plain, 20)
         library_ms = _time_ms(library, 20)
         devt = {name: device_ms(fn, 10) for name, fn in
                 (("K5", kernel), ("plain", plain), ("baddbmm+clamp", library))}
         bound, by, t_b, t_o = k5_bound_ms(B * dp * dp, B, dp, N_STEPS)
-        plan = hetero_plan(dp)
+        plan = hetero_plan(dp, B)
         rows[(B, dp)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound, bound_by=by, dev=devt)
+                             bound_ms=bound, bound_by=by, dev=devt, plan=plan)
         log(f"phase 20 K5 (B={B}, Dp={dp}, dense, per-problem rungs, "
             f"{N_STEPS} steps, fp32 highest, plan {plan}): {ms:.5f} ms per "
             f"window by CUDA events; plain {plain_ms:.5f} ms; baddbmm+clamp "
@@ -2199,6 +2337,41 @@ def phase_hetero_timing(card, het):
     log(f"phase 20 K5 on the main path's bank (B={m.B_n}, D={m.D}, "
         f"Dp={m.Dp}): {ms:.5f} ms per window; bound at the rungs' nonzeros "
         f"{bound:.5f} ms ({by}), {ms / bound:.1f}x")
+
+    # K5 alone on the LTV ensemble's windows (phase 19's solvers after their
+    # last step: their banks, rungs and states), least of LTV_REPS launches
+    for precision, ltv in het["ltv"].items():
+        ml = ltv["m"]
+        rho = ml.rho_ind.contiguous()
+        rows_l = torch.arange(ml.B_n, device=dev)
+        b = ml.bias_all[rows_l, rho.long()].contiguous()
+        args = (ml.Wt_bank, b, ml.lo, ml.hi, ml.Y.contiguous(), rho, N_STEPS)
+        ab = ""
+        if parent:
+            k5_old = parent_module(parent, "ops.fused_step").fused_chunk_hetero
+            before = least_ms(lambda: k5_old(*args), LTV_REPS)
+        ms = least_ms(lambda: fused_chunk_hetero(*args), LTV_REPS)
+        dev_ms = graph_ms(lambda: fused_chunk_hetero(*args), LTV_REPS)
+        if parent:
+            after = least_ms(lambda: k5_old(*args), LTV_REPS)
+            dev_p = graph_ms(lambda: k5_old(*args), LTV_REPS)
+            ab = (f"; parent {before:.5f} ms before, {after:.5f} ms after "
+                  f"({dev_p:.5f} ms in a graph)")
+        nnz = int(torch.count_nonzero(ml.Wt_bank[rows_l, rho.long()]))
+        elt = ml.Wt_bank.element_size()
+        bound, by, _, _ = k5_bound_ms(nnz, ml.B_n, ml.D, N_STEPS, elt)
+        plan = hetero_plan(ml.Dp, ml.B_n, ml.Wt_bank.dtype)
+        rows[("ltv", precision)] = dict(ms=ms, dev_ms=dev_ms, bound_ms=bound,
+                                        bound_by=by, plan=plan,
+                                        launches=ltv["launches"])
+        log(f"phase 20 K5 on the LTV windows ({precision}, B={ml.B_n}, "
+            f"D={ml.D}, Dp={ml.Dp}, {N_STEPS} steps, plan {plan}): "
+            f"{ms:.5f} ms per window (least of {LTV_REPS} by CUDA events, "
+            f"the host's launch included), {dev_ms:.5f} ms per launch in a "
+            f"CUDA graph of {LTV_REPS} (no host time between launches)"
+            f"{ab}; bound at the rungs' nonzeros {bound:.5f} ms ({by}), "
+            f"{dev_ms / bound:.1f}x (in the graph); {ltv['launches']} "
+            f"launches in phase 19, on {card}")
 
     # solves/s: a chain of n solves, each from a cleared state, at two n
     def chain(n):
@@ -2240,9 +2413,14 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import reluqp_tpu_torch  # noqa: F401  (fails outside a checkout)
+    parent = None
+    if sys.argv[1:2] == ["--parent"]:
+        parent = os.path.abspath(sys.argv[2])
+        if not os.path.isdir(os.path.join(parent, "reluqp_tpu_torch")):
+            raise SystemExit(f"--parent {parent}: no reluqp_tpu_torch there")
 
     card = card_line()
-    phase_build()
+    phase_build(parent)
     errs = phase_kernel_check()
     timing = phase_timing()
     launches = phase_canonical()
@@ -2252,10 +2430,10 @@ def main():
     launches += mpc["launches"]
     k2_errs = phase_k2_check()
     scan = phase_scan(card, mpc)
-    k2 = phase_scan_timing(card, scan, mpc["rate"])
+    k2 = phase_scan_timing(card, scan, mpc["rate"], parent)
     k3_errs = phase_k3_check()
     fused = phase_fused_main(card, mpc, protocol)
-    k3 = phase_k3_timing(card, fused, mpc["rate"], k2["step_s"])
+    k3 = phase_k3_timing(card, fused, mpc["rate"], k2["step_s"], parent)
     k4_errs = phase_k4_check()
     scen_loop = phase_scenario_loop(card)
     k6_errs = phase_k6_check()
@@ -2263,7 +2441,8 @@ def main():
     scen = phase_scenario_timing(card, scen_loop, scen_scan)
     k5_errs = phase_k5_check()
     het = phase_hetero_main(card)
-    k5 = phase_hetero_timing(card, het)["rows"][(K5_BIG_B, 128)]
+    k5_rows = phase_hetero_timing(card, het, parent)["rows"]
+    k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]
     k3_row = k3["rows"][100]
     k4, k6 = scen["k4"], scen["k6"]
@@ -2281,7 +2460,10 @@ def main():
     }, {
         # per control step; no single PyTorch call computes a rollout
         "name": f"K2 full_rollout (100-state h10, Dp=640, fp32, per warm "
-                f"control step at ci={k2['ci']})",
+                f"control step at ci={k2['ci']}; a cooperative grid of "
+                f"{k2['plan']['blocks']} blocks, operands "
+                + ("in shared memory" if k2['plan']['resident'] else "from L2")
+                + ")",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/solve_kernel.cu",
         "replaces": "reluqp_tpu/ops/solve_kernel.py:918",
@@ -2332,7 +2514,11 @@ def main():
         "library_ms": None,
     }, {
         "name": f"K5 fused_chunk_hetero (B={K5_BIG_B}, Dp=128, dense banks, "
-                "per-problem rungs, 25 steps, fp32 highest)",
+                f"per-problem rungs, 25 steps, fp32 highest; clusters of "
+                f"{k5['plan']['cluster']}, {k5['plan']['threads']} threads "
+                f"per block; LTV windows B={LTV_B}: clusters of "
+                f"{k5_ltv['plan']['cluster']}, {k5_ltv['dev_ms']:.5f} ms per "
+                f"launch in a CUDA graph)",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/fused_step_hetero.cu",
         "replaces": "reluqp_tpu/ops/fused_step.py:356",

@@ -1,5 +1,6 @@
 // The thread-block-cluster pieces shared by the row-tile kernels K4
-// (csrc/fused_step_batched.cu) and K6 (csrc/rollout_batched.cu).
+// (csrc/fused_step_batched.cu) and K6 (csrc/rollout_batched.cu), and the
+// exchange through st.async and mbarriers of K5 (csrc/fused_step_hetero.cu).
 //
 // Both give a tile of state rows to a cluster of C blocks. Block c of the
 // cluster owns the output columns [c*cw, (c+1)*cw) of every iteration and
@@ -96,6 +97,75 @@ __device__ __forceinline__ void push16(cooperative_groups::cluster_group& cluste
                                        size_t at, const T (&v)[N]) {
   const int C = (int)cluster.num_blocks();
   for (int q = 0; q < C; ++q) store16(cluster.map_shared_rank(local, q) + at, v);
+}
+
+// Exchanges without a cluster barrier (K5): a block stores 16 bytes
+// into a peer's shared memory with st.async, which completes that many
+// bytes of the transaction count of an mbarrier in the peer; the peer waits
+// on its own mbarrier's phase instead of on a cluster.sync(). One phase
+// takes one arrival (the receiver's own expect_tx, which arms the phase
+// with the bytes it will receive) and those bytes, in either order. The
+// receiver learns only that its own data has landed, so the exchange costs
+// a fraction of stores followed by a cluster.sync(), whose release and
+// acquire wait for every block.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address of the same shared-memory location in block `rank`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// One thread initialises the block's mbarriers (one arrival per phase) and
+// makes them visible to the cluster; a cluster.sync() must follow before
+// any peer stores into the block.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int n) {
+  for (int i = 0; i < n; ++i)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar + i)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arms the current phase of `bar` with the bytes it is to receive (and the
+// phase's one arrival).
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed; what the
+// peers stored for it is then visible.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "W: mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra W;\n}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ uint4 bits16(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 bits16(const double (&v)[2]) {
+  return make_uint4((unsigned)__double2loint(v[0]), (unsigned)__double2hiint(v[0]),
+                    (unsigned)__double2loint(v[1]), (unsigned)__double2hiint(v[1]));
+}
+
+// Stores the 16 bytes `v` at offset `at` of `buf` in block q (the same
+// offset of the same buffer as in this block), completing 16 bytes on q's
+// `bar`.
+template <typename T>
+__device__ __forceinline__ void send16(T* buf, size_t at, const uint4& v, uint64_t* bar, int q) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(peer_addr(smem_addr(buf + at), q)),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(peer_addr(smem_addr(bar), q))
+      : "memory");
 }
 
 }  // namespace

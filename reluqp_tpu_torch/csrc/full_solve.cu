@@ -189,6 +189,8 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
   if (a.infeas) s.mai = take_cols(sm(L.mai), a.a_inf, ncp, nxp, rv.lo, rv.n, res);
   s.wt = a.wt;
   s.bias_c = a.b;
+  s.bias_ld = dp;
+  s.bias_off = ry.lo;
   s.m_aff = a.m_aff;
   s.rhos = a.rhos;
   s.ybuf = a.ybuf;

@@ -42,9 +42,11 @@
 //   * One warp reduces one column dot product with a shuffle tree.
 //   * y, u and x move between blocks through global buffers (y double
 //     buffered) with grid.sync(), read back with __ldcg (L2, not the
-//     non-coherent L1, since another SM wrote them in this launch). A warm
-//     step at one iteration per window takes four barriers: iteration,
-//     residual partials, u, x+.
+//     non-coherent L1, since another SM wrote them in this launch). u is
+//     computed with every window's residuals (from the same y) and
+//     published with the residual barrier, so a warm step at one iteration
+//     per window takes three barriers: iteration, residual partials and u,
+//     x+.
 //   * Cross-block decisions: each block writes its residual partial maxima
 //     to one row of a (grid, 8) array; after the barrier every block
 //     reduces the whole array. A max is exact in any order, so every block
@@ -52,6 +54,15 @@
 //     every grid.sync() (no atomics, no block-local decision).
 //   * The scalar state (rung, resident rung, rho, k, status) never leaves
 //     the device inside a launch; the start rung is a launch argument.
+//   * What a step reads besides the slabs is read from global memory once
+//     per launch into shared memory (the rung ladder, each block's lanes of
+//     lo0, hi0, g0w and of every rung's bias c_k), and the step's noise is
+//     loaded at the top of the step and used at its end, so no read in the
+//     step's chain waits on L2 but the exchanges'. A redesign on one
+//     thread-block cluster (16 blocks, slabs resident across steps, every
+//     exchange through distributed shared memory) was measured slower at
+//     Dp=640 than this one: its 16 SMs each run 8x this design's share of
+//     every product (PERF.md, section 6).
 //   * Step 2 is the device solve loop shared with K3 (csrc/solve_loop.cuh),
 //     with K3's options off and the first window always run.
 //
@@ -93,12 +104,13 @@ struct Args {
 // (plan) and the device. Counts are the largest share of any block.
 struct Layout {
   size_t ys, xv, uv, lo, hi, b, g, kx, ax, rr, dec;              // state
+  size_t lo0, hi0, g0, bias, rhos;  // constants of the block's lanes
   size_t w, ma, glz, glg, glk, gla, mra, mrz, mrh, mrl, su, bd;  // slabs
   size_t small_end, total;
 };
 
 template <typename T, typename WT>
-__host__ __device__ Layout make_layout(int dp, int nxp, int ncp, int nup, int nplp,
+__host__ __device__ Layout make_layout(int dp, int nxp, int ncp, int nup, int nplp, int n_rho,
                                        int nblocks) {
   const int my = ceil_div(dp, nblocks), mc = ceil_div(ncp, nblocks);
   const int mv = ceil_div(nxp, nblocks), mu = ceil_div(nup, nblocks);
@@ -122,6 +134,11 @@ __host__ __device__ Layout make_layout(int dp, int nxp, int ncp, int nup, int np
   L.ax = put(mx * t);
   L.rr = put((2 * mc + 2 * mv) * sizeof(float));
   L.dec = put(32);
+  L.lo0 = put(my * t);
+  L.hi0 = put(my * t);
+  L.g0 = put(mv * t);
+  L.bias = put((size_t)n_rho * my * t);
+  L.rhos = put(n_rho * sizeof(float));
   L.small_end = o;
   L.w = put((size_t)my * dp * sizeof(WT));
   L.ma = put((size_t)my * nplp * t);
@@ -148,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   const int dp = a.dp, nxp = a.nxp, ncp = a.ncp, nup = a.nup, nplp = a.nplp;
   const int R = 2 * ncp + 2 * nxp, R2 = nxp + dp + nup + nplp;
   const bool res = a.resident != 0;
-  const Layout L = make_layout<T, WT>(dp, nxp, ncp, nup, nplp, G);
+  const Layout L = make_layout<T, WT>(dp, nxp, ncp, nup, nplp, a.n_rho, G);
   auto sm = [&](size_t off) { return reinterpret_cast<T*>(smem + off); };
   T* ys = sm(L.ys);
   T* xv = sm(L.xv);
@@ -194,13 +211,33 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   s.mrh = take_cols(sm(L.mrh), a.m_res, dp, R, 2 * ncp + rv.lo, rv.n, res);
   s.mrl = take_cols(sm(L.mrl), a.m_res, dp, R, 2 * ncp + nxp + rv.lo, rv.n, res);
   s.wt = a.wt;
-  s.bias_c = a.bias_c;
+  // the rung ladder and the constants of this block's lanes, read from
+  // global memory once: in the step they would each cost a round trip to L2
+  const int my = ceil_div(dp, G);
+  T *lo0 = sm(L.lo0), *hi0 = sm(L.hi0), *g0 = sm(L.g0), *bias = sm(L.bias);
+  float* rhos = reinterpret_cast<float*>(smem + L.rhos);
+  for (int p = threadIdx.x; p < ry.n; p += kThreads) {
+    lo0[p] = a.lo0[ry.lo + p];
+    hi0[p] = a.hi0[ry.lo + p];
+  }
+  for (int q = threadIdx.x; q < rv.n; q += kThreads) g0[q] = a.g0w[rv.lo + q];
+  for (int i = threadIdx.x; i < a.n_rho * ry.n; i += kThreads)
+    bias[(i / ry.n) * my + i % ry.n] = a.bias_c[(size_t)(i / ry.n) * dp + ry.lo + i % ry.n];
+  for (int i = threadIdx.x; i < a.n_rho; i += kThreads) rhos[i] = a.rhos[i];
+  s.bias_c = bias;
+  s.bias_ld = my;
+  s.bias_off = 0;
   s.m_aff = a.m_aff;
-  s.rhos = a.rhos;
+  s.rhos = rhos;
   s.ybuf = a.ybuf;
   s.part = a.part;
   s.resident = res;
   s.resident_rung = -1;
+  s.msu = su;
+  s.n_u = ru.n;
+  s.u_lo = ru.lo;
+  s.kx = kx_s;
+  s.u_out = a.ubuf;
   s.parity = 0;
   s.limit = a.limit;
   s.ci = a.ci;
@@ -220,6 +257,9 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
 
   const int n_ref = ry.n + rv.n + ru.n + rx.n;
   for (int t = 0; t < a.n_steps; ++t) {
+    // this step's noise on the x lane of this warp (x+ lane p = warp is
+    // lane 0's), read at once and used last
+    const T noise = lane == 0 && warp < rx.n ? a.noise[(size_t)t * nplp + rx.lo + warp] : T(0);
     // 1. refresh: this block's columns of x @ GL
     for (int p = warp; p < n_ref; p += kWarps) {
       const T* col;
@@ -237,11 +277,10 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
       const T r = static_cast<T>(dot32<AccState<T>, T, T>(xv, col, si, nplp, lane));
       if (lane == 0) {
         if (p < ry.n) {
-          const int j = ry.lo + p;
-          lo_s[p] = a.lo0[j] + r;   // +-inf padding absorbs the shift
-          hi_s[p] = a.hi0[j] + r;
+          lo_s[p] = lo0[p] + r;   // +-inf padding absorbs the shift
+          hi_s[p] = hi0[p] + r;
         } else if (p < ry.n + rv.n) {
-          g_s[q] = a.g0w[rv.lo + q] + r;
+          g_s[q] = g0[q] + r;
         } else if (p < ry.n + rv.n + ru.n) {
           kx_s[q] = r;
         } else {
@@ -251,28 +290,22 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
     }
 
     // 2. the warm solve, whole windows, the first one always
-    LoopState st{k_idx, 0, ST_RUNNING, a.rhos[k_idx], 0.f, 0.f};
+    LoopState st{k_idx, 0, ST_RUNNING, rhos[k_idx], 0.f, 0.f};
     run_solve(s, grid, st, a.tier, true, false, 0);
     k_idx = st.k_idx;
     if (st.status < 0) st.status = ST_MAXITER;
 
-    // 3. u = y @ S_u - Kx on this block's u lanes, then x+ on its x lanes
-    for (int p = warp; p < ru.n; p += kWarps) {
-      const T v0 = static_cast<T>(dot32<AccState<T>, T, T>(ys, su.col(p), su.si, dp, lane));
-      if (lane == 0) {
-        const T u = v0 - kx_s[p];
-        a.ubuf[ru.lo + p] = u;
-        a.us[(size_t)t * nup + ru.lo + p] = u;
-      }
-    }
-    grid.sync();
+    // 3. u = y @ S_u - Kx came with the last window's residuals, its
+    // barrier published it; then x+ on this block's x lanes
     for (int i = threadIdx.x; i < nup; i += kThreads) uv[i] = __ldcg(a.ubuf + i);
+    for (int p = threadIdx.x; p < ru.n; p += kThreads)
+      a.us[(size_t)t * nup + ru.lo + p] = __ldcg(a.ubuf + ru.lo + p);
     __syncthreads();
     for (int p = warp; p < rx.n; p += kWarps) {
       const T d = static_cast<T>(dot32<AccState<T>, T, T>(uv, bd.col(p), bd.si, nup, lane));
       if (lane == 0) {
         const int i = rx.lo + p;
-        const T xn = (ax_s[p] + d) + a.noise[(size_t)t * nplp + i];
+        const T xn = (ax_s[p] + d) + (p == warp ? noise : a.noise[(size_t)t * nplp + i]);
         a.xbuf[i] = xn;
         a.xs[(size_t)t * nplp + i] = xn;
       }
@@ -300,7 +333,7 @@ struct Plan {
 };
 
 template <typename T, typename WT>
-cudaError_t make_plan(int dp, int nxp, int ncp, int nup, int nplp, Plan* plan) {
+cudaError_t make_plan(int dp, int nxp, int ncp, int nup, int nplp, int n_rho, Plan* plan) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -312,7 +345,7 @@ cudaError_t make_plan(int dp, int nxp, int ncp, int nup, int nplp, Plan* plan) {
   if (!coop) return cudaErrorNotSupported;
   if (dp < 1 || nxp < 1 || ncp < 1 || nup < 1 || nplp < 1) return cudaErrorInvalidValue;
   const int nblocks = nsm;
-  const Layout L = make_layout<T, WT>(dp, nxp, ncp, nup, nplp, nblocks);
+  const Layout L = make_layout<T, WT>(dp, nxp, ncp, nup, nplp, n_rho, nblocks);
   const size_t budget = (size_t)(smem_optin - kSmemReserve);
   if (L.small_end > budget) return cudaErrorInvalidValue;  // state too large
   const int resident = L.total <= budget;
@@ -333,7 +366,7 @@ cudaError_t make_plan(int dp, int nxp, int ncp, int nup, int nplp, Plan* plan) {
 template <typename T, typename WT>
 cudaError_t launch(const K2Params& p, cudaStream_t stream) {
   Plan plan;
-  cudaError_t e = make_plan<T, WT>(p.dp, p.nxp, p.ncp, p.nup, p.nplp, &plan);
+  cudaError_t e = make_plan<T, WT>(p.dp, p.nxp, p.ncp, p.nup, p.nplp, p.n_rho, &plan);
   if (e != cudaSuccess) return e;
   if (plan.nblocks > p.part_rows) return cudaErrorInvalidValue;
   Args<T, WT> a;
@@ -411,11 +444,11 @@ int k2_full_rollout(const K2Params* p, void* stream) {
 }
 
 // The launch shape k2_full_rollout would use, for reports.
-int k2_plan(int dp, int nxp, int ncp, int nup, int nplp, int y_dtype, int w_dtype,
+int k2_plan(int dp, int nxp, int ncp, int nup, int nplp, int n_rho, int y_dtype, int w_dtype,
             int* nblocks, int* smem, int* resident) {
   Plan plan;
   const cudaError_t e = dispatch(y_dtype, w_dtype, [&](auto t, auto w) {
-    return make_plan<decltype(t), decltype(w)>(dp, nxp, ncp, nup, nplp, &plan);
+    return make_plan<decltype(t), decltype(w)>(dp, nxp, ncp, nup, nplp, n_rho, &plan);
   });
   if (e != cudaSuccess) return (int)e;
   *nblocks = plan.nblocks;

@@ -223,9 +223,19 @@ struct Loop {
   T* ma_slab;
   Cols<WT> wc;
   Cols<T> mac, mra, mrz, mrh, mrl, maw, mai;
+  // K2: u = y @ S_u - Kx on this block's u lanes, computed with every
+  // window's residuals into the global u_out (n_u = 0 in K3)
+  Cols<T> msu;
+  int n_u, u_lo;
+  const T* kx;
+  T* u_out;
   // global operands
   const WT* wt;
   const T *bias_c, *m_aff;
+  // bias_c[k * bias_ld + bias_off + p]: the bias of this block's y lane p
+  // at rung k (bias_c (N, dp) in global memory, or a copy of the block's
+  // lanes)
+  int bias_ld, bias_off;
   const float* rhos;
   T* ybuf;
   double* part;
@@ -285,7 +295,7 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     __syncthreads();
   }
   for (int p = warp; p < ry.n; p += kWarps) {
-    const T c = s.bias_c[(size_t)k_idx * dp + ry.lo + p];
+    const T c = s.bias_c[(size_t)k_idx * s.bias_ld + s.bias_off + p];
     if (s.xv) {
       const float r = dot32<Acc, T>(s.xv, s.mac.col(p), s.mac.si, nplp, lane);
       if (lane == 0) s.b_s[p] = c + static_cast<T>(r);
@@ -373,9 +383,17 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
   // [A dx] and [H dx | A'dlam]
   const int n_res = 2 * rc.n + 2 * rv.n;
   const int n_all = n_res + (certs ? rc.n + 2 * rv.n : 0);
-  for (int p = warp; p < n_all; p += kWarps) {
+  for (int p = warp; p < n_all + s.n_u; p += kWarps) {
     int q = p;
     float r;
+    if (q >= n_all) {
+      // K2's u lanes, stored where every block reads them after the
+      // residual barrier
+      q -= n_all;
+      const T v0 = static_cast<T>(dot32<Acc, T>(s.ys, s.msu.col(q), s.msu.si, dp, lane));
+      if (lane == 0) s.u_out[s.u_lo + q] = v0 - s.kx[q];
+      continue;
+    }
     if (q < rc.n) {
       r = dot32<Acc, T>(s.ys, s.mra.col(q), s.mra.si, dp, lane);
     } else if ((q -= rc.n) < rc.n) {
@@ -441,11 +459,19 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     // the certificate columns only where this window wrote them
     const int n_cols = certs ? 7 : 4;
     double m[kPartCols];
+#pragma unroll
     for (int c = 0; c < kPartCols; ++c) m[c] = 0.0;
     for (int q = lane; q < (int)gridDim.x; q += 32)
-      for (int c = 0; c < n_cols; ++c)
-        m[c] = nmax(m[c], __ldcg(s.part + (size_t)q * kPartCols + c));
-    for (int c = 0; c < n_cols; ++c) m[c] = warp_max(m[c]);
+#pragma unroll
+      for (int c = 0; c < kPartCols; ++c)
+        if (c < n_cols) m[c] = nmax(m[c], __ldcg(s.part + (size_t)q * kPartCols + c));
+    // the columns' maxima over the warp, their shuffle levels interleaved
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int c = 0; c < kPartCols; ++c)
+        m[c] = nmax(m[c], __shfl_down_sync(0xffffffffu, m[c], off));
+    }
     if (lane == 0) {
       const float prif = static_cast<float>(m[0]);
       const float spf = static_cast<float>(m[2]);

@@ -390,7 +390,7 @@ def _k5_lib():
         lib.k5_fused_chunk_hetero.argtypes = [vp, i, i, vp, vp, vp, vp, vp,
                                               vp, i, i, i, i, i, vp]
         lib.k5_fused_chunk_hetero.restype = i
-        lib.k5_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 6
+        lib.k5_plan.argtypes = [i, i, i, i, i] + [ctypes.POINTER(i)] * 8
         lib.k5_plan.restype = i
         lib.k5_error_string.argtypes = [i]
         lib.k5_error_string.restype = ctypes.c_char_p
@@ -403,22 +403,27 @@ def _k5_raise(lib, code: int, what: str):
     raise RuntimeError(f"K5 {what} failed: CUDA error {code} ({msg})")
 
 
-def hetero_plan(dp: int, dtype=torch.float32, w_dtype=None,
+def hetero_plan(dp: int, rows: int, dtype=torch.float32, w_dtype=None,
                 iter_precision: str = "highest") -> dict:
-    """The launch shape of K5 on the current GPU at Dp: blocks per problem
-    (the cluster over which a rung's column slabs are spread), output
-    columns per block, dynamic shared memory per block, whether a block
-    holds its slab in shared memory (else it reads it from L2 every
-    iteration), how many problems the card holds at once, and the
-    contraction's stretches per block. A launch has B × cluster blocks."""
+    """The launch shape of K5 on the current GPU for ``rows`` problems at
+    Dp: blocks per problem (the cluster over which a rung's column slabs
+    are spread: the smallest whose slabs fit shared memory, doubled while
+    rows × cluster still fit the card's SMs), output columns per block,
+    dynamic shared memory per block, whether a block holds its slab in
+    shared memory (else in registers, ``regs_rows`` rows per lane, or read
+    from L2 every iteration), how many problems the card holds at once, the
+    contraction's stretches (the lanes that share a column group) and the
+    threads per block. A launch has rows × cluster blocks."""
     lib = _k5_lib()
-    vals = [ctypes.c_int() for _ in range(6)]
-    rc = lib.k5_plan(dp, _DTYPE_CODE[dtype], _DTYPE_CODE[w_dtype or dtype],
-                     _TIER[iter_precision], *[ctypes.byref(v) for v in vals])
+    vals = [ctypes.c_int() for _ in range(8)]
+    rc = lib.k5_plan(dp, rows, _DTYPE_CODE[dtype],
+                     _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
+                     *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _k5_raise(lib, rc, "plan")
     return dict(zip(("cluster", "cols_per_block", "smem_bytes", "w_in_smem",
-                     "max_clusters", "stretches"), (v.value for v in vals)))
+                     "max_clusters", "stretches", "threads", "regs_rows"),
+                    (v.value for v in vals)))
 
 
 def _check_hetero_args(wt_bank, b, lo, hi, Y, rho_inds, iter_precision):

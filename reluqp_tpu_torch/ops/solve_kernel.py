@@ -433,7 +433,7 @@ def _lib():
         lib.k2_full_rollout.argtypes = [ctypes.POINTER(_K2Params),
                                         ctypes.c_void_p]
         lib.k2_full_rollout.restype = i
-        lib.k2_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
+        lib.k2_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
         lib.k2_plan.restype = i
         lib.k2_error_string.argtypes = [i]
         lib.k2_error_string.restype = ctypes.c_char_p
@@ -447,13 +447,14 @@ def _raise_cuda(lib, code: int, what: str):
 
 
 def rollout_plan(dp: int, nxp: int, ncp: int, nup: int, nplp: int,
-                 dtype=torch.float32, w_dtype=None) -> dict:
-    """The launch shape of K2 on the current GPU: blocks, y lanes
-    (columns of W) per block, dynamic shared memory, and whether every
-    operand slab is held in shared memory (else streamed from L2)."""
+                 n_rho: int, dtype=torch.float32, w_dtype=None) -> dict:
+    """The launch shape of K2 on the current GPU for a ladder of ``n_rho``
+    rungs: blocks, y lanes (columns of W) per block, dynamic shared
+    memory, and whether every operand slab is held in shared memory (else
+    streamed from L2)."""
     lib = _lib()
     vals = [ctypes.c_int() for _ in range(3)]
-    rc = lib.k2_plan(dp, nxp, ncp, nup, nplp, _DTYPE_CODE[dtype],
+    rc = lib.k2_plan(dp, nxp, ncp, nup, nplp, n_rho, _DTYPE_CODE[dtype],
                      _DTYPE_CODE[w_dtype or dtype],
                      *[ctypes.byref(v) for v in vals])
     if rc != 0:

@@ -26,7 +26,8 @@ from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_batched_ref,
                                                full_rollout_ref, full_solve,
                                                full_solve_ref,
-                                               rollout_batched_plan)
+                                               rollout_batched_plan,
+                                               rollout_plan)
 from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp, update_qp
 
 pytestmark = pytest.mark.cuda
@@ -162,29 +163,56 @@ def test_k2_matches_plain_version_fp64(dev):
 # order difference — far below what a tier run at another precision (one
 # bf16 pass for "high", unrounded y for "bf16") would move. bf16 iterates
 # do not reach eps, so that tier runs 3 budget-bound steps.
-@pytest.mark.parametrize("tier,T,max_iter,tol", [
-    ("highest", 20, None, 1e-5), ("high", 20, None, 2e-5),
-    ("bf16", 3, 25, 1e-5)])
-def test_k2_tier_matches_plain_version_fp32(dev, tier, T, max_iter, tol):
+def _plant_k2_args(T, horizon=10, max_iter=None, precision="float32"):
+    """K2's call for bench.py's 100-state plant at ``horizon`` (Dp=640 at
+    10, 1280 at 20) from a cold start under a 0.3·randn disturbance, a
+    window of 5; returns the controller too."""
     Ad, Bd = mpc.random_linear_system(100, 20, seed=0, spectral_radius=0.99)
-    ctrl = mpc.MPC(Ad, Bd, np.eye(100), 0.1 * np.eye(20), horizon=10,
+    ctrl = mpc.MPC(Ad, Bd, np.eye(100), 0.1 * np.eye(20), horizon=horizon,
                    u_min=-1.0, u_max=1.0, prestabilize=True, eps_abs=1e-3,
-                   max_iter=2000, precision="float32")
+                   max_iter=2000, precision=precision)
     s = ctrl.solver
     noise = 0.3 * np.random.RandomState(3).randn(T, 100)
     x0 = 0.05 * np.random.RandomState(0).randn(100)
     args, kw = mpc._scan_call(s, ctrl.prob, x0, T, ci=5, budget=max_iter,
                               y0=torch.zeros_like(s.y), noise=noise)
-    if tier == "bf16":
-        args[0] = args[0].to(torch.bfloat16)
-    kw["iter_precision"] = tier
+    return ctrl, args, kw
+
+
+def _k2_agrees(args, kw, tol, D):
+    """K2 against its plain version: equal per-step iterations, rung and
+    status, trajectories within ``tol``, padded y lanes exactly 0."""
     out = full_rollout(*args, **kw)
     ref = full_rollout_ref(*args, **kw)
     for lane in (0, 4, 5):
         assert torch.equal(out[2][:, lane], ref[2][:, lane]), lane
     for a, b in zip(out[:2], ref[:2]):
         assert float((a - b).abs().max()) <= tol
-    assert float(out[3][s.D:].abs().max()) == 0.0
+    assert float(out[3][D:].abs().max()) == 0.0
+    return out
+
+
+@pytest.mark.parametrize("tier,T,max_iter,tol", [
+    ("highest", 20, None, 1e-5), ("high", 20, None, 2e-5),
+    ("bf16", 3, 25, 1e-5)])
+def test_k2_tier_matches_plain_version_fp32(dev, tier, T, max_iter, tol):
+    ctrl, args, kw = _plant_k2_args(T, max_iter=max_iter)
+    if tier == "bf16":
+        args[0] = args[0].to(torch.bfloat16)
+    kw["iter_precision"] = tier
+    _k2_agrees(args, kw, tol, ctrl.solver.D)
+
+
+# Dp=1280 (horizon 20), fp64: the operand slabs no longer fit shared
+# memory beside the state and are read from L2; K2 still takes its plain
+# version's iterations, rungs and status, within the fp32 ulps of its
+# fp32-rounded products (as in fp64 at Dp=640, chip_smoke.py's K2_TOL64)
+def test_k2_matches_plain_version_streamed(dev):
+    ctrl, args, kw = _plant_k2_args(8, horizon=20, precision="float64")
+    plan = rollout_plan(args[0].shape[1], kw["nxp"], kw["ncp"], kw["nup"],
+                        kw["nplp"], args[0].shape[0], torch.float64)
+    assert not plan["resident"]
+    _k2_agrees(args, kw, 1e-6, ctrl.solver.D)
 
 
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -430,14 +458,16 @@ def _hetero_inputs(B, dp, dev, dtype, n_rho=4, seed=0):
 
 # K5 and its plain version sum each row in different orders (state-dtype
 # rounding only, as K4); Dp=256 spreads each problem's rung over a cluster
+# (B=16 is the LTV ensemble's batch, spread over clusters of 8)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dp,B", [(128, 9), (256, 5)])
+@pytest.mark.parametrize("dp,B", [(128, 9), (256, 5), (128, 16)])
 def test_k5_matches_plain_version(dev, dp, B, dtype):
     wt, b, lo, hi, y, rho, d = _hetero_inputs(B, dp, dev, dtype, seed=dp)
     tiers = ((("highest", 1e-5), ("high", 1e-5), ("bf16", 3e-2))
              if dtype == torch.float32
              else (("highest", 1e-12), ("high", 1e-5)))
-    assert (hetero_plan(dp, dtype)["cluster"] > 1) == (dp == 256)
+    # a batch that fills the card keeps the smallest cluster whose slabs fit
+    assert (hetero_plan(dp, 1024, dtype)["cluster"] > 1) == (dp == 256)
     for tier, tol in tiers:
         bank = wt.to(torch.bfloat16) if tier == "bf16" else wt
         before = fused_chunk_hetero.launches
@@ -447,6 +477,23 @@ def test_k5_matches_plain_version(dev, dp, B, dtype):
         assert out.data_ptr() not in (y.data_ptr(), ref.data_ptr())
         assert float((out - ref).abs().max()) <= tol, tier
         assert not out[:, d:].any()
+
+
+# the plan knows B: 1024 problems fill the card at one block each; 16
+# leave it idle, so each is spread over a larger cluster (16 x 8 = 128
+# blocks on the H100's 132 SMs)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_plan_spreads_a_small_batch(dev, dtype):
+    big, small = hetero_plan(128, 1024, dtype), hetero_plan(128, 16, dtype)
+    assert big["cluster"] == 1
+    assert small["cluster"] > big["cluster"]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 16 * small["cluster"] <= n_sm < 16 * 2 * small["cluster"]
+    assert small["cols_per_block"] * small["cluster"] == 128
+    # each lane holds its few rows of the slab in registers (4 at B=16; 16
+    # at B=1024 in fp32, where fp64's 32 rows stay in shared memory)
+    assert small["regs_rows"] == 4 and not small["w_in_smem"]
+    assert big["regs_rows"] == (16 if dtype == torch.float32 else 0)
 
 
 def test_k5_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -518,13 +518,20 @@ def _ltv_loop(cls, gen, B, n_steps, relin_every, **kw):
     return np.stack(xs), np.stack(its)
 
 
-@pytest.mark.parametrize("backend", ["xla", "auto"])
-def test_ltv_ensemble_matches_jax(backend):
-    """B=4 plants, 12 steps, every bank re-factorized at step 6, in fp64:
-    per-step states within 1e-8 and equal per-step iterations."""
+# B=16 is the LTV ensemble's batch in examples/ltv_mpc.py (and on the card),
+# the batch K5's plan spreads over clusters of blocks
+@pytest.mark.parametrize("backend,B,n_steps", [
+    pytest.param("xla", 4, 12, id="xla"),
+    pytest.param("auto", 4, 12, id="auto"),
+    pytest.param("xla", 16, 8, id="xla-B16"),
+    pytest.param("auto", 16, 8, id="auto-B16")])
+def test_ltv_ensemble_matches_jax(backend, B, n_steps):
+    """B plants, n_steps steps, every bank re-factorized at step 6, in
+    fp64: per-step states within 1e-8 and equal per-step iterations."""
     kw = dict(precision="float64")
-    xs_j, it_j = _ltv_loop(JB, j_gen_sparse, 4, 12, 6, backend="xla", **kw)
-    xs_t, it_t = _ltv_loop(T.BatchedReLU_QP, gen_sparse_mpc_qp, 4, 12, 6,
-                           backend=backend, device="cpu", **kw)
+    xs_j, it_j = _ltv_loop(JB, j_gen_sparse, B, n_steps, 6, backend="xla",
+                           **kw)
+    xs_t, it_t = _ltv_loop(T.BatchedReLU_QP, gen_sparse_mpc_qp, B, n_steps,
+                           6, backend=backend, device="cpu", **kw)
     np.testing.assert_array_equal(it_j, it_t)
     np.testing.assert_allclose(xs_t, xs_j, rtol=0, atol=1e-8)
