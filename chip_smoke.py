@@ -11,12 +11,16 @@ Phases (each raises on failure; nothing is caught):
    versions; build the CUDA kernels from ``reluqp_tpu_torch/csrc`` and
    print the build time;
 2. hold kernel K1 against its plain torch version on the card: 18 rungs,
-   25 steps, Dp in {128, 256, 640, 768, 896, 1024, 4096}, all four
-   precision tiers, the rung index on the device at rungs 0 and 17, and
-   padded lanes exactly 0;
+   25-step and 1-iteration windows, Dp in {128, 256, 640, 768, 896, 1024,
+   4096}, all four precision tiers, the rung index on the device at rungs
+   0 and 17, 16 and 3 rows, fp64, and padded lanes exactly 0; each shape's
+   plan logged, and every slab branch reached (registers; shared memory
+   and registers; and with the rest read from L2);
 3. time K1 per 25-step window at Dp=640 and 1024 with CUDA events, beside
    the plain version, one ``torch.addmm`` + clamp loop (timed only) and
-   the bound;
+   the bound (with ``--parent``, the parent's K1 before and after, by CUDA
+   events and in a CUDA graph of 20, and the 1-iteration window at Dp=640
+   in a CUDA graph of 20);
 4. solve the canonical QP on the card through K1;
 5. the reference ``rand_qp`` protocol at nx in {100, 323, 500} in fp32 on
    the card, against the port on the CPU in fp64;
@@ -61,8 +65,11 @@ Phases (each raises on failure; nothing is caught):
 12. K3 timing: per solve at the protocol's sizes by CUDA events, beside
     the loop path's ``solve()`` on the same instance, the plain version
     and the bound (with ``--parent``, beside the parent's K3 before and
-    after); the fused rollout's steps/s by the two-point protocol
-    beside the scan and loop paths; a profiler pass over 200 fused steps;
+    after, the outputs bit-equal to the parent's); the fused rollout's own
+    warm solve (ci=1) per launch in a CUDA graph of 20 (with ``--parent``,
+    beside the parent's, bit-equal); the fused rollout's steps/s by the
+    two-point protocol beside the scan and loop paths; a profiler pass
+    over 200 fused steps;
 13. hold kernel K4 (the batched chunk kernel) against its plain torch
     version at B in {1, 8, 64, 256} x Dp in {128, 640, 896}, every tier,
     fp32 and fp64, with padded lanes and padded rows exactly 0;
@@ -110,12 +117,13 @@ Phases (each raises on failure; nothing is caught):
     K5 on the LTV ensemble's own windows (phase 19's banks, rungs and
     states, B = 16, Dp = 128, fp32 and fp64: least of 20 launches, and 20
     launches in one CUDA graph, whose replay holds no host time) beside
-    the bound (with ``--parent``, the parent's K5 before and after at
+    the bound and 25 ``torch.baddbmm`` + clamp on the gathered rungs in a
+    CUDA graph (with ``--parent``, the parent's K5 before and after at
     B = 1024 and on the LTV windows), solves/s by a two-point fit, and a
     profiler pass over one solve and its synchronizing calls.
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
-the K2, K3 and K5 of another checkout at DIR (the parent commit, unpacked by
+the K1, K2, K3 and K5 of another checkout at DIR (the parent commit, unpacked by
 ``git archive`` into a directory that ``.gitignore`` lists) on the same
 inputs, built from DIR's own sources into DIR's own build directory.
 
@@ -185,11 +193,12 @@ def kernel_inputs(dp, rows, dtype, gen, device):
 
 
 # ``--parent DIR``: the root of another checkout (an unpacked ``git
-# archive`` of the parent commit, say) whose K2, K3 and K5 phases 9, 12 and
-# 20 time beside this checkout's, in turns, on the same inputs. Its package is
+# archive`` of the parent commit, say) whose K1, K2, K3 and K5 phases 3, 9,
+# 12 and 20 time beside this checkout's, in turns, on the same inputs. Its package is
 # imported under PARENT_PKG and builds its kernels into its own _build/.
 PARENT_PKG = "_parent_reluqp_tpu_torch"
-PARENT_KERNELS = ("solve_kernel", "full_solve", "fused_step_hetero")
+PARENT_KERNELS = ("fused_step", "solve_kernel", "full_solve",
+                  "fused_step_hetero")
 
 
 def parent_module(parent, name):
@@ -247,7 +256,7 @@ def phase_kernel_check():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    errs = {}
+    errs, slabs = {}, set()
     for dp in SMOKE_DPS:
         wt, b, lo, hi, y, d = kernel_inputs(dp, 1, torch.float32, gen, dev)
         plan = kernel_plan(1, dp)
@@ -276,22 +285,43 @@ def phase_kernel_check():
                     err64 = float((out.cpu().double() - ref64).abs().max())
                     assert err64 <= TOL[tier], (dp, rung, err64)
                     errs[(dp, "fp64 host", rung)] = err64
+            # the one-iteration window (the loop MPC's ci=1), its own kernel
+            rho = torch.tensor([N_RHO - 1], dtype=torch.int32, device=dev)
+            out = fused_chunk(bank, b, lo, hi, y, rho, 1, tier)
+            ref = fused_chunk_ref(bank, b, lo, hi, y, rho, 1, tier)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            assert float(out[:, d:].abs().max()) == 0.0, (dp, tier, "1 step")
+            assert err <= TOL[tier], f"K1 disagrees: Dp={dp} {tier} 1 step: {err:.3e}"
+            errs[(dp, tier, "1 step")] = err
         worst = {t: max(v for (p, tt, _), v in errs.items()
                         if p == dp and tt == t)
                  for t in (*banks, "fp64 host")}
+        slabs.add(plan["slab"])
         log(f"K1 Dp={dp}: plan {plan}  max|kernel-plain| "
             + "  ".join(f"{t} {e:.2e}" for t, e in worst.items()))
-    # rows > 1 (the batched reuse), fp64 state
-    for rows, dtype in ((16, torch.float32), (1, torch.float64)):
-        wt, b, lo, hi, y, d = kernel_inputs(640, rows, dtype, gen, dev)
+    log(f"K1 1-iteration window at Dp=640: plan {kernel_plan(1, 640, n_steps=1)}")
+    # rows > 1 (the batched reuse), fp64 state; R=3 rows at Dp=1024 (a
+    # split slab) and fp64 at Dp=896 (a split slab in fp64)
+    for rows, dtype, dp in ((16, torch.float32, 640), (1, torch.float64, 640),
+                            (3, torch.float32, 1024), (1, torch.float64, 896)):
+        wt, b, lo, hi, y, d = kernel_inputs(dp, rows, dtype, gen, dev)
         rho = torch.tensor([5], dtype=torch.int32, device=dev)
-        out = fused_chunk(wt, b, lo, hi, y, rho, N_STEPS, "highest")
-        ref = fused_chunk_ref(wt, b, lo, hi, y, rho, N_STEPS, "highest")
-        err = float((out - ref).abs().max())
-        tol = 1e-5 if dtype == torch.float32 else 1e-12
-        assert err <= tol, (rows, dtype, err)
-        log(f"K1 Dp=640 rows={rows} {dtype}: max|kernel-plain| {err:.2e}")
-    log("phase 2 OK: K1 matches its plain version on every shape and tier")
+        for n in (N_STEPS, 1):
+            out = fused_chunk(wt, b, lo, hi, y, rho, n, "highest")
+            ref = fused_chunk_ref(wt, b, lo, hi, y, rho, n, "highest")
+            err = float((out - ref).abs().max())
+            tol = 1e-5 if dtype == torch.float32 else 1e-12
+            assert err <= tol, (rows, dtype, n, err)
+            assert float(out[:, d:].abs().max()) == 0.0, (rows, dtype, dp, n)
+        slabs.add(kernel_plan(rows, dp, dtype)["slab"])
+        log(f"K1 Dp={dp} rows={rows} {dtype}: plan "
+            f"{kernel_plan(rows, dp, dtype)}  max|kernel-plain| {err:.2e}")
+    assert slabs >= {"registers", "smem+registers", "smem+registers+L2"}, \
+        slabs
+    log("phase 2 OK: K1 matches its plain version on every shape and tier, "
+        f"25-step and 1-iteration windows; slab branches reached: "
+        f"{sorted(slabs)}")
     return errs
 
 
@@ -356,13 +386,19 @@ def _time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def phase_timing():
-    """Per-window K1 time beside the plain version, addmm and the bound."""
+def phase_timing(card, parent=None):
+    """Per-window K1 time beside the plain version, addmm and the bound;
+    with ``parent``, the parent's K1 before and after on the same inputs:
+    25-step windows by CUDA events and in a CUDA graph, and the
+    1-iteration window at Dp=640 in a CUDA graph of 20."""
     import torch
-    from reluqp_tpu_torch.ops.fused_step import fused_chunk, fused_chunk_ref
+    from reluqp_tpu_torch.ops.fused_step import (fused_chunk, fused_chunk_ref,
+                                                 kernel_plan)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
+    old = parent_module(parent, "ops.fused_step").fused_chunk if parent \
+        else None
     rows = {}
     for dp in TIMED_DPS:
         wt, b, lo, hi, y, _ = kernel_inputs(dp, 1, torch.float32, gen, dev)
@@ -375,8 +411,18 @@ def phase_timing():
                 yy = torch.addmm(b, yy, w_k).clamp_(min=lo, max=hi)
             return yy
 
-        ms = _time_ms(lambda: fused_chunk(wt, b, lo, hi, y, rho, N_STEPS,
-                                          "highest"), 200)
+        window = lambda fn, n=N_STEPS: (
+            lambda: fn(wt, b, lo, hi, y, rho, n, "highest"))
+        if old:
+            before = _time_ms(window(old), 200)
+        ms = _time_ms(window(fused_chunk), 200)
+        if old:
+            after = _time_ms(window(old), 200)
+            g = [graph_ms(window(f), 20) for f in (old, fused_chunk, old)]
+            log(f"phase 3 K1 A/B Dp={dp} ({N_STEPS} steps, fp32 highest): "
+                f"parent {before:.5f} ms, this tree {ms:.5f} ms, parent again "
+                f"{after:.5f} ms by CUDA events; in a CUDA graph of 20 "
+                f"{g[0]:.5f}, {g[1]:.5f}, {g[2]:.5f} ms, on {card}")
         plain_ms = _time_ms(lambda: fused_chunk_ref(
             wt, b, lo, hi, y, rho, N_STEPS, "highest"), 50)
         library_ms = _time_ms(library, 50)
@@ -390,11 +436,22 @@ def phase_timing():
         rows[dp] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                         bound_ms=bound_ms,
                         bound_by="bytes" if t_bytes >= t_ops
-                        else "operations")
+                        else "operations", plan=kernel_plan(1, dp))
         log(f"K1 timing Dp={dp} (25 steps, fp32 highest): kernel {ms:.5f} ms"
             f"  plain {plain_ms:.5f} ms  addmm+clamp {library_ms:.5f} ms  "
             f"bound {bound_ms:.5f} ms ({rows[dp]['bound_by']}: "
-            f"{t_bytes:.5f} ms bytes, {t_ops:.5f} ms flops)")
+            f"{t_bytes:.5f} ms bytes, {t_ops:.5f} ms flops); plan "
+            f"{rows[dp]['plan']}")
+        if dp == 640:
+            # the loop MPC's 1-iteration window, launch after launch
+            one = [graph_ms(window(f, 1), 20)
+                   for f in ((old, fused_chunk, old) if old else
+                             (fused_chunk,))]
+            rows["one_step_ms"] = one[len(one) // 2]
+            log(f"phase 3 K1 1-iteration window Dp=640 in a CUDA graph of 20: "
+                + (f"parent {one[0]:.5f} ms, this tree {one[1]:.5f} ms, "
+                   f"parent again {one[2]:.5f} ms" if old else
+                   f"{one[0]:.5f} ms") + f", on {card}")
     log("phase 3 OK")
     return rows
 
@@ -1269,9 +1326,14 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
         ms = _time_ms(lambda: full_solve(op, y0, rho0, **kw), 20)
         if parent:
             after = _time_ms(lambda: old(op, y0, rho0, **kw), 20)
+            o_new, o_old = full_solve(op, y0, rho0, **kw), old(op, y0, rho0,
+                                                               **kw)
+            same = bool(torch.equal(o_new[0], o_old[0])
+                        and torch.equal(o_new[1], o_old[1]))
             log(f"phase 12 K3 A/B nx={nx}: parent {before:.5f} ms, this "
-                f"tree {ms:.5f} ms, parent again {after:.5f} ms per solve, "
-                f"on {card}")
+                f"tree {ms:.5f} ms, parent again {after:.5f} ms per solve; "
+                f"outputs bit-equal to the parent's: {same}, on {card}")
+            assert same, f"K3 differs from the parent's at nx={nx}"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         full_solve_ref(op, y0, rho0, **kw)
@@ -1300,7 +1362,39 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
             f"{flops:.0f} flop at the operands' nonzeros), "
             f"{ms / bound:.0f}x the bound, on {card}")
 
+    # the fused rollout's own warm solves (200 of K3's launches on the main
+    # path): the operands of the step after phase 11's rollout, from its
+    # final state and rung, ci=1, per launch in a CUDA graph of 20 (a
+    # launch's host time exceeds the solve's)
+    from reluqp_tpu_torch.models import mpc as M
     ctrl = fused["ctrl"]
+    sv = ctrl.solver
+    ops = M._fused_operands(sv, ctrl.prob)
+    x = torch.as_tensor(fused["xs"][-1]).to(
+        device=sv.y.device, dtype=sv.settings.precision_dtype)
+    op_w, bias_w = M._fused_step(sv, ops, x)
+    kw_w = M._fused_kw(sv, ops, ci=1)
+    warm = lambda fn: (lambda: fn(op_w, fused["y_f"], fused["rho_f"], bias_w,
+                                  **kw_w))
+    y_w, st_w = warm(full_solve)()
+    assert bool(torch.isfinite(y_w).all()) and float(st_w[5]) == 1.0, st_w
+    if parent:
+        old = parent_module(parent, "ops.solve_kernel").full_solve
+        y_o, st_o = warm(old)()
+        same = bool(torch.equal(y_w, y_o) and torch.equal(st_w, st_o))
+        g = [graph_ms(warm(f), 20) for f in (old, full_solve, old)]
+        log(f"phase 12 K3 A/B on the fused rollout's warm solve (Dp={sv.Dp}, "
+            f"fp32, ci=1, {int(st_w[0])} iteration(s)): parent {g[0]:.5f} ms, "
+            f"this tree {g[1]:.5f} ms, parent again {g[2]:.5f} ms per solve "
+            f"in a CUDA graph of 20; outputs bit-equal to the parent's: "
+            f"{same}, on {card}")
+        assert same, "K3's warm solve differs from the parent's"
+        warm_ms = g[1]
+    else:
+        warm_ms = graph_ms(warm(full_solve), 20)
+        log(f"phase 12 K3 on the fused rollout's warm solve (Dp={sv.Dp}, "
+            f"fp32, ci=1, {int(st_w[0])} iteration(s)): {warm_ms:.5f} ms per "
+            f"solve in a CUDA graph of 20, on {card}")
     _, _, _, _, x0 = mpc_config()
     rng = np.random.RandomState(8)
 
@@ -1330,7 +1424,7 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
     profile_steps("phase 12", ctrl, fused["xs"][-1], 200, kernel="fused",
                   ci=ci)
     log("phase 12 OK")
-    return dict(rows=rows, step_s=step_s)
+    return dict(rows=rows, step_s=step_s, warm_ms=warm_ms)
 
 
 # ---------------------------------------------------------------------- #
@@ -2357,12 +2451,26 @@ def phase_hetero_timing(card, het, parent=None):
             dev_p = graph_ms(lambda: k5_old(*args), LTV_REPS)
             ab = (f"; parent {before:.5f} ms before, {after:.5f} ms after "
                   f"({dev_p:.5f} ms in a graph)")
+        # one PyTorch call per step on the same work: 25 torch.baddbmm +
+        # clamp on the gathered rungs, in a CUDA graph as K5 is
+        Wg = ml.Wt_bank[rows_l, rho.long()].to(ml.Y.dtype)
+        b3, lo3, hi3 = (t[:, None, :] for t in (b, ml.lo, ml.hi))
+        Y3 = ml.Y.contiguous()[:, None, :]
+
+        def library():
+            yy = Y3
+            for _ in range(N_STEPS):
+                yy = torch.baddbmm(b3, yy, Wg).clamp_(min=lo3, max=hi3)
+            return yy
+
+        lib_ms = graph_ms(library, LTV_REPS)
         nnz = int(torch.count_nonzero(ml.Wt_bank[rows_l, rho.long()]))
         elt = ml.Wt_bank.element_size()
         bound, by, _, _ = k5_bound_ms(nnz, ml.B_n, ml.D, N_STEPS, elt)
         plan = hetero_plan(ml.Dp, ml.B_n, ml.Wt_bank.dtype)
         rows[("ltv", precision)] = dict(ms=ms, dev_ms=dev_ms, bound_ms=bound,
                                         bound_by=by, plan=plan,
+                                        library_ms=lib_ms,
                                         launches=ltv["launches"])
         log(f"phase 20 K5 on the LTV windows ({precision}, B={ml.B_n}, "
             f"D={ml.D}, Dp={ml.Dp}, {N_STEPS} steps, plan {plan}): "
@@ -2370,8 +2478,9 @@ def phase_hetero_timing(card, het, parent=None):
             f"the host's launch included), {dev_ms:.5f} ms per launch in a "
             f"CUDA graph of {LTV_REPS} (no host time between launches)"
             f"{ab}; bound at the rungs' nonzeros {bound:.5f} ms ({by}), "
-            f"{dev_ms / bound:.1f}x (in the graph); {ltv['launches']} "
-            f"launches in phase 19, on {card}")
+            f"{dev_ms / bound:.1f}x (in the graph); 25 torch.baddbmm + clamp "
+            f"on the gathered rungs {lib_ms:.5f} ms in a CUDA graph of "
+            f"{LTV_REPS}; {ltv['launches']} launches in phase 19, on {card}")
 
     # solves/s: a chain of n solves, each from a cleared state, at two n
     def chain(n):
@@ -2422,7 +2531,7 @@ def main():
     card = card_line()
     phase_build(parent)
     errs = phase_kernel_check()
-    timing = phase_timing()
+    timing = phase_timing(card, parent)
     launches = phase_canonical()
     protocol = phase_protocol()
     launches += protocol[0]
@@ -2448,7 +2557,10 @@ def main():
     k4, k6 = scen["k4"], scen["k6"]
     k6_plan = k6["plan"]
     kernels = [{
-        "name": "K1 fused_chunk (Dp=640, R=1, 25 steps, fp32 highest)",
+        "name": f"K1 fused_chunk (Dp=640, R=1, 25 steps, fp32 highest; a "
+                f"cluster of {t['plan']['cluster']} blocks, slab in "
+                f"{t['plan']['slab']}; the 1-iteration window "
+                f"{timing['one_step_ms']:.5f} ms in a CUDA graph)",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/fused_step.cu",
         "replaces": "reluqp_tpu/ops/fused_step.py:121",

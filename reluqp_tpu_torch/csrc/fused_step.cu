@@ -6,272 +6,229 @@
 //
 // What bounds it: one window reads one Wt rung (Dp*Dp elements: 1.64 MB at
 // Dp=640 in fp32) and does 2*n_steps*R*Dp*Dp flops, so per byte of W it does
-// 2*n_steps*R/4 flops (12.5 at n_steps=25, R=1) — below the card's fp32
+// 2*n_steps*R/4 flops (12.5 at n_steps=25, R=1) -- below the card's fp32
 // ridge of ~20 flops/byte, so the bytes of W bound it when W is read once per
 // window. The iterations are a chain of dependent GEMVs: every output lane of
-// step s+1 needs every lane of step s, so the real limit at these sizes is
-// the latency of one grid-wide exchange per step.
+// step s+1 needs every lane of step s, so at these sizes the real limit is
+// the latency of one exchange of y per step -- which must not be a grid
+// barrier and an L2 round trip (~2.3 us per step, 118x the bound at Dp=640).
 //
-// Design (simple and right first; wgmma/TMA/clusters are later work):
-//   * ONE cooperative launch per check window, grid <= one block per SM.
-//   * Block b owns the output lanes [b*ncols, (b+1)*ncols) and copies its
-//     slab Wt[:, slab] into shared memory once, transposed to [col][row] so
-//     a warp reads one column with unit stride. The slab stays there for all
-//     n_steps iterations (Dp=640: 5 columns, 12.8 KB; Dp=1024: 8 columns,
-//     32 KB). Where the slab does not fit shared memory (Dp >~ 2600 in fp32)
-//     the block streams it from L2/HBM on every iteration instead.
-//   * Each iteration every block copies the whole state y (R x Dp) into
-//     shared memory, one warp reduces one (row, column) dot product with a
-//     shuffle tree, and lane 0 applies bias and clamp.
-//   * The state moves between blocks through a double-buffered global array
-//     with grid.sync() between iterations. Input, output and the two
-//     ping-pong buffers are four distinct allocations (no aliasing). Reads of
-//     the exchanged state use __ldcg (L2, not the non-coherent L1), because
-//     another SM wrote it during this launch.
-//   * The rung index is read from a device int32 (the counterpart of scalar
-//     prefetch): the host never syncs to learn it. It is clamped into range,
-//     as a dynamic index is on the TPU.
+// Design: K5's cluster kernel (csrc/chunk_cluster.cuh) with every row on
+// one rung: the (N, Dp, Dp) bank seen as K5's with a bank stride of 0
+// between rows and one rung index for all (a stride of 0 in the rung
+// vector). Each row gets one thread-block cluster for the whole window:
+//   * the plan takes the widest cluster (up to 16 blocks) that keeps the
+//     rows in one wave (Dp=640, one row: 16 blocks of 40 columns); each
+//     lane owns one 16-byte column group and one stretch of its rows;
+//   * the slab is split: each lane holds the last 24 of its rows in
+//     registers for the window and the block the rows before them in
+//     shared memory (Dp <= 768: all in registers at Dp=256, 256 of 640
+//     rows in shared memory at Dp=640); where those do not fit shared
+//     memory either (Dp=4096) the rest is read from L2 every iteration;
+//   * each block issues its whole shared-memory slab copy with cp.async
+//     at once (K5 holds 4 copies in flight per thread);
+//   * each block holds the row's whole y, double buffered, sends its piece
+//     of the next y into every block of the cluster with st.async and waits
+//     on its own mbarrier: no grid barrier and no cluster barrier inside a
+//     window;
+//   * a window of one iteration (the loop MPC's ci=1 windows) needs no
+//     exchange: k1_kernel_step spreads each row's columns over Dp/4 (fp32)
+//     independent blocks of 256 threads, each summing a stretch of rows of
+//     one 16-byte column group straight from L2, the stretches added by a
+//     shuffle butterfly and then, in warp order, through shared memory.
+//     A cluster would first copy 100 KB of slab into each of 16 SMs.
+// The sums: each lane adds one stretch of its column group in order, the
+// stretches meet in a shuffle butterfly, in the state type (K5's order,
+// not the plain version's, so the two differ by rounding).
 //
-// Tiers (tier argument):
-//   0 highest: plain fp32 FMA (no TF32);
-//   1 high:    bf16 hi/lo split of W and y with the lo*lo term dropped,
-//              rounding by __float2bfloat16_rn, three fp32 sums;
-//   2 bf16:    bf16-rounded y and W, fp32 accumulation ("default" and
-//              "bf16"; a bf16-stored bank always takes this tier).
+// The rung index is read from a device int32 (the counterpart of scalar
+// prefetch): the host never syncs to learn it. It is clamped into range,
+// as a dynamic index is on the TPU.
+//
+// Tiers (tier argument) as csrc/tiers.cuh sets them out.
 //
 // Plain C interface, built with nvcc into a shared library and called with
-// ctypes. Every entry returns a cudaError_t (0 on success): the launch error
-// is checked right after the launch, because a cooperative launch asking
-// for more blocks than can be co-resident is otherwise refused silently.
+// ctypes. Every entry returns a cudaError_t (0 on success), the launch error
+// checked right after the launch.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "tiers.cuh"
-
-namespace cg = cooperative_groups;
+#include "chunk_cluster.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// Shared memory kept free for the runtime's own use per block.
-constexpr int kSmemReserve = 1024;
+using chunk::Plan;
 
-// Partial dot product of one state row with one W column over the lanes of
-// a warp: lane handles i = lane, lane + 32, ...; W column element i sits at
-// w[i * wstride].
-template <typename T, typename WT>
-__device__ __forceinline__ void lane_dot(const T* yr, const WT* w, size_t wstride,
-                                         int dp, int lane, int tier,
-                                         T& a0, T& a1, T& a2) {
-  if (tier == TIER_HIGHEST) {
-    for (int i = lane; i < dp; i += 32) a0 += yr[i] * cvt<T>(w[i * wstride]);
-  } else if (tier == TIER_HIGH) {
-    for (int i = lane; i < dp; i += 32) {
-      const float yv = to_f(yr[i]);
-      const float wv = to_f(w[i * wstride]);
-      const float yh = bf16r(yv), yl = bf16r(yv - yh);
-      const float wh = bf16r(wv), wl = bf16r(wv - wh);
-      // products of two bf16 values are exact in fp32
-      a0 += static_cast<T>(yh * wl);
-      a1 += static_cast<T>(yl * wh);
-      a2 += static_cast<T>(yh * wh);
-    }
-  } else {
-    for (int i = lane; i < dp; i += 32)
-      a0 += static_cast<T>(bf16r(to_f(yr[i])) * bf16r(to_f(w[i * wstride])));
-  }
+template <typename T, typename WT, int TIER, int WM, int RR>
+__global__ void __launch_bounds__(chunk::kThreads)
+k1_kernel(const chunk::Args<T, WT> a, const Plan p) {
+  chunk::chunk_body<T, WT, TIER, WM, RR, true>(a, p);
 }
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
+// One iteration (see the header): block (row, g) computes the column group
+// g of the row, thread t the rows t, t + kStepThreads, ... in order.
+constexpr int kStepThreads = 256;
+
+template <typename T, typename WT, int TIER>
+__global__ void __launch_bounds__(kStepThreads) k1_kernel_step(const chunk::Args<T, WT> a) {
+  constexpr int V = Vec16<T>::n;
+  constexpr int NA = chunk::NAcc<TIER>::n;
+  constexpr int NW = kStepThreads / 32;
+  __shared__ T part[NA][NW][V];
+  const int dp = a.dp, groups = dp / V;
+  const int row = blockIdx.x / groups, g = blockIdx.x % groups;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int k = a.rho_inds[0];
+  k = k < 0 ? 0 : (k >= a.n_rho ? a.n_rho - 1 : k);
+  const WT* w = a.bank + (size_t)k * dp * dp + g * V;
+  const T* y = a.y_in + (size_t)row * dp;
+  T a0[V], a1[V], a2[V];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+  for (int j = 0; j < V; ++j) a0[j] = a1[j] = a2[j] = T(0);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < dp; i += kStepThreads) {
+    const T yv = y[i];
+    WT wv[V];
+    loadw(w + (size_t)i * dp, wv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) mac<TIER, T, T, WT>(a0[j], a1[j], a2[j], yv, wv[j]);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      a0[j] += __shfl_xor_sync(0xffffffffu, a0[j], off);
+      if (NA == 3) {
+        a1[j] += __shfl_xor_sync(0xffffffffu, a1[j], off);
+        a2[j] += __shfl_xor_sync(0xffffffffu, a2[j], off);
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      part[0][warp][j] = a0[j];
+      if (NA == 3) {
+        part[NA > 1 ? 1 : 0][warp][j] = a1[j];
+        part[NA > 1 ? 2 : 0][warp][j] = a2[j];
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < V) {
+    const int j = threadIdx.x;
+    T s0 = T(0), s1 = T(0), s2 = T(0);
+    for (int q = 0; q < NW; ++q) {
+      s0 += part[0][q][j];
+      if (NA == 3) {
+        s1 += part[NA > 1 ? 1 : 0][q][j];
+        s2 += part[NA > 1 ? 2 : 0][q][j];
+      }
+    }
+    const T acc = NA == 3 ? (s0 + s1) + s2 : s0;
+    const size_t o = (size_t)row * dp + g * V + j;
+    T v = acc + a.b[o];
+    // comparisons (not fmin/fmax) so a NaN propagates like jnp.clip
+    const T l = a.lo[o], h = a.hi[o];
+    v = v < l ? l : v;
+    v = v > h ? h : v;
+    a.y_out[o] = v;
+  }
 }
 
 template <typename T, typename WT>
-__global__ void __launch_bounds__(kThreads)
-k1_kernel(const WT* __restrict__ wt_bank, int n_rho,
-          const T* __restrict__ b, const T* __restrict__ lo,
-          const T* __restrict__ hi, const T* y_in, T* y_out, T* scratch,
-          const int* __restrict__ rho_ind, int rows, int dp, int n_steps,
-          int tier, int ncols, int w_in_smem) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ys = reinterpret_cast<T*>(smem_raw);
-  const size_t y_bytes = ((size_t)rows * dp * sizeof(T) + 15) & ~(size_t)15;
-  WT* ws = reinterpret_cast<WT*>(smem_raw + y_bytes);
-
-  int k = *rho_ind;
-  k = k < 0 ? 0 : (k >= n_rho ? n_rho - 1 : k);
-  const WT* wt = wt_bank + (size_t)k * dp * dp;
-
-  const int j0 = blockIdx.x * ncols;
-  const int nc_here = min(ncols, dp - j0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t state = (size_t)rows * dp;
-
-  if (w_in_smem) {
-    // slab Wt[:, j0:j0+nc_here] -> ws[c * dp + i]
-    for (int t = threadIdx.x; t < nc_here * dp; t += kThreads) {
-      const int i = t / nc_here;
-      const int c = t - i * nc_here;
-      ws[(size_t)c * dp + i] = wt[(size_t)i * dp + j0 + c];
-    }
-  }
-
-  const int npairs = rows * nc_here;
-  for (int s = 0; s < n_steps; ++s) {
-    const T* src = (s == 0) ? y_in : scratch + (size_t)((s - 1) & 1) * state;
-    T* dst = (s == n_steps - 1) ? y_out : scratch + (size_t)(s & 1) * state;
-    for (size_t t = threadIdx.x; t < state; t += kThreads) ys[t] = __ldcg(src + t);
-    __syncthreads();
-    for (int p = warp; p < npairs; p += kWarps) {
-      const int r = p / nc_here;
-      const int c = p - r * nc_here;
-      const int j = j0 + c;
-      const T* yr = ys + (size_t)r * dp;
-      T a0 = T(0), a1 = T(0), a2 = T(0);
-      if (w_in_smem)
-        lane_dot<T, WT>(yr, ws + (size_t)c * dp, 1, dp, lane, tier, a0, a1, a2);
-      else
-        lane_dot<T, WT>(yr, wt + j, (size_t)dp, dp, lane, tier, a0, a1, a2);
-      a0 = warp_sum(a0);
-      if (tier == TIER_HIGH) {
-        a1 = warp_sum(a1);
-        a2 = warp_sum(a2);
-      }
-      if (lane == 0) {
-        const size_t o = (size_t)r * dp + j;
-        const T acc = (tier == TIER_HIGH) ? (a0 + a1) + a2 : a0;
-        T v = acc + b[o];
-        // comparisons (not fmin/fmax) so a NaN propagates like jnp.clip
-        const T l = lo[o], h = hi[o];
-        v = v < l ? l : v;
-        v = v > h ? h : v;
-        dst[o] = v;
-      }
-    }
-    if (s + 1 < n_steps) grid.sync();
-  }
+cudaError_t launch_step(const chunk::Args<T, WT>& a, int rows, int tier, cudaStream_t stream) {
+  const dim3 grid((unsigned)rows * (a.dp / Vec16<T>::n));
+  if (tier == TIER_HIGHEST)
+    k1_kernel_step<T, WT, TIER_HIGHEST><<<grid, kStepThreads, 0, stream>>>(a);
+  else if (tier == TIER_HIGH)
+    k1_kernel_step<T, WT, TIER_HIGH><<<grid, kStepThreads, 0, stream>>>(a);
+  else
+    k1_kernel_step<T, WT, TIER_BF16><<<grid, kStepThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
-struct Plan {
-  int nblocks, ncols, smem, w_in_smem;
+// The kernel for a plan: slab in registers (RR rows per lane), in shared
+// memory, split between shared memory and L2, or read from L2.
+struct K1Kernels {
+  template <typename T, typename WT, int TIER>
+  static auto get(const Plan& q) -> decltype(&k1_kernel<T, WT, TIER, chunk::WM_SMEM, 0>) {
+    if (q.rr == chunk::kRegRows[0]) return k1_kernel<T, WT, TIER, chunk::WM_L2, chunk::kRegRows[0]>;
+    if (q.rr == chunk::kRegRows[1]) return k1_kernel<T, WT, TIER, chunk::WM_L2, chunk::kRegRows[1]>;
+    if (q.wm == chunk::WM_SMEM) return k1_kernel<T, WT, TIER, chunk::WM_SMEM, 0>;
+    if (q.wm == chunk::WM_SPLIT) return k1_kernel<T, WT, TIER, chunk::WM_SPLIT, 0>;
+    return k1_kernel<T, WT, TIER, chunk::WM_L2, 0>;
+  }
 };
-
-template <typename T, typename WT>
-cudaError_t make_plan(int rows, int dp, Plan* plan) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  int nsm = 0, smem_optin = 0, coop = 0;
-  if ((e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev))) return e;
-  if ((e = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
-    return e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev))) return e;
-  if (!coop) return cudaErrorNotSupported;
-  if (rows < 1 || dp < 1) return cudaErrorInvalidValue;
-  const size_t y_bytes = ((size_t)rows * dp * sizeof(T) + 15) & ~(size_t)15;
-  const int ncols = (dp + nsm - 1) / nsm;
-  const size_t w_bytes = (size_t)ncols * dp * sizeof(WT);
-  const size_t budget = (size_t)(smem_optin - kSmemReserve);
-  if (y_bytes > budget) return cudaErrorInvalidValue;  // state too large
-  const int w_in = (y_bytes + w_bytes) <= budget;
-  const size_t smem = y_bytes + (w_in ? w_bytes : 0);
-  auto fn = k1_kernel<T, WT>;
-  if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-    return e;
-  int per_sm = 0;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem)))
-    return e;
-  const int nblocks = (dp + ncols - 1) / ncols;
-  if (nblocks > per_sm * nsm) return cudaErrorCooperativeLaunchTooLarge;
-  plan->nblocks = nblocks;
-  plan->ncols = ncols;
-  plan->smem = (int)smem;
-  plan->w_in_smem = w_in;
-  return cudaSuccess;
-}
-
-template <typename T, typename WT>
-cudaError_t launch(const void* wt_bank, int n_rho, const void* b, const void* lo,
-                   const void* hi, const void* y_in, void* y_out, void* scratch,
-                   const void* rho_ind, int rows, int dp, int n_steps, int tier,
-                   cudaStream_t stream) {
-  Plan plan;
-  cudaError_t e = make_plan<T, WT>(rows, dp, &plan);
-  if (e != cudaSuccess) return e;
-  const WT* a_w = static_cast<const WT*>(wt_bank);
-  int a_n = n_rho;
-  const T* a_b = static_cast<const T*>(b);
-  const T* a_lo = static_cast<const T*>(lo);
-  const T* a_hi = static_cast<const T*>(hi);
-  const T* a_yin = static_cast<const T*>(y_in);
-  T* a_yout = static_cast<T*>(y_out);
-  T* a_scr = static_cast<T*>(scratch);
-  const int* a_rho = static_cast<const int*>(rho_ind);
-  int a_rows = rows, a_dp = dp, a_steps = n_steps, a_tier = tier;
-  int a_ncols = plan.ncols, a_win = plan.w_in_smem;
-  void* args[] = {&a_w,    &a_n,     &a_b,    &a_lo,   &a_hi,   &a_yin,
-                  &a_yout, &a_scr,   &a_rho,  &a_rows, &a_dp,   &a_steps,
-                  &a_tier, &a_ncols, &a_win};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(k1_kernel<T, WT>),
-                                  dim3(plan.nblocks), dim3(kThreads), args,
-                                  (size_t)plan.smem, stream);
-  const cudaError_t last = cudaGetLastError();
-  return e != cudaSuccess ? e : last;
-}
 
 }  // namespace
 
 extern "C" {
 
-// Runs n_steps iterations; all pointers are device pointers of distinct
-// allocations: y_out (rows, dp), scratch (2, rows, dp). Returns cudaError_t.
-int k1_fused_chunk(const void* wt_bank, int w_dtype, int n_rho, const void* b,
-                   const void* lo, const void* hi, const void* y_in, void* y_out,
-                   void* scratch, const void* rho_ind, int rows, int dp,
-                   int n_steps, int tier, int y_dtype, void* stream) {
+// Runs n_steps iterations of every row of the (rows, dp) state against rung
+// *rho_ind of the (n_rho, dp, dp) bank; every pointer is a device pointer
+// starting on a 16-byte boundary, y_out a distinct allocation. Returns
+// cudaError_t.
+int k1_fused_chunk(const void* wt_bank, int w_dtype, int n_rho, const void* b, const void* lo,
+                   const void* hi, const void* y_in, void* y_out, const void* rho_ind, int rows,
+                   int dp, int n_steps, int tier, int y_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tier < TIER_HIGHEST || tier > TIER_BF16 || n_steps < 1)
+  if (tier < TIER_HIGHEST || tier > TIER_BF16 || n_steps < 1 || n_rho < 1 || rows < 1)
     return (int)cudaErrorInvalidValue;
-  if (y_dtype == DT_F32 && w_dtype == DT_F32)
-    return (int)launch<float, float>(wt_bank, n_rho, b, lo, hi, y_in, y_out, scratch,
-                                     rho_ind, rows, dp, n_steps, tier, st);
-  if (y_dtype == DT_F32 && w_dtype == DT_BF16)
-    return (int)launch<float, __nv_bfloat16>(wt_bank, n_rho, b, lo, hi, y_in, y_out,
-                                             scratch, rho_ind, rows, dp, n_steps,
-                                             TIER_BF16, st);
-  if (y_dtype == DT_F64 && w_dtype == DT_F64)
-    return (int)launch<double, double>(wt_bank, n_rho, b, lo, hi, y_in, y_out, scratch,
-                                       rho_ind, rows, dp, n_steps, tier, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)chunk::dispatch(y_dtype, w_dtype, tier, [&](auto t, auto w, int tr) {
+    using T = decltype(t);
+    using WT = decltype(w);
+    const chunk::Args<T, WT> a{static_cast<const WT*>(wt_bank), 0, n_rho,
+                               static_cast<const int*>(rho_ind), 0,
+                               static_cast<const T*>(b), static_cast<const T*>(lo),
+                               static_cast<const T*>(hi), static_cast<const T*>(y_in),
+                               static_cast<T*>(y_out), dp, n_steps};
+    if (n_steps == 1) return launch_step<T, WT>(a, rows, tr, st);
+    return chunk::launch<K1Kernels, T, WT>(a, rows, tr, true, st);
+  });
 }
 
-// The launch shape k1_fused_chunk would use, for reports.
-int k1_plan(int rows, int dp, int y_dtype, int w_dtype, int* nblocks, int* ncols,
-            int* smem, int* w_in_smem) {
-  Plan plan;
+// The launch shape k1_fused_chunk would use for a window of n_steps, for
+// reports: blocks per row (the cluster, or k1_kernel_step's independent
+// blocks where `direct`), output columns per block, threads per block,
+// dynamic shared memory per block, the slab's mode (0: read from L2, 1: in
+// shared memory, 2: split), the slab rows held in shared memory, the rows
+// per lane held in registers (a split slab's after those in shared memory;
+// whatever remains is read from L2), the contraction's stretches and how
+// many clusters the card holds at once.
+int k1_plan(int rows, int dp, int n_steps, int y_dtype, int w_dtype, int tier, int* cluster,
+            int* cw, int* threads, int* smem, int* w_mode, int* smem_rows, int* rr, int* ks,
+            int* direct, int* max_clusters) {
+  if (n_steps < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  Plan plan{};
   cudaError_t e;
-  if (y_dtype == DT_F32 && w_dtype == DT_F32)
-    e = make_plan<float, float>(rows, dp, &plan);
-  else if (y_dtype == DT_F32 && w_dtype == DT_BF16)
-    e = make_plan<float, __nv_bfloat16>(rows, dp, &plan);
-  else if (y_dtype == DT_F64 && w_dtype == DT_F64)
-    e = make_plan<double, double>(rows, dp, &plan);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (n_steps == 1) {
+    const int v = 16 / (y_dtype == DT_F64 ? 8 : 4);
+    if (dp % v) return (int)cudaErrorInvalidValue;
+    plan.cluster = dp / v;
+    plan.cw = v;
+    plan.threads = kStepThreads;
+    plan.ks = kStepThreads;
+    e = cudaSuccess;
+  } else {
+    e = chunk::dispatch(y_dtype, w_dtype, tier, [&](auto t, auto w, int tr) {
+      return chunk::plan_for<K1Kernels, decltype(t), decltype(w)>(dp, rows, tr, true, &plan);
+    });
+  }
   if (e != cudaSuccess) return (int)e;
-  *nblocks = plan.nblocks;
-  *ncols = plan.ncols;
+  *cluster = plan.cluster;
+  *cw = plan.cw;
+  *threads = plan.threads;
   *smem = plan.smem;
-  *w_in_smem = plan.w_in_smem;
+  *w_mode = plan.wm;
+  *smem_rows = plan.wm == chunk::WM_SMEM ? dp : plan.rsm;
+  // a split slab's register rows per lane, else the register slab's
+  const int left = dp - plan.rsm;
+  *rr = plan.wm == chunk::WM_SPLIT
+            ? ((left + plan.ks - 1) / plan.ks < chunk::kSplitRegRows
+                   ? (left + plan.ks - 1) / plan.ks
+                   : chunk::kSplitRegRows)
+            : plan.rr;
+  *ks = plan.ks;
+  *direct = n_steps == 1;
+  *max_clusters = plan.max_clusters;
   return 0;
 }
 

@@ -2,7 +2,8 @@
 
 The hot op of every solve. ``fused_chunk`` launches the hand-written CUDA
 kernel K1 ``csrc/fused_step.cu`` for CUDA tensors (see its header for the
-design) and runs the plain torch version ``fused_chunk_ref`` for CPU
+design: K5's cluster kernel, ``csrc/chunk_cluster.cuh``, with every row on
+the one rung) and runs the plain torch version ``fused_chunk_ref`` for CPU
 tensors. ``fused_chunk_batched`` does the same for a (B, Dp) block of
 independent rows sharing one rung, through kernel K4
 ``csrc/fused_step_batched.cu`` and its plain version
@@ -119,10 +120,10 @@ def _lib():
     lib = load("fused_step")
     if not getattr(lib, "_k1_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.k1_fused_chunk.argtypes = [vp, i, i, vp, vp, vp, vp, vp, vp, vp,
-                                       i, i, i, i, i, vp]
+        lib.k1_fused_chunk.argtypes = [vp, i, i, vp, vp, vp, vp, vp, vp, i,
+                                       i, i, i, i, vp]
         lib.k1_fused_chunk.restype = i
-        lib.k1_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 4
+        lib.k1_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 10
         lib.k1_plan.restype = i
         lib.k1_error_string.argtypes = [i]
         lib.k1_error_string.restype = ctypes.c_char_p
@@ -135,20 +136,37 @@ def _raise_cuda(lib, code: int, what: str):
     raise RuntimeError(f"K1 {what} failed: CUDA error {code} ({msg})")
 
 
-def kernel_plan(rows: int, dp: int, dtype=torch.float32,
-                w_dtype=None) -> dict:
-    """The launch shape of K1 on the current GPU: blocks, output columns
-    per block, dynamic shared memory, and whether the W slab is held in
-    shared memory (else streamed from L2 every iteration)."""
+def kernel_plan(rows: int, dp: int, dtype=torch.float32, w_dtype=None, *,
+                n_steps: int = 25, iter_precision: str = "highest") -> dict:
+    """The launch shape of K1 on the current GPU for a window of
+    ``n_steps``: one thread-block cluster of ``cluster`` blocks per row
+    (``blocks`` in all), output columns and threads per block, dynamic
+    shared memory per block, where each block's column slab of the rung
+    lives (``slab``: "smem", "registers", "L2" or a split such as
+    "smem+registers": ``smem_rows`` rows in shared memory, then
+    ``regs_rows`` rows per lane in registers, the rest read from L2 every
+    iteration), the contraction's stretches (lanes per column group), how
+    many clusters the card holds at once, and the grid barriers a window
+    crosses (0). ``direct``: a one-iteration window on independent blocks
+    (no cluster, no exchange)."""
     lib = _lib()
-    vals = [ctypes.c_int() for _ in range(4)]
-    rc = lib.k1_plan(rows, dp, _DTYPE_CODE[dtype],
-                     _DTYPE_CODE[w_dtype or dtype],
+    vals = [ctypes.c_int() for _ in range(10)]
+    rc = lib.k1_plan(rows, dp, int(n_steps), _DTYPE_CODE[dtype],
+                     _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
                      *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _raise_cuda(lib, rc, "plan")
-    keys = ("blocks", "cols_per_block", "smem_bytes", "w_in_smem")
-    return dict(zip(keys, (v.value for v in vals)))
+    (cluster, cw, threads, smem, _, smem_rows, rr, ks, direct,
+     max_clusters) = (v.value for v in vals)
+    l2_rows = max(0, dp - smem_rows - rr * ks)
+    slab = "+".join(name for name, n in (("smem", smem_rows),
+                                         ("registers", rr), ("L2", l2_rows))
+                    if n)
+    return {"cluster": cluster, "blocks": rows * cluster,
+            "cols_per_block": cw, "threads": threads, "smem_bytes": smem,
+            "slab": slab, "smem_rows": smem_rows, "regs_rows": rr,
+            "stretches": ks, "direct": bool(direct),
+            "max_clusters": max_clusters, "grid_barriers_per_window": 0}
 
 
 def _check_chunk_args(kname, wt_bank, b, lo, hi, y, rho_ind,
@@ -194,17 +212,23 @@ def _fused_chunk_cuda(wt_bank, b, lo, hi, y, rho_ind, n_steps,
     dev = y.device
     _check_chunk_args("K1", wt_bank, b, lo, hi, y, rho_ind, iter_precision)
     rows, dp = y.shape
+    if dp % (16 // y.element_size()):
+        raise ValueError(f"K1: Dp={dp} is not a whole number of 16-byte "
+                         "groups")
+    if wt_bank.data_ptr() % 16:
+        raise ValueError("K1: wt_bank must start on a 16-byte boundary")
     if n_steps == 0:
         return y.clone()
+    if y.data_ptr() % 16:
+        y = y.clone()   # the kernel reads y 16 bytes at a time
     lib = _lib()
     out = torch.empty_like(y)
-    scratch = torch.empty((2, rows, dp), dtype=y.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.k1_fused_chunk(
         wt_bank.data_ptr(), _DTYPE_CODE[wt_bank.dtype], wt_bank.shape[0],
         b.data_ptr(), lo.data_ptr(), hi.data_ptr(), y.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), rho_ind.data_ptr(), rows, dp,
-        int(n_steps), _TIER[iter_precision], _DTYPE_CODE[y.dtype], stream)
+        out.data_ptr(), rho_ind.data_ptr(), rows, dp, int(n_steps),
+        _TIER[iter_precision], _DTYPE_CODE[y.dtype], stream)
     if rc != 0:
         _raise_cuda(lib, rc, "launch")
     fused_chunk.launches += 1

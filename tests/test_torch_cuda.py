@@ -20,6 +20,7 @@ from reluqp_tpu_torch.ops.fused_step import (fused_chunk,
                                              fused_chunk_hetero,
                                              fused_chunk_hetero_ref,
                                              fused_chunk_ref, hetero_plan,
+                                             kernel_plan,
                                              pallas_chunk_runner)
 from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_batched,
@@ -27,7 +28,7 @@ from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_ref, full_solve,
                                                full_solve_ref,
                                                rollout_batched_plan,
-                                               rollout_plan)
+                                               rollout_plan, solve_plan)
 from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp, update_qp
 
 pytestmark = pytest.mark.cuda
@@ -64,6 +65,42 @@ def test_k1_matches_plain_version(dev, dp):
         ref = fused_chunk_ref(wt, b, lo, hi, y, rho, 25, tier)
         assert out.data_ptr() not in (y.data_ptr(), ref.data_ptr())
         assert float((out - ref).abs().max()) <= tol, tier
+
+
+# R rows on one rung, a split slab (Dp=1024: shared memory and registers)
+# and Dp=4096 (its rows after the registers' read from L2), in windows of
+# 25 iterations and of one (K1's own one-step kernel)
+@pytest.mark.parametrize("rows,dp", [(3, 1024), (1, 4096)])
+def test_k1_rows_and_wide_slabs_match_plain_version(dev, rows, dp):
+    wt, b, lo, hi, y = _inputs(dp, dev, rows=rows, seed=dp)
+    rho = torch.tensor([2], dtype=torch.int32, device=dev)
+    for n in (25, 1):
+        out = fused_chunk(wt, b, lo, hi, y, rho, n, "highest")
+        ref = fused_chunk_ref(wt, b, lo, hi, y, rho, n, "highest")
+        assert float((out - ref).abs().max()) <= 1e-5, (rows, dp, n)
+
+
+def test_k1_plan_by_shape(dev):
+    """One cluster per row for the window, no grid barrier; the slab in
+    registers (Dp=128), split between shared memory and registers
+    (Dp=640, 1024) and with the rest from L2 (Dp=4096); a one-iteration
+    window on independent blocks."""
+    small, mid, big, wide = (kernel_plan(1, dp) for dp in (128, 640, 1024,
+                                                          4096))
+    assert small["slab"] == "registers" and small["smem_rows"] == 0
+    for p in (mid, big):
+        assert p["slab"] == "smem+registers" and p["cluster"] == 16
+        assert p["smem_rows"] + p["regs_rows"] * p["stretches"] >= \
+            p["cols_per_block"] * p["cluster"]
+    assert wide["slab"] == "smem+registers+L2"
+    for p in (small, mid, big, wide):
+        assert p["grid_barriers_per_window"] == 0 and not p["direct"]
+        assert p["blocks"] == p["cluster"] and p["cluster"] <= 16
+    three = kernel_plan(3, 1024)
+    assert three["blocks"] == 3 * three["cluster"]
+    one = kernel_plan(1, 640, n_steps=1)
+    assert one["direct"] and one["slab"] == "L2"
+    assert one["blocks"] * one["cols_per_block"] == 640
 
 
 def test_k1_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -284,6 +321,34 @@ def test_k3_matches_plain_version(dev, name, data, kw, status):
     scale = max(1.0, float(ref[0].abs().max()))
     assert float((out[0] - ref[0]).abs().max()) <= tol * scale
     assert float(out[0][m.D:].abs().max()) == 0.0
+
+
+def test_k3_plan_by_shape(dev):
+    """One persistent block per SM on the cooperative grid; every slab in
+    shared memory at the protocol's nx=100 shape."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = solve_plan(256, 128, 128)
+    assert plan["blocks"] == n_sm and plan["resident"]
+    assert plan["cols_per_block"] * plan["blocks"] >= 256
+
+
+def test_k3_is_bit_equal_across_a_rung_change_at_dp1024(dev):
+    """The reference protocol's nx=500 instance (Dp=1024, fp32), cold: the
+    solve walks the ladder away from its start rung, and the kernel's
+    outputs equal its plain version's bit for bit."""
+    data = rand_qp(500, 125, 125, seed=0, compute_sol=False)[:5]
+    m = rqt.ReLU_QP()
+    m.setup(*data, backend="fused", precision="float32", eps_abs=1e-4,
+            scaling=True)
+    assert m.Dp == 1024
+    op, call = m._fused_call()
+    y0 = torch.zeros_like(m.y)
+    rho0 = int(m.rho_ind)
+    out = full_solve(op, y0, rho0, **call)
+    ref = full_solve_ref(op, y0, rho0, **call)
+    assert int(out[1][4]) != rho0, "the solve kept its start rung"
+    assert torch.equal(out[1].cpu(), ref[1].cpu())
+    assert torch.equal(out[0], ref[0])
 
 
 def test_fused_backend_on_cuda_is_one_k3_launch(dev):

@@ -5,7 +5,10 @@ package's Pallas ``fused_chunk`` run in interpret mode on the CPU, as
 ``tests/test_chunk_kernel.py`` runs it: Dp 128 and 640, 1 and 16 rows,
 the first and last rung, all four precision tiers. The CUDA kernel
 itself is compared with ``fused_chunk_ref`` on the card
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+(``tests/test_torch_cuda.py`` and ``chip_smoke.py``). K1 runs K5's
+cluster kernel with every row on the one rung, so the same JAX kernel is
+also held against K5's plain version on that view: the bank repeated over
+the rows with a stride of 0 and a rung vector of that one rung.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,9 +19,10 @@ from jax.experimental.pallas import tpu as pltpu
 from reluqp_tpu.ops.fused_step import fused_chunk as j_fused_chunk
 from reluqp_tpu.ops.fused_step import pad_dim as j_pad_dim
 
-from reluqp_tpu_torch.ops.fused_step import (fused_chunk, fused_chunk_ref,
-                                             pad_dim, pallas_chunk_runner,
-                                             round_up)
+from reluqp_tpu_torch.ops.fused_step import (fused_chunk,
+                                             fused_chunk_hetero_ref,
+                                             fused_chunk_ref, pad_dim,
+                                             pallas_chunk_runner, round_up)
 
 N_RHO, STEPS = 3, 10
 # "highest": both are plain fp32 and differ by summation order only.
@@ -59,6 +63,35 @@ def test_plain_k1_matches_jax_kernel(dp, rows, rung, tier):
     assert out.shape == (rows, dp) and out.dtype == torch.float32
     err = float(np.max(np.abs(out.numpy() - ref)))
     assert err <= TOL[tier], (tier, err)
+
+
+@pytest.mark.parametrize("tier", ["highest", "high", "default", "bf16"])
+@pytest.mark.parametrize("rows", [1, 16])
+@pytest.mark.parametrize("dp", [128, 640])
+def test_k1_as_k5_view_matches_jax_kernel(dp, rows, tier):
+    """What K1's kernel computes on K5's path: every row against rung
+    ``rung`` of the (N, Dp, Dp) bank, seen as K5's (R, N, Dp, Dp) bank with
+    a stride of 0 over the rows and a rung vector of that rung."""
+    rung = N_RHO - 1
+    arrs = _problem(dp, rows, seed=dp + 3 * rows)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(j_fused_chunk(
+            *(jnp.asarray(a, jnp.float32) for a in arrs[:4]),
+            jnp.asarray(arrs[4], jnp.float32), rung, STEPS, tier))
+    wt, b, lo, hi, y = (torch.as_tensor(a, dtype=torch.float32)
+                        for a in arrs)
+    view = wt.unsqueeze(0).expand(rows, *wt.shape)
+    assert rows == 1 or view.stride(0) == 0
+    rungs = torch.full((rows,), rung, dtype=torch.int32)
+    out = fused_chunk_hetero_ref(view, b, lo, hi, y, rungs, STEPS, tier)
+    assert out.shape == (rows, dp) and out.dtype == torch.float32
+    err = float(np.max(np.abs(out.numpy() - ref)))
+    assert err <= TOL[tier], (tier, err)
+    # and K1's own plain version agrees with it
+    torch.testing.assert_close(
+        out, fused_chunk_ref(wt, b, lo, hi, y,
+                             torch.tensor(rung, dtype=torch.int32), STEPS,
+                             tier), rtol=0, atol=2 * TOL[tier])
 
 
 def test_bf16_tiers_are_coarser_than_high():
