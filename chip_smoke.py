@@ -120,7 +120,32 @@ Phases (each raises on failure; nothing is caught):
     the bound and 25 ``torch.baddbmm`` + clamp on the gathered rungs in a
     CUDA graph (with ``--parent``, the parent's K5 before and after at
     B = 1024 and on the LTV windows), solves/s by a two-point fit, and a
-    profiler pass over one solve and its synchronizing calls.
+    profiler pass over one solve and its synchronizing calls;
+21. ``bank_build="device"`` on phase 19's B = 1024 batch: the setup's fp64
+    B masters, and the card's fp64 build of the first 64 problems' W,
+    against the host's fp64 build (within BANK_TOL, finite fp32 caps); one
+    ``solve()`` through K5 with every problem solved; ``update(g)`` (the
+    bias formed on the card from the fp64 master) against a host-built
+    batch, both solved cold: equal status; the setup seconds of the
+    device, native-host and numpy-host builds (``utils.timing.Timer``);
+22. ``tail_policy="repack"`` against ``"dense"`` on
+    ``benchmarks/batched_qps.py``'s shared batch (B = 10000, nx = 50,
+    n_eq = n_ineq = 12, fp32, "highest", eps 1e-3): the schedule (K4's
+    row tile as its alignment), equal per-row status and first-convergence
+    iterations, x within REPACK_X_TOL, K4 launches by row capacity (K4
+    only), syncs per check window (repack adds none), each solve's least
+    time of REPACK_REPS by CUDA events (``utils.timing.time_fn_events``),
+    and the budget-exhaustion case (eps 1e-4, max_iter 50): equal status
+    and iterations;
+23. checkpoints on the card: the protocol QP (nx = 100) with
+    ``backend="fused"``, phase 19's B = 1024 batch (warm) and
+    phase 22's repack batch, each saved, loaded (onto ``cuda`` by default)
+    and solved beside the original: equal status and iterations and x
+    bit-equal, K3 / K5 / K4 launched; load seconds beside setup seconds;
+24. the native bank builder on the MPC configuration's condensed QP
+    (D = 600): native and numpy builds timed, the fp64 B masters within
+    1e-9 and the fp32 W within one fp32 rounding, a solve through K1 with
+    each: equal status and iterations.
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
 the K1, K2, K3 and K5 of another checkout at DIR (the parent commit, unpacked by
@@ -128,7 +153,7 @@ the K1, K2, K3 and K5 of another checkout at DIR (the parent commit, unpacked by
 inputs, built from DIR's own sources into DIR's own build directory.
 
 Every kernel launch counter is set to 0 just before each main-path phase
-(4, 5, 6, 8, 11, 14, 16, 19) and read just after; a main-path phase that
+(4, 5, 6, 8, 11, 14, 16, 19, 21, 22, 23, 24) and read just after; a main-path phase that
 launched its kernel no time fails. The second-to-last line is the ``{"kernels": [...]}``
 record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the package beside it, the script exits non-zero before printing a
@@ -688,6 +713,7 @@ def sync_sites(tag, run, steps):
         f"{sum(sites.values()) / steps:.2f} per step; by line: "
         + ("; ".join(f"{k} x{v}" for k, v in sites.most_common(8))
            or "none"))
+    return sum(sites.values())
 
 
 def profile_run(tag, run, steps, what):
@@ -2515,6 +2541,368 @@ def phase_hetero_timing(card, het, parent=None):
     return dict(rows=rows, qps=m.B_n / per)
 
 
+# Phases 21-24: the batched solver's remaining single-device options.
+# phase 22: benchmarks/batched_qps.py's shared batch (its north-star width)
+REPACK_B, REPACK_NX = 10000, 50
+REPACK_KW = dict(eps_abs=1e-3, precision="float32", iter_precision="highest")
+# repack drops converged rows that the dense loop keeps iterating around
+# their fixed points: x agrees to that drift, not to rounding
+REPACK_X_TOL = 1e-2
+REPACK_REPS = 3
+# the budget-exhaustion case: max_iter 50 (2 windows) at eps 1e-4, where
+# about a tenth of the batch certifies (a stage exit before the budget ends
+# is held in tests/test_torch_repack.py)
+REPACK_BUDGET_EPS = (1e-4,)
+# phase 21: device build against the host build, fp64 on both sides, finite
+# fp32 caps (uncapped top rungs are too ill-conditioned for a bound)
+BANK_TOL = 1e-9
+
+
+def shared_batch(B, nx=REPACK_NX, seed0=0):
+    """benchmarks/batched_qps.py's ``_make_batch``: one ``rand_qp(nx, nx/4,
+    nx/4)`` (H, A) and B right-hand sides drawn around it in bulk."""
+    from reluqp_tpu_torch.utils.problems import rand_qp
+    n_eq = n_ineq = nx // 4
+    base = rand_qp(nx=nx, n_eq=n_eq, n_ineq=n_ineq, seed=seed0,
+                   compute_sol=False)
+    rng = np.random.RandomState(seed0)
+    A_eq, C = base.A[:n_eq], base.A[n_eq:]
+    act = rng.randn(B, n_ineq) > 0.5
+    mu = rng.randn(B, n_eq)
+    lam = rng.randn(B, n_ineq) * act
+    x = rng.randn(B, nx)
+    b = x @ A_eq.T
+    d = x @ C.T - rng.randn(B, n_ineq) * (~act)
+    G = -(x @ base.H.T) - mu @ A_eq - lam @ C
+    L = np.concatenate([b, d], axis=1)
+    U = np.concatenate([b, np.full((B, n_ineq), np.inf)], axis=1)
+    return base.H, G, base.A, L, U
+
+
+def phase_device_build(card):
+    """Slice 9: ``bank_build="device"`` on phase 19's B=1024 batch. The
+    setup's fp64 B masters (and a device build of the first 64 problems'
+    W) against the host build in fp64; a solve through K5 with every
+    problem solved; ``update(g)`` (the bias formed on the card from the
+    fp64 master) against the host-built batch; the setup seconds of the
+    device, numpy-host and native-host builds."""
+    import torch
+    from reluqp_tpu_torch import BatchedReLU_QP, native
+    from reluqp_tpu_torch.core.bank import (auto_rho_cap_batch,
+                                            build_bank_torch,
+                                            build_banks_np_batch,
+                                            equality_mask)
+    from reluqp_tpu_torch.utils.timing import Timer
+    data = hetero_batch(HET_B)
+    timer = Timer()
+
+    def run():
+        m = BatchedReLU_QP()
+        with timer.section("device"):
+            m.setup(*data, bank_build="device", **HET_KW)
+        return m, m.solve()
+
+    (m, res), counts = _counted(run, "K5")
+    assert all(n == 0 for k, n in counts.items() if k != "K5"), counts
+    n_k5 = counts["K5"]
+    assert res.info.status.all(), f"{res.info.status.sum()}/{HET_B} solved"
+    assert m._B_dev.is_cuda and m._B_np is None
+    assert not m.Wt_bank[:, :, m.D:].any() and not m.Wt_bank[..., m.D:].any()
+
+    # the first 64 problems' banks, built on the card and on the host in
+    # fp64 (HET_KW does not scale: the scaled data are the data)
+    H, _, A, l, u = (a[:HET_CMP] for a in data)
+    eq = equality_mask(l, u, m.settings.eq_tol)
+    caps = auto_rho_cap_batch(A, HET_KW["eps_abs"], torch.float32, HET_NX)
+    assert np.allclose(caps, m.rho_cap[:HET_CMP])
+    Wd, Bd = build_bank_torch(H, A, eq, m.rhos_np, m.settings.sigma,
+                              rho_caps=caps, device="cuda")
+    Wh, Bh = build_banks_np_batch(H, A, eq, m.rhos_np, m.settings.sigma,
+                                  1.0, caps)
+    D = m.D
+    err_w = float(np.max(np.abs(Wd.cpu().numpy() - Wh)))
+    err_b = float(np.max(np.abs(m._B_dev[:HET_CMP, :, :D].cpu().numpy()
+                                - Bh)))
+    assert err_w < BANK_TOL and err_b < BANK_TOL, (err_w, err_b)
+    w32 = Wd.transpose(-1, -2).float()
+    err_w32 = float((m.Wt_bank[:HET_CMP, :, :D, :D] - w32).abs().max())
+    log(f"phase 21 device build vs host fp64 build, first {HET_CMP} "
+        f"problems: |W|inf {err_w:.2e}, |B master|inf {err_b:.2e} (bound "
+        f"{BANK_TOL:g}); the setup's fp32 W vs this build's {err_w32:.2e}")
+    del Wd, Bd
+
+    hosts = {}
+    for name, avail in (("native", native.available),
+                        ("numpy", lambda: False)):
+        orig = native.available
+        native.available = avail
+        try:
+            h = BatchedReLU_QP()
+            with timer.section(name):
+                h.setup(*data, **HET_KW)
+        finally:
+            native.available = orig
+        hosts[name] = h
+    have_native = native.available()
+    g2 = data[1] * 1.05
+    h = hosts["native"]
+    for mm in (m, h):
+        mm.update(g=g2)
+        mm.clear_primal_dual()      # both solve cold
+    err_bias = float((m.bias_all - h.bias_all).abs().max())
+    scale = float(h.bias_all.abs().max())
+    assert err_bias <= 1e-5 * scale, (err_bias, scale)
+    r_d, counts = _counted(m.solve, "K5")
+    n_k5 += counts["K5"]
+    r_h = h.solve()
+    assert r_d.info.status.all() and r_h.info.status.all()
+    assert (r_d.info.status_code == r_h.info.status_code).all()
+    dx = float((r_d.x - r_h.x).abs().max())
+    n_it = int(np.sum(r_d.info.iter != r_h.info.iter))
+    assert dx < 5e-3, dx
+    secs = {k: v["total"] for k, v in timer.summary().items()}
+    log(f"phase 21 update(g): device-formed bias vs the host build's "
+        f"|b|inf {err_bias:.2e} (|b| up to {scale:.2e}); solve: all "
+        f"{HET_B} solved, |x|inf {dx:.2e}, {n_it} problems certified at "
+        f"another window; launches {counts}")
+    log(f"phase 21 setup at B={HET_B} (nx={HET_NX}, fp32) on {card}: "
+        f"device build {secs['device']:.3f} s, native host build "
+        f"{secs['native']:.3f} s"
+        + ((" (OpenMP)" if native.uses_openmp() else " (serial: the "
+            "compiler has no OpenMP)") if have_native else
+           " (the native library did not build: numpy)")
+        + f", numpy host build {secs['numpy']:.3f} s")
+    log("phase 21 OK")
+    return dict(m=m, setup_s=secs, launches=n_k5)
+
+
+def repack_solve(m):
+    """One cold solve."""
+    m.clear_primal_dual()
+    return m.solve()
+
+
+def phase_repack(card):
+    """Slice 9: ``tail_policy="repack"`` against ``"dense"`` on
+    benchmarks/batched_qps.py's shared batch at B=10000 through K4: equal
+    per-row status and first-convergence iterations, x within the
+    post-convergence drift; K4 launches by stage capacity; syncs per
+    window; each solve's least time of REPACK_REPS by CUDA events; then
+    the budget-exhaustion case."""
+    import collections
+    import reluqp_tpu_torch.batch as tbatch
+    from reluqp_tpu_torch import BatchedReLU_QP
+    from reluqp_tpu_torch.ops.fused_step import batched_plan
+    from reluqp_tpu_torch.utils.timing import time_fn_events
+    data = shared_batch(REPACK_B)
+    ms = {}
+    for policy in ("dense", "repack"):
+        ms[policy] = BatchedReLU_QP()
+        ms[policy].setup(*data, tail_policy=policy, **REPACK_KW)
+    md, mr = ms["dense"], ms["repack"]
+    assert mr._use_pallas and mr.settings.device.type == "cuda"
+    sched = mr._repack_sched
+    plan = batched_plan(mr.B_pad, mr.Dp, mr.settings.precision_dtype)
+    assert len(sched) > 1 and all(c % plan["rows_per_tile"] == 0
+                                  for c in sched[1:]), (sched, plan)
+
+    rows = collections.Counter()
+    runner = tbatch.pallas_batched_chunk_runner
+
+    def by_rows(Wt, bias, rho, lo, hi, Y, n, prec="highest"):
+        rows[Y.shape[0]] += 1
+        return runner(Wt, bias, rho, lo, hi, Y, n, prec)
+
+    res = {}
+    for policy, m in ms.items():
+        rows.clear()
+        tbatch.pallas_batched_chunk_runner = by_rows
+        try:
+            res[policy], counts = _counted(lambda: repack_solve(m), "K4")
+        finally:
+            tbatch.pallas_batched_chunk_runner = runner
+        assert all(n == 0 for k, n in counts.items() if k != "K4"), counts
+        res[policy] = (res[policy], dict(rows), counts["K4"])
+    (rd, rows_d, n_d), (rr, rows_r, n_r) = res["dense"], res["repack"]
+    # every stage the solve reached ran K4 at its capacity
+    assert set(rows_r) <= set(sched) and len(rows_r) > 1, (rows_r, sched)
+    assert set(rows_d) == {md.B_pad}
+    assert rd.info.status.all() and rr.info.status.all()
+    assert (rd.info.status_code == rr.info.status_code).all()
+    n_diff = int(np.sum(rd.info.iter != rr.info.iter))
+    assert n_diff == 0, f"{n_diff} rows certified at another iteration"
+    assert rd.info.n_iter_total == rr.info.n_iter_total
+    dx = float((rd.x - rr.x).abs().max())
+    assert dx < REPACK_X_TOL, dx
+    windows = rr.info.n_iter_total // mr.settings.check_interval
+    log(f"phase 22 B={REPACK_B} (nx={md.nx}, nc={md.nc}, Dp={md.Dp}, fp32 "
+        f"highest): schedule {sched} (K4 row tile {plan['rows_per_tile']}); "
+        f"{windows} windows, iterations per row {rr.info.iter.min()}.."
+        f"{rr.info.iter.max()}, equal to dense on every row; |x|inf "
+        f"{dx:.2e}; K4 launches by rows: dense {rows_d}, repack "
+        f"{dict(sorted(rows_r.items(), reverse=True))}")
+    # (sync_sites reports per "step": here a check window)
+    syncs = {p: sync_sites(f"phase 22 {p}", lambda m=m: repack_solve(m),
+                           windows) for p, m in ms.items()}
+    assert syncs["repack"] <= syncs["dense"], syncs
+    t = {p: time_fn_events(repack_solve, m, reps=REPACK_REPS)["best"]
+         for p, m in ms.items()}
+    log(f"phase 22 solve time (least of {REPACK_REPS}, CUDA events) on "
+        f"{card}: dense {t['dense'] * 1e3:.3f} ms, repack "
+        f"{t['repack'] * 1e3:.3f} ms (ratio {t['repack'] / t['dense']:.3f});"
+        f" syncs per window: dense {syncs['dense'] / windows:.2f}, repack "
+        f"{syncs['repack'] / windows:.2f}")
+
+    for eps in REPACK_BUDGET_EPS:
+        out = {}
+        for policy in ("dense", "repack"):
+            m = BatchedReLU_QP()
+            m.setup(*data, tail_policy=policy,
+                    **dict(REPACK_KW, eps_abs=eps, max_iter=50))
+            rows.clear()
+            tbatch.pallas_batched_chunk_runner = by_rows
+            try:
+                out[policy] = (m.solve(), dict(rows))
+            finally:
+                tbatch.pallas_batched_chunk_runner = runner
+        (bd, _), (br, rows_b) = out["dense"], out["repack"]
+        assert not bd.info.status.all()
+        assert (bd.info.status_code == br.info.status_code).all()
+        assert (bd.info.iter == br.info.iter).all()
+        assert bd.info.n_iter_total == br.info.n_iter_total == 50
+        log(f"phase 22 budget exhaustion (eps {eps:g}, max_iter 50): "
+            f"{int(bd.info.status.sum())}/{REPACK_B} solved in both, status "
+            f"and iterations equal; repack K4 launches by rows {rows_b}")
+    log("phase 22 OK")
+    return dict(m=mr, t=t, launches=n_d + n_r, sched=sched)
+
+
+def _round_trip(save, load, m, path, tag):
+    from reluqp_tpu_torch.utils.timing import Timer
+    timer = Timer()
+    with timer.section("save"):
+        save(m, path)
+    with timer.section("load"):
+        m2 = load(path)
+    secs = {k: v["total"] for k, v in timer.summary().items()}
+    size = os.path.getsize(path) / 1e9
+    log(f"phase 23 {tag}: saved {size:.3f} GB in {secs['save']:.3f} s, "
+        f"loaded in {secs['load']:.3f} s (setup {m.info.setup_time:.3f} s)")
+    assert m2.settings.device.type == "cuda"
+    return m2
+
+
+def phase_checkpoint(card, protocol, het, repack):
+    """Slice 9: checkpoints on the card. The protocol QP (nx=100) with
+    backend="fused", phase 19's heterogeneous batch and phase 22's repack
+    batch, each saved, loaded (onto cuda by default) and solved beside
+    the original: equal status and iterations."""
+    import shutil
+    import tempfile
+    from reluqp_tpu_torch import ReLU_QP
+    from reluqp_tpu_torch.utils import checkpoint as ck
+    tmp = tempfile.mkdtemp(prefix="reluqp_ckpt_")
+    try:
+        inst = protocol[1][100]
+        m = ReLU_QP()
+        m.setup(*inst[:5], backend="fused", precision="float32",
+                eps_abs=1e-4, scaling=True)
+        m2 = _round_trip(ck.save_solver, ck.load_solver, m,
+                         os.path.join(tmp, "qp.npz"), "protocol nx=100 fused")
+        assert m2._fused
+        r2, counts = _counted(m2.solve, "K3")
+        r1 = m.solve()
+        assert (r1.info.status, r1.info.iter) == (r2.info.status,
+                                                  r2.info.iter), \
+            (r1.info, r2.info)
+        assert r1.info.status == "solved"
+        dx = float((r1.x - r2.x).abs().max())
+        assert dx == 0.0, dx
+        log(f"phase 23 fused QP: {r2.info.status} in {r2.info.iter} "
+            f"iterations, as the original, x bit-equal; launches {counts}")
+        n_k3 = counts["K3"]
+
+        launches = {"K3": n_k3}
+        for tag, mb, kernel in ((f"hetero B={het['m'].B_n}", het["m"], "K5"),
+                                (f"repack B={repack['m'].B_n}", repack["m"],
+                                 "K4")):
+            mb2 = _round_trip(ck.save_batched_solver, ck.load_batched_solver,
+                              mb, os.path.join(tmp, "batch.npz"), tag)
+            assert mb2.tail_policy == mb.tail_policy
+            assert mb2._repack_sched == mb._repack_sched
+            rb2, counts = _counted(mb2.solve, kernel)
+            rb1 = mb.solve()
+            assert rb1.info.status.all() and rb2.info.status.all()
+            assert (rb1.info.iter == rb2.info.iter).all()
+            dx = float((rb1.x - rb2.x).abs().max())
+            assert dx == 0.0, dx
+            log(f"phase 23 {tag}: warm solve after the load equal to the "
+                f"original's (iterations, status, x bit-equal); launches "
+                f"{counts}")
+            launches[kernel] = counts[kernel]
+            os.remove(os.path.join(tmp, "batch.npz"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 23 OK on {card}")
+    return launches
+
+
+def phase_native(card):
+    """Slice 9: the native bank builder on the MPC configuration's
+    condensed QP (D=600): native and numpy builds timed, the banks within
+    fp64 rounding, and a solve through K1 with each: equal status and
+    iterations."""
+    from reluqp_tpu_torch import ReLU_QP, native
+    from reluqp_tpu_torch.models.mpc import MPC
+    from reluqp_tpu_torch.utils.timing import Timer
+    if not native.available():
+        native.ensure_built()       # raises with the compiler's message
+    openmp = native.uses_openmp()
+    Ad, Bd, Q, R, x0 = mpc_config()
+    prob = MPC(Ad, Bd, Q, R, horizon=MPC_H, device="cpu", backend="xla",
+               **MPC_KW).prob
+    g = prob.g0 + prob.g_x0 @ x0
+    shift = prob.lu_x0 @ x0
+    data = (prob.H, g, prob.A, prob.l0 + shift, prob.u0 + shift)
+    kw = dict(eps_abs=MPC_KW["eps_abs"], max_iter=MPC_KW["max_iter"])
+    timer = Timer()
+    ms, res, n_k1 = {}, {}, 0
+    for how in ("native", "numpy"):
+        m = ReLU_QP()
+        with timer.section(how):
+            m.setup(*data, bank_backend=how, **kw)
+        assert m.setup_breakdown["bank_backend"] == how
+        ms[how] = m
+        res[how], counts = _counted(m.solve, "K1")
+        assert all(n == 0 for k, n in counts.items() if k != "K1"), counts
+        n_k1 += counts["K1"]
+    a, b = ms["native"], ms["numpy"]
+    assert a.D == 600, a.D
+    errW = float((a.bank.W.double() - b.bank.W.double()).abs().max())
+    errB = float(np.max(np.abs(a._B_np - b._B_np)))
+    scale = float(b.bank.W.double().abs().max())
+    # the iteration dtype's copies of two fp64 banks that differ by fp64
+    # rounding: equal, or one fp32 rounding apart
+    assert errW <= 2.0 ** -23 * scale and errB < 1e-9, (errW, errB)
+    ra, rb = res["native"], res["numpy"]
+    assert ra.info.status == rb.info.status == "solved"
+    assert ra.info.iter == rb.info.iter, (ra.info.iter, rb.info.iter)
+    dx = float((ra.x - rb.x).abs().max())
+    br = {k: ms[k].setup_breakdown["bank_build_s"] for k in ms}
+    log(f"phase 24 MPC condensed QP (D={a.D}, Dp={a.Dp}, "
+        f"{len(a.rhos_np)} rungs) on {card}: bank build native ("
+        + ("OpenMP" if openmp else "serial: the compiler has no OpenMP")
+        + f") "
+        f"{br['native']:.4f} s, numpy {br['numpy']:.4f} s (setups "
+        f"{timer.summary()['native']['total']:.3f} / "
+        f"{timer.summary()['numpy']['total']:.3f} s); fp64 B masters "
+        f"|dB|inf {errB:.2e}, device W |dW|inf {errW:.2e}; K1 solves "
+        f"{ra.info.status} in {ra.info.iter} iterations each, |dx|inf "
+        f"{dx:.2e}")
+    log("phase 24 OK")
+    return dict(build_s=br, launches=n_k1)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2551,6 +2939,10 @@ def main():
     k5_errs = phase_k5_check()
     het = phase_hetero_main(card)
     k5_rows = phase_hetero_timing(card, het, parent)["rows"]
+    dev_build = phase_device_build(card)
+    repack = phase_repack(card)
+    ckpt = phase_checkpoint(card, protocol, het, repack)
+    nat = phase_native(card)
     k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]
     k3_row = k3["rows"][100]
@@ -2564,7 +2956,7 @@ def main():
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/fused_step.cu",
         "replaces": "reluqp_tpu/ops/fused_step.py:121",
-        "launches": launches,
+        "launches": launches + nat["launches"],
         "max_abs_err": max(errs[(640, "highest", r)] for r in (0, N_RHO - 1)),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2591,7 +2983,7 @@ def main():
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/full_solve.cu",
         "replaces": "reluqp_tpu/ops/solve_kernel.py:336",
-        "launches": fused["launches"],
+        "launches": fused["launches"] + ckpt["K3"],
         "max_abs_err": k3_errs[(256, "float32")],
         "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
         "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
@@ -2602,7 +2994,8 @@ def main():
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/fused_step_batched.cu",
         "replaces": "reluqp_tpu/ops/fused_step.py:232",
-        "launches": scen_loop["launches"],
+        "launches": (scen_loop["launches"] + repack["launches"]
+                     + ckpt["K4"]),
         "max_abs_err": k4_errs[(torch.float32, 640, 64, "highest")],
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -2634,7 +3027,7 @@ def main():
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/fused_step_hetero.cu",
         "replaces": "reluqp_tpu/ops/fused_step.py:356",
-        "launches": het["launches"],
+        "launches": het["launches"] + dev_build["launches"] + ckpt["K5"],
         "max_abs_err": k5_errs[(torch.float32, 128, K5_BIG_B, "highest")],
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],

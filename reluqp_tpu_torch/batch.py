@@ -27,21 +27,27 @@ the rank of H / A at ``setup``:
   - ``backend="xla"``: the plain runner ``_chunk_hetero`` on the unpadded
     layout.
 
-  The banks are built on the host in fp64, stacked over chunks of
-  problems on one thread, and written straight into the iteration dtype. Their device footprint is checked at setup against a cap: 3/4 of
-  the card's memory on ``cuda``, 8 GiB on the CPU;
-  ``RELUQP_MAX_BANK_BYTES`` overrides it.
+  ``bank_build="host"`` builds the banks on the host in fp64, over chunks
+  of problems on one thread (with the native C++ builder where it builds
+  and ``alpha == 1``, else stacked numpy), written straight into the
+  iteration dtype; ``bank_build="device"`` builds them all in one pass of
+  batched fp64 torch linear algebra on the solver's device
+  (``core.bank.build_bank_torch``). Their device footprint is checked at
+  setup against a cap: 3/4 of the card's memory on ``cuda``, 8 GiB on the
+  CPU; ``RELUQP_MAX_BANK_BYTES`` overrides it.
 
-The banks and every bias are computed on the host in fp64, at setup and at
-``update(g)``; the device holds them in the iteration dtype. (The JAX
-package refreshes the bias on the TPU with a double-fp32 contraction
-because the TPU has no fp64; the host fp64 product gives that accuracy
-directly.)
+Every bias is formed in fp64 and stored in the iteration dtype, at setup and
+at ``update(g)``: from the fp64 host masters of the B banks (shared regime,
+host-built heterogeneous banks), or from the fp64 B master a device build
+keeps on the device. (The JAX package refreshes the bias on the TPU with a
+double-fp32 contraction because the TPU has no fp64; an fp64 product gives
+that accuracy directly.)
+
+``tail_policy="repack"`` (shared (H, A) only) solves over a schedule of
+shrinking row buffers (``core.batched.solve_batched_shared_repack``).
 
 Not ported yet, and raising ``NotImplementedError``: ``mesh=`` and
-``process_local=`` (the multi-device paths), ``tail_policy="repack"``,
-``bank_build="device"`` (the vmapped on-device build of the per-problem
-banks) and ``bank_build="native"`` (the C++ bank builder).
+``process_local=`` (the multi-device paths).
 """
 from __future__ import annotations
 
@@ -54,17 +60,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import native
 from .classes import SETTINGS_FIELDS, Settings
 from .core.bank import (auto_rho_cap, auto_rho_cap_batch, build_bank_np,
-                        build_banks_np_batch, certifiable_eps_floor,
+                        build_bank_torch, build_banks_np_batch,
+                        certifiable_eps_floor,
                         effective_rho_ladder,
                         effective_rho_ladder_batch, equality_mask,
                         sigma_max_sq, sigma_max_sq_batch, stacked_dim)
 from .core.batched import (BatchSolveResult, solve_batched_hetero,
-                           solve_batched_shared)
+                           solve_batched_shared, solve_batched_shared_repack)
 from .core.iteration import STATUS_STRINGS
 from .core.ladder import initial_rho_index, setup_rhos
-from .ops.fused_step import (pad_dim, pallas_batched_chunk_runner,
+from .ops.fused_step import (batched_plan, pad_dim,
+                             pallas_batched_chunk_runner,
                              pallas_hetero_chunk_runner, round_up)
 from .utils.scaling import (identity_scaling, residual_unscale_weights,
                             ruiz_equilibrate, ruiz_equilibrate_batch)
@@ -73,6 +82,9 @@ __all__ = ["BatchedReLU_QP", "BatchResults", "BatchInfo"]
 
 # Batch rows are padded to a multiple of this on the lane-padded layout.
 _ROW_ALIGN = 8
+# Smallest repack stage (tail_policy="repack"): below this row count the
+# iteration is launch-bound and shrinking further buys nothing.
+_REPACK_MIN_ROWS = 512
 # Problems per step of the heterogeneous bank build: stacked products of a
 # few dozen problems amortize numpy's per-call cost. The build runs on one
 # thread: at B=1024, nx=50 on an 8-core H100 host a pool of one task per
@@ -162,38 +174,37 @@ class BatchedReLU_QP:
           rho_mode: "shared" (one ladder index for the batch; K4 runs it)
             or "per_problem" (each problem walks its own index; the plain
             runners). Heterogeneous batches always walk per problem.
-          bank_build: "host" (fp64 numpy factorization; the only builder
-            ported).
+          bank_build: "host" (fp64 on the host: the native builder where
+            it builds and alpha = 1, else numpy) or "device" (one pass of
+            batched fp64 torch linear algebra on the solver's device, the
+            B banks kept there in fp64 as the bias masters). Heterogeneous
+            batches only; a shared batch builds its one bank on the host.
+          tail_policy: "dense" (every row iterates until the last
+            converges) or "repack" (shrink-on-converge: a schedule of
+            halving row buffers, the open rows compacted between stages on
+            the device). Repack needs a shared-(H, A) batch, no mesh,
+            single-phase iteration (iter_precision="highest" or
+            refine=False) and max_iter a multiple of check_interval.
           settings_kw: the ``Settings`` fields (``device`` defaults to
             ``cuda`` and raises without a GPU).
         """
         t0 = time.perf_counter()
+        if bank_build not in ("host", "device"):
+            raise ValueError(f"bank_build must be 'host' or 'device', got "
+                             f"{bank_build!r}")
+        if tail_policy not in ("dense", "repack"):
+            raise ValueError(f"tail_policy must be 'dense' or 'repack', got "
+                             f"{tail_policy!r}")
+        self.settings = Settings(**settings_kw)
+        stng = self.settings
+        if tail_policy == "repack":
+            self._check_repack(np.ndim(H) == 3 or np.ndim(A) == 3, mesh)
         if mesh is not None or process_local:
             raise NotImplementedError(
                 "mesh= / process_local= (the multi-device batched solve) is "
-                "not ported yet (ROADMAP A.12)")
-        if bank_build == "device":
-            raise NotImplementedError(
-                "bank_build='device' (the vmapped on-device build of the "
-                "heterogeneous regime's per-problem banks, which K5 reads) "
-                "is not ported yet; 'host' builds them in fp64 on the host")
-        if bank_build == "native":
-            raise NotImplementedError(
-                "bank_build='native' (the C++ bank builder, ROADMAP A.13) is "
-                "not ported yet; 'host' builds the banks in fp64 with numpy")
-        if bank_build != "host":
-            raise ValueError(f"Invalid bank_build {bank_build!r}")
-        if tail_policy == "repack":
-            raise NotImplementedError(
-                "tail_policy='repack' (solve_batched_shared_repack) is not "
-                "ported yet; use tail_policy='dense'")
-        if tail_policy != "dense":
-            raise ValueError(f"tail_policy must be 'dense' or 'repack', got "
-                             f"{tail_policy!r}")
+                "not ported yet (ROADMAP A.6)")
         if rho_mode not in ("shared", "per_problem"):
             raise ValueError(f"Invalid rho_mode {rho_mode!r}")
-        self.settings = Settings(**settings_kw)
-        stng = self.settings
         dtype = stng.precision_dtype
         dev = stng.device
         self.axis_name = axis_name
@@ -223,6 +234,7 @@ class BatchedReLU_QP:
         self.D = stacked_dim(nx, nc)
         self._rho_mode_req = rho_mode
         self.rho_mode = "per_problem" if hetero else rho_mode
+        self._bank_build = bank_build
 
         # Backend: K4 (shared walk) or K5 (heterogeneous) on the lane-padded
         # layout ("auto"/"pallas"; the CUDA kernel on cuda, its plain
@@ -248,10 +260,15 @@ class BatchedReLU_QP:
             self.Dp = self.D
             self.B_pad = B_n
 
+        self.tail_policy = tail_policy
+        self._repack_sched = (self._make_repack_schedule()
+                              if tail_policy == "repack" else None)
+
         self.rhos_np = setup_rhos(stng.rho, stng.rho_min, stng.rho_max,
                                   stng.adaptive_rho,
                                   stng.adaptive_rho_tolerance)
         self._keep_hi = stng.iter_precision == "bf16" and stng.refine
+        self._B_np = self._B_dev = None
         if hetero:
             self._setup_hetero(np.broadcast_to(H, (B_n, nx, nx)), g,
                                np.broadcast_to(A, (B_n, nc, nx)), l, u,
@@ -270,6 +287,58 @@ class BatchedReLU_QP:
         return torch.as_tensor(np.require(a, np.float64, ("C", "W")),
                                dtype=dtype or self.settings.precision_dtype,
                                device=self.settings.device)
+
+    def _check_repack(self, hetero: bool, mesh):
+        """The setups ``tail_policy="repack"`` cannot run."""
+        stng = self.settings
+        if hetero:
+            raise ValueError(
+                "tail_policy='repack' supports shared-(H,A) batches only "
+                "(per-problem banks would need a B·N·Dp² gather per stage; "
+                "use tail_policy='dense')")
+        if mesh is not None:
+            raise ValueError(
+                "tail_policy='repack' is per-chip (compaction across mesh "
+                "shards would need resharding collectives); drop the mesh "
+                "or use tail_policy='dense'")
+        if stng.refine and stng.iter_precision != "highest":
+            raise ValueError(
+                "tail_policy='repack' cannot carry the two-phase refine "
+                "switch across its stage boundaries — use "
+                "iter_precision='highest' or refine=False")
+        if stng.max_iter % stng.check_interval != 0:
+            raise ValueError(
+                "tail_policy='repack' requires max_iter to be a multiple of "
+                "check_interval: a stage that exits on budget exhaustion "
+                "would otherwise compact away OPEN rows before the final "
+                "partial-window tail, diverging from tail_policy='dense' — "
+                f"round max_iter={stng.max_iter} to a multiple of "
+                f"{stng.check_interval}")
+
+    def _make_repack_schedule(self):
+        """Row capacities of ``tail_policy="repack"``: halving from
+        ``B_pad`` down to ``_REPACK_MIN_ROWS``, at most 4 stages (the last
+        halvings save few row-iterations). Capacities are multiples of the
+        row alignment: K4's row tile from its plan on ``cuda`` (shared-ρ
+        walk), else 8. A one-entry schedule (the batch already at the
+        floor) is the dense loop."""
+        stng = self.settings
+        align = 8
+        if self._use_pallas and stng.device.type == "cuda":
+            align = batched_plan(
+                self.B_pad, self.Dp, stng.precision_dtype,
+                self._w_dtype(stng.precision_dtype),
+                stng.iter_precision)["rows_per_tile"]
+        floor = max(_REPACK_MIN_ROWS, align)
+        caps = [self.B_pad]
+        for _ in range(3):
+            nxt = round_up(max(caps[-1] // 2, floor), align)
+            if nxt >= caps[-1]:
+                break
+            caps.append(nxt)
+            if nxt <= floor:
+                break
+        return tuple(caps)
 
     def _w_dtype(self, dtype):
         """Storage dtype of the W banks (bf16 under iter_precision='bf16')."""
@@ -372,29 +441,43 @@ class BatchedReLU_QP:
         self._rho_eff = (self._put(self._rho_eff_np) if stng.alpha != 1.0
                          else None)
         self._check_bank_memory(len(self.rhos_np), dtype)
-        self._build_hetero_banks(H, A, eq_masks, caps, dtype, dev)
+        if self._bank_build == "device":
+            self._build_hetero_banks_device(H, A, eq_masks, caps, dtype, dev)
+        else:
+            self._build_hetero_banks(H, A, eq_masks, caps, dtype, dev)
         self.H_dev = self._put(H)
         self.A_dev = self._put(A)
         self._set_g(g)
         self._set_bounds(l * Ev, u * Ev)
 
     def _build_hetero_banks(self, H, A, eq_masks, caps, dtype, dev):
-        """Every problem's bank in fp64 on the host, equal to its own
-        ``build_bank_np``: ``build_banks_np_batch`` over chunks of
-        ``_BUILD_CHUNK`` problems, in one loop. W goes
-        straight into a buffer of the iteration dtype: the fp64 (B, N, Dp,
-        Dp) stack is never formed (2.4 GB at B=1024, Dp=128). ``_B_np``
-        keeps the fp64 bias masters (B, N, D, nx): their rows beyond D
-        would be zero."""
+        """Every problem's bank in fp64 on the host, over chunks of
+        ``_BUILD_CHUNK`` problems in one loop: the native builder per
+        problem where it builds and alpha = 1 (as the JAX package picks
+        it), else ``build_banks_np_batch`` per chunk (equal to each
+        problem's own ``build_bank_np``). W goes straight into a buffer of
+        the iteration dtype: the fp64 (B, N, Dp, Dp) stack is never formed
+        (2.4 GB at B=1024, Dp=128). ``_B_np`` keeps the fp64 bias masters
+        (B, N, D, nx): their rows beyond D would be zero."""
         stng = self.settings
         D, Dp, Bn = self.D, self.Dp, self.B_n
         N = len(self.rhos_np)
         Wt = np.zeros((Bn, N, Dp, Dp), dtype=np.float64
                       if dtype == torch.float64 else np.float32)
         self._B_np = np.empty((Bn, N, D, self.nx))
+        use_native = stng.alpha == 1.0 and native.available()
+        zero_g = np.zeros(self.nx)
 
         for i in range(0, Bn, _BUILD_CHUNK):
             rows = slice(i, min(i + _BUILD_CHUNK, Bn))
+            if use_native:
+                for j in range(rows.start, rows.stop):
+                    W, Bm, _ = native.build_bank(H[j], A[j], zero_g,
+                                                 eq_masks[j], self.rhos_np,
+                                                 stng.sigma, rho_cap=caps[j])
+                    Wt[j, :, :D, :D] = np.swapaxes(W, 1, 2)
+                    self._B_np[j] = Bm
+                continue
             W, Bm = build_banks_np_batch(H[rows], A[rows], eq_masks[rows],
                                          self.rhos_np, stng.sigma,
                                          alpha=float(stng.alpha),
@@ -406,12 +489,39 @@ class BatchedReLU_QP:
         self._Wt_hi = (Wt.to(device=dev, dtype=dtype) if self._keep_hi
                        else None)
 
+    def _build_hetero_banks_device(self, H, A, eq_masks, caps, dtype, dev):
+        """Every problem's bank in one pass of batched fp64 torch linear
+        algebra on ``dev`` (``build_bank_torch``), transposed and zero-padded
+        to Dp there (padded lanes stay exactly 0). The B banks stay on the
+        device in fp64, padded to (B, N, Dp, nx): the bias masters
+        ``_B_dev`` that ``_set_g`` forms every bias from."""
+        stng = self.settings
+        D, Dp = self.D, self.Dp
+        W, Bm = build_bank_torch(H, A, eq_masks, self.rhos_np, stng.sigma,
+                                 alpha=float(stng.alpha), rho_caps=caps,
+                                 device=dev)
+        shape = W.shape[:2]
+        self.Wt_bank = torch.zeros(shape + (Dp, Dp), device=dev,
+                                   dtype=self._w_dtype(dtype))
+        self.Wt_bank[..., :D, :D] = W.transpose(-1, -2)
+        self._Wt_hi = None
+        if self._keep_hi:
+            self._Wt_hi = torch.zeros(shape + (Dp, Dp), device=dev,
+                                      dtype=dtype)
+            self._Wt_hi[..., :D, :D] = W.transpose(-1, -2)
+        del W
+        self._B_dev = torch.zeros(shape + (Dp, self.nx), device=dev,
+                                  dtype=torch.float64)
+        self._B_dev[..., :D, :] = Bm
+
     def _check_bank_memory(self, n_rho: int, dtype):
         """Fail fast when the per-problem banks would not fit the device.
 
         The device holds B·N·(Dp²·w + Dp·s) bytes of banks and biases (w, s
         the W bank's and the state's element sizes; the fp32 polish copy of
-        a bf16 bank adds Dp²·s): ~1.2 GB at B=1024, N=18, Dp=128 in fp32.
+        a bf16 bank adds Dp²·s): ~1.2 GB at B=1024, N=18, Dp=128 in fp32. A
+        device build adds its fp64 B masters, B·N·Dp·nx·8 bytes (0.94 GB at
+        B=1024, N=18, Dp=128, nx=50).
         The cap is 3/4 of the card's memory on cuda (the rest holds the
         states, the solve's temporaries and PyTorch's cache), a fixed 8 GiB
         on the CPU (``_CPU_BANK_CAP``); ``RELUQP_MAX_BANK_BYTES`` overrides
@@ -431,6 +541,8 @@ class BatchedReLU_QP:
             w_bs += bs
         dp = self.Dp
         total = self.B_n * n_rho * (dp * dp * w_bs + dp * bs)
+        if self._bank_build == "device":
+            total += self.B_n * n_rho * dp * self.nx * 8
         if total > cap:
             raise ValueError(
                 f"heterogeneous bank needs ~{total / 2**30:.1f} GiB on "
@@ -439,13 +551,20 @@ class BatchedReLU_QP:
                 "size or raise RELUQP_MAX_BANK_BYTES")
 
     def _set_g(self, g):
-        """The scaled G and the per-rung bias ``b_k = B_k g`` from the fp64
-        host product: (N, B_pad, Dp) for the shared bank (padded rows
-        zero), (B, N, Dp) for per-problem banks."""
+        """The scaled G and the per-rung bias ``b_k = B_k g`` from an fp64
+        product: (N, B_pad, Dp) for the shared bank (padded rows zero),
+        (B, N, Dp) for per-problem banks — on the host from ``_B_np``, or on
+        the device from a device build's ``_B_dev``."""
         sc = self.scal
         if self.hetero:
             g_s = np.reshape(sc.c, (-1, 1)) * (g * sc.D)
             self.G = self._put(g_s)
+            if self._B_dev is not None:
+                g64 = self._put(g_s, torch.float64)
+                self.bias_all = torch.matmul(
+                    self._B_dev, g64[:, None, :, None])[..., 0].to(
+                        self.settings.precision_dtype)
+                return
             bias = np.zeros((self.B_n, len(self.rhos_np), self.Dp))
             bias[:, :, :self.D] = np.matmul(self._B_np,
                                             g_s[:, None, :, None])[..., 0]
@@ -515,6 +634,11 @@ class BatchedReLU_QP:
         self._check_ready()
         if H is None and A is None:
             return
+        if self._H_np is None:
+            raise ValueError(
+                "update_matrices needs the fp64 master problem data, which "
+                "this solver (loaded from a checkpoint written without them) "
+                "does not carry — re-run setup with the full problem instead")
         t0 = time.perf_counter()
         old = self.scal
         nx, nc, Bn = self.nx, self.nc, self.B_n
@@ -529,9 +653,13 @@ class BatchedReLU_QP:
         old_mode = self.rho_mode
         old_ind = self.rho_ind.detach().cpu().numpy()
         stng = self.settings
+        tp = self.tail_policy
+        if any(m is not None and np.ndim(m) == 3 for m in (H, A)):
+            tp = "dense"   # shared → hetero switch: repack unsupported
         self.setup(self._H_np if H is None else H, self._g_np,
                    self._A_np if A is None else A, self._l_np, self._u_np,
                    rho_mode=self._rho_mode_req, axis_name=self.axis_name,
+                   bank_build=self._bank_build, tail_policy=tp,
                    **{k: getattr(stng, k) for k in SETTINGS_FIELDS})
         # the ladder position BEFORE the warm state: under alpha != 1 the p
         # slot is encoded against the current rung
@@ -607,6 +735,11 @@ class BatchedReLU_QP:
                     adaptive_rho_interval=int(stng.adaptive_rho_interval),
                     alpha=float(stng.alpha))
 
+    def _shared_runner(self):
+        """K4's runner on the lane-padded shared-ρ layout, else the plain
+        runner the loop picks (``None``). Looked up at solve time."""
+        return pallas_batched_chunk_runner if self._use_pallas else None
+
     def _done0(self):
         """Inert padded rows start done (None when there are none)."""
         if self.B_pad == self.B_n:
@@ -626,14 +759,22 @@ class BatchedReLU_QP:
                 self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
                 self._Wt_hi, self._rho_eff, self._w_pri, self._w_dua,
                 chunk_runner=runner, **self._solve_kw())
+        elif self._repack_sched is not None and len(self._repack_sched) > 1:
+            kw = self._solve_kw()
+            kw.pop("refine")   # repack stages are single-phase
+            res = solve_batched_shared_repack(
+                self.Wt_bank, self.bias_all, self.rhos, self.H_dev,
+                self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
+                self._done0(), self._rho_eff, self._w_pri, self._w_dua,
+                schedule=self._repack_sched, rho_mode=self.rho_mode,
+                chunk_runner=self._shared_runner(), **kw)
         else:
-            runner = pallas_batched_chunk_runner if self._use_pallas else None
             res = solve_batched_shared(
                 self.Wt_bank, self.bias_all, self.rhos, self.H_dev,
                 self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
                 self._done0(), self._Wt_hi, self._rho_eff, self._w_pri,
-                self._w_dua, rho_mode=self.rho_mode, chunk_runner=runner,
-                **self._solve_kw())
+                self._w_dua, rho_mode=self.rho_mode,
+                chunk_runner=self._shared_runner(), **self._solve_kw())
         self._fill_results(res, t0)
         if not self.settings.warm_starting:
             self.clear_primal_dual()

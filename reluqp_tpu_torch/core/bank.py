@@ -1,4 +1,4 @@
-"""Weight-bank construction: the setup-time "compiler" (host fp64 numpy).
+"""Weight-bank construction: the setup-time "compiler" (fp64).
 
 For each ρ in the ladder this builds the affine map of one ADMM iteration on
 the stacked state ``y = [x; z; λ] ∈ R^D`` (D = nx + 2·nc):
@@ -16,6 +16,10 @@ where R = diag(ρ⃗) and ρ⃗ boosts equality rows (u−l ≤ eq_tol) by 1e3.
 Full clamp vectors lo/hi (±inf outside the z-segment) make the iteration a
 branch- and slice-free ``clip(Wy+b, lo, hi)``. The device-side records
 ``Bank`` and ``DeviceQP`` hold torch tensors.
+
+``build_bank_np`` / ``build_banks_np_batch`` build on the host with numpy;
+``build_bank_torch`` builds a stack of problems' banks in one pass of
+batched torch linear algebra on any device, in fp64.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ __all__ = [
     "equality_mask",
     "build_bank_np",
     "build_banks_np_batch",
+    "build_bank_torch",
     "clamp_bounds",
     "stacked_dim",
     "auto_rho_cap",
@@ -333,3 +338,78 @@ def _spd_inverse_batch(M):
         if info != 0:
             K[i] = np.linalg.solve(M[i], I)
     return K
+
+
+def build_bank_torch(H, A, eq_masks, rhos, sigma: float, alpha: float = 1.0,
+                     rho_caps=None, device=None):
+    """The banks of a stack of problems in one pass of batched torch linear
+    algebra over every (problem, rung) pair, in fp64 on ``device``.
+
+    The batched form of ``build_banks_np_batch`` (same parametrizations, the
+    equality boost and the per-problem cap): H (B, nx, nx), A (B, nc, nx),
+    equality masks (B, nc) and caps (B,) (``None``: uncapped), as arrays or
+    tensors, → W (B, N, D, D) and B (B, N, D, nx), fp64 tensors. K = M⁻¹
+    comes from a batched Cholesky factorization (a general solve for any
+    matrix it rejects). fp64 whatever the iteration dtype: an fp32 build
+    would move the ADMM fixed point.
+    """
+    f64 = torch.float64
+    if device is None:
+        device = H.device if isinstance(H, torch.Tensor) else "cpu"
+    put = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(
+        a, torch.Tensor) else a, device=device)
+    H, A = put(H).to(f64), put(A).to(f64)
+    eq = put(eq_masks).to(torch.bool)
+    nb, nx, nc = H.shape[0], H.shape[1], A.shape[1]
+    D = stacked_dim(nx, nc)
+    rhos = torch.as_tensor(np.asarray(rhos, np.float64), device=device)
+    N = rhos.shape[0]
+    caps = (torch.full((nb,), float("inf"), dtype=f64, device=device)
+            if rho_caps is None else put(rho_caps).to(f64))
+    # (B, N, nc): min(ρ_k · boost_row, cap), effective_rho_ladder_batch
+    boost = torch.where(eq, EQ_RHO_BOOST, 1.0).to(f64)
+    rv = torch.minimum(rhos[None, :, None] * boost[:, None, :],
+                       caps[:, None, None])
+    Hn, An = H[:, None], A[:, None]                         # (B, 1, ·, nx)
+    At = An.transpose(-1, -2)
+    I = torch.eye(nx, dtype=f64, device=device)
+    Ic = torch.eye(nc, dtype=f64, device=device)
+    M = Hn + sigma * I + At @ (rv[..., :, None] * An)      # (B, N, nx, nx)
+    L, info = torch.linalg.cholesky_ex(M)
+    K = torch.cholesky_solve(I.expand_as(M), L)
+    bad = info != 0
+    if bool(bad.any()):
+        K[bad] = torch.linalg.solve(M[bad], I.expand(M[bad].shape))
+    KAt = K @ At                                            # (B, N, nx, nc)
+    AK = KAt.transpose(-1, -2)
+    KAtR = KAt * rv[..., None, :]
+    W = torch.empty((nb, N, D, D), dtype=f64, device=device)
+    Bm = torch.empty((nb, N, D, nx), dtype=f64, device=device)
+    x, z, p = slice(0, nx), slice(nx, nx + nc), slice(nx + nc, D)
+    Bm[..., x, :] = -K
+    if alpha != 1.0:
+        AKAtR = An @ KAtR
+        zrow = (alpha * sigma * AK, 2.0 * alpha * AKAtR - alpha * Ic,
+                -alpha * AKAtR + Ic)
+        W[..., x, x] = sigma * K
+        W[..., x, z] = 2.0 * KAtR
+        W[..., x, p] = -KAtR
+        for r in (z, p):
+            for c, blk in zip((x, z, p), zrow):
+                W[..., r, c] = blk
+        Bm[..., z, :] = Bm[..., p, :] = -alpha * AK
+        return W, Bm
+    S = sigma * K - KAtR @ An
+    AKAt = An @ KAt
+    W[..., x, x] = S
+    W[..., x, z] = 2.0 * KAtR
+    W[..., x, p] = -KAt
+    W[..., z, x] = An @ S + An
+    W[..., z, z] = 2.0 * (AKAt * rv[..., None, :]) - Ic
+    W[..., z, p] = -AKAt + torch.diag_embed(1.0 / rv)
+    W[..., p, x] = rv[..., :, None] * An
+    W[..., p, z] = -torch.diag_embed(rv)
+    W[..., p, p] = Ic
+    Bm[..., z, :] = -AK
+    Bm[..., p, :] = 0.0
+    return W, Bm

@@ -14,6 +14,9 @@ Two regimes:
     runners gather per-problem Wᵀ (small batches) or run every rung and
     select one-hot (large ones).
 
+  ``solve_batched_shared_repack`` runs the same loop over a schedule of
+  shrinking row buffers, compacting the open rows between stages.
+
 - **heterogeneous** (``solve_batched_hetero``): every problem has its own H,
   A and so its own (N, Dp, Dp) bank, and walks its own ladder index; the
   chunk runs through kernel K5 on CUDA
@@ -48,6 +51,7 @@ __all__ = [
     "batched_residuals",
     "batched_infeasibility_certificates",
     "solve_batched_shared",
+    "solve_batched_shared_repack",
     "solve_batched_hetero",
 ]
 
@@ -376,6 +380,129 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         alpha=alpha)
 
 
+def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
+                                Y0, rho_ind0, done0=None, rho_eff=None,
+                                w_pri=None, w_dua=None, *, schedule,
+                                nx: int, nc: int, max_iter: int,
+                                check_interval: int, adaptive_rho: bool,
+                                adaptive_rho_tolerance: float,
+                                eps_abs: float, rho_min: float,
+                                rho_max: float, rho_mode: str = "shared",
+                                chunk_runner=None, rho_jump: bool = False,
+                                check_infeasibility: bool = False,
+                                eps_prim_inf: float = 1e-4,
+                                eps_dual_inf: float = 1e-4,
+                                iter_precision: str = "highest",
+                                adaptive_rho_interval: int = 1,
+                                alpha: float = 1.0) -> BatchSolveResult:
+    """Shared-(H, A) batched solve that drops converged rows as it goes.
+
+    The dense loop keeps every row in the iteration until the last one
+    converges. Here the solve runs as a fixed ``schedule`` of shrinking row
+    capacities: stage s runs the window loop until the open rows fit the
+    next capacity (``n_open <= schedule[s+1]``, read from the window's one
+    device→host transfer, so a stage adds no sync); between stages a stable
+    ``argsort(done)`` compacts the open rows, in their original order, to
+    the front on the device, and each stage's per-row results are scattered
+    into full-size accumulators. The iteration counter carries across
+    stages, so ``max_iter`` and the per-row ``iters`` are the dense loop's.
+    Only converged rows are dropped, and they already count for nothing in
+    the shared-ρ walk, so open rows follow the dense loop's trajectories.
+
+    Single-phase only (``refine=False`` semantics: a phase switch cannot be
+    carried across stage boundaries), and ``max_iter`` a multiple of
+    ``check_interval``: a stage that exits on the budget may hold more open
+    rows than the next capacity, and the final stage's partial-window tail
+    would then miss the dropped ones.
+
+    Args:
+      schedule: strictly decreasing row capacities, ``schedule[0]`` the
+        batch's rows (``BatchedReLU_QP._make_repack_schedule``).
+      The rest as ``solve_batched_shared`` (no ``bias_lazy``). In
+      ``rho_mode="shared"`` a stage after the first reads the current
+      rung's bias row of the full batch through the row map, not a
+      gathered (N, B_s, Dp) bank; ``"per_problem"`` gathers the bank. The
+      per-problem plain runner is the one the initial batch size picks,
+      pinned for every stage (another one would sum in another order).
+    """
+    B = Y0.shape[0]
+    if not schedule or schedule[0] != B:
+        raise ValueError(f"schedule[0] must equal the padded batch size "
+                         f"{B}, got {schedule}")
+    if any(b >= a for a, b in zip(schedule, schedule[1:])):
+        raise ValueError(f"schedule must be strictly decreasing: {schedule}")
+    if len(schedule) > 1 and max_iter % check_interval != 0:
+        raise ValueError(
+            f"repack with max_iter={max_iter} % check_interval="
+            f"{check_interval} != 0 would drop open rows before the final "
+            "partial-window tail; round max_iter to a multiple of the "
+            "window")
+    shared = rho_mode == "shared"
+    if chunk_runner is None:
+        chunk_runner = (_chunk_shared_rho if shared else
+                        _chunk_gathered if B <= _GATHER_BATCH_MAX
+                        else _chunk_rung_gemm)
+    n_rho = Wt_bank.shape[0]
+    rhos_t = rhos.to(Y0.dtype)
+
+    def rho_vec(rho_ind):
+        return rho_eff.index_select(0, rho_ind.reshape(-1).long())
+
+    loop = dict(shared=shared, chunk_runner=chunk_runner, nx=nx, nc=nc,
+                max_iter=max_iter, check_interval=check_interval,
+                adaptive_rho=adaptive_rho,
+                adaptive_rho_tolerance=adaptive_rho_tolerance,
+                eps_abs=eps_abs, rho_min=rho_min, rho_max=rho_max,
+                rho_jump=rho_jump, check_infeasibility=check_infeasibility,
+                eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
+                iter_precision=iter_precision, refine=False,
+                adaptive_rho_interval=adaptive_rho_interval, alpha=alpha)
+    st = _init_state(Y0, rho_ind0, rhos_t, done0, max_iter,
+                     check_infeasibility, nx,
+                     lambda Y, r: _lam_of(Y, r, nx, nc, alpha, rho_vec))
+    # per-row leaves; the ladder index is per row only per problem
+    rows = ["Y", "rho", "pri", "dua", "done", "iters", "status"]
+    if not shared:
+        rows.append("rho_ind")
+    carried = rows + (["X_prev", "Lam_prev"] if check_infeasibility else [])
+    acc = {f: getattr(st, f).clone() for f in rows}
+    orig = torch.arange(B, device=Y0.device)
+    G_s, lo_s, hi_s, bias_s, wp_s, wd_s = G, lo, hi, bias_all, w_pri, w_dua
+    for si in range(len(schedule)):
+        last = si == len(schedule) - 1
+        if shared and si > 0:
+            def bias_of(rho_ind, sel=orig):
+                b = bias_all.index_select(0, rho_ind.reshape(1))[0]
+                b = b.index_select(0, sel)
+                return b.expand(n_rho, *b.shape)
+        else:
+            def bias_of(rho_ind, b=bias_s):
+                return b
+        st, _ = _stage(Wt_bank, bias_of, rhos_t, H, A, G_s, lo_s, hi_s, st,
+                       None, rho_vec, wp_s, wd_s,
+                       stop_open=0 if last else schedule[si + 1],
+                       with_rem=last, **loop)
+        for f in rows:
+            acc[f][orig] = getattr(st, f)
+        if last:
+            break
+        # stable sort: the open rows first, in their original order
+        sel = torch.argsort(st.done.to(torch.int8), stable=True)
+        sel = sel[:schedule[si + 1]]
+        st = st._replace(n_open=min(st.n_open, schedule[si + 1]),
+                         **{f: getattr(st, f)[sel] for f in carried})
+        orig = orig[sel]
+        G_s, lo_s, hi_s = G_s[sel], lo_s[sel], hi_s[sel]
+        if not shared:
+            bias_s = bias_s[:, sel]
+        if wp_s is not None and wp_s.dim() == 2:
+            wp_s = wp_s[sel]
+        if wd_s is not None and wd_s.dim() == 2:
+            wd_s = wd_s[sel]
+    st = st._replace(**acc)
+    return _wrap_result(st, 0)
+
+
 def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
                          rho_ind0, Wt_bank_hi=None, rho_eff=None,
                          w_pri=None, w_dua=None, *,
@@ -427,37 +554,65 @@ def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
         alpha=alpha)
 
 
+def _lam_of(Y, rho_ind, nx: int, nc: int, alpha: float, rho_vec):
+    """True λ: the slot (alpha = 1) or ρ⃗(p − z) of the relaxed
+    parametrization."""
+    last = Y[:, nx + nc:nx + 2 * nc]
+    if alpha == 1.0:
+        return last
+    return rho_vec(rho_ind) * (last - Y[:, nx:nx + nc])
+
+
 def _solve_batched(Wt_bank, bias_of, rhos, H, A, G, lo, hi, Y0, rho_ind0,
                    done0, Wt_bank_hi, rho_vec, w_pri, w_dua, *,
-                   shared: bool, chunk_runner, nx: int, nc: int,
-                   max_iter: int, check_interval: int, adaptive_rho: bool,
-                   adaptive_rho_tolerance: float, eps_abs: float,
-                   rho_min: float, rho_max: float, rho_jump: bool,
-                   check_infeasibility: bool, eps_prim_inf: float,
-                   eps_dual_inf: float, iter_precision: str, refine: bool,
-                   adaptive_rho_interval: int,
-                   alpha: float) -> BatchSolveResult:
-    """The window loop of both regimes. ``bias_of(rho_ind)`` gives the
-    runner's bias bank, ``rho_vec(rho_ind)`` the effective ρ⃗ at the
-    rung(s); ``shared`` walks one index by the geometric mean, else every
-    problem walks its own."""
-    dtype = Y0.dtype
-    rhos_t = rhos.to(dtype)
+                   max_iter: int, check_infeasibility: bool, nx: int,
+                   nc: int, alpha: float, **loop) -> BatchSolveResult:
+    """The window loop of both regimes, from a cold loop state."""
+    rhos_t = rhos.to(Y0.dtype)
+    state0 = _init_state(
+        Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility, nx,
+        lambda Y, r: _lam_of(Y, r, nx, nc, alpha, rho_vec))
+    st, k_fast = _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0,
+                        Wt_bank_hi, rho_vec, w_pri, w_dua, max_iter=max_iter,
+                        check_infeasibility=check_infeasibility, nx=nx,
+                        nc=nc, alpha=alpha, **loop)
+    return _wrap_result(st, k_fast)
+
+
+def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
+           rho_vec, w_pri, w_dua, *,
+           shared: bool, chunk_runner, nx: int, nc: int,
+           max_iter: int, check_interval: int, adaptive_rho: bool,
+           adaptive_rho_tolerance: float, eps_abs: float,
+           rho_min: float, rho_max: float, rho_jump: bool,
+           check_infeasibility: bool, eps_prim_inf: float,
+           eps_dual_inf: float, iter_precision: str, refine: bool,
+           adaptive_rho_interval: int, alpha: float, stop_open: int = 0,
+           with_rem: bool = True):
+    """Run check windows from ``state0`` until at most ``stop_open``
+    problems are open or the ``max_iter`` budget (counted from
+    ``state0.k``) is spent; ``with_rem`` runs the ``max_iter %
+    check_interval`` tail window. ``bias_of(rho_ind)`` gives the runner's
+    bias bank, ``rho_vec(rho_ind)`` the effective ρ⃗ at the rung(s);
+    ``shared`` walks one index by the geometric mean, else every problem
+    walks its own. The whole loop is one stage (``stop_open=0``); the
+    repack driver runs several over shrinking row buffers. Returns
+    ``(state, k_fast)``."""
+    dtype = state0.Y.dtype
     eps = torch.tensor(eps_abs, dtype=dtype)
     eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
     eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
     tol = float(torch.tensor(adaptive_rho_tolerance, dtype=dtype))
     n_chunks = max_iter // check_interval
-    rem = max_iter - n_chunks * check_interval
+    rem = (max_iter - n_chunks * check_interval) if with_rem else 0
     rho_stride = rho_update_stride(adaptive_rho_interval, check_interval)
     two_phase = refine and iter_precision != "highest"
 
+    def lam_of(Y, rho_ind):
+        return _lam_of(Y, rho_ind, nx, nc, alpha, rho_vec)
+
     def split(Y):
         return Y[:, :nx], Y[:, nx:nx + nc], Y[:, nx + nc:nx + 2 * nc]
-
-    def lam_of(Y, rho_ind):
-        _, Z, last = split(Y)
-        return last if alpha == 1.0 else rho_vec(rho_ind) * (last - Z)
 
     def step(st: _BState, n_steps: int, W_op, precision: str) -> _BState:
         Y = chunk_runner(W_op, bias_of(st.rho_ind), st.rho_ind, lo, hi, st.Y,
@@ -532,15 +687,14 @@ def _solve_batched(Wt_bank, bias_of, rhos, H, A, G, lo, hi, Y0, rho_ind0,
                        Lam_prev)
 
     def running(st: _BState) -> bool:
-        return st.n_open > 0 and st.k < n_chunks * check_interval
+        return st.n_open > stop_open and st.k < n_chunks * check_interval
 
-    state0 = _init_state(Y0, rho_ind0, rhos_t, done0, max_iter,
-                         check_infeasibility, nx, lam_of)
-    st, k_fast = _run_refined(
+    return _run_refined(
         step, running, state0, Wt_bank, Wt_bank_hi, refine=refine,
         iter_precision=iter_precision, n_chunks=n_chunks,
         check_interval=check_interval, rem=rem, dtype=dtype)
-    return _wrap_result(st, k_fast)
+
+
 
 
 def _wrap_result(st: _BState, k_fast: int) -> BatchSolveResult:

@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import native
 from .classes import QP, SETTINGS_FIELDS, Info, Results, Settings
 from .core.bank import (Bank, DeviceQP, auto_rho_cap, build_bank_np,
                         certifiable_eps_floor, clamp_bounds,
@@ -120,18 +121,22 @@ class ReLU_QP:
 
         ``device`` defaults to ``cuda`` (raises without a GPU; pass
         ``device="cpu"`` for the CPU). The bank is factorized in fp64 on
-        the host whatever ``precision`` is.
+        the host whatever ``precision`` is: ``bank_backend="native"`` by
+        the C++ builder (``native.py``; ``alpha = 1`` only), ``"numpy"``
+        by ``core.bank.build_bank_np``, ``"auto"`` the former where it
+        builds and alpha = 1, else the latter;
+        ``setup_breakdown["bank_backend"]`` says which ran.
         """
         t0 = time.perf_counter()
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (the tensor-parallel solve) is not ported yet")
-        if bank_backend == "native":
-            raise NotImplementedError(
-                "bank_backend='native' (the C++ bank builder) is not "
-                "ported yet; 'auto' uses the numpy builder")
-        if bank_backend not in ("auto", "numpy"):
+                "mesh= (the tensor-parallel solve) is not ported yet "
+                "(ROADMAP A.6)")
+        if bank_backend not in ("auto", "numpy", "native"):
             raise ValueError(f"Invalid bank_backend {bank_backend!r}")
+        if bank_backend == "native" and alpha != 1.0:
+            raise ValueError(
+                "bank_backend='native' does not support alpha != 1")
         self.settings = Settings(
             verbose=verbose, warm_starting=warm_starting, scaling=scaling,
             scaled_termination=scaled_termination,
@@ -147,10 +152,51 @@ class ReLU_QP:
             refine=refine, rho_cap=rho_cap, device=device,
             precision=precision, backend=backend)
         stng = self.settings
-        dtype = stng.precision_dtype
-        dev = stng.device
+        self._set_problem(H, g, A, l, u)
 
-        self.QP = QP(H, g, A, l, u, precision=dtype, device=dev)
+        # fp64 host bank build on the scaled problem. "auto" takes the
+        # OpenMP C++ builder where it builds (rungs factorize in parallel)
+        # and numpy otherwise; the C++ builder makes the alpha = 1 blocks
+        # only, so relaxed banks build with numpy.
+        use_native = (bank_backend == "native"
+                      or (bank_backend == "auto" and stng.alpha == 1.0
+                          and native.available()))
+        t_pre = time.perf_counter()
+        if use_native:
+            W_np, B_np, b_np = native.build_bank(
+                self._H_s, self._A_s, self._g_s, self.eq_mask, self.rhos_np,
+                stng.sigma, rho_cap=self.rho_cap)
+        else:
+            W_np, B_np, b_np = build_bank_np(
+                self._H_s, self._g_s, self._A_s, self.eq_mask, self.rhos_np,
+                stng.sigma, alpha=float(stng.alpha), rho_cap=self.rho_cap)
+        t_bank = time.perf_counter()
+        self._set_bank(W_np, B_np, b_np)
+        t_layout = time.perf_counter()
+        self._set_operands()
+        self.y = torch.zeros((self.Dp,), dtype=stng.precision_dtype,
+                             device=stng.device)
+        _sync(stng.device)
+        t_end = time.perf_counter()
+        self.info.setup_time = t_end - t0
+        self.setup_breakdown = {
+            "host_prep_s": t_pre - t0,
+            "bank_build_s": t_bank - t_pre,
+            "bank_layout_transfer_s": t_layout - t_bank,
+            "device_data_operands_s": t_end - t_layout,
+            "bank_backend": "native" if use_native else "numpy",
+        }
+        self.info.update_time = 0.0
+        self._ready = True
+
+    def _set_problem(self, H, g, A, l, u, scal=None, rho_cap=None):
+        """The problem's host state: fp64 masters, equality mask, Ruiz
+        scaling (``scal``, else computed per the settings), the scaled
+        copies, the ρ ladder and cap (``rho_cap``, else resolved per the
+        settings), and the backend's layout (``Dp``)."""
+        stng = self.settings
+        dtype = stng.precision_dtype
+        self.QP = QP(H, g, A, l, u, precision=dtype, device=stng.device)
         nx, nc = self.QP.nx, self.QP.nc
         self.nx, self.nc = nx, nc
         self.D = stacked_dim(nx, nc)
@@ -158,7 +204,9 @@ class ReLU_QP:
         # Equality detection on the UNSCALED problem, then optional Ruiz
         # equilibration; everything after this works on the scaled copies.
         self.eq_mask = equality_mask(self.QP.l_np, self.QP.u_np, stng.eq_tol)
-        if stng.scaling:
+        if scal is not None:
+            self.scal = scal
+        elif stng.scaling:
             self.scal = ruiz_equilibrate(self.QP.H_np, self.QP.A_np,
                                          self.QP.g_np)
         else:
@@ -174,8 +222,10 @@ class ReLU_QP:
                                   stng.adaptive_rho,
                                   stng.adaptive_rho_tolerance)
         self.rho_ind = initial_rho_index(self.rhos_np, stng.rho)
-        self.rho_cap = (auto_rho_cap(self._A_s, stng.eps_abs, dtype, nx)
-                        if stng.rho_cap == "auto" else float(stng.rho_cap))
+        if rho_cap is None:
+            rho_cap = (auto_rho_cap(self._A_s, stng.eps_abs, dtype, nx)
+                       if stng.rho_cap == "auto" else float(stng.rho_cap))
+        self.rho_cap = float(rho_cap)
         self._sigma_max_sq = None   # lazy: eps-floor guard in update_settings
         self._rho_eff_np = effective_rho_ladder(self.rhos_np, self.eq_mask,
                                                 self.rho_cap)
@@ -194,11 +244,12 @@ class ReLU_QP:
             self._chunk_runner = pallas_chunk_runner
             self.Dp = pad_dim(self.D)
 
-        t_pre = time.perf_counter()
-        W_np, B_np, b_np = build_bank_np(
-            self._H_s, self._g_s, self._A_s, self.eq_mask, self.rhos_np,
-            stng.sigma, alpha=float(stng.alpha), rho_cap=self.rho_cap)
-        t_bank = time.perf_counter()
+    def _set_bank(self, W_np, B_np, b_np):
+        """Put a bank (``W_np`` (N, D, D) not transposed, ``B_np``
+        (N, D, nx), the biases ``b_np`` (N, D)) on the device in the runtime
+        layout, and keep the fp64 B master."""
+        stng = self.settings
+        dtype, dev = stng.precision_dtype, stng.device
         w_dtype = torch.bfloat16 if stng.iter_precision == "bf16" else None
         self.bank = prepare_bank(W_np, B_np, b_np, self.rhos_np, dtype,
                                  self.Dp, dev, w_dtype=w_dtype)
@@ -212,8 +263,13 @@ class ReLU_QP:
         if stng.iter_precision == "bf16" and stng.refine:
             self._W_hi = prepare_bank(W_np, B_np, b_np, self.rhos_np, dtype,
                                       self.Dp, dev).W
-        t_layout = time.perf_counter()
 
+    def _set_operands(self):
+        """The device data of the iteration and its checks: bounds, problem
+        matrices, unscale vectors, ρ⃗ and K3's operands."""
+        stng = self.settings
+        dtype, dev = stng.precision_dtype, stng.device
+        nx, nc = self.nx, self.nc
         lo, hi = self._padded_bounds(self._l_s, self._u_s)
         put = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
         w_pri_np, w_dua_np = residual_unscale_weights(self.scal, stng)
@@ -251,20 +307,6 @@ class ReLU_QP:
                 self._ncp, dtype, w_dua=w_dua_np, device=dev)
         if self._fused and stng.check_infeasibility:
             self._infeas_op = self._build_infeas_op()
-
-        self.y = torch.zeros((self.Dp,), dtype=dtype, device=dev)
-        _sync(dev)
-        t_end = time.perf_counter()
-        self.info.setup_time = t_end - t0
-        self.setup_breakdown = {
-            "host_prep_s": t_pre - t0,
-            "bank_build_s": t_bank - t_pre,
-            "bank_layout_transfer_s": t_layout - t_bank,
-            "device_data_operands_s": t_end - t_layout,
-            "bank_backend": "numpy",
-        }
-        self.info.update_time = 0.0
-        self._ready = True
 
     def _padded_bounds(self, l_np, u_np):
         lo_d, hi_d = clamp_bounds(l_np, u_np, self.nx, self.nc)

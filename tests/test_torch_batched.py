@@ -315,13 +315,13 @@ def test_load_state_from_jax_arrays():
 
 
 @pytest.mark.parametrize("kw,err", [
-    # the heterogeneous regime runs (tests/test_torch_hetero.py); its
-    # on-device bank build does not
-    (dict(hetero=True, bank_build="device"), "K5"),
+    # the multi-device paths are all that is left to port (ROADMAP A.6),
+    # in either regime and with every option that does run
+    (dict(hetero=True, mesh=object()), "A.6"),
     (dict(mesh=object()), "mesh"),
     (dict(process_local=True), "process_local"),
-    (dict(tail_policy="repack"), "repack"),
-    (dict(bank_build="device"), "device"),
+    (dict(process_local=True, tail_policy="repack"), "A.6"),
+    (dict(process_local=True, bank_build="device"), "A.6"),
 ])
 def test_unported_paths_raise(kw, err):
     H, G, A, L, U = _batch(B=3)

@@ -597,3 +597,51 @@ def test_hetero_solver_on_cuda_runs_k5(dev):
     np.testing.assert_allclose(res.x.cpu().double().numpy(), rc.x.numpy(),
                                atol=1e-3)
     assert not m.Y[:, m.D:].any()
+
+
+def test_repack_on_cuda_runs_k4_at_every_stage(dev):
+    """tail_policy="repack" at a few hundred rows, its schedule forced to
+    three stages: K4 only, and per-row iterations and status equal to the
+    dense solve on the card."""
+    data = _shared_batch(B=300, nx=20)
+    d = rqt.BatchedReLU_QP()
+    d.setup(*data, eps_abs=1e-4)
+    m = rqt.BatchedReLU_QP()
+    m.setup(*data, eps_abs=1e-4, tail_policy="repack")
+    assert m._repack_sched == (m.B_pad,)          # below the 512-row floor
+    m._repack_sched = (m.B_pad, 160, 80)
+    k4, k5 = fused_chunk_batched.launches, fused_chunk_hetero.launches
+    rd = d.solve()
+    n_dense = fused_chunk_batched.launches - k4
+    res = m.solve()
+    assert fused_chunk_batched.launches - k4 > n_dense
+    assert fused_chunk_hetero.launches == k5
+    assert res.info.status.all()
+    np.testing.assert_array_equal(res.info.iter, rd.info.iter)
+    np.testing.assert_array_equal(res.info.status_code, rd.info.status_code)
+    np.testing.assert_allclose(res.x.cpu().numpy(), rd.x.cpu().numpy(),
+                               atol=1e-3)
+
+
+def test_device_bank_build_on_cuda_matches_the_cpu_build(dev):
+    """bank_build="device" on the card against the host build on the CPU,
+    fp64 with a finite ρ cap (uncapped, the top rungs' KKT matrices are too
+    ill-conditioned for a bound): banks and B masters within 1e-10, equal
+    solves."""
+    data = _hetero_batch(B=8, nx=20)
+    kw = dict(eps_abs=1e-6, precision="float64", rho_cap=1e3)
+    m = rqt.BatchedReLU_QP()
+    m.setup(*data, bank_build="device", **kw)
+    assert m._B_dev.is_cuda and m.Wt_bank.is_cuda
+    c = rqt.BatchedReLU_QP()
+    c.setup(*data, device="cpu", **kw)
+    np.testing.assert_allclose(m.Wt_bank.cpu().numpy(), c.Wt_bank.numpy(),
+                               rtol=0, atol=1e-10)
+    D = m.D
+    np.testing.assert_allclose(m._B_dev[:, :, :D].cpu().numpy(), c._B_np,
+                               rtol=0, atol=1e-10)
+    k5 = fused_chunk_hetero.launches
+    res, rc = m.solve(), c.solve()
+    assert fused_chunk_hetero.launches > k5
+    np.testing.assert_array_equal(res.info.iter, rc.info.iter)
+    np.testing.assert_allclose(res.x.cpu().numpy(), rc.x.numpy(), atol=1e-6)

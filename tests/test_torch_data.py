@@ -163,7 +163,7 @@ def test_solver_setup_state_identical():
             bank_backend="numpy", scaling=True)
     t = tsolver.ReLU_QP()
     t.setup(*inst[:5], precision="float64", backend="xla", device="cpu",
-            scaling=True)
+            bank_backend="numpy", scaling=True)
     assert (j.D, j.Dp) == (t.D, t.Dp)
     for a, b in zip(j.bank, t.bank):
         _same(a, b)

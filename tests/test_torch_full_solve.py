@@ -349,7 +349,8 @@ def _solver_pair(monkeypatch, data, **kw):
     with pltpu.force_tpu_interpret_mode():
         j.setup(*data, backend="fused", bank_backend="numpy", **kw)
     t = T.ReLU_QP()
-    t.setup(*data, backend="fused", device="cpu", **kw)
+    t.setup(*data, backend="fused", device="cpu", bank_backend="numpy",
+            **kw)
     assert t._fused and t._M_res is not None
     return j, t
 
@@ -454,7 +455,7 @@ def _mpc_pair(monkeypatch, **kw):
     base.update(kw)
     args = (Ad, Bd, np.eye(6), 0.1 * np.eye(2))
     j = JM.MPC(*args, bank_backend="numpy", **base)
-    t = TM.MPC(*args, device="cpu", **base)
+    t = TM.MPC(*args, device="cpu", bank_backend="numpy", **base)
     assert j.solver.Dp == t.solver.Dp == pad_dim(t.solver.D)
     return j, t
 

@@ -2,9 +2,11 @@
 
 ``BatchedReLU_QP`` with per-problem H and/or A (one bank per problem, every
 problem walking its own ladder index) on the same batches in both packages.
-The JAX package's hetero setup takes its C++ bank builder where that library
-loads; these tests hold it to its numpy builder (the one the port copies), so
-that both packages factorize with the same arithmetic. Then, in fp64, the
+Both packages' hetero host builds take their C++ bank builders where the
+library loads; these tests hold both to their numpy builders
+(``tests/test_torch_native.py`` holds the C++ ones to each other), so that
+both packages factorize with the same arithmetic. ``bank_build="device"``
+is held against JAX's device build (fp64, within the banks' rounding). Then, in fp64, the
 port on both of its layouts (``"xla"`` unpadded through ``_chunk_hetero``,
 ``"auto"`` lane-padded through K5's plain version on the CPU) runs what JAX's
 XLA hetero path runs: per-problem iterations, status and final rung EQUAL,
@@ -20,6 +22,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import reluqp_tpu.native
+import reluqp_tpu_torch.native
 from reluqp_tpu.batch import BatchedReLU_QP as JB
 from reluqp_tpu.batch import _hetero_eps_floor as j_eps_floor
 from reluqp_tpu.core import bank as jbank
@@ -46,8 +49,9 @@ ATOL64 = 1e-9
 
 @pytest.fixture(autouse=True)
 def _jax_numpy_builder(monkeypatch):
-    """The JAX package's hetero setup on its numpy bank builder."""
+    """Both packages' hetero host builds on their numpy bank builders."""
     monkeypatch.setattr(reluqp_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(reluqp_tpu_torch.native, "available", lambda: False)
 
 
 def _np(a):
@@ -162,6 +166,85 @@ def test_stacked_bank_build_equals_per_problem_builds(alpha, monkeypatch):
             alpha=alpha)
     assert torch.equal(t.Wt_bank, one.Wt_bank)
     assert np.array_equal(t._B_np, one._B_np)
+
+
+# --------------------------------------------------------------------- #
+# bank_build="device"                                                   #
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("alpha", [1.0, 1.6])
+def test_device_bank_build_matches_jax_device_build(alpha):
+    """``build_bank_torch`` (one pass over every (problem, rung) pair)
+    against JAX's ``build_bank_jnp`` per problem, in fp64, with finite
+    caps and equality rows: W and B within 1e-10."""
+    H, G, A, L, U = _hetero(B=5)
+    eq = tbank.equality_mask(L, U, 1e-6)
+    assert eq.any()
+    caps = tbank.auto_rho_cap_batch(A, 1e-4, torch.float32, 12)
+    assert np.isfinite(caps).all()
+    rhos = np.geomspace(1e-3, 1e3, 7)
+    W, Bm = tbank.build_bank_torch(H, A, eq, rhos, 1e-6, alpha=alpha,
+                                   rho_caps=caps, device="cpu")
+    assert W.dtype == Bm.dtype == torch.float64
+    for i in range(5):
+        ref = jbank.build_bank_jnp(jnp.asarray(H[i]), jnp.zeros(12),
+                                   jnp.asarray(A[i]), jnp.asarray(eq[i]),
+                                   rhos, 1e-6, alpha=alpha,
+                                   rho_cap=float(caps[i]))
+        np.testing.assert_allclose(_np(W[i]), np.asarray(ref.W), rtol=0,
+                                   atol=1e-10)
+        np.testing.assert_allclose(_np(Bm[i]), np.asarray(ref.B), rtol=0,
+                                   atol=1e-10)
+    # and the host builder's banks (which the default setup uses)
+    Wn, Bn = tbank.build_banks_np_batch(H, A, eq, rhos, 1e-6, alpha, caps)
+    np.testing.assert_allclose(_np(W), Wn, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(_np(Bm), Bn, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("backend", ["xla", "auto"])
+@pytest.mark.parametrize("alpha", [1.0, 1.6])
+def test_device_build_batch_matches_jax_device_build(backend, alpha):
+    """A ``bank_build="device"`` batch against JAX's, fp64: equal status,
+    iterations and final rungs, cold, after ``update(g)`` (the bias formed
+    on the device from the fp64 B master) and after ``update_matrices``
+    (rebuilt on the device); x, z, λ within 1e-7 (the port factorizes by
+    Cholesky, JAX by LU: the banks differ by fp64 rounding times the KKT
+    matrices' condition)."""
+    data = _hetero(B=6)
+    kw = dict(eps_abs=1e-6, precision="float64", alpha=alpha,
+              bank_build="device")
+    j = JB()
+    j.setup(*data, backend="xla", **kw)
+    t = T.BatchedReLU_QP()
+    t.setup(*data, backend=backend, device="cpu", **kw)
+    assert t._B_np is None and t._B_dev.dtype == torch.float64
+    assert t._B_dev.shape == (6, len(t.rhos_np), t.Dp, 12)
+    assert not _np(t.Wt_bank)[:, :, t.D:].any()       # padding exactly 0
+    _agree(j, t, j.solve(), t.solve(), tol=1e-7)
+    g2 = data[1] * 1.1
+    j.update(g=g2)
+    t.update(g=g2)
+    _agree(j, t, j.solve(), t.solve(), tol=1e-7)
+    A2 = data[2] * 1.05
+    j.update_matrices(A=A2)
+    t.update_matrices(A=A2)
+    assert t._bank_build == "device" and t._B_dev is not None
+    _agree(j, t, j.solve(), t.solve(), tol=1e-7)
+
+
+def test_device_build_counts_its_b_master(monkeypatch):
+    """The fp64 B master a device build keeps is counted against the bank
+    cap: a cap between the two footprints takes the host build and
+    refuses the device build."""
+    data = _hetero(B=4)
+    t = T.BatchedReLU_QP()
+    t.setup(*data, device="cpu")
+    N, Dp = len(t.rhos_np), t.Dp
+    host = 4 * N * (Dp * Dp * 4 + Dp * 4)
+    monkeypatch.setenv("RELUQP_MAX_BANK_BYTES", str(host + 1))
+    T.BatchedReLU_QP().setup(*data, device="cpu")
+    with pytest.raises(ValueError, match="RELUQP_MAX_BANK_BYTES"):
+        T.BatchedReLU_QP().setup(*data, device="cpu", bank_build="device")
 
 
 # --------------------------------------------------------------------- #
@@ -441,10 +524,14 @@ def test_hetero_setup_checks_and_bank_cap(monkeypatch):
     m = T.BatchedReLU_QP()
     m.setup(H, G, A, L, U, device="cpu", backend="pallas")
     assert m._hetero_pallas and m.rho_mode == "per_problem"
-    for kw, err in ((dict(bank_build="native"), "A.13"),
-                    (dict(tail_policy="repack"), "repack")):
-        with pytest.raises(NotImplementedError, match=err):
+    # "native" is no bank_build value (the JAX package would read it as
+    # "device"), and repack refuses per-problem banks, as JAX does
+    for kw, err in ((dict(bank_build="native"), "bank_build"),
+                    (dict(tail_policy="repack"), "shared-\\(H,A\\)")):
+        with pytest.raises(ValueError, match=err):
             T.BatchedReLU_QP().setup(H, G, A, L, U, device="cpu", **kw)
+    with pytest.raises(ValueError, match="shared-\\(H,A\\)"):
+        JB().setup(H, G, A, L, U, tail_policy="repack")
     monkeypatch.setenv("RELUQP_MAX_BANK_BYTES", "1e5")
     with pytest.raises(ValueError, match="RELUQP_MAX_BANK_BYTES"):
         T.BatchedReLU_QP().setup(H, G, A, L, U, device="cpu")

@@ -39,7 +39,7 @@ KW = dict(horizon=5, u_min=-1.0, u_max=1.0, eps_abs=1e-6,
 def _pair(system):
     Ad, Bd, Q, R = _system(system)
     j = JM.MPC(Ad, Bd, Q, R, bank_backend="numpy", **KW)
-    t = TM.MPC(Ad, Bd, Q, R, device="cpu", **KW)
+    t = TM.MPC(Ad, Bd, Q, R, device="cpu", bank_backend="numpy", **KW)
     for a, b in zip(j.prob, t.prob):
         np.testing.assert_array_equal(a, b)
     return j, t, Ad.shape[0]

@@ -42,7 +42,8 @@ def _pair(system="double_integrator", backend="auto", **kw):
                 precision="float64")
     base.update(kw)
     j = JM.MPC(Ad, Bd, Q, R, backend="xla", bank_backend="numpy", **base)
-    t = TM.MPC(Ad, Bd, Q, R, device="cpu", backend=backend, **base)
+    t = TM.MPC(Ad, Bd, Q, R, device="cpu", backend=backend,
+               bank_backend="numpy", **base)
     return j, t
 
 

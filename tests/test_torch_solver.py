@@ -32,7 +32,7 @@ def _pair(data, jax_backend="xla", **kw):
     j = J.ReLU_QP()
     j.setup(*data, backend=jax_backend, bank_backend="numpy", **kw)
     t = T.ReLU_QP()
-    t.setup(*data, device="cpu", **kw)
+    t.setup(*data, device="cpu", bank_backend="numpy", **kw)
     return j, t
 
 
@@ -157,7 +157,7 @@ def test_same_bank_and_state_through_convert():
     j.solve()                       # leaves a warm, unconverged state
     t = T.ReLU_QP()
     t.setup(*inst[:5], eps_abs=1e-6, precision="float64", backend="xla",
-            device="cpu", max_iter=100)
+            device="cpu", bank_backend="numpy", max_iter=100)
     t.bank = bank_from_arrays(*(np.asarray(a) for a in j.bank),
                               dtype=torch.float64)
     t.load_state(np.asarray(j.y), j.rho_ind)
@@ -174,10 +174,11 @@ def test_same_bank_and_state_through_convert():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(bank_backend="native"), "native"),
     (dict(mesh=object()), "mesh"),
+    (dict(mesh=object(), bank_backend="native"), "A.6"),
 ])
 def test_unported_paths_raise(kw, err):
+    """Only the multi-device path is left to port (ROADMAP A.6)."""
     qp = canonical_qp()
     with pytest.raises(NotImplementedError, match=err):
         T.ReLU_QP().setup(qp.H, qp.g, qp.A, qp.l, qp.u, device="cpu", **kw)
