@@ -145,7 +145,33 @@ Phases (each raises on failure; nothing is caught):
 24. the native bank builder on the MPC configuration's condensed QP
     (D = 600): native and numpy builds timed, the fp64 B masters within
     1e-9 and the fp32 W within one fp32 rounding, a solve through K1 with
-    each: equal status and iterations.
+    each: equal status and iterations;
+25.-28. the multi-device paths, one process per visible card over NCCL
+    (``torch.cuda.device_count()`` ranks, started once for the four phases;
+    each rank loads the kernels phase 1 built): 25, ``BatchedReLU_QP
+    (mesh=)`` on ``benchmarks/batched_qps.py``'s shared batch at B = 10000
+    per card through K4 with the collective exit: per row status,
+    iterations and rung equal to the unsharded dense solve of the same
+    rows (x bit-equal on one card), every window's rung equal on every
+    rank, two all-reduces per window and one all-gather per solve, syncs
+    per window no more than unsharded, the solve's CUDA-event time beside
+    one card's rows unsharded (weak-scaling efficiency); 26, the --hetero
+    B = 1024 batch split over the ranks with ``process_local=True`` and
+    ``bank_build="device"`` through K5: held against the unsharded
+    device-built solve (bit-equal on one card), ``objective()``,
+    ``update(g)`` and a warm re-solve, a shard-file checkpoint restored
+    onto the same layout (bit-equal) and merged into this process; 27, the
+    tensor-parallel single QP (``ReLU_QP.setup(mesh=)``) at ``rand_qp
+    (500, 125, 125)`` and nx = 400, fp32, eps 1e-4, Ruiz: iterations and
+    status equal to the single-card ``backend="xla"`` solve, x within
+    TP_X_TOL, each rank's (18, Dp, Dp/W) block, one all-gather of Dp/W
+    numbers per iteration, time per iteration beside K1's window on the
+    same QP; 28, phase 14's scenario MPC with the batch solver over the
+    mesh, ``kernel="auto"`` (the loop path): K4 only, bit-equal to phase
+    14 on one card, steps/s.
+
+``python3 chip_smoke.py --mesh-only`` runs phase 1, phase 14 (what phase 28
+is held against) and phases 25-28: the command for a call on several cards.
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
 the K1, K2, K3 and K5 of another checkout at DIR (the parent commit, unpacked by
@@ -153,8 +179,9 @@ the K1, K2, K3 and K5 of another checkout at DIR (the parent commit, unpacked by
 inputs, built from DIR's own sources into DIR's own build directory.
 
 Every kernel launch counter is set to 0 just before each main-path phase
-(4, 5, 6, 8, 11, 14, 16, 19, 21, 22, 23, 24) and read just after; a main-path phase that
-launched its kernel no time fails. The second-to-last line is the ``{"kernels": [...]}``
+(4, 5, 6, 8, 11, 14, 16, 19, 21, 22, 23, 24, and 25, 26 and 28 in every
+rank) and read just after; a main-path phase that launched its kernel no
+time fails. The ranks' K4 and K5 launches add to the record's. The second-to-last line is the ``{"kernels": [...]}``
 record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the package beside it, the script exits non-zero before printing a
 result.
@@ -688,27 +715,74 @@ def device_ms(fn, reps):
     return us / 1e3 / reps if us > 0.0 else None
 
 
+def device_split(fn, reps):
+    """Where one ``fn()`` of a rank's solve goes, in ms: the host wall
+    (with the profiler on), the device time of every event and of NCCL's
+    kernels alone (a collective's kernel runs until every rank reached it,
+    so its time includes the wait on the slowest rank)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = lambda evs: sum(float(getattr(e, "self_device_time_total", 0.0))
+                         for e in evs)
+    return dict(wall=wall * 1e3 / reps, device=us(dev) / 1e3 / reps,
+                nccl=us(e for e in dev if "nccl" in e.key.lower()) / 1e3
+                / reps)
+
+
 def sync_sites(tag, run, steps):
     """Where ``run()`` (``steps`` steps) makes the host wait for the card:
     every synchronizing CUDA call under torch's sync debug mode, counted by
-    the Python line that made it."""
+    the Python line that made it (and, where that line is torch's, the
+    package line that called into torch). A sync whose stack holds no line
+    of the package was not made by the solver (``run`` is this script's
+    call into it): it is logged with its stack and not counted."""
     import collections
+    import traceback
     import warnings
     import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = lambda f: (os.path.relpath(f, here) if f.startswith(here)
+                      else "torch/" + f.split("/torch/", 1)[-1])
+    pkg = os.path.join(here, "reluqp_tpu_torch")
+    caught, outside = [], []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = f"{name(filename)}:{lineno}"
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if f.filename.startswith(pkg)]
+        if not ours:
+            outside.append(site + " <- " + " <- ".join(
+                f"{name(f.filename)}:{f.lineno}" for f in stack[::-1][:6]))
+            return
+        if not filename.startswith(here):
+            site += f" (from {name(ours[-1].filename)}:{ours[-1].lineno})"
+        caught.append(site)
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    here = os.path.dirname(os.path.abspath(__file__))
-    name = lambda f: (os.path.relpath(f, here) if f.startswith(here)
-                      else "torch/" + f.split("/torch/", 1)[-1])
-    sites = collections.Counter(
-        f"{name(w.filename)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
+    sites = collections.Counter(caught)
+    for o in outside:
+        log(f"{tag}: a sync outside the package, not counted: {o}")
     log(f"{tag} syncs ({steps} warm steps): {sum(sites.values())} in all, "
         f"{sum(sites.values()) / steps:.2f} per step; by line: "
         + ("; ".join(f"{k} x{v}" for k, v in sites.most_common(8))
@@ -2903,6 +2977,493 @@ def phase_native(card):
     return dict(build_s=br, launches=n_k1)
 
 
+# --------------------------------------------------------------------- #
+# phases 25-28: the multi-device paths, one process per card over NCCL  #
+# --------------------------------------------------------------------- #
+
+# phase 25: rows per card of benchmarks/batched_qps.py's north-star batch
+MESH_B = 10000
+# phase 27: the reference protocol's largest rand_qp and
+# examples/large_qp_tp.py's default (last: it must certify), fp32, eps 1e-4,
+# Ruiz
+TP_SIZES = (500, 400)
+TP_KW = dict(eps_abs=1e-4, scaling=True, precision="float32")
+TP_X_TOL = 1e-4
+TP_REPS = 20
+# the ranks' whole run, and how long one collective may wait on a rank
+# still busy in rank 0's reference work
+MESH_TIMEOUT_S = 900
+MESH_COLLECTIVE_S = 300
+
+
+class count_collectives:
+    """Counts (in order) the collectives the package calls, by wrapping
+    ``torch.distributed``'s functions for the span of a ``with``."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "all_gather_single")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist, self.calls, self.orig = dist, [], {}
+        for name in self.NAMES:
+            fn = getattr(dist, name, None)
+            if fn is None:
+                continue
+            self.orig[name] = fn
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                t = a[0] if _name == "all_reduce" else a[1]
+                self.calls.append((_name, int(t.numel())))
+                return _fn(*a, **kw)
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dist, name, fn)
+
+    def count(self, kind):
+        return sum(1 for n, _ in self.calls
+                   if (n == "all_reduce") == (kind == "reduce"))
+
+
+def _same_across_ranks(t, group, what):
+    """Assert every rank holds ``t``: one all-gather, outside the timed
+    runs."""
+    from reluqp_tpu_torch.parallel import gather_rows
+    allr = gather_rows(t[None].contiguous(), group)
+    assert bool((allr == t[None]).all()), f"{what} differs across ranks"
+
+
+def _recording(runner, rungs):
+    """``runner`` that keeps each window's rung (a device scalar: no sync)."""
+    import torch
+
+    def run(W, b, rho, lo, hi, y, n, prec="highest"):
+        rungs.append(rho.reshape(()).to(torch.int32).clone())
+        return runner(W, b, rho, lo, hi, y, n, prec)
+    return run
+
+
+def mesh_phase_shared(rank, world, mesh, outdir):
+    """Phase 25 on one rank: this card's MESH_B rows of the shared batch of
+    MESH_B x world (K4, the exit all-reduced): the collectives and syncs
+    per window, every window's rung the same on every rank, and the solve's
+    CUDA-event time beside the same rows solved unsharded on this card."""
+    import torch
+    import reluqp_tpu_torch.batch as tbatch
+    from reluqp_tpu_torch import BatchedReLU_QP
+    from reluqp_tpu_torch.utils.timing import time_fn_events
+    H, G, A, L, U = shared_batch(MESH_B * world)
+    m = BatchedReLU_QP()
+    m.setup(H, G, A, L, U, mesh=mesh, **REPACK_KW)
+    assert m.B_local == MESH_B and m.B_n == MESH_B * world and m._use_pallas
+    assert m.settings.device.type != "cuda" or m.settings.device.index == rank
+    runner, rungs = tbatch.pallas_batched_chunk_runner, []
+    tbatch.pallas_batched_chunk_runner = _recording(runner, rungs)
+    try:
+        with count_collectives() as cc:
+            res, counts = _counted(lambda: repack_solve(m), "K4")
+    finally:
+        tbatch.pallas_batched_chunk_runner = runner
+    assert all(n == 0 for k, n in counts.items() if k != "K4"), counts
+    windows = len(rungs)
+    _same_across_ranks(torch.stack(rungs), m._group, "a window's rung")
+    # the results' one gather, after the loop (none in a group of one)
+    red, gat = cc.count("reduce"), cc.count("gather")
+    assert red == 2 * windows and gat == (world > 1), (red, gat, windows)
+    assert world == 1 or cc.calls[-1][0] != "all_reduce"
+    syncs = sync_sites(f"phase 25 rank {rank} mesh",
+                       lambda: repack_solve(m), windows) / windows
+    one = BatchedReLU_QP()
+    rows = slice(rank * MESH_B, (rank + 1) * MESH_B)
+    one.setup(H, G[rows], A, L[rows], U[rows], **REPACK_KW)
+    r_one = repack_solve(one)
+    w_one = r_one.info.n_iter_total // one.settings.check_interval
+    syncs_one = sync_sites(f"phase 25 rank {rank} unsharded",
+                           lambda: repack_solve(one), w_one) / w_one
+    assert syncs <= syncs_one, (syncs, syncs_one)
+    t_mesh = time_fn_events(repack_solve, m, reps=REPACK_REPS)["best"]
+    t_one = time_fn_events(repack_solve, one, reps=REPACK_REPS)["best"]
+    split = device_split(lambda: repack_solve(m), REPACK_REPS)
+    split_one = device_split(lambda: repack_solve(one), REPACK_REPS)
+    log(f"phase 25 rank {rank} profile per solve (ms): mesh wall "
+        f"{split['wall']:.3f}, device {split['device']:.3f} of which NCCL "
+        f"{split['nccl']:.3f}; unsharded wall {split_one['wall']:.3f}, "
+        f"device {split_one['device']:.3f}")
+    log(f"phase 25 rank {rank}/{world}: {MESH_B} of {m.B_n} rows, "
+        f"{windows} windows, per window {red / windows:.2f} all-reduces, "
+        f"{syncs:.2f} syncs (unsharded {syncs_one:.2f}); {gat} all-gather "
+        f"after the loop; solve {t_mesh * 1e3:.3f} ms (CUDA events, least of "
+        f"{REPACK_REPS}); these rows unsharded {t_one * 1e3:.3f} ms; K4 "
+        f"launches {counts['K4']}")
+    if rank == 0:
+        np.savez(os.path.join(outdir, "shared.npz"),
+                 x=res.x.cpu().numpy(), iter=res.info.iter,
+                 status=res.info.status_code, rho_ind=res.info.rho_ind)
+    return dict(K4=counts["K4"], windows=windows, reduces=red, gathers=gat,
+                syncs=syncs, syncs_one=syncs_one, t_mesh=t_mesh,
+                t_one=t_one, split=split, split_one=split_one)
+
+
+def mesh_phase_hetero(rank, world, mesh, outdir):
+    """Phase 26 on one rank: its rows of the --hetero B=1024 batch handed
+    to it alone (``process_local=True``, ``bank_build="device"``) through
+    K5; ``objective()``, ``update(g)`` and a warm re-solve; a shard-file
+    checkpoint restored onto the same layout and re-solved bit-equal."""
+    import torch
+    from reluqp_tpu_torch import BatchedReLU_QP
+    from reluqp_tpu_torch.utils.checkpoint import (load_batched_solver,
+                                                   save_batched_solver)
+    per = HET_B // world
+    local = tuple(a[rank * per:(rank + 1) * per] for a in hetero_batch(HET_B))
+
+    def run():
+        m = BatchedReLU_QP()
+        m.setup(*local, mesh=mesh, process_local=True, bank_build="device",
+                **HET_KW)
+        return m, m.solve()
+
+    (m, res), counts = _counted(run, "K5")
+    assert all(n == 0 for k, n in counts.items() if k != "K5"), counts
+    assert m.B_n == HET_B and m.B_local == per and m._hetero_pallas
+    assert res.info.status.shape == (HET_B,)
+    obj = m.objective()
+    assert obj.shape == (HET_B,) and np.all(np.isfinite(obj))
+    m.update(g=local[1] * 1.05)
+    r2, c2 = _counted(m.solve, "K5")
+    assert r2.info.status.all()
+    prefix = os.path.join(outdir, "het_ckpt")
+    save_batched_solver(m, prefix)
+    m4 = load_batched_solver(prefix, mesh=mesh)
+    assert m4.B_n == HET_B and m4.settings.device == m.settings.device
+    r4, c4 = _counted(m4.solve, "K5")
+    r5 = m.solve()
+    assert torch.equal(r4.x, r5.x) and (r4.info.iter == r5.info.iter).all()
+    n_k5 = counts["K5"] + c2["K5"] + c4["K5"]
+    log(f"phase 26 rank {rank}/{world}: {per} of {HET_B} problems built "
+        f"on the card ({m.info.setup_time:.3f} s setup), "
+        f"{int(res.info.status.sum())}/{HET_B} solved in "
+        f"{res.info.n_iter_total} iterations; objective finite; update(g) + "
+        f"warm re-solve all solved; shard checkpoint restored on this layout "
+        f"and re-solved bit-equal; K5 launches {n_k5}")
+    if rank == 0:
+        np.savez(os.path.join(outdir, "hetero.npz"),
+                 x=res.x.cpu().numpy(), iter=res.info.iter,
+                 status=res.info.status_code, x5=r5.x.cpu().numpy(),
+                 iter5=r5.info.iter, status5=r5.info.status_code)
+    return dict(K5=n_k5, setup_s=m.info.setup_time)
+
+
+def mesh_phase_tp(rank, world, tp_mesh):
+    """Phase 27 on one rank: the tensor-parallel single QP at nx in
+    TP_SIZES: this rank's (18, Dp, Dp/W) block, one all-gather of y per
+    iteration, the rungs the same on every rank, time per iteration; rank
+    0 holds it against the single-card ``backend="xla"`` solve and times
+    K1's 25-step window on the same QP."""
+    import torch
+    from reluqp_tpu_torch import ReLU_QP
+    from reluqp_tpu_torch.ops.fused_step import pallas_chunk_runner
+    from reluqp_tpu_torch.parallel.sharded import gather_into
+    from reluqp_tpu_torch.utils.problems import rand_qp
+    from reluqp_tpu_torch.utils.timing import time_fn_events
+    out = {}
+    for nx in TP_SIZES:
+        inst = rand_qp(nx=nx, n_eq=nx // 4, n_ineq=nx // 4, seed=0,
+                       compute_sol=False)
+        qp = (inst.H, inst.g, inst.A, inst.l, inst.u)
+        m = ReLU_QP()
+        m.setup(*qp, mesh=tp_mesh, **TP_KW)
+        n_rho, dp = len(m.rhos_np), m.Dp
+        assert tuple(m.bank.W.shape) == (n_rho, dp, dp // world)
+        runner, rungs = m._chunk_runner, []
+        m._chunk_runner = _recording(runner, rungs)
+        with count_collectives() as cc:
+            r = m.solve()
+        m._chunk_runner = runner
+        it = r.info.iter
+        assert cc.count("gather") == it and cc.count("reduce") == 0
+        assert all(n == dp // world for _, n in cc.calls), cc.calls[:3]
+        _same_across_ranks(torch.stack(rungs), m._tp_group, "a window's rung")
+        _same_across_ranks(r.x, m._tp_group, "x")
+        rho = torch.tensor(m.rho_ind, dtype=torch.int32, device=m.y.device)
+        lo, hi, b = m.qp_dev.lo, m.qp_dev.hi, m.bank.b
+        tp_ms = time_fn_events(
+            lambda: runner(m.bank.W, b, rho, lo, hi, m.y, N_STEPS),
+            reps=TP_REPS)["best"] * 1e3
+        # where a TP iteration's time goes: the block's product alone, and
+        # the gather alone, 25 of each
+        w_blk, y = m.bank.W[m.rho_ind], m.y
+        part = torch.empty((dp // world,), dtype=y.dtype, device=y.device)
+        full = torch.empty_like(y)
+
+        def products():
+            for _ in range(N_STEPS):
+                y @ w_blk
+
+        def gathers():
+            for _ in range(N_STEPS):
+                gather_into(full, part, m._tp_group)
+
+        mm_ms = time_fn_events(products, reps=TP_REPS)["best"] * 1e3
+        ga_ms = time_fn_events(gathers, reps=TP_REPS)["best"] * 1e3
+        row = dict(dp=dp, iter=it, status=r.info.status, tp_ms=tp_ms,
+                   mm_ms=mm_ms, gather_ms=ga_ms, block=list(m.bank.W.shape))
+        if rank == 0:
+            ref = ReLU_QP()
+            ref.setup(*qp, backend="xla", **TP_KW)
+            rr = ref.solve()
+            dx = float((rr.x - r.x).abs().max())
+            k1 = ReLU_QP()
+            k1.setup(*qp, **TP_KW)
+            rk = k1.solve()
+            y = torch.zeros_like(k1.y)
+            k1_ms = time_fn_events(
+                lambda: pallas_chunk_runner(k1.bank.W, k1.bank.b, rho,
+                                            k1.qp_dev.lo, k1.qp_dev.hi, y,
+                                            N_STEPS), reps=TP_REPS)["best"] * 1e3
+            row.update(ref_iter=rr.info.iter, ref_status=rr.info.status,
+                       dx=dx, k1_ms=k1_ms, k1_dp=k1.Dp, k1_iter=rk.info.iter,
+                       k1_status=rk.info.status)
+            log(f"phase 27 nx={nx} (D={m.D}, Dp={dp}) over {world} cards: "
+                f"block {tuple(m.bank.W.shape)} per rank, {it} iterations "
+                f"({r.info.status}, dual residual {r.info.dua_res:.2e}), "
+                f"single-card K1 {rk.info.iter} ({rk.info.status}), "
+                f"single-card xla {rr.info.iter} "
+                f"({rr.info.status}), |x|inf {dx:.2e}; {it} all-gathers of "
+                f"{dp // world} numbers; per iteration {tp_ms / N_STEPS:.5f} "
+                f"ms (25-step TP window {tp_ms:.5f} ms; 25 block products "
+                f"alone {mm_ms:.5f} ms, 25 gathers alone {ga_ms:.5f} ms) "
+                f"against K1's "
+                f"{k1_ms / N_STEPS:.5f} ms (window {k1_ms:.5f} ms at "
+                f"Dp={k1.Dp}), CUDA events, least of {TP_REPS}")
+        out[nx] = row
+        del m
+    return out
+
+
+def mesh_phase_scenario(rank, world, mesh, outdir):
+    """Phase 28 on one rank: phase 14's scenario MPC (B=64, 200 steps)
+    with the batch solver over the mesh, ``kernel="auto"`` (the loop path
+    under a mesh): this rank's plants through K4, no K6; steps/s."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
+    prob = scenario_problem()
+    X0, noise = scenario_inputs(SCEN_B, SCEN_T)
+    m = scenario_solver(prob, SCEN_B, mesh=mesh)
+    assert m.B_local == SCEN_B // world and m._use_pallas
+
+    def rollout():
+        m.clear_primal_dual()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scenario_rollout_scan(m, prob, X0, SCEN_T, kernel="auto",
+                                    noise=noise, return_stats=True,
+                                    return_state=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (out, secs), counts = _counted(rollout, "K4")
+    assert all(n == 0 for k, n in counts.items() if k != "K4"), counts
+    (out2, secs2), _ = _counted(rollout, "K4")
+    assert torch.equal(out[0], out2[0])
+    log(f"phase 28 rank {rank}/{world}: {m.B_local} of {SCEN_B} scenarios, "
+        f"{SCEN_T} steps through K4 only ({counts['K4']} launches), "
+        f"{SCEN_T / secs2:.1f} steps/s ({SCEN_B * SCEN_T / secs2:.0f} "
+        f"scenario solves/s; first run {SCEN_T / secs:.1f} steps/s)")
+    if rank == 0:
+        np.savez(os.path.join(outdir, "scenario.npz"),
+                 **{k: v.cpu().numpy() for k, v in zip(
+                     ("xs", "us", "its", "status"), out[:4])})
+    return dict(K4=counts["K4"], steps_s=SCEN_T / secs2)
+
+
+def mesh_rank_main(argv):
+    """One rank of phases 25-28: ``chip_smoke.py --mesh-rank RANK WORLD
+    PORT OUTDIR`` (started by ``phase_mesh``). Writes its results to
+    OUTDIR/rank<k>.json."""
+    from datetime import timedelta
+    import torch
+    from reluqp_tpu_torch.parallel import init_distributed, make_mesh
+    rank, world, port, outdir = (int(argv[0]), int(argv[1]), argv[2],
+                                 argv[3])
+    init_distributed(f"127.0.0.1:{port}", world, rank,
+                     timeout=timedelta(seconds=MESH_COLLECTIVE_S))
+    try:
+        mesh = make_mesh(world)
+        tp_mesh = make_mesh(world, axis_name="tp")
+        out = {"25": mesh_phase_shared(rank, world, mesh, outdir),
+               "26": mesh_phase_hetero(rank, world, mesh, outdir),
+               "27": mesh_phase_tp(rank, world, tp_mesh),
+               "28": mesh_phase_scenario(rank, world, mesh, outdir)}
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_mesh(card, scen_loop):
+    """Phases 25-28: one process per visible card (NCCL), started once for
+    the four phases; the parent's unsharded references first, on card 0:
+    the dense solve of phase 25's MESH_B x W rows and the device-built
+    solve of phase 19's batch. Then the ranks' results against them and
+    against phase 14's rollout (bit-equal at one card); the hetero shard
+    set merged into this process and re-solved."""
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    from reluqp_tpu_torch import BatchedReLU_QP
+    from reluqp_tpu_torch.utils.checkpoint import load_batched_solver
+    world = torch.cuda.device_count()
+    ref = BatchedReLU_QP()
+    ref.setup(*shared_batch(MESH_B * world), **REPACK_KW)
+    r25 = repack_solve(ref)
+    ref25 = dict(x=r25.x.cpu().numpy(), iter=r25.info.iter,
+                 status=r25.info.status_code, rho_ind=r25.info.rho_ind)
+    ref = BatchedReLU_QP()
+    ref.setup(*hetero_batch(HET_B), bank_build="device", **HET_KW)
+    r26 = ref.solve()
+    ref26 = dict(x=r26.x.cpu().numpy(), iter=r26.info.iter,
+                 status=r26.info.status_code)
+    del ref, r25, r26
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="reluqp_mesh_")
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), "--mesh-rank",
+             str(r), str(world), str(port), tmp], stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, MESH_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                for line in f:
+                    if r == 0 or "phase" in line or "Error" in line:
+                        log(f"[rank {r}] {line.rstrip()}")
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        assert not bad, f"ranks {bad} of {world} failed (logs above)"
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        log(f"phases 25-28: {world} ranks over NCCL, "
+            f"{time.perf_counter() - t0:.1f} s from spawn to exit")
+
+        # phase 25: every row as the unsharded dense solve
+        got = dict(np.load(os.path.join(tmp, "shared.npz")))
+        for k in ("status", "iter", "rho_ind"):
+            n = int(np.sum(got[k] != ref25[k]))
+            assert n == 0, f"phase 25: {n} rows' {k} differ from unsharded"
+        dx = float(np.max(np.abs(got["x"] - ref25["x"])))
+        if world == 1:
+            assert dx == 0.0, dx
+        assert (got["status"] == 1).all()
+        p25 = [r["25"] for r in ranks]
+        t_mesh = max(p["t_mesh"] for p in p25)
+        t_one = max(p["t_one"] for p in p25)
+        log(f"phase 25 on {card} x{world}: B={MESH_B} per card, "
+            f"{p25[0]['windows']} windows, per row status, iterations and "
+            f"rung equal to the unsharded dense solve of the {MESH_B * world} "
+            f"rows, |x|inf {dx:.2e}; per window {p25[0]['reduces'] / p25[0]['windows']:.2f} "
+            f"all-reduces and {p25[0]['syncs']:.2f} syncs (unsharded "
+            f"{p25[0]['syncs_one']:.2f}), {p25[0]['gathers']} all-gather per "
+            f"solve; solve "
+            f"{t_mesh * 1e3:.3f} ms over {world} cards (slowest rank), one "
+            f"card's {MESH_B} rows {t_one * 1e3:.3f} ms: weak-scaling "
+            f"efficiency {t_one / t_mesh:.4f}; per rank, profiler on, ms per "
+            f"solve (wall / device / NCCL; unsharded wall / device): "
+            + "; ".join(f"{p['split']['wall']:.3f} / "
+                        f"{p['split']['device']:.3f} / "
+                        f"{p['split']['nccl']:.3f}; "
+                        f"{p['split_one']['wall']:.3f} / "
+                        f"{p['split_one']['device']:.3f}" for p in p25))
+        log("phase 25 OK")
+
+        # phase 26: against the unsharded device-built solve; the shard set
+        # merged into this process
+        got = dict(np.load(os.path.join(tmp, "hetero.npz")))
+        assert (got["status"] == ref26["status"]).all()
+        n_it = int(np.sum(got["iter"] != ref26["iter"]))
+        dx = float(np.max(np.abs(got["x"] - ref26["x"])))
+        if world == 1:
+            assert n_it == 0 and dx == 0.0, (n_it, dx)
+        assert dx < 5e-3, dx
+        merged = load_batched_solver(os.path.join(tmp, "het_ckpt"))
+        assert merged.B_n == HET_B and merged.mesh is None
+        rm, counts = _counted(merged.solve, "K5")
+        assert (rm.info.status_code == got["status5"]).all()
+        dxm = float(np.max(np.abs(rm.x.cpu().numpy() - got["x5"])))
+        if world == 1:
+            assert dxm == 0.0 and (rm.info.iter == got["iter5"]).all()
+        n_k5 = sum(r["26"]["K5"] for r in ranks) + counts["K5"]
+        log(f"phase 26 on {card} x{world}: {HET_B} problems, status equal "
+            f"to the unsharded device-built solve, {n_it} problems at "
+            f"another iteration, |x|inf {dx:.2e}; setup "
+            f"{max(r['26']['setup_s'] for r in ranks):.3f} s (slowest "
+            f"rank); the shard set merged into one process and re-solved: "
+            f"status equal, |x|inf {dxm:.2e}")
+        log("phase 26 OK")
+
+        # phase 27: rank 0 held it against the single-card solve
+        for nx, row in ranks[0]["27"].items():
+            assert row["dx"] < TP_X_TOL and row["block"][2] * world == row["dp"]
+            # lockstep where the single-card solve certifies; at nx=500 the
+            # single-card plain fp32 product can stall at the fp32
+            # dual-residual floor (max_iter) where the column blocks' sums
+            # certify: then x is held to TP_X_TOL only
+            if row["ref_status"] == "solved":
+                assert (row["iter"], row["status"]) == (
+                    row["ref_iter"], row["ref_status"]), (nx, row)
+        # examples/large_qp_tp.py's QP certifies
+        assert ranks[0]["27"][str(TP_SIZES[-1])]["status"] == "solved"
+        log(f"phase 27 on {card} x{world}: " + "; ".join(
+            f"nx={nx}: {r['status']} in {r['iter']} iterations (one card's "
+            f"xla {r['ref_status']} in {r['ref_iter']}), per iteration "
+            f"{r['tp_ms'] / N_STEPS:.5f} ms vs K1 {r['k1_ms'] / N_STEPS:.5f} "
+            f"ms" for nx, r in ranks[0]["27"].items()))
+        log("phase 27 OK")
+
+        # phase 28: phase 14's rollout, bit-equal on one card
+        got = dict(np.load(os.path.join(tmp, "scenario.npz")))
+        out = tuple(torch.from_numpy(got[k])
+                    for k in ("xs", "us", "its", "status"))
+        check_scenario(f"phase 28 (mesh of {world}, kernel=auto)", out,
+                       scen_loop["ref"], SCEN_KW.get("max_iter", 4000))
+        ref14 = scen_loop["out"]
+        dx = float(np.max(np.abs(got["xs"] - ref14[0].cpu().numpy())))
+        n_it = int(np.sum(got["its"] != ref14[2].numpy()))
+        if world == 1:
+            assert dx == 0.0 and n_it == 0, (dx, n_it)
+        steps = min(r["28"]["steps_s"] for r in ranks)
+        log(f"phase 28 on {card} x{world}: against phase 14 |x|inf {dx:.2e},"
+            f" {n_it} steps at another iteration count; {steps:.1f} steps/s "
+            f"({SCEN_B * steps:.0f} scenario solves/s, slowest rank)")
+        log("phase 28 OK")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(K4=sum(r["25"]["K4"] + r["28"]["K4"] for r in ranks),
+                K5=n_k5, world=world)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2910,6 +3471,19 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import reluqp_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-only"]:
+        # phases 25-28 and what they are compared with (phase 14's rollout)
+        card = card_line()
+        phase_build()
+        mesh = phase_mesh(card, phase_scenario_loop(card))
+        log("card:", card)
+        print(json.dumps({"mesh": mesh}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     parent = None
     if sys.argv[1:2] == ["--parent"]:
         parent = os.path.abspath(sys.argv[2])
@@ -2943,6 +3517,7 @@ def main():
     repack = phase_repack(card)
     ckpt = phase_checkpoint(card, protocol, het, repack)
     nat = phase_native(card)
+    mesh = phase_mesh(card, scen_loop)
     k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]
     k3_row = k3["rows"][100]
@@ -2995,7 +3570,7 @@ def main():
         "source": "reluqp_tpu_torch/csrc/fused_step_batched.cu",
         "replaces": "reluqp_tpu/ops/fused_step.py:232",
         "launches": (scen_loop["launches"] + repack["launches"]
-                     + ckpt["K4"]),
+                     + ckpt["K4"] + mesh["K4"]),
         "max_abs_err": k4_errs[(torch.float32, 640, 64, "highest")],
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -3027,7 +3602,8 @@ def main():
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/fused_step_hetero.cu",
         "replaces": "reluqp_tpu/ops/fused_step.py:356",
-        "launches": het["launches"] + dev_build["launches"] + ckpt["K5"],
+        "launches": (het["launches"] + dev_build["launches"] + ckpt["K5"]
+                     + mesh["K5"]),
         "max_abs_err": k5_errs[(torch.float32, 128, K5_BIG_B, "highest")],
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],

@@ -18,7 +18,10 @@ share (H, A), its solve loop running through the batched chunk kernel K4
 on ``cuda``; ``models.mpc.scenario_rollout_scan`` runs B plants under one
 controller, through K4 per check window (``kernel="loop"``) or a whole
 segment as one launch of the batched whole-rollout kernel K6
-(``kernel="scan"``/``"auto"``).
+(``kernel="scan"``/``"auto"``). ``parallel`` runs them over several devices
+with ``torch.distributed``, one process per device: ``BatchedReLU_QP.setup
+(mesh=)`` splits a batch (each rank's rows through K4 or K5, the loop's exit
+all-reduced), ``ReLU_QP.setup(mesh=)`` splits one QP's bank by columns.
 
 Importing the package turns TF32 off for float32 matrix products: the
 residual, bias and plant products of the solve loop must run in full fp32
@@ -37,7 +40,8 @@ from .batch import BatchedReLU_QP, BatchInfo, BatchResults  # noqa: E402
 from .core.bank import Bank, DeviceQP, build_bank_np  # noqa: E402
 from .core.iteration import SolveResult, solve_loop  # noqa: E402
 from .core.ladder import initial_rho_index, setup_rhos  # noqa: E402
-from . import convert, models  # noqa: E402
+from .parallel import init_distributed, make_mesh  # noqa: E402
+from . import convert, models, parallel  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -46,5 +50,6 @@ __all__ = [
     "BatchedReLU_QP", "BatchInfo", "BatchResults",
     "Bank", "DeviceQP", "SolveResult", "solve_loop", "build_bank_np",
     "prepare_bank", "setup_rhos", "initial_rho_index",
-    "convert", "models", "__version__",
+    "init_distributed", "make_mesh",
+    "convert", "models", "parallel", "__version__",
 ]

@@ -46,8 +46,15 @@ that accuracy directly.)
 ``tail_policy="repack"`` (shared (H, A) only) solves over a schedule of
 shrinking row buffers (``core.batched.solve_batched_shared_repack``).
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh=`` and
-``process_local=`` (the multi-device paths).
+``mesh=`` (a 1-D ``DeviceMesh`` from ``parallel.make_mesh``, one process per
+device) splits the batch over the ranks in rank order: each rank keeps its
+rows, builds the shared bank (the same on every rank) or its own problems'
+banks, forms its rows' biases in fp64 on the host, and runs the per-device
+kernel on them (K4 or K5 on ``cuda``), the loop's exit all-reduced over the
+mesh (``core.batched``). Every rank is handed the global batch, or, with
+``process_local=True``, only its own rows (the global batch is then
+``world size × local rows``). ``solve()`` returns the global results on
+every rank, gathered once after the loop; ``local_rows`` picks this rank's.
 """
 from __future__ import annotations
 
@@ -59,6 +66,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from . import native
 from .classes import SETTINGS_FIELDS, Settings
@@ -75,6 +84,7 @@ from .core.ladder import initial_rho_index, setup_rhos
 from .ops.fused_step import (batched_plan, pad_dim,
                              pallas_batched_chunk_runner,
                              pallas_hetero_chunk_runner, round_up)
+from .parallel.sharded import gather_rows, mesh_group
 from .utils.scaling import (identity_scaling, residual_unscale_weights,
                             ruiz_equilibrate, ruiz_equilibrate_batch)
 
@@ -129,6 +139,7 @@ class BatchInfo:
     pri_res: Optional[np.ndarray] = None       # (B,)
     dua_res: Optional[np.ndarray] = None       # (B,)
     rho_estimate: Optional[np.ndarray] = None  # (B,)
+    rho_ind: Optional[np.ndarray] = None       # (B,) final rungs
     setup_time: float = 0.0
     solve_time: float = 0.0
     update_time: float = 0.0
@@ -158,6 +169,10 @@ class BatchedReLU_QP:
         self.info = BatchInfo()
         self.results = BatchResults(info=self.info)
         self._ready = False
+        self.mesh, self.axis_name = None, "qp"
+        self._group, self._rank, self._size = None, 0, 1
+        self._process_local = False
+        self._rows = slice(None)
 
     # ------------------------------------------------------------------ #
     def setup(self, H, g, A, l, u, *, rho_mode: str = "shared",
@@ -185,8 +200,18 @@ class BatchedReLU_QP:
             the device). Repack needs a shared-(H, A) batch, no mesh,
             single-phase iteration (iter_precision="highest" or
             refine=False) and max_iter a multiple of check_interval.
+          mesh: a 1-D ``DeviceMesh`` (``parallel.make_mesh``) to split the
+            batch over, one process per device; ``axis_name`` names its
+            dimension. The batch must divide by the mesh size. Every rank
+            calls setup with the same arguments.
+          process_local: with a mesh, the batch-led arrays (g, l, u, and a
+            batched H or A) are THIS rank's rows of a global batch of
+            ``world size × B`` problems (equal on every rank); a shared H/A
+            must be the same on every rank. ``update``, ``warm_start``,
+            ``update_matrices`` and ``load_state`` then take local rows too.
           settings_kw: the ``Settings`` fields (``device`` defaults to
-            ``cuda`` and raises without a GPU).
+            ``cuda`` and raises without a GPU; under a mesh it must be the
+            mesh's device type).
         """
         t0 = time.perf_counter()
         if bank_build not in ("host", "device"):
@@ -197,17 +222,25 @@ class BatchedReLU_QP:
                              f"{tail_policy!r}")
         self.settings = Settings(**settings_kw)
         stng = self.settings
+        if process_local and mesh is None:
+            raise ValueError("process_local=True requires a mesh")
         if tail_policy == "repack":
             self._check_repack(np.ndim(H) == 3 or np.ndim(A) == 3, mesh)
-        if mesh is not None or process_local:
-            raise NotImplementedError(
-                "mesh= / process_local= (the multi-device batched solve) is "
-                "not ported yet (ROADMAP A.6)")
         if rho_mode not in ("shared", "per_problem"):
             raise ValueError(f"Invalid rho_mode {rho_mode!r}")
+        self.mesh, self.axis_name = mesh, axis_name
+        self._process_local = bool(process_local)
+        self._group, self._rank, self._size = None, 0, 1
+        if mesh is not None:
+            self._group, self._rank, self._size, mdev = mesh_group(
+                mesh, axis_name)
+            if stng.device.type != mdev.type:
+                raise ValueError(f"device {stng.device} is not the mesh's "
+                                 f"device type {mdev.type!r}")
+            if stng.device.index is None:
+                stng.device = mdev
         dtype = stng.precision_dtype
         dev = stng.device
-        self.axis_name = axis_name
 
         g = np.asarray(g, dtype=np.float64)
         if g.ndim != 2:
@@ -216,21 +249,32 @@ class BatchedReLU_QP:
         A = np.asarray(A, dtype=np.float64)
         l = np.asarray(l, dtype=np.float64)
         u = np.asarray(u, dtype=np.float64)
-        B_n, nx = g.shape
+        B_in, nx = g.shape
         hetero = H.ndim == 3 or A.ndim == 3
         nc = A.shape[-2] if A.ndim >= 2 else -1
-        if H.shape not in ((nx, nx), (B_n, nx, nx)) \
-                or A.shape not in ((nc, nx), (B_n, nc, nx)):
-            raise ValueError(f"H must be ({nx}, {nx}) or ({B_n}, {nx}, {nx}) "
-                             f"and A (nc, {nx}) or ({B_n}, nc, {nx})")
-        if l.shape != (B_n, nc) or u.shape != (B_n, nc):
-            raise ValueError(f"l/u must be (B, nc) = ({B_n}, {nc})")
+        if H.shape not in ((nx, nx), (B_in, nx, nx)) \
+                or A.shape not in ((nc, nx), (B_in, nc, nx)):
+            raise ValueError(f"H must be ({nx}, {nx}) or ({B_in}, {nx}, {nx}) "
+                             f"and A (nc, {nx}) or ({B_in}, nc, {nx})")
+        if l.shape != (B_in, nc) or u.shape != (B_in, nc):
+            raise ValueError(f"l/u must be (B, nc) = ({B_in}, {nc})")
         # unscaled fp64 masters in their pre-promotion shapes (a shared
-        # matrix beside a batched one is not repeated B times):
-        # update()/update_matrices() rebuild from them
+        # matrix beside a batched one is not repeated B times), the rows
+        # the caller passed: update()/update_matrices() rebuild from them
         self._H_np, self._A_np, self._g_np = H.copy(), A.copy(), g.copy()
+        self._l_np, self._u_np = l.copy(), u.copy()
+        # this rank's rows; Ruiz's batch-mean |g| from the whole batch
+        self._rows = self._my_rows(B_in, dev)
+        gbar = (self._ruiz_gbar(g, dev) if stng.scaling and not hetero
+                else None)
+        rows = self._rows
+        g, l, u = g[rows], l[rows], u[rows]
+        H = H[rows] if H.ndim == 3 else H
+        A = A[rows] if A.ndim == 3 else A
+        B_loc = g.shape[0]
         self.hetero = hetero
-        self.B_n, self.nx, self.nc = B_n, nx, nc
+        self.B_local, self.nx, self.nc = B_loc, nx, nc
+        self.B_n = B_loc * self._size
         self.D = stacked_dim(nx, nc)
         self._rho_mode_req = rho_mode
         self.rho_mode = "per_problem" if hetero else rho_mode
@@ -252,13 +296,13 @@ class BatchedReLU_QP:
         self._hetero_pallas = hetero and stng.backend != "xla"
         if self._use_pallas:
             self.Dp = pad_dim(self.D)
-            self.B_pad = round_up(B_n, _ROW_ALIGN)
+            self.B_pad = round_up(B_loc, _ROW_ALIGN)
         elif self._hetero_pallas:
             self.Dp = pad_dim(self.D)   # lane-aligned per-problem blocks
-            self.B_pad = B_n
+            self.B_pad = B_loc
         else:
             self.Dp = self.D
-            self.B_pad = B_n
+            self.B_pad = B_loc
 
         self.tail_policy = tail_policy
         self._repack_sched = (self._make_repack_schedule()
@@ -270,17 +314,61 @@ class BatchedReLU_QP:
         self._keep_hi = stng.iter_precision == "bf16" and stng.refine
         self._B_np = self._B_dev = None
         if hetero:
-            self._setup_hetero(np.broadcast_to(H, (B_n, nx, nx)), g,
-                               np.broadcast_to(A, (B_n, nc, nx)), l, u,
+            self._setup_hetero(np.broadcast_to(H, (B_loc, nx, nx)), g,
+                               np.broadcast_to(A, (B_loc, nc, nx)), l, u,
                                dtype, dev)
         else:
-            self._setup_shared(H, g, A, l, u, dtype, dev)
+            self._setup_shared(H, g, A, l, u, dtype, dev, gbar)
         self.rhos = torch.as_tensor(self.rhos_np, dtype=dtype, device=dev)
         self.clear_primal_dual()
         _sync(dev)
         self.info.setup_time = time.perf_counter() - t0
         self.info.update_time = 0.0
         self._ready = True
+
+    def _my_rows(self, n: int, dev) -> slice:
+        """This rank's slice of the ``n`` batch rows the caller passed: an
+        even split in rank order under a mesh (the batch must divide), all
+        of them with ``process_local`` (every rank's count must be equal,
+        checked by one all-gather) or without a mesh."""
+        if self.mesh is None:
+            return slice(0, n)
+        if self._process_local:
+            counts = gather_rows(torch.tensor([n], device=dev), self._group)
+            if bool((counts != n).any()):
+                raise ValueError(f"process_local ranks hold "
+                                 f"{counts.tolist()} rows: every rank must "
+                                 "hold the same number")
+            return slice(0, n)
+        if n % self._size != 0:
+            raise ValueError(f"batch {n} not divisible by mesh axis "
+                             f"{self._size} — pad the batch (inert rows: "
+                             "lo=-inf, hi=+inf)")
+        per = n // self._size
+        return slice(self._rank * per, (self._rank + 1) * per)
+
+    def _ruiz_gbar(self, g, dev) -> np.ndarray:
+        """The batch-mean |g| that normalizes a shared batch's Ruiz cost:
+        over the rows passed, or, with ``process_local``, the mean of every
+        rank's mean in rank order (one all-gather), so every rank
+        equilibrates identically."""
+        gbar = np.mean(np.abs(g), axis=0)
+        if self._process_local and self._size > 1:
+            t = torch.as_tensor(gbar, dtype=torch.float64, device=dev)
+            gbar = np.mean(gather_rows(t[None], self._group).cpu().numpy(),
+                           axis=0)
+        return gbar
+
+    def _same_on_every_rank(self, a: np.ndarray, what: str) -> None:
+        """Raise unless every rank of the mesh holds the same ``a`` (one
+        all-gather)."""
+        if self._size == 1:
+            return
+        t = torch.as_tensor(np.ascontiguousarray(a, np.float64),
+                            device=self.settings.device)
+        allr = gather_rows(t[None], self._group)
+        if not bool((allr == t[None]).all()):
+            raise ValueError(f"{what} differs across the mesh's ranks")
 
     def _put(self, a, dtype=None):
         # a writable C-ordered fp64 array (a broadcast view is copied)
@@ -328,7 +416,7 @@ class BatchedReLU_QP:
             align = batched_plan(
                 self.B_pad, self.Dp, stng.precision_dtype,
                 self._w_dtype(stng.precision_dtype),
-                stng.iter_precision)["rows_per_tile"]
+                stng.iter_precision, device=stng.device)["rows_per_tile"]
         floor = max(_REPACK_MIN_ROWS, align)
         caps = [self.B_pad]
         for _ in range(3):
@@ -345,23 +433,24 @@ class BatchedReLU_QP:
         return torch.bfloat16 if self.settings.iter_precision == "bf16" \
             else dtype
 
-    def _setup_shared(self, H, g, A, l, u, dtype, dev):
+    def _setup_shared(self, H, g, A, l, u, dtype, dev, gbar):
         stng = self.settings
         # equality detection on UNSCALED bounds; the pattern shapes the
-        # shared bank, so it must be the same across the batch
+        # shared bank, so it must be the same across the batch (and the
+        # mesh's ranks)
         eqs = equality_mask(l, u, stng.eq_tol)
         eq = eqs[0]
         if not (eqs == eq[None, :]).all():
             raise ValueError(
                 "equality-row pattern differs across the batch; the shared "
                 "bank would be wrong — pass batched H/A (hetero mode)")
+        self._same_on_every_rank(eq, "the equality-row pattern")
         self._eq_pattern = eq
-        self._l_np, self._u_np = l.copy(), u.copy()
 
         # optional Ruiz equilibration of the shared matrices, the cost
         # normalized by the batch-mean |g|
         if stng.scaling:
-            self.scal = ruiz_equilibrate(H, A, np.mean(np.abs(g), axis=0))
+            self.scal = ruiz_equilibrate(H, A, gbar)
         else:
             self.scal = identity_scaling(self.nx, self.nc)
         sc = self.scal
@@ -405,12 +494,11 @@ class BatchedReLU_QP:
 
     def _setup_hetero(self, H, g, A, l, u, dtype, dev):
         stng = self.settings
-        nx, nc, Bn = self.nx, self.nc, self.B_n
+        nx, nc, Bn = self.nx, self.nc, self.B_local
         # per-problem equality patterns from the UNSCALED bounds (row
         # scaling changes the u − l gaps), then per-problem Ruiz scaling
         eq_masks = equality_mask(l, u, stng.eq_tol)
         self._eq_pattern = None
-        self._l_np, self._u_np = l.copy(), u.copy()
         self.scal = (ruiz_equilibrate_batch(H, A, g) if stng.scaling
                      else identity_scaling(nx, nc))
         sc = self.scal
@@ -434,8 +522,14 @@ class BatchedReLU_QP:
                 else np.full(Bn, float(stng.rho_cap)))
         self.rho_cap = caps
         # the eps floor of the update_settings guard, while the scaled A
-        # stack is at hand (keeping it would pin B·nc·nx fp64)
+        # stack is at hand (keeping it would pin B·nc·nx fp64): the largest
+        # over the whole batch, every rank's problems
         self._eps_floor = _hetero_eps_floor(caps, A, dtype, nx)
+        if self._group is not None:
+            t = torch.tensor([self._eps_floor], dtype=torch.float64,
+                             device=dev)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+            self._eps_floor = float(t.item())
         self._rho_eff_np = effective_rho_ladder_batch(self.rhos_np, eq_masks,
                                                       caps)
         self._rho_eff = (self._put(self._rho_eff_np) if stng.alpha != 1.0
@@ -460,7 +554,7 @@ class BatchedReLU_QP:
         (2.4 GB at B=1024, Dp=128). ``_B_np`` keeps the fp64 bias masters
         (B, N, D, nx): their rows beyond D would be zero."""
         stng = self.settings
-        D, Dp, Bn = self.D, self.Dp, self.B_n
+        D, Dp, Bn = self.D, self.Dp, self.B_local
         N = len(self.rhos_np)
         Wt = np.zeros((Bn, N, Dp, Dp), dtype=np.float64
                       if dtype == torch.float64 else np.float32)
@@ -525,7 +619,8 @@ class BatchedReLU_QP:
         The cap is 3/4 of the card's memory on cuda (the rest holds the
         states, the solve's temporaries and PyTorch's cache), a fixed 8 GiB
         on the CPU (``_CPU_BANK_CAP``); ``RELUQP_MAX_BANK_BYTES`` overrides
-        both.
+        both. It is per device: under a mesh each rank counts its own
+        problems' banks.
         """
         dev = self.settings.device
         env = os.environ.get("RELUQP_MAX_BANK_BYTES")
@@ -540,15 +635,18 @@ class BatchedReLU_QP:
         if self._keep_hi:
             w_bs += bs
         dp = self.Dp
-        total = self.B_n * n_rho * (dp * dp * w_bs + dp * bs)
+        total = self.B_local * n_rho * (dp * dp * w_bs + dp * bs)
         if self._bank_build == "device":
-            total += self.B_n * n_rho * dp * self.nx * 8
+            total += self.B_local * n_rho * dp * self.nx * 8
         if total > cap:
+            shards = (f", {self._size} mesh shards" if self._size > 1
+                      else "")
             raise ValueError(
-                f"heterogeneous bank needs ~{total / 2**30:.1f} GiB on "
-                f"{dev} (B={self.B_n}, N_rho={n_rho}, D={self.D}) which "
-                f"exceeds the {cap / 2**30:.1f} GiB cap — reduce the batch "
-                "size or raise RELUQP_MAX_BANK_BYTES")
+                f"heterogeneous bank needs ~{total / 2**30:.1f} GiB per "
+                f"device on {dev} (B={self.B_n}, N_rho={n_rho}, D={self.D}"
+                f"{shards}) which exceeds the {cap / 2**30:.1f} GiB cap — "
+                "reduce the batch size, split it over (more) devices with "
+                "mesh=, or raise RELUQP_MAX_BANK_BYTES")
 
     def _set_g(self, g):
         """The scaled G and the per-rung bias ``b_k = B_k g`` from an fp64
@@ -565,13 +663,13 @@ class BatchedReLU_QP:
                     self._B_dev, g64[:, None, :, None])[..., 0].to(
                         self.settings.precision_dtype)
                 return
-            bias = np.zeros((self.B_n, len(self.rhos_np), self.Dp))
+            bias = np.zeros((self.B_local, len(self.rhos_np), self.Dp))
             bias[:, :, :self.D] = np.matmul(self._B_np,
                                             g_s[:, None, :, None])[..., 0]
             self.bias_all = self._put(bias)
             return
         g_pad = np.zeros((self.B_pad, self.nx))
-        g_pad[:self.B_n] = sc.c * (g * sc.D[None, :])
+        g_pad[:self.B_local] = sc.c * (g * sc.D[None, :])
         self.G = self._put(g_pad)
         self.bias_all = self._put(
             np.matmul(g_pad[None], np.swapaxes(self._B_np, 1, 2)))
@@ -581,32 +679,38 @@ class BatchedReLU_QP:
         # clamp is active only on the z segment [nx, nx + nc)
         lo = np.full((self.B_pad, self.Dp), -np.inf)
         hi = np.full((self.B_pad, self.Dp), np.inf)
-        lo[:self.B_n, self.nx:self.nx + self.nc] = l_s
-        hi[:self.B_n, self.nx:self.nx + self.nc] = u_s
+        lo[:self.B_local, self.nx:self.nx + self.nc] = l_s
+        hi[:self.B_local, self.nx:self.nx + self.nc] = u_s
         self.lo = self._put(lo)
         self.hi = self._put(hi)
 
     # ------------------------------------------------------------------ #
+    def _caller_rows(self) -> int:
+        """Rows of the batch-led arrays the caller passes: this rank's with
+        ``process_local``, else the whole batch."""
+        return self.B_local if self._process_local else self.B_n
+
     def update(self, g=None, l=None, u=None):
         """Refresh the batched problem vectors (UNSCALED units); a g update
         recomputes every rung's bias in fp64 on the host. A bound update may
         not change any problem's equality-row pattern (it shapes the
-        bank)."""
+        bank). Under a mesh, the whole batch's rows, or this rank's with
+        ``process_local``."""
         self._check_ready()
         t0 = time.perf_counter()
         sc = self.scal
+        eB, rows = self._caller_rows(), self._rows
         if g is not None:
             g = np.asarray(g, dtype=np.float64)
-            if g.shape != (self.B_n, self.nx):
-                raise ValueError(f"g must be ({self.B_n}, {self.nx})")
+            if g.shape != (eB, self.nx):
+                raise ValueError(f"g must be ({eB}, {self.nx})")
             self._g_np = g.copy()
-            self._set_g(g)
+            self._set_g(g[rows])
         if l is not None or u is not None:
             l_np = self._l_np if l is None else np.asarray(l, np.float64)
             u_np = self._u_np if u is None else np.asarray(u, np.float64)
-            if l_np.shape != (self.B_n, self.nc) \
-                    or u_np.shape != (self.B_n, self.nc):
-                raise ValueError(f"l/u must be ({self.B_n}, {self.nc})")
+            if l_np.shape != (eB, self.nc) or u_np.shape != (eB, self.nc):
+                raise ValueError(f"l/u must be ({eB}, {self.nc})")
             eqs = equality_mask(l_np, u_np, self.settings.eq_tol)
             if self._eq_pattern is not None:
                 if not (eqs == self._eq_pattern[None, :]).all():
@@ -620,7 +724,7 @@ class BatchedReLU_QP:
                     "baked into its bank — re-run setup()")
             self._l_np, self._u_np = l_np.copy(), u_np.copy()
             E = np.asarray(sc.E)
-            self._set_bounds(l_np * E, u_np * E)
+            self._set_bounds(l_np[rows] * E, u_np[rows] * E)
         _sync(self.settings.device)
         self.info.update_time = time.perf_counter() - t0
 
@@ -630,7 +734,9 @@ class BatchedReLU_QP:
         ladder position and the settings. Shared ``(nx, nx)``/``(nc, nx)``
         or per-problem ``(B, nx, nx)``/``(B, nc, nx)`` matrices; a batched
         one switches a shared batch to the heterogeneous regime, where
-        every problem resumes at the old shared ladder index."""
+        every problem resumes at the old shared ladder index. Under a mesh
+        the whole batch's rows, or this rank's with ``process_local``: each
+        rank re-factorizes only its own problems' banks."""
         self._check_ready()
         if H is None and A is None:
             return
@@ -641,7 +747,7 @@ class BatchedReLU_QP:
                 "does not carry — re-run setup with the full problem instead")
         t0 = time.perf_counter()
         old = self.scal
-        nx, nc, Bn = self.nx, self.nc, self.B_n
+        nx, nc, Bn = self.nx, self.nc, self.B_local
         Y = self.Y[:Bn].detach().cpu().double().numpy()
         z_s = Y[:, nx:nx + nc]
         last = Y[:, nx + nc:nx + 2 * nc]
@@ -658,8 +764,9 @@ class BatchedReLU_QP:
             tp = "dense"   # shared → hetero switch: repack unsupported
         self.setup(self._H_np if H is None else H, self._g_np,
                    self._A_np if A is None else A, self._l_np, self._u_np,
-                   rho_mode=self._rho_mode_req, axis_name=self.axis_name,
-                   bank_build=self._bank_build, tail_policy=tp,
+                   rho_mode=self._rho_mode_req, mesh=self.mesh,
+                   axis_name=self.axis_name, bank_build=self._bank_build,
+                   process_local=self._process_local, tail_policy=tp,
                    **{k: getattr(stng, k) for k in SETTINGS_FIELDS})
         # the ladder position BEFORE the warm state: under alpha != 1 the p
         # slot is encoded against the current rung
@@ -673,7 +780,7 @@ class BatchedReLU_QP:
             # the fresh setup's index stands)
             self.rho_ind = torch.full((self.B_pad,), int(old_ind),
                                       dtype=torch.int32, device=dev)
-        self.warm_start(x=x_u, z=z_u, lam=lam_u)
+        self._warm_local(x_u, z_u, lam_u)
         self.info.update_time = time.perf_counter() - t0
 
     def _warn_eps_floor(self, eps_new: float) -> None:
@@ -742,10 +849,10 @@ class BatchedReLU_QP:
 
     def _done0(self):
         """Inert padded rows start done (None when there are none)."""
-        if self.B_pad == self.B_n:
+        if self.B_pad == self.B_local:
             return None
         return torch.arange(self.B_pad,
-                            device=self.settings.device) >= self.B_n
+                            device=self.settings.device) >= self.B_local
 
     def solve(self) -> BatchResults:
         """Solve the whole batch from the current (warm) state."""
@@ -758,7 +865,7 @@ class BatchedReLU_QP:
                 self.Wt_bank, self.bias_all, self.rhos, self.H_dev,
                 self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
                 self._Wt_hi, self._rho_eff, self._w_pri, self._w_dua,
-                chunk_runner=runner, **self._solve_kw())
+                chunk_runner=runner, group=self._group, **self._solve_kw())
         elif self._repack_sched is not None and len(self._repack_sched) > 1:
             kw = self._solve_kw()
             kw.pop("refine")   # repack stages are single-phase
@@ -774,7 +881,8 @@ class BatchedReLU_QP:
                 self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
                 self._done0(), self._Wt_hi, self._rho_eff, self._w_pri,
                 self._w_dua, rho_mode=self.rho_mode,
-                chunk_runner=self._shared_runner(), **self._solve_kw())
+                chunk_runner=self._shared_runner(), group=self._group,
+                **self._solve_kw())
         self._fill_results(res, t0)
         if not self.settings.warm_starting:
             self.clear_primal_dual()
@@ -783,12 +891,30 @@ class BatchedReLU_QP:
     def _fill_results(self, res: BatchSolveResult, t0: float):
         self.Y = res.Y
         self.rho_ind = res.rho_ind
-        nx, nc, Bn = self.nx, self.nc, self.B_n
+        nx, nc, Bn = self.nx, self.nc, self.B_local
         f64 = torch.float64
+        z_s = res.Y[:Bn, nx:nx + nc]
+        last = res.Y[:Bn, nx + nc:nx + 2 * nc]
+        if self.settings.alpha != 1.0:
+            # λ = ρ⃗(p − z) at each problem's final rung
+            last = self._rho_eff_at(res.rho_ind) * (last - z_s)
+        x, z, lam = (res.Y[:Bn, :nx] * self._unx, z_s * self._unz,
+                     last * self._unlam)
+        rungs = torch.broadcast_to(res.rho_ind, res.iters.shape)
+        stats = torch.stack([res.iters.to(f64), res.status.to(f64),
+                             res.pri_res.to(f64), res.dua_res.to(f64),
+                             res.rho_estimate.to(f64), rungs.to(f64)])[:, :Bn]
+        if self._group is not None:
+            # every rank's rows, in rank order: ONE all-gather per solve
+            dt = x.dtype
+            rows = gather_rows(torch.cat([stats.T, x.to(f64), z.to(f64),
+                                          lam.to(f64)], dim=1), self._group)
+            stats = rows[:, :6].T
+            x, z, lam = (rows[:, 6:6 + nx].to(dt),
+                         rows[:, 6 + nx:6 + nx + nc].to(dt),
+                         rows[:, 6 + nx + nc:].to(dt))
         # the solve's one bulk device→host read of the per-problem stats
-        host = torch.stack([res.iters.to(f64), res.status.to(f64),
-                            res.pri_res.to(f64), res.dua_res.to(f64),
-                            res.rho_estimate.to(f64)])[:, :Bn].cpu().numpy()
+        host = stats.cpu().numpy()
         run_time = time.perf_counter() - t0
         # a fresh BatchInfo per solve: results held by the caller do not
         # change under a later solve
@@ -798,53 +924,69 @@ class BatchedReLU_QP:
         info.status = info.status_code == 1
         info.pri_res, info.dua_res, info.rho_estimate = host[2], host[3], \
             host[4]
+        info.rho_ind = host[5].astype(np.int32)
         info.n_iter_total = int(res.n_iter_total)
         info.n_iter_fast = int(res.n_iter_fast)
         info.obj_val = None   # computed on demand by objective()
         info.run_time = run_time
         info.solve_time = info.update_time + run_time
-        z_s = res.Y[:Bn, nx:nx + nc]
-        last = res.Y[:Bn, nx + nc:nx + 2 * nc]
-        if self.settings.alpha != 1.0:
-            # λ = ρ⃗(p − z) at each problem's final rung
-            last = self._rho_eff_at(res.rho_ind) * (last - z_s)
         self.info = info
-        self.results = BatchResults(x=res.Y[:Bn, :nx] * self._unx,
-                                    z=z_s * self._unz,
-                                    lam=last * self._unlam, info=info)
+        self.results = BatchResults(x=x, z=z, lam=lam, info=info)
 
     def objective(self) -> np.ndarray:
-        """Per-problem objective ½xᵀHx + gᵀx in UNSCALED units."""
-        x = self.Y[:self.B_n, :self.nx]   # scaled iterate
-        G = self.G[:self.B_n]
+        """Per-problem objective ½xᵀHx + gᵀx in UNSCALED units: the whole
+        batch's (B,) on every rank under a mesh (one all-gather)."""
+        x = self.Y[:self.B_local, :self.nx]   # scaled iterate
+        G = self.G[:self.B_local]
         Hx = (torch.bmm(self.H_dev, x[:, :, None])[:, :, 0] if self.hetero
               else x @ self.H_dev.T)
         obj_s = 0.5 * (x * Hx).sum(-1) + (G * x).sum(-1)
-        return obj_s.detach().cpu().double().numpy() * self.scal.cinv
+        obj = obj_s.detach().cpu().double().numpy() * self.scal.cinv
+        if self._group is None:
+            return obj
+        t = torch.as_tensor(obj, device=self.settings.device)
+        return gather_rows(t, self._group).cpu().numpy()
+
+    def local_rows(self, arr) -> np.ndarray:
+        """Host copy of THIS rank's rows of a batch-led result (e.g.
+        ``results.x``, ``info.iter``): the whole batch without a mesh."""
+        a = (arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor)
+             else np.asarray(arr))
+        per = self.B_local
+        if self.mesh is None:
+            return a.copy()
+        return a[self._rank * per:(self._rank + 1) * per].copy()
 
     # ------------------------------------------------------------------ #
     def _rho_eff_at(self, rho_ind):
         """(1, nc) or (Bn, nc) effective ρ⃗ at the given rung(s)."""
         if self.hetero:
-            rows = torch.arange(self.B_n, device=rho_ind.device)
-            return self._rho_eff[rows, rho_ind[:self.B_n].long()]
+            rows = torch.arange(self.B_local, device=rho_ind.device)
+            return self._rho_eff[rows, rho_ind[:self.B_local].long()]
         rv = self._rho_eff.index_select(0, rho_ind.reshape(-1).long())
-        return rv if rv.shape[0] == 1 else rv[:self.B_n]
+        return rv if rv.shape[0] == 1 else rv[:self.B_local]
 
     def _rho_vec_rows(self) -> np.ndarray:
         """(Bn, nc) per-problem ρ⃗ at the current ladder indices (host)."""
         ind = np.broadcast_to(self.rho_ind.detach().cpu().numpy(),
-                              (self.B_pad,))[:self.B_n]
+                              (self.B_pad,))[:self.B_local]
         if self.hetero:
-            return self._rho_eff_np[np.arange(self.B_n), ind]
+            return self._rho_eff_np[np.arange(self.B_local), ind]
         return self._rho_eff_np[ind]
 
     def warm_start(self, x=None, z=None, lam=None):
-        """Inject primal/dual state (UNSCALED units, (B, ·) rows)."""
+        """Inject primal/dual state (UNSCALED units, (B, ·) rows: the whole
+        batch's under a mesh, this rank's with ``process_local``)."""
         self._check_ready()
+        pick = lambda a: (None if a is None
+                          else np.asarray(a, np.float64)[self._rows])
+        self._warm_local(pick(x), pick(z), pick(lam))
+
+    def _warm_local(self, x, z, lam):
+        """``warm_start`` on this rank's rows."""
         stng = self.settings
         sc = self.scal
-        nx, nc, Bn = self.nx, self.nc, self.B_n
+        nx, nc, Bn = self.nx, self.nc, self.B_local
         put = self._put
         # the scalings are (n,) shared or (B, n) per problem, c a scalar or
         # (B,)
@@ -889,28 +1031,33 @@ class BatchedReLU_QP:
         """Load stacked states (iterate units, (B, D) or (B, Dp) rows, or
         the padded (B_pad, ·) block) and the ladder index (an int for the
         shared walk, (B,) per problem and in the heterogeneous regime), e.g.
-        taken from another implementation."""
+        taken from another implementation. Under a mesh the whole batch's
+        rows, or this rank's with ``process_local``."""
         self._check_ready()
         Y_np = (Y.detach().cpu().double().numpy() if isinstance(Y, torch.Tensor)
                 else np.asarray(Y, np.float64))
-        if Y_np.ndim != 2 or Y_np.shape[0] < self.B_n \
+        eB = self._caller_rows()
+        if Y_np.ndim != 2 or Y_np.shape[0] < eB \
                 or Y_np.shape[1] not in (self.D, self.Dp):
-            raise ValueError(f"state must be (B={self.B_n}, D={self.D} or "
+            raise ValueError(f"state must be (B={eB}, D={self.D} or "
                              f"Dp={self.Dp}), got {Y_np.shape}")
         ind = np.asarray(rho_ind, np.int64).reshape(-1)
-        want = 1 if self.rho_mode == "shared" else self.B_n
+        want = 1 if self.rho_mode == "shared" else eB
         if ind.size < want or ((ind < 0) | (ind >= len(self.rhos_np))).any():
             raise ValueError(f"rho_ind {rho_ind} is off the ladder or the "
                              "batch")
+        Y_np = Y_np[:eB][self._rows]
+        if ind.size >= eB:
+            ind = ind[:eB][self._rows]
         full = np.zeros((self.B_pad, self.Dp))
-        full[:self.B_n, :self.D] = Y_np[:self.B_n, :self.D]
+        full[:self.B_local, :self.D] = Y_np[:, :self.D]
         self.Y = self._put(full)
         if self.rho_mode == "shared":
             self.rho_ind = torch.tensor(int(ind[0]), dtype=torch.int32,
                                         device=self.settings.device)
         else:
             r = np.full((self.B_pad,), ind[0], np.int32)
-            r[:self.B_n] = ind[:self.B_n]
+            r[:self.B_local] = ind[:self.B_local]
             self.rho_ind = torch.as_tensor(r, device=self.settings.device)
 
     def _check_ready(self):

@@ -168,7 +168,7 @@ class Settings:
     #   "auto"/"pallas" -> chunk kernel K1 (CUDA kernel on cuda, its plain
     #                      torch version on cpu)
     #   "xla"           -> the plain torch chunk runner
-    #   "fused"         -> whole-solve kernel K3 (not ported yet: raises)
+    #   "fused"         -> whole-solve kernel K3 (its plain version on cpu)
     backend: str = "auto"
 
     def __post_init__(self):

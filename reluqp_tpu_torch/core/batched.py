@@ -32,6 +32,14 @@ window stays on the device, and the loop syncs to the host ONCE per window
 (the open-problem count, and under a two-phase refine its stall metric).
 The iteration count is kept on the host, since every window has a length
 fixed before it runs.
+
+Given a process ``group`` (one process per device, each holding its rows of
+the batch; ``parallel.sharded``), the exit is collective: the window's open
+count and stall-metric sums are all-reduced on the device before its one
+device→host read, and under the shared ρ walk so are the sum of the open
+rows' log ρ estimates and their count, before the rung decision. That is
+two reductions per window walking one rung, one per problem; every rank
+then takes the same decisions and leaves the loop together.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.fused_step import _bf16, fused_chunk_ref
 from .iteration import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
@@ -312,7 +321,8 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
                          iter_precision: str = "highest",
                          refine: bool = True,
                          adaptive_rho_interval: int = 1,
-                         alpha: float = 1.0) -> BatchSolveResult:
+                         alpha: float = 1.0,
+                         group=None) -> BatchSolveResult:
     """Solve a batch of QPs sharing (H, A).
 
     Args:
@@ -332,6 +342,9 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         M_lo | None, X (B, np))`` state-affine bias (shared mode only): per
         window the loop forms the CURRENT rung's bias ``c_k + X M_kᵀ`` as
         one product; ``bias_all`` is then not read.
+      group: optional process group whose ranks each solve their rows of
+        one batch with this call: the exit (and the shared ρ walk) is
+        all-reduced over it.
     """
     B = Y0.shape[0]
     shared = rho_mode == "shared"
@@ -377,7 +390,7 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
         eps_dual_inf=eps_dual_inf, iter_precision=iter_precision,
         refine=refine, adaptive_rho_interval=adaptive_rho_interval,
-        alpha=alpha)
+        alpha=alpha, group=group)
 
 
 def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
@@ -518,7 +531,8 @@ def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
                          iter_precision: str = "highest",
                          refine: bool = True,
                          adaptive_rho_interval: int = 1,
-                         alpha: float = 1.0) -> BatchSolveResult:
+                         alpha: float = 1.0,
+                         group=None) -> BatchSolveResult:
     """Solve a batch of QPs with per-problem (H, A).
 
     Args:
@@ -531,6 +545,8 @@ def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
         own index.
       chunk_runner: ``_chunk_hetero``'s signature; K5's runner
         (``ops.fused_step.pallas_hetero_chunk_runner``) plugs in here.
+      group: optional process group of the ranks that each solve their
+        problems of one batch: the exit is all-reduced over it.
     """
     if chunk_runner is None:
         chunk_runner = _chunk_hetero
@@ -551,7 +567,7 @@ def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
         check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
         eps_dual_inf=eps_dual_inf, iter_precision=iter_precision,
         refine=refine, adaptive_rho_interval=adaptive_rho_interval,
-        alpha=alpha)
+        alpha=alpha, group=group)
 
 
 def _lam_of(Y, rho_ind, nx: int, nc: int, alpha: float, rho_vec):
@@ -588,7 +604,7 @@ def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
            check_infeasibility: bool, eps_prim_inf: float,
            eps_dual_inf: float, iter_precision: str, refine: bool,
            adaptive_rho_interval: int, alpha: float, stop_open: int = 0,
-           with_rem: bool = True):
+           with_rem: bool = True, group=None):
     """Run check windows from ``state0`` until at most ``stop_open``
     problems are open or the ``max_iter`` budget (counted from
     ``state0.k``) is spent; ``with_rem`` runs the ``max_iter %
@@ -596,8 +612,9 @@ def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
     bias bank, ``rho_vec(rho_ind)`` the effective ρ⃗ at the rung(s);
     ``shared`` walks one index by the geometric mean, else every problem
     walks its own. The whole loop is one stage (``stop_open=0``); the
-    repack driver runs several over shrinking row buffers. Returns
-    ``(state, k_fast)``."""
+    repack driver runs several over shrinking row buffers. With a process
+    ``group`` the open count, the stall metric's sums and the shared walk's
+    statistics are sums over its ranks. Returns ``(state, k_fast)``."""
     dtype = state0.Y.dtype
     eps = torch.tensor(eps_abs, dtype=dtype)
     eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
@@ -636,6 +653,10 @@ def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
                 rho_k = rhos_t.index_select(0, rho_ind.reshape(1)).reshape(())
                 logr = torch.where(done, 0.0, torch.log(rho_new)).sum()
                 n_act = (~done).sum()
+                if group is not None:
+                    red = torch.stack([logr, n_act.to(dtype)])
+                    dist.all_reduce(red, group=group)
+                    logr, n_act = red[0], red[1]
                 rho_gm = torch.exp(logr / n_act.clamp_min(1).to(dtype))
                 rho_gm = torch.where(n_act > 0, rho_gm, rho_k)
                 new_ind = rho_ladder_step(rhos_t, rho_ind, rho_gm, tol,
@@ -675,12 +696,20 @@ def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
                 done = done | newly_i
             X_prev, Lam_prev = X, lam_now
         # the window's ONE device→host transfer
-        bundle = [(~done).sum().to(torch.float64)]
+        n_open = (~done).sum()
         if two_phase:
             logres = torch.where(done, 0.0, torch.log(
-                torch.clamp_min(pri + dua, 1e-30)))
-            bundle.append((logres.sum() / (~done).sum().clamp_min(1))
-                          .to(torch.float64))
+                torch.clamp_min(pri + dua, 1e-30))).sum()
+        if group is not None:
+            red = torch.stack([n_open.to(dtype)]
+                              + ([logres] if two_phase else []))
+            dist.all_reduce(red, group=group)
+            n_open = red[0]
+            if two_phase:
+                logres = red[1]
+        bundle = [n_open.to(torch.float64)]
+        if two_phase:
+            bundle.append((logres / n_open.clamp_min(1)).to(torch.float64))
         host = torch.stack(bundle).cpu().tolist()
         return _BState(Y, rho_ind, rho, k, pri, dua, done, iters, status,
                        int(host[0]), host[1] if two_phase else None, X_prev,

@@ -18,7 +18,9 @@
 - ``scenario_rollout_scan``: the closed loop of B plants under one
   controller on the batched solver: ``kernel="loop"`` one batched solve
   per step (kernel K4 on CUDA), ``kernel="scan"`` a whole segment as one
-  launch of the batched whole-rollout kernel K6.
+  launch of the batched whole-rollout kernel K6. On a batch solver split
+  over a mesh each rank steps its own plants through the loop path (K4
+  per rank, the exit collective).
 
 Condensed form (prestabilized with ``u_k = -K x_k + v_k``,
 ``Ā = Ad - Bd K``): stacking stage vectors ``s_k = [u_{k-1}; x_k]`` for
@@ -39,10 +41,12 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.batched import solve_batched_shared
 from ..ops.fused_step import (pad_dim, pallas_batched_chunk_runner,
                               round_up)
+from ..parallel.sharded import gather_rows
 from ..ops.solve_kernel import (FullSolveOperand, build_residual_operator,
                                 full_rollout, full_rollout_batched,
                                 full_solve)
@@ -472,7 +476,8 @@ def mpc_rollout_scan(solver, prob: CondensedMPC, x_init, n_steps: int,
         iter_precision="highest" or refine=False, and an iteration budget
         of at least one check window (the budget is rounded down to whole
         windows); "auto" takes "scan" on CUDA whenever it is eligible,
-        else "loop" (always "loop" on the CPU), never "fused"; "fused" —
+        else "loop" (always "loop" on the CPU and for a tensor-parallel
+        solver), never "fused"; "fused" —
         each control step's whole solve as ONE launch of the whole-solve
         kernel K3 (``ops.solve_kernel.full_solve``; its plain version on
         the CPU), which needs alpha=1, no infeasibility checks and the
@@ -620,6 +625,7 @@ def _kernel_rollout_eligible(solver) -> bool:
     stng = solver.settings
     return (stng.alpha == 1.0 and not stng.check_infeasibility
             and getattr(solver, "_B_np", None) is not None
+            and solver._tp_group is None
             and solver.Dp == pad_dim(solver.D))
 
 
@@ -753,12 +759,14 @@ def _scan_rollout_eligible(solver, ci=None, budget=None) -> bool:
     refine; its residual checks always run at full precision), the fp64
     bias master, and an iteration budget (``solve_max_iter`` or
     ``settings.max_iter``) that holds at least one full check window — K2
-    runs whole windows only and never rounds a budget up. ``mesh=`` is
-    refused at setup, so no sharded solver reaches here. The TPU's VMEM
-    gates do not apply on the card (ROADMAP §C)."""
+    runs whole windows only and never rounds a budget up — and no
+    tensor-parallel solver (``setup(mesh=)``): K2 holds the whole bank, so
+    such a solver's rollout takes the loop path, as in the JAX package.
+    The TPU's VMEM gates do not apply on the card (ROADMAP §C)."""
     stng = solver.settings
     if stng.alpha != 1.0 or stng.check_infeasibility \
-            or getattr(solver, "_B_np", None) is None:
+            or getattr(solver, "_B_np", None) is None \
+            or solver._tp_group is not None:
         return False
     if stng.iter_precision != "highest" and stng.refine:
         return False
@@ -993,7 +1001,7 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
                            alpha: float = 1.0,
                            check_infeasibility: bool = False,
                            eps_prim_inf: float = 1e-4,
-                           eps_dual_inf: float = 1e-4):
+                           eps_dual_inf: float = 1e-4, group=None):
     """The loop-path scenario rollout: one batched warm solve per control
     step for the whole ensemble.
 
@@ -1007,7 +1015,10 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
     Y_final, rho_ind_final)``; the status lane is ``min`` over the
     scenarios of the step's status codes, as the JAX package reduces it
     (an infeasible scenario reads as SOLVED next to solved ones;
-    ROADMAP §C, F-w2). ``iters``/``status`` are CPU int32 tensors.
+    ROADMAP §C, F-w2). ``iters``/``status`` are CPU int32 tensors. With a
+    process ``group`` the rows are this rank's plants: every solve's exit
+    is collective and the status lane is the ``min`` over every rank's
+    scenarios (one all-reduce per segment).
     """
     B_pad, Dp = Y0.shape
     B_n, npl = X0.shape
@@ -1036,7 +1047,8 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
             iter_precision=iter_precision, refine=refine,
             adaptive_rho_interval=adaptive_rho_interval, alpha=alpha,
             check_infeasibility=check_infeasibility,
-            eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf)
+            eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
+            group=group)
         # unscale the first-stage variable back to plant units
         V0 = res.Y[:B_n, :nu] * v0_scale[None, :]
         U = -(X @ Kg.T) + V0
@@ -1048,8 +1060,11 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
         sts.append(res.status[:B_n].min())
     us_t = torch.stack(Us) if Us else torch.zeros((0, B_n, nu), dtype=dtype,
                                                   device=dev)
-    st = (torch.stack(sts).cpu().to(torch.int32) if sts
-          else torch.zeros((0,), dtype=torch.int32))   # one read per segment
+    st = torch.stack(sts) if sts else torch.zeros((0,), dtype=torch.int32,
+                                                  device=dev)
+    if group is not None and sts:
+        dist.all_reduce(st, op=dist.ReduceOp.MIN, group=group)
+    st = st.cpu().to(torch.int32)   # one read per segment
     return (torch.stack(Xs), us_t, torch.tensor(its, dtype=torch.int32), st,
             Y, int(rho_ind))
 
@@ -1080,17 +1095,24 @@ def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,
         K6 (``ops.solve_kernel.full_rollout_batched``; its plain version on
         the CPU), which needs alpha=1, no infeasibility checks,
         iter_precision="highest" or refine=False, and a budget of at least
-        one check window (rounded down to whole windows); "auto" takes
-        "scan" on CUDA whenever it is eligible (then K6 runs or the call
-        raises), else "loop" (always "loop" on the CPU).
+        one check window (rounded down to whole windows), and a solver on
+        one device: K6 walks its ρ ladder inside the kernel, which cannot
+        reduce across a mesh's ranks; "auto" takes "scan" on CUDA whenever
+        it is eligible (then K6 runs or the call raises), else "loop"
+        (always "loop" on the CPU and under a mesh).
       check_interval: ``None`` (settings) / an int / ``"auto"`` — the
         first ``calib_steps`` steps at ci=1, then the window sized by
         ``auto_check_interval`` on the ensemble's per-step iterations.
       return_stats: also return the per-step status lane (the ``min``
         over the scenarios' status codes, as the JAX package reports it).
-      return_state: also return ``(Y_final, rho_ind_final)``.
+      return_state: also return ``(Y_final, rho_ind_final)`` (under a mesh
+        this rank's rows of Y).
 
-    Returns ``(states (T+1, B, nx), controls (T, B, nu), iters (T,))``.
+    Under a mesh, ``X_init`` and ``noise`` hold the whole ensemble (this
+    rank's scenarios with ``process_local``); each rank steps its own
+    plants, and the states and controls of every rank are gathered once
+    at the end. Returns ``(states (T+1, B, nx), controls (T, B, nu),
+    iters (T,))``.
     """
     m = batch_solver
     if m.rho_mode != "shared":
@@ -1111,16 +1133,17 @@ def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,
         raise ValueError(
             "kernel='scan' scenario rollout needs alpha=1, "
             "iter_precision='highest' or refine=False, no infeasibility "
-            "checks, rho_mode='shared', and a budget of at least one full "
-            "check window")
+            "checks, rho_mode='shared', a shared-(H,A) single-chip batch "
+            "(no mesh), and a budget of at least one full check window")
     dtype, dev = stng.precision_dtype, stng.device
     X0 = (X_init.to(device=dev, dtype=dtype)
           if isinstance(X_init, torch.Tensor)
           else torch.as_tensor(np.asarray(X_init, np.float64), dtype=dtype,
                                device=dev))
     B_n, npl = X0.shape
-    if B_n != m.B_n:
-        raise ValueError(f"X_init batch {B_n} != solver batch {m.B_n}")
+    if B_n != m._caller_rows():
+        raise ValueError(f"X_init batch {B_n} != solver batch "
+                         f"{m._caller_rows()}")
     if noise is None:
         noise = torch.zeros((n_steps, B_n, npl), dtype=dtype, device=dev)
     else:
@@ -1130,6 +1153,8 @@ def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,
                                       dtype=dtype, device=dev))
         if tuple(noise.shape) != (n_steps, B_n, npl):
             raise ValueError(f"noise must be (T={n_steps}, B={B_n}, {npl})")
+    # this rank's plants
+    X0, noise = X0[m._rows], noise[:, m._rows]
     segment = _scan_scenario_rollout if kernel == "scan" \
         else _loop_scenario_rollout
     n_used = [0]
@@ -1146,6 +1171,10 @@ def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,
         ci = (stng.check_interval if check_interval is None
               else int(check_interval))
         out = run(ci, X0, m.Y, m.rho_ind, n_steps)
+    if m._group is not None:
+        # every rank's plants, in rank order
+        out = (gather_rows(out[0], m._group, axis=1),
+               gather_rows(out[1], m._group, axis=1)) + tuple(out[2:])
     res = out[:3]
     if return_stats:
         res = res + (out[3],)
@@ -1208,18 +1237,20 @@ def _loop_scenario_rollout(m, prob: CondensedMPC, X0, n_steps: int,
         alpha=float(stng.alpha),
         check_infeasibility=bool(stng.check_infeasibility),
         eps_prim_inf=float(stng.eps_prim_inf),
-        eps_dual_inf=float(stng.eps_dual_inf))
+        eps_dual_inf=float(stng.eps_dual_inf), group=m._group)
 
 
 def _scan_scenario_eligible(m, ci=None, budget=None) -> bool:
     """Gate for the batched whole-rollout kernel K6 on any device: a
-    shared-(H, A) batch walking one shared rung, alpha=1, no infeasibility
+    shared-(H, A) batch on one device (no mesh: the in-kernel ρ walk cannot
+    reduce across ranks) walking one shared rung, alpha=1, no infeasibility
     certificates, single-phase iteration (a reduced ``iter_precision``
     only with ``refine=False``) and a budget of at least one full check
     window. The TPU's VMEM and Dp > 768 precision gates do not apply on the
     card (ROADMAP §C)."""
     stng = m.settings
-    if getattr(m, "hetero", False) or m.rho_mode != "shared":
+    if getattr(m, "hetero", False) or m.rho_mode != "shared" \
+            or m.mesh is not None:
         return False
     if stng.alpha != 1.0 or stng.check_infeasibility:
         return False

@@ -41,6 +41,7 @@ Precision tiers (``iter_precision``):
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -64,6 +65,16 @@ def round_up(x: int, m: int) -> int:
 def pad_dim(d: int) -> int:
     """Lane-aligned padded stacked dimension."""
     return round_up(max(d, LANE), LANE)
+
+
+def device_guard(dev: torch.device):
+    """Make the card ``dev`` current around a launch on its tensors, so the
+    kernel's plan (``cudaGetDevice``) and stream are that card's; no
+    device switch where it is current already (the common case: one
+    process per card)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _bf16(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -137,7 +148,8 @@ def _raise_cuda(lib, code: int, what: str):
 
 
 def kernel_plan(rows: int, dp: int, dtype=torch.float32, w_dtype=None, *,
-                n_steps: int = 25, iter_precision: str = "highest") -> dict:
+                n_steps: int = 25, iter_precision: str = "highest",
+                device=None) -> dict:
     """The launch shape of K1 on the current GPU for a window of
     ``n_steps``: one thread-block cluster of ``cluster`` blocks per row
     (``blocks`` in all), output columns and threads per block, dynamic
@@ -148,12 +160,14 @@ def kernel_plan(rows: int, dp: int, dtype=torch.float32, w_dtype=None, *,
     iteration), the contraction's stretches (lanes per column group), how
     many clusters the card holds at once, and the grid barriers a window
     crosses (0). ``direct``: a one-iteration window on independent blocks
-    (no cluster, no exchange)."""
+    (no cluster, no exchange). ``device``: the GPU to plan for (default
+    the current one)."""
     lib = _lib()
     vals = [ctypes.c_int() for _ in range(10)]
-    rc = lib.k1_plan(rows, dp, int(n_steps), _DTYPE_CODE[dtype],
-                     _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
-                     *[ctypes.byref(v) for v in vals])
+    with torch.cuda.device(device):
+        rc = lib.k1_plan(rows, dp, int(n_steps), _DTYPE_CODE[dtype],
+                         _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
+                         *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _raise_cuda(lib, rc, "plan")
     (cluster, cw, threads, smem, _, smem_rows, rr, ks, direct,
@@ -247,8 +261,9 @@ def fused_chunk(wt_bank, b, lo, hi, y, rho_ind, n_steps: int,
     ``fused_chunk_ref``.
     """
     if y.is_cuda:
-        return _fused_chunk_cuda(wt_bank, b, lo, hi, y, rho_ind, n_steps,
-                                 iter_precision)
+        with device_guard(y.device):
+            return _fused_chunk_cuda(wt_bank, b, lo, hi, y, rho_ind, n_steps,
+                                     iter_precision)
     return fused_chunk_ref(wt_bank, b, lo, hi, y, rho_ind, n_steps,
                            iter_precision)
 
@@ -308,17 +323,18 @@ def _k4_raise(lib, code: int, what: str):
 
 
 def batched_plan(rows: int, dp: int, dtype=torch.float32, w_dtype=None,
-                 iter_precision: str = "highest") -> dict:
+                 iter_precision: str = "highest", device=None) -> dict:
     """The launch shape of K4 on the current GPU: blocks, rows per tile,
     dynamic shared memory per block, blocks per cluster (the column slabs
     of the rung), whether a block holds its slab in shared memory (else it
     reads it from L2 every iteration), and how many such clusters the card
-    holds at once."""
+    holds at once, on ``device`` (default the current GPU)."""
     lib = _k4_lib()
     vals = [ctypes.c_int() for _ in range(6)]
-    rc = lib.k4_plan(rows, dp, _DTYPE_CODE[dtype],
-                     _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
-                     *[ctypes.byref(v) for v in vals])
+    with torch.cuda.device(device):
+        rc = lib.k4_plan(rows, dp, _DTYPE_CODE[dtype],
+                         _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
+                         *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _k4_raise(lib, rc, "plan")
     return dict(zip(("blocks", "rows_per_tile", "smem_bytes", "cluster",
@@ -360,8 +376,9 @@ def fused_chunk_batched(wt_bank, b, lo, hi, Y, rho_ind, n_steps: int,
     ``fused_chunk_batched_ref``.
     """
     if Y.is_cuda:
-        return _fused_chunk_batched_cuda(wt_bank, b, lo, hi, Y, rho_ind,
-                                         n_steps, iter_precision)
+        with device_guard(Y.device):
+            return _fused_chunk_batched_cuda(wt_bank, b, lo, hi, Y, rho_ind,
+                                             n_steps, iter_precision)
     return fused_chunk_batched_ref(wt_bank, b, lo, hi, Y, rho_ind, n_steps,
                                    iter_precision)
 
@@ -428,7 +445,7 @@ def _k5_raise(lib, code: int, what: str):
 
 
 def hetero_plan(dp: int, rows: int, dtype=torch.float32, w_dtype=None,
-                iter_precision: str = "highest") -> dict:
+                iter_precision: str = "highest", device=None) -> dict:
     """The launch shape of K5 on the current GPU for ``rows`` problems at
     Dp: blocks per problem (the cluster over which a rung's column slabs
     are spread: the smallest whose slabs fit shared memory, doubled while
@@ -437,12 +454,14 @@ def hetero_plan(dp: int, rows: int, dtype=torch.float32, w_dtype=None,
     shared memory (else in registers, ``regs_rows`` rows per lane, or read
     from L2 every iteration), how many problems the card holds at once, the
     contraction's stretches (the lanes that share a column group) and the
-    threads per block. A launch has rows × cluster blocks."""
+    threads per block. A launch has rows × cluster blocks. ``device``: the
+    GPU to plan for (default the current one)."""
     lib = _k5_lib()
     vals = [ctypes.c_int() for _ in range(8)]
-    rc = lib.k5_plan(dp, rows, _DTYPE_CODE[dtype],
-                     _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
-                     *[ctypes.byref(v) for v in vals])
+    with torch.cuda.device(device):
+        rc = lib.k5_plan(dp, rows, _DTYPE_CODE[dtype],
+                         _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
+                         *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _k5_raise(lib, rc, "plan")
     return dict(zip(("cluster", "cols_per_block", "smem_bytes", "w_in_smem",
@@ -523,8 +542,9 @@ def fused_chunk_hetero(wt_bank, b, lo, hi, Y, rho_inds, n_steps: int,
     ``fused_chunk_hetero_ref``.
     """
     if Y.is_cuda:
-        return _fused_chunk_hetero_cuda(wt_bank, b, lo, hi, Y, rho_inds,
-                                        n_steps, iter_precision)
+        with device_guard(Y.device):
+            return _fused_chunk_hetero_cuda(wt_bank, b, lo, hi, Y, rho_inds,
+                                            n_steps, iter_precision)
     return fused_chunk_hetero_ref(wt_bank, b, lo, hi, Y, rho_inds, n_steps,
                                   iter_precision)
 

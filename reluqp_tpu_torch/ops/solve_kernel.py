@@ -54,7 +54,7 @@ import torch
 from ..core.iteration import (_RUNNING, _TINY, STATUS_DUAL_INFEASIBLE,
                               STATUS_MAX_ITER, STATUS_PRIMAL_INFEASIBLE,
                               STATUS_SOLVED, rho_update_stride)
-from .fused_step import _DTYPE_CODE, _bf16, pad_dim
+from .fused_step import _DTYPE_CODE, _bf16, device_guard, pad_dim
 
 __all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",
            "build_residual_operator", "build_alpha_operand",
@@ -447,16 +447,18 @@ def _raise_cuda(lib, code: int, what: str):
 
 
 def rollout_plan(dp: int, nxp: int, ncp: int, nup: int, nplp: int,
-                 n_rho: int, dtype=torch.float32, w_dtype=None) -> dict:
-    """The launch shape of K2 on the current GPU for a ladder of ``n_rho``
-    rungs: blocks, y lanes (columns of W) per block, dynamic shared
-    memory, and whether every operand slab is held in shared memory (else
-    streamed from L2)."""
+                 n_rho: int, dtype=torch.float32, w_dtype=None,
+                 device=None) -> dict:
+    """The launch shape of K2 on ``device`` (default the current GPU) for
+    a ladder of ``n_rho`` rungs: blocks, y lanes (columns of W) per block,
+    dynamic shared memory, and whether every operand slab is held in
+    shared memory (else streamed from L2)."""
     lib = _lib()
     vals = [ctypes.c_int() for _ in range(3)]
-    rc = lib.k2_plan(dp, nxp, ncp, nup, nplp, n_rho, _DTYPE_CODE[dtype],
-                     _DTYPE_CODE[w_dtype or dtype],
-                     *[ctypes.byref(v) for v in vals])
+    with torch.cuda.device(device):
+        rc = lib.k2_plan(dp, nxp, ncp, nup, nplp, n_rho, _DTYPE_CODE[dtype],
+                         _DTYPE_CODE[w_dtype or dtype],
+                         *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _raise_cuda(lib, rc, "plan")
     blocks, smem, resident = (v.value for v in vals)
@@ -590,7 +592,9 @@ def full_rollout(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op, lo0, hi0,
               adaptive_rho_interval=adaptive_rho_interval,
               iter_precision=iter_precision)
     if y0.is_cuda:
-        return _full_rollout_cuda(ops, rho_ind0, n_rho=n_rho, dp=dp, **kw)
+        with device_guard(y0.device):
+            return _full_rollout_cuda(ops, rho_ind0, n_rho=n_rho, dp=dp,
+                                      **kw)
     return full_rollout_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op,
                             lo0, hi0, S_u, Bdw, y0, x0, noise, rho_ind0,
                             **kw)
@@ -835,16 +839,18 @@ def _k3_raise(lib, code: int, what: str):
     raise RuntimeError(f"K3 {what} failed: CUDA error {code} ({msg})")
 
 
-def solve_plan(dp: int, nxp: int, ncp: int, dtype=torch.float32) -> dict:
-    """The launch shape of K3 on the current GPU for a plain solve (no
-    alpha, certificates or affine bias): blocks, y lanes (columns of W)
-    per block, dynamic shared memory, and whether every operand slab is
-    held in shared memory (else read from L2)."""
+def solve_plan(dp: int, nxp: int, ncp: int, dtype=torch.float32,
+               device=None) -> dict:
+    """The launch shape of K3 on ``device`` (default the current GPU) for
+    a plain solve (no alpha, certificates or affine bias): blocks, y lanes
+    (columns of W) per block, dynamic shared memory, and whether every
+    operand slab is held in shared memory (else read from L2)."""
     lib = _k3_lib()
     vals = [ctypes.c_int() for _ in range(3)]
     code = _DTYPE_CODE[dtype]
-    rc = lib.k3_plan(dp, nxp, ncp, 0, code, code, 0, 0,
-                     *[ctypes.byref(v) for v in vals])
+    with torch.cuda.device(device):
+        rc = lib.k3_plan(dp, nxp, ncp, 0, code, code, 0, 0,
+                         *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _k3_raise(lib, rc, "plan")
     blocks, smem, resident = (v.value for v in vals)
@@ -1027,7 +1033,8 @@ def full_solve(op: FullSolveOperand, y0, rho_ind0, bias_affine=None, *,
               check_infeasibility=check_infeasibility,
               eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf)
     if y0.is_cuda:
-        return _full_solve_cuda(ops, rho_ind0, **kw)
+        with device_guard(y0.device):
+            return _full_solve_cuda(ops, rho_ind0, **kw)
     return full_solve_ref(op, y0, rho_ind0, bias_affine,
                           stream_bank=stream_bank, **kw)
 
@@ -1222,17 +1229,20 @@ _K6_PLAN_KEYS = ("blocks", "threads", "cluster", "column_width",
 
 
 def rollout_batched_plan(bp: int, dp: int, nxp: int, ncp: int, nup: int,
-                         nplp: int, dtype=torch.float32) -> dict:
-    """The launch shape of K6 on the current GPU: blocks of ``threads``,
-    ``tiles`` thread-block clusters of ``cluster`` blocks, each block a
-    ``column_width`` slab of the rung's columns for ``rows_per_tile``
-    scenario rows, the dynamic shared memory, whether the slab is held in
-    shared memory (else read from L2), and how many such clusters the card
-    holds at once. Raises where no shape puts every tile in one wave."""
+                         nplp: int, dtype=torch.float32,
+                         device=None) -> dict:
+    """The launch shape of K6 on ``device`` (default the current GPU):
+    blocks of ``threads``, ``tiles`` thread-block clusters of ``cluster``
+    blocks, each block a ``column_width`` slab of the rung's columns for
+    ``rows_per_tile`` scenario rows, the dynamic shared memory, whether the
+    slab is held in shared memory (else read from L2), and how many such
+    clusters the card holds at once. Raises where no shape puts every tile
+    in one wave."""
     lib = _k6_lib()
     out = (ctypes.c_int * len(_K6_PLAN_KEYS))()
-    rc = lib.k6_plan(bp, dp, nxp, ncp, nup, nplp, _DTYPE_CODE[dtype],
-                     _DTYPE_CODE[dtype], out)
+    with torch.cuda.device(device):
+        rc = lib.k6_plan(bp, dp, nxp, ncp, nup, nplp, _DTYPE_CODE[dtype],
+                         _DTYPE_CODE[dtype], out)
     if rc != 0:
         _k6_raise(lib, rc, "plan")
     plan = dict(zip(_K6_PLAN_KEYS, out))
@@ -1376,8 +1386,9 @@ def full_rollout_batched(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op,
               adaptive_rho_interval=adaptive_rho_interval,
               iter_precision=iter_precision)
     if Y0.is_cuda:
-        return _full_rollout_batched_cuda(ops, rho_ind0, n_rho=n_rho, dp=dp,
-                                          bp=bp, **kw)
+        with device_guard(Y0.device):
+            return _full_rollout_batched_cuda(ops, rho_ind0, n_rho=n_rho,
+                                              dp=dp, bp=bp, **kw)
     return full_rollout_batched_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w,
                                     gl_op, lo0, hi0, S_u, Bdw, Y0, X0,
                                     pad_mask, noise, rho_ind0, **kw)

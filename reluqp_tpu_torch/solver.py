@@ -12,6 +12,10 @@ warm_start / clear_primal_dual`` returning ``Results(x, z, lam, Info)``.
   either device; ``backend="fused"`` runs the whole solve as one launch of
   the whole-solve kernel K3 (``ops.solve_kernel.full_solve``; its plain
   version on cpu), with one read of its stats;
+- ``setup(mesh=)`` (a 1-D ``DeviceMesh``, one process per device) splits
+  the bank by output columns over the mesh's ranks: each keeps its
+  (N, Dp, Dp/n) block and ``solve`` runs the loop with one all-gather of
+  the iterate per iteration (``parallel.tensor``);
 - timers are host clocks around work that ends in a device sync.
 
 λ is not zeroed after a solve (it warm-starts the next one);
@@ -40,6 +44,9 @@ from .ops.fused_step import pad_dim, pallas_chunk_runner
 from .ops.solve_kernel import (FullSolveOperand, build_alpha_operand,
                                build_infeas_operand, build_residual_operator,
                                full_solve)
+from .parallel.sharded import mesh_group
+from .parallel.tensor import (tp_align, tp_chunk_runner, tp_columns,
+                              tp_pad_dim)
 from .utils.scaling import (identity_scaling, residual_unscale_weights,
                             ruiz_equilibrate)
 
@@ -47,19 +54,22 @@ __all__ = ["ReLU_QP", "prepare_bank"]
 
 
 def prepare_bank(W_np, B_np, b_np, rhos_np, dtype, dp: int, device="cpu",
-                 w_dtype=None) -> Bank:
+                 w_dtype=None, cols=slice(None)) -> Bank:
     """Host fp64 bank → device runtime layout.
 
     ``W`` holds Wᵀ per rung, padded to (dp, dp); ``B`` is row-padded to
     (dp, nx) so ``b = B @ g`` lands in padded layout; ``b`` is (dp,)-padded
     with zeros. Zero padding + ±inf clamp bounds keep padded lanes exactly
     0. ``w_dtype`` overrides the storage dtype of ``W`` only
-    (``iter_precision="bf16"`` stores the bank in bfloat16).
+    (``iter_precision="bf16"`` stores the bank in bfloat16). ``cols``
+    keeps only those output columns of ``W`` (a tensor-parallel rank's
+    block); only they go to the device.
     """
     n, d, _ = W_np.shape
     nx = B_np.shape[2]
     Wt = np.zeros((n, dp, dp), dtype=np.float64)
     Wt[:, :d, :d] = np.swapaxes(W_np, 1, 2)
+    Wt = np.ascontiguousarray(Wt[:, :, cols])
     Bp = np.zeros((n, dp, nx), dtype=np.float64)
     Bp[:, :d, :] = B_np
     bp = np.zeros((n, dp), dtype=np.float64)
@@ -81,6 +91,8 @@ class ReLU_QP:
         self.info = Info()
         self.results = Results(info=self.info)
         self._ready = False
+        self._mesh, self._tp_axis = None, "tp"
+        self._tp_group, self._tp_rank, self._tp_size = None, 0, 1
 
     # ------------------------------------------------------------------ #
     # setup                                                              #
@@ -113,7 +125,8 @@ class ReLU_QP:
               precision="float32",
               backend="auto",
               bank_backend="auto",
-              mesh=None):
+              mesh=None,
+              tp_axis="tp"):
         """Set up the solver for
 
             minimize     1/2 x' H x + g' x
@@ -126,12 +139,20 @@ class ReLU_QP:
         by ``core.bank.build_bank_np``, ``"auto"`` the former where it
         builds and alpha = 1, else the latter;
         ``setup_breakdown["bank_backend"]`` says which ran.
+
+        ``mesh``: a 1-D ``DeviceMesh`` (``parallel.make_mesh``) turns on
+        the tensor-parallel solve: the bank is split by output columns over
+        its ``tp_axis`` ranks (one process per device, every rank calling
+        setup with the same arguments) and ``solve`` runs the loop with one
+        all-gather of the iterate per iteration (``parallel.tensor``).
+        Requires ``backend`` "auto" or "xla"; the plain runner's product
+        runs on each rank's block.
         """
         t0 = time.perf_counter()
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the tensor-parallel solve) is not ported yet "
-                "(ROADMAP A.6)")
+        if mesh is not None and backend in ("pallas", "fused"):
+            raise ValueError(
+                "tensor-parallel solve (mesh=...) supports "
+                "backend='auto'/'xla' only")
         if bank_backend not in ("auto", "numpy", "native"):
             raise ValueError(f"Invalid bank_backend {bank_backend!r}")
         if bank_backend == "native" and alpha != 1.0:
@@ -152,6 +173,16 @@ class ReLU_QP:
             refine=refine, rho_cap=rho_cap, device=device,
             precision=precision, backend=backend)
         stng = self.settings
+        self._mesh, self._tp_axis = mesh, tp_axis
+        self._tp_group, self._tp_rank, self._tp_size = None, 0, 1
+        if mesh is not None:
+            (self._tp_group, self._tp_rank, self._tp_size,
+             mdev) = mesh_group(mesh, tp_axis)
+            if stng.device.type != mdev.type:
+                raise ValueError(f"device {stng.device} is not the mesh's "
+                                 f"device type {mdev.type!r}")
+            if stng.device.index is None:
+                stng.device = mdev
         self._set_problem(H, g, A, l, u)
 
         # fp64 host bank build on the scaled problem. "auto" takes the
@@ -235,9 +266,14 @@ class ReLU_QP:
         # runner ("xla") on the unpadded one. On cuda "auto" always takes
         # K1: unlike the TPU's VMEM, nothing gates it by size. "fused" (the
         # whole-solve kernel K3, one launch per solve) is taken by name
-        # only, as in the JAX package.
+        # only, as in the JAX package. A mesh overrides the tiers: the
+        # tensor-parallel runner, each block's width aligned (tp_align).
         self._fused = stng.backend == "fused"
-        if stng.backend == "xla":
+        if self._tp_group is not None:
+            self._chunk_runner = tp_chunk_runner(self._tp_group)
+            self.Dp = tp_pad_dim(self.D, self._tp_size,
+                                 tp_align(stng.device))
+        elif stng.backend == "xla":
             self._chunk_runner = xla_chunk_runner
             self.Dp = self.D
         else:
@@ -251,8 +287,11 @@ class ReLU_QP:
         stng = self.settings
         dtype, dev = stng.precision_dtype, stng.device
         w_dtype = torch.bfloat16 if stng.iter_precision == "bf16" else None
+        # a tensor-parallel rank keeps its column block of W only
+        cols = (slice(None) if self._tp_group is None
+                else tp_columns(self.Dp, self._tp_rank, self._tp_size))
         self.bank = prepare_bank(W_np, B_np, b_np, self.rhos_np, dtype,
-                                 self.Dp, dev, w_dtype=w_dtype)
+                                 self.Dp, dev, w_dtype=w_dtype, cols=cols)
         # fp64 B master in padded layout: update(g) recomputes the bias
         # bank on the HOST in fp64 (a device GEMV in the iteration dtype
         # carries enough error to shift the ADMM fixed point).
@@ -262,7 +301,7 @@ class ReLU_QP:
         self._W_hi = None
         if stng.iter_precision == "bf16" and stng.refine:
             self._W_hi = prepare_bank(W_np, B_np, b_np, self.rhos_np, dtype,
-                                      self.Dp, dev).W
+                                      self.Dp, dev, cols=cols).W
 
     def _set_operands(self):
         """The device data of the iteration and its checks: bounds, problem
@@ -404,7 +443,8 @@ class ReLU_QP:
         self.setup(self.QP.H_np if H is None else H,
                    self.QP.g_np,
                    self.QP.A_np if A is None else A,
-                   self.QP.l_np, self.QP.u_np,
+                   self.QP.l_np, self.QP.u_np, mesh=self._mesh,
+                   tp_axis=self._tp_axis,
                    **{k: getattr(stng, k) for k in SETTINGS_FIELDS})
         # Restore the ladder position BEFORE re-injecting the warm state:
         # under alpha != 1 the p slot is encoded against the current rung.

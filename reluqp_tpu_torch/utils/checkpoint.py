@@ -18,12 +18,21 @@ cast residuals of the fp64 masters: it writes empty ``B_lo`` / ``G_lo`` and,
 on load, rebuilds its fp64 B master as ``B_bank + B_lo`` where a file
 carries ``B_lo``. bf16 banks are saved as
 their fp32 copy. Loaded solvers run on ``cuda`` unless ``device`` says
-otherwise. Single-process files only: the multi-device shard files wait for
-the multi-device port (ROADMAP A.6).
+otherwise.
+
+A batched solver split over a mesh of more than one rank checkpoints by
+shard: every rank writes ``<prefix>.proc<k>of<n>.npz`` holding its rows of
+the batch (call it on every rank with the same path). Such a set restores
+onto the same layout (``load_batched_solver(path, mesh=)``: each rank loads
+its own file) or into one process (the shards merged in rank order). A
+tensor-parallel ``ReLU_QP`` saves its whole bank (its column blocks
+gathered), which loads into one device.
 """
 from __future__ import annotations
 
+import glob
 import json
+import re
 import time
 
 import numpy as np
@@ -35,6 +44,7 @@ from ..core.bank import (effective_rho_ladder, effective_rho_ladder_batch,
                          equality_mask, stacked_dim)
 from ..core.ladder import initial_rho_index
 from ..ops.fused_step import pad_dim, round_up
+from ..parallel.sharded import gather_rows, mesh_group
 from ..solver import ReLU_QP, _sync
 from .scaling import Scaling, residual_unscale_weights
 
@@ -92,6 +102,11 @@ def save_solver(solver, path: str) -> None:
         raise RuntimeError("solver not set up")
     # under a bf16 bank the fp32 refine copy, so a reload loses nothing
     W = solver._W_hi if solver._W_hi is not None else solver.bank.W
+    if solver._tp_group is not None:
+        # a tensor-parallel bank: every rank's column block, gathered (call
+        # on every rank)
+        W = gather_rows(W.float() if W.dtype == torch.bfloat16 else W,
+                        solver._tp_group, axis=2)
     np.savez(
         path,
         settings=_settings_json(solver.settings),
@@ -144,9 +159,17 @@ def load_solver(path: str, device=None):
 # batched solver                                                        #
 # --------------------------------------------------------------------- #
 
+def _shard_path(path: str, pid: int, n: int) -> str:
+    """Rank ``pid``'s file of an ``n``-rank checkpoint: the caller's path is
+    the common prefix, each rank writes ``<prefix>.proc<k>of<n>.npz``."""
+    base = path[:-4] if path.endswith(".npz") else path
+    return f"{base}.proc{pid}of{n}.npz"
+
+
 def save_batched_solver(m, path: str) -> None:
     """Write a set-up ``BatchedReLU_QP`` (banks, biases, state, settings)
-    to ``path``."""
+    to ``path``. Split over a mesh of more than one rank, every rank writes
+    its rows to ``<path>.proc<k>of<n>.npz`` (call it on every rank)."""
     if not getattr(m, "_ready", False):
         raise RuntimeError("solver not set up")
     if m._B_dev is not None:
@@ -157,56 +180,160 @@ def save_batched_solver(m, path: str) -> None:
         B_bank = m._B_np
     eq = (np.zeros((0,), np.bool_) if m._eq_pattern is None
           else np.asarray(m._eq_pattern, np.bool_))
+    multi = m._size > 1
+    l_np, u_np, g_np, H_np, A_np = (m._l_np, m._u_np, m._g_np, m._H_np,
+                                    m._A_np)
+    B_save, Bp_save = m.B_n, m.B_pad
+    G, lo, hi, Y, bias, rho_ind = (_np(t) for t in (
+        m.G, m.lo, m.hi, m.Y, m.bias_all, m.rho_ind))
+    if multi:
+        # this rank's rows, unpadded (a merge concatenates them in rank
+        # order); the masters the caller passed are cut to the same rows
+        path = _shard_path(path, m._rank, m._size)
+        B_save = Bp_save = Bl = m.B_local
+        G, lo, hi, Y = G[:Bl], lo[:Bl], hi[:Bl], Y[:Bl]
+        bias = bias[:Bl] if m.hetero else bias[:, :Bl]
+        if rho_ind.ndim:
+            rho_ind = rho_ind[:Bl]
+        rows = m._rows
+        l_np, u_np, g_np = (None if a is None else a[rows]
+                            for a in (l_np, u_np, g_np))
+        H_np, A_np = (a if a is None or a.ndim < 3 else a[rows]
+                      for a in (H_np, A_np))
     np.savez(
         path,
         settings=_settings_json(m.settings),
-        n_procs=np.asarray(1), proc_id=np.asarray(0),
+        n_procs=np.asarray(m._size), proc_id=np.asarray(m._rank),
         hetero=np.asarray(m.hetero), rho_mode=np.asarray(m.rho_mode),
-        B_n=np.asarray(m.B_n), B_pad=np.asarray(m.B_pad),
+        B_n=np.asarray(B_save), B_pad=np.asarray(Bp_save),
         nx=np.asarray(m.nx), nc=np.asarray(m.nc), Dp=np.asarray(m.Dp),
         Wt_bank=_np(m._Wt_hi if m._Wt_hi is not None else m.Wt_bank),
-        B_bank=B_bank, H=_np(m.H_dev), A=_np(m.A_dev), G=_np(m.G),
-        lo=_np(m.lo), hi=_np(m.hi), Y=_np(m.Y), rho_ind=_np(m.rho_ind),
+        B_bank=B_bank, H=_np(m.H_dev), A=_np(m.A_dev), G=G,
+        lo=lo, hi=hi, Y=Y, rho_ind=rho_ind,
         rhos=m.rhos_np, unx=_np(m._unx), unz=_np(m._unz),
         unlam=_np(m._unlam), scal_D=np.asarray(m.scal.D),
         scal_E=np.asarray(m.scal.E), scal_c=np.asarray(m.scal.c),
-        rho_cap=np.asarray(m.rho_cap), eq_pattern=eq, l_np=m._l_np,
-        u_np=m._u_np, bias_all=_np(m.bias_all), G_lo=_EMPTY, B_lo=_EMPTY,
-        H_np=m._H_np, A_np=m._A_np, g_np=m._g_np,
+        rho_cap=np.asarray(m.rho_cap), eq_pattern=eq, l_np=l_np,
+        u_np=u_np, bias_all=bias, G_lo=_EMPTY, B_lo=_EMPTY,
+        H_np=H_np, A_np=A_np, g_np=g_np,
         rho_mode_req=np.asarray(m._rho_mode_req),
         bank_build=np.asarray(m._bank_build),
         tail_policy=np.asarray(m.tail_policy))
 
 
+# the rank of a per-problem scaling array (a shared one has one less)
+_BATCH_NDIM = {"scal_D": 2, "scal_E": 2, "scal_c": 1}
+
+
+def _merge_shards(path: str) -> dict:
+    """Reassemble a shard-file checkpoint (``<prefix>.proc<k>of<n>.npz``)
+    into one record, the ranks' rows concatenated in rank order; ``path``
+    is the prefix or one shard's name (whose n pins the set)."""
+    base = path[:-4] if path.endswith(".npz") else path
+    suffix = re.search(r"\.proc\d+of(\d+)$", base)
+    base = re.sub(r"\.proc\d+of\d+$", "", base)
+    if suffix:
+        n = int(suffix.group(1))
+    else:
+        first = sorted(glob.glob(f"{base}.proc0of*.npz"))
+        if not first:
+            raise FileNotFoundError(
+                f"no checkpoint at {path} and no multi-host shard files "
+                f"{base}.proc0of*.npz")
+        if len(first) > 1:
+            # shard sets of different sizes share the prefix: refuse
+            # rather than mix them
+            raise ValueError(
+                f"ambiguous checkpoint: multiple shard sets match {base} "
+                f"({', '.join(first)}); delete the stale set or pass one "
+                f"shard file explicitly (e.g. {first[0]}) to pin the set")
+        n = int(first[0].rsplit("of", 1)[1][:-4])
+    shards = [_load_npz(_shard_path(base, k, n)) for k in range(n)]
+    d0 = shards[0]
+    hetero = bool(d0["hetero"])
+    # batch-led keys concatenate in rank order; the shared ones are the
+    # same in every shard (shard 0's)
+    cat0 = ["G", "G_lo", "lo", "hi", "Y", "l_np", "u_np", "g_np"]
+    if str(d0["rho_mode"]) != "shared":
+        cat0.append("rho_ind")
+    if hetero:
+        cat0 += ["Wt_bank", "B_bank", "H", "A", "unx", "unz", "unlam",
+                 "bias_all", "H_np", "A_np", "scal_D", "scal_E", "scal_c",
+                 "rho_cap"]
+        if d0["B_lo"].size:
+            cat0.append("B_lo")
+    merged = dict(d0)
+    for key in cat0:
+        # an unscaled hetero batch's identity scaling is shared: (nx,) D
+        # and E, a scalar c
+        if key in d0 and d0[key].ndim >= _BATCH_NDIM.get(key, 1):
+            merged[key] = np.concatenate([s[key] for s in shards], axis=0)
+    if not hetero:
+        # the shared regime's bias is (N_rho, B, Dp): batch axis 1
+        merged["bias_all"] = np.concatenate([s["bias_all"] for s in shards],
+                                            axis=1)
+    merged["B_n"] = np.asarray(sum(int(s["B_n"]) for s in shards))
+    merged["B_pad"] = merged["B_n"]
+    merged["n_procs"] = np.asarray(1)
+    return merged
+
+
+def _load_record(path: str) -> dict:
+    """One file's record, or the merged shard set at ``path``."""
+    try:
+        data = _load_npz(path)
+    except FileNotFoundError:
+        return _merge_shards(path)
+    return _merge_shards(path) if int(data.get("n_procs", 1)) > 1 else data
+
+
 def load_batched_solver(path: str, mesh=None, axis_name: str = "qp",
                         device=None):
-    """Restore a ``BatchedReLU_QP`` from ``save_batched_solver``'s file
-    without factorizing the banks, on ``device`` (default ``cuda``), in the
-    layout a fresh setup would give it (D and B re-padded to the backend's).
-    A ``"repack"`` file restored into a regime that cannot run repack (a
-    heterogeneous batch, a two-phase refine) runs ``"dense"``, as in the
-    JAX package. A file without the fp64 problem masters loads and solves;
-    its ``update_matrices`` raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (restoring onto several devices) is not ported yet "
-            "(ROADMAP A.6)")
+    """Restore a ``BatchedReLU_QP`` from ``save_batched_solver``'s file(s)
+    without factorizing the banks, on ``device`` (default ``cuda``, or the
+    mesh's device), in the layout a fresh setup would give it (D and B
+    re-padded to the backend's). A ``"repack"`` file restored into a regime
+    that cannot run repack (a heterogeneous batch, a two-phase refine, a
+    mesh) runs ``"dense"``, as in the JAX package. A file without the fp64
+    problem masters loads and solves; its ``update_matrices`` raises.
+
+    A shard set restores two ways. With a ``mesh`` of the set's size, every
+    rank loads its own file and holds its rows, as after
+    ``setup(process_local=True)`` (call it on every rank). Without a mesh
+    (or on a one-rank mesh), the shards are merged into one batch in rank
+    order."""
     t0 = time.perf_counter()
-    data = _load_npz(path)
-    if int(data.get("n_procs", 1)) > 1:
-        raise NotImplementedError(
-            "multi-process shard files are not ported yet (ROADMAP A.6)")
+    group, rank, size = None, 0, 1
+    if mesh is not None:
+        group, rank, size, mdev = mesh_group(mesh, axis_name)
+        if device is None:
+            device = mdev
+    if size > 1:
+        shard = _shard_path(path, rank, size)
+        data = _load_npz(shard)
+        if int(data.get("n_procs", 1)) != size:
+            raise ValueError(
+                f"checkpoint {shard} was written by "
+                f"{int(data.get('n_procs', 1))} processes but this mesh has "
+                f"{size} — restore on the same layout, or single-process")
+    else:
+        data = _load_record(path)
     stng_kw = json.loads(str(data["settings"]))
     stng_kw["device"] = device
     m = BatchedReLU_QP()
     m.settings = Settings(**stng_kw)
     stng = m.settings
     dtype, dev = stng.precision_dtype, stng.device
-    m.axis_name = axis_name
+    m.mesh, m.axis_name = mesh, axis_name
+    m._group, m._rank, m._size = group, rank, size
+    m._process_local = size > 1
     m.hetero = bool(data["hetero"])
     m.rho_mode = str(data["rho_mode"])
-    m.B_n, m.nx, m.nc = int(data["B_n"]), int(data["nx"]), int(data["nc"])
-    Bn, nx, nc = m.B_n, m.nx, m.nc
+    m.B_local, m.nx, m.nc = (int(data["B_n"]), int(data["nx"]),
+                             int(data["nc"]))
+    m.B_n = m.B_local * size
+    Bn, nx, nc = m.B_local, m.nx, m.nc
+    m._rows = slice(0, Bn)
     D = m.D = stacked_dim(nx, nc)
     m.rhos_np = np.asarray(data["rhos"], np.float64)
     N = len(m.rhos_np)
@@ -240,7 +367,7 @@ def load_batched_solver(path: str, mesh=None, axis_name: str = "qp",
         m._bank_build = "host"
     m.tail_policy = (str(data["tail_policy"]) if "tail_policy" in data
                      else "dense")
-    if m.tail_policy == "repack" and (m.hetero or (
+    if m.tail_policy == "repack" and (m.hetero or mesh is not None or (
             stng.refine and stng.iter_precision != "highest")):
         m.tail_policy = "dense"   # restored into a regime repack cannot run
     m._repack_sched = (m._make_repack_schedule()
@@ -295,6 +422,11 @@ def load_batched_solver(path: str, mesh=None, axis_name: str = "qp",
                 else np.full(Bn, np.inf))
         m.rho_cap = np.broadcast_to(caps, (Bn,)).copy()
         m._eps_floor = _hetero_eps_floor(m.rho_cap, data["A"], dtype, nx)
+        if group is not None:
+            t = torch.tensor([m._eps_floor], dtype=torch.float64, device=dev)
+            torch.distributed.all_reduce(
+                t, op=torch.distributed.ReduceOp.MAX, group=group)
+            m._eps_floor = float(t.item())
         m._rho_eff_np = effective_rho_ladder_batch(
             m.rhos_np, equality_mask(m._l_np, m._u_np, stng.eq_tol),
             m.rho_cap)

@@ -230,9 +230,9 @@ def test_checkpoint_refusals(tmp_path):
     m = T.BatchedReLU_QP()
     m.setup(*_shared(), device="cpu", **KW)
     tc.save_batched_solver(m, str(tmp_path / "b.npz"))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tc.load_batched_solver(str(tmp_path / "b.npz"), mesh=object(),
-                               device="cpu")
+    # as the JAX package: no file and no shard set under the name
+    with pytest.raises(FileNotFoundError, match="shard files"):
+        tc.load_batched_solver(str(tmp_path / "missing"), device="cpu")
     if not torch.cuda.is_available():
         # the loads default to cuda, and raise without one
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -645,3 +645,65 @@ def test_device_bank_build_on_cuda_matches_the_cpu_build(dev):
     assert fused_chunk_hetero.launches > k5
     np.testing.assert_array_equal(res.info.iter, rc.info.iter)
     np.testing.assert_allclose(res.x.cpu().numpy(), rc.x.numpy(), atol=1e-6)
+
+
+# --------------------------------------------------------------------- #
+# the device guard and the multi-device path                            #
+# --------------------------------------------------------------------- #
+
+def test_k4_k5_launch_on_their_operands_card(dev):
+    """K4 and K5 on cuda:1 from a process whose current card is 0: each
+    wrapper plans and launches on its operands' card (a stream or a plan of
+    card 0 would fail the launch or give another card's shape)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    wt, b, lo, hi, y = _inputs(640, d1, rows=16)
+    rho = torch.tensor([2], dtype=torch.int32, device=d1)
+    out = fused_chunk_batched(wt, b, lo, hi, y, rho, 25, "highest")
+    ref = fused_chunk_batched_ref(wt, b, lo, hi, y, rho, 25, "highest")
+    assert out.device == d1 and torch.cuda.current_device() == 0
+    assert float((out - ref).abs().max()) <= 1e-5
+    wt, b, lo, hi, y, rho, _ = _hetero_inputs(9, 256, d1, torch.float32)
+    out = fused_chunk_hetero(wt, b, lo, hi, y, rho, 25, "highest")
+    ref = fused_chunk_hetero_ref(wt, b, lo, hi, y, rho, 25, "highest")
+    assert out.device == d1 and torch.cuda.current_device() == 0
+    assert float((out - ref).abs().max()) <= 1e-5
+    # a whole solve through K4 on card 1
+    m = rqt.BatchedReLU_QP()
+    m.setup(*_shared_batch(), eps_abs=1e-4, device=d1)
+    before = fused_chunk_batched.launches
+    res = m.solve()
+    assert fused_chunk_batched.launches > before and res.x.device == d1
+    assert res.info.status.all()
+
+
+def test_one_rank_nccl_mesh_is_bit_equal_to_unsharded(dev):
+    """A world-size-1 NCCL group: the mesh'd batch solve (K4, its exit
+    all-reduced) gives the unsharded solve's bits."""
+    import socket
+    import torch.distributed as dist
+    from reluqp_tpu_torch.parallel import init_distributed, make_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group already exists in this process")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(1)
+        data = _shared_batch(B=12)
+        ref = rqt.BatchedReLU_QP()
+        ref.setup(*data, eps_abs=1e-4)
+        r0 = ref.solve()
+        m = rqt.BatchedReLU_QP()
+        m.setup(*data, eps_abs=1e-4, mesh=mesh)
+        before = fused_chunk_batched.launches
+        r1 = m.solve()
+        assert fused_chunk_batched.launches > before
+        assert torch.equal(r1.x, r0.x)
+        np.testing.assert_array_equal(r1.info.iter, r0.info.iter)
+        np.testing.assert_array_equal(r1.info.rho_ind, r0.info.rho_ind)
+    finally:
+        dist.destroy_process_group()

@@ -174,12 +174,17 @@ def test_same_bank_and_state_through_convert():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(mesh=object()), "mesh"),
-    (dict(mesh=object(), bank_backend="native"), "A.6"),
+    (dict(mesh=object(), backend="pallas"), "'auto'/'xla' only"),
+    (dict(mesh=object(), backend="fused"), "'auto'/'xla' only"),
 ])
 def test_unported_paths_raise(kw, err):
-    """Only the multi-device path is left to port (ROADMAP A.6)."""
+    """The tensor-parallel solve (mesh=) takes the plain runner only: the
+    JAX package's refusal of its kernel backends, raised before the mesh
+    is read (the mesh'd solves run in tests/test_torch_tensor_parallel.py).
+    """
     qp = canonical_qp()
-    with pytest.raises(NotImplementedError, match=err):
+    with pytest.raises(ValueError, match=err):
         T.ReLU_QP().setup(qp.H, qp.g, qp.A, qp.l, qp.u, device="cpu", **kw)
+    with pytest.raises(ValueError, match=err):
+        J.ReLU_QP().setup(qp.H, qp.g, qp.A, qp.l, qp.u, **kw)
 
