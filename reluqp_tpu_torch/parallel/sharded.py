@@ -49,7 +49,6 @@ DEFAULT_TIMEOUT = timedelta(seconds=60)
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None, *,
-                     local_rank: Optional[int] = None,
                      backend: Optional[str] = None,
                      timeout: timedelta = DEFAULT_TIMEOUT) -> bool:
     """Join this process to the process group, once, before any mesh.
@@ -60,8 +59,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
     environment (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``,
     ``RANK``). The backend is NCCL where CUDA is available, else gloo;
     ``timeout`` bounds the rendezvous and every collective. On CUDA the
-    process's GPU becomes ``local_rank`` (``LOCAL_RANK``, else the rank
-    modulo the visible GPUs), so every kernel launch and every NCCL call of
+    process's GPU becomes ``LOCAL_RANK`` where ``torchrun`` sets it, else
+    the rank modulo the visible GPUs, so every kernel launch and every NCCL call of
     this process goes to its own card.
 
     A single process with no rendezvous address is a no-op (returns False),
@@ -77,14 +76,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
         return False
     if process_id is None:
         process_id = int(env.get("RANK", 0))
-    if local_rank is None and "LOCAL_RANK" in env:
-        local_rank = int(env["LOCAL_RANK"])
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
-        if local_rank is None:
-            local_rank = process_id % torch.cuda.device_count()
-        torch.cuda.set_device(local_rank)
+        torch.cuda.set_device(int(env.get(
+            "LOCAL_RANK", process_id % torch.cuda.device_count())))
     if coordinator_address is None:
         init_method = "env://"
     elif "://" in coordinator_address:
@@ -174,11 +170,8 @@ def gather_rows(local: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
 
 
 def gather_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
-    """``out`` ← every rank's ``t`` stacked along dim 0 in rank order (the
-    collective's current name, ``all_gather_single``, where it exists)."""
-    fn = getattr(dist, "all_gather_single", None) or \
-        dist.all_gather_into_tensor
-    fn(out, t, group=group)
+    """``out`` ← every rank's ``t`` stacked along dim 0 in rank order."""
+    dist.all_gather_into_tensor(out, t, group=group)
 
 
 def process_local_batch(global_shape, mesh, local_np,

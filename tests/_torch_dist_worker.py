@@ -156,8 +156,7 @@ class Counter:
     """Counts (and orders) the collectives the package calls, by wrapping
     ``torch.distributed``'s functions."""
 
-    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
-             "all_gather_single")
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor")
 
     def __init__(self):
         import torch.distributed as dist
@@ -165,10 +164,7 @@ class Counter:
 
     def __enter__(self):
         for name in self.NAMES:
-            fn = getattr(self.dist, name, None)
-            if fn is None:
-                continue
-            self.orig[name] = fn
+            fn = self.orig[name] = getattr(self.dist, name)
 
             def wrapped(*a, _fn=fn, _name=name, **kw):
                 t = a[1] if _name != "all_reduce" else a[0]
