@@ -71,8 +71,12 @@ Phases (each raises on failure; nothing is caught):
     two-point protocol beside the scan and loop paths; a profiler pass
     over 200 fused steps;
 13. hold kernel K4 (the batched chunk kernel) against its plain torch
-    version at B in {1, 8, 64, 256} x Dp in {128, 640, 896}, every tier,
-    fp32 and fp64, with padded lanes and padded rows exactly 0;
+    version at B in {1, 8, 64, 256} x Dp in {128, 640, 896} and at the
+    shared batch's B = 10000 and a ragged B = 1003 at Dp = 128, every tier,
+    fp32 and fp64, with padded lanes and padded rows exactly 0, each plan
+    logged with its regime (tile or cluster); then the first 1, 37 and 5000
+    rows launched alone, bit-equal to the same rows of a B = 10000 launch,
+    at Dp = 128 and 640;
 14. the main path of this slice through K4: the scenario-MPC configuration
     of ``benchmarks/scenario_mpc.py`` (100 states, 20 inputs, horizon 10,
     B = 64, seeded X0 and 0.01·randn process noise): ``BatchedReLU_QP``
@@ -93,7 +97,8 @@ Phases (each raises on failure; nothing is caught):
     and ``kernel="auto"`` with ``check_interval="auto"`` (two), no other
     kernel, held against phase 14 and the CPU fp64 rollout;
 17. K4 per 25-step window at B = 64, Dp = 640 by CUDA events beside its
-    plain version, 25 ``torch.addmm`` + clamp and the bound, the three
+    plain version, 25 ``torch.addmm`` + clamp and the bound (with
+    ``--parent``, beside the parent's K4 before and after, bit-equal), the three
     again as device time read by the profiler, K4 on one row tile (one
     cluster) of 1 and of 8 rows and in the "high" and "bf16" tiers; K6 per
     warm step at B = 16, 64 and 256 beside its plain version and the bound;
@@ -133,10 +138,14 @@ Phases (each raises on failure; nothing is caught):
     n_eq = n_ineq = 12, fp32, "highest", eps 1e-3): the schedule (K4's
     row tile as its alignment), equal per-row status and first-convergence
     iterations, x within REPACK_X_TOL, K4 launches by row capacity (K4
-    only), syncs per check window (repack adds none), each solve's least
-    time of REPACK_REPS by CUDA events (``utils.timing.time_fn_events``),
-    and the budget-exhaustion case (eps 1e-4, max_iter 50): equal status
-    and iterations;
+    only), syncs per check window (repack adds none); K4 alone on the
+    dense batch's bank, bias, bounds and state (one 25-step window by CUDA
+    events and device time beside its plain version, 25 ``torch.addmm`` +
+    clamp, the bound and the plan; with ``--parent``, beside the parent's
+    K4 before and after) and one dense solve's device time by kernel; each
+    solve's least time of REPACK_REPS by CUDA events
+    (``utils.timing.time_fn_events``), and the budget-exhaustion case (eps
+    1e-4, max_iter 50): equal status and iterations;
 23. checkpoints on the card: the protocol QP (nx = 100) with
     ``backend="fused"``, phase 19's B = 1024 batch (warm) and
     phase 22's repack batch, each saved, loaded (onto ``cuda`` by default)
@@ -172,7 +181,7 @@ Phases (each raises on failure; nothing is caught):
     14 on one card, steps/s.
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
-the K1, K2, K3 and K5 of another checkout at DIR (the parent commit, unpacked by
+the K1, K2, K3, K4 and K5 of another checkout at DIR (the parent commit, unpacked by
 ``git archive`` into a directory that ``.gitignore`` lists) on the same
 inputs, built from DIR's own sources into DIR's own build directory.
 
@@ -243,12 +252,13 @@ def kernel_inputs(dp, rows, dtype, gen, device):
 
 
 # ``--parent DIR``: the root of another checkout (an unpacked ``git
-# archive`` of the parent commit, say) whose K1, K2, K3 and K5 phases 3, 9,
-# 12 and 20 time beside this checkout's, in turns, on the same inputs. Its package is
+# archive`` of the parent commit, say) whose K1, K2, K3, K4 and K5 phases 3,
+# 9, 12, 17, 22 and 20 time beside this checkout's, in turns, on the same
+# inputs. Its package is
 # imported under PARENT_PKG and builds its kernels into its own _build/.
 PARENT_PKG = "_parent_reluqp_tpu_torch"
 PARENT_KERNELS = ("fused_step", "solve_kernel", "full_solve",
-                  "fused_step_hetero")
+                  "fused_step_batched", "fused_step_hetero")
 
 
 def parent_module(parent, name):
@@ -692,11 +702,9 @@ def profile_steps(tag, ctrl, x_start, steps, kernel, ci):
         check_interval=ci), steps, f"kernel={kernel}, ci={ci}")
 
 
-def device_ms(fn, reps):
-    """Device time of one ``fn()`` in ms: the device-side events (kernels
-    and copies) that torch.profiler records over ``reps`` calls, summed;
-    the host's launch gaps between them are left out. None when the
-    profiler recorded no device event."""
+def device_by_kernel(fn, reps):
+    """Device time of one ``fn()`` in ms by event name (kernels and
+    copies), the largest first; empty when the profiler recorded none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -707,10 +715,20 @@ def device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(float(getattr(e, "self_device_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps if us > 0.0 else None
+    ms = {}
+    for e in prof.key_averages():
+        t = float(getattr(e, "self_device_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and t > 0.0:
+            ms[e.key] = ms.get(e.key, 0.0) + t / 1e3 / reps
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1]))
+
+
+def device_ms(fn, reps):
+    """Device time of one ``fn()`` in ms: the device-side events (kernels
+    and copies) that torch.profiler records over ``reps`` calls, summed;
+    the host's launch gaps between them are left out. None when the
+    profiler recorded no device event."""
+    return sum(device_by_kernel(fn, reps).values()) or None
 
 
 def device_split(fn, reps):
@@ -1531,6 +1549,12 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
 
 K4_BATCHES = (1, 8, 64, 256)
 K4_DPS = (128, 640, 896)
+# the shared north-star batch's width and rows (phase 22), and a ragged B
+# that is no multiple of any row tile (its last K4_PAD_ROWS rows inert)
+K4_WIDE = ((128, 10000), (128, 1003))
+# rows r of a B=K4_SUBSET_B launch run alone must give the full launch's
+# bits: each output's sum runs in an order fixed by Dp and the tier alone
+K4_SUBSET_B, K4_SUBSET_ROWS, K4_SUBSET_DPS = 10000, (1, 37, 5000), (128, 640)
 # Kernel against plain version after 25 steps, as TOL for K1 (fp32): the
 # kernel sums each row's products in its own order, cuBLAS in another. In
 # fp64 "highest" differs by fp64 rounding only; "high" splits the fp32
@@ -1558,7 +1582,10 @@ def k4_inputs(dp, rows, dtype, gen, device):
 
 def phase_k4_check():
     """K4 against fused_chunk_batched_ref on the card, every tier, fp32
-    and fp64; padded lanes and rows exactly 0. Returns the max errors."""
+    and fp64, at K4_BATCHES x K4_DPS and the K4_WIDE shapes; padded lanes
+    and rows exactly 0; each shape's plan logged with its regime; then the
+    rows of a subset launch bit-equal to the same rows of the full batch.
+    Returns the max errors."""
     import torch
     from reluqp_tpu_torch.ops.fused_step import (batched_plan,
                                                  fused_chunk_batched,
@@ -1567,38 +1594,54 @@ def phase_k4_check():
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     errs = {}
+    shapes = [(dp, rows) for dp in K4_DPS for rows in K4_BATCHES]
+    regimes = set()
     for dtype in (torch.float32, torch.float64):
         tols = K4_TOL[str(dtype).split(".")[1]]
-        for dp in K4_DPS:
-            for rows in K4_BATCHES:
-                wt, b, lo, hi, y, d, n_pad = k4_inputs(dp, rows, dtype, gen,
-                                                       dev)
-                plan = batched_plan(rows, dp, dtype)
-                worst = {}
-                for tier in tols:
-                    bank = wt.to(torch.bfloat16) if tier == "bf16" else wt
-                    rho = torch.tensor([N_RHO - 1 if tier == "high" else 4],
-                                       dtype=torch.int32, device=dev)
-                    out = fused_chunk_batched(bank, b, lo, hi, y, rho,
+        for dp, rows in shapes + list(K4_WIDE):
+            wt, b, lo, hi, y, d, n_pad = k4_inputs(dp, rows, dtype, gen, dev)
+            worst = {}
+            for tier in tols:
+                bank = wt.to(torch.bfloat16) if tier == "bf16" else wt
+                plan = batched_plan(rows, dp, dtype, bank.dtype, tier)
+                regimes.add(plan["regime"])
+                rho = torch.tensor([N_RHO - 1 if tier == "high" else 4],
+                                   dtype=torch.int32, device=dev)
+                out = fused_chunk_batched(bank, b, lo, hi, y, rho, N_STEPS,
+                                          tier)
+                ref = fused_chunk_batched_ref(bank, b, lo, hi, y, rho,
                                               N_STEPS, tier)
-                    ref = fused_chunk_batched_ref(bank, b, lo, hi, y, rho,
-                                                  N_STEPS, tier)
-                    torch.cuda.synchronize()
-                    tag = (dtype, dp, rows, tier)
-                    assert torch.isfinite(out).all(), tag
-                    assert float(out[:, d:].abs().max()) == 0.0, \
-                        f"K4 padded lanes not inert: {tag}"
-                    if n_pad:
-                        assert float(out[-n_pad:].abs().max()) == 0.0, \
-                            f"K4 padded rows not inert: {tag}"
-                    err = float((out - ref).abs().max())
-                    assert err <= tols[tier], f"K4 disagrees: {tag} {err:.3e}"
-                    errs[tag] = worst[tier] = err
-                log(f"K4 {str(dtype)[6:]} Dp={dp} B={rows}: plan {plan}  "
-                    "max|kernel-plain| " + "  ".join(
-                        f"{t} {e:.2e}" for t, e in worst.items()))
-    log("phase 13 OK: K4 matches its plain version at every B, Dp, tier "
-        "and dtype; padded lanes and rows stay 0")
+                torch.cuda.synchronize()
+                tag = (dtype, dp, rows, tier)
+                assert torch.isfinite(out).all(), tag
+                assert float(out[:, d:].abs().max()) == 0.0, \
+                    f"K4 padded lanes not inert: {tag}"
+                if n_pad:
+                    assert float(out[-n_pad:].abs().max()) == 0.0, \
+                        f"K4 padded rows not inert: {tag}"
+                err = float((out - ref).abs().max())
+                assert err <= tols[tier], f"K4 disagrees: {tag} {err:.3e}"
+                errs[tag] = worst[tier] = err
+                log(f"K4 {str(dtype)[6:]} Dp={dp} B={rows} {tier}: plan "
+                    f"{plan}  max|kernel-plain| {err:.2e}")
+    # a row's result depends on neither B nor the tile it falls in
+    for dp in K4_SUBSET_DPS:
+        wt, b, lo, hi, y, _, _ = k4_inputs(dp, K4_SUBSET_B, torch.float32,
+                                           gen, dev)
+        rho = torch.tensor([4], dtype=torch.int32, device=dev)
+        full = fused_chunk_batched(wt, b, lo, hi, y, rho, N_STEPS)
+        for r in K4_SUBSET_ROWS:
+            part = fused_chunk_batched(
+                wt, *(t[:r].contiguous() for t in (b, lo, hi, y)), rho,
+                N_STEPS)
+            assert torch.equal(part, full[:r]), \
+                f"K4 rows differ between B={r} and B={K4_SUBSET_B}: Dp={dp}"
+            log(f"K4 Dp={dp}: the first {r} rows alone (plan "
+                f"{batched_plan(r, dp)}) bit-equal to them in the B="
+                f"{K4_SUBSET_B} launch (plan {batched_plan(K4_SUBSET_B, dp)})")
+    log(f"phase 13 OK: K4 matches its plain version at every B, Dp, tier "
+        f"and dtype (regimes {sorted(regimes)}); padded lanes and rows stay "
+        f"0; rows bit-equal across B at Dp {K4_SUBSET_DPS}")
     return errs
 
 
@@ -2063,54 +2106,23 @@ def k6_warm_timing(card, prob, B, m=None, x_start=None, y0=None,
     return row, out, m
 
 
-def phase_scenario_timing(card, loop, scan):
+def phase_scenario_timing(card, loop, scan, parent=None):
     """K4 per 25-step window on the main path's bank and state (CUDA
     events, then device time) beside its plain version, 25 ``torch.addmm``
-    + clamp and the bound, and on one row tile of 1 and of 8 rows; K6 per warm
+    + clamp and the bound (with ``parent``, beside the parent's K4 before
+    and after), and on one row tile of 1 and of 8 rows; K6 per warm
     step at B = 16, 64 and 256 beside its plain version and the bound
     (``k6_warm_timing``); two-point steps/s of the loop and scan paths; a
     profiler pass over each; the loop path's synchronizing calls."""
     import torch
     from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
     from reluqp_tpu_torch.ops.fused_step import (batched_plan,
-                                                 fused_chunk_batched,
-                                                 fused_chunk_batched_ref)
+                                                 fused_chunk_batched)
     m, prob = loop["m"], loop["prob"]
-    rho = m.rho_ind.reshape(1).contiguous()
-    k = int(rho)
-    W, b = m.Wt_bank, m.bias_all[k].contiguous()
-    lo, hi, Y = m.lo, m.hi, m.Y.contiguous()
-    w_k = W[k]
-
-    def library():
-        yy = Y
-        for _ in range(N_STEPS):
-            yy = torch.addmm(b, yy, w_k).clamp_(min=lo, max=hi)
-        return yy
-
-    kernel = lambda: fused_chunk_batched(W, b, lo, hi, Y, rho, N_STEPS)
-    plain = lambda: fused_chunk_batched_ref(W, b, lo, hi, Y, rho, N_STEPS)
-    ms = _time_ms(kernel, 100)
-    plain_ms = _time_ms(plain, 20)
-    library_ms = _time_ms(library, 20)
-    # the two comparison loops are 25-100 launches each, so their event
-    # spans carry the host's launch gaps; their device time does not (K4 is
-    # one launch: its event span is its device time)
-    dev = {name: device_ms(fn, 10) for name, fn in
-           (("plain", plain), ("addmm+clamp", library))}
-    bound, by, t_b, t_o = k4_bound_ms(w_k, m.B_n, m.D, N_STEPS)
-    plan = batched_plan(m.B_pad, m.Dp, m.settings.precision_dtype)
-    k4 = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-              bound_ms=bound, bound_by=by)
-    log(f"phase 17 K4 (B={SCEN_B}, Dp={m.Dp}, rung {k}, {N_STEPS} steps, "
-        f"fp32 highest, plan {plan}): {ms:.5f} ms per window by CUDA events"
-        f"; plain {plain_ms:.5f} ms; addmm+clamp {library_ms:.5f} ms; bound "
-        f"{bound:.5f} ms ({by}: {t_b:.5f} ms bytes, {t_o:.5f} ms operations "
-        f"at the rung's nonzeros), {ms / bound:.0f}x the bound, on {card}")
-    log(f"phase 17 device time per window (profiler, device-side events) "
-        f"beside K4's {ms:.5f} ms: " + "; ".join(f"{name} " + ("not measured" if t is None
-                                  else f"{t:.5f} ms")
-                    for name, t in dev.items()))
+    k4 = k4_window_timing(card, 17, m, parent, reps=100)
+    # the cluster regime is the parent's code: the same bits
+    assert not parent or k4["same_as_parent"], "K4 differs from the parent's"
+    W, b, lo, hi, Y, rho = k4.pop("operands")
     # one row tile (one cluster) at 1 and at 8 rows: whether the rows'
     # multiply-adds or the per-iteration exchange and barrier set its time
     for rows in (1, 8):
@@ -2754,7 +2766,87 @@ def repack_solve(m):
     return m.solve()
 
 
-def phase_repack(card):
+def k4_window_timing(card, phase, m, parent=None, reps=50):
+    """K4 alone on a solved batch's bank, bias, bounds and state (``m``),
+    one 25-step window at fp32 highest: CUDA events and device time beside
+    its plain version, 25 ``torch.addmm`` + clamp (event span and device
+    time), the bound and the plan; with ``parent``, beside the parent's K4
+    before and after, and whether the two give the same bits. Returns the
+    numbers and the window's operands."""
+    import torch
+    from reluqp_tpu_torch.ops.fused_step import (batched_plan,
+                                                 fused_chunk_batched,
+                                                 fused_chunk_batched_ref)
+    rho = m.rho_ind.reshape(1).contiguous()
+    k = int(rho)
+    W, b = m.Wt_bank, m.bias_all[k].contiguous()
+    lo, hi, Y = m.lo, m.hi, m.Y.contiguous()
+    w_k = W[k]
+
+    def library():
+        yy = Y
+        for _ in range(N_STEPS):
+            yy = torch.addmm(b, yy, w_k).clamp_(min=lo, max=hi)
+        return yy
+
+    kernel = lambda: fused_chunk_batched(W, b, lo, hi, Y, rho, N_STEPS)
+    plain = lambda: fused_chunk_batched_ref(W, b, lo, hi, Y, rho, N_STEPS)
+    out = {}
+    if parent:
+        k4_old = parent_module(parent, "ops.fused_step").fused_chunk_batched
+        old = lambda: k4_old(W, b, lo, hi, Y, rho, N_STEPS)
+        before = _time_ms(old, reps)
+    ms = _time_ms(kernel, reps)
+    if parent:
+        after = _time_ms(old, reps)
+        out["same_as_parent"] = torch.equal(old(), kernel())
+        log(f"phase {phase} K4 A/B (B={m.B_pad}, Dp={m.Dp}): parent "
+            f"{before:.5f} ms, this tree {ms:.5f} ms, parent again "
+            f"{after:.5f} ms per window (parent / this tree "
+            f"{min(before, after) / ms:.2f}), outputs "
+            + ("bit-equal" if out["same_as_parent"] else "not bit-equal")
+            + f" to the parent's, on {card}")
+    plain_ms = _time_ms(plain, 10)
+    library_ms = _time_ms(library, 10)
+    # the two comparison loops are 25-100 launches each, so their event
+    # spans carry the host's launch gaps; their device time does not
+    dev = {name: device_ms(fn, 5) for name, fn in
+           (("K4", kernel), ("plain", plain), ("addmm+clamp", library))}
+    bound, by, t_b, t_o = k4_bound_ms(w_k, m.B_n, m.D, N_STEPS)
+    plan = batched_plan(m.B_pad, m.Dp, m.settings.precision_dtype)
+    fmt = lambda t: "not measured" if t is None else f"{t:.5f} ms"
+    log(f"phase {phase} K4 (B={m.B_pad}, Dp={m.Dp}, rung {k}, {N_STEPS} "
+        f"steps, fp32 highest, plan {plan}): {ms:.5f} ms per window by CUDA "
+        f"events, {fmt(dev['K4'])} device time; plain {plain_ms:.5f} ms "
+        f"event span, {fmt(dev['plain'])} device time; addmm+clamp "
+        f"{library_ms:.5f} ms event span, {fmt(dev['addmm+clamp'])} device "
+        f"time; bound {bound:.5f} ms ({by}: {t_b:.5f} ms bytes, {t_o:.5f} ms"
+        f" operations at the rung's nonzeros), {ms / bound:.1f}x the bound, "
+        f"on {card}")
+    out.update(ms=ms, dev_ms=dev["K4"], plain_ms=plain_ms,
+               library_ms=library_ms, library_dev_ms=dev["addmm+clamp"],
+               bound_ms=bound, bound_by=by, plan=plan,
+               operands=(W, b, lo, hi, Y, rho))
+    return out
+
+
+def k4_shared_timing(card, m, windows, parent=None):
+    """K4 alone on the shared batch's window (``k4_window_timing``), then
+    one dense solve's device time by kernel."""
+    k4 = k4_window_timing(card, 22, m, parent, reps=20)
+    k4.pop("operands")
+    split = device_by_kernel(lambda: repack_solve(m), 3)
+    total = sum(split.values())
+    k4_dev = sum(t for name, t in split.items()
+                 if "k4_kernel" in name or "k4_tile_kernel" in name)
+    log(f"phase 22 dense solve device time by kernel ({windows} windows, "
+        f"profiler): {total:.3f} ms in all, K4 {k4_dev:.3f} ms, the rest "
+        f"{total - k4_dev:.3f} ms; the largest: " + "; ".join(
+            f"{name[:60]} {t:.3f}" for name, t in list(split.items())[:8]))
+    return dict(k4, solve_dev_ms=total, solve_k4_ms=k4_dev)
+
+
+def phase_repack(card, parent=None):
     """Slice 9: ``tail_policy="repack"`` against ``"dense"`` on
     benchmarks/batched_qps.py's shared batch at B=10000 through K4: equal
     per-row status and first-convergence iterations, x within the
@@ -2817,6 +2909,7 @@ def phase_repack(card):
     syncs = {p: sync_sites(f"phase 22 {p}", lambda m=m: repack_solve(m),
                            windows) for p, m in ms.items()}
     assert syncs["repack"] <= syncs["dense"], syncs
+    k4 = k4_shared_timing(card, md, windows, parent)
     t = {p: time_fn_events(repack_solve, m, reps=REPACK_REPS)["best"]
          for p, m in ms.items()}
     log(f"phase 22 solve time (least of {REPACK_REPS}, CUDA events) on "
@@ -2846,7 +2939,7 @@ def phase_repack(card):
             f"{int(bd.info.status.sum())}/{REPACK_B} solved in both, status "
             f"and iterations equal; repack K4 launches by rows {rows_b}")
     log("phase 22 OK")
-    return dict(m=mr, t=t, launches=n_d + n_r, sched=sched)
+    return dict(m=mr, t=t, launches=n_d + n_r, sched=sched, k4=k4)
 
 
 def _round_trip(save, load, m, path, tag):
@@ -3466,8 +3559,9 @@ def phase_mesh(card, scen_loop):
         log("phase 28 OK")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(K4=sum(r["25"]["K4"] + r["28"]["K4"] for r in ranks),
-                K5=n_k5, world=world)
+    return dict(K4_shared=sum(r["25"]["K4"] for r in ranks),
+                K4_scenario=sum(r["28"]["K4"] for r in ranks), K5=n_k5,
+                world=world)
 
 
 def main():
@@ -3504,19 +3598,19 @@ def main():
     scen_loop = phase_scenario_loop(card)
     k6_errs = phase_k6_check()
     scen_scan = phase_scenario_scan(card, scen_loop)
-    scen = phase_scenario_timing(card, scen_loop, scen_scan)
+    scen = phase_scenario_timing(card, scen_loop, scen_scan, parent)
     k5_errs = phase_k5_check()
     het = phase_hetero_main(card)
     k5_rows = phase_hetero_timing(card, het, parent)["rows"]
     dev_build = phase_device_build(card)
-    repack = phase_repack(card)
+    repack = phase_repack(card, parent)
     ckpt = phase_checkpoint(card, protocol, het, repack)
     nat = phase_native(card)
     mesh = phase_mesh(card, scen_loop)
     k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]
     k3_row = k3["rows"][100]
-    k4, k6 = scen["k4"], scen["k6"]
+    k4, k4s, k6 = scen["k4"], repack["k4"], scen["k6"]
     k6_plan = k6["plan"]
     kernels = [{
         "name": f"K1 fused_chunk (Dp=640, R=1, 25 steps, fp32 highest; a "
@@ -3560,16 +3654,30 @@ def main():
         "library_ms": None,
     }, {
         "name": f"K4 fused_chunk_batched (scenario bank, B={SCEN_B}, Dp=640, "
-                "25 steps, fp32 highest)",
+                "25 steps, fp32 highest; cluster regime; launches: phases 14 "
+                "and 28)",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/fused_step_batched.cu",
         "replaces": "reluqp_tpu/ops/fused_step.py:232",
-        "launches": (scen_loop["launches"] + repack["launches"]
-                     + ckpt["K4"] + mesh["K4"]),
+        "launches": scen_loop["launches"] + mesh["K4_scenario"],
         "max_abs_err": k4_errs[(torch.float32, 640, 64, "highest")],
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
+    }, {
+        "name": f"K4 fused_chunk_batched (shared batch, B={REPACK_B}, Dp=128, "
+                f"25 steps, fp32 highest; {k4s['plan']['regime']} regime, "
+                f"{k4s['plan']['blocks']} blocks of "
+                f"{k4s['plan']['rows_per_tile']} rows; launches: phases 22, "
+                "23 and 25)",
+        "route": "cuda",
+        "source": "reluqp_tpu_torch/csrc/fused_step_batched.cu",
+        "replaces": "reluqp_tpu/ops/fused_step.py:232",
+        "launches": repack["launches"] + ckpt["K4"] + mesh["K4_shared"],
+        "max_abs_err": k4_errs[(torch.float32, 128, REPACK_B, "highest")],
+        "ms": k4s["ms"], "plain_ms": k4s["plain_ms"],
+        "bound_ms": k4s["bound_ms"], "bound_by": k4s["bound_by"],
+        "library_ms": k4s["library_ms"],
     }, {
         # per control step of the ensemble; no single PyTorch call computes
         # a rollout

@@ -44,7 +44,8 @@ double-fp32 contraction because the TPU has no fp64; an fp64 product gives
 that accuracy directly.)
 
 ``tail_policy="repack"`` (shared (H, A) only) solves over a schedule of
-shrinking row buffers (``core.batched.solve_batched_shared_repack``).
+shrinking row buffers (``repack_schedule``,
+``core.batched.solve_batched_shared_repack``).
 
 ``mesh=`` (a 1-D ``DeviceMesh`` from ``parallel.make_mesh``, one process per
 device) splits the batch over the ranks in rank order: each rank keeps its
@@ -160,6 +161,24 @@ class BatchResults:
     z: Optional[torch.Tensor] = None    # (B, nc)
     lam: Optional[torch.Tensor] = None  # (B, nc)
     info: Optional[BatchInfo] = None
+
+
+def repack_schedule(b_pad: int, align: int) -> tuple:
+    """Row capacities of ``tail_policy="repack"``: halving from ``b_pad``
+    down to ``_REPACK_MIN_ROWS`` (or ``align``, where larger), at most 4
+    stages (the last halvings save few row-iterations), every capacity
+    after the first a multiple of ``align``. A one-entry schedule (the
+    batch already at the floor) is the dense loop."""
+    floor = max(_REPACK_MIN_ROWS, align)
+    caps = [b_pad]
+    for _ in range(3):
+        nxt = round_up(max(caps[-1] // 2, floor), align)
+        if nxt >= caps[-1]:
+            break
+        caps.append(nxt)
+        if nxt <= floor:
+            break
+    return tuple(caps)
 
 
 class BatchedReLU_QP:
@@ -404,12 +423,9 @@ class BatchedReLU_QP:
                 f"{stng.check_interval}")
 
     def _make_repack_schedule(self):
-        """Row capacities of ``tail_policy="repack"``: halving from
-        ``B_pad`` down to ``_REPACK_MIN_ROWS``, at most 4 stages (the last
-        halvings save few row-iterations). Capacities are multiples of the
-        row alignment: K4's row tile from its plan on ``cuda`` (shared-ρ
-        walk), else 8. A one-entry schedule (the batch already at the
-        floor) is the dense loop."""
+        """Row capacities of ``tail_policy="repack"`` (``repack_schedule``)
+        aligned to K4's row tile from its plan on ``cuda`` (shared-ρ walk),
+        else to 8."""
         stng = self.settings
         align = 8
         if self._use_pallas and stng.device.type == "cuda":
@@ -417,16 +433,7 @@ class BatchedReLU_QP:
                 self.B_pad, self.Dp, stng.precision_dtype,
                 self._w_dtype(stng.precision_dtype),
                 stng.iter_precision, device=stng.device)["rows_per_tile"]
-        floor = max(_REPACK_MIN_ROWS, align)
-        caps = [self.B_pad]
-        for _ in range(3):
-            nxt = round_up(max(caps[-1] // 2, floor), align)
-            if nxt >= caps[-1]:
-                break
-            caps.append(nxt)
-            if nxt <= floor:
-                break
-        return tuple(caps)
+        return repack_schedule(self.B_pad, align)
 
     def _w_dtype(self, dtype):
         """Storage dtype of the W banks (bf16 under iter_precision='bf16')."""

@@ -6,45 +6,87 @@
 // the hot loop of the shared-(H, A) batched solver (BatchedReLU_QP) and of
 // the scenario-MPC loop rollout.
 //
-// What bounds it: one window reads one Wt rung (Dp*Dp elements, 1.64 MB at
-// Dp=640 in fp32) and the rows' b, lo, hi, y, and does 2*n_steps*rows*Dp*Dp
-// flops: 2*25*64/4 = 800 flops per byte of W at rows=64 -- far above the
-// card's fp32 ridge (~20 flops/byte), so at the batched sizes the fp32
-// operations bound it (the tensor cores would lose the "highest" tier's
-// fp32 accuracy).
+// What bounds it: one window reads one Wt rung (Dp*Dp elements, 64 KB at
+// Dp=128 and 1.64 MB at Dp=640 in fp32) and the rows' b, lo, hi, y, and
+// does 2*n_steps*rows*Dp*Dp flops: 2*25*64/4 = 800 flops per byte of W at
+// rows=64, far more at the shared batch's B=10000 -- far above the card's
+// fp32 ridge (~20 flops/byte), so the fp32 operations bound it (the tensor
+// cores would lose the "highest" tier's fp32 accuracy).
 //
-// Design:
-//   * The rows are independent for all n_steps of a window, so a group of
-//     blocks that owns a tile of `rb` rows runs the whole window alone: no
-//     grid barrier. (The TPU kernel's whole rung in VMEM does not carry
-//     over: one SM has 227 KB of shared memory.)
-//   * The group is a thread-block cluster of C blocks (16 where the card
-//     schedules such clusters, else 8, ...): block c of the cluster owns the
-//     output columns [c*cw, (c+1)*cw), cw = Dp/C, and keeps that column slab
-//     of the rung in its shared memory for the whole window, transposed so
-//     that a thread reads 16 bytes of its column at a time, where it fits
-//     (else it reads the slab from L2 every iteration). Each block holds the
-//     tile's whole rows of Y, double buffered; an iteration computes the
-//     block's (rb, cw) piece, stores it 16 bytes at a time into every block
-//     of the cluster (distributed shared memory), and one cluster barrier
-//     ends it. So the rung is read from L2 once per window, not once per
-//     iteration per row tile. The slab load and the stores into the peers
-//     are csrc/cluster_slab.cuh's, shared with K6.
+// The rows are independent for all n_steps of a window, so whatever owns a
+// tile of rows runs the whole window alone: no grid barrier. Two regimes,
+// chosen by the plan from (Dp, state type, operand type, tier) alone, never
+// from B:
+//
+// Tile regime, where the whole rung and the smallest tile fit one block's
+// shared memory (Dp=128 in fp32 and fp64, Dp=256 with a bf16 bank). The
+// TPU kernel's design carries over: one block per row tile holds the rung
+// and the tile's rows of Y in shared memory for the window.
+//   * The rung is copied once per launch with cp.async (16 bytes a copy,
+//     every copy in flight at once), as stored: row i of Wt contiguous.
+//   * Y is double buffered in shared memory (row stride Dp + 16 bytes, so
+//     that neighbouring rows fall in distinct banks); one __syncthreads
+//     ends an iteration. No cluster, no exchange, no split of the sums.
+//   * The product is register-tiled: a thread owns TM rows x two 16-byte
+//     column groups of outputs (4 x 8 in fp32, 4 x 4 in fp64; 2 rows in the
+//     "high" tier, whose three sums take three accumulators). It walks the
+//     Dp inputs in order, reading 16 bytes of each of its rows of y one
+//     group ahead of their use (the warp's lanes of one row read the same
+//     address: a broadcast) and 16 bytes of each of its column groups of W
+//     (the lanes read neighbouring addresses). Every output's sum runs
+//     over i = 0 .. Dp-1 in order into one accumulator per tier sum, so a
+//     row's bits depend on neither B nor the tile it falls in.
+//   * The budget: 227 KB of shared memory and 64K registers per SM. At
+//     the 76-row tile of B=10000 over 132 SMs the rung takes 64 KB and the
+//     y buffers 79 KB, so b, lo and hi (114 KB) do not all fit beside them.
+//     b lives in the registers of the thread that owns the output (32 a
+//     thread in fp32, loaded once per launch); lo and hi in shared memory
+//     (76 KB), laid out by thread so that each thread's 16-byte reads of its
+//     own entries are neighbouring addresses (8 reads a thread per
+//     iteration, against 384 of y and W in the product). With b, lo and
+//     hi all in registers the fp32 kernel needed 168 registers at the
+//     launch bound, spilled, and could not read y ahead: 0.300 ms per
+//     window at B=10000 on an H100 (PERF.md). The cost is the cap on the tile: 76
+//     rows at Dp=128 in fp32 (24 in fp64), and at most 320 threads (TM rows
+//     per 16-byte column group thread: 40 rows in the "high" tier).
+//   * Rows per tile come from B: enough tiles to fill the card's SMs in one
+//     wave where B allows (B=10000: 76 rows, 132 blocks), at least TM, at
+//     most the cap; the last tile may be ragged (its missing rows are zero
+//     in shared memory and never stored).
+//   * The last iteration stores from registers straight to y_out.
+//
+// Cluster regime, everywhere else (the rung does not fit one block, e.g.
+// Dp=640 in fp32, 1.6 MB):
+//   * A group of blocks that owns a tile of `rb` rows is a thread-block
+//     cluster of C blocks (16 where the card schedules such clusters, else
+//     8, ...): block c of the cluster owns the output columns [c*cw,
+//     (c+1)*cw), cw = Dp/C, and keeps that column slab of the rung in its
+//     shared memory for the whole window, transposed so that a thread reads
+//     16 bytes of its column at a time, where it fits (else it reads the
+//     slab from L2 every iteration). Each block holds the tile's whole rows
+//     of Y, double buffered; an iteration computes the block's (rb, cw)
+//     piece, stores it 16 bytes at a time into every block of the cluster
+//     (distributed shared memory), and one cluster barrier ends it. So the
+//     rung is read from L2 once per window, not once per iteration per row
+//     tile. The slab load and the stores into the peers are
+//     csrc/cluster_slab.cuh's, shared with K6.
 //   * Inside a block the contraction is split: `ks` groups of threads each
 //     sum a contiguous stretch of the Dp inputs for every (row, column) of
 //     the piece into register accumulators, 8 rows at a time; the epilogue
-//     adds the groups' partial sums in group order, then b, then clips.
-//     Where the slab streams from L2, a thread reads the next kAhead * 16
-//     bytes of its column before using them.
+//     adds the groups' partial sums in group order, then b, then clips. The
+//     stretches depend on Dp and the cluster only, so here too a row's bits
+//     do not depend on B. Where the slab streams from L2, a thread reads
+//     the next kAhead * 16 bytes of its column before using them.
 //   * Tiles are 8 rows, or up to 16 where that puts every tile in the
 //     card's first wave of clusters (B=64 at Dp=640 in fp32: 7 clusters of
 //     10 rows, 112 blocks; the card holds 7 clusters of 16 such blocks).
-//   * The piece's b, lo, hi are read into shared memory once. Input and
-//     output are distinct allocations. Padded lanes (zero rows and columns
-//     of W, b = 0, lo = -inf, hi = +inf) and inert padded rows stay exactly
-//     0.
-//   * The rung index is read from a device int32 (the counterpart of scalar
-//     prefetch), clamped into range as a dynamic index is on the TPU.
+//   * The piece's b, lo, hi are read into shared memory once.
+//
+// Both regimes: input and output are distinct allocations. Padded lanes
+// (zero rows and columns of W, b = 0, lo = -inf, hi = +inf) and inert
+// padded rows stay exactly 0. The epilogue clips with comparisons, so a NaN
+// propagates. The rung index is read from a device int32 (the counterpart
+// of scalar prefetch), clamped into range as a dynamic index is on the TPU.
 //
 // Tiers (tier argument) as csrc/tiers.cuh sets them out, summed in the state
 // type.
@@ -100,8 +142,10 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, size_t n) {
   }
 }
 
+// tile: the tile regime (one block per row tile, the whole rung in shared
+// memory), else the cluster regime; threads: per block.
 struct Plan {
-  int nblocks, rb, smem, cluster, cw, ks, kc, w_smem, max_clusters;
+  int nblocks, rb, smem, cluster, cw, ks, kc, w_smem, max_clusters, threads, tile;
 };
 
 // One group's partial sums of rows [rg, rg + ng) at column jl over its
@@ -315,6 +359,203 @@ k4_kernel(const WT* __restrict__ wt_bank, int n_rho, const T* __restrict__ b,
   }
 }
 
+// ---- the tile regime ----------------------------------------------------
+
+// The launch bound of the tile kernel: at most 200 registers a thread.
+constexpr int kTileThreads = 320;
+
+// A thread's outputs: TM rows x NG column groups of V entries (16 bytes of
+// the state type each).
+template <typename T, int TIER> struct TileShape {
+  static constexpr int V = Vec16<T>::n;
+  static constexpr int TM = NAcc<TIER>::n == 3 ? 2 : 4;
+  static constexpr int NG = 2;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+template <typename T, typename WT, int TIER>
+__global__ void __launch_bounds__(kTileThreads, 1)
+k4_tile_kernel(const WT* __restrict__ wt_bank, int n_rho, const T* __restrict__ b,
+               const T* __restrict__ lo, const T* __restrict__ hi, const T* __restrict__ y_in,
+               T* __restrict__ y_out, const int* __restrict__ rho_ind, int rows, int dp,
+               int n_steps, const Plan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using S = TileShape<T, TIER>;
+  constexpr int V = S::V, TM = S::TM, NG = S::NG, N = NG * V;
+  constexpr int VW = Vec16<WT>::n;
+  constexpr int NA = NAcc<TIER>::n;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int rb = p.rb;
+  const int ncg = dp / N;    // threads across the columns
+  const int nrg = rb / TM;   // threads across the rows
+  const int c = tid % ncg, rg = tid / ncg;
+  const int ys = dp + V;     // row stride of y in shared memory
+
+  // shared memory: the rung (row i of Wt contiguous), the y double buffer,
+  // then lo and hi of every thread's outputs, 16 bytes of thread t's
+  // (row m, column group g) at [(m*NG + g)*nt + t]
+  WT* w = reinterpret_cast<WT*>(smem_raw);
+  T* cur = reinterpret_cast<T*>(smem_raw + align16((size_t)dp * dp * sizeof(WT)));
+  T* nxt = cur + (size_t)rb * ys;
+  T* los = nxt + (size_t)rb * ys;
+  T* his = los + (size_t)rb * dp;
+
+  int k = *rho_ind;
+  k = k < 0 ? 0 : (k >= n_rho ? n_rho - 1 : k);
+  const WT* wk = wt_bank + (size_t)k * dp * dp;
+  const int r0 = blockIdx.x * rb;
+  const int nr = min(rb, rows - r0);
+
+  // the rung and the tile's rows, 16 bytes a copy, all in flight at once;
+  // rows past the batch's end are zero
+  const int nw = dp * dp / VW;
+  for (int t = tid; t < nw; t += nt) cp_async16(w + (size_t)t * VW, wk + (size_t)t * VW);
+  const int rv = dp / V;
+  for (int t = tid; t < rb * rv; t += nt) {
+    const int r = t / rv, j = (t % rv) * V;
+    if (r < nr) {
+      cp_async16(cur + (size_t)r * ys + j, y_in + (size_t)(r0 + r) * dp + j);
+    } else {
+      T z[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) z[e] = T(0);
+      store16(cur + (size_t)r * ys + j, z);
+    }
+  }
+  // the thread's outputs: rows rg + m*nrg, columns (g*ncg + c)*V + e; b in
+  // registers and lo, hi in shared memory for the window (0 on rows past
+  // the end); each thread reads back only what it stored
+  T rbv[TM][N];
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    const int row = rg + m * nrg;
+    const bool in = row < nr;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      T lv[V], hv[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const size_t gi = (size_t)(r0 + row) * dp + (g * ncg + c) * V + e;
+        rbv[m][g * V + e] = in ? b[gi] : T(0);
+        lv[e] = in ? lo[gi] : T(0);
+        hv[e] = in ? hi[gi] : T(0);
+      }
+      const size_t at = ((size_t)(m * NG + g) * nt + tid) * V;
+      store16(los + at, lv);
+      store16(his + at, hv);
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  for (int s = 0; s < n_steps; ++s) {
+    T a0[TM][N], a1[TM][N], a2[TM][N];
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int n = 0; n < N; ++n) a0[m][n] = a1[m][n] = a2[m][n] = T(0);
+    // the next 16 bytes of the thread's rows are read before the current
+    // ones are used
+    T yv[TM][V];
+#pragma unroll
+    for (int m = 0; m < TM; ++m) load16(cur + (size_t)(rg + m * nrg) * ys, yv[m]);
+#pragma unroll 2
+    for (int k0 = 0; k0 < dp; k0 += V) {
+      T yn[TM][V];
+      const int kn = k0 + V < dp ? k0 + V : k0;
+#pragma unroll
+      for (int m = 0; m < TM; ++m) load16(cur + (size_t)(rg + m * nrg) * ys + kn, yn[m]);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const WT* wr = w + (size_t)(k0 + q) * dp + c * V;
+        WT wv[NG][V];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) loadw(wr + g * ncg * V, wv[g]);
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              mac<TIER, T, T, WT>(a0[m][g * V + e], a1[m][g * V + e], a2[m][g * V + e],
+                                  yv[m][q], wv[g][e]);
+      }
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int e = 0; e < V; ++e) yv[m][e] = yn[m][e];
+    }
+    // + b, clipped with comparisons (not fmin/fmax) so a NaN propagates like
+    // jnp.clip; into the next buffer, or on the last iteration into y_out
+    const bool last = s + 1 == n_steps;
+#pragma unroll
+    for (int m = 0; m < TM; ++m) {
+      const int row = rg + m * nrg;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const size_t at = ((size_t)(m * NG + g) * nt + tid) * V;
+        T lv[V], hv[V], out[V];
+        load16(los + at, lv);
+        load16(his + at, hv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const int n = g * V + e;
+          const T acc = (NA == 3) ? (a0[m][n] + a1[m][n]) + a2[m][n] : a0[m][n];
+          T v = acc + rbv[m][n];
+          v = v < lv[e] ? lv[e] : v;
+          v = v > hv[e] ? hv[e] : v;
+          out[e] = v;
+        }
+        const int col = (g * ncg + c) * V;
+        if (!last)
+          store16(nxt + (size_t)row * ys + col, out);
+        else if (row < nr)
+          store16(y_out + (size_t)(r0 + row) * dp + col, out);
+      }
+    }
+    if (last) break;
+    // every row of nxt is written and every read of cur is done
+    __syncthreads();
+    T* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+}
+
+// The tile regime's shape where the rung and the smallest tile fit one
+// block (false where they do not): rows per tile from B (one wave of the
+// card's SMs where B allows, at least TM, at most what the launch bound and
+// shared memory take), rounded to TM.
+template <typename T, typename WT, int TIER>
+bool tile_plan(int rows, int dp, size_t budget, int nsm, Plan* q) {
+  using S = TileShape<T, TIER>;
+  constexpr int TM = S::TM, N = S::NG * S::V;
+  if (dp % N != 0) return false;
+  const int ncg = dp / N;
+  const size_t w_bytes = align16((size_t)dp * dp * sizeof(WT));
+  // a row's two y buffers, its lo and its hi
+  const size_t row_bytes = (2 * (size_t)(dp + S::V) + 2 * (size_t)dp) * sizeof(T);
+  if (ncg > kTileThreads || w_bytes + TM * row_bytes > budget) return false;
+  int cap = (int)((budget - w_bytes) / row_bytes);
+  cap = min(cap, kTileThreads / ncg * TM) / TM * TM;
+  int rb = ((rows + nsm - 1) / nsm + TM - 1) / TM * TM;
+  rb = rb < TM ? TM : (rb > cap ? cap : rb);
+  q->tile = 1;
+  q->rb = rb;
+  q->threads = rb / TM * ncg;
+  q->nblocks = (rows + rb - 1) / rb;
+  q->smem = (int)(w_bytes + rb * row_bytes);
+  q->cluster = 1;
+  q->w_smem = 1;
+  return true;
+}
+
+// ---- the cluster regime -------------------------------------------------
+
 template <typename T, typename WT, int TIER>
 cudaError_t active_clusters(const Plan& q, int* n) {
   auto fn = q.w_smem ? k4_kernel<T, WT, TIER, true> : k4_kernel<T, WT, TIER, false>;
@@ -342,7 +583,9 @@ cudaError_t active_clusters(const Plan& q, int* n) {
   return cudaSuccess;
 }
 
-// The launch shape: the largest cluster the card schedules whose column
+// The launch shape: the tile regime where the rung and the smallest tile
+// fit one block (the number of such blocks the card holds at once in
+// max_clusters). Else the largest cluster the card schedules whose column
 // slab width is a whole number of 16-byte groups; 8 rows per tile (fewer
 // where they do not fit), more (up to kMaxRows, keeping the slab in shared
 // memory) where that puts every tile in the card's first wave of clusters.
@@ -351,17 +594,33 @@ cudaError_t make_plan(int rows, int dp, Plan* plan) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  int smem_optin = 0;
+  int smem_optin = 0, nsm = 0;
   if ((e = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
     return e;
+  if ((e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev))) return e;
   constexpr int V = Vec16<T>::n;
   constexpr int VW = Vec16<WT>::n;
   constexpr int NA = NAcc<TIER>::n;
   if (rows < 1 || dp < 1 || dp % V != 0) return cudaErrorInvalidValue;
   const size_t budget = (size_t)(smem_optin - kSmemReserve);
+  Plan t = {};
+  if (tile_plan<T, WT, TIER>(rows, dp, budget, nsm, &t)) {
+    auto fn = k4_tile_kernel<T, WT, TIER>;
+    if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, t.smem)))
+      return e;
+    int per_sm = 0;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, t.threads, t.smem)))
+      return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    t.max_clusters = per_sm * nsm;
+    *plan = t;
+    return cudaSuccess;
+  }
   for (int C : kClusters) {
     if (dp % C != 0 || (dp / C) % V != 0) continue;
     Plan q;
+    q.tile = 0;
+    q.threads = kThreads;
     q.cluster = C;
     q.cw = dp / C;
     const int ccols = q.cw < kThreads ? q.cw : kThreads;
@@ -434,6 +693,17 @@ cudaError_t launch_tier(const void* wt_bank, int n_rho, const void* b, const voi
   Plan plan;
   cudaError_t e = cached_plan<T, WT, TIER>(rows, dp, &plan);
   if (e != cudaSuccess) return e;
+  if (plan.tile) {
+    auto fn = k4_tile_kernel<T, WT, TIER>;
+    // another shape's plan may have set a smaller limit since
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (e != cudaSuccess) return e;
+    fn<<<plan.nblocks, plan.threads, plan.smem, stream>>>(
+        static_cast<const WT*>(wt_bank), n_rho, static_cast<const T*>(b),
+        static_cast<const T*>(lo), static_cast<const T*>(hi), static_cast<const T*>(y_in),
+        static_cast<T*>(y_out), static_cast<const int*>(rho_ind), rows, dp, n_steps, plan);
+    return cudaGetLastError();
+  }
   auto fn = plan.w_smem ? k4_kernel<T, WT, TIER, true> : k4_kernel<T, WT, TIER, false>;
   // another shape's plan may have set a smaller limit since
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
@@ -507,10 +777,11 @@ int k4_fused_chunk_batched(const void* wt_bank, int w_dtype, int n_rho, const vo
 
 // The launch shape k4_fused_chunk_batched would use, for reports: blocks,
 // rows per tile, dynamic shared memory, blocks per cluster (column slabs),
-// whether the slab is held in shared memory, and how many such clusters the
-// card holds at once.
+// whether the slab is held in shared memory, how many such clusters (tile
+// regime: blocks) the card holds at once, threads per block, and the
+// regime (1 tile, 0 cluster).
 int k4_plan(int rows, int dp, int y_dtype, int w_dtype, int tier, int* nblocks, int* rb,
-            int* smem, int* cluster, int* w_smem, int* max_clusters) {
+            int* smem, int* cluster, int* w_smem, int* max_clusters, int* threads, int* tile) {
   Plan plan;
   cudaError_t e;
   if (y_dtype == DT_F32 && w_dtype == DT_F32)
@@ -528,6 +799,8 @@ int k4_plan(int rows, int dp, int y_dtype, int w_dtype, int tier, int* nblocks, 
   *cluster = plan.cluster;
   *w_smem = plan.w_smem;
   *max_clusters = plan.max_clusters;
+  *threads = plan.threads;
+  *tile = plan.tile;
   return 0;
 }
 

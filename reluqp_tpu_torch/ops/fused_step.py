@@ -309,7 +309,7 @@ def _k4_lib():
         lib.k4_fused_chunk_batched.argtypes = [vp, i, i, vp, vp, vp, vp, vp,
                                                vp, i, i, i, i, i, vp]
         lib.k4_fused_chunk_batched.restype = i
-        lib.k4_plan.argtypes = [i, i, i, i, i] + [ctypes.POINTER(i)] * 6
+        lib.k4_plan.argtypes = [i, i, i, i, i] + [ctypes.POINTER(i)] * 8
         lib.k4_plan.restype = i
         lib.k4_error_string.argtypes = [i]
         lib.k4_error_string.restype = ctypes.c_char_p
@@ -324,21 +324,29 @@ def _k4_raise(lib, code: int, what: str):
 
 def batched_plan(rows: int, dp: int, dtype=torch.float32, w_dtype=None,
                  iter_precision: str = "highest", device=None) -> dict:
-    """The launch shape of K4 on the current GPU: blocks, rows per tile,
-    dynamic shared memory per block, blocks per cluster (the column slabs
-    of the rung), whether a block holds its slab in shared memory (else it
-    reads it from L2 every iteration), and how many such clusters the card
-    holds at once, on ``device`` (default the current GPU)."""
+    """The launch shape of K4 on the current GPU: its ``regime`` ("tile":
+    one block per row tile holding the whole rung, where the rung and the
+    smallest tile fit one block's shared memory, decided by Dp, the dtypes
+    and the tier alone; else "cluster": a thread-block cluster per row tile,
+    one column slab of the rung per block), blocks, threads per block, rows
+    per tile (from B in both), dynamic shared memory per block, blocks per
+    cluster (1 in the tile regime), whether a block holds its slab in shared
+    memory (else it reads it from L2 every iteration), and how many such
+    clusters (tile regime: blocks) the card holds at once, on ``device``
+    (default the current GPU)."""
     lib = _k4_lib()
-    vals = [ctypes.c_int() for _ in range(6)]
+    vals = [ctypes.c_int() for _ in range(8)]
     with torch.cuda.device(device):
         rc = lib.k4_plan(rows, dp, _DTYPE_CODE[dtype],
                          _DTYPE_CODE[w_dtype or dtype], _TIER[iter_precision],
                          *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _k4_raise(lib, rc, "plan")
-    return dict(zip(("blocks", "rows_per_tile", "smem_bytes", "cluster",
-                     "w_in_smem", "max_clusters"), (v.value for v in vals)))
+    plan = dict(zip(("blocks", "rows_per_tile", "smem_bytes", "cluster",
+                     "w_in_smem", "max_clusters", "threads", "tile"),
+                    (v.value for v in vals)))
+    plan["regime"] = "tile" if plan.pop("tile") else "cluster"
+    return plan
 
 
 def _fused_chunk_batched_cuda(wt_bank, b, lo, hi, Y, rho_ind, n_steps,

@@ -380,7 +380,8 @@ def test_mpc_fused_rollout_on_cuda_matches_cpu(dev):
 
 # K4 and its plain version sum each row in different orders (fp32 rounding
 # only); the last 3 rows are inert (b = 0, +-inf bounds, y = 0) and stay 0.
-@pytest.mark.parametrize("dp,rows", [(128, 8), (640, 64)])
+@pytest.mark.parametrize("dp,rows", [(128, 8), (640, 64), (128, 10000),
+                                     (128, 1003)])
 def test_k4_matches_plain_version(dev, dp, rows):
     wt, b, lo, hi, y = _inputs(dp, dev, rows=rows)
     b[-3:], lo[-3:], hi[-3:], y[-3:] = 0.0, -float("inf"), float("inf"), 0.0
@@ -394,6 +395,22 @@ def test_k4_matches_plain_version(dev, dp, rows):
         assert out.data_ptr() not in (y.data_ptr(), ref.data_ptr())
         assert float((out - ref).abs().max()) <= tol, tier
         assert not out[-3:].any()
+
+
+# Each output's sum runs over the inputs in an order fixed by Dp and the
+# tier alone, so the rows of a smaller launch are bit-equal to the same
+# rows of a larger one, whatever row tile they fall in.
+@pytest.mark.parametrize("dp", [128, 640])
+def test_k4_rows_are_independent_of_the_batch(dev, dp):
+    wt, b, lo, hi, y = _inputs(dp, dev, rows=5000)
+    rho = torch.tensor([1], dtype=torch.int32, device=dev)
+    for tier in ("highest", "high"):
+        full = fused_chunk_batched(wt, b, lo, hi, y, rho, 25, tier)
+        for r in (1, 37, 1003):
+            part = fused_chunk_batched(
+                wt, *(t[:r].contiguous() for t in (b, lo, hi, y)), rho, 25,
+                tier)
+            assert torch.equal(part, full[:r]), (tier, r)
 
 
 def _shared_batch(B=6, nx=30, seed=0):

@@ -207,6 +207,47 @@ def test_repack_schedule_matches_jax(B):
     assert t._repack_sched == ((64,) if B == 64 else (1200, 600, 512))
 
 
+@pytest.mark.parametrize("b_pad,align", [
+    (64, 8), (1200, 8), (10000, 8), (1200, 128), (10000, 128),
+    (10000, 80), (10000, 76), (2000, 80), (600, 80)])
+def test_repack_schedule_function(b_pad, align):
+    """The port's halving as a plain function of (B_pad, align): JAX's
+    schedule at JAX's alignments (8 on its XLA path, 128 under Pallas), and
+    at a K4 row tile that is no power of two (80, 76) capacities that are
+    multiples of it, strictly halving down to the 512-row floor in at most 4
+    stages."""
+    from types import SimpleNamespace
+    from reluqp_tpu_torch.batch import repack_schedule
+    sched = repack_schedule(b_pad, align)
+    if align in (8, 128):
+        stub = SimpleNamespace(B_pad=b_pad, _use_pallas=align == 128)
+        assert sched == JB._make_repack_schedule(stub)
+    if (b_pad, align) == (1200, 8):
+        assert sched == (1200, 600, 512)
+    floor = max(512, align)
+    assert sched[0] == b_pad and 1 <= len(sched) <= 4
+    assert all(c % align == 0 for c in sched[1:])
+    assert all(b < a for a, b in zip(sched, sched[1:]))
+    for a, b in zip(sched, sched[1:]):
+        assert b == -(-max(a // 2, floor) // align) * align
+    if b_pad == 10000 and align == 80:
+        assert sched == (10000, 5040, 2560, 1280)
+    if b_pad <= floor:
+        assert sched == (b_pad,)
+
+
+def test_repack_with_a_tile_aligned_schedule():
+    """A schedule aligned to an 80-row tile, forced on a batch below the
+    512-row floor, on the lane-padded layout through K4's plain version:
+    every row's status, iterations and x as the dense loop and JAX's repack
+    driver on the same schedule."""
+    sched = (240, 160, 80)
+    j, jr, t, tr, dr = _pair(_batch(B=240), sched, "auto")
+    assert t.B_pad == 240 and tr.info.status.all()
+    _agree(j, jr, t, tr, dr)
+    assert tr.info.n_iter_total == int(jr.n_iter_total)
+
+
 def test_repack_refusals_match_jax():
     H, G, A, L, U = _batch(B=8)
     Hb = np.repeat(H[None], 8, axis=0)
