@@ -178,7 +178,22 @@ Phases (each raises on failure; nothing is caught):
     numbers per iteration, time per iteration beside K1's window on the
     same QP; 28, phase 14's scenario MPC with the batch solver over the
     mesh, ``kernel="auto"`` (the loop path): K4 only, bit-equal to phase
-    14 on one card, steps/s.
+    14 on one card, steps/s. Phase 25 also times the solve with every
+    window eager against graphed (the all-reduces captured), by turns,
+    and holds the two bit-equal;
+29. the check windows as CUDA graphs (``reluqp_tpu_torch/core/graphs.py``)
+    against the same solves with every window eager
+    (``solver._window_graphs = False``): the canonical and protocol QPs,
+    phase 6's 200-step loop MPC (at most GRAPH_MPC_CAPTURES captures),
+    phase 14's 200-step scenario loop, phase 19's B = 1024 hetero solve
+    and phase 22's B = 10000 dense and repack solves, each bit-equal (x,
+    z, λ, status, iterations, rungs) with equal kernel launches; the
+    captures and their host ms; by turns (eager, graphed, graphed,
+    eager) the solve times by CUDA events, the rollouts' steps/s; the
+    profiler per window or step; the host launches between two host reads
+    (after a solve's first window at most GRAPH_WINDOW_LAUNCHES, a repack
+    stage's first excepted); syncs per window (graphed no more than
+    eager, and at least one).
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
 the K1, K2, K3, K4 and K5 of another checkout at DIR (the parent commit, unpacked by
@@ -186,13 +201,16 @@ the K1, K2, K3, K4 and K5 of another checkout at DIR (the parent commit, unpacke
 inputs, built from DIR's own sources into DIR's own build directory.
 
 Every kernel launch counter is set to 0 just before each main-path phase
-(4, 5, 6, 8, 11, 14, 16, 19, 21, 22, 23, 24, and 25, 26 and 28 in every
-rank) and read just after; a main-path phase that launched its kernel no
-time fails. The ranks' K4 and K5 launches add to the record's. The second-to-last line is the ``{"kernels": [...]}``
+(4, 5, 6, 8, 11, 14, 16, 19, 21, 22, 23, 24, 29, and 25, 26 and 28 in
+every rank) and read just after; a main-path phase that launched its
+kernel no time fails. A kernel, collective or row count captured in a
+check window's graph counts once per replay (``core.graphs.on_launch``);
+host launches count kernels, graph launches, copies and memsets. The ranks' K4 and K5 launches add to the record's. The second-to-last line is the ``{"kernels": [...]}``
 record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the package beside it, the script exits non-zero before printing a
 result.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -690,14 +708,14 @@ def phase_mpc(card):
         f"incl. the ci=1 calibration) on {card}; launches {counts}")
     ctrl.solver.y, ctrl.solver.rho_ind = y_f, rho_f
     profile_steps("phase 6", ctrl, xs[-1], 50, kernel="loop", ci=1)
-    return {"launches": counts["K1"], "rate": rate, "ref": ref}
+    return {"launches": counts["K1"], "rate": rate, "ref": ref, "ctrl": ctrl}
 
 
 def profile_steps(tag, ctrl, x_start, steps, kernel, ci):
     """``profile_run`` over ``steps`` warm MPC steps continuing the
     rollout at window ``ci``."""
     from reluqp_tpu_torch.models.mpc import mpc_rollout_scan
-    profile_run(tag, lambda: mpc_rollout_scan(
+    return profile_run(tag, lambda: mpc_rollout_scan(
         ctrl.solver, ctrl.prob, x_start, steps, kernel=kernel,
         check_interval=ci), steps, f"kernel={kernel}, ci={ci}")
 
@@ -756,6 +774,33 @@ def device_split(fn, reps):
                 / reps)
 
 
+def launches_between_reads(run):
+    """The host's launches (LAUNCH_CALLS) between consecutive host reads
+    (``cudaStreamSynchronize``) over one ``run()``, in order: one count
+    per read (the launches since the read before it), then the count after
+    the last read. torch.profiler's host-side runtime events, by start
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type != DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    segs, n = [], 0
+    for e in evs:
+        if e.name == "cudaStreamSynchronize":
+            segs.append(n)
+            n = 0
+        elif any(p in e.name for p in LAUNCH_CALLS):
+            n += 1
+    return segs + [n]
+
+
 def sync_sites(tag, run, steps):
     """Where ``run()`` (``steps`` steps) makes the host wait for the card:
     every synchronizing CUDA call under torch's sync debug mode, counted by
@@ -806,11 +851,18 @@ def sync_sites(tag, run, steps):
     return sum(sites.values())
 
 
+# the host's launches onto the card: kernels (cudaLaunchKernel and its Ex
+# and cooperative forms), CUDA graphs, copies and memsets
+LAUNCH_CALLS = ("cudaLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
+
+
 def profile_run(tag, run, steps, what):
     """Where a warm control step's time goes: torch.profiler over
     ``run()``, which runs ``steps`` steps. Device time counts the
     device-side events only (kernels and copies); per-call operator
-    uploads are spread over the steps."""
+    uploads are spread over the steps. Host launches count every call of
+    LAUNCH_CALLS (a graph's replay is one). Returns the per-step numbers
+    (None when the profiler recorded no kernel of the path)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -827,28 +879,35 @@ def profile_run(tag, run, steps, what):
     on_dev = [e for e in ev if e.device_type == DeviceType.CUDA]
     busy = sum(dev(e) for e in on_dev) / steps
     per = lambda pat: [e for e in ev if pat in e.key]
-    k_us = {k: sum(dev(e) for e in per(name)) / steps
-            for k, name in (("K1", "k1_kernel"), ("K2", "k2_kernel"),
-                            ("K3", "k3_kernel"), ("K4", "k4_kernel"),
-                            ("K5", "k5_kernel"), ("K6", "k6_kernel"))}
+    # K4's kernels are k4_kernel (cluster regime) and k4_tile_kernel
+    k_us = {k: sum(dev(e) for e in on_dev if e.key.startswith(prefix)
+                   or f" {prefix}" in e.key or f"::{prefix}" in e.key
+                   or f"){prefix}" in e.key) / steps
+            for k, prefix in (("K1", "k1_"), ("K2", "k2_"), ("K3", "k3_"),
+                              ("K4", "k4_"), ("K5", "k5_"), ("K6", "k6_"))}
     h2d = sum(e.count for e in per("Memcpy HtoD")) / steps
     syncs = sum(e.count for e in per("cudaStreamSynchronize")) / steps
-    launches = sum(e.count for e in per("cudaLaunch")) / steps
+    calls = {name: sum(e.count for e in ev if e.device_type != DeviceType.CUDA
+                       and name in e.key) / steps for name in LAUNCH_CALLS}
+    launches = sum(calls.values())
     top = sorted(on_dev, key=dev, reverse=True)[:6]
     if busy <= 0.0 or not any(k_us.values()):
         # instrumentation only: the checks of the phase already passed
         log(f"{tag} profile: device time not measured (the profiler "
             "recorded no kernel of the path)")
-        return
+        return None
     log(f"{tag} profile ({steps} warm steps, {what}, profiler on): host "
         f"wall {wall_us:.3f} us/step, device busy {busy:.3f} us/step "
         f"({100 * busy / wall_us:.1f}%), "
         + ", ".join(f"{k} {v:.3f} us/step" for k, v in k_us.items() if v)
-        + f", {launches:.4f} launches, {h2d:.4f} H2D copies, {syncs:.4f} "
-        f"stream syncs per step")
+        + f", {launches:.4f} host launches ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in calls.items())
+        + f"), {h2d:.4f} H2D copies, {syncs:.4f} stream syncs per step")
     log("  top device ops (us/step): " + "; ".join(
         f"{e.key[:48]} x{e.count / steps:.4f} {dev(e) / steps:.3f}"
         for e in top))
+    return dict(wall_us=wall_us, busy_us=busy, launches=launches,
+                kernel_launches=calls["cudaLaunch"], syncs=syncs, calls=calls)
 
 
 # ---------------------------------------------------------------------- #
@@ -1866,7 +1925,7 @@ def profile_scenario(tag, m, prob, x_start, steps, kernel, ci):
     """``profile_run`` over ``steps`` warm scenario steps continuing from
     the solver's state."""
     from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
-    profile_run(tag, lambda: scenario_rollout_scan(
+    return profile_run(tag, lambda: scenario_rollout_scan(
         m, prob, x_start, steps, kernel=kernel, check_interval=ci), steps,
         f"kernel={kernel}, ci={ci}, B={m.B_n}")
 
@@ -2870,11 +2929,13 @@ def phase_repack(card, parent=None):
     assert len(sched) > 1 and all(c % plan["rows_per_tile"] == 0
                                   for c in sched[1:]), (sched, plan)
 
+    from reluqp_tpu_torch.core.graphs import on_launch
     rows = collections.Counter()
     runner = tbatch.pallas_batched_chunk_runner
 
     def by_rows(Wt, bias, rho, lo, hi, Y, n, prec="highest"):
-        rows[Y.shape[0]] += 1
+        # once per replay where a window's graph captured the launch
+        on_launch(lambda r=Y.shape[0]: rows.update([r]))
         return runner(Wt, bias, rho, lo, hi, Y, n, prec)
 
     res = {}
@@ -2939,7 +3000,7 @@ def phase_repack(card, parent=None):
             f"{int(bd.info.status.sum())}/{REPACK_B} solved in both, status "
             f"and iterations equal; repack K4 launches by rows {rows_b}")
     log("phase 22 OK")
-    return dict(m=mr, t=t, launches=n_d + n_r, sched=sched, k4=k4)
+    return dict(m=mr, md=md, t=t, launches=n_d + n_r, sched=sched, k4=k4)
 
 
 def _round_trip(save, load, m, path, tag):
@@ -3069,6 +3130,337 @@ def phase_native(card):
 
 
 # --------------------------------------------------------------------- #
+# phase 29: the check windows as CUDA graphs against eager windows       #
+# --------------------------------------------------------------------- #
+
+# the 200-step loop-MPC rollout may capture this many windows (its ci=1
+# calibration, its continuation, their tails)
+GRAPH_MPC_CAPTURES = 4
+# a replayed window's host launches between two host reads: the graph's
+# launch, the bundle's copy and at most one more
+GRAPH_WINDOW_LAUNCHES = 3
+GRAPH_REPS = 3
+# steps of the per-step profiles and sync counts
+GRAPH_PROFILE_T, GRAPH_SYNC_T = 50, 20
+
+
+@contextlib.contextmanager
+def eager_windows(solver):
+    """Every check window of ``solver`` eager inside the ``with``: the
+    private ``_window_graphs = False`` the loops take for the A/B of the
+    graphed path."""
+    keep = solver._window_graphs
+    solver._window_graphs = False
+    try:
+        yield
+    finally:
+        solver._window_graphs = keep
+
+
+def fresh_graphs(solver):
+    """A new, empty window cache for ``solver`` (to count its captures)."""
+    from reluqp_tpu_torch.core.graphs import WindowGraphs
+    solver._window_graphs = WindowGraphs()
+    return solver._window_graphs
+
+
+def in_mode(solver, mode):
+    return (eager_windows(solver) if mode == "eager"
+            else contextlib.nullcontext())
+
+
+def same_fields(tag, pairs, bad):
+    """Bit-equality of the (eager, graphed) pairs of result fields
+    (tensors, arrays, numbers). Logs every field that differs with its
+    largest difference and adds ``tag`` to ``bad``: the phase fails at its
+    end, after every path has been compared."""
+    diffs = []
+    for name, (u, v) in pairs.items():
+        u, v = (np.asarray(a.detach().cpu().numpy()
+                           if hasattr(a, "detach") else a) for a in (u, v))
+        eq = u.shape == v.shape and np.array_equal(
+            u, v, equal_nan=u.dtype.kind == "f")
+        if not eq:
+            d = (float(np.nanmax(np.abs(u.astype(np.float64)
+                                        - v.astype(np.float64))))
+                 if u.shape == v.shape and u.dtype.kind in "fiub" else None)
+            diffs.append(f"{name} (largest difference {d})")
+    if diffs:
+        bad.append(tag)
+        log(f"phase 29 {tag}: graphed differs from eager in "
+            + ", ".join(diffs))
+
+
+def qp_pairs(a, b):
+    """``(result, rung)`` of two single-QP solves as field pairs."""
+    (ra, ia), (rb, ib) = a, b
+    return {"x": (ra.x, rb.x), "z": (ra.z, rb.z), "lam": (ra.lam, rb.lam),
+            "iter": (ra.info.iter, rb.info.iter),
+            "status": (ra.info.status, rb.info.status),
+            "pri": (ra.info.pri_res, rb.info.pri_res),
+            "dua": (ra.info.dua_res, rb.info.dua_res),
+            "rho_estimate": (ra.info.rho_estimate, rb.info.rho_estimate),
+            "rung": (ia, ib)}
+
+
+def batch_pairs(a, b):
+    i, j = a.info, b.info
+    return {"x": (a.x, b.x), "z": (a.z, b.z), "lam": (a.lam, b.lam),
+            "iter": (i.iter, j.iter), "status": (i.status_code, j.status_code),
+            "pri": (i.pri_res, j.pri_res), "dua": (i.dua_res, j.dua_res),
+            "rho_estimate": (i.rho_estimate, j.rho_estimate),
+            "rung": (i.rho_ind, j.rho_ind),
+            "n_iter_total": (i.n_iter_total, j.n_iter_total)}
+
+
+def rollout_pairs(a, b):
+    names = ("states", "controls", "iters", "status", "y_final", "rung_final")
+    return {n: (u, v) for n, u, v in zip(names, a, b)}
+
+
+def graphs_batch(tag, card, m, kernel, bad, stages=1):
+    """One batch solver's A/B: a cold solve eager, the same solve three
+    times through a fresh cache (its first use of each window eager, the
+    second captured, then replays), bit-equal; the kernel's launches
+    equal; then
+    by turns (eager, graphed, graphed, eager) the solve's least time of
+    GRAPH_REPS by CUDA events, the profiler per window, the host launches
+    between two host reads and the syncs per window. After the first
+    window of a solve (of a repack stage: ``stages``) a replayed window
+    makes at most GRAPH_WINDOW_LAUNCHES host launches."""
+    from reluqp_tpu_torch.utils.timing import time_fn_events
+
+    def one():
+        m.clear_primal_dual()
+        return m.solve()
+
+    with eager_windows(m):
+        r_e, c_e = _counted(one, kernel)
+    cache = fresh_graphs(m)
+    t0 = time.perf_counter()
+    r_g, c_g = _counted(one, kernel)
+    first_s = time.perf_counter() - t0
+    # a window used once in a solve (a repack stage's) is captured at the
+    # second solve: the third replays only
+    caps1 = cache.captures
+    r_g2, c_g2 = _counted(one, kernel)
+    caps, cap_s = cache.captures, cache.capture_seconds
+    r_g3, c_g3 = _counted(one, kernel)
+    assert cache.captures == caps, "a third solve captured again"
+    for name, r in (("first", r_g), ("second", r_g2), ("third", r_g3)):
+        same_fields(f"{tag} {name} graphed solve", batch_pairs(r_e, r), bad)
+    assert c_e[kernel] == c_g[kernel] == c_g2[kernel] == c_g3[kernel], \
+        (c_e, c_g, c_g2, c_g3)
+    ci = m.settings.check_interval
+    windows = max(r_e.info.n_iter_total // ci, 1)
+    t = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        with in_mode(m, mode):
+            t[mode].append(time_fn_events(one, reps=GRAPH_REPS)["best"])
+    prof, segs, syncs = {}, {}, {}
+    for mode in ("eager", "graphed"):
+        with in_mode(m, mode):
+            prof[mode] = profile_run(f"phase 29 {tag} {mode}", one, windows,
+                                     f"per check window, {windows} windows")
+            segs[mode] = launches_between_reads(one)
+            syncs[mode] = sync_sites(f"phase 29 {tag} {mode}", one,
+                                     windows) / windows
+    win = segs["graphed"][:windows]
+    heavy = [n for n in win[1:] if n > GRAPH_WINDOW_LAUNCHES]
+    assert len(heavy) <= stages - 1, (tag, segs["graphed"])
+    assert 1 <= syncs["graphed"] <= syncs["eager"], syncs
+    log(f"phase 29 {tag}: {windows} windows, {c_g[kernel]} {kernel} "
+        f"launches (eager {c_e[kernel]}); first graphed solve "
+        f"{first_s * 1e3:.3f} ms with {caps1} captures, {caps} after the "
+        f"second solve, taking {cap_s * 1e3:.3f} ms in all; solve by CUDA "
+        f"events (least of {GRAPH_REPS}, in turns) eager {t['eager'][0] * 1e3:.3f} / "
+        f"{t['eager'][1] * 1e3:.3f} ms, graphed "
+        f"{t['graphed'][0] * 1e3:.3f} / {t['graphed'][1] * 1e3:.3f} ms; host "
+        f"launches between host reads: eager {segs['eager']}, graphed "
+        f"{segs['graphed']}; syncs per window eager {syncs['eager']:.2f}, "
+        f"graphed {syncs['graphed']:.2f}; on {card}")
+    return dict(windows=windows, captures=caps, capture_s=cap_s,
+                first_s=first_s, t=t, prof=prof, segs=segs, syncs=syncs)
+
+
+def phase_graphs(card, protocol, mpc, scen_loop, het, repack):
+    """Phase 29: the check windows of both solve loops as CUDA graph
+    replays against the same solves with every window eager
+    (``_window_graphs = False``), in this call: the canonical and protocol
+    QPs (two cold solves each), phase 6's 200-step loop MPC, phase 14's
+    200-step scenario loop, phase 19's B=1024 hetero solve and phase 22's
+    B=10000 dense and repack solves. Each graphed result bit-equal to the
+    eager one (x, z, λ, status, iterations, rungs), the kernels' counters
+    equal (they count replays), the captures and their host seconds, the
+    host launches between two host reads, syncs per window or step, and
+    the times eager against graphed by turns."""
+    import torch
+    from reluqp_tpu_torch import ReLU_QP
+    from reluqp_tpu_torch.models.mpc import (mpc_rollout_scan,
+                                             scenario_rollout_scan)
+    from reluqp_tpu_torch.utils.problems import canonical_qp
+    bad, out = [], {}
+
+    # the single QP: the canonical QP (phase 4) and the protocol (phase 5)
+    qp = canonical_qp()
+    cases = [("canonical", (qp.H, qp.g, qp.A, qp.l, qp.u),
+              dict(eps_abs=1e-4))]
+    cases += [(f"protocol nx={nx}", inst[:5],
+               dict(eps_abs=1e-4, scaling=True, precision="float32"))
+              for nx, inst in protocol[1].items()]
+    for tag, data, kw in cases:
+        res = {}
+        for mode in ("eager", "graphed"):
+            m = ReLU_QP()
+            m.setup(*data, **kw)
+            runs = []
+
+            def two(m=m, runs=runs):
+                for _ in range(2):
+                    m.clear_primal_dual()
+                    runs.append((m.solve(), m.rho_ind))
+
+            with in_mode(m, mode):
+                _, counts = _counted(two)
+            res[mode] = (runs, counts["K1"], m._window_graphs)
+        for i, (a, b) in enumerate(zip(res["eager"][0], res["graphed"][0])):
+            same_fields(f"{tag} solve {i + 1}", qp_pairs(a, b), bad)
+        cache = res["graphed"][2]
+        assert cache.replays > 0 and res["eager"][1] == res["graphed"][1]
+        log(f"phase 29 {tag}: two cold solves, {res['graphed'][1]} K1 "
+            f"launches (eager {res['eager'][1]}), {cache.captures} captures "
+            f"in {cache.capture_seconds * 1e3:.3f} ms, {cache.replays} "
+            f"replays, {res['graphed'][0][0][0].info.iter} iterations")
+
+    # phase 6's 200-step loop MPC (check_interval="auto")
+    ctrl = mpc["ctrl"]
+    sol = ctrl.solver
+    x0 = mpc_config()[4]
+
+    def rollout():
+        sol.clear_primal_dual()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = mpc_rollout_scan(sol, ctrl.prob, x0, MPC_T, kernel="loop",
+                             check_interval="auto", return_stats=True,
+                             return_state=True)
+        torch.cuda.synchronize()
+        return o, time.perf_counter() - t0
+
+    with eager_windows(sol):
+        (o_e, _), c_e = _counted(rollout)
+    cache = fresh_graphs(sol)
+    (o_g, first_s), c_g = _counted(rollout)
+    caps, cap_s = cache.captures, cache.capture_seconds
+    same_fields(f"loop MPC {MPC_T} steps", rollout_pairs(o_e, o_g), bad)
+    assert 1 <= caps <= GRAPH_MPC_CAPTURES, caps
+    assert c_e["K1"] == c_g["K1"], (c_e, c_g)
+    secs = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        with in_mode(sol, mode):
+            secs[mode].append(rollout()[1])
+    assert cache.captures <= GRAPH_MPC_CAPTURES, cache.captures
+    sol.y, sol.rho_ind = o_g[4], o_g[5]
+    prof, syncs = {}, {}
+    for mode in ("eager", "graphed"):
+        with in_mode(sol, mode):
+            prof[mode] = profile_steps(f"phase 29 loop MPC {mode}", ctrl,
+                                       o_g[0][-1], GRAPH_PROFILE_T, "loop",
+                                       1)
+            syncs[mode] = sync_sites(
+                f"phase 29 loop MPC {mode}", lambda: mpc_rollout_scan(
+                    sol, ctrl.prob, o_g[0][-1], GRAPH_SYNC_T, kernel="loop",
+                    check_interval=1), GRAPH_SYNC_T) / GRAPH_SYNC_T
+    assert syncs["graphed"] <= syncs["eager"], syncs
+    rate = lambda s: MPC_T / min(s)
+    log(f"phase 29 loop MPC: {MPC_T} steps, {c_g['K1']} K1 launches (eager "
+        f"{c_e['K1']}), {caps} captures in {cap_s * 1e3:.3f} ms (the first "
+        f"graphed rollout {first_s:.3f} s); {MPC_T}-step rollouts by turns: "
+        f"eager {secs['eager'][0]:.3f} / {secs['eager'][1]:.3f} s, graphed "
+        f"{secs['graphed'][0]:.3f} / {secs['graphed'][1]:.3f} s: "
+        f"{rate(secs['eager']):.1f} against {rate(secs['graphed']):.1f} "
+        f"steps/s; syncs per step eager {syncs['eager']:.2f}, graphed "
+        f"{syncs['graphed']:.2f}; on {card}")
+    out["mpc"] = dict(captures=caps, capture_s=cap_s, secs=secs, prof=prof,
+                      syncs=syncs)
+
+    # phase 14's 200-step scenario loop (B=64, K4)
+    m, prob = scen_loop["m"], scen_loop["prob"]
+    X0, noise = scenario_inputs(SCEN_B, SCEN_T)
+
+    def srollout():
+        m.clear_primal_dual()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = scenario_rollout_scan(m, prob, X0, SCEN_T, kernel="loop",
+                                  noise=noise, return_stats=True,
+                                  return_state=True)
+        torch.cuda.synchronize()
+        return o, time.perf_counter() - t0
+
+    with eager_windows(m):
+        (s_e, _), c_e = _counted(srollout, "K4")
+    cache = fresh_graphs(m)
+    (s_g, first_s), c_g = _counted(srollout, "K4")
+    caps, cap_s = cache.captures, cache.capture_seconds
+    same_fields(f"scenario loop {SCEN_T} steps", rollout_pairs(s_e, s_g), bad)
+    assert c_e["K4"] == c_g["K4"], (c_e, c_g)
+    rng = np.random.RandomState(29)
+    t_lo, t_hi = SCEN_LOOP_T
+    rates = {}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        def rollout_s(T_):
+            x = X0 + 5e-5 * rng.randn(*X0.shape)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xs, _, _ = scenario_rollout_scan(m, prob, x, T_, kernel="loop")
+            float(xs[-1].sum())
+            return time.perf_counter() - t0
+
+        with in_mode(m, mode):
+            s_lo = min(rollout_s(t_lo) for _ in range(3))
+            s_hi = min(rollout_s(t_hi) for _ in range(3))
+        rates.setdefault(mode, []).append((t_hi - t_lo) / (s_hi - s_lo))
+    ci = m.settings.check_interval
+    m.Y, m.rho_ind = s_g[4], torch.tensor(int(s_g[5]), dtype=torch.int32,
+                                          device=m.settings.device)
+    sprof, ssyncs = {}, {}
+    for mode in ("eager", "graphed"):
+        with in_mode(m, mode):
+            sprof[mode] = profile_scenario(f"phase 29 scenario loop {mode}",
+                                           m, prob, s_g[0][-1], 20, "loop",
+                                           ci)
+            ssyncs[mode] = sync_sites(
+                f"phase 29 scenario loop {mode}",
+                lambda: scenario_rollout_scan(m, prob, s_g[0][-1], 10,
+                                              kernel="loop",
+                                              check_interval=ci), 10) / 10
+    assert ssyncs["graphed"] <= ssyncs["eager"], ssyncs
+    log(f"phase 29 scenario loop: {SCEN_T} steps at B={SCEN_B}, "
+        f"{c_g['K4']} K4 launches (eager {c_e['K4']}), {caps} captures in "
+        f"{cap_s * 1e3:.3f} ms (the first graphed rollout {first_s:.3f} s); "
+        f"two-point steps/s (T={t_lo}/{t_hi}, min of 3) by turns: eager "
+        f"{rates['eager'][0]:.1f} / {rates['eager'][1]:.1f}, graphed "
+        f"{rates['graphed'][0]:.1f} / {rates['graphed'][1]:.1f}; syncs per "
+        f"step eager {ssyncs['eager']:.2f}, graphed {ssyncs['graphed']:.2f}; "
+        f"on {card}")
+    out["scenario"] = dict(captures=caps, capture_s=cap_s, rates=rates,
+                           prof=sprof, syncs=ssyncs)
+
+    # phase 19's hetero batch and phase 22's shared batch, dense and repack
+    out["hetero"] = graphs_batch(f"hetero B={het['m'].B_n}", card, het["m"],
+                                 "K5", bad)
+    out["dense"] = graphs_batch(f"dense B={REPACK_B}", card, repack["md"],
+                                "K4", bad)
+    out["repack"] = graphs_batch(f"repack B={REPACK_B}", card, repack["m"],
+                                 "K4", bad, stages=len(repack["sched"]))
+    assert not bad, f"graphed differs from eager: {bad}"
+    log("phase 29 OK: every covered path's graphed windows equal its eager "
+        "ones bit for bit")
+    return out
+
+
+# --------------------------------------------------------------------- #
 # phases 25-28: the multi-device paths, one process per card over NCCL  #
 # --------------------------------------------------------------------- #
 
@@ -3088,20 +3480,25 @@ MESH_COLLECTIVE_S = 300
 
 
 class count_collectives:
-    """Counts (in order) the collectives the package calls, by wrapping
-    ``torch.distributed``'s functions for the span of a ``with``."""
+    """Counts (in order) the collectives the package runs, by wrapping
+    ``torch.distributed``'s functions for the span of a ``with``: a
+    collective captured in a check window's graph counts once per replay
+    (``core.graphs.on_launch``)."""
 
     NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor")
 
     def __enter__(self):
         import torch.distributed as dist
+        from reluqp_tpu_torch.core.graphs import on_launch
         self.dist, self.calls, self.orig = dist, [], {}
         for name in self.NAMES:
             fn = self.orig[name] = getattr(dist, name)
 
             def wrapped(*a, _fn=fn, _name=name, **kw):
                 t = a[0] if _name == "all_reduce" else a[1]
-                self.calls.append((_name, int(t.numel())))
+                # once per replay where a check window's graph captured it
+                on_launch(lambda n=(_name, int(t.numel())):
+                          self.calls.append(n))
                 return _fn(*a, **kw)
             setattr(dist, name, wrapped)
         return self
@@ -3115,6 +3512,43 @@ class count_collectives:
                    if (n == "all_reduce") == (kind == "reduce"))
 
 
+def allreduce_us(group, graphed, n=200):
+    """One all-reduce of the window's two numbers, in µs, over ``n`` back
+    to back with no host read between them (so the ranks' host skew
+    enters once, not per call): eager launches, or one CUDA graph of
+    ``n`` captured all-reduces, CUDA events, after a barrier."""
+    import torch
+    import torch.distributed as dist
+    red = torch.zeros(2, device="cuda")
+
+    def run():
+        for _ in range(n):
+            dist.all_reduce(red, group=group)
+
+    run()
+    fn = run
+    if graphed:
+        graph, cur = torch.cuda.CUDAGraph(), torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            run()
+            graph.capture_end()
+        cur.wait_stream(side)
+        fn = graph.replay
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier(group=group)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) * 1e3 / n
+
+
 def _same_across_ranks(t, group, what):
     """Assert every rank holds ``t``: one all-gather, outside the timed
     runs."""
@@ -3124,11 +3558,14 @@ def _same_across_ranks(t, group, what):
 
 
 def _recording(runner, rungs):
-    """``runner`` that keeps each window's rung (a device scalar: no sync)."""
+    """``runner`` that keeps each window's rung (a device scalar: no sync),
+    once per replay where a window's graph captured it."""
     import torch
+    from reluqp_tpu_torch.core.graphs import on_launch
 
     def run(W, b, rho, lo, hi, y, n, prec="highest"):
-        rungs.append(rho.reshape(()).to(torch.int32).clone())
+        t = rho.reshape(()).to(torch.int32).clone()
+        on_launch(lambda: rungs.append(t.clone()))
         return runner(W, b, rho, lo, hi, y, n, prec)
     return run
 
@@ -3171,27 +3608,57 @@ def mesh_phase_shared(rank, world, mesh, outdir):
     syncs_one = sync_sites(f"phase 25 rank {rank} unsharded",
                            lambda: repack_solve(one), w_one) / w_one
     assert syncs <= syncs_one, (syncs, syncs_one)
-    t_mesh = time_fn_events(repack_solve, m, reps=REPACK_REPS)["best"]
-    t_one = time_fn_events(repack_solve, one, reps=REPACK_REPS)["best"]
-    split = device_split(lambda: repack_solve(m), REPACK_REPS)
-    split_one = device_split(lambda: repack_solve(one), REPACK_REPS)
-    log(f"phase 25 rank {rank} profile per solve (ms): mesh wall "
-        f"{split['wall']:.3f}, device {split['device']:.3f} of which NCCL "
-        f"{split['nccl']:.3f}; unsharded wall {split_one['wall']:.3f}, "
-        f"device {split_one['device']:.3f}")
+    # the mesh window, all-reduces included, runs as graph replays; the A/B
+    # against every window eager, by turns, on both solvers
+    assert m._window_graphs.replays > 0, "the mesh windows were not graphed"
+    t_mesh, t_one = {}, {}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        with in_mode(m, mode), in_mode(one, mode):
+            t_mesh.setdefault(mode, []).append(time_fn_events(
+                repack_solve, m, reps=REPACK_REPS)["best"])
+            t_one.setdefault(mode, []).append(time_fn_events(
+                repack_solve, one, reps=REPACK_REPS)["best"])
+    with eager_windows(m):
+        r_e = repack_solve(m)
+    r_g = repack_solve(m)
+    assert np.array_equal(r_e.x.cpu().numpy(), r_g.x.cpu().numpy()) and (
+        r_e.info.iter == r_g.info.iter).all() and (
+        r_e.info.rho_ind == r_g.info.rho_ind).all(), \
+        "the graphed mesh solve differs from the eager one"
+    split, split_one = {}, {}
+    for mode in ("eager", "graphed"):
+        with in_mode(m, mode), in_mode(one, mode):
+            split[mode] = device_split(lambda: repack_solve(m), REPACK_REPS)
+            split_one[mode] = device_split(lambda: repack_solve(one),
+                                           REPACK_REPS)
+    ar = {mode: allreduce_us(m._group, mode == "graphed")
+          for mode in ("eager", "graphed")}
+    log(f"phase 25 rank {rank}: a 2-number all-reduce alone, 200 back to "
+        f"back: eager {ar['eager']:.2f} us, in one CUDA graph "
+        f"{ar['graphed']:.2f} us each")
+    for mode in ("eager", "graphed"):
+        s, s1 = split[mode], split_one[mode]
+        log(f"phase 25 rank {rank} {mode} windows, profile per solve (ms): "
+            f"mesh wall {s['wall']:.3f}, device {s['device']:.3f} of which "
+            f"NCCL {s['nccl']:.3f}; unsharded wall {s1['wall']:.3f}, device "
+            f"{s1['device']:.3f}; solve by CUDA events (least of "
+            f"{REPACK_REPS}, by turns) mesh "
+            + " / ".join(f"{t * 1e3:.3f}" for t in t_mesh[mode])
+            + " ms, unsharded "
+            + " / ".join(f"{t * 1e3:.3f}" for t in t_one[mode]) + " ms")
     log(f"phase 25 rank {rank}/{world}: {MESH_B} of {m.B_n} rows, "
         f"{windows} windows, per window {red / windows:.2f} all-reduces, "
         f"{syncs:.2f} syncs (unsharded {syncs_one:.2f}); {gat} all-gather "
-        f"after the loop; solve {t_mesh * 1e3:.3f} ms (CUDA events, least of "
-        f"{REPACK_REPS}); these rows unsharded {t_one * 1e3:.3f} ms; K4 "
-        f"launches {counts['K4']}")
+        f"after the loop; graphed solve {min(t_mesh['graphed']) * 1e3:.3f} ms "
+        f"(CUDA events, least of {REPACK_REPS}); these rows unsharded "
+        f"{min(t_one['graphed']) * 1e3:.3f} ms; K4 launches {counts['K4']}")
     if rank == 0:
         np.savez(os.path.join(outdir, "shared.npz"),
                  x=res.x.cpu().numpy(), iter=res.info.iter,
                  status=res.info.status_code, rho_ind=res.info.rho_ind)
     return dict(K4=counts["K4"], windows=windows, reduces=red, gathers=gat,
                 syncs=syncs, syncs_one=syncs_one, t_mesh=t_mesh,
-                t_one=t_one, split=split, split_one=split_one)
+                t_one=t_one, split=split, split_one=split_one, allreduce=ar)
 
 
 def mesh_phase_hetero(rank, world, mesh, outdir):
@@ -3475,24 +3942,32 @@ def phase_mesh(card, scen_loop):
             assert dx == 0.0, dx
         assert (got["status"] == 1).all()
         p25 = [r["25"] for r in ranks]
-        t_mesh = max(p["t_mesh"] for p in p25)
-        t_one = max(p["t_one"] for p in p25)
         log(f"phase 25 on {card} x{world}: B={MESH_B} per card, "
             f"{p25[0]['windows']} windows, per row status, iterations and "
             f"rung equal to the unsharded dense solve of the {MESH_B * world} "
             f"rows, |x|inf {dx:.2e}; per window {p25[0]['reduces'] / p25[0]['windows']:.2f} "
             f"all-reduces and {p25[0]['syncs']:.2f} syncs (unsharded "
             f"{p25[0]['syncs_one']:.2f}), {p25[0]['gathers']} all-gather per "
-            f"solve; solve "
-            f"{t_mesh * 1e3:.3f} ms over {world} cards (slowest rank), one "
-            f"card's {MESH_B} rows {t_one * 1e3:.3f} ms: weak-scaling "
-            f"efficiency {t_one / t_mesh:.4f}; per rank, profiler on, ms per "
-            f"solve (wall / device / NCCL; unsharded wall / device): "
-            + "; ".join(f"{p['split']['wall']:.3f} / "
-                        f"{p['split']['device']:.3f} / "
-                        f"{p['split']['nccl']:.3f}; "
-                        f"{p['split_one']['wall']:.3f} / "
-                        f"{p['split_one']['device']:.3f}" for p in p25))
+            "solve; the windows graphed (all-reduces captured), the same "
+            "solve with eager windows bit-equal; a 2-number all-reduce "
+            "alone (200 back to back, µs, eager / graphed, by rank): "
+            + "; ".join(f"{p['allreduce']['eager']:.2f} / "
+                        f"{p['allreduce']['graphed']:.2f}" for p in p25))
+        for mode in ("eager", "graphed"):
+            # each rank's least time (by turns), the slowest rank's
+            t_mesh = max(min(p["t_mesh"][mode]) for p in p25)
+            t_one = max(min(p["t_one"][mode]) for p in p25)
+            log(f"phase 25 {mode} windows on {card} x{world}: solve "
+                f"{t_mesh * 1e3:.3f} ms over {world} cards (slowest rank), "
+                f"one card's {MESH_B} rows {t_one * 1e3:.3f} ms: "
+                f"weak-scaling efficiency {t_one / t_mesh:.4f}; per rank, "
+                f"profiler on, ms per solve (wall / device / NCCL; unsharded "
+                f"wall / device): " + "; ".join(
+                    f"{p['split'][mode]['wall']:.3f} / "
+                    f"{p['split'][mode]['device']:.3f} / "
+                    f"{p['split'][mode]['nccl']:.3f}; "
+                    f"{p['split_one'][mode]['wall']:.3f} / "
+                    f"{p['split_one'][mode]['device']:.3f}" for p in p25))
         log("phase 25 OK")
 
         # phase 26: against the unsharded device-built solve; the shard set
@@ -3607,6 +4082,7 @@ def main():
     ckpt = phase_checkpoint(card, protocol, het, repack)
     nat = phase_native(card)
     mesh = phase_mesh(card, scen_loop)
+    phase_graphs(card, protocol, mpc, scen_loop, het, repack)
     k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]
     k3_row = k3["rows"][100]

@@ -80,6 +80,7 @@ from .core.bank import (auto_rho_cap, auto_rho_cap_batch, build_bank_np,
                         sigma_max_sq, sigma_max_sq_batch, stacked_dim)
 from .core.batched import (BatchSolveResult, solve_batched_hetero,
                            solve_batched_shared, solve_batched_shared_repack)
+from .core.graphs import WindowGraphs
 from .core.iteration import STATUS_STRINGS
 from .core.ladder import initial_rho_index, setup_rhos
 from .ops.fused_step import (batched_plan, pad_dim,
@@ -192,6 +193,9 @@ class BatchedReLU_QP:
         self._group, self._rank, self._size = None, 0, 1
         self._process_local = False
         self._rows = slice(None)
+        # the check windows' CUDA graphs (core.graphs); False runs every
+        # window eagerly
+        self._window_graphs = WindowGraphs()
 
     # ------------------------------------------------------------------ #
     def setup(self, H, g, A, l, u, *, rho_mode: str = "shared",
@@ -241,6 +245,8 @@ class BatchedReLU_QP:
                              f"{tail_policy!r}")
         self.settings = Settings(**settings_kw)
         stng = self.settings
+        if self._window_graphs:
+            self._window_graphs.clear()   # new operands
         if process_local and mesh is None:
             raise ValueError("process_local=True requires a mesh")
         if tail_policy == "repack":
@@ -872,7 +878,8 @@ class BatchedReLU_QP:
                 self.Wt_bank, self.bias_all, self.rhos, self.H_dev,
                 self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
                 self._Wt_hi, self._rho_eff, self._w_pri, self._w_dua,
-                chunk_runner=runner, group=self._group, **self._solve_kw())
+                chunk_runner=runner, group=self._group,
+                _graphs=self._window_graphs, **self._solve_kw())
         elif self._repack_sched is not None and len(self._repack_sched) > 1:
             kw = self._solve_kw()
             kw.pop("refine")   # repack stages are single-phase
@@ -881,7 +888,8 @@ class BatchedReLU_QP:
                 self.A_dev, self.G, self.lo, self.hi, self.Y, self.rho_ind,
                 self._done0(), self._rho_eff, self._w_pri, self._w_dua,
                 schedule=self._repack_sched, rho_mode=self.rho_mode,
-                chunk_runner=self._shared_runner(), **kw)
+                chunk_runner=self._shared_runner(),
+                _graphs=self._window_graphs, **kw)
         else:
             res = solve_batched_shared(
                 self.Wt_bank, self.bias_all, self.rhos, self.H_dev,
@@ -889,7 +897,7 @@ class BatchedReLU_QP:
                 self._done0(), self._Wt_hi, self._rho_eff, self._w_pri,
                 self._w_dua, rho_mode=self.rho_mode,
                 chunk_runner=self._shared_runner(), group=self._group,
-                **self._solve_kw())
+                _graphs=self._window_graphs, **self._solve_kw())
         self._fill_results(res, t0)
         if not self.settings.warm_starting:
             self.clear_primal_dual()

@@ -31,7 +31,12 @@ frozen. A Python loop over check windows drives it; everything inside a
 window stays on the device, and the loop syncs to the host ONCE per window
 (the open-problem count, and under a two-phase refine its stall metric).
 The iteration count is kept on the host, since every window has a length
-fixed before it runs.
+fixed before it runs, and on the device (a first-convergence iteration is
+written there). On ``cuda`` each window runs as one replay of a CUDA graph
+(``core.graphs``): one per (rows, length, W operand, tier, whether ρ
+moves), the walk mode, certificates and tolerances in the key with the
+solver's operands; the repack solve's compaction between stages stays
+eager.
 
 Given a process ``group`` (one process per device, each holding its rows of
 the batch; ``parallel.sharded``), the exit is collective: the window's open
@@ -50,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.fused_step import _bf16, fused_chunk_ref
+from .graphs import run_window, sig, window_graphs
 from .iteration import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
                         STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED,
                         _host_scalar_type, rho_ladder_step, rho_update_stride,
@@ -237,20 +243,64 @@ def _batched_steps(Wt, b, lo, hi, Y, n_steps: int, iter_precision: str):
 # shared-(H, A) batch                                                   #
 # --------------------------------------------------------------------- #
 
-class _BState(NamedTuple):
-    Y: torch.Tensor
-    rho_ind: torch.Tensor     # () or (B,) int32, device
+class _Dev(NamedTuple):
+    """The device state a batched check window reads and writes."""
+    Y: torch.Tensor           # (B, Dp) stacked states
+    rho_ind: torch.Tensor     # () or (B,) int32 ladder indices
     rho: torch.Tensor         # (B,) last ρ estimates
-    k: int                    # host iteration counter
     pri: torch.Tensor
     dua: torch.Tensor
     done: torch.Tensor        # (B,) bool
     iters: torch.Tensor       # (B,) int32
     status: torch.Tensor      # (B,) int32
+    k: torch.Tensor           # () int32 iterations run (the host keeps a copy)
+    X_prev: Optional[torch.Tensor] = None     # infeasibility deltas
+    Lam_prev: Optional[torch.Tensor] = None
+
+
+class _BState(NamedTuple):
+    dev: _Dev
+    k: int                    # host iteration counter
     n_open: int               # host copy from the window's bundle
     metric: Optional[float]   # mean log-residual of the open problems
-    X_prev: object = None     # infeasibility deltas (device)
-    Lam_prev: object = None
+
+
+class _Ops(NamedTuple):
+    """What a window reads besides its state and W: the solver's operands
+    and the solve's vectors, staged into static buffers under graphs."""
+    rhos: torch.Tensor        # (N,) in the iterate dtype
+    H: torch.Tensor
+    A: torch.Tensor
+    G: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    w_pri: Optional[torch.Tensor]
+    w_dua: Optional[torch.Tensor]
+    rho_eff: Optional[torch.Tensor]   # (N, nc) or, per problem, (B, N, nc)
+    # ("bank", (N, B, Dp) | (B, N, Dp)), ("lazy", c | None, M_hi, M_lo |
+    # None, X) or ("rows", (N, B_all, Dp), row map (B,))
+    bias: tuple
+
+
+class _Cfg(NamedTuple):
+    """The host values a window bakes into its launches."""
+    shared: bool
+    chunk_runner: object
+    nx: int
+    nc: int
+    alpha: float
+    adaptive_rho: bool
+    rho_jump: bool
+    tol: float
+    eps_pri: float
+    eps_dua: float
+    rho_min: float
+    rho_max: float
+    check_infeasibility: bool
+    eps_prim_inf: float
+    eps_dual_inf: float
+    two_phase: bool
+    group: object
 
 
 def _run_refined(step, running, state0, Wt_bank, Wt_bank_hi, *, refine,
@@ -278,31 +328,68 @@ def _run_refined(step, running, state0, Wt_bank, Wt_bank_hi, *, refine,
     return state, k_fast
 
 
-def _init_state(Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility,
-                nx, lam_of) -> _BState:
+def _start(Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility, nx,
+           nc, alpha, rho_eff) -> _Dev:
+    """The cold loop state from the start rung(s) (an int32 tensor) and
+    the done mask (a bool tensor or None) on Y0's device."""
     B = Y0.shape[0]
     dtype, dev = Y0.dtype, Y0.device
-    if isinstance(rho_ind0, torch.Tensor):
-        rho_ind0 = rho_ind0.to(device=dev, dtype=torch.int32)
-    else:
-        rho_ind0 = torch.as_tensor(np.asarray(rho_ind0, np.int32),
-                                   device=dev)
     # index_select, not rhos_t[rho_ind0]: a 0-d index tensor is read to the
     # host (a sync)
     rho0 = (rhos_t.index_select(0, rho_ind0.reshape(-1).long())
             * torch.ones((B,), dtype=dtype, device=dev))
     zeros = torch.zeros((B,), dtype=dtype, device=dev)
     done = (torch.zeros((B,), dtype=torch.bool, device=dev) if done0 is None
-            else torch.as_tensor(done0, dtype=torch.bool, device=dev))
+            else done0)
     iters = torch.where(done, 0, max_iter).to(torch.int32)
     # inert (padding) rows report "solved" so they never hold the loop open
     status = torch.where(done, STATUS_SOLVED, STATUS_MAX_ITER).to(torch.int32)
-    state = _BState(Y0, rho_ind0, rho0, 0, zeros, zeros, done, iters, status,
-                    B, None)
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    d = _Dev(Y0, rho_ind0, rho0, zeros, zeros, done, iters, status, k)
     if check_infeasibility:
-        state = state._replace(X_prev=Y0[:, :nx],
-                               Lam_prev=lam_of(Y0, rho_ind0))
-    return state
+        d = d._replace(X_prev=Y0[:, :nx],
+                       Lam_prev=_lam_of(Y0, rho_ind0, nx, nc, alpha, rho_eff))
+    return d
+
+
+def _init_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
+                check_infeasibility, nx, nc, alpha, rho_eff) -> _BState:
+    """The cold loop state. Under ``graphs`` it is built in the cache's
+    static buffers: the start states and rungs (and the done mask) are
+    copied in, and a graphed window of its own computes the rest there."""
+    B, dtype, dev = Y0.shape[0], Y0.dtype, Y0.device
+    if isinstance(rho_ind0, torch.Tensor):
+        rho_ind0 = rho_ind0.to(device=dev, dtype=torch.int32)
+    else:
+        rho_ind0 = torch.as_tensor(np.asarray(rho_ind0, np.int32),
+                                   device=dev)
+    if done0 is not None:
+        done0 = torch.as_tensor(done0, dtype=torch.bool, device=dev)
+    args = (max_iter, check_infeasibility, nx, nc, alpha, rho_eff)
+    if graphs is None:
+        return _BState(_start(Y0, rho_ind0, rhos_t, done0, *args), 0, B,
+                       None)
+    st = lambda name, t: graphs.stage("batch." + name, t)
+    buf = lambda name, shape, dt: graphs.buffer("batch." + name, shape, dt,
+                                                dev)
+    i32 = torch.int32
+    Y, ind = st("Y", Y0), st("rho_ind", rho_ind0)
+    done_in = st("done0", done0)
+    rows = lambda name, dt=dtype: buf(name, (B,), dt)
+    d = _Dev(Y, ind, rows("rho"), rows("pri"), rows("dua"),
+             rows("done", torch.bool), rows("iters", i32),
+             rows("status", i32), buf("k", (), i32))
+    if check_infeasibility:
+        d = d._replace(X_prev=buf("X_prev", (B, nx), dtype),
+                       Lam_prev=buf("Lam_prev", (B, nc), dtype))
+
+    def start():
+        for dst, src in zip(d, _start(Y, ind, rhos_t, done_in, *args)):
+            if dst is not None and dst is not src:
+                dst.copy_(src)
+
+    graphs.run(("start", sig((d, done_in, rhos_t) + args)), start, dev)
+    return _BState(d, 0, B, None)
 
 
 def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
@@ -322,7 +409,7 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
                          refine: bool = True,
                          adaptive_rho_interval: int = 1,
                          alpha: float = 1.0,
-                         group=None) -> BatchSolveResult:
+                         group=None, _graphs=None) -> BatchSolveResult:
     """Solve a batch of QPs sharing (H, A).
 
     Args:
@@ -345,6 +432,8 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
       group: optional process group whose ranks each solve their rows of
         one batch with this call: the exit (and the shared ρ walk) is
         all-reduced over it.
+      _graphs: the ``core.graphs.WindowGraphs`` the windows run through (as
+        ``iteration.solve_loop``'s; ``False``: every window eager).
     """
     B = Y0.shape[0]
     shared = rho_mode == "shared"
@@ -358,31 +447,11 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         raise ValueError("bias_lazy requires rho_mode='shared' (one rung "
                          "per window; per-problem rungs need the full "
                          "materialized bias bank)")
-    n_rho = Wt_bank.shape[0]
-
-    def rho_vec(rho_ind):
-        """ρ⃗ at the rung(s): (1, nc) shared or (B, nc) per problem."""
-        return rho_eff.index_select(0, rho_ind.reshape(-1).long())
-
-    def bias_of(rho_ind):
-        """The bias bank for the runner: materialized, or (lazy) the current
-        rung's per-problem bias expanded to bank shape (the runner reads
-        only that one row)."""
-        if bias_lazy is None:
-            return bias_all
-        c_b, M_b, Ml_b, X_b = bias_lazy
-        idx = rho_ind.reshape(1)
-        b_loc = X_b @ M_b.index_select(0, idx)[0].T
-        if Ml_b is not None:
-            b_loc = b_loc + X_b @ Ml_b.index_select(0, idx)[0].T
-        if c_b is not None:
-            b_loc = b_loc + c_b.index_select(0, idx)
-        b_loc = b_loc.to(Y0.dtype)
-        return b_loc.expand(n_rho, *b_loc.shape)
-
+    bias = ("bank", bias_all) if bias_lazy is None else ("lazy", *bias_lazy)
     return _solve_batched(
-        Wt_bank, bias_of, rhos, H, A, G, lo, hi, Y0, rho_ind0, done0,
-        Wt_bank_hi, rho_vec, w_pri, w_dua, shared=shared, chunk_runner=chunk_runner, nx=nx, nc=nc,
+        Wt_bank, bias, rhos, H, A, G, lo, hi, Y0, rho_ind0, done0,
+        Wt_bank_hi, rho_eff, w_pri, w_dua, shared=shared,
+        chunk_runner=chunk_runner, nx=nx, nc=nc,
         max_iter=max_iter, check_interval=check_interval,
         adaptive_rho=adaptive_rho,
         adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
@@ -390,7 +459,7 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
         eps_dual_inf=eps_dual_inf, iter_precision=iter_precision,
         refine=refine, adaptive_rho_interval=adaptive_rho_interval,
-        alpha=alpha, group=group)
+        alpha=alpha, group=group, _graphs=_graphs)
 
 
 def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
@@ -407,7 +476,8 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
                                 eps_dual_inf: float = 1e-4,
                                 iter_precision: str = "highest",
                                 adaptive_rho_interval: int = 1,
-                                alpha: float = 1.0) -> BatchSolveResult:
+                                alpha: float = 1.0,
+                                _graphs=None) -> BatchSolveResult:
     """Shared-(H, A) batched solve that drops converged rows as it goes.
 
     The dense loop keeps every row in the iteration until the last one
@@ -421,6 +491,8 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
     stages, so ``max_iter`` and the per-row ``iters`` are the dense loop's.
     Only converged rows are dropped, and they already count for nothing in
     the shared-ρ walk, so open rows follow the dense loop's trajectories.
+    Under graphs every stage capacity has its own windows; the compaction
+    between stages runs eagerly.
 
     Single-phase only (``refine=False`` semantics: a phase switch cannot be
     carried across stage boundaries), and ``max_iter`` a multiple of
@@ -455,12 +527,8 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
         chunk_runner = (_chunk_shared_rho if shared else
                         _chunk_gathered if B <= _GATHER_BATCH_MAX
                         else _chunk_rung_gemm)
-    n_rho = Wt_bank.shape[0]
-    rhos_t = rhos.to(Y0.dtype)
-
-    def rho_vec(rho_ind):
-        return rho_eff.index_select(0, rho_ind.reshape(-1).long())
-
+    graphs = window_graphs(_graphs, Y0.device)
+    rhos_t = _rhos_in(graphs, rhos, Y0.dtype)
     loop = dict(shared=shared, chunk_runner=chunk_runner, nx=nx, nc=nc,
                 max_iter=max_iter, check_interval=check_interval,
                 adaptive_rho=adaptive_rho,
@@ -470,40 +538,37 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
                 eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
                 iter_precision=iter_precision, refine=False,
                 adaptive_rho_interval=adaptive_rho_interval, alpha=alpha)
-    st = _init_state(Y0, rho_ind0, rhos_t, done0, max_iter,
-                     check_infeasibility, nx,
-                     lambda Y, r: _lam_of(Y, r, nx, nc, alpha, rho_vec))
+    st = _init_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
+                     check_infeasibility, nx, nc, alpha, rho_eff)
     # per-row leaves; the ladder index is per row only per problem
     rows = ["Y", "rho", "pri", "dua", "done", "iters", "status"]
     if not shared:
         rows.append("rho_ind")
     carried = rows + (["X_prev", "Lam_prev"] if check_infeasibility else [])
-    acc = {f: getattr(st, f).clone() for f in rows}
+    acc = {f: getattr(st.dev, f).clone() for f in rows}
     orig = torch.arange(B, device=Y0.device)
+    if graphs is not None and shared:
+        # every stage reads the full batch's bias bank: staged once
+        bias_all = graphs.stage("batch.bias", bias_all)
     G_s, lo_s, hi_s, bias_s, wp_s, wd_s = G, lo, hi, bias_all, w_pri, w_dua
     for si in range(len(schedule)):
         last = si == len(schedule) - 1
-        if shared and si > 0:
-            def bias_of(rho_ind, sel=orig):
-                b = bias_all.index_select(0, rho_ind.reshape(1))[0]
-                b = b.index_select(0, sel)
-                return b.expand(n_rho, *b.shape)
-        else:
-            def bias_of(rho_ind, b=bias_s):
-                return b
-        st, _ = _stage(Wt_bank, bias_of, rhos_t, H, A, G_s, lo_s, hi_s, st,
-                       None, rho_vec, wp_s, wd_s,
+        bias = (("rows", bias_all, orig) if shared and si > 0
+                else ("bank", bias_s))
+        ops = _Ops(rhos_t, H, A, G_s, lo_s, hi_s, wp_s, wd_s, rho_eff, bias)
+        st, _ = _stage(ops, st, Wt_bank, None, graphs,
                        stop_open=0 if last else schedule[si + 1],
                        with_rem=last, **loop)
         for f in rows:
-            acc[f][orig] = getattr(st, f)
+            acc[f][orig] = getattr(st.dev, f)
         if last:
             break
         # stable sort: the open rows first, in their original order
-        sel = torch.argsort(st.done.to(torch.int8), stable=True)
+        sel = torch.argsort(st.dev.done.to(torch.int8), stable=True)
         sel = sel[:schedule[si + 1]]
         st = st._replace(n_open=min(st.n_open, schedule[si + 1]),
-                         **{f: getattr(st, f)[sel] for f in carried})
+                         dev=st.dev._replace(
+                             **{f: getattr(st.dev, f)[sel] for f in carried}))
         orig = orig[sel]
         G_s, lo_s, hi_s = G_s[sel], lo_s[sel], hi_s[sel]
         if not shared:
@@ -512,8 +577,8 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
             wp_s = wp_s[sel]
         if wd_s is not None and wd_s.dim() == 2:
             wd_s = wd_s[sel]
-    st = st._replace(**acc)
-    return _wrap_result(st, 0)
+    st = st._replace(dev=st.dev._replace(**acc))
+    return _wrap_result(st, 0, graphs is not None)
 
 
 def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
@@ -532,7 +597,7 @@ def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
                          refine: bool = True,
                          adaptive_rho_interval: int = 1,
                          alpha: float = 1.0,
-                         group=None) -> BatchSolveResult:
+                         group=None, _graphs=None) -> BatchSolveResult:
     """Solve a batch of QPs with per-problem (H, A).
 
     Args:
@@ -547,18 +612,13 @@ def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
         (``ops.fused_step.pallas_hetero_chunk_runner``) plugs in here.
       group: optional process group of the ranks that each solve their
         problems of one batch: the exit is all-reduced over it.
+      _graphs: as ``solve_batched_shared``'s.
     """
     if chunk_runner is None:
         chunk_runner = _chunk_hetero
-    rows = torch.arange(Y0.shape[0], device=Y0.device)
-
-    def rho_vec(rho_ind):
-        """(B, nc) effective ρ⃗ at each problem's rung."""
-        return rho_eff[rows, rho_ind.long()]
-
     return _solve_batched(
-        Wt_bank, lambda rho_ind: bias_bank, rhos, H, A, G, lo, hi, Y0,
-        rho_ind0, None, Wt_bank_hi, rho_vec, w_pri, w_dua, shared=False,
+        Wt_bank, ("bank", bias_bank), rhos, H, A, G, lo, hi, Y0,
+        rho_ind0, None, Wt_bank_hi, rho_eff, w_pri, w_dua, shared=False,
         chunk_runner=chunk_runner, nx=nx, nc=nc,
         max_iter=max_iter, check_interval=check_interval,
         adaptive_rho=adaptive_rho,
@@ -567,36 +627,189 @@ def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
         check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
         eps_dual_inf=eps_dual_inf, iter_precision=iter_precision,
         refine=refine, adaptive_rho_interval=adaptive_rho_interval,
-        alpha=alpha, group=group)
+        alpha=alpha, group=group, _graphs=_graphs)
 
 
-def _lam_of(Y, rho_ind, nx: int, nc: int, alpha: float, rho_vec):
+def _rhos_in(graphs, rhos, dtype):
+    """The ladder in the iterate dtype: the solver's own tensor where it is
+    (a graph keys it by identity), else a converted copy, staged under
+    graphs."""
+    if rhos.dtype == dtype or graphs is None:
+        return rhos.to(dtype)
+    return graphs.stage("batch.rhos", rhos.to(dtype))
+
+
+def _rho_vec(rho_eff, rho_ind):
+    """ρ⃗ at the rung(s): (1, nc) shared, (B, nc) per problem, from a
+    shared (N, nc) or a per-problem (B, N, nc) ladder."""
+    if rho_eff.dim() == 3:
+        rows = torch.arange(rho_ind.shape[0], device=rho_ind.device)
+        return rho_eff[rows, rho_ind.long()]
+    return rho_eff.index_select(0, rho_ind.reshape(-1).long())
+
+
+def _lam_of(Y, rho_ind, nx: int, nc: int, alpha: float, rho_eff):
     """True λ: the slot (alpha = 1) or ρ⃗(p − z) of the relaxed
     parametrization."""
     last = Y[:, nx + nc:nx + 2 * nc]
     if alpha == 1.0:
         return last
-    return rho_vec(rho_ind) * (last - Y[:, nx:nx + nc])
+    return _rho_vec(rho_eff, rho_ind) * (last - Y[:, nx:nx + nc])
 
 
-def _solve_batched(Wt_bank, bias_of, rhos, H, A, G, lo, hi, Y0, rho_ind0,
-                   done0, Wt_bank_hi, rho_vec, w_pri, w_dua, *,
+def _bias_of(op: _Ops, rho_ind, dtype):
+    """The bias bank for the runner: materialized, the current rung's row
+    of the full batch through a row map (a repack stage), or (lazy) the
+    current rung's per-problem bias ``c_k + X M_kᵀ``, expanded to bank
+    shape (the runner reads only that one row)."""
+    kind = op.bias[0]
+    if kind == "bank":
+        return op.bias[1]
+    n_rho = op.rhos.shape[0]
+    idx = rho_ind.reshape(1)
+    if kind == "rows":
+        _, bank, sel = op.bias
+        b = bank.index_select(0, idx)[0]
+        b = b.index_select(0, sel)
+        return b.expand(n_rho, *b.shape)
+    _, c_b, M_b, Ml_b, X_b = op.bias
+    b_loc = X_b @ M_b.index_select(0, idx)[0].T
+    if Ml_b is not None:
+        b_loc = b_loc + X_b @ Ml_b.index_select(0, idx)[0].T
+    if c_b is not None:
+        b_loc = b_loc + c_b.index_select(0, idx)
+    b_loc = b_loc.to(dtype)
+    return b_loc.expand(n_rho, *b_loc.shape)
+
+
+def _solve_batched(Wt_bank, bias, rhos, H, A, G, lo, hi, Y0, rho_ind0,
+                   done0, Wt_bank_hi, rho_eff, w_pri, w_dua, *,
                    max_iter: int, check_infeasibility: bool, nx: int,
-                   nc: int, alpha: float, **loop) -> BatchSolveResult:
+                   nc: int, alpha: float, _graphs=None,
+                   **loop) -> BatchSolveResult:
     """The window loop of both regimes, from a cold loop state."""
-    rhos_t = rhos.to(Y0.dtype)
-    state0 = _init_state(
-        Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility, nx,
-        lambda Y, r: _lam_of(Y, r, nx, nc, alpha, rho_vec))
-    st, k_fast = _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0,
-                        Wt_bank_hi, rho_vec, w_pri, w_dua, max_iter=max_iter,
+    graphs = window_graphs(_graphs, Y0.device)
+    rhos_t = _rhos_in(graphs, rhos, Y0.dtype)
+    state0 = _init_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
+                         check_infeasibility, nx, nc, alpha, rho_eff)
+    ops = _Ops(rhos_t, H, A, G, lo, hi, w_pri, w_dua, rho_eff, bias)
+    st, k_fast = _stage(ops, state0, Wt_bank, Wt_bank_hi, graphs,
+                        max_iter=max_iter,
                         check_infeasibility=check_infeasibility, nx=nx,
                         nc=nc, alpha=alpha, **loop)
-    return _wrap_result(st, k_fast)
+    return _wrap_result(st, k_fast, graphs is not None)
 
 
-def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
-           rho_vec, w_pri, w_dua, *,
+def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
+            precision: str, upd: bool):
+    """One batched check window: ``n_steps`` iterations of every row, the
+    residuals, the ρ walk (moved only when ``upd``: the host knows which
+    checks update ρ), first-convergence iterations and status, the
+    certificates, and the bundle the host reads (the open count and,
+    under a two-phase refine, the stall metric), all-reduced over the
+    process group when there is one. Returns the new state and the
+    bundle."""
+    nx, nc = cfg.nx, cfg.nc
+    dtype = st.Y.dtype
+    Y = cfg.chunk_runner(W_op, _bias_of(op, st.rho_ind, dtype), st.rho_ind,
+                         op.lo, op.hi, st.Y, n_steps, precision)
+    X, Z = Y[:, :nx], Y[:, nx:nx + nc]
+    lam_now = _lam_of(Y, st.rho_ind, nx, nc, cfg.alpha, op.rho_eff)
+    pri_n, dua_n, rho_new = batched_residuals(op.H, op.A, op.G, X, Z,
+                                              lam_now, st.rho, cfg.rho_min,
+                                              cfg.rho_max, op.w_pri,
+                                              op.w_dua)
+    done = st.done
+    # freeze the stats of problems that already converged
+    pri = torch.where(done, st.pri, pri_n)
+    dua = torch.where(done, st.dua, dua_n)
+    rho = torch.where(done, st.rho, rho_new)
+    rho_ind = st.rho_ind
+    k = st.k + n_steps
+    if cfg.adaptive_rho:
+        if cfg.shared:
+            # the geometric mean of the active problems' estimates drives
+            # the one shared ladder index
+            rho_k = op.rhos.index_select(0, rho_ind.reshape(1)).reshape(())
+            logr = torch.where(done, 0.0, torch.log(rho_new)).sum()
+            n_act = (~done).sum()
+            if cfg.group is not None:
+                red = torch.stack([logr, n_act.to(dtype)])
+                dist.all_reduce(red, group=cfg.group)
+                logr, n_act = red[0], red[1]
+            rho_gm = torch.exp(logr / n_act.clamp_min(1).to(dtype))
+            rho_gm = torch.where(n_act > 0, rho_gm, rho_k)
+            new_ind = rho_ladder_step(op.rhos, rho_ind, rho_gm, cfg.tol,
+                                      cfg.rho_jump)
+        else:
+            new_ind = rho_ladder_step(op.rhos, rho_ind, rho_new, cfg.tol,
+                                      cfg.rho_jump, done=done)
+        if not upd:
+            # ρ moves only at every rho_stride-th check
+            new_ind = rho_ind
+        if cfg.alpha != 1.0:
+            # re-encode p for the new rung with ρ⃗_old/ρ⃗_new (all ones
+            # where it held, capped rows and frozen rows included)
+            scale = _rho_vec(op.rho_eff, rho_ind) / _rho_vec(op.rho_eff,
+                                                             new_ind)
+            P_cur = Y[:, nx + nc:nx + 2 * nc]
+            Y = torch.cat([Y[:, :nx + nc], Z + scale * (P_cur - Z),
+                           Y[:, nx + 2 * nc:]], dim=1)
+        rho_ind = new_ind
+    newly = ~done & (pri < cfg.eps_pri) & (dua < cfg.eps_dua)
+    iters = torch.where(newly, k, st.iters).to(torch.int32)
+    status = torch.where(newly, STATUS_SOLVED, st.status).to(torch.int32)
+    done = done | newly
+    X_prev = Lam_prev = None
+    if cfg.check_infeasibility:
+        pinf, dinf = batched_infeasibility_certificates(
+            op.H, op.A, op.G, op.lo[:, nx:nx + nc], op.hi[:, nx:nx + nc],
+            X - st.X_prev, lam_now - st.Lam_prev, cfg.eps_prim_inf,
+            cfg.eps_dual_inf)
+        for flag, code in ((pinf, STATUS_PRIMAL_INFEASIBLE),
+                           (dinf, STATUS_DUAL_INFEASIBLE)):
+            newly_i = ~done & flag
+            status = torch.where(newly_i, code, status).to(torch.int32)
+            iters = torch.where(newly_i, k, iters).to(torch.int32)
+            done = done | newly_i
+        X_prev, Lam_prev = X, lam_now
+    n_open = (~done).sum()
+    if cfg.two_phase:
+        logres = torch.where(done, 0.0, torch.log(
+            torch.clamp_min(pri + dua, 1e-30))).sum()
+    if cfg.group is not None:
+        red = torch.stack([n_open.to(dtype)]
+                          + ([logres] if cfg.two_phase else []))
+        dist.all_reduce(red, group=cfg.group)
+        n_open = red[0]
+        if cfg.two_phase:
+            logres = red[1]
+    bundle = [n_open.to(torch.float64)]
+    if cfg.two_phase:
+        bundle.append((logres / n_open.clamp_min(1)).to(torch.float64))
+    return (_Dev(Y, rho_ind, rho, pri, dua, done, iters, status, k, X_prev,
+                 Lam_prev), torch.stack(bundle))
+
+
+def _staged(graphs, ops: _Ops, dev: _Dev):
+    """The solve's vectors and state copied into ``graphs``' static
+    buffers (a bias bank or row map staged already is kept)."""
+    st = lambda name, t: graphs.stage("batch." + name, t)
+    kind = ops.bias[0]
+    if kind == "bank":
+        bias = ("bank", st("bias", ops.bias[1]))
+    elif kind == "rows":
+        bias = ("rows", ops.bias[1], st("sel", ops.bias[2]))
+    else:
+        bias = ops.bias[:4] + (st("bias_x", ops.bias[4]),)
+    ops = ops._replace(G=st("G", ops.G),
+                       lo=st("lo", ops.lo), hi=st("hi", ops.hi),
+                       w_pri=st("w_pri", ops.w_pri),
+                       w_dua=st("w_dua", ops.w_dua), bias=bias)
+    return ops, _Dev(*(st(f, t) for f, t in zip(_Dev._fields, dev)))
+
+
+def _stage(ops: _Ops, state0: _BState, Wt_bank, Wt_bank_hi, graphs, *,
            shared: bool, chunk_runner, nx: int, nc: int,
            max_iter: int, check_interval: int, adaptive_rho: bool,
            adaptive_rho_tolerance: float, eps_abs: float,
@@ -608,14 +821,15 @@ def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
     """Run check windows from ``state0`` until at most ``stop_open``
     problems are open or the ``max_iter`` budget (counted from
     ``state0.k``) is spent; ``with_rem`` runs the ``max_iter %
-    check_interval`` tail window. ``bias_of(rho_ind)`` gives the runner's
-    bias bank, ``rho_vec(rho_ind)`` the effective ρ⃗ at the rung(s);
-    ``shared`` walks one index by the geometric mean, else every problem
-    walks its own. The whole loop is one stage (``stop_open=0``); the
-    repack driver runs several over shrinking row buffers. With a process
-    ``group`` the open count, the stall metric's sums and the shared walk's
-    statistics are sums over its ranks. Returns ``(state, k_fast)``."""
-    dtype = state0.Y.dtype
+    check_interval`` tail window. ``shared`` walks one index by the
+    geometric mean, else every problem walks its own. The whole loop is
+    one stage (``stop_open=0``); the repack solve runs several over
+    shrinking row buffers. With a process ``group`` the open count, the
+    stall metric's sums and the shared walk's statistics are sums over its
+    ranks. With ``graphs`` (a ``core.graphs.WindowGraphs``) the solve's
+    vectors and the state are staged into its buffers first and every
+    window runs through it. Returns ``(state, k_fast)``."""
+    dtype = state0.dev.Y.dtype
     eps = torch.tensor(eps_abs, dtype=dtype)
     eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
     eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
@@ -624,96 +838,30 @@ def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
     rem = (max_iter - n_chunks * check_interval) if with_rem else 0
     rho_stride = rho_update_stride(adaptive_rho_interval, check_interval)
     two_phase = refine and iter_precision != "highest"
-
-    def lam_of(Y, rho_ind):
-        return _lam_of(Y, rho_ind, nx, nc, alpha, rho_vec)
-
-    def split(Y):
-        return Y[:, :nx], Y[:, nx:nx + nc], Y[:, nx + nc:nx + 2 * nc]
+    cfg = _Cfg(shared, chunk_runner, nx, nc, alpha, adaptive_rho, rho_jump,
+               tol, eps_pri, eps_dua, float(rho_min), float(rho_max),
+               check_infeasibility, float(eps_prim_inf),
+               float(eps_dual_inf), two_phase, group)
+    bundle_buf = None
+    if graphs is not None:
+        ops, dev0 = _staged(graphs, ops, state0.dev)
+        state0 = state0._replace(dev=dev0)
+        bundle_buf = graphs.buffer("batch.bundle", (1 + two_phase,),
+                                   torch.float64, dev0.Y.device)
+    base = (sig(ops), sig(state0.dev), cfg)
 
     def step(st: _BState, n_steps: int, W_op, precision: str) -> _BState:
-        Y = chunk_runner(W_op, bias_of(st.rho_ind), st.rho_ind, lo, hi, st.Y,
-                         n_steps, precision)
-        X, Z, _ = split(Y)
-        lam_now = lam_of(Y, st.rho_ind)
-        pri_n, dua_n, rho_new = batched_residuals(H, A, G, X, Z, lam_now,
-                                                  st.rho, rho_min, rho_max,
-                                                  w_pri, w_dua)
-        done = st.done
-        # freeze the stats of problems that already converged
-        pri = torch.where(done, st.pri, pri_n)
-        dua = torch.where(done, st.dua, dua_n)
-        rho = torch.where(done, st.rho, rho_new)
-        rho_ind = st.rho_ind
+        # ρ moves only at every rho_stride-th check. Ceil-div: the
+        # max_iter % check_interval tail counts as its own check ordinal,
+        # not a repeat of the last window's.
         k = st.k + n_steps
-        if adaptive_rho:
-            if shared:
-                # the geometric mean of the active problems' estimates
-                # drives the one shared ladder index
-                rho_k = rhos_t.index_select(0, rho_ind.reshape(1)).reshape(())
-                logr = torch.where(done, 0.0, torch.log(rho_new)).sum()
-                n_act = (~done).sum()
-                if group is not None:
-                    red = torch.stack([logr, n_act.to(dtype)])
-                    dist.all_reduce(red, group=group)
-                    logr, n_act = red[0], red[1]
-                rho_gm = torch.exp(logr / n_act.clamp_min(1).to(dtype))
-                rho_gm = torch.where(n_act > 0, rho_gm, rho_k)
-                new_ind = rho_ladder_step(rhos_t, rho_ind, rho_gm, tol,
-                                          rho_jump)
-            else:
-                new_ind = rho_ladder_step(rhos_t, rho_ind, rho_new, tol,
-                                          rho_jump, done=done)
-            if rho_stride > 1:
-                # ρ moves only at every rho_stride-th check. Ceil-div: the
-                # max_iter % check_interval tail counts as its own check
-                # ordinal, not a repeat of the last window's.
-                chk = -((-k) // check_interval)
-                if chk % rho_stride != 0:
-                    new_ind = rho_ind
-            if alpha != 1.0:
-                # re-encode p for the new rung with ρ⃗_old/ρ⃗_new (all ones
-                # where it held, capped rows and frozen rows included)
-                scale = rho_vec(rho_ind) / rho_vec(new_ind)
-                P_cur = Y[:, nx + nc:nx + 2 * nc]
-                Y = torch.cat([Y[:, :nx + nc], Z + scale * (P_cur - Z),
-                               Y[:, nx + 2 * nc:]], dim=1)
-            rho_ind = new_ind
-        newly = ~done & (pri < eps_pri) & (dua < eps_dua)
-        iters = torch.where(newly, k, st.iters).to(torch.int32)
-        status = torch.where(newly, STATUS_SOLVED, st.status).to(torch.int32)
-        done = done | newly
-        X_prev = Lam_prev = None
-        if check_infeasibility:
-            pinf, dinf = batched_infeasibility_certificates(
-                H, A, G, lo[:, nx:nx + nc], hi[:, nx:nx + nc], X - st.X_prev,
-                lam_now - st.Lam_prev, eps_prim_inf, eps_dual_inf)
-            for flag, code in ((pinf, STATUS_PRIMAL_INFEASIBLE),
-                               (dinf, STATUS_DUAL_INFEASIBLE)):
-                newly_i = ~done & flag
-                status = torch.where(newly_i, code, status).to(torch.int32)
-                iters = torch.where(newly_i, k, iters).to(torch.int32)
-                done = done | newly_i
-            X_prev, Lam_prev = X, lam_now
-        # the window's ONE device→host transfer
-        n_open = (~done).sum()
-        if two_phase:
-            logres = torch.where(done, 0.0, torch.log(
-                torch.clamp_min(pri + dua, 1e-30))).sum()
-        if group is not None:
-            red = torch.stack([n_open.to(dtype)]
-                              + ([logres] if two_phase else []))
-            dist.all_reduce(red, group=group)
-            n_open = red[0]
-            if two_phase:
-                logres = red[1]
-        bundle = [n_open.to(torch.float64)]
-        if two_phase:
-            bundle.append((logres / n_open.clamp_min(1)).to(torch.float64))
-        host = torch.stack(bundle).cpu().tolist()
-        return _BState(Y, rho_ind, rho, k, pri, dua, done, iters, status,
-                       int(host[0]), host[1] if two_phase else None, X_prev,
-                       Lam_prev)
+        upd = rho_stride == 1 or (-((-k) // check_interval)) % rho_stride == 0
+        key = ("window", n_steps, precision, upd, sig(W_op), base)
+        dev, host = run_window(
+            graphs, key, lambda s: _window(s, ops, cfg, n_steps, W_op,
+                                           precision, upd),
+            st.dev, bundle_buf)
+        return _BState(dev, k, int(host[0]), host[1] if two_phase else None)
 
     def running(st: _BState) -> bool:
         return st.n_open > stop_open and st.k < n_chunks * check_interval
@@ -724,12 +872,16 @@ def _stage(Wt_bank, bias_of, rhos_t, H, A, G, lo, hi, state0, Wt_bank_hi,
         check_interval=check_interval, rem=rem, dtype=dtype)
 
 
-
-
-def _wrap_result(st: _BState, k_fast: int) -> BatchSolveResult:
-    return BatchSolveResult(Y=st.Y, iters=st.iters, pri_res=st.pri,
-                            dua_res=st.dua, rho_estimate=st.rho,
-                            rho_ind=st.rho_ind,
-                            converged=st.status == STATUS_SOLVED,
-                            n_iter_total=st.k, status=st.status,
+def _wrap_result(st: _BState, k_fast: int, copy: bool) -> BatchSolveResult:
+    """The result; ``copy``: the state is a cache's static buffers, which
+    belong to the next solve."""
+    d = st.dev
+    if copy:
+        d = d._replace(**{f: getattr(d, f).clone() for f in (
+            "Y", "iters", "pri", "dua", "rho", "rho_ind", "status")})
+    return BatchSolveResult(Y=d.Y, iters=d.iters, pri_res=d.pri,
+                            dua_res=d.dua, rho_estimate=d.rho,
+                            rho_ind=d.rho_ind,
+                            converged=d.status == STATUS_SOLVED,
+                            n_iter_total=st.k, status=d.status,
                             n_iter_fast=k_fast)

@@ -10,6 +10,12 @@ estimate): a per-field ``.item()`` would cost one device round trip each.
 The iteration count ``k`` is kept on the host, since every window has a
 length fixed before it runs.
 
+On ``cuda`` each window runs as one replay of a CUDA graph
+(``core.graphs``), keyed by what it bakes in: its length, W operand and
+tier, whether ρ moves, the tail, and the solver's operands by identity.
+The solve's vectors and start state are staged into the cache's static
+buffers at entry; the host keeps the window's one read and its decisions.
+
 The chunk runner is pluggable: ``chunk_runner(W_bank, b_bank, rho_ind, lo,
 hi, y, n_steps, iter_precision)``. State vectors may be padded beyond
 D = nx+2nc; all slicing here uses static [0, nx+2nc) bounds so padding is
@@ -24,6 +30,7 @@ import torch
 
 from ..ops.fused_step import fused_chunk_ref, pad_dim
 from .bank import Bank, DeviceQP
+from .graphs import run_window, sig, window_graphs
 
 __all__ = [
     "SolveResult",
@@ -253,22 +260,165 @@ def run_refined_phases(step, running, state0, W_fast, W_high, *, refine,
     return state, k_fast, W_polish, "highest"
 
 
+class _Dev(NamedTuple):
+    """The device state a check window reads and writes."""
+    y: torch.Tensor                           # (Dp,) stacked state
+    rho_ind: torch.Tensor                     # 0-d int32 ladder index
+    rho: torch.Tensor                         # 0-d: last ρ estimate
+    x_prev: Optional[torch.Tensor] = None     # infeasibility deltas
+    lam_prev: Optional[torch.Tensor] = None
+
+
+class _Ops(NamedTuple):
+    """What a window reads besides its state and W: the solver's operands
+    and the solve's vectors (``g``, ``lo``, ``hi``, ``g_row`` and the
+    bias's state part, staged into static buffers under graphs)."""
+    rhos: torch.Tensor
+    H: torch.Tensor
+    A: torch.Tensor
+    g: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    w_pri: Optional[torch.Tensor]
+    w_dua: Optional[torch.Tensor]
+    rho_eff: Optional[torch.Tensor]
+    M_res: Optional[torch.Tensor]
+    g_row: Optional[torch.Tensor]
+    bias: tuple     # ("bank", b (N, Dp)) or ("lazy", c, M_hi, M_lo, x)
+
+
+class _Cfg(NamedTuple):
+    """The host values a window bakes into its launches."""
+    chunk_runner: Callable
+    nx: int
+    nc: int
+    alpha: float
+    adaptive_rho: bool
+    rho_jump: bool
+    tol: float
+    eps_pri: float
+    eps_dua: float
+    rho_min: float
+    rho_max: float
+    check_infeasibility: bool
+    eps_prim_inf: float
+    eps_dual_inf: float
+
+
 class _State(NamedTuple):
-    y: torch.Tensor
-    rho_ind: torch.Tensor     # 0-d int32, device
-    rho: torch.Tensor         # 0-d, device: last ρ estimate
+    dev: _Dev
     k: int                    # host iteration counter
     status: int               # host copies from the window's bundle
     pri: float
     dua: float
     rho_ind_h: int
     rho_h: float
-    x_prev: object = None     # infeasibility deltas (device)
-    lam_prev: object = None
 
 
 def _host_scalar_type(dtype):
     return np.float64 if dtype == torch.float64 else np.float32
+
+
+def _lam_of(y, rho_ind, op: _Ops, cfg: _Cfg):
+    """True λ: the slot (alpha = 1) or ρ⃗(p − z)."""
+    nx, nc = cfg.nx, cfg.nc
+    last = y[nx + nc:nx + 2 * nc]
+    if cfg.alpha == 1.0:
+        return last
+    rv = op.rho_eff.index_select(0, rho_ind.reshape(1))[0]
+    return rv * (last - y[nx:nx + nc])
+
+
+def _check(y, rho, rho_ind, op: _Ops, cfg: _Cfg):
+    """The window's residuals and ρ estimate."""
+    nx, nc = cfg.nx, cfg.nc
+    if op.M_res is not None:
+        return compute_residuals_op(op.M_res, op.g_row, y, pad_dim(nx),
+                                    pad_dim(nc), rho, cfg.rho_min,
+                                    cfg.rho_max)
+    return compute_residuals(op.H, op.A, op.g, y[:nx], y[nx:nx + nc],
+                             _lam_of(y, rho_ind, op, cfg), rho, cfg.rho_min,
+                             cfg.rho_max, op.w_pri, op.w_dua)
+
+
+def _bias_of(rho_ind, op: _Ops, dtype):
+    """The bias bank for the runner: the stored bank, or (lazy) the
+    current rung's state-affine bias expanded to bank shape (the runner's
+    index_select reads only that one row)."""
+    if op.bias[0] == "bank":
+        return op.bias[1]
+    _, c_b, M_b, Ml_b, x_b = op.bias
+    idx = rho_ind.reshape(1)
+    b_loc = M_b.index_select(0, idx)[0] @ x_b
+    if Ml_b is not None:
+        b_loc = b_loc + Ml_b.index_select(0, idx)[0] @ x_b
+    if c_b is not None:
+        b_loc = b_loc + c_b.index_select(0, idx)[0]
+    b_loc = b_loc.to(dtype)
+    return b_loc.expand(op.rhos.shape[0], b_loc.shape[0])
+
+
+def _bundle(status, pri, dua, rho_ind, rho):
+    """The window's scalars for its ONE device→host transfer."""
+    f64 = torch.float64
+    return torch.stack([status.to(f64), pri.to(f64), dua.to(f64),
+                        rho_ind.to(f64), rho.to(f64)])
+
+
+def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
+            precision: str, upd: bool):
+    """One check window: ``n_steps`` iterations, the residuals, the ρ walk
+    (moved only when ``upd``: the host knows which checks update ρ), the
+    status and the certificates. Returns the new state and the bundle."""
+    nx, nc = cfg.nx, cfg.nc
+    y = cfg.chunk_runner(W_op, _bias_of(st.rho_ind, op, st.y.dtype),
+                         st.rho_ind, op.lo, op.hi, st.y, n_steps, precision)
+    pri, dua, rho_new = _check(y, st.rho, st.rho_ind, op, cfg)
+    if cfg.check_infeasibility:
+        lam_now = _lam_of(y, st.rho_ind, op, cfg)
+    rho_ind = st.rho_ind
+    if cfg.adaptive_rho:
+        new_ind = (rho_ladder_step(op.rhos, rho_ind, rho_new, cfg.tol,
+                                   cfg.rho_jump) if upd else rho_ind)
+        if cfg.alpha != 1.0:
+            # p is rung-scaled (p = z + R⁻¹λ): re-encode it for the new
+            # rung with the elementwise ρ⃗_old/ρ⃗_new (all-ones when the
+            # rung held).
+            scale = (op.rho_eff.index_select(0, rho_ind.reshape(1))[0]
+                     / op.rho_eff.index_select(0, new_ind.reshape(1))[0])
+            z_cur = y[nx:nx + nc]
+            p_cur = y[nx + nc:nx + 2 * nc]
+            y = torch.cat([y[:nx + nc], z_cur + scale * (p_cur - z_cur),
+                           y[nx + 2 * nc:]])
+        rho_ind = new_ind
+    solved = (pri < cfg.eps_pri) & (dua < cfg.eps_dua)
+    status = torch.where(solved, STATUS_SOLVED, _RUNNING)
+    x_prev = lam_prev = None
+    if cfg.check_infeasibility:
+        x = y[:nx]
+        pinf, dinf = infeasibility_certificates(
+            op.H, op.A, op.g, op.lo[nx:nx + nc], op.hi[nx:nx + nc],
+            x - st.x_prev, lam_now - st.lam_prev, cfg.eps_prim_inf,
+            cfg.eps_dual_inf)
+        status = torch.where((status < 0) & pinf,
+                             STATUS_PRIMAL_INFEASIBLE, status)
+        status = torch.where((status < 0) & dinf,
+                             STATUS_DUAL_INFEASIBLE, status)
+        x_prev, lam_prev = x, lam_now
+    return (_Dev(y, rho_ind, rho_new, x_prev, lam_prev),
+            _bundle(status, pri, dua, rho_ind, rho_new))
+
+
+def _tail(st: _Dev, op: _Ops, cfg: _Cfg, rem: int, W_op, precision: str):
+    """The ``max_iter % check_interval`` tail iterations and one final
+    residual evaluation (no ρ walk, no certificates)."""
+    y = cfg.chunk_runner(W_op, _bias_of(st.rho_ind, op, st.y.dtype),
+                         st.rho_ind, op.lo, op.hi, st.y, rem, precision)
+    pri, dua, rho = _check(y, st.rho, st.rho_ind, op, cfg)
+    solved = (pri < cfg.eps_pri) & (dua < cfg.eps_dua)
+    status = torch.where(solved, STATUS_SOLVED, _RUNNING)
+    return (st._replace(y=y, rho=rho),
+            _bundle(status, pri, dua, st.rho_ind, rho))
 
 
 def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
@@ -286,7 +436,8 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
                refine: bool = True,
                adaptive_rho_interval: int = 1,
                alpha: float = 1.0,
-               with_obj: bool = True) -> SolveResult:
+               with_obj: bool = True,
+               _graphs=None) -> SolveResult:
     """Run the solver to convergence or ``max_iter``.
 
     Iterations run in ``check_interval`` windows; after each window the
@@ -309,6 +460,11 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
     ``M_res``: optional stacked residual operator (alpha=1): one
     ``y @ M_res`` per check instead of three matvecs; ``g_row`` is derived
     here from ``qp.g``/``qp.w_dua``.
+
+    ``_graphs``: the ``core.graphs.WindowGraphs`` the windows run through
+    (a solver's own; a fresh one per call when None, which on ``cuda``
+    graphs each window and on the CPU runs it eagerly); ``False`` runs
+    every window eagerly (the A/B of the graphed path).
     """
     dtype = y0.dtype
     dev = y0.device
@@ -320,19 +476,12 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
     eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
     eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
     tol = float(torch.tensor(adaptive_rho_tolerance, dtype=dtype))
-    n_rhos = bank.rhos.shape[0]
     n_chunks = max_iter // check_interval
     rem = max_iter - n_chunks * check_interval
     rho_stride = rho_update_stride(adaptive_rho_interval, check_interval)
-    f64 = torch.float64
+    graphs = window_graphs(_graphs, dev)
 
-    def lam_of(y, rho_ind):
-        last = y[nx + nc:nx + 2 * nc]
-        if alpha == 1.0:
-            return last
-        rv = rho_eff.index_select(0, rho_ind.reshape(1))[0]
-        return rv * (last - y[nx:nx + nc])
-
+    g_row = None
     if M_res is not None:
         if alpha != 1.0:
             raise ValueError("M_res (stacked residual operator) requires "
@@ -346,89 +495,12 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
         gv = qp.g if qp.w_dua is None else qp.w_dua * qp.g
         g_row = torch.zeros((nxp,), dtype=dtype, device=dev)
         g_row[:nx] = gv.to(dtype)
-
-    def check(y, rho, rho_ind):
-        if M_res is not None:
-            return compute_residuals_op(M_res, g_row, y, nxp, ncp, rho,
-                                        rho_min, rho_max)
-        return compute_residuals(qp.H, qp.A, qp.g, y[:nx], y[nx:nx + nc],
-                                 lam_of(y, rho_ind), rho, rho_min, rho_max,
-                                 qp.w_pri, qp.w_dua)
-
-    def bias_of(rho_ind):
-        """The bias bank for the runner: the stored bank, or (lazy) the
-        current rung's state-affine bias expanded to bank shape (the
-        runner's index_select reads only that one row)."""
-        if bias_lazy is None:
-            return bank.b
-        c_b, M_b, Ml_b, x_b = bias_lazy
-        idx = rho_ind.reshape(1)
-        b_loc = M_b.index_select(0, idx)[0] @ x_b
-        if Ml_b is not None:
-            b_loc = b_loc + Ml_b.index_select(0, idx)[0] @ x_b
-        if c_b is not None:
-            b_loc = b_loc + c_b.index_select(0, idx)[0]
-        b_loc = b_loc.to(dtype)
-        return b_loc.expand(n_rhos, b_loc.shape[0])
-
-    def bundle(status, pri, dua, rho_ind, rho):
-        """ONE device→host transfer of the window's scalars."""
-        s = torch.stack([status.to(f64), pri.to(f64), dua.to(f64),
-                         rho_ind.to(f64), rho.to(f64)]).cpu().tolist()
-        return int(s[0]), s[1], s[2], int(s[3]), s[4]
-
-    def step(st: _State, n_steps: int, W_op, precision: str) -> _State:
-        y = chunk_runner(W_op, bias_of(st.rho_ind), st.rho_ind, qp.lo,
-                         qp.hi, st.y, n_steps, precision)
-        pri, dua, rho_new = check(y, st.rho, st.rho_ind)
-        if check_infeasibility:
-            lam_now = lam_of(y, st.rho_ind)
-        rho_ind = st.rho_ind
-        k = st.k + n_steps
-        if adaptive_rho:
-            new_ind = rho_ladder_step(bank.rhos, rho_ind, rho_new, tol,
-                                      rho_jump)
-            if rho_stride > 1:
-                # ρ updates only every rho_stride-th check (host-known:
-                # every window has a fixed length)
-                chk = -((-k) // check_interval)
-                if chk % rho_stride != 0:
-                    new_ind = rho_ind
-            if alpha != 1.0:
-                # p is rung-scaled (p = z + R⁻¹λ): re-encode it for the new
-                # rung with the elementwise ρ⃗_old/ρ⃗_new (all-ones when the
-                # rung held).
-                scale = (rho_eff.index_select(0, rho_ind.reshape(1))[0]
-                         / rho_eff.index_select(0, new_ind.reshape(1))[0])
-                z_cur = y[nx:nx + nc]
-                p_cur = y[nx + nc:nx + 2 * nc]
-                y = torch.cat([y[:nx + nc], z_cur + scale * (p_cur - z_cur),
-                               y[nx + 2 * nc:]])
-            rho_ind = new_ind
-        solved = (pri < eps_pri) & (dua < eps_dua)
-        status = torch.where(solved, STATUS_SOLVED, _RUNNING)
-        x_prev = lam_prev = None
-        if check_infeasibility:
-            x = y[:nx]
-            pinf, dinf = infeasibility_certificates(
-                qp.H, qp.A, qp.g, qp.lo[nx:nx + nc], qp.hi[nx:nx + nc],
-                x - st.x_prev, lam_now - st.lam_prev, eps_prim_inf,
-                eps_dual_inf)
-            status = torch.where((status < 0) & pinf,
-                                 STATUS_PRIMAL_INFEASIBLE, status)
-            status = torch.where((status < 0) & dinf,
-                                 STATUS_DUAL_INFEASIBLE, status)
-            x_prev, lam_prev = x, lam_now
-        status_h, pri_h, dua_h, ind_h, rho_h = bundle(
-            status, pri, dua, rho_ind, rho_new)
-        if verbose:
-            print(f"Iter: {k}, rho: {rho_h:.2e}, res_p: {pri_h:.2e}, "
-                  f"res_d: {dua_h:.2e}")
-        return _State(y, rho_ind, rho_new, k, status_h, pri_h, dua_h,
-                      ind_h, rho_h, x_prev, lam_prev)
-
-    def running(st: _State) -> bool:
-        return st.status < 0 and st.k < n_chunks * check_interval
+    cfg = _Cfg(chunk_runner, nx, nc, alpha, adaptive_rho, rho_jump, tol,
+               eps_pri, eps_dua, float(rho_min), float(rho_max),
+               check_infeasibility, float(eps_prim_inf), float(eps_dual_inf))
+    bias = ("bank", bank.b) if bias_lazy is None else ("lazy", *bias_lazy)
+    ops = _Ops(bank.rhos, qp.H, qp.A, qp.g, qp.lo, qp.hi, qp.w_pri,
+               qp.w_dua, rho_eff, M_res, g_row, bias)
 
     # the start index and ρ may already be device tensors (the rollout
     # carries them from step to step); a host value costs one copy here
@@ -440,13 +512,51 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
                                  device=dev)
         rho_ind_h = int(rho_ind0)
     rho_t = torch.as_tensor(rho0, dtype=dtype, device=dev).reshape(())
+    dev0 = _Dev(y0, rho_ind_t, rho_t)
+    if check_infeasibility:
+        dev0 = dev0._replace(x_prev=y0[:nx],
+                             lam_prev=_lam_of(y0, rho_ind_t, ops, cfg))
+    bundle_buf = None
+    if graphs is not None:
+        # the solve's vectors and start state into the static buffers the
+        # graphs read; the solver's operands stay where they are
+        st_in = lambda name, t: graphs.stage("qp." + name, t)
+        bias = (("bank", st_in("b", bias[1])) if bias[0] == "bank"
+                else bias[:4] + (st_in("x", bias[4]),))
+        ops = ops._replace(g=st_in("g", ops.g), lo=st_in("lo", ops.lo),
+                           hi=st_in("hi", ops.hi),
+                           g_row=st_in("g_row", ops.g_row), bias=bias)
+        dev0 = _Dev(*(st_in(f, t) for f, t in zip(_Dev._fields, dev0)))
+        bundle_buf = graphs.buffer("qp.bundle", (5,), torch.float64, dev)
+    base = (sig(ops), sig(dev0), cfg)
+
+    def run(kind, st: _State, n_steps: int, W_op, precision: str, upd,
+            fn) -> _State:
+        key = (kind, n_steps, precision, upd, sig(W_op), base)
+        dev_st, h = run_window(graphs, key, fn, st.dev, bundle_buf)
+        status_h, pri_h, dua_h, ind_h, rho_h = (int(h[0]), h[1], h[2],
+                                                int(h[3]), h[4])
+        if verbose and kind == "window":
+            print(f"Iter: {st.k + n_steps}, rho: {rho_h:.2e}, res_p: "
+                  f"{pri_h:.2e}, res_d: {dua_h:.2e}")
+        return _State(dev_st, st.k + n_steps, status_h, pri_h, dua_h,
+                      ind_h, rho_h)
+
+    def step(st: _State, n_steps: int, W_op, precision: str) -> _State:
+        # ρ updates only every rho_stride-th check (host-known: every
+        # window has a fixed length)
+        k = st.k + n_steps
+        upd = rho_stride == 1 or (-((-k) // check_interval)) % rho_stride == 0
+        return run("window", st, n_steps, W_op, precision, upd,
+                   lambda s: _window(s, ops, cfg, n_steps, W_op, precision,
+                                     upd))
+
+    def running(st: _State) -> bool:
+        return st.status < 0 and st.k < n_chunks * check_interval
+
     # every solve runs at least one window or the tail, which sets the
     # host copy of the ρ estimate; NaN only stands in until then
-    state0 = _State(y0, rho_ind_t, rho_t, 0, _RUNNING, 0.0, 0.0,
-                    rho_ind_h, float("nan"))
-    if check_infeasibility:
-        state0 = state0._replace(x_prev=y0[:nx],
-                                 lam_prev=lam_of(y0, rho_ind_t))
+    state0 = _State(dev0, 0, _RUNNING, 0.0, 0.0, rho_ind_h, float("nan"))
 
     # Phase policy (reduced-precision phase A + "highest" polish) in
     # run_refined_phases; the stall metric is the residual pair with a 3%
@@ -466,21 +576,18 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
     if rem > 0 and st.status < 0:
         # Tail iterations when max_iter % check_interval != 0, then one
         # final residual evaluation.
-        y = chunk_runner(tail_W, bias_of(st.rho_ind), st.rho_ind, qp.lo,
-                         qp.hi, st.y, rem, tail_prec)
-        pri, dua, rho = check(y, st.rho, st.rho_ind)
-        solved = (pri < eps_pri) & (dua < eps_dua)
-        status = torch.where(solved, STATUS_SOLVED, _RUNNING)
-        status_h, pri_h, dua_h, ind_h, rho_h = bundle(
-            status, pri, dua, st.rho_ind, rho)
-        st = st._replace(y=y, rho=rho, k=st.k + rem, status=status_h,
-                         pri=pri_h, dua=dua_h, rho_ind_h=ind_h, rho_h=rho_h)
+        st = run("tail", st, rem, tail_W, tail_prec, None,
+                 lambda s: _tail(s, ops, cfg, rem, tail_W, tail_prec))
 
     status = STATUS_MAX_ITER if st.status < 0 else st.status
     iters = st.k if status != STATUS_MAX_ITER else max_iter
-    obj = (float(compute_objective(qp.H, qp.g, st.y[:nx])) if with_obj
+    y, rho_ind = st.dev.y, st.dev.rho_ind
+    if graphs is not None:
+        # the static buffers belong to the next solve
+        y, rho_ind = y.clone(), rho_ind.clone()
+    obj = (float(compute_objective(qp.H, qp.g, y[:nx])) if with_obj
            else 0.0)
-    return SolveResult(y=st.y, iters=iters, pri_res=st.pri, dua_res=st.dua,
+    return SolveResult(y=y, iters=iters, pri_res=st.pri, dua_res=st.dua,
                        rho_estimate=st.rho_h, rho_ind=st.rho_ind_h,
                        converged=status == STATUS_SOLVED, obj_val=obj,
-                       status_code=status, rho_ind_dev=st.rho_ind)
+                       status_code=status, rho_ind_dev=rho_ind)

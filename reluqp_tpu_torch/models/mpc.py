@@ -346,7 +346,8 @@ def _rollout_impl(W_bank, B_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0,
                   iter_precision: str = "highest", refine: bool = True,
                   rho_jump: bool = False, adaptive_rho_interval: int = 1,
                   alpha: float = 1.0, check_infeasibility: bool = False,
-                  eps_prim_inf: float = 1e-4, eps_dual_inf: float = 1e-4):
+                  eps_prim_inf: float = 1e-4, eps_dual_inf: float = 1e-4,
+                  _graphs=None):
     """The loop-path rollout: one warm solve per control step.
 
     The g/l/u maps arrive PRE-SCALED into the solver's (possibly
@@ -354,6 +355,8 @@ def _rollout_impl(W_bank, B_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0,
     variable back to plant units. Returns ``(xs (T+1, nx), us (T, nu),
     iters (T,), status (T,), y_final, rho_ind_final)``; ``iters`` and
     ``status`` are CPU int32 tensors, the rest stay on the device.
+    ``_graphs``: the solver's ``core.graphs.WindowGraphs`` (every step's
+    solve replays its windows; each step's vectors are staged into it).
     """
     from ..core.bank import Bank, DeviceQP
     from ..core.iteration import solve_loop
@@ -410,7 +413,8 @@ def _rollout_impl(W_bank, B_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0,
             rho_jump=rho_jump, adaptive_rho_interval=adaptive_rho_interval,
             alpha=alpha, with_obj=False,
             check_infeasibility=check_infeasibility,
-            eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf)
+            eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
+            _graphs=_graphs)
         v0 = res.y[:nu] * v0_scale
         u = -kx + v0
         x = ax + Bd @ u + noise[t]
@@ -577,27 +581,19 @@ def _dispatch_rollout(solver, prob, x_init, n_steps, solve_max_iter,
                              ci, y0, rho_ind0, noise)
     dtype = stng.precision_dtype
     dev = stng.device
-    cst = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                    device=dev)
     nu = prob.K.shape[0]
     npl = prob.K.shape[1]
-    # Map the receding-horizon update maps into the solver's (possibly
-    # Ruiz-equilibrated) space: ḡ = c·D·g, l̄/ū = E·(l/u); the solved
-    # first-stage variable unscales as v = D[:nu]·v̄.
-    sc = solver.scal
-    gD = sc.c * sc.D
-    bias_c, M_hi, M_lo = _affine_bias_maps(
-        solver._B_np, gD * prob.g0, gD[:, None] * prob.g_x0, dtype, dev)
+    # the update maps in the solver's (possibly Ruiz-equilibrated) space,
+    # made once per prob and bank: the solves' graphs key them by identity
+    maps, (bias_c, M_hi, M_lo) = _loop_scenario_operands(solver, prob)
     x0 = (x_init.to(device=dev, dtype=dtype)
-          if isinstance(x_init, torch.Tensor) else cst(x_init))
+          if isinstance(x_init, torch.Tensor)
+          else torch.as_tensor(np.asarray(x_init, np.float64), dtype=dtype,
+                               device=dev))
     return _rollout_impl(
         solver.bank.W, solver.bank.B, solver.bank.rhos,
-        solver.qp_dev.H, solver.qp_dev.A,
-        cst(gD * prob.g0), cst(gD[:, None] * prob.g_x0),
-        cst(sc.E * prob.l0), cst(sc.E * prob.u0),
-        cst(sc.E[:, None] * prob.lu_x0), cst(prob.K),
-        cst(solver_plant_A(prob)), cst(solver_plant_B(prob)),
-        cst(sc.D[:nu]), noise, y0, rho_ind0, x0.reshape(npl),
+        solver.qp_dev.H, solver.qp_dev.A, *maps, noise, y0, rho_ind0,
+        x0.reshape(npl),
         solver._W_hi, solver._rho_eff, bias_c, M_hi, M_lo,
         solver.qp_dev.w_pri, solver.qp_dev.w_dua,
         solver._M_res if solver._res_op_loop else None,
@@ -614,7 +610,8 @@ def _dispatch_rollout(solver, prob, x_init, n_steps, solve_max_iter,
         alpha=float(stng.alpha),
         check_infeasibility=bool(stng.check_infeasibility),
         eps_prim_inf=float(stng.eps_prim_inf),
-        eps_dual_inf=float(stng.eps_dual_inf))
+        eps_dual_inf=float(stng.eps_dual_inf),
+        _graphs=solver._window_graphs)
 
 
 def _kernel_rollout_eligible(solver) -> bool:
@@ -1001,7 +998,8 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
                            alpha: float = 1.0,
                            check_infeasibility: bool = False,
                            eps_prim_inf: float = 1e-4,
-                           eps_dual_inf: float = 1e-4, group=None):
+                           eps_dual_inf: float = 1e-4, group=None,
+                           _graphs=None):
     """The loop-path scenario rollout: one batched warm solve per control
     step for the whole ensemble.
 
@@ -1018,7 +1016,8 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
     ROADMAP §C, F-w2). ``iters``/``status`` are CPU int32 tensors. With a
     process ``group`` the rows are this rank's plants: every solve's exit
     is collective and the status lane is the ``min`` over every rank's
-    scenarios (one all-reduce per segment).
+    scenarios (one all-reduce per segment). ``_graphs``: the batch
+    solver's ``core.graphs.WindowGraphs``.
     """
     B_pad, Dp = Y0.shape
     B_n, npl = X0.shape
@@ -1048,7 +1047,7 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
             adaptive_rho_interval=adaptive_rho_interval, alpha=alpha,
             check_infeasibility=check_infeasibility,
             eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
-            group=group)
+            group=group, _graphs=_graphs)
         # unscale the first-stage variable back to plant units
         V0 = res.Y[:B_n, :nu] * v0_scale[None, :]
         U = -(X @ Kg.T) + V0
@@ -1184,14 +1183,18 @@ def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,
 
 
 def _loop_scenario_operands(m, prob: CondensedMPC) -> tuple:
-    """The loop segment's constants for a batch solver and prob, on its
-    device: the g/l/u maps mapped into its (possibly Ruiz-equilibrated)
-    space, the plant maps and the fp64 affine bias maps, in
-    ``_scenario_rollout_impl``'s order from ``g0`` to ``v0_scale`` and then
-    ``(bias_c, M_hi, M_lo)``. Cached on the solver per prob and bank, as
-    the scan path's operands are, so that a warm segment uploads nothing."""
+    """The loop segment's constants for a solver (a ``ReLU_QP`` or a batch
+    solver) and prob, on its device: the g/l/u maps mapped into its
+    (possibly Ruiz-equilibrated) space (ḡ = c·D·g, l̄/ū = E·(l/u)), the
+    plant maps, the first-stage unscale D[:nu] and the fp64 affine bias
+    maps, in ``_rollout_impl``'s and ``_scenario_rollout_impl``'s order
+    from ``g0`` to ``v0_scale`` and then ``(bias_c, M_hi, M_lo)``. Cached
+    on the solver per prob and bank, as the scan path's operands are, so
+    that a warm segment uploads nothing and the solves' window graphs,
+    which key these operands by identity, replay."""
+    bank = m.Wt_bank if hasattr(m, "Wt_bank") else m.bank.W
     cache = getattr(m, "_loop_ops_cache", None)
-    if cache is not None and cache[0] == id(prob) and cache[3] is m.Wt_bank:
+    if cache is not None and cache[0] == id(prob) and cache[3] is bank:
         return cache[1]
     stng = m.settings
     dtype, dev = stng.precision_dtype, stng.device
@@ -1207,7 +1210,7 @@ def _loop_scenario_operands(m, prob: CondensedMPC) -> tuple:
     bias = _affine_bias_maps(m._B_np, gD * prob.g0, gD[:, None] * prob.g_x0,
                              dtype, dev)
     # prob is held so that its id stays unique while the entry lives
-    m._loop_ops_cache = (id(prob), (maps, bias), prob, m.Wt_bank)
+    m._loop_ops_cache = (id(prob), (maps, bias), prob, bank)
     return maps, bias
 
 
@@ -1237,7 +1240,8 @@ def _loop_scenario_rollout(m, prob: CondensedMPC, X0, n_steps: int,
         alpha=float(stng.alpha),
         check_infeasibility=bool(stng.check_infeasibility),
         eps_prim_inf=float(stng.eps_prim_inf),
-        eps_dual_inf=float(stng.eps_dual_inf), group=m._group)
+        eps_dual_inf=float(stng.eps_dual_inf), group=m._group,
+        _graphs=m._window_graphs)
 
 
 def _scan_scenario_eligible(m, ci=None, budget=None) -> bool:

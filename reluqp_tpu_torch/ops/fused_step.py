@@ -15,7 +15,8 @@ through kernel K5 ``csrc/fused_step_hetero.cu`` and its plain version
 solver's runner over it. A CUDA tensor never reaches a plain version: the
 kernel runs or the call raises. ``fused_chunk.launches``,
 ``fused_chunk_batched.launches`` and ``fused_chunk_hetero.launches`` count
-kernel launches.
+kernel launches, through ``core.graphs.on_launch``: a launch captured in a
+check window's CUDA graph counts once per replay.
 
 The TPU batched kernels' tile searches (``batch_tile_rows``,
 ``hetero_tile_rows``, ``aligned_divisor``) and the unroll switch
@@ -45,6 +46,8 @@ import contextlib
 import ctypes
 
 import torch
+
+from ..core.graphs import on_launch
 
 __all__ = ["LANE", "round_up", "pad_dim", "fused_chunk", "fused_chunk_ref",
            "pallas_chunk_runner", "kernel_plan", "fused_chunk_batched",
@@ -245,7 +248,7 @@ def _fused_chunk_cuda(wt_bank, b, lo, hi, y, rho_ind, n_steps,
         _TIER[iter_precision], _DTYPE_CODE[y.dtype], stream)
     if rc != 0:
         _raise_cuda(lib, rc, "launch")
-    fused_chunk.launches += 1
+    on_launch(_count_fused_chunk)
     return out
 
 
@@ -269,6 +272,10 @@ def fused_chunk(wt_bank, b, lo, hi, y, rho_ind, n_steps: int,
 
 
 fused_chunk.launches = 0
+
+
+def _count_fused_chunk():
+    fused_chunk.launches += 1
 
 
 def pallas_chunk_runner(W_bank, b_bank, rho_ind, lo, hi, y, n_steps: int,
@@ -367,7 +374,7 @@ def _fused_chunk_batched_cuda(wt_bank, b, lo, hi, Y, rho_ind, n_steps,
         _TIER[iter_precision], _DTYPE_CODE[Y.dtype], stream)
     if rc != 0:
         _k4_raise(lib, rc, "launch")
-    fused_chunk_batched.launches += 1
+    on_launch(_count_fused_chunk_batched)
     return out
 
 
@@ -392,6 +399,10 @@ def fused_chunk_batched(wt_bank, b, lo, hi, Y, rho_ind, n_steps: int,
 
 
 fused_chunk_batched.launches = 0
+
+
+def _count_fused_chunk_batched():
+    fused_chunk_batched.launches += 1
 
 
 def pallas_batched_chunk_runner(Wt_bank, bias_all, rho_ind, lo, hi, Y,
@@ -532,7 +543,7 @@ def _fused_chunk_hetero_cuda(wt_bank, b, lo, hi, Y, rho_inds, n_steps,
         _TIER[iter_precision], _DTYPE_CODE[Y.dtype], stream)
     if rc != 0:
         _k5_raise(lib, rc, "launch")
-    fused_chunk_hetero.launches += 1
+    on_launch(_count_fused_chunk_hetero)
     return out
 
 
@@ -558,6 +569,10 @@ def fused_chunk_hetero(wt_bank, b, lo, hi, Y, rho_inds, n_steps: int,
 
 
 fused_chunk_hetero.launches = 0
+
+
+def _count_fused_chunk_hetero():
+    fused_chunk_hetero.launches += 1
 
 
 def pallas_hetero_chunk_runner(Wt_bank, bias_bank, rho_inds, lo, hi, Y,

@@ -37,6 +37,7 @@ from .core.bank import (Bank, DeviceQP, auto_rho_cap, build_bank_np,
                         certifiable_eps_floor, clamp_bounds,
                         effective_rho_ladder, equality_mask, sigma_max_sq,
                         stacked_dim)
+from .core.graphs import WindowGraphs
 from .core.iteration import (STATUS_STRINGS, compute_objective, solve_loop,
                              xla_chunk_runner)
 from .core.ladder import initial_rho_index, setup_rhos
@@ -93,6 +94,9 @@ class ReLU_QP:
         self._ready = False
         self._mesh, self._tp_axis = None, "tp"
         self._tp_group, self._tp_rank, self._tp_size = None, 0, 1
+        # the check windows' CUDA graphs (core.graphs); False runs every
+        # window eagerly
+        self._window_graphs = WindowGraphs()
 
     # ------------------------------------------------------------------ #
     # setup                                                              #
@@ -173,6 +177,8 @@ class ReLU_QP:
             refine=refine, rho_cap=rho_cap, device=device,
             precision=precision, backend=backend)
         stng = self.settings
+        if self._window_graphs:
+            self._window_graphs.clear()   # new operands
         self._mesh, self._tp_axis = mesh, tp_axis
         self._tp_group, self._tp_rank, self._tp_size = None, 0, 1
         if mesh is not None:
@@ -512,7 +518,7 @@ class ReLU_QP:
             rho_jump=bool(stng.rho_jump),
             iter_precision=stng.iter_precision, refine=bool(stng.refine),
             adaptive_rho_interval=int(stng.adaptive_rho_interval),
-            alpha=float(stng.alpha))
+            alpha=float(stng.alpha), _graphs=self._window_graphs)
         run_time = time.perf_counter() - t0   # solve_loop ends in a sync
         return self._finish(res.y, res.rho_ind, res.iters, res.status_code,
                             res.obj_val, res.pri_res, res.dua_res,

@@ -724,3 +724,122 @@ def test_one_rank_nccl_mesh_is_bit_equal_to_unsharded(dev):
         np.testing.assert_array_equal(r1.info.rho_ind, r0.info.rho_ind)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------- #
+# the check windows as CUDA graphs (core.graphs) against eager windows  #
+# --------------------------------------------------------------------- #
+
+def _same_bits(a, b):
+    for u, v in zip(a, b):
+        if isinstance(u, torch.Tensor):
+            assert u.dtype == v.dtype and torch.equal(u, v)
+        else:
+            np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
+
+
+def _qp_bits(r):
+    return (r.x, r.z, r.lam, r.info.iter, r.info.status, r.info.pri_res,
+            r.info.dua_res)
+
+
+def _batch_bits(r):
+    i = r.info
+    return (r.x, r.z, r.lam, i.iter, i.status_code, i.rho_ind, i.pri_res,
+            i.dua_res, i.n_iter_total)
+
+
+def test_graphed_canonical_qp_equals_eager_and_counts_replays(dev):
+    """The canonical QP through K1, every window eager against graphed:
+    bit-equal over three cold solves, and K1's counter counts the replays
+    (the same launches as eager)."""
+    qp = canonical_qp()
+    runs, launches = {}, {}
+    for graphed in (False, True):
+        m = rqt.ReLU_QP()
+        m.setup(qp.H, qp.g, qp.A, qp.l, qp.u, eps_abs=1e-6,
+                check_interval=5)
+        if not graphed:
+            m._window_graphs = False
+        before = fused_chunk.launches
+        runs[graphed] = []
+        for _ in range(3):
+            m.clear_primal_dual()
+            runs[graphed].append(_qp_bits(m.solve()))
+        launches[graphed] = fused_chunk.launches - before
+        cache = m._window_graphs
+    assert cache.captures >= 1 and cache.replays > 0
+    assert launches[True] == launches[False] > 3
+    for a, b in zip(runs[False], runs[True]):
+        _same_bits(a, b)
+
+
+def test_graphed_loop_mpc_equals_eager(dev):
+    """A 30-step loop-MPC rollout (new g, bounds and bias state every
+    step): bit-equal, at most 4 captures, K1 launches equal."""
+    Ad, Bd = mpc.random_linear_system(6, 2, seed=0)
+    x0 = 0.5 * np.random.RandomState(0).randn(6)
+    outs, launches = {}, {}
+    for graphed in (False, True):
+        ctrl = mpc.MPC(Ad, Bd, np.eye(6), 0.1 * np.eye(2), horizon=5,
+                       u_min=-1.0, u_max=1.0, eps_abs=1e-4)
+        if not graphed:
+            ctrl.solver._window_graphs = False
+        before = fused_chunk.launches
+        outs[graphed] = mpc.mpc_rollout_scan(
+            ctrl.solver, ctrl.prob, x0, 30, kernel="loop", check_interval=5,
+            return_stats=True, return_state=True)
+        launches[graphed] = fused_chunk.launches - before
+        cache = ctrl.solver._window_graphs
+    _same_bits(outs[False], outs[True])
+    assert 1 <= cache.captures <= 4 and cache.replays >= 30
+    assert launches[True] == launches[False]
+
+
+def test_graphed_shared_batch_with_update_equals_eager(dev):
+    """A shared B=37 batch through K4: a solve, ``update(g)``, a warm
+    solve; bit-equal to eager and no capture after the update."""
+    data = _shared_batch(B=37)
+    G2 = data[1] + 0.05 * np.random.RandomState(2).randn(*data[1].shape)
+    runs, launches = {}, {}
+    for graphed in (False, True):
+        m = rqt.BatchedReLU_QP()
+        m.setup(*data, eps_abs=1e-4, check_interval=5)
+        if not graphed:
+            m._window_graphs = False
+        before = fused_chunk_batched.launches
+        runs[graphed] = [_batch_bits(m.solve())]
+        m.clear_primal_dual()
+        runs[graphed].append(_batch_bits(m.solve()))
+        n_cap = m._window_graphs.captures if graphed else None
+        m.update(g=G2)
+        runs[graphed].append(_batch_bits(m.solve()))
+        launches[graphed] = fused_chunk_batched.launches - before
+        cache = m._window_graphs
+    assert cache.captures == n_cap >= 1 and cache.replays > 0
+    assert launches[True] == launches[False]
+    for a, b in zip(runs[False], runs[True]):
+        _same_bits(a, b)
+
+
+def test_graphed_hetero_batch_equals_eager(dev):
+    """A heterogeneous B=7 batch through K5: two cold solves bit-equal to
+    eager, K5 launches equal."""
+    data = _hetero_batch(B=7)
+    runs, launches = {}, {}
+    for graphed in (False, True):
+        m = rqt.BatchedReLU_QP()
+        m.setup(*data, eps_abs=1e-4, check_interval=5)
+        if not graphed:
+            m._window_graphs = False
+        before = fused_chunk_hetero.launches
+        runs[graphed] = []
+        for _ in range(2):
+            m.clear_primal_dual()
+            runs[graphed].append(_batch_bits(m.solve()))
+        launches[graphed] = fused_chunk_hetero.launches - before
+        cache = m._window_graphs
+    assert cache.replays > 0
+    assert launches[True] == launches[False]
+    for a, b in zip(runs[False], runs[True]):
+        _same_bits(a, b)
