@@ -138,7 +138,9 @@ Phases (each raises on failure; nothing is caught):
     n_eq = n_ineq = 12, fp32, "highest", eps 1e-3): the schedule (K4's
     row tile as its alignment), equal per-row status and first-convergence
     iterations, x within REPACK_X_TOL, K4 launches by row capacity (K4
-    only), syncs per check window (repack adds none); K4 alone on the
+    only), syncs per solve (the dense solve exits on the device: one;
+    repack, walked window by window, no more than the dense solve walked
+    so plus one per stage boundary); K4 alone on the
     dense batch's bank, bias, bounds and state (one 25-step window by CUDA
     events and device time beside its plain version, 25 ``torch.addmm`` +
     clamp, the bound and the plan; with ``--parent``, beside the parent's
@@ -163,7 +165,8 @@ Phases (each raises on failure; nothing is caught):
     iterations and rung equal to the unsharded dense solve of the same
     rows (x bit-equal on one card), every window's rung equal on every
     rank, two all-reduces per window and one all-gather per solve, syncs
-    per window no more than unsharded, the solve's CUDA-event time beside
+    per window no more than the unsharded rows walked window by window
+    (the mesh is walked so), the solve's CUDA-event time beside
     one card's rows unsharded (weak-scaling efficiency); 26, the --hetero
     B = 1024 batch split over the ranks with ``process_local=True`` and
     ``bank_build="device"`` through K5: held against the unsharded
@@ -181,9 +184,11 @@ Phases (each raises on failure; nothing is caught):
     14 on one card, steps/s. Phase 25 also times the solve with every
     window eager against graphed (the all-reduces captured), by turns,
     and holds the two bit-equal;
-29. the check windows as CUDA graphs (``reluqp_tpu_torch/core/graphs.py``)
-    against the same solves with every window eager
-    (``solver._window_graphs = False``): the canonical and protocol QPs,
+29. the check windows as CUDA graphs (``reluqp_tpu_torch/core/graphs.py``),
+    each solve walked window by window from the host (``WindowGraphs.
+    device_exit = False``), against the same solves with every window
+    eager (``solver._window_graphs = False``): the canonical and protocol
+    QPs,
     phase 6's 200-step loop MPC (at most GRAPH_MPC_CAPTURES captures),
     phase 14's 200-step scenario loop, phase 19's B = 1024 hetero solve
     and phase 22's B = 10000 dense and repack solves, each bit-equal (x,
@@ -193,7 +198,16 @@ Phases (each raises on failure; nothing is caught):
     profiler per window or step; the host launches between two host reads
     (after a solve's first window at most GRAPH_WINDOW_LAUNCHES, a repack
     stage's first excepted); syncs per window (graphed no more than
-    eager, and at least one).
+    eager, and at least one);
+30. a solve as one device program (``core/graphs.py``, the conditional
+    WHILE and IF nodes built by ``csrc/graph_loop.cu``) against phase 29's
+    per-window graphs and eager, by turns, on the canonical and protocol
+    QPs, phase 6's loop MPC, phase 14's scenario loop, phase 19's B = 1024
+    hetero solve and phase 22's B = 10000 dense solve: bit-equal in the
+    three modes with equal kernel launches (the program's body counts
+    settle the counters); one host read and one sync per solve and per
+    rollout segment (EXIT_SEG_T steps) with the device exit; host launches
+    per solve or step; CUDA-event solve times and steps/s.
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
 the K1, K2, K3, K4 and K5 of another checkout at DIR (the parent commit, unpacked by
@@ -201,10 +215,12 @@ the K1, K2, K3, K4 and K5 of another checkout at DIR (the parent commit, unpacke
 inputs, built from DIR's own sources into DIR's own build directory.
 
 Every kernel launch counter is set to 0 just before each main-path phase
-(4, 5, 6, 8, 11, 14, 16, 19, 21, 22, 23, 24, 29, and 25, 26 and 28 in
-every rank) and read just after; a main-path phase that launched its
+(4, 5, 6, 8, 11, 14, 16, 19, 21, 22, 23, 24, 29, 30, and 25, 26 and 28
+in every rank) and read just after; a main-path phase that launched its
 kernel no time fails. A kernel, collective or row count captured in a
-check window's graph counts once per replay (``core.graphs.on_launch``);
+check window's graph counts once per replay, and in a device program
+once per execution of its piece, from the body counts the program reads
+back with the solve's result (``core.graphs.on_launch``);
 host launches count kernels, graph launches, copies and memsets. The ranks' K4 and K5 launches add to the record's. The second-to-last line is the ``{"kernels": [...]}``
 record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the package beside it, the script exits non-zero before printing a
@@ -2894,7 +2910,11 @@ def k4_shared_timing(card, m, windows, parent=None):
     one dense solve's device time by kernel."""
     k4 = k4_window_timing(card, 22, m, parent, reps=20)
     k4.pop("operands")
-    split = device_by_kernel(lambda: repack_solve(m), 3)
+    # walked window by window: torch.profiler names the kernels of a
+    # device program's conditional bodies wrongly (seen on an H100: K4's
+    # time under another kernel's name)
+    with per_window(m):
+        split = device_by_kernel(lambda: repack_solve(m), 3)
     total = sum(split.values())
     k4_dev = sum(t for name, t in split.items()
                  if "k4_kernel" in name or "k4_tile_kernel" in name)
@@ -2966,10 +2986,22 @@ def phase_repack(card, parent=None):
         f"{rr.info.iter.max()}, equal to dense on every row; |x|inf "
         f"{dx:.2e}; K4 launches by rows: dense {rows_d}, repack "
         f"{dict(sorted(rows_r.items(), reverse=True))}")
-    # (sync_sites reports per "step": here a check window)
+    # (sync_sites reports per "step": here a check window). The dense
+    # solve exits on the device: one read; repack walks its stages window
+    # by window, no more reads than the dense solve walked so, plus one
+    # per stage boundary (the stage loop's last flag)
+    for m in ms.values():
+        # the runner patched above keyed other pieces: the first solve with
+        # the real one walks the program, the second builds it
+        repack_solve(m)
+        repack_solve(m)
     syncs = {p: sync_sites(f"phase 22 {p}", lambda m=m: repack_solve(m),
                            windows) for p, m in ms.items()}
-    assert syncs["repack"] <= syncs["dense"], syncs
+    with per_window(md):
+        syncs_w = sync_sites("phase 22 dense per-window",
+                             lambda: repack_solve(md), windows)
+    assert syncs["dense"] == 1, syncs
+    assert syncs["repack"] <= syncs_w + len(sched), (syncs, syncs_w)
     k4 = k4_shared_timing(card, md, windows, parent)
     t = {p: time_fn_events(repack_solve, m, reps=REPACK_REPS)["best"]
          for p, m in ms.items()}
@@ -3133,15 +3165,31 @@ def phase_native(card):
 # phase 29: the check windows as CUDA graphs against eager windows       #
 # --------------------------------------------------------------------- #
 
-# the 200-step loop-MPC rollout may capture this many windows (its ci=1
-# calibration, its continuation, their tails)
-GRAPH_MPC_CAPTURES = 4
+# the 200-step loop-MPC rollout may capture this many pieces per window
+# (its ci=1 calibration and its continuation, each a control step's start,
+# window, tail and result piece)
+GRAPH_MPC_CAPTURES = 8
 # a replayed window's host launches between two host reads: the graph's
 # launch, the bundle's copy and at most one more
 GRAPH_WINDOW_LAUNCHES = 3
 GRAPH_REPS = 3
 # steps of the per-step profiles and sync counts
 GRAPH_PROFILE_T, GRAPH_SYNC_T = 50, 20
+
+
+@contextlib.contextmanager
+def per_window(solver):
+    """``solver``'s solves walked window by window from the host inside
+    the ``with`` (each window one replay of its graph, its exit flag read
+    after it): ``WindowGraphs.device_exit = False``, the A/B of the device
+    exit."""
+    cache = solver._window_graphs
+    keep = cache.device_exit
+    cache.device_exit = False
+    try:
+        yield
+    finally:
+        cache.device_exit = keep
 
 
 @contextlib.contextmanager
@@ -3157,19 +3205,24 @@ def eager_windows(solver):
         solver._window_graphs = keep
 
 
-def fresh_graphs(solver):
-    """A new, empty window cache for ``solver`` (to count its captures)."""
+def fresh_graphs(solver, device_exit=False):
+    """A new, empty cache for ``solver`` (to count its captures), walked
+    window by window unless ``device_exit``."""
     from reluqp_tpu_torch.core.graphs import WindowGraphs
     solver._window_graphs = WindowGraphs()
+    solver._window_graphs.device_exit = device_exit
     return solver._window_graphs
 
 
 def in_mode(solver, mode):
+    """Phase 29's A/B: "eager" (every piece eager) or "graphed" (each
+    window one replay, walked from the host)."""
     return (eager_windows(solver) if mode == "eager"
-            else contextlib.nullcontext())
+            else per_window(solver))
 
 
-def same_fields(tag, pairs, bad):
+def same_fields(tag, pairs, bad, phase="phase 29",
+                what="graphed differs from eager"):
     """Bit-equality of the (eager, graphed) pairs of result fields
     (tensors, arrays, numbers). Logs every field that differs with its
     largest difference and adds ``tag`` to ``bad``: the phase fails at its
@@ -3187,8 +3240,7 @@ def same_fields(tag, pairs, bad):
             diffs.append(f"{name} (largest difference {d})")
     if diffs:
         bad.append(tag)
-        log(f"phase 29 {tag}: graphed differs from eager in "
-            + ", ".join(diffs))
+        log(f"{phase} {tag}: {what} in " + ", ".join(diffs))
 
 
 def qp_pairs(a, b):
@@ -3461,6 +3513,306 @@ def phase_graphs(card, protocol, mpc, scen_loop, het, repack):
 
 
 # --------------------------------------------------------------------- #
+# phase 30: a solve as one device program against per-window and eager  #
+# --------------------------------------------------------------------- #
+
+# the three ways a solve runs: every piece eager, each window one replay
+# walked from the host (phase 29's graphed path), one device program
+EXIT_MODES = ("eager", "windows", "device")
+# A/B order of the timings
+EXIT_TURNS = ("eager", "windows", "device", "device", "windows", "eager")
+EXIT_REPS = 5
+# steps of the one-segment rollouts whose host reads and launches are
+# counted
+EXIT_SEG_T = 50
+
+
+@contextlib.contextmanager
+def exit_mode(solver, mode, caches):
+    """``solver``'s solves in ``mode`` inside the ``with``, each mode
+    through a cache of its own kept in ``caches`` (captures counted apart)
+    : "eager" (``_window_graphs = False``), "windows" (``device_exit =
+    False``) or "device" (the default: one device program)."""
+    from reluqp_tpu_torch.core.graphs import WindowGraphs
+    keep = solver._window_graphs
+    if mode == "eager":
+        solver._window_graphs = False
+    else:
+        if mode not in caches:
+            caches[mode] = WindowGraphs()
+            caches[mode].device_exit = mode == "device"
+        solver._window_graphs = caches[mode]
+    try:
+        yield
+    finally:
+        solver._window_graphs = keep
+
+
+class count_reads:
+    """The host reads of the solve loops (``WindowGraphs.read`` calls: one
+    copy set and one synchronisation each) inside the ``with``, and where
+    the host's time goes: ``read_s`` waiting in the reads (the card still
+    working), ``program_s`` in ``WindowGraphs.program`` (building the
+    launch, or walking the windows with their reads), ``wall_s`` in all."""
+
+    def __enter__(self):
+        from reluqp_tpu_torch.core import graphs
+        cls = self._cls = graphs.WindowGraphs
+        self._real = (cls.read, cls.program)
+        self.n, self.read_s, self.program_s = 0, 0.0, 0.0
+        real_read, real_program = self._real
+
+        def read(cache, *ts, **kw):
+            self.n += 1
+            t0 = time.perf_counter()
+            try:
+                return real_read(cache, *ts, **kw)
+            finally:
+                self.read_s += time.perf_counter() - t0
+
+        def program(cache, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real_program(cache, *a, **kw)
+            finally:
+                self.program_s += time.perf_counter() - t0
+
+        cls.read, cls.program = read, program
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.wall_s = time.perf_counter() - self._t0
+        self._cls.read, self._cls.program = self._real
+
+
+def exit_solver(tag, card, solvers, one, kernel, pairs, bad):
+    """One solve path's A/B over EXIT_MODES: ``solvers`` maps each mode to
+    its solver (or one solver for all), ``one(m)`` runs a cold solve. Three
+    solves per mode (walked, captured and built, launched), bit-equal
+    across the modes, the kernel's launches equal; in the device mode one
+    host read and one sync per solve; the host launches per solve; the
+    solve's CUDA-event time by turns; the host wall of a device-exit
+    solve split into making the launch, waiting on the card in the read
+    and the rest."""
+    import torch
+    from reluqp_tpu_torch.utils.timing import time_fn_events
+    caches, runs, counts = {}, {}, {}
+    for mode in EXIT_MODES:
+        m = solvers[mode]
+        with exit_mode(m, mode, caches):
+            runs[mode], counts[mode] = _counted(
+                lambda m=m: [one(m) for _ in range(3)], kernel)
+    for mode in ("windows", "device"):
+        for i, (a, b) in enumerate(zip(runs["eager"], runs[mode])):
+            same_fields(f"{tag} solve {i + 1} {mode}", pairs(a, b), bad,
+                        phase="phase 30", what=f"{mode} differs from eager")
+    assert counts["eager"][kernel] == counts["windows"][kernel] \
+        == counts["device"][kernel], (tag, counts)
+    m = solvers["device"]
+    with exit_mode(m, "device", caches):
+        with count_reads() as reads:
+            one(m)
+        split = []
+        for _ in range(EXIT_REPS):
+            torch.cuda.synchronize()
+            with count_reads() as r:
+                one(m)
+            split.append((r.wall_s, r.program_s, r.read_s))
+        syncs = sync_sites(f"phase 30 {tag} device", lambda: one(m), 1)
+        segs = launches_between_reads(lambda: one(m))
+    with exit_mode(solvers["windows"], "windows", caches):
+        with count_reads() as reads_w:
+            one(solvers["windows"])
+        segs_w = launches_between_reads(lambda: one(solvers["windows"]))
+    assert reads.n == 1 and syncs == 1, (tag, reads.n, syncs)
+    assert caches["device"].programs >= 1
+    t = {mode: [] for mode in EXIT_MODES}
+    for mode in EXIT_TURNS:
+        mm = solvers[mode]
+        with exit_mode(mm, mode, caches):
+            t[mode].append(time_fn_events(one, mm, reps=EXIT_REPS)["best"])
+    ms = lambda mode: " / ".join(f"{x * 1e3:.3f}" for x in t[mode])
+    wall, prog, wait = min(split)
+    log(f"phase 30 {tag}: a device-exit solve's host wall (least of "
+        f"{EXIT_REPS}) {wall * 1e3:.3f} ms: {prog * 1e3:.3f} ms making the "
+        f"launch, {wait * 1e3:.3f} ms waiting in the read while the card "
+        f"runs, {(wall - prog - wait) * 1e3:.3f} ms of the solve's own host "
+        f"work before and after")
+    log(f"phase 30 {tag}: {counts['device'][kernel]} {kernel} launches in "
+        f"three solves in every mode; device exit: {reads.n} host read, "
+        f"{syncs} sync, {sum(segs)} host launches per solve "
+        f"(between reads {segs}); per window: {reads_w.n} reads, "
+        f"{sum(segs_w)} host launches; solve by CUDA events (least of "
+        f"{EXIT_REPS}, by turns) eager {ms('eager')} ms, per-window "
+        f"{ms('windows')} ms, device exit {ms('device')} ms; on {card}")
+    return dict(reads=reads.n, reads_w=reads_w.n, launches=sum(segs),
+                launches_w=sum(segs_w), t=t, split=(wall, prog, wait))
+
+
+def exit_rollout(tag, card, m, run, seg, kernel, pairs, bad, steps):
+    """A loop rollout's A/B over EXIT_MODES on one solver: ``run()`` the
+    checked rollout (its state reset inside), bit-equal across the modes
+    with equal kernel launches; ``seg()`` a one-segment rollout of
+    ``steps`` steps from device-resident inputs: in the device mode one
+    host read and one sync per segment, host launches per step; two-point
+    steps/s by turns."""
+    import torch
+    caches, outs, counts = {}, {}, {}
+    for mode in EXIT_MODES:
+        with exit_mode(m, mode, caches):
+            outs[mode], counts[mode] = _counted(run, kernel)
+    for mode in ("windows", "device"):
+        same_fields(f"{tag} {mode}", pairs(outs["eager"], outs[mode]), bad,
+                    phase="phase 30", what=f"{mode} differs from eager")
+    assert counts["eager"][kernel] == counts["windows"][kernel] \
+        == counts["device"][kernel], (tag, counts)
+    with exit_mode(m, "device", caches):
+        seg()
+        with count_reads() as reads:
+            seg()
+        syncs = sync_sites(f"phase 30 {tag} device", seg, 1)
+        segs = launches_between_reads(seg)
+    with exit_mode(m, "windows", caches):
+        seg()
+        with count_reads() as reads_w:
+            seg()
+        segs_w = launches_between_reads(seg)
+    assert reads.n == 1 and syncs == 1, (tag, reads.n, syncs)
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    rate = {mode: [] for mode in EXIT_MODES}
+    for mode in EXIT_TURNS:
+        with exit_mode(m, mode, caches):
+            seg()
+            rate[mode].append(steps / min(timed() for _ in range(3)))
+    r = lambda mode: " / ".join(f"{x:.1f}" for x in rate[mode])
+    log(f"phase 30 {tag}: {counts['device'][kernel]} {kernel} launches in "
+        f"every mode; a {steps}-step segment: device exit {reads.n} host "
+        f"read, {syncs} sync, {sum(segs) / steps:.3f} host launches per step; "
+        f"per window {reads_w.n} reads, {sum(segs_w) / steps:.3f} host "
+        f"launches per step; steps/s (least of 3 segments, by turns) eager "
+        f"{r('eager')}, per-window {r('windows')}, device exit "
+        f"{r('device')}; on {card}")
+    return dict(reads=reads.n, reads_w=reads_w.n,
+                launches=sum(segs) / steps, launches_w=sum(segs_w) / steps,
+                rate=rate)
+
+
+def phase_device_exit(card, protocol, mpc, scen_loop, het, repack):
+    """Phase 30: a solve as one device program (``core.graphs``, the
+    conditional WHILE nodes of ``csrc/graph_loop.cu``) against the same
+    solves walked window by window (phase 29's graphed path) and eager, in
+    this call: the canonical and protocol QPs (nx 100/323/500), phase 6's
+    loop MPC, phase 14's scenario loop (B=64), phase 19's B=1024 hetero
+    solve and phase 22's B=10000 dense solve. Each bit-equal across the
+    three modes (x, z, λ, status, iterations, rungs, residuals) with equal
+    kernel launches (the device program's body counts settle the hooks);
+    in the device mode one host read and one sync per solve and per
+    rollout segment; host launches per solve or step; CUDA-event solve
+    times and steps/s by turns."""
+    import torch
+    from reluqp_tpu_torch import ReLU_QP
+    from reluqp_tpu_torch.models.mpc import (mpc_rollout_scan,
+                                             scenario_rollout_scan)
+    from reluqp_tpu_torch.utils.problems import canonical_qp
+    bad, out = [], {}
+    # canonical (phase 4) and protocol (phase 5) QPs: a solver per mode
+    qp = canonical_qp()
+    cases = [("canonical", (qp.H, qp.g, qp.A, qp.l, qp.u),
+              dict(eps_abs=1e-4))]
+    cases += [(f"protocol nx={nx}", inst[:5],
+               dict(eps_abs=1e-4, scaling=True, precision="float32"))
+              for nx, inst in protocol[1].items()]
+
+    def one_qp(m):
+        m.clear_primal_dual()
+        return m.solve(), m.rho_ind
+
+    for tag, data, kw in cases:
+        solvers = {}
+        for mode in EXIT_MODES:
+            solvers[mode] = ReLU_QP()
+            solvers[mode].setup(*data, **kw)
+        out[tag] = exit_solver(tag, card, solvers, one_qp, "K1", qp_pairs,
+                               bad)
+
+    # phase 6's loop MPC: 200 steps (check_interval="auto": two segments)
+    ctrl = mpc["ctrl"]
+    sol = ctrl.solver
+    x0 = mpc_config()[4]
+    x_dev = torch.as_tensor(x0, dtype=sol.settings.precision_dtype,
+                            device="cuda")
+
+    def rollout():
+        sol.clear_primal_dual()
+        return mpc_rollout_scan(sol, ctrl.prob, x0, MPC_T, kernel="loop",
+                                check_interval="auto", return_stats=True,
+                                return_state=True)
+
+    ci = {}
+
+    def seg():
+        return mpc_rollout_scan(sol, ctrl.prob, x_dev, EXIT_SEG_T,
+                                kernel="loop", check_interval=ci["ci"])
+
+    ci["ci"] = _auto_ci(sol, ctrl.prob, x0)
+    out["mpc"] = exit_rollout("loop MPC", card, sol, rollout, seg, "K1",
+                              rollout_pairs, bad, EXIT_SEG_T)
+    out["mpc"]["ci"] = ci["ci"]
+
+    # phase 14's scenario loop (B=64, K4)
+    m, prob = scen_loop["m"], scen_loop["prob"]
+    X0, noise = scenario_inputs(SCEN_B, SCEN_T)
+    X_dev = torch.as_tensor(X0, dtype=m.settings.precision_dtype,
+                            device="cuda")
+
+    def srollout():
+        m.clear_primal_dual()
+        return scenario_rollout_scan(m, prob, X0, SCEN_T, kernel="loop",
+                                     noise=noise, return_stats=True,
+                                     return_state=True)
+
+    def sseg():
+        return scenario_rollout_scan(m, prob, X_dev, EXIT_SEG_T,
+                                     kernel="loop")
+
+    out["scenario"] = exit_rollout(f"scenario loop B={SCEN_B}", card, m,
+                                   srollout, sseg, "K4", rollout_pairs, bad,
+                                   EXIT_SEG_T)
+
+    # phase 19's hetero batch and phase 22's dense batch: one solver each
+    for tag, mm, kernel in ((f"hetero B={het['m'].B_n}", het["m"], "K5"),
+                            (f"dense B={REPACK_B}", repack["md"], "K4")):
+        out[tag] = exit_solver(tag, card, {k: mm for k in EXIT_MODES},
+                               repack_solve, kernel, batch_pairs, bad)
+    assert not bad, f"the device exit differs: {bad}"
+    log("phase 30 OK: every covered path with the device exit equals its "
+        "per-window and eager solves bit for bit, one host read per solve "
+        "and per rollout segment")
+    return out
+
+
+def _auto_ci(sol, prob, x0):
+    """The window ``check_interval="auto"`` picks for this rollout (its
+    ci=1 calibration segment, then ``auto_check_interval``)."""
+    from reluqp_tpu_torch.models.mpc import (auto_check_interval,
+                                             mpc_rollout_scan)
+    sol.clear_primal_dual()
+    _, _, its = mpc_rollout_scan(sol, prob, x0, 8, kernel="loop",
+                                 check_interval=1)
+    stng = sol.settings
+    return auto_check_interval(its.numpy(), stng.check_interval,
+                               stng.max_iter)
+
+
+# --------------------------------------------------------------------- #
 # phases 25-28: the multi-device paths, one process per card over NCCL  #
 # --------------------------------------------------------------------- #
 
@@ -3605,8 +3957,11 @@ def mesh_phase_shared(rank, world, mesh, outdir):
     one.setup(H, G[rows], A, L[rows], U[rows], **REPACK_KW)
     r_one = repack_solve(one)
     w_one = r_one.info.n_iter_total // one.settings.check_interval
-    syncs_one = sync_sites(f"phase 25 rank {rank} unsharded",
-                           lambda: repack_solve(one), w_one) / w_one
+    # the mesh walks its windows from the host: held against the same rows
+    # unsharded, walked so too
+    with per_window(one):
+        syncs_one = sync_sites(f"phase 25 rank {rank} unsharded",
+                               lambda: repack_solve(one), w_one) / w_one
     assert syncs <= syncs_one, (syncs, syncs_one)
     # the mesh window, all-reduces included, runs as graph replays; the A/B
     # against every window eager, by turns, on both solvers
@@ -4083,6 +4438,7 @@ def main():
     nat = phase_native(card)
     mesh = phase_mesh(card, scen_loop)
     phase_graphs(card, protocol, mpc, scen_loop, het, repack)
+    phase_device_exit(card, protocol, mpc, scen_loop, het, repack)
     k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]
     k3_row = k3["rows"][100]

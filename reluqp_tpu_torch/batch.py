@@ -193,8 +193,8 @@ class BatchedReLU_QP:
         self._group, self._rank, self._size = None, 0, 1
         self._process_local = False
         self._rows = slice(None)
-        # the check windows' CUDA graphs (core.graphs); False runs every
-        # window eagerly
+        # the solves' device programs and window graphs (core.graphs);
+        # False runs every piece eagerly
         self._window_graphs = WindowGraphs()
 
     # ------------------------------------------------------------------ #
@@ -915,10 +915,16 @@ class BatchedReLU_QP:
             last = self._rho_eff_at(res.rho_ind) * (last - z_s)
         x, z, lam = (res.Y[:Bn, :nx] * self._unx, z_s * self._unz,
                      last * self._unlam)
-        rungs = torch.broadcast_to(res.rho_ind, res.iters.shape)
-        stats = torch.stack([res.iters.to(f64), res.status.to(f64),
-                             res.pri_res.to(f64), res.dua_res.to(f64),
-                             res.rho_estimate.to(f64), rungs.to(f64)])[:, :Bn]
+        if res.stats is not None and self._group is None:
+            # read with the solve's result bundle: no second read
+            host = res.stats[:, :Bn]
+            stats = None
+        else:
+            rungs = torch.broadcast_to(res.rho_ind, res.iters.shape)
+            stats = torch.stack([res.iters.to(f64), res.status.to(f64),
+                                 res.pri_res.to(f64), res.dua_res.to(f64),
+                                 res.rho_estimate.to(f64),
+                                 rungs.to(f64)])[:, :Bn]
         if self._group is not None:
             # every rank's rows, in rank order: ONE all-gather per solve
             dt = x.dtype
@@ -928,8 +934,15 @@ class BatchedReLU_QP:
             x, z, lam = (rows[:, 6:6 + nx].to(dt),
                          rows[:, 6 + nx:6 + nx + nc].to(dt),
                          rows[:, 6 + nx + nc:].to(dt))
-        # the solve's one bulk device→host read of the per-problem stats
-        host = stats.cpu().numpy()
+        n_total, n_fast = res.n_iter_total, res.n_iter_fast
+        if res.out is not None:
+            # the gathered stats and the loop's result bundle: one read
+            both = torch.cat([stats.reshape(-1), res.out[:2]]).cpu().numpy()
+            host = both[:-2].reshape(6, -1)
+            n_total, n_fast = int(both[-2]), int(both[-1])
+        elif stats is not None:
+            # one bulk device→host read of the per-problem stats
+            host = stats.cpu().numpy()
         run_time = time.perf_counter() - t0
         # a fresh BatchInfo per solve: results held by the caller do not
         # change under a later solve
@@ -940,8 +953,8 @@ class BatchedReLU_QP:
         info.pri_res, info.dua_res, info.rho_estimate = host[2], host[3], \
             host[4]
         info.rho_ind = host[5].astype(np.int32)
-        info.n_iter_total = int(res.n_iter_total)
-        info.n_iter_fast = int(res.n_iter_fast)
+        info.n_iter_total = int(n_total)
+        info.n_iter_fast = int(n_fast)
         info.obj_val = None   # computed on demand by objective()
         info.run_time = run_time
         info.solve_time = info.update_time + run_time

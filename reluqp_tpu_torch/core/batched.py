@@ -27,21 +27,21 @@ Two regimes:
 Each problem carries its own ``done`` flag, first-convergence iteration
 count and status; converged problems keep iterating (a converged ADMM
 iterate is a fixed point up to noise) but their ρ index and stats are
-frozen. A Python loop over check windows drives it; everything inside a
-window stays on the device, and the loop syncs to the host ONCE per window
-(the open-problem count, and under a two-phase refine its stall metric).
-The iteration count is kept on the host, since every window has a length
-fixed before it runs, and on the device (a first-convergence iteration is
-written there). On ``cuda`` each window runs as one replay of a CUDA graph
-(``core.graphs``): one per (rows, length, W operand, tier, whether ρ
-moves), the walk mode, certificates and tolerances in the key with the
-solver's operands; the repack solve's compaction between stages stays
-eager.
+frozen. A solve is one device program (``core.graphs``, as
+``core.iteration``'s): its start piece builds the cold state, the windows
+run under a loop whose exit (the open count, the budget and, under a
+two-phase refine, the stall test on the mean log-residual of the open
+problems) the device decides, the tail window under an IF, and the result
+piece bundles the iteration counts with the per-problem stats for the
+solve's one host read. On ``cuda`` that is one graph launch; repack stages
+(their compaction between stages stays eager) and a process group walk
+the windows from the host, one replay each.
 
 Given a process ``group`` (one process per device, each holding its rows of
 the batch; ``parallel.sharded``), the exit is collective: the window's open
-count and stall-metric sums are all-reduced on the device before its one
-device→host read, and under the shared ρ walk so are the sum of the open
+count and stall-metric sums are all-reduced on the device before its exit
+flag is written (and read by the host), and under the shared ρ walk so
+are the sum of the open
 rows' log ρ estimates and their count, before the rung decision. That is
 two reductions per window walking one rung, one per problem; every rank
 then takes the same decisions and leaves the loop together.
@@ -55,11 +55,11 @@ import torch
 import torch.distributed as dist
 
 from ..ops.fused_step import _bf16, fused_chunk_ref
-from .graphs import run_window, sig, window_graphs
+from .graphs import Cond, Piece, sig, window_graphs
 from .iteration import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
                         STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED,
-                        _host_scalar_type, rho_ladder_step, rho_update_stride,
-                        run_refined_phases)
+                        _host_scalar_type, assign, refine_items,
+                        rho_ladder_step, rho_update_stride)
 
 __all__ = [
     "BatchSolveResult",
@@ -68,6 +68,7 @@ __all__ = [
     "solve_batched_shared",
     "solve_batched_shared_repack",
     "solve_batched_hetero",
+    "batch_program",
 ]
 
 _TINY = 1e-30
@@ -88,6 +89,11 @@ class BatchSolveResult(NamedTuple):
     status: torch.Tensor     # (B,) int32 per-problem STATUS_* codes
     n_iter_fast: int         # iterations run at reduced precision (0 unless
                              # the two-phase refine was active)
+    stats: Optional[np.ndarray] = None   # (6, B) host copy of iters,
+                             # status, pri, dua, ρ estimate and rung, read
+                             # with the result bundle (None after repack)
+    out: Optional[torch.Tensor] = None   # the result bundle unread (under
+                             # a process group: n_iter_* are then None)
 
 
 def batched_residuals(H, A, g, X, Z, Lam, rho, rho_min: float,
@@ -244,7 +250,8 @@ def _batched_steps(Wt, b, lo, hi, Y, n_steps: int, iter_precision: str):
 # --------------------------------------------------------------------- #
 
 class _Dev(NamedTuple):
-    """The device state a batched check window reads and writes."""
+    """The device state of a batched solve: static buffers its pieces read
+    and write (a cache's, or this call's own when eager)."""
     Y: torch.Tensor           # (B, Dp) stacked states
     rho_ind: torch.Tensor     # () or (B,) int32 ladder indices
     rho: torch.Tensor         # (B,) last ρ estimates
@@ -253,21 +260,22 @@ class _Dev(NamedTuple):
     done: torch.Tensor        # (B,) bool
     iters: torch.Tensor       # (B,) int32
     status: torch.Tensor      # (B,) int32
-    k: torch.Tensor           # () int32 iterations run (the host keeps a copy)
+    k: torch.Tensor           # () int32 iterations run
     X_prev: Optional[torch.Tensor] = None     # infeasibility deltas
     Lam_prev: Optional[torch.Tensor] = None
-
-
-class _BState(NamedTuple):
-    dev: _Dev
-    k: int                    # host iteration counter
-    n_open: int               # host copy from the window's bundle
-    metric: Optional[float]   # mean log-residual of the open problems
+    n_open: Optional[torch.Tensor] = None     # () int32 open problems
+    open: Optional[torch.Tensor] = None       # () int32: the loop runs
+    tail: Optional[torch.Tensor] = None       # () int32: the tail runs
+    open_a: Optional[torch.Tensor] = None     # two-phase refine: phase A
+    best_m: Optional[torch.Tensor] = None     # runs; its best metric and
+    best_open: Optional[torch.Tensor] = None  # open count, stalled
+    n_stall: Optional[torch.Tensor] = None    # windows in a row and
+    k_fast: Optional[torch.Tensor] = None     # iterations run
 
 
 class _Ops(NamedTuple):
     """What a window reads besides its state and W: the solver's operands
-    and the solve's vectors, staged into static buffers under graphs."""
+    and the solve's vectors, staged into static buffers."""
     rhos: torch.Tensor        # (N,) in the iterate dtype
     H: torch.Tensor
     A: torch.Tensor
@@ -283,7 +291,8 @@ class _Ops(NamedTuple):
 
 
 class _Cfg(NamedTuple):
-    """The host values a window bakes into its launches."""
+    """The host values a batched solve's pieces bake into their
+    launches."""
     shared: bool
     chunk_runner: object
     nx: int
@@ -301,31 +310,12 @@ class _Cfg(NamedTuple):
     eps_dual_inf: float
     two_phase: bool
     group: object
-
-
-def _run_refined(step, running, state0, Wt_bank, Wt_bank_hi, *, refine,
-                 iter_precision, n_chunks, check_interval, rem, dtype):
-    """The batched loop over ``iteration.run_refined_phases``.
-
-    The stall metric is the mean log-residual over OPEN problems plus the
-    open count: a per-problem "any improving" test would hold the fast
-    phase open at large B (some problem's jitter always beats its own best).
-    Returns ``(state, k_fast)``.
-    """
-    sc = _host_scalar_type(dtype)
-    state, k_fast, tail_W, tail_prec = run_refined_phases(
-        step, running, state0, Wt_bank, Wt_bank_hi, refine=refine,
-        iter_precision=iter_precision,
-        cap_a=(n_chunks // 2) * check_interval,
-        check_interval=check_interval,
-        metric=lambda s: (s.metric, s.n_open),
-        improved=lambda m, best: bool(sc(m[0]) < sc(best[0]) - sc(0.03)
-                                      or m[1] < best[1]),
-        best0=(float("inf"), int(np.iinfo(np.int32).max)))
-    if rem > 0 and state.n_open > 0:
-        # max_iter % check_interval tail, its own check ordinal
-        state = step(state, rem, tail_W, tail_prec)
-    return state, k_fast
+    check_interval: int
+    budget: int           # iterations of the full windows
+    rho_stride: int       # checks between ρ updates
+    cap_a: int            # phase A's iteration cap
+    stall: float          # phase A's progress margin 0.03, iterate dtype
+    stop_open: int        # the stage ends at this many open problems
 
 
 def _start(Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility, nx,
@@ -352,44 +342,64 @@ def _start(Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility, nx,
     return d
 
 
-def _init_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
-                check_infeasibility, nx, nc, alpha, rho_eff) -> _BState:
-    """The cold loop state. Under ``graphs`` it is built in the cache's
-    static buffers: the start states and rungs (and the done mask) are
-    copied in, and a graphed window of its own computes the rest there."""
+def _cold_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
+                check_infeasibility, nx, nc, alpha, rho_eff, two_phase):
+    """The static state of a solve and the piece that makes it cold: the
+    start states and rungs (and the done mask) are copied in; the cold
+    piece (``(what it reads, fn)``) computes the rest there, inside the
+    solve's program. Returns ``(state, cold)``."""
     B, dtype, dev = Y0.shape[0], Y0.dtype, Y0.device
     if isinstance(rho_ind0, torch.Tensor):
         rho_ind0 = rho_ind0.to(device=dev, dtype=torch.int32)
+    elif np.ndim(rho_ind0) == 0:
+        rho_ind0 = int(rho_ind0)     # written by a fill: no upload
     else:
         rho_ind0 = torch.as_tensor(np.asarray(rho_ind0, np.int32),
                                    device=dev)
     if done0 is not None:
         done0 = torch.as_tensor(done0, dtype=torch.bool, device=dev)
     args = (max_iter, check_infeasibility, nx, nc, alpha, rho_eff)
-    if graphs is None:
-        return _BState(_start(Y0, rho_ind0, rhos_t, done0, *args), 0, B,
-                       None)
     st = lambda name, t: graphs.stage("batch." + name, t)
-    buf = lambda name, shape, dt: graphs.buffer("batch." + name, shape, dt,
-                                                dev)
-    i32 = torch.int32
-    Y, ind = st("Y", Y0), st("rho_ind", rho_ind0)
+    shapes = (B, tuple(Y0.shape), tuple(np.shape(rho_ind0)), dtype, dev, nx,
+              nc, check_infeasibility, two_phase)
+    d = graphs.made(("batch.state",) + shapes,
+                    lambda: _buffers(graphs, *shapes))
+    d.Y.copy_(Y0)
+    if isinstance(rho_ind0, int):
+        d.rho_ind.fill_(rho_ind0)
+    else:
+        d.rho_ind.copy_(rho_ind0)
     done_in = st("done0", done0)
-    rows = lambda name, dt=dtype: buf(name, (B,), dt)
-    d = _Dev(Y, ind, rows("rho"), rows("pri"), rows("dua"),
-             rows("done", torch.bool), rows("iters", i32),
-             rows("status", i32), buf("k", (), i32))
+
+    def cold():
+        assign(d, _start(d.Y, d.rho_ind, rhos_t, done_in, *args))
+        d.n_open.fill_(B)
+
+    return d, (("cold", done_in, rhos_t) + args, cold)
+
+
+def _buffers(graphs, B, y_shape, ind_shape, dtype, dev, nx, nc,
+             check_infeasibility, two_phase) -> _Dev:
+    """The static state buffers for ``B`` rows (named by field)."""
+    buf = lambda name, shape, dt=dtype: graphs.buffer("batch." + name,
+                                                      shape, dt, dev)
+    i32 = torch.int32
+    d = _Dev(buf("Y", y_shape), buf("rho_ind", ind_shape, i32),
+             buf("rho", (B,)), buf("pri", (B,)), buf("dua", (B,)),
+             buf("done", (B,), torch.bool), buf("iters", (B,), i32),
+             buf("status", (B,), i32), buf("k", (), i32),
+             n_open=buf("n_open", (), i32), open=buf("open", (), i32),
+             tail=buf("tail", (), i32))
     if check_infeasibility:
-        d = d._replace(X_prev=buf("X_prev", (B, nx), dtype),
-                       Lam_prev=buf("Lam_prev", (B, nc), dtype))
-
-    def start():
-        for dst, src in zip(d, _start(Y, ind, rhos_t, done_in, *args)):
-            if dst is not None and dst is not src:
-                dst.copy_(src)
-
-    graphs.run(("start", sig((d, done_in, rhos_t) + args)), start, dev)
-    return _BState(d, 0, B, None)
+        d = d._replace(X_prev=buf("X_prev", (B, nx)),
+                       Lam_prev=buf("Lam_prev", (B, nc)))
+    if two_phase:
+        d = d._replace(open_a=buf("open_a", (), i32),
+                       best_m=buf("best_m", ()),
+                       best_open=buf("best_open", (), i32),
+                       n_stall=buf("n_stall", (), i32),
+                       k_fast=buf("k_fast", (), i32))
+    return d
 
 
 def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
@@ -431,9 +441,11 @@ def solve_batched_shared(Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0,
         one product; ``bias_all`` is then not read.
       group: optional process group whose ranks each solve their rows of
         one batch with this call: the exit (and the shared ρ walk) is
-        all-reduced over it.
-      _graphs: the ``core.graphs.WindowGraphs`` the windows run through (as
-        ``iteration.solve_loop``'s; ``False``: every window eager).
+        all-reduced over it, the windows walked from the host, and the
+        result bundle left unread in ``out`` (``n_iter_total`` and
+        ``n_iter_fast`` None) for the caller's one read.
+      _graphs: the ``core.graphs.WindowGraphs`` the solve runs through (as
+        ``iteration.solve_loop``'s; ``False``: every piece eager).
     """
     B = Y0.shape[0]
     shared = rho_mode == "shared"
@@ -483,16 +495,17 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
     The dense loop keeps every row in the iteration until the last one
     converges. Here the solve runs as a fixed ``schedule`` of shrinking row
     capacities: stage s runs the window loop until the open rows fit the
-    next capacity (``n_open <= schedule[s+1]``, read from the window's one
-    device→host transfer, so a stage adds no sync); between stages a stable
-    ``argsort(done)`` compacts the open rows, in their original order, to
-    the front on the device, and each stage's per-row results are scattered
-    into full-size accumulators. The iteration counter carries across
-    stages, so ``max_iter`` and the per-row ``iters`` are the dense loop's.
-    Only converged rows are dropped, and they already count for nothing in
-    the shared-ρ walk, so open rows follow the dense loop's trajectories.
-    Under graphs every stage capacity has its own windows; the compaction
-    between stages runs eagerly.
+    next capacity (``n_open <= schedule[s+1]``, decided on the device like
+    the dense loop's exit); between stages a stable ``argsort(done)``
+    compacts the open rows, in their original order, to the front on the
+    device (the open count carried and capped there), and each
+    stage's per-row results are scattered into full-size accumulators. The
+    iteration counter carries across stages, so ``max_iter`` and the
+    per-row ``iters`` are the dense loop's. Only converged rows are
+    dropped, and they already count for nothing in the shared-ρ walk, so
+    open rows follow the dense loop's trajectories. Each stage is walked
+    from the host, window by window (every stage capacity has its own
+    graphs); the compaction between stages runs eagerly.
 
     Single-phase only (``refine=False`` semantics: a phase switch cannot be
     carried across stage boundaries), and ``max_iter`` a multiple of
@@ -527,7 +540,8 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
         chunk_runner = (_chunk_shared_rho if shared else
                         _chunk_gathered if B <= _GATHER_BATCH_MAX
                         else _chunk_rung_gemm)
-    graphs = window_graphs(_graphs, Y0.device)
+    dev_t = Y0.device
+    graphs = window_graphs(_graphs, dev_t)
     rhos_t = _rhos_in(graphs, rhos, Y0.dtype)
     loop = dict(shared=shared, chunk_runner=chunk_runner, nx=nx, nc=nc,
                 max_iter=max_iter, check_interval=check_interval,
@@ -538,16 +552,17 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
                 eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
                 iter_precision=iter_precision, refine=False,
                 adaptive_rho_interval=adaptive_rho_interval, alpha=alpha)
-    st = _init_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
-                     check_infeasibility, nx, nc, alpha, rho_eff)
+    st, cold = _cold_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
+                           check_infeasibility, nx, nc, alpha, rho_eff,
+                           False)
     # per-row leaves; the ladder index is per row only per problem
     rows = ["Y", "rho", "pri", "dua", "done", "iters", "status"]
     if not shared:
         rows.append("rho_ind")
     carried = rows + (["X_prev", "Lam_prev"] if check_infeasibility else [])
-    acc = {f: getattr(st.dev, f).clone() for f in rows}
-    orig = torch.arange(B, device=Y0.device)
-    if graphs is not None and shared:
+    acc = None
+    orig = torch.arange(B, device=dev_t)
+    if shared:
         # every stage reads the full batch's bias bank: staged once
         bias_all = graphs.stage("batch.bias", bias_all)
     G_s, lo_s, hi_s, bias_s, wp_s, wd_s = G, lo, hi, bias_all, w_pri, w_dua
@@ -555,20 +570,27 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
         last = si == len(schedule) - 1
         bias = (("rows", bias_all, orig) if shared and si > 0
                 else ("bank", bias_s))
-        ops = _Ops(rhos_t, H, A, G_s, lo_s, hi_s, wp_s, wd_s, rho_eff, bias)
-        st, _ = _stage(ops, st, Wt_bank, None, graphs,
-                       stop_open=0 if last else schedule[si + 1],
-                       with_rem=last, **loop)
-        for f in rows:
-            acc[f][orig] = getattr(st.dev, f)
+        ops, st = _staged(graphs, _Ops(rhos_t, H, A, G_s, lo_s, hi_s, wp_s,
+                                       wd_s, rho_eff, bias), st)
+        items, out = batch_program(
+            graphs, ops, st, Wt_bank, None, cold=cold if si == 0 else None,
+            stop_open=0 if last else schedule[si + 1], with_rem=last,
+            stats=False, **loop)
+        graphs.program(items, dev_t, per_window=True)
+        if acc is None:
+            acc = {f: getattr(st, f).clone() for f in rows}
+        else:
+            for f in rows:
+                acc[f][orig] = getattr(st, f)
         if last:
+            # the iterations run, read once after the last stage
+            k = int(graphs.read(out)[0])
             break
         # stable sort: the open rows first, in their original order
-        sel = torch.argsort(st.dev.done.to(torch.int8), stable=True)
-        sel = sel[:schedule[si + 1]]
-        st = st._replace(n_open=min(st.n_open, schedule[si + 1]),
-                         dev=st.dev._replace(
-                             **{f: getattr(st.dev, f)[sel] for f in carried}))
+        cap = schedule[si + 1]
+        sel = torch.argsort(st.done.to(torch.int8), stable=True)[:cap]
+        st = st._replace(n_open=st.n_open.clamp(max=cap),
+                         **{f: getattr(st, f)[sel] for f in carried})
         orig = orig[sel]
         G_s, lo_s, hi_s = G_s[sel], lo_s[sel], hi_s[sel]
         if not shared:
@@ -577,8 +599,7 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
             wp_s = wp_s[sel]
         if wd_s is not None and wd_s.dim() == 2:
             wd_s = wd_s[sel]
-    st = st._replace(dev=st.dev._replace(**acc))
-    return _wrap_result(st, 0, graphs is not None)
+    return _wrap_result(st._replace(**acc), [k, 0, 0])
 
 
 def solve_batched_hetero(Wt_bank, bias_bank, rhos, H, A, G, lo, hi, Y0,
@@ -687,28 +708,44 @@ def _solve_batched(Wt_bank, bias, rhos, H, A, G, lo, hi, Y0, rho_ind0,
                    max_iter: int, check_infeasibility: bool, nx: int,
                    nc: int, alpha: float, _graphs=None,
                    **loop) -> BatchSolveResult:
-    """The window loop of both regimes, from a cold loop state."""
+    """Both regimes' solve, from a cold loop state: one program, on
+    ``cuda`` one graph launch and one host read (walked window by window
+    under a process group)."""
     graphs = window_graphs(_graphs, Y0.device)
     rhos_t = _rhos_in(graphs, rhos, Y0.dtype)
-    state0 = _init_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
-                         check_infeasibility, nx, nc, alpha, rho_eff)
-    ops = _Ops(rhos_t, H, A, G, lo, hi, w_pri, w_dua, rho_eff, bias)
-    st, k_fast = _stage(ops, state0, Wt_bank, Wt_bank_hi, graphs,
-                        max_iter=max_iter,
-                        check_infeasibility=check_infeasibility, nx=nx,
-                        nc=nc, alpha=alpha, **loop)
-    return _wrap_result(st, k_fast, graphs is not None)
+    two_phase = loop["refine"] and loop["iter_precision"] != "highest"
+    st, cold = _cold_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
+                           check_infeasibility, nx, nc, alpha, rho_eff,
+                           two_phase)
+    ops = _staged(graphs, _Ops(rhos_t, H, A, G, lo, hi, w_pri, w_dua,
+                               rho_eff, bias))
+    kw = dict(loop, max_iter=max_iter,
+              check_infeasibility=check_infeasibility, nx=nx, nc=nc,
+              alpha=alpha)
+    # a solver's program is made once: the pieces close over static
+    # buffers and the solver's operands only
+    items, out = graphs.made(
+        ("batch", Wt_bank, Wt_bank_hi, tuple(ops), st, cold[0],
+         frozenset(kw.items())),
+        lambda: batch_program(graphs, ops, st, Wt_bank, Wt_bank_hi,
+                              cold=cold, **kw))
+    if loop.get("group") is not None:
+        # walked window by window; the result bundle is read with the
+        # results' one gather (``BatchedReLU_QP._fill_results``)
+        graphs.program(items, Y0.device, per_window=True)
+        return _wrap_result(st, None, out.clone())
+    prog = graphs.program(items, Y0.device)
+    return _wrap_result(st, graphs.read(out, programs=(prog,)))
 
 
 def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
-            precision: str, upd: bool):
-    """One batched check window: ``n_steps`` iterations of every row, the
-    residuals, the ρ walk (moved only when ``upd``: the host knows which
-    checks update ρ), first-convergence iterations and status, the
-    certificates, and the bundle the host reads (the open count and,
-    under a two-phase refine, the stall metric), all-reduced over the
-    process group when there is one. Returns the new state and the
-    bundle."""
+            precision: str, phase: str) -> _Dev:
+    """One batched check window on the device: ``n_steps`` iterations of
+    every row, the residuals, the ρ walk (at every ``rho_stride``-th
+    check, decided from the device's iteration count), first-convergence
+    iterations and status, the certificates, the open count (all-reduced
+    over the process group when there is one) and the loop's exit flags
+    and, in phase A, the progress test. Returns the new state."""
     nx, nc = cfg.nx, cfg.nc
     dtype = st.Y.dtype
     Y = cfg.chunk_runner(W_op, _bias_of(op, st.rho_ind, dtype), st.rho_ind,
@@ -744,9 +781,14 @@ def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
         else:
             new_ind = rho_ladder_step(op.rhos, rho_ind, rho_new, cfg.tol,
                                       cfg.rho_jump, done=done)
-        if not upd:
-            # ρ moves only at every rho_stride-th check
-            new_ind = rho_ind
+        if cfg.rho_stride > 1:
+            # ρ moves only at every rho_stride-th check. Ceil-div: the
+            # max_iter % check_interval tail counts as its own check
+            # ordinal, not a repeat of the last window's.
+            chk = torch.div(k + (cfg.check_interval - 1), cfg.check_interval,
+                            rounding_mode="floor")
+            new_ind = torch.where(chk % cfg.rho_stride == 0, new_ind,
+                                  rho_ind)
         if cfg.alpha != 1.0:
             # re-encode p for the new rung with ρ⃗_old/ρ⃗_new (all ones
             # where it held, capped rows and frozen rows included)
@@ -760,7 +802,7 @@ def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
     iters = torch.where(newly, k, st.iters).to(torch.int32)
     status = torch.where(newly, STATUS_SOLVED, st.status).to(torch.int32)
     done = done | newly
-    X_prev = Lam_prev = None
+    new = {}
     if cfg.check_infeasibility:
         pinf, dinf = batched_infeasibility_certificates(
             op.H, op.A, op.G, op.lo[:, nx:nx + nc], op.hi[:, nx:nx + nc],
@@ -772,28 +814,41 @@ def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
             status = torch.where(newly_i, code, status).to(torch.int32)
             iters = torch.where(newly_i, k, iters).to(torch.int32)
             done = done | newly_i
-        X_prev, Lam_prev = X, lam_now
+        new.update(X_prev=X, Lam_prev=lam_now)
     n_open = (~done).sum()
-    if cfg.two_phase:
+    stats_a = phase == "A"
+    if stats_a:
         logres = torch.where(done, 0.0, torch.log(
             torch.clamp_min(pri + dua, 1e-30))).sum()
     if cfg.group is not None:
-        red = torch.stack([n_open.to(dtype)]
-                          + ([logres] if cfg.two_phase else []))
+        red = torch.stack([n_open.to(dtype)] + ([logres] if stats_a else []))
         dist.all_reduce(red, group=cfg.group)
         n_open = red[0]
-        if cfg.two_phase:
+        if stats_a:
             logres = red[1]
-    bundle = [n_open.to(torch.float64)]
-    if cfg.two_phase:
-        bundle.append((logres / n_open.clamp_min(1)).to(torch.float64))
-    return (_Dev(Y, rho_ind, rho, pri, dua, done, iters, status, k, X_prev,
-                 Lam_prev), torch.stack(bundle))
+    running = (n_open > cfg.stop_open) & (k < cfg.budget)
+    if stats_a:
+        # the mean log-residual of the open problems 0.03 below its best
+        # so far, or fewer open problems than ever: progress; two stalled
+        # windows in a row end the phase
+        metric = logres / n_open.clamp_min(1)
+        improved = ((metric < st.best_m - cfg.stall)
+                    | (n_open < st.best_open))
+        n_stall = torch.where(improved, 0, st.n_stall + 1)
+        new.update(
+            best_m=torch.where(metric < st.best_m, metric, st.best_m),
+            best_open=torch.where(n_open < st.best_open, n_open,
+                                  st.best_open),
+            n_stall=n_stall, k_fast=k,
+            open_a=(n_stall < 2) & (k < cfg.cap_a) & running)
+    return st._replace(Y=Y, rho_ind=rho_ind, rho=rho, pri=pri, dua=dua,
+                       done=done, iters=iters, status=status, k=k,
+                       n_open=n_open, open=running, tail=n_open > 0, **new)
 
 
-def _staged(graphs, ops: _Ops, dev: _Dev):
-    """The solve's vectors and state copied into ``graphs``' static
-    buffers (a bias bank or row map staged already is kept)."""
+def _staged(graphs, ops: _Ops, dev: Optional[_Dev] = None):
+    """The solve's vectors (and ``dev``, a compacted state) in ``graphs``'
+    static buffers (a bias bank or row map staged already is kept)."""
     st = lambda name, t: graphs.stage("batch." + name, t)
     kind = ops.bias[0]
     if kind == "bank":
@@ -806,82 +861,119 @@ def _staged(graphs, ops: _Ops, dev: _Dev):
                        lo=st("lo", ops.lo), hi=st("hi", ops.hi),
                        w_pri=st("w_pri", ops.w_pri),
                        w_dua=st("w_dua", ops.w_dua), bias=bias)
+    if dev is None:
+        return ops
     return ops, _Dev(*(st(f, t) for f, t in zip(_Dev._fields, dev)))
 
 
-def _stage(ops: _Ops, state0: _BState, Wt_bank, Wt_bank_hi, graphs, *,
-           shared: bool, chunk_runner, nx: int, nc: int,
-           max_iter: int, check_interval: int, adaptive_rho: bool,
-           adaptive_rho_tolerance: float, eps_abs: float,
-           rho_min: float, rho_max: float, rho_jump: bool,
-           check_infeasibility: bool, eps_prim_inf: float,
-           eps_dual_inf: float, iter_precision: str, refine: bool,
-           adaptive_rho_interval: int, alpha: float, stop_open: int = 0,
-           with_rem: bool = True, group=None):
-    """Run check windows from ``state0`` until at most ``stop_open``
-    problems are open or the ``max_iter`` budget (counted from
-    ``state0.k``) is spent; ``with_rem`` runs the ``max_iter %
-    check_interval`` tail window. ``shared`` walks one index by the
-    geometric mean, else every problem walks its own. The whole loop is
-    one stage (``stop_open=0``); the repack solve runs several over
-    shrinking row buffers. With a process ``group`` the open count, the
-    stall metric's sums and the shared walk's statistics are sums over its
-    ranks. With ``graphs`` (a ``core.graphs.WindowGraphs``) the solve's
-    vectors and the state are staged into its buffers first and every
-    window runs through it. Returns ``(state, k_fast)``."""
-    dtype = state0.dev.Y.dtype
+def batch_program(graphs, ops: _Ops, st: _Dev, Wt_bank, Wt_bank_hi, *,
+                  shared: bool, chunk_runner, nx: int, nc: int,
+                  max_iter: int, check_interval: int, adaptive_rho: bool,
+                  adaptive_rho_tolerance: float, eps_abs: float,
+                  rho_min: float, rho_max: float, rho_jump: bool,
+                  check_infeasibility: bool, eps_prim_inf: float,
+                  eps_dual_inf: float, iter_precision: str, refine: bool,
+                  adaptive_rho_interval: int, alpha: float, cold=None,
+                  stop_open: int = 0, with_rem: bool = True, group=None,
+                  stats: bool = True, pre=None, post=None):
+    """A batched solve (or one repack stage) as a program (``core.graphs``)
+    over the static state ``st`` and vectors ``ops``: the start piece (the
+    ``cold`` state when given, then the exit flags from the carried open
+    count and iteration count), the window loop (or the two refine
+    phases), the ``max_iter % check_interval`` tail window under an IF
+    (``with_rem``) and the result piece. The loop runs until at most
+    ``stop_open`` problems are open or the ``max_iter`` budget (counted
+    in the carried iterations) is spent. ``shared`` walks one index by the
+    geometric mean, else every problem walks its own. With a process
+    ``group`` the open count, the stall metric's sums and the shared walk's
+    statistics are sums over its ranks. ``pre`` / ``post``: ``(key, fn)``
+    pieces of a caller fused into the start and the result piece (a
+    control step's refresh and plant step). Returns ``(items, out)``:
+    ``out`` the static float64 result bundle ``[k, k_fast, n_open]`` and,
+    with ``stats``, the (6, B) per-problem iterations, status, residuals,
+    ρ estimates and rungs (``_wrap_result``)."""
+    dtype, dev = st.Y.dtype, st.Y.device
+    sc = _host_scalar_type(dtype)
     eps = torch.tensor(eps_abs, dtype=dtype)
     eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
     eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
     tol = float(torch.tensor(adaptive_rho_tolerance, dtype=dtype))
     n_chunks = max_iter // check_interval
     rem = (max_iter - n_chunks * check_interval) if with_rem else 0
-    rho_stride = rho_update_stride(adaptive_rho_interval, check_interval)
     two_phase = refine and iter_precision != "highest"
     cfg = _Cfg(shared, chunk_runner, nx, nc, alpha, adaptive_rho, rho_jump,
                tol, eps_pri, eps_dua, float(rho_min), float(rho_max),
                check_infeasibility, float(eps_prim_inf),
-               float(eps_dual_inf), two_phase, group)
-    bundle_buf = None
-    if graphs is not None:
-        ops, dev0 = _staged(graphs, ops, state0.dev)
-        state0 = state0._replace(dev=dev0)
-        bundle_buf = graphs.buffer("batch.bundle", (1 + two_phase,),
-                                   torch.float64, dev0.Y.device)
-    base = (sig(ops), sig(state0.dev), cfg)
+               float(eps_dual_inf), two_phase, group, check_interval,
+               n_chunks * check_interval,
+               rho_update_stride(adaptive_rho_interval, check_interval),
+               (n_chunks // 2) * check_interval, float(sc(0.03)),
+               int(stop_open))
+    B = st.Y.shape[0]
+    out = graphs.buffer("batch.out", (3 + 6 * B * stats,), torch.float64,
+                        dev)
+    key = lambda p: None if p is None else p[0]
+    base = (sig(ops), sig(st), cfg, sig(out), sig(key(cold)), key(pre),
+            key(post))
 
-    def step(st: _BState, n_steps: int, W_op, precision: str) -> _BState:
-        # ρ moves only at every rho_stride-th check. Ceil-div: the
-        # max_iter % check_interval tail counts as its own check ordinal,
-        # not a repeat of the last window's.
-        k = st.k + n_steps
-        upd = rho_stride == 1 or (-((-k) // check_interval)) % rho_stride == 0
-        key = ("window", n_steps, precision, upd, sig(W_op), base)
-        dev, host = run_window(
-            graphs, key, lambda s: _window(s, ops, cfg, n_steps, W_op,
-                                           precision, upd),
-            st.dev, bundle_buf)
-        return _BState(dev, k, int(host[0]), host[1] if two_phase else None)
+    def start():
+        if pre is not None:
+            pre[1]()
+        if cold is not None:
+            cold[1]()
+        running = (st.n_open > cfg.stop_open) & (st.k < cfg.budget)
+        st.open.copy_(running)
+        st.tail.copy_(st.n_open > 0)
+        if two_phase:
+            st.open_a.copy_(running & (st.k < cfg.cap_a))
+            st.best_m.fill_(float("inf"))
+            st.best_open.fill_(int(np.iinfo(np.int32).max))
+            st.n_stall.zero_()
+            st.k_fast.zero_()
 
-    def running(st: _BState) -> bool:
-        return st.n_open > stop_open and st.k < n_chunks * check_interval
+    def finish():
+        f64 = torch.float64
+        k_fast = (torch.zeros((), dtype=f64, device=dev)
+                  if st.k_fast is None else st.k_fast.to(f64))
+        parts = [torch.stack([st.k.to(f64), k_fast, st.n_open.to(f64)])]
+        if stats:
+            rungs = torch.broadcast_to(st.rho_ind, st.iters.shape)
+            parts.append(torch.stack([st.iters, st.status, st.pri, st.dua,
+                                      st.rho, rungs]).to(f64).reshape(-1))
+        out.copy_(torch.cat(parts))
+        if post is not None:
+            post[1]()
 
-    return _run_refined(
-        step, running, state0, Wt_bank, Wt_bank_hi, refine=refine,
-        iter_precision=iter_precision, n_chunks=n_chunks,
-        check_interval=check_interval, rem=rem, dtype=dtype)
+    def window(W_op, precision, phase, n_steps=check_interval):
+        return Piece(("window", n_steps, precision, phase, sig(W_op), base),
+                     lambda: assign(st, _window(st, ops, cfg, n_steps, W_op,
+                                                precision, phase)))
+
+    loops, tail_W, tail_prec = refine_items(
+        window, st.open, st.open_a, Wt_bank, Wt_bank_hi, refine=refine,
+        iter_precision=iter_precision)
+    items = [Piece(("start", base), start)] + loops
+    if rem > 0:
+        items.append(Cond(st.tail, (window(tail_W, tail_prec, "tail",
+                                           rem),)))
+    items.append(Piece(("finish", stats, base), finish))
+    return items, out
 
 
-def _wrap_result(st: _BState, k_fast: int, copy: bool) -> BatchSolveResult:
-    """The result; ``copy``: the state is a cache's static buffers, which
-    belong to the next solve."""
-    d = st.dev
-    if copy:
-        d = d._replace(**{f: getattr(d, f).clone() for f in (
-            "Y", "iters", "pri", "dua", "rho", "rho_ind", "status")})
+def _wrap_result(st: _Dev, host, out=None) -> BatchSolveResult:
+    """The result from the static state ``st`` (cloned: its buffers belong
+    to the next solve) and the read result bundle ``host``
+    (``batch_program``'s), or, unread, its device copy ``out``."""
+    d = st._replace(**{f: getattr(st, f).clone() for f in (
+        "Y", "iters", "pri", "dua", "rho", "rho_ind", "status")})
+    B = d.Y.shape[0]
+    stats = (np.asarray(host[3:], np.float64).reshape(6, B)
+             if host is not None and len(host) > 3 else None)
+    n_total, n_fast = (None, None) if host is None else (int(host[0]),
+                                                          int(host[1]))
     return BatchSolveResult(Y=d.Y, iters=d.iters, pri_res=d.pri,
                             dua_res=d.dua, rho_estimate=d.rho,
                             rho_ind=d.rho_ind,
                             converged=d.status == STATUS_SOLVED,
-                            n_iter_total=st.k, status=d.status,
-                            n_iter_fast=k_fast)
+                            n_iter_total=n_total, status=d.status,
+                            n_iter_fast=n_fast, stats=stats, out=out)

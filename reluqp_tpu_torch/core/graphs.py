@@ -1,64 +1,92 @@
-"""Check windows as CUDA graphs: one capture per window shape, replayed.
+"""A solve as one device program: captured pieces, loops the card exits.
 
-A check window of the solve loops (``core.iteration.solve_loop``,
-``core.batched``) is a fixed sequence of device work between two host
-reads: the chunk kernel, the residuals, the ρ walk, the convergence and
-certificate updates and, under a process group, the collective. On
-``cuda`` each window runs as one replay of a CUDA graph, so a window costs
-the host one graph launch, the bundle's copy and its one synchronisation.
-This is the port's counterpart of the JAX package's compiled
-``lax.while_loop`` bodies (``reluqp_tpu/core/iteration.py`` ``solve_loop``,
-``reluqp_tpu/core/batched.py``), minus the device-side exit: the host still
-reads one bundle per window and decides from it.
+The solve loops (``core.iteration.solve_loop``, ``core.batched``) and the
+loop-path MPC rollouts (``models.mpc``) describe a solve as a *program*: a
+sequence of ``Piece`` s (fixed device work on static tensors: the start
+state, one check window, the result bundle), ``Loop`` s (a WHILE over a
+body, run while an int32 flag that the pieces themselves write on the
+device reads non-zero) and ``Cond`` s (an IF: the ``max_iter %
+check_interval`` tail window). That is the port's counterpart of the JAX
+package's compiled ``lax.while_loop`` and ``lax.scan`` bodies
+(``reluqp_tpu/core/iteration.py`` ``solve_loop`` and
+``run_refined_phases``, ``reluqp_tpu/core/batched.py``,
+``reluqp_tpu/models/mpc.py``).
+
+A ``WindowGraphs`` cache runs a program in one of three ways:
+
+- ``"device"`` (the default on ``cuda``): every piece is captured once in a
+  ``torch.cuda.CUDAGraph(keep_graph=True)`` and the program is built once
+  into one instantiated CUDA graph (``csrc/graph_loop.cu``): the pieces as
+  child graphs, each loop a conditional WHILE node whose body ends in a
+  one-thread kernel that sets the node's condition from the flag, the tail
+  an IF node. A solve is then one graph launch and, after it, one host
+  read; the card decides every exit. A program's first use runs it on the
+  host (as ``"windows"`` does, its pieces eager on the capture stream: it
+  loads the kernels and sets up cuBLAS's workspace for that stream);
+- ``"windows"`` (``device_exit = False``, ``verbose=True`` and the paths
+  not yet covered: repack, a process group, tensor parallelism): the host
+  walks the program, each piece one replay of its own graph (its first use
+  eager, its second captured), and reads each loop's flag after every
+  window;
+- ``"eager"`` (the CPU, and a loop given ``_graphs=False``): the host walks
+  the program and runs every piece eagerly.
+
+The three run the same pieces on the same static tensors, so their results
+are equal bit for bit.
 
 What a graph may touch:
 
-- the window's state and the solve's per-solve vectors (``g``, bounds,
-  biases, row maps), copied once at the solve's entry into static buffers
-  this cache owns (``stage``), so that a later solve with new vectors
-  replays the same graph;
+- the solve's state and per-solve vectors (``g``, bounds, biases, row
+  maps), copied once at the solve's entry into static buffers this cache
+  owns (``stage``), so that a later solve with new vectors replays the same
+  graph;
 - the solver's operands (banks, H, A, ρ ladders, residual operators),
-  named in the window's key by identity (``sig``: address, shape,
-  strides, dtype), so that a new operand captures anew;
-- host values baked into the launches (the window's length, the tier,
-  whether ρ moves, the tolerances), which are in the key too.
+  named in a piece's key by identity (``sig``: address, shape, strides,
+  dtype), so that a new operand captures anew;
+- host values baked into the launches (a window's length, the tier, the
+  tolerances), which are in the key too.
 
-The first use of a key runs the window eagerly on the capture stream (it
-sets up cuBLAS's workspace for that stream and loads the kernels); the
-second use captures it and replays it; every later use replays. All the
-graphs of one cache share one memory pool (a new one once the cache holds
-no graph, as after ``clear``); everything a window keeps is
-written into static buffers allocated outside the pool, so the graphs'
-pool memory holds only intermediates and replays may come in any order. A
-capture that fails raises: nothing runs the window eagerly in its place.
+All the graphs of one cache share one memory pool (a new one once the cache
+holds no graph, as after ``clear``); everything a piece keeps is written
+into static buffers allocated outside the pool, so the pool holds only
+intermediates and pieces may run in any order. A capture, a build or a
+launch that fails raises: nothing runs the solve another way in its place.
 
 A replay calls no Python wrapper, so kernel wrappers count their launches
-through ``on_launch``: the hooks a capture records run once per replay.
+through ``on_launch``: the hooks a capture records run once per replay of
+its piece, and after a device program's read once per execution of the
+piece there (the program counts each loop's body executions on the card).
 
-On the CPU the loops run their windows eagerly unless the cache is given a
-``capture`` factory (the tests' stand-in: it calls the recorded window
-again on the same buffers at every replay, which is a graph's binding).
+On the CPU the loops run eagerly unless the cache is given a ``capture``
+factory (the tests' stand-in: it calls the recorded piece again on the same
+buffers at every replay, which is a graph's binding) and, for the device
+exit, a ``build`` factory (the tests' stand-in walks the program on the
+host while each flag tensor reads true).
 """
 from __future__ import annotations
 
+import ctypes
+import gc
 import time
 from collections import OrderedDict
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["WindowGraphs", "on_launch", "sig", "window_graphs",
-           "run_window"]
+__all__ = ["WindowGraphs", "Piece", "Loop", "Cond", "on_launch", "sig",
+           "window_graphs"]
 
 _recording: Optional[list] = None
-# graphs a cache keeps (least recently used first out): a solver's windows
+# graphs a cache keeps (least recently used first out): a solver's pieces
 # take a few keys per (rows, settings); stale ones follow a new operand
 _MAX_WINDOWS = 64
+# built device programs a cache keeps (each holds its pieces' graphs)
+_MAX_PROGRAMS = 16
 
 
 def on_launch(hook: Callable[[], None]) -> None:
     """A launch's host-side bookkeeping (a launch counter): run ``hook``
-    now, or, while a window is being captured, once per replay of it
+    now, or, while a piece is being captured, once per execution of it
     instead (the capture itself launches nothing)."""
     if _recording is None:
         hook()
@@ -78,24 +106,162 @@ def sig(obj):
     return obj
 
 
+class Piece(NamedTuple):
+    """Fixed device work on static tensors: ``fn()`` runs it, ``key`` names
+    its graph (everything the launches bake in). ``show``: run on the host
+    after the piece by the host-walked paths (``verbose``'s print)."""
+    key: tuple
+    fn: Callable[[], None]
+    show: Optional[Callable[[], None]] = None
+
+
+class Loop(NamedTuple):
+    """A WHILE: ``body`` (pieces) runs while the int32 0-d ``flag`` reads
+    non-zero; the pieces before the loop and the body write the flag."""
+    flag: torch.Tensor
+    body: tuple
+
+
+class Cond(NamedTuple):
+    """An IF: ``body`` runs once when ``flag`` reads non-zero."""
+    flag: torch.Tensor
+    body: tuple
+
+
+def _ident(obj):
+    if isinstance(obj, torch.Tensor):
+        return ("tensor", id(obj))
+    if isinstance(obj, (tuple, list)):
+        return tuple(_ident(o) for o in obj)
+    return obj
+
+
+def _program_key(items):
+    return tuple(it.key if isinstance(it, Piece)
+                 else (type(it).__name__, sig(it.flag),
+                       _program_key(it.body)) for it in items)
+
+
 class _CudaGraph:
-    """One window captured in a ``torch.cuda.CUDAGraph`` on ``stream``,
-    its memory from the pool ``pool`` (a ``graph_pool_handle``)."""
+    """One piece captured in a ``torch.cuda.CUDAGraph`` on ``stream``, its
+    memory from the pool ``pool`` (a ``graph_pool_handle``). The raw
+    ``cudaGraph_t`` is kept (``raw()``) for the device programs; ``replay``
+    instantiates the graph at its first call."""
 
     def __init__(self, fn, stream, pool):
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         cur = torch.cuda.current_stream(stream.device)
         stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
-            self.graph.capture_begin(pool=pool)
-            try:
-                fn()
-            finally:
-                self.graph.capture_end()
+        # no collection during the capture: a collected graph's destruction
+        # is a CUDA call that invalidates a capture in progress
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(pool=pool)
+                try:
+                    fn()
+                finally:
+                    self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         cur.wait_stream(stream)
 
     def replay(self):
         self.graph.replay()
+
+    def raw(self) -> int:
+        return self.graph.raw_cuda_graph()
+
+
+def _loop_lib():
+    from ..ops.cuda_build import load
+    lib = load("graph_loop")
+    if not getattr(lib, "_gl_typed", False):
+        vp, i, pvp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
+            ctypes.c_void_p)
+        u64 = ctypes.c_ulonglong
+        for name, args in (
+                ("gl_graph_create", [pvp]), ("gl_graph_destroy", [vp]),
+                ("gl_add_child", [vp, vp, vp, pvp]),
+                ("gl_handle", [vp, ctypes.POINTER(u64)]),
+                ("gl_add_flag", [vp, vp, u64, vp, vp, i, pvp]),
+                ("gl_add_cond", [vp, vp, u64, i, pvp, pvp]),
+                ("gl_instantiate", [vp, pvp]), ("gl_launch", [vp, vp]),
+                ("gl_exec_destroy", [vp])):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, i
+        lib.gl_error_string.argtypes = [i]
+        lib.gl_error_string.restype = ctypes.c_char_p
+        lib._gl_typed = True
+    return lib
+
+
+class GraphProgram:
+    """A program built into one instantiated CUDA graph
+    (``csrc/graph_loop.cu``). ``nodes``: ``("graph", captured piece)``,
+    ``("loop" | "cond", flag, count slot, body nodes)``; ``counts``: a
+    float64 device tensor, one slot per loop and cond, to which each body
+    execution adds one. Holds the pieces' graphs (and so their pool) as
+    long as it lives, evicted from the cache or not. A step that fails
+    raises."""
+
+    def __init__(self, nodes, counts: torch.Tensor):
+        self._lib = _loop_lib()
+        self._nodes, self._counts = nodes, counts
+        self._graph = self._exec = None
+        self._graph = self._call("graph create", "gl_graph_create")
+        self._build(self._graph, nodes)
+        self._exec = self._call("instantiate", "gl_instantiate",
+                                self._graph)
+
+    def _check(self, rc: int, what: str) -> None:
+        if rc != 0:
+            msg = self._lib.gl_error_string(rc).decode()
+            raise RuntimeError(f"device program {what} failed: CUDA error "
+                               f"{rc} ({msg})")
+
+    def _call(self, what, name, *args, out=ctypes.c_void_p):
+        val = out()
+        self._check(getattr(self._lib, name)(*args, ctypes.byref(val)), what)
+        return val.value
+
+    def _build(self, graph, nodes, dep=None):
+        for node in nodes:
+            if node[0] == "graph":
+                dep = self._call("child graph", "gl_add_child", graph, dep,
+                                 node[1].raw())
+                continue
+            kind, flag, slot, body = node
+            loop = kind == "loop"
+            handle = self._call("conditional handle", "gl_handle", graph,
+                                out=ctypes.c_ulonglong)
+            dep = self._call("flag kernel", "gl_add_flag", graph, dep,
+                             handle, flag.data_ptr(), None, 1)
+            body_g, node_p = ctypes.c_void_p(), ctypes.c_void_p()
+            rc = self._lib.gl_add_cond(graph, dep, handle, int(loop),
+                                       ctypes.byref(body_g),
+                                       ctypes.byref(node_p))
+            self._check(rc, f"{kind} node")
+            dep = node_p.value
+            last = self._build(body_g.value, body)
+            self._call("count kernel", "gl_add_flag", body_g.value, last,
+                       handle, flag.data_ptr(),
+                       self._counts.data_ptr() + 8 * slot, int(loop))
+        return dep
+
+    def launch(self, stream: int) -> None:
+        self._check(self._lib.gl_launch(self._exec, stream), "launch")
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is None:
+            return
+        if self._exec:
+            lib.gl_exec_destroy(self._exec)
+        if self._graph:
+            lib.gl_graph_destroy(self._graph)
 
 
 class _Window:
@@ -105,39 +271,107 @@ class _Window:
         self.graph, self.hooks, self.uses = None, (), 0
 
 
+class _Program:
+    """A device program's built graph, its body counts and its hooks."""
+    __slots__ = ("exec", "counts", "seen", "hooks", "loops", "uses",
+                 "launches")
+
+    def __init__(self):
+        self.exec = self.counts = None
+        self.seen: list = []
+        self.hooks, self.loops = (), ()
+        self.uses = self.launches = 0
+
+    def settle(self, counts: list) -> None:
+        """Run the recorded hooks once per execution of their piece since
+        the last read: pieces outside a loop once per launch, a body's
+        as often as the card ran it."""
+        for _ in range(self.launches):
+            for hook in self.hooks:
+                hook()
+        for slot, hooks in self.loops:
+            for _ in range(int(counts[slot] - self.seen[slot])):
+                for hook in hooks:
+                    hook()
+        self.seen = list(counts)
+        self.launches = 0
+
+
 class WindowGraphs:
-    """A solver's captured check windows, their static buffers and pool.
+    """A solver's captured pieces and device programs, their static
+    buffers and pool.
 
     ``capture(fn, stream, pool)`` makes a replayable capture of ``fn``:
     ``None`` (the package's default) captures a CUDA graph on ``cuda`` and
-    leaves the CPU eager; the tests pass a stand-in. ``captures`` and
-    ``replays`` count what this cache did, ``capture_seconds`` the host
-    time its captures took."""
+    leaves the CPU eager; the tests pass a stand-in. ``build(nodes,
+    counts)`` makes a launchable device program (``GraphProgram``'s
+    signature): ``None`` builds one on ``cuda`` and has none on the CPU.
+    ``device_exit = False`` runs every program window by window (the A/B
+    of the device exit). ``captures`` and ``replays`` count what this
+    cache did (a device program's launch counts as a replay),
+    ``programs`` the device programs it built, ``capture_seconds`` the
+    host time its captures and builds took."""
 
-    def __init__(self, capture=None):
+    def __init__(self, capture=None, build=None, eager: bool = False):
         self._capture = capture
+        self._build = build
+        self._off = eager
+        self.device_exit = True
         self._windows: OrderedDict = OrderedDict()
+        self._programs: OrderedDict = OrderedDict()
+        self._made: OrderedDict = OrderedDict()
         self._buffers: dict = {}
         self._host: dict = {}
         self._stream = self._pool = None
         self._live = 0          # captured graphs held (sharing the pool)
         self.captures = 0
         self.replays = 0
+        self.programs = 0
         self.capture_seconds = 0.0
 
     def enabled(self, device) -> bool:
-        """Whether windows on ``device`` run through this cache."""
-        return self._capture is not None or torch.device(device).type == "cuda"
+        """Whether pieces on ``device`` run through this cache."""
+        return not self._off and (self._capture is not None
+                                  or torch.device(device).type == "cuda")
+
+    def mode(self, device, per_window: bool = False) -> str:
+        """How a program on ``device`` runs: "device", "windows" or
+        "eager" (module docstring)."""
+        if not self.enabled(device):
+            return "eager"
+        if per_window or not self.device_exit:
+            return "windows"
+        if self._build is None and torch.device(device).type != "cuda":
+            return "windows"
+        return "device"
 
     def clear(self) -> None:
-        """Drop every graph and buffer (a new setup: new operands)."""
+        """Drop every graph, program and buffer (a new setup: new
+        operands)."""
+        self._programs.clear()
+        self._made.clear()
         self._windows.clear()
         self._buffers.clear()
         self._host.clear()
         self._live, self._pool = 0, None
 
+    def made(self, key: tuple, make: Callable):
+        """``make()``'s value (a solve's program), made once per ``key``:
+        tensors in it (at any depth of tuples) by identity (the entry
+        holds them, so an identity is not reused while it lives),
+        everything else by value."""
+        k = _ident(key)
+        hit = self._made.get(k)
+        if hit is None:
+            hit = self._made[k] = (key, make())
+            while len(self._made) > _MAX_PROGRAMS:
+                self._made.popitem(last=False)
+        else:
+            self._made.move_to_end(k)
+        return hit[1]
+
     def keys(self) -> list:
-        """The keys of the windows this cache holds, oldest first."""
+        """The keys of the pieces this cache holds, oldest first."""
         return list(self._windows)
 
     # ---------------------------------------------------------------- #
@@ -152,27 +386,41 @@ class WindowGraphs:
         return buf
 
     def stage(self, name: str, t):
-        """``t`` copied into the static tensor ``name`` (None stays None)."""
-        if t is None:
-            return None
+        """``t`` copied into the static tensor ``name`` (None stays None;
+        an eager cache reads ``t`` where it is). What a piece writes is
+        made with ``buffer``, never staged."""
+        if t is None or self._off:
+            return t
         buf = self.buffer(name, t.shape, t.dtype, t.device)
         if buf is not t:
             buf.copy_(t)
         return buf
 
-    def read(self, t: torch.Tensor) -> list:
-        """The window's one host read of ``t``: one copy into a pinned host
-        buffer and one synchronisation on ``cuda``."""
-        if not t.is_cuda:
-            return t.tolist()
-        key = (tuple(t.shape), t.dtype)
-        host = self._host.get(key)
-        if host is None:
-            host = self._host[key] = torch.empty(t.shape, dtype=t.dtype,
-                                                 pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(t.device).synchronize()
-        return host.tolist()
+    def read(self, *ts, programs=()):
+        """One host read of ``ts``: on ``cuda`` one copy of each into a
+        pinned host buffer and one synchronisation. The device programs in
+        ``programs`` have their body counts read in the same transfer and
+        their hooks settled. Returns a numpy copy of each tensor (the one
+        array for a single tensor)."""
+        progs = [p for p in programs if p is not None and p.launches]
+        every = list(ts) + [p.counts for p in progs]
+        if not every[0].is_cuda:
+            host = [t.detach().clone().numpy() for t in every]
+        else:
+            pinned = []
+            for i, t in enumerate(every):
+                key = (i, tuple(t.shape), t.dtype)
+                h = self._host.get(key)
+                if h is None:
+                    h = self._host[key] = torch.empty(t.shape, dtype=t.dtype,
+                                                      pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                pinned.append(h)
+            torch.cuda.current_stream(every[0].device).synchronize()
+            host = [h.numpy().copy() for h in pinned]
+        for p, counts in zip(progs, host[len(ts):]):
+            p.settle(counts.tolist())
+        return host[0] if len(ts) == 1 else host[:len(ts)]
 
     # ---------------------------------------------------------------- #
     def _side(self, device):
@@ -186,16 +434,13 @@ class WindowGraphs:
         return self._stream
 
     def _dropped(self, w: _Window) -> None:
-        """Bookkeeping for a window leaving the cache."""
+        """Bookkeeping for a piece leaving the cache."""
         if w.graph is not None:
             self._live -= 1
             if self._live == 0:
                 self._pool = None
 
-    def run(self, key, fn: Callable[[], None], device) -> None:
-        """Run the window ``fn`` (which reads and writes static tensors
-        only) under ``key``: eagerly at the key's first use, captured at
-        its second, replayed from then on."""
+    def _window(self, key) -> _Window:
         w = self._windows.get(key)
         if w is None:
             w = self._windows[key] = _Window()
@@ -203,6 +448,13 @@ class WindowGraphs:
                 self._dropped(self._windows.popitem(last=False)[1])
         else:
             self._windows.move_to_end(key)
+        return w
+
+    def run(self, key, fn: Callable[[], None], device) -> None:
+        """Run the piece ``fn`` (which reads and writes static tensors
+        only) under ``key``: eagerly at the key's first use, captured at
+        its second, replayed from then on."""
+        w = self._window(key)
         w.uses += 1
         if w.uses == 1:
             self._eager(fn, device)
@@ -215,7 +467,7 @@ class WindowGraphs:
         self.replays += 1
 
     def _eager(self, fn, device):
-        if self._capture is not None:
+        if self._capture is not None or torch.device(device).type != "cuda":
             fn()
             return
         side = self._side(device)
@@ -242,36 +494,107 @@ class WindowGraphs:
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
 
+    # ---------------------------------------------------------------- #
+    def program(self, items, device, per_window: bool = False):
+        """Run the program ``items`` on ``device`` in this cache's mode
+        (``per_window``: walked from the host even where the device could
+        exit). Returns the device program launched (to hand to ``read``
+        with the result, which settles its hooks), or None where the host
+        walked the program."""
+        mode = self.mode(device, per_window)
+        if mode == "eager":
+            _walk(items, lambda p: p.fn(), self._flag)
+            return None
+        if mode == "windows":
+            _walk(items, lambda p: self.run(p.key, p.fn, device), self._flag)
+            return None
+        key = _program_key(items)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _Program()
+            while len(self._programs) > _MAX_PROGRAMS:
+                self._programs.popitem(last=False)
+        else:
+            self._programs.move_to_end(key)
+        prog.uses += 1
+        if prog.uses == 1:
+            # the first use walks the program on the host, its pieces
+            # eager on the capture stream
+            _walk(items, lambda p: self._eager(p.fn, device), self._flag)
+            return None
+        if prog.exec is None:
+            self._make(prog, items, device)
+        stream = (torch.cuda.current_stream(device).cuda_stream
+                  if torch.device(device).type == "cuda" else None)
+        prog.exec.launch(stream)
+        prog.launches += 1
+        self.replays += 1
+        return prog
 
-def window_graphs(graphs, device) -> Optional[WindowGraphs]:
-    """The cache a loop runs its windows through: ``graphs`` as given (a
-    solver's), a fresh one for this call when ``None``, none (eager) when
-    ``False`` or where the cache does not run ``device``'s windows."""
-    if graphs is False:
-        return None
+    def _flag(self, flag: torch.Tensor) -> bool:
+        return bool(self.read(flag))
+
+    def _make(self, prog: _Program, items, device):
+        """Capture every piece of ``items`` not captured yet and build the
+        program."""
+        t0 = time.perf_counter()
+        outside, slots = [], []
+        tree = self._nodes(items, outside, slots, device)
+        counts = torch.zeros((max(len(slots), 1),), dtype=torch.float64,
+                             device=device)
+        build = self._build or GraphProgram
+        prog.exec = build(tree, counts)
+        prog.counts, prog.seen = counts, [0.0] * counts.shape[0]
+        prog.hooks = tuple(outside)
+        prog.loops = tuple((i, tuple(h)) for i, h in enumerate(slots))
+        self.programs += 1
+        self.capture_seconds += time.perf_counter() - t0
+
+    def _nodes(self, items, hooks: list, slots: list, device) -> list:
+        """``items`` as a program's nodes, each piece captured; the hooks
+        of pieces at this level into ``hooks``, each body's into a new
+        slot of ``slots``. (A method, not a nested function: a recursive
+        closure is a reference cycle that would keep this cache alive for
+        the cyclic collector.)"""
+        out = []
+        for it in items:
+            if isinstance(it, Piece):
+                w = self._window(it.key)
+                if w.graph is None:
+                    self._record(w, it.fn, device)
+                hooks.extend(w.hooks)
+                out.append(("graph", w.graph))
+            else:
+                slot, body_hooks = len(slots), []
+                slots.append(body_hooks)
+                body = self._nodes(it.body, body_hooks, slots, device)
+                out.append(("loop" if isinstance(it, Loop) else "cond",
+                            it.flag, slot, body))
+        return out
+
+
+def _walk(items, call, flag) -> None:
+    """A program on the host: each piece through ``call``, each loop's and
+    cond's flag read through ``flag``."""
+    for it in items:
+        if isinstance(it, Piece):
+            call(it)
+            if it.show is not None:
+                it.show()
+        elif isinstance(it, Loop):
+            while flag(it.flag):
+                _walk(it.body, call, flag)
+        elif flag(it.flag):
+            _walk(it.body, call, flag)
+
+
+def window_graphs(graphs, device) -> WindowGraphs:
+    """The cache a loop runs through: ``graphs`` as given (a solver's), a
+    fresh one for this call when ``None``; a fresh one that runs eagerly
+    (its buffers this call's own) when ``False`` or where ``graphs`` does
+    not run ``device``'s pieces."""
     if graphs is None:
         graphs = WindowGraphs()
-    return graphs if graphs.enabled(device) else None
-
-
-def run_window(graphs: Optional[WindowGraphs], key, fn, state, bundle_buf):
-    """One check window ``fn(state) -> (new state, bundle)`` and its one
-    host read. Eager without ``graphs``: returns the new state (a
-    NamedTuple of tensors) and the bundle read with ``.cpu()``. Through
-    ``graphs``: ``state`` holds the static buffers, which the window
-    overwrites with the new state (the kernels' outputs stay distinct
-    allocations, copied in at the window's end), and the bundle goes
-    through ``bundle_buf``; returns ``state`` itself and the bundle."""
-    if graphs is None:
-        new, bundle = fn(state)
-        return new, bundle.cpu().tolist()
-
-    def window():
-        new, bundle = fn(state)
-        for dst, src in zip(state, new):
-            if dst is not None and dst is not src:
-                dst.copy_(src)
-        bundle_buf.copy_(bundle)
-
-    graphs.run(key, window, bundle_buf.device)
-    return state, graphs.read(bundle_buf)
+    if graphs is False or not graphs.enabled(device):
+        return WindowGraphs(eager=True)
+    return graphs

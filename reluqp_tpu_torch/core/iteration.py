@@ -1,20 +1,22 @@
 """The solve loop: check windows, residuals, the ρ walk and the exit.
 
-A Python loop over check windows. Everything inside a window stays on the
-device: the chunk runner (kernel K1 on CUDA), the residual reduction, the
-ρ-index walk over the device-resident bank, the status decision and, when
-asked, the infeasibility certificates. The rung index lives in a device
-int32 tensor that the kernel reads itself. The loop syncs to the host ONCE
-per window, in one bundled transfer of (status, pri, dua, rho_ind, ρ
-estimate): a per-field ``.item()`` would cost one device round trip each.
-The iteration count ``k`` is kept on the host, since every window has a
-length fixed before it runs.
+A solve is one device program (``core.graphs``): a start piece, the check
+windows under a loop whose exit the device decides, the tail window under
+an IF and the result bundle. Everything stays on the device: the chunk
+runner (kernel K1 on CUDA), the residual reduction, the ρ-index walk over
+the device-resident bank (every ``rho_update_stride``-th check, decided
+from the device's iteration count), the status decision, the
+infeasibility certificates when asked, the two-phase refine's stall test
+and the loop's exit flag. The rung index lives in a device int32 tensor
+that the kernel reads itself.
 
-On ``cuda`` each window runs as one replay of a CUDA graph
-(``core.graphs``), keyed by what it bakes in: its length, W operand and
-tier, whether ρ moves, the tail, and the solver's operands by identity.
-The solve's vectors and start state are staged into the cache's static
-buffers at entry; the host keeps the window's one read and its decisions.
+On ``cuda`` the program is one launch of a CUDA graph whose conditional
+WHILE nodes run the windows (the counterpart of the JAX package's
+``lax.while_loop``), and the host reads the solve's result bundle once
+after it. The solve's vectors and start state are staged into the cache's
+static buffers at entry. ``verbose`` walks the windows from the host,
+printing each, as does the A/B path (``WindowGraphs.device_exit =
+False``); the CPU runs the same pieces eagerly.
 
 The chunk runner is pluggable: ``chunk_runner(W_bank, b_bank, rho_ind, lo,
 hi, y, n_steps, iter_precision)``. State vectors may be padded beyond
@@ -30,7 +32,7 @@ import torch
 
 from ..ops.fused_step import fused_chunk_ref, pad_dim
 from .bank import Bank, DeviceQP
-from .graphs import run_window, sig, window_graphs
+from .graphs import Cond, Loop, Piece, sig, window_graphs
 
 __all__ = [
     "SolveResult",
@@ -41,7 +43,9 @@ __all__ = [
     "infeasibility_certificates",
     "rho_ladder_step",
     "rho_update_stride",
-    "run_refined_phases",
+    "refine_items",
+    "solve_program",
+    "state_buffers",
     "solve_loop",
     "ChunkRunner",
     "STATUS_MAX_ITER", "STATUS_SOLVED", "STATUS_PRIMAL_INFEASIBLE",
@@ -75,7 +79,7 @@ class SolveResult(NamedTuple):
     converged: bool
     obj_val: float        # ½xᵀHx + gᵀx at exit (0.0 when with_obj=False)
     status_code: int      # 0 max_iter, 1 solved, 2 primal_inf, 3 dual_inf
-    rho_ind_dev: Optional[torch.Tensor] = None   # final index, 0-d int32
+    k_fast: int = 0       # iterations run in the reduced-precision phase
 
 
 def infeasibility_certificates(H, A, g, l, u, dx, dlam, eps_pinf: float,
@@ -219,21 +223,26 @@ def rho_update_stride(adaptive_rho_interval: int, check_interval: int) -> int:
     return -(-adaptive_rho_interval // check_interval)  # ceil div
 
 
-def run_refined_phases(step, running, state0, W_fast, W_high, *, refine,
-                       iter_precision: str, cap_a: int, check_interval: int,
-                       metric, improved, best0):
-    """Drive the window loop to completion, in two phases when a reduced
-    iteration precision is refined.
+def refine_items(window, open_flag, open_a, W_fast, W_high, *, refine,
+                 iter_precision: str, hoist_first: bool = False):
+    """The window loops of a solve program, in two phases when a reduced
+    iteration precision is refined. Shared by ``solve_loop`` and the
+    batched loops so the phase policy cannot silently diverge (the JAX
+    package's ``run_refined_phases``).
 
     Phase A runs reduced-precision windows while the solve still
     progresses; phase B polishes with "highest" windows to the true
-    tolerance. ``metric(state)`` returns host stats carried as elementwise
-    best-so-far minima and ``improved(m, best)`` says whether this window
-    beat the best. Two consecutive stalled windows end phase A, as does the
-    ``cap_a`` iteration budget (half the total, so the polish phase always
-    keeps iterations). ``step(state, n_steps, W, precision)`` runs one
-    window; ``state.k`` is the host iteration counter. Returns
-    ``(state, k_fast, tail_W, tail_prec)``.
+    tolerance. ``window(W, precision, phase)`` makes the window piece of a
+    phase ("" single-phase, "A", "B"). Every window writes ``open_flag``
+    (the solve still runs); a phase-A window also writes ``open_a`` (it
+    runs and still progresses: fewer than two consecutive stalled windows,
+    and within the ``cap_a`` iterations that leave the polish phase half
+    the budget), from its progress test on the device. ``hoist_first``
+    runs the first single-phase window before the loop (callers guarantee
+    one full window fits the budget): a warm solve that certifies at its
+    first check never enters the loop. Returns ``(items, tail_W,
+    tail_prec)``: the loops and the bank and precision of any ``max_iter %
+    check_interval`` tail.
     """
     two_phase = refine and iter_precision != "highest"
     W_polish = W_fast if W_high is None else W_high
@@ -243,36 +252,40 @@ def run_refined_phases(step, running, state0, W_fast, W_high, *, refine,
             "precision polish copy (W_hi): the highest-precision refine "
             "phase would silently run at bf16 precision and tight "
             "tolerances would never be reached")
-    state = state0
     if not two_phase:
-        while running(state):
-            state = step(state, check_interval, W_fast, iter_precision)
-        return state, 0, W_fast, iter_precision
-    best, n_stall = tuple(best0), 0
-    while n_stall < 2 and state.k < cap_a and running(state):
-        state = step(state, check_interval, W_fast, iter_precision)
-        m = metric(state)
-        n_stall = 0 if improved(m, best) else n_stall + 1
-        best = tuple(min(b, v) for b, v in zip(best, m))
-    k_fast = state.k
-    while running(state):
-        state = step(state, check_interval, W_polish, "highest")
-    return state, k_fast, W_polish, "highest"
+        win = window(W_fast, iter_precision, "")
+        items = ([win] if hoist_first else []) + [Loop(open_flag, (win,))]
+        return items, W_fast, iter_precision
+    return ([Loop(open_a, (window(W_fast, iter_precision, "A"),)),
+             Loop(open_flag, (window(W_polish, "highest", "B"),))],
+            W_polish, "highest")
 
 
 class _Dev(NamedTuple):
-    """The device state a check window reads and writes."""
+    """The device state of a solve: static buffers its pieces read and
+    write (a cache's, or this call's own when eager)."""
     y: torch.Tensor                           # (Dp,) stacked state
     rho_ind: torch.Tensor                     # 0-d int32 ladder index
     rho: torch.Tensor                         # 0-d: last ρ estimate
+    k: torch.Tensor                           # 0-d int32 iterations run
+    status: torch.Tensor                      # 0-d int32, -1 running
+    pri: torch.Tensor                         # 0-d residuals at the last
+    dua: torch.Tensor                         # check
+    open: torch.Tensor                        # 0-d int32: the solve runs
+    tail: torch.Tensor                        # 0-d int32: the tail runs
     x_prev: Optional[torch.Tensor] = None     # infeasibility deltas
     lam_prev: Optional[torch.Tensor] = None
+    open_a: Optional[torch.Tensor] = None     # two-phase refine: phase A
+    best_p: Optional[torch.Tensor] = None     # runs; its best residuals,
+    best_d: Optional[torch.Tensor] = None     # stalled windows in a row
+    n_stall: Optional[torch.Tensor] = None    # and iterations run
+    k_fast: Optional[torch.Tensor] = None
 
 
 class _Ops(NamedTuple):
     """What a window reads besides its state and W: the solver's operands
     and the solve's vectors (``g``, ``lo``, ``hi``, ``g_row`` and the
-    bias's state part, staged into static buffers under graphs)."""
+    lazy bias's state, static buffers)."""
     rhos: torch.Tensor
     H: torch.Tensor
     A: torch.Tensor
@@ -288,7 +301,7 @@ class _Ops(NamedTuple):
 
 
 class _Cfg(NamedTuple):
-    """The host values a window bakes into its launches."""
+    """The host values a solve's pieces bake into their launches."""
     chunk_runner: Callable
     nx: int
     nc: int
@@ -303,16 +316,12 @@ class _Cfg(NamedTuple):
     check_infeasibility: bool
     eps_prim_inf: float
     eps_dual_inf: float
-
-
-class _State(NamedTuple):
-    dev: _Dev
-    k: int                    # host iteration counter
-    status: int               # host copies from the window's bundle
-    pri: float
-    dua: float
-    rho_ind_h: int
-    rho_h: float
+    check_interval: int
+    budget: int          # iterations of the full windows: n_chunks * ci
+    rho_stride: int      # checks between ρ updates
+    cap_a: int           # phase A's iteration cap
+    stall: float         # phase A's progress factor 0.97, iterate dtype
+    two_phase: bool
 
 
 def _host_scalar_type(dtype):
@@ -358,18 +367,47 @@ def _bias_of(rho_ind, op: _Ops, dtype):
     return b_loc.expand(op.rhos.shape[0], b_loc.shape[0])
 
 
-def _bundle(status, pri, dua, rho_ind, rho):
-    """The window's scalars for its ONE device→host transfer."""
-    f64 = torch.float64
-    return torch.stack([status.to(f64), pri.to(f64), dua.to(f64),
-                        rho_ind.to(f64), rho.to(f64)])
+def assign(dst: tuple, src: tuple) -> None:
+    """Write a piece's new state ``src`` into the static buffers ``dst``
+    (the kernels' outputs stay distinct allocations, copied in at the
+    piece's end; a field left as it was is not copied)."""
+    for d, s in zip(dst, src):
+        if d is not None and s is not None and s is not d:
+            d.copy_(s)
+
+
+def _start(st: _Dev, op: _Ops, cfg: _Cfg) -> None:
+    """The loop state before the first window: nothing run, the loop
+    (and phase A) open when a full window fits the budget, and the
+    certificates' previous iterate the start state."""
+    st.k.zero_()
+    st.status.fill_(_RUNNING)
+    st.pri.zero_()
+    st.dua.zero_()
+    st.open.fill_(int(cfg.budget > 0))
+    st.tail.fill_(1)
+    if op.g_row is not None:
+        gv = op.g if op.w_dua is None else op.w_dua * op.g
+        op.g_row.zero_()
+        op.g_row[:cfg.nx] = gv.to(op.g_row.dtype)
+    if cfg.check_infeasibility:
+        st.x_prev.copy_(st.y[:cfg.nx])
+        st.lam_prev.copy_(_lam_of(st.y, st.rho_ind, op, cfg))
+    if cfg.two_phase:
+        st.open_a.fill_(int(cfg.budget > 0 and cfg.cap_a > 0))
+        st.best_p.fill_(float("inf"))
+        st.best_d.fill_(float("inf"))
+        st.n_stall.zero_()
+        st.k_fast.zero_()
 
 
 def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
-            precision: str, upd: bool):
-    """One check window: ``n_steps`` iterations, the residuals, the ρ walk
-    (moved only when ``upd``: the host knows which checks update ρ), the
-    status and the certificates. Returns the new state and the bundle."""
+            precision: str, phase: str) -> _Dev:
+    """One check window on the device: ``n_steps`` iterations, the
+    residuals, the ρ walk (at every ``rho_stride``-th check, decided from
+    the device's iteration count), the status, the certificates, the
+    loop's exit flags and, in phase A, the progress test. Returns the new
+    state."""
     nx, nc = cfg.nx, cfg.nc
     y = cfg.chunk_runner(W_op, _bias_of(st.rho_ind, op, st.y.dtype),
                          st.rho_ind, op.lo, op.hi, st.y, n_steps, precision)
@@ -377,9 +415,16 @@ def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
     if cfg.check_infeasibility:
         lam_now = _lam_of(y, st.rho_ind, op, cfg)
     rho_ind = st.rho_ind
+    k = st.k + n_steps
     if cfg.adaptive_rho:
-        new_ind = (rho_ladder_step(op.rhos, rho_ind, rho_new, cfg.tol,
-                                   cfg.rho_jump) if upd else rho_ind)
+        new_ind = rho_ladder_step(op.rhos, rho_ind, rho_new, cfg.tol,
+                                  cfg.rho_jump)
+        if cfg.rho_stride > 1:
+            # the ceil-div check ordinal, branch-free as the JAX package's
+            chk = torch.div(k + (cfg.check_interval - 1), cfg.check_interval,
+                            rounding_mode="floor")
+            new_ind = torch.where(chk % cfg.rho_stride == 0, new_ind,
+                                  rho_ind)
         if cfg.alpha != 1.0:
             # p is rung-scaled (p = z + R⁻¹λ): re-encode it for the new
             # rung with the elementwise ρ⃗_old/ρ⃗_new (all-ones when the
@@ -393,7 +438,7 @@ def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
         rho_ind = new_ind
     solved = (pri < cfg.eps_pri) & (dua < cfg.eps_dua)
     status = torch.where(solved, STATUS_SOLVED, _RUNNING)
-    x_prev = lam_prev = None
+    new = {}
     if cfg.check_infeasibility:
         x = y[:nx]
         pinf, dinf = infeasibility_certificates(
@@ -404,21 +449,175 @@ def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
                              STATUS_PRIMAL_INFEASIBLE, status)
         status = torch.where((status < 0) & dinf,
                              STATUS_DUAL_INFEASIBLE, status)
-        x_prev, lam_prev = x, lam_now
-    return (_Dev(y, rho_ind, rho_new, x_prev, lam_prev),
-            _bundle(status, pri, dua, rho_ind, rho_new))
+        new.update(x_prev=x, lam_prev=lam_now)
+    running = (status < 0) & (k < cfg.budget)
+    if phase == "A":
+        # 3% better than the best so far in either residual, in the
+        # iterate's dtype; two stalled windows in a row end the phase
+        improved = (pri < cfg.stall * st.best_p) | (dua < cfg.stall
+                                                    * st.best_d)
+        n_stall = torch.where(improved, 0, st.n_stall + 1)
+        new.update(best_p=torch.where(pri < st.best_p, pri, st.best_p),
+                   best_d=torch.where(dua < st.best_d, dua, st.best_d),
+                   n_stall=n_stall, k_fast=k,
+                   open_a=(n_stall < 2) & (k < cfg.cap_a) & running)
+    return st._replace(y=y, rho_ind=rho_ind, rho=rho_new, k=k,
+                       status=status, pri=pri, dua=dua, open=running,
+                       tail=status < 0, **new)
 
 
-def _tail(st: _Dev, op: _Ops, cfg: _Cfg, rem: int, W_op, precision: str):
+def _tail(st: _Dev, op: _Ops, cfg: _Cfg, rem: int, W_op,
+          precision: str) -> _Dev:
     """The ``max_iter % check_interval`` tail iterations and one final
     residual evaluation (no ρ walk, no certificates)."""
     y = cfg.chunk_runner(W_op, _bias_of(st.rho_ind, op, st.y.dtype),
                          st.rho_ind, op.lo, op.hi, st.y, rem, precision)
     pri, dua, rho = _check(y, st.rho, st.rho_ind, op, cfg)
     solved = (pri < cfg.eps_pri) & (dua < cfg.eps_dua)
-    status = torch.where(solved, STATUS_SOLVED, _RUNNING)
-    return (st._replace(y=y, rho=rho),
-            _bundle(status, pri, dua, st.rho_ind, rho))
+    return st._replace(y=y, rho=rho, pri=pri, dua=dua, k=st.k + rem,
+                       status=torch.where(solved, STATUS_SOLVED, st.status))
+
+
+def _result(st: _Dev, op: _Ops, cfg: _Cfg, out: torch.Tensor,
+            with_obj: bool) -> None:
+    """The solve's result bundle, for its one host read: the raw status,
+    iterations, phase-A iterations, residuals, rung, ρ estimate and the
+    objective ½xᵀHx + gᵀx (0 when not asked for)."""
+    f64 = torch.float64
+    zero = torch.zeros((), dtype=f64, device=out.device)
+    obj = (compute_objective(op.H, op.g, st.y[:cfg.nx]).to(f64) if with_obj
+           else zero)
+    k_fast = zero if st.k_fast is None else st.k_fast.to(f64)
+    out.copy_(torch.stack([st.status.to(f64), st.k.to(f64), k_fast,
+                           st.pri.to(f64), st.dua.to(f64),
+                           st.rho_ind.to(f64), st.rho.to(f64), obj]))
+
+
+RESULT_SIZE = 8
+
+
+def state_buffers(graphs, prefix: str, y_like, nx: int, nc: int, *,
+                  check_infeasibility: bool, two_phase: bool) -> _Dev:
+    """A solve's static device state in ``graphs`` (names ``prefix`` +
+    field): y like ``y_like``, the scalars in its dtype or int32."""
+    dtype, dev = y_like.dtype, y_like.device
+    buf = lambda name, shape=(), dt=dtype: graphs.buffer(prefix + name,
+                                                         shape, dt, dev)
+    i32 = torch.int32
+    st = _Dev(buf("y", y_like.shape), buf("rho_ind", (), i32), buf("rho"),
+              buf("k", (), i32), buf("status", (), i32), buf("pri"),
+              buf("dua"), buf("open", (), i32), buf("tail", (), i32))
+    if check_infeasibility:
+        st = st._replace(x_prev=buf("x_prev", (nx,)),
+                         lam_prev=buf("lam_prev", (nc,)))
+    if two_phase:
+        st = st._replace(open_a=buf("open_a", (), i32), best_p=buf("best_p"),
+                         best_d=buf("best_d"), n_stall=buf("n_stall", (), i32),
+                         k_fast=buf("k_fast", (), i32))
+    return st
+
+
+def solve_program(graphs, bank: Bank, qp: DeviceQP, st: _Dev, W_hi=None,
+                  rho_eff=None, bias_lazy=None, M_res=None, *, nx: int,
+                  nc: int, max_iter: int, check_interval: int,
+                  adaptive_rho: bool, adaptive_rho_tolerance: float,
+                  eps_abs: float, rho_min: float, rho_max: float,
+                  chunk_runner: ChunkRunner = xla_chunk_runner,
+                  verbose: bool = False, check_infeasibility: bool = False,
+                  eps_prim_inf: float = 1e-4, eps_dual_inf: float = 1e-4,
+                  rho_jump: bool = False, iter_precision: str = "highest",
+                  refine: bool = True, adaptive_rho_interval: int = 1,
+                  alpha: float = 1.0, with_obj: bool = True,
+                  with_result: bool = True, pre=None, post=None,
+                  prefix: str = "qp."):
+    """A solve as a program (``core.graphs``) over the static state
+    ``st`` (``state_buffers``; ``st.y``, ``st.rho_ind`` and ``st.rho``
+    hold the start state when the program starts) and the static vectors
+    of ``qp`` and ``bias_lazy``: the start piece, the hoisted first window
+    and the window loop (or the two refine phases), the tail under an IF
+    and the result bundle (``with_result``). ``pre`` / ``post``: ``(key,
+    fn)`` pieces of a caller fused into the start and the result piece (a
+    control step's refresh and plant step). Returns ``(items, out)``:
+    ``out`` the static float64 (``RESULT_SIZE``,) result bundle
+    (``_result``)."""
+    dtype, dev = st.y.dtype, st.y.device
+    # Constants stay Python numbers, rounded to the iterate dtype on the
+    # host exactly as the device would round them: a tensor made on the
+    # GPU from a host value is a pageable copy, which waits for the stream
+    # like a sync.
+    eps = torch.tensor(eps_abs, dtype=dtype)
+    eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
+    eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
+    tol = float(torch.tensor(adaptive_rho_tolerance, dtype=dtype))
+    n_chunks = max_iter // check_interval
+    rem = max_iter - n_chunks * check_interval
+    two_phase = refine and iter_precision != "highest"
+    cfg = _Cfg(chunk_runner, nx, nc, alpha, adaptive_rho, rho_jump, tol,
+               eps_pri, eps_dua, float(rho_min), float(rho_max),
+               check_infeasibility, float(eps_prim_inf), float(eps_dual_inf),
+               check_interval, n_chunks * check_interval,
+               rho_update_stride(adaptive_rho_interval, check_interval),
+               (n_chunks // 2) * check_interval,
+               float(_host_scalar_type(dtype)(0.97)), two_phase)
+
+    g_row = None
+    if M_res is not None:
+        if alpha != 1.0:
+            raise ValueError("M_res (stacked residual operator) requires "
+                             "alpha=1 — the operator reads the λ slot "
+                             "directly")
+        nxp, ncp = pad_dim(nx), pad_dim(nc)
+        if tuple(M_res.shape) != (st.y.shape[0], 2 * ncp + 2 * nxp):
+            raise ValueError(f"M_res shape {tuple(M_res.shape)} does not "
+                             f"match (Dp={st.y.shape[0]}, "
+                             f"R={2 * ncp + 2 * nxp})")
+        # written from the static g by the start piece
+        g_row = graphs.buffer(prefix + "g_row", (nxp,), dtype, dev)
+    bias = ("bank", bank.b) if bias_lazy is None else ("lazy", *bias_lazy)
+    op = _Ops(bank.rhos, qp.H, qp.A, qp.g, qp.lo, qp.hi, qp.w_pri, qp.w_dua,
+              rho_eff, M_res, g_row, bias)
+    out = graphs.buffer(prefix + "out", (RESULT_SIZE,), torch.float64, dev)
+    base = (sig(op), sig(st), cfg, sig(out),
+            None if pre is None else pre[0], None if post is None else post[0])
+
+    def start():
+        if pre is not None:
+            pre[1]()
+        _start(st, op, cfg)
+
+    def finish():
+        if with_result:
+            _result(st, op, cfg, out, with_obj)
+        if post is not None:
+            post[1]()
+
+    def show():
+        # (no reference to the cache: a cycle would leave its graphs to the
+        # cyclic collector, which may run during another capture)
+        k, rho, pri, dua = torch.stack([
+            st.k.to(torch.float64), st.rho.to(torch.float64),
+            st.pri.to(torch.float64), st.dua.to(torch.float64)]).tolist()
+        print(f"Iter: {int(k)}, rho: {rho:.2e}, res_p: {pri:.2e}, res_d: "
+              f"{dua:.2e}")
+
+    def window(W_op, precision, phase):
+        return Piece(("window", check_interval, precision, phase, sig(W_op),
+                      base),
+                     lambda: assign(st, _window(st, op, cfg, check_interval,
+                                                W_op, precision, phase)),
+                     show if verbose else None)
+
+    loops, tail_W, tail_prec = refine_items(
+        window, st.open, st.open_a, bank.W, W_hi, refine=refine,
+        iter_precision=iter_precision, hoist_first=n_chunks >= 1)
+    items = [Piece(("start", base), start)] + loops
+    if rem > 0:
+        items.append(Cond(st.tail, (Piece(
+            ("tail", rem, tail_prec, sig(tail_W), base),
+            lambda: assign(st, _tail(st, op, cfg, rem, tail_W, tail_prec))),
+        )))
+    items.append(Piece(("finish", with_obj, with_result, base), finish))
+    return items, out
 
 
 def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
@@ -437,7 +636,7 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
                adaptive_rho_interval: int = 1,
                alpha: float = 1.0,
                with_obj: bool = True,
-               _graphs=None) -> SolveResult:
+               _graphs=None, _per_window: bool = False) -> SolveResult:
     """Run the solver to convergence or ``max_iter``.
 
     Iterations run in ``check_interval`` windows; after each window the
@@ -459,135 +658,68 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
 
     ``M_res``: optional stacked residual operator (alpha=1): one
     ``y @ M_res`` per check instead of three matvecs; ``g_row`` is derived
-    here from ``qp.g``/``qp.w_dua``.
+    on the device from ``qp.g``/``qp.w_dua``.
 
-    ``_graphs``: the ``core.graphs.WindowGraphs`` the windows run through
-    (a solver's own; a fresh one per call when None, which on ``cuda``
-    graphs each window and on the CPU runs it eagerly); ``False`` runs
-    every window eagerly (the A/B of the graphed path).
+    The solve is one program (``solve_program``): on ``cuda`` one launch of
+    a CUDA graph whose WHILE nodes run the windows until the card's own
+    exit flag stops them, then one host read of the result bundle.
+    ``_graphs``: the ``core.graphs.WindowGraphs`` it runs through (a
+    solver's own; a fresh one per call when None, which on ``cuda`` exits
+    on the device and on the CPU runs eagerly); ``False`` runs every piece
+    eagerly. ``verbose`` and ``_per_window`` (a chunk runner with
+    collectives: tensor parallelism) walk the windows from the host, each
+    one replay of its graph.
     """
-    dtype = y0.dtype
-    dev = y0.device
-    # Constants stay Python numbers, rounded to the iterate dtype on the
-    # host exactly as the device would round them: a tensor made on the
-    # GPU from a host value is a pageable copy, which waits for the stream
-    # like a sync.
-    eps = torch.tensor(eps_abs, dtype=dtype)
-    eps_pri = float(eps * torch.sqrt(torch.tensor(float(nc), dtype=dtype)))
-    eps_dua = float(eps * torch.sqrt(torch.tensor(float(nx), dtype=dtype)))
-    tol = float(torch.tensor(adaptive_rho_tolerance, dtype=dtype))
-    n_chunks = max_iter // check_interval
-    rem = max_iter - n_chunks * check_interval
-    rho_stride = rho_update_stride(adaptive_rho_interval, check_interval)
+    dtype, dev = y0.dtype, y0.device
     graphs = window_graphs(_graphs, dev)
-
-    g_row = None
-    if M_res is not None:
-        if alpha != 1.0:
-            raise ValueError("M_res (stacked residual operator) requires "
-                             "alpha=1 — the operator reads the λ slot "
-                             "directly")
-        nxp, ncp = pad_dim(nx), pad_dim(nc)
-        if tuple(M_res.shape) != (y0.shape[0], 2 * ncp + 2 * nxp):
-            raise ValueError(f"M_res shape {tuple(M_res.shape)} does not "
-                             f"match (Dp={y0.shape[0]}, "
-                             f"R={2 * ncp + 2 * nxp})")
-        gv = qp.g if qp.w_dua is None else qp.w_dua * qp.g
-        g_row = torch.zeros((nxp,), dtype=dtype, device=dev)
-        g_row[:nx] = gv.to(dtype)
-    cfg = _Cfg(chunk_runner, nx, nc, alpha, adaptive_rho, rho_jump, tol,
-               eps_pri, eps_dua, float(rho_min), float(rho_max),
-               check_infeasibility, float(eps_prim_inf), float(eps_dual_inf))
-    bias = ("bank", bank.b) if bias_lazy is None else ("lazy", *bias_lazy)
-    ops = _Ops(bank.rhos, qp.H, qp.A, qp.g, qp.lo, qp.hi, qp.w_pri,
-               qp.w_dua, rho_eff, M_res, g_row, bias)
-
-    # the start index and ρ may already be device tensors (the rollout
-    # carries them from step to step); a host value costs one copy here
-    if isinstance(rho_ind0, torch.Tensor):
-        rho_ind_t = rho_ind0.to(device=dev, dtype=torch.int32).reshape(())
-        rho_ind_h = -1      # not read: the first window's bundle sets it
+    two_phase = refine and iter_precision != "highest"
+    # the solve's vectors and start state into the static buffers the
+    # pieces read; the solver's operands stay where they are
+    stage = lambda name, t: graphs.stage("qp." + name, t)
+    qp = qp._replace(g=stage("g", qp.g), lo=stage("lo", qp.lo),
+                     hi=stage("hi", qp.hi))
+    if bias_lazy is None:
+        bank = bank._replace(b=stage("b", bank.b))
     else:
-        rho_ind_t = torch.tensor(int(rho_ind0), dtype=torch.int32,
-                                 device=dev)
-        rho_ind_h = int(rho_ind0)
-    rho_t = torch.as_tensor(rho0, dtype=dtype, device=dev).reshape(())
-    dev0 = _Dev(y0, rho_ind_t, rho_t)
-    if check_infeasibility:
-        dev0 = dev0._replace(x_prev=y0[:nx],
-                             lam_prev=_lam_of(y0, rho_ind_t, ops, cfg))
-    bundle_buf = None
-    if graphs is not None:
-        # the solve's vectors and start state into the static buffers the
-        # graphs read; the solver's operands stay where they are
-        st_in = lambda name, t: graphs.stage("qp." + name, t)
-        bias = (("bank", st_in("b", bias[1])) if bias[0] == "bank"
-                else bias[:4] + (st_in("x", bias[4]),))
-        ops = ops._replace(g=st_in("g", ops.g), lo=st_in("lo", ops.lo),
-                           hi=st_in("hi", ops.hi),
-                           g_row=st_in("g_row", ops.g_row), bias=bias)
-        dev0 = _Dev(*(st_in(f, t) for f, t in zip(_Dev._fields, dev0)))
-        bundle_buf = graphs.buffer("qp.bundle", (5,), torch.float64, dev)
-    base = (sig(ops), sig(dev0), cfg)
-
-    def run(kind, st: _State, n_steps: int, W_op, precision: str, upd,
-            fn) -> _State:
-        key = (kind, n_steps, precision, upd, sig(W_op), base)
-        dev_st, h = run_window(graphs, key, fn, st.dev, bundle_buf)
-        status_h, pri_h, dua_h, ind_h, rho_h = (int(h[0]), h[1], h[2],
-                                                int(h[3]), h[4])
-        if verbose and kind == "window":
-            print(f"Iter: {st.k + n_steps}, rho: {rho_h:.2e}, res_p: "
-                  f"{pri_h:.2e}, res_d: {dua_h:.2e}")
-        return _State(dev_st, st.k + n_steps, status_h, pri_h, dua_h,
-                      ind_h, rho_h)
-
-    def step(st: _State, n_steps: int, W_op, precision: str) -> _State:
-        # ρ updates only every rho_stride-th check (host-known: every
-        # window has a fixed length)
-        k = st.k + n_steps
-        upd = rho_stride == 1 or (-((-k) // check_interval)) % rho_stride == 0
-        return run("window", st, n_steps, W_op, precision, upd,
-                   lambda s: _window(s, ops, cfg, n_steps, W_op, precision,
-                                     upd))
-
-    def running(st: _State) -> bool:
-        return st.status < 0 and st.k < n_chunks * check_interval
-
-    # every solve runs at least one window or the tail, which sets the
-    # host copy of the ρ estimate; NaN only stands in until then
-    state0 = _State(dev0, 0, _RUNNING, 0.0, 0.0, rho_ind_h, float("nan"))
-
-    # Phase policy (reduced-precision phase A + "highest" polish) in
-    # run_refined_phases; the stall metric is the residual pair with a 3%
-    # improvement threshold, compared in the iterate's own precision.
-    sc = _host_scalar_type(dtype)
-    inf0 = float("inf")
-    st, _, tail_W, tail_prec = run_refined_phases(
-        step, running, state0, bank.W, W_hi, refine=refine,
-        iter_precision=iter_precision,
-        cap_a=(n_chunks // 2) * check_interval,
-        check_interval=check_interval,
-        metric=lambda s: (s.pri, s.dua),
-        improved=lambda m, best: bool(sc(m[0]) < sc(0.97) * sc(best[0])
-                                      or sc(m[1]) < sc(0.97) * sc(best[1])),
-        best0=(inf0, inf0))
-
-    if rem > 0 and st.status < 0:
-        # Tail iterations when max_iter % check_interval != 0, then one
-        # final residual evaluation.
-        st = run("tail", st, rem, tail_W, tail_prec, None,
-                 lambda s: _tail(s, ops, cfg, rem, tail_W, tail_prec))
-
-    status = STATUS_MAX_ITER if st.status < 0 else st.status
-    iters = st.k if status != STATUS_MAX_ITER else max_iter
-    y, rho_ind = st.dev.y, st.dev.rho_ind
-    if graphs is not None:
-        # the static buffers belong to the next solve
-        y, rho_ind = y.clone(), rho_ind.clone()
-    obj = (float(compute_objective(qp.H, qp.g, y[:nx])) if with_obj
-           else 0.0)
-    return SolveResult(y=y, iters=iters, pri_res=st.pri, dua_res=st.dua,
-                       rho_estimate=st.rho_h, rho_ind=st.rho_ind_h,
+        bias_lazy = tuple(bias_lazy[:3]) + (stage("x", bias_lazy[3]),)
+    st = graphs.made(
+        ("qp.state", tuple(y0.shape), dtype, dev, nx, nc,
+         check_infeasibility, two_phase),
+        lambda: state_buffers(graphs, "qp.", y0, nx, nc,
+                              check_infeasibility=check_infeasibility,
+                              two_phase=two_phase))
+    st.y.copy_(y0)
+    # a host start index or ρ is written by a fill (no host→device copy)
+    for buf, v in ((st.rho_ind, rho_ind0), (st.rho, rho0)):
+        if isinstance(v, torch.Tensor):
+            buf.copy_(v.reshape(()))
+        else:
+            buf.fill_(v)
+    kw = dict(nx=nx, nc=nc, max_iter=max_iter, check_interval=check_interval,
+              adaptive_rho=adaptive_rho,
+              adaptive_rho_tolerance=adaptive_rho_tolerance,
+              eps_abs=eps_abs, rho_min=rho_min, rho_max=rho_max,
+              chunk_runner=chunk_runner, verbose=verbose,
+              check_infeasibility=check_infeasibility,
+              eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
+              rho_jump=rho_jump, iter_precision=iter_precision,
+              refine=refine, adaptive_rho_interval=adaptive_rho_interval,
+              alpha=alpha, with_obj=with_obj)
+    # a solver's program is made once: the pieces close over static
+    # buffers and the solver's operands only
+    items, out = graphs.made(
+        ("solve", tuple(bank), tuple(qp), st, W_hi, rho_eff, bias_lazy,
+         M_res, frozenset(kw.items())),
+        lambda: solve_program(graphs, bank, qp, st, W_hi, rho_eff,
+                              bias_lazy, M_res, **kw))
+    prog = graphs.program(items, dev, per_window=verbose or _per_window)
+    # the solve's one host read
+    h = graphs.read(out, programs=(prog,)).tolist()
+    raw, k, k_fast, pri, dua, rho_ind_h, rho_h, obj = h
+    status = STATUS_MAX_ITER if raw < 0 else int(raw)
+    iters = int(k) if status != STATUS_MAX_ITER else max_iter
+    # the static buffers belong to the next solve
+    return SolveResult(y=st.y.clone(), iters=iters, pri_res=pri, dua_res=dua,
+                       rho_estimate=rho_h, rho_ind=int(rho_ind_h),
                        converged=status == STATUS_SOLVED, obj_val=obj,
-                       status_code=status, rho_ind_dev=rho_ind)
+                       status_code=status, k_fast=int(k_fast))

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.batched import solve_batched_shared
+from ..core.graphs import sig, window_graphs
+from ..core.iteration import STATUS_MAX_ITER
 from ..ops.fused_step import (pad_dim, pallas_batched_chunk_runner,
                               round_up)
 from ..parallel.sharded import gather_rows
@@ -335,6 +336,34 @@ def _box_rows(nx, nu, horizon, x_min, x_max, u_min, u_max):
 # closed-loop rollout, plant state on the device                        #
 # --------------------------------------------------------------------- #
 
+def _records(graphs, prefix: str, n_steps: int, x_shape, u_shape, dtype,
+             dev):
+    """A loop segment's static records, for capacity ``cap`` steps (the
+    next power of two, so that segments of nearby lengths share graphs):
+    states (cap+1, ...), controls (cap, ...), iterations and status (cap,)
+    int32, the noise rows (cap, ...) and the device step index."""
+    cap = 1 << max(n_steps - 1, 0).bit_length()
+    buf = lambda name, shape, dt=dtype: graphs.buffer(prefix + name, shape,
+                                                      dt, dev)
+    i32 = torch.int32
+    return dict(xs=buf("xs", (cap + 1, *x_shape)),
+                us=buf("us", (cap, *u_shape)), its=buf("its", (cap,), i32),
+                sts=buf("sts", (cap,), i32), noise=buf("noise",
+                                                       (cap, *x_shape)),
+                t=buf("t", (), torch.int64))
+
+
+def _record_step(rec: dict, x_new, u, iters, status) -> None:
+    """A control step's plant state, control, iterations and status into
+    the records at the device step index, which then moves on."""
+    t = rec["t"].reshape(1)
+    rec["xs"].index_copy_(0, t + 1, x_new[None])
+    rec["us"].index_copy_(0, t, u[None])
+    rec["its"].index_copy_(0, t, iters.reshape(1).to(torch.int32))
+    rec["sts"].index_copy_(0, t, status.reshape(1).to(torch.int32))
+    rec["t"].add_(1)
+
+
 def _rollout_impl(W_bank, B_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0,
                   Kg, Ad, Bd, v0_scale, noise, y0, rho_ind0, x0,
                   W_hi=None, rho_eff=None, bias_c=None, M_hi=None, M_lo=None,
@@ -355,78 +384,105 @@ def _rollout_impl(W_bank, B_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0,
     variable back to plant units. Returns ``(xs (T+1, nx), us (T, nu),
     iters (T,), status (T,), y_final, rho_ind_final)``; ``iters`` and
     ``status`` are CPU int32 tensors, the rest stay on the device.
-    ``_graphs``: the solver's ``core.graphs.WindowGraphs`` (every step's
-    solve replays its windows; each step's vectors are staged into it).
+
+    A control step is one program (``core.graphs``): the refresh of g, l,
+    u, the feedback and the drift from the plant state, the solve
+    (``core.iteration.solve_program``: its start, windows, tail and exit
+    on the device, its rung and ρ carried there from the last step), the
+    plant step, and the step's records written at a device step index. On
+    ``cuda`` a step is one graph launch (the JAX package's ``lax.scan``
+    body) and the segment one host read at its end, of the iterations,
+    the status and the final rung. ``_graphs``: the solver's
+    ``core.graphs.WindowGraphs``.
     """
     from ..core.bank import Bank, DeviceQP
-    from ..core.iteration import solve_loop
+    from ..core.iteration import solve_program, state_buffers
 
-    dtype = y0.dtype
-    dev = y0.device
-    pad_lo = torch.full((Dp,), -float("inf"), dtype=dtype, device=dev)
-    pad_hi = torch.full((Dp,), float("inf"), dtype=dtype, device=dev)
-    # bank.b placeholder — the loop forms the bias lazily per rung
-    b_unused = torch.zeros((rhos.shape[0], Dp), dtype=dtype, device=dev)
+    dtype, dev = y0.dtype, y0.device
+    graphs = window_graphs(_graphs, dev)
+    buf = lambda name, shape, dt=dtype: graphs.buffer("mpc." + name, shape,
+                                                      dt, dev)
     # ONE stacked refresh matvec per step: g, the l/u shift, the feedback
     # term Kx and the plant drift Ax all consume the same x (Kx/Ax do not
     # depend on the solve, so computing them before it is exact).
-    gl_map = torch.cat([g_x0, lu_x0, Kg, Ad], dim=0)
-    n_g = g_x0.shape[0]
-    n_lu = lu_x0.shape[0]
-    n_u = Kg.shape[0]
-    bank = Bank(W=W_bank, B=B_bank, b=b_unused, rhos=rhos)
+    gl_map = graphs.stage("mpc.gl_map", torch.cat([g_x0, lu_x0, Kg, Ad]))
+    n_g, n_lu, n_u = g_x0.shape[0], lu_x0.shape[0], Kg.shape[0]
+    npl = x0.shape[0]
+    x, g, kx, ax = buf("x", (npl,)), buf("g", (nx_qp,)), buf("kx", (n_u,)), \
+        buf("ax", (npl,))
+    lo, hi = buf("lo", (Dp,)), buf("hi", (Dp,))
+    two_phase = refine and iter_precision != "highest"
+    st = state_buffers(graphs, "mpc.", y0, nx_qp, nc,
+                       check_infeasibility=check_infeasibility,
+                       two_phase=two_phase)
+    rec = _records(graphs, "mpc.", n_steps, (npl,), (nu,), dtype, dev)
+    qp = DeviceQP(H=H, g=g, A=A, lo=lo, hi=hi, w_pri=w_pri, w_dua=w_dua)
+    bank = Bank(W=W_bank, B=B_bank, b=None, rhos=rhos)
+    if M_hi is None:
+        # b_k = B_k ḡ(x), formed per check window for the current rung only
+        bias_lazy = (None, B_bank, None, g)
+    else:
+        # State-affine bias precomputed in fp64 on the host:
+        # b_k(x) = B_k(ḡ0 + Ḡx0 x) = c_k + M_k x, with M's storage
+        # rounding removed by its cast residual M_lo.
+        bias_lazy = (bias_c, M_hi, M_lo, x)
 
-    # the ladder index is carried on the device (for the kernel) and on the
-    # host (to pick the rung's ρ without a sync)
-    y, x = y0, x0
-    rho_ind = int(rho_ind0)
-    rho_ind_dev = torch.tensor(rho_ind, dtype=torch.int32, device=dev)
-    xs, us, its, sts = [x0], [], [], []
-    for t in range(n_steps):
+    def refresh():
         gs = gl_map @ x
-        g = g0 + gs[:n_g]
+        g.copy_(g0 + gs[:n_g])
         shift = gs[n_g:n_g + n_lu]
-        kx = gs[n_g + n_lu:n_g + n_lu + n_u]
-        ax = gs[n_g + n_lu + n_u:]
-        lo = pad_lo.clone()
+        kx.copy_(gs[n_g + n_lu:n_g + n_lu + n_u])
+        ax.copy_(gs[n_g + n_lu + n_u:])
         lo[nx_qp:nx_qp + nc] = l0 + shift
-        hi = pad_hi.clone()
         hi[nx_qp:nx_qp + nc] = u0_ + shift
-        if M_hi is None:
-            # b_k = B_k ḡ(x), formed per check window for the current
-            # rung only
-            bias_lazy = (None, B_bank, None, g)
-        else:
-            # State-affine bias precomputed in fp64 on the host:
-            # b_k(x) = B_k(ḡ0 + Ḡx0 x) = c_k + M_k x, with M's storage
-            # rounding removed by its cast residual M_lo.
-            bias_lazy = (bias_c, M_hi, M_lo, x)
-        qp = DeviceQP(H=H, g=g, A=A, lo=lo, hi=hi, w_pri=w_pri, w_dua=w_dua)
-        res = solve_loop(
-            bank, qp, y, rho_ind_dev, rhos[rho_ind], W_hi, rho_eff, bias_lazy,
-            M_res,
-            nx=nx_qp, nc=nc, max_iter=max_iter,
-            check_interval=check_interval, adaptive_rho=adaptive_rho,
-            adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
-            rho_min=rho_min, rho_max=rho_max, chunk_runner=chunk_runner,
-            iter_precision=iter_precision, refine=refine,
-            rho_jump=rho_jump, adaptive_rho_interval=adaptive_rho_interval,
-            alpha=alpha, with_obj=False,
-            check_infeasibility=check_infeasibility,
-            eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
-            _graphs=_graphs)
-        v0 = res.y[:nu] * v0_scale
+        # the solve starts from the carried rung's ρ, indexed on the device
+        st.rho.copy_(rhos.index_select(0, st.rho_ind.reshape(1))[0])
+
+    def plant():
+        v0 = st.y[:nu] * v0_scale
         u = -kx + v0
-        x = ax + Bd @ u + noise[t]
-        y, rho_ind, rho_ind_dev = res.y, res.rho_ind, res.rho_ind_dev
-        xs.append(x)
-        us.append(u)
-        its.append(res.iters)
-        sts.append(res.status_code)
-    us_t = torch.stack(us) if us else torch.zeros((0, nu), dtype=dtype,
-                                                  device=dev)
-    return (torch.stack(xs), us_t, torch.tensor(its, dtype=torch.int32),
-            torch.tensor(sts, dtype=torch.int32), y, rho_ind)
+        x_new = ax + Bd @ u + rec["noise"].index_select(
+            0, rec["t"].reshape(1))[0]
+        x.copy_(x_new)
+        status = torch.where(st.status < 0, STATUS_MAX_ITER, st.status)
+        iters = torch.where(status != STATUS_MAX_ITER, st.k, max_iter)
+        _record_step(rec, x_new, u, iters, status)
+
+    touched = sig((gl_map, g0, l0, u0_, x, g, kx, ax, lo, hi, rhos, Bd,
+                   v0_scale, st, tuple(rec.values()))) + (
+        n_g, n_lu, n_u, nx_qp, nc, nu, max_iter)
+    items, _ = solve_program(
+        graphs, bank, qp, st, W_hi, rho_eff, bias_lazy, M_res, nx=nx_qp,
+        nc=nc, max_iter=max_iter, check_interval=check_interval,
+        adaptive_rho=adaptive_rho,
+        adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+        rho_min=rho_min, rho_max=rho_max, chunk_runner=chunk_runner,
+        iter_precision=iter_precision, refine=refine, rho_jump=rho_jump,
+        adaptive_rho_interval=adaptive_rho_interval, alpha=alpha,
+        with_obj=False, with_result=False,
+        check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
+        eps_dual_inf=eps_dual_inf, pre=(("refresh", touched), refresh),
+        post=(("plant", touched), plant), prefix="mpc.")
+
+    # the segment's start: the plant state, the solver state, the noise
+    lo.fill_(-float("inf"))
+    hi.fill_(float("inf"))
+    x.copy_(x0)
+    st.y.copy_(y0)
+    if isinstance(rho_ind0, torch.Tensor):
+        st.rho_ind.copy_(rho_ind0.reshape(()))
+    else:
+        st.rho_ind.fill_(int(rho_ind0))
+    rec["xs"][0].copy_(x0)
+    rec["noise"][:n_steps].copy_(noise)
+    rec["t"].zero_()
+    progs = {graphs.program(items, dev) for _ in range(n_steps)}
+    # the segment's one host read
+    its, sts, rung = graphs.read(rec["its"][:n_steps], rec["sts"][:n_steps],
+                                 st.rho_ind, programs=progs)
+    return (rec["xs"][:n_steps + 1].clone(), rec["us"][:n_steps].clone(),
+            torch.from_numpy(its), torch.from_numpy(sts), st.y.clone(),
+            int(rung))
 
 
 def auto_check_interval(calib_iters, default_ci: int,
@@ -1004,68 +1060,96 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
     step for the whole ensemble.
 
     Per step every scenario's g, l, u refresh from its own plant state, the
-    batched solve (``core.batched.solve_batched_shared``, rho_mode
-    "shared") runs with the state-affine bias ``c_k + X M_kᵀ`` formed for
-    the current rung once per window, and each plant steps with its own
-    control and noise row. ``Y0`` may hold padded rows (``done0``): they
-    run the x = 0 scenario, start done and are sliced off. Returns
-    ``(states (T+1, B, nx), controls (T, B, nu), iters (T,), status (T,),
-    Y_final, rho_ind_final)``; the status lane is ``min`` over the
-    scenarios of the step's status codes, as the JAX package reduces it
+    batched solve (``core.batched.batch_program``, rho_mode "shared", from
+    the carried states and rung) runs with the state-affine bias ``c_k + X
+    M_kᵀ`` formed for the current rung once per window, and each plant
+    steps with its own control and noise row. ``Y0`` may hold padded rows
+    (``done0``): they run the x = 0 scenario, start done and are sliced
+    off. Returns ``(states (T+1, B, nx), controls (T, B, nu), iters (T,),
+    status (T,), Y_final, rho_ind_final)``; the status lane is ``min`` over
+    the scenarios of the step's status codes, as the JAX package reduces it
     (an infeasible scenario reads as SOLVED next to solved ones;
-    ROADMAP §C, F-w2). ``iters``/``status`` are CPU int32 tensors. With a
-    process ``group`` the rows are this rank's plants: every solve's exit
-    is collective and the status lane is the ``min`` over every rank's
-    scenarios (one all-reduce per segment). ``_graphs``: the batch
-    solver's ``core.graphs.WindowGraphs``.
+    ROADMAP §C, F-w2). ``iters``/``status`` are CPU int32 tensors.
+
+    A control step is one program (``core.graphs``), on ``cuda`` one graph
+    launch, and the segment one host read at its end. With a process
+    ``group`` the rows are this rank's plants: every solve's exit is
+    collective, walked window by window from the host, and the status lane
+    is the ``min`` over every rank's scenarios (one all-reduce per
+    segment). ``_graphs``: the batch solver's ``core.graphs.WindowGraphs``.
     """
+    from ..core import batched as cb
+
     B_pad, Dp = Y0.shape
     B_n, npl = X0.shape
     dtype, dev = Y0.dtype, Y0.device
-    pad_lo = torch.full((B_pad, Dp), -float("inf"), dtype=dtype, device=dev)
-    pad_hi = torch.full((B_pad, Dp), float("inf"), dtype=dtype, device=dev)
-    zero_rows = torch.zeros((B_pad - B_n, npl), dtype=dtype, device=dev)
-    Y, rho_ind, X = Y0, rho_ind0, X0
-    Xs, Us, its, sts = [X0], [], [], []
-    for t in range(n_steps):
-        Xp = torch.cat([X, zero_rows]) if B_pad != B_n else X
-        G = g0[None, :] + Xp @ g_x0.T                      # (B_pad, nqp)
-        shift = Xp @ lu_x0.T                               # (B_pad, nc)
-        lo = pad_lo.clone()
+    graphs = window_graphs(_graphs, dev)
+    buf = lambda name, shape: graphs.buffer("scen." + name, shape, dtype, dev)
+    # the plant states, padded rows 0 (the x = 0 scenario); X its first rows
+    Xp = buf("X", (B_pad, npl))
+    X = Xp[:B_n]
+    G, lo, hi = buf("G", (B_pad, g0.shape[0])), buf("lo", (B_pad, Dp)), \
+        buf("hi", (B_pad, Dp))
+    rhos_t = cb._rhos_in(graphs, rhos, dtype)
+    st, cold = cb._cold_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
+                              check_infeasibility, nx_qp, nc, alpha,
+                              rho_eff, refine and iter_precision != "highest")
+    rec = _records(graphs, "scen.", n_steps, (B_n, npl), (B_n, nu), dtype,
+                   dev)
+    ops = cb._Ops(rhos_t, H, A, G, lo, hi, w_pri, w_dua, rho_eff,
+                  ("lazy", bias_c, M_hi, M_lo, Xp))
+
+    def refresh():
+        G.copy_(g0[None, :] + Xp @ g_x0.T)
+        shift = Xp @ lu_x0.T
         lo[:, nx_qp:nx_qp + nc] = l0[None, :] + shift
-        hi = pad_hi.clone()
         hi[:, nx_qp:nx_qp + nc] = u0_[None, :] + shift
-        res = solve_batched_shared(
-            Wt_bank, None, rhos, H, A, G, lo, hi, Y, rho_ind, done0, Wt_hi,
-            rho_eff, w_pri, w_dua, (bias_c, M_hi, M_lo, Xp),
-            nx=nx_qp, nc=nc, max_iter=max_iter,
-            check_interval=check_interval, adaptive_rho=adaptive_rho,
-            adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
-            rho_min=rho_min, rho_max=rho_max, rho_mode="shared",
-            chunk_runner=chunk_runner, rho_jump=rho_jump,
-            iter_precision=iter_precision, refine=refine,
-            adaptive_rho_interval=adaptive_rho_interval, alpha=alpha,
-            check_infeasibility=check_infeasibility,
-            eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
-            group=group, _graphs=_graphs)
+
+    def plant():
         # unscale the first-stage variable back to plant units
-        V0 = res.Y[:B_n, :nu] * v0_scale[None, :]
+        V0 = st.Y[:B_n, :nu] * v0_scale[None, :]
         U = -(X @ Kg.T) + V0
-        X = (X @ Ad.T + U @ Bd.T) + noise[t]
-        Y, rho_ind = res.Y, res.rho_ind
-        Xs.append(X)
-        Us.append(U)
-        its.append(res.n_iter_total)
-        sts.append(res.status[:B_n].min())
-    us_t = torch.stack(Us) if Us else torch.zeros((0, B_n, nu), dtype=dtype,
-                                                  device=dev)
-    st = torch.stack(sts) if sts else torch.zeros((0,), dtype=torch.int32,
-                                                  device=dev)
-    if group is not None and sts:
-        dist.all_reduce(st, op=dist.ReduceOp.MIN, group=group)
-    st = st.cpu().to(torch.int32)   # one read per segment
-    return (torch.stack(Xs), us_t, torch.tensor(its, dtype=torch.int32), st,
-            Y, int(rho_ind))
+        X_new = (X @ Ad.T + U @ Bd.T) + rec["noise"].index_select(
+            0, rec["t"].reshape(1))[0]
+        X.copy_(X_new)
+        _record_step(rec, X_new, U, st.k, st.status[:B_n].min())
+
+    touched = sig((Xp, G, lo, hi, g0, g_x0, l0, u0_, lu_x0, Kg, Ad, Bd,
+                   v0_scale, st, tuple(rec.values()))) + (nx_qp, nc, nu, B_n)
+    items, _ = cb.batch_program(
+        graphs, ops, st, Wt_bank, Wt_hi, shared=True,
+        chunk_runner=chunk_runner or cb._chunk_shared_rho, nx=nx_qp, nc=nc,
+        max_iter=max_iter, check_interval=check_interval,
+        adaptive_rho=adaptive_rho,
+        adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+        rho_min=rho_min, rho_max=rho_max, rho_jump=rho_jump,
+        check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
+        eps_dual_inf=eps_dual_inf, iter_precision=iter_precision,
+        refine=refine, adaptive_rho_interval=adaptive_rho_interval,
+        alpha=alpha, cold=cold, group=group, stats=False,
+        pre=(("refresh", touched), refresh), post=(("plant", touched),
+                                                    plant))
+
+    # the segment's start: the plant states, the noise
+    lo.fill_(-float("inf"))
+    hi.fill_(float("inf"))
+    Xp.zero_()
+    X.copy_(X0)
+    rec["xs"][0].copy_(X0)
+    rec["noise"][:n_steps].copy_(noise)
+    rec["t"].zero_()
+    progs = {graphs.program(items, dev, per_window=group is not None)
+             for _ in range(n_steps)}
+    sts = rec["sts"][:n_steps]
+    if group is not None and n_steps:
+        sts = sts.clone()
+        dist.all_reduce(sts, op=dist.ReduceOp.MIN, group=group)
+    # the segment's one host read
+    its, sts, rung = graphs.read(rec["its"][:n_steps], sts, st.rho_ind,
+                                 programs=progs)
+    return (rec["xs"][:n_steps + 1].clone(), rec["us"][:n_steps].clone(),
+            torch.from_numpy(its), torch.from_numpy(sts), st.Y.clone(),
+            int(rung))
 
 
 def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,
@@ -1220,12 +1304,9 @@ def _loop_scenario_rollout(m, prob: CondensedMPC, X0, n_steps: int,
     solver: its cached ``_loop_scenario_operands`` and its padded rows
     marked done."""
     stng = m.settings
-    dev = stng.device
     maps, (bias_c, M_hi, M_lo) = _loop_scenario_operands(m, prob)
-    rho0 = (rho_ind0 if isinstance(rho_ind0, torch.Tensor)
-            else torch.tensor(int(rho_ind0), dtype=torch.int32, device=dev))
     return _scenario_rollout_impl(
-        m.Wt_bank, m.rhos, m.H_dev, m.A_dev, *maps, noise, Y0, rho0, X0,
+        m.Wt_bank, m.rhos, m.H_dev, m.A_dev, *maps, noise, Y0, rho_ind0, X0,
         m._Wt_hi, m._rho_eff, bias_c, M_hi, M_lo, m._w_pri, m._w_dua,
         m._done0(), nx_qp=m.nx, nc=m.nc, nu=prob.K.shape[0], n_steps=n_steps,
         max_iter=solve_max_iter or stng.max_iter, check_interval=ci,

@@ -235,7 +235,10 @@ def solve_sharded_shared(mesh, Wt_bank, bias_all, rhos, H, A, G, lo, hi,
         raise ValueError(f"batch {total} not divisible by mesh axis {size}: "
                          f"the ranks hold {counts.tolist()} rows — pad the "
                          "batch (inert rows: lo=-inf, hi=+inf)")
-    return solve_batched_shared(
+    res = solve_batched_shared(
         Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0, rho_ind0, done0,
         Wt_bank_hi, rho_eff, w_pri, w_dua, rho_mode=rho_mode,
         chunk_runner=chunk_runner, group=group, **solve_kw)
+    # the loop leaves its result bundle unread under a group
+    k, k_fast = res.out[:2].tolist()
+    return res._replace(n_iter_total=int(k), n_iter_fast=int(k_fast))

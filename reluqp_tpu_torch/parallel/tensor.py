@@ -92,5 +92,7 @@ def solve_loop_tp(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
     ``solve_kw`` are solve_loop's settings (nx, nc, max_iter, ...) but
     ``chunk_runner``, which this supplies. Every rank returns the same
     result."""
+    # its windows' all-gathers run window by window from the host
     return solve_loop(bank, qp, y0, rho_ind0, rho0, W_hi, rho_eff, None,
-                      M_res, chunk_runner=tp_chunk_runner(group), **solve_kw)
+                      M_res, chunk_runner=tp_chunk_runner(group),
+                      _per_window=True, **solve_kw)

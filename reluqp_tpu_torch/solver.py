@@ -94,8 +94,8 @@ class ReLU_QP:
         self._ready = False
         self._mesh, self._tp_axis = None, "tp"
         self._tp_group, self._tp_rank, self._tp_size = None, 0, 1
-        # the check windows' CUDA graphs (core.graphs); False runs every
-        # window eagerly
+        # the solves' device programs and window graphs (core.graphs);
+        # False runs every piece eagerly
         self._window_graphs = WindowGraphs()
 
     # ------------------------------------------------------------------ #

@@ -792,7 +792,9 @@ def test_graphed_loop_mpc_equals_eager(dev):
         launches[graphed] = fused_chunk.launches - before
         cache = ctrl.solver._window_graphs
     _same_bits(outs[False], outs[True])
-    assert 1 <= cache.captures <= 4 and cache.replays >= 30
+    # a control step is one device program: step 1 walks it, steps 2..30
+    # launch it
+    assert 1 <= cache.captures <= 4 and cache.replays == 29
     assert launches[True] == launches[False]
 
 
@@ -843,3 +845,68 @@ def test_graphed_hetero_batch_equals_eager(dev):
     assert launches[True] == launches[False]
     for a, b in zip(runs[False], runs[True]):
         _same_bits(a, b)
+
+
+# --------------------------------------------------------------------- #
+# a solve as one device program (the WHILE nodes of csrc/graph_loop.cu)  #
+# --------------------------------------------------------------------- #
+
+def test_device_exit_canonical_qp_equals_per_window(dev):
+    """The canonical QP through K1: three cold solves as one device program
+    each (the first walked, the second built, the third launched) against
+    the same solves walked window by window: bit-equal, K1 launches equal
+    (counted from the program's body counts), one program built."""
+    qp = canonical_qp()
+    runs, launches = {}, {}
+    for device_exit in (False, True):
+        m = rqt.ReLU_QP()
+        m.setup(qp.H, qp.g, qp.A, qp.l, qp.u, eps_abs=1e-6,
+                check_interval=5)
+        m._window_graphs.device_exit = device_exit
+        before = fused_chunk.launches
+        runs[device_exit] = []
+        for _ in range(3):
+            m.clear_primal_dual()
+            runs[device_exit].append(_qp_bits(m.solve()))
+        launches[device_exit] = fused_chunk.launches - before
+        cache = m._window_graphs
+    assert cache.programs == 1 and cache.replays == 2
+    assert launches[True] == launches[False] > 3
+    for a, b in zip(runs[False], runs[True]):
+        _same_bits(a, b)
+
+
+def test_device_exit_loop_mpc_equals_per_window(dev):
+    """20 loop-MPC control steps, each one device program (refresh, solve,
+    plant step) against the same steps walked window by window:
+    bit-equal, K1 launches equal."""
+    Ad, Bd = mpc.random_linear_system(6, 2, seed=0)
+    x0 = 0.5 * np.random.RandomState(0).randn(6)
+    outs, launches = {}, {}
+    for device_exit in (False, True):
+        ctrl = mpc.MPC(Ad, Bd, np.eye(6), 0.1 * np.eye(2), horizon=5,
+                       u_min=-1.0, u_max=1.0, eps_abs=1e-4)
+        ctrl.solver._window_graphs.device_exit = device_exit
+        before = fused_chunk.launches
+        outs[device_exit] = mpc.mpc_rollout_scan(
+            ctrl.solver, ctrl.prob, x0, 20, kernel="loop", check_interval=5,
+            return_stats=True, return_state=True)
+        launches[device_exit] = fused_chunk.launches - before
+        cache = ctrl.solver._window_graphs
+    _same_bits(outs[False], outs[True])
+    assert cache.programs == 1 and cache.replays == 19
+    assert launches[True] == launches[False]
+
+
+def test_device_program_build_failure_raises(dev):
+    """A device program the card refuses to build raises (here a child
+    graph node on no graph); nothing runs the solve another way."""
+    from reluqp_tpu_torch.core.graphs import GraphProgram
+
+    class NoGraph:
+        def raw(self):
+            return 0
+
+    counts = torch.zeros(1, dtype=torch.float64, device=dev)
+    with pytest.raises(RuntimeError, match="device program"):
+        GraphProgram([("graph", NoGraph())], counts)

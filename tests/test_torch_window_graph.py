@@ -131,7 +131,9 @@ def _eps(precision):
 def test_single_qp_graphed_equals_eager(precision, backend, kw):
     """A cold solve, then ``update(g)``, ``update(l, u)``, ``warm_start``
     and ``clear_primal_dual``, each followed by a solve: bit-equal to
-    eager, and after the first solve no new capture."""
+    eager, and after the second solve no new capture (the first captures
+    the window, used twice in it; the second the pieces a solve runs once:
+    its start and its result)."""
     inst = rand_qp(16, 4, 4, seed=3, compute_sol=False)
     rng = np.random.default_rng(0)
     g2 = inst.g + 0.1 * rng.standard_normal(inst.g.shape)
@@ -143,9 +145,9 @@ def test_single_qp_graphed_equals_eager(precision, backend, kw):
                 max_iter=200, **kw)
         cache = _graphed(m) if graphed else None
         seq = [_qp_out(m.solve())]
-        n_cap = cache.captures if graphed else None
         m.update(g=g2)
         seq.append(_qp_out(m.solve()))
+        n_cap = cache.captures if graphed else None
         m.update(**_widened(inst.l, inst.u))
         seq.append(_qp_out(m.solve()))
         m.warm_start(x=np.zeros(16), lam=np.zeros(8))
@@ -210,9 +212,12 @@ def test_tail_and_refine_phases_have_keys_of_their_own(precision):
     for a, b in zip(*outs):
         _same(a, b)
     assert outs[1][0][4] == "max_iters_reached"
-    kinds = {k[:3] for k in cache.keys()}
+    kinds = {k[:3] for k in cache.keys() if k[0] in ("window", "tail")}
     assert kinds == {("window", 5, "high"), ("window", 5, "highest"),
                      ("tail", 3, "highest")}, kinds
+    # and the solve's start and result pieces, one key each
+    assert sorted(k[0] for k in cache.keys()
+                  if k[0] not in ("window", "tail")) == ["finish", "start"]
 
 
 @pytest.mark.parametrize("precision", ["float64", "float32"])
