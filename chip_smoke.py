@@ -140,13 +140,15 @@ Phases (each raises on failure; nothing is caught):
     iterations, x within REPACK_X_TOL, K4 launches by row capacity (K4
     only), syncs per solve (the dense solve exits on the device: one;
     repack, walked window by window, no more than the dense solve walked
-    so plus one per stage boundary); K4 alone on the
+    so); K4 alone on the
     dense batch's bank, bias, bounds and state (one 25-step window by CUDA
     events and device time beside its plain version, 25 ``torch.addmm`` +
     clamp, the bound and the plan; with ``--parent``, beside the parent's
     K4 before and after) and one dense solve's device time by kernel; each
     solve's least time of REPACK_REPS by CUDA events
-    (``utils.timing.time_fn_events``), and the budget-exhaustion case (eps
+    (``utils.timing.time_fn_events``; with ``--parent``, the parent's
+    repack solve before and after, and whether its x, iterations and
+    status are the same bits), and the budget-exhaustion case (eps
     1e-4, max_iter 50): equal status and iterations;
 23. checkpoints on the card: the protocol QP (nx = 100) with
     ``backend="fused"``, phase 19's B = 1024 batch (warm) and
@@ -817,13 +819,14 @@ def launches_between_reads(run):
     return segs + [n]
 
 
-def sync_sites(tag, run, steps):
+def sync_sites(tag, run, steps, root=None):
     """Where ``run()`` (``steps`` steps) makes the host wait for the card:
     every synchronizing CUDA call under torch's sync debug mode, counted by
     the Python line that made it (and, where that line is torch's, the
     package line that called into torch). A sync whose stack holds no line
-    of the package was not made by the solver (``run`` is this script's
-    call into it): it is logged with its stack and not counted."""
+    of the package (this checkout's, or the one at ``root``) was not made
+    by the solver (``run`` is this script's call into it): it is logged
+    with its stack and not counted."""
     import collections
     import traceback
     import warnings
@@ -831,7 +834,7 @@ def sync_sites(tag, run, steps):
     here = os.path.dirname(os.path.abspath(__file__))
     name = lambda f: (os.path.relpath(f, here) if f.startswith(here)
                       else "torch/" + f.split("/torch/", 1)[-1])
-    pkg = os.path.join(here, "reluqp_tpu_torch")
+    pkg = os.path.join(os.path.abspath(root or here), "reluqp_tpu_torch")
     caught, outside = [], []
 
     def show(message, category, filename, lineno, file=None, line=None):
@@ -839,7 +842,8 @@ def sync_sites(tag, run, steps):
             return
         site = f"{name(filename)}:{lineno}"
         stack = traceback.extract_stack()[:-1]
-        ours = [f for f in stack if f.filename.startswith(pkg)]
+        ours = [f for f in stack
+                if os.path.abspath(f.filename).startswith(pkg)]
         if not ours:
             outside.append(site + " <- " + " <- ".join(
                 f"{name(f.filename)}:{f.lineno}" for f in stack[::-1][:6]))
@@ -2707,6 +2711,8 @@ REPACK_KW = dict(eps_abs=1e-3, precision="float32", iter_precision="highest")
 # repack drops converged rows that the dense loop keeps iterating around
 # their fixed points: x agrees to that drift, not to rounding
 REPACK_X_TOL = 1e-2
+# parent / this tree pairs of phase 22's repack A/B (with --parent)
+REPACK_AB_PAIRS = 10
 REPACK_REPS = 3
 # the budget-exhaustion case: max_iter 50 (2 windows) at eps 1e-4, where
 # about a tenth of the batch certifies (a stage exit before the budget ends
@@ -2930,9 +2936,11 @@ def phase_repack(card, parent=None):
     benchmarks/batched_qps.py's shared batch at B=10000 through K4: equal
     per-row status and first-convergence iterations, x within the
     post-convergence drift; K4 launches by stage capacity; syncs per
-    window; each solve's least time of REPACK_REPS by CUDA events; then
-    the budget-exhaustion case."""
+    window; each solve's least time of REPACK_REPS by CUDA events (with
+    ``parent``, the parent's repack solve before and after); then the
+    budget-exhaustion case."""
     import collections
+    import torch
     import reluqp_tpu_torch.batch as tbatch
     from reluqp_tpu_torch import BatchedReLU_QP
     from reluqp_tpu_torch.ops.fused_step import batched_plan
@@ -2988,11 +2996,11 @@ def phase_repack(card, parent=None):
         f"{dict(sorted(rows_r.items(), reverse=True))}")
     # (sync_sites reports per "step": here a check window). The dense
     # solve exits on the device: one read; repack walks its stages window
-    # by window, no more reads than the dense solve walked so, plus one
-    # per stage boundary (the stage loop's last flag)
+    # by window, no more reads than the dense solve walked so (a stage
+    # boundary adds none: the next stage starts from the last read)
     for m in ms.values():
-        # the runner patched above keyed other pieces: the first solve with
-        # the real one walks the program, the second builds it
+        # the runner patched above made programs of its own: the first
+        # solve with the real one walks its program, the second builds it
         repack_solve(m)
         repack_solve(m)
     syncs = {p: sync_sites(f"phase 22 {p}", lambda m=m: repack_solve(m),
@@ -3001,7 +3009,7 @@ def phase_repack(card, parent=None):
         syncs_w = sync_sites("phase 22 dense per-window",
                              lambda: repack_solve(md), windows)
     assert syncs["dense"] == 1, syncs
-    assert syncs["repack"] <= syncs_w + len(sched), (syncs, syncs_w)
+    assert syncs["repack"] <= syncs_w, (syncs, syncs_w)
     k4 = k4_shared_timing(card, md, windows, parent)
     t = {p: time_fn_events(repack_solve, m, reps=REPACK_REPS)["best"]
          for p, m in ms.items()}
@@ -3010,6 +3018,37 @@ def phase_repack(card, parent=None):
         f"{t['repack'] * 1e3:.3f} ms (ratio {t['repack'] / t['dense']:.3f});"
         f" syncs per window: dense {syncs['dense'] / windows:.2f}, repack "
         f"{syncs['repack'] / windows:.2f}")
+    if parent:
+        # the parent's repack solve on the same batch: REPACK_AB_PAIRS
+        # pairs, the side that runs first alternating
+        mp = parent_module(parent, "batch").BatchedReLU_QP()
+        mp.setup(*data, tail_policy="repack", **REPACK_KW)
+        rp = repack_solve(mp)
+        same = (bool(torch.equal(rp.x, rr.x))
+                and bool((rp.info.iter == rr.info.iter).all())
+                and bool((rp.info.status_code == rr.info.status_code).all()))
+        syncs_p = sync_sites("phase 22 parent repack",
+                             lambda: repack_solve(mp), windows, parent)
+        ab = {"parent": [], "this tree": []}
+        for i in range(REPACK_AB_PAIRS):
+            order = ("parent", "this tree")[::1 - 2 * (i % 2)]
+            for side in order:
+                ab[side].append(time_fn_events(
+                    repack_solve, mp if side == "parent" else mr,
+                    reps=REPACK_REPS)["best"] * 1e3)
+        wins = sum(a < b for a, b in zip(ab["this tree"], ab["parent"]))
+        q = {k: np.percentile(v, [25, 50, 75]) for k, v in ab.items()}
+        log(f"phase 22 repack A/B on {card}: {REPACK_AB_PAIRS} pairs "
+            f"(each side the least of {REPACK_REPS} solves by CUDA events, "
+            f"the side run first alternating): "
+            + "; ".join(f"{k} median {q[k][1]:.3f} ms (quartiles "
+                        f"{q[k][0]:.3f}..{q[k][2]:.3f}; all "
+                        f"{', '.join(f'{x:.3f}' for x in v)})"
+                        for k, v in ab.items())
+            + f"; this tree faster in {wins} of {REPACK_AB_PAIRS} pairs; "
+            f"syncs per solve: parent {syncs_p}, this tree "
+            f"{syncs['repack']}; x, iterations and status bit-equal to the "
+            f"parent's: {same}")
 
     for eps in REPACK_BUDGET_EPS:
         out = {}

@@ -55,7 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.fused_step import _bf16, fused_chunk_ref
-from .graphs import Cond, Piece, sig, window_graphs
+from .graphs import Cond, Piece, Program, sig, window_graphs
 from .iteration import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
                         STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED,
                         _host_scalar_type, assign, refine_items,
@@ -251,7 +251,9 @@ def _batched_steps(Wt, b, lo, hi, Y, n_steps: int, iter_precision: str):
 
 class _Dev(NamedTuple):
     """The device state of a batched solve: static buffers its pieces read
-    and write (a cache's, or this call's own when eager)."""
+    and write (a cache's, or this call's own when eager). The int32
+    scalars but the rung are elements of ``ctl``, which a host walk reads
+    in one copy."""
     Y: torch.Tensor           # (B, Dp) stacked states
     rho_ind: torch.Tensor     # () or (B,) int32 ladder indices
     rho: torch.Tensor         # (B,) last ρ estimates
@@ -271,6 +273,7 @@ class _Dev(NamedTuple):
     best_open: Optional[torch.Tensor] = None  # open count, stalled
     n_stall: Optional[torch.Tensor] = None    # windows in a row and
     k_fast: Optional[torch.Tensor] = None     # iterations run
+    ctl: Optional[torch.Tensor] = None        # (n,) int32: the scalars
 
 
 class _Ops(NamedTuple):
@@ -384,21 +387,22 @@ def _buffers(graphs, B, y_shape, ind_shape, dtype, dev, nx, nc,
     buf = lambda name, shape, dt=dtype: graphs.buffer("batch." + name,
                                                       shape, dt, dev)
     i32 = torch.int32
+    ints = ["k", "n_open", "open", "tail"] + (
+        ["open_a", "best_open", "n_stall", "k_fast"] if two_phase else [])
+    ctl = buf("ctl", (len(ints),), i32)
+    c = {name: ctl[i] for i, name in enumerate(ints)}
     d = _Dev(buf("Y", y_shape), buf("rho_ind", ind_shape, i32),
              buf("rho", (B,)), buf("pri", (B,)), buf("dua", (B,)),
              buf("done", (B,), torch.bool), buf("iters", (B,), i32),
-             buf("status", (B,), i32), buf("k", (), i32),
-             n_open=buf("n_open", (), i32), open=buf("open", (), i32),
-             tail=buf("tail", (), i32))
+             buf("status", (B,), i32), c["k"], n_open=c["n_open"],
+             open=c["open"], tail=c["tail"], ctl=ctl)
     if check_infeasibility:
         d = d._replace(X_prev=buf("X_prev", (B, nx)),
                        Lam_prev=buf("Lam_prev", (B, nc)))
     if two_phase:
-        d = d._replace(open_a=buf("open_a", (), i32),
-                       best_m=buf("best_m", ()),
-                       best_open=buf("best_open", (), i32),
-                       n_stall=buf("n_stall", (), i32),
-                       k_fast=buf("k_fast", (), i32))
+        d = d._replace(open_a=c["open_a"], best_m=buf("best_m", ()),
+                       best_open=c["best_open"], n_stall=c["n_stall"],
+                       k_fast=c["k_fast"])
     return d
 
 
@@ -505,7 +509,11 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
     dropped, and they already count for nothing in the shared-ρ walk, so
     open rows follow the dense loop's trajectories. Each stage is walked
     from the host, window by window (every stage capacity has its own
-    graphs); the compaction between stages runs eagerly.
+    graphs), one read of the control vector per window; the next stage
+    starts from the open count and iterations of that last read (its flags
+    the host's: a carried stage has no start piece), so a stage boundary
+    adds no read and no launch. The compaction between stages runs
+    eagerly.
 
     Single-phase only (``refine=False`` semantics: a phase switch cannot be
     carried across stage boundaries), and ``max_iter`` a multiple of
@@ -566,31 +574,49 @@ def solve_batched_shared_repack(Wt_bank, bias_all, rhos, H, A, G, lo, hi,
         # every stage reads the full batch's bias bank: staged once
         bias_all = graphs.stage("batch.bias", bias_all)
     G_s, lo_s, hi_s, bias_s, wp_s, wd_s = G, lo, hi, bias_all, w_pri, w_dua
+    budget = (max_iter // check_interval) * check_interval
+    # the open rows and iterations the next stage starts from, known to the
+    # host from the last stage's last read of its control vector
+    n_open = k = None
     for si in range(len(schedule)):
         last = si == len(schedule) - 1
+        stop = 0 if last else schedule[si + 1]
         bias = (("rows", bias_all, orig) if shared and si > 0
                 else ("bank", bias_s))
         ops, st = _staged(graphs, _Ops(rhos_t, H, A, G_s, lo_s, hi_s, wp_s,
                                        wd_s, rho_eff, bias), st)
-        items, out = batch_program(
-            graphs, ops, st, Wt_bank, None, cold=cold if si == 0 else None,
-            stop_open=0 if last else schedule[si + 1], with_rem=last,
-            stats=False, **loop)
-        graphs.program(items, dev_t, per_window=True)
+        # a stage's program is made once per solver: it closes over static
+        # buffers and the solver's operands only
+        first = cold if si == 0 else None
+        prog, _ = graphs.made(
+            ("repack", Wt_bank, tuple(ops), st, None if first is None
+             else first[0], stop, last, frozenset(loop.items())),
+            lambda: batch_program(
+                graphs, ops, st, Wt_bank, None, cold=first, stop_open=stop,
+                with_rem=last, stats=False, with_result=False, **loop))
+        # a carried stage starts from the flags of the last read
+        known = () if si == 0 else (
+            (st.k, k), (st.n_open, n_open),
+            (st.open, int(n_open > stop and k < budget)),
+            (st.tail, int(n_open > 0)))
+        graphs.program(prog, dev_t, per_window=True, known=known)
+        n_open, k = prog.value(st.n_open), prog.value(st.k)
         if acc is None:
             acc = {f: getattr(st, f).clone() for f in rows}
         else:
             for f in rows:
                 acc[f][orig] = getattr(st, f)
         if last:
-            # the iterations run, read once after the last stage
-            k = int(graphs.read(out)[0])
+            if k is None:
+                # a tail window ran after the walk's last read
+                k = int(graphs.read(st.k))
             break
         # stable sort: the open rows first, in their original order
         cap = schedule[si + 1]
         sel = torch.argsort(st.done.to(torch.int8), stable=True)[:cap]
-        st = st._replace(n_open=st.n_open.clamp(max=cap),
-                         **{f: getattr(st, f)[sel] for f in carried})
+        st.n_open.clamp_(max=cap)
+        n_open = min(n_open, cap)
+        st = st._replace(**{f: getattr(st, f)[sel] for f in carried})
         orig = orig[sel]
         G_s, lo_s, hi_s = G_s[sel], lo_s[sel], hi_s[sel]
         if not shared:
@@ -724,7 +750,7 @@ def _solve_batched(Wt_bank, bias, rhos, H, A, G, lo, hi, Y0, rho_ind0,
               alpha=alpha)
     # a solver's program is made once: the pieces close over static
     # buffers and the solver's operands only
-    items, out = graphs.made(
+    prog, out = graphs.made(
         ("batch", Wt_bank, Wt_bank_hi, tuple(ops), st, cold[0],
          frozenset(kw.items())),
         lambda: batch_program(graphs, ops, st, Wt_bank, Wt_bank_hi,
@@ -732,9 +758,9 @@ def _solve_batched(Wt_bank, bias, rhos, H, A, G, lo, hi, Y0, rho_ind0,
     if loop.get("group") is not None:
         # walked window by window; the result bundle is read with the
         # results' one gather (``BatchedReLU_QP._fill_results``)
-        graphs.program(items, Y0.device, per_window=True)
+        graphs.program(prog, Y0.device, per_window=True)
         return _wrap_result(st, None, out.clone())
-    prog = graphs.program(items, Y0.device)
+    prog = graphs.program(prog, Y0.device)
     return _wrap_result(st, graphs.read(out, programs=(prog,)))
 
 
@@ -847,8 +873,9 @@ def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
 
 
 def _staged(graphs, ops: _Ops, dev: Optional[_Dev] = None):
-    """The solve's vectors (and ``dev``, a compacted state) in ``graphs``'
-    static buffers (a bias bank or row map staged already is kept)."""
+    """The solve's vectors (and the rows of ``dev``, a compacted state) in
+    ``graphs``' static buffers (a bias bank or row map staged already is
+    kept; the scalars stay where they are)."""
     st = lambda name, t: graphs.stage("batch." + name, t)
     kind = ops.bias[0]
     if kind == "bank":
@@ -863,7 +890,8 @@ def _staged(graphs, ops: _Ops, dev: Optional[_Dev] = None):
                        w_dua=st("w_dua", ops.w_dua), bias=bias)
     if dev is None:
         return ops
-    return ops, _Dev(*(st(f, t) for f, t in zip(_Dev._fields, dev)))
+    return ops, _Dev(*(t if t is None or t.dim() == 0 or f == "ctl"
+                       else st(f, t) for f, t in zip(_Dev._fields, dev)))
 
 
 def batch_program(graphs, ops: _Ops, st: _Dev, Wt_bank, Wt_bank_hi, *,
@@ -875,23 +903,26 @@ def batch_program(graphs, ops: _Ops, st: _Dev, Wt_bank, Wt_bank_hi, *,
                   eps_dual_inf: float, iter_precision: str, refine: bool,
                   adaptive_rho_interval: int, alpha: float, cold=None,
                   stop_open: int = 0, with_rem: bool = True, group=None,
-                  stats: bool = True, pre=None, post=None):
+                  stats: bool = True, with_result: bool = True, pre=None,
+                  post=None):
     """A batched solve (or one repack stage) as a program (``core.graphs``)
     over the static state ``st`` and vectors ``ops``: the start piece (the
-    ``cold`` state when given, then the exit flags from the carried open
-    count and iteration count), the window loop (or the two refine
-    phases), the ``max_iter % check_interval`` tail window under an IF
-    (``with_rem``) and the result piece. The loop runs until at most
+    ``cold`` state and the exit flags; a carried state, ``cold`` None, has
+    none: its flags are the host's, handed to the walk), the window loop
+    (or the two refine phases), the ``max_iter % check_interval`` tail
+    window under an IF (``with_rem``) and the result piece. The loop runs until at most
     ``stop_open`` problems are open or the ``max_iter`` budget (counted
     in the carried iterations) is spent. ``shared`` walks one index by the
     geometric mean, else every problem walks its own. With a process
     ``group`` the open count, the stall metric's sums and the shared walk's
     statistics are sums over its ranks. ``pre`` / ``post``: ``(key, fn)``
     pieces of a caller fused into the start and the result piece (a
-    control step's refresh and plant step). Returns ``(items, out)``:
+    control step's refresh and plant step). Returns
+    ``(program, out)``: a ``core.graphs.Program`` over ``st.ctl``, and
     ``out`` the static float64 result bundle ``[k, k_fast, n_open]`` and,
     with ``stats``, the (6, B) per-problem iterations, status, residuals,
-    ρ estimates and rungs (``_wrap_result``)."""
+    ρ estimates and rungs (``_wrap_result``), written by the result piece
+    (left out without ``with_result`` and ``post``)."""
     dtype, dev = st.Y.dtype, st.Y.device
     sc = _host_scalar_type(dtype)
     eps = torch.tensor(eps_abs, dtype=dtype)
@@ -916,11 +947,10 @@ def batch_program(graphs, ops: _Ops, st: _Dev, Wt_bank, Wt_bank_hi, *,
     base = (sig(ops), sig(st), cfg, sig(out), sig(key(cold)), key(pre),
             key(post))
 
-    def start():
+    def begin():
         if pre is not None:
             pre[1]()
-        if cold is not None:
-            cold[1]()
+        cold[1]()
         running = (st.n_open > cfg.stop_open) & (st.k < cfg.budget)
         st.open.copy_(running)
         st.tail.copy_(st.n_open > 0)
@@ -932,15 +962,18 @@ def batch_program(graphs, ops: _Ops, st: _Dev, Wt_bank, Wt_bank_hi, *,
             st.k_fast.zero_()
 
     def finish():
-        f64 = torch.float64
-        k_fast = (torch.zeros((), dtype=f64, device=dev)
-                  if st.k_fast is None else st.k_fast.to(f64))
-        parts = [torch.stack([st.k.to(f64), k_fast, st.n_open.to(f64)])]
-        if stats:
-            rungs = torch.broadcast_to(st.rho_ind, st.iters.shape)
-            parts.append(torch.stack([st.iters, st.status, st.pri, st.dua,
-                                      st.rho, rungs]).to(f64).reshape(-1))
-        out.copy_(torch.cat(parts))
+        if with_result:
+            f64 = torch.float64
+            k_fast = (torch.zeros((), dtype=f64, device=dev)
+                      if st.k_fast is None else st.k_fast.to(f64))
+            parts = [torch.stack([st.k.to(f64), k_fast,
+                                  st.n_open.to(f64)])]
+            if stats:
+                rungs = torch.broadcast_to(st.rho_ind, st.iters.shape)
+                parts.append(torch.stack([st.iters, st.status, st.pri,
+                                          st.dua, st.rho, rungs]
+                                         ).to(f64).reshape(-1))
+            out.copy_(torch.cat(parts))
         if post is not None:
             post[1]()
 
@@ -952,12 +985,26 @@ def batch_program(graphs, ops: _Ops, st: _Dev, Wt_bank, Wt_bank_hi, *,
     loops, tail_W, tail_prec = refine_items(
         window, st.open, st.open_a, Wt_bank, Wt_bank_hi, refine=refine,
         iter_precision=iter_precision)
-    items = [Piece(("start", base), start)] + loops
+    items = list(loops)
+    if cold is not None:
+        # what the start piece leaves in the flags, known to the host
+        running = int(B > cfg.stop_open and cfg.budget > 0)
+        sets = ((st.k, 0), (st.n_open, B), (st.open, running),
+                (st.tail, int(B > 0)))
+        if two_phase:
+            sets += ((st.open_a, int(running and cfg.cap_a > 0)),
+                     (st.best_open, int(np.iinfo(np.int32).max)),
+                     (st.n_stall, 0), (st.k_fast, 0))
+        items.insert(0, Piece(("start", base), begin, sets=sets))
+    elif two_phase or pre is not None:
+        raise ValueError("a carried state (cold=None) is single-phase and "
+                         "has no pre piece")
     if rem > 0:
         items.append(Cond(st.tail, (window(tail_W, tail_prec, "tail",
                                            rem),)))
-    items.append(Piece(("finish", stats, base), finish))
-    return items, out
+    if with_result or post is not None:
+        items.append(Piece(("finish", stats, with_result, base), finish))
+    return Program(items, st.ctl), out
 
 
 def _wrap_result(st: _Dev, host, out=None) -> BatchSolveResult:

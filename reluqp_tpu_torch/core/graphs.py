@@ -26,8 +26,11 @@ A ``WindowGraphs`` cache runs a program in one of three ways:
 - ``"windows"`` (``device_exit = False``, ``verbose=True`` and the paths
   not yet covered: repack, a process group, tensor parallelism): the host
   walks the program, each piece one replay of its own graph (its first use
-  eager, its second captured), and reads each loop's flag after every
-  window;
+  eager, its second captured). It reads the program's control vector
+  (``Program.ctl``: every flag, the iteration and open counts) once after
+  each window and decides each loop and IF from that read; a start piece
+  declares the flags it sets from host-known values (``Piece.sets``), so
+  that no read precedes the first window;
 - ``"eager"`` (the CPU, and a loop given ``_graphs=False``): the host walks
   the program and runs every piece eagerly.
 
@@ -73,15 +76,15 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["WindowGraphs", "Piece", "Loop", "Cond", "on_launch", "sig",
-           "window_graphs"]
+__all__ = ["WindowGraphs", "Piece", "Loop", "Cond", "Program", "on_launch",
+           "sig", "window_graphs"]
 
 _recording: Optional[list] = None
-# graphs a cache keeps (least recently used first out): a solver's pieces
-# take a few keys per (rows, settings); stale ones follow a new operand
+# Bounds on what a cache keeps, least recently used first out: memory
+# guards, not tuned. A solver's settings take two made entries (its state
+# and its program) and three to six pieces; stale ones follow a new operand.
 _MAX_WINDOWS = 64
-# built device programs a cache keeps (each holds its pieces' graphs)
-_MAX_PROGRAMS = 16
+_MAX_MADE = 16
 
 
 def on_launch(hook: Callable[[], None]) -> None:
@@ -108,11 +111,16 @@ def sig(obj):
 
 class Piece(NamedTuple):
     """Fixed device work on static tensors: ``fn()`` runs it, ``key`` names
-    its graph (everything the launches bake in). ``show``: run on the host
-    after the piece by the host-walked paths (``verbose``'s print)."""
+    its graph (everything the launches bake in). ``sets``: ``(scalar,
+    value)`` pairs, elements of the program's ``ctl`` that the piece leaves
+    at host-known values (a start piece's flags), from which a host walk
+    decides without a read. ``show``: ``(tensors, fn)``: a host walk reads
+    ``tensors`` with the control vector after the piece, in one read, and
+    hands their values to ``fn`` (``verbose``'s print)."""
     key: tuple
     fn: Callable[[], None]
-    show: Optional[Callable[[], None]] = None
+    show: Optional[tuple] = None
+    sets: tuple = ()
 
 
 class Loop(NamedTuple):
@@ -134,12 +142,6 @@ def _ident(obj):
     if isinstance(obj, (tuple, list)):
         return tuple(_ident(o) for o in obj)
     return obj
-
-
-def _program_key(items):
-    return tuple(it.key if isinstance(it, Piece)
-                 else (type(it).__name__, sig(it.flag),
-                       _program_key(it.body)) for it in items)
 
 
 class _CudaGraph:
@@ -271,16 +273,29 @@ class _Window:
         self.graph, self.hooks, self.uses = None, (), 0
 
 
-class _Program:
-    """A device program's built graph, its body counts and its hooks."""
-    __slots__ = ("exec", "counts", "seen", "hooks", "loops", "uses",
-                 "launches")
+class Program:
+    """A solve as a program: its ``items`` (pieces, loops, conds) and
+    ``ctl``, the static int32 vector whose elements are every flag of the
+    items, which a host walk reads whole. Made once per solver and
+    settings (``WindowGraphs.made`` holds it); once built it also holds its
+    device program, the body counts the card keeps and the hooks settled
+    from them."""
+    __slots__ = ("items", "ctl", "known", "exec", "counts", "seen", "hooks",
+                 "loops", "uses", "launches")
 
-    def __init__(self):
+    def __init__(self, items, ctl: torch.Tensor):
+        self.items, self.ctl = tuple(items), ctl
+        self.known: dict = {}   # data_ptr -> value, of ctl's elements
         self.exec = self.counts = None
         self.seen: list = []
         self.hooks, self.loops = (), ()
         self.uses = self.launches = 0
+
+    def value(self, t: torch.Tensor) -> Optional[int]:
+        """The host value of ``t`` (an element of ``ctl``) where the last
+        host walk's end knows it (from its last read or a piece's
+        ``sets``, no piece having run since), else None."""
+        return self.known.get(t.data_ptr())
 
     def settle(self, counts: list) -> None:
         """Run the recorded hooks once per execution of their piece since
@@ -318,7 +333,6 @@ class WindowGraphs:
         self._off = eager
         self.device_exit = True
         self._windows: OrderedDict = OrderedDict()
-        self._programs: OrderedDict = OrderedDict()
         self._made: OrderedDict = OrderedDict()
         self._buffers: dict = {}
         self._host: dict = {}
@@ -348,7 +362,6 @@ class WindowGraphs:
     def clear(self) -> None:
         """Drop every graph, program and buffer (a new setup: new
         operands)."""
-        self._programs.clear()
         self._made.clear()
         self._windows.clear()
         self._buffers.clear()
@@ -356,15 +369,16 @@ class WindowGraphs:
         self._live, self._pool = 0, None
 
     def made(self, key: tuple, make: Callable):
-        """``make()``'s value (a solve's program), made once per ``key``:
-        tensors in it (at any depth of tuples) by identity (the entry
-        holds them, so an identity is not reused while it lives),
-        everything else by value."""
+        """``make()``'s value (a solve's ``Program`` and its buffers, or
+        its state), made once per ``key``: tensors in it (at any depth of
+        tuples) by identity (the entry holds them, so an identity is not
+        reused while it lives), everything else by value. A program
+        evicted here takes its device program with it."""
         k = _ident(key)
         hit = self._made.get(k)
         if hit is None:
             hit = self._made[k] = (key, make())
-            while len(self._made) > _MAX_PROGRAMS:
+            while len(self._made) > _MAX_MADE:
                 self._made.popitem(last=False)
         else:
             self._made.move_to_end(k)
@@ -495,35 +509,33 @@ class WindowGraphs:
         self.capture_seconds += time.perf_counter() - t0
 
     # ---------------------------------------------------------------- #
-    def program(self, items, device, per_window: bool = False):
-        """Run the program ``items`` on ``device`` in this cache's mode
-        (``per_window``: walked from the host even where the device could
-        exit). Returns the device program launched (to hand to ``read``
-        with the result, which settles its hooks), or None where the host
-        walked the program."""
+    def program(self, prog: Program, device, per_window: bool = False,
+                known: tuple = ()) -> Program:
+        """Run ``prog`` on ``device`` in this cache's mode (``per_window``:
+        walked from the host even where the device could exit). ``known``:
+        ``(scalar, value)`` pairs of ``prog.ctl`` whose values the host
+        holds at the start (a carried state's flags, which no piece of the
+        program sets on the device): such a program is walked, never
+        built. Returns ``prog``, to hand to ``read`` with the result, which
+        settles the hooks of a device program launched."""
         mode = self.mode(device, per_window)
+        if known and mode == "device":
+            raise ValueError("a program whose start flags only the host "
+                             "holds must be walked (per_window=True)")
         if mode == "eager":
-            _walk(items, lambda p: p.fn(), self._flag)
-            return None
+            self._walk(prog, lambda p: p.fn(), known)
+            return prog
         if mode == "windows":
-            _walk(items, lambda p: self.run(p.key, p.fn, device), self._flag)
-            return None
-        key = _program_key(items)
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = _Program()
-            while len(self._programs) > _MAX_PROGRAMS:
-                self._programs.popitem(last=False)
-        else:
-            self._programs.move_to_end(key)
+            self._walk(prog, lambda p: self.run(p.key, p.fn, device), known)
+            return prog
         prog.uses += 1
         if prog.uses == 1:
             # the first use walks the program on the host, its pieces
             # eager on the capture stream
-            _walk(items, lambda p: self._eager(p.fn, device), self._flag)
-            return None
+            self._walk(prog, lambda p: self._eager(p.fn, device))
+            return prog
         if prog.exec is None:
-            self._make(prog, items, device)
+            self._make(prog, device)
         stream = (torch.cuda.current_stream(device).cuda_stream
                   if torch.device(device).type == "cuda" else None)
         prog.exec.launch(stream)
@@ -531,15 +543,28 @@ class WindowGraphs:
         self.replays += 1
         return prog
 
-    def _flag(self, flag: torch.Tensor) -> bool:
-        return bool(self.read(flag))
+    def _walk(self, prog: Program, call, known: tuple = ()) -> None:
+        prog.known.clear()
+        prog.known.update((t.data_ptr(), int(v)) for t, v in known)
+        _walk(prog.items, call, lambda extra=(): self._fetch(prog, extra),
+              prog.known)
 
-    def _make(self, prog: _Program, items, device):
-        """Capture every piece of ``items`` not captured yet and build the
+    def _fetch(self, prog: Program, extra=()) -> list:
+        """One host read of ``prog.ctl`` (into what the walk knows) and of
+        ``extra``; returns ``extra``'s values."""
+        host = self.read(prog.ctl, *extra)
+        ctl_h, rest = (host[0], host[1:]) if extra else (host, [])
+        base, size = prog.ctl.data_ptr(), prog.ctl.element_size()
+        prog.known.update((base + i * size, int(v))
+                          for i, v in enumerate(ctl_h.tolist()))
+        return rest
+
+    def _make(self, prog: Program, device):
+        """Capture every piece of ``prog`` not captured yet and build the
         program."""
         t0 = time.perf_counter()
         outside, slots = [], []
-        tree = self._nodes(items, outside, slots, device)
+        tree = self._nodes(prog.items, outside, slots, device)
         counts = torch.zeros((max(len(slots), 1),), dtype=torch.float64,
                              device=device)
         build = self._build or GraphProgram
@@ -573,19 +598,32 @@ class WindowGraphs:
         return out
 
 
-def _walk(items, call, flag) -> None:
-    """A program on the host: each piece through ``call``, each loop's and
-    cond's flag read through ``flag``."""
+def _walk(items, call, fetch, known: dict) -> None:
+    """A program on the host: each piece through ``call`` (after which
+    ``known``, the flags' host values by address, holds only the piece's
+    ``sets``), each loop's and cond's flag from ``known`` or else from one
+    ``fetch()`` of the control vector."""
     for it in items:
         if isinstance(it, Piece):
             call(it)
+            known.clear()
+            known.update((t.data_ptr(), int(v)) for t, v in it.sets)
             if it.show is not None:
-                it.show()
+                tensors, show = it.show
+                show(fetch(tensors))
         elif isinstance(it, Loop):
-            while flag(it.flag):
-                _walk(it.body, call, flag)
-        elif flag(it.flag):
-            _walk(it.body, call, flag)
+            while _flag(it.flag, fetch, known):
+                _walk(it.body, call, fetch, known)
+        elif _flag(it.flag, fetch, known):
+            _walk(it.body, call, fetch, known)
+
+
+def _flag(flag: torch.Tensor, fetch, known: dict) -> bool:
+    v = known.get(flag.data_ptr())
+    if v is None:
+        fetch()
+        v = known[flag.data_ptr()]
+    return v != 0
 
 
 def window_graphs(graphs, device) -> WindowGraphs:

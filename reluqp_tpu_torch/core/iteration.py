@@ -32,7 +32,7 @@ import torch
 
 from ..ops.fused_step import fused_chunk_ref, pad_dim
 from .bank import Bank, DeviceQP
-from .graphs import Cond, Loop, Piece, sig, window_graphs
+from .graphs import Cond, Loop, Piece, Program, sig, window_graphs
 
 __all__ = [
     "SolveResult",
@@ -263,7 +263,8 @@ def refine_items(window, open_flag, open_a, W_fast, W_high, *, refine,
 
 class _Dev(NamedTuple):
     """The device state of a solve: static buffers its pieces read and
-    write (a cache's, or this call's own when eager)."""
+    write (a cache's, or this call's own when eager). The int32 scalars
+    are elements of ``ctl``, which a host walk reads in one copy."""
     y: torch.Tensor                           # (Dp,) stacked state
     rho_ind: torch.Tensor                     # 0-d int32 ladder index
     rho: torch.Tensor                         # 0-d: last ρ estimate
@@ -273,6 +274,7 @@ class _Dev(NamedTuple):
     dua: torch.Tensor                         # check
     open: torch.Tensor                        # 0-d int32: the solve runs
     tail: torch.Tensor                        # 0-d int32: the tail runs
+    ctl: torch.Tensor                         # (n,) int32: the scalars
     x_prev: Optional[torch.Tensor] = None     # infeasibility deltas
     lam_prev: Optional[torch.Tensor] = None
     open_a: Optional[torch.Tensor] = None     # two-phase refine: phase A
@@ -499,21 +501,25 @@ RESULT_SIZE = 8
 def state_buffers(graphs, prefix: str, y_like, nx: int, nc: int, *,
                   check_infeasibility: bool, two_phase: bool) -> _Dev:
     """A solve's static device state in ``graphs`` (names ``prefix`` +
-    field): y like ``y_like``, the scalars in its dtype or int32."""
+    field): y like ``y_like``, the residuals and ρ in its dtype, the int32
+    scalars (flags and counts) the elements of one vector ``ctl``."""
     dtype, dev = y_like.dtype, y_like.device
     buf = lambda name, shape=(), dt=dtype: graphs.buffer(prefix + name,
                                                          shape, dt, dev)
-    i32 = torch.int32
-    st = _Dev(buf("y", y_like.shape), buf("rho_ind", (), i32), buf("rho"),
-              buf("k", (), i32), buf("status", (), i32), buf("pri"),
-              buf("dua"), buf("open", (), i32), buf("tail", (), i32))
+    ints = ["k", "status", "open", "tail"] + (
+        ["open_a", "n_stall", "k_fast"] if two_phase else [])
+    ctl = buf("ctl", (len(ints),), torch.int32)
+    c = {name: ctl[i] for i, name in enumerate(ints)}
+    st = _Dev(buf("y", y_like.shape), buf("rho_ind", (), torch.int32),
+              buf("rho"), c["k"], c["status"], buf("pri"), buf("dua"),
+              c["open"], c["tail"], ctl)
     if check_infeasibility:
         st = st._replace(x_prev=buf("x_prev", (nx,)),
                          lam_prev=buf("lam_prev", (nc,)))
     if two_phase:
-        st = st._replace(open_a=buf("open_a", (), i32), best_p=buf("best_p"),
-                         best_d=buf("best_d"), n_stall=buf("n_stall", (), i32),
-                         k_fast=buf("k_fast", (), i32))
+        st = st._replace(open_a=c["open_a"], best_p=buf("best_p"),
+                         best_d=buf("best_d"), n_stall=c["n_stall"],
+                         k_fast=c["k_fast"])
     return st
 
 
@@ -537,9 +543,9 @@ def solve_program(graphs, bank: Bank, qp: DeviceQP, st: _Dev, W_hi=None,
     and the window loop (or the two refine phases), the tail under an IF
     and the result bundle (``with_result``). ``pre`` / ``post``: ``(key,
     fn)`` pieces of a caller fused into the start and the result piece (a
-    control step's refresh and plant step). Returns ``(items, out)``:
-    ``out`` the static float64 (``RESULT_SIZE``,) result bundle
-    (``_result``)."""
+    control step's refresh and plant step). Returns ``(program, out)``: a
+    ``core.graphs.Program`` over ``st.ctl``, and ``out`` the static float64
+    (``RESULT_SIZE``,) result bundle (``_result``)."""
     dtype, dev = st.y.dtype, st.y.device
     # Constants stay Python numbers, rounded to the iterate dtype on the
     # host exactly as the device would round them: a tensor made on the
@@ -591,12 +597,11 @@ def solve_program(graphs, bank: Bank, qp: DeviceQP, st: _Dev, W_hi=None,
         if post is not None:
             post[1]()
 
-    def show():
-        # (no reference to the cache: a cycle would leave its graphs to the
+    def show(host):
+        # read by the host walk with the window's control vector; (no
+        # reference to the cache: a cycle would leave its graphs to the
         # cyclic collector, which may run during another capture)
-        k, rho, pri, dua = torch.stack([
-            st.k.to(torch.float64), st.rho.to(torch.float64),
-            st.pri.to(torch.float64), st.dua.to(torch.float64)]).tolist()
+        k, rho, pri, dua = (float(v) for v in host)
         print(f"Iter: {int(k)}, rho: {rho:.2e}, res_p: {pri:.2e}, res_d: "
               f"{dua:.2e}")
 
@@ -605,19 +610,26 @@ def solve_program(graphs, bank: Bank, qp: DeviceQP, st: _Dev, W_hi=None,
                       base),
                      lambda: assign(st, _window(st, op, cfg, check_interval,
                                                 W_op, precision, phase)),
-                     show if verbose else None)
+                     ((st.k, st.rho, st.pri, st.dua), show) if verbose
+                     else None)
 
     loops, tail_W, tail_prec = refine_items(
         window, st.open, st.open_a, bank.W, W_hi, refine=refine,
         iter_precision=iter_precision, hoist_first=n_chunks >= 1)
-    items = [Piece(("start", base), start)] + loops
+    # what the start piece leaves in the flags, known to the host
+    sets = ((st.k, 0), (st.status, _RUNNING),
+            (st.open, int(cfg.budget > 0)), (st.tail, 1))
+    if two_phase:
+        sets += ((st.open_a, int(cfg.budget > 0 and cfg.cap_a > 0)),
+                 (st.n_stall, 0), (st.k_fast, 0))
+    items = [Piece(("start", base), start, sets=sets)] + loops
     if rem > 0:
         items.append(Cond(st.tail, (Piece(
             ("tail", rem, tail_prec, sig(tail_W), base),
             lambda: assign(st, _tail(st, op, cfg, rem, tail_W, tail_prec))),
         )))
     items.append(Piece(("finish", with_obj, with_result, base), finish))
-    return items, out
+    return Program(items, st.ctl), out
 
 
 def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
@@ -707,12 +719,12 @@ def solve_loop(bank: Bank, qp: DeviceQP, y0, rho_ind0, rho0, W_hi=None,
               alpha=alpha, with_obj=with_obj)
     # a solver's program is made once: the pieces close over static
     # buffers and the solver's operands only
-    items, out = graphs.made(
+    prog, out = graphs.made(
         ("solve", tuple(bank), tuple(qp), st, W_hi, rho_eff, bias_lazy,
          M_res, frozenset(kw.items())),
         lambda: solve_program(graphs, bank, qp, st, W_hi, rho_eff,
                               bias_lazy, M_res, **kw))
-    prog = graphs.program(items, dev, per_window=verbose or _per_window)
+    prog = graphs.program(prog, dev, per_window=verbose or _per_window)
     # the solve's one host read
     h = graphs.read(out, programs=(prog,)).tolist()
     raw, k, k_fast, pri, dua, rho_ind_h, rho_h, obj = h

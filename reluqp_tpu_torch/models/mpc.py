@@ -342,7 +342,7 @@ def _records(graphs, prefix: str, n_steps: int, x_shape, u_shape, dtype,
     next power of two, so that segments of nearby lengths share graphs):
     states (cap+1, ...), controls (cap, ...), iterations and status (cap,)
     int32, the noise rows (cap, ...) and the device step index."""
-    cap = 1 << max(n_steps - 1, 0).bit_length()
+    cap = _capacity(n_steps)
     buf = lambda name, shape, dt=dtype: graphs.buffer(prefix + name, shape,
                                                       dt, dev)
     i32 = torch.int32
@@ -351,6 +351,10 @@ def _records(graphs, prefix: str, n_steps: int, x_shape, u_shape, dtype,
                 sts=buf("sts", (cap,), i32), noise=buf("noise",
                                                        (cap, *x_shape)),
                 t=buf("t", (), torch.int64))
+
+
+def _capacity(n_steps: int) -> int:
+    return 1 << max(n_steps - 1, 0).bit_length()
 
 
 def _record_step(rec: dict, x_new, u, iters, status) -> None:
@@ -395,27 +399,75 @@ def _rollout_impl(W_bank, B_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0,
     the status and the final rung. ``_graphs``: the solver's
     ``core.graphs.WindowGraphs``.
     """
-    from ..core.bank import Bank, DeviceQP
-    from ..core.iteration import solve_program, state_buffers
-
     dtype, dev = y0.dtype, y0.device
     graphs = window_graphs(_graphs, dev)
-    buf = lambda name, shape, dt=dtype: graphs.buffer("mpc." + name, shape,
-                                                      dt, dev)
     # ONE stacked refresh matvec per step: g, the l/u shift, the feedback
     # term Kx and the plant drift Ax all consume the same x (Kx/Ax do not
     # depend on the solve, so computing them before it is exact).
     gl_map = graphs.stage("mpc.gl_map", torch.cat([g_x0, lu_x0, Kg, Ad]))
-    n_g, n_lu, n_u = g_x0.shape[0], lu_x0.shape[0], Kg.shape[0]
-    npl = x0.shape[0]
+    sizes = (g_x0.shape[0], lu_x0.shape[0], Kg.shape[0], x0.shape[0], nx_qp,
+             nc, nu, Dp, tuple(y0.shape), dtype, dev, _capacity(n_steps))
+    kw = dict(max_iter=max_iter, check_interval=check_interval,
+              adaptive_rho=adaptive_rho,
+              adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+              rho_min=rho_min, rho_max=rho_max, chunk_runner=chunk_runner,
+              iter_precision=iter_precision, refine=refine,
+              rho_jump=rho_jump, adaptive_rho_interval=adaptive_rho_interval,
+              alpha=alpha, check_infeasibility=check_infeasibility,
+              eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf)
+    # a control step's program is made once per solver, prob and segment
+    # capacity: it closes over static buffers and these operands only
+    prog, x, lo, hi, st, rec = graphs.made(
+        ("mpc.step", gl_map, W_bank, B_bank, rhos, H, A, g0, l0, u0_, Bd,
+         v0_scale, W_hi, rho_eff, bias_c, M_hi, M_lo, w_pri, w_dua, M_res,
+         sizes, frozenset(kw.items())),
+        lambda: _step_program(graphs, gl_map, W_bank, B_bank, rhos, H, A,
+                              g0, l0, u0_, Bd, v0_scale, W_hi, rho_eff,
+                              bias_c, M_hi, M_lo, w_pri, w_dua, M_res, y0,
+                              sizes, kw))
+
+    # the segment's start: the plant state, the solver state, the noise
+    lo.fill_(-float("inf"))
+    hi.fill_(float("inf"))
+    x.copy_(x0)
+    st.y.copy_(y0)
+    if isinstance(rho_ind0, torch.Tensor):
+        st.rho_ind.copy_(rho_ind0.reshape(()))
+    else:
+        st.rho_ind.fill_(int(rho_ind0))
+    rec["xs"][0].copy_(x0)
+    rec["noise"][:n_steps].copy_(noise)
+    rec["t"].zero_()
+    for _ in range(n_steps):
+        graphs.program(prog, dev)
+    # the segment's one host read
+    its, sts, rung = graphs.read(rec["its"][:n_steps], rec["sts"][:n_steps],
+                                 st.rho_ind, programs=(prog,))
+    return (rec["xs"][:n_steps + 1].clone(), rec["us"][:n_steps].clone(),
+            torch.from_numpy(its), torch.from_numpy(sts), st.y.clone(),
+            int(rung))
+
+
+def _step_program(graphs, gl_map, W_bank, B_bank, rhos, H, A, g0, l0, u0_,
+                  Bd, v0_scale, W_hi, rho_eff, bias_c, M_hi, M_lo, w_pri,
+                  w_dua, M_res, y0, sizes, kw):
+    """A loop-path control step as a program (``_rollout_impl``'s) and the
+    static buffers it works on: ``(program, x, lo, hi, state, records)``."""
+    from ..core.bank import Bank, DeviceQP
+    from ..core.iteration import solve_program, state_buffers
+
+    n_g, n_lu, n_u, npl, nx_qp, nc, nu, Dp, _, dtype, dev, cap = sizes
+    buf = lambda name, shape, dt=dtype: graphs.buffer("mpc." + name, shape,
+                                                      dt, dev)
     x, g, kx, ax = buf("x", (npl,)), buf("g", (nx_qp,)), buf("kx", (n_u,)), \
         buf("ax", (npl,))
     lo, hi = buf("lo", (Dp,)), buf("hi", (Dp,))
-    two_phase = refine and iter_precision != "highest"
+    max_iter = kw["max_iter"]
     st = state_buffers(graphs, "mpc.", y0, nx_qp, nc,
-                       check_infeasibility=check_infeasibility,
-                       two_phase=two_phase)
-    rec = _records(graphs, "mpc.", n_steps, (npl,), (nu,), dtype, dev)
+                       check_infeasibility=kw["check_infeasibility"],
+                       two_phase=(kw["refine"]
+                                  and kw["iter_precision"] != "highest"))
+    rec = _records(graphs, "mpc.", cap, (npl,), (nu,), dtype, dev)
     qp = DeviceQP(H=H, g=g, A=A, lo=lo, hi=hi, w_pri=w_pri, w_dua=w_dua)
     bank = Bank(W=W_bank, B=B_bank, b=None, rhos=rhos)
     if M_hi is None:
@@ -451,38 +503,12 @@ def _rollout_impl(W_bank, B_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0,
     touched = sig((gl_map, g0, l0, u0_, x, g, kx, ax, lo, hi, rhos, Bd,
                    v0_scale, st, tuple(rec.values()))) + (
         n_g, n_lu, n_u, nx_qp, nc, nu, max_iter)
-    items, _ = solve_program(
+    prog, _ = solve_program(
         graphs, bank, qp, st, W_hi, rho_eff, bias_lazy, M_res, nx=nx_qp,
-        nc=nc, max_iter=max_iter, check_interval=check_interval,
-        adaptive_rho=adaptive_rho,
-        adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
-        rho_min=rho_min, rho_max=rho_max, chunk_runner=chunk_runner,
-        iter_precision=iter_precision, refine=refine, rho_jump=rho_jump,
-        adaptive_rho_interval=adaptive_rho_interval, alpha=alpha,
-        with_obj=False, with_result=False,
-        check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
-        eps_dual_inf=eps_dual_inf, pre=(("refresh", touched), refresh),
-        post=(("plant", touched), plant), prefix="mpc.")
-
-    # the segment's start: the plant state, the solver state, the noise
-    lo.fill_(-float("inf"))
-    hi.fill_(float("inf"))
-    x.copy_(x0)
-    st.y.copy_(y0)
-    if isinstance(rho_ind0, torch.Tensor):
-        st.rho_ind.copy_(rho_ind0.reshape(()))
-    else:
-        st.rho_ind.fill_(int(rho_ind0))
-    rec["xs"][0].copy_(x0)
-    rec["noise"][:n_steps].copy_(noise)
-    rec["t"].zero_()
-    progs = {graphs.program(items, dev) for _ in range(n_steps)}
-    # the segment's one host read
-    its, sts, rung = graphs.read(rec["its"][:n_steps], rec["sts"][:n_steps],
-                                 st.rho_ind, programs=progs)
-    return (rec["xs"][:n_steps + 1].clone(), rec["us"][:n_steps].clone(),
-            torch.from_numpy(its), torch.from_numpy(sts), st.y.clone(),
-            int(rung))
+        nc=nc, with_obj=False, with_result=False,
+        pre=(("refresh", touched), refresh),
+        post=(("plant", touched), plant), prefix="mpc.", **kw)
+    return prog, x, lo, hi, st, rec
 
 
 def auto_check_interval(calib_iters, default_ci: int,
@@ -1084,18 +1110,73 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
     B_n, npl = X0.shape
     dtype, dev = Y0.dtype, Y0.device
     graphs = window_graphs(_graphs, dev)
-    buf = lambda name, shape: graphs.buffer("scen." + name, shape, dtype, dev)
-    # the plant states, padded rows 0 (the x = 0 scenario); X its first rows
-    Xp = buf("X", (B_pad, npl))
-    X = Xp[:B_n]
-    G, lo, hi = buf("G", (B_pad, g0.shape[0])), buf("lo", (B_pad, Dp)), \
-        buf("hi", (B_pad, Dp))
     rhos_t = cb._rhos_in(graphs, rhos, dtype)
     st, cold = cb._cold_state(graphs, Y0, rho_ind0, rhos_t, done0, max_iter,
                               check_infeasibility, nx_qp, nc, alpha,
                               rho_eff, refine and iter_precision != "highest")
-    rec = _records(graphs, "scen.", n_steps, (B_n, npl), (B_n, nu), dtype,
-                   dev)
+    sizes = (B_pad, Dp, B_n, npl, g0.shape[0], nx_qp, nc, nu, dtype, dev,
+             _capacity(n_steps))
+    kw = dict(shared=True, chunk_runner=chunk_runner or cb._chunk_shared_rho,
+              nx=nx_qp, nc=nc, max_iter=max_iter,
+              check_interval=check_interval, adaptive_rho=adaptive_rho,
+              adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
+              rho_min=rho_min, rho_max=rho_max, rho_jump=rho_jump,
+              check_infeasibility=check_infeasibility,
+              eps_prim_inf=eps_prim_inf, eps_dual_inf=eps_dual_inf,
+              iter_precision=iter_precision, refine=refine,
+              adaptive_rho_interval=adaptive_rho_interval, alpha=alpha,
+              group=group, stats=False)
+    # a control step's program is made once per solver, prob and segment
+    # capacity: it closes over static buffers and these operands only
+    prog, Xp, lo, hi, rec = graphs.made(
+        ("scen.step", Wt_bank, Wt_hi, rhos_t, H, A, g0, g_x0, l0, u0_, lu_x0,
+         Kg, Ad, Bd, v0_scale, rho_eff, bias_c, M_hi, M_lo, w_pri, w_dua, st,
+         cold[0], sizes, frozenset(kw.items())),
+        lambda: _scenario_step_program(
+            graphs, Wt_bank, Wt_hi, rhos_t, H, A, g0, g_x0, l0, u0_, lu_x0,
+            Kg, Ad, Bd, v0_scale, rho_eff, bias_c, M_hi, M_lo, w_pri, w_dua,
+            st, cold, sizes, kw))
+    X = Xp[:B_n]
+
+    # the segment's start: the plant states, the noise
+    lo.fill_(-float("inf"))
+    hi.fill_(float("inf"))
+    Xp.zero_()
+    X.copy_(X0)
+    rec["xs"][0].copy_(X0)
+    rec["noise"][:n_steps].copy_(noise)
+    rec["t"].zero_()
+    for _ in range(n_steps):
+        graphs.program(prog, dev, per_window=group is not None)
+    sts = rec["sts"][:n_steps]
+    if group is not None and n_steps:
+        sts = sts.clone()
+        dist.all_reduce(sts, op=dist.ReduceOp.MIN, group=group)
+    # the segment's one host read
+    its, sts, rung = graphs.read(rec["its"][:n_steps], sts, st.rho_ind,
+                                 programs=(prog,))
+    return (rec["xs"][:n_steps + 1].clone(), rec["us"][:n_steps].clone(),
+            torch.from_numpy(its), torch.from_numpy(sts), st.Y.clone(),
+            int(rung))
+
+
+def _scenario_step_program(graphs, Wt_bank, Wt_hi, rhos_t, H, A, g0, g_x0,
+                           l0, u0_, lu_x0, Kg, Ad, Bd, v0_scale, rho_eff,
+                           bias_c, M_hi, M_lo, w_pri, w_dua, st, cold, sizes,
+                           kw):
+    """A scenario control step as a program (``_scenario_rollout_impl``'s)
+    and the static buffers it works on: ``(program, padded plant states,
+    lo, hi, records)``."""
+    from ..core import batched as cb
+
+    B_pad, Dp, B_n, npl, n_g, nx_qp, nc, nu, dtype, dev, cap = sizes
+    buf = lambda name, shape: graphs.buffer("scen." + name, shape, dtype, dev)
+    # the plant states, padded rows 0 (the x = 0 scenario); X its first rows
+    Xp = buf("X", (B_pad, npl))
+    X = Xp[:B_n]
+    G, lo, hi = buf("G", (B_pad, n_g)), buf("lo", (B_pad, Dp)), \
+        buf("hi", (B_pad, Dp))
+    rec = _records(graphs, "scen.", cap, (B_n, npl), (B_n, nu), dtype, dev)
     ops = cb._Ops(rhos_t, H, A, G, lo, hi, w_pri, w_dua, rho_eff,
                   ("lazy", bias_c, M_hi, M_lo, Xp))
 
@@ -1116,40 +1197,11 @@ def _scenario_rollout_impl(Wt_bank, rhos, H, A, g0, g_x0, l0, u0_, lu_x0, Kg,
 
     touched = sig((Xp, G, lo, hi, g0, g_x0, l0, u0_, lu_x0, Kg, Ad, Bd,
                    v0_scale, st, tuple(rec.values()))) + (nx_qp, nc, nu, B_n)
-    items, _ = cb.batch_program(
-        graphs, ops, st, Wt_bank, Wt_hi, shared=True,
-        chunk_runner=chunk_runner or cb._chunk_shared_rho, nx=nx_qp, nc=nc,
-        max_iter=max_iter, check_interval=check_interval,
-        adaptive_rho=adaptive_rho,
-        adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
-        rho_min=rho_min, rho_max=rho_max, rho_jump=rho_jump,
-        check_infeasibility=check_infeasibility, eps_prim_inf=eps_prim_inf,
-        eps_dual_inf=eps_dual_inf, iter_precision=iter_precision,
-        refine=refine, adaptive_rho_interval=adaptive_rho_interval,
-        alpha=alpha, cold=cold, group=group, stats=False,
-        pre=(("refresh", touched), refresh), post=(("plant", touched),
-                                                    plant))
-
-    # the segment's start: the plant states, the noise
-    lo.fill_(-float("inf"))
-    hi.fill_(float("inf"))
-    Xp.zero_()
-    X.copy_(X0)
-    rec["xs"][0].copy_(X0)
-    rec["noise"][:n_steps].copy_(noise)
-    rec["t"].zero_()
-    progs = {graphs.program(items, dev, per_window=group is not None)
-             for _ in range(n_steps)}
-    sts = rec["sts"][:n_steps]
-    if group is not None and n_steps:
-        sts = sts.clone()
-        dist.all_reduce(sts, op=dist.ReduceOp.MIN, group=group)
-    # the segment's one host read
-    its, sts, rung = graphs.read(rec["its"][:n_steps], sts, st.rho_ind,
-                                 programs=progs)
-    return (rec["xs"][:n_steps + 1].clone(), rec["us"][:n_steps].clone(),
-            torch.from_numpy(its), torch.from_numpy(sts), st.Y.clone(),
-            int(rung))
+    prog, _ = cb.batch_program(
+        graphs, ops, st, Wt_bank, Wt_hi, cold=cold,
+        pre=(("refresh", touched), refresh),
+        post=(("plant", touched), plant), **kw)
+    return prog, Xp, lo, hi, rec
 
 
 def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,

@@ -225,8 +225,10 @@ def solve_sharded_shared(mesh, Wt_bank, bias_all, rhos, H, A, G, lo, hi,
     all-gather of the row counts checks before the loop. ``chunk_runner``
     as ``core.batched.solve_batched_shared`` (K4's runner on the padded
     layout). Returns this rank's rows of the result; every rank ran the
-    same windows (``n_iter_total``) and, in shared mode, ends on the same
-    rung."""
+    same windows and, in shared mode, ends on the same rung. The result
+    bundle is left unread, for the caller's one read: ``out[:2]`` holds
+    the iterations run and those at reduced precision (``n_iter_total``
+    and ``n_iter_fast`` are None)."""
     group, _, size, device = mesh_group(mesh, axis_name)
     n = torch.tensor([Y0.shape[0]], dtype=torch.int64, device=device)
     counts = gather_rows(n, group)
@@ -235,10 +237,7 @@ def solve_sharded_shared(mesh, Wt_bank, bias_all, rhos, H, A, G, lo, hi,
         raise ValueError(f"batch {total} not divisible by mesh axis {size}: "
                          f"the ranks hold {counts.tolist()} rows — pad the "
                          "batch (inert rows: lo=-inf, hi=+inf)")
-    res = solve_batched_shared(
+    return solve_batched_shared(
         Wt_bank, bias_all, rhos, H, A, G, lo, hi, Y0, rho_ind0, done0,
         Wt_bank_hi, rho_eff, w_pri, w_dua, rho_mode=rho_mode,
         chunk_runner=chunk_runner, group=group, **solve_kw)
-    # the loop leaves its result bundle unread under a group
-    k, k_fast = res.out[:2].tolist()
-    return res._replace(n_iter_total=int(k), n_iter_fast=int(k_fast))

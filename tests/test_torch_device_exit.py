@@ -27,7 +27,12 @@ heterogeneous B=6 batch:
   status, iterations within one check window, x within 1e-3;
 - the chunk runner's launch hook runs once per window run, counted from
   the program's body counts where the card ran the loop;
-- a solve makes one host read (the per-window path one per window more).
+- a solve makes one host read; the per-window path reads its control
+  vector once per full window and the result once, deciding every loop
+  entry, phase switch and tail from those reads or from the values its
+  start piece sets; so do ``verbose`` (its print from the same read) and
+  repack (a stage boundary adds no read, and its iterations come from the
+  last read), no more than the dense batch walked window by window.
 """
 import numpy as np
 import pytest
@@ -42,7 +47,8 @@ import reluqp_tpu_torch as T
 import reluqp_tpu_torch.core.batched as TCB
 import reluqp_tpu_torch.models.mpc as TM
 import reluqp_tpu_torch.solver as TS
-from reluqp_tpu_torch.core.graphs import WindowGraphs, on_launch
+from reluqp_tpu_torch.core.graphs import (Loop, Piece, Program, WindowGraphs,
+                                          on_launch)
 from test_torch_window_graph import (StandIn, _batch_out, _hetero_batch,
                                      _qp_out, _same, _shared_batch)
 
@@ -192,9 +198,9 @@ def test_single_qp_device_exit(case, monkeypatch):
     assert len(hits["device"]) == len(hits["windows"]) \
         == 3 * _windows(iters, ci)
     # the device exit: one read per solve (its first use walks the
-    # program on the host); per window: one read per window more
+    # program on the host); per window: one per full window and the result
     assert n_reads["device"][1:] == [1, 1], n_reads
-    assert n_reads["windows"][0] > _windows(iters, ci) - 1
+    assert n_reads["windows"] == [iters // ci + 1] * 3, n_reads
     if case == "refine bf16":
         k_fast = runs["device"][0][-1]
         assert 0 < k_fast < iters, (k_fast, iters)
@@ -363,6 +369,7 @@ def test_batched_device_exit(case, monkeypatch):
     assert len(hits["device"]) == len(hits["windows"]) \
         == 3 * _windows(total, 5)
     assert n_reads["device"][1:] == [1, 1], n_reads
+    assert n_reads["windows"] == [total // 5 + 1] * 3, n_reads
 
     j = JB()
     j.setup(*data, **kw)
@@ -373,3 +380,64 @@ def test_batched_device_exit(case, monkeypatch):
         np.broadcast_to(np.asarray(j.rho_ind), tr[8].shape), tr[8])
     np.testing.assert_allclose(np.asarray(jr.x), _np(tr[0]), rtol=0,
                                atol=1e-9)
+
+
+# --------------------------------------------------------------------- #
+# the host walk's reads                                                 #
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("case", ["verbose", "repack"])
+def test_host_walk_reads(case, monkeypatch, capsys):
+    """``verbose`` prints each window from the read that decides the loop
+    (one per full window and the result's, one line per window); repack
+    reads once per window over all its stages (the next stage starts from
+    the open count and iterations of that read), fewer than the dense
+    batch walked window by window, with equal iterations and status."""
+    reads = _Reads(monkeypatch)
+    if case == "verbose":
+        data = rand_qp(30, 8, 8, seed=0, compute_sol=False)[:5]
+        m = T.ReLU_QP()
+        m.setup(*data, device="cpu", bank_backend="numpy", verbose=True,
+                **_F64)
+        capsys.readouterr()
+        r0 = reads.n
+        res = m.solve()
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("Iter: ")]
+        windows = res.info.iter // _F64["check_interval"]
+        assert reads.n - r0 == windows + 1
+        assert len(lines) == windows and lines[-1].startswith(
+            f"Iter: {res.info.iter},")
+        return
+    from test_torch_repack import _batch
+    data, n, res = _batch(), {}, {}
+    for policy in ("dense", "repack"):
+        t = T.BatchedReLU_QP()
+        t.setup(*data, device="cpu", tail_policy=policy, **_F64)
+        if policy == "repack":
+            t._repack_sched = (96, 48, 24)
+        r0 = reads.n
+        res[policy] = t.solve()
+        n[policy] = reads.n - r0
+    windows = res["repack"].info.n_iter_total // _F64["check_interval"]
+    np.testing.assert_array_equal(res["repack"].info.iter,
+                                  res["dense"].info.iter)
+    np.testing.assert_array_equal(res["repack"].info.status_code,
+                                  res["dense"].info.status_code)
+    assert n == {"dense": windows + 1, "repack": windows}, (n, windows)
+
+
+def test_host_known_start_is_walked_only(monkeypatch):
+    """A program whose start flags only the host holds (a carried repack
+    stage) is decided from them without a read, and is refused as a
+    device program."""
+    reads = _Reads(monkeypatch)
+    ctl = torch.ones((2,), dtype=torch.int32)
+    ran = []
+    prog = Program([Loop(ctl[0], (Piece(("p",), lambda: ran.append(1)),))],
+                   ctl)
+    cache = WindowGraphs(capture=StandIn, build=StandInLoop)
+    cache.program(prog, "cpu", per_window=True, known=((ctl[0], 0),))
+    assert reads.n == 0 and not ran and prog.value(ctl[0]) == 0
+    with pytest.raises(ValueError, match="must be walked"):
+        cache.program(prog, "cpu", known=((ctl[0], 0),))
