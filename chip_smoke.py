@@ -209,22 +209,49 @@ Phases (each raises on failure; nothing is caught):
     three modes with equal kernel launches (the program's body counts
     settle the counters); one host read and one sync per solve and per
     rollout segment (EXIT_SEG_T steps) with the device exit; host launches
-    per solve or step; CUDA-event solve times and steps/s.
+    per solve or step; CUDA-event solve times and steps/s, and by turns
+    the device exit with the plain torch check in place of kernels C1 and
+    C2 (``WindowGraphs.check_kernels = False``, the "plain" mode);
+31. the check window as kernels C1 and C2 (``csrc/check_window.cu``):
+    windows recorded from eager solves on the card (``record_checks``:
+    the state before the check, the operands, the settings and the chunk
+    runner's output) held kernel against plain version: the single QP at
+    Dp 128/256/640/896 in fp32 and fp64, y @ M_res and H/A (alpha 1.6),
+    the certificates on a feasible and on a primal- and a dual-infeasible
+    instance, a phase-A window, a tail, the jump with a ρ stride of 3; the
+    batches shared (B 1, 64, 10000; alpha 1.6 with its second launch),
+    per problem and heterogeneous (B 16, 1024). Residuals within
+    CHECK_RTOL of their scale, the ρ estimate within the tolerance that
+    follows, rungs, status, iterations and flags equal except where the
+    plain version's value lies within the tolerance of its threshold
+    (each such tie logged, with what was decided otherwise), the state's
+    vectors bit-equal; the kernel nodes of one captured window of each
+    covered path (the single QP with K1 and with the "xla" runner, dense,
+    per-problem, hetero, shared alpha, repack, the scenario loop and the
+    loop MPC): after the chunk kernel only the check's launches (at most
+    1 for C1, 2 for C2); the kernel and the plain check replayed in a CUDA
+    graph (CHECK_REPS launches each) per covered shape, beside the bound.
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
 the K1, K2, K3, K4 and K5 of another checkout at DIR (the parent commit, unpacked by
 ``git archive`` into a directory that ``.gitignore`` lists) on the same
 inputs, built from DIR's own sources into DIR's own build directory.
 
-Every kernel launch counter is set to 0 just before each main-path phase
+Every kernel launch counter (C1's and C2's too) is set to 0 just before
+each main-path phase
 (4, 5, 6, 8, 11, 14, 16, 19, 21, 22, 23, 24, 29, 30, and 25, 26 and 28
 in every rank) and read just after; a main-path phase that launched its
 kernel no time fails. A kernel, collective or row count captured in a
 check window's graph counts once per replay, and in a device program
 once per execution of its piece, from the body counts the program reads
 back with the solve's result (``core.graphs.on_launch``);
-host launches count kernels, graph launches, copies and memsets. The ranks' K4 and K5 launches add to the record's. The second-to-last line is the ``{"kernels": [...]}``
-record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
+host launches count kernels, graph launches, copies and memsets. The
+ranks' K4 and K5 launches add to the record's. A phase that ran K1 must
+have run C1, one that ran K4 or K5 C2, except in the ranks of 25, 26 and
+28, whose batched windows under a process group keep the plain check; the
+unsharded references those are held to bit for bit run the plain check
+too (``WindowGraphs.check_kernels = False``). The second-to-last line is
+the ``{"kernels": [...]}`` record, the last line ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the package beside it, the script exits non-zero before printing a
 result.
 """
@@ -564,16 +591,35 @@ def _counters():
             "K6": full_rollout_batched}
 
 
-def _counted(run, kernel="K1"):
+def _check_counters():
+    from reluqp_tpu_torch.ops.check_window import batched_check, check_window
+    return {"C1": check_window, "C2": batched_check}
+
+
+# C1's and C2's launches over every main-path phase of this process
+CHECK_LAUNCHES = {"C1": 0, "C2": 0}
+
+
+def _counted(run, kernel="K1", checks=True):
     """Run one main-path phase with every kernel launch counter set to 0
-    first; fail when the phase launched ``kernel`` no time. Returns the
-    phase's result and every counter's launches."""
+    first; fail when the phase launched ``kernel`` no time, or (``checks``)
+    ran K1 without C1 or K4 or K5 without C2. Returns the phase's result
+    and the chunk and solve kernels' launches (C1's and C2's are added to
+    CHECK_LAUNCHES: a process group's batched windows keep the plain check,
+    so its ranks pass ``checks=False``)."""
     counters = _counters()
-    for fn in counters.values():
+    checkers = _check_counters()
+    for fn in list(counters.values()) + list(checkers.values()):
         fn.launches = 0
     out = run()
     n = {name: fn.launches for name, fn in counters.items()}
+    c = {name: fn.launches for name, fn in checkers.items()}
     assert n[kernel] > 0, f"the main path did not launch {kernel}"
+    if checks:
+        assert not n["K1"] or c["C1"], "K1 ran without C1"
+        assert not (n["K4"] or n["K5"]) or c["C2"], "K4/K5 ran without C2"
+    for name, v in c.items():
+        CHECK_LAUNCHES[name] += v
     return out, n
 
 
@@ -3558,8 +3604,10 @@ def phase_graphs(card, protocol, mpc, scen_loop, het, repack):
 # the three ways a solve runs: every piece eager, each window one replay
 # walked from the host (phase 29's graphed path), one device program
 EXIT_MODES = ("eager", "windows", "device")
-# A/B order of the timings
-EXIT_TURNS = ("eager", "windows", "device", "device", "windows", "eager")
+# A/B order of the timings; "plain": the device exit with the plain torch
+# check in place of kernels C1 and C2 (WindowGraphs.check_kernels off)
+EXIT_TURNS = ("eager", "windows", "device", "plain", "plain", "device",
+              "windows", "eager")
 EXIT_REPS = 5
 # steps of the one-segment rollouts whose host reads and launches are
 # counted
@@ -3571,7 +3619,9 @@ def exit_mode(solver, mode, caches):
     """``solver``'s solves in ``mode`` inside the ``with``, each mode
     through a cache of its own kept in ``caches`` (captures counted apart)
     : "eager" (``_window_graphs = False``), "windows" (``device_exit =
-    False``) or "device" (the default: one device program)."""
+    False``), "device" (the default: one device program) or "plain" (one
+    device program checking each window with the plain torch check,
+    ``check_kernels = False``)."""
     from reluqp_tpu_torch.core.graphs import WindowGraphs
     keep = solver._window_graphs
     if mode == "eager":
@@ -3579,7 +3629,8 @@ def exit_mode(solver, mode, caches):
     else:
         if mode not in caches:
             caches[mode] = WindowGraphs()
-            caches[mode].device_exit = mode == "device"
+            caches[mode].device_exit = mode in ("device", "plain")
+            caches[mode].check_kernels = mode != "plain"
         solver._window_graphs = caches[mode]
     try:
         yield
@@ -3666,9 +3717,17 @@ def exit_solver(tag, card, solvers, one, kernel, pairs, bad):
         segs_w = launches_between_reads(lambda: one(solvers["windows"]))
     assert reads.n == 1 and syncs == 1, (tag, reads.n, syncs)
     assert caches["device"].programs >= 1
-    t = {mode: [] for mode in EXIT_MODES}
+    # the plain-check A/B: its program walked, built and launched first
+    with exit_mode(m, "plain", caches):
+        plain = [one(m) for _ in range(3)]
+    host = lambda a: np.asarray(a.detach().cpu().numpy()
+                                if hasattr(a, "detach") else a)
+    same_plain = all(np.array_equal(host(u), host(v)) for k, (u, v) in pairs(
+        runs["device"][-1], plain[-1]).items() if k in ("iter", "status",
+                                                          "rung"))
+    t = {mode: [] for mode in EXIT_MODES + ("plain",)}
     for mode in EXIT_TURNS:
-        mm = solvers[mode]
+        mm = solvers.get(mode, m)
         with exit_mode(mm, mode, caches):
             t[mode].append(time_fn_events(one, mm, reps=EXIT_REPS)["best"])
     ms = lambda mode: " / ".join(f"{x * 1e3:.3f}" for x in t[mode])
@@ -3684,9 +3743,13 @@ def exit_solver(tag, card, solvers, one, kernel, pairs, bad):
         f"(between reads {segs}); per window: {reads_w.n} reads, "
         f"{sum(segs_w)} host launches; solve by CUDA events (least of "
         f"{EXIT_REPS}, by turns) eager {ms('eager')} ms, per-window "
-        f"{ms('windows')} ms, device exit {ms('device')} ms; on {card}")
+        f"{ms('windows')} ms, device exit {ms('device')} ms, device exit "
+        f"with the plain check {ms('plain')} ms (its iterations, status and "
+        f"rungs {'equal to' if same_plain else 'differ from'} C1's/C2's); "
+        f"on {card}")
     return dict(reads=reads.n, reads_w=reads_w.n, launches=sum(segs),
-                launches_w=sum(segs_w), t=t, split=(wall, prog, wait))
+                launches_w=sum(segs_w), t=t, split=(wall, prog, wait),
+                same_plain=same_plain)
 
 
 def exit_rollout(tag, card, m, run, seg, kernel, pairs, bad, steps):
@@ -3726,7 +3789,10 @@ def exit_rollout(tag, card, m, run, seg, kernel, pairs, bad, steps):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    rate = {mode: [] for mode in EXIT_MODES}
+    with exit_mode(m, "plain", caches):
+        seg()
+        seg()
+    rate = {mode: [] for mode in EXIT_MODES + ("plain",)}
     for mode in EXIT_TURNS:
         with exit_mode(m, mode, caches):
             seg()
@@ -3738,7 +3804,8 @@ def exit_rollout(tag, card, m, run, seg, kernel, pairs, bad, steps):
         f"per window {reads_w.n} reads, {sum(segs_w) / steps:.3f} host "
         f"launches per step; steps/s (least of 3 segments, by turns) eager "
         f"{r('eager')}, per-window {r('windows')}, device exit "
-        f"{r('device')}; on {card}")
+        f"{r('device')}, device exit with the plain check {r('plain')}; on "
+        f"{card}")
     return dict(reads=reads.n, reads_w=reads_w.n,
                 launches=sum(segs) / steps, launches_w=sum(segs_w) / steps,
                 rate=rate)
@@ -3849,6 +3916,607 @@ def _auto_ci(sol, prob, x0):
     stng = sol.settings
     return auto_check_interval(its.numpy(), stng.check_interval,
                                stng.max_iter)
+
+
+# --------------------------------------------------------------------- #
+# phase 31: the check window as kernels C1 and C2                       #
+# --------------------------------------------------------------------- #
+
+# Kernel against plain version on recorded windows. A residual is the max
+# of |a - b| over sums of products that both sides form from the same
+# inputs: the kernels in fp64, in a fixed order, the plain version in the
+# state type in cuBLAS's order; each rounds a sum once to the state type.
+# They therefore differ by the state type's rounding of sums as large as
+# the residual's scale (max |Ax|, |z| for pri; |Hx|, |Aᵀλ|, |g| for dua),
+# and pri and dua are held within CHECK_RTOL of that scale. The ρ estimate
+# ρ·sqrt((pri/scale_p)/(dua/scale_d)) carries half of each residual's
+# relative error and a few roundings of its own (CHECK_RHO_ULPS).
+CHECK_RTOL = {"float32": 1e-5, "float64": 1e-12}
+CHECK_RHO_ULPS = 8
+# recorded full windows per solve (its tail window is recorded too)
+CHECK_WINDOWS = 3
+# launches per timing (in one CUDA graph)
+CHECK_REPS = 50
+# Published H100 SXM fp64 vector peak (data sheet), for the operations
+# bound of a check in fp64.
+FP64_FLOPS = 34e12
+CHUNK_KERNELS = ("k1_kernel", "k4_kernel", "k4_tile_kernel", "k5_kernel")
+CHECK_KERNELS = ("c1_kernel", "c2_kernel", "c2_reencode")
+# the recorded C1 case the kernels line reports (the protocol's nx=100)
+CHECK_MAIN_C1 = "nx=100 Dp=256 fp32"
+
+
+def _clone_nt(nt):
+    """A named tuple with every tensor field cloned."""
+    import torch
+    return nt._replace(**{f: v.clone() for f, v in nt._asdict().items()
+                          if isinstance(v, torch.Tensor)})
+
+
+class record_checks:
+    """The checks the solve loops make inside the ``with`` (solves run
+    eagerly): each one's inputs cloned before it runs, as ``(kind, state,
+    operands, settings, runner output, n_steps, phase)``, the first
+    ``limit`` full windows and every tail window."""
+
+    def __init__(self, limit=CHECK_WINDOWS):
+        self.limit, self.recs = limit, []
+
+    def _wrap(self, kind, real):
+        def check(st, op, cfg, y, n_steps, phase):
+            full = sum(r[6] != "tail" for r in self.recs)
+            if phase == "tail" or full < self.limit:
+                self.recs.append((kind, _clone_nt(st),
+                                  _clone_nt(op._replace(bias=None)), cfg,
+                                  y.clone(), n_steps, phase))
+            return real(st, op, cfg, y, n_steps, phase)
+        return check
+
+    def __enter__(self):
+        from reluqp_tpu_torch.core import batched as tb
+        from reluqp_tpu_torch.core import iteration as ti
+        self._real = (ti.check_window, tb.batched_check)
+        ti.check_window = self._wrap("C1", self._real[0])
+        tb.batched_check = self._wrap("C2", self._real[1])
+        return self
+
+    def __exit__(self, *exc):
+        from reluqp_tpu_torch.core import batched as tb
+        from reluqp_tpu_torch.core import iteration as ti
+        ti.check_window, tb.batched_check = self._real
+
+
+def check_terms(rec):
+    """What a recorded check compares, recomputed in fp64 from its inputs:
+    per row (a (B,) tensor; one row for C1) the residuals, their scales,
+    the ρ estimate and, with the certificates, each test's value, its
+    threshold and the magnitude of the sums behind it."""
+    import torch
+    from reluqp_tpu_torch.ops.check_window import _mv, batched_lam_of, lam_of
+    from reluqp_tpu_torch.ops.fused_step import pad_dim
+    kind, st, op, cfg, y, n, phase = rec
+    d = lambda t: None if t is None else t.double()
+    nx, nc = cfg.nx, cfg.nc
+    amax = lambda v: v.abs().amax(dim=-1)
+    if kind == "C1":
+        Y = d(y)[None]
+        opd = op._replace(rho_eff=d(op.rho_eff))
+        lam = lam_of(d(y), st.rho_ind, opd, cfg)[None]
+        H, A, G = d(op.H), d(op.A), d(op.g)[None]
+        lo, hi = d(op.lo)[None], d(op.hi)[None]
+        rho, done = d(st.rho)[None], torch.zeros(1, dtype=torch.bool,
+                                                 device=y.device)
+        xp = d(st.x_prev)[None] if st.x_prev is not None else None
+        lp = d(st.lam_prev)[None] if st.lam_prev is not None else None
+    else:
+        Y = d(y)
+        lam = batched_lam_of(Y, st.rho_ind, nx, nc, cfg.alpha,
+                             d(op.rho_eff))
+        H, A, G, lo, hi = d(op.H), d(op.A), d(op.G), d(op.lo), d(op.hi)
+        G = torch.broadcast_to(G, (Y.shape[0], nx))
+        rho, done = d(st.rho), st.done
+        xp, lp = d(st.X_prev), d(st.Lam_prev)
+    X, Z = Y[:, :nx], Y[:, nx:nx + nc]
+    if kind == "C1" and op.M_res is not None:
+        r = Y @ d(op.M_res)
+        ncp, nxp = pad_dim(nc), pad_dim(nx)
+        ax, z = r[:, :ncp], r[:, ncp:2 * ncp]
+        hx, atl = r[:, 2 * ncp:2 * ncp + nxp], r[:, 2 * ncp + nxp:]
+        g = d(op.g_row)[None]
+    else:
+        ax, hx, atl, z, g = _mv(A, X), _mv(H, X), _mv(A.transpose(-1, -2),
+                                                     lam), Z, G
+        wp, wd = d(op.w_pri), d(op.w_dua)
+        if wp is not None:
+            ax, z = wp * ax, wp * z
+        if wd is not None:
+            hx, atl, g = wd * hx, wd * atl, wd * g
+    t = dict(pri=amax(ax - z), dua=amax(hx + atl + g),
+             sp=torch.maximum(amax(ax), amax(z)),
+             sd=torch.maximum(torch.maximum(amax(hx), amax(atl)), amax(g)))
+    tiny = 1e-30
+    ratio = torch.sqrt((t["pri"] / t["sp"].clamp_min(tiny))
+                       / (t["dua"] / t["sd"].clamp_min(tiny)).clamp_min(tiny))
+    t["est"] = torch.clamp(rho * ratio, cfg.rho_min, cfg.rho_max)
+    t["done"] = done
+    if cfg.check_infeasibility and phase != "tail":
+        dx, dl = X - xp, lam - lp
+        ndl, ndx = amax(dl), amax(dx)
+        eps_p, eps_d = cfg.eps_prim_inf * ndl, cfg.eps_dual_inf * ndx
+        absmv = lambda M, v: _mv(M.abs(), v.abs())
+        u, l = hi[:, nx:nx + nc], lo[:, nx:nx + nc]
+        terms = torch.where(dl > 0, u * dl, torch.where(dl < 0, l * dl, 0.0))
+        adx = _mv(A, dx)
+        ray = torch.minimum(
+            torch.where(torch.isfinite(u), eps_d[:, None] - adx, torch.inf),
+            torch.where(torch.isfinite(l), adx + eps_d[:, None], torch.inf))
+        # (value - threshold, magnitude of the sum): a test ties where
+        # |value - threshold| <= 2 rtol magnitude
+        t["cert"] = [
+            (amax(_mv(A.transpose(-1, -2), dl)) - eps_p,
+             amax(absmv(A.transpose(-1, -2), dl))),
+            (terms.sum(-1) + eps_p, terms.abs().sum(-1)),
+            (amax(_mv(H, dx)) - eps_d, amax(absmv(H, dx))),
+            ((G * dx).sum(-1) + eps_d, (G * dx).abs().sum(-1)),
+            (ray.amin(-1), amax(absmv(A, dx)))]
+    return t
+
+
+def _rho_tol(t, rtol, eps):
+    """Relative tolerance of each row's ρ estimate (CHECK_RTOL's note)."""
+    import torch
+    p = t["pri"].clamp_min(1e-300)
+    q = t["dua"].clamp_min(1e-300)
+    return 0.5 * rtol * (t["sp"] / p + t["sd"] / q + 2) + CHECK_RHO_ULPS * eps
+
+
+def _near(v, bounds, rel):
+    """Rows where ``v`` lies within ``rel`` (relative) of any of
+    ``bounds`` (values or (B,) tensors)."""
+    import torch
+    out = torch.zeros_like(v, dtype=torch.bool)
+    for b in bounds:
+        out |= (v - b).abs() <= rel * torch.as_tensor(b).abs()
+    return out
+
+
+def check_ties(rec, t, rtol):
+    """Rows whose decisions the plain version takes within the tolerance
+    of a threshold (fp64 values of ``check_terms``), and what they are."""
+    import torch
+    kind, st, op, cfg, y, n, phase = rec
+    why = {}
+    rt = 2 * _rho_tol(t, rtol, torch.finfo(y.dtype).eps)
+    why["solved"] = ((t["pri"] - cfg.eps_pri).abs() <= 2 * rtol * t["sp"]) \
+        | ((t["dua"] - cfg.eps_dua).abs() <= 2 * rtol * t["sd"])
+    rhos = op.rhos.double()
+    mids = [torch.sqrt(rhos[i] * rhos[i + 1])
+            for i in range(rhos.shape[0] - 1)] if cfg.rho_jump else []
+    band = [r * cfg.tol for r in rhos] + [r / cfg.tol for r in rhos] + mids
+    walks = cfg.adaptive_rho and not (kind == "C1" and phase == "tail")
+    if walks and (kind == "C1" or not cfg.shared):
+        why["walk"] = _near(t["est"], band, rt)
+    if "cert" in t:
+        tie = torch.zeros_like(t["pri"], dtype=torch.bool)
+        for val, mag in t["cert"]:
+            tie |= val.abs() <= 2 * rtol * mag
+        why["certificate"] = tie
+    if phase == "A" and kind == "C1":
+        s = cfg.stall
+        why["stall"] = ((t["pri"] - s * st.best_p.double()).abs()
+                        <= 2 * rtol * t["sp"]) | (
+            (t["dua"] - s * st.best_d.double()).abs() <= 2 * rtol * t["sd"])
+    rows = torch.zeros_like(t["pri"], dtype=torch.bool)
+    for v in why.values():
+        rows |= v
+    rows &= ~t["done"]
+    why = {k: n for k, v in why.items()
+           if (n := int((v & ~t["done"]).sum()))}
+    if kind == "C2" and cfg.shared and walks:
+        # the geometric mean of the live rows' estimates against the band
+        live = ~t["done"]
+        if live.any():
+            le = torch.log(t["est"][live])
+            gm = torch.exp(le.mean())
+            tol = rt[live].mean() + 8 * torch.finfo(y.dtype).eps * float(
+                le.abs().max())
+            if bool(_near(gm[None], band, 2 * tol).any()):
+                why["shared walk"] = 1
+    return rows, why
+
+
+def check_compare(tag, rec, ties):
+    """One recorded check through its kernel and its plain version on the
+    same inputs. Residuals within CHECK_RTOL of their scale, the ρ
+    estimate within its propagated tolerance, rungs, status, iterations,
+    flags equal and the state's vectors bit-equal, except where a decision
+    of the plain version ties (``check_ties``: every record with a
+    decision within the tolerance of its threshold goes into ``ties``, with
+    what it decided otherwise). Returns the largest residual error relative
+    to its scale, the number of decisions taken otherwise (rows and
+    flags) and the largest absolute residual difference."""
+    import torch
+    from reluqp_tpu_torch.ops.check_window import (batched_check,
+                                                   batched_check_ref,
+                                                   check_window,
+                                                   check_window_ref)
+    kind, st, op, cfg, y, n, phase = rec
+    c1 = kind == "C1"
+    ref = (check_window_ref if c1 else batched_check_ref)(
+        _clone_nt(st), op, cfg, y, n, phase)
+    got = _clone_nt(st)
+    (check_window if c1 else batched_check)(got, op, cfg, y, n, phase)
+    torch.cuda.synchronize()
+    rtol = CHECK_RTOL[str(y.dtype).split(".")[-1]]
+    eps = torch.finfo(y.dtype).eps
+    t = check_terms(rec)
+    row = lambda v: torch.as_tensor(v).double().reshape(-1)
+    err = max(float(((row(got.pri) - row(ref.pri)).abs()
+                     / t["sp"].clamp_min(1e-30)).max()),
+              float(((row(got.dua) - row(ref.dua)).abs()
+                     / t["sd"].clamp_min(1e-30)).max()))
+    assert err <= rtol, (tag, "residuals", err)
+    err_abs = max(float((row(got.pri) - row(ref.pri)).abs().max()),
+                  float((row(got.dua) - row(ref.dua)).abs().max()))
+    live = ~t["done"]
+    drho = ((row(got.rho) - row(ref.rho)).abs()
+            / row(ref.rho).abs().clamp_min(1e-300))
+    assert bool((drho[live] <= _rho_tol(t, rtol, eps)[live]).all()), \
+        (tag, "rho", float(drho.max()))
+    assert torch.equal(row(got.rho)[~live], row(ref.rho)[~live]), (tag, "rho")
+    tie_rows, why = check_ties(rec, t, rtol)
+    n_tie = int(tie_rows.sum()) + len([k for k in why if k in (
+        "shared walk",)])
+    same = lambda a, b: torch.equal(torch.as_tensor(a).long(),
+                                    torch.as_tensor(b).long())
+    if c1:
+        decided = ["rho_ind", "status", "k"] + (
+            [] if phase == "tail" else ["open", "tail"]) + (
+            ["open_a", "n_stall", "k_fast"] if phase == "A" else [])
+        diff = [f for f in decided if not same(getattr(got, f),
+                                               getattr(ref, f))]
+        if diff:
+            assert n_tie, (tag, "decisions differ", diff)
+            ties.append((tag, phase, why, diff))
+            return err, 1, err_abs
+        assert torch.equal(got.y, ref.y), (tag, "y")
+        if cfg.check_infeasibility and phase != "tail":
+            assert torch.equal(got.x_prev, ref.x_prev), (tag, "x_prev")
+            assert torch.equal(got.lam_prev, ref.lam_prev), (tag, "lam_prev")
+        if n_tie:
+            ties.append((tag, phase, why, []))
+        return err, 0, err_abs
+    # rows that decided otherwise must be rows whose decision ties
+    flags = ["k", "n_open", "open", "tail"] + (
+        ["rho_ind"] if cfg.shared else []) + (
+        ["best_open", "n_stall", "k_fast", "open_a"] if phase == "A" else [])
+    diff = [f for f in flags if not same(getattr(got, f), getattr(ref, f))]
+    if diff and phase == "A" and "rho_ind" not in diff:
+        # phase A's metric: the mean log residual of the open rows
+        open_ = ~ref.done
+        lr = torch.log((t["pri"] + t["dua"]).clamp_min(1e-30))[open_]
+        tol = float((rtol * (t["sp"] + t["sd"])
+                     / (t["pri"] + t["dua"]).clamp_min(1e-30))[open_].max()) \
+            + 8 * float(eps) * float(lr.abs().max())
+        if abs(float(lr.mean()) - (float(st.best_m) - cfg.stall)) <= 2 * tol:
+            why["stall"] = 1
+            n_tie += 1
+    assert not diff or n_tie, (tag, "flags differ", diff, why)
+    rung_same = not cfg.shared or same(got.rho_ind, ref.rho_ind)
+    bad = torch.zeros_like(tie_rows)
+    for f in ("done", "iters", "status") + (() if cfg.shared
+                                            else ("rho_ind",)):
+        bad |= torch.as_tensor(getattr(got, f)).long() \
+            != torch.as_tensor(getattr(ref, f)).long()
+    if rung_same:
+        bad |= (got.Y != ref.Y).any(dim=1)
+    assert not bool((bad & ~tie_rows).any()), \
+        (tag, "rows decided otherwise", int((bad & ~tie_rows).sum()))
+    if phase == "A" and not diff:
+        assert float((got.best_m.double() - ref.best_m.double()).abs()) \
+            <= rtol * float((t["sp"] / t["pri"].clamp_min(1e-30)
+                             + t["sd"] / t["dua"].clamp_min(1e-30)).max()
+                            + 1), (tag, "best_m")
+    if cfg.check_infeasibility:
+        assert torch.equal(got.X_prev, ref.X_prev), (tag, "X_prev")
+        assert torch.equal(got.Lam_prev, ref.Lam_prev), (tag, "Lam_prev")
+    n_bad = int(bad.sum()) + len(diff)
+    if n_tie:
+        ties.append((tag, phase, why, diff + ([f"{int(bad.sum())} rows"]
+                                              if bad.any() else [])))
+    return err, n_bad, err_abs
+
+
+def check_bytes_ops(rec):
+    """The bytes a check must move (each input read once, each output
+    written once) and the multiply-adds of its products, from the shapes."""
+    kind, st, op, cfg, y, n, phase = rec
+    e = y.element_size()
+    nx, nc = cfg.nx, cfg.nc
+    nb = lambda t: 0 if t is None else t.numel() * t.element_size()
+    certs = cfg.check_infeasibility and phase != "tail"
+    if kind == "C1":
+        dp = y.shape[0]
+        if op.M_res is not None:
+            ins = nb(op.M_res) + nb(op.g_row)
+            macs = op.M_res.numel()
+        else:
+            ins = nb(op.H) + nb(op.A) + nb(op.g) + nb(op.w_pri) + nb(op.w_dua)
+            macs = nx * nx + 2 * nc * nx
+        if certs:
+            ins += (0 if op.M_res is None else nb(op.H) + nb(op.A) + nb(op.g))
+            ins += (nx + 3 * nc) * e      # x_prev, lam_prev, l and u
+            macs += nx * nx + 2 * nc * nx
+        ins += dp * e + 16 * 4           # y and the state's scalars
+        out = dp * e + (nx + nc) * e * certs + 16 * 4
+        if cfg.alpha != 1.0:
+            ins += 2 * nc * e             # ρ⃗ at the old and new rungs
+        return ins + out, 2 * macs
+    B, dp = y.shape
+    per_row = 3 * e + 1 + 8 + (0 if cfg.shared else 4)
+    ins = nb(y) + nb(op.H) + nb(op.A) + nb(op.G) + nb(op.w_pri) \
+        + nb(op.w_dua) + B * per_row
+    out = nb(y) + B * per_row
+    if certs:
+        ins += B * (nx + 3 * nc) * e
+        out += B * (nx + nc) * e
+    if cfg.alpha != 1.0:
+        ins += (2 if cfg.shared else 2 * B) * nc * e
+    macs = B * (nx * nx + 2 * nc * nx) * (2 if certs else 1)
+    return ins + out, 2 * macs
+
+
+def check_timing(tag, rec, card):
+    """One recorded check: the kernel and the plain check, each
+    CHECK_REPS launches replayed in one CUDA graph (the plain one's ~50
+    ops each a kernel node), and the bound."""
+    import torch
+    from reluqp_tpu_torch.ops.check_window import (assign, batched_check,
+                                                   batched_check_ref,
+                                                   check_window,
+                                                   check_window_ref)
+    kind, st, op, cfg, y, n, phase = rec
+    ker = check_window if kind == "C1" else batched_check
+    ref = check_window_ref if kind == "C1" else batched_check_ref
+    sk, sp = _clone_nt(st), _clone_nt(st)
+    ms = graph_ms(lambda: ker(sk, op, cfg, y, n, phase), CHECK_REPS)
+    plain = graph_ms(lambda: assign(sp, ref(sp, op, cfg, y, n, phase)),
+                     CHECK_REPS)
+    nbytes, ops = check_bytes_ops(rec)
+    peak = FP64_FLOPS if y.dtype == torch.float64 else FP32_FLOPS
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    log(f"phase 31 {tag}: {kind} {ms:.5f} ms per launch, plain check "
+        f"{plain:.5f} ms (both in a CUDA graph of {CHECK_REPS}); bound "
+        f"{bound:.6f} ms ({by}: {nbytes} bytes, {ops} flop); on {card}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+
+
+def window_nodes(tag, solver, kind, chunk_kernel=True):
+    """The nodes of one captured check window of ``solver`` (its cache
+    walked window by window): after the chunk kernel (K1, K4 or K5 where
+    ``chunk_kernel``, else a plain runner's last op) only the check's
+    launches, at most 1 for C1 and 2 for C2. Returns the chunk's node."""
+    from reluqp_tpu_torch.ops.check_window import graph_kernels
+    cache = solver._window_graphs
+    keys = [k for k in cache.keys() if k[0] == "window"
+            and cache._windows[k].graph is not None]
+    assert keys, f"{tag}: no captured window"
+    names = graph_kernels(cache._windows[keys[0]].graph.raw())
+    kernels = [s for s in names if s not in ("memcpy", "memset", "empty")]
+    first = min(i for i, s in enumerate(kernels)
+                if any(c in s for c in CHECK_KERNELS))
+    after = kernels[first:]
+    limit = 1 if kind == "C1" else 2
+    assert len(after) <= limit and all(
+        any(c in s for c in CHECK_KERNELS) for s in after), (tag, kernels)
+    chunk = kernels[first - 1] if first else None
+    assert not chunk_kernel or any(c in (chunk or "")
+                                   for c in CHUNK_KERNELS), (tag, kernels)
+    log(f"phase 31 {tag}: a captured window's kernel nodes end "
+        f"{[_short(s) for s in kernels[max(0, first - 1):]]} "
+        f"({len(kernels)} kernel nodes, {len(names)} nodes)")
+    return chunk
+
+
+def body_nodes(tag, solver, run, kind):
+    """The nodes of one WHILE body of ``solver``'s device program (its
+    cache made anew, ``run()`` three times: walked, built, launched): the
+    window's nodes, then only the check's launches after the chunk
+    kernel, then the body counter (``graph_loop.cu``'s flag kernel)."""
+    from reluqp_tpu_torch.core.graphs import Program, WindowGraphs
+    from reluqp_tpu_torch.ops.check_window import graph_kernels
+    solver._window_graphs = cache = WindowGraphs()
+    for _ in range(3):
+        run()
+    made = [v for _, v in cache._made.values()]
+    progs = [p for v in made for p in (v if isinstance(v, tuple) else (v,))
+             if isinstance(p, Program) and p.exec is not None]
+    assert progs and progs[0].exec.bodies, f"{tag}: no device program"
+    names = [s for s in graph_kernels(progs[0].exec.bodies[0])
+             if s not in ("memcpy", "memset", "empty")]
+    first = min(i for i, s in enumerate(names)
+                if any(c in s for c in CHECK_KERNELS))
+    after = names[first:]
+    limit = 1 if kind == "C1" else 2
+    assert "gl_flag_kernel" in after[-1] and len(after) - 1 <= limit and all(
+        any(c in s for c in CHECK_KERNELS) for s in after[:-1]), (tag, names)
+    assert any(c in names[first - 1] for c in CHUNK_KERNELS), (tag, names)
+    log(f"phase 31 {tag}: a device program's WHILE body ends "
+        f"{[_short(s) for s in names[first - 1:]]}")
+    return names
+
+
+def _short(name):
+    for c in CHECK_KERNELS + CHUNK_KERNELS + ("gl_flag_kernel",):
+        if c in name:
+            return c
+    return name[:40]
+
+
+def phase_check_kernels(card):
+    """Phase 31: kernels C1 and C2 (``csrc/check_window.cu``) against their
+    plain versions on windows recorded from eager solves on the card, the
+    captured windows' kernel nodes, and the kernels' and the plain check's
+    times beside the bound."""
+    import torch
+    from reluqp_tpu_torch import BatchedReLU_QP, ReLU_QP
+    from reluqp_tpu_torch.models.mpc import MPC, mpc_rollout_scan
+    from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp
+    t0 = time.perf_counter()
+    q100 = rand_qp(100, 25, 25, seed=0, compute_sol=False)[:5]
+    q400 = rand_qp(400, 100, 100, seed=0, compute_sol=False)[:5]
+    cq = canonical_qp()
+    canon = (cq.H, cq.g, cq.A, cq.l, cq.u)
+    prob = scenario_problem()
+    mpc_qp = (prob.H, prob.g0, prob.A, prob.l0, prob.u0)
+    f32, f64 = dict(precision="float32"), dict(precision="float64")
+    ruiz = dict(eps_abs=1e-4, scaling=True)
+    single = [
+        ("canonical Dp=128 fp32", canon, dict(eps_abs=1e-4, **f32)),
+        ("nx=100 Dp=256 fp32", q100, dict(ruiz, **f32)),
+        ("nx=100 Dp=256 fp64", q100, dict(ruiz, **f64)),
+        ("MPC QP Dp=640 fp32", mpc_qp, dict(eps_abs=1e-3, **f32)),
+        ("nx=400 Dp=896 fp32", q400, dict(ruiz, **f32)),
+        ("nx=100 alpha=1.6 fp32", q100, dict(ruiz, alpha=1.6, **f32)),
+        ("nx=100 alpha=1.6 fp64", q100, dict(ruiz, alpha=1.6, **f64)),
+        ("nx=100 certificates fp64", q100,
+         dict(ruiz, check_infeasibility=True, **f64)),
+        ("primal-infeasible fp64", PINF, dict(check_infeasibility=True,
+                                               **f64)),
+        ("dual-infeasible alpha=1.6 fp32", DINF,
+         dict(check_infeasibility=True, alpha=1.6, **f32)),
+        ("nx=100 phase A (high) fp32", q100,
+         dict(ruiz, iter_precision="high", **f32)),
+        ("nx=100 jump, stride 3 fp64", q100,
+         dict(ruiz, rho_jump=True, adaptive_rho_interval=75, **f64)),
+        ("nx=100 tail fp32", q100,
+         dict(eps_abs=1e-9, max_iter=110, **f32)),
+    ]
+    h, g, a, l, u = shared_batch(REPACK_B)
+    h1, g1, a1, l1, u1 = (np.asarray(v) for v in q100)
+    batches = [
+        (f"shared B={REPACK_B} Dp=128 fp32", (h, g, a, l, u), REPACK_KW),
+        ("shared B=64 Dp=128 fp64 certificates", (h, g[:64], a, l[:64],
+                                                   u[:64]),
+         dict(REPACK_KW, precision="float64", check_infeasibility=True)),
+        ("shared B=1 Dp=256 fp64 jump, stride 2", (h1, g1[None], a1,
+                                                    l1[None], u1[None]),
+         dict(ruiz, rho_jump=True, adaptive_rho_interval=50, **f64)),
+        ("shared B=64 Dp=640 (scenario) fp32", None, {}),
+        ("shared B=64 alpha=1.6 phase A fp32", (h, g[:64], a, l[:64],
+                                                u[:64]),
+         dict(REPACK_KW, alpha=1.6, iter_precision="high")),
+        ("per-problem B=64 fp32", (h, g[:64], a, l[:64], u[:64]),
+         dict(REPACK_KW, rho_mode="per_problem")),
+        ("per-problem B=64 alpha=1.6 fp64 certificates",
+         (h, g[:64], a, l[:64], u[:64]),
+         dict(REPACK_KW, rho_mode="per_problem", alpha=1.6,
+              precision="float64", check_infeasibility=True)),
+        (f"hetero B={HET_B} Dp=128 fp32", hetero_batch(HET_B),
+         dict(HET_KW, bank_build="device")),
+        ("hetero B=16 alpha=1.6 phase A fp64 certificates",
+         hetero_batch(16), dict(HET_KW, alpha=1.6, iter_precision="high",
+                                precision="float64",
+                                check_infeasibility=True)),
+        ("shared B=1 Dp=896 fp32", tuple(np.asarray(v)[None] if i in (1, 3, 4)
+                                         else np.asarray(v)
+                                         for i, v in enumerate(q400)),
+         dict(ruiz, **f32)),
+    ]
+    recs, ties, errs, solvers = [], [], {}, {}
+    for tag, data, kw in single:
+        m = ReLU_QP()
+        m.setup(*data, **kw)
+        with eager_windows(m), record_checks() as r:
+            m.solve()
+        assert r.recs, tag
+        recs += [(tag, x) for x in r.recs]
+        solvers[tag] = m
+    for tag, data, kw in batches:
+        if data is None:
+            m = scenario_solver(prob, SCEN_B)
+            m.update(*scenario_vectors(prob, scenario_inputs(SCEN_B)[0]))
+        else:
+            m = BatchedReLU_QP()
+            m.setup(*data, **kw)
+        with eager_windows(m), record_checks() as r:
+            m.solve()
+        assert r.recs, tag
+        recs += [(tag, x) for x in r.recs]
+        solvers[tag] = m
+    phases = {x[6] for _, x in recs}
+    assert {"A", "tail"} <= phases, phases
+    differ, abs_errs = 0, {}
+    for tag, rec in recs:
+        key = (rec[0], str(rec[4].dtype).split(".")[-1])
+        e, n_bad, e_abs = check_compare(f"{tag} {rec[6] or 'window'}", rec,
+                                        ties)
+        errs[key] = max(errs.get(key, 0.0), e)
+        abs_errs[key] = max(abs_errs.get(key, 0.0), e_abs)
+        differ += n_bad
+    assert any(r[3].alpha != 1.0 and r[0] == "C2" and r[3].shared
+               for _, r in recs), "no shared alpha window"
+    for tag, phase, why, diff in ties:
+        log(f"phase 31 tie {tag} ({phase or 'window'}): decisions within "
+            f"the tolerance of their threshold {why}; decided otherwise: "
+            f"{diff or 'none'}")
+    log(f"phase 31: {len(recs)} recorded windows held, kernel against plain "
+        f"version (max residual error / scale {errs}); {len(ties)} windows "
+        f"with ties, {differ} decisions taken otherwise (all at ties)")
+    # the captured windows of each covered path
+    nodes = {}
+
+    def captured(tag, m, run, kind, chunk_kernel=True):
+        from reluqp_tpu_torch.core.graphs import WindowGraphs
+        m._window_graphs = WindowGraphs()
+        m._window_graphs.device_exit = False
+        run()
+        run()
+        nodes[tag] = window_nodes(tag, m, kind, chunk_kernel)
+
+    cold = lambda m: (m.clear_primal_dual(), m.solve())
+    captured("single QP, K1", solvers["nx=100 Dp=256 fp32"],
+             lambda: cold(solvers["nx=100 Dp=256 fp32"]), "C1")
+    mx = ReLU_QP()
+    mx.setup(*q100, backend="xla", **dict(ruiz, **f32))
+    captured("single QP, xla runner", mx, lambda: cold(mx), "C1", False)
+    for tag in (f"shared B={REPACK_B} Dp=128 fp32", "per-problem B=64 fp32",
+                f"hetero B={HET_B} Dp=128 fp32",
+                "shared B=64 alpha=1.6 phase A fp32"):
+        m = solvers[tag]
+        captured(tag, m, lambda m=m: cold(m), "C2",
+                 not tag.startswith("per-problem"))
+    mr = BatchedReLU_QP()
+    mr.setup(h, g, a, l, u, tail_policy="repack", **REPACK_KW)
+    captured("repack", mr, lambda: cold(mr), "C2")
+    ms = solvers["shared B=64 Dp=640 (scenario) fp32"]
+    from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
+    X0, _ = scenario_inputs(SCEN_B)
+    captured("scenario loop", ms, lambda: scenario_rollout_scan(
+        ms, prob, X0, 4, kernel="loop"), "C2")
+    Ad, Bd, Q, R, x0 = mpc_config()
+    ctrl = MPC(Ad, Bd, Q, R, horizon=MPC_H, **MPC_KW)
+    captured("loop MPC", ctrl.solver, lambda: mpc_rollout_scan(
+        ctrl.solver, ctrl.prob, x0, 4, kernel="loop", check_interval=1),
+        "C1")
+    # a device program's WHILE body: the window, then the body counter
+    body_nodes("device exit, single QP", solvers["nx=100 Dp=256 fp32"],
+               lambda: cold(solvers["nx=100 Dp=256 fp32"]), "C1")
+    for tag in (f"shared B={REPACK_B} Dp=128 fp32",
+                f"hetero B={HET_B} Dp=128 fp32",
+                "shared B=64 alpha=1.6 phase A fp32"):
+        m = solvers[tag]
+        body_nodes(f"device exit, {tag}", m, lambda m=m: cold(m), "C2")
+    # times per covered shape: the first recorded window of each
+    timing = {}
+    for tag in [t for t, _, _ in single] + [t for t, _, _ in batches]:
+        rec = next(x for t, x in recs if t == tag and x[6] != "tail")
+        timing[tag] = check_timing(tag, rec, card)
+    log(f"phase 31 OK: C1 and C2 agree with their plain versions on every "
+        f"recorded window; {time.perf_counter() - t0:.1f} s")
+    return dict(errs=errs, abs_errs=abs_errs, ties=ties, differ=differ,
+                timing=timing, nodes=nodes)
 
 
 # --------------------------------------------------------------------- #
@@ -3979,7 +4647,8 @@ def mesh_phase_shared(rank, world, mesh, outdir):
     tbatch.pallas_batched_chunk_runner = _recording(runner, rungs)
     try:
         with count_collectives() as cc:
-            res, counts = _counted(lambda: repack_solve(m), "K4")
+            res, counts = _counted(lambda: repack_solve(m), "K4",
+                                   checks=False)
     finally:
         tbatch.pallas_batched_chunk_runner = runner
     assert all(n == 0 for k, n in counts.items() if k != "K4"), counts
@@ -4073,20 +4742,20 @@ def mesh_phase_hetero(rank, world, mesh, outdir):
                 **HET_KW)
         return m, m.solve()
 
-    (m, res), counts = _counted(run, "K5")
+    (m, res), counts = _counted(run, "K5", checks=False)
     assert all(n == 0 for k, n in counts.items() if k != "K5"), counts
     assert m.B_n == HET_B and m.B_local == per and m._hetero_pallas
     assert res.info.status.shape == (HET_B,)
     obj = m.objective()
     assert obj.shape == (HET_B,) and np.all(np.isfinite(obj))
     m.update(g=local[1] * 1.05)
-    r2, c2 = _counted(m.solve, "K5")
+    r2, c2 = _counted(m.solve, "K5", checks=False)
     assert r2.info.status.all()
     prefix = os.path.join(outdir, "het_ckpt")
     save_batched_solver(m, prefix)
     m4 = load_batched_solver(prefix, mesh=mesh)
     assert m4.B_n == HET_B and m4.settings.device == m.settings.device
-    r4, c4 = _counted(m4.solve, "K5")
+    r4, c4 = _counted(m4.solve, "K5", checks=False)
     r5 = m.solve()
     assert torch.equal(r4.x, r5.x) and (r4.info.iter == r5.info.iter).all()
     n_k5 = counts["K5"] + c2["K5"] + c4["K5"]
@@ -4222,9 +4891,9 @@ def mesh_phase_scenario(rank, world, mesh, outdir):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    (out, secs), counts = _counted(rollout, "K4")
+    (out, secs), counts = _counted(rollout, "K4", checks=False)
     assert all(n == 0 for k, n in counts.items() if k != "K4"), counts
-    (out2, secs2), _ = _counted(rollout, "K4")
+    (out2, secs2), _ = _counted(rollout, "K4", checks=False)
     assert torch.equal(out[0], out2[0])
     log(f"phase 28 rank {rank}/{world}: {m.B_local} of {SCEN_B} scenarios, "
         f"{SCEN_T} steps through K4 only ({counts['K4']} launches), "
@@ -4275,17 +4944,43 @@ def phase_mesh(card, scen_loop):
     import torch
     from reluqp_tpu_torch import BatchedReLU_QP
     from reluqp_tpu_torch.utils.checkpoint import load_batched_solver
+    from reluqp_tpu_torch.core.graphs import WindowGraphs
+    from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
     world = torch.cuda.device_count()
+    # A process group's batched windows keep the plain check (its
+    # all-reduces sit inside it), so the unsharded references that the
+    # mesh is held to bit for bit run the plain check too (the A/B switch
+    # WindowGraphs.check_kernels): C2 rounds the residual products
+    # otherwise, and a decision at a tie would part them.
     ref = BatchedReLU_QP()
     ref.setup(*shared_batch(MESH_B * world), **REPACK_KW)
+    ref._window_graphs.check_kernels = False
     r25 = repack_solve(ref)
     ref25 = dict(x=r25.x.cpu().numpy(), iter=r25.info.iter,
                  status=r25.info.status_code, rho_ind=r25.info.rho_ind)
     ref = BatchedReLU_QP()
     ref.setup(*hetero_batch(HET_B), bank_build="device", **HET_KW)
+    ref._window_graphs.check_kernels = False
     r26 = ref.solve()
     ref26 = dict(x=r26.x.cpu().numpy(), iter=r26.info.iter,
                  status=r26.info.status_code)
+    # phase 14's rollout with the plain check (phase 28's reference)
+    m14, keep = scen_loop["m"], scen_loop["m"]._window_graphs
+    m14._window_graphs = WindowGraphs()
+    m14._window_graphs.check_kernels = False
+    try:
+        m14.clear_primal_dual()
+        X0, noise = scenario_inputs(SCEN_B, SCEN_T)
+        ref28 = scenario_rollout_scan(m14, scen_loop["prob"], X0, SCEN_T,
+                                      kernel="loop", noise=noise,
+                                      return_stats=True)
+    finally:
+        m14._window_graphs = keep
+    same14 = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+        ref28[:3], scen_loop["out"][:3]))
+    log(f"phases 25-28 references: phase 14's rollout with the plain check "
+        f"{'bit-equal to' if same14 else 'differs from'} the same rollout "
+        f"through C2")
     del ref, r25, r26
     torch.cuda.empty_cache()
 
@@ -4375,7 +5070,9 @@ def phase_mesh(card, scen_loop):
         assert dx < 5e-3, dx
         merged = load_batched_solver(os.path.join(tmp, "het_ckpt"))
         assert merged.B_n == HET_B and merged.mesh is None
-        rm, counts = _counted(merged.solve, "K5")
+        # held bit for bit against the ranks' plain-check solve
+        merged._window_graphs.check_kernels = False
+        rm, counts = _counted(merged.solve, "K5", checks=False)
         assert (rm.info.status_code == got["status5"]).all()
         dxm = float(np.max(np.abs(rm.x.cpu().numpy() - got["x5"])))
         if world == 1:
@@ -4416,7 +5113,7 @@ def phase_mesh(card, scen_loop):
                     for k in ("xs", "us", "its", "status"))
         check_scenario(f"phase 28 (mesh of {world}, kernel=auto)", out,
                        scen_loop["ref"], SCEN_KW.get("max_iter", 4000))
-        ref14 = scen_loop["out"]
+        ref14 = ref28
         dx = float(np.max(np.abs(got["xs"] - ref14[0].cpu().numpy())))
         n_it = int(np.sum(got["its"] != ref14[2].numpy()))
         if world == 1:
@@ -4478,6 +5175,7 @@ def main():
     mesh = phase_mesh(card, scen_loop)
     phase_graphs(card, protocol, mpc, scen_loop, het, repack)
     phase_device_exit(card, protocol, mpc, scen_loop, het, repack)
+    chk = phase_check_kernels(card)
     k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]
     k3_row = k3["rows"][100]
@@ -4582,6 +5280,33 @@ def main():
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": k5["library_ms"],
+    }]
+    c1, c2 = (chk["timing"][tag] for tag in (
+        CHECK_MAIN_C1, f"shared B={REPACK_B} Dp=128 fp32"))
+    kernels += [{
+        # per window; XLA's fused check has no single PyTorch call
+        "name": f"C1 check_window ({CHECK_MAIN_C1}, y @ M_res, per window; "
+                f"{len(chk['ties'])} recorded windows with ties, "
+                f"{chk['differ']} decisions taken otherwise)",
+        "route": "cuda",
+        "source": "reluqp_tpu_torch/csrc/check_window.cu",
+        "replaces": "reluqp_tpu/core/iteration.py:455",
+        "launches": CHECK_LAUNCHES["C1"],
+        "max_abs_err": chk["abs_errs"][("C1", "float32")],
+        "ms": c1["ms"], "plain_ms": c1["plain_ms"],
+        "bound_ms": c1["bound_ms"], "bound_by": c1["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": f"C2 batched_check (shared batch, B={REPACK_B}, Dp=128, "
+                "fp32, per window)",
+        "route": "cuda",
+        "source": "reluqp_tpu_torch/csrc/check_window.cu",
+        "replaces": "reluqp_tpu/core/batched.py:369",
+        "launches": CHECK_LAUNCHES["C2"],
+        "max_abs_err": chk["abs_errs"][("C2", "float32")],
+        "ms": c2["ms"], "plain_ms": c2["plain_ms"],
+        "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
+        "library_ms": None,
     }]
     log("card:", card)
     print(json.dumps({"kernels": kernels}))

@@ -27,11 +27,12 @@ Two regimes:
 Each problem carries its own ``done`` flag, first-convergence iteration
 count and status; converged problems keep iterating (a converged ADMM
 iterate is a fixed point up to noise) but their ρ index and stats are
-frozen. A solve is one device program (``core.graphs``, as
-``core.iteration``'s): its start piece builds the cold state, the windows
-run under a loop whose exit (the open count, the budget and, under a
-two-phase refine, the stall test on the mean log-residual of the open
-problems) the device decides, the tail window under an IF, and the result
+frozen. Each window's check is kernel C2 on ``cuda`` (``ops.check_window``;
+its plain version on the CPU and under a process group). A solve is one
+device program (``core.graphs``, as ``core.iteration``'s): its start piece
+builds the cold state, the windows run under a loop whose exit (the open
+count, the budget and, under a two-phase refine, the stall test on the
+mean log-residual of the open problems) the device decides, the tail window under an IF, and the result
 piece bundles the iteration counts with the per-problem stats for the
 solve's one host read. On ``cuda`` that is one graph launch; repack stages
 (their compaction between stages stays eager) and a process group walk
@@ -52,14 +53,14 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from ..ops.check_window import (STATUS_MAX_ITER, STATUS_SOLVED, assign,
+                                batched_check, batched_check_ref,
+                                batched_infeasibility_certificates,
+                                batched_lam_of, batched_residuals)
 from ..ops.fused_step import _bf16, fused_chunk_ref
 from .graphs import Cond, Piece, Program, sig, window_graphs
-from .iteration import (STATUS_DUAL_INFEASIBLE, STATUS_MAX_ITER,
-                        STATUS_PRIMAL_INFEASIBLE, STATUS_SOLVED,
-                        _host_scalar_type, assign, refine_items,
-                        rho_ladder_step, rho_update_stride)
+from .iteration import _host_scalar_type, refine_items, rho_update_stride
 
 __all__ = [
     "BatchSolveResult",
@@ -94,79 +95,6 @@ class BatchSolveResult(NamedTuple):
                              # with the result bundle (None after repack)
     out: Optional[torch.Tensor] = None   # the result bundle unread (under
                              # a process group: n_iter_* are then None)
-
-
-def batched_residuals(H, A, g, X, Z, Lam, rho, rho_min: float,
-                      rho_max: float, w_pri=None, w_dua=None):
-    """Per-problem residuals and ρ estimates.
-
-    ``X`` (B, nx), ``Z``/``Lam`` (B, nc), ``g`` (B, nx) or (nx,), ``rho``
-    (B,); ``H``/``A`` shared (nx, nx)/(nc, nx) or per problem (B, ·, nx);
-    optional ``w_pri`` (nc,) or (B, nc) / ``w_dua`` (nx,) or (B, nx) weight
-    the residual vectors into UNSCALED units under Ruiz equilibration. All
-    products are full-precision GEMMs (TF32 is off). Returns ``(pri, dua,
-    rho_new)``, each (B,).
-    """
-    AX = _mv(A, X)
-    HX = _mv(H, X)
-    AtL = _mv(A.transpose(-1, -2), Lam)
-    g = torch.broadcast_to(g, HX.shape)
-    if w_pri is not None:
-        AX = w_pri * AX
-        Z = w_pri * Z
-    if w_dua is not None:
-        HX = w_dua * HX
-        AtL = w_dua * AtL
-        g = w_dua * g
-    amax = lambda v: v.abs().amax(dim=-1)
-    pri = amax(AX - Z)
-    dua = amax(HX + AtL + g)
-    scale_p = torch.maximum(amax(AX), amax(Z))
-    scale_d = torch.maximum(torch.maximum(amax(HX), amax(AtL)), amax(g))
-    num = pri / scale_p.clamp_min(_TINY)
-    den = dua / scale_d.clamp_min(_TINY)
-    ratio = torch.sqrt(num / den.clamp_min(_TINY))
-    return pri, dua, torch.clamp(rho * ratio, rho_min, rho_max)
-
-
-def _mv(M, v):
-    """Row-wise products ``M @ vᵢ``: ``M`` (m, n) shared or (B, m, n) per
-    problem, ``v`` (B, n) → (B, m)."""
-    if M.dim() == 3:
-        return torch.bmm(M, v[:, :, None])[:, :, 0]
-    return v @ M.T
-
-
-def batched_infeasibility_certificates(H, A, g, l, u, dX, dLam,
-                                       eps_pinf: float, eps_dinf: float):
-    """Per-problem OSQP-style infeasibility certificates on iterate deltas:
-    δλ certifies primal infeasibility when Aᵀδλ ≈ 0 and the support
-    function uᵀ(δλ)₊ + lᵀ(δλ)₋ is negative; δx certifies dual infeasibility
-    when Hδx ≈ 0, gᵀδx < 0 and Aδx is a feasible ray.
-
-    ``dX`` (B, nx), ``dLam`` (B, nc), ``l``/``u`` (B, nc), ``g`` (B, nx) or
-    (nx,); ``H``/``A`` shared, or per problem (B, ·, nx).
-    Returns ``(pinf, dinf)`` bool (B,) tensors.
-    """
-    amax = lambda v: v.abs().amax(dim=-1)
-    norm_dlam = amax(dLam)
-    norm_dx = amax(dX)
-    eps_p = eps_pinf * norm_dlam
-    eps_d = eps_dinf * norm_dx
-    At_dlam = _mv(A.transpose(-1, -2), dLam)
-    H_dx = _mv(H, dX)
-    A_dx = _mv(A, dX)
-    zero = torch.zeros((), dtype=dLam.dtype, device=dLam.device)
-    support = torch.where(dLam > 0, u * dLam,
-                          torch.where(dLam < 0, l * dLam, zero)).sum(dim=-1)
-    pinf = (norm_dlam > 0) & (amax(At_dlam) <= eps_p) & (support <= -eps_p)
-    ray_ok = torch.all(
-        torch.where(torch.isfinite(u), A_dx <= eps_d[:, None], True)
-        & torch.where(torch.isfinite(l), A_dx >= -eps_d[:, None], True),
-        dim=-1)
-    g_dx = (torch.broadcast_to(g, dX.shape) * dX).sum(dim=-1)
-    dinf = (norm_dx > 0) & (amax(H_dx) <= eps_d) & (g_dx <= -eps_d) & ray_ok
-    return pinf, dinf
 
 
 # --------------------------------------------------------------------- #
@@ -274,6 +202,8 @@ class _Dev(NamedTuple):
     n_stall: Optional[torch.Tensor] = None    # windows in a row and
     k_fast: Optional[torch.Tensor] = None     # iterations run
     ctl: Optional[torch.Tensor] = None        # (n,) int32: the scalars
+    tick: Optional[torch.Tensor] = None       # (2,) int32: C2's block
+                                              # ticket and the old rung
 
 
 class _Ops(NamedTuple):
@@ -319,6 +249,7 @@ class _Cfg(NamedTuple):
     cap_a: int            # phase A's iteration cap
     stall: float          # phase A's progress margin 0.03, iterate dtype
     stop_open: int        # the stage ends at this many open problems
+    kernel_check: bool = True   # C2 on cuda; off: the plain check (A/B)
 
 
 def _start(Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility, nx,
@@ -341,7 +272,8 @@ def _start(Y0, rho_ind0, rhos_t, done0, max_iter, check_infeasibility, nx,
     d = _Dev(Y0, rho_ind0, rho0, zeros, zeros, done, iters, status, k)
     if check_infeasibility:
         d = d._replace(X_prev=Y0[:, :nx],
-                       Lam_prev=_lam_of(Y0, rho_ind0, nx, nc, alpha, rho_eff))
+                       Lam_prev=batched_lam_of(Y0, rho_ind0, nx, nc, alpha,
+                                               rho_eff))
     return d
 
 
@@ -395,7 +327,9 @@ def _buffers(graphs, B, y_shape, ind_shape, dtype, dev, nx, nc,
              buf("rho", (B,)), buf("pri", (B,)), buf("dua", (B,)),
              buf("done", (B,), torch.bool), buf("iters", (B,), i32),
              buf("status", (B,), i32), c["k"], n_open=c["n_open"],
-             open=c["open"], tail=c["tail"], ctl=ctl)
+             open=c["open"], tail=c["tail"], ctl=ctl,
+             # C2's ticket starts at 0, and every launch leaves it so
+             tick=buf("tick", (2,), i32).zero_())
     if check_infeasibility:
         d = d._replace(X_prev=buf("X_prev", (B, nx)),
                        Lam_prev=buf("Lam_prev", (B, nc)))
@@ -686,24 +620,6 @@ def _rhos_in(graphs, rhos, dtype):
     return graphs.stage("batch.rhos", rhos.to(dtype))
 
 
-def _rho_vec(rho_eff, rho_ind):
-    """ρ⃗ at the rung(s): (1, nc) shared, (B, nc) per problem, from a
-    shared (N, nc) or a per-problem (B, N, nc) ladder."""
-    if rho_eff.dim() == 3:
-        rows = torch.arange(rho_ind.shape[0], device=rho_ind.device)
-        return rho_eff[rows, rho_ind.long()]
-    return rho_eff.index_select(0, rho_ind.reshape(-1).long())
-
-
-def _lam_of(Y, rho_ind, nx: int, nc: int, alpha: float, rho_eff):
-    """True λ: the slot (alpha = 1) or ρ⃗(p − z) of the relaxed
-    parametrization."""
-    last = Y[:, nx + nc:nx + 2 * nc]
-    if alpha == 1.0:
-        return last
-    return _rho_vec(rho_eff, rho_ind) * (last - Y[:, nx:nx + nc])
-
-
 def _bias_of(op: _Ops, rho_ind, dtype):
     """The bias bank for the runner: materialized, the current rung's row
     of the full batch through a row map (a repack stage), or (lazy) the
@@ -765,111 +681,23 @@ def _solve_batched(Wt_bank, bias, rhos, H, A, G, lo, hi, Y0, rho_ind0,
 
 
 def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
-            precision: str, phase: str) -> _Dev:
+            precision: str, phase: str) -> None:
     """One batched check window on the device: ``n_steps`` iterations of
-    every row, the residuals, the ρ walk (at every ``rho_stride``-th
-    check, decided from the device's iteration count), first-convergence
-    iterations and status, the certificates, the open count (all-reduced
-    over the process group when there is one) and the loop's exit flags
-    and, in phase A, the progress test. Returns the new state."""
-    nx, nc = cfg.nx, cfg.nc
-    dtype = st.Y.dtype
-    Y = cfg.chunk_runner(W_op, _bias_of(op, st.rho_ind, dtype), st.rho_ind,
-                         op.lo, op.hi, st.Y, n_steps, precision)
-    X, Z = Y[:, :nx], Y[:, nx:nx + nc]
-    lam_now = _lam_of(Y, st.rho_ind, nx, nc, cfg.alpha, op.rho_eff)
-    pri_n, dua_n, rho_new = batched_residuals(op.H, op.A, op.G, X, Z,
-                                              lam_now, st.rho, cfg.rho_min,
-                                              cfg.rho_max, op.w_pri,
-                                              op.w_dua)
-    done = st.done
-    # freeze the stats of problems that already converged
-    pri = torch.where(done, st.pri, pri_n)
-    dua = torch.where(done, st.dua, dua_n)
-    rho = torch.where(done, st.rho, rho_new)
-    rho_ind = st.rho_ind
-    k = st.k + n_steps
-    if cfg.adaptive_rho:
-        if cfg.shared:
-            # the geometric mean of the active problems' estimates drives
-            # the one shared ladder index
-            rho_k = op.rhos.index_select(0, rho_ind.reshape(1)).reshape(())
-            logr = torch.where(done, 0.0, torch.log(rho_new)).sum()
-            n_act = (~done).sum()
-            if cfg.group is not None:
-                red = torch.stack([logr, n_act.to(dtype)])
-                dist.all_reduce(red, group=cfg.group)
-                logr, n_act = red[0], red[1]
-            rho_gm = torch.exp(logr / n_act.clamp_min(1).to(dtype))
-            rho_gm = torch.where(n_act > 0, rho_gm, rho_k)
-            new_ind = rho_ladder_step(op.rhos, rho_ind, rho_gm, cfg.tol,
-                                      cfg.rho_jump)
-        else:
-            new_ind = rho_ladder_step(op.rhos, rho_ind, rho_new, cfg.tol,
-                                      cfg.rho_jump, done=done)
-        if cfg.rho_stride > 1:
-            # ρ moves only at every rho_stride-th check. Ceil-div: the
-            # max_iter % check_interval tail counts as its own check
-            # ordinal, not a repeat of the last window's.
-            chk = torch.div(k + (cfg.check_interval - 1), cfg.check_interval,
-                            rounding_mode="floor")
-            new_ind = torch.where(chk % cfg.rho_stride == 0, new_ind,
-                                  rho_ind)
-        if cfg.alpha != 1.0:
-            # re-encode p for the new rung with ρ⃗_old/ρ⃗_new (all ones
-            # where it held, capped rows and frozen rows included)
-            scale = _rho_vec(op.rho_eff, rho_ind) / _rho_vec(op.rho_eff,
-                                                             new_ind)
-            P_cur = Y[:, nx + nc:nx + 2 * nc]
-            Y = torch.cat([Y[:, :nx + nc], Z + scale * (P_cur - Z),
-                           Y[:, nx + 2 * nc:]], dim=1)
-        rho_ind = new_ind
-    newly = ~done & (pri < cfg.eps_pri) & (dua < cfg.eps_dua)
-    iters = torch.where(newly, k, st.iters).to(torch.int32)
-    status = torch.where(newly, STATUS_SOLVED, st.status).to(torch.int32)
-    done = done | newly
-    new = {}
-    if cfg.check_infeasibility:
-        pinf, dinf = batched_infeasibility_certificates(
-            op.H, op.A, op.G, op.lo[:, nx:nx + nc], op.hi[:, nx:nx + nc],
-            X - st.X_prev, lam_now - st.Lam_prev, cfg.eps_prim_inf,
-            cfg.eps_dual_inf)
-        for flag, code in ((pinf, STATUS_PRIMAL_INFEASIBLE),
-                           (dinf, STATUS_DUAL_INFEASIBLE)):
-            newly_i = ~done & flag
-            status = torch.where(newly_i, code, status).to(torch.int32)
-            iters = torch.where(newly_i, k, iters).to(torch.int32)
-            done = done | newly_i
-        new.update(X_prev=X, Lam_prev=lam_now)
-    n_open = (~done).sum()
-    stats_a = phase == "A"
-    if stats_a:
-        logres = torch.where(done, 0.0, torch.log(
-            torch.clamp_min(pri + dua, 1e-30))).sum()
-    if cfg.group is not None:
-        red = torch.stack([n_open.to(dtype)] + ([logres] if stats_a else []))
-        dist.all_reduce(red, group=cfg.group)
-        n_open = red[0]
-        if stats_a:
-            logres = red[1]
-    running = (n_open > cfg.stop_open) & (k < cfg.budget)
-    if stats_a:
-        # the mean log-residual of the open problems 0.03 below its best
-        # so far, or fewer open problems than ever: progress; two stalled
-        # windows in a row end the phase
-        metric = logres / n_open.clamp_min(1)
-        improved = ((metric < st.best_m - cfg.stall)
-                    | (n_open < st.best_open))
-        n_stall = torch.where(improved, 0, st.n_stall + 1)
-        new.update(
-            best_m=torch.where(metric < st.best_m, metric, st.best_m),
-            best_open=torch.where(n_open < st.best_open, n_open,
-                                  st.best_open),
-            n_stall=n_stall, k_fast=k,
-            open_a=(n_stall < 2) & (k < cfg.cap_a) & running)
-    return st._replace(Y=Y, rho_ind=rho_ind, rho=rho, pri=pri, dua=dua,
-                       done=done, iters=iters, status=status, k=k,
-                       n_open=n_open, open=running, tail=n_open > 0, **new)
+    every row, then the check (``ops.check_window``): the residuals, the ρ
+    walk (at every ``rho_stride``-th check, decided from the device's
+    iteration count), first-convergence iterations and status, the
+    certificates, the open count (all-reduced over the process group when
+    there is one) and the loop's exit flags and, in phase A, the progress
+    test, written into the static state ``st``: kernel C2 on ``cuda``, the
+    plain check on the CPU, under a process group (whose all-reduces sit
+    inside the check) and in the plain-check A/B (``cfg.kernel_check``
+    off)."""
+    Y = cfg.chunk_runner(W_op, _bias_of(op, st.rho_ind, st.Y.dtype),
+                         st.rho_ind, op.lo, op.hi, st.Y, n_steps, precision)
+    if cfg.kernel_check and cfg.group is None:
+        batched_check(st, op, cfg, Y, n_steps, phase)
+    else:
+        assign(st, batched_check_ref(st, op, cfg, Y, n_steps, phase))
 
 
 def _staged(graphs, ops: _Ops, dev: Optional[_Dev] = None):
@@ -890,7 +718,7 @@ def _staged(graphs, ops: _Ops, dev: Optional[_Dev] = None):
                        w_dua=st("w_dua", ops.w_dua), bias=bias)
     if dev is None:
         return ops
-    return ops, _Dev(*(t if t is None or t.dim() == 0 or f == "ctl"
+    return ops, _Dev(*(t if t is None or t.dim() == 0 or f in ("ctl", "tick")
                        else st(f, t) for f, t in zip(_Dev._fields, dev)))
 
 
@@ -939,7 +767,7 @@ def batch_program(graphs, ops: _Ops, st: _Dev, Wt_bank, Wt_bank_hi, *,
                n_chunks * check_interval,
                rho_update_stride(adaptive_rho_interval, check_interval),
                (n_chunks // 2) * check_interval, float(sc(0.03)),
-               int(stop_open))
+               int(stop_open), graphs.check_kernels)
     B = st.Y.shape[0]
     out = graphs.buffer("batch.out", (3 + 6 * B * stats,), torch.float64,
                         dev)
@@ -979,8 +807,8 @@ def batch_program(graphs, ops: _Ops, st: _Dev, Wt_bank, Wt_bank_hi, *,
 
     def window(W_op, precision, phase, n_steps=check_interval):
         return Piece(("window", n_steps, precision, phase, sig(W_op), base),
-                     lambda: assign(st, _window(st, ops, cfg, n_steps, W_op,
-                                                precision, phase)))
+                     lambda: _window(st, ops, cfg, n_steps, W_op, precision,
+                                     phase))
 
     loops, tail_W, tail_prec = refine_items(
         window, st.open, st.open_a, Wt_bank, Wt_bank_hi, refine=refine,

@@ -206,13 +206,16 @@ class GraphProgram:
     ``("loop" | "cond", flag, count slot, body nodes)``; ``counts``: a
     float64 device tensor, one slot per loop and cond, to which each body
     execution adds one. Holds the pieces' graphs (and so their pool) as
-    long as it lives, evicted from the cache or not. A step that fails
+    long as it lives, evicted from the cache or not; ``bodies`` are the
+    raw graphs of its WHILE and IF bodies, in build order (owned by the
+    program's graph: to inspect, not to launch). A step that fails
     raises."""
 
     def __init__(self, nodes, counts: torch.Tensor):
         self._lib = _loop_lib()
         self._nodes, self._counts = nodes, counts
         self._graph = self._exec = None
+        self.bodies = []
         self._graph = self._call("graph create", "gl_graph_create")
         self._build(self._graph, nodes)
         self._exec = self._call("instantiate", "gl_instantiate",
@@ -247,6 +250,7 @@ class GraphProgram:
                                        ctypes.byref(node_p))
             self._check(rc, f"{kind} node")
             dep = node_p.value
+            self.bodies.append(body_g.value)
             last = self._build(body_g.value, body)
             self._call("count kernel", "gl_add_flag", body_g.value, last,
                        handle, flag.data_ptr(),
@@ -322,7 +326,10 @@ class WindowGraphs:
     counts)`` makes a launchable device program (``GraphProgram``'s
     signature): ``None`` builds one on ``cuda`` and has none on the CPU.
     ``device_exit = False`` runs every program window by window (the A/B
-    of the device exit). ``captures`` and ``replays`` count what this
+    of the device exit); ``check_kernels = False``, set before the cache's
+    first solve, makes the programs it runs check each window with the
+    plain torch check in place of kernels C1 and C2 (the A/B of those
+    kernels). ``captures`` and ``replays`` count what this
     cache did (a device program's launch counts as a replay),
     ``programs`` the device programs it built, ``capture_seconds`` the
     host time its captures and builds took."""
@@ -332,6 +339,7 @@ class WindowGraphs:
         self._build = build
         self._off = eager
         self.device_exit = True
+        self.check_kernels = True
         self._windows: OrderedDict = OrderedDict()
         self._made: OrderedDict = OrderedDict()
         self._buffers: dict = {}

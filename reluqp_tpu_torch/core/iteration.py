@@ -3,12 +3,13 @@
 A solve is one device program (``core.graphs``): a start piece, the check
 windows under a loop whose exit the device decides, the tail window under
 an IF and the result bundle. Everything stays on the device: the chunk
-runner (kernel K1 on CUDA), the residual reduction, the ρ-index walk over
-the device-resident bank (every ``rho_update_stride``-th check, decided
-from the device's iteration count), the status decision, the
-infeasibility certificates when asked, the two-phase refine's stall test
-and the loop's exit flag. The rung index lives in a device int32 tensor
-that the kernel reads itself.
+runner (kernel K1 on CUDA) and the window's check (kernel C1 on CUDA, its
+plain version on the CPU: ``ops.check_window``): the residual reduction,
+the ρ-index walk over the device-resident bank (every
+``rho_update_stride``-th check, decided from the device's iteration
+count), the status decision, the infeasibility certificates when asked,
+the two-phase refine's stall test and the loop's exit flag. The rung
+index lives in a device int32 tensor that the kernels read themselves.
 
 On ``cuda`` the program is one launch of a CUDA graph whose conditional
 WHILE nodes run the windows (the counterpart of the JAX package's
@@ -30,6 +31,13 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.check_window import (_RUNNING, STATUS_DUAL_INFEASIBLE,
+                                STATUS_MAX_ITER, STATUS_PRIMAL_INFEASIBLE,
+                                STATUS_SOLVED, STATUS_STRINGS, assign,
+                                check_window, check_window_ref,
+                                compute_residuals, compute_residuals_op,
+                                infeasibility_certificates, lam_of,
+                                rho_ladder_step)
 from ..ops.fused_step import fused_chunk_ref, pad_dim
 from .bank import Bank, DeviceQP
 from .graphs import Cond, Loop, Piece, Program, sig, window_graphs
@@ -54,20 +62,6 @@ __all__ = [
 
 ChunkRunner = Callable[..., torch.Tensor]
 
-_TINY = 1e-30
-
-STATUS_MAX_ITER = 0
-STATUS_SOLVED = 1
-STATUS_PRIMAL_INFEASIBLE = 2
-STATUS_DUAL_INFEASIBLE = 3
-STATUS_STRINGS = {
-    STATUS_MAX_ITER: "max_iters_reached",
-    STATUS_SOLVED: "solved",
-    STATUS_PRIMAL_INFEASIBLE: "primal_infeasible",
-    STATUS_DUAL_INFEASIBLE: "dual_infeasible",
-}
-_RUNNING = -1
-
 
 class SolveResult(NamedTuple):
     y: torch.Tensor       # (Dp,) final stacked state [x; z; λ; pad]
@@ -82,36 +76,6 @@ class SolveResult(NamedTuple):
     k_fast: int = 0       # iterations run in the reduced-precision phase
 
 
-def infeasibility_certificates(H, A, g, l, u, dx, dlam, eps_pinf: float,
-                               eps_dinf: float):
-    """OSQP-style primal/dual infeasibility tests on iterate deltas.
-
-    δλ certifies primal infeasibility when Aᵀδλ ≈ 0 and the support
-    function uᵀ(δλ)₊ + lᵀ(δλ)₋ is negative; δx certifies dual infeasibility
-    when Hδx ≈ 0, gᵀδx < 0 and Aδx is a feasible ray direction.
-    Returns (pinf, dinf) bool tensors.
-    """
-    norm_dlam = dlam.abs().max()
-    norm_dx = dx.abs().max()
-    eps_p = eps_pinf * norm_dlam
-    eps_d = eps_dinf * norm_dx
-
-    At_dlam = A.T @ dlam
-    support = torch.where(dlam > 0, u * dlam,
-                          torch.where(dlam < 0, l * dlam, 0.0)).sum()
-    pinf = (norm_dlam > 0) & (At_dlam.abs().max() <= eps_p) \
-        & (support <= -eps_p)
-
-    H_dx = H @ dx
-    A_dx = A @ dx
-    ray_ok = torch.all(
-        torch.where(torch.isfinite(u), A_dx <= eps_d, True)
-        & torch.where(torch.isfinite(l), A_dx >= -eps_d, True))
-    dinf = (norm_dx > 0) & (H_dx.abs().max() <= eps_d) \
-        & (torch.dot(g, dx) <= -eps_d) & ray_ok
-    return pinf, dinf
-
-
 def xla_chunk_runner(W_bank, b_bank, rho_ind, lo, hi, y, n_steps: int,
                      iter_precision: str = "highest"):
     """``n_steps`` iterations ``y ← clip(y Wᵀ + b, lo, hi)`` in plain torch
@@ -121,94 +85,9 @@ def xla_chunk_runner(W_bank, b_bank, rho_ind, lo, hi, y, n_steps: int,
                            iter_precision)
 
 
-def compute_residuals(H, A, g, x, z, lam, rho, rho_min: float,
-                      rho_max: float, w_pri=None, w_dua=None):
-    """Residuals + OSQP-style ρ rebalancing estimate.
-
-    Tiny-guarded denominators keep an all-zero iterate from poisoning the
-    estimate with NaNs. Optional ``w_pri``/``w_dua`` weight the residual
-    vectors (and the relative-scale terms) into UNSCALED units under Ruiz
-    equilibration.
-
-    The products run in full fp32 (the package turns TF32 off at import):
-    residuals computed from reduced-precision passes carry noise ~1e-2 and
-    stall the solver short of eps_abs.
-    """
-    t1 = A @ x
-    t2 = H @ x
-    t3 = A.T @ lam
-    if w_pri is not None:
-        t1 = w_pri * t1
-        z = w_pri * z
-    if w_dua is not None:
-        t2 = w_dua * t2
-        t3 = w_dua * t3
-        g = w_dua * g
-    pri = (t1 - z).abs().max()
-    dua = (t2 + t3 + g).abs().max()
-    scale_p = torch.maximum(t1.abs().max(), z.abs().max())
-    scale_d = torch.maximum(torch.maximum(t2.abs().max(), t3.abs().max()),
-                            g.abs().max())
-    return _rho_estimate(pri, dua, scale_p, scale_d, rho, rho_min, rho_max)
-
-
-def _rho_estimate(pri, dua, scale_p, scale_d, rho, rho_min, rho_max):
-    num = pri / scale_p.clamp_min(_TINY)
-    den = dua / scale_d.clamp_min(_TINY)
-    ratio = torch.sqrt(num / den.clamp_min(_TINY))
-    rho_new = torch.clamp(rho * ratio, rho_min, rho_max)
-    return pri, dua, rho_new
-
-
 def compute_objective(H, g, x):
     """½ xᵀHx + gᵀx."""
     return 0.5 * torch.dot(x, H @ x) + torch.dot(g, x)
-
-
-def compute_residuals_op(M_res, g_row, y, nxp: int, ncp: int, rho,
-                         rho_min: float, rho_max: float):
-    """One-matmul residuals: ``r = y @ M_res`` instead of three matvecs.
-
-    ``M_res`` is ``ops.solve_kernel.build_residual_operator``'s stacked
-    operator (segments [w⊙Ax | w⊙z | w⊙Hx | w⊙Aᵀλ], lane-padded);
-    ``g_row``: (nxp,) lane-padded ``w_dua ⊙ g``. Valid for alpha=1 only
-    (the last y slot must BE λ).
-    """
-    r = (y[None, :] @ M_res)[0]
-    ax = r[0:ncp]
-    z = r[ncp:2 * ncp]
-    hx = r[2 * ncp:2 * ncp + nxp]
-    atl = r[2 * ncp + nxp:2 * ncp + 2 * nxp]
-    pri = (ax - z).abs().max()
-    dua = (hx + atl + g_row).abs().max()
-    scale_p = torch.maximum(ax.abs().max(), z.abs().max())
-    scale_d = torch.maximum(torch.maximum(hx.abs().max(), atl.abs().max()),
-                            g_row.abs().max())
-    return _rho_estimate(pri, dua, scale_p, scale_d, rho, rho_min, rho_max)
-
-
-def rho_ladder_step(rhos, rho_ind, rho_est, tol, jump: bool, done=None):
-    """One ρ-ladder index update on the device.
-
-    ``jump=False``: the ±1 walk when the estimate leaves [ρ_k/τ, ρ_k·τ].
-    ``jump=True``: move straight to the rung nearest the estimate. Works
-    for a 0-d or a (B,) int32 ``rho_ind``; entries with ``done`` set are
-    frozen.
-    """
-    n_rho = rhos.shape[0]
-    rho_k = rhos.index_select(0, rho_ind.reshape(-1)).reshape(rho_ind.shape)
-    if jump:
-        moved = (rho_est > rho_k * tol) | (rho_est < rho_k / tol)
-        log_d = torch.log(rhos) - torch.log(rho_est)[..., None]
-        nearest = torch.argmin(log_d.abs(), dim=-1).to(torch.int32)
-        new = torch.where(moved, nearest, rho_ind)
-    else:
-        up = (rho_est > rho_k * tol) & (rho_ind < n_rho - 1)
-        dn = (rho_est < rho_k / tol) & (rho_ind > 0) & ~up
-        new = rho_ind + up.to(torch.int32) - dn.to(torch.int32)
-    if done is not None:
-        new = torch.where(done, rho_ind, new)
-    return new
 
 
 def rho_update_stride(adaptive_rho_interval: int, check_interval: int) -> int:
@@ -282,6 +161,7 @@ class _Dev(NamedTuple):
     best_d: Optional[torch.Tensor] = None     # stalled windows in a row
     n_stall: Optional[torch.Tensor] = None    # and iterations run
     k_fast: Optional[torch.Tensor] = None
+    tick: Optional[torch.Tensor] = None       # (2,) int32 C1's block ticket
 
 
 class _Ops(NamedTuple):
@@ -324,32 +204,11 @@ class _Cfg(NamedTuple):
     cap_a: int           # phase A's iteration cap
     stall: float         # phase A's progress factor 0.97, iterate dtype
     two_phase: bool
+    kernel_check: bool = True   # C1 on cuda; off: the plain check (A/B)
 
 
 def _host_scalar_type(dtype):
     return np.float64 if dtype == torch.float64 else np.float32
-
-
-def _lam_of(y, rho_ind, op: _Ops, cfg: _Cfg):
-    """True λ: the slot (alpha = 1) or ρ⃗(p − z)."""
-    nx, nc = cfg.nx, cfg.nc
-    last = y[nx + nc:nx + 2 * nc]
-    if cfg.alpha == 1.0:
-        return last
-    rv = op.rho_eff.index_select(0, rho_ind.reshape(1))[0]
-    return rv * (last - y[nx:nx + nc])
-
-
-def _check(y, rho, rho_ind, op: _Ops, cfg: _Cfg):
-    """The window's residuals and ρ estimate."""
-    nx, nc = cfg.nx, cfg.nc
-    if op.M_res is not None:
-        return compute_residuals_op(op.M_res, op.g_row, y, pad_dim(nx),
-                                    pad_dim(nc), rho, cfg.rho_min,
-                                    cfg.rho_max)
-    return compute_residuals(op.H, op.A, op.g, y[:nx], y[nx:nx + nc],
-                             _lam_of(y, rho_ind, op, cfg), rho, cfg.rho_min,
-                             cfg.rho_max, op.w_pri, op.w_dua)
 
 
 def _bias_of(rho_ind, op: _Ops, dtype):
@@ -369,15 +228,6 @@ def _bias_of(rho_ind, op: _Ops, dtype):
     return b_loc.expand(op.rhos.shape[0], b_loc.shape[0])
 
 
-def assign(dst: tuple, src: tuple) -> None:
-    """Write a piece's new state ``src`` into the static buffers ``dst``
-    (the kernels' outputs stay distinct allocations, copied in at the
-    piece's end; a field left as it was is not copied)."""
-    for d, s in zip(dst, src):
-        if d is not None and s is not None and s is not d:
-            d.copy_(s)
-
-
 def _start(st: _Dev, op: _Ops, cfg: _Cfg) -> None:
     """The loop state before the first window: nothing run, the loop
     (and phase A) open when a full window fits the budget, and the
@@ -394,7 +244,7 @@ def _start(st: _Dev, op: _Ops, cfg: _Cfg) -> None:
         op.g_row[:cfg.nx] = gv.to(op.g_row.dtype)
     if cfg.check_infeasibility:
         st.x_prev.copy_(st.y[:cfg.nx])
-        st.lam_prev.copy_(_lam_of(st.y, st.rho_ind, op, cfg))
+        st.lam_prev.copy_(lam_of(st.y, st.rho_ind, op, cfg))
     if cfg.two_phase:
         st.open_a.fill_(int(cfg.budget > 0 and cfg.cap_a > 0))
         st.best_p.fill_(float("inf"))
@@ -403,81 +253,37 @@ def _start(st: _Dev, op: _Ops, cfg: _Cfg) -> None:
         st.k_fast.zero_()
 
 
+def _checked(st: _Dev, op: _Ops, cfg: _Cfg, y, n_steps: int,
+             phase: str) -> None:
+    """The window's check of the runner's output ``y``, written into the
+    static buffers: kernel C1 on ``cuda`` (``ops.check_window``), its plain
+    version on the CPU and in the plain-check A/B (``cfg.kernel_check``
+    off)."""
+    if cfg.kernel_check:
+        check_window(st, op, cfg, y, n_steps, phase)
+    else:
+        assign(st, check_window_ref(st, op, cfg, y, n_steps, phase))
+
+
 def _window(st: _Dev, op: _Ops, cfg: _Cfg, n_steps: int, W_op,
-            precision: str, phase: str) -> _Dev:
+            precision: str, phase: str) -> None:
     """One check window on the device: ``n_steps`` iterations, the
     residuals, the ρ walk (at every ``rho_stride``-th check, decided from
     the device's iteration count), the status, the certificates, the
-    loop's exit flags and, in phase A, the progress test. Returns the new
-    state."""
-    nx, nc = cfg.nx, cfg.nc
+    loop's exit flags and, in phase A, the progress test, written into the
+    static state ``st``."""
     y = cfg.chunk_runner(W_op, _bias_of(st.rho_ind, op, st.y.dtype),
                          st.rho_ind, op.lo, op.hi, st.y, n_steps, precision)
-    pri, dua, rho_new = _check(y, st.rho, st.rho_ind, op, cfg)
-    if cfg.check_infeasibility:
-        lam_now = _lam_of(y, st.rho_ind, op, cfg)
-    rho_ind = st.rho_ind
-    k = st.k + n_steps
-    if cfg.adaptive_rho:
-        new_ind = rho_ladder_step(op.rhos, rho_ind, rho_new, cfg.tol,
-                                  cfg.rho_jump)
-        if cfg.rho_stride > 1:
-            # the ceil-div check ordinal, branch-free as the JAX package's
-            chk = torch.div(k + (cfg.check_interval - 1), cfg.check_interval,
-                            rounding_mode="floor")
-            new_ind = torch.where(chk % cfg.rho_stride == 0, new_ind,
-                                  rho_ind)
-        if cfg.alpha != 1.0:
-            # p is rung-scaled (p = z + R⁻¹λ): re-encode it for the new
-            # rung with the elementwise ρ⃗_old/ρ⃗_new (all-ones when the
-            # rung held).
-            scale = (op.rho_eff.index_select(0, rho_ind.reshape(1))[0]
-                     / op.rho_eff.index_select(0, new_ind.reshape(1))[0])
-            z_cur = y[nx:nx + nc]
-            p_cur = y[nx + nc:nx + 2 * nc]
-            y = torch.cat([y[:nx + nc], z_cur + scale * (p_cur - z_cur),
-                           y[nx + 2 * nc:]])
-        rho_ind = new_ind
-    solved = (pri < cfg.eps_pri) & (dua < cfg.eps_dua)
-    status = torch.where(solved, STATUS_SOLVED, _RUNNING)
-    new = {}
-    if cfg.check_infeasibility:
-        x = y[:nx]
-        pinf, dinf = infeasibility_certificates(
-            op.H, op.A, op.g, op.lo[nx:nx + nc], op.hi[nx:nx + nc],
-            x - st.x_prev, lam_now - st.lam_prev, cfg.eps_prim_inf,
-            cfg.eps_dual_inf)
-        status = torch.where((status < 0) & pinf,
-                             STATUS_PRIMAL_INFEASIBLE, status)
-        status = torch.where((status < 0) & dinf,
-                             STATUS_DUAL_INFEASIBLE, status)
-        new.update(x_prev=x, lam_prev=lam_now)
-    running = (status < 0) & (k < cfg.budget)
-    if phase == "A":
-        # 3% better than the best so far in either residual, in the
-        # iterate's dtype; two stalled windows in a row end the phase
-        improved = (pri < cfg.stall * st.best_p) | (dua < cfg.stall
-                                                    * st.best_d)
-        n_stall = torch.where(improved, 0, st.n_stall + 1)
-        new.update(best_p=torch.where(pri < st.best_p, pri, st.best_p),
-                   best_d=torch.where(dua < st.best_d, dua, st.best_d),
-                   n_stall=n_stall, k_fast=k,
-                   open_a=(n_stall < 2) & (k < cfg.cap_a) & running)
-    return st._replace(y=y, rho_ind=rho_ind, rho=rho_new, k=k,
-                       status=status, pri=pri, dua=dua, open=running,
-                       tail=status < 0, **new)
+    _checked(st, op, cfg, y, n_steps, phase)
 
 
 def _tail(st: _Dev, op: _Ops, cfg: _Cfg, rem: int, W_op,
-          precision: str) -> _Dev:
+          precision: str) -> None:
     """The ``max_iter % check_interval`` tail iterations and one final
     residual evaluation (no ρ walk, no certificates)."""
     y = cfg.chunk_runner(W_op, _bias_of(st.rho_ind, op, st.y.dtype),
                          st.rho_ind, op.lo, op.hi, st.y, rem, precision)
-    pri, dua, rho = _check(y, st.rho, st.rho_ind, op, cfg)
-    solved = (pri < cfg.eps_pri) & (dua < cfg.eps_dua)
-    return st._replace(y=y, rho=rho, pri=pri, dua=dua, k=st.k + rem,
-                       status=torch.where(solved, STATUS_SOLVED, st.status))
+    _checked(st, op, cfg, y, rem, "tail")
 
 
 def _result(st: _Dev, op: _Ops, cfg: _Cfg, out: torch.Tensor,
@@ -510,9 +316,11 @@ def state_buffers(graphs, prefix: str, y_like, nx: int, nc: int, *,
         ["open_a", "n_stall", "k_fast"] if two_phase else [])
     ctl = buf("ctl", (len(ints),), torch.int32)
     c = {name: ctl[i] for i, name in enumerate(ints)}
+    # C1's ticket starts at 0, and every launch leaves it so
+    tick = buf("tick", (2,), torch.int32).zero_()
     st = _Dev(buf("y", y_like.shape), buf("rho_ind", (), torch.int32),
               buf("rho"), c["k"], c["status"], buf("pri"), buf("dua"),
-              c["open"], c["tail"], ctl)
+              c["open"], c["tail"], ctl, tick=tick)
     if check_infeasibility:
         st = st._replace(x_prev=buf("x_prev", (nx,)),
                          lam_prev=buf("lam_prev", (nc,)))
@@ -564,7 +372,8 @@ def solve_program(graphs, bank: Bank, qp: DeviceQP, st: _Dev, W_hi=None,
                check_interval, n_chunks * check_interval,
                rho_update_stride(adaptive_rho_interval, check_interval),
                (n_chunks // 2) * check_interval,
-               float(_host_scalar_type(dtype)(0.97)), two_phase)
+               float(_host_scalar_type(dtype)(0.97)), two_phase,
+               graphs.check_kernels)
 
     g_row = None
     if M_res is not None:
@@ -608,8 +417,8 @@ def solve_program(graphs, bank: Bank, qp: DeviceQP, st: _Dev, W_hi=None,
     def window(W_op, precision, phase):
         return Piece(("window", check_interval, precision, phase, sig(W_op),
                       base),
-                     lambda: assign(st, _window(st, op, cfg, check_interval,
-                                                W_op, precision, phase)),
+                     lambda: _window(st, op, cfg, check_interval, W_op,
+                                     precision, phase),
                      ((st.k, st.rho, st.pri, st.dua), show) if verbose
                      else None)
 
@@ -626,7 +435,7 @@ def solve_program(graphs, bank: Bank, qp: DeviceQP, st: _Dev, W_hi=None,
     if rem > 0:
         items.append(Cond(st.tail, (Piece(
             ("tail", rem, tail_prec, sig(tail_W), base),
-            lambda: assign(st, _tail(st, op, cfg, rem, tail_W, tail_prec))),
+            lambda: _tail(st, op, cfg, rem, tail_W, tail_prec)),
         )))
     items.append(Piece(("finish", with_obj, with_result, base), finish))
     return Program(items, st.ctl), out

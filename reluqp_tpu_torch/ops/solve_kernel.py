@@ -51,9 +51,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.iteration import (_RUNNING, _TINY, STATUS_DUAL_INFEASIBLE,
-                              STATUS_MAX_ITER, STATUS_PRIMAL_INFEASIBLE,
-                              STATUS_SOLVED, rho_update_stride)
+from ..core.iteration import rho_update_stride
+from .check_window import (_RUNNING, _TINY, STATUS_DUAL_INFEASIBLE,
+                           STATUS_MAX_ITER, STATUS_PRIMAL_INFEASIBLE,
+                           STATUS_SOLVED)
 from .fused_step import _DTYPE_CODE, _bf16, device_guard, pad_dim
 
 __all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",

@@ -1,6 +1,6 @@
 """Tests of the PyTorch port that need an NVIDIA GPU.
 
-Kernels K1 to K6 are CUDA code with no CPU mode, so these
+Kernels K1 to K6, C1 and C2 are CUDA code with no CPU mode, so these
 skip without a GPU. On the GPU machine (which has no JAX) run them without the
 JAX conftest:
 
@@ -910,3 +910,108 @@ def test_device_program_build_failure_raises(dev):
     counts = torch.zeros(1, dtype=torch.float64, device=dev)
     with pytest.raises(RuntimeError, match="device program"):
         GraphProgram([("graph", NoGraph())], counts)
+
+
+# --------------------------------------------------------------------- #
+# C1 and C2: the check window                                           #
+# --------------------------------------------------------------------- #
+
+def _recorded_checks(solver, monkeypatch):
+    """Solve eagerly, recording every check's inputs (the state cloned
+    before it, the operands, the settings, the runner's output)."""
+    from reluqp_tpu_torch.core import batched as tb
+    from reluqp_tpu_torch.core import iteration as ti
+    recs = []
+    clone = lambda nt: nt._replace(**{
+        f: v.clone() for f, v in nt._asdict().items()
+        if isinstance(v, torch.Tensor)})
+
+    def wrap(kind, real):
+        def check(st, op, cfg, y, n, phase):
+            recs.append((kind, clone(st), op, cfg, y.clone(), n, phase))
+            return real(st, op, cfg, y, n, phase)
+        return check
+
+    monkeypatch.setattr(ti, "check_window", wrap("C1", ti.check_window))
+    monkeypatch.setattr(tb, "batched_check", wrap("C2", tb.batched_check))
+    solver._window_graphs = False
+    solver.solve()
+    return recs, clone
+
+
+def _check_scale(op, y):
+    """The magnitude of the sums behind a check's residuals: max |y| times
+    the largest absolute row or column sum of its operands, plus max |g|."""
+    ms = [op.M_res] if getattr(op, "M_res", None) is not None else [op.H,
+                                                                     op.A]
+    sums = [m.abs().sum(dim=-1).max() for m in ms] + [
+        m.abs().sum(dim=-2).max() for m in ms]
+    g = op.g_row if getattr(op, "M_res", None) is not None else (
+        op.g if hasattr(op, "g") else op.G)
+    return float(max(sums) * y.abs().max() + g.abs().max())
+
+
+def _kernel_against_plain(recs, clone):
+    """fp64: the residuals within 1e-12 of the magnitude of their sums
+    (the products' rounding), the ρ estimate within what follows from
+    that, every decision and the state's vectors equal."""
+    from reluqp_tpu_torch.ops.check_window import (batched_check,
+                                                   batched_check_ref,
+                                                   check_window,
+                                                   check_window_ref)
+    assert recs
+    for kind, st, op, cfg, y, n, phase in recs:
+        c1 = kind == "C1"
+        ref = (check_window_ref if c1 else batched_check_ref)(
+            clone(st), op, cfg, y, n, phase)
+        got = clone(st)
+        counter = check_window if c1 else batched_check
+        before = counter.launches
+        (check_window if c1 else batched_check)(got, op, cfg, y, n, phase)
+        torch.cuda.synchronize()
+        assert counter.launches > before
+        tol = 1e-12 * _check_scale(op, y)
+        for f in ("pri", "dua"):
+            assert float((getattr(got, f) - getattr(ref, f)).abs().max()) \
+                <= tol, (kind, phase, f)
+        res = torch.minimum(ref.pri, ref.dua).clamp_min(1e-300)
+        drho = (got.rho - ref.rho).abs() / ref.rho.abs()
+        assert bool((drho <= tol / res + 1e-13).all()), (kind, phase, "rho")
+        for f, a in got._asdict().items():
+            b = getattr(ref, f)
+            if f in ("pri", "dua", "rho", "ctl", "tick", "best_p", "best_d",
+                     "best_m") or a is None or b is None:
+                continue
+            assert torch.equal(a, b.to(a.dtype)), (kind, phase, f)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(alpha=1.6, check_infeasibility=True),
+    dict(iter_precision="high", rho_jump=True, adaptive_rho_interval=75),
+    dict(max_iter=60, eps_abs=1e-12)])
+def test_c1_matches_plain_version(dev, monkeypatch, kw):
+    qp = rand_qp(30, 8, 8, seed=1, compute_sol=False)
+    m = rqt.ReLU_QP()
+    m.setup(qp.H, qp.g, qp.A, qp.l, qp.u, precision="float64",
+            **dict(dict(eps_abs=1e-6), **kw))
+    recs, clone = _recorded_checks(m, monkeypatch)
+    _kernel_against_plain(recs, clone)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(rho_mode="per_problem", check_infeasibility=True),
+    dict(alpha=1.6, iter_precision="high"), "hetero"])
+def test_c2_matches_plain_version(dev, monkeypatch, kw):
+    rng = np.random.RandomState(0)
+    qp = rand_qp(20, 5, 5, seed=2, compute_sol=False)
+    B = 40
+    G = qp.g[None] + 0.3 * rng.randn(B, 20)
+    H, A = qp.H, qp.A
+    if kw == "hetero":
+        H = np.stack([qp.H + 0.1 * i * np.eye(20) for i in range(B)])
+        kw = {}
+    m = rqt.BatchedReLU_QP()
+    m.setup(H, G, A, np.tile(qp.l, (B, 1)), np.tile(qp.u, (B, 1)),
+            precision="float64", eps_abs=1e-6, **kw)
+    recs, clone = _recorded_checks(m, monkeypatch)
+    _kernel_against_plain(recs, clone)

@@ -80,7 +80,7 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
     names = ("solve_kernel", "full_solve", "fused_step", "fused_step_batched",
-             "rollout_batched")
+             "rollout_batched", "check_window")
     before = {n: cuda_build._lib_path(n) for n in names}
     assert "solve_loop.cuh" in (tmp_path / "full_solve.cu").read_text()
     with open(tmp_path / "solve_loop.cuh", "a") as f:
