@@ -321,7 +321,7 @@ def kernel_inputs(dp, rows, dtype, gen, device):
 # imported under PARENT_PKG and builds its kernels into its own _build/.
 PARENT_PKG = "_parent_reluqp_tpu_torch"
 PARENT_KERNELS = ("fused_step", "solve_kernel", "full_solve",
-                  "fused_step_batched", "fused_step_hetero")
+                  "fused_step_batched", "fused_step_hetero", "check_window")
 
 
 def parent_module(parent, name):
@@ -4266,30 +4266,70 @@ def check_bytes_ops(rec):
     return ins + out, 2 * macs
 
 
-def check_timing(tag, rec, card):
+def _parent_state(st):
+    """A recorded state as the parent's C1 and C2 read it: by attribute,
+    with the ticket buffer its C1 took (the state has none since C1 runs in
+    one cluster)."""
+    import types
+    import torch
+    d = st._asdict()
+    if d.get("tick") is None:
+        d["tick"] = torch.zeros(2, dtype=torch.int32, device=st.rho.device)
+    return types.SimpleNamespace(**d)
+
+
+def check_timing(tag, rec, card, parent=None):
     """One recorded check: the kernel and the plain check, each
     CHECK_REPS launches replayed in one CUDA graph (the plain one's ~50
-    ops each a kernel node), and the bound."""
+    ops each a kernel node), the bound and the kernel's stage split
+    (``ops.check_window.stage_split``); with ``parent``, the parent's
+    kernel on the same inputs by turns (parent, this tree twice, parent)."""
     import torch
     from reluqp_tpu_torch.ops.check_window import (assign, batched_check,
                                                    batched_check_ref,
                                                    check_window,
-                                                   check_window_ref)
+                                                   check_window_ref,
+                                                   stage_split)
     kind, st, op, cfg, y, n, phase = rec
     ker = check_window if kind == "C1" else batched_check
     ref = check_window_ref if kind == "C1" else batched_check_ref
     sk, sp = _clone_nt(st), _clone_nt(st)
-    ms = graph_ms(lambda: ker(sk, op, cfg, y, n, phase), CHECK_REPS)
+    mine = lambda: ker(sk, op, cfg, y, n, phase)
+    out = {}
+    if parent:
+        pm = parent_module(parent, "ops.check_window")
+        pker = pm.check_window if kind == "C1" else pm.batched_check
+        so = _parent_state(_clone_nt(st))
+        theirs = lambda: pker(so, op, cfg, y, n, phase)
+        before = graph_ms(theirs, CHECK_REPS)
+        ms = graph_ms(mine, CHECK_REPS)
+        again = graph_ms(mine, CHECK_REPS)
+        after = graph_ms(theirs, CHECK_REPS)
+        out.update(parent_ms=(before, after), ms_again=again)
+    else:
+        ms = graph_ms(mine, CHECK_REPS)
     plain = graph_ms(lambda: assign(sp, ref(sp, op, cfg, y, n, phase)),
                      CHECK_REPS)
+    ss = _clone_nt(st)
+    split = stage_split(lambda: ker(ss, op, cfg, y, n, phase), ker)
     nbytes, ops = check_bytes_ops(rec)
     peak = FP64_FLOPS if y.dtype == torch.float64 else FP32_FLOPS
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-    log(f"phase 31 {tag}: {kind} {ms:.5f} ms per launch, plain check "
+    ab = ""
+    if parent:
+        ab = (f" (parent {out['parent_ms'][0]:.5f} ms, this tree {ms:.5f} "
+              f"and {out['ms_again']:.5f} ms, parent again "
+              f"{out['parent_ms'][1]:.5f} ms, by turns)")
+    log(f"phase 31 {tag}: {kind} {ms:.5f} ms per launch{ab}, plain check "
         f"{plain:.5f} ms (both in a CUDA graph of {CHECK_REPS}); bound "
         f"{bound:.6f} ms ({by}: {nbytes} bytes, {ops} flop); on {card}")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    log(f"phase 31 {tag}: {kind} stage split, µs from the earliest block's "
+        f"start to the latest block's pass (mean of 20 launches alone): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    out.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+               split=split)
+    return out
 
 
 def window_nodes(tag, solver, kind, chunk_kernel=True):
@@ -4354,11 +4394,12 @@ def _short(name):
     return name[:40]
 
 
-def phase_check_kernels(card):
+def phase_check_kernels(card, parent=None):
     """Phase 31: kernels C1 and C2 (``csrc/check_window.cu``) against their
     plain versions on windows recorded from eager solves on the card, the
     captured windows' kernel nodes, and the kernels' and the plain check's
-    times beside the bound."""
+    times beside the bound, with each kernel's stage split (and, with
+    ``parent``, the parent's C1 and C2 by turns on the same windows)."""
     import torch
     from reluqp_tpu_torch import BatchedReLU_QP, ReLU_QP
     from reluqp_tpu_torch.models.mpc import MPC, mpc_rollout_scan
@@ -4366,6 +4407,7 @@ def phase_check_kernels(card):
     t0 = time.perf_counter()
     q100 = rand_qp(100, 25, 25, seed=0, compute_sol=False)[:5]
     q400 = rand_qp(400, 100, 100, seed=0, compute_sol=False)[:5]
+    q500 = rand_qp(500, 125, 125, seed=0, compute_sol=False)[:5]
     cq = canonical_qp()
     canon = (cq.H, cq.g, cq.A, cq.l, cq.u)
     prob = scenario_problem()
@@ -4378,6 +4420,7 @@ def phase_check_kernels(card):
         ("nx=100 Dp=256 fp64", q100, dict(ruiz, **f64)),
         ("MPC QP Dp=640 fp32", mpc_qp, dict(eps_abs=1e-3, **f32)),
         ("nx=400 Dp=896 fp32", q400, dict(ruiz, **f32)),
+        ("nx=500 Dp=1024 fp32", q500, dict(ruiz, **f32)),
         ("nx=100 alpha=1.6 fp32", q100, dict(ruiz, alpha=1.6, **f32)),
         ("nx=100 alpha=1.6 fp64", q100, dict(ruiz, alpha=1.6, **f64)),
         ("nx=100 certificates fp64", q100,
@@ -4512,7 +4555,7 @@ def phase_check_kernels(card):
     timing = {}
     for tag in [t for t, _, _ in single] + [t for t, _, _ in batches]:
         rec = next(x for t, x in recs if t == tag and x[6] != "tail")
-        timing[tag] = check_timing(tag, rec, card)
+        timing[tag] = check_timing(tag, rec, card, parent)
     log(f"phase 31 OK: C1 and C2 agree with their plain versions on every "
         f"recorded window; {time.perf_counter() - t0:.1f} s")
     return dict(errs=errs, abs_errs=abs_errs, ties=ties, differ=differ,
@@ -5175,7 +5218,7 @@ def main():
     mesh = phase_mesh(card, scen_loop)
     phase_graphs(card, protocol, mpc, scen_loop, het, repack)
     phase_device_exit(card, protocol, mpc, scen_loop, het, repack)
-    chk = phase_check_kernels(card)
+    chk = phase_check_kernels(card, parent)
     k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]
     k3_row = k3["rows"][100]

@@ -88,6 +88,7 @@ struct C1Args {
   int *n_stall, *k_fast;
   double* part;
   int* tick;
+  unsigned long long* stamps;
   int dp, nx, nc, nxp, ncp, n_rho, n_steps, tail_mode, phase_a, adaptive, jump, stride, ci,
       budget, cap_a, certs, alpha, dtype;
   double eps_pri, eps_dua, tol, rho_min, rho_max, eps_pinf, eps_dinf, stall;
@@ -106,6 +107,7 @@ struct C2Args {
   int *best_open, *n_stall, *k_fast;
   double* part;
   int* tick;
+  unsigned long long* stamps;
   int B, dp, nx, nc, n_rho, h_per, a_per, g_per, wp_per, wd_per, reff_per, shared, n_steps,
       phase_a, adaptive, jump, stride, ci, budget, cap_a, certs, alpha, stop_open, dtype;
   double eps_pri, eps_dua, tol, rho_min, rho_max, eps_pinf, eps_dinf, stall;
@@ -195,6 +197,18 @@ __device__ int block_and(int v, int* sh) {
   int r = 1;
   for (int w = 0; w < kWarps; ++w) r &= sh[w];
   return r;
+}
+
+// Stage stamps (a null `stamps` on every solve path): %globaltimer at a
+// stage boundary, slot 0 the earliest block's start, every other slot the
+// latest time any block passed that boundary.
+enum { S_START = 0, S_STAGED, S_PRODUCTS, S_ROWS, S_TICKET, S_REDUCED, S_WRITTEN, kStampSlots };
+__device__ __forceinline__ void stamp(unsigned long long* s, int slot) {
+  if (!s || threadIdx.x != 0) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  if (slot == S_START) atomicMin(s, t);
+  else atomicMax(s + slot, t);
 }
 
 __device__ __forceinline__ int clamp_ind(int i, int n) { return i < 0 ? 0 : (i >= n ? n - 1 : i); }
@@ -311,6 +325,7 @@ __global__ void __launch_bounds__(kThreads) c1_kernel(const C1Args a) {
   const T* y_in = static_cast<const T*>(a.y_in);
   const T* reff = static_cast<const T*>(a.rho_eff);
   const int ind = clamp_ind(*a.rho_ind, a.n_rho);
+  stamp(a.stamps, S_START);
 
   // the vectors every product reads: y, lam, dx, dlam
   T* ys = reinterpret_cast<T*>(smem_raw);
@@ -333,6 +348,7 @@ __global__ void __launch_bounds__(kThreads) c1_kernel(const C1Args a) {
     for (int i = threadIdx.x; i < nc; i += kThreads) dlam[i] = sub_rn(lam[i], lp[i]);
   }
   __syncthreads();
+  stamp(a.stamps, S_STAGED);
 
   Seg segs[kMaxSeg];
   int part_size;
@@ -376,7 +392,10 @@ __global__ void __launch_bounds__(kThreads) c1_kernel(const C1Args a) {
     }
   }
 
+  __syncthreads();
+  stamp(a.stamps, S_PRODUCTS);
   if (!last_block(a.tick)) return;
+  stamp(a.stamps, S_TICKET);
 
   // ---- the last block: residuals, rho estimate, decisions, the state ----
   const T zero = T(0);
@@ -463,6 +482,8 @@ __global__ void __launch_bounds__(kThreads) c1_kernel(const C1Args a) {
     dinf = ndx > zero && hd_max <= eps_d && g_dx <= -eps_d && ray_ok;
   }
 
+  __syncthreads();
+  stamp(a.stamps, S_REDUCED);
   if (threadIdx.x == 0) {
     const T tiny = static_cast<T>(1e-30);
     const T num = div_rn(pri, nmax(scale_p, tiny));
@@ -530,6 +551,8 @@ __global__ void __launch_bounds__(kThreads) c1_kernel(const C1Args a) {
     for (int i = threadIdx.x; i < nx; i += kThreads) xp[i] = ys[i];
     for (int i = threadIdx.x; i < nc; i += kThreads) lp[i] = lam[i];
   }
+  __syncthreads();
+  stamp(a.stamps, S_WRITTEN);
 }
 
 struct C1Plan {
@@ -642,6 +665,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
   double blk_logr = 0.0, blk_logres = 0.0;
   int blk_act = 0, blk_open = 0;
   const T zero = T(0);
+  stamp(a.stamps, S_START);
 
   for (int tile = blockIdx.x; tile * p.rows < B; tile += gridDim.x) {
     const int r0 = tile * p.rows;
@@ -670,6 +694,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
       }
     }
     __syncthreads();
+    stamp(a.stamps, S_STAGED);
     // the products, summed in the state type in a fixed order. With H and
     // A in shared memory: a lane per row of the tile, a warp per output
     // (the operand's element read once for all 32 rows). Else a warp per
@@ -768,6 +793,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
       }
     }
     __syncthreads();
+    stamp(a.stamps, S_PRODUCTS);
     // a warp per row: the row's residuals, estimate and decisions
     for (int r = warp; r < nr; r += kWarps) {
       const int b = r0 + r;
@@ -903,6 +929,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
       }
     }
     __syncthreads();
+    stamp(a.stamps, S_ROWS);
     if (threadIdx.x == 0) {
       for (int r = 0; r < nr; ++r) {
         blk_logr += c_logr[r];
@@ -918,6 +945,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
   }
 
   if (!last_block(a.tick)) return;
+  stamp(a.stamps, S_TICKET);
   // ---- the last block: the batch's sums in a fixed order (each thread
   // the blocks t, t + kThreads, ... in order, then the threads in order)
   // and its flags ----
@@ -937,6 +965,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
   for (int t = 0; t < kThreads; ++t)
     logr += s_red[0][t], logres += s_red[1][t], act += s_red[2][t], open += s_red[3][t];
   const long n_act = (long)act, n_open = (long)open;
+  stamp(a.stamps, S_REDUCED);
   if (a.adaptive && a.shared) {
     const int ind = ind_shared;
     const T rk = rhos[ind];
@@ -964,6 +993,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
   *a.n_open = (int)n_open;
   *a.open = running;
   *a.tail = n_open > 0;
+  stamp(a.stamps, S_WRITTEN);
 }
 
 // The shared walk's re-encode of p for the rung C2 decided (alpha != 1):

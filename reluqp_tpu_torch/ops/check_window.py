@@ -42,6 +42,7 @@ __all__ = [
     "compute_residuals_op", "rho_ladder_step", "batched_residuals",
     "batched_infeasibility_certificates", "check_window_ref",
     "check_window", "batched_check_ref", "batched_check", "graph_kernels",
+    "STAMP_STAGES", "stage_split",
 ]
 
 _TINY = 1e-30
@@ -499,7 +500,8 @@ class _C1Args(ctypes.Structure):
         "y_in", "m_res", "g_row", "H", "A", "g", "lo", "hi", "w_pri",
         "w_dua", "rhos", "rho_eff", "y", "rho_ind", "rho", "k", "status",
         "pri", "dua", "open", "tail", "x_prev", "lam_prev", "open_a",
-        "best_p", "best_d", "n_stall", "k_fast", "part", "tick")] + [
+        "best_p", "best_d", "n_stall", "k_fast", "part", "tick",
+        "stamps")] + [
         (n, _I) for n in (
             "dp", "nx", "nc", "nxp", "ncp", "n_rho", "n_steps", "tail_mode",
             "phase_a", "adaptive", "jump", "stride", "ci", "budget", "cap_a",
@@ -516,7 +518,7 @@ class _C2Args(ctypes.Structure):
         "rho_eff", "Y", "rho_ind", "rho", "pri", "dua", "done", "iters",
         "status", "k", "X_prev", "Lam_prev", "n_open", "open", "tail",
         "open_a", "best_m", "best_open", "n_stall", "k_fast", "part",
-        "tick")] + [
+        "tick", "stamps")] + [
         (n, _I) for n in (
             "B", "dp", "nx", "nc", "n_rho", "h_per", "a_per", "g_per",
             "wp_per", "wd_per", "reff_per", "shared", "n_steps", "phase_a",
@@ -644,6 +646,7 @@ def _c1_launch(st, op, cfg, y, n_steps, phase):
         open_a=_ptr(st.open_a), best_p=_ptr(st.best_p),
         best_d=_ptr(st.best_d), n_stall=_ptr(st.n_stall),
         k_fast=_ptr(st.k_fast), part=None, tick=st.tick.data_ptr(),
+        stamps=_ptr(check_window.stamps),
         dp=dp, nx=nx, nc=nc, nxp=nxp, ncp=ncp, n_rho=op.rhos.shape[0],
         n_steps=int(n_steps), tail_mode=int(tail), phase_a=int(phase == "A"),
         **_settings(cfg, dt))
@@ -673,6 +676,9 @@ def check_window(st, op, cfg, y, n_steps: int, phase: str) -> None:
 
 
 check_window.launches = 0
+# an int64 (8,) tensor on the card, or None: the kernel's stage stamps
+# (`stage_split`); None on every solve path
+check_window.stamps = None
 
 
 def _count_check_window():
@@ -738,7 +744,8 @@ def _c2_launch(st, op, cfg, Y, n_steps, phase):
         tail=st.tail.data_ptr(), open_a=_ptr(st.open_a),
         best_m=_ptr(st.best_m), best_open=_ptr(st.best_open),
         n_stall=_ptr(st.n_stall), k_fast=_ptr(st.k_fast), part=None,
-        tick=st.tick.data_ptr(), B=B, dp=dp, nx=nx, nc=nc,
+        tick=st.tick.data_ptr(), stamps=_ptr(batched_check.stamps),
+        B=B, dp=dp, nx=nx, nc=nc,
         n_rho=op.rhos.shape[0], h_per=int(h_per), a_per=int(a_per),
         g_per=per(op.G), wp_per=per(op.w_pri), wd_per=per(op.w_dua),
         reff_per=int(alpha and op.rho_eff.dim() == 3),
@@ -772,10 +779,43 @@ def batched_check(st, op, cfg, Y, n_steps: int, phase: str) -> None:
 
 
 batched_check.launches = 0
+batched_check.stamps = None
 
 
 def _count_batched_check():
     batched_check.launches += 1
+
+
+# the stage boundaries a stamped launch records, in order (slot 0: the
+# earliest block's start; ``csrc/check_window.cu``'s S_* slots)
+STAMP_STAGES = ("staged", "products", "rows", "ticket", "reduced", "written")
+
+
+def stage_split(run, kernel, reps: int = 20) -> dict:
+    """Where one launch's time goes: ``run()`` (one launch of ``kernel``,
+    ``check_window`` or ``batched_check``, on the card) ``reps`` times with
+    its stage stamps on, each launch alone. Returns, per stage of
+    ``STAMP_STAGES`` that the kernel stamps, the mean µs from the earliest
+    block's start to the latest block's pass of that boundary."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stamps = torch.zeros(len(STAMP_STAGES) + 2, dtype=torch.int64,
+                         device=dev)
+    sums, seen = [0.0] * len(STAMP_STAGES), [0] * len(STAMP_STAGES)
+    kernel.stamps = stamps
+    try:
+        for _ in range(reps):
+            stamps.zero_()
+            stamps[0] = -1          # the start slot takes the least time
+            run()
+            t = stamps.cpu().tolist()
+            for i in range(len(STAMP_STAGES)):
+                if t[i + 1] > 0:
+                    sums[i] += (t[i + 1] - t[0]) / 1e3
+                    seen[i] += 1
+    finally:
+        kernel.stamps = None
+    return {s: sums[i] / seen[i] for i, s in enumerate(STAMP_STAGES)
+            if seen[i]}
 
 
 def graph_kernels(raw_graph: int) -> list:
