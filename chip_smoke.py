@@ -216,7 +216,7 @@ Phases (each raises on failure; nothing is caught):
     windows recorded from eager solves on the card (``record_checks``:
     the state before the check, the operands, the settings and the chunk
     runner's output) held kernel against plain version: the single QP at
-    Dp 128/256/640/896 in fp32 and fp64, y @ M_res and H/A (alpha 1.6),
+    Dp 128/256/640/896/1024 in fp32 and fp64, y @ M_res and H/A (alpha 1.6),
     the certificates on a feasible and on a primal- and a dual-infeasible
     instance, a phase-A window, a tail, the jump with a ρ stride of 3; the
     batches shared (B 1, 64, 10000; alpha 1.6 with its second launch),
@@ -230,10 +230,15 @@ Phases (each raises on failure; nothing is caught):
     per-problem, hetero, shared alpha, repack, the scenario loop and the
     loop MPC): after the chunk kernel only the check's launches (at most
     1 for C1, 2 for C2); the kernel and the plain check replayed in a CUDA
-    graph (CHECK_REPS launches each) per covered shape, beside the bound.
+    graph (CHECK_REPS launches each) per covered shape, beside the bound,
+    with the kernel's stage split (``ops.check_window.stage_split``: the
+    µs from the earliest block's start to the latest block's pass of each
+    stage boundary, mean of 20 launches alone) and C2's plan (regime,
+    rows, blocks).
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
-the K1, K2, K3, K4 and K5 of another checkout at DIR (the parent commit, unpacked by
+the K1, K2, K3, K4, K5, C1 and C2 of another checkout at DIR (the parent
+commit, unpacked by
 ``git archive`` into a directory that ``.gitignore`` lists) on the same
 inputs, built from DIR's own sources into DIR's own build directory.
 
@@ -315,9 +320,9 @@ def kernel_inputs(dp, rows, dtype, gen, device):
 
 
 # ``--parent DIR``: the root of another checkout (an unpacked ``git
-# archive`` of the parent commit, say) whose K1, K2, K3, K4 and K5 phases 3,
-# 9, 12, 17, 22 and 20 time beside this checkout's, in turns, on the same
-# inputs. Its package is
+# archive`` of the parent commit, say) whose K1, K2, K3, K4, K5, C1 and C2
+# phases 3, 9, 12, 17, 22, 20 and 31 time beside this checkout's, in turns,
+# on the same inputs. Its package is
 # imported under PARENT_PKG and builds its kernels into its own _build/.
 PARENT_PKG = "_parent_reluqp_tpu_torch"
 PARENT_KERNELS = ("fused_step", "solve_kernel", "full_solve",
@@ -361,7 +366,8 @@ def phase_build(parent=None):
     secs = time.perf_counter() - t0
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or (
+                     name == "check_window" and "entry function" in ln)]
         log(f"built {name}.cu in {info['seconds']:.2f} s -> "
             f"{info['path'].name}")
         for ln in ptxas:
@@ -598,6 +604,8 @@ def _check_counters():
 
 # C1's and C2's launches over every main-path phase of this process
 CHECK_LAUNCHES = {"C1": 0, "C2": 0}
+# the same by the phase function that counted them
+CHECK_BY_PHASE = {}
 
 
 def _counted(run, kernel="K1", checks=True):
@@ -618,8 +626,14 @@ def _counted(run, kernel="K1", checks=True):
     if checks:
         assert not n["K1"] or c["C1"], "K1 ran without C1"
         assert not (n["K4"] or n["K5"]) or c["C2"], "K4/K5 ran without C2"
+    f = sys._getframe(1)
+    while f is not None and not f.f_code.co_name.startswith("phase_"):
+        f = f.f_back
+    by = CHECK_BY_PHASE.setdefault(f.f_code.co_name if f else "other",
+                                   {"C1": 0, "C2": 0})
     for name, v in c.items():
         CHECK_LAUNCHES[name] += v
+        by[name] += v
     return out, n
 
 
@@ -3924,11 +3938,12 @@ def _auto_ci(sol, prob, x0):
 
 # Kernel against plain version on recorded windows. A residual is the max
 # of |a - b| over sums of products that both sides form from the same
-# inputs: the kernels in fp64, in a fixed order, the plain version in the
-# state type in cuBLAS's order; each rounds a sum once to the state type.
-# They therefore differ by the state type's rounding of sums as large as
-# the residual's scale (max |Ax|, |z| for pri; |Hx|, |Aᵀλ|, |g| for dua),
-# and pri and dua are held within CHECK_RTOL of that scale. The ρ estimate
+# inputs: the kernels in a fixed order (C1 in chains of at most 32 terms in
+# the state type, their sums in fp64; C2 in the state type), the plain
+# version in the state type in cuBLAS's order. They therefore differ by the
+# state type's rounding of sums as large as the residual's scale (max |Ax|,
+# |z| for pri; |Hx|, |Aᵀλ|, |g| for dua), and pri and dua are held within
+# CHECK_RTOL of that scale. The ρ estimate
 # ρ·sqrt((pri/scale_p)/(dua/scale_d)) carries half of each residual's
 # relative error and a few roundings of its own (CHECK_RHO_ULPS).
 CHECK_RTOL = {"float32": 1e-5, "float64": 1e-12}
@@ -4286,6 +4301,7 @@ def check_timing(tag, rec, card, parent=None):
     kernel on the same inputs by turns (parent, this tree twice, parent)."""
     import torch
     from reluqp_tpu_torch.ops.check_window import (assign, batched_check,
+                                                   batched_check_plan,
                                                    batched_check_ref,
                                                    check_window,
                                                    check_window_ref,
@@ -4312,6 +4328,8 @@ def check_timing(tag, rec, card, parent=None):
                      CHECK_REPS)
     ss = _clone_nt(st)
     split = stage_split(lambda: ker(ss, op, cfg, y, n, phase), ker)
+    if kind == "C2":
+        out["plan"] = batched_check_plan(st, op, cfg, y, n, phase)
     nbytes, ops = check_bytes_ops(rec)
     peak = FP64_FLOPS if y.dtype == torch.float64 else FP32_FLOPS
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
@@ -4326,7 +4344,8 @@ def check_timing(tag, rec, card, parent=None):
         f"{bound:.6f} ms ({by}: {nbytes} bytes, {ops} flop); on {card}")
     log(f"phase 31 {tag}: {kind} stage split, µs from the earliest block's "
         f"start to the latest block's pass (mean of 20 launches alone): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + (f"; plan {out['plan']}" if "plan" in out else ""))
     out.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                split=split)
     return out
@@ -5351,6 +5370,7 @@ def main():
         "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
         "library_ms": None,
     }]
+    log(f"C1 and C2 launches on the main path by phase: {CHECK_BY_PHASE}")
     log("card:", card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -202,8 +202,8 @@ class _Dev(NamedTuple):
     n_stall: Optional[torch.Tensor] = None    # windows in a row and
     k_fast: Optional[torch.Tensor] = None     # iterations run
     ctl: Optional[torch.Tensor] = None        # (n,) int32: the scalars
-    tick: Optional[torch.Tensor] = None       # (2,) int32: C2's block
-                                              # ticket and the old rung
+    tick: Optional[torch.Tensor] = None       # (B + 2,) int32: C2's
+                                              # tickets and the old rung
 
 
 class _Ops(NamedTuple):
@@ -328,8 +328,9 @@ def _buffers(graphs, B, y_shape, ind_shape, dtype, dev, nx, nc,
              buf("done", (B,), torch.bool), buf("iters", (B,), i32),
              buf("status", (B,), i32), c["k"], n_open=c["n_open"],
              open=c["open"], tail=c["tail"], ctl=ctl,
-             # C2's ticket starts at 0, and every launch leaves it so
-             tick=buf("tick", (2,), i32).zero_())
+             # C2's tickets (the grid's, one per row tile) start at 0,
+             # and every launch leaves them so
+             tick=buf("tick", (B + 2,), i32).zero_())
     if check_infeasibility:
         d = d._replace(X_prev=buf("X_prev", (B, nx)),
                        Lam_prev=buf("Lam_prev", (B, nc)))

@@ -161,7 +161,6 @@ class _Dev(NamedTuple):
     best_d: Optional[torch.Tensor] = None     # stalled windows in a row
     n_stall: Optional[torch.Tensor] = None    # and iterations run
     k_fast: Optional[torch.Tensor] = None
-    tick: Optional[torch.Tensor] = None       # (2,) int32 C1's block ticket
 
 
 class _Ops(NamedTuple):
@@ -316,11 +315,9 @@ def state_buffers(graphs, prefix: str, y_like, nx: int, nc: int, *,
         ["open_a", "n_stall", "k_fast"] if two_phase else [])
     ctl = buf("ctl", (len(ints),), torch.int32)
     c = {name: ctl[i] for i, name in enumerate(ints)}
-    # C1's ticket starts at 0, and every launch leaves it so
-    tick = buf("tick", (2,), torch.int32).zero_()
     st = _Dev(buf("y", y_like.shape), buf("rho_ind", (), torch.int32),
               buf("rho"), c["k"], c["status"], buf("pri"), buf("dua"),
-              c["open"], c["tail"], ctl, tick=tick)
+              c["open"], c["tail"], ctl)
     if check_infeasibility:
         st = st._replace(x_prev=buf("x_prev", (nx,)),
                          lam_prev=buf("lam_prev", (nc,)))

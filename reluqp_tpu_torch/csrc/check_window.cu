@@ -11,66 +11,107 @@
 // check in-kernel (csrc/solve_loop.cuh `check_window`, with the TPU's fp32
 // rounding); these kernels keep the torch loops' arithmetic instead.
 //
-// C1, one QP: the residual products (y @ M_res when alpha = 1, else A x,
-// H x and A'lam, and with the certificates A'dlam, H dx and A dx) spread
-// over the grid: a tile of 8 output rows (one warp each, lanes along a
-// contiguous row of the operand) or of 32 output columns (lanes along the
-// columns, 8 warps each summing 32 rows of a 256-row chunk). Every block
-// stages the vectors it multiplies (y, lam, dx, dlam) in shared memory.
-// The products go to a scratch vector; the block that takes the last
-// ticket (a fence and an atomic counter) reduces them and takes every
-// decision: the maxima and scales, the rho estimate, the +-1 walk or the
-// jump, the stride's check ordinal, the alpha re-encode of p, the solved
-// test, the certificates, phase A's 3% stall test and the exit flags, and
-// writes the loop's static state.
+// C1, one QP, runs in one thread-block cluster (16 blocks where the card
+// schedules them, else 8). Every block stages the vectors the products read
+// (y, and lam, dx, dlam where they are needed) in shared memory; the
+// products (y @ M_res when alpha = 1, else A x, H x and A'lam, and with the
+// certificates A'dlam, H dx and A dx) are cut into units dealt to the
+// cluster's blocks longest first: 16 output rows (a warp each, lanes along a
+// contiguous row of the operand) or 64 output columns (a lane on two of
+// them, 16 warps each summing 32 rows of every 512-row chunk, each batch of
+// coefficient loads in flight at once; a block's first batch is started
+// before y arrives). M_res's column blocks are summed over the rows where
+// `build_residual_operator` puts their nonzeros (all rows when y holds a
+// non-finite value). Each unit's sums are pushed into block 0's shared
+// memory (distributed shared memory stores). After one cluster barrier
+// block 0 reduces the residuals' maxima, the certificates' maxima and
+// their two sums in one multi-value pass, and one thread takes the
+// decisions: the rho estimate, the +-1 walk or the jump, the stride's check
+// ordinal, the solved test, the certificates, phase A's 3% stall test and
+// the exit flags. Every block writes its slice of y as soon as it is staged
+// (block 0 writes y after the decisions where p is re-encoded for the new
+// rung, alpha != 1) and of the certificates' previous iterate. No ticket
+// and no global scratch.
 //
-// C2, a batch: a block walks tiles of rows (grid-stride; the shared (nx, nx)
-// and (nc, nx) H and A staged once per block in shared memory where they
-// fit, else read from L2). A tile stages each row's x, z, lam (and dx,
-// dlam), computes its rows' products (with H and A in shared memory a lane
-// per row and a warp per output; else a warp per output of A x and H x,
-// lanes along the operand's row, and a lane per output of A'lam, 32 columns
-// a warp), and a warp per row then reduces them and takes the row's
-// decisions (the
-// freeze of done rows, the per-problem walk and re-encode, first-convergence
-// iterations, status, certificates) and writes the row. The rows' shares of
-// the shared walk's sum of log rho and active count, the open count and
-// phase A's sum of log residuals are summed per block in row order; the
-// last block sums the blocks' in a fixed order and decides the shared rung,
-// the flags and phase A's test. Under the shared walk with alpha != 1 the
-// re-encode of p needs the new rung: a second, elementwise launch does it.
-// A row's results depend on the row and the decided rung only.
+// C2, a batch, in one of three regimes chosen by `c2_plan` from (nx, nc,
+// dtype, per-problem H / A), its shape within the regime from B:
+// - "smem": a shared H and A that fit shared memory. A grid of at most
+//   three blocks an SM walks tiles of 32 rows (16 or 8 where the batch would
+//   not fill the card); each block copies H and A once with 16-byte
+//   cp.async and lays them out with consecutive outputs contiguous ([A; H]'
+//   and A, each row padded to whole 32-byte groups). A lane per row: each
+//   thread keeps a register micro-tile of one row by 8 (fp32) or 4 (fp64)
+//   outputs, so one load of the row's element feeds 8 (4) multiply-adds and
+//   the coefficients arrive as 16-byte broadcasts; the output groups are
+//   dealt to the warps longest first. The row pass runs 256 / rows lanes a
+//   row, every lane busy; the tile's row shares are summed by one warp
+//   butterfly.
+// - "stream": a per-problem H and/or A small enough for a warp's shared
+//   memory. A warp per row: it copies its row's H and A with 16-byte
+//   cp.async (the next row's while it computes this one, where a warp has
+//   more than one row), a lane per output, and takes the row's decisions.
+// - "tiles": everything else (the scenario's 320 KB operand, B = 1 at
+//   Dp = 896, per-problem operands too large for a warp). A grid of (row
+//   tile) x (output tile): a warp per output row of [A; H] with lanes along
+//   the contraction, 32 columns of A'lam a block with the warps on 32-row
+//   segments of the contraction, the coefficients copied into shared memory
+//   with cp.async and each applied to every row of the tile. Products go to
+//   scratch; the last block of each row tile (a per-row-tile ticket) takes
+//   that tile's rows' decisions.
+// Every regime stages a row's vectors with cp.async. The grid's last block
+// (a ticket) sums the blocks' (row tiles') shares of the shared walk's log
+// rho and active count, the open count and phase A's log residuals in a
+// fixed order and decides the shared rung, the flags and phase A's test.
+// Under the shared walk with alpha != 1 the re-encode of p needs the new
+// rung: a second, elementwise launch does it. A row's results depend on the
+// row, the decided rung and the regime only, never on B or on the row's
+// place in the batch.
 //
 // Sums, each in a fixed order (so the check is deterministic): C1's
-// products in fp64, rounded once to the state type; C2's in the state type
-// (an fp32 -> fp64 conversion per factor would cost a batch four times its
-// multiply-adds); every sum over rows in fp64. Elementwise steps are single
-// IEEE operations in the state
-// type (the `_rn` intrinsics: no contraction into an FMA), as the plain
-// version's separate torch ops are, and every threshold decision is taken
-// in the state type with the host's values rounded to it. The kernels and
-// the plain versions therefore differ by the products' rounding only.
-// No cooperative launch and no spin barrier: the kernels run inside the
-// conditional bodies of the solves' device programs.
+// products as chains of at most 32 terms (or nx / 32) in the state type,
+// the chains' sums in fp64, rounded once to the state type (an fp32 -> fp64
+// conversion per factor runs at 16 a clock per SM, slower than one
+// cluster's loads); C2's in the state type: in "smem" and "stream" one
+// chain per output in contraction order, in "tiles" lane-strided chains
+// met by a butterfly (A x, H x) or 32-term segments added in segment order
+// (A'lam); every sum over rows in fp64. Elementwise steps are single IEEE
+// operations in the state type (the `_rn` intrinsics: no contraction into
+// an FMA), as the plain version's separate torch ops are, and every
+// threshold decision is taken in the state type with the host's values
+// rounded to it. The kernels and the plain versions therefore differ by
+// the products' rounding only. No cooperative launch and no spin barrier:
+// the kernels run inside the conditional bodies of the solves' device
+// programs (a cluster barrier is fine there).
 //
 // What bounds them: the bytes. A check reads its operands once (M_res
 // Dp x R, or H and A) and the state, and writes the state back: at most a
 // few MB, microseconds at 3.35 TB/s. At these sizes the launch and the
-// dependent chain (stage, products, ticket, decision) bound the time.
+// dependent chain (stage, products, exchange, decision) bound the time; C1
+// at Dp >= 640 also one cluster's share of L2 bandwidth (M_res's nonzero
+// blocks: 0.8 MB at Dp = 640, 2.3 MB at 1024, read by 16 SMs), and C2's
+// products the shared-memory loads that feed their multiply-adds.
 //
 // Plain C interface, built with nvcc into a shared library and called with
 // ctypes. Every entry returns a cudaError_t (0 on success), the launch error
-// checked right after the launch.
+// checked right after the launch. A non-null `stamps` (never on a solve
+// path) makes the kernels record %globaltimer at their stage boundaries.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 #include <string.h>
 
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <utility>
 #include <vector>
 
 #include "tiers.cuh"
+
+namespace cg = cooperative_groups;
 
 // The launch arguments (field for field ops/check_window.py's _C1Args and
 // _C2Args); outside the unnamed namespace, as the C entries take them.
@@ -86,8 +127,6 @@ struct C1Args {
   int* open_a;
   void *best_p, *best_d;
   int *n_stall, *k_fast;
-  double* part;
-  int* tick;
   unsigned long long* stamps;
   int dp, nx, nc, nxp, ncp, n_rho, n_steps, tail_mode, phase_a, adaptive, jump, stride, ci,
       budget, cap_a, certs, alpha, dtype;
@@ -116,13 +155,23 @@ struct C2Args {
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                   // C2's blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kColRows = 32;                  // rows a warp sums per column tile
-constexpr int kChunk = kWarps * kColRows;     // rows of a column tile
-constexpr int kMaxSeg = 6;
-constexpr int kMaxRows = 32;                  // rows of a C2 tile
+constexpr int kC1Threads = 512;                 // C1's blocks
+constexpr int kC1Warps = kC1Threads / 32;
+constexpr int kColRows = 32;                    // rows a warp sums per column tile
+constexpr int kC1Chunk = kC1Warps * kColRows;   // rows of a column unit's chunk
+constexpr int kC1Cols = 64;                     // outputs of a column unit
+constexpr int kMaxSeg = 7;
+constexpr int kMaxCluster = 16;
+constexpr int kTileRows = 32;                   // C2 "smem": rows a tile at most (a lane each)
+constexpr int kMaxTilesRows = 16;               // C2 "tiles": rows a row tile at most
+constexpr int kTilesBuf = 1024;                 // C2 "tiles": a warp's coefficients
+constexpr int kStreamWarps = 8;                 // C2 "stream": warps a block at most
+constexpr long kSmemCap = 200 * 1024;           // shared memory a C2 block may take
+constexpr long kSmemSM = 227 * 1024;            // shared memory of an SM's blocks
 constexpr int kStatSolved = 1, kStatPinf = 2, kStatDinf = 3, kRunning = -1;
+enum { R_SMEM = 0, R_STREAM = 1, R_TILES = 2 };
 
 // single IEEE operations in the state type (never contracted)
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -143,6 +192,8 @@ __device__ __forceinline__ float abs_t(float a) { return fabsf(a); }
 __device__ __forceinline__ double abs_t(double a) { return fabs(a); }
 __device__ __forceinline__ bool finite_t(float a) { return isfinite(a); }
 __device__ __forceinline__ bool finite_t(double a) { return isfinite(a); }
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
 template <typename T> __device__ __forceinline__ bool is_nan(T v) { return v != v; }
 // torch's NaN-propagating max (amax, maximum, clamp_min)
@@ -156,52 +207,41 @@ template <typename T> __device__ __forceinline__ T clamp_t(T v, T lo, T hi) {
   return hi < v ? hi : v;
 }
 
-template <typename T> __device__ __forceinline__ T warp_max(T v) {
-  for (int o = 16; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+// A batch of loads in flight at once: each sent by a volatile load
+// (`ld_ahead`, which the compiler keeps in program order), then a barrier
+// before the first use (`loads_fence`), so the batch's values wait in
+// registers instead of each load waiting for the last one's use.
+__device__ __forceinline__ float ld_ahead(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
   return v;
+}
+__device__ __forceinline__ double ld_ahead(const double* p) {
+  double v;
+  asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ void loads_fence() { asm volatile("" ::: "memory"); }
+// an accumulator "written" here: the multiply-adds into it stay below
+__device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x)); }
+__device__ __forceinline__ void pin(double& x) { asm volatile("" : "+d"(x)); }
+
+template <typename T> __device__ __forceinline__ T shfl_xor(T v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
 }
 // every lane ends with the same bits: each stage adds the same two values
-template <typename T> __device__ __forceinline__ T warp_sum_t(T v) {
-  for (int o = 16; o > 0; o >>= 1) v = add_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = add_rn(v, shfl_xor(v, o));
   return v;
 }
-__device__ __forceinline__ double warp_sum(double v) { return warp_sum_t(v); }
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-// block-wide reductions; every thread gets the result, the warps' values
-// combined in warp order. `sh` holds kWarps values.
-template <typename T> __device__ T block_max(T v, T* sh) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  T r = sh[0];
-  for (int w = 1; w < kWarps; ++w) r = nmax(r, sh[w]);
-  return r;
-}
-__device__ double block_sum(double v, double* sh) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double r = sh[0];
-  for (int w = 1; w < kWarps; ++w) r += sh[w];
-  return r;
-}
-__device__ int block_and(int v, int* sh) {
-  v = __all_sync(0xffffffffu, v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = 1;
-  for (int w = 0; w < kWarps; ++w) r &= sh[w];
-  return r;
-}
+__host__ __device__ inline int clamp_ind(int i, int n) { return i < 0 ? 0 : (i >= n ? n - 1 : i); }
+__host__ __device__ inline long round_up(long v, long m) { return (v + m - 1) / m * m; }
 
 // Stage stamps (a null `stamps` on every solve path): %globaltimer at a
 // stage boundary, slot 0 the earliest block's start, every other slot the
-// latest time any block passed that boundary.
+// latest time any block passed that boundary (ops/check_window.py
+// STAMP_STAGES names them).
 enum { S_START = 0, S_STAGED, S_PRODUCTS, S_ROWS, S_TICKET, S_REDUCED, S_WRITTEN, kStampSlots };
 __device__ __forceinline__ void stamp(unsigned long long* s, int slot) {
   if (!s || threadIdx.x != 0) return;
@@ -210,8 +250,6 @@ __device__ __forceinline__ void stamp(unsigned long long* s, int slot) {
   if (slot == S_START) atomicMin(s, t);
   else atomicMax(s + slot, t);
 }
-
-__device__ __forceinline__ int clamp_ind(int i, int n) { return i < 0 ? 0 : (i >= n ? n - 1 : i); }
 
 // One rho-ladder update (ops/check_window.rho_ladder_step): the +-1 walk
 // when `est` leaves [rho_k / tol, rho_k * tol], or the jump to the nearest
@@ -240,15 +278,15 @@ __device__ __forceinline__ bool walk_now(int k, int ci, int stride) {
   return stride <= 1 || ((k + ci - 1) / ci) % stride == 0;
 }
 
-// The ticket: the block that increments it last (after its results are
-// fenced) proceeds and resets it for the next launch.
-__device__ bool last_block(int* tick) {
+// A ticket of `n` blocks: the block that increments it last (after its
+// results are fenced) proceeds and resets it for the next launch.
+__device__ bool ticket(int* tick, int n) {
   __shared__ int s_last;
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
     const int t = atomicAdd(tick, 1);
-    s_last = t == (int)gridDim.x - 1;
+    s_last = t == n - 1;
     if (s_last) {
       __threadfence();
       *tick = 0;
@@ -259,330 +297,561 @@ __device__ bool last_block(int* tick) {
 }
 
 // ------------------------------------------------------------------------
+// the residuals' and certificates' reduction, shared by C1 and C2
+// ------------------------------------------------------------------------
+
+constexpr int kNStat = 15;
+
+// What a check reduces over a QP's outputs: the residuals' maxima and
+// their scales' (pri, ax, z, dua, hx, atl, g), and with the certificates
+// max |dlam|, max |dx|, max |A'dlam|, max |H dx|, the ray test's extremes
+// (rh: max A dx where u is finite, rl: max -A dx where l is finite) and the
+// support and g'dx sums. The maxima are torch's NaN-propagating amax, free
+// of order; the sums are taken in an order fixed by the caller.
+template <typename T> struct Stats {
+  enum { PRI = 0, AX, Z, DUA, HX, ATL, G, DL, DX, AT, HD, RH, RL, NMAX };
+  T v[NMAX];
+  double sup, gdx;
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) v[i] = T(0);
+    v[RH] = v[RL] = static_cast<T>(-INFINITY);
+    sup = gdx = 0.0;
+  }
+  __device__ __forceinline__ void max_in(int i, T x) { v[i] = nmax(v[i], x); }
+  // a butterfly over aligned groups of W lanes (every lane of the warp
+  // takes part): every lane of a group ends with the group's values
+  template <int W> __device__ __forceinline__ void reduce_lanes(bool certs) {
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < NMAX; ++i)
+        if (i < DL || certs) v[i] = nmax(v[i], shfl_xor(v[i], o));
+      if (certs) {
+        sup = sup + shfl_xor(sup, o);
+        gdx = gdx + shfl_xor(gdx, o);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(double* d) const {
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) d[i] = static_cast<double>(v[i]);
+    d[NMAX] = sup, d[NMAX + 1] = gdx;
+  }
+  __device__ __forceinline__ void load(const double* d) {
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) v[i] = static_cast<T>(d[i]);
+    sup = d[NMAX], gdx = d[NMAX + 1];
+  }
+  __device__ __forceinline__ T scale_p() const { return nmax(v[AX], v[Z]); }
+  __device__ __forceinline__ T scale_d() const { return nmax(nmax(v[HX], v[ATL]), v[G]); }
+  // the certificates (OSQP's tests on the deltas since the last check);
+  // the ray test all(A dx <= eps_d where u is finite, A dx >= -eps_d where
+  // l is finite) as two maxima against eps_d
+  __device__ __forceinline__ void certificates(T eps_pinf, T eps_dinf, bool& pinf,
+                                               bool& dinf) const {
+    const T zero = T(0);
+    const T eps_p = mul_rn(eps_pinf, v[DL]);
+    const T eps_d = mul_rn(eps_dinf, v[DX]);
+    const T support = static_cast<T>(sup), g_dx = static_cast<T>(gdx);
+    const bool ray_ok = v[RH] <= eps_d && v[RL] <= eps_d;
+    pinf = v[DL] > zero && v[AT] <= eps_p && support <= -eps_p;
+    dinf = v[DX] > zero && v[HD] <= eps_d && g_dx <= -eps_d && ray_ok;
+  }
+};
+static_assert(Stats<float>::NMAX + 2 == kNStat, "Stats' doubles");
+
+// the OSQP rho estimate from the residuals and their scales
+template <typename T>
+__device__ __forceinline__ T rho_estimate(const Stats<T>& s, T rho, double rho_min,
+                                          double rho_max) {
+  const T tiny = static_cast<T>(1e-30);
+  const T num = div_rn(s.v[Stats<T>::PRI], nmax(s.scale_p(), tiny));
+  const T den = div_rn(s.v[Stats<T>::DUA], nmax(s.scale_d(), tiny));
+  const T ratio = sqrt_rn(div_rn(num, nmax(den, tiny)));
+  return clamp_t(mul_rn(rho, ratio), static_cast<T>(rho_min), static_cast<T>(rho_max));
+}
+
+// ------------------------------------------------------------------------
 // C1
 // ------------------------------------------------------------------------
 
 enum { V_Y = 0, V_LAM, V_DX, V_DLAM };
 
 // One product: out[o] = sum_k M[o*so + k*sk] v[k]. Row mode (so = ld,
-// sk = 1): a warp per output. Column mode (so = 1, sk = ld): a lane per
-// output, the rows cut into chunks of kChunk.
+// sk = 1): a warp per output, a unit of kC1Warps outputs. Column mode
+// (so = 1, sk = ld): a lane per two outputs (j and j + 32), a unit of
+// kC1Cols outputs, its rows cut into chunks of kC1Chunk (32 rows a warp).
+// A column segment of M_res sums only the rows [k_lo, k_lo + n_k) where
+// `build_residual_operator` puts its nonzeros, and all k_full rows when y
+// holds a non-finite value (0 * inf is NaN in the plain product). Units are
+// numbered across the segments from unit0 and dealt to the cluster's blocks
+// (`c1_deal`); output j of a segment lands at out0 + j in block 0.
 struct Seg {
   const void* m;
-  int row, n_out, n_k, ld, vec, chunks, off, tiles;
+  int row, n_out, n_k, k_lo, k_full, ld, vec, units, unit0, out0;
 };
 
-__host__ __device__ inline void seg_add(Seg* s, int& n, int& off, const void* m, int row,
-                                        int n_out, int n_k, int ld, int vec) {
-  Seg& g = s[n++];
+constexpr int kMaxUnits = 512;
+
+// The units' deal: block b takes units order[first[b] .. first[b + 1]).
+struct C1Plan {
+  Seg segs[kMaxSeg];
+  int n_seg, units, outs, cluster, smem;
+  short first[kMaxCluster + 1];
+  short order[kMaxUnits];
+};
+
+inline void seg_add(C1Plan& p, const void* m, int row, int n_out, int n_k, int ld, int vec,
+                    int k_lo = 0, int k_full = -1) {
+  Seg& g = p.segs[p.n_seg++];
   g.m = m, g.row = row, g.n_out = n_out, g.n_k = n_k, g.ld = ld, g.vec = vec;
-  g.chunks = row ? 1 : (n_k + kChunk - 1) / kChunk;
-  g.tiles = row ? (n_out + kWarps - 1) / kWarps : ((n_out + 31) / 32) * g.chunks;
-  g.off = off;
-  off += g.chunks * n_out;
+  g.k_lo = k_lo, g.k_full = k_full < 0 ? n_k : k_full;
+  g.units = row ? (n_out + kC1Warps - 1) / kC1Warps : (n_out + kC1Cols - 1) / kC1Cols;
+  g.unit0 = p.units;
+  g.out0 = p.outs;
+  p.units += g.units;
+  p.outs += n_out;
 }
 
-// C1's products; returns their count and the scratch doubles they take.
-__host__ __device__ inline int c1_segments(const C1Args& a, Seg* s, int* part_size) {
-  int n = 0, off = 0;
+// C1's products, their units and the shared memory they take: every
+// output's sum (block 0 gathers them), two buffers of one column unit's
+// warp sums, and the vectors.
+C1Plan c1_plan(const C1Args& a) {
+  C1Plan p;
+  memset(&p, 0, sizeof(p));
   const int certs = a.certs && !a.tail_mode;
+  const int elt = a.dtype == DT_F64 ? 8 : 4;
   if (a.m_res) {
-    const int r = 2 * a.ncp + 2 * a.nxp;
-    seg_add(s, n, off, a.m_res, 0, r, a.dp, r, V_Y);
+    // [A x | z | H x | A'lam]: its column blocks and their nonzero rows
+    const int nx = a.nx, nc = a.nc, ncp = a.ncp, nxp = a.nxp, r = 2 * ncp + 2 * nxp;
+    const char* m = static_cast<const char*>(a.m_res);
+    seg_add(p, m, 0, ncp, nx, r, V_Y, 0, a.dp);
+    seg_add(p, m + (size_t)ncp * elt, 0, ncp, nc, r, V_Y, nx, a.dp);
+    seg_add(p, m + (size_t)2 * ncp * elt, 0, nxp, nx, r, V_Y, 0, a.dp);
+    seg_add(p, m + (size_t)(2 * ncp + nxp) * elt, 0, nxp, nc, r, V_Y, nx + nc, a.dp);
   } else {
-    seg_add(s, n, off, a.A, 1, a.nc, a.nx, a.nx, V_Y);    // A x
-    seg_add(s, n, off, a.H, 1, a.nx, a.nx, a.nx, V_Y);    // H x
-    seg_add(s, n, off, a.A, 0, a.nx, a.nc, a.nx, V_LAM);  // A' lam
+    seg_add(p, a.A, 1, a.nc, a.nx, a.nx, V_Y);    // A x
+    seg_add(p, a.H, 1, a.nx, a.nx, a.nx, V_Y);    // H x
+    seg_add(p, a.A, 0, a.nx, a.nc, a.nx, V_LAM);  // A' lam
   }
   if (certs) {
-    seg_add(s, n, off, a.A, 0, a.nx, a.nc, a.nx, V_DLAM);  // A' dlam
-    seg_add(s, n, off, a.H, 1, a.nx, a.nx, a.nx, V_DX);    // H dx
-    seg_add(s, n, off, a.A, 1, a.nc, a.nx, a.nx, V_DX);    // A dx
+    seg_add(p, a.A, 0, a.nx, a.nc, a.nx, V_DLAM);  // A' dlam
+    seg_add(p, a.H, 1, a.nx, a.nx, a.nx, V_DX);    // H dx
+    seg_add(p, a.A, 1, a.nc, a.nx, a.nx, V_DX);    // A dx
   }
-  *part_size = off;
-  return n;
-}
-
-// output j of segment g, summed over its chunks in order, rounded once
-template <typename T> __device__ __forceinline__ T seg_val(const double* part, const Seg& g, int j) {
-  double acc = 0.0;
-  for (int c = 0; c < g.chunks; ++c) acc += __ldcg(part + g.off + (size_t)c * g.n_out + j);
-  return static_cast<T>(acc);
+  const long vecs = (long)a.dp + 2L * a.nc + a.nx;
+  p.smem = (int)(((long)p.outs + 2L * kC1Warps * kC1Cols) * 8 + round_up(vecs * elt, 16));
+  return p;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) c1_kernel(const C1Args a) {
+__global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1Plan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ double sh_col[kWarps][32];
-  __shared__ double sh_d[kWarps];
-  __shared__ T sh_t[kWarps];
-  __shared__ int sh_i[kWarps];
+  __shared__ double s_wred[kC1Warps][kNStat];
   __shared__ int s_new_ind;
+  typedef Stats<T> S;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), cs = p.cluster;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dp = a.dp, nx = a.nx, nc = a.nc;
   const bool certs = a.certs && !a.tail_mode;
   const bool need_lam = certs || (!a.m_res);
+  const bool reencode = !a.tail_mode && a.adaptive && a.alpha;
   const T* y_in = static_cast<const T*>(a.y_in);
   const T* reff = static_cast<const T*>(a.rho_eff);
-  const int ind = clamp_ind(*a.rho_ind, a.n_rho);
   stamp(a.stamps, S_START);
+  // the state's scalars (block 0 writes them after the cluster barrier)
+  const int ind = clamp_ind(*a.rho_ind, a.n_rho);
+  const int k_new = *a.k + a.n_steps;
+  const T rho_old = *static_cast<const T*>(a.rho);
+  T best_p = T(0), best_d = T(0);
+  int n_stall_old = 0;
+  if (a.phase_a && rank == 0 && threadIdx.x == 0) {
+    best_p = *static_cast<const T*>(a.best_p), best_d = *static_cast<const T*>(a.best_d);
+    n_stall_old = *a.n_stall;
+  }
 
-  // the vectors every product reads: y, lam, dx, dlam
-  T* ys = reinterpret_cast<T*>(smem_raw);
+  // block 0: every output's sum; every block: a column unit's warp sums
+  // (two buffers) and the vectors the products and the elementwise steps
+  // read: y, lam, dx, dlam
+  double* outv = reinterpret_cast<double*>(smem_raw);
+  double* wpart = outv + p.outs;
+  T* ys = reinterpret_cast<T*>(wpart + 2 * kC1Warps * kC1Cols);
   T* lam = ys + dp;
   T* dx = lam + nc;
   T* dlam = dx + nx;
-  for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = y_in[i];
-  __syncthreads();
-  if (need_lam) {
-    for (int i = threadIdx.x; i < nc; i += kThreads) {
-      const T p = ys[nx + nc + i];
-      lam[i] = a.alpha ? mul_rn(reff[(size_t)ind * nc + i], sub_rn(p, ys[nx + i])) : p;
+
+  // The block's units, and its first unit's first coefficients: where that
+  // is a column unit, each warp starts loading its first batch of rows (the
+  // nonzero rows, as for a finite y) before y arrives, so that the two
+  // loads overlap.
+  const bool dealt = p.first[cs] == p.units;  // else round robin
+  const int n_mine = dealt ? p.first[rank + 1] - p.first[rank] : (p.units - rank + cs - 1) / cs;
+  auto unit_of = [&](int ui) { return dealt ? (int)p.order[p.first[rank] + ui] : rank + ui * cs; };
+  auto seg_of = [&](int u) {
+    int s = 0;
+    while (u >= p.segs[s].unit0 + p.segs[s].units) ++s;
+    return s;
+  };
+  constexpr int RB = sizeof(T) == 4 ? 32 : 16;  // rows of a batch
+  T w0[RB], w1[RB];
+  auto load_batch = [&](const Seg& g, int t, int kb, int nk, int k0, int h) {
+    const int j0 = t * kC1Cols + lane;
+    const bool in0 = j0 < g.n_out, in1 = j0 + 32 < g.n_out;
+    const T* m0 = static_cast<const T*>(g.m) + (size_t)(kb + k0) * g.ld + j0;
+    const int rows = min(kColRows, nk - k0);
+#pragma unroll
+    for (int q = 0; q < RB; ++q) {
+      const bool in = h + q < rows;
+      w0[q] = in && in0 ? ld_ahead(m0 + (size_t)(h + q) * g.ld) : T(0);
+      w1[q] = in && in1 ? ld_ahead(m0 + (size_t)(h + q) * g.ld + 32) : T(0);
+    }
+  };
+  bool pre = false;
+  if (n_mine > 0) {
+    const int u = unit_of(0);
+    const Seg& g = p.segs[seg_of(u)];
+    if (!g.row && warp * kColRows < g.n_k) {
+      load_batch(g, u - g.unit0, g.k_lo, g.n_k, warp * kColRows, 0);
+      pre = true;
     }
   }
-  __syncthreads();
+  int bad = 0;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < dp; i += kC1Threads) {
+    const T v = y_in[i];
+    ys[i] = v;
+    bad |= !finite_t(v);
+  }
+  // a non-finite y: every product sums all its rows
+  const bool y_bad = __syncthreads_or(bad) != 0;
+  if (need_lam) {
+    const T* lp = static_cast<const T*>(a.lam_prev);
+    for (int i = threadIdx.x; i < nc; i += kC1Threads) {
+      const T pv = ys[nx + nc + i];
+      const T l = a.alpha ? mul_rn(reff[(size_t)ind * nc + i], sub_rn(pv, ys[nx + i])) : pv;
+      lam[i] = l;
+      if (certs) dlam[i] = sub_rn(l, lp[i]);
+    }
+  }
   if (certs) {
     const T* xp = static_cast<const T*>(a.x_prev);
-    const T* lp = static_cast<const T*>(a.lam_prev);
-    for (int i = threadIdx.x; i < nx; i += kThreads) dx[i] = sub_rn(ys[i], xp[i]);
-    for (int i = threadIdx.x; i < nc; i += kThreads) dlam[i] = sub_rn(lam[i], lp[i]);
+    for (int i = threadIdx.x; i < nx; i += kC1Threads) dx[i] = sub_rn(ys[i], xp[i]);
   }
   __syncthreads();
+  T* y = static_cast<T*>(a.y);
+  const int gt = rank * kC1Threads + threadIdx.x, gs = cs * kC1Threads;
+  if (!reencode)  // y does not wait for the decisions
+    for (int i = gt; i < dp; i += gs) y[i] = ys[i];
   stamp(a.stamps, S_STAGED);
 
-  Seg segs[kMaxSeg];
-  int part_size;
-  const int n_seg = c1_segments(a, segs, &part_size);
-  int total = 0;
-  for (int s = 0; s < n_seg; ++s) total += segs[s].tiles;
-  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
-    int s = 0, t = tile;
-    while (t >= segs[s].tiles) t -= segs[s].tiles, ++s;
-    const Seg& g = segs[s];
-    const T* m = static_cast<const T*>(g.m);
+  // the products: this block's units, each lane's chain in the state type,
+  // the chains' sums in fp64 (lanes by a butterfly, or warps and chunks in
+  // order), pushed into block 0
+  double* out0 = cluster.map_shared_rank(outv, 0);
+  int par = 0;
+  if (y_bad) pre = false;  // every row then: the batch is loaded anew
+  for (int ui = 0; ui < n_mine; ++ui) {
+    const int u = unit_of(ui);
+    const Seg& g = p.segs[seg_of(u)];
+    const int t = u - g.unit0;
     const T* v = g.vec == V_Y ? ys : g.vec == V_LAM ? lam : g.vec == V_DX ? dx : dlam;
     if (g.row) {
-      const int o = t * kWarps + warp;
+      const T* m = static_cast<const T*>(g.m);
+      const int o = t * kC1Warps + warp;
       if (o < g.n_out) {
-        double acc = 0.0;
+        T acc = T(0);
         const T* mr = m + (size_t)o * g.ld;
-        for (int q = lane; q < g.n_k; q += 32)
-          acc = fma(static_cast<double>(__ldg(mr + q)), static_cast<double>(v[q]), acc);
-        acc = warp_sum(acc);
-        if (lane == 0) a.part[g.off + o] = acc;
+#pragma unroll 4
+        for (int q = lane; q < g.n_k; q += 32) acc = fma_t(__ldg(mr + q), v[q], acc);
+        const double sum = warp_sum(static_cast<double>(acc));
+        if (lane == 0) out0[g.out0 + o] = sum;
       }
     } else {
-      const int c = t % g.chunks, j = (t / g.chunks) * 32 + lane;
-      const int k0 = c * kChunk + warp * kColRows;
-      double acc = 0.0;
-      if (j < g.n_out) {
-        const int k1 = min(k0 + kColRows, g.n_k);
-        for (int q = k0; q < k1; ++q)
-          acc = fma(static_cast<double>(__ldg(m + (size_t)q * g.ld + j)),
-                    static_cast<double>(v[q]), acc);
+      // lanes on columns j0 = t * 64 + lane and j0 + 32; warp w on rows
+      // k_lo + c * 512 + 32 w ... of every chunk c; a warp's chunks summed
+      // in order, then the warps in order
+      const int kb = y_bad ? 0 : g.k_lo, nk = y_bad ? g.k_full : g.n_k;
+      const T* vk = v + kb;
+      double s0 = 0.0, s1 = 0.0;
+      for (int k0 = warp * kColRows; k0 < nk; k0 += kC1Chunk) {
+        const int rows = min(kColRows, nk - k0);
+        T a0 = T(0), a1 = T(0);
+        // the warp's rows in batches of RB, every load of a batch in flight
+        // (rows past the segment's add +0); the first batch of the first
+        // unit may be in flight already
+#pragma unroll
+        for (int h = 0; h < kColRows; h += RB) {
+          if (!pre) load_batch(g, t, kb, nk, k0, h);
+          pre = false;
+          T x[RB];
+#pragma unroll
+          for (int q = 0; q < RB; ++q) x[q] = h + q < rows ? vk[k0 + h + q] : T(0);
+          loads_fence();
+          pin(a0), pin(a1);
+#pragma unroll
+          for (int q = 0; q < RB; ++q) {
+            a0 = fma_t(w0[q], x[q], a0);
+            a1 = fma_t(w1[q], x[q], a1);
+          }
+        }
+        s0 += static_cast<double>(a0);
+        s1 += static_cast<double>(a1);
       }
-      sh_col[warp][lane] = acc;
+      double* wp = wpart + (size_t)par * kC1Warps * kC1Cols;
+      wp[warp * kC1Cols + lane] = s0;
+      wp[warp * kC1Cols + 32 + lane] = s1;
       __syncthreads();
-      if (warp == 0 && j < g.n_out) {
-        double sum = 0.0;
-        for (int w = 0; w < kWarps; ++w) sum += sh_col[w][lane];
-        a.part[g.off + (size_t)c * g.n_out + j] = sum;
+      if (warp < 2) {
+        const int col = warp * 32 + lane, j = t * kC1Cols + col;
+        if (j < g.n_out) {
+          double sum = 0.0;
+          for (int w = 0; w < kC1Warps; ++w) sum += wp[w * kC1Cols + col];
+          out0[g.out0 + j] = sum;
+        }
       }
-      __syncthreads();
+      par ^= 1;  // the next column unit fills the other buffer
     }
   }
-
   __syncthreads();
   stamp(a.stamps, S_PRODUCTS);
-  if (!last_block(a.tick)) return;
+  cluster.sync();  // every output's sum is in block 0; every block has staged
   stamp(a.stamps, S_TICKET);
+  if (certs) {
+    T* xp = static_cast<T*>(a.x_prev);
+    T* lp = static_cast<T*>(a.lam_prev);
+    for (int i = gt; i < nx; i += gs) xp[i] = ys[i];
+    for (int i = gt; i < nc; i += gs) lp[i] = lam[i];
+  }
+  if (rank != 0) return;
 
-  // ---- the last block: residuals, rho estimate, decisions, the state ----
-  const T zero = T(0);
-  T m_pri = zero, m_ax = zero, m_z = zero, m_dua = zero, m_hx = zero, m_atl = zero, m_g = zero;
+  // ---- block 0: the residuals' and certificates' reduction, one pass ----
+  auto val = [&](int sg, int j) -> T { return static_cast<T>(outv[p.segs[sg].out0 + j]); };
+  Stats<T> st;
+  st.init();
   if (a.m_res) {
-    const Seg& g = segs[0];
     const int ncp = a.ncp, nxp = a.nxp;
     const T* grow = static_cast<const T*>(a.g_row);
-    for (int i = threadIdx.x; i < ncp; i += kThreads) {
-      const T ax = seg_val<T>(a.part, g, i), z = seg_val<T>(a.part, g, ncp + i);
-      m_pri = nmax(m_pri, abs_t(sub_rn(ax, z)));
-      m_ax = nmax(m_ax, abs_t(ax));
-      m_z = nmax(m_z, abs_t(z));
+    for (int i = threadIdx.x; i < ncp; i += kC1Threads) {
+      const T ax = val(0, i), z = val(0, ncp + i);
+      st.max_in(S::PRI, abs_t(sub_rn(ax, z)));
+      st.max_in(S::AX, abs_t(ax));
+      st.max_in(S::Z, abs_t(z));
     }
-    for (int i = threadIdx.x; i < nxp; i += kThreads) {
-      const T hx = seg_val<T>(a.part, g, 2 * ncp + i);
-      const T atl = seg_val<T>(a.part, g, 2 * ncp + nxp + i);
-      const T gr = grow[i];
-      m_dua = nmax(m_dua, abs_t(add_rn(add_rn(hx, atl), gr)));
-      m_hx = nmax(m_hx, abs_t(hx));
-      m_atl = nmax(m_atl, abs_t(atl));
-      m_g = nmax(m_g, abs_t(gr));
+#pragma unroll 2
+    for (int i = threadIdx.x; i < nxp; i += kC1Threads) {
+      const T hx = val(0, 2 * ncp + i), atl = val(0, 2 * ncp + nxp + i), gr = grow[i];
+      st.max_in(S::DUA, abs_t(add_rn(add_rn(hx, atl), gr)));
+      st.max_in(S::HX, abs_t(hx));
+      st.max_in(S::ATL, abs_t(atl));
+      st.max_in(S::G, abs_t(gr));
     }
   } else {
     const T* wp = static_cast<const T*>(a.w_pri);
     const T* wd = static_cast<const T*>(a.w_dua);
     const T* gv = static_cast<const T*>(a.g);
-    for (int i = threadIdx.x; i < nc; i += kThreads) {
-      T ax = seg_val<T>(a.part, segs[0], i), z = ys[nx + i];
+#pragma unroll 2
+    for (int i = threadIdx.x; i < nc; i += kC1Threads) {
+      T ax = val(0, i), z = ys[nx + i];
       if (wp) ax = mul_rn(wp[i], ax), z = mul_rn(wp[i], z);
-      m_pri = nmax(m_pri, abs_t(sub_rn(ax, z)));
-      m_ax = nmax(m_ax, abs_t(ax));
-      m_z = nmax(m_z, abs_t(z));
+      st.max_in(S::PRI, abs_t(sub_rn(ax, z)));
+      st.max_in(S::AX, abs_t(ax));
+      st.max_in(S::Z, abs_t(z));
     }
-    for (int i = threadIdx.x; i < nx; i += kThreads) {
-      T hx = seg_val<T>(a.part, segs[1], i), atl = seg_val<T>(a.part, segs[2], i), gi = gv[i];
-      if (wd) hx = mul_rn(wd[i], hx), atl = mul_rn(wd[i], atl), gi = mul_rn(wd[i], gi);
-      m_dua = nmax(m_dua, abs_t(add_rn(add_rn(hx, atl), gi)));
-      m_hx = nmax(m_hx, abs_t(hx));
-      m_atl = nmax(m_atl, abs_t(atl));
-      m_g = nmax(m_g, abs_t(gi));
+#pragma unroll 2
+    for (int i = threadIdx.x; i < nx; i += kC1Threads) {
+      T hx = val(1, i), atl = val(2, i), gv_i = gv[i];
+      if (wd) hx = mul_rn(wd[i], hx), atl = mul_rn(wd[i], atl), gv_i = mul_rn(wd[i], gv_i);
+      st.max_in(S::DUA, abs_t(add_rn(add_rn(hx, atl), gv_i)));
+      st.max_in(S::HX, abs_t(hx));
+      st.max_in(S::ATL, abs_t(atl));
+      st.max_in(S::G, abs_t(gv_i));
     }
   }
-  const T pri = block_max(m_pri, sh_t), dua = block_max(m_dua, sh_t);
-  const T scale_p = nmax(block_max(m_ax, sh_t), block_max(m_z, sh_t));
-  const T scale_d =
-      nmax(nmax(block_max(m_hx, sh_t), block_max(m_atl, sh_t)), block_max(m_g, sh_t));
-
-  // the certificates on the deltas since the last check
-  bool pinf = false, dinf = false;
   if (certs) {
-    const int s0 = a.m_res ? 1 : 3;  // A'dlam, H dx, A dx
+    const int s0 = a.m_res ? 4 : 3;  // A'dlam, H dx, A dx
     const T* lo = static_cast<const T*>(a.lo) + nx;
     const T* hi = static_cast<const T*>(a.hi) + nx;
     const T* gv = static_cast<const T*>(a.g);
-    T m_dl = zero, m_dx = zero, m_at = zero, m_hd = zero;
-    double sup = 0.0, gdx = 0.0;
-    for (int i = threadIdx.x; i < nc; i += kThreads) {
+    const T zero = T(0);
+#pragma unroll 2
+    for (int i = threadIdx.x; i < nc; i += kC1Threads) {
       const T dl = dlam[i];
-      m_dl = nmax(m_dl, abs_t(dl));
+      st.max_in(S::DL, abs_t(dl));
       const T term = dl > zero ? mul_rn(hi[i], dl) : (dl < zero ? mul_rn(lo[i], dl) : zero);
-      sup += static_cast<double>(term);
+      st.sup += static_cast<double>(term);
+      const T adx = val(s0 + 2, i);
+      if (finite_t(hi[i])) st.max_in(S::RH, adx);
+      if (finite_t(lo[i])) st.max_in(S::RL, -adx);
     }
-    for (int i = threadIdx.x; i < nx; i += kThreads) {
-      m_dx = nmax(m_dx, abs_t(dx[i]));
-      m_at = nmax(m_at, abs_t(seg_val<T>(a.part, segs[s0], i)));
-      m_hd = nmax(m_hd, abs_t(seg_val<T>(a.part, segs[s0 + 1], i)));
-      gdx = fma(static_cast<double>(gv[i]), static_cast<double>(dx[i]), gdx);
+#pragma unroll 2
+    for (int i = threadIdx.x; i < nx; i += kC1Threads) {
+      st.max_in(S::DX, abs_t(dx[i]));
+      st.max_in(S::AT, abs_t(val(s0, i)));
+      st.max_in(S::HD, abs_t(val(s0 + 1, i)));
+      st.gdx = fma(static_cast<double>(gv[i]), static_cast<double>(dx[i]), st.gdx);
     }
-    const T ndl = block_max(m_dl, sh_t), ndx = block_max(m_dx, sh_t);
-    const T at_max = block_max(m_at, sh_t), hd_max = block_max(m_hd, sh_t);
-    const T support = static_cast<T>(block_sum(sup, sh_d));
-    const T g_dx = static_cast<T>(block_sum(gdx, sh_d));
-    const T eps_p = mul_rn(static_cast<T>(a.eps_pinf), ndl);
-    const T eps_d = mul_rn(static_cast<T>(a.eps_dinf), ndx);
-    int ok = 1;
-    for (int i = threadIdx.x; i < nc; i += kThreads) {
-      const T adx = seg_val<T>(a.part, segs[s0 + 2], i);
-      if (finite_t(hi[i]) && !(adx <= eps_d)) ok = 0;
-      if (finite_t(lo[i]) && !(adx >= -eps_d)) ok = 0;
-    }
-    const int ray_ok = block_and(ok, sh_i);
-    pinf = ndl > zero && at_max <= eps_p && support <= -eps_p;
-    dinf = ndx > zero && hd_max <= eps_d && g_dx <= -eps_d && ray_ok;
   }
-
+  // the warps in order, then the decisions on one thread
+  st.template reduce_lanes<32>(certs);
+  if (lane == 0) st.store(s_wred[warp]);
   __syncthreads();
-  stamp(a.stamps, S_REDUCED);
-  if (threadIdx.x == 0) {
-    const T tiny = static_cast<T>(1e-30);
-    const T num = div_rn(pri, nmax(scale_p, tiny));
-    const T den = div_rn(dua, nmax(scale_d, tiny));
-    const T ratio = sqrt_rn(div_rn(num, nmax(den, tiny)));
-    const T rho_new = clamp_t(mul_rn(*static_cast<T*>(a.rho), ratio),
-                              static_cast<T>(a.rho_min), static_cast<T>(a.rho_max));
-    const bool solved = pri < static_cast<T>(a.eps_pri) && dua < static_cast<T>(a.eps_dua);
-    const int k_new = *a.k + a.n_steps;
-    *static_cast<T*>(a.rho) = rho_new;
-    *static_cast<T*>(a.pri) = pri;
-    *static_cast<T*>(a.dua) = dua;
-    *a.k = k_new;
-    int new_ind = ind;
-    if (a.tail_mode) {
-      if (solved) *a.status = kStatSolved;
-    } else {
-      if (a.adaptive) {
-        new_ind = ladder(static_cast<const T*>(a.rhos), a.n_rho, ind, rho_new,
-                         static_cast<T>(a.tol), a.jump);
-        if (!walk_now(k_new, a.ci, a.stride)) new_ind = ind;
-        *a.rho_ind = new_ind;
+  if (warp == 0) {
+    Stats<T> r;
+    if (lane < kC1Warps) r.load(s_wred[lane]);
+    else r.init();
+    r.template reduce_lanes<32>(certs);
+    if (lane == 0) {
+      stamp(a.stamps, S_REDUCED);
+      bool pinf = false, dinf = false;
+      if (certs)
+        r.certificates(static_cast<T>(a.eps_pinf), static_cast<T>(a.eps_dinf), pinf, dinf);
+      const T pri = r.v[S::PRI], dua = r.v[S::DUA];
+      const T rho_new = rho_estimate(r, rho_old, a.rho_min, a.rho_max);
+      const bool solved = pri < static_cast<T>(a.eps_pri) && dua < static_cast<T>(a.eps_dua);
+      *static_cast<T*>(a.rho) = rho_new;
+      *static_cast<T*>(a.pri) = pri;
+      *static_cast<T*>(a.dua) = dua;
+      *a.k = k_new;
+      int new_ind = ind;
+      if (a.tail_mode) {
+        if (solved) *a.status = kStatSolved;
+      } else {
+        if (a.adaptive) {
+          new_ind = ladder(static_cast<const T*>(a.rhos), a.n_rho, ind, rho_new,
+                           static_cast<T>(a.tol), a.jump);
+          if (!walk_now(k_new, a.ci, a.stride)) new_ind = ind;
+          *a.rho_ind = new_ind;
+        }
+        int status = solved ? kStatSolved : kRunning;
+        if (status < 0 && pinf) status = kStatPinf;
+        if (status < 0 && dinf) status = kStatDinf;
+        const bool running = status < 0 && k_new < a.budget;
+        *a.status = status;
+        *a.open = running;
+        *a.tail = status < 0;
+        if (a.phase_a) {
+          T* bp = static_cast<T*>(a.best_p);
+          T* bd = static_cast<T*>(a.best_d);
+          const T stl = static_cast<T>(a.stall);
+          const bool improved = pri < mul_rn(stl, best_p) || dua < mul_rn(stl, best_d);
+          const int n_stall = improved ? 0 : n_stall_old + 1;
+          if (pri < best_p) *bp = pri;
+          if (dua < best_d) *bd = dua;
+          *a.n_stall = n_stall;
+          *a.k_fast = k_new;
+          *a.open_a = n_stall < 2 && k_new < a.cap_a && running;
+        }
       }
-      int status = solved ? kStatSolved : kRunning;
-      if (status < 0 && pinf) status = kStatPinf;
-      if (status < 0 && dinf) status = kStatDinf;
-      const bool running = status < 0 && k_new < a.budget;
-      *a.status = status;
-      *a.open = running;
-      *a.tail = status < 0;
-      if (a.phase_a) {
-        T* bp = static_cast<T*>(a.best_p);
-        T* bd = static_cast<T*>(a.best_d);
-        const T st = static_cast<T>(a.stall);
-        const bool improved = pri < mul_rn(st, *bp) || dua < mul_rn(st, *bd);
-        const int n_stall = improved ? 0 : *a.n_stall + 1;
-        if (pri < *bp) *bp = pri;
-        if (dua < *bd) *bd = dua;
-        *a.n_stall = n_stall;
-        *a.k_fast = k_new;
-        *a.open_a = n_stall < 2 && k_new < a.cap_a && running;
+      s_new_ind = new_ind;
+    }
+  }
+  if (reencode) {
+    // p re-encoded for the new rung: z + (rho_old / rho_new) (p - z)
+    __syncthreads();
+    const int new_ind = s_new_ind;
+    for (int i = threadIdx.x; i < dp; i += kC1Threads) {
+      T v = ys[i];
+      if (i >= nx + nc && i < nx + 2 * nc) {
+        const int j = i - nx - nc;
+        const T z = ys[nx + j];
+        const T s = div_rn(reff[(size_t)ind * nc + j], reff[(size_t)new_ind * nc + j]);
+        v = add_rn(z, mul_rn(s, sub_rn(v, z)));
       }
+      y[i] = v;
     }
-    s_new_ind = new_ind;
-  }
-  __syncthreads();
-  // the new state: y (p re-encoded for the new rung under alpha != 1) and
-  // the certificates' previous iterate
-  const int new_ind = s_new_ind;
-  const bool reencode = !a.tail_mode && a.adaptive && a.alpha;
-  T* y = static_cast<T*>(a.y);
-  for (int i = threadIdx.x; i < dp; i += kThreads) {
-    T v = ys[i];
-    if (reencode && i >= nx + nc && i < nx + 2 * nc) {
-      const int j = i - nx - nc;
-      const T z = ys[nx + j];
-      const T s = div_rn(reff[(size_t)ind * nc + j], reff[(size_t)new_ind * nc + j]);
-      v = add_rn(z, mul_rn(s, sub_rn(v, z)));
-    }
-    y[i] = v;
-  }
-  if (certs) {
-    T* xp = static_cast<T*>(a.x_prev);
-    T* lp = static_cast<T*>(a.lam_prev);
-    for (int i = threadIdx.x; i < nx; i += kThreads) xp[i] = ys[i];
-    for (int i = threadIdx.x; i < nc; i += kThreads) lp[i] = lam[i];
   }
   __syncthreads();
   stamp(a.stamps, S_WRITTEN);
 }
 
-struct C1Plan {
-  int grid, smem, part;
-};
+// The cluster C1 takes: 16 blocks where the card runs such a cluster at
+// this shared memory, else 8 (the portable size). Asked once per shared
+// memory size and dtype; the kernel's shared memory attribute is set for
+// this launch first.
+template <typename T> cudaError_t c1_cluster(int smem, int& cs) {
+  static std::mutex mu;
+  static std::map<int, int> known;
+  auto fn = c1_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e) return e;
+  if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(smem);
+  if (it != known.end()) {
+    cs = it->second;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kMaxCluster, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(kMaxCluster), cfg.blockDim = dim3(kC1Threads);
+  cfg.dynamicSmemBytes = smem, cfg.attrs = &attr, cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    n = 0;
+  }
+  cs = n > 0 ? kMaxCluster : 8;
+  known[smem] = cs;
+  return cudaSuccess;
+}
 
-C1Plan c1_plan(const C1Args& a, int nsm) {
-  Seg segs[kMaxSeg];
-  C1Plan p;
-  const int n = c1_segments(a, segs, &p.part);
-  int total = 0;
-  for (int s = 0; s < n; ++s) total += segs[s].tiles;
-  p.grid = total < 1 ? 1 : (total < 2 * nsm ? total : 2 * nsm);
-  const int elt = a.dtype == DT_F64 ? 8 : 4;
-  p.smem = (a.dp + 2 * a.nc + a.nx) * elt;
-  return p;
+// Deal the units to the cluster's blocks longest first (a unit's cost: its
+// outputs times its rows), each to the least-loaded block (the lowest on a
+// tie); round robin where there are more units than the deal holds. Which
+// block sums a unit leaves its sums as they are.
+void c1_deal(C1Plan& p) {
+  const int cs = p.cluster;
+  long load[kMaxCluster] = {0};
+  std::vector<std::pair<long, int>> units;
+  for (int s = 0; s < p.n_seg; ++s) {
+    const Seg& g = p.segs[s];
+    for (int t = 0; t < g.units; ++t) {
+      const int outs = g.row ? kC1Warps : kC1Cols;
+      units.push_back({-(long)outs * g.n_k, g.unit0 + t});
+    }
+  }
+  std::vector<std::vector<int>> mine(cs);
+  if (p.units <= kMaxUnits) {
+    std::stable_sort(units.begin(), units.end(),
+                     [](const std::pair<long, int>& x, const std::pair<long, int>& y) {
+                       return x.first < y.first;
+                     });
+    for (auto& u : units) {
+      int best = 0;
+      for (int b = 1; b < cs; ++b) best = load[b] < load[best] ? b : best;
+      load[best] -= u.first;
+      mine[best].push_back(u.second);
+    }
+  }
+  int at = 0;
+  for (int b = 0; b < cs; ++b) {
+    p.first[b] = (short)at;
+    for (int u : mine[b]) p.order[at++] = (short)u;
+  }
+  p.first[cs] = (short)at;
 }
 
 template <typename T>
 cudaError_t c1_launch(const C1Args& a, cudaStream_t stream) {
-  int dev, nsm;
-  cudaError_t e = cudaGetDevice(&dev);
+  C1Plan p = c1_plan(a);
+  if (p.smem + 8 * 1024 > kSmemSM) return cudaErrorInvalidValue;
+  int cs;
+  cudaError_t e = c1_cluster<T>(p.smem, cs);
   if (e) return e;
-  if ((e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev))) return e;
-  const C1Plan p = c1_plan(a, nsm);
-  if (p.smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(c1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                p.smem)))
-    return e;
-  c1_kernel<T><<<p.grid, kThreads, p.smem, stream>>>(a);
+  p.cluster = cs;
+  c1_deal(p);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cs), cfg.blockDim = dim3(kC1Threads);
+  cfg.dynamicSmemBytes = p.smem, cfg.stream = stream, cfg.attrs = &attr, cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, c1_kernel<T>, a, p))) return e;
   return cudaGetLastError();
 }
 
@@ -591,35 +860,111 @@ cudaError_t c1_launch(const C1Args& a, cudaStream_t stream) {
 // ------------------------------------------------------------------------
 
 struct C2Plan {
-  int rows, grid, smem, ha_smem, vec_ld, out_ld;
+  int regime, rows, group, threads, grid, smem, n_parts, elt;
+  int vec_ld, out_ld;        // a staged row's vectors and products
+  int ncx, ncx_pad, nx_pad;  // outputs of [A; H]; "smem": their padding
+  int warps, nbuf, ha;       // "stream": warps a block, buffers a warp, a buffer's elements
+  int n_rt, n_cxt, n_lt;     // "tiles": row tiles, output tiles of [A; H] and of A'
+  long outs_at;              // "tiles": where the products start in part (doubles)
 };
 
-// The shared H and A in shared memory where they fit 64 KB; rows per tile
-// (a lane per row there, else about 1024 warp tasks a tile; at most
-// kMaxRows, and no more than spread the batch over eight blocks per SM),
-// and a grid of at most eight blocks per SM walking the tiles.
+// The regime and its shape for `nsm` SMs. The regime follows from nx, nc,
+// the dtype and the per-problem operands alone; B sets the grid, the rows
+// of a "tiles" row tile and whether a "stream" warp double-buffers.
 C2Plan c2_plan(const C2Args& a, int nsm) {
   C2Plan p;
+  memset(&p, 0, sizeof(p));
   const int elt = a.dtype == DT_F64 ? 8 : 4;
-  const int nx = a.nx, nc = a.nc;
+  const int nx = a.nx, nc = a.nc, kout = 32 / elt, B = a.B;
+  p.elt = elt;
   p.out_ld = (nc + 2 * nx) * (a.certs ? 2 : 1);
   p.vec_ld = nx + 2 * nc + (a.certs ? nx + nc : 0);
+  p.ncx = nc + nx;
+  p.ncx_pad = (int)round_up(p.ncx, kout);
+  p.nx_pad = (int)round_up(nx, kout);
+  p.threads = kThreads;
   const long ha = (long)(nx + nc) * nx * elt;
-  p.ha_smem = !a.h_per && !a.a_per && ha <= 64 * 1024;
-  // with H and A in shared memory a lane per row: up to 32 rows a tile,
-  // at an odd stride (a lane's reads fall in distinct banks)
-  if (p.ha_smem) p.vec_ld |= 1;
-  const int tasks = (nc + nx + (nx + 31) / 32) * (a.certs ? 2 : 1);
-  int rows = p.ha_smem ? kMaxRows : 1024 / tasks;
-  const int spread = (a.B + 8 * nsm - 1) / (8 * nsm);
-  rows = rows < spread ? rows : spread;
-  rows = rows < 1 ? 1 : (rows > kMaxRows ? kMaxRows : rows);
-  const long fixed = p.ha_smem ? ha : 0;
-  while (rows > 1 && fixed + (long)rows * (p.vec_ld + p.out_ld) * elt > 160 * 1024) rows /= 2;
-  p.rows = rows;
-  p.smem = (int)(fixed + (long)rows * (p.vec_ld + p.out_ld) * elt);
-  const int tiles = (a.B + rows - 1) / rows;
-  p.grid = tiles < 1 ? 1 : (tiles < 8 * nsm ? tiles : 8 * nsm);
+  const long rest = round_up((long)(p.vec_ld + p.out_ld) * elt, 16);
+  if (B == 0) {
+    // no rows: one warp takes the batch's flags
+    p.regime = R_STREAM;
+    p.group = 32, p.warps = 1, p.threads = 32, p.grid = 1, p.n_parts = 1;
+    p.smem = (int)rest;
+    return p;
+  }
+  if (!a.h_per && !a.a_per) {
+    // [A; H]' (nx x ncx_pad) and A (nc x nx_pad), then 32 rows of vectors
+    // and products (odd strides), where H and A first land flat
+    const long ops = round_up(((long)nx * p.ncx_pad + (long)nc * p.nx_pad) * elt, 16);
+    const long tile = (long)kTileRows * ((p.vec_ld | 1) + (p.out_ld | 1)) * elt;
+    const long smem = ops + (tile > ha ? tile : ha);
+    if (smem <= kSmemCap) {
+      // 32 rows a tile, or 16 or 8 where fewer tiles would leave SMs idle
+      p.regime = R_SMEM;
+      p.rows = kTileRows;
+      while (p.rows > 8 && (B + p.rows - 1) / p.rows < nsm) p.rows /= 2;
+      p.group = kThreads / p.rows;
+      const long rtile = (long)p.rows * ((p.vec_ld | 1) + (p.out_ld | 1)) * elt;
+      p.smem = (int)(ops + (rtile > ha ? rtile : ha));
+      const int tiles = (B + p.rows - 1) / p.rows;
+      long per_sm = kSmemSM / (p.smem + 1024);  // at most 3 (its launch bounds)
+      per_sm = per_sm < 1 ? 1 : (per_sm > 3 ? 3 : per_sm);
+      const int cap = nsm * (int)per_sm;
+      p.grid = tiles < cap ? tiles : cap;
+      p.n_parts = p.grid;
+      return p;
+    }
+  } else {
+    // a warp per row: its H and A (one or two buffers), vectors, products
+    const long buf = round_up(ha, 16);
+    long w1 = kSmemCap / (buf + rest), w2 = kSmemCap / (2 * buf + rest);
+    w1 = w1 > kStreamWarps ? kStreamWarps : w1;
+    w2 = w2 > kStreamWarps ? kStreamWarps : w2;
+    if (w1 >= 1) {
+      p.regime = R_STREAM;
+      p.group = 32;
+      p.ha = (int)(buf / elt);
+      // one row a warp where the card holds every row's warp at once, else
+      // rows in turn, the next row's copy in flight during this one's
+      const long s1 = (buf + rest) * w1;
+      long per_sm = kSmemSM / (s1 + 1024);
+      const int blocks1 = (int)((B + w1 - 1) / w1);
+      if (blocks1 <= nsm * (per_sm < 1 ? 1 : per_sm) || w2 < 1) {
+        p.nbuf = 1, p.warps = (int)w1;
+      } else {
+        p.nbuf = 2, p.warps = (int)w2;
+      }
+      p.threads = 32 * p.warps;
+      p.smem = (int)((p.nbuf * buf + rest) * p.warps);
+      per_sm = kSmemSM / (p.smem + 1024);
+      const int cap = nsm * (int)(per_sm < 1 ? 1 : per_sm);
+      const int blocks = (B + p.warps - 1) / p.warps;
+      p.grid = blocks < cap ? blocks : cap;
+      p.n_parts = p.grid;
+      return p;
+    }
+  }
+  // "tiles": row tiles of up to 16 rows (one row where the operand is per
+  // problem), a block per (row tile, output tile)
+  p.regime = R_TILES;
+  p.rows = (a.h_per || a.a_per) ? 1 : (B < kMaxTilesRows ? B : kMaxTilesRows);
+  p.group = 16;
+  p.n_cxt = (p.ncx + kWarps - 1) / kWarps;
+  p.n_lt = (nx + 31) / 32;
+  const long lsegs = (nc + 31) / 32;
+  for (;;) {  // fewer rows a tile where the tile does not fit
+    const long outs = (long)p.rows * p.out_ld;
+    const long segs = lsegs * (a.certs ? 2 : 1) * p.rows * 32;
+    p.smem = (int)(round_up((long)p.rows * (p.vec_ld | 1) * elt, 16) +
+                   round_up((outs > segs ? outs : segs) * elt, 16) +
+                   (long)kWarps * kTilesBuf * elt);
+    if (p.smem <= kSmemCap || p.rows == 1) break;
+    p.rows /= 2;
+  }
+  p.n_rt = (B + p.rows - 1) / p.rows;
+  p.grid = (p.n_cxt + p.n_lt) * p.n_rt;
+  p.n_parts = p.n_rt;
+  p.outs_at = round_up(4L * p.n_parts, 2);  // 16-byte aligned
   return p;
 }
 
@@ -630,344 +975,251 @@ __device__ __forceinline__ const T* reff_row(const C2Args& a, int b, int ind) {
   return r + (base + clamp_ind(ind, a.n_rho)) * a.nc;
 }
 
+// A row's share of the batch's sums.
+struct Share {
+  double logr, logres, act, open;
+};
+
+// What every C2 block reads before its rows (the last block writes it).
+struct C2Ctx {
+  int k_new, ind_shared;
+  bool walk_rows;
+};
+
+__device__ __forceinline__ C2Ctx c2_ctx(const C2Args& a) {
+  C2Ctx c;
+  c.k_new = *a.k + a.n_steps;
+  c.ind_shared = a.shared ? clamp_ind(*a.rho_ind, a.n_rho) : 0;
+  c.walk_rows = a.adaptive && !a.shared && walk_now(c.k_new, a.ci, a.stride);
+  return c;
+}
+
+__device__ __forceinline__ int row_ind(const C2Args& a, const C2Ctx& c, int b) {
+  return a.shared ? c.ind_shared : clamp_ind(a.rho_ind[b], a.n_rho);
+}
+
+// Row b's vectors into v in two steps. `stage_copy` starts the copies
+// (cp.async, one element each: the rows have odd strides): x, z and p of
+// the row of Y, and with the certificates x_prev and lam_prev where dx and
+// dlam go. After the caller's wait and barrier, `stage_fix` turns p into
+// lam (rho_eff (p - z) under alpha != 1) and the previous iterates into
+// dx = x - x_prev and dlam = lam - lam_prev. Lanes gl, gl + G, ... of a
+// group of G.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Plan p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ double c_logr[kMaxRows], c_logres[kMaxRows];
-  __shared__ int c_act[kMaxRows], c_open[kMaxRows];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int B = a.B, dp = a.dp, nx = a.nx, nc = a.nc;
-  const int n_out = p.out_ld, vl = p.vec_ld;
+__device__ __forceinline__ void cp_elem(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+template <typename T, int G>
+__device__ void stage_copy(const C2Args& a, int b, T* v, int gl) {
+  const int nx = a.nx, nc = a.nc, n = nx + 2 * nc;
+  const T* yr = static_cast<const T*>(a.Y_in) + (size_t)b * a.dp;
+  for (int i = gl; i < n; i += G) cp_elem(v + i, yr + i);
+  if (a.certs) {
+    const T* xp = static_cast<const T*>(a.X_prev) + (size_t)b * nx;
+    const T* lp = static_cast<const T*>(a.Lam_prev) + (size_t)b * nc;
+    for (int i = gl; i < nx; i += G) cp_elem(v + n + i, xp + i);
+    for (int i = gl; i < nc; i += G) cp_elem(v + n + nx + i, lp + i);
+  }
+}
+
+template <typename T, int G>
+__device__ void stage_fix(const C2Args& a, const C2Ctx& c, int b, T* v, int gl) {
+  const int nx = a.nx, nc = a.nc;
+  const T* rv = a.alpha ? reff_row<T>(a, b, row_ind(a, c, b)) : nullptr;
+#pragma unroll 4
+  for (int i = gl; i < nc; i += G) {
+    const T z = v[nx + i], pl = v[nx + nc + i];
+    const T l = rv ? mul_rn(rv[i], sub_rn(pl, z)) : pl;
+    v[nx + nc + i] = l;
+    if (a.certs) v[2 * nx + 2 * nc + i] = sub_rn(l, v[2 * nx + 2 * nc + i]);
+  }
+  if (a.certs)
+    for (int i = gl; i < nx; i += G) v[nx + 2 * nc + i] = sub_rn(v[i], v[nx + 2 * nc + i]);
+}
+
+template <typename T> struct alignas(16) Pack {
+  T e[16 / sizeof(T)];
+};
+
+// Row b's residuals, estimate and decisions, from its vectors v and
+// products out [A x | H x | A'lam | A dx | H dx | A'dlam] (shared memory),
+// by an aligned group of G lanes (gl its lane); every lane of the warp takes
+// part (`valid` false: no row). Writes the row's results and its new state
+// row, and returns its share of the batch's sums.
+template <typename T, int G>
+__device__ Share row_pass(const C2Args& a, const C2Ctx& c, int b, bool valid, const T* v,
+                          const T* out, int gl) {
+  typedef Stats<T> S;
+  const int nx = a.nx, nc = a.nc, dp = a.dp;
   const bool certs = a.certs;
-  T* sHA = reinterpret_cast<T*>(smem_raw);
-  T* vec = sHA + (p.ha_smem ? (size_t)(nx + nc) * nx : 0);
-  T* outs = vec + (size_t)p.rows * vl;
-  const T* Hg = static_cast<const T*>(a.H);
-  const T* Ag = static_cast<const T*>(a.A);
-  if (p.ha_smem) {
-    for (int i = threadIdx.x; i < nx * nx; i += kThreads) sHA[i] = Hg[i];
-    for (int i = threadIdx.x; i < nc * nx; i += kThreads) sHA[(size_t)nx * nx + i] = Ag[i];
-  }
-  // H and A of row b: shared memory, or the shared or per-problem operand
-  auto h_of = [&](int b) -> const T* {
-    return p.ha_smem ? sHA : Hg + (a.h_per ? (size_t)b * nx * nx : 0);
-  };
-  auto a_of = [&](int b) -> const T* {
-    return p.ha_smem ? sHA + (size_t)nx * nx : Ag + (a.a_per ? (size_t)b * nc * nx : 0);
-  };
-  const int n_rowt = (nc + nx) * (certs ? 2 : 1);
-  const int n_colg = (nx + 31) / 32, n_colt = n_colg * (certs ? 2 : 1);
-  const T* Y_in = static_cast<const T*>(a.Y_in);
-  const T* rhos = static_cast<const T*>(a.rhos);
-  const int k_new = *a.k + a.n_steps;
-  const int ind_shared = a.shared ? clamp_ind(*a.rho_ind, a.n_rho) : 0;
-  const bool walk_rows = a.adaptive && !a.shared && walk_now(k_new, a.ci, a.stride);
-  double blk_logr = 0.0, blk_logres = 0.0;
-  int blk_act = 0, blk_open = 0;
   const T zero = T(0);
-  stamp(a.stamps, S_START);
+  Stats<T> st;
+  st.init();
+  const T* wp = a.w_pri ? static_cast<const T*>(a.w_pri) + (a.wp_per ? (size_t)b * nc : 0)
+                        : nullptr;
+  const T* wd = a.w_dua ? static_cast<const T*>(a.w_dua) + (a.wd_per ? (size_t)b * nx : 0)
+                        : nullptr;
+  const T* gr = static_cast<const T*>(a.G) + (a.g_per ? (size_t)b * nx : 0);
+  const T* lo = static_cast<const T*>(a.lo) + (size_t)b * dp + nx;
+  const T* hi = static_cast<const T*>(a.hi) + (size_t)b * dp + nx;
+  // the row's old results, loaded while the lanes reduce
+  T* rho_b = static_cast<T*>(a.rho) + b;
+  T* pri_b = static_cast<T*>(a.pri) + b;
+  T* dua_b = static_cast<T*>(a.dua) + b;
+  bool done_old = false;
+  T rho_old = zero, pri_old = zero, dua_old = zero;
+  int iters_old = 0, status_old = 0, ind = 0;
+  if (valid) {
+    done_old = a.done[b] != 0;
+    rho_old = *rho_b, pri_old = *pri_b, dua_old = *dua_b;
+    iters_old = a.iters[b], status_old = a.status[b];
+    ind = row_ind(a, c, b);
+  }
+  const int o3 = nc + 2 * nx;
+  const int n_c = valid ? nc : 0, n_x = valid ? nx : 0;
+#pragma unroll 8
+  for (int i = gl; i < n_c; i += G) {
+    T ax = out[i], z = v[nx + i];
+    if (wp) ax = mul_rn(wp[i], ax), z = mul_rn(wp[i], z);
+    st.max_in(S::PRI, abs_t(sub_rn(ax, z)));
+    st.max_in(S::AX, abs_t(ax));
+    st.max_in(S::Z, abs_t(z));
+    if (certs) {
+      const T dl = v[2 * nx + 2 * nc + i];
+      st.max_in(S::DL, abs_t(dl));
+      const T term = dl > zero ? mul_rn(hi[i], dl) : (dl < zero ? mul_rn(lo[i], dl) : zero);
+      st.sup += static_cast<double>(term);
+      const T adx = out[o3 + i];
+      if (finite_t(hi[i])) st.max_in(S::RH, adx);
+      if (finite_t(lo[i])) st.max_in(S::RL, -adx);
+    }
+  }
+#pragma unroll 8
+  for (int i = gl; i < n_x; i += G) {
+    T hx = out[nc + i], atl = out[nc + nx + i], gi = gr[i];
+    if (wd) hx = mul_rn(wd[i], hx), atl = mul_rn(wd[i], atl), gi = mul_rn(wd[i], gi);
+    st.max_in(S::DUA, abs_t(add_rn(add_rn(hx, atl), gi)));
+    st.max_in(S::HX, abs_t(hx));
+    st.max_in(S::ATL, abs_t(atl));
+    st.max_in(S::G, abs_t(gi));
+    if (certs) {
+      const T dxi = v[nx + 2 * nc + i];
+      st.max_in(S::DX, abs_t(dxi));
+      st.max_in(S::HD, abs_t(out[o3 + nc + i]));
+      st.max_in(S::AT, abs_t(out[o3 + nc + nx + i]));
+      st.gdx += static_cast<double>(mul_rn(gr[i], dxi));
+    }
+  }
+  st.template reduce_lanes<G>(certs);
+  Share sh = {0.0, 0.0, 0.0, 0.0};
+  if (!valid) return sh;
+  bool pinf = false, dinf = false;
+  if (certs) st.certificates(static_cast<T>(a.eps_pinf), static_cast<T>(a.eps_dinf), pinf, dinf);
+  // the row's decisions (every lane of the group alike)
+  const int k_new = c.k_new;
+  const T rho_new = rho_estimate(st, rho_old, a.rho_min, a.rho_max);
+  const T pri = done_old ? pri_old : st.v[S::PRI];
+  const T dua = done_old ? dua_old : st.v[S::DUA];
+  int new_ind = ind;
+  if (c.walk_rows && !done_old)
+    new_ind = ladder(static_cast<const T*>(a.rhos), a.n_rho, ind, rho_new, static_cast<T>(a.tol),
+                     a.jump);
+  const bool newly =
+      !done_old && pri < static_cast<T>(a.eps_pri) && dua < static_cast<T>(a.eps_dua);
+  int iters = newly ? k_new : iters_old;
+  int status = newly ? kStatSolved : status_old;
+  bool done = done_old || newly;
+  if (certs) {
+    if (!done && pinf) status = kStatPinf, iters = k_new, done = true;
+    if (!done && dinf) status = kStatDinf, iters = k_new, done = true;
+  }
+  const T tiny = static_cast<T>(1e-30);
+  sh.act = !done_old;
+  sh.open = !done;
+  sh.logr = (a.adaptive && a.shared && !done_old) ? static_cast<double>(log_t(rho_new)) : 0.0;
+  sh.logres =
+      (a.phase_a && !done) ? static_cast<double>(log_t(nmax(add_rn(pri, dua), tiny))) : 0.0;
+  // every lane of the group has read the row's old results before its
+  // first lane writes them
+  const unsigned mask = (0xffffffffu >> (32 - G)) << ((threadIdx.x & 31) & ~(G - 1));
+  __syncwarp(mask);
+  if (gl == 0) {
+    *rho_b = done_old ? rho_old : rho_new;
+    *pri_b = pri;
+    *dua_b = dua;
+    a.done[b] = done;
+    a.iters[b] = iters;
+    a.status[b] = status;
+    if (a.adaptive && !a.shared) a.rho_ind[b] = new_ind;
+  }
+  // the row of the new state: y (p re-encoded for the row's new rung) and
+  // the certificates' previous iterate
+  const bool reencode = a.adaptive && a.alpha && !a.shared;
+  const T* rv_old = reencode ? reff_row<T>(a, b, ind) : nullptr;
+  const T* rv_new = reencode ? reff_row<T>(a, b, new_ind) : nullptr;
+  const T* yr = static_cast<const T*>(a.Y_in) + (size_t)b * dp;
+  T* yo = static_cast<T*>(a.Y) + (size_t)b * dp;
+  auto fix = [&](int i, T val) -> T {
+    if (reencode && i >= nx + nc && i < nx + 2 * nc) {
+      const int j = i - nx - nc;
+      const T z = yr[nx + j];
+      val = add_rn(z, mul_rn(div_rn(rv_old[j], rv_new[j]), sub_rn(val, z)));
+    }
+    return val;
+  };
+  constexpr int V = 16 / sizeof(T);
+  if (dp % V == 0) {
+#pragma unroll 8
+    for (int q = gl; q < dp / V; q += G) {
+      Pack<T> pk = reinterpret_cast<const Pack<T>*>(yr)[q];
+      if (reencode)
+#pragma unroll
+        for (int e = 0; e < V; ++e) pk.e[e] = fix(q * V + e, pk.e[e]);
+      reinterpret_cast<Pack<T>*>(yo)[q] = pk;
+    }
+  } else {
+    for (int i = gl; i < dp; i += G) yo[i] = fix(i, yr[i]);
+  }
+  if (certs) {
+    T* xp = static_cast<T*>(a.X_prev) + (size_t)b * nx;
+    T* lp = static_cast<T*>(a.Lam_prev) + (size_t)b * nc;
+    for (int i = gl; i < nx; i += G) xp[i] = v[i];
+    for (int i = gl; i < nc; i += G) lp[i] = v[nx + nc + i];
+  }
+  return sh;
+}
 
-  for (int tile = blockIdx.x; tile * p.rows < B; tile += gridDim.x) {
-    const int r0 = tile * p.rows;
-    const int nr = min(p.rows, B - r0);
-    __syncthreads();  // the previous tile's rows are written out
-    // stage each row's x, z, lam (and dx, dlam)
-    for (int r = warp; r < nr; r += kWarps) {
-      const int b = r0 + r;
-      const T* yr = Y_in + (size_t)b * dp;
-      T* v = vec + (size_t)r * vl;
-      const int ind = a.shared ? ind_shared : clamp_ind(a.rho_ind[b], a.n_rho);
-      const T* rv = a.alpha ? reff_row<T>(a, b, ind) : nullptr;
-      for (int i = lane; i < nx; i += 32) v[i] = yr[i];
-      for (int i = lane; i < nc; i += 32) {
-        const T z = yr[nx + i], pl = yr[nx + nc + i];
-        v[nx + i] = z;
-        v[nx + nc + i] = rv ? mul_rn(rv[i], sub_rn(pl, z)) : pl;
-      }
-      if (certs) {
-        const T* xp = static_cast<const T*>(a.X_prev) + (size_t)b * nx;
-        const T* lp = static_cast<const T*>(a.Lam_prev) + (size_t)b * nc;
-        __syncwarp();
-        for (int i = lane; i < nx; i += 32) v[nx + 2 * nc + i] = sub_rn(v[i], xp[i]);
-        for (int i = lane; i < nc; i += 32)
-          v[2 * nx + 2 * nc + i] = sub_rn(v[nx + nc + i], lp[i]);
-      }
-    }
-    __syncthreads();
-    stamp(a.stamps, S_STAGED);
-    // the products, summed in the state type in a fixed order. With H and
-    // A in shared memory: a lane per row of the tile, a warp per output
-    // (the operand's element read once for all 32 rows). Else a warp per
-    // output of a row-contiguous product (A x, H x, A dx, H dx: the lanes
-    // along the operand's row, their partial sums met by a butterfly), a
-    // lane per output of a transposed one (A'lam, A'dlam: a warp's 32
-    // columns summed down the rows in order)
-    if (p.ha_smem) {
-      const int r = lane;
-      const T* v = vec + (size_t)r * vl;
-      for (int o = warp; r < nr && o < n_out; o += kWarps) {
-        // segments: A x | H x | A'lam | A dx | H dx | A'dlam
-        int oo = o;
-        const bool delta = oo >= nc + 2 * nx;
-        if (delta) oo -= nc + 2 * nx;
-        const T* xv = v + (delta ? nx + 2 * nc : 0);
-        // four partial sums (the contraction index mod 4), then
-        // (s0 + s1) + (s2 + s3): four independent chains
-        const T* m;
-        const T* u;
-        int n, step;
-        if (oo < nc + nx) {
-          m = oo < nc ? sHA + (size_t)nx * nx + (size_t)oo * nx : sHA + (size_t)(oo - nc) * nx;
-          u = xv, n = nx, step = 1;
-        } else {
-          m = sHA + (size_t)nx * nx + (oo - nc - nx);
-          u = v + (delta ? 2 * nx + 2 * nc : nx + nc), n = nc, step = nx;
-        }
-        T s0 = zero, s1 = zero, s2 = zero, s3 = zero;
-        int c = 0;
-        for (; c + 3 < n; c += 4) {
-          s0 = fma_t(m[(size_t)c * step], u[c], s0);
-          s1 = fma_t(m[(size_t)(c + 1) * step], u[c + 1], s1);
-          s2 = fma_t(m[(size_t)(c + 2) * step], u[c + 2], s2);
-          s3 = fma_t(m[(size_t)(c + 3) * step], u[c + 3], s3);
-        }
-        if (c < n) s0 = fma_t(m[(size_t)c * step], u[c], s0);
-        if (c + 1 < n) s1 = fma_t(m[(size_t)(c + 1) * step], u[c + 1], s1);
-        if (c + 2 < n) s2 = fma_t(m[(size_t)(c + 2) * step], u[c + 2], s2);
-        outs[(size_t)r * n_out + o] = add_rn(add_rn(s0, s1), add_rn(s2, s3));
-      }
-    }
-    // (four outputs a warp at once, for the loads in flight)
-    for (int q0 = warp; !p.ha_smem && q0 < nr * n_rowt; q0 += 4 * kWarps) {
-      const T* m[4];
-      const T* v[4];
-      int dst[4];
-      T acc[4];
+// The batch's sums from the n_parts partials (four doubles each, in part)
+// in a fixed order, and its flags: the grid's last block.
+template <typename T>
+__device__ void c2_finish(const C2Args& a, const C2Ctx& c, int n_parts) {
+  __shared__ double s_q[kStreamWarps][4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  double q[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int i = threadIdx.x; i < n_parts; i += blockDim.x)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int q = q0 + t * kWarps;
-        dst[t] = -1, acc[t] = zero, m[t] = v[t] = nullptr;
-        if (q >= nr * n_rowt) continue;
-        const int r = q / n_rowt, b = r0 + r;
-        int o = q % n_rowt;
-        const bool delta = o >= nc + nx;
-        if (delta) o -= nc + nx;
-        v[t] = vec + (size_t)r * vl + (delta ? nx + 2 * nc : 0);
-        m[t] = o < nc ? a_of(b) + (size_t)o * nx : h_of(b) + (size_t)(o - nc) * nx;
-        dst[t] = r * n_out + (delta ? nc + 2 * nx : 0) + o;
-      }
-      for (int c = lane; c < nx; c += 32) {
+    for (int j = 0; j < 4; ++j) q[j] += __ldcg(a.part + 4 * (size_t)i + j);
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-          if (dst[t] >= 0) acc[t] = fma_t(m[t][c], v[t][c], acc[t]);
-      }
+  for (int j = 0; j < 4; ++j) q[j] = warp_sum(q[j]);
+  if (lane == 0)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (dst[t] < 0) continue;
-        const T sum = warp_sum_t(acc[t]);
-        if (lane == 0) outs[dst[t]] = sum;
-      }
-    }
-    for (int q = warp; !p.ha_smem && q < nr * n_colt; q += kWarps) {
-      const int r = q / n_colt, b = r0 + r;
-      int grp = q % n_colt;
-      const bool delta = grp >= n_colg;
-      if (delta) grp -= n_colg;
-      const int j = grp * 32 + lane;
-      if (j < nx) {
-        const T* lv = vec + (size_t)r * vl + (delta ? 2 * nx + 2 * nc : nx + nc);
-        const T* am = a_of(b) + j;
-        T s0 = zero, s1 = zero, s2 = zero, s3 = zero;
-        int i = 0;
-        for (; i + 3 < nc; i += 4) {
-          s0 = fma_t(am[(size_t)i * nx], lv[i], s0);
-          s1 = fma_t(am[(size_t)(i + 1) * nx], lv[i + 1], s1);
-          s2 = fma_t(am[(size_t)(i + 2) * nx], lv[i + 2], s2);
-          s3 = fma_t(am[(size_t)(i + 3) * nx], lv[i + 3], s3);
-        }
-        if (i < nc) s0 = fma_t(am[(size_t)i * nx], lv[i], s0);
-        if (i + 1 < nc) s1 = fma_t(am[(size_t)(i + 1) * nx], lv[i + 1], s1);
-        if (i + 2 < nc) s2 = fma_t(am[(size_t)(i + 2) * nx], lv[i + 2], s2);
-        outs[(size_t)r * n_out + (delta ? 2 * nc + 3 * nx : nc + nx) + j] =
-            add_rn(add_rn(s0, s1), add_rn(s2, s3));
-      }
-    }
-    __syncthreads();
-    stamp(a.stamps, S_PRODUCTS);
-    // a warp per row: the row's residuals, estimate and decisions
-    for (int r = warp; r < nr; r += kWarps) {
-      const int b = r0 + r;
-      const T* v = vec + (size_t)r * vl;
-      const T* out = outs + (size_t)r * n_out;
-      const T* wp = a.w_pri ? static_cast<const T*>(a.w_pri) + (a.wp_per ? (size_t)b * nc : 0)
-                            : nullptr;
-      const T* wd = a.w_dua ? static_cast<const T*>(a.w_dua) + (a.wd_per ? (size_t)b * nx : 0)
-                            : nullptr;
-      const T* gr = static_cast<const T*>(a.G) + (a.g_per ? (size_t)b * nx : 0);
-      T m_pri = zero, m_ax = zero, m_z = zero, m_dua = zero, m_hx = zero, m_atl = zero,
-        m_g = zero;
-      for (int i = lane; i < nc; i += 32) {
-        T ax = out[i], z = v[nx + i];
-        if (wp) ax = mul_rn(wp[i], ax), z = mul_rn(wp[i], z);
-        m_pri = nmax(m_pri, abs_t(sub_rn(ax, z)));
-        m_ax = nmax(m_ax, abs_t(ax));
-        m_z = nmax(m_z, abs_t(z));
-      }
-      for (int i = lane; i < nx; i += 32) {
-        T hx = out[nc + i], atl = out[nc + nx + i], gi = gr[i];
-        if (wd) hx = mul_rn(wd[i], hx), atl = mul_rn(wd[i], atl), gi = mul_rn(wd[i], gi);
-        m_dua = nmax(m_dua, abs_t(add_rn(add_rn(hx, atl), gi)));
-        m_hx = nmax(m_hx, abs_t(hx));
-        m_atl = nmax(m_atl, abs_t(atl));
-        m_g = nmax(m_g, abs_t(gi));
-      }
-      const T pri_n = warp_max(m_pri), dua_n = warp_max(m_dua);
-      const T scale_p = nmax(warp_max(m_ax), warp_max(m_z));
-      const T scale_d = nmax(nmax(warp_max(m_hx), warp_max(m_atl)), warp_max(m_g));
-      bool pinf = false, dinf = false;
-      if (certs) {
-        const T* dxv = v + nx + 2 * nc;
-        const T* dlv = v + 2 * nx + 2 * nc;
-        const T* lo = static_cast<const T*>(a.lo) + (size_t)b * dp + nx;
-        const T* hi = static_cast<const T*>(a.hi) + (size_t)b * dp + nx;
-        const int o3 = nc + 2 * nx;
-        T m_dl = zero, m_dx = zero, m_at = zero, m_hd = zero;
-        double sup = 0.0, gdx = 0.0;
-        for (int i = lane; i < nc; i += 32) {
-          const T dl = dlv[i];
-          m_dl = nmax(m_dl, abs_t(dl));
-          const T term = dl > zero ? mul_rn(hi[i], dl) : (dl < zero ? mul_rn(lo[i], dl) : zero);
-          sup += static_cast<double>(term);
-        }
-        for (int i = lane; i < nx; i += 32) {
-          m_dx = nmax(m_dx, abs_t(dxv[i]));
-          m_hd = nmax(m_hd, abs_t(out[o3 + nc + i]));
-          m_at = nmax(m_at, abs_t(out[o3 + nc + nx + i]));
-          gdx += static_cast<double>(mul_rn(gr[i], dxv[i]));
-        }
-        const T ndl = warp_max(m_dl), ndx = warp_max(m_dx);
-        const T at_max = warp_max(m_at), hd_max = warp_max(m_hd);
-        const T support = static_cast<T>(warp_sum(sup));
-        const T g_dx = static_cast<T>(warp_sum(gdx));
-        const T eps_p = mul_rn(static_cast<T>(a.eps_pinf), ndl);
-        const T eps_d = mul_rn(static_cast<T>(a.eps_dinf), ndx);
-        int ok = 1;
-        for (int i = lane; i < nc; i += 32) {
-          const T adx = out[o3 + i];
-          if (finite_t(hi[i]) && !(adx <= eps_d)) ok = 0;
-          if (finite_t(lo[i]) && !(adx >= -eps_d)) ok = 0;
-        }
-        const bool ray_ok = __all_sync(0xffffffffu, ok);
-        pinf = ndl > zero && at_max <= eps_p && support <= -eps_p;
-        dinf = ndx > zero && hd_max <= eps_d && g_dx <= -eps_d && ray_ok;
-      }
-      // the row's decisions (every lane alike)
-      T* rho_b = static_cast<T*>(a.rho) + b;
-      T* pri_b = static_cast<T*>(a.pri) + b;
-      T* dua_b = static_cast<T*>(a.dua) + b;
-      const bool done_old = a.done[b] != 0;
-      const T rho_old = *rho_b, pri_old = *pri_b, dua_old = *dua_b;
-      const int iters_old = a.iters[b], status_old = a.status[b];
-      const int ind = a.shared ? ind_shared : clamp_ind(a.rho_ind[b], a.n_rho);
-      __syncwarp();
-      const T tiny = static_cast<T>(1e-30);
-      const T num = div_rn(pri_n, nmax(scale_p, tiny));
-      const T den = div_rn(dua_n, nmax(scale_d, tiny));
-      const T ratio = sqrt_rn(div_rn(num, nmax(den, tiny)));
-      const T rho_new = clamp_t(mul_rn(rho_old, ratio), static_cast<T>(a.rho_min),
-                                static_cast<T>(a.rho_max));
-      const T pri = done_old ? pri_old : pri_n;
-      const T dua = done_old ? dua_old : dua_n;
-      int new_ind = ind;
-      if (walk_rows && !done_old)
-        new_ind = ladder(rhos, a.n_rho, ind, rho_new, static_cast<T>(a.tol), a.jump);
-      const bool newly =
-          !done_old && pri < static_cast<T>(a.eps_pri) && dua < static_cast<T>(a.eps_dua);
-      int iters = newly ? k_new : iters_old;
-      int status = newly ? kStatSolved : status_old;
-      bool done = done_old || newly;
-      if (certs) {
-        if (!done && pinf) status = kStatPinf, iters = k_new, done = true;
-        if (!done && dinf) status = kStatDinf, iters = k_new, done = true;
-      }
-      if (lane == 0) {
-        *rho_b = done_old ? rho_old : rho_new;
-        *pri_b = pri;
-        *dua_b = dua;
-        a.done[b] = done;
-        a.iters[b] = iters;
-        a.status[b] = status;
-        if (a.adaptive && !a.shared) a.rho_ind[b] = new_ind;
-        c_act[r] = !done_old;
-        c_open[r] = !done;
-        c_logr[r] = (a.adaptive && a.shared && !done_old) ? static_cast<double>(log_t(rho_new))
-                                                          : 0.0;
-        c_logres[r] = (a.phase_a && !done)
-                          ? static_cast<double>(log_t(nmax(add_rn(pri, dua), tiny)))
-                          : 0.0;
-      }
-      // the row of the new state
-      const bool reencode = a.adaptive && a.alpha && !a.shared;
-      const T* rv_old = reencode ? reff_row<T>(a, b, ind) : nullptr;
-      const T* rv_new = reencode ? reff_row<T>(a, b, new_ind) : nullptr;
-      const T* yr = Y_in + (size_t)b * dp;
-      T* yo = static_cast<T*>(a.Y) + (size_t)b * dp;
-      for (int i = lane; i < dp; i += 32) {
-        T val = yr[i];
-        if (reencode && i >= nx + nc && i < nx + 2 * nc) {
-          const int j = i - nx - nc;
-          const T z = yr[nx + j];
-          val = add_rn(z, mul_rn(div_rn(rv_old[j], rv_new[j]), sub_rn(val, z)));
-        }
-        yo[i] = val;
-      }
-      if (certs) {
-        T* xp = static_cast<T*>(a.X_prev) + (size_t)b * nx;
-        T* lp = static_cast<T*>(a.Lam_prev) + (size_t)b * nc;
-        for (int i = lane; i < nx; i += 32) xp[i] = v[i];
-        for (int i = lane; i < nc; i += 32) lp[i] = v[nx + nc + i];
-      }
-    }
-    __syncthreads();
-    stamp(a.stamps, S_ROWS);
-    if (threadIdx.x == 0) {
-      for (int r = 0; r < nr; ++r) {
-        blk_logr += c_logr[r];
-        blk_logres += c_logres[r];
-        blk_act += c_act[r];
-        blk_open += c_open[r];
-      }
-    }
-  }
-  if (threadIdx.x == 0) {
-    double* pb = a.part + 4 * (size_t)blockIdx.x;
-    pb[0] = blk_logr, pb[1] = blk_logres, pb[2] = blk_act, pb[3] = blk_open;
-  }
-
-  if (!last_block(a.tick)) return;
-  stamp(a.stamps, S_TICKET);
-  // ---- the last block: the batch's sums in a fixed order (each thread
-  // the blocks t, t + kThreads, ... in order, then the threads in order)
-  // and its flags ----
-  __shared__ double s_red[4][kThreads];
-  {
-    double q0 = 0.0, q1 = 0.0, q2 = 0.0, q3 = 0.0;
-    for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) {
-      const double* pb = a.part + 4 * (size_t)i;
-      q0 += __ldcg(pb), q1 += __ldcg(pb + 1), q2 += __ldcg(pb + 2), q3 += __ldcg(pb + 3);
-    }
-    s_red[0][threadIdx.x] = q0, s_red[1][threadIdx.x] = q1;
-    s_red[2][threadIdx.x] = q2, s_red[3][threadIdx.x] = q3;
-  }
+    for (int j = 0; j < 4; ++j) s_q[warp][j] = q[j];
   __syncthreads();
   if (threadIdx.x != 0) return;
   double logr = 0.0, logres = 0.0, act = 0.0, open = 0.0;
-  for (int t = 0; t < kThreads; ++t)
-    logr += s_red[0][t], logres += s_red[1][t], act += s_red[2][t], open += s_red[3][t];
-  const long n_act = (long)act, n_open = (long)open;
+  for (int w = 0; w < nw; ++w)
+    logr += s_q[w][0], logres += s_q[w][1], act += s_q[w][2], open += s_q[w][3];
   stamp(a.stamps, S_REDUCED);
+  const long n_act = (long)act, n_open = (long)open;
+  const int k_new = c.k_new;
+  const T* rhos = static_cast<const T*>(a.rhos);
   if (a.adaptive && a.shared) {
-    const int ind = ind_shared;
+    const int ind = c.ind_shared;
     const T rk = rhos[ind];
     const T gm = n_act > 0 ? exp_t(div_rn(static_cast<T>(logr), static_cast<T>(n_act))) : rk;
     int new_ind = ladder(rhos, a.n_rho, ind, gm, static_cast<T>(a.tol), a.jump);
@@ -978,10 +1230,8 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
   const bool running = n_open > a.stop_open && k_new < a.budget;
   if (a.phase_a) {
     T* bm = static_cast<T*>(a.best_m);
-    const T metric =
-        div_rn(static_cast<T>(logres), static_cast<T>(n_open > 1 ? n_open : 1));
-    const bool improved =
-        metric < sub_rn(*bm, static_cast<T>(a.stall)) || n_open < *a.best_open;
+    const T metric = div_rn(static_cast<T>(logres), static_cast<T>(n_open > 1 ? n_open : 1));
+    const bool improved = metric < sub_rn(*bm, static_cast<T>(a.stall)) || n_open < *a.best_open;
     const int n_stall = improved ? 0 : *a.n_stall + 1;
     if (metric < *bm) *bm = metric;
     if (n_open < *a.best_open) *a.best_open = (int)n_open;
@@ -994,6 +1244,500 @@ __global__ void __launch_bounds__(kThreads) c2_kernel(const C2Args a, const C2Pl
   *a.open = running;
   *a.tail = n_open > 0;
   stamp(a.stamps, S_WRITTEN);
+}
+
+// Block (or row tile) `at`'s partial (thread 0's `s`) into part, then the
+// grid's ticket; the last block finishes.
+template <typename T>
+__device__ void c2_close(const C2Args& a, const C2Ctx& c, int n_parts, int at, const double* s) {
+  if (threadIdx.x == 0) {
+    double* pb = a.part + 4 * (size_t)at;
+    pb[0] = s[0], pb[1] = s[1], pb[2] = s[2], pb[3] = s[3];
+  }
+  if (!ticket(a.tick, n_parts)) return;
+  stamp(a.stamps, S_TICKET);
+  c2_finish<T>(a, c, n_parts);
+}
+
+// cp.async of n elements src -> dst (shared) by `nt` threads from thread
+// `t`: 16-byte copies where both ends are 16-byte aligned, else one element
+// a copy; the caller commits and waits.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, long n, int t, int nt) {
+  const unsigned d0 = (unsigned)__cvta_generic_to_shared(dst);
+  const bool vec = ((uintptr_t)src % 16 == 0) && (d0 % 16 == 0);
+  constexpr int V = 16 / sizeof(T);
+  const long nv = vec ? n / V : 0;
+  for (long q = t; q < nv; q += nt)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d0 + (unsigned)(q * 16)),
+                 "l"(src + q * V));
+  for (long i = nv * V + t; i < n; i += nt) {
+    if (sizeof(T) == 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                       d0 + (unsigned)(i * sizeof(T))),
+                   "l"(src + i));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       d0 + (unsigned)(i * sizeof(T))),
+                   "l"(src + i));
+  }
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 32 bytes of shared memory (a micro-tile's coefficients): 8 floats or 4
+// doubles, as two 16-byte loads
+template <typename T>
+__device__ __forceinline__ void load_pack(const T* p, T (&v)[32 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  const Pack<T> lo = reinterpret_cast<const Pack<T>*>(p)[0];
+  const Pack<T> hi = reinterpret_cast<const Pack<T>*>(p)[1];
+#pragma unroll
+  for (int e = 0; e < V; ++e) v[e] = lo.e[e], v[V + e] = hi.e[e];
+}
+
+// ---- C2 "smem" ----
+// RT rows a tile (32, or 16 or 8 where the batch would not fill the card):
+// lane l of a warp on row l % RT of the tile and its S = 32 / RT output
+// groups; GS = 256 / RT lanes a row in the staging and the row pass.
+template <typename T, int RT>
+__global__ void __launch_bounds__(kThreads, 3) c2_kernel_smem(const C2Args a, const C2Plan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ double s_share[RT][4];
+  __shared__ double s_blk[4];
+  constexpr int KO = 32 / sizeof(T);  // outputs a thread's micro-tile
+  constexpr int S = 32 / RT, GS = kThreads / RT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int B = a.B, nx = a.nx, nc = a.nc;
+  const int ncx_pad = p.ncx_pad, nx_pad = p.nx_pad, vl = p.vec_ld | 1, ol = p.out_ld | 1;
+  const bool certs = a.certs;
+  T* cxt = reinterpret_cast<T*>(smem_raw);  // [A; H]', nx x ncx_pad
+  T* al = cxt + (size_t)nx * ncx_pad;       // A, nc x nx_pad
+  T* region = reinterpret_cast<T*>(
+      smem_raw + round_up(((long)nx * ncx_pad + (long)nc * nx_pad) * sizeof(T), 16));
+  T* vec = region;                          // RT rows of vl
+  T* outs = vec + (size_t)RT * vl;          // RT rows of ol
+  const C2Ctx c = c2_ctx(a);
+  stamp(a.stamps, S_START);
+  if ((int)blockIdx.x * RT < B) {
+    // H and A: a flat 16-byte copy into the tiles' space, then laid out
+    // with consecutive outputs contiguous
+    T* flat = region;  // A (nc x nx), then H (nx x nx): the rows of [A; H]
+    copy_async(flat, static_cast<const T*>(a.A), (long)nc * nx, threadIdx.x, kThreads);
+    copy_async(flat + (size_t)nc * nx, static_cast<const T*>(a.H), (long)nx * nx, threadIdx.x,
+               kThreads);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    for (int k = warp; k < nx; k += kWarps)
+      for (int o = lane; o < ncx_pad; o += 32)
+        cxt[(size_t)k * ncx_pad + o] = o < p.ncx ? flat[(size_t)o * nx + k] : T(0);
+    for (int i = warp; i < nc; i += kWarps)
+      for (int j = lane; j < nx_pad; j += 32)
+        al[(size_t)i * nx_pad + j] = j < nx ? flat[(size_t)i * nx + j] : T(0);
+  }
+  // the tasks: KO-wide output groups of [A; H] (x, and dx; nx steps
+  // each), then of A' (lam, and dlam; nc steps). Dealt longest first, each
+  // to the least-loaded of the 8 S slots (warp, sub), the lowest on a tie:
+  // every thread makes the same deal and keeps its slot's tasks.
+  const int n_gx = ncx_pad / KO, n_gl = nx_pad / KO, o3 = nc + 2 * nx;
+  constexpr int NS = kWarps * S, kMaxMine = 48;  // (ample: at most 25 a slot fit 200 KB)
+  __shared__ short s_deal[NS][kMaxMine];
+  __shared__ int s_nmine[NS];
+  if (warp == 0) {
+    // lane s is slot s; each task to the least (load, slot) by a warp min
+    const bool x_first = nx >= nc;
+    unsigned load = 0;
+    int n = 0;
+    for (int q = 0; q < n_gx + n_gl; ++q) {
+      const int task = x_first ? q : (q < n_gl ? n_gx + q : q - n_gl);
+      unsigned long long key =
+          lane < NS ? ((unsigned long long)load << 32) | (unsigned)lane : ~0ull;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const unsigned long long k2 = __shfl_xor_sync(0xffffffffu, key, o);
+        key = k2 < key ? k2 : key;
+      }
+      if ((int)(key & 0xffffffffu) == lane) {
+        load += task < n_gx ? nx : nc;
+        if (n < kMaxMine) s_deal[lane][n] = (short)task;
+        ++n;
+      }
+    }
+    if (lane < NS && n > kMaxMine) __trap();  // (no operand the regime takes gets here)
+    if (lane < NS) s_nmine[lane] = n;
+  }
+  __syncthreads();
+  const int my_slot = warp * S + lane / RT;
+  const int n_mine = s_nmine[my_slot];
+  const short* mine = s_deal[my_slot];
+  double blk[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int tile = blockIdx.x; tile * RT < B; tile += gridDim.x) {
+    const int r0 = tile * RT;
+    __syncthreads();  // the layout is done, the previous tile read
+    {
+      const int r = threadIdx.x / GS, gl = threadIdx.x % GS;
+      if (r0 + r < B) stage_copy<T, GS>(a, r0 + r, vec + (size_t)r * vl, gl);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      if (r0 + r < B) stage_fix<T, GS>(a, c, r0 + r, vec + (size_t)r * vl, gl);
+    }
+    __syncthreads();
+    stamp(a.stamps, S_STAGED);
+    {
+      const int row = lane % RT;
+      const T* v = vec + (size_t)row * vl;
+      T* o_row = outs + (size_t)row * ol;
+      for (int mi = 0; mi < n_mine; ++mi) {
+        const int task = mine[mi];
+        const bool xs = task < n_gx;
+        const int g0 = (xs ? task : task - n_gx) * KO;
+        const T* coef = xs ? cxt + g0 : al + g0;
+        const int ld = xs ? ncx_pad : nx_pad, n = xs ? nx : nc;
+        const T* u = v + (xs ? 0 : nx + nc);
+        const T* du = v + (xs ? nx + 2 * nc : 2 * nx + 2 * nc);
+        T acc[KO], dacc[KO];
+#pragma unroll
+        for (int e = 0; e < KO; ++e) acc[e] = dacc[e] = T(0);
+        if (certs) {
+          for (int k = 0; k < n; ++k) {
+            T w[KO];
+            load_pack(coef + (size_t)k * ld, w);
+            const T uk = u[k], dk = du[k];
+#pragma unroll
+            for (int e = 0; e < KO; ++e) {
+              acc[e] = fma_t(w[e], uk, acc[e]);
+              dacc[e] = fma_t(w[e], dk, dacc[e]);
+            }
+          }
+        } else {
+#pragma unroll 2
+          for (int k = 0; k < n; ++k) {
+            T w[KO];
+            load_pack(coef + (size_t)k * ld, w);
+            const T uk = u[k];
+#pragma unroll
+            for (int e = 0; e < KO; ++e) acc[e] = fma_t(w[e], uk, acc[e]);
+          }
+        }
+        // [A x | H x] at g0..., A'lam at nc + nx + g0...
+        const int base = xs ? g0 : nc + nx + g0, lim = xs ? p.ncx : nx;
+#pragma unroll
+        for (int e = 0; e < KO; ++e) {
+          if (g0 + e < lim) {
+            o_row[base + e] = acc[e];
+            if (certs) o_row[o3 + base + e] = dacc[e];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    stamp(a.stamps, S_PRODUCTS);
+    {
+      const int r = threadIdx.x / GS, gl = threadIdx.x % GS;
+      const Share sh = row_pass<T, GS>(a, c, r0 + r, r0 + r < B, vec + (size_t)r * vl,
+                                       outs + (size_t)r * ol, gl);
+      if (gl == 0) {
+        s_share[r][0] = sh.logr, s_share[r][1] = sh.logres;
+        s_share[r][2] = sh.act, s_share[r][3] = sh.open;
+      }
+    }
+    __syncthreads();
+    stamp(a.stamps, S_ROWS);
+    if (warp == 0) {
+      // the tile's rows (one butterfly), then the tiles in order
+#pragma unroll
+      for (int j = 0; j < 4; ++j) blk[j] += warp_sum(lane < RT ? s_share[lane][j] : 0.0);
+    }
+  }
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_blk[j] = blk[j];
+  c2_close<T>(a, c, p.n_parts, blockIdx.x, s_blk);
+}
+
+// ---- C2 "stream" ----
+template <typename T>
+__global__ void __launch_bounds__(kStreamWarps * 32) c2_kernel_stream(const C2Args a,
+                                                                      const C2Plan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ double s_warp[kStreamWarps][4];
+  __shared__ double s_blk[4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int B = a.B, nx = a.nx, nc = a.nc, ncx = p.ncx, o3 = nc + 2 * nx;
+  const bool certs = a.certs;
+  const long rest = round_up((long)(p.vec_ld + p.out_ld) * p.elt, 16) / p.elt;
+  const long per_warp = (long)p.nbuf * p.ha + rest;
+  T* base = reinterpret_cast<T*>(smem_raw) + (size_t)warp * per_warp;
+  T* vec = base + (size_t)p.nbuf * p.ha;
+  T* out = vec + p.vec_ld;
+  const C2Ctx c = c2_ctx(a);
+  stamp(a.stamps, S_START);
+  const T* Hg = static_cast<const T*>(a.H);
+  const T* Ag = static_cast<const T*>(a.A);
+  // row b's A (nc x nx), then H (nx x nx), into buf
+  auto fetch = [&](int b, T* buf) {
+    copy_async(buf, Ag + (a.a_per ? (size_t)b * nc * nx : 0), (long)nc * nx, lane, 32);
+    copy_async(buf + (size_t)nc * nx, Hg + (a.h_per ? (size_t)b * nx * nx : 0), (long)nx * nx,
+               lane, 32);
+  };
+  const int n_warps = gridDim.x * p.warps;
+  double acc4[4] = {0.0, 0.0, 0.0, 0.0};
+  int b = blockIdx.x * p.warps + warp;
+  if (b < B) fetch(b, base);
+  cp_commit();
+  for (int it = 0; b < B; ++it, b += n_warps) {
+    T* cur = base + (size_t)(p.nbuf > 1 ? (it & 1) : 0) * p.ha;
+    const int nb = b + n_warps;
+    stage_copy<T, 32>(a, b, vec, lane);
+    cp_commit();
+    // the next row's operand in flight during this row (two buffers)
+    if (p.nbuf > 1 && nb < B) fetch(nb, base + (size_t)((it + 1) & 1) * p.ha);
+    cp_commit();
+    cp_wait<1>();
+    __syncwarp();
+    stage_fix<T, 32>(a, c, b, vec, lane);
+    __syncwarp();
+    stamp(a.stamps, S_STAGED);
+    // a lane per output: the rows of [A; H] (x, and dx), then the columns
+    // of A (lam, and dlam), each one chain in contraction order
+    const T* Am = cur;
+    const T* Hm = cur + (size_t)nc * nx;
+    for (int t = lane; t < ncx + nx; t += 32) {
+      T s = T(0), ds = T(0);
+      if (t < ncx) {
+        const T* m = t < nc ? Am + (size_t)t * nx : Hm + (size_t)(t - nc) * nx;
+        const T* dxv = vec + nx + 2 * nc;
+        if (certs) {
+          for (int k = 0; k < nx; ++k) s = fma_t(m[k], vec[k], s), ds = fma_t(m[k], dxv[k], ds);
+        } else {
+#pragma unroll 4
+          for (int k = 0; k < nx; ++k) s = fma_t(m[k], vec[k], s);
+        }
+        out[t] = s;
+        if (certs) out[o3 + t] = ds;
+      } else {
+        const int j = t - ncx;
+        const T* lv = vec + nx + nc;
+        const T* dlv = vec + 2 * nx + 2 * nc;
+        if (certs) {
+          for (int i = 0; i < nc; ++i) {
+            const T w = Am[(size_t)i * nx + j];
+            s = fma_t(w, lv[i], s), ds = fma_t(w, dlv[i], ds);
+          }
+        } else {
+#pragma unroll 4
+          for (int i = 0; i < nc; ++i) s = fma_t(Am[(size_t)i * nx + j], lv[i], s);
+        }
+        out[nc + nx + j] = s;
+        if (certs) out[o3 + nc + nx + j] = ds;
+      }
+    }
+    __syncwarp();
+    stamp(a.stamps, S_PRODUCTS);
+    const Share sh = row_pass<T, 32>(a, c, b, true, vec, out, lane);
+    acc4[0] += sh.logr, acc4[1] += sh.logres, acc4[2] += sh.act, acc4[3] += sh.open;
+    __syncwarp();
+    stamp(a.stamps, S_ROWS);
+    // one buffer: the next row's copy waits for this row's products
+    if (p.nbuf == 1 && nb < B) fetch(nb, cur);
+  }
+  cp_wait<0>();
+  if (lane == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_warp[warp][j] = acc4[j];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double q[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int w = 0; w < p.warps; ++w)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[j] += s_warp[w][j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_blk[j] = q[j];
+  }
+  c2_close<T>(a, c, p.n_parts, blockIdx.x, s_blk);
+}
+
+// ---- C2 "tiles" ----
+
+// The row tile's decisions, by its last block (G lanes a row), then the
+// grid's ticket.
+template <typename T, int G>
+__device__ void tiles_rows(const C2Args& a, const C2Ctx& c, const C2Plan& p, int rt, int nr,
+                           const T* vec, const T* outs) {
+  __shared__ double s_share[kThreads / 8][4];
+  __shared__ double s_blk[4];
+  const int vl = p.vec_ld | 1;
+  const int gl = threadIdx.x % G, r = threadIdx.x / G;
+  const bool valid = r < nr;
+  const int rr = valid ? r : 0;
+  const Share sh = row_pass<T, G>(a, c, rt * p.rows + r, valid, vec + (size_t)rr * vl,
+                                  outs + (size_t)rr * p.out_ld, gl);
+  if (gl == 0 && valid) {
+    s_share[r][0] = sh.logr, s_share[r][1] = sh.logres;
+    s_share[r][2] = sh.act, s_share[r][3] = sh.open;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double q[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int i = 0; i < nr; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[j] += s_share[i][j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_blk[j] = q[j];
+  }
+  stamp(a.stamps, S_ROWS);
+  c2_close<T>(a, c, p.n_parts, rt, s_blk);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, const C2Plan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int B = a.B, nx = a.nx, nc = a.nc, R = p.rows, o3 = nc + 2 * nx;
+  const int vl = p.vec_ld | 1;
+  const bool certs = a.certs;
+  const int rt = blockIdx.y, ot = blockIdx.x;
+  const int r0 = rt * R, nr = min(R, B - r0);
+  T* vec = reinterpret_cast<T*>(smem_raw);  // R rows of vl
+  // the A' segments, then the tile's products (rows of out_ld)
+  T* work = reinterpret_cast<T*>(smem_raw + round_up((long)R * vl * sizeof(T), 16));
+  T* wbuf = reinterpret_cast<T*>(smem_raw + p.smem) - (size_t)kWarps * kTilesBuf;
+  const C2Ctx c = c2_ctx(a);
+  stamp(a.stamps, S_START);
+  // every row of the tile's vectors (a warp a row)
+  for (int r = warp; r < nr; r += kWarps) stage_copy<T, 32>(a, r0 + r, vec + (size_t)r * vl, lane);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  for (int r = warp; r < nr; r += kWarps)
+    stage_fix<T, 32>(a, c, r0 + r, vec + (size_t)r * vl, lane);
+  __syncthreads();
+  stamp(a.stamps, S_STAGED);
+  T* outs_g = reinterpret_cast<T*>(a.part + p.outs_at);
+  // a warp's coefficients, copied in with cp.async (all in flight at once)
+  T* wb = wbuf + (size_t)warp * kTilesBuf;
+  if (ot < p.n_cxt) {
+    // a warp per output row o of [A; H]: lanes along the contraction, each
+    // coefficient read once for every row of the tile
+    const int o = ot * kWarps + warp;
+    if (o < p.ncx) {
+      const T* m = o < nc ? static_cast<const T*>(a.A) + (a.a_per ? (size_t)r0 * nc * nx : 0) +
+                                (size_t)o * nx
+                          : static_cast<const T*>(a.H) + (a.h_per ? (size_t)r0 * nx * nx : 0) +
+                                (size_t)(o - nc) * nx;
+      T acc[kMaxTilesRows], dacc[kMaxTilesRows];
+#pragma unroll
+      for (int r = 0; r < kMaxTilesRows; ++r) acc[r] = dacc[r] = T(0);
+      for (int kc = 0; kc < nx; kc += kTilesBuf) {
+        const int nk = min(kTilesBuf, nx - kc);
+        for (int q = lane; q < nk; q += 32) cp_elem(wb + q, m + kc + q);
+        cp_commit();
+        cp_wait<0>();
+        __syncwarp();
+        // the lane's k = lane, lane + 32, ... in order
+        for (int q = lane; q < nk; q += 32) {
+          const T w = wb[q];
+          const int k = kc + q;
+#pragma unroll
+          for (int r = 0; r < kMaxTilesRows; ++r) {
+            if (r < nr) {
+              acc[r] = fma_t(w, vec[(size_t)r * vl + k], acc[r]);
+              if (certs) dacc[r] = fma_t(w, vec[(size_t)r * vl + nx + 2 * nc + k], dacc[r]);
+            }
+          }
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxTilesRows; ++r) {
+        if (r < nr) {
+          const T s = warp_sum(acc[r]);
+          const T ds = certs ? warp_sum(dacc[r]) : T(0);
+          if (lane == r) {
+            T* og = outs_g + (size_t)(r0 + r) * p.out_ld;
+            og[o] = s;
+            if (certs) og[o3 + o] = ds;
+          }
+        }
+      }
+    }
+  } else {
+    // 32 columns j of A' (a lane each), the warps on 32-row segments of
+    // the contraction, the segments' sums added in segment order
+    const int j0 = (ot - p.n_cxt) * 32, j = j0 + lane;
+    const int lsegs = (nc + 31) / 32, nd = certs ? 2 : 1;
+    const T* Am = static_cast<const T*>(a.A) + (a.a_per ? (size_t)r0 * nc * nx : 0);
+    T* seg = work;  // [lsegs][nd][R][32]
+    for (int sg = warp; sg < lsegs; sg += kWarps) {
+      const int i0 = sg * 32, ni = min(nc - i0, 32);
+      // the segment: rows i0 ... of A's columns j0 ... j0 + 31, row by row
+      for (int q = lane; q < ni * 32; q += 32) {
+        const int i = q >> 5;
+        if (j < nx) cp_elem(wb + q, Am + (size_t)(i0 + i) * nx + j);
+      }
+      cp_commit();
+      cp_wait<0>();
+      __syncwarp();
+      T acc[kMaxTilesRows], dacc[kMaxTilesRows];
+#pragma unroll
+      for (int r = 0; r < kMaxTilesRows; ++r) acc[r] = dacc[r] = T(0);
+      if (j < nx) {
+        for (int q = 0; q < ni; ++q) {
+          const T w = wb[q * 32 + lane];
+          const int i = i0 + q;
+#pragma unroll
+          for (int r = 0; r < kMaxTilesRows; ++r) {
+            if (r < nr) {
+              acc[r] = fma_t(w, vec[(size_t)r * vl + nx + nc + i], acc[r]);
+              if (certs) dacc[r] = fma_t(w, vec[(size_t)r * vl + 2 * nx + 2 * nc + i], dacc[r]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < kMaxTilesRows; ++r) {
+        if (r < nr) {
+          seg[(((size_t)sg * nd) * R + r) * 32 + lane] = acc[r];
+          if (certs) seg[(((size_t)sg * nd + 1) * R + r) * 32 + lane] = dacc[r];
+        }
+      }
+    }
+    __syncthreads();
+    for (int q = warp; q < nr * nd; q += kWarps) {
+      const int r = q % nr, d = q / nr;
+      if (j < nx) {
+        T s = seg[((size_t)d * R + r) * 32 + lane];
+        for (int sg = 1; sg < lsegs; ++sg)
+          s = add_rn(s, seg[(((size_t)sg * nd + d) * R + r) * 32 + lane]);
+        outs_g[(size_t)(r0 + r) * p.out_ld + (d ? o3 : 0) + nc + nx + j] = s;
+      }
+    }
+  }
+  __syncthreads();
+  stamp(a.stamps, S_PRODUCTS);
+  // the row tile's last block takes its rows' decisions
+  if (!ticket(a.tick + 2 + rt, p.n_cxt + p.n_lt)) return;
+  // the tile's rows' products, contiguous in scratch: one flat copy
+  T* outs = work;
+  {
+    const T* src = outs_g + (size_t)r0 * p.out_ld;
+    const long n = (long)nr * p.out_ld;
+    constexpr int V = 16 / sizeof(T);
+    const long nv = ((uintptr_t)src % 16 == 0 && (uintptr_t)outs % 16 == 0) ? n / V : 0;
+#pragma unroll 8
+    for (long q = threadIdx.x; q < nv; q += kThreads) {
+      const float4 w = __ldcg(reinterpret_cast<const float4*>(src) + q);
+      reinterpret_cast<float4*>(outs)[q] = w;
+    }
+    for (long i = nv * V + threadIdx.x; i < n; i += kThreads) outs[i] = __ldcg(src + i);
+  }
+  __syncthreads();
+  tiles_rows<T, 16>(a, c, p, rt, nr, vec, outs);
 }
 
 // The shared walk's re-encode of p for the rung C2 decided (alpha != 1):
@@ -1015,18 +1759,47 @@ __global__ void __launch_bounds__(kThreads) c2_reencode(const C2Args a) {
   }
 }
 
+int sm_count() {
+  int dev, nsm = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  return nsm;
+}
+
+// A C2 kernel's dynamic shared memory for this launch, and the largest
+// shared-memory carveout, so that the plan's blocks an SM fit at once.
+template <typename K>
+cudaError_t smem_attr(K kernel, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+  if (e || smem <= 48 * 1024) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 template <typename T>
 cudaError_t c2_launch(const C2Args& a, cudaStream_t stream, int* launches) {
-  int dev, nsm;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e) return e;
-  if ((e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev))) return e;
+  const int nsm = sm_count();
   const C2Plan p = c2_plan(a, nsm);
-  if (p.smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(c2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                p.smem)))
-    return e;
-  c2_kernel<T><<<p.grid, kThreads, p.smem, stream>>>(a, p);
+  cudaError_t e;
+  if (p.smem > kSmemSM) return cudaErrorInvalidValue;
+  if (p.regime == R_SMEM) {
+    if (p.rows == 32) {
+      if ((e = smem_attr(c2_kernel_smem<T, 32>, p.smem))) return e;
+      c2_kernel_smem<T, 32><<<p.grid, kThreads, p.smem, stream>>>(a, p);
+    } else if (p.rows == 16) {
+      if ((e = smem_attr(c2_kernel_smem<T, 16>, p.smem))) return e;
+      c2_kernel_smem<T, 16><<<p.grid, kThreads, p.smem, stream>>>(a, p);
+    } else {
+      if ((e = smem_attr(c2_kernel_smem<T, 8>, p.smem))) return e;
+      c2_kernel_smem<T, 8><<<p.grid, kThreads, p.smem, stream>>>(a, p);
+    }
+  } else if (p.regime == R_STREAM) {
+    if ((e = smem_attr(c2_kernel_stream<T>, p.smem))) return e;
+    c2_kernel_stream<T><<<p.grid, p.threads, p.smem, stream>>>(a, p);
+  } else {
+    if ((e = smem_attr(c2_kernel_tiles<T>, p.smem))) return e;
+    c2_kernel_tiles<T><<<dim3(p.n_cxt + p.n_lt, p.n_rt), kThreads, p.smem, stream>>>(a, p);
+  }
   if ((e = cudaGetLastError())) return e;
   *launches = 1;
   if (a.adaptive && a.shared && a.alpha && a.B > 0) {
@@ -1128,31 +1901,40 @@ cudaError_t walk_graph(cudaGraph_t g, char* buf, int len, int& pos) {
 
 extern "C" {
 
-// The scratch doubles c1_check's launch takes for these arguments.
-int c1_part_size(const C1Args* a) {
-  Seg segs[kMaxSeg];
-  int part;
-  c1_segments(*a, segs, &part);
-  return part > 0 ? part : 1;
-}
-
-// One launch of C1 on `stream` (a's part: c1_part_size doubles). Returns
-// cudaError_t.
+// One launch of C1 on `stream`: one cluster. Returns cudaError_t.
 int c1_check(const C1Args* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->dp < 1 || a->nx < 1 || a->nc < 1 || a->n_rho < 1 || !a->part || !a->tick)
-    return (int)cudaErrorInvalidValue;
+  if (a->dp < 1 || a->nx < 1 || a->nc < 1 || a->n_rho < 1) return (int)cudaErrorInvalidValue;
   if (a->dtype == DT_F32) return (int)c1_launch<float>(*a, st);
   if (a->dtype == DT_F64) return (int)c1_launch<double>(*a, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The scratch doubles c2_check's launch takes (four per block).
+// The scratch doubles c2_check's launch takes: four per block (per row
+// tile in "tiles", with the rows' products after them).
 int c2_part_size(const C2Args* a) {
-  int dev, nsm = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  return 4 * c2_plan(*a, nsm).grid;
+  const C2Plan p = c2_plan(*a, sm_count());
+  long n = 4L * p.n_parts;
+  if (p.regime == R_TILES) n = p.outs_at + ((long)a->B * p.out_ld * p.elt + 7) / 8;
+  return (int)n;
+}
+
+// The ticket ints c2_check's launch takes (zeroed once; every launch
+// leaves them so): the grid's ticket, the shared walk's old rung, and one
+// per row tile in "tiles".
+int c2_tick_size(const C2Args* a) {
+  const C2Plan p = c2_plan(*a, sm_count());
+  return 2 + (p.regime == R_TILES ? p.n_rt : 0);
+}
+
+// c2_check's plan into out[0..8): the regime (0 "smem", 1 "stream",
+// 2 "tiles"), rows a tile, lanes a row in the row pass, threads a block,
+// blocks, dynamic shared memory bytes, warps a block ("stream"), operand
+// buffers a warp ("stream").
+void c2_plan_of(const C2Args* a, int* out) {
+  const C2Plan p = c2_plan(*a, sm_count());
+  const int v[8] = {p.regime, p.rows, p.group, p.threads, p.grid, p.smem, p.warps, p.nbuf};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
 // C2 on `stream`: one launch, or two where the shared walk re-encodes p

@@ -42,7 +42,7 @@ __all__ = [
     "compute_residuals_op", "rho_ladder_step", "batched_residuals",
     "batched_infeasibility_certificates", "check_window_ref",
     "check_window", "batched_check_ref", "batched_check", "graph_kernels",
-    "STAMP_STAGES", "stage_split",
+    "batched_check_plan", "STAMP_STAGES", "stage_split",
 ]
 
 _TINY = 1e-30
@@ -500,8 +500,7 @@ class _C1Args(ctypes.Structure):
         "y_in", "m_res", "g_row", "H", "A", "g", "lo", "hi", "w_pri",
         "w_dua", "rhos", "rho_eff", "y", "rho_ind", "rho", "k", "status",
         "pri", "dua", "open", "tail", "x_prev", "lam_prev", "open_a",
-        "best_p", "best_d", "n_stall", "k_fast", "part", "tick",
-        "stamps")] + [
+        "best_p", "best_d", "n_stall", "k_fast", "stamps")] + [
         (n, _I) for n in (
             "dp", "nx", "nc", "nxp", "ncp", "n_rho", "n_steps", "tail_mode",
             "phase_a", "adaptive", "jump", "stride", "ci", "budget", "cap_a",
@@ -535,13 +534,16 @@ def _lib():
     if not getattr(lib, "_cw_typed", False):
         lib.c1_check.argtypes = [ctypes.POINTER(_C1Args), _P]
         lib.c1_check.restype = _I
-        lib.c1_part_size.argtypes = [ctypes.POINTER(_C1Args)]
-        lib.c1_part_size.restype = _I
         lib.c2_check.argtypes = [ctypes.POINTER(_C2Args), _P,
                                  ctypes.POINTER(_I)]
         lib.c2_check.restype = _I
         lib.c2_part_size.argtypes = [ctypes.POINTER(_C2Args)]
         lib.c2_part_size.restype = _I
+        lib.c2_tick_size.argtypes = [ctypes.POINTER(_C2Args)]
+        lib.c2_tick_size.restype = _I
+        lib.c2_plan_of.argtypes = [ctypes.POINTER(_C2Args),
+                                   ctypes.POINTER(_I)]
+        lib.c2_plan_of.restype = None
         lib.cw_graph_kernels.argtypes = [_P, ctypes.c_char_p, _I]
         lib.cw_graph_kernels.restype = _I
         lib.cw_error_string.argtypes = [_I]
@@ -598,9 +600,6 @@ def _c1_launch(st, op, cfg, y, n_steps, phase):
     mres = op.M_res is not None
     if mres and cfg.alpha != 1.0:
         raise ValueError("C1: M_res needs alpha = 1")
-    if st.tick is None:
-        raise ValueError("C1: the state has no tick buffer "
-                         "(core.iteration.state_buffers makes it)")
     dp, nx, nc = y.shape[0], cfg.nx, cfg.nc
     nxp, ncp = pad_dim(nx), pad_dim(nc)
     _need("C1", dev, dt, y=y, y_out=st.y,
@@ -620,7 +619,7 @@ def _c1_launch(st, op, cfg, y, n_steps, phase):
           best_d=st.best_d if phase == "A" else None)
     _need("C1", dev, i32, rho_ind=st.rho_ind, k=st.k,
           status=st.status, open=st.open,
-          tail=st.tail, tick=st.tick,
+          tail=st.tail,
           open_a=st.open_a if phase == "A" else None,
           n_stall=st.n_stall if phase == "A" else None,
           k_fast=st.k_fast if phase == "A" else None)
@@ -645,17 +644,13 @@ def _c1_launch(st, op, cfg, y, n_steps, phase):
         lam_prev=_ptr(st.lam_prev) if certs else None,
         open_a=_ptr(st.open_a), best_p=_ptr(st.best_p),
         best_d=_ptr(st.best_d), n_stall=_ptr(st.n_stall),
-        k_fast=_ptr(st.k_fast), part=None, tick=st.tick.data_ptr(),
-        stamps=_ptr(check_window.stamps),
+        k_fast=_ptr(st.k_fast), stamps=_ptr(check_window.stamps),
         dp=dp, nx=nx, nc=nc, nxp=nxp, ncp=ncp, n_rho=op.rhos.shape[0],
         n_steps=int(n_steps), tail_mode=int(tail), phase_a=int(phase == "A"),
         **_settings(cfg, dt))
     if tail:
         a.adaptive = a.certs = 0
     lib = _lib()
-    part = torch.empty((lib.c1_part_size(ctypes.byref(a)),),
-                       dtype=torch.float64, device=dev)
-    a.part = part.data_ptr()
     rc = lib.c1_check(ctypes.byref(a),
                       torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -676,7 +671,7 @@ def check_window(st, op, cfg, y, n_steps: int, phase: str) -> None:
 
 
 check_window.launches = 0
-# an int64 (8,) tensor on the card, or None: the kernel's stage stamps
+# an int64 (7,) tensor on the card, or None: the kernel's stage stamps
 # (`stage_split`); None on every solve path
 check_window.stamps = None
 
@@ -685,7 +680,9 @@ def _count_check_window():
     check_window.launches += 1
 
 
-def _c2_launch(st, op, cfg, Y, n_steps, phase):
+def _c2_args(st, op, cfg, Y, n_steps, phase) -> _C2Args:
+    """C2's launch arguments for this window (``part`` still unset), the
+    tensors checked."""
     dev, dt = Y.device, Y.dtype
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"C2: state dtype {dt} is not float32/float64")
@@ -751,7 +748,37 @@ def _c2_launch(st, op, cfg, Y, n_steps, phase):
         reff_per=int(alpha and op.rho_eff.dim() == 3),
         shared=int(cfg.shared), n_steps=int(n_steps), phase_a=int(phase_a),
         stop_open=int(cfg.stop_open), **_settings(cfg, dt))
+    return a
+
+
+_C2_REGIMES = ("smem", "stream", "tiles")
+
+
+def batched_check_plan(st, op, cfg, Y, n_steps: int = 1,
+                       phase: str = "") -> dict:
+    """The shape C2 takes for this window on the card: its regime
+    ("smem", "stream" or "tiles"), rows a tile, lanes a row in the row
+    pass, threads a block, blocks, dynamic shared memory, and in "stream"
+    warps a block and operand buffers a warp."""
     lib = _lib()
+    out = (_I * 8)()
+    with device_guard(Y.device):
+        lib.c2_plan_of(ctypes.byref(_c2_args(st, op, cfg, Y, n_steps, phase)),
+                       out)
+    keys = ("regime", "rows", "group", "threads", "blocks", "smem",
+            "warps", "buffers")
+    plan = dict(zip(keys, list(out)))
+    plan["regime"] = _C2_REGIMES[plan["regime"]]
+    return plan
+
+
+def _c2_launch(st, op, cfg, Y, n_steps, phase):
+    dev = Y.device
+    a = _c2_args(st, op, cfg, Y, n_steps, phase)
+    lib = _lib()
+    if st.tick.numel() < lib.c2_tick_size(ctypes.byref(a)):
+        raise ValueError("C2: the state's tick buffer is too short "
+                         "(core.batched's state buffers size it)")
     part = torch.empty((lib.c2_part_size(ctypes.byref(a)),),
                        dtype=torch.float64, device=dev)
     a.part = part.data_ptr()
@@ -787,7 +814,9 @@ def _count_batched_check():
 
 
 # the stage boundaries a stamped launch records, in order (slot 0: the
-# earliest block's start; ``csrc/check_window.cu``'s S_* slots)
+# earliest block's start; ``csrc/check_window.cu``'s S_* slots): the
+# vectors staged, the products formed, C2's row pass done, the ticket
+# passed (C1: its cluster barrier), the partials reduced, the state written
 STAMP_STAGES = ("staged", "products", "rows", "ticket", "reduced", "written")
 
 
@@ -798,7 +827,7 @@ def stage_split(run, kernel, reps: int = 20) -> dict:
     ``STAMP_STAGES`` that the kernel stamps, the mean µs from the earliest
     block's start to the latest block's pass of that boundary."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    stamps = torch.zeros(len(STAMP_STAGES) + 2, dtype=torch.int64,
+    stamps = torch.zeros(len(STAMP_STAGES) + 1, dtype=torch.int64,
                          device=dev)
     sums, seen = [0.0] * len(STAMP_STAGES), [0] * len(STAMP_STAGES)
     kernel.stamps = stamps

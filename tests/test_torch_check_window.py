@@ -504,3 +504,27 @@ def test_batched_check_writes_the_plain_state_on_cpu(name):
         b = getattr(ref, f)
         if a is not None and f not in ("ctl", "tick"):
             assert torch.equal(a, torch.as_tensor(b).to(a.dtype)), f
+
+
+@pytest.mark.parametrize("nx,nc", [(30, 16), (100, 50), (200, 200)])
+def test_residual_operator_nonzeros_lie_in_its_column_blocks(nx, nc):
+    """Kernel C1 sums each column block of M_res over the rows where
+    ``build_residual_operator`` puts its nonzeros only (A x and H x: the x
+    rows, z: the z rows, Aᵀλ: the λ rows); every other entry is zero."""
+    from reluqp_tpu_torch.ops.solve_kernel import build_residual_operator
+    rng = np.random.RandomState(nx)
+    H = rng.randn(nx, nx)
+    A = rng.randn(nc, nx)
+    dp = pad_dim(nx + 2 * nc)
+    M, _, nxp, ncp = build_residual_operator(
+        H, A, rng.randn(nx), dp, torch.float64, w_pri=rng.rand(nc) + 0.5,
+        w_dua=rng.rand(nx) + 0.5)
+    M = M.numpy()
+    blocks = [(0, ncp, 0, nx), (ncp, 2 * ncp, nx, nx + nc),
+              (2 * ncp, 2 * ncp + nxp, 0, nx),
+              (2 * ncp + nxp, 2 * ncp + 2 * nxp, nx + nc, nx + 2 * nc)]
+    assert M.shape == (dp, blocks[-1][1])
+    outside = np.ones_like(M, dtype=bool)
+    for c0, c1, r0, r1 in blocks:
+        outside[r0:r1, c0:c1] = False
+    assert not M[outside].any()

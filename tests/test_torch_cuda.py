@@ -1015,3 +1015,133 @@ def test_c2_matches_plain_version(dev, monkeypatch, kw):
             precision="float64", eps_abs=1e-6, **kw)
     recs, clone = _recorded_checks(m, monkeypatch)
     _kernel_against_plain(recs, clone)
+
+
+# The redesigned C1 (one cluster) and C2 (three regimes) at the main
+# paths' shapes and at the edges of C2's regimes, fp64: every decision
+# equal to the plain version's, residuals within its rounding.
+
+def _shared_qp_batch(B, nx, seed=0):
+    """B right-hand sides around one rand_qp(nx, nx/4, nx/4)."""
+    rng = np.random.RandomState(seed)
+    qp = rand_qp(nx, nx // 4, nx // 4, seed=seed, compute_sol=False)
+    G = qp.g[None] + 0.3 * rng.randn(B, nx)
+    return qp.H, G, qp.A, np.tile(qp.l, (B, 1)), np.tile(qp.u, (B, 1))
+
+
+def _c2_plan_of(m, monkeypatch):
+    """The C2 plan of ``m``'s first recorded window, and the records."""
+    from reluqp_tpu_torch.ops.check_window import batched_check_plan
+    recs, clone = _recorded_checks(m, monkeypatch)
+    kind, st, op, cfg, y, n, phase = recs[0]
+    return batched_check_plan(st, op, cfg, y, n, phase), recs, clone
+
+
+@pytest.mark.parametrize("case,regime", [
+    ("shared B=1", "smem"), ("shared B=31", "smem"),
+    ("shared B=33", "smem"), ("shared B=10000", "smem"),
+    ("scenario B=64", "tiles"), ("hetero B=1024", "stream"),
+    ("hetero B=16 certificates", "stream")])
+def test_c2_matches_plain_at_regime_edges(dev, monkeypatch, case, regime):
+    kw = dict(precision="float64", eps_abs=1e-6, max_iter=150)
+    if case.startswith("shared"):
+        data = _shared_qp_batch(int(case.split("=")[1]), 50)
+    elif case.startswith("scenario"):
+        data = _shared_qp_batch(64, 200)       # nx = nc = 200, Dp = 640
+    else:
+        B = int(case.split()[1].split("=")[1])
+        data = _hetero_batch(B, nx=50)
+        kw.update(bank_build="device")
+        if "certificates" in case:
+            kw.update(check_infeasibility=True, alpha=1.6)
+    m = rqt.BatchedReLU_QP()
+    m.setup(*data, **kw)
+    plan, recs, clone = _c2_plan_of(m, monkeypatch)
+    assert plan["regime"] == regime, plan
+    _kernel_against_plain(recs, clone)
+
+
+_ROW_STATE = ("Y", "rho", "pri", "dua", "done", "iters", "status",
+              "X_prev", "Lam_prev")
+
+
+def _rows_of(rec, idx):
+    """A recorded batched window restricted to the rows ``idx``, in that
+    order, with a fresh ticket buffer."""
+    kind, st, op, cfg, y, n, phase = rec
+    take = lambda t: None if t is None else t.index_select(0, idx) \
+        .contiguous()
+    d = {f: take(getattr(st, f)) for f in _ROW_STATE}
+    if st.rho_ind.dim() == 1:
+        d["rho_ind"] = take(st.rho_ind)
+    for f in ("k", "n_open", "open", "tail", "open_a", "best_m", "best_open",
+              "n_stall", "k_fast"):
+        v = getattr(st, f)
+        d[f] = None if v is None else v.clone()
+    d["tick"] = torch.zeros(idx.numel() + 2, dtype=torch.int32,
+                            device=y.device)
+    o = {f: take(getattr(op, f)) for f in ("lo", "hi")}
+    for f, nd in (("H", 3), ("A", 3), ("rho_eff", 3), ("G", 2),
+                  ("w_pri", 2), ("w_dua", 2)):
+        t = getattr(op, f)
+        if t is not None and t.dim() == nd:
+            o[f] = take(t)
+    return (kind, st._replace(ctl=None, **d), op._replace(**o), cfg,
+            take(y), n, phase)
+
+
+@pytest.mark.parametrize("regime", ["smem", "stream", "tiles"])
+def test_c2_rows_do_not_depend_on_the_batch(dev, monkeypatch, regime):
+    """Each row's results are the same bits in the batch, in the batch
+    reversed and in its first half: a row's sums depend on nx, nc, the
+    dtype and the regime only."""
+    from reluqp_tpu_torch.ops.check_window import batched_check
+    B = 40
+    kw = dict(precision="float64", eps_abs=1e-6, max_iter=100,
+              check_infeasibility=True)
+    if regime == "stream":
+        data = _hetero_batch(B, nx=50)
+        kw.update(rho_mode="per_problem")
+    else:   # fp64 [A; H] of nx = 100 outgrows a block's shared memory
+        data = _shared_qp_batch(B, 50 if regime == "smem" else 100)
+    m = rqt.BatchedReLU_QP()
+    m.setup(*data, **kw)
+    plan, recs, clone = _c2_plan_of(m, monkeypatch)
+    assert plan["regime"] == regime, plan
+    rec = next(r for r in recs if r[6] != "tail")
+    results = []
+    for idx in (torch.arange(B), torch.arange(B - 1, -1, -1),
+                torch.arange(B // 2)):
+        kind, st, op, cfg, y, n, phase = _rows_of(rec, idx.to(dev))
+        batched_check(st, op, cfg, y, n, phase)
+        torch.cuda.synchronize()
+        results.append((idx, st))
+    full = results[0][1]
+    fields = _ROW_STATE + (("rho_ind",) if full.rho_ind.dim() else ())
+    for idx, st in results[1:]:
+        for f in fields:
+            a = getattr(full, f).index_select(0, idx.to(dev))
+            assert torch.equal(a, getattr(st, f)), (regime, f)
+
+
+@pytest.mark.parametrize("nx,dp", [(60, 128), (300, 640), (500, 1024)])
+def test_c1_matches_plain_at_dp(dev, monkeypatch, nx, dp):
+    qp = rand_qp(nx, nx // 4, nx // 4, seed=1, compute_sol=False)
+    m = rqt.ReLU_QP()
+    m.setup(qp.H, qp.g, qp.A, qp.l, qp.u, precision="float64",
+            eps_abs=1e-6, max_iter=200, scaling=True)
+    assert m.Dp == dp
+    recs, clone = _recorded_checks(m, monkeypatch)
+    assert recs[0][4].shape[0] == dp
+    _kernel_against_plain(recs, clone)
+
+
+def test_c1_certificates_with_the_residual_operator(dev, monkeypatch):
+    # alpha = 1: y @ M_res for the residuals, H, A for the certificates
+    qp = rand_qp(300, 75, 75, seed=2, compute_sol=False)
+    m = rqt.ReLU_QP()
+    m.setup(qp.H, qp.g, qp.A, qp.l, qp.u, precision="float64",
+            eps_abs=1e-6, max_iter=200, check_infeasibility=True)
+    recs, clone = _recorded_checks(m, monkeypatch)
+    assert all(r[2].M_res is not None for r in recs)
+    _kernel_against_plain(recs, clone)
