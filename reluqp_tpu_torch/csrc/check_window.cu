@@ -53,11 +53,12 @@
 // - "tiles": everything else (the scenario's 320 KB operand, B = 1 at
 //   Dp = 896, per-problem operands too large for a warp). A grid of (row
 //   tile) x (output tile): a warp per output row of [A; H] with lanes along
-//   the contraction, 32 columns of A'lam a block with the warps on 32-row
-//   segments of the contraction, the coefficients copied into shared memory
-//   with cp.async and each applied to every row of the tile. Products go to
-//   scratch; the last block of each row tile (a per-row-tile ticket) takes
-//   that tile's rows' decisions.
+//   the contraction, or 32 columns of A'lam by one 32-row segment of the
+//   contraction with the warps on the tile's rows; the coefficients are
+//   copied into shared memory with cp.async and each applied to every row
+//   of the tile. Products and segment sums go to scratch; the last block of
+//   each row tile (a per-row-tile ticket) adds the segments in order and
+//   takes that tile's rows' decisions.
 // Every regime stages a row's vectors with cp.async. The grid's last block
 // (a ticket) sums the blocks' (row tiles') shares of the shared walk's log
 // rho and active count, the open count and phase A's log residuals in a
@@ -866,6 +867,8 @@ struct C2Plan {
   int warps, nbuf, ha;       // "stream": warps a block, buffers a warp, a buffer's elements
   int n_rt, n_cxt, n_lt;     // "tiles": row tiles, output tiles of [A; H] and of A'
   long outs_at;              // "tiles": where the products start in part (doubles)
+  long lpart_at;             // "tiles": where A'lam's segment sums start
+  int lpart_ld;              // "tiles": their rows' stride (whole 16-byte pieces)
 };
 
 // The regime and its shape for `nsm` SMs. The regime follows from nx, nc,
@@ -950,14 +953,11 @@ C2Plan c2_plan(const C2Args& a, int nsm) {
   p.rows = (a.h_per || a.a_per) ? 1 : (B < kMaxTilesRows ? B : kMaxTilesRows);
   p.group = 16;
   p.n_cxt = (p.ncx + kWarps - 1) / kWarps;
-  p.n_lt = (nx + 31) / 32;
   const long lsegs = (nc + 31) / 32;
+  p.n_lt = (int)(((nx + 31) / 32) * lsegs);
   for (;;) {  // fewer rows a tile where the tile does not fit
-    const long outs = (long)p.rows * p.out_ld;
-    const long segs = lsegs * (a.certs ? 2 : 1) * p.rows * 32;
     p.smem = (int)(round_up((long)p.rows * (p.vec_ld | 1) * elt, 16) +
-                   round_up((outs > segs ? outs : segs) * elt, 16) +
-                   (long)kWarps * kTilesBuf * elt);
+                   round_up((long)p.rows * p.out_ld * elt, 16) + (long)kWarps * kTilesBuf * elt);
     if (p.smem <= kSmemCap || p.rows == 1) break;
     p.rows /= 2;
   }
@@ -965,6 +965,8 @@ C2Plan c2_plan(const C2Args& a, int nsm) {
   p.grid = (p.n_cxt + p.n_lt) * p.n_rt;
   p.n_parts = p.n_rt;
   p.outs_at = round_up(4L * p.n_parts, 2);  // 16-byte aligned
+  p.lpart_at = p.outs_at + round_up(((long)B * p.out_ld * elt + 7) / 8, 2);
+  p.lpart_ld = (int)round_up(nx, 16 / elt);
   return p;
 }
 
@@ -1603,7 +1605,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, cons
   const int rt = blockIdx.y, ot = blockIdx.x;
   const int r0 = rt * R, nr = min(R, B - r0);
   T* vec = reinterpret_cast<T*>(smem_raw);  // R rows of vl
-  // the A' segments, then the tile's products (rows of out_ld)
+  // the tile's products (rows of out_ld), in the row tile's last block
   T* work = reinterpret_cast<T*>(smem_raw + round_up((long)R * vl * sizeof(T), 16));
   T* wbuf = reinterpret_cast<T*>(smem_raw + p.smem) - (size_t)kWarps * kTilesBuf;
   const C2Ctx c = c2_ctx(a);
@@ -1666,55 +1668,35 @@ __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, cons
       }
     }
   } else {
-    // 32 columns j of A' (a lane each), the warps on 32-row segments of
-    // the contraction, the segments' sums added in segment order
-    const int j0 = (ot - p.n_cxt) * 32, j = j0 + lane;
-    const int lsegs = (nc + 31) / 32, nd = certs ? 2 : 1;
+    // one 32-row segment sg of the contraction for 32 columns j of A' (a
+    // lane each), the warps on the tile's rows; the segments' sums go to
+    // scratch, to be added in segment order by the row tile's last block
+    const int lt = ot - p.n_cxt, lsegs = (nc + 31) / 32, nd = certs ? 2 : 1;
+    const int sg = lt % lsegs, j0 = (lt / lsegs) * 32, j = j0 + lane;
+    const int i0 = sg * 32, ni = min(nc - i0, 32);
     const T* Am = static_cast<const T*>(a.A) + (a.a_per ? (size_t)r0 * nc * nx : 0);
-    T* seg = work;  // [lsegs][nd][R][32]
-    for (int sg = warp; sg < lsegs; sg += kWarps) {
-      const int i0 = sg * 32, ni = min(nc - i0, 32);
-      // the segment: rows i0 ... of A's columns j0 ... j0 + 31, row by row
-      for (int q = lane; q < ni * 32; q += 32) {
-        const int i = q >> 5;
-        if (j < nx) cp_elem(wb + q, Am + (size_t)(i0 + i) * nx + j);
-      }
-      cp_commit();
-      cp_wait<0>();
-      __syncwarp();
-      T acc[kMaxTilesRows], dacc[kMaxTilesRows];
-#pragma unroll
-      for (int r = 0; r < kMaxTilesRows; ++r) acc[r] = dacc[r] = T(0);
+    // the segment: rows i0 ... of A's columns j0 ... j0 + 31, row by row
+    for (int q = threadIdx.x; q < ni * 32; q += kThreads) {
+      const int i = q >> 5, cj = j0 + (q & 31);
+      if (cj < nx) cp_elem(wbuf + q, Am + (size_t)(i0 + i) * nx + cj);
+    }
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    T* lpart = reinterpret_cast<T*>(a.part + p.lpart_at);
+    for (int r = warp; r < nr; r += kWarps) {
+      const T* lv = vec + (size_t)r * vl + nx + nc + i0;
+      const T* dlv = vec + (size_t)r * vl + 2 * nx + 2 * nc + i0;
+      T acc = T(0), dacc = T(0);
       if (j < nx) {
         for (int q = 0; q < ni; ++q) {
-          const T w = wb[q * 32 + lane];
-          const int i = i0 + q;
-#pragma unroll
-          for (int r = 0; r < kMaxTilesRows; ++r) {
-            if (r < nr) {
-              acc[r] = fma_t(w, vec[(size_t)r * vl + nx + nc + i], acc[r]);
-              if (certs) dacc[r] = fma_t(w, vec[(size_t)r * vl + 2 * nx + 2 * nc + i], dacc[r]);
-            }
-          }
+          const T w = wbuf[q * 32 + lane];
+          acc = fma_t(w, lv[q], acc);
+          if (certs) dacc = fma_t(w, dlv[q], dacc);
         }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int r = 0; r < kMaxTilesRows; ++r) {
-        if (r < nr) {
-          seg[(((size_t)sg * nd) * R + r) * 32 + lane] = acc[r];
-          if (certs) seg[(((size_t)sg * nd + 1) * R + r) * 32 + lane] = dacc[r];
-        }
-      }
-    }
-    __syncthreads();
-    for (int q = warp; q < nr * nd; q += kWarps) {
-      const int r = q % nr, d = q / nr;
-      if (j < nx) {
-        T s = seg[((size_t)d * R + r) * 32 + lane];
-        for (int sg = 1; sg < lsegs; ++sg)
-          s = add_rn(s, seg[(((size_t)sg * nd + d) * R + r) * 32 + lane]);
-        outs_g[(size_t)(r0 + r) * p.out_ld + (d ? o3 : 0) + nc + nx + j] = s;
+        T* lp = lpart + ((((size_t)rt * lsegs + sg) * nd) * R + r) * p.lpart_ld + j;
+        lp[0] = acc;
+        if (certs) lp[(size_t)R * p.lpart_ld] = dacc;
       }
     }
   }
@@ -1735,6 +1717,43 @@ __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, cons
       reinterpret_cast<float4*>(outs)[q] = w;
     }
     for (long i = nv * V + threadIdx.x; i < n; i += kThreads) outs[i] = __ldcg(src + i);
+  }
+  __syncthreads();
+  {
+    // A'lam (and A'dlam): the segments' sums in segment order
+    const int lsegs = (nc + 31) / 32, nd = certs ? 2 : 1;
+    const T* lpart = reinterpret_cast<const T*>(a.part + p.lpart_at) +
+                     (size_t)rt * lsegs * nd * R * p.lpart_ld;
+    // 16 bytes of a row a thread (the rows padded to whole 16-byte
+    // pieces), up to eight segments' loads in flight at once, the sums
+    // then in segment order
+    constexpr int V = 16 / sizeof(T);
+    const int ld = p.lpart_ld, nxv = ld / V, n_g = nd * nr * nxv;
+    const size_t seg_at = (size_t)nd * R * ld;
+    for (int g = threadIdx.x; g < n_g; g += kThreads) {
+      const int jv = g % nxv, r = (g / nxv) % nr, d = g / (nxv * nr);
+      const T* lp = lpart + ((size_t)d * R + r) * ld + jv * V;
+      T sum[V];
+      for (int s0 = 0; s0 < lsegs; s0 += 8) {
+        float4 raw[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (s0 + u < lsegs) raw[u] = __ldcg(reinterpret_cast<const float4*>(lp + (s0 + u) * seg_at));
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (s0 + u < lsegs) {
+            const Pack<T> pk = *reinterpret_cast<const Pack<T>*>(&raw[u]);
+#pragma unroll
+            for (int e = 0; e < V; ++e) sum[e] = s0 + u == 0 ? pk.e[e] : add_rn(sum[e], pk.e[e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int j = jv * V + e;
+        if (j < nx) outs[(size_t)r * p.out_ld + (d ? o3 : 0) + nc + nx + j] = sum[e];
+      }
+    }
   }
   __syncthreads();
   tiles_rows<T, 16>(a, c, p, rt, nr, vec, outs);
@@ -1915,7 +1934,11 @@ int c1_check(const C1Args* a, void* stream) {
 int c2_part_size(const C2Args* a) {
   const C2Plan p = c2_plan(*a, sm_count());
   long n = 4L * p.n_parts;
-  if (p.regime == R_TILES) n = p.outs_at + ((long)a->B * p.out_ld * p.elt + 7) / 8;
+  if (p.regime == R_TILES) {
+    const long lparts =
+        (long)p.n_rt * ((a->nc + 31) / 32) * (a->certs ? 2 : 1) * p.rows * p.lpart_ld;
+    n = p.lpart_at + (lparts * p.elt + 7) / 8;
+  }
   return (int)n;
 }
 
