@@ -233,8 +233,8 @@ Phases (each raises on failure; nothing is caught):
     graph (CHECK_REPS launches each) per covered shape, beside the bound,
     with the kernel's stage split (``ops.check_window.stage_split``: the
     µs from the earliest block's start to the latest block's pass of each
-    stage boundary, mean of 20 launches alone) and C2's plan (regime,
-    rows, blocks).
+    stage boundary, mean of 20 launches alone) and the kernel's plan
+    (C1: cluster and variant; C2: regime, rows, blocks).
 
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
 the K1, K2, K3, K4, K5, C1 and C2 of another checkout at DIR (the parent
@@ -604,8 +604,19 @@ def _check_counters():
 
 # C1's and C2's launches over every main-path phase of this process
 CHECK_LAUNCHES = {"C1": 0, "C2": 0}
-# the same by the phase function that counted them
+# the same by phase (`by_phase`)
 CHECK_BY_PHASE = {}
+
+
+def by_phase(phase, *args):
+    """``phase(*args)``, its C1 and C2 launches on the main path (the
+    change it makes to CHECK_LAUNCHES) logged under its name."""
+    before = dict(CHECK_LAUNCHES)
+    out = phase(*args)
+    d = {k: CHECK_LAUNCHES[k] - before[k] for k in before}
+    if any(d.values()):
+        CHECK_BY_PHASE[phase.__name__] = d
+    return out
 
 
 def _counted(run, kernel="K1", checks=True):
@@ -626,14 +637,8 @@ def _counted(run, kernel="K1", checks=True):
     if checks:
         assert not n["K1"] or c["C1"], "K1 ran without C1"
         assert not (n["K4"] or n["K5"]) or c["C2"], "K4/K5 ran without C2"
-    f = sys._getframe(1)
-    while f is not None and not f.f_code.co_name.startswith("phase_"):
-        f = f.f_back
-    by = CHECK_BY_PHASE.setdefault(f.f_code.co_name if f else "other",
-                                   {"C1": 0, "C2": 0})
     for name, v in c.items():
         CHECK_LAUNCHES[name] += v
-        by[name] += v
     return out, n
 
 
@@ -4304,6 +4309,7 @@ def check_timing(tag, rec, card, parent=None):
                                                    batched_check_plan,
                                                    batched_check_ref,
                                                    check_window,
+                                                   check_window_plan,
                                                    check_window_ref,
                                                    stage_split)
     kind, st, op, cfg, y, n, phase = rec
@@ -4328,8 +4334,8 @@ def check_timing(tag, rec, card, parent=None):
                      CHECK_REPS)
     ss = _clone_nt(st)
     split = stage_split(lambda: ker(ss, op, cfg, y, n, phase), ker)
-    if kind == "C2":
-        out["plan"] = batched_check_plan(st, op, cfg, y, n, phase)
+    out["plan"] = (check_window_plan if kind == "C1" else batched_check_plan)(
+        st, op, cfg, y, n, phase)
     nbytes, ops = check_bytes_ops(rec)
     peak = FP64_FLOPS if y.dtype == torch.float64 else FP32_FLOPS
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
@@ -4345,7 +4351,7 @@ def check_timing(tag, rec, card, parent=None):
     log(f"phase 31 {tag}: {kind} stage split, µs from the earliest block's "
         f"start to the latest block's pass (mean of 20 launches alone): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-        + (f"; plan {out['plan']}" if "plan" in out else ""))
+        + f"; plan {out['plan']}")
     out.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                split=split)
     return out
@@ -5211,32 +5217,34 @@ def main():
     phase_build(parent)
     errs = phase_kernel_check()
     timing = phase_timing(card, parent)
-    launches = phase_canonical()
-    protocol = phase_protocol()
+    launches = by_phase(phase_canonical)
+    protocol = by_phase(phase_protocol)
     launches += protocol[0]
-    mpc = phase_mpc(card)
+    mpc = by_phase(phase_mpc, card)
     launches += mpc["launches"]
-    k2_errs = phase_k2_check()
-    scan = phase_scan(card, mpc)
-    k2 = phase_scan_timing(card, scan, mpc["rate"], parent)
-    k3_errs = phase_k3_check()
-    fused = phase_fused_main(card, mpc, protocol)
-    k3 = phase_k3_timing(card, fused, mpc["rate"], k2["step_s"], parent)
-    k4_errs = phase_k4_check()
-    scen_loop = phase_scenario_loop(card)
-    k6_errs = phase_k6_check()
-    scen_scan = phase_scenario_scan(card, scen_loop)
-    scen = phase_scenario_timing(card, scen_loop, scen_scan, parent)
-    k5_errs = phase_k5_check()
-    het = phase_hetero_main(card)
-    k5_rows = phase_hetero_timing(card, het, parent)["rows"]
-    dev_build = phase_device_build(card)
-    repack = phase_repack(card, parent)
-    ckpt = phase_checkpoint(card, protocol, het, repack)
-    nat = phase_native(card)
-    mesh = phase_mesh(card, scen_loop)
-    phase_graphs(card, protocol, mpc, scen_loop, het, repack)
-    phase_device_exit(card, protocol, mpc, scen_loop, het, repack)
+    k2_errs = by_phase(phase_k2_check)
+    scan = by_phase(phase_scan, card, mpc)
+    k2 = by_phase(phase_scan_timing, card, scan, mpc["rate"], parent)
+    k3_errs = by_phase(phase_k3_check)
+    fused = by_phase(phase_fused_main, card, mpc, protocol)
+    k3 = by_phase(phase_k3_timing, card, fused, mpc["rate"], k2["step_s"],
+                  parent)
+    k4_errs = by_phase(phase_k4_check)
+    scen_loop = by_phase(phase_scenario_loop, card)
+    k6_errs = by_phase(phase_k6_check)
+    scen_scan = by_phase(phase_scenario_scan, card, scen_loop)
+    scen = by_phase(phase_scenario_timing, card, scen_loop, scen_scan,
+                    parent)
+    k5_errs = by_phase(phase_k5_check)
+    het = by_phase(phase_hetero_main, card)
+    k5_rows = by_phase(phase_hetero_timing, card, het, parent)["rows"]
+    dev_build = by_phase(phase_device_build, card)
+    repack = by_phase(phase_repack, card, parent)
+    ckpt = by_phase(phase_checkpoint, card, protocol, het, repack)
+    nat = by_phase(phase_native, card)
+    mesh = by_phase(phase_mesh, card, scen_loop)
+    by_phase(phase_graphs, card, protocol, mpc, scen_loop, het, repack)
+    by_phase(phase_device_exit, card, protocol, mpc, scen_loop, het, repack)
     chk = phase_check_kernels(card, parent)
     k5, k5_ltv = k5_rows[(K5_BIG_B, 128)], k5_rows[("ltv", "float32")]
     t = timing[640]

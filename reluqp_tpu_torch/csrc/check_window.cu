@@ -23,15 +23,22 @@
 // before y arrives). M_res's column blocks are summed over the rows where
 // `build_residual_operator` puts their nonzeros (all rows when y holds a
 // non-finite value). Each unit's sums are pushed into block 0's shared
-// memory (distributed shared memory stores). After one cluster barrier
-// block 0 reduces the residuals' maxima, the certificates' maxima and
-// their two sums in one multi-value pass, and one thread takes the
-// decisions: the rho estimate, the +-1 walk or the jump, the stride's check
-// ordinal, the solved test, the certificates, phase A's 3% stall test and
-// the exit flags. Every block writes its slice of y as soon as it is staged
-// (block 0 writes y after the decisions where p is re-encoded for the new
-// rung, alpha != 1) and of the certificates' previous iterate. No ticket
-// and no global scratch.
+// memory (distributed shared memory stores, after the first half of a
+// cluster barrier that every block arrives at on entry and waits at once
+// it has staged its vectors: no block writes into another before that
+// block has started). After a second cluster barrier block 0 reduces the
+// residuals' maxima, the certificates' maxima and their two sums in one
+// multi-value pass, and one thread takes the decisions: the rho estimate,
+// the +-1 walk or the jump, the stride's check ordinal, the solved test,
+// the certificates, phase A's 3% stall test and the exit flags. Every
+// block writes its slice of y as soon as it is staged (block 0 writes y
+// after the decisions where p is re-encoded for the new rung, alpha != 1)
+// and of the certificates' previous iterate. No ticket. Where a block's
+// vectors and block 0's sums do not fit shared memory (past about
+// nx = 2900 in fp64 with the certificates, nx = 10000 in fp32 through
+// M_res), the kernel's global variant keeps the sums and each block's
+// vectors in a scratch region (`part`, sized by c1_plan_of) instead; the
+// sums and their order are the same.
 //
 // C2, a batch, in one of three regimes chosen by `c2_plan` from (nx, nc,
 // dtype, per-problem H / A), its shape within the regime from B:
@@ -128,6 +135,7 @@ struct C1Args {
   int* open_a;
   void *best_p, *best_d;
   int *n_stall, *k_fast;
+  void* part;
   unsigned long long* stamps;
   int dp, nx, nc, nxp, ncp, n_rho, n_steps, tail_mode, phase_a, adaptive, jump, stride, ci,
       budget, cap_a, certs, alpha, dtype;
@@ -388,18 +396,24 @@ enum { V_Y = 0, V_LAM, V_DX, V_DLAM };
 // `build_residual_operator` puts its nonzeros, and all k_full rows when y
 // holds a non-finite value (0 * inf is NaN in the plain product). Units are
 // numbered across the segments from unit0 and dealt to the cluster's blocks
-// (`c1_deal`); output j of a segment lands at out0 + j in block 0.
+// (`c1_deal`); output j of a segment is sum out0 + j.
 struct Seg {
   const void* m;
   int row, n_out, n_k, k_lo, k_full, ld, vec, units, unit0, out0;
 };
 
 constexpr int kMaxUnits = 512;
+constexpr int kWpart = 2 * kC1Warps * kC1Cols * 8;  // two column units' warp sums
 
-// The units' deal: block b takes units order[first[b] .. first[b + 1]).
+// The units' deal: block b takes units order[first[b] .. first[b + 1]);
+// past kMaxUnits units, round robin. The outs sums (in the state type)
+// and then, from vec_at, the vectors (nv elements: y, and lam, dx, dlam
+// where needed) lie after the warp sums in shared memory (block 0's sums
+// only are used), or in the global variant at part: the sums, then each
+// block's vectors at vec_at + block * vstride.
 struct C1Plan {
   Seg segs[kMaxSeg];
-  int n_seg, units, outs, cluster, smem;
+  int n_seg, units, outs, cluster, smem, nv, vec_at, vstride, global;
   short first[kMaxCluster + 1];
   short order[kMaxUnits];
 };
@@ -416,10 +430,12 @@ inline void seg_add(C1Plan& p, const void* m, int row, int n_out, int n_k, int l
   p.outs += n_out;
 }
 
-// C1's products, their units and the shared memory they take: every
-// output's sum (block 0 gathers them), two buffers of one column unit's
-// warp sums, and the vectors.
-C1Plan c1_plan(const C1Args& a) {
+void c1_deal(C1Plan& p);
+
+// C1's products and their units for a cluster of `cs`, the deal, and the
+// shared memory a block takes: two buffers of a column unit's warp sums,
+// then (unless global) the sums and the vectors.
+C1Plan c1_plan(const C1Args& a, int cs, bool global) {
   C1Plan p;
   memset(&p, 0, sizeof(p));
   const int certs = a.certs && !a.tail_mode;
@@ -442,12 +458,28 @@ C1Plan c1_plan(const C1Args& a) {
     seg_add(p, a.H, 1, a.nx, a.nx, a.nx, V_DX);    // H dx
     seg_add(p, a.A, 1, a.nc, a.nx, a.nx, V_DX);    // A dx
   }
-  const long vecs = (long)a.dp + 2L * a.nc + a.nx;
-  p.smem = (int)(((long)p.outs + 2L * kC1Warps * kC1Cols) * 8 + round_up(vecs * elt, 16));
+  p.cluster = cs;
+  c1_deal(p);
+  const bool need_lam = certs || !a.m_res;
+  p.nv = a.dp + (need_lam ? a.nc : 0) + (certs ? a.nx + a.nc : 0);
+  p.vec_at = (int)round_up(p.outs, 4);  // 16-byte aligned vectors
+  p.vstride = (int)round_up(p.nv, 4);
+  p.global = global;
+  p.smem = kWpart + (global ? 0 : (int)((long)(p.vec_at + p.vstride) * elt));
   return p;
 }
 
-template <typename T>
+// The cluster barrier in two halves: arrive (relaxed: it orders no memory)
+// and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// G: the global variant (the sums and the vectors in part).
+template <typename T, bool G>
 __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1Plan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ double s_wred[kC1Warps][kNStat];
@@ -463,6 +495,9 @@ __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1
   const T* y_in = static_cast<const T*>(a.y_in);
   const T* reff = static_cast<const T*>(a.rho_eff);
   stamp(a.stamps, S_START);
+  // every block of the cluster has started before any block writes into
+  // another's shared memory: arrive now, wait once staged
+  if (!G) cluster_arrive_relaxed();
   // the state's scalars (block 0 writes them after the cluster barrier)
   const int ind = clamp_ind(*a.rho_ind, a.n_rho);
   const int k_new = *a.k + a.n_steps;
@@ -474,12 +509,12 @@ __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1
     n_stall_old = *a.n_stall;
   }
 
-  // block 0: every output's sum; every block: a column unit's warp sums
-  // (two buffers) and the vectors the products and the elementwise steps
+  // a column unit's warp sums (two buffers), then every output's sum (block
+  // 0's are used) and the vectors the products and the elementwise steps
   // read: y, lam, dx, dlam
-  double* outv = reinterpret_cast<double*>(smem_raw);
-  double* wpart = outv + p.outs;
-  T* ys = reinterpret_cast<T*>(wpart + 2 * kC1Warps * kC1Cols);
+  double* wpart = reinterpret_cast<double*>(smem_raw);
+  T* outv = G ? static_cast<T*>(a.part) : reinterpret_cast<T*>(smem_raw + kWpart);
+  T* ys = outv + p.vec_at + (G ? (size_t)rank * p.vstride : 0);
   T* lam = ys + dp;
   T* dx = lam + nc;
   T* dlam = dx + nx;
@@ -550,8 +585,9 @@ __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1
 
   // the products: this block's units, each lane's chain in the state type,
   // the chains' sums in fp64 (lanes by a butterfly, or warps and chunks in
-  // order), pushed into block 0
-  double* out0 = cluster.map_shared_rank(outv, 0);
+  // order), rounded once to the state type into block 0's sums
+  if (!G) cluster_wait();
+  T* out0 = G ? outv : cluster.map_shared_rank(outv, 0);
   int par = 0;
   if (y_bad) pre = false;  // every row then: the batch is loaded anew
   for (int ui = 0; ui < n_mine; ++ui) {
@@ -568,7 +604,7 @@ __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1
 #pragma unroll 4
         for (int q = lane; q < g.n_k; q += 32) acc = fma_t(__ldg(mr + q), v[q], acc);
         const double sum = warp_sum(static_cast<double>(acc));
-        if (lane == 0) out0[g.out0 + o] = sum;
+        if (lane == 0) out0[g.out0 + o] = static_cast<T>(sum);
       }
     } else {
       // lanes on columns j0 = t * 64 + lane and j0 + 32; warp w on rows
@@ -610,7 +646,7 @@ __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1
         if (j < g.n_out) {
           double sum = 0.0;
           for (int w = 0; w < kC1Warps; ++w) sum += wp[w * kC1Cols + col];
-          out0[g.out0 + j] = sum;
+          out0[g.out0 + j] = static_cast<T>(sum);
         }
       }
       par ^= 1;  // the next column unit fills the other buffer
@@ -618,7 +654,7 @@ __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1
   }
   __syncthreads();
   stamp(a.stamps, S_PRODUCTS);
-  cluster.sync();  // every output's sum is in block 0; every block has staged
+  cluster.sync();  // every output's sum is in block 0's (or the global) sums
   stamp(a.stamps, S_TICKET);
   if (certs) {
     T* xp = static_cast<T*>(a.x_prev);
@@ -629,21 +665,24 @@ __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1
   if (rank != 0) return;
 
   // ---- block 0: the residuals' and certificates' reduction, one pass ----
-  auto val = [&](int sg, int j) -> T { return static_cast<T>(outv[p.segs[sg].out0 + j]); };
+  auto val = [&](int sg, int j) -> T {
+    const T* v = outv + p.segs[sg].out0 + j;
+    return G ? __ldcg(v) : *v;
+  };
   Stats<T> st;
   st.init();
   if (a.m_res) {
     const int ncp = a.ncp, nxp = a.nxp;
     const T* grow = static_cast<const T*>(a.g_row);
     for (int i = threadIdx.x; i < ncp; i += kC1Threads) {
-      const T ax = val(0, i), z = val(0, ncp + i);
+      const T ax = val(0, i), z = val(1, i);
       st.max_in(S::PRI, abs_t(sub_rn(ax, z)));
       st.max_in(S::AX, abs_t(ax));
       st.max_in(S::Z, abs_t(z));
     }
 #pragma unroll 2
     for (int i = threadIdx.x; i < nxp; i += kC1Threads) {
-      const T hx = val(0, 2 * ncp + i), atl = val(0, 2 * ncp + nxp + i), gr = grow[i];
+      const T hx = val(2, i), atl = val(3, i), gr = grow[i];
       st.max_in(S::DUA, abs_t(add_rn(add_rn(hx, atl), gr)));
       st.max_in(S::HX, abs_t(hx));
       st.max_in(S::ATL, abs_t(atl));
@@ -768,36 +807,39 @@ __global__ void __launch_bounds__(kC1Threads) c1_kernel(const C1Args a, const C1
   stamp(a.stamps, S_WRITTEN);
 }
 
-// The cluster C1 takes: 16 blocks where the card runs such a cluster at
-// this shared memory, else 8 (the portable size). Asked once per shared
-// memory size and dtype; the kernel's shared memory attribute is set for
-// this launch first.
-template <typename T> cudaError_t c1_cluster(int smem, int& cs) {
+// A kernel's attributes, set once per device at its first launch: its
+// dynamic shared memory limit raised to all that the card gives a block
+// beside the kernel's static shared memory, and where asked the largest
+// shared-memory carveout (so that a plan's blocks an SM fit at once) or
+// clusters past the portable 8 blocks. *dyn: the dynamic shared memory the
+// kernel may take.
+cudaError_t kernel_init(const void* fn, bool carveout, bool big_clusters, int* dyn) {
   static std::mutex mu;
-  static std::map<int, int> known;
-  auto fn = c1_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  static std::map<std::pair<int, const void*>, int> known;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e) return e;
-  if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))) return e;
   std::lock_guard<std::mutex> lock(mu);
-  auto it = known.find(smem);
+  const auto key = std::make_pair(dev, fn);
+  auto it = known.find(key);
   if (it != known.end()) {
-    cs = it->second;
+    *dyn = it->second;
     return cudaSuccess;
   }
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kMaxCluster, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
-  cfg.gridDim = dim3(kMaxCluster), cfg.blockDim = dim3(kC1Threads);
-  cfg.dynamicSmemBytes = smem, cfg.attrs = &attr, cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    n = 0;
-  }
-  cs = n > 0 ? kMaxCluster : 8;
-  known[smem] = cs;
+  int optin = 0;
+  cudaFuncAttributes fa;
+  if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))) return e;
+  if ((e = cudaFuncGetAttributes(&fa, fn))) return e;
+  const int m = optin - (int)fa.sharedSizeBytes;
+  if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, m))) return e;
+  if (carveout && (e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                            cudaSharedmemCarveoutMaxShared)))
+    return e;
+  if (big_clusters &&
+      (e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)))
+    return e;
+  known[key] = m;
+  *dyn = m;
   return cudaSuccess;
 }
 
@@ -837,22 +879,67 @@ void c1_deal(C1Plan& p) {
   p.first[cs] = (short)at;
 }
 
+// C1's plan for this launch: a cluster of 16 blocks where the card runs
+// one at the plan's shared memory, else 8 (the portable size), and the
+// global variant where the vectors and the sums do not fit a block's
+// shared memory. Chosen once per shape and dtype; the plan itself (it holds the
+// operands' addresses) is made anew.
+template <typename T> cudaError_t c1_shape(const C1Args& a, C1Plan& p) {
+  static std::mutex mu;
+  static std::map<std::vector<int>, std::pair<int, int>> known;  // cluster, global
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e) return e;
+  const std::vector<int> key = {dev, a.m_res != nullptr, a.dp, a.nx, a.nc, a.nxp, a.ncp,
+                                a.certs && !a.tail_mode};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(key);
+  if (it != known.end()) {
+    p = c1_plan(a, it->second.first, it->second.second);
+    return cudaSuccess;
+  }
+  const void* fn[2] = {reinterpret_cast<const void*>(c1_kernel<T, false>),
+                       reinterpret_cast<const void*>(c1_kernel<T, true>)};
+  int dyn[2];
+  for (int g = 0; g < 2; ++g)
+    if ((e = kernel_init(fn[g], false, true, &dyn[g]))) return e;
+  for (int cs = kMaxCluster;; cs = 8) {
+    p = c1_plan(a, cs, false);
+    if (p.smem > dyn[0]) p = c1_plan(a, cs, true);
+    if (p.smem > dyn[p.global]) return cudaErrorInvalidValue;
+    if (cs == 8) break;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cs, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(cs), cfg.blockDim = dim3(kC1Threads);
+    cfg.dynamicSmemBytes = p.smem, cfg.attrs = &attr, cfg.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, fn[p.global], &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      n = 0;
+    }
+    if (n > 0) break;
+  }
+  known[key] = std::make_pair(p.cluster, p.global);
+  return cudaSuccess;
+}
+
 template <typename T>
 cudaError_t c1_launch(const C1Args& a, cudaStream_t stream) {
-  C1Plan p = c1_plan(a);
-  if (p.smem + 8 * 1024 > kSmemSM) return cudaErrorInvalidValue;
-  int cs;
-  cudaError_t e = c1_cluster<T>(p.smem, cs);
+  C1Plan p;
+  cudaError_t e = c1_shape<T>(a, p);
   if (e) return e;
-  p.cluster = cs;
-  c1_deal(p);
+  if (p.global && !a.part) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cs, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
-  cfg.gridDim = dim3(cs), cfg.blockDim = dim3(kC1Threads);
+  attr.val.clusterDim.x = p.cluster, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(p.cluster), cfg.blockDim = dim3(kC1Threads);
   cfg.dynamicSmemBytes = p.smem, cfg.stream = stream, cfg.attrs = &attr, cfg.numAttrs = 1;
-  if ((e = cudaLaunchKernelEx(&cfg, c1_kernel<T>, a, p))) return e;
+  e = p.global ? cudaLaunchKernelEx(&cfg, c1_kernel<T, true>, a, p)
+               : cudaLaunchKernelEx(&cfg, c1_kernel<T, false>, a, p);
+  if (e) return e;
   return cudaGetLastError();
 }
 
@@ -956,8 +1043,11 @@ C2Plan c2_plan(const C2Args& a, int nsm) {
   const long lsegs = (nc + 31) / 32;
   p.n_lt = (int)(((nx + 31) / 32) * lsegs);
   for (;;) {  // fewer rows a tile where the tile does not fit
-    p.smem = (int)(round_up((long)p.rows * (p.vec_ld | 1) * elt, 16) +
-                   round_up((long)p.rows * p.out_ld * elt, 16) + (long)kWarps * kTilesBuf * elt);
+    // the rows' vectors, then the warps' coefficients (the products) or,
+    // in the row tile's last block once they are done, the rows' products
+    const long outs = round_up((long)p.rows * p.out_ld * elt, 16);
+    const long wbuf = (long)kWarps * kTilesBuf * elt;
+    p.smem = (int)(round_up((long)p.rows * (p.vec_ld | 1) * elt, 16) + std::max(outs, wbuf));
     if (p.smem <= kSmemCap || p.rows == 1) break;
     p.rows /= 2;
   }
@@ -1605,9 +1695,10 @@ __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, cons
   const int rt = blockIdx.y, ot = blockIdx.x;
   const int r0 = rt * R, nr = min(R, B - r0);
   T* vec = reinterpret_cast<T*>(smem_raw);  // R rows of vl
-  // the tile's products (rows of out_ld), in the row tile's last block
+  // the warps' coefficients; in the row tile's last block, once every
+  // product is formed, the tile's products (rows of out_ld) in their place
   T* work = reinterpret_cast<T*>(smem_raw + round_up((long)R * vl * sizeof(T), 16));
-  T* wbuf = reinterpret_cast<T*>(smem_raw + p.smem) - (size_t)kWarps * kTilesBuf;
+  T* wbuf = work;
   const C2Ctx c = c2_ctx(a);
   stamp(a.stamps, S_START);
   // every row of the tile's vectors (a warp a row)
@@ -1785,14 +1876,13 @@ int sm_count() {
   return nsm;
 }
 
-// A C2 kernel's dynamic shared memory for this launch, and the largest
-// shared-memory carveout, so that the plan's blocks an SM fit at once.
-template <typename K>
-cudaError_t smem_attr(K kernel, int smem) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (e || smem <= 48 * 1024) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// A C2 kernel's attributes (kernel_init, the largest carveout), and
+// whether the plan's shared memory fits it.
+cudaError_t c2_init(const void* fn, int smem) {
+  int dyn = 0;
+  cudaError_t e = kernel_init(fn, true, false, &dyn);
+  if (e) return e;
+  return smem > dyn ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 template <typename T>
@@ -1800,23 +1890,16 @@ cudaError_t c2_launch(const C2Args& a, cudaStream_t stream, int* launches) {
   const int nsm = sm_count();
   const C2Plan p = c2_plan(a, nsm);
   cudaError_t e;
-  if (p.smem > kSmemSM) return cudaErrorInvalidValue;
   if (p.regime == R_SMEM) {
-    if (p.rows == 32) {
-      if ((e = smem_attr(c2_kernel_smem<T, 32>, p.smem))) return e;
-      c2_kernel_smem<T, 32><<<p.grid, kThreads, p.smem, stream>>>(a, p);
-    } else if (p.rows == 16) {
-      if ((e = smem_attr(c2_kernel_smem<T, 16>, p.smem))) return e;
-      c2_kernel_smem<T, 16><<<p.grid, kThreads, p.smem, stream>>>(a, p);
-    } else {
-      if ((e = smem_attr(c2_kernel_smem<T, 8>, p.smem))) return e;
-      c2_kernel_smem<T, 8><<<p.grid, kThreads, p.smem, stream>>>(a, p);
-    }
+    auto fn = p.rows == 32 ? c2_kernel_smem<T, 32>
+                           : (p.rows == 16 ? c2_kernel_smem<T, 16> : c2_kernel_smem<T, 8>);
+    if ((e = c2_init(reinterpret_cast<const void*>(fn), p.smem))) return e;
+    fn<<<p.grid, kThreads, p.smem, stream>>>(a, p);
   } else if (p.regime == R_STREAM) {
-    if ((e = smem_attr(c2_kernel_stream<T>, p.smem))) return e;
+    if ((e = c2_init(reinterpret_cast<const void*>(c2_kernel_stream<T>), p.smem))) return e;
     c2_kernel_stream<T><<<p.grid, p.threads, p.smem, stream>>>(a, p);
   } else {
-    if ((e = smem_attr(c2_kernel_tiles<T>, p.smem))) return e;
+    if ((e = c2_init(reinterpret_cast<const void*>(c2_kernel_tiles<T>), p.smem))) return e;
     c2_kernel_tiles<T><<<dim3(p.n_cxt + p.n_lt, p.n_rt), kThreads, p.smem, stream>>>(a, p);
   }
   if ((e = cudaGetLastError())) return e;
@@ -1920,6 +2003,20 @@ cudaError_t walk_graph(cudaGraph_t g, char* buf, int len, int& pos) {
 
 extern "C" {
 
+// c1_check's plan into out[0..4): the scratch elements (of the state type)
+// its launch takes (0, or in the global variant the sums and a region of
+// vectors per block), blocks in the cluster, the global variant (0 or 1),
+// dynamic shared memory bytes. Returns cudaError_t.
+int c1_plan_of(const C1Args* a, long long* out) {
+  if (a->dp < 1 || a->nx < 1 || a->nc < 1 || a->n_rho < 1) return (int)cudaErrorInvalidValue;
+  C1Plan p;
+  cudaError_t e = a->dtype == DT_F64 ? c1_shape<double>(*a, p) : c1_shape<float>(*a, p);
+  if (e) return (int)e;
+  out[0] = p.global ? p.vec_at + (long long)p.cluster * p.vstride : 0;
+  out[1] = p.cluster, out[2] = p.global, out[3] = p.smem;
+  return 0;
+}
+
 // One launch of C1 on `stream`: one cluster. Returns cudaError_t.
 int c1_check(const C1Args* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1929,9 +2026,11 @@ int c1_check(const C1Args* a, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The scratch doubles c2_check's launch takes: four per block (per row
-// tile in "tiles", with the rows' products after them).
-int c2_part_size(const C2Args* a) {
+// What c2_check's launch takes: out[0] scratch doubles (four per block, per
+// row tile in "tiles", with the rows' products after them), out[1] ticket
+// ints (zeroed once; every launch leaves them so: the grid's ticket, the
+// shared walk's old rung, and one per row tile in "tiles").
+void c2_sizes(const C2Args* a, int* out) {
   const C2Plan p = c2_plan(*a, sm_count());
   long n = 4L * p.n_parts;
   if (p.regime == R_TILES) {
@@ -1939,15 +2038,8 @@ int c2_part_size(const C2Args* a) {
         (long)p.n_rt * ((a->nc + 31) / 32) * (a->certs ? 2 : 1) * p.rows * p.lpart_ld;
     n = p.lpart_at + (lparts * p.elt + 7) / 8;
   }
-  return (int)n;
-}
-
-// The ticket ints c2_check's launch takes (zeroed once; every launch
-// leaves them so): the grid's ticket, the shared walk's old rung, and one
-// per row tile in "tiles".
-int c2_tick_size(const C2Args* a) {
-  const C2Plan p = c2_plan(*a, sm_count());
-  return 2 + (p.regime == R_TILES ? p.n_rt : 0);
+  out[0] = (int)n;
+  out[1] = 2 + (p.regime == R_TILES ? p.n_rt : 0);
 }
 
 // c2_check's plan into out[0..8): the regime (0 "smem", 1 "stream",

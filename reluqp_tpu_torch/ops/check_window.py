@@ -42,7 +42,8 @@ __all__ = [
     "compute_residuals_op", "rho_ladder_step", "batched_residuals",
     "batched_infeasibility_certificates", "check_window_ref",
     "check_window", "batched_check_ref", "batched_check", "graph_kernels",
-    "batched_check_plan", "STAMP_STAGES", "stage_split",
+    "batched_check_plan", "check_window_plan", "STAMP_STAGES",
+    "stage_split",
 ]
 
 _TINY = 1e-30
@@ -500,7 +501,7 @@ class _C1Args(ctypes.Structure):
         "y_in", "m_res", "g_row", "H", "A", "g", "lo", "hi", "w_pri",
         "w_dua", "rhos", "rho_eff", "y", "rho_ind", "rho", "k", "status",
         "pri", "dua", "open", "tail", "x_prev", "lam_prev", "open_a",
-        "best_p", "best_d", "n_stall", "k_fast", "stamps")] + [
+        "best_p", "best_d", "n_stall", "k_fast", "part", "stamps")] + [
         (n, _I) for n in (
             "dp", "nx", "nc", "nxp", "ncp", "n_rho", "n_steps", "tail_mode",
             "phase_a", "adaptive", "jump", "stride", "ci", "budget", "cap_a",
@@ -534,13 +535,14 @@ def _lib():
     if not getattr(lib, "_cw_typed", False):
         lib.c1_check.argtypes = [ctypes.POINTER(_C1Args), _P]
         lib.c1_check.restype = _I
+        lib.c1_plan_of.argtypes = [ctypes.POINTER(_C1Args),
+                                   ctypes.POINTER(ctypes.c_longlong)]
+        lib.c1_plan_of.restype = _I
         lib.c2_check.argtypes = [ctypes.POINTER(_C2Args), _P,
                                  ctypes.POINTER(_I)]
         lib.c2_check.restype = _I
-        lib.c2_part_size.argtypes = [ctypes.POINTER(_C2Args)]
-        lib.c2_part_size.restype = _I
-        lib.c2_tick_size.argtypes = [ctypes.POINTER(_C2Args)]
-        lib.c2_tick_size.restype = _I
+        lib.c2_sizes.argtypes = [ctypes.POINTER(_C2Args), ctypes.POINTER(_I)]
+        lib.c2_sizes.restype = None
         lib.c2_plan_of.argtypes = [ctypes.POINTER(_C2Args),
                                    ctypes.POINTER(_I)]
         lib.c2_plan_of.restype = None
@@ -590,7 +592,9 @@ def _settings(cfg, y_dtype):
         eps_dinf=cfg.eps_dual_inf, stall=cfg.stall)
 
 
-def _c1_launch(st, op, cfg, y, n_steps, phase):
+def _c1_args(st, op, cfg, y, n_steps, phase) -> _C1Args:
+    """C1's launch arguments for this window (``part`` still unset), the
+    tensors checked."""
     dev, dt = y.device, y.dtype
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"C1: state dtype {dt} is not float32/float64")
@@ -650,7 +654,39 @@ def _c1_launch(st, op, cfg, y, n_steps, phase):
         **_settings(cfg, dt))
     if tail:
         a.adaptive = a.certs = 0
+    return a
+
+
+def _c1_plan(lib, a) -> list:
+    out = (ctypes.c_longlong * 4)()
+    rc = lib.c1_plan_of(ctypes.byref(a), out)
+    if rc != 0:
+        _raise(lib, rc, "C1 plan")
+    return list(out)
+
+
+def check_window_plan(st, op, cfg, y, n_steps: int = 1,
+                      phase: str = "") -> dict:
+    """The shape C1 takes for this window on the card: blocks in its
+    cluster, its variant ("shared", or "global" where a block's vectors
+    and sums outgrow its shared memory and lie in a scratch region), the
+    scratch's elements and the dynamic shared memory a block takes."""
     lib = _lib()
+    with device_guard(y.device):
+        n, cluster, glob, smem = _c1_plan(
+            lib, _c1_args(st, op, cfg, y, n_steps, phase))
+    return dict(cluster=cluster, variant="global" if glob else "shared",
+                scratch=n, smem=smem)
+
+
+def _c1_launch(st, op, cfg, y, n_steps, phase):
+    dev = y.device
+    a = _c1_args(st, op, cfg, y, n_steps, phase)
+    lib = _lib()
+    # scratch only where a block's vectors and sums outgrow its shared memory
+    n = _c1_plan(lib, a)[0]
+    part = torch.empty((n,), dtype=y.dtype, device=dev) if n else None
+    a.part = _ptr(part)
     rc = lib.c1_check(ctypes.byref(a),
                       torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -776,11 +812,12 @@ def _c2_launch(st, op, cfg, Y, n_steps, phase):
     dev = Y.device
     a = _c2_args(st, op, cfg, Y, n_steps, phase)
     lib = _lib()
-    if st.tick.numel() < lib.c2_tick_size(ctypes.byref(a)):
+    sizes = (_I * 2)()
+    lib.c2_sizes(ctypes.byref(a), sizes)
+    if st.tick.numel() < sizes[1]:
         raise ValueError("C2: the state's tick buffer is too short "
                          "(core.batched's state buffers size it)")
-    part = torch.empty((lib.c2_part_size(ctypes.byref(a)),),
-                       dtype=torch.float64, device=dev)
+    part = torch.empty((sizes[0],), dtype=torch.float64, device=dev)
     a.part = part.data_ptr()
     n = ctypes.c_int(0)
     rc = lib.c2_check(ctypes.byref(a),

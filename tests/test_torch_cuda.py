@@ -20,7 +20,7 @@ from reluqp_tpu_torch.ops.fused_step import (fused_chunk,
                                              fused_chunk_hetero,
                                              fused_chunk_hetero_ref,
                                              fused_chunk_ref, hetero_plan,
-                                             kernel_plan,
+                                             kernel_plan, pad_dim,
                                              pallas_chunk_runner)
 from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_batched,
@@ -1145,3 +1145,140 @@ def test_c1_certificates_with_the_residual_operator(dev, monkeypatch):
     recs, clone = _recorded_checks(m, monkeypatch)
     assert all(r[2].M_res is not None for r in recs)
     _kernel_against_plain(recs, clone)
+
+
+@pytest.mark.parametrize("regime,B,n_small,key", [
+    ("smem", 4224, 40, "rows"), ("tiles", 40, 8, "rows"),
+    ("stream", 1024, 40, "buffers")])
+def test_c2_rows_do_not_depend_on_the_tile_shape(dev, monkeypatch, regime,
+                                                 B, n_small, key):
+    """The plan's B-dependent shape (rows a tile in "smem" and "tiles",
+    operand buffers a warp in "stream") differs between the batch and its
+    first ``n_small`` rows, and each row's results are the same bits."""
+    from reluqp_tpu_torch.ops.check_window import (batched_check,
+                                                   batched_check_plan)
+    kw = dict(precision="float64", eps_abs=1e-6, max_iter=50,
+              check_infeasibility=True)
+    if regime == "stream":
+        data = _hetero_batch(B, nx=50)
+        kw.update(rho_mode="per_problem", bank_build="device")
+    else:
+        data = _shared_qp_batch(B, 50 if regime == "smem" else 100)
+    m = rqt.BatchedReLU_QP()
+    m.setup(*data, **kw)
+    _, recs, _ = _c2_plan_of(m, monkeypatch)
+    rec = next(r for r in recs if r[6] != "tail")
+    outs = []
+    for idx in (torch.arange(B), torch.arange(n_small)):
+        win = _rows_of(rec, idx.to(dev))
+        plan = batched_check_plan(*win[1:])
+        assert plan["regime"] == regime, plan
+        kind, st, op, cfg, y, n, phase = win
+        batched_check(st, op, cfg, y, n, phase)
+        torch.cuda.synchronize()
+        outs.append((plan, st))
+    (p_big, full), (p_small, part) = outs
+    assert p_big[key] != p_small[key], (p_big, p_small)
+    fields = _ROW_STATE + (("rho_ind",) if full.rho_ind.dim() else ())
+    for f in fields:
+        assert torch.equal(getattr(full, f)[:n_small], getattr(part, f)), \
+            (regime, f)
+
+
+def _widened(rec, nx, nc, B=None, seed=0):
+    """A recorded window (C1's, or C2's with ``B`` rows) with its operands
+    and its state's vectors drawn anew at ``nx``, ``nc`` from a seed, in
+    the solver's own shapes; its settings and scalars kept. C1's residual
+    operator, where the window has one, is built from the new H and A in
+    ``build_residual_operator``'s layout."""
+    kind, st, op, cfg, y, n, phase = rec
+    dev, dt = y.device, y.dtype
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=dt)
+    pos = lambda *s: 0.5 + torch.rand(*s, generator=gen, device=dev,
+                                      dtype=dt)
+    lead = () if B is None else (B,)
+    dp = pad_dim(nx + 2 * nc)
+    H, A = rnd(nx, nx) / nx ** 0.5, rnd(nc, nx) / nx ** 0.5
+    lo, hi = -pos(*lead, dp), pos(*lead, dp)
+    lo[..., nx::5] = -float("inf")
+    hi[..., nx + 1::7] = float("inf")
+    y_new = torch.zeros(*lead, dp, device=dev, dtype=dt)
+    y_new[..., :nx + 2 * nc] = rnd(*lead, nx + 2 * nc)
+    like = lambda t, *s: None if t is None else pos(
+        *(lead if t.dim() > 1 else ()), *s)
+    reff = None if op.rho_eff is None else pos(
+        *((B,) if op.rho_eff.dim() == 3 else ()), op.rhos.shape[0], nc)
+    o = dict(H=H, A=A, lo=lo, hi=hi, rho_eff=reff,
+             w_pri=like(op.w_pri, nc), w_dua=like(op.w_dua, nx))
+    if B is None:
+        o["g"] = rnd(nx)
+        if op.M_res is not None:
+            nxp, ncp = pad_dim(nx), pad_dim(nc)
+            M = torch.zeros(dp, 2 * ncp + 2 * nxp, device=dev, dtype=dt)
+            M[:nx, :nc] = A.T
+            M[:nx, 2 * ncp:2 * ncp + nx] = H
+            M[nx:nx + nc, ncp:ncp + nc] = torch.eye(nc, device=dev, dtype=dt)
+            M[nx + nc:nx + 2 * nc, 2 * ncp + nxp:2 * ncp + nxp + nx] = A
+            g_row = torch.zeros(1, nxp, device=dev, dtype=dt)
+            g_row[0, :nx] = o["g"]
+            o.update(M_res=M, g_row=g_row, w_pri=None, w_dua=None)
+        s = dict(y=torch.zeros(dp, device=dev, dtype=dt),
+                 x_prev=None if st.x_prev is None else rnd(nx),
+                 lam_prev=None if st.lam_prev is None else rnd(nc))
+    else:
+        o["G"] = rnd(B, nx)
+        i32 = torch.int32
+        s = {f: torch.zeros(B, device=dev, dtype=t) for f, t in (
+            ("done", torch.bool), ("iters", i32))}
+        s.update(Y=torch.zeros(B, dp, device=dev, dtype=dt),
+                 rho=0.1 * pos(B), pri=pos(B), dua=pos(B),
+                 status=torch.full((B,), -1, device=dev, dtype=i32),
+                 rho_ind=(st.rho_ind.clone() if st.rho_ind.dim() == 0 else
+                          st.rho_ind[:1].repeat(B)),
+                 X_prev=None if st.X_prev is None else rnd(B, nx),
+                 Lam_prev=None if st.Lam_prev is None else rnd(B, nc),
+                 tick=torch.zeros(B + 2, device=dev, dtype=i32), ctl=None)
+        for f in ("k", "n_open", "open", "tail", "open_a", "best_m",
+                  "best_open", "n_stall", "k_fast"):
+            v = getattr(st, f)
+            s[f] = None if v is None else v.clone()
+    return (kind, st._replace(**s), op._replace(**o),
+            cfg._replace(nx=nx, nc=nc), y_new, n, phase)
+
+
+@pytest.mark.parametrize("operand", ["H, A", "M_res"])
+def test_c1_matches_plain_past_its_shared_memory(dev, monkeypatch, operand):
+    """fp64 with the certificates at nx = 7000, nc = 3500 (Dp = 14080),
+    about the largest QP whose vectors fit one block's shared memory:
+    C1 takes its global variant and matches the plain check."""
+    from reluqp_tpu_torch.ops.check_window import check_window_plan
+    qp = rand_qp(60, 15, 15, seed=3, compute_sol=False)
+    m = rqt.ReLU_QP()
+    m.setup(qp.H, qp.g, qp.A, qp.l, qp.u, precision="float64",
+            eps_abs=1e-6, max_iter=100, check_infeasibility=True,
+            **(dict(alpha=1.6) if operand == "H, A" else {}))
+    recs, clone = _recorded_checks(m, monkeypatch)
+    rec = next(r for r in recs if r[6] != "tail")
+    assert (rec[2].M_res is not None) == (operand == "M_res")
+    win = _widened(rec, 7000, 3500)
+    assert win[4].shape[0] == 14080
+    plan = check_window_plan(*win[1:])
+    assert plan["variant"] == "global" and plan["scratch"] > 0, plan
+    _kernel_against_plain([win], clone)
+
+
+def test_c2_matches_plain_at_its_largest_row_tile(dev, monkeypatch):
+    """fp64 with the certificates, B = 2 at nx = 3300, nc = 1650: about
+    the largest shared operand whose row's vectors and products fit one
+    block's shared memory ("tiles", a row a tile)."""
+    from reluqp_tpu_torch.ops.check_window import batched_check_plan
+    m = rqt.BatchedReLU_QP()
+    m.setup(*_shared_qp_batch(4, 20), precision="float64", eps_abs=1e-6,
+            max_iter=100, check_infeasibility=True)
+    recs, clone = _recorded_checks(m, monkeypatch)
+    rec = next(r for r in recs if r[6] != "tail")
+    win = _widened(rec, 3300, 1650, B=2)
+    plan = batched_check_plan(*win[1:])
+    assert plan["regime"] == "tiles" and plan["rows"] == 1, plan
+    _kernel_against_plain([win], clone)
