@@ -1561,6 +1561,92 @@ def k3_bound_ms(op, kw, stats):
                                  else "operations"), t_bytes, t_ops, flops
 
 
+def k3_split(tag, card, fn_of, parent=None):
+    """The stage split of one K3 launch, ``fn_of(full_solve)`` run alone
+    in a CUDA graph (``ops.solve_kernel.k3_stage_split``), for this tree
+    and, where ``parent`` has the stamps, the parent's kernel; logged,
+    returned by tree."""
+    from reluqp_tpu_torch.ops.solve_kernel import full_solve, k3_stage_split
+    out = {"this tree": k3_stage_split(fn_of(full_solve))}
+    if parent:
+        pm = parent_module(parent, "ops.solve_kernel")
+        if hasattr(pm, "k3_stage_split"):
+            out["parent"] = pm.k3_stage_split(fn_of(pm.full_solve))
+        else:
+            log(f"phase 12 K3 split {tag}: the parent has no stage stamps")
+    for who, sp in out.items():
+        log(f"phase 12 K3 split {tag} ({who}), us, mean of 20: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sp.items())
+            + f"; on {card}")
+    return out
+
+
+def k3_warm_operands(ctrl, x, y, rho):
+    """The fused rollout's warm solve after state ``x`` from ``y``, ``rho``
+    (ci=1): ``fn_of(full_solve)`` -> a call of that solve."""
+    import torch
+    from reluqp_tpu_torch.models import mpc as M
+    sv = ctrl.solver
+    ops = M._fused_operands(sv, ctrl.prob)
+    x = torch.as_tensor(x).to(device=sv.y.device,
+                              dtype=sv.settings.precision_dtype)
+    op_w, bias_w = M._fused_step(sv, ops, x)
+    kw_w = M._fused_kw(sv, ops, ci=1)
+    return lambda fn: (lambda: fn(op_w, y, rho, bias_w, **kw_w))
+
+
+def k3_protocol_operands(nx):
+    """The protocol's cold solve at ``nx`` (fp32, Ruiz, eps 1e-4):
+    ``(fn_of, Dp)``."""
+    import torch
+    from reluqp_tpu_torch.utils.problems import rand_qp
+    inst = rand_qp(nx, nx // 4, nx // 4, seed=0, compute_sol=False)[:5]
+    m = fused_solver(inst, precision="float32", eps_abs=1e-4, scaling=True)
+    op, kw = m._fused_call()
+    y0 = torch.zeros_like(m.y)
+    rho0 = m.rho_ind
+    return (lambda fn: (lambda: fn(op, y0, rho0, **kw))), m.Dp
+
+
+def phase_k3_split(card, parent=None, steps=20):
+    """K3 alone (a short chip call after a K3 change): the stage split and
+    the time by CUDA events of the protocol's cold solves and of the fused
+    rollout's warm solve after a ``steps``-step rollout, with ``parent``
+    by turns (parent, this tree, parent), outputs asserted bit-equal."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import MPC, mpc_rollout_scan
+    from reluqp_tpu_torch.ops.solve_kernel import full_solve
+    cases = {f"nx={nx}": k3_protocol_operands(nx)[0] for nx in (100, 323, 500)}
+    Ad, Bd, Q, R, x0 = mpc_config()
+    ctrl = MPC(Ad, Bd, Q, R, horizon=MPC_H, **MPC_KW)
+    xs, _, _, _, y_f, rho_f = mpc_rollout_scan(
+        ctrl.solver, ctrl.prob, x0, steps, kernel="fused",
+        check_interval="auto", return_stats=True, return_state=True)
+    cases["warm"] = k3_warm_operands(ctrl, xs[-1], y_f, rho_f)
+    old = parent_module(parent, "ops.solve_kernel").full_solve \
+        if parent else None
+    out = {}
+    for tag, fn_of in cases.items():
+        y, st = fn_of(full_solve)()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(y).all()) and float(st[5]) == 1.0, st
+        time_of = (lambda f: graph_ms(f, 20)) if tag == "warm" else \
+            (lambda f: _time_ms(f, 20))
+        if old:
+            yo, so = fn_of(old)()
+            assert torch.equal(y, yo) and torch.equal(st, so), tag
+            g = [time_of(fn_of(f)) for f in (old, full_solve, old)]
+            log(f"phase 12 K3 A/B {tag} ({int(st[0])} it): parent "
+                f"{g[0]:.5f} ms, this tree {g[1]:.5f} ms, parent again "
+                f"{g[2]:.5f} ms; bit-equal, on {card}")
+        else:
+            g = [time_of(fn_of(full_solve))]
+            log(f"phase 12 K3 {tag} ({int(st[0])} it): {g[0]:.5f} ms, on "
+                f"{card}")
+        out[tag] = dict(ms=g, split=k3_split(tag, card, fn_of, parent))
+    return out
+
+
 def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
     """K3 per solve at the protocol's sizes by CUDA events, beside the loop
     path's solve() on the same instance, the plain version and the bound;
@@ -1610,9 +1696,11 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
             loop_s.append(time.perf_counter() - t0)
             assert r.info.status == "solved"
         bound, by, t_b, t_o, flops = k3_bound_ms(op, kw, stats)
+        split = k3_split(f"nx={nx}", card, lambda fn: (
+            lambda: fn(op, y0, rho0, **kw)), parent)
         rows[nx] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                         bound_by=by, loop_ms=min(loop_s) * 1e3,
-                        iters=int(stats[0]), dp=m.Dp)
+                        iters=int(stats[0]), dp=m.Dp, split=split)
         log(f"phase 12 K3 nx={nx} (Dp={m.Dp}, fp32, cold, {int(stats[0])} "
             f"it, rung {int(stats[4])}): {ms:.5f} ms per solve by CUDA "
             f"events ({ms * 1e3 / stats[0]:.3f} us/iteration); loop path "
@@ -1626,16 +1714,10 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
     # path): the operands of the step after phase 11's rollout, from its
     # final state and rung, ci=1, per launch in a CUDA graph of 20 (a
     # launch's host time exceeds the solve's)
-    from reluqp_tpu_torch.models import mpc as M
     ctrl = fused["ctrl"]
     sv = ctrl.solver
-    ops = M._fused_operands(sv, ctrl.prob)
-    x = torch.as_tensor(fused["xs"][-1]).to(
-        device=sv.y.device, dtype=sv.settings.precision_dtype)
-    op_w, bias_w = M._fused_step(sv, ops, x)
-    kw_w = M._fused_kw(sv, ops, ci=1)
-    warm = lambda fn: (lambda: fn(op_w, fused["y_f"], fused["rho_f"], bias_w,
-                                  **kw_w))
+    warm = k3_warm_operands(ctrl, fused["xs"][-1], fused["y_f"],
+                            fused["rho_f"])
     y_w, st_w = warm(full_solve)()
     assert bool(torch.isfinite(y_w).all()) and float(st_w[5]) == 1.0, st_w
     if parent:
@@ -1655,6 +1737,7 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
         log(f"phase 12 K3 on the fused rollout's warm solve (Dp={sv.Dp}, "
             f"fp32, ci=1, {int(st_w[0])} iteration(s)): {warm_ms:.5f} ms per "
             f"solve in a CUDA graph of 20, on {card}")
+    warm_split = k3_split("warm", card, warm, parent)
     _, _, _, _, x0 = mpc_config()
     rng = np.random.RandomState(8)
 
@@ -1684,7 +1767,8 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
     profile_steps("phase 12", ctrl, fused["xs"][-1], 200, kernel="fused",
                   ci=ci)
     log("phase 12 OK")
-    return dict(rows=rows, step_s=step_s, warm_ms=warm_ms)
+    return dict(rows=rows, step_s=step_s, warm_ms=warm_ms,
+                warm_split=warm_split, warm_iters=int(st_w[0]))
 
 
 # ---------------------------------------------------------------------- #

@@ -67,7 +67,7 @@
 struct K3Params {
   const void *wt, *b, *rhos, *m_res, *g_row, *lo, *hi, *y0, *a_w, *rho_eff, *a_inf, *inv_wp,
       *inv_wd, *l_nc, *u_nc, *fin_l, *fin_u, *g_dp, *m_aff, *x_row, *rho0_dev;
-  void *y_out, *stats, *ybuf, *part;
+  void *y_out, *stats, *ybuf, *part, *stamps;
   int w_dtype, y_dtype, n_rho, dp, nx, nc, nxp, ncp, nplp;
   int max_iter, ci, rho0, adaptive, jump, stride, tier, two_phase, alpha, infeas, verbose,
       part_rows;
@@ -86,6 +86,7 @@ struct K3Args {
   T *y_out, *ybuf;
   float* stats;
   double* part;
+  unsigned long long* stamps;
   int n_rho, dp, nx, nc, nxp, ncp, nplp;
   int max_iter, ci, rho0, adaptive, jump, stride, tier, two_phase, alpha, infeas, verbose,
       resident;
@@ -157,6 +158,11 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
   const Range rv = split(nxp, G, blk);
 
   Loop<T, WT, AccF64> s{};
+  s.stamps = a.stamps;
+  if (a.stamps && threadIdx.x == 0) {
+    s.mark = gtimer();
+    atomicMin(a.stamps + K3S_START, s.mark);
+  }
   s.dp = dp;
   s.nx = a.nx;
   s.nc = a.nc;
@@ -244,6 +250,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
     for (int i = threadIdx.x; i < dp; i += kThreads) s.yprev_s[i] = s.ys[i];
     __syncthreads();
   }
+  lap(s, K3S_STAGED);
 
   LoopState st{k0, 0, ST_RUNNING, a.rhos[k0], 0.f, 0.f};
   const int k_fast =
@@ -261,7 +268,13 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
     a.stats[6] = (float)k_fast;
     a.stats[7] = 0.f;
   }
+  if (a.stamps) {
+    __syncthreads();
+    if (threadIdx.x == 0) atomicMax(a.stamps + K3S_END, gtimer());
+  }
 }
+
+__global__ void k3_stamp_kernel(unsigned long long* stamps) { stamps[K3S_PRE] = gtimer(); }
 
 struct Plan {
   int nblocks, smem, resident;
@@ -330,6 +343,7 @@ cudaError_t launch(const K3Params& p, cudaStream_t stream) {
   a.ybuf = static_cast<T*>(p.ybuf);
   a.stats = static_cast<float*>(p.stats);
   a.part = static_cast<double*>(p.part);
+  a.stamps = static_cast<unsigned long long*>(p.stamps);
   a.n_rho = p.n_rho;
   a.dp = p.dp;
   a.nx = p.nx;
@@ -401,6 +415,13 @@ int k3_plan(int dp, int nxp, int ncp, int nplp, int y_dtype, int w_dtype, int al
   *smem = plan.smem;
   *resident = plan.resident;
   return 0;
+}
+
+// The K3S_PRE stamp on `stream`, just before a stamped K3 launch.
+int k3_stamp_now(void* stamps, void* stream) {
+  k3_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(stamps));
+  return (int)cudaGetLastError();
 }
 
 const char* k3_error_string(int code) {

@@ -57,6 +57,22 @@ constexpr double kTiny = 1e-30;
 
 enum { ST_RUNNING = -1, ST_MAXITER = 0, ST_SOLVED = 1, ST_PINF = 2, ST_DINF = 3 };
 
+// K3's stage stamps (a null pointer in K2 and on every solve path;
+// ops/solve_kernel.py K3_STAGES names the slots): K3S_PRE is written by a
+// one-thread kernel launched just before K3, K3S_START takes the earliest
+// block's start and K3S_END the latest block's end (%globaltimer, ns), and
+// every other slot sums block 0's time in that stage over the launch.
+enum {
+  K3S_PRE = 0, K3S_START, K3S_STAGED, K3S_BIAS, K3S_ITER, K3S_EXCH, K3S_CHECK, K3S_REDUCE,
+  K3S_END, kK3Slots
+};
+
+__device__ __forceinline__ unsigned long long gtimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // NaN-propagating max and min (a NaN residual must not be dropped, as
 // fmax/fmin would).
 template <typename T>
@@ -251,7 +267,23 @@ struct Loop {
   const T *inv_wp, *inv_wd, *l_nc, *u_nc, *fin_l, *fin_u, *g_dp;
   CertScalars* cert;
   float eps_pinf, eps_dinf;
+  // K3's stage stamps (null: off) and block 0's last stage boundary
+  unsigned long long* stamps;
+  unsigned long long mark;
 };
+
+// The stage that ends here into stamps[slot] (block 0, after a block
+// barrier so that its slowest warp is counted); nothing when stamps are off.
+template <typename T, typename WT, typename Acc>
+__device__ __forceinline__ void lap(Loop<T, WT, Acc>& s, int slot) {
+  if (!s.stamps) return;
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const unsigned long long now = gtimer();
+    s.stamps[slot] += now - s.mark;
+    s.mark = now;
+  }
+}
 
 // lam (and d = p - z under alpha) on all ncp constraint lanes, from this
 // block's copy of y: the selector products of the TPU kernel as lane reads,
@@ -293,6 +325,7 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
                         ry.n, s.resident);
     s.resident_rung = k_idx;
     __syncthreads();
+    lap(s, K3S_STAGED);
   }
   for (int p = warp; p < ry.n; p += kWarps) {
     const T c = s.bias_c[(size_t)k_idx * s.bias_ld + s.bias_off + p];
@@ -304,6 +337,7 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     }
   }
   __syncthreads();
+  lap(s, K3S_BIAS);
   {
     // the hot loop reads its operands from locals, not through `s`
     const Cols<WT> wc = s.wc;
@@ -323,9 +357,11 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
           dst[ry.lo + p] = v;
         }
       }
+      lap(s, K3S_ITER);
       grid.sync();
       for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = __ldcg(dst + i);
       __syncthreads();
+      lap(s, K3S_EXCH);
     }
     s.parity = parity;
   }
@@ -416,6 +452,7 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     if (lane == 0) s.rr[p] = r;
   }
   __syncthreads();
+  lap(s, K3S_CHECK);
   if (threadIdx.x == 0) {
     float p_pri = 0.f, p_sp = 0.f, p_atdl = 0.f, p_hdx = 0.f, p_bad = 0.f;
     T p_dua = T(0), p_sd = T(0);
@@ -562,6 +599,7 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
   st.dua = s.dec->dua;
   st.k += n_steps;
   __syncthreads();
+  lap(s, K3S_REDUCE);
 }
 
 // The solve loop: whole check windows while the solve runs and the budget

@@ -60,7 +60,8 @@ from .fused_step import _DTYPE_CODE, _bf16, device_guard, pad_dim
 __all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",
            "build_residual_operator", "build_alpha_operand",
            "build_infeas_operand", "full_solve", "full_solve_ref",
-           "solve_plan", "full_rollout", "full_rollout_ref", "rollout_plan",
+           "solve_plan", "k3_stage_split", "K3_STAGES", "full_rollout",
+           "full_rollout_ref", "rollout_plan",
            "full_rollout_batched", "full_rollout_batched_ref",
            "rollout_batched_plan"]
 
@@ -809,7 +810,7 @@ class _K3Params(ctypes.Structure):
         "wt", "b", "rhos", "m_res", "g_row", "lo", "hi", "y0", "a_w",
         "rho_eff", "a_inf", "inv_wp", "inv_wd", "l_nc", "u_nc", "fin_l",
         "fin_u", "g_dp", "m_aff", "x_row", "rho0_dev", "y_out", "stats",
-        "ybuf", "part")]
+        "ybuf", "part", "stamps")]
         + [(n, ctypes.c_int) for n in (
             "w_dtype", "y_dtype", "n_rho", "dp", "nx", "nc", "nxp", "ncp",
             "nplp", "max_iter", "ci", "rho0", "adaptive", "jump", "stride",
@@ -829,6 +830,8 @@ def _k3_lib():
         lib.k3_full_solve.restype = i
         lib.k3_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
         lib.k3_plan.restype = i
+        lib.k3_stamp_now.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.k3_stamp_now.restype = i
         lib.k3_error_string.argtypes = [i]
         lib.k3_error_string.restype = ctypes.c_char_p
         lib._k3_typed = True
@@ -961,6 +964,8 @@ def _full_solve_cuda(ops: dict, rho_ind0, *, nx, nc, nxp, ncp,
         x_row=ptr("x_row"), rho0_dev=ptr("rho0_dev"),
         y_out=y_out.data_ptr(),
         stats=stats.data_ptr(), ybuf=ybuf.data_ptr(), part=part.data_ptr(),
+        stamps=None if full_solve.stamps is None
+        else full_solve.stamps.data_ptr(),
         w_dtype=_DTYPE_CODE[ops["Wt_bank"].dtype], y_dtype=_DTYPE_CODE[dt],
         n_rho=ops["Wt_bank"].shape[0], dp=dp, nx=nx, nc=nc, nxp=nxp,
         ncp=ncp, nplp=ops["M_aff"].shape[1] if "M_aff" in ops else 0,
@@ -1041,6 +1046,59 @@ def full_solve(op: FullSolveOperand, y0, rho_ind0, bias_affine=None, *,
 
 
 full_solve.launches = 0
+# an int64 (len(K3_STAGES) + 3,) tensor on the card, or None: the kernel's
+# stage stamps (``k3_stage_split``); None on every solve path
+full_solve.stamps = None
+
+# block 0's stages of a K3 launch, in order (``csrc/solve_loop.cuh``'s K3S_*
+# slots after K3S_START): the operands staged (the prologue and every rung
+# change), the bias formed, the iterations' products, their exchange (the
+# grid barrier and the y reload), the checks' products, the checks' partials
+# reduced and decided
+K3_STAGES = ("staged", "bias", "iteration", "exchange", "check", "reduced")
+
+
+def k3_stage_split(run, reps: int = 20) -> dict:
+    """Where one K3 launch's time goes: ``run()`` (one ``full_solve`` on the
+    card) captured in a CUDA graph behind a one-thread kernel that stamps
+    the time, replayed ``reps`` times with the stage stamps on. Returns the
+    mean µs of: ``launch`` (the stamp to the earliest block's start), each
+    stage of ``K3_STAGES`` (block 0's time in it, summed over the launch),
+    ``blocks`` (the earliest block's start to the latest block's end) and
+    ``total`` (the stamp to that end)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = len(K3_STAGES) + 3
+    stamps = torch.zeros(n, dtype=torch.int64, device=dev)
+    lib = _k3_lib()
+    full_solve.stamps = stamps
+    try:
+        run()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            run()
+            with torch.cuda.graph(graph, stream=side):
+                rc = lib.k3_stamp_now(stamps.data_ptr(), side.cuda_stream)
+                if rc != 0:
+                    _k3_raise(lib, rc, "stamp")
+                run()
+        torch.cuda.current_stream().wait_stream(side)
+        sums = dict.fromkeys(("launch",) + K3_STAGES + ("blocks", "total"),
+                             0.0)
+        for _ in range(reps):
+            stamps.zero_()
+            stamps[1] = -1          # the start slot takes the least time
+            graph.replay()
+            t = stamps.cpu().tolist()
+            sums["launch"] += (t[1] - t[0]) / 1e3
+            for i, name in enumerate(K3_STAGES):
+                sums[name] += t[2 + i] / 1e3
+            sums["blocks"] += (t[-1] - t[1]) / 1e3
+            sums["total"] += (t[-1] - t[0]) / 1e3
+    finally:
+        full_solve.stamps = None
+    return {k: v / reps for k, v in sums.items()}
 
 
 # --------------------------------------------------------------------- #
