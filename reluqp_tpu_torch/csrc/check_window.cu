@@ -65,7 +65,13 @@
 //   copied into shared memory with cp.async and each applied to every row
 //   of the tile. Products and segment sums go to scratch; the last block of
 //   each row tile (a per-row-tile ticket) adds the segments in order and
-//   takes that tile's rows' decisions.
+//   takes that tile's rows' decisions. Where even a one-row tile's vectors
+//   and products outgrow shared memory (past about nx = 3400 in fp64 with
+//   the certificates, nx = 6400 in fp64, 6800 and 12900 in fp32), the
+//   global variant stages no vectors for the products (x and dx are read
+//   in place, an A'lam block forms its segment of lam and dlam) and the
+//   last block stages the rows' vectors into scratch and reads the products
+//   there: the same values, sums and order, no size limit.
 // Every regime stages a row's vectors with cp.async. The grid's last block
 // (a ticket) sums the blocks' (row tiles') shares of the shared walk's log
 // rho and active count, the open count and phase A's log residuals in a
@@ -179,6 +185,7 @@ constexpr int kTilesBuf = 1024;                 // C2 "tiles": a warp's coeffici
 constexpr int kStreamWarps = 8;                 // C2 "stream": warps a block at most
 constexpr long kSmemCap = 200 * 1024;           // shared memory a C2 block may take
 constexpr long kSmemSM = 227 * 1024;            // shared memory of an SM's blocks
+constexpr long kTilesStatic = 4096;             // C2 "tiles": its static shared memory, at most
 constexpr int kStatSolved = 1, kStatPinf = 2, kStatDinf = 3, kRunning = -1;
 enum { R_SMEM = 0, R_STREAM = 1, R_TILES = 2 };
 
@@ -956,12 +963,17 @@ struct C2Plan {
   long outs_at;              // "tiles": where the products start in part (doubles)
   long lpart_at;             // "tiles": where A'lam's segment sums start
   int lpart_ld;              // "tiles": their rows' stride (whole 16-byte pieces)
+  int global;                // "tiles": the global variant (vectors in scratch)
+  int vl;                    // "tiles": a row's stride in the staged vectors
+  long vec_at;               // "tiles", global: where the rows' vectors start
+  long scratch;              // doubles of scratch a launch takes
 };
 
-// The regime and its shape for `nsm` SMs. The regime follows from nx, nc,
-// the dtype and the per-problem operands alone; B sets the grid, the rows
-// of a "tiles" row tile and whether a "stream" warp double-buffers.
-C2Plan c2_plan(const C2Args& a, int nsm) {
+// The regime and its shape for `nsm` SMs whose blocks may opt in to `optin`
+// bytes of shared memory. The regime follows from nx, nc, the dtype and the
+// per-problem operands alone; B sets the grid, the rows of a "tiles" row
+// tile and whether a "stream" warp double-buffers.
+C2Plan c2_plan(const C2Args& a, int nsm, int optin) {
   C2Plan p;
   memset(&p, 0, sizeof(p));
   const int elt = a.dtype == DT_F64 ? 8 : 4;
@@ -980,6 +992,7 @@ C2Plan c2_plan(const C2Args& a, int nsm) {
     p.regime = R_STREAM;
     p.group = 32, p.warps = 1, p.threads = 32, p.grid = 1, p.n_parts = 1;
     p.smem = (int)rest;
+    p.scratch = 4;
     return p;
   }
   if (!a.h_per && !a.a_per) {
@@ -1002,6 +1015,7 @@ C2Plan c2_plan(const C2Args& a, int nsm) {
       const int cap = nsm * (int)per_sm;
       p.grid = tiles < cap ? tiles : cap;
       p.n_parts = p.grid;
+      p.scratch = 4L * p.n_parts;
       return p;
     }
   } else {
@@ -1031,6 +1045,7 @@ C2Plan c2_plan(const C2Args& a, int nsm) {
       const int blocks = (B + p.warps - 1) / p.warps;
       p.grid = blocks < cap ? blocks : cap;
       p.n_parts = p.grid;
+      p.scratch = 4L * p.n_parts;
       return p;
     }
   }
@@ -1042,14 +1057,25 @@ C2Plan c2_plan(const C2Args& a, int nsm) {
   p.n_cxt = (p.ncx + kWarps - 1) / kWarps;
   const long lsegs = (nc + 31) / 32;
   p.n_lt = (int)(((nx + 31) / 32) * lsegs);
+  const long wbuf = (long)kWarps * kTilesBuf * elt;
   for (;;) {  // fewer rows a tile where the tile does not fit
     // the rows' vectors, then the warps' coefficients (the products) or,
     // in the row tile's last block once they are done, the rows' products
     const long outs = round_up((long)p.rows * p.out_ld * elt, 16);
-    const long wbuf = (long)kWarps * kTilesBuf * elt;
     p.smem = (int)(round_up((long)p.rows * (p.vec_ld | 1) * elt, 16) + std::max(outs, wbuf));
     if (p.smem <= kSmemCap || p.rows == 1) break;
     p.rows /= 2;
+  }
+  p.vl = p.vec_ld | 1;
+  if (p.smem > optin - kTilesStatic) {
+    // even one row does not fit: the global variant keeps the rows'
+    // vectors and products in scratch, a block's shared memory only the
+    // warps' coefficients and an A'lam block's segment of lam and dlam, so
+    // the row tile takes up to 16 rows again
+    p.global = 1;
+    p.rows = (a.h_per || a.a_per) ? 1 : (B < kMaxTilesRows ? B : kMaxTilesRows);
+    p.vl = p.vec_ld;
+    p.smem = (int)(wbuf + (long)p.rows * 64 * elt);
   }
   p.n_rt = (B + p.rows - 1) / p.rows;
   p.grid = (p.n_cxt + p.n_lt) * p.n_rt;
@@ -1057,6 +1083,9 @@ C2Plan c2_plan(const C2Args& a, int nsm) {
   p.outs_at = round_up(4L * p.n_parts, 2);  // 16-byte aligned
   p.lpart_at = p.outs_at + round_up(((long)B * p.out_ld * elt + 7) / 8, 2);
   p.lpart_ld = (int)round_up(nx, 16 / elt);
+  const long lparts = (long)p.n_rt * lsegs * (a.certs ? 2 : 1) * p.rows * p.lpart_ld;
+  p.vec_at = round_up(p.lpart_at + (lparts * elt + 7) / 8, 2);
+  p.scratch = p.vec_at + (p.global ? ((long)p.n_rt * p.rows * p.vl * elt + 7) / 8 : 0);
   return p;
 }
 
@@ -1134,16 +1163,54 @@ __device__ void stage_fix(const C2Args& a, const C2Ctx& c, int b, T* v, int gl) 
     for (int i = gl; i < nx; i += G) v[nx + 2 * nc + i] = sub_rn(v[i], v[nx + 2 * nc + i]);
 }
 
+// lam_i (rho_eff (p - z) under alpha != 1) of row b, from the row of Y:
+// the value stage_fix forms
+template <typename T>
+__device__ __forceinline__ T lam_at(const C2Args& a, const T* yr, const T* rv, int i) {
+  const T z = yr[a.nx + i], pl = yr[a.nx + a.nc + i];
+  return rv ? mul_rn(rv[i], sub_rn(pl, z)) : pl;
+}
+
+// "tiles"' global variant: row b's vectors straight into scratch (stage_copy
+// and stage_fix's values; one group of G lanes per row, so no block stages
+// another's row).
+template <typename T, int G>
+__device__ void stage_global(const C2Args& a, const C2Ctx& c, int b, T* v, int gl) {
+  const int nx = a.nx, nc = a.nc, n = nx + 2 * nc;
+  const T* yr = static_cast<const T*>(a.Y_in) + (size_t)b * a.dp;
+  const T* xp = a.certs ? static_cast<const T*>(a.X_prev) + (size_t)b * nx : nullptr;
+  const T* lp = a.certs ? static_cast<const T*>(a.Lam_prev) + (size_t)b * nc : nullptr;
+  const T* rv = a.alpha ? reff_row<T>(a, b, row_ind(a, c, b)) : nullptr;
+  for (int i = gl; i < nx; i += G) {
+    v[i] = yr[i];
+    if (xp) v[n + i] = sub_rn(yr[i], xp[i]);
+  }
+  for (int i = gl; i < nc; i += G) {
+    const T l = lam_at(a, yr, rv, i);
+    v[nx + i] = yr[nx + i];
+    v[nx + nc + i] = l;
+    if (lp) v[n + nx + i] = sub_rn(l, lp[i]);
+  }
+}
+
 template <typename T> struct alignas(16) Pack {
   T e[16 / sizeof(T)];
 };
+
+// A row's staged vector or product: from shared memory, or (GL, "tiles"'
+// global variant) from scratch through L2, where the other blocks' stores
+// are seen past the row tile's ticket.
+template <bool GL, typename T> __device__ __forceinline__ T ldv(const T* p) {
+  if constexpr (GL) return __ldcg(p);
+  else return *p;
+}
 
 // Row b's residuals, estimate and decisions, from its vectors v and
 // products out [A x | H x | A'lam | A dx | H dx | A'dlam] (shared memory),
 // by an aligned group of G lanes (gl its lane); every lane of the warp takes
 // part (`valid` false: no row). Writes the row's results and its new state
 // row, and returns its share of the batch's sums.
-template <typename T, int G>
+template <typename T, int G, bool GL = false>
 __device__ Share row_pass(const C2Args& a, const C2Ctx& c, int b, bool valid, const T* v,
                           const T* out, int gl) {
   typedef Stats<T> S;
@@ -1176,34 +1243,34 @@ __device__ Share row_pass(const C2Args& a, const C2Ctx& c, int b, bool valid, co
   const int n_c = valid ? nc : 0, n_x = valid ? nx : 0;
 #pragma unroll 8
   for (int i = gl; i < n_c; i += G) {
-    T ax = out[i], z = v[nx + i];
+    T ax = ldv<GL>(out + i), z = ldv<GL>(v + nx + i);
     if (wp) ax = mul_rn(wp[i], ax), z = mul_rn(wp[i], z);
     st.max_in(S::PRI, abs_t(sub_rn(ax, z)));
     st.max_in(S::AX, abs_t(ax));
     st.max_in(S::Z, abs_t(z));
     if (certs) {
-      const T dl = v[2 * nx + 2 * nc + i];
+      const T dl = ldv<GL>(v + 2 * nx + 2 * nc + i);
       st.max_in(S::DL, abs_t(dl));
       const T term = dl > zero ? mul_rn(hi[i], dl) : (dl < zero ? mul_rn(lo[i], dl) : zero);
       st.sup += static_cast<double>(term);
-      const T adx = out[o3 + i];
+      const T adx = ldv<GL>(out + o3 + i);
       if (finite_t(hi[i])) st.max_in(S::RH, adx);
       if (finite_t(lo[i])) st.max_in(S::RL, -adx);
     }
   }
 #pragma unroll 8
   for (int i = gl; i < n_x; i += G) {
-    T hx = out[nc + i], atl = out[nc + nx + i], gi = gr[i];
+    T hx = ldv<GL>(out + nc + i), atl = ldv<GL>(out + nc + nx + i), gi = gr[i];
     if (wd) hx = mul_rn(wd[i], hx), atl = mul_rn(wd[i], atl), gi = mul_rn(wd[i], gi);
     st.max_in(S::DUA, abs_t(add_rn(add_rn(hx, atl), gi)));
     st.max_in(S::HX, abs_t(hx));
     st.max_in(S::ATL, abs_t(atl));
     st.max_in(S::G, abs_t(gi));
     if (certs) {
-      const T dxi = v[nx + 2 * nc + i];
+      const T dxi = ldv<GL>(v + nx + 2 * nc + i);
       st.max_in(S::DX, abs_t(dxi));
-      st.max_in(S::HD, abs_t(out[o3 + nc + i]));
-      st.max_in(S::AT, abs_t(out[o3 + nc + nx + i]));
+      st.max_in(S::HD, abs_t(ldv<GL>(out + o3 + nc + i)));
+      st.max_in(S::AT, abs_t(ldv<GL>(out + o3 + nc + nx + i)));
       st.gdx += static_cast<double>(mul_rn(gr[i], dxi));
     }
   }
@@ -1280,8 +1347,8 @@ __device__ Share row_pass(const C2Args& a, const C2Ctx& c, int b, bool valid, co
   if (certs) {
     T* xp = static_cast<T*>(a.X_prev) + (size_t)b * nx;
     T* lp = static_cast<T*>(a.Lam_prev) + (size_t)b * nc;
-    for (int i = gl; i < nx; i += G) xp[i] = v[i];
-    for (int i = gl; i < nc; i += G) lp[i] = v[nx + nc + i];
+    for (int i = gl; i < nx; i += G) xp[i] = ldv<GL>(v + i);
+    for (int i = gl; i < nc; i += G) lp[i] = ldv<GL>(v + nx + nc + i);
   }
   return sh;
 }
@@ -1657,17 +1724,16 @@ __global__ void __launch_bounds__(kStreamWarps * 32) c2_kernel_stream(const C2Ar
 
 // The row tile's decisions, by its last block (G lanes a row), then the
 // grid's ticket.
-template <typename T, int G>
+template <typename T, int G, bool GL>
 __device__ void tiles_rows(const C2Args& a, const C2Ctx& c, const C2Plan& p, int rt, int nr,
                            const T* vec, const T* outs) {
   __shared__ double s_share[kThreads / 8][4];
   __shared__ double s_blk[4];
-  const int vl = p.vec_ld | 1;
   const int gl = threadIdx.x % G, r = threadIdx.x / G;
   const bool valid = r < nr;
   const int rr = valid ? r : 0;
-  const Share sh = row_pass<T, G>(a, c, rt * p.rows + r, valid, vec + (size_t)rr * vl,
-                                  outs + (size_t)rr * p.out_ld, gl);
+  const Share sh = row_pass<T, G, GL>(a, c, rt * p.rows + r, valid, vec + (size_t)rr * p.vl,
+                                      outs + (size_t)rr * p.out_ld, gl);
   if (gl == 0 && valid) {
     s_share[r][0] = sh.logr, s_share[r][1] = sh.logres;
     s_share[r][2] = sh.act, s_share[r][3] = sh.open;
@@ -1685,32 +1751,47 @@ __device__ void tiles_rows(const C2Args& a, const C2Ctx& c, const C2Plan& p, int
   c2_close<T>(a, c, p.n_parts, rt, s_blk);
 }
 
-template <typename T>
+// GL: the global variant (the plan's `global`). The rows' vectors are not
+// staged for the products: a block of [A; H] reads x and forms dx = x -
+// x_prev from global memory as it goes, a block of A'lam forms its segment
+// of lam and dlam in shared memory, and the row tile's last block stages
+// the rows' vectors into scratch and reads the products where the blocks
+// left them. Every value and every sum is the one the staged kernel forms.
+template <typename T, bool GL>
 __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, const C2Plan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int B = a.B, nx = a.nx, nc = a.nc, R = p.rows, o3 = nc + 2 * nx;
-  const int vl = p.vec_ld | 1;
+  const int vl = p.vl;
   const bool certs = a.certs;
   const int rt = blockIdx.y, ot = blockIdx.x;
   const int r0 = rt * R, nr = min(R, B - r0);
-  T* vec = reinterpret_cast<T*>(smem_raw);  // R rows of vl
+  // R rows of vl: in shared memory, or (GL) the row tile's in scratch
+  T* vec = GL ? reinterpret_cast<T*>(a.part + p.vec_at) + (size_t)r0 * vl
+              : reinterpret_cast<T*>(smem_raw);
   // the warps' coefficients; in the row tile's last block, once every
   // product is formed, the tile's products (rows of out_ld) in their place
-  T* work = reinterpret_cast<T*>(smem_raw + round_up((long)R * vl * sizeof(T), 16));
+  T* work = GL ? reinterpret_cast<T*>(smem_raw)
+               : reinterpret_cast<T*>(smem_raw + round_up((long)R * vl * sizeof(T), 16));
   T* wbuf = work;
   const C2Ctx c = c2_ctx(a);
   stamp(a.stamps, S_START);
-  // every row of the tile's vectors (a warp a row)
-  for (int r = warp; r < nr; r += kWarps) stage_copy<T, 32>(a, r0 + r, vec + (size_t)r * vl, lane);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-  for (int r = warp; r < nr; r += kWarps)
-    stage_fix<T, 32>(a, c, r0 + r, vec + (size_t)r * vl, lane);
-  __syncthreads();
+  if (!GL) {
+    // every row of the tile's vectors (a warp a row)
+    for (int r = warp; r < nr; r += kWarps)
+      stage_copy<T, 32>(a, r0 + r, vec + (size_t)r * vl, lane);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    for (int r = warp; r < nr; r += kWarps)
+      stage_fix<T, 32>(a, c, r0 + r, vec + (size_t)r * vl, lane);
+    __syncthreads();
+  }
   stamp(a.stamps, S_STAGED);
   T* outs_g = reinterpret_cast<T*>(a.part + p.outs_at);
+  // GL: the tile's rows of Y and of x_prev, read in place
+  const T* yg = static_cast<const T*>(a.Y_in) + (size_t)r0 * a.dp;
+  const T* xpg = certs ? static_cast<const T*>(a.X_prev) + (size_t)r0 * nx : nullptr;
   // a warp's coefficients, copied in with cp.async (all in flight at once)
   T* wb = wbuf + (size_t)warp * kTilesBuf;
   if (ot < p.n_cxt) {
@@ -1738,8 +1819,13 @@ __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, cons
 #pragma unroll
           for (int r = 0; r < kMaxTilesRows; ++r) {
             if (r < nr) {
-              acc[r] = fma_t(w, vec[(size_t)r * vl + k], acc[r]);
-              if (certs) dacc[r] = fma_t(w, vec[(size_t)r * vl + nx + 2 * nc + k], dacc[r]);
+              const T x = GL ? yg[(size_t)r * a.dp + k] : vec[(size_t)r * vl + k];
+              acc[r] = fma_t(w, x, acc[r]);
+              if (certs) {
+                const T dx = GL ? sub_rn(x, xpg[(size_t)r * nx + k])
+                                : vec[(size_t)r * vl + nx + 2 * nc + k];
+                dacc[r] = fma_t(w, dx, dacc[r]);
+              }
             }
           }
         }
@@ -1772,12 +1858,27 @@ __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, cons
       if (cj < nx) cp_elem(wbuf + q, Am + (size_t)(i0 + i) * nx + cj);
     }
     cp_commit();
+    // GL: the segment's lam and dlam of each row (32 + 32 a row)
+    T* seg = wbuf + (size_t)kWarps * kTilesBuf;
+    if (GL) {
+      for (int q = threadIdx.x; q < nr * 32; q += kThreads) {
+        const int r = q >> 5, i = q & 31, b = r0 + r;
+        if (i < ni) {
+          const T* rv = a.alpha ? reff_row<T>(a, b, row_ind(a, c, b)) : nullptr;
+          const T l = lam_at(a, yg + (size_t)r * a.dp, rv, i0 + i);
+          seg[r * 64 + i] = l;
+          if (certs)
+            seg[r * 64 + 32 + i] =
+                sub_rn(l, static_cast<const T*>(a.Lam_prev)[(size_t)b * nc + i0 + i]);
+        }
+      }
+    }
     cp_wait<0>();
     __syncthreads();
     T* lpart = reinterpret_cast<T*>(a.part + p.lpart_at);
     for (int r = warp; r < nr; r += kWarps) {
-      const T* lv = vec + (size_t)r * vl + nx + nc + i0;
-      const T* dlv = vec + (size_t)r * vl + 2 * nx + 2 * nc + i0;
+      const T* lv = GL ? seg + r * 64 : vec + (size_t)r * vl + nx + nc + i0;
+      const T* dlv = GL ? seg + r * 64 + 32 : vec + (size_t)r * vl + 2 * nx + 2 * nc + i0;
       T acc = T(0), dacc = T(0);
       if (j < nx) {
         for (int q = 0; q < ni; ++q) {
@@ -1795,9 +1896,13 @@ __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, cons
   stamp(a.stamps, S_PRODUCTS);
   // the row tile's last block takes its rows' decisions
   if (!ticket(a.tick + 2 + rt, p.n_cxt + p.n_lt)) return;
-  // the tile's rows' products, contiguous in scratch: one flat copy
-  T* outs = work;
-  {
+  // the tile's rows' products: one flat copy from scratch, or (GL) left
+  // there, the rows' vectors staged there beside them
+  T* outs = GL ? outs_g + (size_t)r0 * p.out_ld : work;
+  if (GL) {
+    for (int r = warp; r < nr; r += kWarps)
+      stage_global<T, 32>(a, c, r0 + r, vec + (size_t)r * vl, lane);
+  } else {
     const T* src = outs_g + (size_t)r0 * p.out_ld;
     const long n = (long)nr * p.out_ld;
     constexpr int V = 16 / sizeof(T);
@@ -1847,7 +1952,7 @@ __global__ void __launch_bounds__(kThreads) c2_kernel_tiles(const C2Args a, cons
     }
   }
   __syncthreads();
-  tiles_rows<T, 16>(a, c, p, rt, nr, vec, outs);
+  tiles_rows<T, 16, GL>(a, c, p, rt, nr, vec, outs);
 }
 
 // The shared walk's re-encode of p for the rung C2 decided (alpha != 1):
@@ -1876,6 +1981,14 @@ int sm_count() {
   return nsm;
 }
 
+// C2's plan on the current device (its SMs and opt-in shared memory).
+C2Plan c2_plan_here(const C2Args& a) {
+  int dev, optin = (int)kSmemSM;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return c2_plan(a, sm_count(), optin);
+}
+
 // A C2 kernel's attributes (kernel_init, the largest carveout), and
 // whether the plan's shared memory fits it.
 cudaError_t c2_init(const void* fn, int smem) {
@@ -1887,8 +2000,8 @@ cudaError_t c2_init(const void* fn, int smem) {
 
 template <typename T>
 cudaError_t c2_launch(const C2Args& a, cudaStream_t stream, int* launches) {
+  const C2Plan p = c2_plan_here(a);
   const int nsm = sm_count();
-  const C2Plan p = c2_plan(a, nsm);
   cudaError_t e;
   if (p.regime == R_SMEM) {
     auto fn = p.rows == 32 ? c2_kernel_smem<T, 32>
@@ -1899,8 +2012,9 @@ cudaError_t c2_launch(const C2Args& a, cudaStream_t stream, int* launches) {
     if ((e = c2_init(reinterpret_cast<const void*>(c2_kernel_stream<T>), p.smem))) return e;
     c2_kernel_stream<T><<<p.grid, p.threads, p.smem, stream>>>(a, p);
   } else {
-    if ((e = c2_init(reinterpret_cast<const void*>(c2_kernel_tiles<T>), p.smem))) return e;
-    c2_kernel_tiles<T><<<dim3(p.n_cxt + p.n_lt, p.n_rt), kThreads, p.smem, stream>>>(a, p);
+    auto fn = p.global ? c2_kernel_tiles<T, true> : c2_kernel_tiles<T, false>;
+    if ((e = c2_init(reinterpret_cast<const void*>(fn), p.smem))) return e;
+    fn<<<dim3(p.n_cxt + p.n_lt, p.n_rt), kThreads, p.smem, stream>>>(a, p);
   }
   if ((e = cudaGetLastError())) return e;
   *launches = 1;
@@ -2027,29 +2141,25 @@ int c1_check(const C1Args* a, void* stream) {
 }
 
 // What c2_check's launch takes: out[0] scratch doubles (four per block, per
-// row tile in "tiles", with the rows' products after them), out[1] ticket
-// ints (zeroed once; every launch leaves them so: the grid's ticket, the
-// shared walk's old rung, and one per row tile in "tiles").
-void c2_sizes(const C2Args* a, int* out) {
-  const C2Plan p = c2_plan(*a, sm_count());
-  long n = 4L * p.n_parts;
-  if (p.regime == R_TILES) {
-    const long lparts =
-        (long)p.n_rt * ((a->nc + 31) / 32) * (a->certs ? 2 : 1) * p.rows * p.lpart_ld;
-    n = p.lpart_at + (lparts * p.elt + 7) / 8;
-  }
-  out[0] = (int)n;
+// row tile in "tiles", with the rows' products, A'lam's segment sums and in
+// the global variant the rows' vectors after them), out[1] ticket ints
+// (zeroed once; every launch leaves them so: the grid's ticket, the shared
+// walk's old rung, and one per row tile in "tiles").
+void c2_sizes(const C2Args* a, long long* out) {
+  const C2Plan p = c2_plan_here(*a);
+  out[0] = p.scratch;
   out[1] = 2 + (p.regime == R_TILES ? p.n_rt : 0);
 }
 
-// c2_check's plan into out[0..8): the regime (0 "smem", 1 "stream",
+// c2_check's plan into out[0..9): the regime (0 "smem", 1 "stream",
 // 2 "tiles"), rows a tile, lanes a row in the row pass, threads a block,
 // blocks, dynamic shared memory bytes, warps a block ("stream"), operand
-// buffers a warp ("stream").
+// buffers a warp ("stream"), the global variant ("tiles": 0 or 1).
 void c2_plan_of(const C2Args* a, int* out) {
-  const C2Plan p = c2_plan(*a, sm_count());
-  const int v[8] = {p.regime, p.rows, p.group, p.threads, p.grid, p.smem, p.warps, p.nbuf};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  const C2Plan p = c2_plan_here(*a);
+  const int v[9] = {p.regime, p.rows, p.group,  p.threads, p.grid,
+                    p.smem,   p.warps, p.nbuf, p.global};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
 
 // C2 on `stream`: one launch, or two where the shared walk re-encodes p

@@ -33,26 +33,47 @@
 // flop per byte; held on chip, the limit is latency -- a chain of
 // dependent GEMVs in which every lane needs every lane of the one before.
 //
-// Design (simple and right first; clusters/DSMEM, wgmma and TMA are later):
-//   * ONE cooperative launch per solve, one persistent block per SM,
-//     running the device solve loop shared with K2 (csrc/solve_loop.cuh,
-//     see its header for the work split and the cross-block decisions).
-//     Each block keeps its column slabs of the current W rung (reloaded on
-//     a rung change only; the TPU kernel's stream_bank mode does the same,
-//     so both of its modes are this one), of M_res, of M_aff (affine), of
-//     A_w (alpha) and of A_inf (certificates) in shared memory, or reads
-//     them from L2 where they do not fit. Every contraction sums the whole
-//     column: there are no contraction tiles and so no remainder tile.
+// Design: ONE cooperative launch per solve, one persistent block per SM,
+// running the device solve loop shared with K2 (csrc/solve_loop.cuh, see
+// its header for the work split and the cross-block decisions). Each block
+// keeps its column slabs of the current W rung (reloaded on a rung change
+// only; the TPU kernel's stream_bank mode does the same, so both of its
+// modes are this one), of M_res, of M_aff (affine), of A_w (alpha) and of
+// A_inf (certificates) in shared memory, transposed, or reads them from L2
+// where they do not fit. Every contraction sums the whole column: there are
+// no contraction tiles and so no remainder tile. Against the fixed cost of
+// a short (warm) solve and the per-iteration cost of a long one:
+//   * Staging: every element of the slabs and vectors is copied with
+//     cp.async, each thread on one column (no division per element), all in
+//     flight at once, in two groups -- the vectors and the start rung's W
+//     and M_aff columns, which the first window waits for, then M_res, A_w
+//     and A_inf, which land while its iterations run (a bf16 bank's
+//     2-byte elements go through registers, a batch of loads at a time).
+//   * Products: a warp per column as before (the sum order full_solve_ref
+//     reproduces), each batch of eight terms' fp64 products formed before
+//     they are added in order, so the loads and conversions leave the sum's
+//     dependent chain.
+//   * Exchange: no grid barrier per iteration and none per check. Each
+//     block stores its new y lanes (and at a check its partial maxima)
+//     beside a tag in 64-bit words (two in fp64) and every block reads all
+//     of them as soon as their tags show (solve_loop.cuh, gather_tagged):
+//     one round trip to L2 where the barrier took two and the reload of y a
+//     third. The launch's one grid barrier follows the blocks' clearing of
+//     the words they write. Each block then reduces every block's partials
+//     itself, all loads in flight at once (the earlier design had warp 0
+//     walk the G rows in turn).
 //   * The selector products of the TPU kernel (y @ S_pz, y @ S_lam, and
 //     the scatter corr @ S_sc) are lane reads and writes of the stacked
 //     layout [x | z | p or lam], rounded to fp32 as the dots are; every
 //     block computes lam and p - z whole from its own copy of y, so lam
-//     needs no barrier before lam @ A_w, and neither does dlam before
+//     needs no exchange before lam @ A_w, and neither does dlam before
 //     dlam @ A_inf.
 //   * The rung index and eps_abs are launch arguments (eps as eps_pri /
 //     eps_dua); the start rung may instead be read from the device (the
 //     previous solve's rung, with no host sync). The scalar state never
 //     leaves the device inside a launch: stats come back in one (8,) row.
+// A non-null `stamps` (never on a solve path) makes block 0 sum its time
+// by stage (solve_loop.cuh K3S_*; ops/solve_kernel.k3_stage_split).
 //
 // Plain C interface, built with nvcc into a shared library and called with
 // ctypes. Entries return a cudaError_t (0 on success), checked right after
@@ -83,9 +104,9 @@ struct K3Args {
       *fin_l, *fin_u, *g_dp, *m_aff, *x_row;
   const float *rhos, *rho_eff;
   const int* rho0_dev;
-  T *y_out, *ybuf;
+  T* y_out;
+  uint64_t *yx, *px;
   float* stats;
-  double* part;
   unsigned long long* stamps;
   int n_rho, dp, nx, nc, nxp, ncp, nplp;
   int max_iter, ci, rho0, adaptive, jump, stride, tier, two_phase, alpha, infeas, verbose,
@@ -185,25 +206,15 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
   s.xv = a.m_aff ? xv : nullptr;
   s.w_slab = reinterpret_cast<WT*>(smem + L.w);
   s.ma_slab = sm(L.ma);
-  s.mra = take_cols(sm(L.mra), a.m_res, dp, R, rc.lo, rc.n, res);
-  s.mrz = take_cols(sm(L.mrz), a.m_res, dp, R, ncp + rc.lo, rc.n, res);
-  s.mrh = take_cols(sm(L.mrh), a.m_res, dp, R, 2 * ncp + rv.lo, rv.n, res);
-  if (a.alpha)
-    s.maw = take_cols(sm(L.maw), a.a_w, ncp, nxp, rv.lo, rv.n, res);
-  else
-    s.mrl = take_cols(sm(L.mrl), a.m_res, dp, R, 2 * ncp + nxp + rv.lo, rv.n, res);
-  if (a.infeas) s.mai = take_cols(sm(L.mai), a.a_inf, ncp, nxp, rv.lo, rv.n, res);
   s.wt = a.wt;
   s.bias_c = a.b;
   s.bias_ld = dp;
   s.bias_off = ry.lo;
   s.m_aff = a.m_aff;
   s.rhos = a.rhos;
-  s.ybuf = a.ybuf;
-  s.part = a.part;
+  s.yx = a.yx;
+  s.px = a.px;
   s.resident = res;
-  s.resident_rung = -1;
-  s.parity = 0;
   s.limit = (a.max_iter / a.ci) * a.ci;
   s.ci = a.ci;
   s.adaptive = a.adaptive;
@@ -234,16 +245,43 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
   s.eps_pinf = a.eps_pinf;
   s.eps_dinf = a.eps_dinf;
 
-  for (int i = threadIdx.x; i < dp; i += kThreads) s.ys[i] = a.y0[i];
-  for (int p = threadIdx.x; p < ry.n; p += kThreads) {
-    s.lo_s[p] = a.lo[ry.lo + p];
-    s.hi_s[p] = a.hi[ry.lo + p];
-  }
-  for (int p = threadIdx.x; p < rv.n; p += kThreads) g_s[p] = a.g_row[rv.lo + p];
-  if (a.m_aff)
-    for (int i = threadIdx.x; i < nplp; i += kThreads) xv[i] = a.x_row[i];
+  // Staging, every copy in flight at once (cp.async), in two groups: what
+  // the first window's bias and iterations read (the vectors, then the
+  // start rung's W and M_aff columns), then what its check reads (M_res,
+  // A_w, A_inf), which lands while the first iterations run.
+  stage_vec(s.ys, a.y0, dp);
+  stage_vec(s.lo_s, a.lo + ry.lo, ry.n);
+  stage_vec(s.hi_s, a.hi + ry.lo, ry.n);
+  stage_vec(g_s, a.g_row + rv.lo, rv.n);
+  if (a.m_aff) stage_vec(xv, a.x_row, nplp);
   int k0 = a.rho0_dev ? *a.rho0_dev : a.rho0;
   k0 = k0 < 0 ? 0 : (k0 >= a.n_rho ? a.n_rho - 1 : k0);
+  s.wc = stage_cols(s.w_slab, a.wt + (size_t)k0 * dp * dp, dp, dp, ry.lo, ry.n, res);
+  if (a.m_aff)
+    s.mac = stage_cols(s.ma_slab, a.m_aff + (size_t)k0 * nplp * dp, nplp, dp, ry.lo, ry.n, res);
+  s.resident_rung = k0;
+  cpa_commit();
+  s.mra = stage_cols(sm(L.mra), a.m_res, dp, R, rc.lo, rc.n, res);
+  s.mrz = stage_cols(sm(L.mrz), a.m_res, dp, R, ncp + rc.lo, rc.n, res);
+  s.mrh = stage_cols(sm(L.mrh), a.m_res, dp, R, 2 * ncp + rv.lo, rv.n, res);
+  if (a.alpha)
+    s.maw = stage_cols(sm(L.maw), a.a_w, ncp, nxp, rv.lo, rv.n, res);
+  else
+    s.mrl = stage_cols(sm(L.mrl), a.m_res, dp, R, 2 * ncp + nxp + rv.lo, rv.n, res);
+  if (a.infeas) s.mai = stage_cols(sm(L.mai), a.a_inf, ncp, nxp, rv.lo, rv.n, res);
+  cpa_commit();
+  s.in_flight = 1;
+  // The exchange's slots start at zero (no tag): each block clears the
+  // words it writes, then the launch's one grid barrier.
+  constexpr int N = TagWords<T>::n;
+  for (int slot = 0; slot < 2; ++slot) {
+    for (int i = threadIdx.x; i < ry.n * N; i += kThreads)
+      a.yx[((size_t)slot * dp + ry.lo) * N + i] = 0;
+    for (int i = threadIdx.x; i < kPartCols * N; i += kThreads)
+      a.px[((size_t)slot * G + blk) * kPartCols * N + i] = 0;
+  }
+  grid.sync();
+  cpa_wait<1>();
   __syncthreads();
   if (a.infeas) {
     compute_lam(s, k0, s.lamp_s, static_cast<T*>(nullptr));
@@ -340,9 +378,9 @@ cudaError_t launch(const K3Params& p, cudaStream_t stream) {
   a.rho_eff = static_cast<const float*>(p.rho_eff);
   a.rho0_dev = static_cast<const int*>(p.rho0_dev);
   a.y_out = static_cast<T*>(p.y_out);
-  a.ybuf = static_cast<T*>(p.ybuf);
+  a.yx = static_cast<uint64_t*>(p.ybuf);
   a.stats = static_cast<float*>(p.stats);
-  a.part = static_cast<double*>(p.part);
+  a.px = static_cast<uint64_t*>(p.part);
   a.stamps = static_cast<unsigned long long*>(p.stamps);
   a.n_rho = p.n_rho;
   a.dp = p.dp;

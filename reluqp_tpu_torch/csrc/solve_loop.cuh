@@ -21,10 +21,13 @@
 // y in shared memory. One warp reduces one column dot product.
 //
 // Cross-block decisions: each block writes its partial maxima to one row
-// of a (G, kPartCols) array; after grid.sync() every block reduces the
-// whole array. A max is exact in any order, so every block reaches
-// bit-identical pri, dua, rho, rung and status and takes identical branches
-// around every grid.sync(). The certificates' two sums (the support
+// of a (G, kPartCols) array; after grid.sync() (K2) or as the rows' tagged
+// words arrive (K3) every block reduces the whole array. A max is exact in
+// any order, so every block reaches bit-identical pri, dua, rho, rung and
+// status and takes identical branches around every exchange. The
+// exchanges of y: K2 writes y to a buffer and re-reads it after
+// grid.sync(); K3 exchanges tagged words (gather_tagged), with no barrier.
+// The certificates' two sums (the support
 // function and g.dx) and their norms are not split over blocks: every
 // block computes them whole, from its own copy of y and of lam, in one
 // fixed order, so all blocks again hold identical values. No atomics and
@@ -130,19 +133,146 @@ __device__ Cols<MT> take_cols(MT* dst, const MT* src, int rows, int ld, int col0
   return Cols<MT>{dst, 1, rows};
 }
 
+// K3's staging: one element global -> shared with cp.async (4- or 8-byte
+// elements), committed in groups that the caller waits for in turn.
+template <typename MT>
+__device__ __forceinline__ void cpa_elem(MT* dst, const MT* src) {
+  static_assert(sizeof(MT) == 4 || sizeof(MT) == 8, "cp.async copies 4 or 8 bytes");
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (sizeof(MT) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cpa_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cpa_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// n elements of a vector into shared memory (K3's staging).
+template <typename T>
+__device__ __forceinline__ void stage_vec(T* dst, const T* src, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) cpa_elem(dst + i, src + i);
+}
+
+// take_cols for K3: the same layout, each thread on one column and every
+// (kThreads / ncols)-th row (no division per element), and every copy in
+// flight at once -- cp.async for 4- and 8-byte elements (the caller commits
+// and waits), a batch of loads into registers before their stores for bf16.
+template <typename MT>
+__device__ Cols<MT> stage_cols(MT* dst, const MT* src, int rows, int ld, int col0, int ncols,
+                               bool resident) {
+  if (!resident) return Cols<MT>{src + col0, ld, 1};
+  if (ncols > 0) {
+    const int per = kThreads / ncols, c = threadIdx.x % ncols, i0 = threadIdx.x / ncols;
+    const MT* s = src + col0 + c;
+    MT* d = dst + (size_t)c * rows;
+    if (i0 < per) {
+      if constexpr (sizeof(MT) == 4 || sizeof(MT) == 8) {
+        for (int i = i0; i < rows; i += per) cpa_elem(d + i, s + (size_t)i * ld);
+      } else {
+        constexpr int kB = 8;
+        for (int i = i0; i < rows; i += kB * per) {
+          MT v[kB];
+#pragma unroll
+          for (int u = 0; u < kB; ++u)
+            if (i + u * per < rows) v[u] = s[(size_t)(i + u * per) * ld];
+#pragma unroll
+          for (int u = 0; u < kB; ++u)
+            if (i + u * per < rows) d[i + u * per] = v[u];
+        }
+      }
+    }
+  }
+  return Cols<MT>{dst, 1, rows};
+}
+
+// K3's exchange without a grid barrier: a value and the tag of the exchange
+// that wrote it in one 64-bit word (an fp64 value takes two words, each of
+// its halves beside the tag), stored and read whole with relaxed gpu-scope
+// accesses, so a reader that sees the tag sees the value. Exchanges take two
+// slots in turn; the tag (1 or 2, bit 1 of the exchange's ordinal) tells a
+// slot's value from the one two exchanges before it, the only other value it
+// can hold (every block consumed that one before it could write anything
+// newer), and from the zeros the launch starts the slots with.
+template <typename T> struct TagWords {
+  static constexpr int n = sizeof(T) / 4;
+};
+
+__device__ __forceinline__ void st_word(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ uint64_t ld_word(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint32_t xtag(int ordinal) { return 1u + ((ordinal >> 1) & 1); }
+
+__device__ __forceinline__ void put_tagged(uint64_t* w, float v, uint32_t tag) {
+  st_word(w, ((uint64_t)tag << 32) | __float_as_uint(v));
+}
+__device__ __forceinline__ void put_tagged(uint64_t* w, double v, uint32_t tag) {
+  const uint64_t b = (uint64_t)__double_as_longlong(v);
+  st_word(w, ((uint64_t)tag << 32) | (b & 0xffffffffull));
+  st_word(w + 1, ((uint64_t)tag << 32) | (b >> 32));
+}
+__device__ __forceinline__ void untag(const uint64_t* q, float& v) {
+  v = __uint_as_float((uint32_t)q[0]);
+}
+__device__ __forceinline__ void untag(const uint64_t* q, double& v) {
+  v = __longlong_as_double((long long)((q[1] << 32) | (q[0] & 0xffffffffull)));
+}
+
+// All n tagged values at src into put(i, value), by the block's threads,
+// each with up to four values' loads in flight at once.
+template <typename T, typename F>
+__device__ __forceinline__ void gather_tagged(const uint64_t* src, int n, uint32_t tag, F put) {
+  constexpr int N = TagWords<T>::n, K = 4;
+  for (int i0 = threadIdx.x; i0 < n; i0 += K * kThreads) {
+    uint64_t q[K][N];
+#pragma unroll
+    for (int u = 0; u < K; ++u)
+#pragma unroll
+      for (int m = 0; m < N; ++m)
+        q[u][m] = i0 + u * kThreads < n ? ld_word(src + (size_t)(i0 + u * kThreads) * N + m) : 0;
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i >= n) continue;
+      for (;;) {
+        bool ok = true;
+#pragma unroll
+        for (int m = 0; m < N; ++m) ok = ok && (uint32_t)(q[u][m] >> 32) == tag;
+        if (ok) break;
+#pragma unroll
+        for (int m = 0; m < N; ++m) q[u][m] = ld_word(src + (size_t)i * N + m);
+      }
+      T v;
+      untag(q[u], v);
+      put(i, v);
+    }
+  }
+}
+
 // How a dot product accumulates. AccState<T> (K2): in the state type, with
 // fused multiply-adds. AccF64 (K3): in fp64 with each product and each sum
 // rounded on its own, in an fp32 run too; then the fp32 result depends on
 // nothing but the order of the sum, and that order (below) is one that the
 // plain version reproduces step for step, so the two agree bit for bit.
+// kBatch: the products of that many terms are formed before they are added
+// (in order), so their loads and conversions are not on the sum's chain.
 template <typename T>
 struct AccState {
   using type = T;
+  static constexpr int kBatch = 1;
   static __device__ __forceinline__ T mac(T a, T x, T y) { return a + x * y; }
   static __device__ __forceinline__ T add(T a, T b) { return a + b; }
 };
 struct AccF64 {
   using type = double;
+  static constexpr int kBatch = 8;
+  static __device__ __forceinline__ double mul(double x, double y) { return __dmul_rn(x, y); }
   static __device__ __forceinline__ double mac(double a, double x, double y) {
     return __dadd_rn(a, __dmul_rn(x, y));
   }
@@ -164,9 +294,20 @@ __device__ __forceinline__ typename Acc::type warp_tree(typename Acc::type a) {
 template <typename Acc, typename T, typename MT>
 __device__ __forceinline__ float dot32(const T* v, const MT* col, int si, int n, int lane) {
   using AT = typename Acc::type;
+  constexpr int B = Acc::kBatch;
   AT a = AT(0);
-  for (int i = lane; i < n; i += 32)
-    a = Acc::mac(a, static_cast<AT>(v[i]), cvt<AT>(col[(size_t)i * si]));
+  int i = lane;
+  if constexpr (B > 1) {
+    for (; i + 32 * (B - 1) < n; i += 32 * B) {
+      AT pr[B];
+#pragma unroll
+      for (int u = 0; u < B; ++u)
+        pr[u] = Acc::mul(static_cast<AT>(v[i + 32 * u]), cvt<AT>(col[(size_t)(i + 32 * u) * si]));
+#pragma unroll
+      for (int u = 0; u < B; ++u) a = Acc::add(a, pr[u]);
+    }
+  }
+  for (; i < n; i += 32) a = Acc::mac(a, static_cast<AT>(v[i]), cvt<AT>(col[(size_t)i * si]));
   return static_cast<float>(warp_tree<Acc>(a));
 }
 
@@ -270,6 +411,12 @@ struct Loop {
   // K3's stage stamps (null: off) and block 0's last stage boundary
   unsigned long long* stamps;
   unsigned long long mark;
+  // K3's exchange (null in K2, whose exchanges are grid barriers): tagged
+  // words of y (two slots of dp values) and of the checks' partials (two
+  // slots of G rows of kPartCols), the exchanges of each so far, and
+  // whether the check's operands are still in flight (the first window)
+  uint64_t *yx, *px;
+  int n_ystep, n_check, in_flight;
 };
 
 // The stage that ends here into stamps[slot] (block 0, after a block
@@ -316,13 +463,20 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
   const int dp = s.dp, ncp = s.ncp, nplp = s.nplp;
   const Range ry = s.ry, rc = s.rc, rv = s.rv;
   const int k_idx = st.k_idx;
+  constexpr int N = TagWords<T>::n;  // tagged words a value (K3)
   if (k_idx != s.resident_rung) {
     __syncthreads();
-    s.wc = take_cols(s.w_slab, s.wt + (size_t)k_idx * dp * dp, dp, dp, ry.lo, ry.n,
-                     s.resident);
-    if (s.xv)
-      s.mac = take_cols(s.ma_slab, s.m_aff + (size_t)k_idx * nplp * dp, nplp, dp, ry.lo,
-                        ry.n, s.resident);
+    const WT* w = s.wt + (size_t)k_idx * dp * dp;
+    const T* ma = s.xv ? s.m_aff + (size_t)k_idx * nplp * dp : nullptr;
+    if (s.yx) {
+      s.wc = stage_cols(s.w_slab, w, dp, dp, ry.lo, ry.n, s.resident);
+      if (ma) s.mac = stage_cols(s.ma_slab, ma, nplp, dp, ry.lo, ry.n, s.resident);
+      cpa_commit();
+      cpa_wait<0>();
+    } else {
+      s.wc = take_cols(s.w_slab, w, dp, dp, ry.lo, ry.n, s.resident);
+      if (ma) s.mac = take_cols(s.ma_slab, ma, nplp, dp, ry.lo, ry.n, s.resident);
+    }
     s.resident_rung = k_idx;
     __syncthreads();
     lap(s, K3S_STAGED);
@@ -347,6 +501,9 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     for (int it = 0; it < n_steps; ++it) {
       T* dst = s.ybuf + (size_t)parity * dp;
       parity ^= 1;
+      // K3: this iteration's slot of tagged words and its tag
+      uint64_t* xs = s.yx ? s.yx + (size_t)(s.n_ystep & 1) * dp * N : nullptr;
+      const uint32_t tag = xtag(s.n_ystep);
       for (int p = warp; p < ry.n; p += kWarps) {
         const float r = iter_dot<Acc, T, WT>(ys, wc.col(p), wc.si, dp, lane, tier);
         if (lane == 0) {
@@ -354,12 +511,20 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
           // comparisons (not fmin/fmax) so a NaN propagates like jnp.clip
           v = v < lo_s[p] ? lo_s[p] : v;
           v = v > hi_s[p] ? hi_s[p] : v;
-          dst[ry.lo + p] = v;
+          if (xs) put_tagged(xs + (size_t)(ry.lo + p) * N, v, tag);
+          else dst[ry.lo + p] = v;
         }
       }
       lap(s, K3S_ITER);
-      grid.sync();
-      for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = __ldcg(dst + i);
+      if (xs) {
+        // every block reads each value as soon as its tag is there
+        __syncthreads();
+        gather_tagged<T>(xs, dp, tag, [&](int i, T v) { ys[i] = v; });
+        ++s.n_ystep;
+      } else {
+        grid.sync();
+        for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = __ldcg(dst + i);
+      }
       __syncthreads();
       lap(s, K3S_EXCH);
     }
@@ -414,6 +579,12 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     }
   }
 
+  if (s.in_flight) {
+    // K3's first window: the check's operands have arrived
+    cpa_wait<0>();
+    __syncthreads();
+    s.in_flight = 0;
+  }
   // residual columns of this block: [Ax | z] on its constraint lanes,
   // [Hx | A'lam] on its variable lanes; then, with the certificates,
   // [A dx] and [H dx | A'dlam]
@@ -482,34 +653,64 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
         p_atdl = nmax(p_atdl, fabsf(rr[n_res + rc.n + rv.n + i]));
       }
     }
-    double* pp = s.part + (size_t)blockIdx.x * kPartCols;
-    pp[0] = p_pri;
-    pp[1] = static_cast<double>(p_dua);
-    pp[2] = p_sp;
-    pp[3] = static_cast<double>(p_sd);
-    pp[4] = p_atdl;
-    pp[5] = p_hdx;
-    pp[6] = p_bad;
-  }
-  grid.sync();
-  if (warp == 0) {
-    // the certificate columns only where this window wrote them
-    const int n_cols = certs ? 7 : 4;
-    double m[kPartCols];
-#pragma unroll
-    for (int c = 0; c < kPartCols; ++c) m[c] = 0.0;
-    for (int q = lane; q < (int)gridDim.x; q += 32)
+    const double pv[kPartCols] = {p_pri, static_cast<double>(p_dua), p_sp,
+                                  static_cast<double>(p_sd), p_atdl, p_hdx, p_bad, 0.0};
+    if (s.px) {
+      // every column (each value exact in T), tagged for this check
+      uint64_t* pw = s.px + ((size_t)(s.n_check & 1) * gridDim.x + blockIdx.x) * kPartCols * N;
 #pragma unroll
       for (int c = 0; c < kPartCols; ++c)
-        if (c < n_cols) m[c] = nmax(m[c], __ldcg(s.part + (size_t)q * kPartCols + c));
-    // the columns' maxima over the warp, their shuffle levels interleaved
+        put_tagged(pw + (size_t)c * N, static_cast<T>(pv[c]), xtag(s.n_check));
+    } else {
+      double* pp = s.part + (size_t)blockIdx.x * kPartCols;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int c = 0; c < kPartCols; ++c)
-        m[c] = nmax(m[c], __shfl_down_sync(0xffffffffu, m[c], off));
+      for (int c = 0; c < kPartCols - 1; ++c) pp[c] = pv[c];
     }
-    if (lane == 0) {
+  }
+  // the certificate columns only where this window wrote them
+  const int n_cols = certs ? 7 : 4;
+  // the columns' maxima over the blocks (thread 0's), exact in any order
+  double m[kPartCols];
+#pragma unroll
+  for (int c = 0; c < kPartCols; ++c) m[c] = 0.0;
+  if (s.px) {
+    // K3: every block gathers every block's tagged partials, a thread on
+    // one column (kPartCols divides kThreads) and every 32nd block
+    __shared__ double red[kWarps][kPartCols];
+    const uint64_t* pw = s.px + (size_t)(s.n_check & 1) * gridDim.x * kPartCols * N;
+    const int col = threadIdx.x % kPartCols;
+    double mc = 0.0;
+    gather_tagged<T>(pw, (int)gridDim.x * kPartCols, xtag(s.n_check), [&](int, T v) {
+      if (col < n_cols) mc = nmax(mc, static_cast<double>(v));
+    });
+    ++s.n_check;
+#pragma unroll
+    for (int off = kPartCols; off < 32; off <<= 1)
+      mc = nmax(mc, __shfl_xor_sync(0xffffffffu, mc, off));
+    if (lane < kPartCols) red[warp][lane] = mc;
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int w = 0; w < kWarps; ++w)
+#pragma unroll
+        for (int c = 0; c < kPartCols; ++c) m[c] = nmax(m[c], red[w][c]);
+  } else {
+    grid.sync();
+    if (warp == 0) {
+      for (int q = lane; q < (int)gridDim.x; q += 32)
+#pragma unroll
+        for (int c = 0; c < kPartCols; ++c)
+          if (c < n_cols) m[c] = nmax(m[c], __ldcg(s.part + (size_t)q * kPartCols + c));
+      // the columns' maxima over the warp, their shuffle levels interleaved
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int c = 0; c < kPartCols; ++c)
+          m[c] = nmax(m[c], __shfl_down_sync(0xffffffffu, m[c], off));
+      }
+    }
+  }
+  {
+    if (threadIdx.x == 0) {
       const float prif = static_cast<float>(m[0]);
       const float spf = static_cast<float>(m[2]);
       const T duaT = static_cast<T>(m[1]), sdT = static_cast<T>(m[3]);

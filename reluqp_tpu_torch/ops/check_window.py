@@ -541,7 +541,8 @@ def _lib():
         lib.c2_check.argtypes = [ctypes.POINTER(_C2Args), _P,
                                  ctypes.POINTER(_I)]
         lib.c2_check.restype = _I
-        lib.c2_sizes.argtypes = [ctypes.POINTER(_C2Args), ctypes.POINTER(_I)]
+        lib.c2_sizes.argtypes = [ctypes.POINTER(_C2Args),
+                                 ctypes.POINTER(ctypes.c_longlong)]
         lib.c2_sizes.restype = None
         lib.c2_plan_of.argtypes = [ctypes.POINTER(_C2Args),
                                    ctypes.POINTER(_I)]
@@ -794,17 +795,24 @@ def batched_check_plan(st, op, cfg, Y, n_steps: int = 1,
                        phase: str = "") -> dict:
     """The shape C2 takes for this window on the card: its regime
     ("smem", "stream" or "tiles"), rows a tile, lanes a row in the row
-    pass, threads a block, blocks, dynamic shared memory, and in "stream"
-    warps a block and operand buffers a warp."""
+    pass, threads a block, blocks, dynamic shared memory, in "stream" warps
+    a block and operand buffers a warp, its variant ("shared", or "global"
+    where even a one-row "tiles" tile outgrows a block's shared memory and
+    the rows' vectors and products lie in the scratch region) and the
+    scratch's doubles."""
     lib = _lib()
-    out = (_I * 8)()
+    out = (_I * 9)()
+    sizes = (ctypes.c_longlong * 2)()
     with device_guard(Y.device):
-        lib.c2_plan_of(ctypes.byref(_c2_args(st, op, cfg, Y, n_steps, phase)),
-                       out)
+        a = _c2_args(st, op, cfg, Y, n_steps, phase)
+        lib.c2_plan_of(ctypes.byref(a), out)
+        lib.c2_sizes(ctypes.byref(a), sizes)
     keys = ("regime", "rows", "group", "threads", "blocks", "smem",
-            "warps", "buffers")
+            "warps", "buffers", "variant")
     plan = dict(zip(keys, list(out)))
     plan["regime"] = _C2_REGIMES[plan["regime"]]
+    plan["variant"] = "global" if plan["variant"] else "shared"
+    plan["scratch"] = sizes[0]
     return plan
 
 
@@ -812,7 +820,7 @@ def _c2_launch(st, op, cfg, Y, n_steps, phase):
     dev = Y.device
     a = _c2_args(st, op, cfg, Y, n_steps, phase)
     lib = _lib()
-    sizes = (_I * 2)()
+    sizes = (ctypes.c_longlong * 2)()
     lib.c2_sizes(ctypes.byref(a), sizes)
     if st.tick.numel() < sizes[1]:
         raise ValueError("C2: the state's tick buffer is too short "

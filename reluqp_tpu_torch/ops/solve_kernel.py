@@ -844,22 +844,34 @@ def _k3_raise(lib, code: int, what: str):
 
 
 def solve_plan(dp: int, nxp: int, ncp: int, dtype=torch.float32,
-               device=None) -> dict:
+               device=None, w_dtype=None) -> dict:
     """The launch shape of K3 on ``device`` (default the current GPU) for
-    a plain solve (no alpha, certificates or affine bias): blocks, y lanes
-    (columns of W) per block, dynamic shared memory, and whether every
-    operand slab is held in shared memory (else read from L2)."""
+    a plain solve (no alpha, certificates or affine bias) with state dtype
+    ``dtype`` and bank dtype ``w_dtype`` (default ``dtype``): blocks, y
+    lanes (columns of W) per block, dynamic shared memory, whether every
+    operand slab is held in shared memory (else read from L2), how the
+    slabs are staged ("cp.async"; "loads", a batch of loads before their
+    stores, for a bf16 bank, which cp.async cannot copy element by element;
+    "none" where they are read from L2), and the exchange: "tagged words",
+    each value beside its exchange's tag in ``words_per_value`` 64-bit
+    words (1 in fp32, 2 in fp64), read by every block with no grid barrier
+    but the launch's first."""
     lib = _k3_lib()
     vals = [ctypes.c_int() for _ in range(3)]
     code = _DTYPE_CODE[dtype]
+    w_dtype = dtype if w_dtype is None else w_dtype
     with torch.cuda.device(device):
-        rc = lib.k3_plan(dp, nxp, ncp, 0, code, code, 0, 0,
+        rc = lib.k3_plan(dp, nxp, ncp, 0, code, _DTYPE_CODE[w_dtype], 0, 0,
                          *[ctypes.byref(v) for v in vals])
     if rc != 0:
         _k3_raise(lib, rc, "plan")
     blocks, smem, resident = (v.value for v in vals)
+    staging = ("none" if not resident else
+               "loads" if w_dtype == torch.bfloat16 else "cp.async")
     return {"blocks": blocks, "cols_per_block": -(-dp // blocks),
-            "smem_bytes": smem, "resident": bool(resident)}
+            "smem_bytes": smem, "resident": bool(resident),
+            "staging": staging, "exchange": "tagged words",
+            "words_per_value": 2 if dtype == torch.float64 else 1}
 
 
 def _k3_operands(op: FullSolveOperand, y0, bias_affine, *, nx, nc, nxp, ncp,
@@ -948,9 +960,12 @@ def _full_solve_cuda(ops: dict, rho_ind0, *, nx, nc, nxp, ncp,
     dp = ops["Wt_bank"].shape[1]
     y_out = torch.empty((dp,), dtype=dt, device=dev)
     stats = torch.empty((8,), dtype=torch.float32, device=dev)
-    ybuf = torch.empty((2, dp), dtype=dt, device=dev)
+    # the exchange's tagged words (the kernel clears them): two slots of y
+    # and of the blocks' partials, one word a value (two in fp64)
+    n_w = 2 if dt == torch.float64 else 1
+    ybuf = torch.empty((2, dp, n_w), dtype=torch.int64, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty((n_sm, 8), dtype=torch.float64, device=dev)
+    part = torch.empty((2, n_sm, 8, n_w), dtype=torch.int64, device=dev)
     c = _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
                         rho_max)
     ptr = lambda name: ops[name].data_ptr() if name in ops else None

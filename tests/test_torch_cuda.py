@@ -1282,3 +1282,27 @@ def test_c2_matches_plain_at_its_largest_row_tile(dev, monkeypatch):
     plan = batched_check_plan(*win[1:])
     assert plan["regime"] == "tiles" and plan["rows"] == 1, plan
     _kernel_against_plain([win], clone)
+
+
+@pytest.mark.parametrize("operand", ["shared", "per problem"])
+def test_c2_matches_plain_past_its_shared_memory(dev, monkeypatch, operand):
+    """fp64 with the certificates, B = 2 at nx = 3600, nc = 1800: even a
+    one-row "tiles" tile's vectors and products outgrow a block's shared
+    memory, so C2 takes its global variant (a shared H and A, two rows a
+    tile; or a per-problem A, a row a tile) and matches the plain check."""
+    from reluqp_tpu_torch.ops.check_window import batched_check_plan
+    m = rqt.BatchedReLU_QP()
+    m.setup(*_shared_qp_batch(4, 20), precision="float64", eps_abs=1e-6,
+            max_iter=100, check_infeasibility=True)
+    recs, clone = _recorded_checks(m, monkeypatch)
+    rec = next(r for r in recs if r[6] != "tail")
+    win = _widened(rec, 3600, 1800, B=2)
+    if operand == "per problem":
+        kind, st, op, cfg, y, n, phase = win
+        A = torch.stack([op.A, op.A.flip(0)]).contiguous()
+        win = (kind, st, op._replace(A=A), cfg, y, n, phase)
+    plan = batched_check_plan(*win[1:])
+    assert plan["regime"] == "tiles" and plan["variant"] == "global", plan
+    assert plan["rows"] == (2 if operand == "shared" else 1), plan
+    assert plan["scratch"] > 0, plan
+    _kernel_against_plain([win], clone)
