@@ -1537,14 +1537,15 @@ def phase_fused_main(card, mpc, protocol):
             "y_f": y_f, "rho_f": rho_f}
 
 
-def k3_bound_ms(op, kw, stats):
+def k3_bound_ms(op, kw, stats, bias=None):
     """Least time of one solve's work, in ms, and what bounds it. Each
     product counts only the multiply-adds its operand's nonzero entries
-    need: per iteration y@W[k], per check (the tail is one) y@M_res. W
+    need: per iteration y@W[k], per check (the tail is one) y@M_res, and
+    with a state-affine ``bias`` (M_aff, x_row) per window x@M_aff[k]. W
     counts at the rung the solve ended on (the stats name no other).
-    Bytes: the nonzeros of that rung, of M_res and of the rung's bias row
-    read once, the real bounds (2·nc), the g row (nx), y in and out (2·D),
-    the ladder and the stats row."""
+    Bytes: the nonzeros of that rung, of M_res, of the rung's bias row and
+    of M_aff[k] read once, the real bounds (2·nc), the g row (nx), x, y in
+    and out (2·D), the ladder and the stats row."""
     import torch
     nnz = lambda a: int(torch.count_nonzero(a))
     nx, nc, ci = kw["nx"], kw["nc"], kw["check_interval"]
@@ -1553,7 +1554,11 @@ def k3_bound_ms(op, kw, stats):
     n_w = nnz(op.Wt_bank[k])
     flops = iters * 2 * n_w + checks * 2 * nnz(op.M_res)
     size = op.Wt_bank.element_size()
-    nbytes = ((n_w + nnz(op.M_res) + nnz(op.b_bank[k]) + 2 * nc + nx
+    n_aff = 0
+    if bias is not None:
+        n_aff = nnz(bias[0][k]) + bias[1].numel()
+        flops += checks * 2 * nnz(bias[0][k])
+    nbytes = ((n_w + nnz(op.M_res) + nnz(op.b_bank[k]) + n_aff + 2 * nc + nx
                + 2 * (nx + 2 * nc)) * size + op.rhos.numel() * 4 + 8 * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -1583,7 +1588,8 @@ def k3_split(tag, card, fn_of, parent=None):
 
 def k3_warm_operands(ctrl, x, y, rho):
     """The fused rollout's warm solve after state ``x`` from ``y``, ``rho``
-    (ci=1): ``fn_of(full_solve)`` -> a call of that solve."""
+    (ci=1): ``(fn_of, (op, bias, kw))``, ``fn_of(full_solve)`` a call of
+    that solve."""
     import torch
     from reluqp_tpu_torch.models import mpc as M
     sv = ctrl.solver
@@ -1592,12 +1598,13 @@ def k3_warm_operands(ctrl, x, y, rho):
                               dtype=sv.settings.precision_dtype)
     op_w, bias_w = M._fused_step(sv, ops, x)
     kw_w = M._fused_kw(sv, ops, ci=1)
-    return lambda fn: (lambda: fn(op_w, y, rho, bias_w, **kw_w))
+    return (lambda fn: (lambda: fn(op_w, y, rho, bias_w, **kw_w))), (
+        op_w, bias_w, kw_w)
 
 
 def k3_protocol_operands(nx):
     """The protocol's cold solve at ``nx`` (fp32, Ruiz, eps 1e-4):
-    ``(fn_of, Dp)``."""
+    ``(fn_of, solver, instance)``, ``fn_of(full_solve)`` a call of it."""
     import torch
     from reluqp_tpu_torch.utils.problems import rand_qp
     inst = rand_qp(nx, nx // 4, nx // 4, seed=0, compute_sol=False)[:5]
@@ -1605,24 +1612,18 @@ def k3_protocol_operands(nx):
     op, kw = m._fused_call()
     y0 = torch.zeros_like(m.y)
     rho0 = m.rho_ind
-    return (lambda fn: (lambda: fn(op, y0, rho0, **kw))), m.Dp
+    return (lambda fn: (lambda: fn(op, y0, rho0, **kw))), m, inst
 
 
-def phase_k3_split(card, parent=None, steps=20):
-    """K3 alone (a short chip call after a K3 change): the stage split and
-    the time by CUDA events of the protocol's cold solves and of the fused
-    rollout's warm solve after a ``steps``-step rollout, with ``parent``
-    by turns (parent, this tree, parent), outputs asserted bit-equal."""
+def k3_ab(card, cases, parent=None):
+    """Each K3 case (tag -> ``fn_of``, a solve that must certify) timed by
+    CUDA events, the "warm" one per launch in a CUDA graph of 20 (a
+    launch's host time exceeds the solve's), with ``parent`` by turns
+    (parent, this tree, parent) and its outputs asserted bit-equal to this
+    tree's; then its stage split (``k3_split``). Returns tag -> dict(ms,
+    turns, stats, split)."""
     import torch
-    from reluqp_tpu_torch.models.mpc import MPC, mpc_rollout_scan
     from reluqp_tpu_torch.ops.solve_kernel import full_solve
-    cases = {f"nx={nx}": k3_protocol_operands(nx)[0] for nx in (100, 323, 500)}
-    Ad, Bd, Q, R, x0 = mpc_config()
-    ctrl = MPC(Ad, Bd, Q, R, horizon=MPC_H, **MPC_KW)
-    xs, _, _, _, y_f, rho_f = mpc_rollout_scan(
-        ctrl.solver, ctrl.prob, x0, steps, kernel="fused",
-        check_interval="auto", return_stats=True, return_state=True)
-    cases["warm"] = k3_warm_operands(ctrl, xs[-1], y_f, rho_f)
     old = parent_module(parent, "ops.solve_kernel").full_solve \
         if parent else None
     out = {}
@@ -1634,55 +1635,67 @@ def phase_k3_split(card, parent=None, steps=20):
             (lambda f: _time_ms(f, 20))
         if old:
             yo, so = fn_of(old)()
-            assert torch.equal(y, yo) and torch.equal(st, so), tag
+            assert torch.equal(y, yo) and torch.equal(st, so), \
+                f"K3 differs from the parent's ({tag})"
             g = [time_of(fn_of(f)) for f in (old, full_solve, old)]
             log(f"phase 12 K3 A/B {tag} ({int(st[0])} it): parent "
                 f"{g[0]:.5f} ms, this tree {g[1]:.5f} ms, parent again "
                 f"{g[2]:.5f} ms; bit-equal, on {card}")
+            ms = g[1]
         else:
             g = [time_of(fn_of(full_solve))]
-            log(f"phase 12 K3 {tag} ({int(st[0])} it): {g[0]:.5f} ms, on "
+            ms = g[0]
+            log(f"phase 12 K3 {tag} ({int(st[0])} it): {ms:.5f} ms, on "
                 f"{card}")
-        out[tag] = dict(ms=g, split=k3_split(tag, card, fn_of, parent))
+        out[tag] = dict(ms=ms, turns=g, stats=st.cpu().numpy(),
+                        split=k3_split(tag, card, fn_of, parent))
     return out
+
+
+def phase_k3_split(card, parent=None, steps=20):
+    """K3 alone (a short chip call after a K3 change): ``k3_ab`` on the
+    protocol's cold solves and on the fused rollout's warm solve after a
+    ``steps``-step rollout."""
+    from reluqp_tpu_torch.models.mpc import MPC, mpc_rollout_scan
+    cases = {f"nx={nx}": k3_protocol_operands(nx)[0]
+             for nx in (100, 323, 500)}
+    Ad, Bd, Q, R, x0 = mpc_config()
+    ctrl = MPC(Ad, Bd, Q, R, horizon=MPC_H, **MPC_KW)
+    xs, _, _, _, y_f, rho_f = mpc_rollout_scan(
+        ctrl.solver, ctrl.prob, x0, steps, kernel="fused",
+        check_interval="auto", return_stats=True, return_state=True)
+    cases["warm"] = k3_warm_operands(ctrl, xs[-1], y_f, rho_f)[0]
+    return k3_ab(card, cases, parent)
 
 
 def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
     """K3 per solve at the protocol's sizes by CUDA events, beside the loop
-    path's solve() on the same instance, the plain version and the bound;
-    the fused MPC rollout's steps/s by bench.py's two-point protocol."""
+    path's solve() on the same instance, the plain version and the bound,
+    and on the fused rollout's own warm solve (200 of K3's launches on the
+    main path: the operands of the step after phase 11's rollout, from its
+    final state and rung, ci=1), each with its stage split and, with
+    ``parent``, the parent's by turns (``k3_ab``); the fused MPC rollout's
+    steps/s by bench.py's two-point protocol."""
     import torch
     from reluqp_tpu_torch import ReLU_QP
     from reluqp_tpu_torch.models.mpc import mpc_rollout_scan
-    from reluqp_tpu_torch.ops.solve_kernel import full_solve, full_solve_ref
-    from reluqp_tpu_torch.utils.problems import rand_qp
+    from reluqp_tpu_torch.ops.solve_kernel import full_solve_ref
     kw_p = dict(precision="float32", eps_abs=1e-4, scaling=True)
+    prot = {nx: k3_protocol_operands(nx) for nx in (100, 323, 500)}
+    ctrl = fused["ctrl"]
+    sv = ctrl.solver
+    warm, (op_w, bias_w, kw_w) = k3_warm_operands(
+        ctrl, fused["xs"][-1], fused["y_f"], fused["rho_f"])
+    cases = {f"nx={nx}": p[0] for nx, p in prot.items()}
+    ab = k3_ab(card, dict(cases, warm=warm), parent)
     rows = {}
-    for nx in (100, 323, 500):
-        inst = rand_qp(nx, nx // 4, nx // 4, seed=0, compute_sol=False)[:5]
-        m = fused_solver(inst, **kw_p)
+    for nx, (_, m, inst) in prot.items():
         op, kw = m._fused_call()
         y0 = torch.zeros_like(m.y)
-        rho0 = m.rho_ind
-        stats = full_solve(op, y0, rho0, **kw)[1].cpu().numpy()
-        assert stats[5] == 1, (nx, stats)
-        if parent:
-            old = parent_module(parent, "ops.solve_kernel").full_solve
-            before = _time_ms(lambda: old(op, y0, rho0, **kw), 20)
-        ms = _time_ms(lambda: full_solve(op, y0, rho0, **kw), 20)
-        if parent:
-            after = _time_ms(lambda: old(op, y0, rho0, **kw), 20)
-            o_new, o_old = full_solve(op, y0, rho0, **kw), old(op, y0, rho0,
-                                                               **kw)
-            same = bool(torch.equal(o_new[0], o_old[0])
-                        and torch.equal(o_new[1], o_old[1]))
-            log(f"phase 12 K3 A/B nx={nx}: parent {before:.5f} ms, this "
-                f"tree {ms:.5f} ms, parent again {after:.5f} ms per solve; "
-                f"outputs bit-equal to the parent's: {same}, on {card}")
-            assert same, f"K3 differs from the parent's at nx={nx}"
+        stats, ms = ab[f"nx={nx}"]["stats"], ab[f"nx={nx}"]["ms"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        full_solve_ref(op, y0, rho0, **kw)
+        full_solve_ref(op, y0, m.rho_ind, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         loop = ReLU_QP()
@@ -1696,11 +1709,10 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
             loop_s.append(time.perf_counter() - t0)
             assert r.info.status == "solved"
         bound, by, t_b, t_o, flops = k3_bound_ms(op, kw, stats)
-        split = k3_split(f"nx={nx}", card, lambda fn: (
-            lambda: fn(op, y0, rho0, **kw)), parent)
         rows[nx] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                         bound_by=by, loop_ms=min(loop_s) * 1e3,
-                        iters=int(stats[0]), dp=m.Dp, split=split)
+                        iters=int(stats[0]), dp=m.Dp,
+                        split=ab[f"nx={nx}"]["split"])
         log(f"phase 12 K3 nx={nx} (Dp={m.Dp}, fp32, cold, {int(stats[0])} "
             f"it, rung {int(stats[4])}): {ms:.5f} ms per solve by CUDA "
             f"events ({ms * 1e3 / stats[0]:.3f} us/iteration); loop path "
@@ -1709,35 +1721,13 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
             f"({by}: {t_b:.6f} ms bytes, {t_o:.6f} ms operations, "
             f"{flops:.0f} flop at the operands' nonzeros), "
             f"{ms / bound:.0f}x the bound, on {card}")
-
-    # the fused rollout's own warm solves (200 of K3's launches on the main
-    # path): the operands of the step after phase 11's rollout, from its
-    # final state and rung, ci=1, per launch in a CUDA graph of 20 (a
-    # launch's host time exceeds the solve's)
-    ctrl = fused["ctrl"]
-    sv = ctrl.solver
-    warm = k3_warm_operands(ctrl, fused["xs"][-1], fused["y_f"],
-                            fused["rho_f"])
-    y_w, st_w = warm(full_solve)()
-    assert bool(torch.isfinite(y_w).all()) and float(st_w[5]) == 1.0, st_w
-    if parent:
-        old = parent_module(parent, "ops.solve_kernel").full_solve
-        y_o, st_o = warm(old)()
-        same = bool(torch.equal(y_w, y_o) and torch.equal(st_w, st_o))
-        g = [graph_ms(warm(f), 20) for f in (old, full_solve, old)]
-        log(f"phase 12 K3 A/B on the fused rollout's warm solve (Dp={sv.Dp}, "
-            f"fp32, ci=1, {int(st_w[0])} iteration(s)): parent {g[0]:.5f} ms, "
-            f"this tree {g[1]:.5f} ms, parent again {g[2]:.5f} ms per solve "
-            f"in a CUDA graph of 20; outputs bit-equal to the parent's: "
-            f"{same}, on {card}")
-        assert same, "K3's warm solve differs from the parent's"
-        warm_ms = g[1]
-    else:
-        warm_ms = graph_ms(warm(full_solve), 20)
-        log(f"phase 12 K3 on the fused rollout's warm solve (Dp={sv.Dp}, "
-            f"fp32, ci=1, {int(st_w[0])} iteration(s)): {warm_ms:.5f} ms per "
-            f"solve in a CUDA graph of 20, on {card}")
-    warm_split = k3_split("warm", card, warm, parent)
+    warm_ms, st_w = ab["warm"]["ms"], ab["warm"]["stats"]
+    wb, wby, wt_b, wt_o, _ = k3_bound_ms(op_w, kw_w, st_w, bias_w)
+    log(f"phase 12 K3 on the fused rollout's warm solve (Dp={sv.Dp}, fp32, "
+        f"ci=1, {int(st_w[0])} iteration(s)): {warm_ms:.5f} ms per solve in "
+        f"a CUDA graph of 20; bound {wb:.6f} ms ({wby}: {wt_b:.6f} ms "
+        f"bytes, {wt_o:.6f} ms operations), {warm_ms / wb:.1f}x the bound, "
+        f"on {card}")
     _, _, _, _, x0 = mpc_config()
     rng = np.random.RandomState(8)
 
@@ -1767,8 +1757,13 @@ def phase_k3_timing(card, fused, loop_rate, scan_step_s, parent=None):
     profile_steps("phase 12", ctrl, fused["xs"][-1], 200, kernel="fused",
                   ci=ci)
     log("phase 12 OK")
+    from reluqp_tpu_torch.ops.solve_kernel import solve_plan
+    m100 = rows[100]
+    plan = solve_plan(m100["dp"], 128, 128)
+    log(f"phase 12 K3 plan at the protocol's nx=100: {plan}")
     return dict(rows=rows, step_s=step_s, warm_ms=warm_ms,
-                warm_split=warm_split, warm_iters=int(st_w[0]))
+                warm_split=ab["warm"]["split"], warm_iters=int(st_w[0]),
+                plan=plan, warm_bound_ms=wb)
 
 
 # ---------------------------------------------------------------------- #
@@ -4503,6 +4498,71 @@ def _short(name):
     return name[:40]
 
 
+def widened(rec, nx, nc, B=None, seed=0, per_problem_a=False):
+    """A recorded window (C1's, or C2's with ``B`` rows) with its operands
+    and its state's vectors drawn anew at ``nx``, ``nc`` from a seed, in
+    the solver's own shapes, its settings and scalars kept: past the size
+    where C1's and C2's vectors fit a block's shared memory. C1 takes H and
+    A (no residual operator); C2 a shared H and A, or with
+    ``per_problem_a`` a (B, nc, nx) A."""
+    import torch
+    from reluqp_tpu_torch.ops.fused_step import pad_dim
+    kind, st, op, cfg, y, n, phase = rec
+    dev, dt = y.device, y.dtype
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev, dtype=dt)
+    pos = lambda *s: 0.5 + torch.rand(*s, generator=gen, device=dev,
+                                      dtype=dt)
+    lead = () if B is None else (B,)
+    dp = pad_dim(nx + 2 * nc)
+    H, A = rnd(nx, nx) / nx ** 0.5, rnd(nc, nx) / nx ** 0.5
+    lo, hi = -pos(*lead, dp), pos(*lead, dp)
+    lo[..., nx::5] = -float("inf")
+    hi[..., nx + 1::7] = float("inf")
+    y_new = torch.zeros(*lead, dp, device=dev, dtype=dt)
+    y_new[..., :nx + 2 * nc] = rnd(*lead, nx + 2 * nc)
+    like = lambda t, *s: None if t is None else pos(
+        *(lead if t.dim() > 1 else ()), *s)
+    reff = None if op.rho_eff is None else pos(
+        *((B,) if op.rho_eff.dim() == 3 else ()), op.rhos.shape[0], nc)
+    o = dict(H=H, A=A, lo=lo, hi=hi, rho_eff=reff,
+             w_pri=like(op.w_pri, nc), w_dua=like(op.w_dua, nx))
+    if B is None:
+        o.update(g=rnd(nx), M_res=None, g_row=None)
+        s = dict(y=torch.zeros(dp, device=dev, dtype=dt),
+                 x_prev=None if st.x_prev is None else rnd(nx),
+                 lam_prev=None if st.lam_prev is None else rnd(nc))
+    else:
+        if per_problem_a:
+            o["A"] = torch.stack([A + 0.01 * i for i in range(B)])
+        o["G"] = rnd(B, nx)
+        i32 = torch.int32
+        s = {f: torch.zeros(B, device=dev, dtype=t) for f, t in (
+            ("done", torch.bool), ("iters", i32))}
+        s.update(Y=torch.zeros(B, dp, device=dev, dtype=dt),
+                 rho=0.1 * pos(B), pri=pos(B), dua=pos(B),
+                 status=torch.full((B,), -1, device=dev, dtype=i32),
+                 rho_ind=(st.rho_ind.clone() if st.rho_ind.dim() == 0 else
+                          st.rho_ind[:1].repeat(B)),
+                 X_prev=None if st.X_prev is None else rnd(B, nx),
+                 Lam_prev=None if st.Lam_prev is None else rnd(B, nc),
+                 tick=torch.zeros(B + 2, device=dev, dtype=i32), ctl=None)
+        for f in ("k", "n_open", "open", "tail", "open_a", "best_m",
+                  "best_open", "n_stall", "k_fast"):
+            v = getattr(st, f)
+            s[f] = None if v is None else v.clone()
+    return (kind, st._replace(**s), op._replace(**o),
+            cfg._replace(nx=nx, nc=nc), y_new, n, phase)
+
+
+# phase 31's windows past a block's shared memory, fp64 with the
+# certificates: C1 at nx = 7000 (its global variant, owed since PR 15) and
+# C2 at nx = 3600, B = 2 (the global "tiles" variant; a shared operand and a
+# per-problem A)
+GLOBAL_C1 = (7000, 3500)
+GLOBAL_C2 = (3600, 1800, 2)
+
+
 def phase_check_kernels(card, parent=None):
     """Phase 31: kernels C1 and C2 (``csrc/check_window.cu``) against their
     plain versions on windows recorded from eager solves on the card, the
@@ -4665,6 +4725,29 @@ def phase_check_kernels(card, parent=None):
     for tag in [t for t, _, _ in single] + [t for t, _, _ in batches]:
         rec = next(x for t, x in recs if t == tag and x[6] != "tail")
         timing[tag] = check_timing(tag, rec, card, parent)
+    # the global variants past a block's shared memory: plan, agreement
+    # with the plain check, times (C2's parent raises there: no A/B)
+    from reluqp_tpu_torch.ops.check_window import (batched_check_plan,
+                                                   check_window_plan)
+    nx, nc = GLOBAL_C1
+    base = next(x for t, x in recs
+                if t == "nx=100 certificates fp64" and x[6] != "tail")
+    wide = [(f"C1 global nx={nx} fp64 certificates", widened(base, nx, nc),
+             parent)]
+    nx, nc, B = GLOBAL_C2
+    base = next(x for t, x in recs
+                if t == "shared B=64 Dp=128 fp64 certificates"
+                and x[6] != "tail")
+    wide += [(f"C2 global nx={nx} B={B} fp64 certificates{extra}",
+              widened(base, nx, nc, B=B, per_problem_a=bool(extra)), None)
+             for extra in ("", ", per-problem A")]
+    for tag, rec, par in wide:
+        plan = (check_window_plan if rec[0] == "C1" else batched_check_plan)(
+            *rec[1:])
+        assert plan["variant"] == "global", (tag, plan)
+        e, _, _ = check_compare(tag, rec, ties)
+        timing[tag] = check_timing(tag, rec, card, par)
+        log(f"phase 31 {tag}: plan {plan}; residual error / scale {e:.3e}")
     log(f"phase 31 OK: C1 and C2 agree with their plain versions on every "
         f"recorded window; {time.perf_counter() - t0:.1f} s")
     return dict(errs=errs, abs_errs=abs_errs, ties=ties, differ=differ,
@@ -5366,7 +5449,11 @@ def main():
     }, {
         # per cold solve; no single PyTorch call computes a whole solve
         "name": f"K3 full_solve (protocol nx=100, Dp={k3_row['dp']}, fp32, "
-                f"one cold solve of {k3_row['iters']} iterations)",
+                f"one cold solve of {k3_row['iters']} iterations; plan: "
+                f"{k3['plan']['blocks']} blocks, staging "
+                f"{k3['plan']['staging']}, exchange {k3['plan']['exchange']}; "
+                f"the fused rollout's warm solve {k3['warm_ms']:.5f} ms in a "
+                f"CUDA graph)",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/full_solve.cu",
         "replaces": "reluqp_tpu/ops/solve_kernel.py:336",
@@ -5437,11 +5524,16 @@ def main():
     }]
     c1, c2 = (chk["timing"][tag] for tag in (
         CHECK_MAIN_C1, f"shared B={REPACK_B} Dp=128 fp32"))
+    g1 = chk["timing"][f"C1 global nx={GLOBAL_C1[0]} fp64 certificates"]
+    g2 = chk["timing"][f"C2 global nx={GLOBAL_C2[0]} B={GLOBAL_C2[2]} fp64 "
+                       "certificates"]
     kernels += [{
         # per window; XLA's fused check has no single PyTorch call
         "name": f"C1 check_window ({CHECK_MAIN_C1}, y @ M_res, per window; "
                 f"{len(chk['ties'])} recorded windows with ties, "
-                f"{chk['differ']} decisions taken otherwise)",
+                f"{chk['differ']} decisions taken otherwise; the global "
+                f"variant at nx={GLOBAL_C1[0]} fp64 with certificates "
+                f"{g1['ms']:.5f} ms, bound {g1['bound_ms']:.5f} ms)",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/check_window.cu",
         "replaces": "reluqp_tpu/core/iteration.py:455",
@@ -5452,7 +5544,10 @@ def main():
         "library_ms": None,
     }, {
         "name": f"C2 batched_check (shared batch, B={REPACK_B}, Dp=128, "
-                "fp32, per window)",
+                f"fp32, per window, regime {c2['plan']['regime']}; the "
+                f"'tiles' global variant at nx={GLOBAL_C2[0]}, "
+                f"B={GLOBAL_C2[2]}, fp64 with certificates {g2['ms']:.5f} "
+                f"ms, bound {g2['bound_ms']:.5f} ms)",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/check_window.cu",
         "replaces": "reluqp_tpu/core/batched.py:369",

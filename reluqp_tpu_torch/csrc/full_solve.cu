@@ -47,8 +47,8 @@
 //     cp.async, each thread on one column (no division per element), all in
 //     flight at once, in two groups -- the vectors and the start rung's W
 //     and M_aff columns, which the first window waits for, then M_res, A_w
-//     and A_inf, which land while its iterations run (a bf16 bank's
-//     2-byte elements go through registers, a batch of loads at a time).
+//     and A_inf, which land while its iterations run (a bf16 bank's 2-byte
+//     elements go through registers, a batch of loads at a time).
 //   * Products: a warp per column as before (the sum order full_solve_ref
 //     reproduces), each batch of eight terms' fp64 products formed before
 //     they are added in order, so the loads and conversions leave the sum's
@@ -58,10 +58,12 @@
 //     beside a tag in 64-bit words (two in fp64) and every block reads all
 //     of them as soon as their tags show (solve_loop.cuh, gather_tagged):
 //     one round trip to L2 where the barrier took two and the reload of y a
-//     third. The launch's one grid barrier follows the blocks' clearing of
-//     the words they write. Each block then reduces every block's partials
-//     itself, all loads in flight at once (the earlier design had warp 0
-//     walk the G rows in turn).
+//     third. The launch's one grid barrier, before its first exchange,
+//     follows the blocks' clearing of the words they write. Each block
+//     reduces every block's partials itself, all loads in flight at once
+//     (the earlier design had warp 0 walk the G rows in turn). The
+//     products read an fp64 copy of y (fp32 runs): each factor of y is
+//     converted once an iteration, not once a column.
 //   * The selector products of the TPU kernel (y @ S_pz, y @ S_lam, and
 //     the scatter corr @ S_sc) are lane reads and writes of the stacked
 //     layout [x | z | p or lam], rounded to fp32 as the dots are; every
@@ -118,7 +120,7 @@ struct K3Args {
 // (plan) and the device. Counts are the largest share of any block; an
 // option that is off takes no room.
 struct Layout {
-  size_t ys, lo, hi, b, g, xv, rr, dec, cert, lam, d, yprev, dy, lamp, dlam;  // state
+  size_t ys, ysd, lo, hi, b, g, xv, rr, dec, cert, lam, d, yprev, dy, lamp, dlam;  // state
   size_t w, ma, mra, mrz, mrh, mrl, maw, mai;                                 // slabs
   size_t small_end, total;
 };
@@ -138,6 +140,7 @@ __host__ __device__ Layout make_layout(int dp, int nxp, int ncp, int nplp, int a
     return at;
   };
   L.ys = put(dp * t);
+  L.ysd = put(t == 8 ? 0 : dp * sizeof(double));  // y in fp64 (fp32 runs)
   L.lo = put(my * t);
   L.hi = put(my * t);
   L.b = put(my * t);
@@ -171,7 +174,6 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = gridDim.x, blk = blockIdx.x;
   const int dp = a.dp, nxp = a.nxp, ncp = a.ncp, nplp = a.nplp;
-  const int R = 2 * ncp + (a.alpha ? nxp : 2 * nxp);
   const bool res = a.resident != 0;
   const Layout L = make_layout<T, WT>(dp, nxp, ncp, nplp, a.alpha, a.infeas, G);
   auto sm = [&](size_t off) { return reinterpret_cast<T*>(smem + off); };
@@ -194,6 +196,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
   s.rc = rc;
   s.rv = rv;
   s.ys = sm(L.ys);
+  s.ysd = reinterpret_cast<double*>(smem + (sizeof(T) == 8 ? L.ys : L.ysd));
   s.lo_s = sm(L.lo);
   s.hi_s = sm(L.hi);
   s.b_s = sm(L.b);
@@ -261,6 +264,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
     s.mac = stage_cols(s.ma_slab, a.m_aff + (size_t)k0 * nplp * dp, nplp, dp, ry.lo, ry.n, res);
   s.resident_rung = k0;
   cpa_commit();
+  const int R = 2 * ncp + (a.alpha ? nxp : 2 * nxp);
   s.mra = stage_cols(sm(L.mra), a.m_res, dp, R, rc.lo, rc.n, res);
   s.mrz = stage_cols(sm(L.mrz), a.m_res, dp, R, ncp + rc.lo, rc.n, res);
   s.mrh = stage_cols(sm(L.mrh), a.m_res, dp, R, 2 * ncp + rv.lo, rv.n, res);
@@ -272,7 +276,8 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
   cpa_commit();
   s.in_flight = 1;
   // The exchange's slots start at zero (no tag): each block clears the
-  // words it writes, then the launch's one grid barrier.
+  // words it writes; the launch's one grid barrier comes before the first
+  // exchange reads any (check_window).
   constexpr int N = TagWords<T>::n;
   for (int slot = 0; slot < 2; ++slot) {
     for (int i = threadIdx.x; i < ry.n * N; i += kThreads)
@@ -280,8 +285,11 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(const K3Args<T, WT> a) {
     for (int i = threadIdx.x; i < kPartCols * N; i += kThreads)
       a.px[((size_t)slot * G + blk) * kPartCols * N + i] = 0;
   }
-  grid.sync();
+  s.first_sync = 1;
   cpa_wait<1>();
+  __syncthreads();
+  if (sizeof(T) == 4)
+    for (int i = threadIdx.x; i < dp; i += kThreads) s.ysd[i] = static_cast<double>(s.ys[i]);
   __syncthreads();
   if (a.infeas) {
     compute_lam(s, k0, s.lamp_s, static_cast<T*>(nullptr));

@@ -178,13 +178,13 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   const Range rx = split(nplp, G, blk);
 
   // Slabs that do not depend on the rung: loaded once for the launch.
-  const Cols<T> glz = take_cols(sm(L.glz), a.gl, nplp, R2, nxp + ry.lo, ry.n, res);
-  const Cols<T> glg = take_cols(sm(L.glg), a.gl, nplp, R2, rv.lo, rv.n, res);
-  const Cols<T> glk = take_cols(sm(L.glk), a.gl, nplp, R2, nxp + dp + ru.lo, ru.n, res);
+  const Cols<T> glz = stage_cols(sm(L.glz), a.gl, nplp, R2, nxp + ry.lo, ry.n, res);
+  const Cols<T> glg = stage_cols(sm(L.glg), a.gl, nplp, R2, rv.lo, rv.n, res);
+  const Cols<T> glk = stage_cols(sm(L.glk), a.gl, nplp, R2, nxp + dp + ru.lo, ru.n, res);
   const Cols<T> gla =
-      take_cols(sm(L.gla), a.gl, nplp, R2, nxp + dp + nup + rx.lo, rx.n, res);
-  const Cols<T> su = take_cols(sm(L.su), a.s_u, dp, nup, ru.lo, ru.n, res);
-  const Cols<T> bd = take_cols(sm(L.bd), a.bdw, nup, nplp, rx.lo, rx.n, res);
+      stage_cols(sm(L.gla), a.gl, nplp, R2, nxp + dp + nup + rx.lo, rx.n, res);
+  const Cols<T> su = stage_cols(sm(L.su), a.s_u, dp, nup, ru.lo, ru.n, res);
+  const Cols<T> bd = stage_cols(sm(L.bd), a.bdw, nup, nplp, rx.lo, rx.n, res);
 
   // The warm solve of every step runs the shared solve loop; the K3
   // options stay off (value-initialised).
@@ -206,10 +206,10 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   s.xv = xv;
   s.w_slab = reinterpret_cast<WT*>(smem + L.w);
   s.ma_slab = sm(L.ma);
-  s.mra = take_cols(sm(L.mra), a.m_res, dp, R, rc.lo, rc.n, res);
-  s.mrz = take_cols(sm(L.mrz), a.m_res, dp, R, ncp + rc.lo, rc.n, res);
-  s.mrh = take_cols(sm(L.mrh), a.m_res, dp, R, 2 * ncp + rv.lo, rv.n, res);
-  s.mrl = take_cols(sm(L.mrl), a.m_res, dp, R, 2 * ncp + nxp + rv.lo, rv.n, res);
+  s.mra = stage_cols(sm(L.mra), a.m_res, dp, R, rc.lo, rc.n, res);
+  s.mrz = stage_cols(sm(L.mrz), a.m_res, dp, R, ncp + rc.lo, rc.n, res);
+  s.mrh = stage_cols(sm(L.mrh), a.m_res, dp, R, 2 * ncp + rv.lo, rv.n, res);
+  s.mrl = stage_cols(sm(L.mrl), a.m_res, dp, R, 2 * ncp + nxp + rv.lo, rv.n, res);
   s.wt = a.wt;
   // the rung ladder and the constants of this block's lanes, read from
   // global memory once: in the step they would each cost a round trip to L2
@@ -253,6 +253,8 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = a.y0[i];
   for (int i = threadIdx.x; i < nplp; i += kThreads) xv[i] = a.x0[i];
   int k_idx = a.rho0 < 0 ? 0 : (a.rho0 >= a.n_rho ? a.n_rho - 1 : a.rho0);
+  cpa_commit();  // the slabs' copies
+  cpa_wait<0>();
   __syncthreads();
 
   const int n_ref = ry.n + rv.n + ru.n + rx.n;

@@ -119,21 +119,7 @@ struct Cols {
   __device__ __forceinline__ const MT* col(int c) const { return p + (size_t)c * sc; }
 };
 
-// Copy columns [col0, col0 + ncols) of a row-major (rows, ld) matrix into
-// dst[c * rows + i], and return the accessor; or return the global one.
-template <typename MT>
-__device__ Cols<MT> take_cols(MT* dst, const MT* src, int rows, int ld, int col0,
-                              int ncols, bool resident) {
-  if (!resident) return Cols<MT>{src + col0, ld, 1};
-  for (int t = threadIdx.x; t < rows * ncols; t += kThreads) {
-    const int i = t / ncols;
-    const int c = t - i * ncols;
-    dst[(size_t)c * rows + i] = src[(size_t)i * ld + col0 + c];
-  }
-  return Cols<MT>{dst, 1, rows};
-}
-
-// K3's staging: one element global -> shared with cp.async (4- or 8-byte
+// Staging: one element global -> shared with cp.async (4- or 8-byte
 // elements), committed in groups that the caller waits for in turn.
 template <typename MT>
 __device__ __forceinline__ void cpa_elem(MT* dst, const MT* src) {
@@ -149,16 +135,18 @@ template <int N> __device__ __forceinline__ void cpa_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// n elements of a vector into shared memory (K3's staging).
+// n elements of a vector into shared memory.
 template <typename T>
 __device__ __forceinline__ void stage_vec(T* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += kThreads) cpa_elem(dst + i, src + i);
 }
 
-// take_cols for K3: the same layout, each thread on one column and every
-// (kThreads / ncols)-th row (no division per element), and every copy in
-// flight at once -- cp.async for 4- and 8-byte elements (the caller commits
-// and waits), a batch of loads into registers before their stores for bf16.
+// Copy columns [col0, col0 + ncols) of a row-major (rows, ld) matrix into
+// dst[c * rows + i], and return the accessor; or return the global one.
+// Each thread takes one column and every (kThreads / ncols)-th row (no
+// division per element), and every copy is in flight at once: cp.async for
+// 4- and 8-byte elements (the caller commits and waits), a batch of loads
+// into registers before their stores for bf16.
 template <typename MT>
 __device__ Cols<MT> stage_cols(MT* dst, const MT* src, int rows, int ld, int col0, int ncols,
                                bool resident) {
@@ -224,33 +212,57 @@ __device__ __forceinline__ void untag(const uint64_t* q, double& v) {
   v = __longlong_as_double((long long)((q[1] << 32) | (q[0] & 0xffffffffull)));
 }
 
-// All n tagged values at src into put(i, value), by the block's threads,
-// each with up to four values' loads in flight at once.
+// All n tagged values at src into put(i, value), by the block's threads:
+// one value a thread, polled in a tight loop until its tag shows; or, where
+// a thread has more, its values (up to eight at a time) loaded at once and
+// every one whose tag is not there yet loaded again at once, until all are
+// (one value after the other took a round trip each at Dp >= 640; the
+// rounds took longer than the tight loop at Dp = 256, on the H100).
 template <typename T, typename F>
 __device__ __forceinline__ void gather_tagged(const uint64_t* src, int n, uint32_t tag, F put) {
-  constexpr int N = TagWords<T>::n, K = 4;
-  for (int i0 = threadIdx.x; i0 < n; i0 += K * kThreads) {
-    uint64_t q[K][N];
-#pragma unroll
-    for (int u = 0; u < K; ++u)
-#pragma unroll
-      for (int m = 0; m < N; ++m)
-        q[u][m] = i0 + u * kThreads < n ? ld_word(src + (size_t)(i0 + u * kThreads) * N + m) : 0;
-#pragma unroll
-    for (int u = 0; u < K; ++u) {
-      const int i = i0 + u * kThreads;
-      if (i >= n) continue;
+  constexpr int N = TagWords<T>::n, K = 8;
+  if (n <= kThreads) {
+    if (threadIdx.x < n) {
+      const uint64_t* w = src + (size_t)threadIdx.x * N;
+      uint64_t q[N];
       for (;;) {
         bool ok = true;
 #pragma unroll
-        for (int m = 0; m < N; ++m) ok = ok && (uint32_t)(q[u][m] >> 32) == tag;
-        if (ok) break;
+        for (int m = 0; m < N; ++m) q[m] = ld_word(w + m);
 #pragma unroll
-        for (int m = 0; m < N; ++m) q[u][m] = ld_word(src + (size_t)i * N + m);
+        for (int m = 0; m < N; ++m) ok = ok && (uint32_t)(q[m] >> 32) == tag;
+        if (ok) break;
       }
       T v;
-      untag(q[u], v);
-      put(i, v);
+      untag(q, v);
+      put(threadIdx.x, v);
+    }
+    return;
+  }
+  for (int i0 = threadIdx.x; i0 < n; i0 += K * kThreads) {
+    uint64_t q[K][N];
+    unsigned need = 0;
+#pragma unroll
+    for (int u = 0; u < K; ++u)
+      if (i0 + u * kThreads < n) need |= 1u << u;
+    while (need) {
+#pragma unroll
+      for (int u = 0; u < K; ++u)
+        if (need >> u & 1)
+#pragma unroll
+          for (int m = 0; m < N; ++m) q[u][m] = ld_word(src + (size_t)(i0 + u * kThreads) * N + m);
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        if (!(need >> u & 1)) continue;
+        bool ok = true;
+#pragma unroll
+        for (int m = 0; m < N; ++m) ok = ok && (uint32_t)(q[u][m] >> 32) == tag;
+        if (!ok) continue;
+        T v;
+        untag(q[u], v);
+        put(i0 + u * kThreads, v);
+        need &= ~(1u << u);
+      }
     }
   }
 }
@@ -417,7 +429,30 @@ struct Loop {
   // whether the check's operands are still in flight (the first window)
   uint64_t *yx, *px;
   int n_ystep, n_check, in_flight;
+  // K3: the launch's one grid barrier still owed (before the first
+  // exchange, once every block has cleared its words), and y in fp64 for
+  // the products (y itself in an fp64 run), so that each factor of y is
+  // converted once an iteration, not once a column
+  int first_sync;
+  double* ysd;
 };
+
+// A product of y with one column: from the fp64 copy of y where there is
+// one (K3; the same products and sums), else from y.
+template <typename T, typename WT, typename Acc, typename MT>
+__device__ __forceinline__ float ydot(const Loop<T, WT, Acc>& s, const MT* col, int si, int lane) {
+  if constexpr (Acc::kBatch > 1)
+    if (s.ysd) return dot32<Acc, double, MT>(s.ysd, col, si, s.dp, lane);
+  return dot32<Acc, T, MT>(s.ys, col, si, s.dp, lane);
+}
+
+// y[i] = v, and its fp64 copy where K3 keeps one apart.
+template <typename T, typename WT, typename Acc>
+__device__ __forceinline__ void set_y(const Loop<T, WT, Acc>& s, int i, T v) {
+  s.ys[i] = v;
+  if constexpr (sizeof(T) == 4)
+    if (s.ysd) s.ysd[i] = static_cast<double>(v);
+}
 
 // The stage that ends here into stamps[slot] (block 0, after a block
 // barrier so that its slowest warp is counted); nothing when stamps are off.
@@ -466,17 +501,13 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
   constexpr int N = TagWords<T>::n;  // tagged words a value (K3)
   if (k_idx != s.resident_rung) {
     __syncthreads();
-    const WT* w = s.wt + (size_t)k_idx * dp * dp;
-    const T* ma = s.xv ? s.m_aff + (size_t)k_idx * nplp * dp : nullptr;
-    if (s.yx) {
-      s.wc = stage_cols(s.w_slab, w, dp, dp, ry.lo, ry.n, s.resident);
-      if (ma) s.mac = stage_cols(s.ma_slab, ma, nplp, dp, ry.lo, ry.n, s.resident);
-      cpa_commit();
-      cpa_wait<0>();
-    } else {
-      s.wc = take_cols(s.w_slab, w, dp, dp, ry.lo, ry.n, s.resident);
-      if (ma) s.mac = take_cols(s.ma_slab, ma, nplp, dp, ry.lo, ry.n, s.resident);
-    }
+    s.wc = stage_cols(s.w_slab, s.wt + (size_t)k_idx * dp * dp, dp, dp, ry.lo, ry.n,
+                      s.resident);
+    if (s.xv)
+      s.mac = stage_cols(s.ma_slab, s.m_aff + (size_t)k_idx * nplp * dp, nplp, dp, ry.lo,
+                         ry.n, s.resident);
+    cpa_commit();
+    cpa_wait<0>();
     s.resident_rung = k_idx;
     __syncthreads();
     lap(s, K3S_STAGED);
@@ -505,7 +536,9 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
       uint64_t* xs = s.yx ? s.yx + (size_t)(s.n_ystep & 1) * dp * N : nullptr;
       const uint32_t tag = xtag(s.n_ystep);
       for (int p = warp; p < ry.n; p += kWarps) {
-        const float r = iter_dot<Acc, T, WT>(ys, wc.col(p), wc.si, dp, lane, tier);
+        const float r = tier == TIER_HIGHEST ? ydot(s, wc.col(p), wc.si, lane)
+                                             : iter_dot<Acc, T, WT>(ys, wc.col(p), wc.si, dp,
+                                                                    lane, tier);
         if (lane == 0) {
           T v = static_cast<T>(r) + b_s[p];
           // comparisons (not fmin/fmax) so a NaN propagates like jnp.clip
@@ -519,7 +552,11 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
       if (xs) {
         // every block reads each value as soon as its tag is there
         __syncthreads();
-        gather_tagged<T>(xs, dp, tag, [&](int i, T v) { ys[i] = v; });
+        if (s.first_sync) {
+          grid.sync();
+          s.first_sync = 0;
+        }
+        gather_tagged<T>(xs, dp, tag, [&](int i, T v) { set_y(s, i, v); });
         ++s.n_ystep;
       } else {
         grid.sync();
@@ -597,19 +634,19 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
       // K2's u lanes, stored where every block reads them after the
       // residual barrier
       q -= n_all;
-      const T v0 = static_cast<T>(dot32<Acc, T>(s.ys, s.msu.col(q), s.msu.si, dp, lane));
+      const T v0 = static_cast<T>(ydot(s, s.msu.col(q), s.msu.si, lane));
       if (lane == 0) s.u_out[s.u_lo + q] = v0 - s.kx[q];
       continue;
     }
     if (q < rc.n) {
-      r = dot32<Acc, T>(s.ys, s.mra.col(q), s.mra.si, dp, lane);
+      r = ydot(s, s.mra.col(q), s.mra.si, lane);
     } else if ((q -= rc.n) < rc.n) {
-      r = dot32<Acc, T>(s.ys, s.mrz.col(q), s.mrz.si, dp, lane);
+      r = ydot(s, s.mrz.col(q), s.mrz.si, lane);
     } else if ((q -= rc.n) < rv.n) {
-      r = dot32<Acc, T>(s.ys, s.mrh.col(q), s.mrh.si, dp, lane);
+      r = ydot(s, s.mrh.col(q), s.mrh.si, lane);
     } else if ((q -= rv.n) < rv.n) {
       r = s.alpha ? dot32<Acc, T>(s.lam_s, s.maw.col(q), s.maw.si, ncp, lane)
-                  : dot32<Acc, T>(s.ys, s.mrl.col(q), s.mrl.si, dp, lane);
+                  : ydot(s, s.mrl.col(q), s.mrl.si, lane);
     } else if ((q -= rv.n) < rc.n) {
       r = dot32<Acc, T>(s.dy_s, s.mra.col(q), s.mra.si, dp, lane) *
           static_cast<float>(s.inv_wp[rc.lo + q]);
@@ -785,7 +822,7 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
       const T ro = static_cast<T>(s.reff[(size_t)k_idx * ncp + i]);
       const T rn = static_cast<T>(s.reff[(size_t)nk * ncp + i]);
       const T corr = (ro / rn - T(1)) * s.d_s[i];
-      s.ys[s.nx + s.nc + i] += static_cast<T>(static_cast<float>(corr));
+      set_y(s, s.nx + s.nc + i, s.ys[s.nx + s.nc + i] + static_cast<T>(static_cast<float>(corr)));
     }
   }
   if (certs) {

@@ -1,11 +1,13 @@
-"""The ctypes mirrors of C1's and C2's launch arguments against the C.
+"""The ctypes mirrors of the kernels' launch arguments against the C.
 
 ``ops/check_window.py`` passes ``_C1Args`` and ``_C2Args`` by address to
 ``csrc/check_window.cu``'s ``c1_check`` and ``c2_check``, which read them
-as ``C1Args`` and ``C2Args``. A field added on one side only, or out of
-order, shifts every field after it, and only the card would show it. These
-tests parse the two structs from the source and hold the mirrors to them
-field by field (name, order, pointer / int / double) and byte for byte.
+as ``C1Args`` and ``C2Args``; ``ops/solve_kernel.py`` passes ``_K3Params``
+to ``csrc/full_solve.cu``'s ``k3_full_solve`` (``K3Params``). A field added
+on one side only, or out of order, shifts every field after it, and only
+the card would show it. These tests parse the structs from the source and
+hold the mirrors to them field by field (name, order, pointer / int /
+float / double) and byte for byte.
 """
 import ctypes
 import re
@@ -14,20 +16,24 @@ from pathlib import Path
 import pytest
 
 from reluqp_tpu_torch.ops import check_window as cw
+from reluqp_tpu_torch.ops import solve_kernel as sk
 
-SRC = Path(cw.__file__).resolve().parent.parent / "csrc" / "check_window.cu"
-MIRRORS = {"C1Args": cw._C1Args, "C2Args": cw._C2Args}
+CSRC = Path(cw.__file__).resolve().parent.parent / "csrc"
+SOURCES = {"C1Args": "check_window.cu", "C2Args": "check_window.cu",
+           "K3Params": "full_solve.cu"}
+MIRRORS = {"C1Args": cw._C1Args, "C2Args": cw._C2Args,
+           "K3Params": sk._K3Params}
 _KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
-         ctypes.c_double: "double"}
-_SIZE = {"pointer": 8, "int": 4, "double": 8}
+         ctypes.c_float: "float", ctypes.c_double: "double"}
+_SIZE = {"pointer": 8, "int": 4, "float": 4, "double": 8}
 
 
 def c_fields(struct: str) -> list:
     """``(name, kind)`` of every field of ``struct`` in the source, in
-    order; kind is "pointer", "int" or "double"."""
-    src = SRC.read_text()
+    order; kind is "pointer", "int", "float" or "double"."""
+    src = (CSRC / SOURCES[struct]).read_text()
     body = re.search(r"struct\s+%s\s*\{(.*?)\};" % struct, src, re.S)
-    assert body, f"no struct {struct} in {SRC.name}"
+    assert body, f"no struct {struct} in {SOURCES[struct]}"
     text = re.sub(r"//[^\n]*", "", body.group(1))
     fields = []
     for decl in text.split(";"):
@@ -43,7 +49,7 @@ def c_fields(struct: str) -> list:
             if "*" in stars:
                 kind = "pointer"
             else:
-                assert base in ("int", "double"), (struct, decl)
+                assert base in ("int", "float", "double"), (struct, decl)
                 kind = base
             fields.append((name, kind))
     return fields

@@ -325,11 +325,47 @@ def test_k3_matches_plain_version(dev, name, data, kw, status):
 
 def test_k3_plan_by_shape(dev):
     """One persistent block per SM on the cooperative grid; every slab in
-    shared memory at the protocol's nx=100 shape."""
+    shared memory at the protocol's nx=100 shape, staged with cp.async;
+    the exchange in tagged words, one a value in fp32 and two in fp64; a
+    bf16 bank's slab staged through registers; fp64 slabs at Dp=1280 read
+    from L2 (nothing staged)."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = solve_plan(256, 128, 128)
     assert plan["blocks"] == n_sm and plan["resident"]
     assert plan["cols_per_block"] * plan["blocks"] >= 256
+    assert plan["staging"] == "cp.async", plan
+    assert plan["exchange"] == "tagged words" and plan["words_per_value"] == 1
+    assert solve_plan(256, 128, 128, torch.float64)["words_per_value"] == 2
+    assert solve_plan(256, 128, 128,
+                      w_dtype=torch.bfloat16)["staging"] == "loads"
+    wide = solve_plan(1280, 640, 256, torch.float64)
+    assert not wide["resident"] and wide["staging"] == "none", wide
+
+
+# Every branch of K3's plan against its plain version, bit for bit: fp32
+# (one word a value), fp64 (two), a bf16 bank (its slab through registers)
+# and fp64 at Dp=1280 (the slabs read from L2).
+@pytest.mark.parametrize("name,nx,kw", [
+    ("fp32", 60, dict(precision="float32")),
+    ("fp64", 60, dict(precision="float64")),
+    ("bf16 bank", 60, dict(precision="float32", iter_precision="bf16")),
+    ("fp64 from L2", 640, dict(precision="float64", scaling=True)),
+])
+def test_k3_plan_branches_are_bit_equal_to_plain(dev, name, nx, kw):
+    data = rand_qp(nx, nx // 4, nx // 4, seed=1, compute_sol=False)[:5]
+    m = rqt.ReLU_QP()
+    m.setup(*data, backend="fused", eps_abs=1e-4, **kw)
+    op, call = m._fused_call()
+    plan = solve_plan(m.Dp, m._nxp, m._ncp, m.settings.precision_dtype,
+                      w_dtype=op.Wt_bank.dtype)
+    want = {"fp32": "cp.async", "fp64": "cp.async", "bf16 bank": "loads",
+            "fp64 from L2": "none"}[name]
+    assert plan["staging"] == want, plan
+    y0 = torch.zeros_like(m.y)
+    out = full_solve(op, y0, m.rho_ind, **call)
+    ref = full_solve_ref(op, y0, m.rho_ind, **call)
+    assert torch.equal(out[1].cpu(), ref[1].cpu()), (out[1], ref[1])
+    assert torch.equal(out[0], ref[0])
 
 
 def test_k3_is_bit_equal_across_a_rung_change_at_dp1024(dev):
