@@ -1305,11 +1305,13 @@ def fused_solver(data, **kw):
     return m
 
 
-def k3_compare(tag, op, kw, y0, rho0, tol, bias=None, expect=None):
+def k3_compare(tag, op, kw, y0, rho0, tol, bias=None, expect=None,
+               exact=False):
     """K3 and its plain version on one call: equal iterations, rung,
     status and reduced-phase count, y within ``tol`` relative to
-    max(1, |y|inf), padded lanes exactly 0. Returns the kernel's stats and
-    the absolute and relative differences."""
+    max(1, |y|inf) (``exact``: y and the stats bit-equal), padded lanes
+    exactly 0. Returns the kernel's stats and the absolute and relative
+    differences."""
     import torch
     from reluqp_tpu_torch.ops.solve_kernel import full_solve, full_solve_ref
     out = full_solve(op, y0, rho0, bias, **kw)
@@ -1330,15 +1332,18 @@ def k3_compare(tag, op, kw, y0, rho0, tol, bias=None, expect=None):
     if expect is not None:
         assert so[5] == expect, (tag, so)
     assert rel <= tol, (tag, rel)
+    if exact:
+        assert torch.equal(out[0], ref[0]) and (so == sr).all(), \
+            f"{tag}: not bit-equal to the plain version"
     return so, err, rel
 
 
-def k3_solver_compare(tag, m, tol, expect=None):
+def k3_solver_compare(tag, m, tol, expect=None, exact=False):
     """``k3_compare`` on a set-up solver's own call, from a cold start."""
     import torch
     op, kw = m._fused_call()
     return k3_compare(tag, op, kw, torch.zeros_like(m.y), m.rho_ind, tol,
-                      expect=expect)
+                      expect=expect, exact=exact)
 
 
 def capture_stdout(fn):
@@ -1375,7 +1380,10 @@ def phase_k3_check():
                                                    full_solve_ref,
                                                    solve_plan)
     from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp
-    errs, streamed = {}, False
+    # every branch of the plan (staging by cp.async, through registers for
+    # a bf16 bank, none where the slabs are read from L2; one or two tagged
+    # words a value) bit-equal to the plain version
+    errs, branches = {}, set()
     for dp, nx in K3_SIZES:
         data = rand_qp(nx, nx // 4, nx // 4, seed=1, compute_sol=False)[:5]
         for precision in ("float64", "float32"):
@@ -1384,12 +1392,11 @@ def phase_k3_check():
             assert m.Dp == dp, (m.Dp, dp)
             plan = solve_plan(dp, m._nxp, m._ncp,
                               dtype=m.settings.precision_dtype)
-            streamed |= not plan["resident"]
+            branches.add((plan["staging"], plan["words_per_value"]))
             log(f"K3 Dp={dp} {precision}: plan {plan}")
             _, err, rel = k3_solver_compare(f"K3 Dp={dp} {precision}", m,
-                                            K3_TOL[precision])
+                                            K3_TOL[precision], exact=True)
             errs[(dp, precision)] = err
-    assert streamed, "no case ran K3 with its operands read from L2"
 
     # the options, each on its own, in fp64 unless a tier asks for fp32
     small = rand_qp(60, 15, 15, seed=2, compute_sol=False)[:5]
@@ -1418,8 +1425,15 @@ def phase_k3_check():
     for name, data, kw, expect in cases:
         m = fused_solver(data, **kw)
         tol = K3_TOL[m.settings.precision]
+        bank = m._fused_call()[0].Wt_bank.dtype
+        if bank == torch.bfloat16:
+            plan = solve_plan(m.Dp, m._nxp, m._ncp,
+                              dtype=m.settings.precision_dtype, w_dtype=bank)
+            branches.add((plan["staging"], plan["words_per_value"]))
+            log(f"K3 {name}: plan {plan}")
         so, err, _ = k3_solver_compare(f"K3 {name} (Dp={m.Dp})", m, tol,
-                                       expect=expect)
+                                       expect=expect,
+                                       exact=bank == torch.bfloat16)
         if "refine" in name:
             assert 0 < so[6] <= so[0], (name, so)
         errs[name] = err
@@ -1466,9 +1480,11 @@ def phase_k3_check():
     assert lines_k and lines_k == lines_p, (lines_k, lines_p)
     log(f"K3 verbose: {len(lines_k)} lines printed by the kernel equal the "
         f"plain version's, the last {lines_k[-1]!r}")
+    want = {("cp.async", 1), ("cp.async", 2), ("none", 2), ("loads", 1)}
+    assert want <= branches, f"plan branches run: {branches}"
     log("phase 10 OK: K3 matches its plain version at every Dp, fp64 and "
-        "fp32, and in every option; max|kernel-plain| "
-        f"{max(errs.values()):.3e}")
+        "fp32, and in every option, bit for bit on every plan branch "
+        f"{sorted(branches)}; max|kernel-plain| {max(errs.values()):.3e}")
     return errs
 
 
