@@ -1265,13 +1265,42 @@ def phase_scan_timing(card, scan, loop_rate, parent=None):
         f"operations, {flops:.0f} flop/step at the operands' nonzeros; the "
         f"TPU kernel's cost estimate omits the refresh and plant products), "
         f"{ms / bound:.0f}x the bound, on {card}")
+    split = k2_split(card, lambda fn: (lambda: fn(*args, **kw)), parent)
     ctrl.solver.y, ctrl.solver.rho_ind = scan["y_f"], scan["rho_f"]
     profile_steps("phase 9", ctrl, scan["xs"][-1], T, kernel="scan", ci=ci)
-    log("phase 9 OK")
     plan = rollout_plan(args[0].shape[1], kw["nxp"], kw["ncp"], kw["nup"],
                         kw["nplp"], args[0].shape[0], args[0].dtype)
+    log(f"phase 9 K2 plan: {plan}")
+    log("phase 9 OK")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                ci=ci, step_s=step_s, plan=plan)
+                ci=ci, step_s=step_s, plan=plan, split=split)
+
+
+def k2_split(card, fn_of, parent=None):
+    """The stage split of one K2 launch, ``fn_of(full_rollout)`` run alone
+    in a CUDA graph (``ops.solve_kernel.k2_stage_split``), for this tree
+    and, where ``parent`` has the stamps, the parent's kernel; logged with
+    the grid barriers block 0 took, returned by tree."""
+    from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
+                                                   k2_stage_split)
+    out = {"this tree": k2_stage_split(fn_of(full_rollout))}
+    if parent:
+        pm = parent_module(parent, "ops.solve_kernel")
+        if hasattr(pm, "k2_stage_split"):
+            out["parent"] = pm.k2_stage_split(fn_of(pm.full_rollout))
+        else:
+            log("phase 9 K2 split: the parent has no stage stamps")
+    for who, sp in out.items():
+        log(f"phase 9 K2 split ({who}), mean of 20 launches of "
+            f"{sp['steps']:.0f} steps: launch {sp['launch']:.2f} us, staged "
+            f"{sp['staged']:.2f} us per launch; per step, us: "
+            + ", ".join(f"{k} {sp[k]:.3f}" for k in (
+                "refresh", "bias", "iteration", "exchange", "check",
+                "reduced", "plant", "x exchange", "step"))
+            + f"; total {sp['total']:.2f} us; grid barriers "
+            f"{sp['barriers_per_launch']:.0f} per launch, "
+            f"{sp['barriers_per_warm_step']:.3f} per warm step; on {card}")
+    return out
 
 
 # ---------------------------------------------------------------------- #

@@ -65,6 +65,9 @@
 //     every product (PERF.md, section 6).
 //   * Step 2 is the device solve loop shared with K3 (csrc/solve_loop.cuh),
 //     with K3's options off and the first window always run.
+// A non-null `stamps` (never on a rollout path) makes block 0 sum its time
+// by stage and count its steps and grid barriers (solve_loop.cuh K3S_* and
+// K2S_*; ops/solve_kernel.k2_stage_split).
 //
 // Plain C interface, built with nvcc into a shared library and called with
 // ctypes. Entries return a cudaError_t (0 on success), checked right after
@@ -79,7 +82,7 @@
 struct K2Params {
   const void *wt, *bias_c, *m_aff, *rhos, *m_res, *g0w, *gl, *lo0, *hi0,
       *s_u, *bdw, *y0, *x0, *noise;
-  void *xs, *us, *stats, *y_f, *ybuf, *ubuf, *xbuf, *part;
+  void *xs, *us, *stats, *y_f, *ybuf, *ubuf, *xbuf, *part, *stamps;
   int w_dtype, y_dtype, n_rho, dp, nxp, ncp, nup, nplp;
   int n_steps, max_iter, ci, rho0, adaptive, jump, stride, tier, part_rows;
   float eps_pri, eps_dua, tol, rho_min, rho_max;
@@ -95,6 +98,7 @@ struct Args {
   T *xs, *us, *y_f, *ybuf, *ubuf, *xbuf;
   float* stats;
   double* part;
+  unsigned long long* stamps;
   int n_rho, dp, nxp, ncp, nup, nplp;
   int n_steps, limit, ci, rho0, adaptive, jump, stride, tier, resident;
   float eps_pri, eps_dua, tol, rho_min, rho_max;
@@ -189,6 +193,11 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   // The warm solve of every step runs the shared solve loop; the K3
   // options stay off (value-initialised).
   Loop<T, WT, AccState<T>> s{};
+  s.stamps = a.stamps;
+  if (a.stamps && threadIdx.x == 0) {
+    s.mark = gtimer();
+    atomicMin(a.stamps + K3S_START, s.mark);
+  }
   s.dp = dp;
   s.ncp = ncp;
   s.nplp = nplp;
@@ -256,6 +265,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   cpa_commit();  // the slabs' copies
   cpa_wait<0>();
   __syncthreads();
+  lap(s, K3S_STAGED);
 
   const int n_ref = ry.n + rv.n + ru.n + rx.n;
   for (int t = 0; t < a.n_steps; ++t) {
@@ -290,6 +300,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
         }
       }
     }
+    lap(s, K2S_REFRESH);
 
     // 2. the warm solve, whole windows, the first one always
     LoopState st{k_idx, 0, ST_RUNNING, rhos[k_idx], 0.f, 0.f};
@@ -323,12 +334,28 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
       out[6] = 0.f;
       out[7] = 0.f;
     }
+    lap(s, K2S_PLANT);
     grid.sync();
+    ++s.n_sync;
     for (int i = threadIdx.x; i < nplp; i += kThreads) xv[i] = __ldcg(a.xbuf + i);
     __syncthreads();
+    lap(s, K2S_XEXCH);
+    if (s.stamps && blk == 0 && threadIdx.x == 0) {
+      ++s.stamps[K2S_STEPS];
+      if (t == 0) s.stamps[K2S_SYNC_FIRST] = s.n_sync;
+    }
   }
   for (int p = threadIdx.x; p < ry.n; p += kThreads) a.y_f[ry.lo + p] = ys[ry.lo + p];
+  if (a.stamps) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (blk == 0) a.stamps[K2S_SYNCS] = s.n_sync;
+      atomicMax(a.stamps + K3S_END, gtimer());
+    }
+  }
 }
+
+__global__ void k2_stamp_kernel(unsigned long long* stamps) { stamps[K3S_PRE] = gtimer(); }
 
 struct Plan {
   int nblocks, smem, resident;
@@ -394,6 +421,7 @@ cudaError_t launch(const K2Params& p, cudaStream_t stream) {
   a.xbuf = static_cast<T*>(p.xbuf);
   a.stats = static_cast<float*>(p.stats);
   a.part = static_cast<double*>(p.part);
+  a.stamps = static_cast<unsigned long long*>(p.stamps);
   a.n_rho = p.n_rho;
   a.dp = p.dp;
   a.nxp = p.nxp;
@@ -457,6 +485,13 @@ int k2_plan(int dp, int nxp, int ncp, int nup, int nplp, int n_rho, int y_dtype,
   *smem = plan.smem;
   *resident = plan.resident;
   return 0;
+}
+
+// The K3S_PRE stamp on `stream`, just before a stamped K2 launch.
+int k2_stamp_now(void* stamps, void* stream) {
+  k2_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(stamps));
+  return (int)cudaGetLastError();
 }
 
 const char* k2_error_string(int code) {

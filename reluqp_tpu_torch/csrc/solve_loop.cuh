@@ -69,6 +69,12 @@ enum {
   K3S_PRE = 0, K3S_START, K3S_STAGED, K3S_BIAS, K3S_ITER, K3S_EXCH, K3S_CHECK, K3S_REDUCE,
   K3S_END, kK3Slots
 };
+// K2's stamps (ops/solve_kernel.py K2_STAGES): the slots above, where the
+// loop's stages land, then K2's own stages of a control step, the steps
+// run, and block 0's grid barriers by the end of step 0 and in all.
+enum {
+  K2S_REFRESH = kK3Slots, K2S_PLANT, K2S_XEXCH, K2S_STEPS, K2S_SYNC_FIRST, K2S_SYNCS, kK2Slots
+};
 
 __device__ __forceinline__ unsigned long long gtimer() {
   unsigned long long t;
@@ -420,9 +426,11 @@ struct Loop {
   const T *inv_wp, *inv_wd, *l_nc, *u_nc, *fin_l, *fin_u, *g_dp;
   CertScalars* cert;
   float eps_pinf, eps_dinf;
-  // K3's stage stamps (null: off) and block 0's last stage boundary
+  // the stage stamps (null: off), block 0's last stage boundary and the
+  // grid barriers this block has taken
   unsigned long long* stamps;
   unsigned long long mark;
+  int n_sync;
   // K3's exchange (null in K2, whose exchanges are grid barriers): tagged
   // words of y (two slots of dp values) and of the checks' partials (two
   // slots of G rows of kPartCols), the exchanges of each so far, and
@@ -554,12 +562,14 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
         __syncthreads();
         if (s.first_sync) {
           grid.sync();
+          ++s.n_sync;
           s.first_sync = 0;
         }
         gather_tagged<T>(xs, dp, tag, [&](int i, T v) { set_y(s, i, v); });
         ++s.n_ystep;
       } else {
         grid.sync();
+        ++s.n_sync;
         for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = __ldcg(dst + i);
       }
       __syncthreads();
@@ -732,6 +742,7 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
         for (int c = 0; c < kPartCols; ++c) m[c] = nmax(m[c], red[w][c]);
   } else {
     grid.sync();
+    ++s.n_sync;
     if (warp == 0) {
       for (int q = lane; q < (int)gridDim.x; q += 32)
 #pragma unroll

@@ -61,7 +61,7 @@ __all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",
            "build_residual_operator", "build_alpha_operand",
            "build_infeas_operand", "full_solve", "full_solve_ref",
            "solve_plan", "k3_stage_split", "K3_STAGES", "full_rollout",
-           "full_rollout_ref", "rollout_plan",
+           "full_rollout_ref", "rollout_plan", "k2_stage_split", "K2_STAGES",
            "full_rollout_batched", "full_rollout_batched_ref",
            "rollout_batched_plan"]
 
@@ -418,7 +418,7 @@ class _K2Params(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "wt", "bias_c", "m_aff", "rhos", "m_res", "g0w", "gl", "lo0", "hi0",
         "s_u", "bdw", "y0", "x0", "noise", "xs", "us", "stats", "y_f",
-        "ybuf", "ubuf", "xbuf", "part")]
+        "ybuf", "ubuf", "xbuf", "part", "stamps")]
         + [(n, ctypes.c_int) for n in (
             "w_dtype", "y_dtype", "n_rho", "dp", "nxp", "ncp", "nup", "nplp",
             "n_steps", "max_iter", "ci", "rho0", "adaptive", "jump",
@@ -437,6 +437,8 @@ def _lib():
         lib.k2_full_rollout.restype = i
         lib.k2_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
         lib.k2_plan.restype = i
+        lib.k2_stamp_now.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.k2_stamp_now.restype = i
         lib.k2_error_string.argtypes = [i]
         lib.k2_error_string.restype = ctypes.c_char_p
         lib._k2_typed = True
@@ -535,6 +537,8 @@ def _full_rollout_cuda(ops, rho_ind0, *, n_rho, dp, nx, nc, nxp, ncp, nup,
         noise=ptr(ops["noise"]), xs=ptr(xs), us=ptr(us), stats=ptr(stats),
         y_f=ptr(y_f), ybuf=ptr(ybuf), ubuf=ptr(ubuf), xbuf=ptr(xbuf),
         part=ptr(part),
+        stamps=None if full_rollout.stamps is None
+        else full_rollout.stamps.data_ptr(),
         w_dtype=_DTYPE_CODE[ops["Wt_bank"].dtype], y_dtype=_DTYPE_CODE[dt],
         n_rho=n_rho, dp=dp, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp,
         n_steps=n_steps, max_iter=max_iter, ci=check_interval,
@@ -603,6 +607,85 @@ def full_rollout(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op, lo0, hi0,
 
 
 full_rollout.launches = 0
+# an int64 (_K2_SLOTS,) tensor on the card, or None: the kernel's stage
+# stamps (``k2_stage_split``); None on every rollout path
+full_rollout.stamps = None
+
+# block 0's stages of a K2 launch (``csrc/solve_loop.cuh``'s K3S_* and
+# K2S_* slots): the operands staged (the prologue and every rung change),
+# then per control step the refresh x @ GL, the bias formed, the
+# iterations' products, their exchange of y, the checks' products (u's
+# with them), the checks' partials exchanged, reduced and decided, the
+# plant step (u gathered, x+ formed) and the exchange of x+
+K2_STAGES = ("staged", "refresh", "bias", "iteration", "exchange", "check",
+             "reduced", "plant", "x exchange")
+_K2_SLOT = dict(staged=2, bias=3, iteration=4, exchange=5, check=6,
+                reduced=7, refresh=9, plant=10, **{"x exchange": 11})
+_K2_SLOTS = 15      # kK2Slots: ... K2S_STEPS 12, SYNC_FIRST 13, SYNCS 14
+
+
+def _graph_behind_stamp(run, stamps, stamp_now, fail):
+    """``run()`` captured in a CUDA graph behind the one-thread kernel
+    ``stamp_now`` that stamps the time into ``stamps``, after a warm-up
+    call outside the capture."""
+    run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        run()
+        with torch.cuda.graph(graph, stream=side):
+            rc = stamp_now(stamps.data_ptr(), side.cuda_stream)
+            if rc != 0:
+                fail(rc)
+            run()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph
+
+
+def k2_stage_split(run, reps: int = 20) -> dict:
+    """Where one K2 launch's time goes: ``run()`` (one ``full_rollout`` on
+    the card) captured in a CUDA graph behind a one-thread kernel that
+    stamps the time, replayed ``reps`` times with the stage stamps on.
+    Returns means over the replays: ``launch`` (µs, the stamp to the
+    earliest block's start) and ``staged`` (µs, block 0's staging over the
+    launch) per launch; each other stage of ``K2_STAGES`` in µs per
+    control step (block 0's time in it over the launch, over the steps);
+    ``step`` (µs per step: the earliest start to the latest end, less the
+    staging, over the steps); ``total`` (µs, the stamp to the latest end);
+    ``steps``; and block 0's grid barriers ``barriers_per_launch`` and
+    ``barriers_per_warm_step`` (those after step 0, over the steps after
+    it)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stamps = torch.zeros(_K2_SLOTS, dtype=torch.int64, device=dev)
+    lib = _lib()
+    full_rollout.stamps = stamps
+    try:
+        graph = _graph_behind_stamp(
+            run, stamps, lib.k2_stamp_now,
+            lambda rc: _raise_cuda(lib, rc, "stamp"))
+        keys = ("launch",) + K2_STAGES + ("step", "total", "steps",
+                                         "barriers_per_launch",
+                                         "barriers_per_warm_step")
+        sums = dict.fromkeys(keys, 0.0)
+        for _ in range(reps):
+            stamps.zero_()
+            stamps[1] = -1          # the start slot takes the least time
+            graph.replay()
+            t = stamps.cpu().tolist()
+            n = t[12]
+            sums["launch"] += (t[1] - t[0]) / 1e3
+            for name, slot in _K2_SLOT.items():
+                sums[name] += t[slot] / 1e3 / (1 if name == "staged" else n)
+            sums["step"] += (t[8] - t[1] - t[2]) / 1e3 / n
+            sums["total"] += (t[8] - t[0]) / 1e3
+            sums["steps"] += n
+            sums["barriers_per_launch"] += t[14]
+            sums["barriers_per_warm_step"] += \
+                (t[14] - t[13]) / max(n - 1, 1)
+    finally:
+        full_rollout.stamps = None
+    return {k: v / reps for k, v in sums.items()}
 
 
 # --------------------------------------------------------------------- #
@@ -1087,18 +1170,9 @@ def k3_stage_split(run, reps: int = 20) -> dict:
     lib = _k3_lib()
     full_solve.stamps = stamps
     try:
-        run()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            run()
-            with torch.cuda.graph(graph, stream=side):
-                rc = lib.k3_stamp_now(stamps.data_ptr(), side.cuda_stream)
-                if rc != 0:
-                    _k3_raise(lib, rc, "stamp")
-                run()
-        torch.cuda.current_stream().wait_stream(side)
+        graph = _graph_behind_stamp(
+            run, stamps, lib.k3_stamp_now,
+            lambda rc: _k3_raise(lib, rc, "stamp"))
         sums = dict.fromkeys(("launch",) + K3_STAGES + ("blocks", "total"),
                              0.0)
         for _ in range(reps):
