@@ -45,8 +45,13 @@ Phases (each raises on failure; nothing is caught):
    root ``bench.py`` (T=100 and T=4000, min of 5, a fresh x0 each time),
    the kernel's time per step by CUDA events beside the plain version and
    the bound (with ``--parent``, beside the parent's K2 before and after,
-   and whether the two give the same bits), and a ``torch.profiler`` pass
-   over a 1000-step rollout;
+   and whether the two give the same bits), its stage split
+   (``ops.solve_kernel.k2_stage_split``: the 1000-step launch in a CUDA
+   graph behind a stamp kernel, mean of 20, µs per launch and per step;
+   with ``--parent``, the parent's too where it has the stamps) and the
+   grid barriers block 0 takes (asserted: 1 per launch, 0 per warm step),
+   the launch plan with its exchange, and a ``torch.profiler`` pass over a
+   1000-step rollout;
 10. hold kernel K3 (the whole-solve kernel) against its plain torch
     version on the card, cold solves: ``rand_qp`` at Dp 128, 256, 640,
     768, 896, 1024 and 1280 (slabs read from L2 in fp64) in fp64 and fp32,
@@ -1266,6 +1271,9 @@ def phase_scan_timing(card, scan, loop_rate, parent=None):
         f"TPU kernel's cost estimate omits the refresh and plant products), "
         f"{ms / bound:.0f}x the bound, on {card}")
     split = k2_split(card, lambda fn: (lambda: fn(*args, **kw)), parent)
+    sp = split["this tree"]
+    assert sp["barriers_per_launch"] == 1 and \
+        sp["barriers_per_warm_step"] == 0, ("K2's grid barriers", sp)
     ctrl.solver.y, ctrl.solver.rho_ind = scan["y_f"], scan["rho_f"]
     profile_steps("phase 9", ctrl, scan["xs"][-1], T, kernel="scan", ci=ci)
     plan = rollout_plan(args[0].shape[1], kw["nxp"], kw["ncp"], kw["nup"],
@@ -5482,7 +5490,10 @@ def main():
                 f"control step at ci={k2['ci']}; a cooperative grid of "
                 f"{k2['plan']['blocks']} blocks, operands "
                 + ("in shared memory" if k2['plan']['resident'] else "from L2")
-                + ")",
+                + f", exchange {k2['plan']['exchange']} (grid barriers: "
+                f"{k2['split']['this tree']['barriers_per_launch']:.0f} per "
+                f"launch, {k2['split']['this tree']['barriers_per_warm_step']:.0f}"
+                " per warm step))",
         "route": "cuda",
         "source": "reluqp_tpu_torch/csrc/solve_kernel.cu",
         "replaces": "reluqp_tpu/ops/solve_kernel.py:918",

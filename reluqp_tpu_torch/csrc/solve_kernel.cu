@@ -40,18 +40,41 @@
 //     of the TPU kernel's ensure_resident). Where the slabs do not fit, the
 //     block reads the same columns from global memory (L2) instead.
 //   * One warp reduces one column dot product with a shuffle tree.
-//   * y, u and x move between blocks through global buffers (y double
-//     buffered) with grid.sync(), read back with __ldcg (L2, not the
-//     non-coherent L1, since another SM wrote them in this launch). u is
-//     computed with every window's residuals (from the same y) and
-//     published with the residual barrier, so a warm step at one iteration
-//     per window takes three barriers: iteration, residual partials and u,
-//     x+.
-//   * Cross-block decisions: each block writes its residual partial maxima
-//     to one row of a (grid, 8) array; after the barrier every block
-//     reduces the whole array. A max is exact in any order, so every block
-//     reaches bit-identical pri/dua/rho and takes identical branches around
-//     every grid.sync() (no atomics, no block-local decision).
+//   * Exchanges, with no grid barrier inside a step: a block stores what
+//     it computed beside a tag in 64-bit words (two in fp64) and every
+//     block reads all of them as soon as their tags show (solve_loop.cuh,
+//     gather_tagged): one round trip to L2 where a grid.sync() took two and
+//     the reload a third. Per iteration, y (each block's y lanes). Per
+//     check, the blocks' residual partial maxima, and beside them u =
+//     y @ S_u - Kx on each block's u lanes, computed with every window's
+//     residuals from the same y; the last window's u is the step's, and
+//     every block then holds all of it, so u costs no exchange of its own.
+//     Per step, x+ (each block's x lanes), for the next step's refresh. A
+//     warm step at one iteration per window so takes three tagged
+//     exchanges (y, partials and u, x+) where the grid design took three
+//     grid barriers and three re-reads from L2.
+//   * Slots: each kind of exchange has two slots that its exchanges take
+//     in turn (y and the partials by their ordinal in the launch, x+ by the
+//     step), tagged 1 or 2 by bit 1 of the ordinal. In every exchange each
+//     block writes its own words and reads every block's, and writes those
+//     of exchange n + 1 of a kind only after reading all of exchange n; so
+//     a block that overwrites exchange n's slot with n + 2 has read every
+//     block's n + 1, which each of them wrote after reading n: no block
+//     overwrites a value another has yet to read, however many windows a
+//     step runs (up to MAX_ITER) or steps a launch holds. u's words ride in
+//     the partials' slot and are written before the block's partials row.
+//   * Stale words: the launch starts every word at zero (no tag); each
+//     block clears the words it writes, and the launch's one grid barrier,
+//     before the first exchange (step 0's first iteration), orders every
+//     clear before every read.
+//   * Cross-block decisions: every block reduces all blocks' partial maxima
+//     itself. A max is exact in any order, so every block reaches
+//     bit-identical pri/dua/rho, rung and status and takes identical
+//     branches around every exchange (no atomics, no block-local
+//     decision): a block whose control flow left the others' would poll for
+//     words no block writes. A poll that never ends traps instead of
+//     holding the card (solve_loop.cuh, kPollLimit); there is no fallback
+//     to a barrier path.
 //   * The scalar state (rung, resident rung, rho, k, status) never leaves
 //     the device inside a launch; the start rung is a launch argument.
 //   * What a step reads besides the slabs is read from global memory once
@@ -82,7 +105,7 @@
 struct K2Params {
   const void *wt, *bias_c, *m_aff, *rhos, *m_res, *g0w, *gl, *lo0, *hi0,
       *s_u, *bdw, *y0, *x0, *noise;
-  void *xs, *us, *stats, *y_f, *ybuf, *ubuf, *xbuf, *part, *stamps;
+  void *xs, *us, *stats, *y_f, *yx, *px, *xx, *stamps;
   int w_dtype, y_dtype, n_rho, dp, nxp, ncp, nup, nplp;
   int n_steps, max_iter, ci, rho0, adaptive, jump, stride, tier, part_rows;
   float eps_pri, eps_dua, tol, rho_min, rho_max;
@@ -95,9 +118,9 @@ struct Args {
   const WT* wt;
   const T *bias_c, *m_aff, *m_res, *g0w, *gl, *lo0, *hi0, *s_u, *bdw, *y0, *x0, *noise;
   const float* rhos;
-  T *xs, *us, *y_f, *ybuf, *ubuf, *xbuf;
+  T *xs, *us, *y_f;
+  uint64_t *yx, *px, *xx;
   float* stats;
-  double* part;
   unsigned long long* stamps;
   int n_rho, dp, nxp, ncp, nup, nplp;
   int n_steps, limit, ci, rho0, adaptive, jump, stride, tier, resident;
@@ -238,16 +261,16 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   s.bias_off = 0;
   s.m_aff = a.m_aff;
   s.rhos = rhos;
-  s.ybuf = a.ybuf;
-  s.part = a.part;
+  s.yx = a.yx;
+  s.px = a.px;
   s.resident = res;
   s.resident_rung = -1;
   s.msu = su;
   s.n_u = ru.n;
   s.u_lo = ru.lo;
+  s.nup = nup;
   s.kx = kx_s;
-  s.u_out = a.ubuf;
-  s.parity = 0;
+  s.uv = uv;
   s.limit = a.limit;
   s.ci = a.ci;
   s.adaptive = a.adaptive;
@@ -263,6 +286,23 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
   for (int i = threadIdx.x; i < nplp; i += kThreads) xv[i] = a.x0[i];
   int k_idx = a.rho0 < 0 ? 0 : (a.rho0 >= a.n_rho ? a.n_rho - 1 : a.rho0);
   cpa_commit();  // the slabs' copies
+  // The exchanges' slots start at zero (no tag): each block clears the
+  // words it writes -- its y lanes, its partials row and u lanes, its x
+  // lanes -- and the launch's one grid barrier comes before the first
+  // exchange reads any (check_window, in step 0's first iteration).
+  constexpr int N = TagWords<T>::n;
+  const size_t n_pw = (size_t)G * kPartCols + nup;  // a partials slot's values
+  for (int slot = 0; slot < 2; ++slot) {
+    for (int i = threadIdx.x; i < ry.n * N; i += kThreads)
+      a.yx[((size_t)slot * dp + ry.lo) * N + i] = 0;
+    for (int i = threadIdx.x; i < kPartCols * N; i += kThreads)
+      a.px[((size_t)slot * n_pw + (size_t)blk * kPartCols) * N + i] = 0;
+    for (int i = threadIdx.x; i < ru.n * N; i += kThreads)
+      a.px[((size_t)slot * n_pw + (size_t)G * kPartCols + ru.lo) * N + i] = 0;
+    for (int i = threadIdx.x; i < rx.n * N; i += kThreads)
+      a.xx[((size_t)slot * nplp + rx.lo) * N + i] = 0;
+  }
+  s.first_sync = 1;
   cpa_wait<0>();
   __syncthreads();
   lap(s, K3S_STAGED);
@@ -308,18 +348,18 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
     k_idx = st.k_idx;
     if (st.status < 0) st.status = ST_MAXITER;
 
-    // 3. u = y @ S_u - Kx came with the last window's residuals, its
-    // barrier published it; then x+ on this block's x lanes
-    for (int i = threadIdx.x; i < nup; i += kThreads) uv[i] = __ldcg(a.ubuf + i);
+    // 3. u = y @ S_u - Kx came with the last window's partials (every block
+    // holds all of it in uv); then x+ on this block's x lanes, published as
+    // tagged words (step t's slot and tag)
     for (int p = threadIdx.x; p < ru.n; p += kThreads)
-      a.us[(size_t)t * nup + ru.lo + p] = __ldcg(a.ubuf + ru.lo + p);
-    __syncthreads();
+      a.us[(size_t)t * nup + ru.lo + p] = uv[ru.lo + p];
+    uint64_t* const xw = a.xx + (size_t)(t & 1) * nplp * N;
     for (int p = warp; p < rx.n; p += kWarps) {
       const T d = static_cast<T>(dot32<AccState<T>, T, T>(uv, bd.col(p), bd.si, nup, lane));
       if (lane == 0) {
         const int i = rx.lo + p;
         const T xn = (ax_s[p] + d) + (p == warp ? noise : a.noise[(size_t)t * nplp + i]);
-        a.xbuf[i] = xn;
+        put_tagged(xw + (size_t)i * N, xn, xtag(t));
         a.xs[(size_t)t * nplp + i] = xn;
       }
     }
@@ -335,9 +375,10 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(const Args<T, WT> a) {
       out[7] = 0.f;
     }
     lap(s, K2S_PLANT);
-    grid.sync();
-    ++s.n_sync;
-    for (int i = threadIdx.x; i < nplp; i += kThreads) xv[i] = __ldcg(a.xbuf + i);
+    // every block reads all of x+ for the next step's refresh (xv's last
+    // readers, the refresh and the bias, are behind a block barrier)
+    if (t + 1 < a.n_steps)
+      gather_tagged<T>(xw, nplp, xtag(t), [&](int i, T v) { xv[i] = v; });
     __syncthreads();
     lap(s, K2S_XEXCH);
     if (s.stamps && blk == 0 && threadIdx.x == 0) {
@@ -416,11 +457,10 @@ cudaError_t launch(const K2Params& p, cudaStream_t stream) {
   a.xs = static_cast<T*>(p.xs);
   a.us = static_cast<T*>(p.us);
   a.y_f = static_cast<T*>(p.y_f);
-  a.ybuf = static_cast<T*>(p.ybuf);
-  a.ubuf = static_cast<T*>(p.ubuf);
-  a.xbuf = static_cast<T*>(p.xbuf);
+  a.yx = static_cast<uint64_t*>(p.yx);
+  a.px = static_cast<uint64_t*>(p.px);
+  a.xx = static_cast<uint64_t*>(p.xx);
   a.stats = static_cast<float*>(p.stats);
-  a.part = static_cast<double*>(p.part);
   a.stamps = static_cast<unsigned long long*>(p.stamps);
   a.n_rho = p.n_rho;
   a.dp = p.dp;

@@ -20,14 +20,15 @@
 // or reads them from L2 where they do not fit. Every block holds the whole
 // y in shared memory. One warp reduces one column dot product.
 //
-// Cross-block decisions: each block writes its partial maxima to one row
-// of a (G, kPartCols) array; after grid.sync() (K2) or as the rows' tagged
-// words arrive (K3) every block reduces the whole array. A max is exact in
-// any order, so every block reaches bit-identical pri, dua, rho, rung and
-// status and takes identical branches around every exchange. The
-// exchanges of y: K2 writes y to a buffer and re-reads it after
-// grid.sync(); K3 exchanges tagged words (gather_tagged), with no barrier.
-// The certificates' two sums (the support
+// Exchanges, with no grid barrier but the launch's first (gather_tagged):
+// each block stores its new y lanes as tagged words every iteration, and
+// every block reads all of them as their tags show. Cross-block decisions:
+// each block stores its partial maxima as one tagged row of kPartCols
+// (K2: its u lanes after the G rows) and every block reduces all G rows as
+// they arrive. A max is exact in any order, so every block reaches
+// bit-identical pri, dua, rho, rung and status and takes identical branches
+// around every exchange -- or a block would poll for words no other block
+// writes. The certificates' two sums (the support
 // function and g.dx) and their norms are not split over blocks: every
 // block computes them whole, from its own copy of y and of lam, in one
 // fixed order, so all blocks again hold identical values. No atomics and
@@ -181,17 +182,30 @@ __device__ Cols<MT> stage_cols(MT* dst, const MT* src, int rows, int ld, int col
   return Cols<MT>{dst, 1, rows};
 }
 
-// K3's exchange without a grid barrier: a value and the tag of the exchange
-// that wrote it in one 64-bit word (an fp64 value takes two words, each of
-// its halves beside the tag), stored and read whole with relaxed gpu-scope
-// accesses, so a reader that sees the tag sees the value. Exchanges take two
-// slots in turn; the tag (1 or 2, bit 1 of the exchange's ordinal) tells a
-// slot's value from the one two exchanges before it, the only other value it
-// can hold (every block consumed that one before it could write anything
-// newer), and from the zeros the launch starts the slots with.
+// The exchange without a grid barrier (K2 and K3): a value and the tag of
+// the exchange that wrote it in one 64-bit word (an fp64 value takes two
+// words, each of its halves beside the tag), stored and read whole with
+// relaxed gpu-scope accesses, so a reader that sees the tag sees the value.
+// Each kind of exchange (y; the checks' partials, with K2's u beside them;
+// K2's x+) has its own two slots, which its exchanges take in turn by the
+// ordinal of the exchange within its kind; the tag (1 or 2, bit 1 of the
+// ordinal) tells a slot's value from the one two exchanges before it and
+// from the zeros the launch starts the slots with. In every exchange each
+// block writes its own words and reads every block's, and it writes those
+// of exchange n + 1 of a kind only after it has read all of exchange n. So
+// a block that writes exchange n + 2 into the slot of exchange n has read
+// every block's n + 1, which every block wrote only after it had read n:
+// no block overwrites a value another block has yet to read. That holds
+// for any number of windows in a step and of steps in a launch.
 template <typename T> struct TagWords {
   static constexpr int n = sizeof(T) / 4;
 };
+
+// Polls of one gather before it gives up (at least ~0.3 us each, an L2
+// round trip): a tag that never shows is a fault, and the block traps --
+// the launch fails and the wrapper's next synchronisation reports it --
+// rather than holding the card.
+constexpr int kPollLimit = 1 << 24;
 
 __device__ __forceinline__ void st_word(uint64_t* p, uint64_t v) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
@@ -231,7 +245,8 @@ __device__ __forceinline__ void gather_tagged(const uint64_t* src, int n, uint32
     if (threadIdx.x < n) {
       const uint64_t* w = src + (size_t)threadIdx.x * N;
       uint64_t q[N];
-      for (;;) {
+      for (int polls = 0;; ++polls) {
+        if (polls == kPollLimit) __trap();
         bool ok = true;
 #pragma unroll
         for (int m = 0; m < N; ++m) q[m] = ld_word(w + m);
@@ -251,7 +266,8 @@ __device__ __forceinline__ void gather_tagged(const uint64_t* src, int n, uint32
 #pragma unroll
     for (int u = 0; u < K; ++u)
       if (i0 + u * kThreads < n) need |= 1u << u;
-    while (need) {
+    for (int polls = 0; need; ++polls) {
+      if (polls == kPollLimit) __trap();
 #pragma unroll
       for (int u = 0; u < K; ++u)
         if (need >> u & 1)
@@ -398,12 +414,13 @@ struct Loop {
   T* ma_slab;
   Cols<WT> wc;
   Cols<T> mac, mra, mrz, mrh, mrl, maw, mai;
-  // K2: u = y @ S_u - Kx on this block's u lanes, computed with every
-  // window's residuals into the global u_out (n_u = 0 in K3)
+  // K2: u = y @ S_u - Kx on this block's n_u lanes from u_lo, computed with
+  // every window's residuals and exchanged beside its partials (nup values
+  // a slot after the G rows; 0 in K3); every block gathers all of u into uv
   Cols<T> msu;
-  int n_u, u_lo;
+  int n_u, u_lo, nup;
   const T* kx;
-  T* u_out;
+  T* uv;
   // global operands
   const WT* wt;
   const T *bias_c, *m_aff;
@@ -412,9 +429,7 @@ struct Loop {
   // lanes)
   int bias_ld, bias_off;
   const float* rhos;
-  T* ybuf;
-  double* part;
-  int resident, resident_rung, parity;
+  int resident, resident_rung;
   // settings
   int limit, ci, adaptive, jump, stride;
   float eps_pri, eps_dua, tol, rho_min, rho_max;
@@ -431,15 +446,15 @@ struct Loop {
   unsigned long long* stamps;
   unsigned long long mark;
   int n_sync;
-  // K3's exchange (null in K2, whose exchanges are grid barriers): tagged
-  // words of y (two slots of dp values) and of the checks' partials (two
-  // slots of G rows of kPartCols), the exchanges of each so far, and
-  // whether the check's operands are still in flight (the first window)
+  // the exchange: tagged words of y (two slots of dp values) and of the
+  // checks' partials (two slots of G rows of kPartCols, then K2's nup u
+  // values), the exchanges of each so far, and whether the check's operands
+  // are still in flight (K3's first window)
   uint64_t *yx, *px;
   int n_ystep, n_check, in_flight;
-  // K3: the launch's one grid barrier still owed (before the first
-  // exchange, once every block has cleared its words), and y in fp64 for
-  // the products (y itself in an fp64 run), so that each factor of y is
+  // the launch's one grid barrier still owed (before the first exchange,
+  // once every block has cleared its words), and, in K3, y in fp64 for the
+  // products (y itself in an fp64 run), so that each factor of y is
   // converted once an iteration, not once a column
   int first_sync;
   double* ysd;
@@ -536,12 +551,9 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     const Cols<WT> wc = s.wc;
     T* const ys = s.ys;
     const T *const b_s = s.b_s, *const lo_s = s.lo_s, *const hi_s = s.hi_s;
-    int parity = s.parity;
     for (int it = 0; it < n_steps; ++it) {
-      T* dst = s.ybuf + (size_t)parity * dp;
-      parity ^= 1;
-      // K3: this iteration's slot of tagged words and its tag
-      uint64_t* xs = s.yx ? s.yx + (size_t)(s.n_ystep & 1) * dp * N : nullptr;
+      // this iteration's slot of tagged words and its tag
+      uint64_t* xs = s.yx + (size_t)(s.n_ystep & 1) * dp * N;
       const uint32_t tag = xtag(s.n_ystep);
       for (int p = warp; p < ry.n; p += kWarps) {
         const float r = tier == TIER_HIGHEST ? ydot(s, wc.col(p), wc.si, lane)
@@ -552,30 +564,22 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
           // comparisons (not fmin/fmax) so a NaN propagates like jnp.clip
           v = v < lo_s[p] ? lo_s[p] : v;
           v = v > hi_s[p] ? hi_s[p] : v;
-          if (xs) put_tagged(xs + (size_t)(ry.lo + p) * N, v, tag);
-          else dst[ry.lo + p] = v;
+          put_tagged(xs + (size_t)(ry.lo + p) * N, v, tag);
         }
       }
       lap(s, K3S_ITER);
-      if (xs) {
-        // every block reads each value as soon as its tag is there
-        __syncthreads();
-        if (s.first_sync) {
-          grid.sync();
-          ++s.n_sync;
-          s.first_sync = 0;
-        }
-        gather_tagged<T>(xs, dp, tag, [&](int i, T v) { set_y(s, i, v); });
-        ++s.n_ystep;
-      } else {
+      // every block reads each value as soon as its tag is there
+      __syncthreads();
+      if (s.first_sync) {
         grid.sync();
         ++s.n_sync;
-        for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = __ldcg(dst + i);
+        s.first_sync = 0;
       }
+      gather_tagged<T>(xs, dp, tag, [&](int i, T v) { set_y(s, i, v); });
+      ++s.n_ystep;
       __syncthreads();
       lap(s, K3S_EXCH);
     }
-    s.parity = parity;
   }
 
   const bool need_lam = s.alpha || s.infeas;
@@ -637,15 +641,18 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
   // [A dx] and [H dx | A'dlam]
   const int n_res = 2 * rc.n + 2 * rv.n;
   const int n_all = n_res + (certs ? rc.n + 2 * rv.n : 0);
+  // this check's slot of tagged partials (and K2's u after them)
+  const int n_part = (int)gridDim.x * kPartCols;
+  uint64_t* const pslot = s.px + (size_t)(s.n_check & 1) * (n_part + s.nup) * N;
+  const uint32_t ptag = xtag(s.n_check);
   for (int p = warp; p < n_all + s.n_u; p += kWarps) {
     int q = p;
     float r;
     if (q >= n_all) {
-      // K2's u lanes, stored where every block reads them after the
-      // residual barrier
+      // K2's u lanes, published before this block's partials
       q -= n_all;
       const T v0 = static_cast<T>(ydot(s, s.msu.col(q), s.msu.si, lane));
-      if (lane == 0) s.u_out[s.u_lo + q] = v0 - s.kx[q];
+      if (lane == 0) put_tagged(pslot + (size_t)(n_part + s.u_lo + q) * N, v0 - s.kx[q], ptag);
       continue;
     }
     if (q < rc.n) {
@@ -702,17 +709,10 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     }
     const double pv[kPartCols] = {p_pri, static_cast<double>(p_dua), p_sp,
                                   static_cast<double>(p_sd), p_atdl, p_hdx, p_bad, 0.0};
-    if (s.px) {
-      // every column (each value exact in T), tagged for this check
-      uint64_t* pw = s.px + ((size_t)(s.n_check & 1) * gridDim.x + blockIdx.x) * kPartCols * N;
+    // every column (each value exact in T), tagged for this check
+    uint64_t* pw = pslot + (size_t)blockIdx.x * kPartCols * N;
 #pragma unroll
-      for (int c = 0; c < kPartCols; ++c)
-        put_tagged(pw + (size_t)c * N, static_cast<T>(pv[c]), xtag(s.n_check));
-    } else {
-      double* pp = s.part + (size_t)blockIdx.x * kPartCols;
-#pragma unroll
-      for (int c = 0; c < kPartCols - 1; ++c) pp[c] = pv[c];
-    }
+    for (int c = 0; c < kPartCols; ++c) put_tagged(pw + (size_t)c * N, static_cast<T>(pv[c]), ptag);
   }
   // the certificate columns only where this window wrote them
   const int n_cols = certs ? 7 : 4;
@@ -720,15 +720,16 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
   double m[kPartCols];
 #pragma unroll
   for (int c = 0; c < kPartCols; ++c) m[c] = 0.0;
-  if (s.px) {
-    // K3: every block gathers every block's tagged partials, a thread on
-    // one column (kPartCols divides kThreads) and every 32nd block
+  {
+    // every block gathers every block's tagged partials, a thread on one
+    // column (kPartCols divides kThreads) and every 32nd block, and K2's u
+    // with them
     __shared__ double red[kWarps][kPartCols];
-    const uint64_t* pw = s.px + (size_t)(s.n_check & 1) * gridDim.x * kPartCols * N;
     const int col = threadIdx.x % kPartCols;
     double mc = 0.0;
-    gather_tagged<T>(pw, (int)gridDim.x * kPartCols, xtag(s.n_check), [&](int, T v) {
-      if (col < n_cols) mc = nmax(mc, static_cast<double>(v));
+    gather_tagged<T>(pslot, n_part + s.nup, ptag, [&](int i, T v) {
+      if (i >= n_part) s.uv[i - n_part] = v;
+      else if (col < n_cols) mc = nmax(mc, static_cast<double>(v));
     });
     ++s.n_check;
 #pragma unroll
@@ -740,22 +741,6 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
       for (int w = 0; w < kWarps; ++w)
 #pragma unroll
         for (int c = 0; c < kPartCols; ++c) m[c] = nmax(m[c], red[w][c]);
-  } else {
-    grid.sync();
-    ++s.n_sync;
-    if (warp == 0) {
-      for (int q = lane; q < (int)gridDim.x; q += 32)
-#pragma unroll
-        for (int c = 0; c < kPartCols; ++c)
-          if (c < n_cols) m[c] = nmax(m[c], __ldcg(s.part + (size_t)q * kPartCols + c));
-      // the columns' maxima over the warp, their shuffle levels interleaved
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int c = 0; c < kPartCols; ++c)
-          m[c] = nmax(m[c], __shfl_down_sync(0xffffffffu, m[c], off));
-      }
-    }
   }
   {
     if (threadIdx.x == 0) {

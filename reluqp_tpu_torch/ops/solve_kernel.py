@@ -418,7 +418,7 @@ class _K2Params(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "wt", "bias_c", "m_aff", "rhos", "m_res", "g0w", "gl", "lo0", "hi0",
         "s_u", "bdw", "y0", "x0", "noise", "xs", "us", "stats", "y_f",
-        "ybuf", "ubuf", "xbuf", "part", "stamps")]
+        "yx", "px", "xx", "stamps")]
         + [(n, ctypes.c_int) for n in (
             "w_dtype", "y_dtype", "n_rho", "dp", "nxp", "ncp", "nup", "nplp",
             "n_steps", "max_iter", "ci", "rho0", "adaptive", "jump",
@@ -455,8 +455,11 @@ def rollout_plan(dp: int, nxp: int, ncp: int, nup: int, nplp: int,
                  device=None) -> dict:
     """The launch shape of K2 on ``device`` (default the current GPU) for
     a ladder of ``n_rho`` rungs: blocks, y lanes (columns of W) per block,
-    dynamic shared memory, and whether every operand slab is held in
-    shared memory (else streamed from L2)."""
+    dynamic shared memory, whether every operand slab is held in shared
+    memory (else streamed from L2), and the exchange: "tagged words", each
+    value beside its exchange's tag in ``words_per_value`` 64-bit words (1
+    in fp32, 2 in fp64), read by every block with no grid barrier but the
+    launch's first, in ``scratch_bytes`` of words (``_k2_words``)."""
     lib = _lib()
     vals = [ctypes.c_int() for _ in range(3)]
     with torch.cuda.device(device):
@@ -466,8 +469,20 @@ def rollout_plan(dp: int, nxp: int, ncp: int, nup: int, nplp: int,
     if rc != 0:
         _raise_cuda(lib, rc, "plan")
     blocks, smem, resident = (v.value for v in vals)
+    n_w = 2 if dtype == torch.float64 else 1
+    words = sum(math.prod(s) for s in _k2_words(dp, nup, nplp, blocks, n_w))
     return {"blocks": blocks, "cols_per_block": -(-dp // blocks),
-            "smem_bytes": smem, "resident": bool(resident)}
+            "smem_bytes": smem, "resident": bool(resident),
+            "exchange": "tagged words", "words_per_value": n_w,
+            "scratch_bytes": 8 * words}
+
+
+def _k2_words(dp, nup, nplp, blocks, n_w):
+    """Shapes of K2's exchange words (int64; the kernel clears them): two
+    slots each of y (Dp values), of the blocks' partials (``blocks`` rows
+    of 8) with u (nup values) after them, and of x+ (nplp values), ``n_w``
+    words a value."""
+    return ((2, dp, n_w), (2, blocks * 8 + nup, n_w), (2, nplp, n_w))
 
 
 def _check_operands(ops: dict, *, nxp, ncp, nup, nplp, n_steps):
@@ -520,11 +535,10 @@ def _full_rollout_cuda(ops, rho_ind0, *, n_rho, dp, nx, nc, nxp, ncp, nup,
     if n_steps == 0:
         return xs, us, stats, y0.reshape(dp).clone()
     y_f = torch.empty((dp,), dtype=dt, device=dev)
-    ybuf = torch.empty((2, dp), dtype=dt, device=dev)
-    ubuf = torch.empty((nup,), dtype=dt, device=dev)
-    xbuf = torch.empty((nplp,), dtype=dt, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty((n_sm, 8), dtype=torch.float64, device=dev)
+    yx, px, xx = (torch.empty(shape, dtype=torch.int64, device=dev)
+                  for shape in _k2_words(dp, nup, nplp, n_sm,
+                                         2 if dt == torch.float64 else 1))
     c = _rollout_consts(nx, nc, eps_abs, adaptive_rho_tolerance, rho_min,
                         rho_max)
     ptr = lambda t: t.data_ptr()
@@ -535,8 +549,7 @@ def _full_rollout_cuda(ops, rho_ind0, *, n_rho, dp, nx, nc, nxp, ncp, nup,
         lo0=ptr(ops["lo0"]), hi0=ptr(ops["hi0"]), s_u=ptr(ops["S_u"]),
         bdw=ptr(ops["Bdw"]), y0=ptr(y0), x0=ptr(ops["x0"]),
         noise=ptr(ops["noise"]), xs=ptr(xs), us=ptr(us), stats=ptr(stats),
-        y_f=ptr(y_f), ybuf=ptr(ybuf), ubuf=ptr(ubuf), xbuf=ptr(xbuf),
-        part=ptr(part),
+        y_f=ptr(y_f), yx=ptr(yx), px=ptr(px), xx=ptr(xx),
         stamps=None if full_rollout.stamps is None
         else full_rollout.stamps.data_ptr(),
         w_dtype=_DTYPE_CODE[ops["Wt_bank"].dtype], y_dtype=_DTYPE_CODE[dt],

@@ -27,6 +27,7 @@ from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_batched_ref,
                                                full_rollout_ref, full_solve,
                                                full_solve_ref,
+                                               k2_stage_split,
                                                rollout_batched_plan,
                                                rollout_plan, solve_plan)
 from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp, update_qp
@@ -250,6 +251,58 @@ def test_k2_matches_plain_version_streamed(dev):
                         kw["nplp"], args[0].shape[0], torch.float64)
     assert not plan["resident"]
     _k2_agrees(args, kw, 1e-6, ctrl.solver.D)
+
+
+# K2's exchanges are tagged words in two slots a kind (y; the checks'
+# partials with u; x+), with no grid barrier inside a step. What moves
+# them, each against the plain twin as above: rung changes inside one
+# launch (Dp=640, fp32: y and the partials on the rounds path); steps of
+# three windows that end at MAX_ITER; T >= 6 steps, so the tags of every
+# slot wrap (x+ takes tags 1, 1, 2, 2, 1, 1, ...); Dp=256, where y and x+
+# are polled one value a thread; fp64, two words a value.
+@pytest.mark.parametrize("case,T,kw,tol", [
+    ("rung changes, Dp=640", 20, {}, 1e-5),
+    ("MAX_ITER windows, Dp=640", 8, dict(max_iter=15), 1e-5),
+    ("one value a thread, Dp=256", 8, dict(horizon=3), 1e-5),
+    ("fp64, Dp=640", 8, dict(precision="float64"), 1e-6)])
+def test_k2_exchange_matches_plain_version(dev, case, T, kw, tol):
+    ctrl, args, call = _plant_k2_args(T, **kw)
+    out = _k2_agrees(args, call, tol, ctrl.solver.D)
+    st = out[2].cpu().numpy()
+    assert st.shape[0] == T >= 6
+    assert len(set(st[:, 4].tolist())) > 1, "the rung never moved"
+    if "max_iter" in kw:
+        hit = st[:, 5] == 0
+        assert hit.any() and (st[hit, 0] == 15).all()
+    assert ctrl.solver.Dp == (256 if "horizon" in kw else 640)
+
+
+def test_k2_plan_reports_the_tagged_exchange(dev):
+    for dtype, n_w in ((torch.float32, 1), (torch.float64, 2)):
+        p = rollout_plan(640, 256, 256, 128, 128, 18, dtype)
+        words = 2 * (640 + p["blocks"] * 8 + 128 + 128) * n_w
+        assert p["exchange"] == "tagged words"
+        assert p["words_per_value"] == n_w and p["scratch_bytes"] == 8 * words
+
+
+# One grid barrier per launch (before its first exchange) and none in a
+# step, as the kernel's stamps count block 0's barriers; the stamps change
+# no output.
+def test_k2_takes_one_grid_barrier_per_launch(dev):
+    ctrl, args, kw = _plant_k2_args(6)
+    ref = full_rollout(*args, **kw)
+    got = {}
+
+    def run():
+        got["out"] = full_rollout(*args, **kw)
+
+    split = k2_stage_split(run, reps=2)
+    assert split["steps"] == 6
+    assert split["barriers_per_launch"] == 1
+    assert split["barriers_per_warm_step"] == 0
+    assert full_rollout.stamps is None
+    for a, b in zip(ref, got["out"]):
+        assert torch.equal(a, b)
 
 
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take(dev):
