@@ -72,9 +72,9 @@
 //     bit-identical pri/dua/rho, rung and status and takes identical
 //     branches around every exchange (no atomics, no block-local
 //     decision): a block whose control flow left the others' would poll for
-//     words no block writes. A poll that never ends traps instead of
-//     holding the card (solve_loop.cuh, kPollLimit); there is no fallback
-//     to a barrier path.
+//     words no block writes. There is no fallback to a barrier path: K2
+//     always passes its words, so the loop's barrier branches are never
+//     taken.
 //   * The scalar state (rung, resident rung, rho, k, status) never leaves
 //     the device inside a launch; the start rung is a launch argument.
 //   * What a step reads besides the slabs is read from global memory once

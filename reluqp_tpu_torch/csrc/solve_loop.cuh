@@ -23,12 +23,15 @@
 // Exchanges, with no grid barrier but the launch's first (gather_tagged):
 // each block stores its new y lanes as tagged words every iteration, and
 // every block reads all of them as their tags show. Cross-block decisions:
-// each block stores its partial maxima as one tagged row of kPartCols
-// (K2: its u lanes after the G rows) and every block reduces all G rows as
-// they arrive. A max is exact in any order, so every block reaches
-// bit-identical pri, dua, rho, rung and status and takes identical branches
-// around every exchange -- or a block would poll for words no other block
-// writes. The certificates' two sums (the support
+// each block stores its partial maxima as one tagged row of kPartCols (K2:
+// its u lanes after the G rows) and every block reduces all G rows as they
+// arrive. A max is exact in any order, so every block reaches bit-identical
+// pri, dua, rho, rung and status and takes identical branches around every
+// exchange -- or a block would poll for words no other block writes. (The
+// grid-barrier exchange through `ybuf` and `part` below is reached by no
+// kernel: both pass their tagged words. It stays because K3's compiled
+// code moves without it, and its one-iteration solve took 7% longer on the
+// H100, PERF.md section 6.) The certificates' two sums (the support
 // function and g.dx) and their norms are not split over blocks: every
 // block computes them whole, from its own copy of y and of lam, in one
 // fixed order, so all blocks again hold identical values. No atomics and
@@ -201,12 +204,6 @@ template <typename T> struct TagWords {
   static constexpr int n = sizeof(T) / 4;
 };
 
-// Polls of one gather before it gives up (at least ~0.3 us each, an L2
-// round trip): a tag that never shows is a fault, and the block traps --
-// the launch fails and the wrapper's next synchronisation reports it --
-// rather than holding the card.
-constexpr int kPollLimit = 1 << 24;
-
 __device__ __forceinline__ void st_word(uint64_t* p, uint64_t v) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
@@ -245,8 +242,7 @@ __device__ __forceinline__ void gather_tagged(const uint64_t* src, int n, uint32
     if (threadIdx.x < n) {
       const uint64_t* w = src + (size_t)threadIdx.x * N;
       uint64_t q[N];
-      for (int polls = 0;; ++polls) {
-        if (polls == kPollLimit) __trap();
+      for (;;) {
         bool ok = true;
 #pragma unroll
         for (int m = 0; m < N; ++m) q[m] = ld_word(w + m);
@@ -266,8 +262,7 @@ __device__ __forceinline__ void gather_tagged(const uint64_t* src, int n, uint32
 #pragma unroll
     for (int u = 0; u < K; ++u)
       if (i0 + u * kThreads < n) need |= 1u << u;
-    for (int polls = 0; need; ++polls) {
-      if (polls == kPollLimit) __trap();
+    while (need) {
 #pragma unroll
       for (int u = 0; u < K; ++u)
         if (need >> u & 1)
@@ -296,16 +291,20 @@ __device__ __forceinline__ void gather_tagged(const uint64_t* src, int n, uint32
 // plain version reproduces step for step, so the two agree bit for bit.
 // kBatch: the products of that many terms are formed before they are added
 // (in order), so their loads and conversions are not on the sum's chain.
+// kU: the loop carries K2's u = y @ S_u - Kx, exchanged beside the checks'
+// partials (compiled out of K3's loop).
 template <typename T>
 struct AccState {
   using type = T;
   static constexpr int kBatch = 1;
+  static constexpr bool kU = true;
   static __device__ __forceinline__ T mac(T a, T x, T y) { return a + x * y; }
   static __device__ __forceinline__ T add(T a, T b) { return a + b; }
 };
 struct AccF64 {
   using type = double;
   static constexpr int kBatch = 8;
+  static constexpr bool kU = false;
   static __device__ __forceinline__ double mul(double x, double y) { return __dmul_rn(x, y); }
   static __device__ __forceinline__ double mac(double a, double x, double y) {
     return __dadd_rn(a, __dmul_rn(x, y));
@@ -415,12 +414,11 @@ struct Loop {
   Cols<WT> wc;
   Cols<T> mac, mra, mrz, mrh, mrl, maw, mai;
   // K2: u = y @ S_u - Kx on this block's n_u lanes from u_lo, computed with
-  // every window's residuals and exchanged beside its partials (nup values
-  // a slot after the G rows; 0 in K3); every block gathers all of u into uv
+  // every window's residuals (n_u = 0 in K3; u_out is set by no kernel)
   Cols<T> msu;
-  int n_u, u_lo, nup;
+  int n_u, u_lo;
   const T* kx;
-  T* uv;
+  T* u_out;
   // global operands
   const WT* wt;
   const T *bias_c, *m_aff;
@@ -429,7 +427,9 @@ struct Loop {
   // lanes)
   int bias_ld, bias_off;
   const float* rhos;
-  int resident, resident_rung;
+  T* ybuf;
+  double* part;
+  int resident, resident_rung, parity;
   // settings
   int limit, ci, adaptive, jump, stride;
   float eps_pri, eps_dua, tol, rho_min, rho_max;
@@ -446,10 +446,11 @@ struct Loop {
   unsigned long long* stamps;
   unsigned long long mark;
   int n_sync;
-  // the exchange: tagged words of y (two slots of dp values) and of the
-  // checks' partials (two slots of G rows of kPartCols, then K2's nup u
-  // values), the exchanges of each so far, and whether the check's operands
-  // are still in flight (K3's first window)
+  // the exchange (ybuf and part: the barrier exchange no kernel takes):
+  // tagged words of y (two slots of dp values) and of the checks' partials
+  // (two slots of G rows of kPartCols, K2's nup u values after them), the
+  // exchanges of each so far, and whether the check's operands are still
+  // in flight (K3's first window)
   uint64_t *yx, *px;
   int n_ystep, n_check, in_flight;
   // the launch's one grid barrier still owed (before the first exchange,
@@ -458,6 +459,10 @@ struct Loop {
   // converted once an iteration, not once a column
   int first_sync;
   double* ysd;
+  // K2: the u values in a partials slot (nup) and where every block
+  // gathers all of u (uv)
+  int nup;
+  T* uv;
 };
 
 // A product of y with one column: from the fp64 copy of y where there is
@@ -518,6 +523,7 @@ template <typename T, typename WT, typename Acc>
 __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group& grid, LoopState& st,
                              int n_steps, int tier, bool tail) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr bool kU = Acc::kU;
   const int dp = s.dp, ncp = s.ncp, nplp = s.nplp;
   const Range ry = s.ry, rc = s.rc, rv = s.rv;
   const int k_idx = st.k_idx;
@@ -551,9 +557,12 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     const Cols<WT> wc = s.wc;
     T* const ys = s.ys;
     const T *const b_s = s.b_s, *const lo_s = s.lo_s, *const hi_s = s.hi_s;
+    int parity = s.parity;
     for (int it = 0; it < n_steps; ++it) {
-      // this iteration's slot of tagged words and its tag
-      uint64_t* xs = s.yx + (size_t)(s.n_ystep & 1) * dp * N;
+      T* dst = s.ybuf + (size_t)parity * dp;
+      parity ^= 1;
+      // K3: this iteration's slot of tagged words and its tag
+      uint64_t* xs = s.yx ? s.yx + (size_t)(s.n_ystep & 1) * dp * N : nullptr;
       const uint32_t tag = xtag(s.n_ystep);
       for (int p = warp; p < ry.n; p += kWarps) {
         const float r = tier == TIER_HIGHEST ? ydot(s, wc.col(p), wc.si, lane)
@@ -564,22 +573,30 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
           // comparisons (not fmin/fmax) so a NaN propagates like jnp.clip
           v = v < lo_s[p] ? lo_s[p] : v;
           v = v > hi_s[p] ? hi_s[p] : v;
-          put_tagged(xs + (size_t)(ry.lo + p) * N, v, tag);
+          if (xs) put_tagged(xs + (size_t)(ry.lo + p) * N, v, tag);
+          else dst[ry.lo + p] = v;
         }
       }
       lap(s, K3S_ITER);
-      // every block reads each value as soon as its tag is there
-      __syncthreads();
-      if (s.first_sync) {
+      if (xs) {
+        // every block reads each value as soon as its tag is there
+        __syncthreads();
+        if (s.first_sync) {
+          grid.sync();
+          ++s.n_sync;
+          s.first_sync = 0;
+        }
+        gather_tagged<T>(xs, dp, tag, [&](int i, T v) { set_y(s, i, v); });
+        ++s.n_ystep;
+      } else {
         grid.sync();
         ++s.n_sync;
-        s.first_sync = 0;
+        for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = __ldcg(dst + i);
       }
-      gather_tagged<T>(xs, dp, tag, [&](int i, T v) { set_y(s, i, v); });
-      ++s.n_ystep;
       __syncthreads();
       lap(s, K3S_EXCH);
     }
+    s.parity = parity;
   }
 
   const bool need_lam = s.alpha || s.infeas;
@@ -641,18 +658,21 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
   // [A dx] and [H dx | A'dlam]
   const int n_res = 2 * rc.n + 2 * rv.n;
   const int n_all = n_res + (certs ? rc.n + 2 * rv.n : 0);
-  // this check's slot of tagged partials (and K2's u after them)
-  const int n_part = (int)gridDim.x * kPartCols;
-  uint64_t* const pslot = s.px + (size_t)(s.n_check & 1) * (n_part + s.nup) * N;
-  const uint32_t ptag = xtag(s.n_check);
   for (int p = warp; p < n_all + s.n_u; p += kWarps) {
     int q = p;
     float r;
     if (q >= n_all) {
-      // K2's u lanes, published before this block's partials
+      // K2's u lanes, published beside this block's partials
       q -= n_all;
       const T v0 = static_cast<T>(ydot(s, s.msu.col(q), s.msu.si, lane));
-      if (lane == 0) put_tagged(pslot + (size_t)(n_part + s.u_lo + q) * N, v0 - s.kx[q], ptag);
+      if constexpr (kU) {
+        if (lane == 0)
+          put_tagged(s.px + ((size_t)(s.n_check & 1) * (gridDim.x * kPartCols + s.nup) +
+                             gridDim.x * kPartCols + s.u_lo + q) * N,
+                     v0 - s.kx[q], xtag(s.n_check));
+      } else {
+        if (lane == 0) s.u_out[s.u_lo + q] = v0 - s.kx[q];
+      }
       continue;
     }
     if (q < rc.n) {
@@ -709,10 +729,19 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
     }
     const double pv[kPartCols] = {p_pri, static_cast<double>(p_dua), p_sp,
                                   static_cast<double>(p_sd), p_atdl, p_hdx, p_bad, 0.0};
-    // every column (each value exact in T), tagged for this check
-    uint64_t* pw = pslot + (size_t)blockIdx.x * kPartCols * N;
+    if (s.px) {
+      // every column (each value exact in T), tagged for this check
+      uint64_t* pw = kU ? s.px + ((size_t)(s.n_check & 1) * (gridDim.x * kPartCols + s.nup) +
+                                  blockIdx.x * kPartCols) * N
+                        : s.px + ((size_t)(s.n_check & 1) * gridDim.x + blockIdx.x) * kPartCols * N;
 #pragma unroll
-    for (int c = 0; c < kPartCols; ++c) put_tagged(pw + (size_t)c * N, static_cast<T>(pv[c]), ptag);
+      for (int c = 0; c < kPartCols; ++c)
+        put_tagged(pw + (size_t)c * N, static_cast<T>(pv[c]), xtag(s.n_check));
+    } else {
+      double* pp = s.part + (size_t)blockIdx.x * kPartCols;
+#pragma unroll
+      for (int c = 0; c < kPartCols - 1; ++c) pp[c] = pv[c];
+    }
   }
   // the certificate columns only where this window wrote them
   const int n_cols = certs ? 7 : 4;
@@ -720,17 +749,26 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
   double m[kPartCols];
 #pragma unroll
   for (int c = 0; c < kPartCols; ++c) m[c] = 0.0;
-  {
+  if (s.px) {
     // every block gathers every block's tagged partials, a thread on one
     // column (kPartCols divides kThreads) and every 32nd block, and K2's u
     // with them
     __shared__ double red[kWarps][kPartCols];
     const int col = threadIdx.x % kPartCols;
     double mc = 0.0;
-    gather_tagged<T>(pslot, n_part + s.nup, ptag, [&](int i, T v) {
-      if (i >= n_part) s.uv[i - n_part] = v;
-      else if (col < n_cols) mc = nmax(mc, static_cast<double>(v));
-    });
+    if constexpr (kU) {
+      const int n_part = (int)gridDim.x * kPartCols;
+      const uint64_t* pw = s.px + (size_t)(s.n_check & 1) * (n_part + s.nup) * N;
+      gather_tagged<T>(pw, n_part + s.nup, xtag(s.n_check), [&](int i, T v) {
+        if (i >= n_part) s.uv[i - n_part] = v;
+        else if (col < n_cols) mc = nmax(mc, static_cast<double>(v));
+      });
+    } else {
+      const uint64_t* pw = s.px + (size_t)(s.n_check & 1) * gridDim.x * kPartCols * N;
+      gather_tagged<T>(pw, (int)gridDim.x * kPartCols, xtag(s.n_check), [&](int, T v) {
+        if (col < n_cols) mc = nmax(mc, static_cast<double>(v));
+      });
+    }
     ++s.n_check;
 #pragma unroll
     for (int off = kPartCols; off < 32; off <<= 1)
@@ -741,6 +779,22 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
       for (int w = 0; w < kWarps; ++w)
 #pragma unroll
         for (int c = 0; c < kPartCols; ++c) m[c] = nmax(m[c], red[w][c]);
+  } else {
+    grid.sync();
+    ++s.n_sync;
+    if (warp == 0) {
+      for (int q = lane; q < (int)gridDim.x; q += 32)
+#pragma unroll
+        for (int c = 0; c < kPartCols; ++c)
+          if (c < n_cols) m[c] = nmax(m[c], __ldcg(s.part + (size_t)q * kPartCols + c));
+      // the columns' maxima over the warp, their shuffle levels interleaved
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int c = 0; c < kPartCols; ++c)
+          m[c] = nmax(m[c], __shfl_down_sync(0xffffffffu, m[c], off));
+      }
+    }
   }
   {
     if (threadIdx.x == 0) {
