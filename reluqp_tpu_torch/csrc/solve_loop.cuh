@@ -441,11 +441,9 @@ struct Loop {
   const T *inv_wp, *inv_wd, *l_nc, *u_nc, *fin_l, *fin_u, *g_dp;
   CertScalars* cert;
   float eps_pinf, eps_dinf;
-  // the stage stamps (null: off), block 0's last stage boundary and the
-  // grid barriers this block has taken
+  // the stage stamps (null: off) and block 0's last stage boundary
   unsigned long long* stamps;
   unsigned long long mark;
-  int n_sync;
   // the exchange (ybuf and part: the barrier exchange no kernel takes):
   // tagged words of y (two slots of dp values) and of the checks' partials
   // (two slots of G rows of kPartCols, K2's nup u values after them), the
@@ -459,10 +457,11 @@ struct Loop {
   // converted once an iteration, not once a column
   int first_sync;
   double* ysd;
-  // K2: the u values in a partials slot (nup) and where every block
-  // gathers all of u (uv)
+  // K2: the u values in a partials slot (nup), where every block gathers
+  // all of u (uv), and the grid barriers this block has taken
   int nup;
   T* uv;
+  int n_sync;
 };
 
 // A product of y with one column: from the fp64 copy of y where there is
@@ -583,14 +582,13 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
         __syncthreads();
         if (s.first_sync) {
           grid.sync();
-          ++s.n_sync;
+          if constexpr (kU) ++s.n_sync;
           s.first_sync = 0;
         }
         gather_tagged<T>(xs, dp, tag, [&](int i, T v) { set_y(s, i, v); });
         ++s.n_ystep;
       } else {
         grid.sync();
-        ++s.n_sync;
         for (int i = threadIdx.x; i < dp; i += kThreads) ys[i] = __ldcg(dst + i);
       }
       __syncthreads();
@@ -781,7 +779,6 @@ __device__ __forceinline__ void check_window(Loop<T, WT, Acc>& s, cg::grid_group
         for (int c = 0; c < kPartCols; ++c) m[c] = nmax(m[c], red[w][c]);
   } else {
     grid.sync();
-    ++s.n_sync;
     if (warp == 0) {
       for (int q = lane; q < (int)gridDim.x; q += 32)
 #pragma unroll

@@ -634,7 +634,10 @@ K2_STAGES = ("staged", "refresh", "bias", "iteration", "exchange", "check",
              "reduced", "plant", "x exchange")
 _K2_SLOT = dict(staged=2, bias=3, iteration=4, exchange=5, check=6,
                 reduced=7, refresh=9, plant=10, **{"x exchange": 11})
-_K2_SLOTS = 15      # kK2Slots: ... K2S_STEPS 12, SYNC_FIRST 13, SYNCS 14
+# the other slots: K3S_PRE, K3S_START, K3S_END, K2S_STEPS, K2S_SYNC_FIRST,
+# K2S_SYNCS, and kK2Slots
+_PRE, _START, _END, _STEPS, _SYNC_FIRST, _SYNCS, _K2_SLOTS = \
+    0, 1, 8, 12, 13, 14, 15
 
 
 def _graph_behind_stamp(run, stamps, stamp_now, fail):
@@ -683,19 +686,20 @@ def k2_stage_split(run, reps: int = 20) -> dict:
         sums = dict.fromkeys(keys, 0.0)
         for _ in range(reps):
             stamps.zero_()
-            stamps[1] = -1          # the start slot takes the least time
+            stamps[_START] = -1     # the start slot takes the least time
             graph.replay()
             t = stamps.cpu().tolist()
-            n = t[12]
-            sums["launch"] += (t[1] - t[0]) / 1e3
+            n = t[_STEPS]
+            sums["launch"] += (t[_START] - t[_PRE]) / 1e3
             for name, slot in _K2_SLOT.items():
                 sums[name] += t[slot] / 1e3 / (1 if name == "staged" else n)
-            sums["step"] += (t[8] - t[1] - t[2]) / 1e3 / n
-            sums["total"] += (t[8] - t[0]) / 1e3
+            sums["step"] += (t[_END] - t[_START] - t[_K2_SLOT["staged"]]) \
+                / 1e3 / n
+            sums["total"] += (t[_END] - t[_PRE]) / 1e3
             sums["steps"] += n
-            sums["barriers_per_launch"] += t[14]
+            sums["barriers_per_launch"] += t[_SYNCS]
             sums["barriers_per_warm_step"] += \
-                (t[14] - t[13]) / max(n - 1, 1)
+                (t[_SYNCS] - t[_SYNC_FIRST]) / max(n - 1, 1)
     finally:
         full_rollout.stamps = None
     return {k: v / reps for k, v in sums.items()}
