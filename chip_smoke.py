@@ -241,6 +241,16 @@ Phases (each raises on failure; nothing is caught):
     stage boundary, mean of 20 launches alone) and the kernel's plan
     (C1: cluster and variant; C2: regime, rows, blocks).
 
+32. K6's stage stamps at the scenario cell's shape (B = 64, Dp = 640,
+    check_interval 1, fp32, 200 warm steps under process noise):
+    ``ops.solve_kernel.k6_stage_split`` (block 0's µs by stage, mean of 20
+    launches alone in a CUDA graph), its outputs bit-equal to the same
+    launch without stamps, its per-step stages within K6_SPLIT_CLOSURE of
+    its own per-step time; K6 per warm step with the stamps off by CUDA
+    events (with ``--parent``, beside the parent's K6 by turns, bit-equal);
+    one run: ``card = C.card_line(); C.phase_build(P);
+    C.phase_k6_split(card, P)``.
+
 ``python3 chip_smoke.py --parent DIR`` runs the same phases and also times
 the K1, K2, K3, K4, K5, C1 and C2 of another checkout at DIR (the parent
 commit, unpacked by
@@ -331,7 +341,8 @@ def kernel_inputs(dp, rows, dtype, gen, device):
 # imported under PARENT_PKG and builds its kernels into its own _build/.
 PARENT_PKG = "_parent_reluqp_tpu_torch"
 PARENT_KERNELS = ("fused_step", "solve_kernel", "full_solve",
-                  "fused_step_batched", "fused_step_hetero", "check_window")
+                  "fused_step_batched", "fused_step_hetero", "check_window",
+                  "rollout_batched")
 
 
 def parent_module(parent, name):
@@ -2466,6 +2477,89 @@ def phase_scenario_timing(card, loop, scan, parent=None):
                      T, "scan", ci)
     log("phase 17 OK")
     return dict(k4=k4, k6=k6, k6_rows=k6_rows, rates=rates)
+
+
+# phase 32: the stamped split's per-step stages against its own per-step
+# time (the earliest block's start to the latest block's end, less the
+# staging): block 0's stages leave out only its skew from the earliest
+# start and the latest end
+K6_SPLIT_CLOSURE = 0.05
+# launches of each tree by turns, and CUDA-event launches a turn
+K6_AB_TURNS, K6_AB_REPS = 4, 3
+
+
+def phase_k6_split(card, parent=None, reps=20):
+    """K6's stage stamps at the scenario cell's shape: B = 64, Dp = 640,
+    check_interval 1, fp32, K6_TIMED_T warm steps under process noise from
+    the state a K6_WARM_T-step scan rollout leaves. The stamped launch's
+    outputs equal the unstamped launch's bit for bit; its per-step stages
+    sum to within K6_SPLIT_CLOSURE of its per-step time; K6 per warm step
+    with the stamps off by CUDA events (least of K6_AB_REPS launches a
+    turn), and with ``parent`` the parent's K6 by turns on the same
+    operands, bit-equal. Returns the split and the per-step times."""
+    import torch
+    from reluqp_tpu_torch.models.mpc import (_scenario_scan_call,
+                                             scenario_rollout_scan)
+    from reluqp_tpu_torch.ops.solve_kernel import (K6_STAGES,
+                                                   full_rollout_batched,
+                                                   k6_stage_split)
+    prob = scenario_problem()
+    m = scenario_solver(prob, SCEN_B, check_interval=1)
+    X0, noise = scenario_inputs(SCEN_B, K6_WARM_T + K6_TIMED_T)
+    xs, _, _, _, y0, rho0 = scenario_rollout_scan(
+        m, prob, X0, K6_WARM_T, kernel="scan", noise=noise[:K6_WARM_T],
+        return_stats=True, return_state=True)
+    T = K6_TIMED_T
+    args, kw = _scenario_scan_call(m, prob, xs[-1], T, Y0=y0, rho_ind0=rho0,
+                                   noise=noise[K6_WARM_T:])
+    assert kw["check_interval"] == 1 and m.Dp == 640
+    ref = full_rollout_batched(*args, **kw)
+    got = {}
+
+    def run():
+        got["out"] = full_rollout_batched(*args, **kw)
+
+    split = k6_stage_split(run, reps)
+    torch.cuda.synchronize()
+    assert full_rollout_batched.stamps is None
+    same = all(torch.equal(a, b) for a, b in zip(ref, got["out"]))
+    stats = ref[2].cpu().numpy()
+    per_step = sum(split[k] for k in K6_STAGES if k != "staged")
+    closure = per_step / split["step"] - 1.0
+    log(f"phase 32 K6 split, mean of {reps} launches of {split['steps']:.0f}"
+        f" steps (collective iters/step {stats[:, 0].mean():.3f}, rungs "
+        f"{sorted(set(stats[:, 4].astype(int).tolist()))}): launch "
+        f"{split['launch']:.2f} us, staged {split['staged']:.2f} us per "
+        "launch; per step, us: " + ", ".join(
+            f"{k} {split[k]:.3f}" for k in K6_STAGES if k != "staged")
+        + f"; their sum {per_step:.3f} against step {split['step']:.3f} "
+        f"({100 * closure:+.2f}%); total {split['total']:.2f} us; grid "
+        f"barriers {split['barriers_per_launch']:.0f} per launch, "
+        f"{split['barriers_per_warm_step']:.3f} per warm step; outputs "
+        f"bit-equal with the stamps off: {same}; on {card}")
+    assert same, "K6's outputs differ with the stamps on"
+    assert abs(closure) <= K6_SPLIT_CLOSURE, closure
+    trees = {"this tree": full_rollout_batched}
+    if parent:
+        pk = parent_module(parent, "ops.solve_kernel").full_rollout_batched
+        p_out = pk(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ref, p_out)), \
+            "K6 differs from the parent's"
+        trees["parent"] = pk
+    times = {who: [] for who in trees}
+    for _ in range(K6_AB_TURNS):
+        for who, fn in trees.items():
+            times[who].append(
+                least_ms(lambda: fn(*args, **kw), K6_AB_REPS) * 1e3 / T)
+    log("phase 32 K6 per warm step, stamps off, us by turns (least of "
+        f"{K6_AB_REPS} launches a turn): " + "; ".join(
+            f"{who} " + ", ".join(f"{t:.3f}" for t in ts)
+            for who, ts in times.items())
+        + f"; stamps on (the split's total over its steps) "
+        f"{split['total'] / split['steps']:.3f} us; on {card}")
+    log("phase 32 OK")
+    return dict(split=split, off_us=times, closure=closure)
 
 
 # ---------------------------------------------------------------------- #
@@ -5455,6 +5549,7 @@ def main():
     scen_scan = by_phase(phase_scenario_scan, card, scen_loop)
     scen = by_phase(phase_scenario_timing, card, scen_loop, scen_scan,
                     parent)
+    phase_k6_split(card, parent)
     k5_errs = by_phase(phase_k5_check)
     het = by_phase(phase_hetero_main, card)
     k5_rows = by_phase(phase_hetero_timing, card, het, parent)["rows"]

@@ -88,6 +88,17 @@
 //   * Block 0 writes the step's stats row from the last window's exchange
 //     values: [iterations, max pri, max dua, real rows, rung, min status,
 //     unsolved rows, 0]; and counts its slab loads into `loads`.
+//   * A non-null `stamps` (never on a rollout path) makes block 0 sum its
+//     %globaltimer time by stage into K2's slots (solve_loop.cuh K3S_* and
+//     K2S_*; ops/solve_kernel.k6_stage_split): the staging (the prologue
+//     and every slab reload), per step the refresh, each window's bias, the
+//     iterations' products and their cluster barriers (the exchange), the
+//     checks' products and row maxima, their reduction (the cluster
+//     barrier, the rows' combination, the grid barrier and the ensemble's
+//     decision), the plant step (the stats row, u and x+) and the last
+//     cluster barrier (the exchange of x+); and count its steps and grid
+//     barriers. That launch runs the kernel's STAMPS instantiation; every
+//     other runs the one without stamps, whose code has none of it.
 //
 // Plain C interface, built with nvcc into a shared library and called with
 // ctypes. Entries return a cudaError_t (0 on success), checked right after
@@ -107,7 +118,7 @@
 struct K6Params {
   const void *wt, *bias_c, *m_aff, *rhos, *m_res, *g0w, *gl, *lo0, *hi0, *s_u, *bdw, *y0,
       *x0, *pad, *noise;
-  void *xs, *us, *stats, *y_f, *exch, *loads;
+  void *xs, *us, *stats, *y_f, *exch, *loads, *stamps;
   int w_dtype, y_dtype, n_rho, dp, nxp, ncp, nup, nplp, bp;
   int n_steps, max_iter, ci, rho0, adaptive, jump, stride, tier;
   float eps_pri, eps_dua, tol, rho_min, rho_max;
@@ -178,6 +189,7 @@ struct Args {
   float eps_pri, eps_dua, tol, rho_min, rho_max;
   Plan p;
   Layout L;   // make_layout's, for this plan
+  unsigned long long* stamps;   // the STAMPS instantiation's only
 };
 
 template <typename T, typename WT>
@@ -340,6 +352,22 @@ __device__ __forceinline__ void dmma_tier(double (&c)[3][4], const double (&a)[4
   }
 }
 
+// The stage that ends here into stamps[slot] (block 0, after a block
+// barrier so that its slowest warp is counted; `mark` is its last stage
+// boundary); no code without STAMPS.
+template <bool STAMPS>
+__device__ __forceinline__ void lap(unsigned long long* stamps, unsigned long long& mark,
+                                    int slot) {
+  if constexpr (STAMPS) {
+    __syncthreads();
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      const unsigned long long now = gtimer();
+      stamps[slot] += now - mark;
+      mark = now;
+    }
+  }
+}
+
 // ci iterations of the tile. The block's (nr, cw) piece is cut into tiles
 // of 16 rows (rows past nr read as 0) and 8 columns; a warp takes up to
 // kTilesPerWarp of them and runs each as a chain of fp64 tensor-core
@@ -352,10 +380,10 @@ __device__ __forceinline__ void dmma_tier(double (&c)[3][4], const double (&a)[4
 // of two rows), adds b, clips, and stores each row's pair 16 bytes at a
 // time into the next buffer of every block of the cluster. One cluster
 // barrier per iteration.
-template <typename T, typename WT, int TIER, bool WSMEM>
+template <typename T, typename WT, int TIER, bool WSMEM, bool STAMPS>
 __device__ void iterate(const Args<T>& a, cg::cluster_group& cluster, const WT* ws, int wst,
                         double*& cur, double*& nxt, const T* b, const T* lo, const T* hi,
-                        int nr) {
+                        int nr, unsigned long long& mark) {
   constexpr int TPW = kTilesPerWarp;
   const int dp = a.dp, cw = a.p.cw, rb = a.p.rb;
   const int c0 = (int)cluster.block_rank() * cw;
@@ -471,16 +499,18 @@ __device__ void iterate(const Args<T>& a, cg::cluster_group& cluster, const WT* 
         }
       }
     }
+    lap<STAMPS>(a.stamps, mark, K3S_ITER);
     // every piece has landed everywhere, and every read of cur is done,
     // before the next iteration
     cluster.sync();
+    lap<STAMPS>(a.stamps, mark, K3S_EXCH);
     double* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
 }
 
-template <typename T, typename WT, bool WSMEM>
+template <typename T, typename WT, bool WSMEM, bool STAMPS>
 __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
   cg::grid_group grid = cg::this_grid();
   cg::cluster_group cluster = cg::this_cluster();
@@ -520,6 +550,15 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
   const int nres = 2 * cl.n + 2 * vl.n;
   const int nres_ld = 2 * ceil_div(ncp, C) + 2 * nvl_max;
 
+  // block 0's last stage boundary and grid barriers (stamps only)
+  unsigned long long mark = 0;
+  int n_sync = 0;
+  if constexpr (STAMPS) {
+    if (threadIdx.x == 0) {
+      mark = gtimer();
+      atomicMin(a.stamps + K3S_START, mark);
+    }
+  }
   const int r0 = tile * a.p.rb;
   const int nr = min(a.p.rb, bp - r0);
   for (int i = threadIdx.x; i < nr * dp; i += blockDim.x)
@@ -533,6 +572,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
   // every block of the cluster has started before any block stores into
   // another's shared memory
   cluster.sync();
+  lap<STAMPS>(a.stamps, mark, K3S_STAGED);
 
   for (int t = 0; t < a.n_steps; ++t) {
     // 1. refresh: the block's columns of x @ GL
@@ -567,6 +607,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
       done_s[r] = pad;
       st_s[r] = pad ? 1.f : 0.f;
     }
+    lap<STAMPS>(a.stamps, mark, K2S_REFRESH);
 
     // 2. the warm solve, whole windows, the first one always
     int k = 0;
@@ -580,18 +621,23 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
           ++n_loads;
         }
         k_loaded = k_idx;
+        lap<STAMPS>(a.stamps, mark, K3S_STAGED);
       }
       const T* bc = a.bias_c + (size_t)k_idx * dp + c0;
       piece_product<T>(xrows, nr, a.m_aff + (size_t)k_idx * nplp * dp, dp, nplp, cw,
                     [&](int lc) { return c0 + lc; },
                     [&](int r, int lc, float p) { b[r * cw + lc] = bc[lc] + static_cast<T>(p); });
       __syncthreads();
+      lap<STAMPS>(a.stamps, mark, K3S_BIAS);
       if (a.tier == TIER_HIGHEST)
-        iterate<T, WT, TIER_HIGHEST, WSMEM>(a, cluster, ws, wst, cur, nxt, b, lo, hi, nr);
+        iterate<T, WT, TIER_HIGHEST, WSMEM, STAMPS>(a, cluster, ws, wst, cur, nxt, b, lo, hi,
+                                                    nr, mark);
       else if (a.tier == TIER_HIGH)
-        iterate<T, WT, TIER_HIGH, WSMEM>(a, cluster, ws, wst, cur, nxt, b, lo, hi, nr);
+        iterate<T, WT, TIER_HIGH, WSMEM, STAMPS>(a, cluster, ws, wst, cur, nxt, b, lo, hi,
+                                                 nr, mark);
       else
-        iterate<T, WT, TIER_BF16, WSMEM>(a, cluster, ws, wst, cur, nxt, b, lo, hi, nr);
+        iterate<T, WT, TIER_BF16, WSMEM, STAMPS>(a, cluster, ws, wst, cur, nxt, b, lo, hi,
+                                                 nr, mark);
 
       // the residual products of the block's lanes: [Ax | z] of its
       // constraint lanes, [Hx | A'lam] of its variable lanes
@@ -630,6 +676,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
           push16(cluster, rmax, ((size_t)rank * a.p.rb + r) * 4, v);
         }
       }
+      lap<STAMPS>(a.stamps, mark, K3S_CHECK);
       cluster.sync();
 
       // every block of the cluster: the rows' maxima over the slots in
@@ -672,6 +719,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
         }
       }
       grid.sync();
+      if constexpr (STAMPS) ++n_sync;
 
       // every block: the ensemble's rung and exit, from all rows in order
       const double* ex = a.exch + (size_t)par * bp * kExCols;
@@ -717,6 +765,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
       k += a.ci;
       const bool more = dec[1] != 0;
       par ^= 1;
+      lap<STAMPS>(a.stamps, mark, K3S_REDUCE);
       if (!more) break;
     }
 
@@ -775,18 +824,38 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
                     for (int q = 0; q < C; ++q) cluster.map_shared_rank(xr, q)[r * nplp + j] = xn;
                     a.xs[(row0 + r) * nplp + j] = xn;
                   });
+    lap<STAMPS>(a.stamps, mark, K2S_PLANT);
     cluster.sync();
+    lap<STAMPS>(a.stamps, mark, K2S_XEXCH);
+    if constexpr (STAMPS) {
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
+        ++a.stamps[K2S_STEPS];
+        if (t == 0) a.stamps[K2S_SYNC_FIRST] = n_sync;
+      }
+    }
   }
   for (int i = threadIdx.x; i < nr * cw; i += blockDim.x) {
     const int r = i / cw, j = c0 + i % cw;
     a.y_f[(size_t)(r0 + r) * dp + j] = static_cast<T>(cur[yidx(a.p.rb, r, j)]);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.loads = n_loads;
+  if constexpr (STAMPS) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (blockIdx.x == 0) a.stamps[K2S_SYNCS] = n_sync;
+      atomicMax(a.stamps + K3S_END, gtimer());
+    }
+  }
 }
 
+__global__ void k6_stamp_kernel(unsigned long long* stamps) { stamps[K3S_PRE] = gtimer(); }
+
+// The kernel of a plan's slab placement; `stamps`: the instantiation that
+// stamps its stages (k6_stage_split's launches only).
 template <typename T, typename WT>
-auto kernel_for(bool w_smem) {
-  return w_smem ? k6_kernel<T, WT, true> : k6_kernel<T, WT, false>;
+auto kernel_for(bool w_smem, bool stamps = false) {
+  if (stamps) return w_smem ? k6_kernel<T, WT, true, true> : k6_kernel<T, WT, false, true>;
+  return w_smem ? k6_kernel<T, WT, true, false> : k6_kernel<T, WT, false, false>;
 }
 
 // Launch configuration of a plan: a cluster dimension, and cooperative (so
@@ -814,8 +883,8 @@ void fill_cfg(LaunchCfg& lc, const Plan& q, cudaStream_t stream, bool cooperativ
 }
 
 template <typename T, typename WT>
-cudaError_t set_attributes(const Plan& q) {
-  auto fn = kernel_for<T, WT>(q.w_smem);
+cudaError_t set_attributes(const Plan& q, bool stamps = false) {
+  auto fn = kernel_for<T, WT>(q.w_smem, stamps);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, q.smem);
@@ -917,8 +986,9 @@ cudaError_t launch(const K6Params& p, cudaStream_t stream) {
   Plan plan;
   cudaError_t e = cached_plan<T, WT>(p.bp, p.dp, p.nxp, p.ncp, p.nup, p.nplp, &plan);
   if (e != cudaSuccess) return e;
+  const bool stamps = p.stamps != nullptr;
   // another shape's plan may have set a smaller limit since
-  if ((e = set_attributes<T, WT>(plan))) return e;
+  if ((e = set_attributes<T, WT>(plan, stamps))) return e;
   Args<T> a;
   a.wt = p.wt;
   a.bias_c = static_cast<const T*>(p.bias_c);
@@ -941,6 +1011,7 @@ cudaError_t launch(const K6Params& p, cudaStream_t stream) {
   a.stats = static_cast<float*>(p.stats);
   a.exch = static_cast<double*>(p.exch);
   a.loads = static_cast<int*>(p.loads);
+  a.stamps = static_cast<unsigned long long*>(p.stamps);
   a.n_rho = p.n_rho;
   a.dp = p.dp;
   a.nxp = p.nxp;
@@ -965,7 +1036,7 @@ cudaError_t launch(const K6Params& p, cudaStream_t stream) {
   a.L = make_layout<T, WT>(plan, p.dp, p.nxp, p.ncp, p.nup, p.nplp, p.bp);
   LaunchCfg lc;
   fill_cfg(lc, plan, stream, true);
-  e = cudaLaunchKernelEx(&lc.cfg, kernel_for<T, WT>(plan.w_smem), a);
+  e = cudaLaunchKernelEx(&lc.cfg, kernel_for<T, WT>(plan.w_smem, stamps), a);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
 }
@@ -1008,6 +1079,13 @@ int k6_plan(int bp, int dp, int nxp, int ncp, int nup, int nplp, int y_dtype, in
                      q.tiles, q.smem, q.w_smem, q.max_clusters};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
   return 0;
+}
+
+// The K3S_PRE stamp on `stream`, just before a stamped K6 launch.
+int k6_stamp_now(void* stamps, void* stream) {
+  k6_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(stamps));
+  return (int)cudaGetLastError();
 }
 
 const char* k6_error_string(int code) {

@@ -48,6 +48,7 @@ from ..core.iteration import STATUS_MAX_ITER
 from ..ops.fused_step import (pad_dim, pallas_batched_chunk_runner,
                               round_up)
 from ..parallel.sharded import gather_rows
+from ..utils.timing import span
 from ..ops.solve_kernel import (FullSolveOperand, build_residual_operator,
                                 full_rollout, full_rollout_batched,
                                 full_solve)
@@ -576,42 +577,48 @@ def mpc_rollout_scan(solver, prob: CondensedMPC, x_init, n_steps: int,
       return_stats: also return the per-step status codes.
       return_state: also return ``(y_final, rho_ind_final)``, to write
         back to ``solver.y`` / ``solver.rho_ind``.
+
+    The call is the span ``rollout`` (``utils.timing.span``) and, on the
+    scan path, each segment's staging, launch, read and finish are its
+    ``rollout.stage``, ``rollout.launch``, ``rollout.read`` and
+    ``rollout.finish``.
     """
-    stng = solver.settings
-    dtype = stng.precision_dtype
-    dev = stng.device
-    npl = prob.K.shape[1]
-    if noise is None:
-        noise = torch.zeros((n_steps, npl), dtype=dtype, device=dev)
-    else:
-        noise = (noise.to(device=dev, dtype=dtype)
-                 if isinstance(noise, torch.Tensor)
-                 else torch.as_tensor(np.asarray(noise, np.float64),
-                                      dtype=dtype, device=dev))
-        if tuple(noise.shape) != (n_steps, npl):
-            raise ValueError(f"noise must be (T={n_steps}, {npl})")
-    n_used = [0]
+    with span("rollout"):
+        stng = solver.settings
+        dtype = stng.precision_dtype
+        dev = stng.device
+        npl = prob.K.shape[1]
+        if noise is None:
+            noise = torch.zeros((n_steps, npl), dtype=dtype, device=dev)
+        else:
+            noise = (noise.to(device=dev, dtype=dtype)
+                     if isinstance(noise, torch.Tensor)
+                     else torch.as_tensor(np.asarray(noise, np.float64),
+                                          dtype=dtype, device=dev))
+            if tuple(noise.shape) != (n_steps, npl):
+                raise ValueError(f"noise must be (T={n_steps}, {npl})")
+        n_used = [0]
 
-    def run(ci, x0, y0, rho0, steps):
-        w = noise[n_used[0]:n_used[0] + steps]
-        n_used[0] += steps
-        return _dispatch_rollout(solver, prob, x0, steps, solve_max_iter,
-                                 kernel, ci, y0, rho0, w)
+        def run(ci, x0, y0, rho0, steps):
+            w = noise[n_used[0]:n_used[0] + steps]
+            n_used[0] += steps
+            return _dispatch_rollout(solver, prob, x0, steps, solve_max_iter,
+                                     kernel, ci, y0, rho0, w)
 
-    if check_interval == "auto":
-        out = _auto_ci_rollout(run, stng, x_init, n_steps, calib_steps,
-                               solver.y, solver.rho_ind,
-                               solve_max_iter or stng.max_iter)
-    else:
-        ci = (stng.check_interval if check_interval is None
-              else int(check_interval))
-        out = run(ci, x_init, solver.y, solver.rho_ind, n_steps)
-    res = out[:3]
-    if return_stats:
-        res = res + (out[3],)
-    if return_state:
-        res = res + out[4:6]
-    return res
+        if check_interval == "auto":
+            out = _auto_ci_rollout(run, stng, x_init, n_steps, calib_steps,
+                                   solver.y, solver.rho_ind,
+                                   solve_max_iter or stng.max_iter)
+        else:
+            ci = (stng.check_interval if check_interval is None
+                  else int(check_interval))
+            out = run(ci, x_init, solver.y, solver.rho_ind, n_steps)
+        res = out[:3]
+        if return_stats:
+            res = res + (out[3],)
+        if return_state:
+            res = res + out[4:6]
+        return res
 
 
 def _auto_ci_rollout(run, stng, x_init, n_steps, calib_steps, y0, rho0,
@@ -997,17 +1004,20 @@ def _scan_rollout(solver, prob: CondensedMPC, x_init, n_steps: int,
     per-step refresh is a product with the ``_build_rollout_operators``
     operands. Reads the per-step stats back once, so ``iters``/``status``
     come back as CPU int32 tensors and the final rung as an int."""
-    args, kw = _scan_call(solver, prob, x_init, n_steps, ci, solve_max_iter,
-                          y0, rho_ind0, noise)
+    with span("rollout.stage"):
+        args, kw = _scan_call(solver, prob, x_init, n_steps, ci,
+                              solve_max_iter, y0, rho_ind0, noise)
     xs, us, stats, y_f = full_rollout(*args, **kw)
-    nu, npl = prob.K.shape
-    x0, rho_ind0 = args[12], args[14]
-    st = stats.cpu()   # the segment's one device→host read
-    states = torch.cat([x0[None, :npl], xs[:, :npl]])
-    rho_f = int(st[-1, 4]) if n_steps else rho_ind0
-    # kernel padding slots are exactly 0, so slicing back is lossless
-    return (states, us[:, :nu], st[:, 0].to(torch.int32),
-            st[:, 5].to(torch.int32), y_f[:solver.Dp], rho_f)
+    with span("rollout.read"):
+        st = stats.cpu()   # the segment's one device→host read
+    with span("rollout.finish"):
+        nu, npl = prob.K.shape
+        x0, rho_ind0 = args[12], args[14]
+        states = torch.cat([x0[None, :npl], xs[:, :npl]])
+        rho_f = int(st[-1, 4]) if n_steps else rho_ind0
+        # kernel padding slots are exactly 0, so slicing back is lossless
+        return (states, us[:, :nu], st[:, 0].to(torch.int32),
+                st[:, 5].to(torch.int32), y_f[:solver.Dp], rho_f)
 
 
 def _cast_residual(arr64, dtype):
@@ -1247,75 +1257,87 @@ def scenario_rollout_scan(batch_solver, prob: CondensedMPC, X_init,
     rank's scenarios with ``process_local``); each rank steps its own
     plants, and the states and controls of every rank are gathered once
     at the end. Returns ``(states (T+1, B, nx), controls (T, B, nu),
-    iters (T,))``.
+    iters (T,))``. Spans as ``mpc_rollout_scan``'s.
     """
     m = batch_solver
-    if m.rho_mode != "shared":
-        raise ValueError("scenario_rollout_scan requires rho_mode='shared'")
-    if kernel not in ("loop", "scan", "auto"):
-        raise ValueError("kernel must be 'loop', 'scan' or 'auto'")
-    stng = m.settings
-    ci_gate = None if check_interval in (None, "auto") else check_interval
-    if kernel == "auto":
-        # K6 on the card by the static gate, with no fallback; the CPU keeps
-        # the loop path, as the JAX package picks "scan" only on its
-        # accelerator
-        kernel = ("scan" if stng.device.type == "cuda"
-                  and _scan_scenario_eligible(m, ci_gate, solve_max_iter)
-                  else "loop")
-    if kernel == "scan" and not _scan_scenario_eligible(m, ci_gate,
-                                                        solve_max_iter):
-        raise ValueError(
-            "kernel='scan' scenario rollout needs alpha=1, "
-            "iter_precision='highest' or refine=False, no infeasibility "
-            "checks, rho_mode='shared', a shared-(H,A) single-chip batch "
-            "(no mesh), and a budget of at least one full check window")
-    dtype, dev = stng.precision_dtype, stng.device
-    X0 = (X_init.to(device=dev, dtype=dtype)
-          if isinstance(X_init, torch.Tensor)
-          else torch.as_tensor(np.asarray(X_init, np.float64), dtype=dtype,
-                               device=dev))
-    B_n, npl = X0.shape
-    if B_n != m._caller_rows():
-        raise ValueError(f"X_init batch {B_n} != solver batch "
-                         f"{m._caller_rows()}")
-    if noise is None:
-        noise = torch.zeros((n_steps, B_n, npl), dtype=dtype, device=dev)
-    else:
-        noise = (noise.to(device=dev, dtype=dtype)
-                 if isinstance(noise, torch.Tensor)
-                 else torch.as_tensor(np.asarray(noise, np.float64),
-                                      dtype=dtype, device=dev))
-        if tuple(noise.shape) != (n_steps, B_n, npl):
+    with span("rollout"):
+        if m.rho_mode != "shared":
+            raise ValueError("scenario_rollout_scan requires "
+                             "rho_mode='shared'")
+        if kernel not in ("loop", "scan", "auto"):
+            raise ValueError("kernel must be 'loop', 'scan' or 'auto'")
+        stng = m.settings
+        ci_gate = None if check_interval in (None, "auto") \
+            else check_interval
+        if kernel == "auto":
+            # K6 on the card by the static gate, with no fallback; the CPU
+            # keeps the loop path, as the JAX package picks "scan" only on
+            # its accelerator
+            kernel = ("scan" if stng.device.type == "cuda"
+                      and _scan_scenario_eligible(m, ci_gate, solve_max_iter)
+                      else "loop")
+        if kernel == "scan" and not _scan_scenario_eligible(m, ci_gate,
+                                                            solve_max_iter):
+            raise ValueError(
+                "kernel='scan' scenario rollout needs alpha=1, "
+                "iter_precision='highest' or refine=False, no infeasibility "
+                "checks, rho_mode='shared', a shared-(H,A) single-chip batch "
+                "(no mesh), and a budget of at least one full check window")
+        B_n, npl = np.shape(X_init)
+        if B_n != m._caller_rows():
+            raise ValueError(f"X_init batch {B_n} != solver batch "
+                             f"{m._caller_rows()}")
+        if noise is not None and tuple(np.shape(noise)) != (n_steps, B_n,
+                                                              npl):
             raise ValueError(f"noise must be (T={n_steps}, B={B_n}, {npl})")
-    # this rank's plants
-    X0, noise = X0[m._rows], noise[:, m._rows]
-    segment = _scan_scenario_rollout if kernel == "scan" \
-        else _loop_scenario_rollout
-    n_used = [0]
+        if kernel == "scan":
+            # K6's staging (``_scenario_scan_call``, each segment's
+            # ``rollout.stage``) converts and pads the caller's inputs; a K6
+            # batch has no mesh, so they are this rank's plants
+            X0, segment = X_init, _scan_scenario_rollout
+        else:
+            dtype, dev = stng.precision_dtype, stng.device
+            X0 = (X_init.to(device=dev, dtype=dtype)
+                  if isinstance(X_init, torch.Tensor)
+                  else torch.as_tensor(np.asarray(X_init, np.float64),
+                                       dtype=dtype, device=dev))
+            if noise is None:
+                noise = torch.zeros((n_steps, B_n, npl), dtype=dtype,
+                                    device=dev)
+            elif isinstance(noise, torch.Tensor):
+                noise = noise.to(device=dev, dtype=dtype)
+            else:
+                noise = torch.as_tensor(np.asarray(noise, np.float64),
+                                        dtype=dtype, device=dev)
+            # this rank's plants
+            X0, noise = X0[m._rows], noise[:, m._rows]
+            segment = _loop_scenario_rollout
+        n_used = [0]
 
-    def run(ci, X_seg, Y0, rho0, steps):
-        w = noise[n_used[0]:n_used[0] + steps]
-        n_used[0] += steps
-        return segment(m, prob, X_seg, steps, solve_max_iter, ci, Y0, rho0, w)
+        def run(ci, X_seg, Y0, rho0, steps):
+            w = None if noise is None \
+                else noise[n_used[0]:n_used[0] + steps]
+            n_used[0] += steps
+            return segment(m, prob, X_seg, steps, solve_max_iter, ci, Y0,
+                           rho0, w)
 
-    if check_interval == "auto":
-        out = _auto_ci_rollout(run, stng, X0, n_steps, calib_steps, m.Y,
-                               m.rho_ind, solve_max_iter or stng.max_iter)
-    else:
-        ci = (stng.check_interval if check_interval is None
-              else int(check_interval))
-        out = run(ci, X0, m.Y, m.rho_ind, n_steps)
-    if m._group is not None:
-        # every rank's plants, in rank order
-        out = (gather_rows(out[0], m._group, axis=1),
-               gather_rows(out[1], m._group, axis=1)) + tuple(out[2:])
-    res = out[:3]
-    if return_stats:
-        res = res + (out[3],)
-    if return_state:
-        res = res + out[4:6]
-    return res
+        if check_interval == "auto":
+            out = _auto_ci_rollout(run, stng, X0, n_steps, calib_steps, m.Y,
+                                   m.rho_ind, solve_max_iter or stng.max_iter)
+        else:
+            ci = (stng.check_interval if check_interval is None
+                  else int(check_interval))
+            out = run(ci, X0, m.Y, m.rho_ind, n_steps)
+        if m._group is not None:
+            # every rank's plants, in rank order
+            out = (gather_rows(out[0], m._group, axis=1),
+                   gather_rows(out[1], m._group, axis=1)) + tuple(out[2:])
+        res = out[:3]
+        if return_stats:
+            res = res + (out[3],)
+        if return_state:
+            res = res + out[4:6]
+        return res
 
 
 def _loop_scenario_operands(m, prob: CondensedMPC) -> tuple:
@@ -1499,17 +1521,20 @@ def _scan_scenario_rollout(m, prob: CondensedMPC, X0, n_steps: int,
     controls (T, B, nu), iters (T,), status (T,), Y_final in the batch
     solver's layout, rho_ind_final)`` like the loop path, the status lane
     being the ensemble's min status."""
-    args, kw = _scenario_scan_call(m, prob, X0, n_steps, ci, solve_max_iter,
-                                   Y0, rho_ind0, noise)
+    with span("rollout.stage"):
+        args, kw = _scenario_scan_call(m, prob, X0, n_steps, ci,
+                                       solve_max_iter, Y0, rho_ind0, noise)
     xs, us, stats, Y_f = full_rollout_batched(*args, **kw)
-    nu, npl = prob.K.shape
-    B_n, D = m.B_n, m.D
-    st = stats.cpu()   # the segment's one device→host read
-    states = torch.cat([args[12][None, :B_n, :npl], xs[:, :B_n, :npl]])
-    rho_f = int(st[-1, 4]) if n_steps else args[15]
-    # back to the batch solver's layout for continuation segments (kernel
-    # padding rows and lanes are dropped)
-    Y_out = torch.zeros_like(m.Y)
-    Y_out[:B_n, :D] = Y_f[:B_n, :D]
-    return (states, us[:, :B_n, :nu], st[:, 0].to(torch.int32),
-            st[:, 5].to(torch.int32), Y_out, rho_f)
+    with span("rollout.read"):
+        st = stats.cpu()   # the segment's one device→host read
+    with span("rollout.finish"):
+        nu, npl = prob.K.shape
+        B_n, D = m.B_n, m.D
+        states = torch.cat([args[12][None, :B_n, :npl], xs[:, :B_n, :npl]])
+        rho_f = int(st[-1, 4]) if n_steps else args[15]
+        # back to the batch solver's layout for continuation segments
+        # (kernel padding rows and lanes are dropped)
+        Y_out = torch.zeros_like(m.Y)
+        Y_out[:B_n, :D] = Y_f[:B_n, :D]
+        return (states, us[:, :B_n, :nu], st[:, 0].to(torch.int32),
+                st[:, 5].to(torch.int32), Y_out, rho_f)

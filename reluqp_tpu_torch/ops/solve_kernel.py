@@ -55,6 +55,7 @@ from ..core.iteration import rho_update_stride
 from .check_window import (_RUNNING, _TINY, STATUS_DUAL_INFEASIBLE,
                            STATUS_MAX_ITER, STATUS_PRIMAL_INFEASIBLE,
                            STATUS_SOLVED)
+from ..utils.timing import span
 from .fused_step import _DTYPE_CODE, _bf16, device_guard, pad_dim
 
 __all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",
@@ -63,7 +64,7 @@ __all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",
            "solve_plan", "k3_stage_split", "K3_STAGES", "full_rollout",
            "full_rollout_ref", "rollout_plan", "k2_stage_split", "K2_STAGES",
            "full_rollout_batched", "full_rollout_batched_ref",
-           "rollout_batched_plan"]
+           "rollout_batched_plan", "k6_stage_split", "K6_STAGES"]
 
 # Iteration tiers of the rollout: "bf16" one bf16 pass, "high" the bf16x3
 # split, anything else (including "default") full precision — as the TPU
@@ -589,34 +590,35 @@ def full_rollout(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op, lo0, hi0,
     tensors launch the CUDA kernel (or raise); CPU tensors run
     ``full_rollout_ref``.
     """
-    if max_iter % check_interval != 0:
-        raise ValueError("the scan-rollout kernel requires max_iter to be a "
-                         "multiple of check_interval")
-    if iter_precision not in _ROLLOUT_TIER:
-        raise ValueError(f"Invalid iter_precision {iter_precision!r}")
-    ops = dict(Wt_bank=Wt_bank, bias_c=bias_c, M_aff=M_aff, rhos=rhos,
-               M_res=M_res, g0w=g0w, gl_op=gl_op, lo0=lo0, hi0=hi0, S_u=S_u,
-               Bdw=Bdw, y0=y0, x0=x0, noise=noise)
-    n_rho, dp = _check_operands(ops, nxp=nxp, ncp=ncp, nup=nup,
-                                nplp=nplp, n_steps=n_steps)
-    rho_ind0 = int(rho_ind0)
-    if not 0 <= rho_ind0 < n_rho:
-        raise ValueError(f"K2: rho_ind0 {rho_ind0} is off the ladder")
-    kw = dict(nx=nx, nc=nc, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp,
-              n_steps=n_steps, max_iter=max_iter,
-              check_interval=check_interval, adaptive_rho=adaptive_rho,
-              adaptive_rho_tolerance=adaptive_rho_tolerance,
-              eps_abs=eps_abs, rho_min=rho_min, rho_max=rho_max,
-              rho_jump=rho_jump,
-              adaptive_rho_interval=adaptive_rho_interval,
-              iter_precision=iter_precision)
-    if y0.is_cuda:
-        with device_guard(y0.device):
-            return _full_rollout_cuda(ops, rho_ind0, n_rho=n_rho, dp=dp,
-                                      **kw)
-    return full_rollout_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op,
-                            lo0, hi0, S_u, Bdw, y0, x0, noise, rho_ind0,
-                            **kw)
+    with span("rollout.launch"):
+        if max_iter % check_interval != 0:
+            raise ValueError("the scan-rollout kernel requires max_iter to "
+                             "be a multiple of check_interval")
+        if iter_precision not in _ROLLOUT_TIER:
+            raise ValueError(f"Invalid iter_precision {iter_precision!r}")
+        ops = dict(Wt_bank=Wt_bank, bias_c=bias_c, M_aff=M_aff, rhos=rhos,
+                   M_res=M_res, g0w=g0w, gl_op=gl_op, lo0=lo0, hi0=hi0,
+                   S_u=S_u, Bdw=Bdw, y0=y0, x0=x0, noise=noise)
+        n_rho, dp = _check_operands(ops, nxp=nxp, ncp=ncp, nup=nup,
+                                    nplp=nplp, n_steps=n_steps)
+        rho_ind0 = int(rho_ind0)
+        if not 0 <= rho_ind0 < n_rho:
+            raise ValueError(f"K2: rho_ind0 {rho_ind0} is off the ladder")
+        kw = dict(nx=nx, nc=nc, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp,
+                  n_steps=n_steps, max_iter=max_iter,
+                  check_interval=check_interval, adaptive_rho=adaptive_rho,
+                  adaptive_rho_tolerance=adaptive_rho_tolerance,
+                  eps_abs=eps_abs, rho_min=rho_min, rho_max=rho_max,
+                  rho_jump=rho_jump,
+                  adaptive_rho_interval=adaptive_rho_interval,
+                  iter_precision=iter_precision)
+        if y0.is_cuda:
+            with device_guard(y0.device):
+                return _full_rollout_cuda(ops, rho_ind0, n_rho=n_rho, dp=dp,
+                                          **kw)
+        return full_rollout_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w,
+                                gl_op, lo0, hi0, S_u, Bdw, y0, x0, noise,
+                                rho_ind0, **kw)
 
 
 full_rollout.launches = 0
@@ -659,27 +661,14 @@ def _graph_behind_stamp(run, stamps, stamp_now, fail):
     return graph
 
 
-def k2_stage_split(run, reps: int = 20) -> dict:
-    """Where one K2 launch's time goes: ``run()`` (one ``full_rollout`` on
-    the card) captured in a CUDA graph behind a one-thread kernel that
-    stamps the time, replayed ``reps`` times with the stage stamps on.
-    Returns means over the replays: ``launch`` (µs, the stamp to the
-    earliest block's start) and ``staged`` (µs, block 0's staging over the
-    launch) per launch; each other stage of ``K2_STAGES`` in µs per
-    control step (block 0's time in it over the launch, over the steps);
-    ``step`` (µs per step: the earliest start to the latest end, less the
-    staging, over the steps); ``total`` (µs, the stamp to the latest end);
-    ``steps``; and block 0's grid barriers ``barriers_per_launch`` and
-    ``barriers_per_warm_step`` (those after step 0, over the steps after
-    it)."""
+def _rollout_stage_split(run, reps, wrapper, stamp_now, fail) -> dict:
+    """``k2_stage_split`` for the kernel behind ``wrapper`` (``full_rollout``
+    or ``full_rollout_batched``), whose launches stamp K2's slots."""
     dev = torch.device("cuda", torch.cuda.current_device())
     stamps = torch.zeros(_K2_SLOTS, dtype=torch.int64, device=dev)
-    lib = _lib()
-    full_rollout.stamps = stamps
+    wrapper.stamps = stamps
     try:
-        graph = _graph_behind_stamp(
-            run, stamps, lib.k2_stamp_now,
-            lambda rc: _raise_cuda(lib, rc, "stamp"))
+        graph = _graph_behind_stamp(run, stamps, stamp_now, fail)
         keys = ("launch",) + K2_STAGES + ("step", "total", "steps",
                                          "barriers_per_launch",
                                          "barriers_per_warm_step")
@@ -701,8 +690,26 @@ def k2_stage_split(run, reps: int = 20) -> dict:
             sums["barriers_per_warm_step"] += \
                 (t[_SYNCS] - t[_SYNC_FIRST]) / max(n - 1, 1)
     finally:
-        full_rollout.stamps = None
+        wrapper.stamps = None
     return {k: v / reps for k, v in sums.items()}
+
+
+def k2_stage_split(run, reps: int = 20) -> dict:
+    """Where one K2 launch's time goes: ``run()`` (one ``full_rollout`` on
+    the card) captured in a CUDA graph behind a one-thread kernel that
+    stamps the time, replayed ``reps`` times with the stage stamps on.
+    Returns means over the replays: ``launch`` (µs, the stamp to the
+    earliest block's start) and ``staged`` (µs, block 0's staging over the
+    launch) per launch; each other stage of ``K2_STAGES`` in µs per
+    control step (block 0's time in it over the launch, over the steps);
+    ``step`` (µs per step: the earliest start to the latest end, less the
+    staging, over the steps); ``total`` (µs, the stamp to the latest end);
+    ``steps``; and block 0's grid barriers ``barriers_per_launch`` and
+    ``barriers_per_warm_step`` (those after step 0, over the steps after
+    it)."""
+    lib = _lib()
+    return _rollout_stage_split(run, reps, full_rollout, lib.k2_stamp_now,
+                                lambda rc: _raise_cuda(lib, rc, "stamp"))
 
 
 # --------------------------------------------------------------------- #
@@ -1351,7 +1358,7 @@ class _K6Params(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "wt", "bias_c", "m_aff", "rhos", "m_res", "g0w", "gl", "lo0", "hi0",
         "s_u", "bdw", "y0", "x0", "pad", "noise", "xs", "us", "stats", "y_f",
-        "exch", "loads")]
+        "exch", "loads", "stamps")]
         + [(n, ctypes.c_int) for n in (
             "w_dtype", "y_dtype", "n_rho", "dp", "nxp", "ncp", "nup", "nplp",
             "bp", "n_steps", "max_iter", "ci", "rho0", "adaptive", "jump",
@@ -1376,6 +1383,8 @@ def _k6_lib():
         lib.k6_full_rollout_batched.restype = i
         lib.k6_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)]
         lib.k6_plan.restype = i
+        lib.k6_stamp_now.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.k6_stamp_now.restype = i
         lib.k6_error_string.argtypes = [i]
         lib.k6_error_string.restype = ctypes.c_char_p
         lib._k6_typed = True
@@ -1494,6 +1503,8 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
         noise=ptr("noise"), xs=xs.data_ptr(), us=us.data_ptr(),
         stats=stats.data_ptr(), y_f=y_f.data_ptr(), exch=exch.data_ptr(),
         loads=loads.data_ptr(),
+        stamps=None if full_rollout_batched.stamps is None
+        else full_rollout_batched.stamps.data_ptr(),
         w_dtype=_DTYPE_CODE[ops["Wt_bank"].dtype], y_dtype=_DTYPE_CODE[dt],
         n_rho=n_rho, dp=dp, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp, bp=bp,
         n_steps=n_steps, max_iter=max_iter, ci=check_interval, rho0=rho_ind0,
@@ -1530,36 +1541,65 @@ def full_rollout_batched(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op,
     ``full_rollout_batched_ref``. CUDA tensors launch the CUDA kernel K6
     (or raise); CPU tensors run ``full_rollout_batched_ref``.
     """
-    if max_iter % check_interval != 0:
-        raise ValueError("the scan-rollout kernel requires max_iter to be a "
-                         "multiple of check_interval")
-    if iter_precision not in _ROLLOUT_TIER:
-        raise ValueError(f"Invalid iter_precision {iter_precision!r}")
-    ops = dict(Wt_bank=Wt_bank, bias_c=bias_c, M_aff=M_aff, rhos=rhos,
-               M_res=M_res, g0w=g0w, gl_op=gl_op, lo0=lo0, hi0=hi0, S_u=S_u,
-               Bdw=Bdw, Y0=Y0, X0=X0, pad_mask=pad_mask, noise=noise)
-    n_rho, dp, bp = _check_batched_operands(ops, nxp=nxp, ncp=ncp, nup=nup,
-                                            nplp=nplp, n_steps=n_steps)
-    rho_ind0 = int(rho_ind0)
-    if not 0 <= rho_ind0 < n_rho:
-        raise ValueError(f"K6: rho_ind0 {rho_ind0} is off the ladder")
-    kw = dict(nx=nx, nc=nc, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp,
-              n_steps=n_steps, max_iter=max_iter,
-              check_interval=check_interval, adaptive_rho=adaptive_rho,
-              adaptive_rho_tolerance=adaptive_rho_tolerance, eps_abs=eps_abs,
-              rho_min=rho_min, rho_max=rho_max, rho_jump=rho_jump,
-              adaptive_rho_interval=adaptive_rho_interval,
-              iter_precision=iter_precision)
-    if Y0.is_cuda:
-        with device_guard(Y0.device):
-            return _full_rollout_batched_cuda(ops, rho_ind0, n_rho=n_rho,
-                                              dp=dp, bp=bp, **kw)
-    return full_rollout_batched_ref(Wt_bank, bias_c, M_aff, rhos, M_res, g0w,
-                                    gl_op, lo0, hi0, S_u, Bdw, Y0, X0,
-                                    pad_mask, noise, rho_ind0, **kw)
+    with span("rollout.launch"):
+        if max_iter % check_interval != 0:
+            raise ValueError("the scan-rollout kernel requires max_iter to "
+                             "be a multiple of check_interval")
+        if iter_precision not in _ROLLOUT_TIER:
+            raise ValueError(f"Invalid iter_precision {iter_precision!r}")
+        ops = dict(Wt_bank=Wt_bank, bias_c=bias_c, M_aff=M_aff, rhos=rhos,
+                   M_res=M_res, g0w=g0w, gl_op=gl_op, lo0=lo0, hi0=hi0,
+                   S_u=S_u, Bdw=Bdw, Y0=Y0, X0=X0, pad_mask=pad_mask,
+                   noise=noise)
+        n_rho, dp, bp = _check_batched_operands(ops, nxp=nxp, ncp=ncp,
+                                                nup=nup, nplp=nplp,
+                                                n_steps=n_steps)
+        rho_ind0 = int(rho_ind0)
+        if not 0 <= rho_ind0 < n_rho:
+            raise ValueError(f"K6: rho_ind0 {rho_ind0} is off the ladder")
+        kw = dict(nx=nx, nc=nc, nxp=nxp, ncp=ncp, nup=nup, nplp=nplp,
+                  n_steps=n_steps, max_iter=max_iter,
+                  check_interval=check_interval, adaptive_rho=adaptive_rho,
+                  adaptive_rho_tolerance=adaptive_rho_tolerance,
+                  eps_abs=eps_abs, rho_min=rho_min, rho_max=rho_max,
+                  rho_jump=rho_jump,
+                  adaptive_rho_interval=adaptive_rho_interval,
+                  iter_precision=iter_precision)
+        if Y0.is_cuda:
+            with device_guard(Y0.device):
+                return _full_rollout_batched_cuda(ops, rho_ind0, n_rho=n_rho,
+                                                  dp=dp, bp=bp, **kw)
+        return full_rollout_batched_ref(Wt_bank, bias_c, M_aff, rhos, M_res,
+                                        g0w, gl_op, lo0, hi0, S_u, Bdw, Y0,
+                                        X0, pad_mask, noise, rho_ind0, **kw)
 
 
 full_rollout_batched.launches = 0
 # the last launch's count of rung slab loads by the kernel's first block
 # (a device int32 tensor: 0 where the slab is read from L2)
 full_rollout_batched.slab_loads = None
+# an int64 (_K2_SLOTS,) tensor on the card, or None: the kernel's stage
+# stamps (``k6_stage_split``); None on every rollout path
+full_rollout_batched.stamps = None
+
+# block 0's stages of a K6 launch, in K2's slots (``csrc/rollout_batched.cu``):
+# the staging (the prologue and every slab reload on a rung change), then
+# per control step the refresh x @ GL, each window's bias, the iterations'
+# products and their cluster barriers (the exchange of y), the checks'
+# products and the rows' maxima, their reduction (the cluster barrier, the
+# rows' combination, the grid barrier and the ensemble's rung and exit),
+# the plant step (the stats row, u, x+) and the cluster barrier after it
+# (the exchange of x+). The iteration stages are "iteration" and
+# "exchange", the rest but "staged" are once a step (once a window for the
+# bias and the checks).
+K6_STAGES = K2_STAGES
+
+
+def k6_stage_split(run, reps: int = 20) -> dict:
+    """``k2_stage_split`` for K6: ``run()`` is one ``full_rollout_batched``
+    on the card; the same keys, block 0's grid barriers being one a check
+    window."""
+    lib = _k6_lib()
+    return _rollout_stage_split(run, reps, full_rollout_batched,
+                                lib.k6_stamp_now,
+                                lambda rc: _k6_raise(lib, rc, "stamp"))

@@ -7,7 +7,8 @@ of the CUDA tensors it is given (``block_until_ready``), and does not
 synchronize for CPU tensors. ``time_fn_events`` times on the card itself,
 with CUDA events. ``two_point_step_time`` cancels a fixed per-call overhead
 by timing a short and a long chain; a delta it cannot measure is NaN,
-never a clamped number.
+never a clamped number. ``span`` names a stretch of the program's host
+work on the profiler's timeline, and ``trace`` records that timeline.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 __all__ = ["Timer", "time_fn", "time_fn_events", "time_fn_fetched", "fetch",
            "block_until_ready", "two_point_step_time",
-           "two_point_step_time_or_coarse", "trace", "entropy_rng",
+           "two_point_step_time_or_coarse", "trace", "span", "entropy_rng",
            "min_delta", "chain_timer"]
 
 
@@ -238,13 +239,35 @@ def two_point_step_time_or_coarse(timed, fresh_input, n_lo, n_hi, **kw):
     return timed(fresh_input(64), n_hi) / n_hi, "coarse"
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that names a stretch of the program's host work
+    ``reluqp::<name>`` while a ``torch.profiler`` records (``trace``, or any
+    other profiler): a host range on the profiler's timeline, beside the
+    card's kernels and copies on the same clock. It is recorded as an
+    operator range (``cpu_op``), not a ``record_function`` annotation, so
+    the profiler mirrors no ``gpu_user_annotation`` of it onto the card's
+    timeline, where a reader of the card's events would take it for device
+    work. While none records it is one shared no-op context, after a
+    single flag test."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast("reluqp::" + name)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str = None):
     """``torch.profiler`` over the block (CPU, and CUDA where there is a
     card); on exit writes the Chrome trace ``<log_dir>/trace.json``
     (``log_dir`` defaults to ``reluqp_trace`` under the temporary
     directory). Yields the profiler, whose ``key_averages()`` sums the
-    kernels by name."""
+    kernels by name. The trace holds the program's ``span`` ranges:
+    ``reluqp::rollout`` around a rollout call and, inside it, each
+    segment's ``rollout.stage`` (its inputs made into the kernel's
+    arguments), ``rollout.launch``, ``rollout.read`` (the one wait on the
+    card) and ``rollout.finish``."""
     from torch.profiler import ProfilerActivity, profile
 
     if log_dir is None:

@@ -3,7 +3,10 @@
 ``ops/check_window.py`` passes ``_C1Args`` and ``_C2Args`` by address to
 ``csrc/check_window.cu``'s ``c1_check`` and ``c2_check``, which read them
 as ``C1Args`` and ``C2Args``; ``ops/solve_kernel.py`` passes ``_K3Params``
-to ``csrc/full_solve.cu``'s ``k3_full_solve`` (``K3Params``). A field added
+to ``csrc/full_solve.cu``'s ``k3_full_solve`` (``K3Params``), ``_K2Params``
+to ``csrc/solve_kernel.cu``'s ``k2_full_rollout`` (``K2Params``) and
+``_K6Params`` to ``csrc/rollout_batched.cu``'s ``k6_full_rollout_batched``
+(``K6Params``). A field added
 on one side only, or out of order, shifts every field after it, and only
 the card would show it. These tests parse the structs from the source and
 hold the mirrors to them field by field (name, order, pointer / int /
@@ -20,9 +23,11 @@ from reluqp_tpu_torch.ops import solve_kernel as sk
 
 CSRC = Path(cw.__file__).resolve().parent.parent / "csrc"
 SOURCES = {"C1Args": "check_window.cu", "C2Args": "check_window.cu",
-           "K3Params": "full_solve.cu"}
+           "K3Params": "full_solve.cu", "K2Params": "solve_kernel.cu",
+           "K6Params": "rollout_batched.cu"}
 MIRRORS = {"C1Args": cw._C1Args, "C2Args": cw._C2Args,
-           "K3Params": sk._K3Params}
+           "K3Params": sk._K3Params, "K2Params": sk._K2Params,
+           "K6Params": sk._K6Params}
 _KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
          ctypes.c_float: "float", ctypes.c_double: "double"}
 _SIZE = {"pointer": 8, "int": 4, "float": 4, "double": 8}

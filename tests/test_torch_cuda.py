@@ -28,6 +28,7 @@ from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_ref, full_solve,
                                                full_solve_ref,
                                                k2_stage_split,
+                                               k6_stage_split,
                                                rollout_batched_plan,
                                                rollout_plan, solve_plan)
 from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp, update_qp
@@ -577,6 +578,32 @@ def test_k6_matches_plain_version(dev, system, B, precision):
     for a, b in zip(out[:2], ref[:2]):
         assert float((a - b).abs().max()) <= 1e-5
     assert not out[3][B:].any() and not out[3][:, m.D:].any()
+
+
+# K6's stage stamps change no output; block 0 takes one grid barrier per
+# check window, and its per-step stages add up to about its step.
+def test_k6_stamps_change_no_output(dev):
+    m, prob, X0, rng = _scenario("random", dev, "float32", 24)
+    T = 6
+    noise = 0.3 * rng.randn(T, 24, X0.shape[1])
+    args, kw = mpc._scenario_scan_call(m, prob, X0, T, ci=5,
+                                       Y0=torch.zeros_like(m.Y), noise=noise)
+    ref = full_rollout_batched(*args, **kw)
+    got = {}
+
+    def run():
+        got["out"] = full_rollout_batched(*args, **kw)
+
+    split = k6_stage_split(run, reps=2)
+    assert full_rollout_batched.stamps is None
+    for a, b in zip(ref, got["out"]):
+        assert torch.equal(a, b)
+    windows = float(ref[2][:, 0].sum()) / 5
+    assert split["steps"] == T and split["barriers_per_launch"] == windows
+    per_step = sum(v for k, v in split.items() if k in (
+        "refresh", "bias", "iteration", "exchange", "check", "reduced",
+        "plant", "x exchange"))
+    assert abs(per_step / split["step"] - 1.0) < 0.25
 
 
 def test_k6_plan_puts_every_tile_in_one_wave(dev):
