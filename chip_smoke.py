@@ -2227,14 +2227,17 @@ def phase_scenario_loop(card):
             "us": us, "out": out, "its": out[2]}
 
 
-def phase_scenario_scan(card, loop):
+def phase_scenario_scan(card, loop, parent=None):
     """The main path through K6: the phase-14 rollout through
     ``kernel="scan"`` (one segment, one K6 launch) and ``kernel="auto"``
     with ``check_interval="auto"`` (calibration + continuation, two K6
     launches), no other kernel; held against phase 14's loop rollout and
-    the CPU fp64 one."""
+    the CPU fp64 one. Then the scan segment's launch from a cold start
+    through ``k6_ab``: its chain steps, and its stage split beside the
+    parent's by turns, bit-equal to the parent's outputs."""
     import torch
-    from reluqp_tpu_torch.models.mpc import scenario_rollout_scan
+    from reluqp_tpu_torch.models.mpc import (_scenario_scan_call,
+                                             scenario_rollout_scan)
     prob = loop["prob"]
     X0, noise = scenario_inputs(SCEN_B, SCEN_T)
     total, res = 0, {}
@@ -2267,10 +2270,53 @@ def phase_scenario_scan(card, loop):
             f"rollout |dx|inf {dx:.2e} |du|inf {du:.2e}; launches {counts}")
         total += counts["K6"]
         res[kernel] = (m, out)
-    log(f"phase 16 OK on {card}: K6 launches {total}, no other kernel")
     m, out = res["scan"]
+    args, kw = _scenario_scan_call(m, prob, X0, SCEN_T,
+                                   Y0=torch.zeros_like(m.Y), noise=noise)
+    k6_ab(card, "phase 16", args, kw, parent)
+    log(f"phase 16 OK on {card}: K6 launches {total}, no other kernel")
     return {"launches": total, "m": m, "xs": out[0], "y_f": out[4],
             "rho_f": out[5]}
+
+
+def k6_ab(card, tag, args, kw, parent=None, reps=10, turns=2):
+    """K6 on one launch's arguments, this tree and (``parent``) the
+    parent's: the chain steps of each once-a-step product against the dense
+    chain (``full_rollout_batched.chain_steps``), the parent's outputs
+    bit-equal to this tree's, and each tree's stage split
+    (``k6_stage_split``, ``reps`` stamped replays) by turns. Returns the
+    chain steps and the splits by tree."""
+    import torch
+    from reluqp_tpu_torch.ops import solve_kernel as sk
+    out = sk.full_rollout_batched(*args, **kw)
+    chains = sk.full_rollout_batched.chain_steps
+    log(f"{tag} K6 chain steps, the longest tile's of the dense chain (over "
+        "every tile): " + "; ".join(
+            f"{k} {v['longest']}/{v['dense']} ({v['kept']}/{v['dense_sum']})"
+            for k, v in chains.items()))
+    trees = {"this tree": sk}
+    if parent:
+        psk = parent_module(parent, "ops.solve_kernel")
+        p_out = psk.full_rollout_batched(*args, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(out, p_out))
+        log(f"{tag} K6 outputs bit-equal to the parent's: {same}")
+        assert same, f"{tag}: K6 differs from the parent's"
+        trees["parent"] = psk
+    splits = {who: [] for who in trees}
+    for _ in range(turns):
+        for who, mod in trees.items():
+            fn = mod.full_rollout_batched
+            splits[who].append(mod.k6_stage_split(
+                lambda: fn(*args, **kw), reps))
+    keys = ("launch", "staged") + tuple(
+        k for k in sk.K6_STAGES if k != "staged") + ("step",)
+    for who, ss in splits.items():
+        log(f"{tag} K6 split, {who}, {ss[0]['steps']:.0f} steps, by turn "
+            "(launch and staged us per launch, the rest us per step): "
+            + "; ".join(f"{k} " + " / ".join(f"{s[k]:.3f}" for s in ss)
+                        for k in keys) + f"; on {card}")
+    return chains, splits
 
 
 def k4_bound_ms(W, B, d, steps):
@@ -2552,6 +2598,7 @@ def phase_k6_split(card, parent=None, reps=20):
         for who, fn in trees.items():
             times[who].append(
                 least_ms(lambda: fn(*args, **kw), K6_AB_REPS) * 1e3 / T)
+    k6_ab(card, "phase 32", args, kw, parent)
     log("phase 32 K6 per warm step, stamps off, us by turns (least of "
         f"{K6_AB_REPS} launches a turn): " + "; ".join(
             f"{who} " + ", ".join(f"{t:.3f}" for t in ts)
@@ -5546,7 +5593,7 @@ def main():
     k4_errs = by_phase(phase_k4_check)
     scen_loop = by_phase(phase_scenario_loop, card)
     k6_errs = by_phase(phase_k6_check)
-    scen_scan = by_phase(phase_scenario_scan, card, scen_loop)
+    scen_scan = by_phase(phase_scenario_scan, card, scen_loop, parent)
     scen = by_phase(phase_scenario_timing, card, scen_loop, scen_scan,
                     parent)
     phase_k6_split(card, parent)

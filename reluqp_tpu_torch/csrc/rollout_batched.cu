@@ -67,7 +67,11 @@
 //     as a chain of fp64 fused multiply-adds (each product of fp32 values is
 //     exact in fp64). In the iteration a lane then holds two neighbouring
 //     columns of a row and stores them 16 bytes at a time into the peers;
-//     the other products read their operands from L2, a few steps ahead.
+//     the other products read their operands from L2, a few steps ahead,
+//     and run each tile's chain only over the 8-input steps that hold its
+//     columns' nonzeros (K6Params' *_steps, made once with the operands):
+//     the residual operator's columns read a quarter of y or less, u's one
+//     entry, so a dense chain would mostly multiply zeros.
 //   * A row's residual maxima and the pieces of its rho estimate are
 //     combined across the cluster through distributed shared memory: each
 //     block stores its (pri, scale_p, dua, scale_d) per row into slot c of
@@ -118,6 +122,10 @@
 struct K6Params {
   const void *wt, *bias_c, *m_aff, *rhos, *m_res, *g0w, *gl, *lo0, *hi0, *s_u, *bdw, *y0,
       *x0, *pad, *noise;
+  // per column of gl, m_aff (the union over rungs), m_res, s_u and bdw: the
+  // int32 pair [lo, hi) of 8-input steps that holds its nonzeros (lo >= hi:
+  // none)
+  const void *gl_steps, *m_aff_steps, *m_res_steps, *s_u_steps, *bdw_steps;
   void *xs, *us, *stats, *y_f, *exch, *loads, *stamps;
   int w_dtype, y_dtype, n_rho, dp, nxp, ncp, nup, nplp, bp;
   int n_steps, max_iter, ci, rho0, adaptive, jump, stride, tier;
@@ -175,11 +183,51 @@ struct Layout {
   size_t rr, rmax, u, red, slab, total;
 };
 
+// Block `rank` of a cluster of C: its shares of the lane spaces (y columns
+// [c0, c0 + cw), constraint lanes cl, variable lanes vl, u columns uc,
+// plant columns xc) and the operand column that local column lc of each
+// once-a-step product reads. k6_kernel's products and k6_chain_steps' count
+// both take their columns from here.
+struct K6Cols {
+  int dp, nxp, ncp, nup, c0, cw;
+  Range cl, vl, uc, xc;
+  __host__ __device__ K6Cols(int dp_, int nxp_, int ncp_, int nup_, int nplp, int C, int cw_,
+                             int rank)
+      : dp(dp_), nxp(nxp_), ncp(ncp_), nup(nup_), c0(rank * cw_), cw(cw_),
+        cl(split(ncp_, C, rank)), vl(split(nxp_, C, rank)), uc(split(nup_, C, rank)),
+        xc(split(nplp, C, rank)) {}
+  // refresh, x @ GL: [g of the variable lanes | lo, hi shift of the y
+  // columns | Kx of the u columns | Ax of the plant columns]
+  __host__ __device__ int n_gl() const { return vl.n + cw + uc.n + xc.n; }
+  __host__ __device__ int gl(int lc) const {
+    const int ng = vl.n, ns = ng + cw, nk = ns + uc.n;
+    return lc < ng   ? vl.lo + lc
+           : lc < ns ? nxp + c0 + (lc - ng)
+           : lc < nk ? nxp + dp + uc.lo + (lc - ns)
+                     : nxp + dp + nup + xc.lo + (lc - nk);
+  }
+  // bias, x @ M_aff[k]: the y columns
+  __host__ __device__ int m_aff(int lc) const { return c0 + lc; }
+  // check, y @ M_res: [Ax | z] of the constraint lanes, [Hx | A'lam] of the
+  // variable lanes
+  __host__ __device__ int n_res() const { return 2 * cl.n + 2 * vl.n; }
+  __host__ __device__ int m_res(int lc) const {
+    return lc < cl.n          ? cl.lo + lc
+           : lc < 2 * cl.n    ? ncp + cl.lo + (lc - cl.n)
+           : lc < 2 * cl.n + vl.n ? 2 * ncp + vl.lo + (lc - 2 * cl.n)
+                                  : 2 * ncp + nxp + vl.lo + (lc - 2 * cl.n - vl.n);
+  }
+  // u, y @ S_u, and x+, u @ Bdw: the u and plant columns
+  __host__ __device__ int s_u(int lc) const { return uc.lo + lc; }
+  __host__ __device__ int bdw(int lc) const { return xc.lo + lc; }
+};
+
 template <typename T>
 struct Args {
   const void* wt;
   const T *bias_c, *m_aff, *m_res, *g0w, *gl, *lo0, *hi0, *s_u, *bdw, *y0, *x0, *noise;
   const float *rhos, *pad;
+  const int2 *gl_steps, *m_aff_steps, *m_res_steps, *s_u_steps, *bdw_steps;
   T *xs, *us, *y_f;
   float* stats;
   double* exch;
@@ -269,9 +317,15 @@ __device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4], const
 // tensor-core products, as in the iteration) and rounded to fp32. A warp
 // takes tiles of 16 rows and 8 columns; a lane's operand entries for the
 // next kAheadP steps are in flight before their use. No barrier inside.
+// A tile's chain runs only over the 8-input steps [lo, hi) that hold its
+// columns' nonzeros (steps[col]: the union over the tile's 8 columns): every
+// product outside it is an exact zero, and adding an exact zero leaves a
+// finite fp64 sum as it was (a sum that starts at +0 never reaches -0), so
+// the outputs are the dense chain's bit for bit where the rows are finite.
+// A tile whose columns are all zero emits 0.
 template <typename VT, typename MT, typename Rows, typename Col, typename Emit>
 __device__ void piece_product(const Rows& rows, int nr, const MT* m, int ld, int k, int n,
-                              Col&& col, Emit&& emit) {
+                              const int2* steps, Col&& col, Emit&& emit) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int nt = ceil_div(n, 8), ntiles = ceil_div(nr, 16) * nt;
@@ -280,22 +334,32 @@ __device__ void piece_product(const Rows& rows, int nr, const MT* m, int ld, int
     // the lane's column of m (B's column g; a column past n reads column
     // c0, and its outputs are not emitted) and rows (A's rows g, g + 8; a
     // row past nr reads as 0)
-    const MT* mc = m + col(c0 + g < n ? c0 + g : c0);
+    const int cm = col(c0 + g < n ? c0 + g : c0);
+    const MT* mc = m + cm;
     const int ra = r0 + g, rb8 = r0 + g + 8;
     const bool ina = ra < nr, inb = rb8 < nr;
+    // the tile's steps: the union of its columns' (warp-uniform)
+    const int2 sc = __ldg(steps + cm);
+    int lo = sc.x < sc.y ? sc.x : k / 8, hi = sc.x < sc.y ? sc.y : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    const int kend = 8 * hi;
     double c[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int k0 = 0; k0 < k; k0 += 8 * kAheadP) {
+    for (int k0 = 8 * lo; k0 < kend; k0 += 8 * kAheadP) {
       double bv[kAheadP][2];
 #pragma unroll
       for (int u = 0; u < kAheadP; ++u)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int kk = k0 + 8 * u + t + 4 * h;
-          bv[u][h] = kk < k ? static_cast<double>(cvt<VT>(mc[(size_t)kk * ld])) : 0.0;
+          bv[u][h] = kk < kend ? static_cast<double>(cvt<VT>(mc[(size_t)kk * ld])) : 0.0;
         }
 #pragma unroll
       for (int u = 0; u < kAheadP; ++u) {
-        if (k0 + 8 * u < k) {
+        if (k0 + 8 * u < kend) {
           const int kk = k0 + 8 * u + t;
           const double av[4] = {ina ? static_cast<double>(*rows.at(ra, kk)) : 0.0,
                                 inb ? static_cast<double>(*rows.at(rb8, kk)) : 0.0,
@@ -541,13 +605,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
   const WT* wt = static_cast<const WT*>(a.wt);
   const RowMajor<T> xrows{xr, nplp};
 
-  // the block's shares of the lane spaces: y columns [c0, c0 + cw),
-  // constraint lanes, variable lanes, u columns, plant columns
-  const int c0 = rank * cw;
-  const Range cl = split(ncp, C, rank), vl = split(nxp, C, rank);
-  const Range uc = split(nup, C, rank), xc = split(nplp, C, rank);
+  // the block's shares of the lane spaces and its products' columns
+  const K6Cols cols(dp, nxp, ncp, nup, nplp, C, cw, rank);
+  const int c0 = cols.c0;
+  const Range cl = cols.cl, vl = cols.vl, uc = cols.uc, xc = cols.xc;
   const int nvl_max = ceil_div(nxp, C), nuw = ceil_div(nup, C), nxw = ceil_div(nplp, C);
-  const int nres = 2 * cl.n + 2 * vl.n;
+  const int nres = cols.n_res();
   const int nres_ld = 2 * ceil_div(ncp, C) + 2 * nvl_max;
 
   // block 0's last stage boundary and grid barriers (stamps only)
@@ -576,14 +639,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
 
   for (int t = 0; t < a.n_steps; ++t) {
     // 1. refresh: the block's columns of x @ GL
-    const int ng_ = vl.n, ns_ = ng_ + cw, nk_ = ns_ + uc.n, na_ = nk_ + xc.n;
-    piece_product<T>(xrows, nr, a.gl, R2, nplp, na_,
-                  [&](int lc) {
-                    return lc < ng_   ? vl.lo + lc
-                           : lc < ns_ ? nxp + c0 + (lc - ng_)
-                           : lc < nk_ ? nxp + dp + uc.lo + (lc - ns_)
-                                      : nxp + dp + nup + xc.lo + (lc - nk_);
-                  },
+    const int ng_ = vl.n, ns_ = ng_ + cw, nk_ = ns_ + uc.n;
+    piece_product<T>(xrows, nr, a.gl, R2, nplp, cols.n_gl(), a.gl_steps,
+                  [&](int lc) { return cols.gl(lc); },
                   [&](int r, int lc, float p) {
                     const T v = static_cast<T>(p);
                     if (lc < ng_) {
@@ -625,7 +683,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
       }
       const T* bc = a.bias_c + (size_t)k_idx * dp + c0;
       piece_product<T>(xrows, nr, a.m_aff + (size_t)k_idx * nplp * dp, dp, nplp, cw,
-                    [&](int lc) { return c0 + lc; },
+                    a.m_aff_steps,
+                    [&](int lc) { return cols.m_aff(lc); },
                     [&](int r, int lc, float p) { b[r * cw + lc] = bc[lc] + static_cast<T>(p); });
       __syncthreads();
       lap<STAMPS>(a.stamps, mark, K3S_BIAS);
@@ -641,14 +700,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
 
       // the residual products of the block's lanes: [Ax | z] of its
       // constraint lanes, [Hx | A'lam] of its variable lanes
-      piece_product<double>(Chunked{cur, a.p.rb}, nr, a.m_res, R, dp, nres,
-                    [&](int lc) {
-                      return lc < cl.n       ? cl.lo + lc
-                             : lc < 2 * cl.n ? ncp + cl.lo + (lc - cl.n)
-                             : lc < 2 * cl.n + vl.n
-                                 ? 2 * ncp + vl.lo + (lc - 2 * cl.n)
-                                 : 2 * ncp + nxp + vl.lo + (lc - 2 * cl.n - vl.n);
-                    },
+      piece_product<double>(Chunked{cur, a.p.rb}, nr, a.m_res, R, dp, nres, a.m_res_steps,
+                    [&](int lc) { return cols.m_res(lc); },
                     [&](int r, int lc, float p) { rr[r * nres_ld + lc] = p; });
       __syncthreads();
       // the rows' maxima over the block's lanes (warp w, rows w, w + nwarps,
@@ -806,8 +859,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
     // 3. the block's columns of u = y @ S_u - Kx, pushed into every block
     // of the cluster; then of x+ = Ax + u @ Bdw + noise, likewise
     const size_t row0 = (size_t)t * bp + r0;
-    piece_product<double>(Chunked{cur, a.p.rb}, nr, a.s_u, nup, dp, uc.n,
-                          [&](int lc) { return uc.lo + lc; },
+    piece_product<double>(Chunked{cur, a.p.rb}, nr, a.s_u, nup, dp, uc.n, a.s_u_steps,
+                          [&](int lc) { return cols.s_u(lc); },
                   [&](int r, int lc, float p) {
                     const int j = uc.lo + lc;
                     const T u = static_cast<T>(p) - kxp[r * nuw + lc];
@@ -815,8 +868,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) k6_kernel(const Args<T> a) {
                     a.us[(row0 + r) * nup + j] = u;
                   });
     cluster.sync();
-    piece_product<T>(RowMajor<T>{ur, nup}, nr, a.bdw, nplp, nup, xc.n,
-                     [&](int lc) { return xc.lo + lc; },
+    piece_product<T>(RowMajor<T>{ur, nup}, nr, a.bdw, nplp, nup, xc.n, a.bdw_steps,
+                     [&](int lc) { return cols.bdw(lc); },
                   [&](int r, int lc, float p) {
                     const int j = xc.lo + lc;
                     const T xn = (axp[r * nxw + lc] + static_cast<T>(p)) +
@@ -1003,6 +1056,11 @@ cudaError_t launch(const K6Params& p, cudaStream_t stream) {
   a.y0 = static_cast<const T*>(p.y0);
   a.x0 = static_cast<const T*>(p.x0);
   a.noise = static_cast<const T*>(p.noise);
+  a.gl_steps = static_cast<const int2*>(p.gl_steps);
+  a.m_aff_steps = static_cast<const int2*>(p.m_aff_steps);
+  a.m_res_steps = static_cast<const int2*>(p.m_res_steps);
+  a.s_u_steps = static_cast<const int2*>(p.s_u_steps);
+  a.bdw_steps = static_cast<const int2*>(p.bdw_steps);
   a.rhos = static_cast<const float*>(p.rhos);
   a.pad = static_cast<const float*>(p.pad);
   a.xs = static_cast<T*>(p.xs);
@@ -1049,6 +1107,29 @@ cudaError_t dispatch(int y_dtype, int w_dtype, F&& f) {
   return cudaErrorInvalidValue;
 }
 
+// Adds one block's chains of a product (n columns col(lc) over k inputs, on
+// row_tiles tiles of 16 rows) to o = {longest, dense, kept, dense summed}:
+// piece_product's tiles of 8 columns (a column past n reads column c0's
+// steps), each running the union of its columns' [lo, hi) steps `st`.
+template <typename Col>
+void count_chains(const int* st, int n, int k, Col col, int row_tiles, long long* o) {
+  o[1] = k / 8;
+  for (int c0 = 0; c0 < n; c0 += 8) {
+    int lo = k / 8, hi = 0;
+    for (int g = 0; g < 8; ++g) {
+      const int cm = col(c0 + g < n ? c0 + g : c0);
+      if (st[2 * cm] < st[2 * cm + 1]) {
+        lo = std::min(lo, st[2 * cm]);
+        hi = std::max(hi, st[2 * cm + 1]);
+      }
+    }
+    const long long kept = hi > lo ? hi - lo : 0;
+    o[0] = std::max(o[0], kept);
+    o[2] += kept * row_tiles;
+    o[3] += (long long)(k / 8) * row_tiles;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1078,6 +1159,40 @@ int k6_plan(int bp, int dp, int nxp, int ncp, int nup, int nplp, int y_dtype, in
   const int v[9] = {q.nblocks, q.threads, q.cluster, q.cw, q.rb,
                      q.tiles, q.smem, q.w_smem, q.max_clusters};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The chain steps of each once-a-step product in the launch
+// k6_full_rollout_batched makes at this shape, given the [lo, hi) steps of
+// each operand column (host int32 pairs; steps[0..4]: gl, m_aff, m_res,
+// s_u, bdw): out[4 i .. 4 i + 3] for product i (refresh, bias, check, u, x)
+// = the longest tile's chain, the dense chain, and the chains summed over
+// every 16x8 tile of the launch, kept and dense. Counted over the kernel's
+// own plan, column maps (K6Cols) and tiles.
+int k6_chain_steps(int bp, int dp, int nxp, int ncp, int nup, int nplp, int y_dtype,
+                   int w_dtype, const int* const* steps, long long* out) {
+  Plan q;
+  const cudaError_t e = dispatch(y_dtype, w_dtype, [&](auto t, auto w) {
+    return cached_plan<decltype(t), decltype(w)>(bp, dp, nxp, ncp, nup, nplp, &q);
+  });
+  if (e != cudaSuccess) return (int)e;
+  for (int i = 0; i < 20; ++i) out[i] = 0;
+  for (int tile = 0; tile < q.tiles; ++tile) {
+    const int row_tiles = ceil_div(std::min(q.rb, bp - tile * q.rb), 16);
+    for (int rank = 0; rank < q.cluster; ++rank) {
+      const K6Cols c(dp, nxp, ncp, nup, nplp, q.cluster, q.cw, rank);
+      count_chains(steps[0], c.n_gl(), nplp, [&](int lc) { return c.gl(lc); }, row_tiles,
+                   out);
+      count_chains(steps[1], c.cw, nplp, [&](int lc) { return c.m_aff(lc); }, row_tiles,
+                   out + 4);
+      count_chains(steps[2], c.n_res(), dp, [&](int lc) { return c.m_res(lc); }, row_tiles,
+                   out + 8);
+      count_chains(steps[3], c.uc.n, dp, [&](int lc) { return c.s_u(lc); }, row_tiles,
+                   out + 12);
+      count_chains(steps[4], c.xc.n, nup, [&](int lc) { return c.bdw(lc); }, row_tiles,
+                   out + 16);
+    }
+  }
   return 0;
 }
 

@@ -109,7 +109,7 @@ struct Range {
   int lo, n;
 };
 
-__device__ __forceinline__ Range split(int total, int nblocks, int b) {
+__host__ __device__ __forceinline__ Range split(int total, int nblocks, int b) {
   const int lo = (int)((long long)b * total / nblocks);
   const int hi = (int)((long long)(b + 1) * total / nblocks);
   return Range{lo, hi - lo};

@@ -22,7 +22,9 @@ kernel K2.
 - ``full_rollout_batched``: K2 for a B-plant scenario ensemble, T steps in
   ONE launch of the hand-written CUDA kernel ``csrc/rollout_batched.cu``
   (K6) for CUDA tensors, or of ``full_rollout_batched_ref`` for CPU
-  tensors.
+  tensors. ``k6_steps`` gives K6, per column of each operand its
+  once-a-step products read, the 8-input steps that hold the column's
+  nonzeros; each product's chain runs over those steps only.
 
 A CUDA tensor never reaches a plain version: the kernel runs or the call
 raises. ``full_solve.launches``, ``full_rollout.launches`` and
@@ -46,10 +48,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core.iteration import rho_update_stride
 from .check_window import (_RUNNING, _TINY, STATUS_DUAL_INFEASIBLE,
@@ -64,7 +68,8 @@ __all__ = ["AlphaOperand", "InfeasOperand", "FullSolveOperand",
            "solve_plan", "k3_stage_split", "K3_STAGES", "full_rollout",
            "full_rollout_ref", "rollout_plan", "k2_stage_split", "K2_STAGES",
            "full_rollout_batched", "full_rollout_batched_ref",
-           "rollout_batched_plan", "k6_stage_split", "K6_STAGES"]
+           "rollout_batched_plan", "k6_stage_split", "K6_STAGES",
+           "K6Steps", "nonzero_steps", "k6_steps"]
 
 # Iteration tiers of the rollout: "bf16" one bf16 pass, "high" the bf16x3
 # split, anything else (including "default") full precision — as the TPU
@@ -1357,7 +1362,8 @@ class _K6Params(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "wt", "bias_c", "m_aff", "rhos", "m_res", "g0w", "gl", "lo0", "hi0",
-        "s_u", "bdw", "y0", "x0", "pad", "noise", "xs", "us", "stats", "y_f",
+        "s_u", "bdw", "y0", "x0", "pad", "noise", "gl_steps", "m_aff_steps",
+        "m_res_steps", "s_u_steps", "bdw_steps", "xs", "us", "stats", "y_f",
         "exch", "loads", "stamps")]
         + [(n, ctypes.c_int) for n in (
             "w_dtype", "y_dtype", "n_rho", "dp", "nxp", "ncp", "nup", "nplp",
@@ -1383,6 +1389,9 @@ def _k6_lib():
         lib.k6_full_rollout_batched.restype = i
         lib.k6_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)]
         lib.k6_plan.restype = i
+        lib.k6_chain_steps.argtypes = [i] * 8 + [ctypes.c_void_p,
+                                                 ctypes.c_void_p]
+        lib.k6_chain_steps.restype = i
         lib.k6_stamp_now.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.k6_stamp_now.restype = i
         lib.k6_error_string.argtypes = [i]
@@ -1394,6 +1403,98 @@ def _k6_lib():
 def _k6_raise(lib, code: int, what: str):
     msg = lib.k6_error_string(code).decode()
     raise RuntimeError(f"K6 {what} failed: CUDA error {code} ({msg})")
+
+
+# the operands of K6's once-a-step products, by K6Steps field (the order of
+# k6_chain_steps' arguments): the name of the wrapper's argument, and the
+# stage whose product reads it
+_K6_STEP_OPERANDS = {"gl": ("gl_op", "refresh"), "m_aff": ("M_aff", "bias"),
+                     "m_res": ("M_res", "check"), "s_u": ("S_u", "u"),
+                     "bdw": ("Bdw", "x")}
+# the fields of each product's k6_chain_steps count, in its order
+_K6_CHAIN_KEYS = ("longest", "dense", "kept", "dense_sum")
+
+
+def nonzero_steps(M: torch.Tensor) -> torch.Tensor:
+    """Per column of ``M`` (..., k, n), the tightest 8-input steps ``[lo,
+    hi)`` that hold every nonzero of the column (a NaN counts), over every
+    leading index; ``(0, 0)`` for a column of zeros. Returns an int32 (n,
+    2) tensor on ``M``'s device."""
+    k = M.shape[-2]
+    nz = (M != 0).reshape(-1, k, M.shape[-1]).any(0)
+    step = (torch.arange(k, device=M.device) // 8)[:, None]
+    lo = torch.where(nz, step, k).amin(0)
+    hi = torch.where(nz, step + 1, 0).amax(0)
+    lo = torch.where(hi > 0, lo, 0)
+    return torch.stack([lo, hi], 1).to(torch.int32).contiguous()
+
+
+class K6Steps(NamedTuple):
+    """``nonzero_steps`` of each operand K6's once-a-step products read
+    (``M_aff``'s over every rung): int32 (n, 2) tensors on the operands'
+    device, ``host`` the same pairs as numpy arrays by field name, and
+    ``chains`` the memo of ``k6_chain_steps`` by launch shape."""
+    gl: torch.Tensor
+    m_aff: torch.Tensor
+    m_res: torch.Tensor
+    s_u: torch.Tensor
+    bdw: torch.Tensor
+    host: dict
+    chains: dict
+
+
+def k6_steps(gl_op, M_aff, M_res, S_u, Bdw) -> K6Steps:
+    """The ``K6Steps`` of these operands (one read of the steps to the
+    host)."""
+    ops = dict(gl_op=gl_op, M_aff=M_aff, M_res=M_res, S_u=S_u, Bdw=Bdw)
+    dev = {field: nonzero_steps(ops[name])
+           for field, (name, _) in _K6_STEP_OPERANDS.items()}
+    return K6Steps(**dev, host={f: v.cpu().numpy() for f, v in dev.items()},
+                   chains={})
+
+
+# K6Steps by the M_res they were made for, with weak references to the other
+# operands and every operand's version
+_K6_MADE = WeakIdKeyDictionary()
+
+
+def _made_steps(ops: dict) -> K6Steps:
+    """The ``k6_steps`` of these operand tensors: made on the first launch
+    on them and kept while M_res lives, made anew once an operand is
+    another tensor or was changed in place."""
+    names = [name for name, _ in _K6_STEP_OPERANDS.values()]
+    versions = tuple(ops[n]._version for n in names)
+    made = _K6_MADE.get(ops["M_res"])
+    if made is not None:
+        refs, was, steps = made
+        if was == versions and all(r() is ops[n]
+                                   for r, n in zip(refs, names)):
+            return steps
+    steps = k6_steps(*(ops[n] for n in names))
+    _K6_MADE[ops["M_res"]] = (tuple(weakref.ref(ops[n]) for n in names),
+                              versions, steps)
+    return steps
+
+
+def _k6_chains(lib, steps: K6Steps, bp, dp, nxp, ncp, nup, nplp, y_dtype,
+               w_dtype) -> dict:
+    """``k6_chain_steps`` of a launch at this shape on ``steps``, by stage
+    (memoised in ``steps.chains``)."""
+    shape = (torch.cuda.current_device(), bp, dp, nxp, ncp, nup, nplp,
+             y_dtype, w_dtype)
+    if shape not in steps.chains:
+        host = [np.ascontiguousarray(steps.host[f], dtype=np.int32)
+                for f in _K6_STEP_OPERANDS]
+        ptrs = (ctypes.c_void_p * len(host))(*(h.ctypes.data for h in host))
+        out = (ctypes.c_longlong * (4 * len(host)))()
+        rc = lib.k6_chain_steps(bp, dp, nxp, ncp, nup, nplp, y_dtype,
+                                w_dtype, ptrs, out)
+        if rc != 0:
+            _k6_raise(lib, rc, "chain count")
+        steps.chains[shape] = {
+            stage: dict(zip(_K6_CHAIN_KEYS, out[4 * i:4 * i + 4]))
+            for i, (_, stage) in enumerate(_K6_STEP_OPERANDS.values())}
+    return steps.chains[shape]
 
 
 # the fields of k6_plan's report, in its order
@@ -1467,8 +1568,8 @@ def _check_batched_operands(ops: dict, *, nxp, ncp, nup, nplp, n_steps):
     return n_rho, dp, bp
 
 
-def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
-                               ncp, nup, nplp, n_steps, max_iter,
+def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc,
+                               nxp, ncp, nup, nplp, n_steps, max_iter,
                                check_interval, adaptive_rho,
                                adaptive_rho_tolerance, eps_abs, rho_min,
                                rho_max, rho_jump, adaptive_rho_interval,
@@ -1483,6 +1584,7 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
             raise ValueError(f"K6: {name} must be a tensor on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"K6: {name} must be contiguous")
+    steps = _made_steps(ops)
     xs = torch.empty((n_steps, bp, nplp), dtype=dt, device=dev)
     us = torch.empty((n_steps, bp, nup), dtype=dt, device=dev)
     stats = torch.empty((n_steps, 8), dtype=f32, device=dev)
@@ -1500,7 +1602,10 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
         rhos=ptr("rhos"), m_res=ptr("M_res"), g0w=ptr("g0w"),
         gl=ptr("gl_op"), lo0=ptr("lo0"), hi0=ptr("hi0"), s_u=ptr("S_u"),
         bdw=ptr("Bdw"), y0=ptr("Y0"), x0=ptr("X0"), pad=ptr("pad_mask"),
-        noise=ptr("noise"), xs=xs.data_ptr(), us=us.data_ptr(),
+        noise=ptr("noise"), gl_steps=steps.gl.data_ptr(),
+        m_aff_steps=steps.m_aff.data_ptr(),
+        m_res_steps=steps.m_res.data_ptr(), s_u_steps=steps.s_u.data_ptr(),
+        bdw_steps=steps.bdw.data_ptr(), xs=xs.data_ptr(), us=us.data_ptr(),
         stats=stats.data_ptr(), y_f=y_f.data_ptr(), exch=exch.data_ptr(),
         loads=loads.data_ptr(),
         stamps=None if full_rollout_batched.stamps is None
@@ -1518,6 +1623,8 @@ def _full_rollout_batched_cuda(ops, rho_ind0, *, n_rho, dp, bp, nx, nc, nxp,
         _k6_raise(lib, rc, "launch")
     full_rollout_batched.launches += 1
     full_rollout_batched.slab_loads = loads
+    full_rollout_batched.chain_steps = _k6_chains(
+        lib, steps, bp, dp, nxp, ncp, nup, nplp, p.y_dtype, p.w_dtype)
     return xs, us, stats, y_f
 
 
@@ -1539,7 +1646,10 @@ def full_rollout_batched(Wt_bank, bias_c, M_aff, rhos, M_res, g0w, gl_op,
     nplp), and the start rung ``rho_ind0`` (an int). Returns ``(xs (T, Bp,
     nplp), us (T, Bp, nup), stats (T, 8), Y_f (Bp, Dp))``, see
     ``full_rollout_batched_ref``. CUDA tensors launch the CUDA kernel K6
-    (or raise); CPU tensors run ``full_rollout_batched_ref``.
+    (or raise); CPU tensors run ``full_rollout_batched_ref``. K6 runs each
+    once-a-step product's chain over the ``k6_steps`` of these operands
+    (made on the first launch on these tensors), with the same bits as
+    over every input where the states are finite.
     """
     with span("rollout.launch"):
         if max_iter % check_interval != 0:
@@ -1578,6 +1688,10 @@ full_rollout_batched.launches = 0
 # the last launch's count of rung slab loads by the kernel's first block
 # (a device int32 tensor: 0 where the slab is read from L2)
 full_rollout_batched.slab_loads = None
+# the last launch's chain steps of each once-a-step product against the
+# dense chain (``k6_chain_steps`` in csrc/rollout_batched.cu: by stage, the
+# longest tile's and the sums over tiles), memoised in its K6Steps
+full_rollout_batched.chain_steps = None
 # an int64 (_K2_SLOTS,) tensor on the card, or None: the kernel's stage
 # stamps (``k6_stage_split``); None on every rollout path
 full_rollout_batched.stamps = None

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import reluqp_tpu_torch as rqt
+import reluqp_tpu_torch.ops.solve_kernel as TSK
 from reluqp_tpu_torch.models import mpc
 from reluqp_tpu_torch.ops.fused_step import (fused_chunk,
                                              fused_chunk_batched,
@@ -28,7 +29,7 @@ from reluqp_tpu_torch.ops.solve_kernel import (full_rollout,
                                                full_rollout_ref, full_solve,
                                                full_solve_ref,
                                                k2_stage_split,
-                                               k6_stage_split,
+                                               k6_stage_split, k6_steps,
                                                rollout_batched_plan,
                                                rollout_plan, solve_plan)
 from reluqp_tpu_torch.utils.problems import canonical_qp, rand_qp, update_qp
@@ -535,6 +536,11 @@ def _scenario(system, device, precision, B):
     if system == "double_integrator":
         Ad, Bd = mpc.double_integrator(dt=0.1)
         Q, R, N = np.diag([10.0, 1.0]), np.array([[0.1]]), 8
+    elif system == "random100":
+        # the scenario cell's plant: Dp = 640
+        Ad, Bd = mpc.random_linear_system(100, 20, seed=0,
+                                          spectral_radius=0.99)
+        Q, R, N = np.eye(100), 0.1 * np.eye(20), 10
     else:
         Ad, Bd = mpc.random_linear_system(20, 4, seed=0, spectral_radius=0.99)
         Q, R, N = np.eye(20), 0.1 * np.eye(4), 10
@@ -604,6 +610,97 @@ def test_k6_stamps_change_no_output(dev):
         "refresh", "bias", "iteration", "exchange", "check", "reduced",
         "plant", "x exchange"))
     assert abs(per_step / split["step"] - 1.0) < 0.25
+
+
+def _dense_steps(args):
+    """K6Steps that give every column of ``_scenario_scan_call``'s operands
+    all its inputs: the dense chains."""
+    return k6_steps(*(torch.ones_like(args[i]) for i in (6, 2, 4, 9, 10)))
+
+
+# K6 runs each once-a-step product's chain over the steps that hold its
+# columns' nonzeros (k6_steps): the same bits as over every input, with the
+# rung's slab in shared memory (B=24, Dp=128) and from L2 (B=256, Dp=640).
+# A plant state of NaN changes only the products' padding lanes (NaN over
+# every input, 0 over none) of its own row.
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+@pytest.mark.parametrize("system,B,in_smem", [("random", 24, True),
+                                              ("random100", 256, False)])
+def test_k6_steps_match_full_steps(dev, monkeypatch, system, B, in_smem,
+                                   precision):
+    m, prob, X0, rng = _scenario(system, dev, precision, B)
+    T = 6
+    noise = 0.3 * rng.randn(T, B, X0.shape[1])
+    X1 = X0.copy()
+    X1[1, 0] = np.nan
+    runs = []
+    for X in (X0, X1):
+        args, kw = mpc._scenario_scan_call(m, prob, X, T, ci=5,
+                                           Y0=torch.zeros_like(m.Y),
+                                           noise=noise)
+        built = full_rollout_batched(*args, **kw)
+        chains = full_rollout_batched.chain_steps
+        with monkeypatch.context() as mp:
+            mp.setattr(TSK, "_made_steps", lambda ops: _dense_steps(args))
+            full = full_rollout_batched(*args, **kw)
+            full_chains = full_rollout_batched.chain_steps
+        runs.append((built, full))
+    Yk = args[11]
+    plan = rollout_batched_plan(Yk.shape[0], Yk.shape[1], kw["nxp"],
+                                kw["ncp"], kw["nup"], kw["nplp"], Yk.dtype)
+    assert plan["slab_in_smem"] == in_smem, plan
+    built, full = runs[0]
+    for a, b in zip(built, full):
+        assert torch.equal(a, b)
+    dp = Yk.shape[1]
+    for v in full_chains.values():
+        assert v["longest"] == v["dense"] and v["kept"] == v["dense_sum"]
+    assert chains["check"]["dense"] == dp // 8
+    assert 0 < chains["check"]["longest"] < dp // 8
+    # u = y @ S_u: one diagonal entry a column
+    assert chains["u"]["longest"] == 1
+    # one plant state NaN: the same stats, the other rows' outputs, and the
+    # row's real lanes of x and u
+    built, full = runs[1]
+    assert int(full[2][:, 6].max()) >= 1
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(built[2], full[2], **exact)
+    rows = [r for r in range(B) if r != 1]
+    assert torch.equal(built[3][rows], full[3][rows])
+    for a, b, n in zip(built[:2], full[:2], (X0.shape[1], prob.K.shape[0])):
+        assert torch.equal(a[:, rows], b[:, rows])
+        torch.testing.assert_close(a[:, 1, :n], b[:, 1, :n], **exact)
+
+
+def test_k6_chain_counter_at_the_scenario_cell_shape(dev, monkeypatch):
+    """``full_rollout_batched.chain_steps`` at the scenario cell's shape
+    (100 states, 20 inputs, horizon 10, B=64, fp32: Dp 640, nxp = ncp =
+    256, nup = nplp = 128; 16-block clusters of 40 columns, 10 rows a
+    tile): the residual products' longest tile runs 25 of 80 steps, u 1 of
+    80, x+ 3 of 16, the bias and the refresh 13 of 16; operands with no
+    zero keep every chain whole."""
+    m, prob, X0, _ = _scenario("random100", dev, "float32", 64)
+    args, kw = mpc._scenario_scan_call(m, prob, X0, 2, ci=5,
+                                       Y0=torch.zeros_like(m.Y))
+    Yk = args[11]
+    dims = (Yk.shape[1], kw["nxp"], kw["ncp"], kw["nup"], kw["nplp"])
+    assert dims == (640, 256, 256, 128, 128)
+    plan = rollout_batched_plan(64, *dims, Yk.dtype)
+    assert (plan["cluster"], plan["column_width"],
+            plan["rows_per_tile"]) == (16, 40, 10), plan
+    full_rollout_batched(*args, **kw)
+    chains = full_rollout_batched.chain_steps
+    got = {k: (v["longest"], v["dense"]) for k, v in chains.items()}
+    assert got == {"refresh": (13, 16), "bias": (13, 16), "check": (25, 80),
+                   "u": (1, 80), "x": (3, 16)}
+    # 7 row tiles (64 rows in tiles of 10) of one 16-row tile each, 16
+    # blocks of 8 column tiles
+    assert chains["check"]["dense_sum"] == 7 * 16 * 8 * 80
+    assert chains["check"]["kept"] < chains["check"]["dense_sum"] / 3
+    monkeypatch.setattr(TSK, "_made_steps", lambda ops: _dense_steps(args))
+    full_rollout_batched(*args, **kw)
+    for v in full_rollout_batched.chain_steps.values():
+        assert v["longest"] == v["dense"] and v["kept"] == v["dense_sum"]
 
 
 def test_k6_plan_puts_every_tile_in_one_wave(dev):

@@ -23,6 +23,8 @@ to rest makes a ρ estimate of rounding noise, and there that difference
 can move the rung (and later a step by a window); so the runs here keep
 their plants away from rest: short, or under process noise.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +38,7 @@ from reluqp_tpu.batch import BatchedReLU_QP as JB
 import reluqp_tpu_torch as T
 import reluqp_tpu_torch.models.mpc as TM
 import reluqp_tpu_torch.ops.solve_kernel as TSK
+from reluqp_tpu_torch.ops.fused_step import pad_dim
 
 ATOL = 1e-9   # fp64, summation order only
 
@@ -426,6 +429,123 @@ def test_loop_segment_operands_are_cached():
     np.testing.assert_array_equal(first[2].numpy(), again[2].numpy())
     np.testing.assert_allclose(_np(first[0]), _np(again[0]), rtol=0,
                                atol=1e-12)
+
+
+def _launch_steps(args):
+    """The K6Steps a K6 launch on ``_scenario_scan_call``'s args takes."""
+    return TSK._made_steps(dict(gl_op=args[6], M_aff=args[2], M_res=args[4],
+                                S_u=args[9], Bdw=args[10]))
+
+
+@pytest.mark.parametrize("change", [None, "in_place", "other_tensor"])
+def test_scan_segment_steps_are_cached(change):
+    """K6's column steps are made once for the scan path's cached
+    operands: two ``_scenario_scan_call``s hand the launch the same
+    operand tensors, which find the same steps (no new build per request);
+    an operand changed in place, or another tensor, gets steps of its
+    own."""
+    B = 3
+    _, _, t, tp = _pair(B)
+    calls = [TM._scenario_scan_call(t, tp, _x0(B), 2, ci=25)
+             for _ in range(2)]
+    steps = _launch_steps(calls[0][0])
+    args = calls[1][0]
+    for i in (2, 4, 6, 9, 10):
+        assert args[i] is calls[0][0][i]
+    if change == "in_place":
+        args[10].add_(0.0)
+    elif change == "other_tensor":
+        args = list(args)
+        args[10] = args[10].clone()
+    again = _launch_steps(args)
+    if change is None:
+        assert again is steps
+    else:
+        assert again is not steps and again.bdw is not steps.bdw
+        assert all(torch.equal(getattr(again, f), getattr(steps, f))
+                   for f in ("gl", "m_aff", "m_res", "s_u", "bdw"))
+        assert _launch_steps(args) is again
+
+
+def _steps_operands(case):
+    """Operands of ``nonzero_steps``' cases, by name: (..., k, n) fp64."""
+    rng = np.random.RandomState(11)
+    if case == "dense":
+        return {"dense": rng.randn(40, 24)}
+    if case == "block_sparse":
+        # 8x8 blocks on at random, over 3 rungs (their union counts), and
+        # single entries off the block grid
+        on = rng.rand(3, 8, 5) < 0.25
+        M = rng.randn(3, 64, 40) * np.kron(on, np.ones((8, 8)))
+        M[1, 13, 7] = 0.5
+        M[2, 62, 39] = -2.0
+        return {"block_sparse": M}
+    if case == "zero_column":
+        M = rng.randn(32, 20)
+        M[:, [0, 3, 17]] = 0.0
+        M[:9, 5] = 0.0
+        return {"zero_column": M}
+    _, _, t, tp = _pair(3)
+    ops = TM._scenario_scan_operands(t, tp, pad_dim(t.D))
+    return {n: _np(ops[n]) for n in ("GL", "M_aff", "M_res", "S_u", "Bdw")}
+
+
+@pytest.mark.parametrize("case", ["dense", "block_sparse", "zero_column",
+                                  "mpc_operands"])
+def test_nonzero_steps_are_tight_and_keep_every_sum(case):
+    """``nonzero_steps``: per column, the tightest 8-aligned steps [lo, hi)
+    that hold every nonzero (over every rung), (0, 0) for a zero column;
+    and an in-order fp64 sum over a column's steps, or over the union of
+    an 8-column tile's, equals the in-order sum over every input bit for
+    bit. The scan path's own operands: S_u's column j < nu holds step
+    j // 8 alone (together [0, ceil(nu / 8))), its columns past nu none."""
+    rng = np.random.RandomState(12)
+    mats = _steps_operands(case)
+    for name, M in mats.items():
+        steps = TSK.nonzero_steps(torch.as_tensor(M)).numpy()
+        k, n = M.shape[-2:]
+        nz = (M != 0).reshape(-1, k, n).any(0)
+        assert steps.shape == (n, 2) and steps.dtype == np.int32
+        for j in range(n):
+            rows = np.flatnonzero(nz[:, j])
+            want = (rows[0] // 8, rows[-1] // 8 + 1) if len(rows) else (0, 0)
+            assert tuple(steps[j]) == want, (name, j)
+        if case == "dense":
+            assert (steps == [0, k // 8]).all()
+        if case == "zero_column":
+            assert (steps[[0, 3, 17]] == 0).all() and steps[5, 0] == 1
+        for M2 in M.reshape(-1, k, n):
+            x = rng.randn(k) * np.exp(rng.randn(k))
+            for c0 in range(0, n, 8):
+                tile = [p for p in steps[c0:c0 + 8] if p[1] > p[0]]
+                lo = 8 * min(p[0] for p in tile) if tile else 0
+                hi = 8 * max(p[1] for p in tile) if tile else 0
+                for j in range(c0, min(c0 + 8, n)):
+                    full = kept = 0.0
+                    for i in range(k):
+                        full = full + float(x[i]) * float(M2[i, j])
+                    for i in range(lo, hi):
+                        kept = kept + float(x[i]) * float(M2[i, j])
+                    assert full == kept and \
+                        math.copysign(1, full) == math.copysign(1, kept), \
+                        (name, j)
+    if case == "mpc_operands":
+        _, _, t, tp = _pair(3)
+        ops = TM._scenario_scan_operands(t, tp, pad_dim(t.D))
+        steps = TSK.k6_steps(ops["GL"], ops["M_aff"], ops["M_res"],
+                             ops["S_u"], ops["Bdw"])
+        nu = tp.K.shape[0]
+        su = steps.s_u.numpy()
+        assert (su[:nu, 1] - su[:nu, 0] == 1).all()
+        assert su[:nu, 0].min() == 0 and su[:nu, 1].max() == -(-nu // 8)
+        assert (su[nu:] == 0).all()
+        for field, name in (("gl", "GL"), ("m_aff", "M_aff"),
+                            ("m_res", "M_res"), ("s_u", "S_u"),
+                            ("bdw", "Bdw")):
+            assert torch.equal(getattr(steps, field),
+                               TSK.nonzero_steps(ops[name]))
+            np.testing.assert_array_equal(steps.host[field],
+                                          getattr(steps, field))
 
 
 # --------------------------------------------------------------------- #
