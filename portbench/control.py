@@ -18,6 +18,11 @@ operands, at the configuration's tolerance and budget) at each judged
 state, and ``plant_control``, the plant step with TF32 operands from each
 kept state and control (the program's TF32 path leaves the plant step in
 float32). Prints one JSON line per seed.
+
+A kind from a file (``portbench/kinds/<kind>.py``, found as
+``portbench.run`` finds it) runs from the configuration as it stands; its
+line holds its judge's numbers, and with ``--control`` its ``Mix.control()``
+readings, or ``null`` where the kind has none.
 """
 from __future__ import annotations
 
@@ -97,6 +102,12 @@ def readings(mix, seed: int, seconds: float, control: bool = False) -> dict:
     mix.reset()
     w = run.window(mix, seconds)
     v = mix.judge()
+    if mix.traffic["kind"] not in mixes.KINDS:
+        out = dict(v, counts=mix.finish(), requests=len(w["durations"]))
+        if control:
+            own = getattr(mix, "control", None)
+            out["control_readings"] = own() if own else None
+        return out
     out = {"numbers": v["numbers"], "judged": v["judged"],
            "active": v["judged_active"],
            "u_gap_transient": v["u_gap_transient"],
@@ -122,8 +133,13 @@ def main(argv=None) -> int:
         return 2
     from reluqp_tpu_torch.ops.cuda_build import build_all
     build_all(traffic["kernels"])
-    mix = mixes.make(control_config(cfg) if args.control else cfg, traffic,
-                     "cuda:0")
+    own_kind = traffic["kind"] in mixes.KINDS
+    if args.control and not own_kind and not hasattr(
+            mixes.kind_class(traffic["kind"]), "control"):
+        print(f"portbench.control: kind {traffic['kind']!r} has no control "
+              "readings", file=sys.stderr)
+    mix = mixes.make(control_config(cfg) if args.control and own_kind
+                     else cfg, traffic, "cuda:0")
     mix.build()
     for seed in args.seeds:
         out = {"workload": args.workload, "seed": seed,

@@ -1,8 +1,9 @@
 """The general traffic generator and its request loops.
 
 A traffic mix is a JSON file under ``portbench/traffic/``; its ``kind``
-picks one of the classes below and the rest of the file gives its
-parameters. A mix is built once from a configuration (the problem the
+picks one of the classes below or, for any other name, the ``Mix`` class
+of ``portbench/kinds/<kind>.py`` (the contract every kind keeps is that
+package's docstring), and the rest of the file gives its parameters. A mix is built once from a configuration (the problem the
 program is set up on, which no run's seed changes), is handed a seed's
 inputs, then serves requests one at a time (a closed loop with one
 client) and, once the window has closed, hands the answers it kept to the
@@ -31,6 +32,9 @@ probability keep / (i + 1)).
 from __future__ import annotations
 
 import importlib
+import importlib.util
+import re
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -39,6 +43,7 @@ from .reference import judge
 from .reference import problems as P
 
 SOLVED = 1   # the program's status code for a certified solve
+KINDS_DIR = Path(__file__).resolve().parent / "kinds"
 
 
 def _settings(cfg: dict, device) -> dict:
@@ -259,5 +264,23 @@ class Scenario(Rollout):
 KINDS = {"rollout": Rollout, "scenario": Scenario}
 
 
+def kind_class(kind: str):
+    """The class of a traffic kind: ``KINDS``' own, else the ``Mix`` class
+    of ``KINDS_DIR/<kind>.py``, imported by its path as the module
+    ``portbench.kinds.<kind>`` (its relative imports reach the harness's
+    ``reference`` package)."""
+    if kind in KINDS:
+        return KINDS[kind]
+    path = KINDS_DIR / f"{kind}.py"
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", kind) or not path.is_file():
+        raise ValueError(f"traffic kind {kind!r} is neither one of "
+                         f"{sorted(KINDS)} nor a file {path}")
+    spec = importlib.util.spec_from_file_location(f"portbench.kinds.{kind}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.Mix
+
+
 def make(cfg: dict, traffic: dict, device):
-    return KINDS[traffic["kind"]](cfg, traffic, device)
+    return kind_class(traffic["kind"])(cfg, traffic, device)

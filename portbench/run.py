@@ -19,9 +19,23 @@ and prints one JSON line as the last line of its standard output. With
 ``--trace 1`` its per-layer metrics, read over a window traced by
 ``torch.profiler`` and sampled by ``nvidia-smi``.
 
+A cell on n > 1 cards runs one process a card. The process started as
+above is rank 0: it starts ranks 1 to n-1 as fresh processes of ``python3
+-m portbench.run`` (the same arguments and ``--rank``, ``--store``,
+``--device``, which only rank 0 passes), each with the environment
+``torchrun`` would give it, and prints the one result. The ranks agree
+over a gloo group of the harness's own, on the host: the warm-up goes on
+while any rank still captures, and rank 0's clock opens and closes the
+window before each request. Its counts are summed over the ranks
+(``requests`` is rank 0's), each compared number is the largest over the
+ranks, the memory peak is the fullest card's; a traced run profiles rank
+0's card and samples every card's utilisation.
+
 Without a CUDA device, or with fewer than the cell asks for, it prints no
 result and exits with 2; with JAX or the JAX package loaded after the
-window, it exits with 3.
+window, in any rank, it exits with 3. A rank that ends before its result
+is in, or that misses an agreement, ends the run with no result and a code
+other than 0; no rank outlives rank 0.
 """
 from __future__ import annotations
 
@@ -33,12 +47,21 @@ import argparse  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import signal  # noqa: E402
+import socket  # noqa: E402
+import subprocess  # noqa: E402
 import sys  # noqa: E402
+import threading  # noqa: E402
+from datetime import timedelta  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "reluqp_tpu")
+# how long a rank waits for the others at the rendezvous and at every
+# agreement before the run fails: under the 120 s in which a rank that
+# hangs must end the run
+TEAM_TIMEOUT = timedelta(seconds=100)
 
 
 def load_json(path: Path) -> dict:
@@ -86,27 +109,38 @@ def read_metric(name: str, rec: dict):
     return mod.read(rec)
 
 
-def warm(mix, n_min: int, n_max: int = 12) -> int:
+def forbidden_loaded() -> list:
+    """The forbidden top-level modules this process holds."""
+    return sorted({name.split(".")[0] for name in list(sys.modules)}
+                  & set(FORBIDDEN))
+
+
+def warm(mix, n_min: int, n_max: int = 12, team=None) -> int:
     """Serve requests until ``n_min`` have run and the last one captured
-    no CUDA graph and built no device program; returns the count."""
+    no CUDA graph and built no device program (on every rank of a
+    ``team``); returns the count."""
     n = 0
     while True:
         before = mix.captures()
         mix.request(n)
         n += 1
-        if n >= n_min and (mix.captures() == before or n >= n_max):
+        done = n >= n_min and (mix.captures() == before or n >= n_max)
+        if team is not None:
+            done = team.all(done)
+        if done:
             return n
 
 
-def window(mix, seconds: float) -> dict:
+def window(mix, seconds: float, team=None) -> dict:
     """The closed loop: requests back to back from the start until the
-    first one that ends at or after ``seconds``."""
+    first one that ends at or after ``seconds`` (by rank 0's clock, on
+    every rank of a ``team``)."""
     durations = []
     t_start = time.perf_counter()
     t_end = t_start + seconds
     i = 0
     now = t_start
-    while now < t_end:
+    while now < t_end if team is None else team.go(now < t_end):
         t0 = time.perf_counter()
         mix.request(i)
         now = time.perf_counter()
@@ -118,9 +152,12 @@ def window(mix, seconds: float) -> dict:
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", bench: dict | None = None,
-             cell_data: tuple | None = None, log=print) -> dict:
+             cell_data: tuple | None = None, log=print, team=None):
     """Everything but the checks for a card and for JAX: returns the
-    result object and the compared numbers with their limits."""
+    result object and the compared numbers with their limits. On a rank
+    of a ``team`` (a cell on several cards) it hands rank 0 its part
+    instead, where rank 0 puts the result together; ranks 1… return
+    None."""
     import torch
 
     from . import mixes, roofline
@@ -144,7 +181,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     marks.append(("program set-up", time.perf_counter()))
     mix.inputs(seed)
     marks.append(("inputs", time.perf_counter()))
-    n_warm = warm(mix, int(traffic["warm"]))
+    n_warm = warm(mix, int(traffic["warm"]), team=team)
     marks.append(("warm-up", time.perf_counter()))
     log("set-up by stage (s): " + ", ".join(
         f"{name} {b - a:.3f}" for (_, a), (name, b) in zip(marks, marks[1:])))
@@ -153,20 +190,23 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         k2 = {"costs": mix.k2_costs()}
     mix.reset()
     mix.sync()
+    if team is not None:
+        team.all(True)   # every rank has warmed up
     setup_s = time.perf_counter() - T_START
     caps0 = mix.captures()
     launches0 = mix.launches()
     rec = {"setup_s": setup_s, "trace": None}
     if trace:
         from torch.profiler import ProfilerActivity, profile
-        with Smi() as smi, profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA]) as prof:
-            rec.update(window(mix, seconds))
+        with Smi(int(cell["chips"])) as smi, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            rec.update(window(mix, seconds, team))
         summary = device_summary(prof, traffic["profile_kernels"])
         summary["smi"] = smi.samples(rec["t_start"], rec["t_end"])
         rec["trace"] = summary
     else:
-        rec.update(window(mix, seconds))
+        rec.update(window(mix, seconds, team))
     caps = mix.captures() - caps0
     launches = mix.launches() - launches0
     peak = torch.cuda.max_memory_allocated() if on_card else 0
@@ -182,6 +222,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                         + it * costs["ops_per_iteration"]
                         for it in mix.req_iters)
         rec["k2"] = k2
+    elif trace and traffic.get("roofline"):
+        rec["roofline"] = mix.roofline(launches)
     d = rec["durations"]
     third = max(1, len(d) // 3)
     log(f"request s: mean {sum(d) / len(d):.6f}, first third "
@@ -198,9 +240,28 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     verdict = mix.judge()
     log(f"judge ({time.perf_counter() - t0:.2f} s): " + ", ".join(
         f"{k} {v!r}" for k, v in verdict.items() if k != "numbers")
-        + " (u_gap_transient is reported, not compared)")
+        + (" (u_gap_transient is reported, not compared)"
+           if "u_gap_transient" in verdict else ""))
+    numbers = verdict["numbers"]
+    if team is not None:
+        card_id = None
+        if on_card:
+            i = torch.cuda.current_device()
+            card_id = [i, getattr(torch.cuda.get_device_properties(i),
+                                  "pci_bus_id", None)]
+        parts = team.gather({
+            "device": device, "card": card_id, "counts": rec["counts"],
+            "numbers": numbers,
+            "peak": peak, "found": forbidden_loaded(),
+            "agreement_us": team.go_us()})
+        if parts is None:
+            return None
+        for r, part in enumerate(parts):
+            log(f"rank {r}: " + json.dumps(part))
+        rec["counts"], numbers, peaks, found = merge(parts)
+        peak = max(peaks)
     checks = {k: {"value": v, "limit": limits[k]}
-              for k, v in verdict["numbers"].items()}
+              for k, v in numbers.items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     metrics = {}
     for m in metrics_of(bench, workload, trace):
@@ -226,6 +287,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             f"{sum(smi) / max(1, len(smi)):.3f}%")
     log(f"build_s {build_s:.3f}")
     device = {"memory_peak_bytes": peak}
+    if team is not None:
+        device["memory_peak_bytes_by_card"] = peaks
+        out["found"] = found
     if trace:
         device.update(busy_s=rec["trace"]["busy_s"],
                       window_s=rec["window_s"])
@@ -234,13 +298,241 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     return out
 
 
-def main(argv=None) -> int:
+def merge(parts: list) -> tuple:
+    """Rank 0's view of the ranks' parts (``run_cell``'s, in rank order):
+    ``(counts, numbers, peaks, found)``: each count summed over the ranks
+    but ``requests`` (rank 0's), each compared number the largest over the
+    ranks (a NaN wins), each card's memory peak, and the forbidden modules
+    any rank held."""
+    counts = {k: sum(p["counts"][k] for p in parts)
+              for k in parts[0]["counts"]}
+    counts["requests"] = parts[0]["counts"]["requests"]
+    numbers = {}
+    for k in parts[0]["numbers"]:
+        values = [p["numbers"][k] for p in parts]
+        numbers[k] = next((v for v in values if v != v), max(values))
+    return (counts, numbers, [p["peak"] for p in parts],
+            sorted(set().union(*(p["found"] for p in parts))))
+
+
+def _plain(value):
+    """A NumPy scalar as the Python number JSON takes."""
+    return value.item()
+
+
+class Team:
+    """The ranks of a cell on several cards, as the harness's agreements
+    see them: a gloo group of its own over ``store`` (a ``TCPStore`` that
+    rank 0 hosts), on the host and apart from the program's process
+    group."""
+
+    def __init__(self, rank: int, size: int, store):
+        import torch
+        import torch.distributed as dist
+        self.rank, self.size, self.store = rank, size, store
+        opts = dist.ProcessGroupGloo._Options()
+        opts._devices = [dist.ProcessGroupGloo.create_device(
+            hostname="127.0.0.1")]
+        opts._timeout = TEAM_TIMEOUT
+        self.pg = dist.ProcessGroupGloo(dist.PrefixStore("portbench", store),
+                                        rank, size, opts)
+        self.flag = torch.zeros(1, dtype=torch.int32)
+        self.go_s, self.go_n = 0.0, 0
+
+    def all(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on every rank."""
+        import torch.distributed as dist
+        self.flag[0] = int(flag)
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = dist.ReduceOp.MIN
+        self.pg.allreduce([self.flag], opts).wait()
+        return bool(self.flag[0])
+
+    def go(self, flag: bool) -> bool:
+        """Rank 0's ``flag``, on every rank: whether the next request of
+        the window runs."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        self.flag[0] = int(flag)
+        self.pg.broadcast([self.flag], dist.BroadcastOptions()).wait()
+        self.go_s += time.perf_counter() - t0
+        self.go_n += 1
+        return bool(self.flag[0])
+
+    def go_us(self) -> float:
+        """Mean µs of this rank's ``go`` calls."""
+        return 1e6 * self.go_s / max(1, self.go_n)
+
+    def gather(self, part: dict):
+        """On rank 0 every rank's ``part``, in rank order, each as JSON
+        gives it back; on ranks 1… hand rank 0 this rank's and return
+        None."""
+        if self.rank:
+            self.store.set(f"part{self.rank}", json.dumps(part,
+                                                          default=_plain))
+            return None
+        keys = [f"part{r}" for r in range(1, self.size)]
+        self.store.wait(keys, TEAM_TIMEOUT)
+        return [json.loads(json.dumps(part, default=_plain))] + \
+            [json.loads(self.store.get(k)) for k in keys]
+
+
+def _own_children() -> list:
+    """The pids of this process's children, from ``/proc``."""
+    me, kids = str(os.getpid()), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = f.read().rsplit(")", 1)[1].split()[1]
+        except (OSError, IndexError):
+            continue
+        if ppid == me:
+            kids.append(int(entry))
+    return kids
+
+
+class Ranks:
+    """Rank 0's side of a cell on ``chips`` cards: ranks 1… started as
+    fresh processes of this module, each in a session of its own (so that
+    what a rank starts ends with it), with ``torchrun``'s environment, and
+    watched: one that ends with a code other than 0 before ``join`` ends
+    the run at once, with no result, taking every process of the cell with
+    it."""
+
+    def __init__(self, argv: list, chips: int, device: str, log):
+        from torch.distributed import TCPStore
+        self.log = log
+        self.store = TCPStore("127.0.0.1", 0, chips, True,
+                              timeout=TEAM_TIMEOUT, wait_for_workers=False)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                          WORLD_SIZE=str(chips), RANK="0", LOCAL_RANK="0")
+        self.procs = []
+        self.done = threading.Event()
+        try:
+            for r in range(1, chips):
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "portbench.run", *argv, "--rank",
+                     str(r), "--store", str(self.store.port), "--device",
+                     device],
+                    cwd=ROOT, env=dict(os.environ, RANK=str(r),
+                                       LOCAL_RANK=str(r)),
+                    stdin=subprocess.DEVNULL, stdout=sys.stderr,
+                    start_new_session=True))
+                log(f"rank {r}: pid {self.procs[-1].pid}")
+        except BaseException:
+            self.stop()
+            raise
+        threading.Thread(target=self._watch, daemon=True).start()
+
+    def _watch(self) -> None:
+        while not self.done.wait(0.2):
+            for r, p in enumerate(self.procs, 1):
+                code = p.poll()
+                if code is not None and code != 0:
+                    self.log(f"portbench: rank {r} ended with code {code} "
+                             "(no result)")
+                    self.stop()
+                    for pid in _own_children():
+                        try:
+                            os.kill(pid, signal.SIGKILL)
+                            os.waitpid(pid, 0)
+                        except (ProcessLookupError, ChildProcessError):
+                            pass
+                    sys.stderr.flush()
+                    os._exit(1)
+
+    def join(self) -> None:
+        """Wait for ranks 1… to end; raise unless each ended with 0."""
+        self.done.set()
+        deadline = time.monotonic() + TEAM_TIMEOUT.total_seconds()
+        for r, p in enumerate(self.procs, 1):
+            code = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if code != 0:
+                raise RuntimeError(f"rank {r} ended with code {code}")
+
+    def stop(self) -> None:
+        """End every rank and what it started; wait for each."""
+        self.done.set()
+        for p in self.procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+
+
+def stderr_log(prefix: str = ""):
+    """A ``log`` that writes each line whole, in one write, so that the
+    lines of a cell's ranks, which share standard error, do not mix."""
+    def log(*a):
+        sys.stderr.write(prefix + " ".join(map(str, a)) + "\n")
+        sys.stderr.flush()
+    return log
+
+
+def lead(args, bench: dict, cell_data: tuple, device: str, log) -> dict:
+    """Rank 0 of a cell on several cards: start the others, run its own
+    share, put the result together and see every rank end with 0."""
+    chips = int(cell_data[0]["chips"])
+    ranks = Ranks(["--workload", args.workload, "--seed", str(args.seed),
+                   "--seconds", repr(args.seconds), "--trace",
+                   str(args.trace)], chips, device, log)
+    try:
+        team = Team(0, chips, ranks.store)
+        out = run_cell(args.workload, args.seed, args.seconds,
+                       bool(args.trace), "cuda:0" if device == "cuda"
+                       else "cpu", bench, cell_data, log, team)
+        log(f"go/stop agreement: {team.go_n} calls, "
+            f"{team.go_us():.3f} us each on rank 0")
+        ranks.join()
+    finally:
+        ranks.stop()
+    return out
+
+
+def follow(args, bench: dict, cell_data: tuple, device: str, log) -> int:
+    """Rank ``args.rank`` of a cell on several cards, started by rank 0:
+    it runs its share on its own card and hands rank 0 its part."""
+    if sys.platform.startswith("linux"):
+        import ctypes
+        ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    import torch
+    from torch.distributed import TCPStore
+    chips = int(cell_data[0]["chips"])
+    if device == "cuda":
+        torch.cuda.set_device(args.rank)
+    store = TCPStore("127.0.0.1", args.store, chips, False,
+                     timeout=TEAM_TIMEOUT)
+    team = Team(args.rank, chips, store)
+    run_cell(args.workload, args.seed, args.seconds, False,
+             f"cuda:{args.rank}" if device == "cuda" else "cpu", bench,
+             cell_data, log, team)
+    return 0
+
+
+def main(argv=None, device: str = "cuda") -> int:
+    """The command line; ``device`` ``"cpu"`` runs rank 0 on the CPU (the
+    tests' only)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # ranks 1… of a cell on several cards: given by rank 0 alone
+    p.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--store", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--device", choices=("cuda", "cpu"),
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if bool(args.rank) != (args.store is not None) \
+            or bool(args.rank) != (args.device is not None):
+        p.error("--rank, --store and --device come together, from rank 0")
+    device = args.device or device
     bench = load_json(ROOT / "BENCHMARK.json")
     cell_data = cell_files(bench, args.workload)
     chips = int(cell_data[0]["chips"])
@@ -250,25 +542,35 @@ def main(argv=None) -> int:
         os.environ[var] = "1"
 
     import torch
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+    if device == "cuda" and (not torch.cuda.is_available()
+                             or torch.cuda.device_count() < chips):
         print(f"portbench: the cell needs {chips} CUDA device(s); "
               f"available: {torch.cuda.is_available()}, count "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
               " (no result: the benchmark never runs on the CPU)",
               file=sys.stderr)
         return 2
-    from .trace import card
-    log = lambda *a: print(*a, file=sys.stderr, flush=True)
-    out = run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
-                   "cuda:0", bench, cell_data, log)
-    found = sorted({name.split(".")[0] for name in list(sys.modules)}
-                   & set(FORBIDDEN))
+    if args.rank:
+        return follow(args, bench, cell_data, device,
+                      stderr_log(f"[rank {args.rank}] "))
+    log = stderr_log()
+    if chips == 1:
+        out = run_cell(args.workload, args.seed, args.seconds,
+                       bool(args.trace), "cuda:0" if device == "cuda"
+                       else "cpu", bench, cell_data, log)
+        found = forbidden_loaded()
+    else:
+        out = lead(args, bench, cell_data, device, log)
+        found = sorted(set(forbidden_loaded()) | set(out.pop("found")))
     if found:
-        print(f"portbench: {found} loaded in the measuring process (no "
+        print(f"portbench: {found} loaded in a process of the cell (no "
               "result)", file=sys.stderr)
         return 3
+    from .trace import card
     checks = out.pop("checks")
-    result = dict(out, device=dict(card(chips), **out["device"]))
+    rec = card(chips) if device == "cuda" else \
+        {"platform": "cpu", "kind": "cpu", "count": chips}
+    result = dict(out, device=dict(rec, **out["device"]))
     result["checks"] = checks
     for name, c in checks.items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",

@@ -129,7 +129,8 @@ def test_control_reads_above_the_program(workload):
 @pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
 def test_every_name_has_its_files(workload):
     cell, cfg, traffic, limits = run.cell_files(BENCH, workload)
-    assert traffic["kind"] in mixes.KINDS
+    assert traffic["kind"] in mixes.KINDS \
+        or (mixes.KINDS_DIR / f"{traffic['kind']}.py").is_file()
     assert limits
     for trace in (False, True):
         for m in run.metrics_of(BENCH, workload, trace):

@@ -1,7 +1,8 @@
 """What a traced run reads besides the host clock.
 
-- ``Smi``: one ``nvidia-smi`` process sampling the card's utilisation
-  every 100 ms over the window. The card counts a sample period busy while
+- ``Smi``: one ``nvidia-smi`` process sampling the utilisation of every
+  card of the cell every 100 ms over the window, the cards' readings
+  pooled (their mean is the mean over the cards). The card counts a sample period busy while
   any kernel runs, kernels inside CUDA-graph conditional bodies too, which
   the profiler does not see. Each reading covers the sample period before
   it (up to a second on this card), so readings that arrive in the
@@ -11,7 +12,8 @@
   to the device's busy seconds (the union of every kernel, copy and set
   on the card), seconds by kernel name, and the longest idle gaps named by
   what the host was doing in them.
-- ``card``: the card's name and power limit.
+- ``card``: the card's name and power limit (the lowest of the cell's
+  cards).
 """
 from __future__ import annotations
 
@@ -22,18 +24,25 @@ import time
 import torch
 
 
-def _smi(query: str) -> list:
+def _cards(count: int) -> str:
+    """``nvidia-smi -i``'s list of the cell's cards: ``0``, ``0,1,2,3``."""
+    return ",".join(str(i) for i in range(count))
+
+
+def _smi(query: str, count: int = 1) -> list:
+    """One field's value on each of the first ``count`` cards."""
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                          "--format=csv,noheader,nounits", "-i", "0"],
+                          "--format=csv,noheader,nounits", "-i",
+                          _cards(count)],
                          capture_output=True, text=True, timeout=30)
-    return [s.strip() for s in out.stdout.strip().split(",")]
+    return [s.strip() for s in out.stdout.strip().splitlines()]
 
 
 def card(count: int) -> dict:
     """The contract's ``device`` record (without the peak), with the
-    power limit in watts beside it."""
+    power limit in watts beside it: the lowest of the ``count`` cards'."""
     try:
-        limit = float(_smi("power.limit")[0])
+        limit = min(float(v) for v in _smi("power.limit", count))
     except (OSError, ValueError, subprocess.SubprocessError):
         limit = None
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -41,16 +50,21 @@ def card(count: int) -> dict:
 
 
 class Smi:
-    """``nvidia-smi --query-gpu=utilization.gpu -lms 100`` over a window:
-    ``samples(t0, t1)`` are the readings that arrived between the host
-    clock's ``t0 + lag`` and ``t1``."""
+    """``nvidia-smi --query-gpu=utilization.gpu -lms 100`` on the first
+    ``count`` cards over a window: ``samples(t0, t1)`` are the readings,
+    every card's, that arrived between the host clock's ``t0 + lag`` and
+    ``t1``."""
 
     LAG_S = 1.0
+
+    def __init__(self, count: int = 1):
+        self.count = count
 
     def __enter__(self):
         self.proc = subprocess.Popen(
             ["nvidia-smi", "--query-gpu=utilization.gpu",
-             "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+             "--format=csv,noheader,nounits", "-lms", "100", "-i",
+             _cards(self.count)],
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
         self.readings = []
         self.reader = threading.Thread(target=self._read, daemon=True)
